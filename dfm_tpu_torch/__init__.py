@@ -1,0 +1,14 @@
+"""dfm_tpu_torch: the PyTorch/CUDA port of dfm_tpu.
+
+Dynamic factor models estimated by EM with an information-form Kalman
+filter, on an NVIDIA H100 through hand-written CUDA kernels (``csrc/``,
+built at first use by ``kernels``), or on the CPU through each kernel's
+plain-torch version.  The package imports neither JAX nor ``dfm_tpu``.
+"""
+
+from .api import DynamicFactorModel, FitResult, TorchBackend, fit, forecast
+from .kernels import LAUNCHES
+from .ssm.params import SSMParams
+
+__all__ = ["DynamicFactorModel", "FitResult", "TorchBackend", "fit",
+           "forecast", "SSMParams", "LAUNCHES"]

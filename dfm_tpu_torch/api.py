@@ -1,0 +1,237 @@
+"""Public API: ``DynamicFactorModel`` + ``fit(model, Y, backend=...)``.
+
+The PyTorch twin of ``dfm_tpu.api`` for plain DFM fits:
+standardize -> PCA init -> chunked EM -> reporting smooth, and
+``forecast``.  ``TorchBackend`` runs on CUDA unless the caller asks for
+the CPU (``device="cpu"``), where every kernel's plain version runs
+instead; a CUDA backend on a machine without a card raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .backends import cpu_ref
+from .estim.em import EMConfig, run_em_chunked
+from .estim.init import pca_init_device, standardize_device
+from .ops.precision import default_compute_dtype, highest_precision
+from .ssm.info_filter import smooth
+from .ssm.params import SSMParams
+from .utils.data import (Standardizer, build_mask, standardize,
+                         standardize_onepass, validate_panel)
+
+__all__ = ["DynamicFactorModel", "FitResult", "TorchBackend", "fit",
+           "forecast"]
+
+# Gate of the device-side standardize and PCA init (element count).
+_DEVICE_INIT_MIN_SIZE = 4_000_000
+_FILTERS = ("auto", "dense", "info", "ss", "pit", "pit_qr", "lowrank")
+
+
+@dataclasses.dataclass(frozen=True)
+class DynamicFactorModel:
+    """Model description (what to estimate), independent of any backend.
+
+    dynamics: "static" (f_t iid N(0, I) — A = 0, Q = I fixed) or
+              "ar1" (factor VAR(1), A and Q estimated).
+    """
+
+    n_factors: int
+    dynamics: str = "ar1"
+    standardize: bool = True
+    estimate_init: bool = False
+
+    def __post_init__(self):
+        if self.dynamics not in ("static", "ar1"):
+            raise ValueError(f"unknown dynamics {self.dynamics!r}")
+        if self.n_factors < 1:
+            raise ValueError("n_factors must be >= 1")
+
+    @property
+    def estimate_A(self) -> bool:
+        return self.dynamics == "ar1"
+
+    @property
+    def estimate_Q(self) -> bool:
+        return self.dynamics == "ar1"
+
+
+@dataclasses.dataclass
+class FitResult:
+    """Everything a user needs after estimation, in NumPy float64."""
+
+    params: cpu_ref.SSMParams          # in standardized units
+    logliks: np.ndarray                # per-iteration loglik at entry params
+    factors: np.ndarray                # (T, k) smoothed factor means
+    factor_cov: np.ndarray             # (T, k, k) smoothed covariances
+    converged: bool
+    n_iters: int
+    standardizer: Optional[Standardizer]
+    model: DynamicFactorModel
+    backend: str
+    history: list                      # per-iter dicts {iter, loglik, secs}
+    filter: Optional[str] = None       # resolved in-loop filter engine
+
+    @property
+    def loglik(self) -> float:
+        return float(self.logliks[-1]) if len(self.logliks) else float("nan")
+
+
+class TorchBackend:
+    """PyTorch backend.
+
+    device: "cuda" (the default: the hand-written kernels) or "cpu" (every
+    kernel's plain-torch version).  dtype: compute dtype, None for float32
+    on CUDA and float64 on the CPU.  filter: "auto" (dense below N = 32,
+    "ss" for unmasked panels at N >= 512, info otherwise — the JAX
+    package's rule; "ss" raises until its engine is ported), "dense" or
+    "info".  fused_chunk: EM iterations per device chunk between host
+    reads.  device_init: standardize and PCA-init on the device ("auto":
+    when N*T >= 4e6).
+    """
+
+    name = "torch"
+
+    def __init__(self, device="cuda", dtype=None, filter: str = "auto",
+                 fused_chunk: int = 8, device_init="auto"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "TorchBackend(device='cuda'): no CUDA device is available; "
+                "pass device='cpu' to run the plain-torch path")
+        self.dtype = (default_compute_dtype(self.device) if dtype is None
+                      else dtype)
+        if filter not in _FILTERS:
+            raise ValueError(f"unknown filter {filter!r}")
+        self.filter = filter
+        self.fused_chunk = max(1, int(fused_chunk))
+        self.device_init = device_init
+
+    def _use_device_init(self, size: int) -> bool:
+        if self.device_init == "auto":
+            return size >= _DEVICE_INIT_MIN_SIZE
+        return bool(self.device_init)
+
+    def _filter_for(self, N: int, masked: bool = False) -> str:
+        if self.filter == "auto":
+            if N < 32:
+                return "dense"
+            if not masked and N >= 512:
+                return "ss"
+            return "info"
+        return self.filter
+
+    def tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=self.dtype,
+                               device=self.device).contiguous()
+
+    def prep_standardize(self, Y: np.ndarray, model):
+        """Device-side standardization for large fully-observed panels, or
+        ``None`` when the host path should run.  Returns
+        ``(Yz tensor, Standardizer)``."""
+        if not model.standardize or not self._use_device_init(Y.size):
+            return None
+        if not bool(np.isfinite(Y).all()):
+            return None
+        Yz, stats = standardize_device(self.tensor(Y))
+        stats = stats.to("cpu", torch.float64).numpy()
+        return Yz, Standardizer(stats[0], stats[1])
+
+    def default_init(self, Yt: torch.Tensor, Yz, mask, model):
+        """PCA warm start: on the device for large panels (``Yt`` is the
+        zero-filled device panel), else the NumPy f64 initializer on the
+        host panel ``Yz``."""
+        static = model.dynamics == "static"
+        if self._use_device_init(Yt.numel()):
+            return pca_init_device(Yt, model.n_factors, static=static)
+        return cpu_ref.pca_init(Yz, model.n_factors, static=static,
+                                mask=mask)
+
+
+def fit(model: DynamicFactorModel, Y: np.ndarray,
+        mask: Optional[np.ndarray] = None,
+        backend: Optional[TorchBackend] = None,
+        max_iters: Optional[int] = None, tol: Optional[float] = None,
+        init=None) -> FitResult:
+    """Estimate a DFM: standardize -> PCA init -> EM -> smooth.
+
+    Y    : (T, N) panel; NaNs mark missing observations.
+    mask : optional explicit {0,1} mask, combined with the NaN pattern.
+    backend : a ``TorchBackend``; None means ``TorchBackend()`` (CUDA).
+    max_iters / tol : EM budget and relative-loglik stop (default 50 and
+        1e-6).
+    init : NumPy warm-start params (anything with Lam, A, Q, R, mu0, P0);
+        None runs the PCA init.
+    """
+    b = TorchBackend() if backend is None else backend
+    with highest_precision():
+        return _fit_impl(model, Y, mask, b, max_iters, tol, init)
+
+
+def _fit_impl(model, Y, mask, b: TorchBackend, max_iters, tol, init):
+    max_iters = 50 if max_iters is None else max_iters
+    tol = 1e-6 if tol is None else tol
+    Y = np.asarray(Y)
+    if Y.ndim != 2:
+        raise ValueError(f"Y must be (T, N); got shape {Y.shape}")
+    T, N = Y.shape
+    if model.n_factors > min(T, N):
+        raise ValueError(
+            f"n_factors={model.n_factors} exceeds min(T, N)={min(T, N)}")
+    if T < 2 and model.dynamics == "ar1":
+        raise ValueError("ar1 dynamics needs T >= 2 (the M-step divides by T-1)")
+    validate_panel(Y, mask, check_variance=model.standardize)
+
+    dev_prep = b.prep_standardize(Y, model) if mask is None else None
+    Yz = Wm = None
+    std: Optional[Standardizer] = None
+    if dev_prep is not None:
+        Yt, std = dev_prep
+    else:
+        Y = np.asarray(Y, dtype=np.float64)
+        W = build_mask(Y, mask)
+        any_missing = bool((W == 0).any())
+        if model.standardize:
+            if not any_missing and Y.size >= _DEVICE_INIT_MIN_SIZE:
+                out_dt = torch.empty((), dtype=b.dtype).numpy().dtype
+                Y, std = standardize_onepass(Y, out_dtype=out_dt)
+            else:
+                Y, std = standardize(Y, mask=W if any_missing else None)
+        Wm = W if any_missing else None
+        Yz = Y if not any_missing else np.where(W > 0, np.nan_to_num(Y), 0.0)
+        Yt = b.tensor(Yz)
+    mt = b.tensor(Wm) if Wm is not None else None
+    if init is None:
+        init = b.default_init(Yt, Yz, Wm, model)
+    flt = b._filter_for(N, mt is not None)
+    cfg = EMConfig(estimate_A=model.estimate_A, estimate_Q=model.estimate_Q,
+                   estimate_init=model.estimate_init, filter=flt)
+    p, lls, converged, _, secs = run_em_chunked(
+        Yt, mt, SSMParams.from_numpy(init, dtype=b.dtype, device=b.device),
+        cfg, max_iters, tol, b.fused_chunk)
+    x_sm, P_sm = smooth(Yt, p, mt, dense=(flt == "dense"))
+    history = [{"iter": i, "loglik": float(ll), "secs": s}
+               for i, (ll, s) in enumerate(zip(lls, secs))]
+    return FitResult(params=p.to_numpy(), logliks=np.asarray(lls),
+                     factors=x_sm.to("cpu", torch.float64).numpy(),
+                     factor_cov=P_sm.to("cpu", torch.float64).numpy(),
+                     converged=bool(converged), n_iters=len(lls),
+                     standardizer=std, model=model, backend=b.name,
+                     history=history, filter=flt)
+
+
+def forecast(result: FitResult, horizon: int):
+    """h-step-ahead forecasts in ORIGINAL data units (de-standardized).
+
+    Returns (y_fore (h, N), f_fore (h, k)), iterating the factor dynamics
+    from the last smoothed state.
+    """
+    f, y, _ = cpu_ref.forecast(result.params, result.factors[-1],
+                               result.factor_cov[-1], horizon)
+    if result.standardizer is not None:
+        y = result.standardizer.inverse(y)
+    return y, f

@@ -1,0 +1,306 @@
+// K4: the information-form filter scan (forward) and the RTS smoother
+// (backward), each a whole T loop in one launch.
+//
+// Forward replaces dfm_tpu/ssm/info_filter.py:info_scan (line 104).  Per
+// step, from the predicted (x, P):
+//   Lp = chol(sym(P) + jitter I);  G = I + Lp' C_t Lp;  Lg = chol(sym(G))
+//   (no jitter: G >= I);  P_f = sym(Lp (Lg Lg')^{-1} Lp');
+//   x_f = x + P_f (b_t - C_t x);  x <- A x_f;  P <- sym(A P_f A' + Q)
+// and it emits x_pred, P_pred, x_filt, P_filt and log|G| = 2 sum log diag Lg.
+//
+// Backward replaces dfm_tpu/ssm/kalman.py:rts_smoother (line 84).  Per step
+// t = T-2 .. 0:  J_t = ((chol(sym(P_pred,t+1) + jitter I) solve A P_filt,t))'
+//   x_s = x_f + J (x_next - x_pred,t+1);
+//   P_s = sym(P_f + J (P_next - P_pred,t+1) J');  P_lag,t+1 = P_next J'
+// with P_lag[0] = 0 and the last step's smoothed moments the filtered ones.
+//
+// Bound on the H100: neither bytes nor operations.  Each pass moves ~0.45
+// MB and does ~13 k^3 flops a step (~6.5 MFLOP at T = 500, k = 10), a few
+// microseconds at the card's rates; but step t+1 needs step t, so the
+// pass is a chain of T dependent k x k factorizations, solves and products,
+// and its floor is T times the latency of one step's dependent chain.
+//
+// Design: one warp per problem lane (one lane here), all k x k matrices in
+// shared memory (row-major, leading dimension DFM_KMAX + 1 so that lanes
+// reading different rows hit different banks).  Lane j computes column j
+// of each product and solves for column j of each right-hand side; the
+// Cholesky factorization is column by column, lane i updating row i.
+// __syncwarp() separates the phases.  k <= DFM_KMAX.
+#include "common.cuh"
+
+constexpr int LD = DFM_KMAX + 1;
+
+template <typename T>
+using SMat = T (*)[LD];
+
+// C = op(A) op(B); lane j computes column j.  C aliases neither A nor B.
+template <typename T, bool TA, bool TB>
+__device__ void mm(SMat<T> C, SMat<T> A, SMat<T> B, int k) {
+  const int j = threadIdx.x;
+  if (j < k) {
+    for (int i = 0; i < k; ++i) {
+      T s = T(0);
+      for (int l = 0; l < k; ++l)
+        s += (TA ? A[l][i] : A[i][l]) * (TB ? B[j][l] : B[l][j]);
+      C[i][j] = s;
+    }
+  }
+  __syncwarp();
+}
+
+// In-place Cholesky of the lower triangle of W (which already holds
+// sym(M) + jitter I); the strict upper triangle is zeroed.  No clamp: a
+// negative pivot gives NaN, as jnp.linalg.cholesky does.
+template <typename T>
+__device__ void chol_inplace(SMat<T> W, int k) {
+  const int lane = threadIdx.x;
+  for (int p = 0; p < k; ++p) {
+    const T d = dfm_sqrt(W[p][p]);
+    __syncwarp();
+    if (lane == p) W[p][p] = d;
+    else if (lane > p && lane < k) W[lane][p] /= d;
+    __syncwarp();
+    if (lane > p && lane < k) {
+      const T ljp = W[lane][p];
+      for (int i = lane; i < k; ++i) W[i][lane] -= W[i][p] * ljp;
+    }
+    __syncwarp();
+  }
+  if (lane < k)
+    for (int i = 0; i < lane; ++i) W[i][lane] = T(0);
+  __syncwarp();
+}
+
+// X = (L L')^{-1} op(B); lane j solves for column j.  X may alias B when
+// op is the identity.
+template <typename T, bool TB>
+__device__ void chol_solve_cols(SMat<T> X, SMat<T> L, SMat<T> B, int k) {
+  const int j = threadIdx.x;
+  if (j < k) {
+    for (int i = 0; i < k; ++i) {
+      T s = TB ? B[j][i] : B[i][j];
+      for (int m = 0; m < i; ++m) s -= L[i][m] * X[m][j];
+      X[i][j] = s / L[i][i];
+    }
+    for (int i = k - 1; i >= 0; --i) {
+      T s = X[i][j];
+      for (int m = i + 1; m < k; ++m) s -= L[m][i] * X[m][j];
+      X[i][j] = s / L[i][i];
+    }
+  }
+  __syncwarp();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32)
+info_scan_kernel(const T* __restrict__ b, const T* __restrict__ C,
+                 int c_stride, const T* __restrict__ A,
+                 const T* __restrict__ Q, const T* __restrict__ mu0,
+                 const T* __restrict__ P0, T* __restrict__ x_pred,
+                 T* __restrict__ P_pred, T* __restrict__ x_filt,
+                 T* __restrict__ P_filt, T* __restrict__ logdetG, int T_,
+                 int k) {
+  __shared__ T P[DFM_KMAX][LD], Lp[DFM_KMAX][LD], Cm[DFM_KMAX][LD],
+      CL[DFM_KMAX][LD], G[DFM_KMAX][LD], Lg[DFM_KMAX][LD], X[DFM_KMAX][LD],
+      Pf[DFM_KMAX][LD], Am[DFM_KMAX][LD], Qm[DFM_KMAX][LD];
+  __shared__ T x[DFM_KMAX], u[DFM_KMAX], xf[DFM_KMAX];
+  const int lane = threadIdx.x;
+  const int kk = k * k;
+  const T jit = dfm_jitter<T>();
+  for (int e = lane; e < kk; e += 32) {
+    const int i = e / k, j = e % k;
+    Am[i][j] = A[e];
+    Qm[i][j] = Q[e];
+    P[i][j] = P0[e];
+  }
+  if (lane < k) x[lane] = mu0[lane];
+  __syncwarp();
+  for (int t = 0; t < T_; ++t) {
+    const T* Ct = C + (size_t)t * c_stride;
+    for (int e = lane; e < kk; e += 32) {
+      const int i = e / k, j = e % k;
+      P_pred[(size_t)t * kk + e] = P[i][j];
+      Cm[i][j] = Ct[e];
+      Lp[i][j] = T(0.5) * (P[i][j] + P[j][i]) + (i == j ? jit : T(0));
+    }
+    if (lane < k) x_pred[(size_t)t * k + lane] = x[lane];
+    __syncwarp();
+    chol_inplace<T>(Lp, k);
+    mm<T, false, false>(CL, Cm, Lp, k);                 // C_t Lp
+    mm<T, true, false>(G, Lp, CL, k);                   // Lp' C_t Lp
+    for (int e = lane; e < kk; e += 32) {
+      const int i = e / k, j = e % k;
+      const T d = i == j ? T(1) : T(0);
+      Lg[i][j] = T(0.5) * ((d + G[i][j]) + (d + G[j][i]));
+    }
+    __syncwarp();
+    chol_inplace<T>(Lg, k);
+    chol_solve_cols<T, true>(X, Lg, Lp, k);             // G^{-1} Lp'
+    mm<T, false, false>(G, Lp, X, k);                   // Lp G^{-1} Lp'
+    for (int e = lane; e < kk; e += 32) {
+      const int i = e / k, j = e % k;
+      Pf[i][j] = T(0.5) * (G[i][j] + G[j][i]);
+    }
+    if (lane < k) {
+      T s = T(0);
+      for (int l = 0; l < k; ++l) s += Cm[lane][l] * x[l];
+      u[lane] = b[(size_t)t * k + lane] - s;
+    }
+    __syncwarp();
+    if (lane < k) {
+      T s = T(0);
+      for (int l = 0; l < k; ++l) s += Pf[lane][l] * u[l];
+      xf[lane] = x[lane] + s;
+      x_filt[(size_t)t * k + lane] = xf[lane];
+    }
+    for (int e = lane; e < kk; e += 32)
+      P_filt[(size_t)t * kk + e] = Pf[e / k][e % k];
+    if (lane == 0) {
+      T s = T(0);
+      for (int i = 0; i < k; ++i) s += dfm_log(Lg[i][i]);
+      logdetG[t] = T(2) * s;
+    }
+    __syncwarp();
+    if (lane < k) {
+      T s = T(0);
+      for (int l = 0; l < k; ++l) s += Am[lane][l] * xf[l];
+      x[lane] = s;
+    }
+    mm<T, false, false>(CL, Am, Pf, k);                 // A P_f
+    mm<T, false, true>(G, CL, Am, k);                   // A P_f A'
+    for (int e = lane; e < kk; e += 32) {
+      const int i = e / k, j = e % k;
+      P[i][j] = T(0.5) * ((G[i][j] + Qm[i][j]) + (G[j][i] + Qm[j][i]));
+    }
+    __syncwarp();
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32)
+rts_smoother_kernel(const T* __restrict__ x_pred,
+                    const T* __restrict__ P_pred,
+                    const T* __restrict__ x_filt,
+                    const T* __restrict__ P_filt, const T* __restrict__ A,
+                    T* __restrict__ x_sm, T* __restrict__ P_sm,
+                    T* __restrict__ P_lag, int T_, int k) {
+  __shared__ T Am[DFM_KMAX][LD], Lc[DFM_KMAX][LD], Ppn[DFM_KMAX][LD],
+      Pft[DFM_KMAX][LD], Z[DFM_KMAX][LD], D[DFM_KMAX][LD], T1[DFM_KMAX][LD],
+      T2[DFM_KMAX][LD], Pn[DFM_KMAX][LD];
+  __shared__ T xn[DFM_KMAX], dx[DFM_KMAX], xs[DFM_KMAX];
+  const int lane = threadIdx.x;
+  const int kk = k * k;
+  const T jit = dfm_jitter<T>();
+  const size_t last = (size_t)(T_ - 1);
+  for (int e = lane; e < kk; e += 32) {
+    const int i = e / k, j = e % k;
+    Am[i][j] = A[e];
+    Pn[i][j] = P_filt[last * kk + e];
+    P_sm[last * kk + e] = P_filt[last * kk + e];
+    P_lag[e] = T(0);
+  }
+  if (lane < k) {
+    xn[lane] = x_filt[last * k + lane];
+    x_sm[last * k + lane] = xn[lane];
+  }
+  __syncwarp();
+  for (int t = T_ - 2; t >= 0; --t) {
+    const T* Pp1 = P_pred + (size_t)(t + 1) * kk;
+    for (int e = lane; e < kk; e += 32) {
+      const int i = e / k, j = e % k;
+      Ppn[i][j] = Pp1[e];
+      Pft[i][j] = P_filt[(size_t)t * kk + e];
+    }
+    __syncwarp();
+    for (int e = lane; e < kk; e += 32) {
+      const int i = e / k, j = e % k;
+      Lc[i][j] = T(0.5) * (Ppn[i][j] + Ppn[j][i]) + (i == j ? jit : T(0));
+      D[i][j] = Pn[i][j] - Ppn[i][j];
+    }
+    if (lane < k) dx[lane] = xn[lane] - x_pred[(size_t)(t + 1) * k + lane];
+    __syncwarp();
+    chol_inplace<T>(Lc, k);
+    mm<T, false, false>(Z, Am, Pft, k);                 // A P_f,t
+    chol_solve_cols<T, false>(Z, Lc, Z, k);             // Z = J_t'
+    if (lane < k) {
+      T s = T(0);
+      for (int l = 0; l < k; ++l) s += Z[l][lane] * dx[l];
+      xs[lane] = x_filt[(size_t)t * k + lane] + s;
+    }
+    mm<T, true, false>(T1, Z, D, k);                    // J D
+    mm<T, false, false>(T2, T1, Z, k);                  // J D J'
+    mm<T, false, false>(T1, Pn, Z, k);                  // P_next J'
+    for (int e = lane; e < kk; e += 32) {
+      const int i = e / k, j = e % k;
+      P_lag[(size_t)(t + 1) * kk + e] = T1[i][j];
+      Pn[i][j] = T(0.5) * ((Pft[i][j] + T2[i][j]) + (Pft[j][i] + T2[j][i]));
+    }
+    if (lane < k) {
+      xn[lane] = xs[lane];
+      x_sm[(size_t)t * k + lane] = xs[lane];
+    }
+    __syncwarp();
+    for (int e = lane; e < kk; e += 32)
+      P_sm[(size_t)t * kk + e] = Pn[e / k][e % k];
+  }
+}
+
+template <typename T>
+static int launch_scan(const T* b, const T* C, int c_stride, const T* A,
+                       const T* Q, const T* mu0, const T* P0, T* x_pred,
+                       T* P_pred, T* x_filt, T* P_filt, T* logdetG, int T_,
+                       int k, cudaStream_t stream) {
+  if (k < 1 || k > DFM_KMAX) return (int)cudaErrorInvalidValue;
+  if (T_ > 0)
+    info_scan_kernel<T><<<1, 32, 0, stream>>>(b, C, c_stride, A, Q, mu0, P0,
+                                              x_pred, P_pred, x_filt, P_filt,
+                                              logdetG, T_, k);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_rts(const T* x_pred, const T* P_pred, const T* x_filt,
+                      const T* P_filt, const T* A, T* x_sm, T* P_sm,
+                      T* P_lag, int T_, int k, cudaStream_t stream) {
+  if (k < 1 || k > DFM_KMAX) return (int)cudaErrorInvalidValue;
+  if (T_ > 0)
+    rts_smoother_kernel<T><<<1, 32, 0, stream>>>(x_pred, P_pred, x_filt,
+                                                 P_filt, A, x_sm, P_sm, P_lag,
+                                                 T_, k);
+  return (int)cudaGetLastError();
+}
+
+extern "C" {
+int info_scan_f32(const float* b, const float* C, int c_stride,
+                  const float* A, const float* Q, const float* mu0,
+                  const float* P0, float* x_pred, float* P_pred,
+                  float* x_filt, float* P_filt, float* logdetG, int T, int k,
+                  void* stream) {
+  return launch_scan<float>(b, C, c_stride, A, Q, mu0, P0, x_pred, P_pred,
+                            x_filt, P_filt, logdetG, T, k,
+                            (cudaStream_t)stream);
+}
+int info_scan_f64(const double* b, const double* C, int c_stride,
+                  const double* A, const double* Q, const double* mu0,
+                  const double* P0, double* x_pred, double* P_pred,
+                  double* x_filt, double* P_filt, double* logdetG, int T,
+                  int k, void* stream) {
+  return launch_scan<double>(b, C, c_stride, A, Q, mu0, P0, x_pred, P_pred,
+                             x_filt, P_filt, logdetG, T, k,
+                             (cudaStream_t)stream);
+}
+int rts_smoother_f32(const float* x_pred, const float* P_pred,
+                     const float* x_filt, const float* P_filt, const float* A,
+                     float* x_sm, float* P_sm, float* P_lag, int T, int k,
+                     void* stream) {
+  return launch_rts<float>(x_pred, P_pred, x_filt, P_filt, A, x_sm, P_sm,
+                           P_lag, T, k, (cudaStream_t)stream);
+}
+int rts_smoother_f64(const double* x_pred, const double* P_pred,
+                     const double* x_filt, const double* P_filt,
+                     const double* A, double* x_sm, double* P_sm,
+                     double* P_lag, int T, int k, void* stream) {
+  return launch_rts<double>(x_pred, P_pred, x_filt, P_filt, A, x_sm, P_sm,
+                            P_lag, T, k, (cudaStream_t)stream);
+}
+}

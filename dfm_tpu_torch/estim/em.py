@@ -1,0 +1,334 @@
+"""EM estimation for DFMs in PyTorch: E-step, closed-form M-step, and the
+chunked driver.
+
+The twin of ``dfm_tpu.estim.em`` for the ``dense`` and ``info`` engines.
+The masked per-series M-step rows are kernel K3 (``csrc/mstep_rows.cu``)
+on CUDA tensors, with ``mstep_rows_plain`` beside it; the unmasked rows
+are a GEMM plus one k x k solve and stay plain torch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..ops.linalg import solve_psd, sym
+from ..ops.precision import highest_precision
+from ..ssm.info_filter import info_filter
+from ..ssm.kalman import kalman_filter, rts_smoother
+from ..ssm.params import SmootherResult, SSMParams
+
+__all__ = ["EMConfig", "em_step", "em_fit_scan", "run_em_chunked",
+           "em_progress", "noise_floor_for", "moments", "moment_sums",
+           "mstep_rows", "mstep_rows_plain", "mstep_dynamics",
+           "mstep_dynamics_sums", "cfg_hypers"]
+
+# Engines of the JAX package that this package does not have yet, with the
+# ROADMAP item that ports each.
+_NOT_PORTED = {
+    "ss": "ROADMAP Queue 2 K5 (the steady-state engine, next in Queue 1)",
+    "pit": "ROADMAP Queue 2 K8 (Queue 1, 'Other engines')",
+    "pit_qr": "ROADMAP Queue 2 K7 + K8 (Queue 1, 'Other engines')",
+    "lowrank": "ROADMAP Queue 2 K9 (Queue 1, 'Other engines')",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class EMConfig:
+    """EM switches.
+
+    filter: "dense" (N x N innovation covariance, the small-N engine) or
+    "info" (information form, k x k scan; the N-scalable engine).  The JAX
+    package's other engines raise ``NotImplementedError`` naming the
+    ROADMAP item that ports them.
+
+    q_scale / r_scale / lam_ridge are the tuned M-step hypers: Q <- q_scale
+    Q, R <- max(r_scale R, r_floor), and a ridge on the loading normal
+    equations.  At the defaults the M-step is plain EM.
+    """
+    estimate_A: bool = True
+    estimate_Q: bool = True
+    estimate_init: bool = False
+    r_floor: float = 1e-6
+    filter: str = "dense"
+    noise_floor_mult: float = 100.0
+    q_scale: float = 1.0
+    r_scale: float = 1.0
+    lam_ridge: float = 0.0
+
+    def __post_init__(self):
+        if self.filter in _NOT_PORTED:
+            raise NotImplementedError(
+                f"filter={self.filter!r} is not ported to dfm_tpu_torch yet: "
+                f"{_NOT_PORTED[self.filter]}")
+        if self.filter not in ("dense", "info"):
+            raise ValueError(f"unknown filter {self.filter!r}")
+
+    def e_step(self, Y, mask, p):
+        """Filter + RTS smoother under the configured engine: (kf, sm)."""
+        ff = kalman_filter if self.filter == "dense" else info_filter
+        kf = ff(Y, p, mask=mask)
+        return kf, rts_smoother(kf, p)
+
+
+def moments(sm: SmootherResult):
+    """Smoothed second moments: (EffT (T,k,k), cross (T-1,k,k))."""
+    x, P, Pl = sm.x_sm, sm.P_sm, sm.P_lag
+    EffT = P + torch.einsum("ti,tj->tij", x, x)
+    cross = Pl[1:] + torch.einsum("ti,tj->tij", x[1:], x[:-1])
+    return EffT, cross
+
+
+def moment_sums(sm: SmootherResult):
+    """Unmasked M-step moment sums in matmul form:
+    (S_ff, S_ff_lag, S_ff_cur, S_cross)."""
+    x, P, Pl = sm.x_sm, sm.P_sm, sm.P_lag
+    S_ff = P.sum(0) + x.T @ x
+    last = P[-1] + torch.outer(x[-1], x[-1])
+    first = P[0] + torch.outer(x[0], x[0])
+    S_cross = Pl[1:].sum(0) + x[1:].T @ x[:-1]
+    return S_ff, S_ff - last, S_ff - first, S_cross
+
+
+def mstep_rows_plain(Y, mask, Ef, EffT, P_sm, r_floor: float,
+                     lam_ridge=None):
+    """Plain-torch masked M-step rows: (Lam (N, k), R (N,))."""
+    dtype = Y.dtype
+    k = Ef.shape[1]
+    eye = torch.eye(k, dtype=dtype, device=Y.device)
+    W = mask.to(dtype)
+    Yz = torch.where(W > 0, torch.nan_to_num(Y), torch.zeros_like(Y))
+    S_yf_i = torch.einsum("ti,tk->ik", Yz, Ef)               # (N, k)
+    S_ff_i = torch.einsum("ti,tkl->ikl", W, EffT)            # (N, k, k)
+    never = (W.sum(0) == 0)[:, None, None]
+    S_ff_i = torch.where(never, eye[None], S_ff_i)
+    if lam_ridge is not None:
+        S_ff_i = S_ff_i + lam_ridge * eye[None]
+    Lam = solve_psd(S_ff_i, S_yf_i)
+    counts = torch.clamp(W.sum(0), min=1.0)
+    resid_sq = torch.einsum("ti,ti->i", W, (Yz - Ef @ Lam.T) ** 2)
+    PV = torch.einsum("ti,tkl->ikl", W, P_sm)
+    smear = torch.einsum("ik,ikl,il->i", Lam, PV, Lam)
+    R = (resid_sq + smear) / counts
+    return Lam, torch.clamp(R, min=r_floor)
+
+
+def _mstep_rows_masked(Y, mask, Ef, EffT, P_sm, r_floor, lam_ridge):
+    if Y.device.type == "cpu":
+        return mstep_rows_plain(Y, mask, Ef, EffT, P_sm, r_floor, lam_ridge)
+    T, N = Y.shape
+    k = Ef.shape[1]
+    dt, dev = Y.dtype, Y.device
+    kernels.check_k("mstep_rows", k)
+    for name, x, shape in (("Y", Y, (T, N)), ("mask", mask, (T, N)),
+                           ("Ef", Ef, (T, k)), ("EffT", EffT, (T, k, k)),
+                           ("P_sm", P_sm, (T, k, k))):
+        kernels.check_tensor(name, x, shape, dt, dev)
+    Lam = torch.empty((N, k), dtype=dt, device=dev)
+    R = torch.empty((N,), dtype=dt, device=dev)
+    kernels.launch("mstep_rows", dt, Y, mask, Ef, EffT, P_sm, Lam, R, T, N,
+                   k, float(r_floor),
+                   0.0 if lam_ridge is None else float(lam_ridge))
+    return Lam, R
+
+
+def mstep_rows(Y, mask, Ef, EffT, P_sm, S_ff, r_floor: float, Ysq=None,
+               lam_ridge=None):
+    """Per-series M-step rows: new (Lam (N, k), R (N,)).
+
+    Unmasked: S_yf = Y'E[f], one k x k solve, R from the hoisted ``Ysq``.
+    Masked: kernel K3 for CUDA tensors.  ``lam_ridge`` (optional) solves
+    (S_ff + lam I) instead of S_ff.
+    """
+    if mask is not None:
+        return _mstep_rows_masked(Y, mask, Ef, EffT, P_sm, r_floor,
+                                  lam_ridge)
+    T = Y.shape[0]
+    S_yf = Y.T @ Ef                                           # (N, k)
+    if Ysq is None:
+        Ysq = torch.einsum("ti,ti->i", Y, Y)
+    if lam_ridge is None:
+        Lam = solve_psd(S_ff, S_yf.T).T
+        R = (Ysq - torch.einsum("ik,ik->i", Lam, S_yf)) / T
+    else:
+        k = S_ff.shape[0]
+        eye = torch.eye(k, dtype=Y.dtype, device=Y.device)
+        Lam = solve_psd(S_ff + lam_ridge * eye, S_yf.T).T
+        R = (Ysq - 2.0 * torch.einsum("ik,ik->i", Lam, S_yf)
+             + torch.einsum("ik,kl,il->i", Lam, S_ff, Lam)) / T
+    return Lam, torch.clamp(R, min=r_floor)
+
+
+def mstep_dynamics_sums(sm: SmootherResult, S_ff_lag, S_ff_cur, S_cross,
+                        p: SSMParams, cfg: EMConfig):
+    """k x k M-step updates (A, Q, mu0, P0) from SUMMED moments."""
+    T = sm.x_sm.shape[0]
+    A, Q = p.A, p.Q
+    if cfg.estimate_A:
+        A = solve_psd(S_ff_lag, S_cross.T).T
+        if cfg.estimate_Q:
+            Q = sym((S_ff_cur - A @ S_cross.T) / (T - 1))
+    elif cfg.estimate_Q:
+        Q = sym((S_ff_cur - A @ S_cross.T - S_cross @ A.T
+                 + A @ S_ff_lag @ A.T) / (T - 1))
+    mu0, P0 = p.mu0, p.P0
+    if cfg.estimate_init:
+        mu0 = sm.x_sm[0]
+        P0 = sym(sm.P_sm[0])
+    return A, Q, mu0, P0
+
+
+def mstep_dynamics(sm: SmootherResult, EffT, cross, p: SSMParams,
+                   cfg: EMConfig):
+    """k x k M-step updates (A, Q, mu0, P0) from smoother moments."""
+    return mstep_dynamics_sums(sm, EffT[:-1].sum(0), EffT[1:].sum(0),
+                               cross.sum(0), p, cfg)
+
+
+def cfg_hypers(cfg: EMConfig):
+    """(q_scale, r_scale, lam_ridge) from ``cfg``, or ``None`` at the
+    defaults (plain EM)."""
+    if cfg.q_scale != 1.0 or cfg.r_scale != 1.0 or cfg.lam_ridge != 0.0:
+        return (cfg.q_scale, cfg.r_scale, cfg.lam_ridge)
+    return None
+
+
+def _m_step(Y, mask, sm: SmootherResult, p: SSMParams, cfg: EMConfig,
+            Ysq=None) -> SSMParams:
+    """Closed-form M-step; returns contiguous params (the kernels take
+    contiguous tensors only)."""
+    hy = cfg_hypers(cfg)
+    ridge = None if hy is None else hy[2]
+    if mask is None:
+        S_ff, S_lag, S_cur, S_cross = moment_sums(sm)
+        Lam, R = mstep_rows(Y, None, sm.x_sm, None, None, S_ff, cfg.r_floor,
+                            Ysq=Ysq, lam_ridge=ridge)
+        A, Q, mu0, P0 = mstep_dynamics_sums(sm, S_lag, S_cur, S_cross, p, cfg)
+    else:
+        EffT, cross = moments(sm)
+        Lam, R = mstep_rows(Y, mask, sm.x_sm, EffT, sm.P_sm, None,
+                            cfg.r_floor, lam_ridge=ridge)
+        A, Q, mu0, P0 = mstep_dynamics(sm, EffT, cross, p, cfg)
+    if hy is not None:
+        Q = hy[0] * Q
+        R = torch.clamp(hy[1] * R, min=cfg.r_floor)
+    return SSMParams(*(x.contiguous() for x in (Lam, A, Q, R, mu0, P0)))
+
+
+def _panel_consts(Y, has_mask: bool):
+    """EM-iteration-invariant panel reduction: per-series sum of squares for
+    the unmasked M-step rows, or ``None`` when masked."""
+    return None if has_mask else torch.einsum("ti,ti->i", Y, Y)
+
+
+def em_step(Y, p: SSMParams, mask=None, cfg: EMConfig = EMConfig(),
+            Ysq=None):
+    """One EM iteration: (new params, loglik at the entering params as a
+    0-d f64 tensor on Y's device)."""
+    kf, sm = cfg.e_step(Y, mask, p)
+    return _m_step(Y, mask, sm, p, cfg, Ysq=Ysq), kf.loglik
+
+
+def em_fit_scan(Y, p0: SSMParams, n_iters: int, mask=None,
+                cfg: EMConfig = EMConfig(), Ysq=None):
+    """``n_iters`` EM iterations with no host read.
+
+    Returns (params after every update, a list of length ``n_iters``; the
+    logliks (n_iters,) at the entering params, an f64 tensor on Y's
+    device).
+    """
+    if Ysq is None:
+        Ysq = _panel_consts(Y, mask is not None)
+    ps, lls = [], []
+    p = p0
+    for _ in range(n_iters):
+        p, ll = em_step(Y, p, mask=mask, cfg=cfg, Ysq=Ysq)
+        ps.append(p)
+        lls.append(ll)
+    return ps, torch.stack(lls)
+
+
+def em_progress(lls, tol: float, noise_floor: float = 0.0,
+                monotone: bool = True) -> str:
+    """Classify the last loglik step: 'continue' | 'converged' | 'diverged'.
+
+    |relative change| < tol -> converged.  A drop within ``noise_floor``
+    (an ABSOLUTE loglik tolerance, see ``noise_floor_for``) means numerical
+    convergence; a larger drop is divergence.  tol <= 0 runs the whole
+    budget: only a genuine divergence stops it.  monotone=False (tuned
+    updates) classifies a drop as converged.
+    """
+    if len(lls) < 2:
+        return "continue"
+    rel = (lls[-1] - lls[-2]) / max(abs(lls[-2]), 1e-12)
+    if tol > 0 and abs(rel) < tol:
+        return "converged"
+    drop = lls[-2] - lls[-1]
+    if drop > noise_floor and monotone:
+        return "diverged"
+    if drop > 0 and tol > 0:
+        return "converged"      # noise-floor drop at a plateau
+    return "continue"
+
+
+def noise_floor_for(dtype, n_obs: float = 1.0, mult: float = 100.0) -> float:
+    """ABSOLUTE loglik noise floor for a compute dtype: ``mult`` * eps *
+    n_obs, since the loglik is assembled from pieces of magnitude O(n_obs)
+    whatever its own magnitude."""
+    return mult * float(torch.finfo(dtype).eps) * max(n_obs, 1.0)
+
+
+def run_em_chunked(Y, mask, p0: SSMParams, cfg: EMConfig, max_iters: int,
+                   tol: float, fused_chunk: int = 8):
+    """Chunked EM driver with the stop semantics of the JAX package's
+    ``run_em_chunked``.
+
+    Each chunk runs up to ``fused_chunk`` iterations on the device and
+    reads the chunk's logliks with ONE blocking device->host read.  The
+    params after every update of the current and previous chunk stay on
+    the device, so a mid-chunk stop returns params that embody exactly the
+    update count the stopping rule chose (converged: every iteration that
+    ran; diverged: the params entering the pre-drop iteration).
+
+    Returns (params, logliks (n,) np.float64, converged, params_iters,
+    secs) with ``secs[i]`` the host wall time of iteration i's chunk,
+    ending at its blocking read, on the chunk's first iteration and 0.0 on
+    the others (the host sees a chunk as one step).
+    """
+    fused_chunk = max(1, int(fused_chunk))
+    noise_floor = noise_floor_for(Y.dtype, Y.numel(),
+                                  mult=cfg.noise_floor_mult)
+    monotone = cfg_hypers(cfg) is None
+    Ysq = _panel_consts(Y, mask is not None)
+    by_iter = {0: p0}          # update count -> params (two chunks kept)
+    lls: list = []
+    secs: list = []
+    converged = stop = False
+    target = it = 0
+    with highest_precision():
+        while it < max_iters and not stop:
+            t0 = time.perf_counter()
+            n = min(fused_chunk, max_iters - it)
+            ps, chunk = em_fit_scan(Y, by_iter[it], n, mask=mask, cfg=cfg,
+                                    Ysq=Ysq)
+            chunk = chunk.cpu().numpy()              # the one blocking read
+            wall = time.perf_counter() - t0
+            by_iter = {i: q for i, q in by_iter.items() if i >= it - fused_chunk}
+            by_iter.update({it + j + 1: q for j, q in enumerate(ps)})
+            for j, ll in enumerate(chunk):
+                lls.append(float(ll))
+                secs.append(wall if j == 0 else 0.0)
+                state = em_progress(lls, tol, noise_floor, monotone=monotone)
+                if state != "continue":
+                    converged = state == "converged"
+                    target = (len(lls) if converged
+                              else max(len(lls) - 2, 0))
+                    stop = True
+                    break
+            it += n
+    p_iters = target if stop else it
+    return by_iter[p_iters], np.asarray(lls), converged, p_iters, secs

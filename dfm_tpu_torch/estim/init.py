@@ -1,0 +1,61 @@
+"""Device-side panel standardization and PCA warm start.
+
+Twins of ``dfm_tpu.estim.init``.  ``fit`` uses them for large panels
+(N*T >= 4e6) so the N-sized prep work runs on the device.  The top
+singular vectors come from an eigendecomposition of the (T, T) Gram
+matrix (``torch.linalg.eigh``, a library call, as the JAX package leaves
+it to XLA); the k-sized VAR(1) tail runs on the host.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..backends import cpu_ref
+
+__all__ = ["standardize_device", "pca_init_device"]
+
+
+def standardize_device(Y: torch.Tensor):
+    """Column standardization of a FULLY-OBSERVED panel on the device.
+
+    Same ddof-1 / 1e-12 variance-floor semantics as
+    ``utils.data.standardize``, two-pass (mean, then centered sum of
+    squares).  Returns ``(Yz, stack([mean, scale]))`` so the host fetches
+    the stats in one read.
+    """
+    T = Y.shape[0]
+    mean = Y.mean(dim=0)
+    xc = Y - mean[None, :]
+    var = (xc * xc).sum(dim=0) / max(float(T - 1), 1.0)
+    scale = torch.sqrt(torch.clamp(var, min=1e-12))
+    return (xc / scale[None, :]).contiguous(), torch.stack([mean, scale])
+
+
+def _pca_parts(Y: torch.Tensor, k: int):
+    T, N = Y.shape
+    # Y = U S V'  =>  Y Y' = U S^2 U'  and  V = Y' U / S.
+    G = Y @ Y.T
+    w, U = torch.linalg.eigh(G)                   # ascending eigenvalues
+    w_k = w[-k:].flip(0)                          # top-k, descending
+    U_k = U[:, -k:].flip(1)
+    s_k = torch.sqrt(torch.clamp(w_k, min=1e-12))
+    V = (Y.T @ U_k) / s_k[None, :]                # (N, k)
+    Lam = float(np.sqrt(N)) * V
+    F = Y @ Lam / N                               # (T, k)
+    resid = Y - F @ Lam.T
+    R = torch.clamp(resid.var(dim=0, unbiased=False), min=1e-6)
+    return Lam, F, R
+
+
+def pca_init_device(Y: torch.Tensor, k: int,
+                    static: bool = False) -> cpu_ref.SSMParams:
+    """Device PCA init on a standardized, zero-filled panel tensor; returns
+    NumPy f64 params (the same type as the host initializer).  Eigenvector
+    signs may differ from another eigensolver's, column by column."""
+    Lam, F, R = _pca_parts(Y, k)
+    A, Q, mu0, P0 = cpu_ref.var_tail(F.to("cpu", torch.float64).numpy(), k,
+                                     static)
+    return cpu_ref.SSMParams(Lam.to("cpu", torch.float64).numpy(), A, Q,
+                             R.to("cpu", torch.float64).numpy(), mu0, P0)

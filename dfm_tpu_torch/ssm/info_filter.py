@@ -1,0 +1,253 @@
+"""Information-form Kalman filter: the N-scalable path.
+
+The PyTorch twin of ``dfm_tpu.ssm.info_filter``.  With diagonal R the
+update touches the cross-section only through k-dimensional reductions
+
+    C_t = Lam' W_t R^{-1} Lam   (k, k)     b_t = Lam' W_t R^{-1} y_t   (k,)
+    n_t = #observed at t                   ldR_t = sum of log R over observed
+
+and the time scan is pure k x k:
+
+    P_f = (P_p^{-1} + C_t)^{-1} = L (I + L' C_t L)^{-1} L',  P_p = LL'
+    x_f = x_p + P_f (b_t - C_t x_p)
+    log|S_t| = ldR_t + log|I + L' C_t L|,   v'S^{-1}v = v'R^{-1}v - u'P_f u
+
+The quadratic v'R^{-1}v comes from a second pass over the true residuals
+(the expanded form cancels catastrophically in f32).
+
+Three routines here are kernels on CUDA tensors, each with its plain
+version beside it (the wrapper takes the plain version only for CPU
+tensors): K2 ``obs_stats`` when masked (``csrc/obs_stats.cu``; the unmasked
+statistics are a GEMM and stay ``torch.matmul``), K4-forward ``info_scan``
+(``csrc/info_scan.cu``) and K1 ``quad_local`` (``csrc/quad_local.cu``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .. import kernels
+from ..ops.linalg import chol_logdet, chol_solve, psd_cholesky, sym
+from ..ops.precision import accum_dtype, highest_precision
+from .kalman import kalman_filter, rts_smoother
+from .params import FilterResult, SSMParams
+
+__all__ = ["ObsStats", "obs_stats", "obs_stats_plain", "info_scan",
+           "info_scan_plain", "quad_local", "quad_local_plain",
+           "u_from_stats", "loglik_from_terms", "info_filter_from_stats",
+           "info_filter", "loglik_eval", "smooth"]
+
+_LOG2PI = 1.8378770664093453
+
+
+class ObsStats(NamedTuple):
+    """Per-step k-dimensional observation reductions.
+
+    C is (k, k) when the mask is absent (time-invariant precision) and
+    (T, k, k) when masked.
+    """
+
+    b: torch.Tensor     # (T, k)
+    C: torch.Tensor     # (k, k) or (T, k, k)
+    n: torch.Tensor     # (T,)
+    ldR: torch.Tensor   # (T,)
+
+
+def obs_stats_plain(Y, Lam, R, mask=None) -> ObsStats:
+    """Plain-torch observation statistics (masked or not)."""
+    T, N = Y.shape
+    if mask is None:
+        G = Lam / R[:, None]                        # R^{-1} Lam, (N, k)
+        n = torch.full((T,), float(N), dtype=Y.dtype, device=Y.device)
+        # The same N-sum repeats T times, so its rounding is systematic
+        # across the loglik: the one sum accumulates in f64.
+        ldR = torch.log(R).to(accum_dtype()).sum().expand(T).clone()
+        return ObsStats(Y @ G, Lam.T @ G, n, ldR)
+    W = mask.to(Y.dtype)
+    Yw = W * torch.nan_to_num(Y)                    # masked entries may be NaN
+    Rinv = 1.0 / R
+    b = Yw @ (Lam * Rinv[:, None])
+    C = torch.einsum("nk,tn,n,nl->tkl", Lam, W, Rinv, Lam).contiguous()
+    n = W.sum(dim=1)
+    ldR = W @ torch.log(R)
+    return ObsStats(b, C, n, ldR)
+
+
+def obs_stats(Y: torch.Tensor, Lam: torch.Tensor, R: torch.Tensor,
+              mask: Optional[torch.Tensor] = None) -> ObsStats:
+    """Reduce the panel to k-dimensional per-step statistics.
+
+    Y (T, N), Lam (N, k), R (N,); mask optional (T, N) {0,1} in Y's dtype.
+    Unmasked: torch.matmul.  Masked: kernel K2 for CUDA tensors.
+    """
+    if mask is None or Y.device.type == "cpu":
+        return obs_stats_plain(Y, Lam, R, mask)
+    T, N = Y.shape
+    k = Lam.shape[1]
+    dt, dev = Y.dtype, Y.device
+    kernels.check_k("obs_stats", k)
+    for name, x, shape in (("Y", Y, (T, N)), ("Lam", Lam, (N, k)),
+                           ("R", R, (N,)), ("mask", mask, (T, N))):
+        kernels.check_tensor(name, x, shape, dt, dev)
+    b = torch.empty((T, k), dtype=dt, device=dev)
+    C = torch.empty((T, k, k), dtype=dt, device=dev)
+    n = torch.empty((T,), dtype=dt, device=dev)
+    ldR = torch.empty((T,), dtype=dt, device=dev)
+    kernels.launch("obs_stats", dt, Y, Lam, R, mask, b, C, n, ldR, T, N, k)
+    return ObsStats(b, C, n, ldR)
+
+
+def info_scan_plain(stats: ObsStats, A, Q, mu0, P0):
+    """Plain-torch k x k time scan over the observation statistics.
+
+    Returns (x_pred, P_pred, x_filt, P_filt, logdetG (T,)) with
+    logdetG_t = log|I + L' C_t L|.
+    """
+    T, k = stats.b.shape
+    I_k = torch.eye(k, dtype=stats.b.dtype, device=stats.b.device)
+    x, P = mu0, P0
+    out = [[], [], [], [], []]
+    for t in range(T):
+        C_t = stats.C if stats.C.ndim == 2 else stats.C[t]
+        Lp = psd_cholesky(P)
+        CL = C_t @ Lp
+        G = I_k + Lp.T @ CL                         # >= I: chol needs no jitter
+        Lg = psd_cholesky(G, jitter=0.0)
+        P_f = sym(Lp @ chol_solve(Lg, Lp.T))
+        u = stats.b[t] - C_t @ x
+        x_f = x + P_f @ u
+        for lst, v in zip(out, (x, P, x_f, P_f, chol_logdet(Lg))):
+            lst.append(v)
+        x = A @ x_f
+        P = sym(A @ P_f @ A.T + Q)
+    return tuple(torch.stack(v) for v in out)
+
+
+def info_scan(stats: ObsStats, A, Q, mu0, P0):
+    """The k x k time scan: kernel K4-forward for CUDA tensors."""
+    b = stats.b
+    if b.device.type == "cpu":
+        return info_scan_plain(stats, A, Q, mu0, P0)
+    T, k = b.shape
+    dt, dev = b.dtype, b.device
+    kernels.check_k("info_scan", k)
+    static_C = stats.C.ndim == 2
+    for name, x, shape in (("b", b, (T, k)),
+                           ("C", stats.C, (k, k) if static_C else (T, k, k)),
+                           ("A", A, (k, k)), ("Q", Q, (k, k)),
+                           ("mu0", mu0, (k,)), ("P0", P0, (k, k))):
+        kernels.check_tensor(name, x, shape, dt, dev)
+    x_pred = torch.empty((T, k), dtype=dt, device=dev)
+    P_pred = torch.empty((T, k, k), dtype=dt, device=dev)
+    x_filt = torch.empty((T, k), dtype=dt, device=dev)
+    P_filt = torch.empty((T, k, k), dtype=dt, device=dev)
+    logdetG = torch.empty((T,), dtype=dt, device=dev)
+    kernels.launch("info_scan", dt, b, stats.C, 0 if static_C else k * k,
+                   A, Q, mu0, P0, x_pred, P_pred, x_filt, P_filt, logdetG,
+                   T, k)
+    return x_pred, P_pred, x_filt, P_filt, logdetG
+
+
+def quad_local_plain(Y, Lam, R, x_pred, mask=None) -> torch.Tensor:
+    """Plain-torch quad_R (T,) = sum_n w (y - lam_n . x_t)^2 / R_n in f64."""
+    V = Y - x_pred @ Lam.T
+    if mask is not None:
+        V = mask.to(Y.dtype) * torch.nan_to_num(V)
+    return (V * (V / R[None, :])).to(accum_dtype()).sum(dim=1)
+
+
+def quad_local(Y: torch.Tensor, Lam: torch.Tensor, R: torch.Tensor,
+               x_pred: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The innovation quadratic quad_R (T,), f64: kernel K1 for CUDA
+    tensors.  (The JAX routine also returns the residual panel, which its
+    caller drops; here it is never formed.)"""
+    if Y.device.type == "cpu":
+        return quad_local_plain(Y, Lam, R, x_pred, mask)
+    T, N = Y.shape
+    k = Lam.shape[1]
+    dt, dev = Y.dtype, Y.device
+    kernels.check_k("quad_local", k)
+    checks = [("Y", Y, (T, N)), ("Lam", Lam, (N, k)), ("R", R, (N,)),
+              ("x_pred", x_pred, (T, k))]
+    if mask is not None:
+        checks.append(("mask", mask, (T, N)))
+    for name, x, shape in checks:
+        kernels.check_tensor(name, x, shape, dt, dev)
+    out = torch.empty((T,), dtype=torch.float64, device=dev)
+    kernels.launch("quad_local", dt, Y, Lam, R, x_pred, mask, out, T, N, k)
+    return out
+
+
+def u_from_stats(stats: ObsStats, x_pred: torch.Tensor) -> torch.Tensor:
+    """U (T, k) = Lam'R^{-1}v = b_t - C_t x_pred,t, with no panel pass."""
+    if stats.C.ndim == 2:
+        return stats.b - x_pred @ stats.C           # C symmetric
+    return stats.b - torch.einsum("tkl,tl->tk", stats.C, x_pred)
+
+
+def loglik_from_terms(stats: ObsStats, logdetG, P_filt, quad_R, U):
+    """Assemble sum_t ll_t.  The total is a ~100x smaller residual of
+    cancelling O(N T) pieces, so the (T,)-sized assembly runs in f64; the
+    U'P_f U contraction stays in the compute dtype."""
+    acc = accum_dtype()
+    upu = torch.einsum("tk,tkl,tl->t", U.to(P_filt.dtype), P_filt,
+                       U.to(P_filt.dtype))
+    quad = quad_R.to(acc) - upu.to(acc)
+    lls = -0.5 * (stats.n.to(acc) * _LOG2PI + stats.ldR.to(acc)
+                  + logdetG.to(acc) + quad)
+    return lls.sum()
+
+
+def info_filter_from_stats(stats: ObsStats, A, Q, mu0, P0, Y, Lam, R,
+                           mask=None) -> FilterResult:
+    """Scan + loglik in one call."""
+    xp, Pp, xf, Pf, logdetG = info_scan(stats, A, Q, mu0, P0)
+    quad_R = quad_local(Y, Lam, R, xp, mask)
+    ll = loglik_from_terms(stats, logdetG, Pf, quad_R, u_from_stats(stats, xp))
+    return FilterResult(xp, Pp, xf, Pf, ll)
+
+
+def info_filter(Y: torch.Tensor, p: SSMParams,
+                mask: Optional[torch.Tensor] = None) -> FilterResult:
+    """Single-call info-form filter: stats + scan + residual loglik pass."""
+    p = p.to(dtype=Y.dtype)
+    stats = obs_stats(Y, p.Lam, p.R, mask=mask)
+    return info_filter_from_stats(stats, p.A, p.Q, p.mu0, p.P0,
+                                  Y=Y, Lam=p.Lam, R=p.R, mask=mask)
+
+
+def loglik_eval(Y, p, mask=None, precise: bool = True,
+                device=None) -> float:
+    """Reporting-grade log-likelihood evaluation.
+
+    ``precise=True`` re-evaluates the filter in float64 on the same device
+    (the check of the 1e-5 loglik contract); ``precise=False`` evaluates in
+    Y's dtype.  ``Y``, ``mask`` and ``p`` may be NumPy or tensors; the
+    device is Y's when Y is a tensor, else ``device`` (default "cuda").
+    """
+    if isinstance(Y, torch.Tensor):
+        dev = Y.device
+        dtype = torch.float64 if precise else Y.dtype
+    else:
+        dev = torch.device(device or "cuda")
+        dtype = torch.float64 if precise else torch.float32
+    Yt = torch.as_tensor(Y, dtype=dtype, device=dev).contiguous()
+    pt = SSMParams(*(torch.as_tensor(x, dtype=dtype, device=dev).contiguous()
+                     for x in (p.Lam, p.A, p.Q, p.R, p.mu0, p.P0)))
+    mt = (torch.as_tensor(mask, dtype=dtype, device=dev).contiguous()
+          if mask is not None else None)
+    with highest_precision():
+        return float(info_filter(Yt, pt, mask=mt).loglik)
+
+
+def smooth(Y: torch.Tensor, p: SSMParams, mask=None,
+           dense: bool = False):
+    """Filter + RTS smoother at ``p``; returns (x_sm, P_sm) on Y's device.
+    ``dense`` uses the N x N filter (the small-N engine) instead of the
+    information form."""
+    kf = (kalman_filter if dense else info_filter)(Y, p, mask=mask)
+    sm = rts_smoother(kf, p.to(dtype=Y.dtype))
+    return sm.x_sm, sm.P_sm

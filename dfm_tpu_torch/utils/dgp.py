@@ -1,0 +1,59 @@
+"""Factor-model data-generating process (a copy of ``dfm_tpu.utils.dgp``).
+
+Draw loadings, simulate a stable factor VAR(1) path, add idiosyncratic
+noise.  Deterministic given the NumPy generator, so the same seed gives the
+same panel as the JAX package's copy.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+from ..backends.cpu_ref import SSMParams, _solve_discrete_lyapunov_or_eye
+
+__all__ = ["dfm_params", "simulate"]
+
+
+def stable_var1(k: int, rng: np.random.Generator,
+                spectral_radius: float = 0.7) -> np.ndarray:
+    """Random k x k transition with spectral radius scaled to the target."""
+    A = rng.standard_normal((k, k))
+    ev = np.max(np.abs(np.linalg.eigvals(A)))
+    return A * (spectral_radius / max(ev, 1e-12))
+
+
+def dfm_params(N: int, k: int, rng: np.random.Generator,
+               static: bool = False,
+               noise_scale: float = 1.0,
+               spectral_radius: float = 0.7) -> SSMParams:
+    """Draw a random, identifiable-ish parameter set."""
+    Lam = rng.standard_normal((N, k))
+    if static:
+        A = np.zeros((k, k))
+        Q = np.eye(k)
+    else:
+        A = stable_var1(k, rng, spectral_radius)
+        Q = np.eye(k)
+    R = noise_scale * (0.5 + rng.random(N))      # heteroskedastic diag
+    mu0 = np.zeros(k)
+    P0 = _solve_discrete_lyapunov_or_eye(A, Q)
+    return SSMParams(Lam, A, Q, R, mu0, P0)
+
+
+def simulate(p: SSMParams, T: int, rng: np.random.Generator
+             ) -> Tuple[np.ndarray, np.ndarray]:
+    """Simulate (Y (T,N), F (T,k)) from the state-space model."""
+    N, k = p.Lam.shape
+    Lq = np.linalg.cholesky(p.Q + 1e-12 * np.eye(k))
+    L0 = np.linalg.cholesky(p.P0 + 1e-12 * np.eye(k))
+    F = np.zeros((T, k))
+    f = p.mu0 + L0 @ rng.standard_normal(k)
+    for t in range(T):
+        if t > 0:
+            f = p.A @ F[t - 1] + Lq @ rng.standard_normal(k)
+        F[t] = f
+    E = rng.standard_normal((T, N)) * np.sqrt(p.R)
+    Y = F @ p.Lam.T + E
+    return Y, F

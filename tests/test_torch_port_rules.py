@@ -1,0 +1,119 @@
+"""Rules of the PyTorch port, checked on its source and on a CUDA-less CPU.
+
+- No file of ``dfm_tpu_torch/`` and not ``chip_smoke.py`` imports JAX or
+  anything of ``dfm_tpu`` (the port keeps its own copies).
+- No ``time.time()``: wall clocks are ``time.perf_counter`` around work
+  that ends in a device sync or a blocking read.
+- Every fit driver runs inside ``highest_precision()`` (no TF32 in f32
+  matrix products: ~1e-4 relative loglik against the 1e-5 contract).
+- On a machine without CUDA the default backend raises instead of running
+  on the CPU, and the CPU path launches no kernel.
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import dfm_tpu_torch as dtt
+from dfm_tpu_torch import kernels
+from torch_parity import one_torch_thread  # noqa: F401
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "dfm_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+# (module file, function) pairs that drive a fit or a contract evaluation.
+FIT_DRIVERS = [("dfm_tpu_torch/api.py", "fit"),
+               ("dfm_tpu_torch/estim/em.py", "run_em_chunked"),
+               ("dfm_tpu_torch/ssm/info_filter.py", "loglik_eval")]
+
+
+def _tree(path):
+    return ast.parse(path.read_text(), filename=str(path))
+
+
+def _imports(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_and_no_reference_package(path):
+    for mod in _imports(_tree(path)):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "dfm_tpu"), (
+            f"{path.relative_to(ROOT)} imports {mod}")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_time_time(path):
+    for node in ast.walk(_tree(path)):
+        if (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "time"
+                and isinstance(node.func.value, ast.Name)
+                and node.func.value.id == "time"):
+            raise AssertionError(
+                f"time.time() at {path.relative_to(ROOT)}:{node.lineno}")
+
+
+def _enters_highest_precision(fn):
+    for node in ast.walk(fn):
+        if isinstance(node, ast.With):
+            for item in node.items:
+                call = item.context_expr
+                if (isinstance(call, ast.Call)
+                        and getattr(call.func, "id", None)
+                        == "highest_precision"):
+                    return True
+    return False
+
+
+@pytest.mark.parametrize("rel,name", FIT_DRIVERS)
+def test_fit_drivers_enter_highest_precision(rel, name):
+    tree = _tree(ROOT / rel)
+    fns = [n for n in ast.walk(tree)
+           if isinstance(n, ast.FunctionDef) and n.name == name]
+    assert len(fns) == 1, f"{rel}:{name} not found"
+    assert _enters_highest_precision(fns[0]), f"{rel}:{name}"
+
+
+def test_every_fit_or_em_entry_point_is_listed():
+    listed = {(r, n) for r, n in FIT_DRIVERS}
+    for path in sorted((ROOT / "dfm_tpu_torch").rglob("*.py")):
+        rel = str(path.relative_to(ROOT))
+        for node in ast.walk(_tree(path)):
+            if (isinstance(node, ast.FunctionDef)
+                    and (node.name == "fit" or node.name.startswith("run_em"))):
+                assert (rel, node.name) in listed, f"{rel}:{node.name}"
+
+
+def test_default_backend_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default backend runs")
+    Y = np.random.default_rng(0).standard_normal((30, 40))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dtt.fit(dtt.DynamicFactorModel(2), Y, max_iters=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dtt.TorchBackend()
+
+
+def test_cpu_path_launches_no_kernel():
+    rng = np.random.default_rng(1)
+    Y = rng.standard_normal((40, 45))
+    Y[rng.random(Y.shape) < 0.1] = np.nan
+    kernels.reset_launches()
+    res = dtt.fit(dtt.DynamicFactorModel(2), Y, max_iters=3, tol=0.0,
+                  backend=dtt.TorchBackend(device="cpu"))
+    assert res.filter == "info" and res.n_iters == 3
+    assert set(kernels.LAUNCHES) == {"quad_local", "obs_stats", "mstep_rows",
+                                     "info_scan", "rts_smoother"}
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
