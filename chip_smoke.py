@@ -8,28 +8,39 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 1. setup: the card's name and power limit (nvidia-smi), then the build of
    every CUDA kernel from ``dfm_tpu_torch/csrc`` (one nvcc per source, in
    parallel), with its seconds.
-2. kernels: every kernel of the fit path at the headline shape (T = 500,
-   N = 10,000, k = 10), in f32 and f64, against its plain-torch version on
-   the same inputs on the card, within a stated relative tolerance; timed
-   with CUDA events beside the plain version, a one-call library yardstick
-   where one exists, and the least time the card could take (bytes over
-   memory rate or operations over peak rate, whichever is larger); each
-   kernel also with a cold L2 (flushed before every call), and K4 beside
-   its measured latency floor (``csrc/step_chain.cu``: one step's
-   dependent chain, T steps).  Then the same comparisons, untimed, at
-   k = 1, 3 and 16 on a small panel, K3 there with a loading ridge.
+2. kernels: every kernel of the three fit paths at the headline shape
+   (T = 500, N = 10,000, k = 10), in f64 and f32, against its plain-torch
+   version on the same inputs on the card, within a stated relative
+   tolerance (in f32 widened by the plain twin's own distance from the
+   f64 pipeline, see TOL); timed with CUDA events beside the plain version, a one-call
+   library yardstick where one exists, and the least time the card could
+   take (bytes over memory rate or operations over peak rate, whichever is
+   larger); each kernel also with a cold L2 (flushed before every call),
+   K4 and K5a beside their measured latency floor (``csrc/step_chain.cu``:
+   one step's dependent chain, once a step).  The steady-state kernels run
+   at the tau that ``auto_tau`` picks at the unmasked fit's init and at
+   tau = 192; the square-root kernels in every mode, K6/K7 one function at
+   a time.  Then the same comparisons, untimed, at k = 1, 3, 10 and 16 on
+   a small panel with a fully missing step and a step observing fewer than
+   k series (the square-root kernels up to k = 10), K3 with a ridge.
 3. fit: ``dfm_tpu_torch.fit`` on a simulated 10,000 x 500, k = 10, AR(1)
    panel with a ragged edge and scattered missing values (filter="auto"
-   must resolve to "info"), then the same panel fully observed with
-   filter="info": 20 EM iterations with tol = 0, the reporting smooth and
-   a 12-step forecast.  Logliks must be finite and non-decreasing within
-   the f32 noise floor, factors and forecasts finite, and every kernel of
-   the path launched (launch counts are reset just before each fit).
-4. reference: the same fit at 120 x 80, k = 3, masked and not, on the card
-   in f64 against the CPU in f64 (the plain versions), within 1e-9.
+   must resolve to "info"), the same panel fully observed with
+   filter="auto" (must resolve to the steady-state engine "ss") and with
+   filter="info", and the masked panel with filter="pit_qr": 20 EM
+   iterations with tol = 0 (10 for the unmasked "info" run), the reporting
+   smooth and a 12-step forecast.  Logliks must be finite and
+   non-decreasing within the f32 noise floor, factors and forecasts
+   finite, and every kernel of the path launched (launch counts are reset
+   just before each fit), the engine's own kernels every iteration.
+4. reference: the same fit at a small size, masked and not (k = 3), and
+   through "ss" (150 x 80) and "pit_qr" (120 x 80, masked), on the card in
+   f64 against the CPU in f64 (the plain versions), within 1e-9 (1e-10
+   for the two new engines).
 5. contract: from one init, 3 EM iterations in f32 and in f64; the f32
    params re-evaluated in f64 must be within 1e-5 relative of the f64
-   trajectory's loglik at iteration 3, masked and unmasked.
+   trajectory's loglik at iteration 3: info masked and unmasked, ss
+   unmasked (at the fit's tau), pit_qr masked.
 
 Output: one JSON line per kernel and dtype, one per fit and contract
 check, then the {"kernels": [...]} summary, the card line and, last,
@@ -53,8 +64,12 @@ from dfm_tpu_torch.estim.em import (EMConfig, em_fit_scan, moments,
                                     mstep_rows, mstep_rows_plain,
                                     noise_floor_for)
 from dfm_tpu_torch.estim.init import pca_init_device
+from dfm_tpu_torch.ops import linalg as la
+from dfm_tpu_torch.ops import scan as sc
 from dfm_tpu_torch.ops.precision import highest_precision
 from dfm_tpu_torch.ssm import info_filter as inf
+from dfm_tpu_torch.ssm import parallel_filter as pf
+from dfm_tpu_torch.ssm import steady as ss
 from dfm_tpu_torch.ssm.kalman import rts_smoother, rts_smoother_plain
 from dfm_tpu_torch.ssm.params import FilterResult, SSMParams
 from dfm_tpu_torch.utils import data, dgp
@@ -71,19 +86,50 @@ L2_FLUSH_BYTES = 256 * 2**20                   # > 5x the H100's 50 MB L2
 # one-pass reductions, 1e-9 where a solve or a 500-step recursion
 # compounds rounding.  f32: the reductions sum 10,000 terms in another
 # order (~sqrt(N) eps relative), the solves and recursions amplify by the
-# condition of the k x k systems.
+# condition of the k x k systems.  nvcc contracts a * b + c into one fma
+# where the plain versions round twice, and the scans associate in
+# another order (K5b by chunks, K8 by the same blocks as its twin but
+# with fma), so the recursions (K4, K5, K8) take 1e-4 in f32 and 1e-9 in
+# f64; the per-step square-root algebra (qr_elements, K6/K7) takes 1e-4
+# and 1e-10: each step's chain of factorizations and solves amplifies
+# rounding by the condition of its k x k systems.
+# In f32 each output may differ from its plain twin by the tolerance times
+# the twin's largest entry PLUS four times the twin's own distance from
+# the f64 pipeline on the same panel (F32_NOISE_MULT): where a function
+# cancels, the f32 twin is itself that far from the exact answer, and the
+# kernel, which rounds differently, may be as far on the other side (at
+# N = 10,000, M = A - P_f C A in K5a and A_t = F - Q W (HH')^{-1} W' F in
+# the element build subtract nearly equal terms: P_f C is close to I).
+# The f64 tolerances stand alone.
 TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "mstep_rows": 1e-4, "info_scan": 1e-4,
-                       "rts_smoother": 1e-4},
+                       "rts_smoother": 1e-4, "ss_cov_path": 1e-4,
+                       "affine_scan": 1e-4, "qr_elements": 1e-4,
+                       "qr_scan": 1e-4},
        torch.float64: {"quad_local": 1e-10, "obs_stats": 1e-10,
                        "mstep_rows": 1e-9, "info_scan": 1e-9,
-                       "rts_smoother": 1e-9}}
+                       "rts_smoother": 1e-9, "ss_cov_path": 1e-9,
+                       "affine_scan": 1e-9, "qr_elements": 1e-10,
+                       "qr_scan": 1e-9}}
 # The TPU routine each kernel replaces.
 REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "obs_stats": "dfm_tpu/ssm/info_filter.py:69",
             "mstep_rows": "dfm_tpu/estim/em.py:163",
             "info_scan": "dfm_tpu/ssm/info_filter.py:104",
-            "rts_smoother": "dfm_tpu/ssm/kalman.py:84"}
+            "rts_smoother": "dfm_tpu/ssm/kalman.py:84",
+            "ss_cov_path": "dfm_tpu/ssm/steady.py:124",
+            "affine_scan": "dfm_tpu/ops/scan.py:39",
+            "qr_elements": "dfm_tpu/ssm/parallel_filter.py:293",
+            "qr_scan": "dfm_tpu/ops/scan.py:73"}
+# The variant of each kernel whose f32 record goes into the summary line.
+SUMMARY_VARIANT = {"quad_local": "masked", "obs_stats": "masked",
+                   "mstep_rows": "masked", "info_scan": "masked",
+                   "rts_smoother": "masked", "ss_cov_path": "tau_fit",
+                   "affine_scan": "forward tau_fit",
+                   "qr_elements": "filter masked",
+                   "qr_scan": "filter masked"}
+TAU_MAX = 192
+F32_NOISE_MULT = 4.0
 # Constants of the latency probe's chain: fma x h + c, pivot b - (a/d)^2,
 # division by e (csrc/step_chain.cu).
 CHAIN_CONSTS = [0.5, 1.0, 1.0, 3.0, 2.0]
@@ -160,30 +206,6 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def work(name: str, s: int, masked: bool = True) -> tuple:
-    """(bytes, flops) the function needs at the headline shape: each input
-    read once and each output written once; multiply-adds count as 2."""
-    k, TN, k2 = K, T * N, K * K
-    m = TN if masked else 0
-    if name == "quad_local":
-        return (s * (TN + m + N * k + N + T * k) + 8 * T,
-                TN * (2 * k + 5))
-    if name == "obs_stats":
-        return (s * (2 * TN + N * k + N + T * (k + k2 + 2)),
-                TN * (2 * k + k * (k + 1) + 6))
-    if name == "mstep_rows":
-        return (s * (2 * TN + T * (k + 2 * k2) + N * (k + 1)),
-                TN * (4 * k + 2 * k * (k + 1) + 5) + N * (k ** 3 // 3 + 6 * k2))
-    if name == "info_scan":
-        return (s * (T * k + (T * k2 if masked else k2) + 3 * k2 + k
-                     + T * (2 * k + 2 * k2 + 1)),
-                T * (12.67 * k ** 3 + 4 * k2))
-    if name == "rts_smoother":
-        return (s * (T * (2 * k + 2 * k2) + k2 + T * (k + 2 * k2)),
-                T * (10.33 * k ** 3 + 4 * k2))
-    raise KeyError(name)
-
-
 def panel(seed: int, T_: int = T, N_: int = N, K_: int = K):
     """Simulated panel (the headline shape by default): (Y with NaN at
     missing, mask, the fully observed Y, true params)."""
@@ -197,16 +219,138 @@ def panel(seed: int, T_: int = T, N_: int = N, K_: int = K):
     return np.where(W > 0, Y, np.nan), W, Y, p
 
 
-def kernel_cases(Ynan, W, Yfull, p, dtype, lam_ridge=None):
-    """(name, masked, kernel call, plain call, library call or None) for
-    every kernel of the fit path, on inputs the plain pipeline makes from
-    this panel on the card; K3 with ``lam_ridge`` when given.  Call under
-    ``highest_precision()``."""
+def n_combines(T_: int) -> int:
+    """Combines of one blocked scan of length T_ (ops.scan.blocked_scan):
+    phase 1, phase 2 (B - 2), phase 3 and the remainder."""
+    S = sc.block_size(T_)
+    B = T_ // S
+    return (T_ - B) + max(B - 2, 0) + (B - 1) * S + (T_ - B * S)
+
+
+def case(name, variant, run, plain, ins, flops, library=None, floor=None,
+         gram=()):
+    """One kernel comparison: ``ins`` are the tensors the function reads
+    (its bytes bound counts each once, and each output once); the outputs
+    at ``gram`` are square-root factors compared through X X' (see
+    compare)."""
+    return {"name": name, "variant": variant, "run": run, "plain": plain,
+            "ins": ins, "flops": float(flops), "library": library,
+            "floor": floor, "gram": gram}
+
+
+def ss_inputs(stats, pt, tau: int):
+    """The plain steady-state pass at ``tau`` up to the two mean scans:
+    (path, forward scan inputs, reverse scan inputs)."""
+    path = ss.ss_cov_path_plain(stats.C, pt.A, pt.Q, pt.P0, tau)
+    Pf, M, J = path[1], path[2], path[5]
+    T_, k = stats.b.shape
+    b = stats.b
+    x0 = pt.mu0 + Pf[0] @ (b[0] - stats.C @ pt.mu0)
+    d = torch.einsum("tkl,tl->tk", ss._freeze(Pf, T_, tau), b).contiguous()
+    fwd = (d, M, M[-1].contiguous(), x0)
+    x_filt = sc.affine_scan_plain(*fwd)
+    x_pred = torch.cat([pt.mu0[None], x_filt[:-1] @ pt.A.T], dim=0)
+    Jfull = torch.cat([J[:-1], J[-1].expand(T_ - tau, k, k)], dim=0)
+    c = x_filt[:-1] - torch.einsum("tkl,tl->tk", Jfull, x_pred[1:])
+    c = torch.cat([c, torch.zeros_like(c[:1])], dim=0).contiguous()
+    rev = (c, J[:-1].contiguous(), J[-1].contiguous(),
+           x_filt[-1].contiguous())
+    return path, fwd, rev
+
+
+def qr_cases(stats, pt, label: str, unit: bool = True) -> list:
+    """The square-root engine's kernels in every mode, on the elements and
+    moments the plain engine makes from ``stats``."""
+    A, Q, mu0, P0 = pt.A, pt.Q, pt.mu0, pt.P0
+    T_, k = stats.b.shape
+    k3 = k ** 3
+    el = tuple(x.contiguous() for x in
+               pf.qr_filter_elements_plain(stats, A, Q, mu0, P0))
+    pref = tuple(x.contiguous() for x in pf.qr_scan_plain(el))
+    asm = pf.qr_filter_assemble_plain(pref[1], pref[2], stats.C, A, Q, mu0,
+                                      P0)
+    kf = FilterResult(asm[0].contiguous(), asm[1].contiguous(), pref[1],
+                      asm[2].contiguous(), torch.zeros((), dtype=A.dtype))
+    (E, g, D), J = pf.qr_smoother_elements_plain(kf, A, Q)
+    sel = (E.contiguous(), g.contiguous(), D.contiguous())
+    J = J.contiguous()
+    suf = tuple(x.contiguous() for x in pf.qr_scan_plain(sel, True))
+    cases = [
+        case("qr_elements", f"filter {label}",
+             lambda: pf.qr_filter_elements(stats, A, Q, mu0, P0),
+             lambda: pf.qr_filter_elements_plain(stats, A, Q, mu0, P0),
+             (stats.b, stats.C, A, Q, mu0, P0), T_ * 21.3 * k3, gram=(4,)),
+        case("qr_scan", f"filter {label}", lambda: pf.qr_scan(el),
+             lambda: pf.qr_scan_plain(el), el, n_combines(T_) * 34.0 * k3),
+        case("qr_elements", f"assemble filter {label}",
+             lambda: pf.qr_filter_assemble(pref[1], pref[2], stats.C, A, Q,
+                                           mu0, P0),
+             lambda: pf.qr_filter_assemble_plain(pref[1], pref[2], stats.C,
+                                                 A, Q, mu0, P0),
+             (pref[1], pref[2], stats.C, A, Q, mu0, P0), T_ * 15.0 * k3),
+        case("qr_elements", f"smoother {label}",
+             lambda: pf.qr_smoother_elements(kf, A, Q),
+             lambda: pf.qr_smoother_elements_plain(kf, A, Q),
+             (kf.x_pred, kf.P_pred, kf.x_filt, kf.P_filt, A, Q),
+             T_ * 15.0 * k3),
+        case("qr_scan", f"smoother {label}", lambda: pf.qr_scan(sel, True),
+             lambda: pf.qr_scan_plain(sel, True), sel,
+             n_combines(T_) * 8.0 * k3),
+        case("qr_elements", f"assemble smoother {label}",
+             lambda: pf.qr_smoother_assemble(suf[2], J),
+             lambda: pf.qr_smoother_assemble_plain(suf[2], J),
+             (suf[2], J), T_ * 4.0 * k3),
+    ]
+    if not unit:
+        return cases
+    # K6/K7 one function at a time, on matrices of the path: the
+    # predicted covariances (PD), their factors, the observation
+    # precisions C_t (rank-deficient where a step observes < k series),
+    # the [A U_f | Lq] blocks of the predicted factors.
+    Pp = kf.P_pred
+    L = torch.linalg.cholesky(Pp).contiguous()    # LAPACK gives column-major
+    Bm = (A @ kf.P_filt).contiguous()
+    C_t = (stats.C if stats.C.ndim == 3
+           else stats.C.expand(T_, k, k)).contiguous()
+    blk = torch.cat([A @ pref[2], la.psd_factor(Q).expand(T_, k, k)],
+                    dim=-1).contiguous()
+    unit_ops = (
+        ("chol", Pp, None, k3 / 3, lambda: torch.linalg.cholesky(Pp)),
+        ("chol_solve", L, Bm, 2.0 * k3,
+         lambda: torch.cholesky_solve(Bm, L)),
+        ("tria", blk, None, 4.0 * k3,
+         lambda: torch.linalg.qr(blk.transpose(-1, -2))),
+        ("tri_solve", L, Bm, 1.0 * k3,
+         lambda: torch.linalg.solve_triangular(L, Bm, upper=False)),
+        ("tri_solve_trans", L, Bm, 1.0 * k3,
+         lambda: torch.linalg.solve_triangular(L.transpose(-1, -2), Bm,
+                                               upper=True)),
+        ("psd_factor", C_t, None, k3 / 3, None),
+    )
+    for op, X, B, fl, lib in unit_ops:
+        cases.append(case(
+            "qr_elements", op,
+            lambda op=op, X=X, B=B: la.small_linalg(op, X, B),
+            lambda op=op, X=X, B=B: la.SMALL_LINALG_OPS[op][1](X, B),
+            (X,) if B is None else (X, B), T_ * fl, library=lib,
+            gram=(0,) if op == "psd_factor" else ()))
+    return cases
+
+
+def kernel_cases(Ynan, W, Yfull, p, dtype, taus=(), lam_ridge=None,
+                 qr=True, unit=True) -> list:
+    """Every kernel of the fit paths on inputs the plain pipeline makes
+    from this panel on the card: K1-K4 (K3 with ``lam_ridge`` when given),
+    K5a/K5b at each (label, tau) of ``taus``, and the square-root kernels
+    when ``qr``.  Call under ``highest_precision()``."""
     dev = torch.device("cuda")
     Yt = torch.as_tensor(Ynan, dtype=dtype, device=dev).contiguous()
     Yf = torch.as_tensor(Yfull, dtype=dtype, device=dev).contiguous()
     mt = torch.as_tensor(W, dtype=dtype, device=dev).contiguous()
     pt = SSMParams.from_numpy(p, dtype=dtype, device=dev)
+    T_, N_ = Yt.shape
+    k = pt.A.shape[0]
+    TN, k2, k3 = T_ * N_, k * k, k ** 3
     stats = inf.obs_stats_plain(Yt, pt.Lam, pt.R, mt)
     scan = inf.info_scan_plain(stats, pt.A, pt.Q, pt.mu0, pt.P0)
     kf = FilterResult(*scan[:4], torch.zeros((), dtype=dtype))
@@ -214,92 +358,174 @@ def kernel_cases(Ynan, W, Yfull, p, dtype, lam_ridge=None):
     EffT, _ = moments(sm)
     ustats = inf.obs_stats_plain(Yf, pt.Lam, pt.R)
     uscan = inf.info_scan_plain(ustats, pt.A, pt.Q, pt.mu0, pt.P0)
-    return [
-        ("obs_stats", True,
-         lambda: inf.obs_stats(Yt, pt.Lam, pt.R, mt),
-         lambda: inf.obs_stats_plain(Yt, pt.Lam, pt.R, mt),
-         lambda: torch.einsum("nk,tn,n,nl->tkl", pt.Lam, mt, 1.0 / pt.R,
-                              pt.Lam)),
-        ("info_scan", True,
-         lambda: inf.info_scan(stats, pt.A, pt.Q, pt.mu0, pt.P0),
-         lambda: inf.info_scan_plain(stats, pt.A, pt.Q, pt.mu0, pt.P0),
-         None),
-        ("quad_local", True,
-         lambda: inf.quad_local(Yt, pt.Lam, pt.R, scan[0], mt),
-         lambda: inf.quad_local_plain(Yt, pt.Lam, pt.R, scan[0], mt), None),
-        ("rts_smoother", True, lambda: rts_smoother(kf, pt),
-         lambda: rts_smoother_plain(kf, pt), None),
-        ("mstep_rows", True,
-         lambda: mstep_rows(Yt, mt, sm.x_sm, EffT, sm.P_sm, None, 1e-6,
-                            lam_ridge=lam_ridge),
-         lambda: mstep_rows_plain(Yt, mt, sm.x_sm, EffT, sm.P_sm, 1e-6,
-                                  lam_ridge),
-         None),
-        ("info_scan", False,
-         lambda: inf.info_scan(ustats, pt.A, pt.Q, pt.mu0, pt.P0),
-         lambda: inf.info_scan_plain(ustats, pt.A, pt.Q, pt.mu0, pt.P0),
-         None),
-        ("quad_local", False,
-         lambda: inf.quad_local(Yf, pt.Lam, pt.R, uscan[0]),
-         lambda: inf.quad_local_plain(Yf, pt.Lam, pt.R, uscan[0]), None),
+    scan_in = (stats.b, stats.C, pt.A, pt.Q, pt.mu0, pt.P0)
+    uscan_in = (ustats.b, ustats.C, pt.A, pt.Q, pt.mu0, pt.P0)
+    cases = [
+        case("obs_stats", "masked",
+             lambda: inf.obs_stats(Yt, pt.Lam, pt.R, mt),
+             lambda: inf.obs_stats_plain(Yt, pt.Lam, pt.R, mt),
+             (Yt, pt.Lam, pt.R, mt), TN * (2 * k + k * (k + 1) + 6),
+             library=lambda: torch.einsum("nk,tn,n,nl->tkl", pt.Lam, mt,
+                                          1.0 / pt.R, pt.Lam)),
+        case("info_scan", "masked",
+             lambda: inf.info_scan(stats, pt.A, pt.Q, pt.mu0, pt.P0),
+             lambda: inf.info_scan_plain(stats, pt.A, pt.Q, pt.mu0, pt.P0),
+             scan_in, T_ * (12.67 * k3 + 4 * k2),
+             floor=lambda: latency_ms("info_scan", dtype, k, T_)),
+        case("quad_local", "masked",
+             lambda: inf.quad_local(Yt, pt.Lam, pt.R, scan[0], mt),
+             lambda: inf.quad_local_plain(Yt, pt.Lam, pt.R, scan[0], mt),
+             (Yt, pt.Lam, pt.R, scan[0], mt), TN * (2 * k + 5)),
+        case("rts_smoother", "masked", lambda: rts_smoother(kf, pt),
+             lambda: rts_smoother_plain(kf, pt),
+             (kf.x_pred, kf.P_pred, kf.x_filt, kf.P_filt, pt.A),
+             T_ * (10.33 * k3 + 4 * k2),
+             floor=lambda: latency_ms("rts_smoother", dtype, k, T_)),
+        case("mstep_rows", "masked",
+             lambda: mstep_rows(Yt, mt, sm.x_sm, EffT, sm.P_sm, None, 1e-6,
+                                lam_ridge=lam_ridge),
+             lambda: mstep_rows_plain(Yt, mt, sm.x_sm, EffT, sm.P_sm, 1e-6,
+                                      lam_ridge),
+             (Yt, mt, sm.x_sm, EffT, sm.P_sm),
+             TN * (4 * k + 2 * k * (k + 1) + 5) + N_ * (k3 // 3 + 6 * k2)),
+        case("info_scan", "unmasked",
+             lambda: inf.info_scan(ustats, pt.A, pt.Q, pt.mu0, pt.P0),
+             lambda: inf.info_scan_plain(ustats, pt.A, pt.Q, pt.mu0, pt.P0),
+             uscan_in, T_ * (12.67 * k3 + 4 * k2),
+             floor=lambda: latency_ms("info_scan", dtype, k, T_)),
+        case("quad_local", "unmasked",
+             lambda: inf.quad_local(Yf, pt.Lam, pt.R, uscan[0]),
+             lambda: inf.quad_local_plain(Yf, pt.Lam, pt.R, uscan[0]),
+             (Yf, pt.Lam, pt.R, uscan[0]), TN * (2 * k + 5)),
     ]
+    for label, tau in taus:
+        path, fwd, rev = ss_inputs(ustats, pt, tau)
+        C = ustats.C
+        cases += [
+            case("ss_cov_path", label,
+                 lambda tau=tau: ss.ss_cov_path(C, pt.A, pt.Q, pt.P0, tau),
+                 lambda tau=tau: ss.ss_cov_path_plain(C, pt.A, pt.Q, pt.P0,
+                                                      tau),
+                 (C, pt.A, pt.Q, pt.P0), tau * 27.0 * k3,
+                 floor=lambda tau=tau: (
+                     latency_ms("info_scan", dtype, k, tau)
+                     + latency_ms("rts_smoother", dtype, k, 2 * tau + 1))),
+            case("affine_scan", f"forward {label}",
+                 lambda fwd=fwd: sc.affine_scan(*fwd),
+                 lambda fwd=fwd: sc.affine_scan_plain(*fwd), fwd,
+                 2.0 * T_ * k2),
+            case("affine_scan", f"reverse {label}",
+                 lambda rev=rev: sc.affine_scan(*rev, reverse=True),
+                 lambda rev=rev: sc.affine_scan_plain(*rev, reverse=True),
+                 rev, 2.0 * T_ * k2),
+        ]
+    if qr:
+        cases += qr_cases(stats, pt, "masked", unit)
+    return cases
 
 
-def compare(name: str, masked: bool, dtype, run, plain) -> tuple:
-    """(max abs error, max over outputs of max|err| / max|plain|, tol) of
-    the kernel against its plain version; raises on a non-finite output or
-    past the tolerance."""
-    got, ref = run(), plain()
+def as_tuple(x) -> tuple:
+    """The tensors of a (nested) result, flattened."""
+    if isinstance(x, (tuple, list)):
+        return tuple(t for v in x for t in as_tuple(v))
+    return (x,)
+
+
+def compare(c: dict, dtype, ref64=None) -> tuple:
+    """(max abs error, max over outputs of max|err| / max|plain|, tol, the
+    plain outputs, the plain f32 twin's largest distance from ``ref64``
+    relative to max|plain|) of the kernel against its plain version.
+    ``ref64``: the f64 pipeline's plain outputs for this case (f32 only,
+    see TOL).  Raises on a non-finite kernel output or past the
+    tolerance."""
+    got, ref = as_tuple(c["run"]()), as_tuple(c["plain"]())
     torch.cuda.synchronize()
-    got = got if isinstance(got, (tuple, list)) else (got,)
-    ref = ref if isinstance(ref, (tuple, list)) else (ref,)
-    abs_err = rel_err = 0.0
-    for g, r in zip(got, ref):
+    tol = TOL[dtype][c["name"]]
+    abs_err = rel_err = plain_err = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
         if not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"{name}: non-finite kernel output")
-        e = float((g.double() - r.double()).abs().max())
+            raise AssertionError(f"{c['name']} ({c['variant']}): non-finite "
+                                 "kernel output")
+        g, r = g.double(), r.double()
+        r64 = ref64[i].double() if ref64 is not None else None
+        if i in c["gram"]:
+            # A guarded factor of a rank-deficient matrix (psd_factor of
+            # C_t at a step observing < k series) has a last pivot of
+            # rounding noise, which the kernel (fma) and its twin may
+            # keep or zero: factors differing by sqrt(noise) in a null
+            # direction, with the same X X', which is all the element
+            # algebra uses (J = Z Z').
+            g, r = (x @ x.transpose(-1, -2) for x in (g, r))
+            r64 = r64 @ r64.transpose(-1, -2) if r64 is not None else None
+        e = float((g - r).abs().max())
+        scale = max(float(r.abs().max()), 1e-300)
+        noise = float((r - r64).abs().max()) if r64 is not None else 0.0
+        if not e <= tol * scale + F32_NOISE_MULT * noise:
+            raise AssertionError(
+                f"{c['name']} ({dtype}, {c['variant']}), output {i}: "
+                f"max|kernel - plain| {e:.3e} > {tol:.0e} x max|plain| "
+                f"{scale:.3e} + {F32_NOISE_MULT} x max|plain - plain_f64| "
+                f"{noise:.3e}")
         abs_err = max(abs_err, e)
-        rel_err = max(rel_err, e / max(float(r.double().abs().max()), 1e-300))
-    tol = TOL[dtype][name]
-    if not rel_err <= tol:
-        raise AssertionError(
-            f"{name} ({dtype}, masked={masked}): relative error "
-            f"{rel_err:.3e} > tol {tol:.0e}")
-    return abs_err, rel_err, tol
+        rel_err = max(rel_err, e / scale)
+        plain_err = max(plain_err, noise / scale)
+    return abs_err, rel_err, tol, ref, plain_err
 
 
-def kernel_phase(seed: int) -> dict:
+def nbytes_of(tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def fit_tau(seed: int) -> int:
+    """The tau that ``fit`` picks for the unmasked headline panel (its
+    init, then ``auto_tau``): a fit with no EM iteration reports it."""
+    _, _, Yfull, _ = panel(seed + 1)
+    model = dt.DynamicFactorModel(n_factors=K, dynamics="ar1")
+    res = dt.fit(model, Yfull, backend=dt.TorchBackend(), max_iters=0)
+    if res.filter != "ss":
+        raise AssertionError(f"unmasked headline fit resolved to "
+                             f"{res.filter!r}, expected 'ss'")
+    return res.tau
+
+
+def kernel_phase(seed: int, tau_fit: int) -> dict:
     """Every kernel vs its plain version at the headline shape, f32 and
-    f64, timed.  Returns the f32 masked records by kernel name."""
+    f64, timed.  Returns the f32 summary records by kernel name."""
     pan = panel(seed)
+    taus = [("tau_fit", tau_fit), (f"tau={TAU_MAX}", TAU_MAX)]
     summary = {}
-    for dtype in (torch.float32, torch.float64):
-        s = torch.finfo(dtype).bits // 8
-        floors = {name: latency_ms(name, dtype)
-                  for name in ("info_scan", "rts_smoother")}
+    refs = {}               # f64 plain outputs, the f32 yardstick
+    for dtype in (torch.float64, torch.float32):
         with highest_precision():
-            for name, masked, run, plain, library in kernel_cases(*pan,
-                                                                  dtype):
+            for c in kernel_cases(*pan, dtype, taus=taus):
+                name = c["name"]
+                key = (name, c["variant"])
                 n0 = kernels.LAUNCHES[name]
-                abs_err, rel_err, tol = compare(name, masked, dtype, run,
-                                                plain)
-                kernel_ms = cuda_ms(run)
-                cold_ms = cuda_ms_cold(run)
-                plain_ms = cuda_ms(plain)
-                library_ms = cuda_ms(library) if library else None
-                nbytes, flops = work(name, s, masked)
-                bound_ms, bound_by = bound(nbytes, flops, dtype)
-                rec = {"name": name, "masked": masked,
+                abs_err, rel_err, tol, ref, plain_err = compare(
+                    c, dtype, refs.get(key))
+                if dtype == torch.float64:
+                    refs[key] = ref
+                kernel_ms = cuda_ms(c["run"])
+                cold_ms = cuda_ms_cold(c["run"])
+                plain_ms = cuda_ms(c["plain"])
+                library_ms = cuda_ms(c["library"]) if c["library"] else None
+                bound_ms, bound_by = bound(
+                    nbytes_of(c["ins"]) + nbytes_of(ref), c["flops"], dtype)
+                rec = {"name": name, "variant": c["variant"],
                        "dtype": str(dtype).replace("torch.", ""),
                        "max_rel_err": rel_err, "max_abs_err": abs_err,
-                       "tol": tol, "kernel_ms": kernel_ms,
+                       "tol": tol, "plain_f32_err": plain_err,
+                       "kernel_ms": kernel_ms,
                        "kernel_ms_cold_l2": cold_ms,
                        "plain_ms": plain_ms, "library_ms": library_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by,
-                       "latency_ms": floors.get(name),
+                       "latency_ms": c["floor"]() if c["floor"] else None,
                        "launches": kernels.LAUNCHES[name] - n0}
+                if name in ("ss_cov_path", "affine_scan"):
+                    rec["tau"] = dict(taus)[c["variant"].split()[-1]]
                 emit(rec)
-                if dtype == torch.float32 and masked:
+                if (dtype == torch.float32
+                        and c["variant"] == SUMMARY_VARIANT[name]):
                     summary[name] = rec
         torch.cuda.empty_cache()
     return summary
@@ -307,37 +533,73 @@ def kernel_phase(seed: int) -> dict:
 
 def k_sweep(seed: int) -> None:
     """Every kernel at other factor counts (k = 1 and 16, the ends of the
-    kernels' compile-time dispatch, and 3) on a 120 x 400 panel, f32 and
-    f64, K3 with a loading ridge: error checks only."""
-    for k in (1, 3, 16):
-        pan = panel(seed + 2, T_=120, N_=400, K_=k)
-        for dtype in (torch.float32, torch.float64):
+    kernels' compile-time dispatch, 3, and 10, the square-root kernels'
+    end) on a 120 x 400 panel with a fully missing step and a step that
+    observes fewer than k series, f32 and f64, K3 with a loading ridge,
+    the steady-state kernels at tau = 24, the square-root kernels up to
+    k = 10: error checks only."""
+    for k in (1, 3, 10, 16):
+        _, W, Yfull, p = panel(seed + 2, T_=120, N_=400, K_=k)
+        W[7] = 0.0
+        W[11] = 0.0
+        W[11, :k - 1] = 1.0
+        Ynan = np.where(W > 0, Yfull, np.nan)
+        refs = {}
+        for dtype in (torch.float64, torch.float32):
             worst = {}
             with highest_precision():
-                for name, masked, run, plain, _ in kernel_cases(
-                        *pan, dtype, lam_ridge=0.5):
-                    rel = compare(name, masked, dtype, run, plain)[1]
-                    worst[name] = max(worst.get(name, 0.0), rel)
+                for c in kernel_cases(Ynan, W, Yfull, p, dtype,
+                                      taus=[("tau=24", 24)], lam_ridge=0.5,
+                                      qr=k <= la.QR_UNROLL_K_MAX):
+                    key = (c["name"], c["variant"])
+                    _, rel, _, ref, _ = compare(c, dtype, refs.get(key))
+                    refs[key] = ref
+                    worst[c["name"]] = max(worst.get(c["name"], 0.0), rel)
             emit({"k_sweep": k, "dtype": str(dtype).replace("torch.", ""),
                   "max_rel_err": worst})
 
 
-FIT_KERNELS = {True: ("quad_local", "obs_stats", "mstep_rows", "info_scan",
-                      "rts_smoother"),
-               False: ("quad_local", "info_scan", "rts_smoother")}
+# Per fit: (label, masked, filter asked, engine it must resolve to, EM
+# iterations, kernels that must launch, kernels that must launch every
+# iteration).
+FITS = (
+    ("masked", True, "auto", "info", 20,
+     ("quad_local", "obs_stats", "mstep_rows", "info_scan", "rts_smoother"),
+     ("quad_local", "obs_stats", "mstep_rows", "info_scan",
+      "rts_smoother")),
+    ("unmasked ss", False, "auto", "ss", 20,
+     ("ss_cov_path", "affine_scan", "quad_local", "info_scan",
+      "rts_smoother"),
+     ("ss_cov_path", "affine_scan")),
+    ("masked pit_qr", True, "pit_qr", "pit_qr", 20,
+     ("qr_elements", "qr_scan", "obs_stats", "quad_local", "mstep_rows",
+      "info_scan", "rts_smoother"),
+     ("qr_elements", "qr_scan", "obs_stats", "quad_local", "mstep_rows")),
+    ("unmasked info", False, "info", "info", 10,
+     ("quad_local", "info_scan", "rts_smoother"),
+     ("quad_local", "info_scan", "rts_smoother")),
+)
+# The fit whose launch counts the summary line reports for each kernel:
+# the path that kernel serves.
+OWN_FIT = {"quad_local": "masked", "obs_stats": "masked",
+           "mstep_rows": "masked", "info_scan": "masked",
+           "rts_smoother": "masked", "ss_cov_path": "unmasked ss",
+           "affine_scan": "unmasked ss", "qr_elements": "masked pit_qr",
+           "qr_scan": "masked pit_qr"}
 
 
 def fit_phase(seed: int) -> dict:
-    """The two headline fits; returns the masked fit's launch counts."""
+    """The headline fits; returns each fit's launch counts by label."""
     Ynan, _, Yfull, _ = panel(seed + 1)
     model = dt.DynamicFactorModel(n_factors=K, dynamics="ar1")
     counts = {}
-    for masked, Y, flt in ((True, Ynan, "auto"), (False, Yfull, "info")):
+    for label, masked, flt, engine, iters, need, every in FITS:
+        Y = Ynan if masked else Yfull
         backend = dt.TorchBackend(filter=flt)
         torch.cuda.synchronize()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        res = dt.fit(model, Y, backend=backend, max_iters=20, tol=0.0)
+        res = dt.fit(model, Y, backend=backend, max_iters=iters, tol=0.0)
         y_fore, f_fore = dt.forecast(res, 12)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -346,54 +608,74 @@ def fit_phase(seed: int) -> dict:
         floor = noise_floor_for(torch.float32, T * N)
         chunk = backend.fused_chunk
         steady = [h["secs"] for h in res.history[chunk:]]
-        rec = {"fit": "masked" if masked else "unmasked", "filter": res.filter,
-               "n_iters": res.n_iters, "loglik_first": float(lls[0]),
-               "loglik_last": float(lls[-1]),
+        rec = {"fit": label, "filter": res.filter,
+               "n_iters": res.n_iters, "tau": res.tau,
+               "max_freeze_delta": res.ss_delta,
+               "loglik_first": float(lls[0]), "loglik_last": float(lls[-1]),
                "max_drop": float(max(0.0, -np.diff(lls).min())),
                "noise_floor": floor, "wall_s": wall,
                "em_iters_per_sec": (len(steady) / sum(steady)
                                     if steady and sum(steady) > 0 else None),
                "launches": launches}
         emit(rec)
-        if masked and res.filter != "info":
-            raise AssertionError(f"filter='auto' resolved to {res.filter!r}")
-        if res.n_iters != 20:
-            raise AssertionError(f"fit stopped after {res.n_iters} iterations")
+        if res.filter != engine:
+            raise AssertionError(f"{label}: filter={flt!r} resolved to "
+                                 f"{res.filter!r}, expected {engine!r}")
+        if engine == "ss" and not 2 * res.tau + 4 < T:
+            raise AssertionError(f"{label}: tau = {res.tau} sends the ss "
+                                 "engine to its exact fallback")
+        if res.n_iters != iters:
+            raise AssertionError(f"{label}: fit stopped after {res.n_iters} "
+                                 "iterations")
         if not np.isfinite(lls).all():
-            raise AssertionError("non-finite loglik")
+            raise AssertionError(f"{label}: non-finite loglik")
         if np.diff(lls).min() < -floor:
-            raise AssertionError(f"loglik dropped by {-np.diff(lls).min()} "
-                                 f"> noise floor {floor}")
+            raise AssertionError(f"{label}: loglik dropped by "
+                                 f"{-np.diff(lls).min()} > noise floor "
+                                 f"{floor}")
         for name, arr in (("factors", res.factors), ("y_fore", y_fore),
                           ("f_fore", f_fore)):
             if not np.isfinite(arr).all():
-                raise AssertionError(f"non-finite {name}")
+                raise AssertionError(f"{label}: non-finite {name}")
         if res.factors.shape != (T, K) or y_fore.shape != (12, N):
-            raise AssertionError("unexpected output shapes")
-        missing = [n for n in FIT_KERNELS[masked] if launches[n] == 0]
-        if missing:
-            raise AssertionError(f"kernels not launched on the fit path: "
-                                 f"{missing}")
-        if masked:
-            counts = launches
+            raise AssertionError(f"{label}: unexpected output shapes")
+        missing = [n for n in need if launches[n] == 0]
+        short = [n for n in every if launches[n] < iters]
+        if missing or short:
+            raise AssertionError(f"{label}: kernels not launched on the fit "
+                                 f"path: {missing}; launched fewer times "
+                                 f"than iterations: {short}")
+        counts[label] = launches
     return counts
 
 
 def reference_phase(seed: int) -> None:
-    """The whole fit on a small panel (120 x 80, k = 3), on the card in f64
-    against the same fit on the CPU in f64, where every kernel's plain
-    version runs: logliks, params, factors and forecasts within 1e-9
-    relative (each kernel pass agrees to ~1e-15 in f64; 10 EM iterations
-    carry each pass's rounding into the next params)."""
+    """The whole fit on small panels, on the card in f64 against the same
+    fit on the CPU in f64, where every kernel's plain version runs:
+    logliks, params, factors and forecasts.  The info fits at 120 x 80,
+    k = 3, masked and not, within 1e-9 relative (each kernel pass agrees
+    to ~1e-15 in f64; 10 EM iterations carry each pass's rounding into the
+    next params); the ss fit (150 x 80, unmasked) and the pit_qr fit
+    (120 x 80, masked) within 1e-10."""
     Ynan, _, Yfull, _ = panel(seed + 3, T_=120, N_=80, K_=3)
+    _, _, Ylong, _ = panel(seed + 4, T_=150, N_=80, K_=3)
     model = dt.DynamicFactorModel(n_factors=3, dynamics="ar1")
-    for masked, Y in ((True, Ynan), (False, Yfull)):
+    for label, Y, flt, tol in (("masked", Ynan, "info", 1e-9),
+                               ("unmasked", Yfull, "info", 1e-9),
+                               ("unmasked ss", Ylong, "ss", 1e-10),
+                               ("masked pit_qr", Ynan, "pit_qr", 1e-10)):
         res = {}
         for dev in ("cuda", "cpu"):
-            b = dt.TorchBackend(device=dev, dtype=torch.float64, filter="info")
+            b = dt.TorchBackend(device=dev, dtype=torch.float64, filter=flt)
+            kernels.reset_launches()
             r = dt.fit(model, Y, backend=b, max_iters=10, tol=0.0)
-            res[dev] = (r, dt.forecast(r, 12)[0])
-        (rg, yg), (rc, yc) = res["cuda"], res["cpu"]
+            res[dev] = (r, dt.forecast(r, 12)[0], dict(kernels.LAUNCHES))
+        (rg, yg, lg), (rc, yc, _) = res["cuda"], res["cpu"]
+        own = {"ss": ("ss_cov_path", "affine_scan"),
+               "pit_qr": ("qr_elements", "qr_scan")}.get(flt, ())
+        if any(lg[n] == 0 for n in own):
+            raise AssertionError(f"reference {label}: the card fit did not "
+                                 f"launch {own} (launches {lg})")
         errs = {}
         for name, g, c in (("logliks", rg.logliks, rc.logliks),
                            ("Lam", rg.params.Lam, rc.params.Lam),
@@ -402,35 +684,41 @@ def reference_phase(seed: int) -> None:
                            ("factors", rg.factors, rc.factors),
                            ("y_fore", yg, yc)):
             errs[name] = float(np.abs(g - c).max() / np.abs(c).max())
-        emit({"reference": "masked" if masked else "unmasked",
-              "shape": [120, 80, 3], "max_rel_err": errs, "tol": 1e-9})
-        bad = {n: e for n, e in errs.items() if not e <= 1e-9}
+        emit({"reference": label, "filter": rg.filter, "tau": rg.tau,
+              "shape": [Y.shape[0], Y.shape[1], 3], "max_rel_err": errs,
+              "tol": tol})
+        bad = {n: e for n, e in errs.items() if not e <= tol}
         if bad:
-            raise AssertionError(f"card fit disagrees with the CPU fit: {bad}")
+            raise AssertionError(f"card fit disagrees with the CPU fit "
+                                 f"({label}): {bad}")
 
 
 def contract_phase(seed: int) -> None:
     """BASELINE.json:5 loglik contract at iteration 3 (bench.py's
-    definition): f32 params after 2 updates, evaluated in f64, against the
-    f64 trajectory's loglik at its 2-update params."""
+    definition): f32 params after 2 updates, evaluated with the exact f64
+    filter, against the f64 trajectory's loglik of the same engine (same
+    tau) at its 2-update params."""
     Ynan, W, Yfull, _ = panel(seed + 1)
     dev = torch.device("cuda")
-    for masked in (True, False):
+    for engine, masked in (("info", True), ("info", False), ("ss", False),
+                           ("pit_qr", True)):
         Y = Ynan if masked else Yfull
         Wm = W if masked else None
         Z, _ = data.standardize(Y, mask=Wm)
         Z = np.where(np.isfinite(Z), Z, 0.0)
-        cfg = EMConfig(filter="info")
         with highest_precision():
             p0 = pca_init_device(
                 torch.as_tensor(Z, dtype=torch.float64, device=dev), K)
+            cfg = EMConfig(filter=engine)
+            if engine == "ss":
+                cfg = EMConfig(filter="ss", tau=ss.auto_tau(p0))
             lls = {}
             for dtype in (torch.float32, torch.float64):
                 Yt = torch.as_tensor(Z, dtype=dtype, device=dev)
                 mt = (torch.as_tensor(Wm, dtype=dtype, device=dev)
                       if masked else None)
                 pt = SSMParams.from_numpy(p0, dtype=dtype, device=dev)
-                ps, ll = em_fit_scan(Yt, pt, 3, mask=mt, cfg=cfg)
+                ps, ll, _ = em_fit_scan(Yt, pt, 3, mask=mt, cfg=cfg)
                 lls[dtype] = (ps, ll.cpu().numpy())
             ref = float(lls[torch.float64][1][2])
             p2 = lls[torch.float32][0][1].to_numpy()
@@ -439,11 +727,44 @@ def contract_phase(seed: int) -> None:
                 mask=Wm, precise=True)
         rel = abs(precise - ref) / abs(ref)
         fast = abs(float(lls[torch.float32][1][2]) - ref) / abs(ref)
-        emit({"contract": "masked" if masked else "unmasked", "iter": 3,
+        emit({"contract": f"{'masked' if masked else 'unmasked'} {engine}",
+              "tau": cfg.tau if engine == "ss" else None, "iter": 3,
               "loglik_f64": ref, "rel_err_precise": rel,
               "rel_err_fast": fast, "limit": 1e-5})
         if not rel < 1e-5:
-            raise AssertionError(f"loglik contract broken: {rel:.3e}")
+            raise AssertionError(f"loglik contract broken ({engine}): "
+                                 f"{rel:.3e}")
+
+
+def ptxas_summary(source: str) -> dict:
+    """Build seconds and, over the k = 10 instantiations of ``source``
+    (every function for a source without a k template), the largest
+    register count and stack frame and the summed spills, from nvcc's
+    ``-Xptxas -v`` log."""
+    rec = {"ptxas": source, "built_s": None, "functions": 0, "max_regs": 0,
+           "max_stack_frame": 0, "spill_stores": 0, "spill_loads": 0}
+    log = kernels.build_log(source).splitlines()
+    templ = any("Li10E" in line for line in log)
+    name = None
+    for line in log:
+        if line.startswith("# built in"):
+            rec["built_s"] = max(rec["built_s"] or 0.0,
+                                 float(line.split()[3]))
+        elif "Compiling entry function" in line or "Function properties" in line:
+            name = line.split()[-1] if "properties" in line else \
+                line.split("'")[1]
+        elif name and (not templ or "Li10E" in name):
+            words = line.replace(",", "").split()
+            if "stack" in words and "frame" in words:
+                rec["functions"] += 1
+                rec["max_stack_frame"] = max(rec["max_stack_frame"],
+                                             int(words[0]))
+                rec["spill_stores"] += int(words[words.index("spill") - 2])
+                rec["spill_loads"] += int(words[-4])
+            elif "registers" in words:
+                rec["max_regs"] = max(rec["max_regs"],
+                                      int(words[words.index("registers") - 1]))
+    return rec
 
 
 def main() -> int:
@@ -458,7 +779,11 @@ def main() -> int:
     print(card, flush=True)
     emit({"build_s": kernels.build(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
-    summary = kernel_phase(args.seed)
+    for source in sorted({src for src, _ in kernels.KERNELS.values()}):
+        emit(ptxas_summary(source))
+    tau_fit = fit_tau(args.seed)
+    emit({"tau_fit": tau_fit})
+    summary = kernel_phase(args.seed, tau_fit)
     k_sweep(args.seed)
     launches = fit_phase(args.seed)
     reference_phase(args.seed)
@@ -466,7 +791,9 @@ def main() -> int:
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"dfm_tpu_torch/csrc/{kernels.KERNELS[name][0]}",
-         "replaces": REPLACES[name], "launches": launches[name],
+         "replaces": REPLACES[name], "variant": rec["variant"],
+         "launches": launches[OWN_FIT[name]][name],
+         "launches_fit": OWN_FIT[name],
          "max_abs_err": rec["max_abs_err"], "max_rel_err": rec["max_rel_err"],
          "ms": rec["kernel_ms"], "ms_cold_l2": rec["kernel_ms_cold_l2"],
          "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

@@ -21,6 +21,7 @@ from .estim.init import pca_init_device, standardize_device
 from .ops.precision import default_compute_dtype, highest_precision
 from .ssm.info_filter import smooth
 from .ssm.params import SSMParams
+from .ssm.steady import auto_tau
 from .utils.data import (Standardizer, build_mask, standardize,
                          standardize_onepass, validate_panel)
 
@@ -75,6 +76,8 @@ class FitResult:
     backend: str
     history: list                      # per-iter dicts {iter, loglik, secs}
     filter: Optional[str] = None       # resolved in-loop filter engine
+    tau: Optional[int] = None          # steady-state horizon ("ss" only)
+    ss_delta: Optional[float] = None   # largest ss freeze delta ("ss" only)
 
     @property
     def loglik(self) -> float:
@@ -88,10 +91,12 @@ class TorchBackend:
     kernel's plain-torch version).  dtype: compute dtype, None for float32
     on CUDA and float64 on the CPU.  filter: "auto" (dense below N = 32,
     "ss" for unmasked panels at N >= 512, info otherwise — the JAX
-    package's rule; "ss" raises until its engine is ported), "dense" or
-    "info".  fused_chunk: EM iterations per device chunk between host
-    reads.  device_init: standardize and PCA-init on the device ("auto":
-    when N*T >= 4e6).
+    package's rule), "dense", "info", "ss" (steady-state; tau from the
+    Riccati mixing time at the init params) or "pit_qr" (square-root
+    parallel-in-time; k <= 10 on CUDA); "pit" and "lowrank" raise until
+    they are ported.  fused_chunk: EM iterations per device chunk between
+    host reads.  device_init: standardize and PCA-init on the device
+    ("auto": when N*T >= 4e6).
     """
 
     name = "torch"
@@ -210,9 +215,15 @@ def _fit_impl(model, Y, mask, b: TorchBackend, max_iters, tol, init):
     flt = b._filter_for(N, mt is not None)
     cfg = EMConfig(estimate_A=model.estimate_A, estimate_Q=model.estimate_Q,
                    estimate_init=model.estimate_init, filter=flt)
-    p, lls, converged, _, secs = run_em_chunked(
+    if flt == "ss":
+        # tau from the covariance recursion's mixing time at the init
+        # params (host NumPy, k x k); the freeze delta guards it.
+        cfg = dataclasses.replace(cfg, tau=auto_tau(init))
+    p, lls, converged, _, secs, max_delta = run_em_chunked(
         Yt, mt, SSMParams.from_numpy(init, dtype=b.dtype, device=b.device),
         cfg, max_iters, tol, b.fused_chunk)
+    # The reporting smooth is exact: dense through the N x N filter, every
+    # other engine through the info-form pair.
     x_sm, P_sm = smooth(Yt, p, mt, dense=(flt == "dense"))
     history = [{"iter": i, "loglik": float(ll), "secs": s}
                for i, (ll, s) in enumerate(zip(lls, secs))]
@@ -221,7 +232,9 @@ def _fit_impl(model, Y, mask, b: TorchBackend, max_iters, tol, init):
                      factor_cov=P_sm.to("cpu", torch.float64).numpy(),
                      converged=bool(converged), n_iters=len(lls),
                      standardizer=std, model=model, backend=b.name,
-                     history=history, filter=flt)
+                     history=history, filter=flt,
+                     tau=cfg.tau if flt == "ss" else None,
+                     ss_delta=max_delta if flt == "ss" else None)
 
 
 def forecast(result: FitResult, horizon: int):

@@ -11,6 +11,15 @@
 #include <cfloat>
 #include <cstddef>
 
+// Each source is built once per dtype (kernels/__init__.py passes
+// -DDFM_DTYPE=32 or 64), so the two halves compile in parallel; without
+// the flag both entry points are built.
+#ifndef DFM_DTYPE
+#define DFM_DTYPE 0
+#endif
+#define DFM_WANT_F32 (DFM_DTYPE != 64)
+#define DFM_WANT_F64 (DFM_DTYPE != 32)
+
 // Largest factor count the kernels take; the wrappers raise above it.
 #define DFM_KMAX 16
 

@@ -21,75 +21,10 @@
 // and its floor is T times the latency of one step's dependent chain.
 //
 // Design: one warp per problem lane (one lane here), all k x k matrices in
-// shared memory (row-major, leading dimension DFM_KMAX + 1 so that lanes
-// reading different rows hit different banks).  Lane j computes column j
-// of each product and solves for column j of each right-hand side; the
-// Cholesky factorization is column by column, lane i updating row i.
-// __syncwarp() separates the phases.  k <= DFM_KMAX.
-#include "common.cuh"
-
-constexpr int LD = DFM_KMAX + 1;
-
-template <typename T>
-using SMat = T (*)[LD];
-
-// C = op(A) op(B); lane j computes column j.  C aliases neither A nor B.
-template <typename T, bool TA, bool TB>
-__device__ void mm(SMat<T> C, SMat<T> A, SMat<T> B, int k) {
-  const int j = threadIdx.x;
-  if (j < k) {
-    for (int i = 0; i < k; ++i) {
-      T s = T(0);
-      for (int l = 0; l < k; ++l)
-        s += (TA ? A[l][i] : A[i][l]) * (TB ? B[j][l] : B[l][j]);
-      C[i][j] = s;
-    }
-  }
-  __syncwarp();
-}
-
-// In-place Cholesky of the lower triangle of W (which already holds
-// sym(M) + jitter I); the strict upper triangle is zeroed.  No clamp: a
-// negative pivot gives NaN, as jnp.linalg.cholesky does.
-template <typename T>
-__device__ void chol_inplace(SMat<T> W, int k) {
-  const int lane = threadIdx.x;
-  for (int p = 0; p < k; ++p) {
-    const T d = dfm_sqrt(W[p][p]);
-    __syncwarp();
-    if (lane == p) W[p][p] = d;
-    else if (lane > p && lane < k) W[lane][p] /= d;
-    __syncwarp();
-    if (lane > p && lane < k) {
-      const T ljp = W[lane][p];
-      for (int i = lane; i < k; ++i) W[i][lane] -= W[i][p] * ljp;
-    }
-    __syncwarp();
-  }
-  if (lane < k)
-    for (int i = 0; i < lane; ++i) W[i][lane] = T(0);
-  __syncwarp();
-}
-
-// X = (L L')^{-1} op(B); lane j solves for column j.  X may alias B when
-// op is the identity.
-template <typename T, bool TB>
-__device__ void chol_solve_cols(SMat<T> X, SMat<T> L, SMat<T> B, int k) {
-  const int j = threadIdx.x;
-  if (j < k) {
-    for (int i = 0; i < k; ++i) {
-      T s = TB ? B[j][i] : B[i][j];
-      for (int m = 0; m < i; ++m) s -= L[i][m] * X[m][j];
-      X[i][j] = s / L[i][i];
-    }
-    for (int i = k - 1; i >= 0; --i) {
-      T s = X[i][j];
-      for (int m = i + 1; m < k; ++m) s -= L[m][i] * X[m][j];
-      X[i][j] = s / L[i][i];
-    }
-  }
-  __syncwarp();
-}
+// shared memory; the one-warp routines (warp_linalg.cuh) are shared with
+// K5a (ss_cov_path.cu), whose covariance steps are this forward step
+// without the data.  k <= DFM_KMAX.
+#include "warp_linalg.cuh"
 
 template <typename T>
 __global__ void __launch_bounds__(32)
@@ -106,7 +41,6 @@ info_scan_kernel(const T* __restrict__ b, const T* __restrict__ C,
   __shared__ T x[DFM_KMAX], u[DFM_KMAX], xf[DFM_KMAX];
   const int lane = threadIdx.x;
   const int kk = k * k;
-  const T jit = dfm_jitter<T>();
   for (int e = lane; e < kk; e += 32) {
     const int i = e / k, j = e % k;
     Am[i][j] = A[e];
@@ -118,29 +52,12 @@ info_scan_kernel(const T* __restrict__ b, const T* __restrict__ C,
   for (int t = 0; t < T_; ++t) {
     const T* Ct = C + (size_t)t * c_stride;
     for (int e = lane; e < kk; e += 32) {
-      const int i = e / k, j = e % k;
-      P_pred[(size_t)t * kk + e] = P[i][j];
-      Cm[i][j] = Ct[e];
-      Lp[i][j] = T(0.5) * (P[i][j] + P[j][i]) + (i == j ? jit : T(0));
+      P_pred[(size_t)t * kk + e] = P[e / k][e % k];
+      Cm[e / k][e % k] = Ct[e];
     }
     if (lane < k) x_pred[(size_t)t * k + lane] = x[lane];
     __syncwarp();
-    chol_inplace<T>(Lp, k);
-    mm<T, false, false>(CL, Cm, Lp, k);                 // C_t Lp
-    mm<T, true, false>(G, Lp, CL, k);                   // Lp' C_t Lp
-    for (int e = lane; e < kk; e += 32) {
-      const int i = e / k, j = e % k;
-      const T d = i == j ? T(1) : T(0);
-      Lg[i][j] = T(0.5) * ((d + G[i][j]) + (d + G[j][i]));
-    }
-    __syncwarp();
-    chol_inplace<T>(Lg, k);
-    chol_solve_cols<T, true>(X, Lg, Lp, k);             // G^{-1} Lp'
-    mm<T, false, false>(G, Lp, X, k);                   // Lp G^{-1} Lp'
-    for (int e = lane; e < kk; e += 32) {
-      const int i = e / k, j = e % k;
-      Pf[i][j] = T(0.5) * (G[i][j] + G[j][i]);
-    }
+    info_cov_update<T>(P, Cm, Lp, CL, G, Lg, X, Pf, k);
     if (lane < k) {
       T s = T(0);
       for (int l = 0; l < k; ++l) s += Cm[lane][l] * x[l];
@@ -155,24 +72,14 @@ info_scan_kernel(const T* __restrict__ b, const T* __restrict__ C,
     }
     for (int e = lane; e < kk; e += 32)
       P_filt[(size_t)t * kk + e] = Pf[e / k][e % k];
-    if (lane == 0) {
-      T s = T(0);
-      for (int i = 0; i < k; ++i) s += dfm_log(Lg[i][i]);
-      logdetG[t] = T(2) * s;
-    }
+    if (lane == 0) logdetG[t] = chol_logdet_warp<T>(Lg, k);
     __syncwarp();
     if (lane < k) {
       T s = T(0);
       for (int l = 0; l < k; ++l) s += Am[lane][l] * xf[l];
       x[lane] = s;
     }
-    mm<T, false, false>(CL, Am, Pf, k);                 // A P_f
-    mm<T, false, true>(G, CL, Am, k);                   // A P_f A'
-    for (int e = lane; e < kk; e += 32) {
-      const int i = e / k, j = e % k;
-      P[i][j] = T(0.5) * ((G[i][j] + Qm[i][j]) + (G[j][i] + Qm[j][i]));
-    }
-    __syncwarp();
+    predict_cov<T>(P, Pf, Am, Qm, CL, G, k);
   }
 }
 
@@ -271,6 +178,7 @@ static int launch_rts(const T* x_pred, const T* P_pred, const T* x_filt,
 }
 
 extern "C" {
+#if DFM_WANT_F32
 int info_scan_f32(const float* b, const float* C, int c_stride,
                   const float* A, const float* Q, const float* mu0,
                   const float* P0, float* x_pred, float* P_pred,
@@ -280,6 +188,8 @@ int info_scan_f32(const float* b, const float* C, int c_stride,
                             x_filt, P_filt, logdetG, T, k,
                             (cudaStream_t)stream);
 }
+#endif
+#if DFM_WANT_F64
 int info_scan_f64(const double* b, const double* C, int c_stride,
                   const double* A, const double* Q, const double* mu0,
                   const double* P0, double* x_pred, double* P_pred,
@@ -289,6 +199,8 @@ int info_scan_f64(const double* b, const double* C, int c_stride,
                              x_filt, P_filt, logdetG, T, k,
                              (cudaStream_t)stream);
 }
+#endif
+#if DFM_WANT_F32
 int rts_smoother_f32(const float* x_pred, const float* P_pred,
                      const float* x_filt, const float* P_filt, const float* A,
                      float* x_sm, float* P_sm, float* P_lag, int T, int k,
@@ -296,6 +208,8 @@ int rts_smoother_f32(const float* x_pred, const float* P_pred,
   return launch_rts<float>(x_pred, P_pred, x_filt, P_filt, A, x_sm, P_sm,
                            P_lag, T, k, (cudaStream_t)stream);
 }
+#endif
+#if DFM_WANT_F64
 int rts_smoother_f64(const double* x_pred, const double* P_pred,
                      const double* x_filt, const double* P_filt,
                      const double* A, double* x_sm, double* P_sm,
@@ -303,4 +217,5 @@ int rts_smoother_f64(const double* x_pred, const double* P_pred,
   return launch_rts<double>(x_pred, P_pred, x_filt, P_filt, A, x_sm, P_sm,
                             P_lag, T, k, (cudaStream_t)stream);
 }
+#endif
 }

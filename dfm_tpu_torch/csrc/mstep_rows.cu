@@ -166,6 +166,7 @@ static int launch(const T* Y, const T* mask, const T* Ef, const T* EffT,
 }
 
 extern "C" {
+#if DFM_WANT_F32
 int mstep_rows_f32(const float* Y, const float* mask, const float* Ef,
                    const float* EffT, const float* Psm, float* Lam, float* R,
                    int T, int N, int k, double r_floor, double lam_ridge,
@@ -173,6 +174,8 @@ int mstep_rows_f32(const float* Y, const float* mask, const float* Ef,
   return launch<float>(Y, mask, Ef, EffT, Psm, Lam, R, T, N, k, r_floor,
                        lam_ridge, (cudaStream_t)stream);
 }
+#endif
+#if DFM_WANT_F64
 int mstep_rows_f64(const double* Y, const double* mask, const double* Ef,
                    const double* EffT, const double* Psm, double* Lam,
                    double* R, int T, int N, int k, double r_floor,
@@ -180,4 +183,5 @@ int mstep_rows_f64(const double* Y, const double* mask, const double* Ef,
   return launch<double>(Y, mask, Ef, EffT, Psm, Lam, R, T, N, k, r_floor,
                         lam_ridge, (cudaStream_t)stream);
 }
+#endif
 }

@@ -93,16 +93,20 @@ static int launch(const T* Y, const T* Lam, const T* R, const T* mask, T* b,
 }
 
 extern "C" {
+#if DFM_WANT_F32
 int obs_stats_f32(const float* Y, const float* Lam, const float* R,
                   const float* mask, float* b, float* C, float* nobs,
                   float* ldR, int T, int N, int k, void* stream) {
   return launch<float>(Y, Lam, R, mask, b, C, nobs, ldR, T, N, k,
                        (cudaStream_t)stream);
 }
+#endif
+#if DFM_WANT_F64
 int obs_stats_f64(const double* Y, const double* Lam, const double* R,
                   const double* mask, double* b, double* C, double* nobs,
                   double* ldR, int T, int N, int k, void* stream) {
   return launch<double>(Y, Lam, R, mask, b, C, nobs, ldR, T, N, k,
                         (cudaStream_t)stream);
 }
+#endif
 }

@@ -57,16 +57,20 @@ static int launch(const T* Y, const T* Lam, const T* R, const T* x_pred,
 }
 
 extern "C" {
+#if DFM_WANT_F32
 int quad_local_f32(const float* Y, const float* Lam, const float* R,
                    const float* x_pred, const float* mask, double* out,
                    int T, int N, int k, void* stream) {
   return launch<float>(Y, Lam, R, x_pred, mask, out, T, N, k,
                        (cudaStream_t)stream);
 }
+#endif
+#if DFM_WANT_F64
 int quad_local_f64(const double* Y, const double* Lam, const double* R,
                    const double* x_pred, const double* mask, double* out,
                    int T, int N, int k, void* stream) {
   return launch<double>(Y, Lam, R, x_pred, mask, out, T, N, k,
                         (cudaStream_t)stream);
 }
+#endif
 }

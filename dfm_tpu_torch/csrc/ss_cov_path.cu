@@ -1,0 +1,216 @@
+// K5a: the k x k part of the steady-state engine, in one launch of one CTA.
+//
+// Replaces dfm_tpu/ssm/steady.py:_cov_path (line 124) and the k x k
+// smoother of ss_from_stats (lines 198-234).  With a time-invariant C the
+// covariance recursion does not depend on the data, so tau exact steps
+// stand in for all T:
+//   phase A (warp 0), t = 0 .. tau-1, from P = P0:
+//     K4-forward's covariance step (warp_linalg.cuh: Lp = chol(sym(P) +
+//     jitter), G = I + Lp' C Lp, Lg = chol(sym(G)) with no jitter, P_f =
+//     sym(Lp G^{-1} Lp')), then M_t = A - P_f (C A), log|G|_t, and
+//     P <- sym(A P_f A' + Q); it emits P_pred,t (the P it started from),
+//     P_filt,t, M_t, log|G|_t and delta = max|P_tau - P_pred,tau-1| /
+//     (max|P_tau| + 1e-30), the freeze diagnostic.
+//   phase B (all warps, one t per warp at a time):
+//     J_t = (chol(sym(P_pred,u) + jitter) solve A P_filt,t)',
+//     u = min(t + 1, tau - 1); no J_t needs another, so they run in
+//     parallel.  J_{tau-1} is the steady gain J_ss.
+//   phase C (warp 0): the two backward passes of the smoothed covariance,
+//     bstep_ss: P <- sym(P_f,ss + J_ss (P - P_pred,ss) J_ss'), tau steps
+//       from P_f,ss, emitted in step order (Psm_end_rev); the last is the
+//       interior fixed point;
+//     bstep_ex: t = tau-1 .. 0 from that fixed point,
+//       P <- sym(P_f,t + J_t (P - P_pred,u) J_t'), emitted at t (Psm_front).
+//
+// Bound on the H100: neither bytes (~40 k^2 tau values) nor operations
+// (~25 k^3 tau flops, ~5 MFLOP at tau = 192, k = 10): phases A and C are
+// chains of tau dependent k x k steps, so the floor is 2 tau step
+// latencies; phase B has tau independent problems.  Design: all matrices
+// in dynamic shared memory (leading dimension DFM_KMAX + 1), the one-warp
+// routines of K4, the J_t spread over SS_WARPS warps, one launch so the
+// 3 tau steps cost no launches.  k <= DFM_KMAX.
+#include "warp_linalg.cuh"
+
+constexpr int SS_WARPS = 16;
+constexpr int MAT = DFM_KMAX * LD;         // elements of one matrix slot
+constexpr int SS_SLOTS = 12 + 3 * SS_WARPS;
+
+template <typename T>
+__device__ __forceinline__ SMat<T> slot(T* base, int i) {
+  return reinterpret_cast<SMat<T>>(base + (size_t)i * MAT);
+}
+
+// max that keeps a NaN, as jnp.max does.
+template <typename T>
+__device__ __forceinline__ T nan_max(T a, T b) {
+  return (isnan(a) || a > b) ? a : b;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * SS_WARPS)
+ss_cov_path_kernel(const T* __restrict__ C, const T* __restrict__ A,
+                   const T* __restrict__ Q, const T* __restrict__ P0,
+                   T* Pp, T* Pf, T* __restrict__ M, T* __restrict__ ldG,
+                   T* __restrict__ delta, T* J, T* __restrict__ Psm_front,
+                   T* __restrict__ Psm_end_rev, int tau, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int lane = warp_lane(), warp = threadIdx.x >> 5;
+  const int kk = k * k;
+  const T jit = dfm_jitter<T>();
+  SMat<T> Am = slot(sm, 8);
+
+  // ---- phase A: tau exact covariance steps (warp 0) ----
+  if (warp == 0) {
+    SMat<T> P = slot(sm, 0), Lp = slot(sm, 1), Cm = slot(sm, 2),
+            CL = slot(sm, 3), G = slot(sm, 4), Lg = slot(sm, 5),
+            X = slot(sm, 6), Pfm = slot(sm, 7), Qm = slot(sm, 9),
+            CA = slot(sm, 10), Pprev = slot(sm, 11);
+    for (int e = lane; e < kk; e += 32) {
+      const int i = e / k, j = e % k;
+      Am[i][j] = A[e];
+      Qm[i][j] = Q[e];
+      Cm[i][j] = C[e];
+      P[i][j] = P0[e];
+    }
+    __syncwarp();
+    mm<T, false, false>(CA, Cm, Am, k);                 // C A
+    for (int t = 0; t < tau; ++t) {
+      for (int e = lane; e < kk; e += 32) {
+        const int i = e / k, j = e % k;
+        Pp[(size_t)t * kk + e] = P[i][j];
+        Pprev[i][j] = P[i][j];
+      }
+      __syncwarp();
+      info_cov_update<T>(P, Cm, Lp, CL, G, Lg, X, Pfm, k);
+      mm<T, false, false>(G, Pfm, CA, k);               // P_f C A
+      for (int e = lane; e < kk; e += 32) {
+        const int i = e / k, j = e % k;
+        M[(size_t)t * kk + e] = Am[i][j] - G[i][j];
+        Pf[(size_t)t * kk + e] = Pfm[i][j];
+      }
+      if (lane == 0) ldG[t] = chol_logdet_warp<T>(Lg, k);
+      __syncwarp();
+      predict_cov<T>(P, Pfm, Am, Qm, CL, G, k);
+    }
+    T dmax = T(0), pmax = T(0);
+    for (int e = lane; e < kk; e += 32) {
+      const int i = e / k, j = e % k;
+      dmax = nan_max(dmax, T(fabs(P[i][j] - Pprev[i][j])));
+      pmax = nan_max(pmax, T(fabs(P[i][j])));
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      dmax = nan_max(dmax, __shfl_xor_sync(0xffffffffu, dmax, o));
+      pmax = nan_max(pmax, __shfl_xor_sync(0xffffffffu, pmax, o));
+    }
+    if (lane == 0) delta[0] = dmax / (pmax + T(1e-30));
+  }
+  __syncthreads();
+
+  // ---- phase B: the gains, one warp per t ----
+  {
+    SMat<T> Lc = slot(sm, 12 + 3 * warp), Pft = slot(sm, 13 + 3 * warp),
+            Z = slot(sm, 14 + 3 * warp);
+    for (int t = warp; t < tau; t += SS_WARPS) {
+      const T* Ppu = Pp + (size_t)min(t + 1, tau - 1) * kk;
+      for (int e = lane; e < kk; e += 32) {
+        const int i = e / k, j = e % k;
+        Lc[i][j] = T(0.5) * (Ppu[e] + Ppu[j * k + i]) + (i == j ? jit : T(0));
+        Pft[i][j] = Pf[(size_t)t * kk + e];
+      }
+      __syncwarp();
+      chol_inplace<T>(Lc, k);
+      mm<T, false, false>(Z, Am, Pft, k);               // A P_f,t
+      chol_solve_cols<T, false>(Z, Lc, Z, k);           // Z = J_t'
+      for (int e = lane; e < kk; e += 32)
+        J[(size_t)t * kk + e] = Z[e % k][e / k];
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+
+  // ---- phase C: the backward passes of the smoothed covariance ----
+  if (warp == 0) {
+    SMat<T> Jm = slot(sm, 0), D = slot(sm, 1), T1 = slot(sm, 2),
+            T2 = slot(sm, 3), Ps = slot(sm, 4), Pfs = slot(sm, 5),
+            Pps = slot(sm, 6);
+    const size_t ss = (size_t)(tau - 1) * kk;
+    for (int e = lane; e < kk; e += 32) {
+      const int i = e / k, j = e % k;
+      Jm[i][j] = J[ss + e];
+      Pfs[i][j] = Pf[ss + e];
+      Pps[i][j] = Pp[ss + e];
+      Ps[i][j] = Pf[ss + e];
+    }
+    __syncwarp();
+    for (int s = 0; s < tau; ++s) {                     // bstep_ss
+      for (int e = lane; e < kk; e += 32)
+        D[e / k][e % k] = Ps[e / k][e % k] - Pps[e / k][e % k];
+      __syncwarp();
+      mm<T, false, false>(T1, Jm, D, k);                // J D
+      mm<T, false, true>(T2, T1, Jm, k);                // J D J'
+      for (int e = lane; e < kk; e += 32) {
+        const int i = e / k, j = e % k;
+        const T v = T(0.5) * ((Pfs[i][j] + T2[i][j]) + (Pfs[j][i] + T2[j][i]));
+        Ps[i][j] = v;
+        Psm_end_rev[(size_t)s * kk + e] = v;
+      }
+      __syncwarp();
+    }
+    for (int t = tau - 1; t >= 0; --t) {                // bstep_ex
+      const size_t u = (size_t)min(t + 1, tau - 1) * kk;
+      for (int e = lane; e < kk; e += 32) {
+        const int i = e / k, j = e % k;
+        Jm[i][j] = J[(size_t)t * kk + e];
+        Pfs[i][j] = Pf[(size_t)t * kk + e];
+        D[i][j] = Ps[i][j] - Pp[u + e];
+      }
+      __syncwarp();
+      mm<T, false, false>(T1, Jm, D, k);
+      mm<T, false, true>(T2, T1, Jm, k);
+      for (int e = lane; e < kk; e += 32) {
+        const int i = e / k, j = e % k;
+        const T v = T(0.5) * ((Pfs[i][j] + T2[i][j]) + (Pfs[j][i] + T2[j][i]));
+        Ps[i][j] = v;
+        Psm_front[(size_t)t * kk + e] = v;
+      }
+      __syncwarp();
+    }
+  }
+}
+
+template <typename T>
+static int launch(const T* C, const T* A, const T* Q, const T* P0, T* Pp,
+                  T* Pf, T* M, T* ldG, T* delta, T* J, T* Psm_front,
+                  T* Psm_end_rev, int tau, int k, cudaStream_t stream) {
+  if (k < 1 || k > DFM_KMAX || tau < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)SS_SLOTS * MAT * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      ss_cov_path_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ss_cov_path_kernel<T><<<1, 32 * SS_WARPS, smem, stream>>>(
+      C, A, Q, P0, Pp, Pf, M, ldG, delta, J, Psm_front, Psm_end_rev, tau, k);
+  return (int)cudaGetLastError();
+}
+
+extern "C" {
+#if DFM_WANT_F32
+int ss_cov_path_f32(const float* C, const float* A, const float* Q,
+                    const float* P0, float* Pp, float* Pf, float* M,
+                    float* ldG, float* delta, float* J, float* Psm_front,
+                    float* Psm_end_rev, int tau, int k, void* stream) {
+  return launch<float>(C, A, Q, P0, Pp, Pf, M, ldG, delta, J, Psm_front,
+                       Psm_end_rev, tau, k, (cudaStream_t)stream);
+}
+#endif
+#if DFM_WANT_F64
+int ss_cov_path_f64(const double* C, const double* A, const double* Q,
+                    const double* P0, double* Pp, double* Pf, double* M,
+                    double* ldG, double* delta, double* J, double* Psm_front,
+                    double* Psm_end_rev, int tau, int k, void* stream) {
+  return launch<double>(C, A, Q, P0, Pp, Pf, M, ldG, delta, J, Psm_front,
+                        Psm_end_rev, tau, k, (cudaStream_t)stream);
+}
+#endif
+}

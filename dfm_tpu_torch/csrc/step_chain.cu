@@ -119,14 +119,18 @@ static int launch_chain(const T* consts, T* out, int T_, int k, int backward,
 }
 
 extern "C" {
+#if DFM_WANT_F32
 int step_chain_f32(const float* consts, float* out, int T, int k,
                    int backward, void* stream) {
   return launch_chain<float>(consts, out, T, k, backward,
                              (cudaStream_t)stream);
 }
+#endif
+#if DFM_WANT_F64
 int step_chain_f64(const double* consts, double* out, int T, int k,
                    int backward, void* stream) {
   return launch_chain<double>(consts, out, T, k, backward,
                               (cudaStream_t)stream);
 }
+#endif
 }

@@ -1,0 +1,134 @@
+// One-warp k x k linear algebra in shared memory, shared by K4
+// (info_scan.cu) and K5a (ss_cov_path.cu).
+//
+// All matrices are row-major in shared memory with leading dimension
+// DFM_KMAX + 1, so lanes reading different rows hit different banks.  Lane
+// j computes column j of each product and solves for column j of each
+// right-hand side; the Cholesky factorization goes column by column, lane i
+// updating row i.  __syncwarp() separates the phases, so every function is
+// called by all 32 lanes of one warp.  k <= DFM_KMAX.  The lane is
+// threadIdx.x % 32, so any warp of a block may call them on its own
+// matrices.
+#pragma once
+
+#include "common.cuh"
+
+constexpr int LD = DFM_KMAX + 1;
+
+template <typename T>
+using SMat = T (*)[LD];
+
+__device__ __forceinline__ int warp_lane() { return threadIdx.x & 31; }
+
+// C = op(A) op(B); lane j computes column j.  C aliases neither A nor B.
+template <typename T, bool TA, bool TB>
+__device__ void mm(SMat<T> C, SMat<T> A, SMat<T> B, int k) {
+  const int j = warp_lane();
+  if (j < k) {
+    for (int i = 0; i < k; ++i) {
+      T s = T(0);
+      for (int l = 0; l < k; ++l)
+        s += (TA ? A[l][i] : A[i][l]) * (TB ? B[j][l] : B[l][j]);
+      C[i][j] = s;
+    }
+  }
+  __syncwarp();
+}
+
+// In-place Cholesky of the lower triangle of W (which already holds
+// sym(M) + jitter I); the strict upper triangle is zeroed.  No clamp: a
+// negative pivot gives NaN, as jnp.linalg.cholesky does.
+template <typename T>
+__device__ void chol_inplace(SMat<T> W, int k) {
+  const int lane = warp_lane();
+  for (int p = 0; p < k; ++p) {
+    const T d = dfm_sqrt(W[p][p]);
+    __syncwarp();
+    if (lane == p) W[p][p] = d;
+    else if (lane > p && lane < k) W[lane][p] /= d;
+    __syncwarp();
+    if (lane > p && lane < k) {
+      const T ljp = W[lane][p];
+      for (int i = lane; i < k; ++i) W[i][lane] -= W[i][p] * ljp;
+    }
+    __syncwarp();
+  }
+  if (lane < k)
+    for (int i = 0; i < lane; ++i) W[i][lane] = T(0);
+  __syncwarp();
+}
+
+// X = (L L')^{-1} op(B); lane j solves for column j.  X may alias B when
+// op is the identity.
+template <typename T, bool TB>
+__device__ void chol_solve_cols(SMat<T> X, SMat<T> L, SMat<T> B, int k) {
+  const int j = warp_lane();
+  if (j < k) {
+    for (int i = 0; i < k; ++i) {
+      T s = TB ? B[j][i] : B[i][j];
+      for (int m = 0; m < i; ++m) s -= L[i][m] * X[m][j];
+      X[i][j] = s / L[i][i];
+    }
+    for (int i = k - 1; i >= 0; --i) {
+      T s = X[i][j];
+      for (int m = i + 1; m < k; ++m) s -= L[m][i] * X[m][j];
+      X[i][j] = s / L[i][i];
+    }
+  }
+  __syncwarp();
+}
+
+// The covariance half of one information-form update, from the predicted
+// P:  Lp = chol(sym(P) + jitter I);  G = I + Lp' C Lp;  Lg = chol(sym(G))
+// with no jitter (G >= I);  Pf = sym(Lp G^{-1} Lp').  CL, G and X are
+// scratch; Lp and Lg keep the two factors.
+template <typename T>
+__device__ void info_cov_update(SMat<T> P, SMat<T> Cm, SMat<T> Lp,
+                                SMat<T> CL, SMat<T> G, SMat<T> Lg, SMat<T> X,
+                                SMat<T> Pf, int k) {
+  const int lane = warp_lane();
+  const T jit = dfm_jitter<T>();
+  for (int e = lane; e < k * k; e += 32) {
+    const int i = e / k, j = e % k;
+    Lp[i][j] = T(0.5) * (P[i][j] + P[j][i]) + (i == j ? jit : T(0));
+  }
+  __syncwarp();
+  chol_inplace<T>(Lp, k);
+  mm<T, false, false>(CL, Cm, Lp, k);                   // C Lp
+  mm<T, true, false>(G, Lp, CL, k);                     // Lp' C Lp
+  for (int e = lane; e < k * k; e += 32) {
+    const int i = e / k, j = e % k;
+    const T d = i == j ? T(1) : T(0);
+    Lg[i][j] = T(0.5) * ((d + G[i][j]) + (d + G[j][i]));
+  }
+  __syncwarp();
+  chol_inplace<T>(Lg, k);
+  chol_solve_cols<T, true>(X, Lg, Lp, k);               // G^{-1} Lp'
+  mm<T, false, false>(G, Lp, X, k);                     // Lp G^{-1} Lp'
+  for (int e = lane; e < k * k; e += 32) {
+    const int i = e / k, j = e % k;
+    Pf[i][j] = T(0.5) * (G[i][j] + G[j][i]);
+  }
+  __syncwarp();
+}
+
+// The prediction  P = sym(A Pf A' + Q);  W1 and W2 are scratch.
+template <typename T>
+__device__ void predict_cov(SMat<T> P, SMat<T> Pf, SMat<T> Am, SMat<T> Qm,
+                            SMat<T> W1, SMat<T> W2, int k) {
+  mm<T, false, false>(W1, Am, Pf, k);                   // A P_f
+  mm<T, false, true>(W2, W1, Am, k);                    // A P_f A'
+  for (int e = warp_lane(); e < k * k; e += 32) {
+    const int i = e / k, j = e % k;
+    P[i][j] = T(0.5) * ((W2[i][j] + Qm[i][j]) + (W2[j][i] + Qm[j][i]));
+  }
+  __syncwarp();
+}
+
+// 2 sum_i log L[i][i], valid in every lane.
+template <typename T>
+__device__ T chol_logdet_warp(SMat<T> L, int k) {
+  T s = T(0);
+  for (int i = 0; i < k; ++i) s += dfm_log(L[i][i]);
+  return T(2) * s;
+}

@@ -1,7 +1,8 @@
 """EM estimation for DFMs in PyTorch: E-step, closed-form M-step, and the
 chunked driver.
 
-The twin of ``dfm_tpu.estim.em`` for the ``dense`` and ``info`` engines.
+The twin of ``dfm_tpu.estim.em`` for the ``dense``, ``info``, ``ss``
+(steady-state) and ``pit_qr`` (square-root parallel-in-time) engines.
 The masked per-series M-step rows are kernel K3 (``csrc/mstep_rows.cu``)
 on CUDA tensors, with ``mstep_rows_plain`` beside it; the unmasked rows
 are a GEMM plus one k x k solve and stay plain torch.
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -20,20 +22,20 @@ from ..ops.linalg import solve_psd, sym
 from ..ops.precision import highest_precision
 from ..ssm.info_filter import info_filter
 from ..ssm.kalman import kalman_filter, rts_smoother
+from ..ssm.parallel_filter import pit_qr_filter, pit_qr_smoother
 from ..ssm.params import SmootherResult, SSMParams
+from ..ssm.steady import DEFAULT_TAU, ss_filter_smoother
 
 __all__ = ["EMConfig", "em_step", "em_fit_scan", "run_em_chunked",
-           "em_progress", "noise_floor_for", "moments", "moment_sums",
-           "mstep_rows", "mstep_rows_plain", "mstep_dynamics",
+           "em_progress", "noise_floor_for", "warn_ss_delta", "moments",
+           "moment_sums", "mstep_rows", "mstep_rows_plain", "mstep_dynamics",
            "mstep_dynamics_sums", "cfg_hypers"]
 
 # Engines of the JAX package that this package does not have yet, with the
 # ROADMAP item that ports each.
 _NOT_PORTED = {
-    "ss": "ROADMAP Queue 2 K5 (the steady-state engine, next in Queue 1)",
-    "pit": "ROADMAP Queue 2 K8 (Queue 1, 'Other engines')",
-    "pit_qr": "ROADMAP Queue 2 K7 + K8 (Queue 1, 'Other engines')",
-    "lowrank": "ROADMAP Queue 2 K9 (Queue 1, 'Other engines')",
+    "pit": "ROADMAP Queue 1 item 10 (the legacy covariance-form pit engine)",
+    "lowrank": "ROADMAP Queue 1 item 10 and Queue 2 K9",
 }
 
 
@@ -41,10 +43,16 @@ _NOT_PORTED = {
 class EMConfig:
     """EM switches.
 
-    filter: "dense" (N x N innovation covariance, the small-N engine) or
-    "info" (information form, k x k scan; the N-scalable engine).  The JAX
+    filter: "dense" (N x N innovation covariance, the small-N engine),
+    "info" (information form, k x k scan; the N-scalable engine), "ss"
+    (steady-state accelerated: ``tau`` exact covariance steps, then frozen
+    gains; falls back to "info" when masked or T <= 2 tau + 4) or
+    "pit_qr" (square-root parallel-in-time; k <= 10 on CUDA).  The JAX
     package's other engines raise ``NotImplementedError`` naming the
     ROADMAP item that ports them.
+
+    tau: the steady-state horizon of "ss" (``fit`` sizes it with
+    ``ssm.steady.auto_tau``).
 
     q_scale / r_scale / lam_ridge are the tuned M-step hypers: Q <- q_scale
     Q, R <- max(r_scale R, r_floor), and a ridge on the loading normal
@@ -55,6 +63,7 @@ class EMConfig:
     estimate_init: bool = False
     r_floor: float = 1e-6
     filter: str = "dense"
+    tau: int = DEFAULT_TAU
     noise_floor_mult: float = 100.0
     q_scale: float = 1.0
     r_scale: float = 1.0
@@ -65,14 +74,35 @@ class EMConfig:
             raise NotImplementedError(
                 f"filter={self.filter!r} is not ported to dfm_tpu_torch yet: "
                 f"{_NOT_PORTED[self.filter]}")
-        if self.filter not in ("dense", "info"):
+        if self.filter not in ("dense", "info", "ss", "pit_qr"):
             raise ValueError(f"unknown filter {self.filter!r}")
 
-    def e_step(self, Y, mask, p):
-        """Filter + RTS smoother under the configured engine: (kf, sm)."""
+    def filter_fn(self):
+        return {"dense": kalman_filter, "info": info_filter,
+                "pit_qr": pit_qr_filter}[self.filter]
+
+    def smoother_fn(self):
+        return pit_qr_smoother if self.filter == "pit_qr" else rts_smoother
+
+    def report_pair(self):
+        """Filter and smoother of a reporting smooth at fitted params:
+        pit_qr through itself, dense through the N x N filter, info and ss
+        through the exact info-form pair."""
+        if self.filter == "pit_qr":
+            return self.filter_fn(), self.smoother_fn()
         ff = kalman_filter if self.filter == "dense" else info_filter
-        kf = ff(Y, p, mask=mask)
-        return kf, rts_smoother(kf, p)
+        return ff, rts_smoother
+
+    def e_step(self, Y, mask, p, sumsq=None):
+        """Filter + smoother under the configured engine: (kf, sm, delta),
+        with ``delta`` the steady-state freeze diagnostic ("ss") or 0.
+        ``sumsq`` (Y*Y, data-constant) feeds the ss loglik quadratic."""
+        if self.filter == "ss":
+            return ss_filter_smoother(Y, p, tau=self.tau, mask=mask,
+                                      sumsq=sumsq)
+        kf = self.filter_fn()(Y, p, mask=mask)
+        return (kf, self.smoother_fn()(kf, p),
+                torch.zeros((), dtype=Y.dtype, device=Y.device))
 
 
 def moments(sm: SmootherResult):
@@ -219,37 +249,47 @@ def _m_step(Y, mask, sm: SmootherResult, p: SSMParams, cfg: EMConfig,
     return SSMParams(*(x.contiguous() for x in (Lam, A, Q, R, mu0, P0)))
 
 
-def _panel_consts(Y, has_mask: bool):
-    """EM-iteration-invariant panel reduction: per-series sum of squares for
-    the unmasked M-step rows, or ``None`` when masked."""
-    return None if has_mask else torch.einsum("ti,ti->i", Y, Y)
+def _panel_consts(Y, has_mask: bool, cfg: EMConfig):
+    """EM-iteration-invariant panel reductions, computed once per fit:
+    (sumsq (T, N) | None, Ysq (N,) | None).  ``sumsq`` = Y*Y feeds the ss
+    loglik quadratic, ``Ysq`` the unmasked M-step rows."""
+    if has_mask:
+        return None, None
+    if cfg.filter == "ss":
+        sumsq = Y * Y
+        return sumsq, sumsq.sum(dim=0)
+    return None, torch.einsum("ti,ti->i", Y, Y)
 
 
 def em_step(Y, p: SSMParams, mask=None, cfg: EMConfig = EMConfig(),
-            Ysq=None):
+            consts=None):
     """One EM iteration: (new params, loglik at the entering params as a
-    0-d f64 tensor on Y's device)."""
-    kf, sm = cfg.e_step(Y, mask, p)
-    return _m_step(Y, mask, sm, p, cfg, Ysq=Ysq), kf.loglik
+    0-d f64 tensor on Y's device, the ss freeze delta as a 0-d tensor).
+    ``consts``: ``_panel_consts`` of this panel, computed here if None."""
+    sumsq, Ysq = (_panel_consts(Y, mask is not None, cfg) if consts is None
+                  else consts)
+    kf, sm, delta = cfg.e_step(Y, mask, p, sumsq=sumsq)
+    return _m_step(Y, mask, sm, p, cfg, Ysq=Ysq), kf.loglik, delta
 
 
 def em_fit_scan(Y, p0: SSMParams, n_iters: int, mask=None,
-                cfg: EMConfig = EMConfig(), Ysq=None):
+                cfg: EMConfig = EMConfig(), consts=None):
     """``n_iters`` EM iterations with no host read.
 
     Returns (params after every update, a list of length ``n_iters``; the
     logliks (n_iters,) at the entering params, an f64 tensor on Y's
-    device).
+    device; the ss freeze deltas (n_iters,) in Y's dtype).
     """
-    if Ysq is None:
-        Ysq = _panel_consts(Y, mask is not None)
-    ps, lls = [], []
+    if consts is None:
+        consts = _panel_consts(Y, mask is not None, cfg)
+    ps, lls, deltas = [], [], []
     p = p0
     for _ in range(n_iters):
-        p, ll = em_step(Y, p, mask=mask, cfg=cfg, Ysq=Ysq)
+        p, ll, delta = em_step(Y, p, mask=mask, cfg=cfg, consts=consts)
         ps.append(p)
         lls.append(ll)
-    return ps, torch.stack(lls)
+        deltas.append(delta)
+    return ps, torch.stack(lls), torch.stack(deltas)
 
 
 def em_progress(lls, tol: float, noise_floor: float = 0.0,
@@ -275,6 +315,17 @@ def em_progress(lls, tol: float, noise_floor: float = 0.0,
     return "continue"
 
 
+def warn_ss_delta(max_delta: float, tau: int, threshold: float = 1e-4):
+    """Warn when the steady-state freeze error is large enough to bias EM
+    (the delta ``ss_filter_smoother`` reports)."""
+    if max_delta > threshold:
+        warnings.warn(
+            f"steady-state filter freeze error {max_delta:.2e} exceeds "
+            f"{threshold:.0e} at tau={tau}; EM moments may be biased — "
+            "raise EMConfig.tau or use filter='info'", RuntimeWarning,
+            stacklevel=3)
+
+
 def noise_floor_for(dtype, n_obs: float = 1.0, mult: float = 100.0) -> float:
     """ABSOLUTE loglik noise floor for a compute dtype: ``mult`` * eps *
     n_obs, since the loglik is assembled from pieces of magnitude O(n_obs)
@@ -288,34 +339,39 @@ def run_em_chunked(Y, mask, p0: SSMParams, cfg: EMConfig, max_iters: int,
     ``run_em_chunked``.
 
     Each chunk runs up to ``fused_chunk`` iterations on the device and
-    reads the chunk's logliks with ONE blocking device->host read.  The
-    params after every update of the current and previous chunk stay on
-    the device, so a mid-chunk stop returns params that embody exactly the
-    update count the stopping rule chose (converged: every iteration that
-    ran; diverged: the params entering the pre-drop iteration).
+    reads the chunk's logliks and ss freeze deltas with ONE blocking
+    device->host read.  The params after every update of the current and
+    previous chunk stay on the device, so a mid-chunk stop returns params
+    that embody exactly the update count the stopping rule chose
+    (converged: every iteration that ran; diverged: the params entering
+    the pre-drop iteration).
 
     Returns (params, logliks (n,) np.float64, converged, params_iters,
-    secs) with ``secs[i]`` the host wall time of iteration i's chunk,
-    ending at its blocking read, on the chunk's first iteration and 0.0 on
-    the others (the host sees a chunk as one step).
+    secs, max_delta) with ``secs[i]`` the host wall time of iteration i's
+    chunk, ending at its blocking read, on the chunk's first iteration and
+    0.0 on the others (the host sees a chunk as one step), and
+    ``max_delta`` the largest ss freeze delta of the iterations up to the
+    stop (0.0 for the other engines; above 1e-4 it warns).
     """
     fused_chunk = max(1, int(fused_chunk))
     noise_floor = noise_floor_for(Y.dtype, Y.numel(),
                                   mult=cfg.noise_floor_mult)
     monotone = cfg_hypers(cfg) is None
-    Ysq = _panel_consts(Y, mask is not None)
+    consts = _panel_consts(Y, mask is not None, cfg)
     by_iter = {0: p0}          # update count -> params (two chunks kept)
     lls: list = []
     secs: list = []
+    max_delta = 0.0
     converged = stop = False
     target = it = 0
     with highest_precision():
         while it < max_iters and not stop:
             t0 = time.perf_counter()
             n = min(fused_chunk, max_iters - it)
-            ps, chunk = em_fit_scan(Y, by_iter[it], n, mask=mask, cfg=cfg,
-                                    Ysq=Ysq)
-            chunk = chunk.cpu().numpy()              # the one blocking read
+            ps, chunk, deltas = em_fit_scan(Y, by_iter[it], n, mask=mask,
+                                            cfg=cfg, consts=consts)
+            chunk, deltas = torch.stack(
+                [chunk, deltas.to(chunk.dtype)]).cpu().numpy()   # one read
             wall = time.perf_counter() - t0
             by_iter = {i: q for i, q in by_iter.items() if i >= it - fused_chunk}
             by_iter.update({it + j + 1: q for j, q in enumerate(ps)})
@@ -329,6 +385,12 @@ def run_em_chunked(Y, mask, p0: SSMParams, cfg: EMConfig, max_iters: int,
                               else max(len(lls) - 2, 0))
                     stop = True
                     break
+            # Iterations after a stop ran but are discarded: their deltas
+            # do not count.
+            max_delta = max(max_delta, float(np.max(deltas[:j + 1])))
             it += n
+    if cfg.filter == "ss":
+        warn_ss_delta(max_delta, cfg.tau)
     p_iters = target if stop else it
-    return by_iter[p_iters], np.asarray(lls), converged, p_iters, secs
+    return (by_iter[p_iters], np.asarray(lls), converged, p_iters, secs,
+            max_delta)

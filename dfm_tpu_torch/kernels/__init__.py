@@ -1,12 +1,18 @@
 """Build and load layer for the port's hand-written CUDA kernels.
 
-At first use each ``csrc/*.cu`` source is compiled by its own ``nvcc``
-process (all started together) into a shared library with a plain C
-interface, under ``build/dfm_tpu_torch/`` beside the package and named by a
-hash of the sources' contents and the flags, so an edited source rebuilds
-and an unchanged one is reused.  The libraries are loaded with ``ctypes``;
+At first use each ``csrc/*.cu`` source is compiled twice, once per dtype
+(``-DDFM_DTYPE=32`` and ``64``: each library holds one dtype's entry
+points, so the two halves of a heavy source build in parallel), by its own
+``nvcc`` processes (all started together) into shared libraries with a
+plain C interface, under ``build/dfm_tpu_torch/`` beside the package and
+named by a hash of the sources' contents and the flags, so an edited
+source rebuilds and an unchanged one is reused.  The libraries are loaded with ``ctypes``;
 every pointer and the stream cross as ``c_void_p`` (a default ctypes int
 would cut a pointer to 32 bits).
+
+nvcc runs with ``-Xptxas -v``; each library's compiler output (registers,
+stack frames and spills of every instantiation) and its build seconds go
+to a ``.log`` beside it, which ``build_log`` returns.
 
 Each C entry point launches on the current PyTorch stream and returns
 ``cudaGetLastError()``; ``launch`` raises when that is not 0, and counts
@@ -31,14 +37,14 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "KERNELS", "PROBES", "build", "launch", "probe",
-           "reset_launches", "check_k", "check_tensor"]
+__all__ = ["LAUNCHES", "KERNELS", "PROBES", "build", "build_log", "launch",
+           "probe", "reset_launches", "check_k", "check_tensor"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "dfm_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KMAX = 16   # DFM_KMAX in csrc/common.cuh
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -51,6 +57,10 @@ KERNELS = {
     "mstep_rows": ("mstep_rows.cu", [_P] * 7 + [_I] * 3 + [_D] * 2),
     "info_scan": ("info_scan.cu", [_P, _P, _I] + [_P] * 9 + [_I] * 2),
     "rts_smoother": ("info_scan.cu", [_P] * 8 + [_I] * 2),
+    "ss_cov_path": ("ss_cov_path.cu", [_P] * 12 + [_I] * 2),
+    "affine_scan": ("affine_scan.cu", [_P] * 5 + [_I] * 4),
+    "qr_elements": ("qr_elements.cu", [_I] * 2 + [_P] * 12 + [_I] * 3),
+    "qr_scan": ("qr_scan.cu", [_I] + [_P] * 6 + [_I] * 3),
 }
 
 # Measurement kernels off the model path, in the same form.
@@ -61,6 +71,7 @@ PROBES = {
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _LIBS: dict = {}
+_SUFFIXES = ("f32", "f64")
 
 
 def reset_launches() -> None:
@@ -80,61 +91,82 @@ def _nvcc() -> str:
                        "dfm_tpu_torch CUDA kernels cannot be built")
 
 
-def _lib_path(source: str) -> Path:
+def _flags(suffix: str) -> list:
+    return NVCC_FLAGS + [f"-DDFM_DTYPE={suffix[1:]}"]
+
+
+def _lib_path(source: str, suffix: str) -> Path:
     h = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(_flags(suffix)).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{suffix}-{h.hexdigest()[:16]}.so"
 
 
 def build() -> float:
-    """Compile every kernel source not yet built, one ``nvcc`` per source,
-    all in parallel.  Returns the wall seconds spent; raises on failure."""
+    """Compile every kernel library not yet built, one ``nvcc`` per source
+    and dtype, all in parallel.  Returns the wall seconds spent; raises on
+    failure."""
     t0 = time.perf_counter()
     todo = {}
     for source, _ in (*KERNELS.values(), *PROBES.values()):
-        out = _lib_path(source)
-        if not out.exists():
-            todo[source] = out
+        for suffix in _SUFFIXES:
+            out = _lib_path(source, suffix)
+            if not out.exists():
+                todo[(source, suffix)] = out
     if todo:
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
-        for source, out in todo.items():
+        for (source, suffix), out in todo.items():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
-            procs[source] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, out)
+            log = out.with_suffix(".log")
+            cmd = [nvcc, *_flags(suffix), "-o", str(tmp), str(CSRC / source)]
+            with open(log, "w") as fh:
+                procs[(source, suffix)] = (subprocess.Popen(
+                    cmd, stdout=fh, stderr=subprocess.STDOUT), tmp, out, log)
         errors = []
-        for source, (proc, tmp, out) in procs.items():
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                errors.append(f"{source}:\n{log}")
-            else:
+        while procs:
+            for key, (proc, tmp, out, log) in list(procs.items()):
+                if proc.poll() is None:
+                    continue
+                del procs[key]
+                secs = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    errors.append(f"{key[0]} ({key[1]}):\n{log.read_text()}")
+                    continue
+                with open(log, "a") as fh:
+                    fh.write(f"# built in {secs:.1f} s\n")
                 os.replace(tmp, out)
+            time.sleep(0.1)
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     return time.perf_counter() - t0
 
 
-def _lib(source: str):
-    lib = _LIBS.get(source)
+def build_log(source: str) -> str:
+    """nvcc's output (``-Xptxas -v``) for the built libraries of
+    ``source``, each ending in its build seconds; empty if never built
+    here."""
+    logs = (_lib_path(source, suffix).with_suffix(".log")
+            for suffix in _SUFFIXES)
+    return "".join(log.read_text() for log in logs if log.exists())
+
+
+def _lib(source: str, suffix: str):
+    lib = _LIBS.get((source, suffix))
     if lib is None:
-        path = _lib_path(source)
+        path = _lib_path(source, suffix)
         if not path.exists():
             build()
         lib = ctypes.CDLL(str(path))
         for name, (src, argtypes) in (*KERNELS.items(), *PROBES.items()):
-            if src != source:
-                continue
-            for suffix in ("f32", "f64"):
+            if src == source:
                 fn = getattr(lib, f"{name}_{suffix}")
                 fn.argtypes = argtypes + [_P]
                 fn.restype = ctypes.c_int
-        _LIBS[source] = lib
+        _LIBS[(source, suffix)] = lib
     return lib
 
 
@@ -165,7 +197,7 @@ def _call(table: dict, name: str, dtype: torch.dtype, args) -> None:
         raise ValueError(f"{name}: no kernel for dtype {dtype}")
     source = table[name][0]
     suffix = "f32" if dtype == torch.float32 else "f64"
-    fn = getattr(_lib(source), f"{name}_{suffix}")
+    fn = getattr(_lib(source, suffix), f"{name}_{suffix}")
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
              for a in args]
     rc = fn(*cargs, torch.cuda.current_stream().cuda_stream)

@@ -36,7 +36,8 @@ from .params import FilterResult, SSMParams
 
 __all__ = ["ObsStats", "obs_stats", "obs_stats_plain", "info_scan",
            "info_scan_plain", "quad_local", "quad_local_plain",
-           "u_from_stats", "loglik_from_terms", "info_filter_from_stats",
+           "u_from_stats", "quad_expanded", "loglik_from_terms",
+           "info_filter_from_stats",
            "info_filter", "loglik_eval", "smooth"]
 
 _LOG2PI = 1.8378770664093453
@@ -186,6 +187,24 @@ def u_from_stats(stats: ObsStats, x_pred: torch.Tensor) -> torch.Tensor:
     if stats.C.ndim == 2:
         return stats.b - x_pred @ stats.C           # C symmetric
     return stats.b - torch.einsum("tkl,tl->tk", stats.C, x_pred)
+
+
+def quad_expanded(sumsq: torch.Tensor, Rinv: torch.Tensor, stats: ObsStats,
+                  x_pred: torch.Tensor) -> torch.Tensor:
+    """v'R^{-1}v per step without a residual panel pass (unmasked only):
+    sum_i y^2/R - 2 x_p.b + x_p'C x_p, with ``sumsq`` the data-constant
+    Y*Y.  Each piece is cast to the f64 accumulator after its product,
+    where the three (T,)-sized pieces cancel; only for a compute dtype
+    below the accumulator (in f64 the residual pass ``quad_local`` runs).
+    ``sumsq @ Rinv`` is a plain GEMV."""
+    acc = accum_dtype()
+    c2 = (sumsq @ Rinv).to(acc)
+    xb = torch.einsum("tk,tk->t", x_pred, stats.b).to(acc)
+    if stats.C.ndim == 2:
+        xCx = torch.einsum("tk,kl,tl->t", x_pred, stats.C, x_pred)
+    else:
+        xCx = torch.einsum("tk,tkl,tl->t", x_pred, stats.C, x_pred)
+    return c2 - 2.0 * xb + xCx.to(acc)
 
 
 def loglik_from_terms(stats: ObsStats, logdetG, P_filt, quad_R, U):

@@ -1,0 +1,371 @@
+"""Square-root parallel-in-time filter and smoother, ``pit_qr`` (twin of
+the QR-factor half of ``dfm_tpu.ssm.parallel_filter``).
+
+Filtering is associative (Sarkka & Garcia-Fernandez): each step is an
+element (A, b, U, eta, Z) of a semigroup whose inclusive prefix product
+carries the filtered mean b and a square-root factor U of the filtered
+covariance, C = U U'.  The elements carry square-root factors, and every
+combine is a thin QR (``tria``) of stacked factors plus triangular solves
+against Cholesky factors of I + (PSD), so no jitter is needed.  The
+smoother is the reverse prefix of affine elements (E, g, D) with L = D D'.
+The blocked scan runs ~2 sqrt(T) combines in sequence, batched over
+blocks.
+
+Kernels on CUDA tensors (the plain twins, beside each, run for CPU
+tensors): ``qr_elements`` (``csrc/qr_elements.cu``: the element builds
+and the post-scan assemblies, one thread per step, on the K6/K7 device
+functions of ``csrc/small_linalg.cuh``) and ``qr_scan``
+(``csrc/qr_scan.cu``: K8, the blocked prefix and suffix with the QR
+combines).  The kernels take k <= 10 (``QR_UNROLL_K_MAX``); above it a
+CUDA call raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .. import kernels
+from ..ops.linalg import (chol_solve_unrolled, chol_unrolled, check_qr_k,
+                          matmul_vpu, matvec_vpu, psd_factor, tri_solve,
+                          tria)
+from ..ops.scan import block_size, blocked_scan
+from .info_filter import (ObsStats, loglik_from_terms, obs_stats,
+                          quad_local, u_from_stats)
+from .params import FilterResult, SmootherResult, SSMParams
+
+__all__ = ["qr_generic_elements", "qr_init_posterior", "qr_filter_elements",
+           "qr_filter_elements_plain", "qr_combine_filter",
+           "qr_combine_smoother", "qr_scan", "qr_scan_plain",
+           "pit_qr_from_stats", "qr_filter_assemble",
+           "qr_filter_assemble_plain", "pit_qr_filter", "qr_smoother_elements",
+           "qr_smoother_elements_plain", "qr_smoother_assemble",
+           "qr_smoother_assemble_plain", "pit_qr_smoother",
+           "pit_qr_filter_smoother"]
+
+
+def _gram(U):
+    """U U' in the broadcast-product form."""
+    return matmul_vpu(U, U.transpose(-1, -2))
+
+
+def _bcast(M, T):
+    return M.expand((T,) + M.shape)
+
+
+def qr_generic_elements(stats: ObsStats, A, Q):
+    """Square-root elements (A, b, U, eta, Z) of every step, without the
+    t = 0 prior correction.  With Lq Lq' = Q, W_t W_t' = C_t (guarded
+    factors: C_t is rank-deficient when a step observes fewer than k
+    series) and H_t = chol(I + W_t' Q W_t):
+        U_t = Lq E_t^{-T}, E_t = chol(I + Lq' C_t Lq);  Z_t = F' W_t H_t^{-T}
+        A_t = F - Q W_t (H_t H_t')^{-1} W_t' F
+        b_t = Q n_t,  eta_t = F' n_t,  n_t = (I + C_t Q)^{-1} bobs_t
+    """
+    T, k = stats.b.shape
+    C_t = stats.C if stats.C.ndim == 3 else _bcast(stats.C, T)
+    bobs = stats.b
+    I_k = torch.eye(k, dtype=bobs.dtype, device=bobs.device)
+    Lq = psd_factor(Q)
+    F_b = _bcast(A, T)
+    LqT_C = matmul_vpu(_bcast(Lq.T, T), C_t)
+    E = chol_unrolled(I_k + matmul_vpu(LqT_C, _bcast(Lq, T)))
+    U_el = tri_solve(E, _bcast(Lq.T, T)).transpose(-1, -2)
+    W = psd_factor(C_t)
+    WT = W.transpose(-1, -2)
+    QW = matmul_vpu(_bcast(Q, T), W)
+    H = chol_unrolled(I_k + matmul_vpu(WT, QW))
+    Qb = matvec_vpu(_bcast(Q, T), bobs)
+    n_t = bobs - matvec_vpu(W, chol_solve_unrolled(H, matvec_vpu(WT, Qb)))
+    b_el = matvec_vpu(_bcast(Q, T), n_t)
+    eta_el = matvec_vpu(_bcast(A.T, T), n_t)
+    FTW = matmul_vpu(_bcast(A.T, T), W)
+    Z_el = tri_solve(H, FTW.transpose(-1, -2)).transpose(-1, -2)
+    A_el = F_b - matmul_vpu(QW, chol_solve_unrolled(H, matmul_vpu(WT, F_b)))
+    return (A_el, b_el, U_el, eta_el, Z_el)
+
+
+def qr_init_posterior(C0, bobs0, mu0, P0):
+    """(b0, U0): the first filtered posterior from the prior (mu0, P0)."""
+    k = mu0.shape[0]
+    I_k = torch.eye(k, dtype=mu0.dtype, device=mu0.device)
+    Lp0 = psd_factor(P0)
+    E0 = chol_unrolled(I_k + Lp0.T @ C0 @ Lp0)
+    U0 = tri_solve(E0, Lp0.T).transpose(-1, -2)
+    W0 = psd_factor(C0)
+    Hp = chol_unrolled(I_k + W0.T @ P0 @ W0)
+    v0 = bobs0 - C0 @ mu0
+    n0 = v0 - W0 @ chol_solve_unrolled(Hp, W0.T @ (P0 @ v0))
+    return mu0 + P0 @ n0, U0
+
+
+def qr_filter_elements_plain(stats: ObsStats, A, Q, mu0, P0):
+    """Plain twin of ``qr_filter_elements``."""
+    A_el, b_el, U_el, eta_el, Z_el = (x.clone() for x in
+                                      qr_generic_elements(stats, A, Q))
+    C0 = stats.C if stats.C.ndim == 2 else stats.C[0]
+    b0, U0 = qr_init_posterior(C0, stats.b[0], mu0, P0)
+    A_el[0] = 0.0
+    b_el[0] = b0
+    U_el[0] = U0
+    eta_el[0] = 0.0
+    Z_el[0] = 0.0
+    return (A_el, b_el, U_el, eta_el, Z_el)
+
+
+def _qr_launch(mode: int, dt, ins, outs, n: int, k: int, c_stride: int = 0):
+    ins = list(ins) + [None] * (7 - len(ins))
+    outs = list(outs) + [None] * (5 - len(outs))
+    kernels.launch("qr_elements", dt, mode, 0, *ins, *outs, n, k, c_stride)
+
+
+def _check(dt, dev, *named):
+    for name, x, shape in named:
+        kernels.check_tensor(name, x, shape, dt, dev)
+
+
+def qr_filter_elements(stats: ObsStats, A, Q, mu0, P0):
+    """The filter elements with the t = 0 prior correction (A_0 = 0, b_0
+    and U_0 the first posterior, eta_0 = 0, Z_0 = 0).  Kernel qr_elements
+    (mode 0) for CUDA tensors."""
+    b = stats.b
+    if b.device.type == "cpu":
+        return qr_filter_elements_plain(stats, A, Q, mu0, P0)
+    T, k = b.shape
+    dt, dev = b.dtype, b.device
+    check_qr_k("qr_elements", k)
+    static_C = stats.C.ndim == 2
+    _check(dt, dev, ("b", b, (T, k)),
+           ("C", stats.C, (k, k) if static_C else (T, k, k)),
+           ("A", A, (k, k)), ("Q", Q, (k, k)), ("mu0", mu0, (k,)),
+           ("P0", P0, (k, k)))
+    outs = tuple(torch.empty(s, dtype=dt, device=dev)
+                 for s in ((T, k, k), (T, k), (T, k, k), (T, k), (T, k, k)))
+    _qr_launch(0, dt, (b, stats.C, A, Q, mu0, P0), outs, T, k,
+               0 if static_C else k * k)
+    return outs
+
+
+def qr_combine_filter(ei, ej):
+    """Square-root filtering product (ei earlier, ej later), batched over
+    leading axes."""
+    Ai, bi, Ui, etai, Zi = ei
+    Aj, bj, Uj, etaj, Zj = ej
+    k = Ai.shape[-1]
+    I_b = torch.eye(k, dtype=Ai.dtype, device=Ai.device).expand(Ai.shape)
+    UiT = Ui.transpose(-1, -2)
+    ZjT = Zj.transpose(-1, -2)
+    Yf = matmul_vpu(UiT, Zj)                          # U_i' Z_j
+    YfT = Yf.transpose(-1, -2)
+    Theta = tria(torch.cat([Yf, I_b], dim=-1))
+    Lam = tria(torch.cat([YfT, I_b], dim=-1))
+
+    def Dinv(M):                                      # (I + C_i J_j)^{-1} M
+        return M - matmul_vpu(Ui, chol_solve_unrolled(
+            Theta, matmul_vpu(Yf, matmul_vpu(ZjT, M))))
+
+    def Dinv_v(v):
+        return v - matvec_vpu(Ui, chol_solve_unrolled(
+            Theta, matvec_vpu(Yf, matvec_vpu(ZjT, v))))
+
+    def Einv_v(v):                                    # (I + J_j C_i)^{-1} v
+        return v - matvec_vpu(Zj, chol_solve_unrolled(
+            Lam, matvec_vpu(YfT, matvec_vpu(UiT, v))))
+
+    A = matmul_vpu(Aj, Dinv(Ai))
+    b = matvec_vpu(Aj, Dinv_v(bi + matvec_vpu(Ui, matvec_vpu(UiT, etaj)))) \
+        + bj
+    U_half = tri_solve(Theta, matmul_vpu(Aj, Ui).transpose(-1, -2)) \
+        .transpose(-1, -2)
+    U = tria(torch.cat([U_half, Uj], dim=-1))
+    AiT = Ai.transpose(-1, -2)
+    eta = matvec_vpu(AiT, Einv_v(etaj - matvec_vpu(Zj, matvec_vpu(ZjT, bi)))) \
+        + etai
+    Z_half = tri_solve(Lam, matmul_vpu(AiT, Zj).transpose(-1, -2)) \
+        .transpose(-1, -2)
+    Z = tria(torch.cat([Z_half, Zi], dim=-1))
+    return (A, b, U, eta, Z)
+
+
+def qr_combine_smoother(elater, eearlier):
+    """Square-root smoothing product: E = E_e E_l, g = E_e g_l + g_e,
+    D = tria([E_e D_l | D_e])."""
+    El, gl, Dl = elater
+    Ee, ge, De = eearlier
+    E = matmul_vpu(Ee, El)
+    g = matvec_vpu(Ee, gl) + ge
+    D = tria(torch.cat([matmul_vpu(Ee, Dl), De], dim=-1))
+    return (E, g, D)
+
+
+def qr_scan_plain(elems: tuple, smoother: bool = False) -> tuple:
+    """Plain twin of ``qr_scan``: ``blocked_scan`` with the QR combines."""
+    if smoother:
+        return blocked_scan(qr_combine_smoother, elems, reverse=True)
+    return blocked_scan(qr_combine_filter, elems)
+
+
+def qr_scan(elems: tuple, smoother: bool = False) -> tuple:
+    """Inclusive prefix of the filter elements (A, b, U, eta, Z), or
+    inclusive suffix of the smoother elements (E, g, D).  Kernel K8
+    (``qr_scan``) for CUDA tensors; the inputs are left as they are."""
+    if elems[0].device.type == "cpu":
+        return qr_scan_plain(elems, smoother)
+    T, k = elems[1].shape
+    dt, dev = elems[0].dtype, elems[0].device
+    check_qr_k("qr_scan", k)
+    # Contiguous copies, scanned in place.
+    out = tuple(x.clone(memory_format=torch.contiguous_format)
+                for x in elems)
+    shapes = ((T, k, k), (T, k), (T, k, k), (T, k), (T, k, k))
+    _check(dt, dev, *((f"elems[{i}]", x, s)
+                      for i, (x, s) in enumerate(zip(out, shapes))))
+    S = block_size(T)
+    scratch = torch.empty((T // S) * (3 * k * k + 2 * k), dtype=dt,
+                          device=dev)
+    ptrs = list(out) + [None] * (5 - len(out))
+    kernels.launch("qr_scan", dt, int(smoother), *ptrs, scratch, T, S, k)
+    return out
+
+
+def qr_filter_assemble_plain(x_f, U_f, C, A, Q, mu0, P0):
+    """Plain twin of ``qr_filter_assemble``."""
+    T, k = x_f.shape
+    P_f = _gram(U_f)
+    Lq = psd_factor(Q)
+    AU = matmul_vpu(_bcast(A, T - 1), U_f[:-1])
+    Lp_tail = tria(torch.cat([AU, _bcast(Lq, T - 1)], dim=-1))
+    Lp = torch.cat([psd_factor(P0)[None], Lp_tail], dim=0)
+    P_pred = _gram(Lp)
+    x_pred = torch.cat([mu0[None], x_f[:-1] @ A.T], dim=0)
+    C_t = C if C.ndim == 3 else _bcast(C, T)
+    I_k = torch.eye(k, dtype=x_f.dtype, device=x_f.device)
+    G = I_k + matmul_vpu(matmul_vpu(Lp.transpose(-1, -2), C_t), Lp)
+    Lg = chol_unrolled(G)
+    logdetG = 2.0 * torch.log(torch.diagonal(Lg, dim1=-2, dim2=-1)).sum(-1)
+    return x_pred, P_pred, P_f, logdetG
+
+
+def qr_filter_assemble(x_f, U_f, C, A, Q, mu0, P0):
+    """The moments after the filter scan: (x_pred, P_pred, P_f, logdetG),
+    with the predicted factors Lp_t = tria([A U_f,t-1 | Lq]) (Lp_0 the
+    prior's) and logdetG_t = log|I + Lp_t' C_t Lp_t|.  Kernel qr_elements
+    (mode 2) for CUDA tensors."""
+    if x_f.device.type == "cpu":
+        return qr_filter_assemble_plain(x_f, U_f, C, A, Q, mu0, P0)
+    T, k = x_f.shape
+    dt, dev = x_f.dtype, x_f.device
+    check_qr_k("qr_elements", k)
+    static_C = C.ndim == 2
+    _check(dt, dev, ("x_f", x_f, (T, k)), ("U_f", U_f, (T, k, k)),
+           ("C", C, (k, k) if static_C else (T, k, k)), ("A", A, (k, k)),
+           ("Q", Q, (k, k)), ("mu0", mu0, (k,)), ("P0", P0, (k, k)))
+    outs = tuple(torch.empty(s, dtype=dt, device=dev)
+                 for s in ((T, k), (T, k, k), (T, k, k), (T,)))
+    _qr_launch(2, dt, (x_f, U_f, C, A, Q, mu0, P0), outs, T, k,
+               0 if static_C else k * k)
+    return outs
+
+
+def pit_qr_from_stats(stats: ObsStats, p: SSMParams):
+    """Element build + prefix scan + moment assembly: (x_pred, P_pred,
+    x_f, P_f, logdetG)."""
+    elems = qr_filter_elements(stats, p.A, p.Q, p.mu0, p.P0)
+    pref = qr_scan(elems)
+    x_f, U_f = pref[1], pref[2]
+    x_pred, P_pred, P_f, logdetG = qr_filter_assemble(
+        x_f, U_f, stats.C, p.A, p.Q, p.mu0, p.P0)
+    return x_pred, P_pred, x_f, P_f, logdetG
+
+
+def pit_qr_filter(Y: torch.Tensor, p: SSMParams,
+                  mask: Optional[torch.Tensor] = None) -> FilterResult:
+    """Square-root parallel-in-time filter: the contract of
+    ``info_filter`` (exact loglik, predicted and filtered moments)."""
+    p = p.to(dtype=Y.dtype)
+    stats = obs_stats(Y, p.Lam, p.R, mask=mask)
+    x_pred, P_pred, x_f, P_f, logdetG = pit_qr_from_stats(stats, p)
+    quad_R = quad_local(Y, p.Lam, p.R, x_pred, mask)
+    ll = loglik_from_terms(stats, logdetG, P_f, quad_R,
+                           u_from_stats(stats, x_pred))
+    return FilterResult(x_pred, P_pred, x_f, P_f, ll)
+
+
+def qr_smoother_elements_plain(kf: FilterResult, A, Q):
+    """Plain twin of ``qr_smoother_elements``."""
+    T, k = kf.x_filt.shape
+    U_f = psd_factor(kf.P_filt)
+    Lq = psd_factor(Q)
+    Lp_next = psd_factor(kf.P_pred[1:])
+    APf = matmul_vpu(_bcast(A, T - 1), kf.P_filt[:-1])
+    J = chol_solve_unrolled(Lp_next, APf).transpose(-1, -2)   # (T-1, k, k)
+    E = torch.cat([J, torch.zeros_like(J[:1])], dim=0)
+    g_head = kf.x_filt[:-1] - torch.einsum("tkl,tl->tk", J, kf.x_pred[1:])
+    g = torch.cat([g_head, kf.x_filt[-1:]], dim=0)
+    I_k = torch.eye(k, dtype=A.dtype, device=A.device)
+    ImJA = I_k - matmul_vpu(J, _bcast(A, T - 1))
+    D_head = tria(torch.cat([matmul_vpu(ImJA, U_f[:-1]),
+                             matmul_vpu(J, _bcast(Lq, T - 1))], dim=-1))
+    D = torch.cat([D_head, U_f[-1:]], dim=0)
+    return (E, g, D), J
+
+
+def qr_smoother_elements(kf: FilterResult, A, Q):
+    """Square-root smoothing elements (E, g, D) and the gains J (T-1, k, k),
+    with the Joseph-form residual factor D_t = tria([(I - J A) U_f | J Lq]).
+    Kernel qr_elements (mode 1) for CUDA tensors."""
+    x_filt = kf.x_filt
+    if x_filt.device.type == "cpu":
+        return qr_smoother_elements_plain(kf, A, Q)
+    T, k = x_filt.shape
+    dt, dev = x_filt.dtype, x_filt.device
+    check_qr_k("qr_elements", k)
+    _check(dt, dev, ("x_pred", kf.x_pred, (T, k)),
+           ("P_pred", kf.P_pred, (T, k, k)), ("x_filt", x_filt, (T, k)),
+           ("P_filt", kf.P_filt, (T, k, k)), ("A", A, (k, k)),
+           ("Q", Q, (k, k)))
+    E, g, D = (torch.empty(s, dtype=dt, device=dev)
+               for s in ((T, k, k), (T, k), (T, k, k)))
+    J = torch.empty((max(T - 1, 0), k, k), dtype=dt, device=dev)
+    _qr_launch(1, dt, (kf.x_pred, kf.P_pred, x_filt, kf.P_filt, A, Q),
+               (E, g, D, J), T, k)
+    return (E, g, D), J
+
+
+def qr_smoother_assemble_plain(D_sm, J):
+    """Plain twin of ``qr_smoother_assemble``."""
+    P_sm = _gram(D_sm)
+    P_lag = torch.cat([torch.zeros_like(P_sm[:1]),
+                       torch.einsum("tij,tkj->tik", P_sm[1:], J)], dim=0)
+    return P_sm, P_lag
+
+
+def qr_smoother_assemble(D_sm, J):
+    """(P_sm = D D', P_lag with P_lag,t = P_sm,t J_{t-1}' and P_lag,0 = 0).
+    Kernel qr_elements (mode 3) for CUDA tensors."""
+    if D_sm.device.type == "cpu":
+        return qr_smoother_assemble_plain(D_sm, J)
+    T, k = D_sm.shape[0], D_sm.shape[1]
+    dt, dev = D_sm.dtype, D_sm.device
+    check_qr_k("qr_elements", k)
+    _check(dt, dev, ("D_sm", D_sm, (T, k, k)), ("J", J, (T - 1, k, k)))
+    P_sm, P_lag = (torch.empty((T, k, k), dtype=dt, device=dev)
+                   for _ in range(2))
+    _qr_launch(3, dt, (D_sm, J), (P_sm, P_lag), T, k)
+    return P_sm, P_lag
+
+
+def pit_qr_smoother(kf: FilterResult, p: SSMParams) -> SmootherResult:
+    """Square-root parallel-in-time RTS smoother: the contract of
+    ``rts_smoother``."""
+    p = p.to(dtype=kf.x_filt.dtype)
+    elems, J = qr_smoother_elements(kf, p.A, p.Q)
+    suf = qr_scan(elems, smoother=True)
+    P_sm, P_lag = qr_smoother_assemble(suf[2], J)
+    return SmootherResult(suf[1], P_sm, P_lag)
+
+
+def pit_qr_filter_smoother(Y, p, mask=None):
+    kf = pit_qr_filter(Y, p, mask=mask)
+    return kf, pit_qr_smoother(kf, p)

@@ -99,8 +99,8 @@ def test_s1_twenty_iteration_path(s1):
     kw = dict(estimate_A=False, estimate_Q=False, filter="info")
     pj, lls_j, _ = jem.em_fit_scan(jnp.asarray(Y), JP.from_numpy(p0,
                                    jnp.float64), 20, cfg=jem.EMConfig(**kw))
-    ps, lls_t = tem.em_fit_scan(torch.as_tensor(Y), TP.from_numpy(p0), 20,
-                                cfg=tem.EMConfig(**kw))
+    ps, lls_t, _ = tem.em_fit_scan(torch.as_tensor(Y), TP.from_numpy(p0), 20,
+                                   cfg=tem.EMConfig(**kw))
     lls_t = lls_t.numpy()
     np.testing.assert_allclose(lls_t, np.asarray(lls_j), rtol=1e-9)
     for g, w in zip(ps[-1], pj):
@@ -118,7 +118,7 @@ def test_chunked_driver_stops_like_the_reference(panel, masked, chunk):
     _, Y, W, Ynan, p0 = panel
     Yz = np.where(W > 0, Ynan, 0.0) if masked else Y
     cfg_t = tem.EMConfig(filter="info")
-    pt, lls_t, conv_t, it_t, secs = tem.run_em_chunked(
+    pt, lls_t, conv_t, it_t, secs, max_delta = tem.run_em_chunked(
         torch.as_tensor(Yz), torch.as_tensor(W) if masked else None,
         TP.from_numpy(p0), cfg_t, 40, 1e-6, fused_chunk=chunk)
     cfg_j = jem.EMConfig(filter="info")
@@ -132,6 +132,7 @@ def test_chunked_driver_stops_like_the_reference(panel, masked, chunk):
         jem.noise_floor_for(jnp.float64, Yj.size), fused_chunk=chunk)
     assert (conv_t, it_t, len(lls_t)) == (conv_j, it_j, len(lls_j))
     assert conv_t and it_t % chunk != 0        # a mid-chunk stop
+    assert max_delta == 0.0                    # no freeze outside ss
     assert len(secs) == len(lls_t)
     assert sum(x > 0 for x in secs) == -(-len(lls_t) // chunk)
     np.testing.assert_allclose(lls_t, np.asarray(lls_j), rtol=1e-9)
@@ -155,7 +156,42 @@ def test_em_progress_and_noise_floor(lls, tol, floor, monotone):
             == jem.noise_floor_for(jnp.float32, 5e6))
 
 
-@pytest.mark.parametrize("flt", ["ss", "pit", "pit_qr", "lowrank"])
+@pytest.mark.parametrize("flt", ["pit", "lowrank"])
 def test_unported_engines_raise_naming_the_roadmap(flt):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tem.EMConfig(filter=flt)
+
+
+@pytest.mark.parametrize("flt", ["ss", "pit_qr"])
+def test_ported_engines_construct_and_match_one_e_step(panel, flt):
+    """Unmasked for ss (masked would fall back to info), masked for
+    pit_qr; tau = 12 keeps T = 60 above the ss fallback (2 tau + 4)."""
+    p, Y, W, Ynan, _ = panel
+    masked = flt == "pit_qr"
+    Yin = np.where(W > 0, Ynan, 0.0) if masked else Y
+    cfg_t = tem.EMConfig(filter=flt, tau=12)
+    cfg_j = jem.EMConfig(filter=flt, tau=12)
+    kt, smt, dt_ = cfg_t.e_step(torch.as_tensor(Yin), 
+                                torch.as_tensor(W) if masked else None,
+                                TP.from_numpy(p))
+    kj, smj, dj = cfg_j.e_step(jnp.asarray(Yin),
+                               jnp.asarray(W) if masked else None,
+                               JP.from_numpy(p, jnp.float64))
+    np.testing.assert_allclose(float(kt.loglik), float(kj.loglik), rtol=RTOL)
+    close(kt.x_filt, kj.x_filt, RTOL)
+    close(smt.x_sm, smj.x_sm, RTOL)
+    close(smt.P_sm, smj.P_sm, RTOL)
+    assert float(dt_) == pytest.approx(float(dj), abs=1e-14)
+
+
+@pytest.mark.parametrize("flt", ["dense", "info", "ss", "pit_qr"])
+def test_engine_function_pairs_match_the_reference(flt):
+    """filter_fn / smoother_fn / report_pair name the same routines as the
+    JAX package's (the reporting pair: pit_qr through itself, ss through
+    the exact info pair)."""
+    cfg_t, cfg_j = tem.EMConfig(filter=flt), jem.EMConfig(filter=flt)
+    names = lambda fns: [f.__name__ for f in fns]   # noqa: E731
+    assert names(cfg_t.report_pair()) == names(cfg_j.report_pair())
+    assert cfg_t.smoother_fn().__name__ == cfg_j.smoother_fn().__name__
+    if flt != "ss":
+        assert cfg_t.filter_fn().__name__ == cfg_j.filter_fn().__name__

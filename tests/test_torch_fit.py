@@ -102,7 +102,27 @@ def test_device_init_fit_up_to_column_sign():
 
 
 def test_unported_engine_raises_instead_of_switching():
-    Y = _panel(520, 30, 2, seed=1)
-    with pytest.raises(NotImplementedError, match="K5"):
+    Y = _panel(40, 30, 2, seed=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         dtt.fit(dtt.DynamicFactorModel(2), Y, max_iters=2,
-                backend=dtt.TorchBackend(device="cpu"))
+                backend=dtt.TorchBackend(device="cpu", filter="lowrank"))
+
+
+def test_unmasked_wide_panel_resolves_to_ss_and_matches():
+    """N >= 512 unmasked: filter="auto" picks the steady-state engine
+    with tau = auto_tau(init) on both; the JAX fit runs unguarded
+    (robust=False), the port has no guard."""
+    Y = _panel(512, 60, 2, seed=4)
+    kw = dict(max_iters=6, tol=0.0)
+    rj = jfit(JModel(2), Y, backend=TPUBackend(dtype=np.float64,
+                                               robust=False), **kw)
+    rt = dtt.fit(dtt.DynamicFactorModel(2), Y,
+                 backend=dtt.TorchBackend(device="cpu", dtype=torch.float64),
+                 **kw)
+    assert rt.filter == rj.filter == "ss"
+    assert 2 * rt.tau + 4 < Y.shape[0]          # the ss path itself ran
+    assert rt.ss_delta is not None and rt.ss_delta >= 0.0
+    np.testing.assert_allclose(rt.logliks, rj.logliks, rtol=RTOL)
+    for name in ("Lam", "A", "Q", "R"):
+        close(getattr(rt.params, name), getattr(rj.params, name), RTOL)
+    close(rt.factors, rj.factors, RTOL)

@@ -115,5 +115,7 @@ def test_cpu_path_launches_no_kernel():
                   backend=dtt.TorchBackend(device="cpu"))
     assert res.filter == "info" and res.n_iters == 3
     assert set(kernels.LAUNCHES) == {"quad_local", "obs_stats", "mstep_rows",
-                                     "info_scan", "rts_smoother"}
+                                     "info_scan", "rts_smoother",
+                                     "ss_cov_path", "affine_scan",
+                                     "qr_elements", "qr_scan"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())
