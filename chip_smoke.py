@@ -41,10 +41,42 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    params re-evaluated in f64 must be within 1e-5 relative of the f64
    trajectory's loglik at iteration 3: info masked and unmasked, ss
    unmasked (at the fit's tau), pit_qr masked.
+6. ring kernel: K13 (``ring_append``) against its plain twin at
+   T_cap = 1,000, N = 10,000, r_max = 8, f32 and f64, bit for bit
+   (tolerance 0), for (n_evict, n_new) in (0, 0), (0, 2), (0, 8), (2, 2),
+   (8, 8), an append past capacity, and n_evict = 0 twice (the live rows
+   must come back bit-identical); timed warm and cold beside the plain
+   twin, ``torch.roll`` + ``index_copy_`` and its bound, and at the ring
+   session's own shape (T_cap = 480, e = 2).
+7. sessions, full width: the masked headline panel's first 480 rows
+   fitted with ``fit(fused=True)`` (20 iterations, tol = 0; info, and
+   pit_qr), then three sessions, each with 10 updates of 2 rows (rows
+   480-499, ragged mask) and a re-forecast (no rows), 5 warm EM
+   iterations a query: info at
+   capacity 1,000, pit_qr at capacity 1,000, and an info ring at
+   capacity 480 (every update evicts 2).  Each query's device work runs
+   under ``torch.cuda.set_sync_debug_mode("error")`` and is followed by
+   one counted read; K13 must launch exactly once a query, K4 (info) or
+   K8 (pit_qr) every query.  Synchronized query walls (p50, p99: the
+   session's own ``wall_s``, upload to read, and the whole ``update``
+   call, host checks and the host mirror included), the
+   info query's kernel times at its shapes; after each session's last
+   query, every kernel of its path against its plain twin on the
+   session's own buffers and params (f32 and f64, the TOL rule; K13 bit
+   for bit); then a cold
+   ``fit(fused=True, max_iters=5, tol=0, init=...)`` of the live 500 rows
+   from the info session's entry params of its last query, and its
+   device part alone (``run_fused`` on the panel already on the card).
+8. session reference: at 120 x 80, k = 3, a ``standardize=False`` model,
+   a ring session with 3 updates (the first evicts), on the card in f64
+   against the same session on the CPU in f64, and against the card's
+   cold fused fit of the trailing window from the same start params,
+   within 1e-10 relative (nowcast, factors, factor_cov, forecasts,
+   logliks).
 
-Output: one JSON line per kernel and dtype, one per fit and contract
-check, then the {"kernels": [...]} summary, the card line and, last,
-{"ok": true, "device": {...}}.
+Output: one JSON line per kernel and dtype, one per fit, contract check,
+ring case and session, then the {"kernels": [...]} summary, the card line
+and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -63,10 +95,13 @@ from dfm_tpu_torch import kernels
 from dfm_tpu_torch.estim.em import (EMConfig, em_fit_scan, moments,
                                     mstep_rows, mstep_rows_plain,
                                     noise_floor_for)
+from dfm_tpu_torch.estim.fused import FusedOptions, run_fused
 from dfm_tpu_torch.estim.init import pca_init_device
 from dfm_tpu_torch.ops import linalg as la
 from dfm_tpu_torch.ops import scan as sc
 from dfm_tpu_torch.ops.precision import highest_precision
+from dfm_tpu_torch.serve.batched import (ring_evict_append,
+                                         ring_evict_append_plain)
 from dfm_tpu_torch.ssm import info_filter as inf
 from dfm_tpu_torch.ssm import parallel_filter as pf
 from dfm_tpu_torch.ssm import steady as ss
@@ -120,7 +155,8 @@ REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "ss_cov_path": "dfm_tpu/ssm/steady.py:124",
             "affine_scan": "dfm_tpu/ops/scan.py:39",
             "qr_elements": "dfm_tpu/ssm/parallel_filter.py:293",
-            "qr_scan": "dfm_tpu/ops/scan.py:73"}
+            "qr_scan": "dfm_tpu/ops/scan.py:73",
+            "ring_append": "dfm_tpu/serve/batched.py:72"}
 # The variant of each kernel whose f32 record goes into the summary line.
 SUMMARY_VARIANT = {"quad_local": "masked", "obs_stats": "masked",
                    "mstep_rows": "masked", "info_scan": "masked",
@@ -337,6 +373,53 @@ def qr_cases(stats, pt, label: str, unit: bool = True) -> list:
     return cases
 
 
+def masked_cases(Yt, mt, pt, label: str = "masked",
+                 lam_ridge=None) -> tuple:
+    """K1-K4 on a masked panel already on the card, on inputs the plain
+    pipeline makes from it (K3 with ``lam_ridge`` when given): (cases,
+    the plain observation stats).  Call under ``highest_precision()``."""
+    dtype = Yt.dtype
+    T_, N_ = Yt.shape
+    k = pt.A.shape[0]
+    TN, k2, k3 = T_ * N_, k * k, k ** 3
+    stats = inf.obs_stats_plain(Yt, pt.Lam, pt.R, mt)
+    scan = inf.info_scan_plain(stats, pt.A, pt.Q, pt.mu0, pt.P0)
+    kf = FilterResult(*scan[:4], torch.zeros((), dtype=dtype))
+    sm = rts_smoother_plain(kf, pt)
+    EffT, _ = moments(sm)
+    scan_in = (stats.b, stats.C, pt.A, pt.Q, pt.mu0, pt.P0)
+    cases = [
+        case("obs_stats", label,
+             lambda: inf.obs_stats(Yt, pt.Lam, pt.R, mt),
+             lambda: inf.obs_stats_plain(Yt, pt.Lam, pt.R, mt),
+             (Yt, pt.Lam, pt.R, mt), TN * (2 * k + k * (k + 1) + 6),
+             library=lambda: torch.einsum("nk,tn,n,nl->tkl", pt.Lam, mt,
+                                          1.0 / pt.R, pt.Lam)),
+        case("info_scan", label,
+             lambda: inf.info_scan(stats, pt.A, pt.Q, pt.mu0, pt.P0),
+             lambda: inf.info_scan_plain(stats, pt.A, pt.Q, pt.mu0, pt.P0),
+             scan_in, T_ * (12.67 * k3 + 4 * k2),
+             floor=lambda: latency_ms("info_scan", dtype, k, T_)),
+        case("quad_local", label,
+             lambda: inf.quad_local(Yt, pt.Lam, pt.R, scan[0], mt),
+             lambda: inf.quad_local_plain(Yt, pt.Lam, pt.R, scan[0], mt),
+             (Yt, pt.Lam, pt.R, scan[0], mt), TN * (2 * k + 5)),
+        case("rts_smoother", label, lambda: rts_smoother(kf, pt),
+             lambda: rts_smoother_plain(kf, pt),
+             (kf.x_pred, kf.P_pred, kf.x_filt, kf.P_filt, pt.A),
+             T_ * (10.33 * k3 + 4 * k2),
+             floor=lambda: latency_ms("rts_smoother", dtype, k, T_)),
+        case("mstep_rows", label,
+             lambda: mstep_rows(Yt, mt, sm.x_sm, EffT, sm.P_sm, None, 1e-6,
+                                lam_ridge=lam_ridge),
+             lambda: mstep_rows_plain(Yt, mt, sm.x_sm, EffT, sm.P_sm, 1e-6,
+                                      lam_ridge),
+             (Yt, mt, sm.x_sm, EffT, sm.P_sm),
+             TN * (4 * k + 2 * k * (k + 1) + 5) + N_ * (k3 // 3 + 6 * k2)),
+    ]
+    return cases, stats
+
+
 def kernel_cases(Ynan, W, Yfull, p, dtype, taus=(), lam_ridge=None,
                  qr=True, unit=True) -> list:
     """Every kernel of the fit paths on inputs the plain pipeline makes
@@ -351,43 +434,11 @@ def kernel_cases(Ynan, W, Yfull, p, dtype, taus=(), lam_ridge=None,
     T_, N_ = Yt.shape
     k = pt.A.shape[0]
     TN, k2, k3 = T_ * N_, k * k, k ** 3
-    stats = inf.obs_stats_plain(Yt, pt.Lam, pt.R, mt)
-    scan = inf.info_scan_plain(stats, pt.A, pt.Q, pt.mu0, pt.P0)
-    kf = FilterResult(*scan[:4], torch.zeros((), dtype=dtype))
-    sm = rts_smoother_plain(kf, pt)
-    EffT, _ = moments(sm)
+    cases, stats = masked_cases(Yt, mt, pt, lam_ridge=lam_ridge)
     ustats = inf.obs_stats_plain(Yf, pt.Lam, pt.R)
     uscan = inf.info_scan_plain(ustats, pt.A, pt.Q, pt.mu0, pt.P0)
-    scan_in = (stats.b, stats.C, pt.A, pt.Q, pt.mu0, pt.P0)
     uscan_in = (ustats.b, ustats.C, pt.A, pt.Q, pt.mu0, pt.P0)
-    cases = [
-        case("obs_stats", "masked",
-             lambda: inf.obs_stats(Yt, pt.Lam, pt.R, mt),
-             lambda: inf.obs_stats_plain(Yt, pt.Lam, pt.R, mt),
-             (Yt, pt.Lam, pt.R, mt), TN * (2 * k + k * (k + 1) + 6),
-             library=lambda: torch.einsum("nk,tn,n,nl->tkl", pt.Lam, mt,
-                                          1.0 / pt.R, pt.Lam)),
-        case("info_scan", "masked",
-             lambda: inf.info_scan(stats, pt.A, pt.Q, pt.mu0, pt.P0),
-             lambda: inf.info_scan_plain(stats, pt.A, pt.Q, pt.mu0, pt.P0),
-             scan_in, T_ * (12.67 * k3 + 4 * k2),
-             floor=lambda: latency_ms("info_scan", dtype, k, T_)),
-        case("quad_local", "masked",
-             lambda: inf.quad_local(Yt, pt.Lam, pt.R, scan[0], mt),
-             lambda: inf.quad_local_plain(Yt, pt.Lam, pt.R, scan[0], mt),
-             (Yt, pt.Lam, pt.R, scan[0], mt), TN * (2 * k + 5)),
-        case("rts_smoother", "masked", lambda: rts_smoother(kf, pt),
-             lambda: rts_smoother_plain(kf, pt),
-             (kf.x_pred, kf.P_pred, kf.x_filt, kf.P_filt, pt.A),
-             T_ * (10.33 * k3 + 4 * k2),
-             floor=lambda: latency_ms("rts_smoother", dtype, k, T_)),
-        case("mstep_rows", "masked",
-             lambda: mstep_rows(Yt, mt, sm.x_sm, EffT, sm.P_sm, None, 1e-6,
-                                lam_ridge=lam_ridge),
-             lambda: mstep_rows_plain(Yt, mt, sm.x_sm, EffT, sm.P_sm, 1e-6,
-                                      lam_ridge),
-             (Yt, mt, sm.x_sm, EffT, sm.P_sm),
-             TN * (4 * k + 2 * k * (k + 1) + 5) + N_ * (k3 // 3 + 6 * k2)),
+    cases += [
         case("info_scan", "unmasked",
              lambda: inf.info_scan(ustats, pt.A, pt.Q, pt.mu0, pt.P0),
              lambda: inf.info_scan_plain(ustats, pt.A, pt.Q, pt.mu0, pt.P0),
@@ -585,7 +636,7 @@ OWN_FIT = {"quad_local": "masked", "obs_stats": "masked",
            "mstep_rows": "masked", "info_scan": "masked",
            "rts_smoother": "masked", "ss_cov_path": "unmasked ss",
            "affine_scan": "unmasked ss", "qr_elements": "masked pit_qr",
-           "qr_scan": "masked pit_qr"}
+           "qr_scan": "masked pit_qr", "ring_append": "info"}
 
 
 def fit_phase(seed: int) -> dict:
@@ -736,6 +787,382 @@ def contract_phase(seed: int) -> None:
                                  f"{rel:.3e}")
 
 
+RING_CASES = ((0, 0), (0, 2), (0, 8), (2, 2), (8, 8))
+RING_T_CAP, RING_R_MAX = 1000, 8
+SESSION_T0, SESSION_UPDATES, SESSION_ROWS = 480, 10, 2
+
+
+def ring_buffers(T_cap: int, t_cur: int, dtype, seed: int):
+    """A session's (Ybuf, Wbuf) on the card: ``t_cur`` live rows with a
+    ragged mask, every row past them exactly zero (the invariant K13
+    assumes)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    Y = torch.zeros((T_cap, N), dtype=dtype, device="cuda")
+    W = torch.zeros_like(Y)
+    W[:t_cur] = (torch.rand((t_cur, N), generator=g, device="cuda")
+                 < 0.95).to(dtype)
+    Y[:t_cur] = torch.randn((t_cur, N), generator=g, dtype=dtype,
+                            device="cuda") * W[:t_cur]
+    return Y, W
+
+
+def ring_rows(n_new: int, dtype, seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = torch.zeros((RING_R_MAX, N), dtype=dtype, device="cuda")
+    rmask = torch.zeros_like(rows)
+    rmask[:n_new] = 1.0
+    rows[:n_new] = torch.randn((n_new, N), generator=g, dtype=dtype,
+                               device="cuda")
+    return rows, rmask
+
+
+def ring_bytes(T_cap, N_, r_max, n_evict, t_cur, itemsize) -> int:
+    """Bytes K13 must move on this call's data, both buffers: the shifted
+    live rows read and written, the appended rows read and written, the
+    vacated rows past the append written."""
+    t_keep = t_cur - n_evict
+    moved = t_keep if n_evict else 0
+    n_in = max(0, min(r_max, T_cap - t_keep))
+    zeroed = max(0, t_cur - t_keep - r_max)
+    return 2 * N_ * itemsize * (2 * moved + 2 * n_in + zeroed)
+
+
+def ring_phase(seed: int) -> dict:
+    """K13 against its plain twin, bit for bit, and timed.  Returns the
+    f32 record of the ring session's shape (T_cap = 480, e = 2)."""
+    summary = None
+    t_part = RING_T_CAP * 3 // 5           # a session below capacity
+    cases = [(f"e={e} n={n}", RING_T_CAP, RING_T_CAP if e else t_part, e, n)
+             for e, n in RING_CASES]
+    cases.append(("past capacity", RING_T_CAP, RING_T_CAP - 4, 0, 8))
+    cases.append(("ring session", SESSION_T0, SESSION_T0, 2, 2))
+    for dtype in (torch.float64, torch.float32):
+        for i, (label, T_cap, t_cur, e, n) in enumerate(cases):
+            Y0, W0 = ring_buffers(T_cap, t_cur, dtype, seed + i)
+            rows, rmask = ring_rows(n, dtype, seed + 100 + i)
+            Yk, Wk, Yp, Wp = Y0.clone(), W0.clone(), Y0.clone(), W0.clone()
+            n0 = kernels.LAUNCHES["ring_append"]
+            ring_evict_append(Yk, Wk, rows, rmask, e, t_cur)
+            launches = kernels.LAUNCHES["ring_append"] - n0
+            ring_evict_append_plain(Yp, Wp, rows, rmask, e, t_cur)
+            torch.cuda.synchronize()
+            err = max(float((Yk - Yp).abs().max()),
+                      float((Wk - Wp).abs().max()))
+            exact = torch.equal(Yk, Yp) and torch.equal(Wk, Wp)
+            if not exact or launches != 1:
+                raise AssertionError(f"ring_append ({dtype}, {label}): "
+                                     f"bit_exact={exact} (max abs err "
+                                     f"{err}), launches {launches}")
+            if e == 0 and not torch.equal(Yk[:t_cur], Y0[:t_cur]):
+                raise AssertionError(f"ring_append ({dtype}, {label}): "
+                                     "n_evict = 0 changed a live row")
+            t_keep = t_cur - e
+            n_in = max(0, min(RING_R_MAX, T_cap - t_keep))
+            idx = torch.arange(t_keep, t_keep + n_in, device="cuda")
+            run = lambda: ring_evict_append(Yk, Wk, rows, rmask, e, t_cur)
+            plain = lambda: ring_evict_append_plain(Yp, Wp, rows, rmask, e,
+                                                    t_cur)
+            library = lambda: [torch.roll(b, -e, dims=0).index_copy_(
+                0, idx, s[:n_in]) for b, s in ((Yp, rows), (Wp, rmask))]
+            kernel_ms = cuda_ms(run)
+            cold_ms = cuda_ms_cold(run)
+            bound_ms, bound_by = bound(
+                ring_bytes(T_cap, N, RING_R_MAX, e, t_cur,
+                           Y0.element_size()), 0.0, dtype)
+            rec = {"name": "ring_append", "variant": label,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "T_cap": T_cap, "t_cur": t_cur, "n_evict": e, "n_new": n,
+                   "bit_exact": exact, "max_abs_err": err,
+                   "max_rel_err": err, "tol": 0.0, "latency_ms": None,
+                   "kernel_ms": kernel_ms, "kernel_ms_cold_l2": cold_ms,
+                   "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "launches": launches}
+            emit(rec)
+            if dtype == torch.float32 and label == "ring session":
+                summary = rec
+        # n_evict = 0 twice: two appends leave the live rows bit-identical.
+        Y0, W0 = ring_buffers(RING_T_CAP, t_part, dtype, seed + 50)
+        Yk, Wk = Y0.clone(), W0.clone()
+        for j, t_cur in enumerate((t_part, t_part + 2)):
+            rows, rmask = ring_rows(2, dtype, seed + 60 + j)
+            ring_evict_append(Yk, Wk, rows, rmask, 0, t_cur)
+        torch.cuda.synchronize()
+        same = (torch.equal(Yk[:t_part], Y0[:t_part])
+                and torch.equal(Wk[:t_part], W0[:t_part]))
+        emit({"ring_append": "n_evict=0 twice", "dtype": str(dtype),
+              "live_rows_bit_identical": same})
+        if not same:
+            raise AssertionError("ring_append: two n_evict = 0 appends "
+                                 "changed a live row")
+    return summary
+
+
+# Per session: (label, engine, ring, capacity, the kernel of its engine
+# that must launch on every query).
+SESSIONS = (("info", "info", False, 1000, "info_scan"),
+            ("pit_qr", "pit_qr", False, 1000, "qr_scan"),
+            ("ring", "info", True, SESSION_T0, "info_scan"))
+
+
+def pct(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def query_breakdown(sess, walls) -> dict:
+    """Kernel times of one info query at the session's shapes (the live
+    buffers, params and capacity; CUDA events, warm L2): K2, K4 forward,
+    K1 and K4 backward run once per E-step (5 EM iterations + the
+    reporting smooth), K3 once per M-step, K13 once.  "rest" is the p50
+    query wall less those kernels: the torch glue, the upload and the
+    read."""
+    Yb, Wb = sess._Ybuf, sess._Wbuf
+    pt = sess._p
+    with highest_precision():
+        stats = inf.obs_stats(Yb, pt.Lam, pt.R, Wb)
+        scan = inf.info_scan(stats, pt.A, pt.Q, pt.mu0, pt.P0)
+        kf = FilterResult(*scan[:4], torch.zeros((), dtype=Yb.dtype))
+        sm = rts_smoother(kf, pt)
+        EffT, _ = moments(sm)
+        ms = {"obs_stats": cuda_ms(lambda: inf.obs_stats(Yb, pt.Lam, pt.R,
+                                                         Wb)),
+              "info_scan": cuda_ms(lambda: inf.info_scan(
+                  stats, pt.A, pt.Q, pt.mu0, pt.P0)),
+              "quad_local": cuda_ms(lambda: inf.quad_local(
+                  Yb, pt.Lam, pt.R, scan[0], Wb)),
+              "rts_smoother": cuda_ms(lambda: rts_smoother(kf, pt)),
+              "mstep_rows": cuda_ms(lambda: mstep_rows(
+                  Yb, Wb, sm.x_sm, EffT, sm.P_sm, None, 1e-6))}
+        rows = torch.zeros((8, Yb.shape[1]), dtype=Yb.dtype, device="cuda")
+        Yc, Wc = Yb.clone(), Wb.clone()
+        ms["ring_append"] = cuda_ms(lambda: ring_evict_append(
+            Yc, Wc, rows, rows, 0, sess.t))
+    per_query = {n: ms[n] * (5 if n == "mstep_rows" else
+                             1 if n == "ring_append" else 6) for n in ms}
+    p50 = pct(walls, 50) * 1e3
+    return {"query_breakdown": "info", "T_cap": Yb.shape[0],
+            "kernel_ms": ms, "per_query_ms": per_query,
+            "rest_ms": p50 - sum(per_query.values()), "p50_ms": p50}
+
+
+def session_kernel_check(sess, label: str, seed: int) -> None:
+    """Every kernel of the session's path against its plain twin on the
+    session's own buffers and params after its last query: T_cap rows,
+    those past the live length zero-masked pad (K8 splits T_cap into its
+    own blocks), in f32 (the session's dtype) and in f64 (the same values
+    cast), with the kernel phase's TOL rule; K13 bit for bit on copies of
+    the buffers at the session's next (n_evict, t_cur).  Raises on a
+    mismatch."""
+    worst, refs = {}, {}
+    variant = f"session {label}"
+    for dtype in (torch.float64, torch.float32):
+        Yb = sess._Ybuf.to(dtype).contiguous()
+        Wb = sess._Wbuf.to(dtype).contiguous()
+        pt = sess._p.to(dtype=dtype)
+        with highest_precision():
+            cases, stats = masked_cases(Yb, Wb, pt, label=variant)
+            if sess.filter == "pit_qr":
+                cases += qr_cases(stats, pt, variant, unit=False)
+            for c in cases:
+                key = (c["name"], c["variant"])
+                _, rel, _, ref, _ = compare(c, dtype, refs.get(key))
+                refs[key] = ref
+                name = f"{c['name']} {str(dtype)[6:]}"
+                worst[name] = max(worst.get(name, 0.0), rel)
+        e = SESSION_ROWS if sess.ring else 0
+        rows, rmask = ring_rows(SESSION_ROWS, dtype, seed)
+        Yk, Wk, Yp, Wp = Yb.clone(), Wb.clone(), Yb.clone(), Wb.clone()
+        ring_evict_append(Yk, Wk, rows, rmask, e, sess.t)
+        ring_evict_append_plain(Yp, Wp, rows, rmask, e, sess.t)
+        if not (torch.equal(Yk, Yp) and torch.equal(Wk, Wp)):
+            raise AssertionError(f"ring_append ({dtype}, {variant}): not "
+                                 "bit-exact against its plain twin")
+        worst[f"ring_append {str(dtype)[6:]}"] = 0.0
+    emit({"session_kernels": label, "T_cap": sess.capacity, "t": sess.t,
+          "filter": sess.filter, "max_rel_err": worst})
+
+
+def session_phase(seed: int) -> dict:
+    """The full-width sessions; returns each session's launch counts over
+    its queries by label."""
+    Ynan, _, _, _ = panel(seed + 1)
+    model = dt.DynamicFactorModel(n_factors=K, dynamics="ar1")
+    T_end = SESSION_T0 + SESSION_UPDATES * SESSION_ROWS
+    fits = {}
+    for engine in ("info", "pit_qr"):
+        backend = dt.TorchBackend(filter="auto" if engine == "info"
+                                  else engine)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = dt.fit(model, Ynan[:SESSION_T0], backend=backend, fused=True,
+                     max_iters=20, tol=0.0)
+        wall = time.perf_counter() - t0
+        emit({"fused_fit": engine, "filter": res.filter,
+              "n_iters": res.n_iters, "host_reads": res.host_reads,
+              "converged": res.converged, "wall_s": wall,
+              "loglik_last": float(res.logliks[-1]),
+              "launches": dict(kernels.LAUNCHES)})
+        if (res.filter != engine or res.n_iters != 20
+                or not np.isfinite(res.logliks).all()
+                or not np.isfinite(res.nowcast).all()
+                or res.forecasts["y"].shape != (1, N)):
+            raise AssertionError(f"fused fit ({engine}) failed: filter "
+                                 f"{res.filter}, {res.n_iters} iterations")
+        fits[engine] = (res, backend)
+    counts = {}
+    entry = None
+    for label, engine, ring, cap, own in SESSIONS:
+        res, backend = fits[engine]
+        sess = dt.open_session(res, Ynan[:SESSION_T0], backend=backend,
+                               capacity=cap, max_update_rows=8, max_iters=5,
+                               tol=0.0, ring=ring)
+        sess.check_sync = True
+        reads = []
+        read = sess._read
+        sess._read = lambda out: reads.append(1) or read(out)
+        walls, calls, per_query = [], [], []
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        # 10 updates, then a pure re-forecast (no rows; still one K13
+        # launch and one read); the walls are the updates'.
+        for q in range(SESSION_UPDATES + 1):
+            lo = SESSION_T0 + q * SESSION_ROWS
+            if label == "info" and q == SESSION_UPDATES - 1:
+                entry = sess.params()
+            before = dict(kernels.LAUNCHES)
+            torch.cuda.synchronize()
+            c0 = time.perf_counter()
+            u = sess.update(Ynan[lo:lo + SESSION_ROWS]
+                            if q < SESSION_UPDATES else None)
+            torch.cuda.synchronize()
+            call = time.perf_counter() - c0
+            if q < SESSION_UPDATES:
+                walls.append(u.wall_s)
+                calls.append(call)
+            per_query.append({n: kernels.LAUNCHES[n] - before[n]
+                              for n in kernels.LAUNCHES})
+            if not (np.isfinite(u.nowcast).all()
+                    and np.isfinite(u.factors).all()
+                    and np.isfinite(u.forecasts["di"]).all()
+                    and u.nowcast.shape == (N,)):
+                raise AssertionError(f"session {label}: non-finite output")
+        counts[label] = dict(kernels.LAUNCHES)
+        rec = {"session": label, "filter": sess.filter, "ring": ring,
+               "capacity": cap, "t": sess.t, "n_evicted": sess.n_evicted,
+               "queries": SESSION_UPDATES, "p50_ms": pct(walls, 50) * 1e3,
+               "p99_ms": pct(walls, 99) * 1e3,
+               "walls_ms": [w * 1e3 for w in walls],
+               "call_p50_ms": pct(calls, 50) * 1e3,
+               "call_p99_ms": pct(calls, 99) * 1e3,
+               "calls_ms": [c * 1e3 for c in calls],
+               "reads_per_query": len(reads) / len(per_query),
+               "reforecast_launches": {n: per_query[-1][n] for n in
+                                       ("ring_append", own)},
+               "sync_checked": True,
+               "launches_per_query": {n: per_query[-2][n] for n in
+                                      ("ring_append", "info_scan",
+                                       "rts_smoother", "qr_scan",
+                                       "qr_elements", "mstep_rows")},
+               "n_iters_last": u.n_iters}
+        emit(rec)
+        bad = [q for q, c in enumerate(per_query)
+               if c["ring_append"] != 1 or c[own] < 1]
+        if bad or len(reads) != len(per_query) or sess.filter != engine:
+            raise AssertionError(f"session {label}: queries {bad} missed "
+                                 f"one ring_append launch or {own}; reads "
+                                 f"{len(reads)}, engine {sess.filter}")
+        if ring and sess.n_evicted != SESSION_UPDATES * SESSION_ROWS:
+            raise AssertionError(f"ring session evicted {sess.n_evicted}")
+        if label == "info":
+            info_p50 = rec["p50_ms"]
+            emit(query_breakdown(sess, walls))
+        session_kernel_check(sess, label, seed + 70)
+        sess.close()
+    # The cold refit the session replaces: the live 500 rows from the
+    # params the info session's last query started from.
+    cold = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = dt.fit(model, Ynan[:T_end], backend=fits["info"][1], fused=True,
+                   max_iters=5, tol=0.0, init=entry)
+        cold.append(time.perf_counter() - t0)
+    # Its device part alone: the fused fit on the panel already on the
+    # card (standardized as the fit does, zero-filled, with its mask).
+    W = data.build_mask(Ynan[:T_end])
+    Z, _ = data.standardize(Ynan[:T_end], mask=W)
+    Zt = torch.as_tensor(np.where(W > 0, np.nan_to_num(Z), 0.0),
+                         dtype=torch.float32, device="cuda")
+    Wt = torch.as_tensor(W, dtype=torch.float32, device="cuda")
+    p0 = SSMParams.from_numpy(entry, dtype=torch.float32, device="cuda")
+    floor = noise_floor_for(torch.float32, Zt.numel())
+    device = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_fused(Zt, Wt, p0, EMConfig(filter="info"), 5, 0.0, floor,
+                  FusedOptions())
+        device.append(time.perf_counter() - t0)
+    emit({"cold_refit": "info", "T": T_end, "n_iters": r.n_iters,
+          "host_reads": r.host_reads, "walls_ms": [w * 1e3 for w in cold],
+          "median_ms": pct(cold, 50) * 1e3,
+          "device_part_ms": [w * 1e3 for w in device],
+          "device_part_median_ms": pct(device, 50) * 1e3,
+          "info_session_p50_over_cold": info_p50 / (pct(cold, 50) * 1e3)})
+    return counts
+
+
+def session_reference_phase(seed: int) -> None:
+    """A ring session at 120 x 80, k = 3 (standardize=False), 3 updates,
+    on the card in f64 against the CPU in f64 and against the card's cold
+    fused fit of the trailing window, within 1e-10 relative."""
+    Ynan, _, _, _ = panel(seed + 5, T_=130, N_=80, K_=3)
+    model = dt.DynamicFactorModel(n_factors=3, dynamics="ar1",
+                                  standardize=False)
+    ups = ((120, 123), (123, 124), (124, 128))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        b = dt.TorchBackend(device=dev, dtype=torch.float64, filter="info")
+        res = dt.fit(model, Ynan[:120], backend=b, fused=True, max_iters=10,
+                     tol=0.0)
+        sess = dt.open_session(res, Ynan[:120], backend=b, capacity=120,
+                               max_update_rows=4, max_iters=5, tol=0.0,
+                               ring=True)
+        sess.check_sync = dev == "cuda"
+        us, entries = [], []
+        for lo, hi in ups:
+            entries.append(sess.params())
+            us.append(sess.update(Ynan[lo:hi]))
+        out[dev] = (res, us, entries, b)
+    errs = {}
+    fields = ("nowcast", "factors", "factor_cov", "logliks")
+
+    def worst(name, got, want):
+        e = float(np.abs(got - want).max() / np.abs(want).max())
+        errs[name] = max(errs.get(name, 0.0), e)
+
+    for ug, uc in zip(out["cuda"][1], out["cpu"][1]):
+        for f in fields:
+            worst(f"card-cpu {f}", getattr(ug, f), getattr(uc, f))
+        for key in ("y", "f", "di"):
+            worst(f"card-cpu forecast {key}", ug.forecasts[key],
+                  uc.forecasts[key])
+    # Each ring update against a cold fused fit of its trailing window.
+    _, us, entries, b = out["cuda"]
+    for (lo, hi), u, p in zip(ups, us, entries):
+        ref = dt.fit(model, Ynan[hi - 120:hi], backend=b, fused=True,
+                     max_iters=5, tol=0.0, init=p)
+        for f in ("nowcast", "factors", "factor_cov", "logliks"):
+            worst(f"session-cold {f}", getattr(u, f), getattr(ref, f))
+        worst("session-cold forecast y", u.forecasts["y"], ref.forecasts["y"])
+    emit({"session_reference": "ring info", "shape": [120, 80, 3],
+          "max_rel_err": errs, "tol": 1e-10})
+    bad = {n: e for n, e in errs.items() if not e <= 1e-10}
+    if bad:
+        raise AssertionError(f"session reference disagrees: {bad}")
+
+
 def ptxas_summary(source: str) -> dict:
     """Build seconds and, over the k = 10 instantiations of ``source``
     (every function for a source without a k template), the largest
@@ -788,6 +1215,9 @@ def main() -> int:
     launches = fit_phase(args.seed)
     reference_phase(args.seed)
     contract_phase(args.seed)
+    summary["ring_append"] = ring_phase(args.seed)
+    launches.update(session_phase(args.seed))
+    session_reference_phase(args.seed)
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"dfm_tpu_torch/csrc/{kernels.KERNELS[name][0]}",

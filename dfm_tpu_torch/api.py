@@ -1,22 +1,27 @@
 """Public API: ``DynamicFactorModel`` + ``fit(model, Y, backend=...)``.
 
 The PyTorch twin of ``dfm_tpu.api`` for plain DFM fits:
-standardize -> PCA init -> chunked EM -> reporting smooth, and
-``forecast``.  ``TorchBackend`` runs on CUDA unless the caller asks for
-the CPU (``device="cpu"``), where every kernel's plain version runs
-instead; a CUDA backend on a machine without a card raises.
+standardize -> PCA init -> chunked EM (or, with ``fused=``, the fused fit
+of ``estim.fused``: EM to convergence, smooth, nowcast and forecasts) ->
+reporting smooth, and ``forecast``; ``keep_session=`` opens a streaming
+``serve.NowcastSession`` on the fit.  ``TorchBackend`` runs on CUDA
+unless the caller asks for the CPU (``device="cpu"``), where every
+kernel's plain version runs instead; a CUDA backend on a machine without
+a card raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .backends import cpu_ref
-from .estim.em import EMConfig, run_em_chunked
+from .estim.em import EMConfig, noise_floor_for, run_em_chunked
+from .estim.fused import resolve_fused, run_fused
 from .estim.init import pca_init_device, standardize_device
 from .ops.precision import default_compute_dtype, highest_precision
 from .ssm.info_filter import smooth
@@ -77,7 +82,20 @@ class FitResult:
     history: list                      # per-iter dicts {iter, loglik, secs}
     filter: Optional[str] = None       # resolved in-loop filter engine
     tau: Optional[int] = None          # steady-state horizon ("ss" only)
-    ss_delta: Optional[float] = None   # largest ss freeze delta ("ss" only)
+    ss_delta: Optional[float] = None   # largest ss freeze delta ("ss"
+    #                                  # only; None on fused fits)
+    nowcast: Optional[np.ndarray] = None   # fused fits only: (N,) Lam x_T
+    #                                  # in ORIGINAL units
+    forecasts: Optional[dict] = None   # fused fits only: {"y": (h, N)
+    #                                  # state-space forecast in original
+    #                                  # units, "f": (h, k) factor path,
+    #                                  # "di": (N,) diffusion-index h-step
+    #                                  # forecast or None}
+    session: Optional[object] = None   # fit(keep_session=...) only: a
+    #                                  # serve.NowcastSession on this fit
+    host_reads: Optional[int] = None   # fused fits only: blocking
+    #                                  # device->host reads of the EM loop
+    #                                  # and its outputs
 
     @property
     def loglik(self) -> float:
@@ -161,7 +179,8 @@ def fit(model: DynamicFactorModel, Y: np.ndarray,
         mask: Optional[np.ndarray] = None,
         backend: Optional[TorchBackend] = None,
         max_iters: Optional[int] = None, tol: Optional[float] = None,
-        init=None) -> FitResult:
+        init=None, fused=False, keep_session=False,
+        warm_start=None) -> FitResult:
     """Estimate a DFM: standardize -> PCA init -> EM -> smooth.
 
     Y    : (T, N) panel; NaNs mark missing observations.
@@ -171,13 +190,36 @@ def fit(model: DynamicFactorModel, Y: np.ndarray,
         1e-6).
     init : NumPy warm-start params (anything with Lam, A, Q, R, mu0, P0);
         None runs the PCA init.
+    fused : the fused fit (``estim.fused``): ``True``, an int (the
+        forecast horizon) or a ``FusedOptions``.  EM runs to convergence
+        as gated device chunks (at most one 4-byte status read per chunk),
+        then the reporting smooth, nowcast and forecasts, all read back in
+        one packed read; the result gains ``nowcast`` and ``forecasts`` in
+        original units.  A diverged fused fit returns the last-good params,
+        not converged, smoothed as a chunked fit is, without them.
+    keep_session : open a ``serve.NowcastSession`` on the fitted model
+        (``FitResult.session``) on the same backend: ``True`` for the
+        session defaults, a dict for ``open_session`` keywords.
+    warm_start : not ported yet (ROADMAP Queue 1 item 3, with the fused
+        fit's device-panel residency cache); pass ``init=prev.params``.
     """
+    if warm_start is not None:
+        raise NotImplementedError(
+            "fit(warm_start=) is not ported to dfm_tpu_torch yet: ROADMAP "
+            "Queue 1 item 3; pass init=prev.params instead")
     b = TorchBackend() if backend is None else backend
     with highest_precision():
-        return _fit_impl(model, Y, mask, b, max_iters, tol, init)
+        res = _fit_impl(model, Y, mask, b, max_iters, tol, init,
+                        resolve_fused(fused))
+    if keep_session:
+        from .serve.session import open_session
+        skw = dict(keep_session) if isinstance(keep_session, dict) else {}
+        res.session = open_session(res, Y, mask=mask, backend=b, **skw)
+    return res
 
 
-def _fit_impl(model, Y, mask, b: TorchBackend, max_iters, tol, init):
+def _fit_impl(model, Y, mask, b: TorchBackend, max_iters, tol, init,
+              opts=None):
     max_iters = 50 if max_iters is None else max_iters
     tol = 1e-6 if tol is None else tol
     Y = np.asarray(Y)
@@ -219,22 +261,65 @@ def _fit_impl(model, Y, mask, b: TorchBackend, max_iters, tol, init):
         # tau from the covariance recursion's mixing time at the init
         # params (host NumPy, k x k); the freeze delta guards it.
         cfg = dataclasses.replace(cfg, tau=auto_tau(init))
+    p0 = SSMParams.from_numpy(init, dtype=b.dtype, device=b.device)
+    if opts is not None:
+        return _fit_fused(model, Yt, mt, p0, cfg, b, max_iters, tol, opts,
+                          std)
     p, lls, converged, _, secs, max_delta = run_em_chunked(
-        Yt, mt, SSMParams.from_numpy(init, dtype=b.dtype, device=b.device),
-        cfg, max_iters, tol, b.fused_chunk)
-    # The reporting smooth is exact: dense through the N x N filter, every
-    # other engine through the info-form pair.
-    x_sm, P_sm = smooth(Yt, p, mt, dense=(flt == "dense"))
+        Yt, mt, p0, cfg, max_iters, tol, b.fused_chunk)
+    x_sm, P_sm = _report_smooth(Yt, p, mt, flt)
     history = [{"iter": i, "loglik": float(ll), "secs": s}
                for i, (ll, s) in enumerate(zip(lls, secs))]
     return FitResult(params=p.to_numpy(), logliks=np.asarray(lls),
-                     factors=x_sm.to("cpu", torch.float64).numpy(),
-                     factor_cov=P_sm.to("cpu", torch.float64).numpy(),
+                     factors=x_sm, factor_cov=P_sm,
                      converged=bool(converged), n_iters=len(lls),
                      standardizer=std, model=model, backend=b.name,
                      history=history, filter=flt,
                      tau=cfg.tau if flt == "ss" else None,
                      ss_delta=max_delta if flt == "ss" else None)
+
+
+def _report_smooth(Yt, p: SSMParams, mt, flt: str):
+    """The reporting smooth of a chunked fit, as host f64 arrays: dense
+    through the N x N filter, every other engine through the exact
+    info-form pair."""
+    x_sm, P_sm = smooth(Yt, p, mt, dense=(flt == "dense"))
+    return (x_sm.to("cpu", torch.float64).numpy(),
+            P_sm.to("cpu", torch.float64).numpy())
+
+
+def _fit_fused(model, Yt, mt, p0: SSMParams, cfg: EMConfig,
+               b: TorchBackend, max_iters, tol, opts, std) -> FitResult:
+    """The fused fit (``estim.fused.run_fused``) and its FitResult.  A
+    diverged run returns the last-good params, not converged, with the
+    chunked fit's reporting smooth and no nowcast or forecasts."""
+    floor = noise_floor_for(b.dtype, Yt.numel(), mult=cfg.noise_floor_mult)
+    t0 = time.perf_counter()
+    run = run_fused(Yt, mt, p0, cfg, max_iters, tol, floor, opts,
+                    fused_chunk=b.fused_chunk)
+    wall = time.perf_counter() - t0
+    history = [{"iter": i, "loglik": float(ll), "secs": wall if i == 0
+                else 0.0} for i, ll in enumerate(run.lls)]
+    nowcast = forecasts = None
+    if run.diverged:
+        params = run.p_good
+        x_sm, P_sm = _report_smooth(
+            Yt, SSMParams.from_numpy(params, dtype=b.dtype, device=b.device),
+            mt, cfg.filter)
+    else:
+        params, x_sm, P_sm = run.params, run.x_sm, run.P_sm
+        inv = std.inverse if std is not None else (lambda a: a)
+        nowcast = np.asarray(inv(run.nowcast))
+        forecasts = {"y": np.asarray(inv(run.y_fore)), "f": run.f_fore,
+                     "di": (np.asarray(inv(run.di)) if run.di is not None
+                            else None)}
+    return FitResult(params=params, logliks=run.lls, factors=x_sm,
+                     factor_cov=P_sm, converged=run.converged,
+                     n_iters=len(run.lls), standardizer=std, model=model,
+                     backend=b.name, history=history, filter=cfg.filter,
+                     tau=cfg.tau if cfg.filter == "ss" else None,
+                     nowcast=nowcast, forecasts=forecasts,
+                     host_reads=run.host_reads)
 
 
 def forecast(result: FitResult, horizon: int):

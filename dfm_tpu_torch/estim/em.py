@@ -5,7 +5,9 @@ The twin of ``dfm_tpu.estim.em`` for the ``dense``, ``info``, ``ss``
 (steady-state) and ``pit_qr`` (square-root parallel-in-time) engines.
 The masked per-series M-step rows are kernel K3 (``csrc/mstep_rows.cu``)
 on CUDA tensors, with ``mstep_rows_plain`` beside it; the unmasked rows
-are a GEMM plus one k x k solve and stay plain torch.
+are a GEMM plus one k x k solve and stay plain torch.  ``n_steps`` runs
+the M-step on a capacity-padded panel (the t-masked dynamics of serving
+sessions), and ``em_chunk`` is the live-capped chunk of the fused fit.
 """
 
 from __future__ import annotations
@@ -26,10 +28,10 @@ from ..ssm.parallel_filter import pit_qr_filter, pit_qr_smoother
 from ..ssm.params import SmootherResult, SSMParams
 from ..ssm.steady import DEFAULT_TAU, ss_filter_smoother
 
-__all__ = ["EMConfig", "em_step", "em_fit_scan", "run_em_chunked",
-           "em_progress", "noise_floor_for", "warn_ss_delta", "moments",
-           "moment_sums", "mstep_rows", "mstep_rows_plain", "mstep_dynamics",
-           "mstep_dynamics_sums", "cfg_hypers"]
+__all__ = ["EMConfig", "em_step", "em_fit_scan", "em_chunk",
+           "run_em_chunked", "em_progress", "noise_floor_for",
+           "warn_ss_delta", "moments", "moment_sums", "mstep_rows", "mstep_rows_plain", "mstep_dynamics",
+           "mstep_dynamics_sums", "mstep_dynamics_tmasked", "cfg_hypers"]
 
 # Engines of the JAX package that this package does not have yet, with the
 # ROADMAP item that ports each.
@@ -194,9 +196,13 @@ def mstep_rows(Y, mask, Ef, EffT, P_sm, S_ff, r_floor: float, Ysq=None,
 
 
 def mstep_dynamics_sums(sm: SmootherResult, S_ff_lag, S_ff_cur, S_cross,
-                        p: SSMParams, cfg: EMConfig):
-    """k x k M-step updates (A, Q, mu0, P0) from SUMMED moments."""
-    T = sm.x_sm.shape[0]
+                        p: SSMParams, cfg: EMConfig, n_steps=None):
+    """k x k M-step updates (A, Q, mu0, P0) from SUMMED moments.
+
+    ``n_steps`` (optional): the live length of a capacity-padded panel
+    (sessions); the transition-count divisor becomes ``n_steps - 1``
+    instead of ``T - 1``."""
+    T = sm.x_sm.shape[0] if n_steps is None else n_steps
     A, Q = p.A, p.Q
     if cfg.estimate_A:
         A = solve_psd(S_ff_lag, S_cross.T).T
@@ -219,6 +225,25 @@ def mstep_dynamics(sm: SmootherResult, EffT, cross, p: SSMParams,
                                cross.sum(0), p, cfg)
 
 
+def mstep_dynamics_tmasked(sm: SmootherResult, EffT, cross, p: SSMParams,
+                           cfg: EMConfig, n_steps):
+    """``mstep_dynamics`` for a capacity-padded panel whose first
+    ``n_steps`` rows are live: the transition sums become {0,1}-weighted
+    reductions (the pad rows' moments contribute exact zeros) with the
+    divisor ``n_steps - 1``.  ``n_steps`` is a host integer or a 0-d
+    integer tensor."""
+    Tc = EffT.shape[0]
+    t_idx = torch.arange(Tc, device=EffT.device)
+    w_lag = (t_idx < n_steps - 1).to(EffT.dtype)
+    w_cur = ((t_idx >= 1) & (t_idx < n_steps)).to(EffT.dtype)
+    w_x = (t_idx[:-1] < n_steps - 1).to(EffT.dtype)
+    S_lag = torch.einsum("t,tkl->kl", w_lag, EffT)
+    S_cur = torch.einsum("t,tkl->kl", w_cur, EffT)
+    S_cross = torch.einsum("t,tkl->kl", w_x, cross)
+    return mstep_dynamics_sums(sm, S_lag, S_cur, S_cross, p, cfg,
+                               n_steps=n_steps)
+
+
 def cfg_hypers(cfg: EMConfig):
     """(q_scale, r_scale, lam_ridge) from ``cfg``, or ``None`` at the
     defaults (plain EM)."""
@@ -228,12 +253,16 @@ def cfg_hypers(cfg: EMConfig):
 
 
 def _m_step(Y, mask, sm: SmootherResult, p: SSMParams, cfg: EMConfig,
-            Ysq=None) -> SSMParams:
+            Ysq=None, n_steps=None) -> SSMParams:
     """Closed-form M-step; returns contiguous params (the kernels take
-    contiguous tensors only)."""
+    contiguous tensors only).  ``n_steps``: the live length of a
+    capacity-padded (masked) panel, for the t-masked dynamics."""
     hy = cfg_hypers(cfg)
     ridge = None if hy is None else hy[2]
     if mask is None:
+        if n_steps is not None:
+            raise ValueError("n_steps (capacity-padded panels) requires a "
+                             "mask: the pad tail must be zero-masked")
         S_ff, S_lag, S_cur, S_cross = moment_sums(sm)
         Lam, R = mstep_rows(Y, None, sm.x_sm, None, None, S_ff, cfg.r_floor,
                             Ysq=Ysq, lam_ridge=ridge)
@@ -242,7 +271,11 @@ def _m_step(Y, mask, sm: SmootherResult, p: SSMParams, cfg: EMConfig,
         EffT, cross = moments(sm)
         Lam, R = mstep_rows(Y, mask, sm.x_sm, EffT, sm.P_sm, None,
                             cfg.r_floor, lam_ridge=ridge)
-        A, Q, mu0, P0 = mstep_dynamics(sm, EffT, cross, p, cfg)
+        if n_steps is None:
+            A, Q, mu0, P0 = mstep_dynamics(sm, EffT, cross, p, cfg)
+        else:
+            A, Q, mu0, P0 = mstep_dynamics_tmasked(sm, EffT, cross, p, cfg,
+                                                   n_steps)
     if hy is not None:
         Q = hy[0] * Q
         R = torch.clamp(hy[1] * R, min=cfg.r_floor)
@@ -262,19 +295,22 @@ def _panel_consts(Y, has_mask: bool, cfg: EMConfig):
 
 
 def em_step(Y, p: SSMParams, mask=None, cfg: EMConfig = EMConfig(),
-            consts=None):
+            consts=None, n_steps=None):
     """One EM iteration: (new params, loglik at the entering params as a
     0-d f64 tensor on Y's device, the ss freeze delta as a 0-d tensor).
-    ``consts``: ``_panel_consts`` of this panel, computed here if None."""
+    ``consts``: ``_panel_consts`` of this panel, computed here if None.
+    ``n_steps``: live length of a capacity-padded panel (see ``_m_step``)."""
     sumsq, Ysq = (_panel_consts(Y, mask is not None, cfg) if consts is None
                   else consts)
     kf, sm, delta = cfg.e_step(Y, mask, p, sumsq=sumsq)
-    return _m_step(Y, mask, sm, p, cfg, Ysq=Ysq), kf.loglik, delta
+    return (_m_step(Y, mask, sm, p, cfg, Ysq=Ysq, n_steps=n_steps),
+            kf.loglik, delta)
 
 
 def em_fit_scan(Y, p0: SSMParams, n_iters: int, mask=None,
-                cfg: EMConfig = EMConfig(), consts=None):
-    """``n_iters`` EM iterations with no host read.
+                cfg: EMConfig = EMConfig(), consts=None, n_steps=None):
+    """``n_iters`` EM iterations with no host read (``n_steps`` as in
+    ``em_step``).
 
     Returns (params after every update, a list of length ``n_iters``; the
     logliks (n_iters,) at the entering params, an f64 tensor on Y's
@@ -285,11 +321,32 @@ def em_fit_scan(Y, p0: SSMParams, n_iters: int, mask=None,
     ps, lls, deltas = [], [], []
     p = p0
     for _ in range(n_iters):
-        p, ll, delta = em_step(Y, p, mask=mask, cfg=cfg, consts=consts)
+        p, ll, delta = em_step(Y, p, mask=mask, cfg=cfg, consts=consts,
+                               n_steps=n_steps)
         ps.append(p)
         lls.append(ll)
         deltas.append(delta)
     return ps, torch.stack(lls), torch.stack(deltas)
+
+
+def em_chunk(Y, p: SSMParams, chunk: int, n_active: int, mask=None,
+             cfg: EMConfig = EMConfig(), consts=None, n_steps=None):
+    """One ``chunk``-iteration EM chunk with a live cap, the twin of the
+    JAX package's ``_em_chunk_body`` scanned ``chunk`` times: (params
+    after the chunk, logliks (chunk,) f64 at each iteration's entering
+    params).  Iterations at index >= ``n_active`` leave the params
+    unchanged; ``n_active`` is a host integer here, so they do not run,
+    and their loglik slots hold NaN (the fused stop rule masks them out).
+    No host read."""
+    n_active = max(0, min(int(chunk), int(n_active)))
+    lls = torch.full((chunk,), float("nan"), dtype=torch.float64,
+                     device=Y.device)
+    if n_active == 0:
+        return p, lls
+    ps, run, _ = em_fit_scan(Y, p, n_active, mask=mask, cfg=cfg,
+                             consts=consts, n_steps=n_steps)
+    lls[:n_active] = run.to(torch.float64)
+    return ps[-1], lls
 
 
 def em_progress(lls, tol: float, noise_floor: float = 0.0,

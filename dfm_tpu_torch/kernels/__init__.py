@@ -61,6 +61,7 @@ KERNELS = {
     "affine_scan": ("affine_scan.cu", [_P] * 5 + [_I] * 4),
     "qr_elements": ("qr_elements.cu", [_I] * 2 + [_P] * 12 + [_I] * 3),
     "qr_scan": ("qr_scan.cu", [_I] + [_P] * 6 + [_I] * 3),
+    "ring_append": ("ring_append.cu", [_P] * 4 + [_I] * 5),
 }
 
 # Measurement kernels off the model path, in the same form.

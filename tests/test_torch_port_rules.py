@@ -27,6 +27,8 @@ PORT_FILES = sorted((ROOT / "dfm_tpu_torch").rglob("*.py")) + [
 # (module file, function) pairs that drive a fit or a contract evaluation.
 FIT_DRIVERS = [("dfm_tpu_torch/api.py", "fit"),
                ("dfm_tpu_torch/estim/em.py", "run_em_chunked"),
+               ("dfm_tpu_torch/estim/fused.py", "run_fused"),
+               ("dfm_tpu_torch/serve/session.py", "update"),
                ("dfm_tpu_torch/ssm/info_filter.py", "loglik_eval")]
 
 
@@ -114,8 +116,12 @@ def test_cpu_path_launches_no_kernel():
     res = dtt.fit(dtt.DynamicFactorModel(2), Y, max_iters=3, tol=0.0,
                   backend=dtt.TorchBackend(device="cpu"))
     assert res.filter == "info" and res.n_iters == 3
+    res = dtt.fit(dtt.DynamicFactorModel(2), Y[:30], max_iters=2, tol=0.0,
+                  backend=dtt.TorchBackend(device="cpu"), fused=True,
+                  keep_session=True)
+    res.session.update(Y[30:32])
     assert set(kernels.LAUNCHES) == {"quad_local", "obs_stats", "mstep_rows",
                                      "info_scan", "rts_smoother",
                                      "ss_cov_path", "affine_scan",
-                                     "qr_elements", "qr_scan"}
+                                     "qr_elements", "qr_scan", "ring_append"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())
