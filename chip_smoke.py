@@ -74,14 +74,37 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    within 1e-10 relative (nowcast, factors, factor_cov, forecasts,
    logliks).
 
+9. batched kernels: K4b-fwd, K4b-bwd (``csrc/info_scan.cu``), K1b
+   (``csrc/quad_local.cu``) and K6b (``csrc/bsolve_rows.cu``, the
+   loadings' and A's row solves) against their plain twins at the
+   headline shape, f64 and f32 (the TOL rule), timed as in phase 2 (K6b's
+   library column: ``cholesky`` + ``cholesky_solve``): 8 restarts, a
+   B = 4 Hetero bucket (t_act 500/400/300/250, n_act 10,000/8,000/
+   10,000/6,000) and the B = 10 k-grid (k = 1..10 padded to 10); then
+   error checks at k = 1 and 16 on 120 x 400 panels.
+10. fit_many: ``DFMBatchSpec.restarts(model, Y, 8)`` on the unmasked
+   headline panel, 20 iterations, tol = 0, f32: aggregate EM
+   iterations/s, beside 8 looped lone ``fit(filter="info")`` runs and one
+   lone ``fit`` (auto -> ss) from the same inits and budget; exactly 1
+   K4b-fwd, 1 K4b-bwd, 1 K1b and 2 K6b launches an iteration (+1 K4b
+   pair for the final smooth), no other kernel, and n_chunks + 1 reads.
+11. k-grid: ``select_n_factors_em`` over k = 1..10 (20 iterations): wall,
+   its EM part, k_best, the lane logliks.
+12. rolling windows: ``oos_evaluate(engine="batched")``, 12 windows of
+   400 rows, horizon 1, 10 iterations: wall and the mean rel_rmse.
+13. batched reference and contract: ``fit_many`` (3 panels) and a Hetero
+   ``run_batched_em`` at 120 x 80, k = 3, card f64 against CPU f64 within
+   1e-10; the 1e-5 loglik contract per lane of the 8 restarts in f32.
+
 Output: one JSON line per kernel and dtype, one per fit, contract check,
-ring case and session, then the {"kernels": [...]} summary, the card line
-and, last, {"ok": true, "device": {...}}.
+ring case, session and batched phase, then the {"kernels": [...]}
+summary, the card line and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -92,6 +115,8 @@ import torch
 
 import dfm_tpu_torch as dt
 from dfm_tpu_torch import kernels
+from dfm_tpu_torch.backends import cpu_ref
+from dfm_tpu_torch.estim import batched as tb
 from dfm_tpu_torch.estim.em import (EMConfig, em_fit_scan, moments,
                                     mstep_rows, mstep_rows_plain,
                                     noise_floor_for)
@@ -136,16 +161,23 @@ L2_FLUSH_BYTES = 256 * 2**20                   # > 5x the H100's 50 MB L2
 # N = 10,000, M = A - P_f C A in K5a and A_t = F - Q W (HH')^{-1} W' F in
 # the element build subtract nearly equal terms: P_f C is close to I).
 # The f64 tolerances stand alone.
+# The batched kernels take their lone twins' tolerances (K4b as K4, K1b as
+# K1); K6b, one k x k factorization and two triangular solves a row of a
+# well-conditioned moment matrix, 1e-4 / 1e-10 as K6.
 TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "mstep_rows": 1e-4, "info_scan": 1e-4,
                        "rts_smoother": 1e-4, "ss_cov_path": 1e-4,
                        "affine_scan": 1e-4, "qr_elements": 1e-4,
-                       "qr_scan": 1e-4},
+                       "qr_scan": 1e-4, "batched_info_scan": 1e-4,
+                       "batched_rts": 1e-4, "batched_quad": 1e-5,
+                       "batched_solve_rows": 1e-4},
        torch.float64: {"quad_local": 1e-10, "obs_stats": 1e-10,
                        "mstep_rows": 1e-9, "info_scan": 1e-9,
                        "rts_smoother": 1e-9, "ss_cov_path": 1e-9,
                        "affine_scan": 1e-9, "qr_elements": 1e-10,
-                       "qr_scan": 1e-9}}
+                       "qr_scan": 1e-9, "batched_info_scan": 1e-9,
+                       "batched_rts": 1e-9, "batched_quad": 1e-10,
+                       "batched_solve_rows": 1e-10}}
 # The TPU routine each kernel replaces.
 REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "obs_stats": "dfm_tpu/ssm/info_filter.py:69",
@@ -156,14 +188,21 @@ REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "affine_scan": "dfm_tpu/ops/scan.py:39",
             "qr_elements": "dfm_tpu/ssm/parallel_filter.py:293",
             "qr_scan": "dfm_tpu/ops/scan.py:73",
-            "ring_append": "dfm_tpu/serve/batched.py:72"}
+            "ring_append": "dfm_tpu/serve/batched.py:72",
+            "batched_info_scan": "dfm_tpu/estim/batched.py:358",
+            "batched_rts": "dfm_tpu/estim/batched.py:444",
+            "batched_quad": "dfm_tpu/estim/batched.py:409",
+            "batched_solve_rows": "dfm_tpu/estim/batched.py:106"}
 # The variant of each kernel whose f32 record goes into the summary line.
 SUMMARY_VARIANT = {"quad_local": "masked", "obs_stats": "masked",
                    "mstep_rows": "masked", "info_scan": "masked",
                    "rts_smoother": "masked", "ss_cov_path": "tau_fit",
                    "affine_scan": "forward tau_fit",
                    "qr_elements": "filter masked",
-                   "qr_scan": "filter masked"}
+                   "qr_scan": "filter masked",
+                   "batched_info_scan": "restarts", "batched_rts": "restarts",
+                   "batched_quad": "restarts",
+                   "batched_solve_rows": "restarts Lam rows"}
 TAU_MAX = 192
 F32_NOISE_MULT = 4.0
 # Constants of the latency probe's chain: fma x h + c, pivot b - (a/d)^2,
@@ -636,7 +675,9 @@ OWN_FIT = {"quad_local": "masked", "obs_stats": "masked",
            "mstep_rows": "masked", "info_scan": "masked",
            "rts_smoother": "masked", "ss_cov_path": "unmasked ss",
            "affine_scan": "unmasked ss", "qr_elements": "masked pit_qr",
-           "qr_scan": "masked pit_qr", "ring_append": "info"}
+           "qr_scan": "masked pit_qr", "ring_append": "info",
+           "batched_info_scan": "fit_many", "batched_rts": "fit_many",
+           "batched_quad": "fit_many", "batched_solve_rows": "fit_many"}
 
 
 def fit_phase(seed: int) -> dict:
@@ -1163,6 +1204,546 @@ def session_reference_phase(seed: int) -> None:
         raise AssertionError(f"session reference disagrees: {bad}")
 
 
+B_RESTARTS = 8
+FIT_MANY_ITERS = 20
+BATCHED = ("batched_info_scan", "batched_rts", "batched_quad",
+           "batched_solve_rows")
+# oos_evaluate's rolling windows: 12 windows of 4T/5 rows, horizon 1, 10
+# iterations at its default tol.
+ROLL_WINDOWS, ROLL_TRAIN, ROLL_ITERS = 12, 4 * T // 5, 10
+
+
+class BatchedWatch:
+    """For the duration: stamps every blocking read of the batched engine
+    (``estim.batched.read_packed``: one a chunk, then the final packed
+    one) and the start of its EM (``run_batched_em``).  At that start it
+    keeps the launch counts so far (``before_em``: a caller's lone fits)
+    and sets every count to 0, so that afterwards ``kernels.LAUNCHES``
+    holds the batched EM's and the final smooth's launches alone; it keeps
+    the EM's return (``em_out``) and the iterations its chunks ran
+    (``em_iters``)."""
+
+    def __enter__(self):
+        self.reads, self.em_start = [], None
+        self.before_em, self.em_out, self.em_iters = None, None, None
+        self._saved = (tb.read_packed, tb.run_batched_em)
+        read, run = self._saved
+
+        def stamped_read(named):
+            out = read(named)
+            self.reads.append(time.perf_counter())
+            return out
+
+        def stamped_run(*args, **kw):
+            a = inspect.signature(run).bind(*args, **kw)
+            a.apply_defaults()
+            torch.cuda.synchronize()
+            self.before_em = dict(kernels.LAUNCHES)
+            kernels.reset_launches()
+            self.em_start = time.perf_counter()
+            self.em_out = run(*args, **kw)
+            chunk = max(1, int(a.arguments["fused_chunk"]))
+            self.em_iters = min(self.em_out[4][0].n_chunks * chunk,
+                                a.arguments["max_iters"])
+            return self.em_out
+
+        tb.run_batched_em = stamped_run
+        tb.read_packed = stamped_read
+        return self
+
+    def __exit__(self, *exc):
+        tb.read_packed, tb.run_batched_em = self._saved
+
+
+def check_batched_launches(label: str, launches: dict, iters: int) -> dict:
+    """Per batched EM iteration (A estimated): one K4b pair, one K1b and
+    two K6b; the final smooth one more K4b pair; no other kernel.  Returns
+    the launches per iteration, the smooth's included."""
+    want = {"batched_info_scan": iters + 1, "batched_rts": iters + 1,
+            "batched_quad": iters, "batched_solve_rows": 2 * iters}
+    wrong = {n: launches[n] for n in launches
+             if launches[n] != want.get(n, 0)}
+    if wrong:
+        raise AssertionError(f"{label} launches {wrong} in {iters} "
+                             f"iterations, expected {want} and no other "
+                             "kernel")
+    return {n: launches[n] / iters for n in BATCHED}
+
+
+def solve_inputs(Yt, sm, pt, hetero=None) -> list:
+    """The (S, V) pairs ``batched_m_step`` hands K6b on these smoother
+    moments, recorded from a plain M-step: the loadings' (S_ff, S_yf),
+    then A's (S_lag, S_cross)."""
+    calls = []
+    real = tb._bsolve_rows
+
+    def record(S, V):
+        calls.append((S.contiguous(), V.contiguous()))
+        return tb._bsolve_rows_plain(S, V)
+
+    tb._bsolve_rows = record
+    try:
+        tb.batched_m_step(Yt, *sm, pt, EMConfig(filter="info"),
+                          torch.einsum("btn,btn->bn", Yt, Yt), hetero=hetero)
+    finally:
+        tb._bsolve_rows = real
+    return calls
+
+
+def batched_cases(Yt, pt, label: str, hetero=None) -> list:
+    """K4b-fwd, K1b, K4b-bwd and K6b (the loadings' and A's solves) on the
+    inputs the plain batched pipeline makes from the stacked panel ``Yt``
+    and params ``pt`` (with the Hetero freeze and masked sums when
+    given).  Call under ``highest_precision()``."""
+    dtype = Yt.dtype
+    B_, T_, N_ = Yt.shape
+    k = pt.A.shape[-1]
+    k2, k3 = k * k, k ** 3
+    tm = None if hetero is None else hetero.t_mask
+    b, C, _ = tb._batched_obs_stats(Yt, pt.Lam, pt.R)
+    scan = tb._batched_info_scan_plain(b, C, pt.A, pt.Q, pt.mu0, pt.P0, tm)
+    flt = scan[:4]
+    sm = tb._batched_rts_plain(*flt, pt.A)
+    scan_in = (b, C, pt.A, pt.Q, pt.mu0, pt.P0) + (() if tm is None
+                                                   else (tm,))
+    cases = [
+        case("batched_info_scan", label,
+             lambda: tb._batched_info_scan(b, C, pt.A, pt.Q, pt.mu0, pt.P0,
+                                           tm),
+             lambda: tb._batched_info_scan_plain(b, C, pt.A, pt.Q, pt.mu0,
+                                                 pt.P0, tm),
+             scan_in, B_ * T_ * (12.67 * k3 + 4 * k2),
+             floor=lambda: latency_ms("info_scan", dtype, k, T_)),
+        case("batched_quad", label,
+             lambda: tb._batched_quad(Yt, pt.Lam, pt.R, scan[0], b, C),
+             lambda: tb._batched_quad_plain(Yt, pt.Lam, pt.R, scan[0], b, C),
+             (Yt, pt.Lam, pt.R, scan[0], b, C),
+             B_ * T_ * (N_ * (2 * k + 5) + 2 * k2)),
+        case("batched_rts", label, lambda: tb._batched_rts(*flt, pt.A),
+             lambda: tb._batched_rts_plain(*flt, pt.A), (*flt, pt.A),
+             B_ * T_ * (10.33 * k3 + 4 * k2),
+             floor=lambda: latency_ms("rts_smoother", dtype, k, T_)),
+    ]
+    for which, (S, V) in zip(("Lam rows", "A rows"),
+                             solve_inputs(Yt, sm, pt, hetero)):
+        cases.append(case(
+            "batched_solve_rows", f"{label} {which}",
+            lambda S=S, V=V: tb._bsolve_rows(S, V),
+            lambda S=S, V=V: tb._bsolve_rows_plain(S, V), (S, V),
+            B_ * (k3 / 3 + 2 * V.shape[1] * k2),
+            library=lambda S=S, V=V: torch.cholesky_solve(
+                V.transpose(-1, -2), torch.linalg.cholesky(S))))
+    return cases
+
+
+def hetero_lanes(Z, p, t_act, n_act):
+    """Lanes of one standardized panel ``Z`` cut to (t_act, n_act) and
+    padded back to its shape (zero pad steps and series), with ``p`` cut
+    and padded to match (inert pad series)."""
+    T_, N_ = Z.shape
+    Ys = [tb.pad_panel_to_n(tb.pad_panel_to_t(Z[:t, :n], T_), N_)
+          for t, n in zip(t_act, n_act)]
+    ps = [tb.pad_params_to_n(tb.slice_params_to_n(p, n), N_) for n in n_act]
+    return np.stack(Ys), ps
+
+
+def rolling_origins(T_: int = T) -> np.ndarray:
+    """The forecast origins ``oos_evaluate`` picks for the rolling
+    phase's call (ROLL_WINDOWS windows of ROLL_TRAIN rows, horizon 1)."""
+    return np.unique(np.linspace(ROLL_TRAIN, T_ - 1, ROLL_WINDOWS,
+                                 dtype=int))
+
+
+def batched_inputs(seed: int, T_: int = T, N_: int = N, K_: int = K,
+                   B_: int = B_RESTARTS, rolling: bool = False) -> list:
+    """(label, stacked standardized panel, per-lane NumPy params,
+    (t_act, n_act) or None) of each batched case on the unmasked panel:
+    the restarts' inits, a Hetero bucket (ragged T and N, restart 0's
+    init cut to each lane), at K_ > 1 the k-grid (restart 0's init cut to
+    k = 1..K_ and padded back with inert factors) and, with ``rolling``,
+    the rolling phase's windows (each standardized on its own) with the
+    first window's 10-iteration lone fit as every lane's init, as
+    ``oos_evaluate(engine="batched")`` makes them."""
+    _, _, Yfull, _ = panel(seed + 1, T_, N_, K_)
+    spec = dt.DFMBatchSpec.restarts(dt.DynamicFactorModel(n_factors=K_),
+                                    Yfull, B_)
+    Z = data.standardize(Yfull)[0]
+    p0 = spec.inits[0]
+    # At the headline shape: t_act (500, 400, 300, 250), n_act (10,000,
+    # 8,000, 10,000, 6,000).
+    t_act = [int(T_ * f) for f in (1.0, 0.8, 0.6, 0.5)]
+    n_act = [int(N_ * f) for f in (1.0, 0.8, 1.0, 0.6)]
+    Yh, ph = hetero_lanes(Z, p0, t_act, n_act)
+    out = [("restarts", np.broadcast_to(Z, (B_,) + Z.shape), spec.inits,
+            None),
+           ("hetero", Yh, ph, (t_act, n_act))]
+    if K_ > 1:
+        ks = range(1, K_ + 1)
+        out.append(("k-grid", np.broadcast_to(Z, (K_,) + Z.shape),
+                    [tb.pad_params_to_k(tb.slice_params_to_k(p0, k), K_)
+                     for k in ks], None))
+    if rolling:
+        model = dt.DynamicFactorModel(n_factors=K_)
+        origins = rolling_origins(T_)
+        spec = dt.DFMBatchSpec.rolling_windows(model, Yfull, origins,
+                                               train_len=ROLL_TRAIN)
+        first = dt.fit(model, spec.Y[0], backend=dt.TorchBackend(),
+                       max_iters=ROLL_ITERS)
+        out.append(("rolling", np.stack([data.standardize(y)[0]
+                                         for y in spec.Y]),
+                    [first.params] * len(origins), None))
+    return out
+
+
+def batched_kernel_phase(seed: int) -> dict:
+    """K4b-fwd, K4b-bwd, K1b and K6b against their plain twins at full
+    width (T = 500, N = 10,000, k = 10: B = 8 restarts, the B = 4 Hetero
+    bucket, the B = 10 k-grid; T = 400: the B = 12 rolling windows), f64
+    then f32 (the TOL rule), each timed
+    as the kernel phase times K1-K4; K6b's library column is
+    ``cholesky`` + ``cholesky_solve``.  Returns the f32 summary records
+    by kernel name."""
+    summary, refs = {}, {}
+    inputs = batched_inputs(seed, rolling=True)
+    for dtype in (torch.float64, torch.float32):
+        for label, Zb, ps, het in inputs:
+            Yt = torch.tensor(np.ascontiguousarray(Zb), dtype=dtype,
+                              device="cuda")
+            pt = tb.stack_params(ps, dtype=dtype, device="cuda")
+            hetero = None if het is None else tb.make_hetero(
+                *het, T, N, dtype=dtype, tol=0.0, iter_cap=FIT_MANY_ITERS,
+                device="cuda")
+            with highest_precision():
+                for c in batched_cases(Yt, pt, label, hetero):
+                    name, key = c["name"], (c["name"], c["variant"])
+                    n0 = kernels.LAUNCHES[name]
+                    abs_err, rel_err, tol, ref, plain_err = compare(
+                        c, dtype, refs.get(key))
+                    if dtype == torch.float64:
+                        refs[key] = ref
+                    bound_ms, bound_by = bound(
+                        nbytes_of(c["ins"]) + nbytes_of(ref), c["flops"],
+                        dtype)
+                    rec = {"name": name, "variant": c["variant"],
+                           "dtype": str(dtype).replace("torch.", ""),
+                           "B": Yt.shape[0], "max_rel_err": rel_err,
+                           "max_abs_err": abs_err, "tol": tol,
+                           "plain_f32_err": plain_err,
+                           "kernel_ms": cuda_ms(c["run"]),
+                           "kernel_ms_cold_l2": cuda_ms_cold(c["run"]),
+                           "plain_ms": cuda_ms(c["plain"]),
+                           "library_ms": (cuda_ms(c["library"])
+                                          if c["library"] else None),
+                           "bound_ms": bound_ms, "bound_by": bound_by,
+                           "latency_ms": (c["floor"]() if c["floor"]
+                                          else None),
+                           "launches": kernels.LAUNCHES[name] - n0}
+                    emit(rec)
+                    if (dtype == torch.float32
+                            and c["variant"] == SUMMARY_VARIANT[name]):
+                        summary[name] = rec
+            del Yt, pt, hetero
+            torch.cuda.empty_cache()
+    return summary
+
+
+def batched_k_sweep(seed: int) -> None:
+    """The batched kernels at the ends of their k dispatch, k = 1 and 16,
+    on 120 x 400 panels (B = 3 restarts and a B = 4 Hetero bucket), f64
+    and f32: error checks only."""
+    for k in (1, 16):
+        refs = {}
+        inputs = batched_inputs(seed + 2, T_=120, N_=400, K_=k, B_=3)
+        for dtype in (torch.float64, torch.float32):
+            worst = {}
+            for label, Zb, ps, het in inputs:
+                Yt = torch.tensor(np.ascontiguousarray(Zb), dtype=dtype,
+                                  device="cuda")
+                pt = tb.stack_params(ps, dtype=dtype, device="cuda")
+                hetero = None if het is None else tb.make_hetero(
+                    *het, 120, 400, dtype=dtype, tol=0.0, iter_cap=5,
+                    device="cuda")
+                with highest_precision():
+                    for c in batched_cases(Yt, pt, label, hetero):
+                        key = (c["name"], c["variant"])
+                        _, rel, _, ref, _ = compare(c, dtype, refs.get(key))
+                        refs[key] = ref
+                        worst[c["name"]] = max(worst.get(c["name"], 0.0),
+                                               rel)
+            emit({"batched_k_sweep": k,
+                  "dtype": str(dtype).replace("torch.", ""),
+                  "max_rel_err": worst})
+
+
+def em_rate(history, chunk: int):
+    """(iterations after the first chunk, the host wall of those chunks)
+    of a lone fit's history."""
+    steady = [h["secs"] for h in history[chunk:]]
+    return len(steady), sum(steady)
+
+
+def fit_many_phase(seed: int) -> dict:
+    """``fit_many`` on 8 restarts of the unmasked headline panel (k = 10,
+    20 iterations, tol = 0, f32): aggregate EM iterations/s (B x the
+    iterations after the first chunk over the host wall of those chunks,
+    each chunk ending in its one read), reads, launches per iteration;
+    then 8 looped lone ``fit(filter="info")`` runs from the same inits and
+    one lone ``fit`` (auto -> ss) from restart 0's, same budget.  Returns
+    the fit_many's launch counts under "fit_many"."""
+    _, _, Yfull, _ = panel(seed + 1)
+    model = dt.DynamicFactorModel(n_factors=K)
+    spec = dt.DFMBatchSpec.restarts(model, Yfull, B_RESTARTS)
+    chunk, iters = 8, FIT_MANY_ITERS
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with BatchedWatch() as w:
+        res = dt.fit_many(spec, backend=dt.TorchBackend(), max_iters=iters,
+                          tol=0.0, fused_chunk=chunk)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n_chunks = -(-iters // chunk)
+    chunk_reads = w.reads[:n_chunks]
+    steady_s = chunk_reads[-1] - chunk_reads[0]
+    agg = B_RESTARTS * (iters - chunk) / steady_s
+    floor = noise_floor_for(torch.float32, T * N)
+    lls = np.stack(res.logliks)
+    # The lone comparisons, same inits and budget.
+    lone = {}
+    for label, flt, inits in (("looped info", "info", spec.inits),
+                              ("lone ss", "auto", spec.inits[:1])):
+        n_it = secs = 0.0
+        t1 = time.perf_counter()
+        for p0 in inits:
+            r = dt.fit(model, Yfull, backend=dt.TorchBackend(filter=flt),
+                       max_iters=iters, tol=0.0, init=p0)
+            n, s_ = em_rate(r.history, chunk)
+            n_it += n
+            secs += s_
+        torch.cuda.synchronize()
+        lone[label] = {"filter": r.filter, "fits": len(inits),
+                       "wall_s": time.perf_counter() - t1,
+                       "em_iters_per_sec": n_it / secs}
+    per_iter = {n: launches[n] / iters for n in launches}
+    rec = {"fit_many": "restarts", "B": B_RESTARTS, "k": K, "n_iters":
+           res.n_iters.tolist(), "wall_s": wall,
+           "em_wall_s": w.reads[-1] - w.em_start,
+           "init_s": w.em_start - t0,
+           "aggregate_em_iters_per_sec": agg,
+           "steady_chunks_s": steady_s, "reads": len(w.reads),
+           "host_reads": res.host_reads, "n_chunks": n_chunks,
+           "launches": launches, "launches_per_iter": per_iter,
+           "loglik_last": lls[:, -1].tolist(), "best": res.best(),
+           "max_drop": float(max(0.0, -np.diff(lls, axis=1).min())),
+           "noise_floor": floor, "lone": lone,
+           "aggregate_over_looped_info": agg / lone["looped info"][
+               "em_iters_per_sec"],
+           "aggregate_over_lone_ss": agg / lone["lone ss"]["em_iters_per_sec"]}
+    emit(rec)
+    check_batched_launches("fit_many", launches, iters)
+    if len(w.reads) != n_chunks + 1 or res.host_reads != n_chunks + 1:
+        raise AssertionError(f"fit_many read {len(w.reads)} times "
+                             f"(host_reads {res.host_reads}), expected "
+                             f"{n_chunks + 1}")
+    if (res.n_iters != iters).any() or not np.isfinite(lls).all():
+        raise AssertionError(f"fit_many: n_iters {res.n_iters}, finite "
+                             f"{np.isfinite(lls).all()}")
+    if np.diff(lls, axis=1).min() < -floor:
+        raise AssertionError(f"fit_many: a loglik dropped by "
+                             f"{-np.diff(lls, axis=1).min()} > {floor}")
+    for f, P in zip(res.factors, res.factor_cov):
+        if (f.shape != (T, K) or P.shape != (T, K, K)
+                or not (np.isfinite(f).all() and np.isfinite(P).all())):
+            raise AssertionError("fit_many: bad factors")
+    if lone["lone ss"]["filter"] != "ss":
+        raise AssertionError("the lone auto fit did not resolve to ss")
+    return {"fit_many": launches}
+
+
+def kgrid_phase(seed: int) -> None:
+    """``select_n_factors_em`` over k = 1..10 on the unmasked headline
+    panel (20 iterations, tol = 0, f32): the wall, the EM part (from the
+    batched EM's start, after the host PCA inits, to its last read),
+    k_best, the lane logliks, the reads and the launches per iteration
+    (counted from the EM's start)."""
+    _, _, Yfull, _ = panel(seed + 1)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with BatchedWatch() as w:
+        sel = dt.select_n_factors_em(Yfull, ks=range(1, K + 1),
+                                     max_iters=FIT_MANY_ITERS, tol=0.0,
+                                     backend=dt.TorchBackend())
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n_chunks = -(-FIT_MANY_ITERS // 8)
+    emit({"k_grid": list(map(int, sel.ks)), "wall_s": wall,
+          "init_s": w.em_start - t0, "em_wall_s": w.reads[-1] - w.em_start,
+          "k_best": sel.k_best, "logliks": sel.logliks.tolist(),
+          "ic": sel.ic.tolist(), "n_iters": sel.fit.n_iters.tolist(),
+          "reads": len(w.reads), "em_iters": w.em_iters,
+          "launches_before_em": w.before_em, "launches": launches})
+    if (not np.isfinite(sel.logliks).all()
+            or (sel.fit.n_iters != FIT_MANY_ITERS).any()
+            or len(w.reads) != n_chunks + 1 or w.em_iters != FIT_MANY_ITERS
+            or any(w.before_em.values())):
+        raise AssertionError(f"k-grid: logliks {sel.logliks}, n_iters "
+                             f"{sel.fit.n_iters}, reads {len(w.reads)}, "
+                             f"EM iterations {w.em_iters}, launches before "
+                             f"the EM {w.before_em}")
+    check_batched_launches("k-grid", launches, FIT_MANY_ITERS)
+
+
+def rolling_phase(seed: int) -> None:
+    """``oos_evaluate(engine="batched")``: 12 rolling windows of 400 rows
+    (4T/5) of the unmasked headline panel, horizon 1, 10 iterations at the
+    default tol (the first window's lone fit seeds every window): the
+    wall, the batched EM part, each window's trace length, converged flag
+    and stop rule (``rel``: |relative change| < tol; ``drop``: the
+    loglik fell, the plateau stop, which at f32 may be rounding), the mean
+    relative RMSE against the last-value forecast, the lone fit's launches
+    and the batched EM's launches per iteration (counted from its
+    start)."""
+    _, _, Yfull, _ = panel(seed + 1)
+    model = dt.DynamicFactorModel(n_factors=K)
+    tol = inspect.signature(dt.fit_many).parameters["tol"].default
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with BatchedWatch() as w:
+        oos = dt.oos_evaluate(model, Yfull, engine="batched",
+                              n_windows=ROLL_WINDOWS, min_train=ROLL_TRAIN,
+                              horizon=1, max_iters=ROLL_ITERS,
+                              backend=dt.TorchBackend())
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    rel = oos.rel_rmse
+    lls, conv = w.em_out[1], w.em_out[2]
+    stops = []
+    for tr, c in zip(lls, conv):
+        last = (tr[-1] - tr[-2]) / max(abs(tr[-2]), 1e-12)
+        stops.append(None if not c else "rel" if abs(last) < tol else "drop")
+    n_chunks = -(-w.em_iters // 8)
+    emit({"rolling_windows": len(oos.origins), "train": ROLL_TRAIN,
+          "wall_s": wall, "em_wall_s": w.reads[-1] - w.em_start,
+          "reads": len(w.reads), "tol": tol, "em_iters": w.em_iters,
+          "n_iters": [len(t) for t in lls], "converged": conv.tolist(),
+          "stop": stops,
+          "last_rel_change": [float((t[-1] - t[-2]) / abs(t[-2]))
+                              for t in lls],
+          "mean_rel_rmse": float(rel.mean()),
+          "origins": oos.origins.tolist(),
+          "launches_lone_fit": {n: c for n, c in w.before_em.items() if c},
+          "launches": launches})
+    if (len(oos.origins) != ROLL_WINDOWS or rel.shape != (N,)
+            or not np.isfinite(rel).all()
+            or not np.array_equal(oos.origins, rolling_origins())
+            or len(w.reads) != n_chunks + 1
+            or any(w.before_em[n] for n in BATCHED)
+            or not any(w.before_em.values())):
+        raise AssertionError(f"rolling windows: origins {oos.origins}, "
+                             f"finite {np.isfinite(rel).all()}, reads "
+                             f"{len(w.reads)} for {w.em_iters} EM "
+                             f"iterations, lone fit launches {w.before_em}")
+    check_batched_launches("rolling windows", launches, w.em_iters)
+
+
+def batched_reference_phase(seed: int) -> None:
+    """At 120 x 80, k = 3: ``fit_many`` of three panels (10 iterations,
+    tol = 0) and ``run_batched_em`` on a Hetero bucket (lane 1 ragged in
+    T, lane 2 in N; 10 iterations, chunks of 4), on the card in f64
+    against the CPU in f64, within 1e-10 relative."""
+    Ys = [panel(seed + 3 + i, T_=120, N_=80, K_=3)[2] for i in range(3)]
+    Yb = np.stack(Ys)
+    model = dt.DynamicFactorModel(n_factors=3)
+    Z = np.stack([data.standardize(y)[0] for y in Ys])
+    Yh, ph = [], []
+    for i, (t, n) in enumerate(((120, 80), (90, 80), (120, 60))):
+        y, p = hetero_lanes(Z[i], cpu_ref.pca_init(Z[i][:t, :n], 3), [t],
+                            [n])
+        Yh.append(y[0])
+        ph += p
+    out = {}
+    for dev in ("cuda", "cpu"):
+        b = dt.TorchBackend(device=dev, dtype=torch.float64)
+        kernels.reset_launches()
+        r = dt.fit_many(dt.DFMBatchSpec(Y=Yb, model=model), backend=b,
+                        max_iters=10, tol=0.0)
+        het = tb.make_hetero((120, 90, 120), (80, 80, 60), 120, 80,
+                             dtype=torch.float64, tol=0.0, iter_cap=10,
+                             device=dev)
+        with highest_precision():
+            h = tb.run_batched_em(
+                torch.tensor(np.stack(Yh), dtype=torch.float64, device=dev),
+                tb.stack_params(ph, device=dev), EMConfig(filter="info"), 10,
+                0.0, fused_chunk=4, hetero=het)
+        out[dev] = (r, h, dict(kernels.LAUNCHES))
+    (rg, hg, lg), (rc, hc, _) = out["cuda"], out["cpu"]
+    if any(lg[n] == 0 for n in BATCHED):
+        raise AssertionError(f"batched reference: the card run did not "
+                             f"launch every batched kernel ({lg})")
+    errs = {}
+
+    def worst(name, got, want):
+        e = float(np.abs(got - want).max() / np.abs(want).max())
+        errs[name] = max(errs.get(name, 0.0), e)
+
+    for i in range(3):
+        worst("fit_many logliks", rg.logliks[i], rc.logliks[i])
+        for f in ("Lam", "R", "A", "Q"):
+            worst(f"fit_many {f}", getattr(rg.params[i], f),
+                  getattr(rc.params[i], f))
+        worst("fit_many factors", rg.factors[i], rc.factors[i])
+        worst("fit_many factor_cov", rg.factor_cov[i], rc.factor_cov[i])
+        worst("hetero logliks", hg[1][i], hc[1][i])
+    for f in ("Lam", "A", "Q", "R"):
+        worst(f"hetero {f}", getattr(hg[0], f).cpu().numpy(),
+              getattr(hc[0], f).numpy())
+    emit({"batched_reference": "fit_many + hetero", "shape": [3, 120, 80, 3],
+          "max_rel_err": errs, "tol": 1e-10,
+          "hetero_n_iters": [len(t) for t in hg[1]]})
+    bad = {n: e for n, e in errs.items() if not e <= 1e-10}
+    if bad or [len(t) for t in hg[1]] != [len(t) for t in hc[1]]:
+        raise AssertionError(f"batched card run disagrees with the CPU: "
+                             f"{bad}")
+
+
+def batched_contract_phase(seed: int) -> None:
+    """The 1e-5 loglik contract for each lane of an f32 batched fit of the
+    8 restarts at the headline shape, as contract_phase evaluates it: the
+    f32 params after 2 updates, evaluated with the exact f64 filter,
+    against the f64 batched trajectory's loglik at iteration 3."""
+    _, _, Yfull, _ = panel(seed + 1)
+    spec = dt.DFMBatchSpec.restarts(dt.DynamicFactorModel(n_factors=K),
+                                    Yfull, B_RESTARTS)
+    Z = data.standardize(Yfull)[0]
+    Zb = np.ascontiguousarray(np.broadcast_to(Z, (B_RESTARTS, T, N)))
+    cfg = EMConfig(filter="info")
+    runs = {}
+    with highest_precision():
+        for dtype, iters in ((torch.float32, 2), (torch.float32, 3),
+                             (torch.float64, 3)):
+            Yt = torch.tensor(Zb, dtype=dtype, device="cuda")
+            p0 = tb.stack_params(spec.inits, dtype=dtype, device="cuda")
+            p, lls = tb.run_batched_em(Yt, p0, cfg, iters, 0.0)[:2]
+            runs[(dtype, iters)] = (tb.unstack_params(p), lls)
+            del Yt, p0, p
+            torch.cuda.empty_cache()
+        Z64 = torch.tensor(Z, dtype=torch.float64, device="cuda")
+        rels, fasts = [], []
+        for b in range(B_RESTARTS):
+            ref = float(runs[(torch.float64, 3)][1][b][2])
+            precise = inf.loglik_eval(Z64, runs[(torch.float32, 2)][0][b],
+                                      precise=True)
+            rels.append(abs(precise - ref) / abs(ref))
+            fasts.append(abs(float(runs[(torch.float32, 3)][1][b][2]) - ref)
+                         / abs(ref))
+    emit({"contract": "fit_many restarts", "B": B_RESTARTS, "iter": 3,
+          "rel_err_precise": rels, "rel_err_fast": fasts, "limit": 1e-5})
+    if not max(rels) < 1e-5:
+        raise AssertionError(f"loglik contract broken (fit_many): {rels}")
+
+
 def ptxas_summary(source: str) -> dict:
     """Build seconds and, over the k = 10 instantiations of ``source``
     (every function for a source without a k template), the largest
@@ -1218,6 +1799,13 @@ def main() -> int:
     summary["ring_append"] = ring_phase(args.seed)
     launches.update(session_phase(args.seed))
     session_reference_phase(args.seed)
+    summary.update(batched_kernel_phase(args.seed))
+    batched_k_sweep(args.seed)
+    launches.update(fit_many_phase(args.seed))
+    kgrid_phase(args.seed)
+    rolling_phase(args.seed)
+    batched_reference_phase(args.seed)
+    batched_contract_phase(args.seed)
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"dfm_tpu_torch/csrc/{kernels.KERNELS[name][0]}",

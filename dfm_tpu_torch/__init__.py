@@ -4,16 +4,23 @@ Dynamic factor models estimated by EM with an information-form Kalman
 filter, on an NVIDIA H100 through hand-written CUDA kernels (``csrc/``,
 built at first use by ``kernels``), or on the CPU through each kernel's
 plain-torch version.  ``fit(fused=...)`` is the fused fit with nowcast and
-forecasts; ``open_session`` streams updates into a fitted model.  The
-package imports neither JAX nor ``dfm_tpu``.
+forecasts; ``open_session`` streams updates into a fitted model;
+``fit_many`` fits B independent problems in one batched program (EM
+restarts, ``select_n_factors_em``'s k-grid, ``oos_evaluate``'s rolling
+windows).  The package imports neither JAX nor ``dfm_tpu``.
 """
 
 from .api import DynamicFactorModel, FitResult, TorchBackend, fit, forecast
+from .estim.batched import BatchFitResult, DFMBatchSpec, fit_many
+from .estim.evaluate import OOSResult, oos_evaluate
 from .estim.fused import FusedOptions
+from .estim.select import EMSelectResult, select_n_factors_em
 from .kernels import LAUNCHES
 from .serve import NowcastSession, open_session
 from .ssm.params import SSMParams
 
 __all__ = ["DynamicFactorModel", "FitResult", "TorchBackend", "fit",
            "forecast", "FusedOptions", "NowcastSession", "open_session",
-           "SSMParams", "LAUNCHES"]
+           "SSMParams", "LAUNCHES", "DFMBatchSpec", "BatchFitResult",
+           "fit_many", "select_n_factors_em", "EMSelectResult",
+           "oos_evaluate", "OOSResult"]

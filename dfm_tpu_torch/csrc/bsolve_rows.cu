@@ -1,0 +1,93 @@
+// K6b: the batched row-wise PSD solve of the batched M-step.
+//
+// Replaces dfm_tpu/estim/batched.py:_bsolve_rows (line 106), with its
+// bchol / bchol_solve (lines 88-103): per problem lane b,
+//   L_b = chol(sym(S_b) + jitter I)   (psd_cholesky's jitter, no clamp: an
+//                                      indefinite S gives NaN)
+//   X[b, i, :] = (L_b L_b')^{-1} V[b, i, :]   for every row i < n.
+// batched_m_step calls it for the loadings (S_ff against the N rows of
+// S_yf) and for A (S_lag against the k rows of S_cross).  R stays in torch
+// (one row-wise dot with the hoisted Ysq, or with a ridge the full
+// quadratic): it needs S_yf and Lam only, which the torch caller holds.
+//
+// Bound on the H100: bytes.  The kernel must read V and write X once (3.2
+// MB each in f32 at B = 8, N = 10,000, k = 10) against ~2 k^2 flops a row.
+//
+// Design: grid (row blocks, B).  Thread 0 of each block factors its lane's
+// k x k S into shared memory (~k^3 / 6 multiply-adds, k <= DFM_KMAX), then
+// every thread solves one row in registers (k is a template constant), by
+// forward and back substitution against the shared factor, and writes it.
+// Neighbouring threads read neighbouring rows, k values apart.
+#include "common.cuh"
+
+constexpr int kRowThreads = 128;
+
+template <typename T, int K>
+__global__ void __launch_bounds__(kRowThreads)
+bsolve_rows_kernel(const T* __restrict__ S, const T* __restrict__ V,
+                   T* __restrict__ X, int n) {
+  __shared__ T L[K][K];
+  const size_t pb = blockIdx.y;
+  if (threadIdx.x == 0) {
+    const T* Sb = S + pb * K * K;
+    const T jit = dfm_jitter<T>();
+    for (int a = 0; a < K; ++a)
+      for (int c = 0; c <= a; ++c)
+        L[a][c] = T(0.5) * (Sb[a * K + c] + Sb[c * K + a]) +
+                  (a == c ? jit : T(0));
+    for (int a = 0; a < K; ++a)
+      for (int c = 0; c <= a; ++c) {
+        T s = L[a][c];
+        for (int m = 0; m < c; ++m) s -= L[a][m] * L[c][m];
+        L[a][c] = a == c ? dfm_sqrt(s) : s / L[c][c];
+      }
+  }
+  __syncthreads();
+  const int i = blockIdx.x * kRowThreads + threadIdx.x;
+  if (i >= n) return;
+  const size_t row = (pb * n + i) * K;
+  T x[K];
+#pragma unroll
+  for (int a = 0; a < K; ++a) x[a] = V[row + a];
+#pragma unroll
+  for (int a = 0; a < K; ++a) {
+    T s = x[a];
+#pragma unroll
+    for (int m = 0; m < a; ++m) s -= L[a][m] * x[m];
+    x[a] = s / L[a][a];
+  }
+#pragma unroll
+  for (int a = K - 1; a >= 0; --a) {
+    T s = x[a];
+#pragma unroll
+    for (int m = a + 1; m < K; ++m) s -= L[m][a] * x[m];
+    x[a] = s / L[a][a];
+  }
+#pragma unroll
+  for (int a = 0; a < K; ++a) X[row + a] = x[a];
+}
+
+template <typename T>
+static int launch(const T* S, const T* V, T* X, int B, int n, int k,
+                  cudaStream_t stream) {
+  if (B <= 0 || n <= 0) return (int)cudaGetLastError();
+  const dim3 grid((n + kRowThreads - 1) / kRowThreads, B);
+  DFM_DISPATCH_K(k, bsolve_rows_kernel<T, K><<<grid, kRowThreads, 0, stream>>>(
+                        S, V, X, n))
+  return (int)cudaGetLastError();
+}
+
+extern "C" {
+#if DFM_WANT_F32
+int batched_solve_rows_f32(const float* S, const float* V, float* X, int B,
+                           int n, int k, void* stream) {
+  return launch<float>(S, V, X, B, n, k, (cudaStream_t)stream);
+}
+#endif
+#if DFM_WANT_F64
+int batched_solve_rows_f64(const double* S, const double* V, double* X,
+                           int B, int n, int k, void* stream) {
+  return launch<double>(S, V, X, B, n, k, (cudaStream_t)stream);
+}
+#endif
+}

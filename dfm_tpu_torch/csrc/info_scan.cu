@@ -20,27 +20,55 @@
 // pass is a chain of T dependent k x k factorizations, solves and products,
 // and its floor is T times the latency of one step's dependent chain.
 //
-// Design: one warp per problem lane (one lane here), all k x k matrices in
-// shared memory; the one-warp routines (warp_linalg.cuh) are shared with
-// K5a (ss_cov_path.cu), whose covariance steps are this forward step
-// without the data.  k <= DFM_KMAX.
+// Design: one warp per problem lane, all k x k matrices in shared memory;
+// the one-warp routines (warp_linalg.cuh) are shared with K5a
+// (ss_cov_path.cu), whose covariance steps are this forward step without
+// the data.  k <= DFM_KMAX.
+//
+// K4b, the batched twins, are the same two kernels launched with one block
+// per lane (B blocks, each lane's tensors batch-major at a lane stride):
+//   forward replaces dfm_tpu/estim/batched.py:_batched_info_scan (line
+//   358), with C (B, k, k) static per lane (its per-lane and per-step
+//   strides also fit the time-varying _batched_info_scan_tv, not ported),
+//   and with the t_seq freeze: where t_mask[b, t] <= 0 the filtered moments
+//   and the next prediction are the moments that entered the step, chosen
+//   by a branch (never multiplied by the mask), so pad-step junk, even inf
+//   or NaN, cannot reach them;
+//   backward replaces dfm_tpu/estim/batched.py:_batched_rts (line 444).
+// Each lane is the lone chain, so the batched passes are latency-bound as
+// K4 is: B lanes run side by side on B SMs, a pass takes about the lone
+// pass's time.  The lone entry points launch one block with no mask.
 #include "warp_linalg.cuh"
 
 template <typename T>
 __global__ void __launch_bounds__(32)
 info_scan_kernel(const T* __restrict__ b, const T* __restrict__ C,
-                 int c_stride, const T* __restrict__ A,
+                 int c_lane, int c_stride, const T* __restrict__ A,
                  const T* __restrict__ Q, const T* __restrict__ mu0,
-                 const T* __restrict__ P0, T* __restrict__ x_pred,
-                 T* __restrict__ P_pred, T* __restrict__ x_filt,
-                 T* __restrict__ P_filt, T* __restrict__ logdetG, int T_,
-                 int k) {
+                 const T* __restrict__ P0, const T* __restrict__ t_mask,
+                 T* __restrict__ x_pred, T* __restrict__ P_pred,
+                 T* __restrict__ x_filt, T* __restrict__ P_filt,
+                 T* __restrict__ logdetG, int T_, int k) {
   __shared__ T P[DFM_KMAX][LD], Lp[DFM_KMAX][LD], Cm[DFM_KMAX][LD],
       CL[DFM_KMAX][LD], G[DFM_KMAX][LD], Lg[DFM_KMAX][LD], X[DFM_KMAX][LD],
       Pf[DFM_KMAX][LD], Am[DFM_KMAX][LD], Qm[DFM_KMAX][LD];
   __shared__ T x[DFM_KMAX], u[DFM_KMAX], xf[DFM_KMAX];
   const int lane = threadIdx.x;
   const int kk = k * k;
+  // This block's problem lane.
+  const size_t pb = blockIdx.x, tk = (size_t)T_ * k, tkk = (size_t)T_ * kk;
+  b += pb * tk;
+  C += pb * c_lane;
+  A += pb * kk;
+  Q += pb * kk;
+  P0 += pb * kk;
+  mu0 += pb * k;
+  if (t_mask) t_mask += pb * T_;
+  x_pred += pb * tk;
+  x_filt += pb * tk;
+  P_pred += pb * tkk;
+  P_filt += pb * tkk;
+  logdetG += pb * T_;
   for (int e = lane; e < kk; e += 32) {
     const int i = e / k, j = e % k;
     Am[i][j] = A[e];
@@ -58,6 +86,13 @@ info_scan_kernel(const T* __restrict__ b, const T* __restrict__ C,
     if (lane < k) x_pred[(size_t)t * k + lane] = x[lane];
     __syncwarp();
     info_cov_update<T>(P, Cm, Lp, CL, G, Lg, X, Pf, k);
+    // A pad step (t_mask <= 0) holds the carry: P_f = P, x_f = x, and no
+    // prediction.  The branch is uniform across the warp.
+    const bool real = t_mask == nullptr || t_mask[t] > T(0);
+    if (!real) {
+      for (int e = lane; e < kk; e += 32) Pf[e / k][e % k] = P[e / k][e % k];
+      __syncwarp();
+    }
     if (lane < k) {
       T s = T(0);
       for (int l = 0; l < k; ++l) s += Cm[lane][l] * x[l];
@@ -67,13 +102,14 @@ info_scan_kernel(const T* __restrict__ b, const T* __restrict__ C,
     if (lane < k) {
       T s = T(0);
       for (int l = 0; l < k; ++l) s += Pf[lane][l] * u[l];
-      xf[lane] = x[lane] + s;
+      xf[lane] = real ? x[lane] + s : x[lane];
       x_filt[(size_t)t * k + lane] = xf[lane];
     }
     for (int e = lane; e < kk; e += 32)
       P_filt[(size_t)t * kk + e] = Pf[e / k][e % k];
     if (lane == 0) logdetG[t] = chol_logdet_warp<T>(Lg, k);
     __syncwarp();
+    if (!real) continue;
     if (lane < k) {
       T s = T(0);
       for (int l = 0; l < k; ++l) s += Am[lane][l] * xf[l];
@@ -99,6 +135,16 @@ rts_smoother_kernel(const T* __restrict__ x_pred,
   const int kk = k * k;
   const T jit = dfm_jitter<T>();
   const size_t last = (size_t)(T_ - 1);
+  // This block's problem lane.
+  const size_t pb = blockIdx.x, tk = (size_t)T_ * k, tkk = (size_t)T_ * kk;
+  x_pred += pb * tk;
+  x_filt += pb * tk;
+  x_sm += pb * tk;
+  P_pred += pb * tkk;
+  P_filt += pb * tkk;
+  P_sm += pb * tkk;
+  P_lag += pb * tkk;
+  A += pb * kk;
   for (int e = lane; e < kk; e += 32) {
     const int i = e / k, j = e % k;
     Am[i][j] = A[e];
@@ -153,69 +199,67 @@ rts_smoother_kernel(const T* __restrict__ x_pred,
 }
 
 template <typename T>
-static int launch_scan(const T* b, const T* C, int c_stride, const T* A,
-                       const T* Q, const T* mu0, const T* P0, T* x_pred,
-                       T* P_pred, T* x_filt, T* P_filt, T* logdetG, int T_,
-                       int k, cudaStream_t stream) {
+static int launch_scan(const T* b, const T* C, int c_lane, int c_stride,
+                       const T* A, const T* Q, const T* mu0, const T* P0,
+                       const T* t_mask, T* x_pred, T* P_pred, T* x_filt,
+                       T* P_filt, T* logdetG, int B, int T_, int k,
+                       cudaStream_t stream) {
   if (k < 1 || k > DFM_KMAX) return (int)cudaErrorInvalidValue;
-  if (T_ > 0)
-    info_scan_kernel<T><<<1, 32, 0, stream>>>(b, C, c_stride, A, Q, mu0, P0,
-                                              x_pred, P_pred, x_filt, P_filt,
-                                              logdetG, T_, k);
+  if (B > 0 && T_ > 0)
+    info_scan_kernel<T><<<B, 32, 0, stream>>>(b, C, c_lane, c_stride, A, Q,
+                                              mu0, P0, t_mask, x_pred, P_pred,
+                                              x_filt, P_filt, logdetG, T_, k);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int launch_rts(const T* x_pred, const T* P_pred, const T* x_filt,
                       const T* P_filt, const T* A, T* x_sm, T* P_sm,
-                      T* P_lag, int T_, int k, cudaStream_t stream) {
+                      T* P_lag, int B, int T_, int k, cudaStream_t stream) {
   if (k < 1 || k > DFM_KMAX) return (int)cudaErrorInvalidValue;
-  if (T_ > 0)
-    rts_smoother_kernel<T><<<1, 32, 0, stream>>>(x_pred, P_pred, x_filt,
+  if (B > 0 && T_ > 0)
+    rts_smoother_kernel<T><<<B, 32, 0, stream>>>(x_pred, P_pred, x_filt,
                                                  P_filt, A, x_sm, P_sm, P_lag,
                                                  T_, k);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
+#define DFM_SCAN_ENTRIES(SFX, T)                                               \
+  int info_scan_##SFX(const T* b, const T* C, int c_stride, const T* A,      \
+                      const T* Q, const T* mu0, const T* P0, T* x_pred,      \
+                      T* P_pred, T* x_filt, T* P_filt, T* logdetG, int T_,   \
+                      int k, void* stream) {                                 \
+    return launch_scan<T>(b, C, 0, c_stride, A, Q, mu0, P0, nullptr, x_pred, \
+                          P_pred, x_filt, P_filt, logdetG, 1, T_, k,         \
+                          (cudaStream_t)stream);                             \
+  }                                                                          \
+  int batched_info_scan_##SFX(const T* b, const T* C, int c_lane,            \
+                              int c_stride, const T* A, const T* Q,          \
+                              const T* mu0, const T* P0, const T* t_mask,    \
+                              T* x_pred, T* P_pred, T* x_filt, T* P_filt,    \
+                              T* logdetG, int B, int T_, int k,              \
+                              void* stream) {                                \
+    return launch_scan<T>(b, C, c_lane, c_stride, A, Q, mu0, P0, t_mask,     \
+                          x_pred, P_pred, x_filt, P_filt, logdetG, B, T_, k, \
+                          (cudaStream_t)stream);                             \
+  }                                                                          \
+  int rts_smoother_##SFX(const T* x_pred, const T* P_pred, const T* x_filt,  \
+                         const T* P_filt, const T* A, T* x_sm, T* P_sm,      \
+                         T* P_lag, int T_, int k, void* stream) {            \
+    return launch_rts<T>(x_pred, P_pred, x_filt, P_filt, A, x_sm, P_sm,      \
+                         P_lag, 1, T_, k, (cudaStream_t)stream);             \
+  }                                                                          \
+  int batched_rts_##SFX(const T* x_pred, const T* P_pred, const T* x_filt,   \
+                        const T* P_filt, const T* A, T* x_sm, T* P_sm,       \
+                        T* P_lag, int B, int T_, int k, void* stream) {      \
+    return launch_rts<T>(x_pred, P_pred, x_filt, P_filt, A, x_sm, P_sm,      \
+                         P_lag, B, T_, k, (cudaStream_t)stream);             \
+  }
 #if DFM_WANT_F32
-int info_scan_f32(const float* b, const float* C, int c_stride,
-                  const float* A, const float* Q, const float* mu0,
-                  const float* P0, float* x_pred, float* P_pred,
-                  float* x_filt, float* P_filt, float* logdetG, int T, int k,
-                  void* stream) {
-  return launch_scan<float>(b, C, c_stride, A, Q, mu0, P0, x_pred, P_pred,
-                            x_filt, P_filt, logdetG, T, k,
-                            (cudaStream_t)stream);
-}
+DFM_SCAN_ENTRIES(f32, float)
 #endif
 #if DFM_WANT_F64
-int info_scan_f64(const double* b, const double* C, int c_stride,
-                  const double* A, const double* Q, const double* mu0,
-                  const double* P0, double* x_pred, double* P_pred,
-                  double* x_filt, double* P_filt, double* logdetG, int T,
-                  int k, void* stream) {
-  return launch_scan<double>(b, C, c_stride, A, Q, mu0, P0, x_pred, P_pred,
-                             x_filt, P_filt, logdetG, T, k,
-                             (cudaStream_t)stream);
-}
-#endif
-#if DFM_WANT_F32
-int rts_smoother_f32(const float* x_pred, const float* P_pred,
-                     const float* x_filt, const float* P_filt, const float* A,
-                     float* x_sm, float* P_sm, float* P_lag, int T, int k,
-                     void* stream) {
-  return launch_rts<float>(x_pred, P_pred, x_filt, P_filt, A, x_sm, P_sm,
-                           P_lag, T, k, (cudaStream_t)stream);
-}
-#endif
-#if DFM_WANT_F64
-int rts_smoother_f64(const double* x_pred, const double* P_pred,
-                     const double* x_filt, const double* P_filt,
-                     const double* A, double* x_sm, double* P_sm,
-                     double* P_lag, int T, int k, void* stream) {
-  return launch_rts<double>(x_pred, P_pred, x_filt, P_filt, A, x_sm, P_sm,
-                            P_lag, T, k, (cudaStream_t)stream);
-}
+DFM_SCAN_ENTRIES(f64, double)
 #endif
 }

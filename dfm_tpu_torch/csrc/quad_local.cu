@@ -7,15 +7,23 @@
 // squared.  The JAX routine also returns the residual panel V, but its only
 // caller drops it, so here V never reaches device memory.
 //
-// Bound on the H100: bytes.  The kernel must read Y (and the mask) once:
-// 20 MB unmasked, 40 MB masked in f32 at T = 500, N = 10,000, against
-// ~2(k+2) flops per entry.
+// K1b, the batched twin, is the same kernel over B problem lanes (grid
+// (T, B), each lane's tensors batch-major at a lane stride, unmasked): it
+// replaces the residual pass of dfm_tpu/estim/batched.py:_batched_loglik
+// (lines 419-421), whose (B, T, N) residual V the JAX function
+// materializes and this kernel never stores, and also writes
+// U[b, t] = b_t - C_b x_pred,t (line 421, C symmetric) from the x_t it
+// holds in shared memory.
 //
-// Design: one block per time row.  Each thread walks series n with a
-// stride of blockDim.x (coalesced reads of the row of Y and of the mask),
-// forms the k-dot with x_t held in shared memory, squares and scales in the
-// compute type, and adds the term to a double accumulator; the block then
-// reduces in double.
+// Bound on the H100: bytes.  The kernel must read Y (and the mask) once:
+// 20 MB unmasked, 40 MB masked in f32 at T = 500, N = 10,000 (K1b: 160 MB
+// at B = 8), against ~2(k+2) flops per entry.
+//
+// Design: one block per time row (and lane).  Each thread walks series n
+// with a stride of blockDim.x (coalesced reads of the row of Y and of the
+// mask), forms the k-dot with x_t held in shared memory, squares and scales
+// in the compute type, and adds the term to a double accumulator; the block
+// then reduces in double.
 #include "common.cuh"
 
 template <typename T>
@@ -24,12 +32,31 @@ __global__ void quad_local_kernel(const T* __restrict__ Y,
                                   const T* __restrict__ R,
                                   const T* __restrict__ x_pred,
                                   const T* __restrict__ mask,
-                                  double* __restrict__ out, int N, int k) {
+                                  const T* __restrict__ bvec,
+                                  const T* __restrict__ C,
+                                  double* __restrict__ out,
+                                  T* __restrict__ U, int N, int k) {
   __shared__ T xs[DFM_KMAX];
   __shared__ double red[32];
-  const int t = blockIdx.x;
+  const int t = blockIdx.x, T_ = gridDim.x;
+  // This block's problem lane.
+  const size_t pb = blockIdx.y, tn = (size_t)T_ * N;
+  Y += pb * tn;
+  if (mask) mask += pb * tn;
+  Lam += pb * N * k;
+  R += pb * N;
+  x_pred += pb * T_ * k;
+  out += pb * T_;
   if (threadIdx.x < k) xs[threadIdx.x] = x_pred[(size_t)t * k + threadIdx.x];
   __syncthreads();
+  if (U && threadIdx.x < k) {
+    const int j = threadIdx.x;
+    const T* Cb = C + pb * k * k;
+    T s = T(0);
+    for (int l = 0; l < k; ++l) s += Cb[j * k + l] * xs[l];
+    const size_t o = (pb * T_ + t) * k + j;
+    U[o] = bvec[o] - s;
+  }
   const T* y = Y + (size_t)t * N;
   const T* w = mask ? mask + (size_t)t * N : nullptr;
   double acc = 0.0;
@@ -47,30 +74,34 @@ __global__ void quad_local_kernel(const T* __restrict__ Y,
 
 template <typename T>
 static int launch(const T* Y, const T* Lam, const T* R, const T* x_pred,
-                  const T* mask, double* out, int T_, int N, int k,
-                  cudaStream_t stream) {
+                  const T* mask, const T* bvec, const T* C, double* out,
+                  T* U, int B, int T_, int N, int k, cudaStream_t stream) {
   if (k < 1 || k > DFM_KMAX) return (int)cudaErrorInvalidValue;
-  if (T_ > 0)
-    quad_local_kernel<T><<<T_, 256, 0, stream>>>(Y, Lam, R, x_pred, mask,
-                                                 out, N, k);
+  if (B > 0 && T_ > 0)
+    quad_local_kernel<T><<<dim3(T_, B), 256, 0, stream>>>(
+        Y, Lam, R, x_pred, mask, bvec, C, out, U, N, k);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
+#define DFM_QUAD_ENTRIES(SFX, T)                                               \
+  int quad_local_##SFX(const T* Y, const T* Lam, const T* R,                 \
+                       const T* x_pred, const T* mask, double* out, int T_,  \
+                       int N, int k, void* stream) {                         \
+    return launch<T>(Y, Lam, R, x_pred, mask, nullptr, nullptr, out,         \
+                     nullptr, 1, T_, N, k, (cudaStream_t)stream);            \
+  }                                                                          \
+  int batched_quad_##SFX(const T* Y, const T* Lam, const T* R,               \
+                         const T* x_pred, const T* bvec, const T* C,         \
+                         double* out, T* U, int B, int T_, int N, int k,     \
+                         void* stream) {                                     \
+    return launch<T>(Y, Lam, R, x_pred, nullptr, bvec, C, out, U, B, T_, N,  \
+                     k, (cudaStream_t)stream);                               \
+  }
 #if DFM_WANT_F32
-int quad_local_f32(const float* Y, const float* Lam, const float* R,
-                   const float* x_pred, const float* mask, double* out,
-                   int T, int N, int k, void* stream) {
-  return launch<float>(Y, Lam, R, x_pred, mask, out, T, N, k,
-                       (cudaStream_t)stream);
-}
+DFM_QUAD_ENTRIES(f32, float)
 #endif
 #if DFM_WANT_F64
-int quad_local_f64(const double* Y, const double* Lam, const double* R,
-                   const double* x_pred, const double* mask, double* out,
-                   int T, int N, int k, void* stream) {
-  return launch<double>(Y, Lam, R, x_pred, mask, out, T, N, k,
-                        (cudaStream_t)stream);
-}
+DFM_QUAD_ENTRIES(f64, double)
 #endif
 }

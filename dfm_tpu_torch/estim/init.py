@@ -5,6 +5,8 @@ Twins of ``dfm_tpu.estim.init``.  ``fit`` uses them for large panels
 singular vectors come from an eigendecomposition of the (T, T) Gram
 matrix (``torch.linalg.eigh``, a library call, as the JAX package leaves
 it to XLA); the k-sized VAR(1) tail runs on the host.
+``pca_init_batched`` is the same init over a stack of panels (the
+``fit_many(device_init=True)`` warm starts): one batched eigh.
 """
 
 from __future__ import annotations
@@ -13,8 +15,9 @@ import numpy as np
 import torch
 
 from ..backends import cpu_ref
+from .fused import read_packed
 
-__all__ = ["standardize_device", "pca_init_device"]
+__all__ = ["standardize_device", "pca_init_device", "pca_init_batched"]
 
 
 def standardize_device(Y: torch.Tensor):
@@ -34,18 +37,21 @@ def standardize_device(Y: torch.Tensor):
 
 
 def _pca_parts(Y: torch.Tensor, k: int):
-    T, N = Y.shape
+    """PCA loadings, factors and residual variances of a (..., T, N)
+    panel; leading axes batch independent panels."""
+    T, N = Y.shape[-2:]
+    Yt = Y.transpose(-1, -2)
     # Y = U S V'  =>  Y Y' = U S^2 U'  and  V = Y' U / S.
-    G = Y @ Y.T
+    G = Y @ Yt
     w, U = torch.linalg.eigh(G)                   # ascending eigenvalues
-    w_k = w[-k:].flip(0)                          # top-k, descending
-    U_k = U[:, -k:].flip(1)
+    w_k = w[..., -k:].flip(-1)                    # top-k, descending
+    U_k = U[..., -k:].flip(-1)
     s_k = torch.sqrt(torch.clamp(w_k, min=1e-12))
-    V = (Y.T @ U_k) / s_k[None, :]                # (N, k)
+    V = (Yt @ U_k) / s_k[..., None, :]            # (..., N, k)
     Lam = float(np.sqrt(N)) * V
-    F = Y @ Lam / N                               # (T, k)
-    resid = Y - F @ Lam.T
-    R = torch.clamp(resid.var(dim=0, unbiased=False), min=1e-6)
+    F = Y @ Lam / N                               # (..., T, k)
+    resid = Y - F @ Lam.transpose(-1, -2)
+    R = torch.clamp(resid.var(dim=-2, unbiased=False), min=1e-6)
     return Lam, F, R
 
 
@@ -59,3 +65,17 @@ def pca_init_device(Y: torch.Tensor, k: int,
                                      static)
     return cpu_ref.SSMParams(Lam.to("cpu", torch.float64).numpy(), A, Q,
                              R.to("cpu", torch.float64).numpy(), mu0, P0)
+
+
+def pca_init_batched(Y: torch.Tensor, k: int,
+                     static: bool = False) -> list:
+    """Device PCA warm starts for a stack (B, T, N) of standardized, fully
+    observed panels: one batched Gram eigh, then the k-sized VAR tails on
+    the host, one per panel.  Returns B NumPy f64 param sets."""
+    Lam, F, R = _pca_parts(Y, k)
+    h = read_packed({"Lam": Lam, "F": F, "R": R})   # one read
+    out = []
+    for b in range(Lam.shape[0]):
+        A, Q, mu0, P0 = cpu_ref.var_tail(h["F"][b], k, static)
+        out.append(cpu_ref.SSMParams(h["Lam"][b], A, Q, h["R"][b], mu0, P0))
+    return out

@@ -62,6 +62,11 @@ KERNELS = {
     "qr_elements": ("qr_elements.cu", [_I] * 2 + [_P] * 12 + [_I] * 3),
     "qr_scan": ("qr_scan.cu", [_I] + [_P] * 6 + [_I] * 3),
     "ring_append": ("ring_append.cu", [_P] * 4 + [_I] * 5),
+    "batched_info_scan": ("info_scan.cu",
+                          [_P, _P, _I, _I] + [_P] * 10 + [_I] * 3),
+    "batched_rts": ("info_scan.cu", [_P] * 8 + [_I] * 3),
+    "batched_quad": ("quad_local.cu", [_P] * 8 + [_I] * 4),
+    "batched_solve_rows": ("bsolve_rows.cu", [_P] * 3 + [_I] * 3),
 }
 
 # Measurement kernels off the model path, in the same form.

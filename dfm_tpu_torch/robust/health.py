@@ -10,8 +10,8 @@ JAX package, and stays empty: there, as here, only the guarded session
 divergence among them; the unguarded session warns.  The JAX package
 mirrors each recorded event into its tracer or live plane; the port has
 neither yet (item 13), so ``record`` only stores the event.
-``health_from_trace`` (the family fits' post-hoc record) waits for the
-families (item 10).
+``health_from_trace`` is the post-hoc record of a loglik trace, which
+each lane of ``fit_many`` gets.
 """
 
 from __future__ import annotations
@@ -20,7 +20,9 @@ import dataclasses
 import time
 from typing import List, Optional
 
-__all__ = ["HealthEvent", "FitHealth"]
+import numpy as np
+
+__all__ = ["HealthEvent", "FitHealth", "health_from_trace"]
 
 # Event kinds the guard emits:
 #   nan_loglik      non-finite loglik in a chunk
@@ -122,3 +124,20 @@ class FitHealth:
         if self.stalled:
             bits.append("stalled")
         return "; ".join(bits)
+
+
+def health_from_trace(lls, noise_floor: float = 0.0,
+                      engine: str = "") -> FitHealth:
+    """Post-hoc health record from a loglik trace: a ``nan_loglik`` event
+    for each of the first 8 non-finite entries and the count of drops
+    beyond ``noise_floor``.  No device work."""
+    h = FitHealth(engine=engine)
+    a = np.asarray(lls, np.float64)
+    for i in np.flatnonzero(~np.isfinite(a))[:8]:
+        h.record(HealthEvent(chunk=-1, iteration=int(i), kind="nan_loglik",
+                             detail="non-finite loglik in trace"))
+    if a.size >= 2:
+        drops = a[:-1] - a[1:]
+        with np.errstate(invalid="ignore"):
+            h.monotonicity_violations = int(np.sum(drops > noise_floor))
+    return h

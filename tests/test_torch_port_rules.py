@@ -29,7 +29,11 @@ FIT_DRIVERS = [("dfm_tpu_torch/api.py", "fit"),
                ("dfm_tpu_torch/estim/em.py", "run_em_chunked"),
                ("dfm_tpu_torch/estim/fused.py", "run_fused"),
                ("dfm_tpu_torch/serve/session.py", "update"),
-               ("dfm_tpu_torch/ssm/info_filter.py", "loglik_eval")]
+               ("dfm_tpu_torch/ssm/info_filter.py", "loglik_eval"),
+               ("dfm_tpu_torch/estim/batched.py", "fit_many"),
+               ("dfm_tpu_torch/estim/batched.py", "run_batched_em"),
+               ("dfm_tpu_torch/estim/select.py", "select_n_factors_em"),
+               ("dfm_tpu_torch/estim/evaluate.py", "oos_evaluate")]
 
 
 def _tree(path):
@@ -120,8 +124,15 @@ def test_cpu_path_launches_no_kernel():
                   backend=dtt.TorchBackend(device="cpu"), fused=True,
                   keep_session=True)
     res.session.update(Y[30:32])
+    Yb = rng.standard_normal((2, 30, 12))
+    res = dtt.fit_many(dtt.DFMBatchSpec(Y=Yb, model=dtt.DynamicFactorModel(2)),
+                       backend=dtt.TorchBackend(device="cpu"), max_iters=3,
+                       tol=0.0)
+    assert list(res.n_iters) == [3, 3] and res.host_reads == 2
     assert set(kernels.LAUNCHES) == {"quad_local", "obs_stats", "mstep_rows",
                                      "info_scan", "rts_smoother",
                                      "ss_cov_path", "affine_scan",
-                                     "qr_elements", "qr_scan", "ring_append"}
+                                     "qr_elements", "qr_scan", "ring_append",
+                                     "batched_info_scan", "batched_rts",
+                                     "batched_quad", "batched_solve_rows"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())
