@@ -96,8 +96,32 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``run_batched_em`` at 120 x 80, k = 3, card f64 against CPU f64 within
    1e-10; the 1e-5 loglik contract per lane of the 8 restarts in f32.
 
+14. fleet: 8 tenants (six 480 x 10,000 at k = 10, two 400 x 6,000 at
+   k = 8; masked panels, 10-iteration fused info fits) in one bucket of
+   B = 8 at capacity 1,000, f32, ``max_update_rows`` 2, 5 iterations,
+   tol = 0: 10 drains (even: every tenant 2 rows; odd: 3 tenants), each
+   tick's device part under ``set_sync_debug_mode("error")``, exactly 1
+   read and 1 K13b, 6 K2b-m, 6 K4b-fwd, 6 K1b-m, 6 K4b-bwd, 5 K3b-m and
+   5 K6b launches a tick and no other kernel, the frozen lanes of an odd
+   tick bit-identical; tick wall p50/p99 and queries/s beside the same
+   rounds on 8 lone sessions (two lanes, one of each shape, held to
+   their lone answers within 5e-3); then every kernel of the tick
+   against its plain twin on the bucket's own buffers and params (f64
+   and f32, the TOL rule, K13b bit for bit), timed warm and cold.
+15. ring fleet: the six 10,000-series tenants with ``ring=True`` at
+   capacity 480 (every update evicts 2), 5 drains, lane 0 against a
+   lone ring session, the kernels on the bucket's buffers.
+16. pit_qr fleet: two tenants with ``filter="pit_qr"``, 3 drains, beside
+   lone pit_qr sessions: in f64 each lane equals its lone session within
+   1e-9; in f32 the fleet lane and the lone session are each measured
+   against that f64 answer, the lane within PIT_F32_TOL of it.
+17. fleet k-sweep: small fleets at k = 1, 3 and 16, one drain each, and
+   every kernel of the tick against its plain twin.
+18. fleet reference: the JAX trio fixture's shapes (10 x 40, 12 x 44,
+   12 x 44, k = 2, capacity 56), card f64 against CPU f64 within 1e-12.
+
 Output: one JSON line per kernel and dtype, one per fit, contract check,
-ring case, session and batched phase, then the {"kernels": [...]}
+ring case, session, batched and fleet phase, then the {"kernels": [...]}
 summary, the card line and, last, {"ok": true, "device": {...}}.
 """
 
@@ -125,6 +149,7 @@ from dfm_tpu_torch.estim.init import pca_init_device
 from dfm_tpu_torch.ops import linalg as la
 from dfm_tpu_torch.ops import scan as sc
 from dfm_tpu_torch.ops.precision import highest_precision
+from dfm_tpu_torch.serve import batched as sv
 from dfm_tpu_torch.serve.batched import (ring_evict_append,
                                          ring_evict_append_plain)
 from dfm_tpu_torch.ssm import info_filter as inf
@@ -161,23 +186,28 @@ L2_FLUSH_BYTES = 256 * 2**20                   # > 5x the H100's 50 MB L2
 # N = 10,000, M = A - P_f C A in K5a and A_t = F - Q W (HH')^{-1} W' F in
 # the element build subtract nearly equal terms: P_f C is close to I).
 # The f64 tolerances stand alone.
-# The batched kernels take their lone twins' tolerances (K4b as K4, K1b as
-# K1); K6b, one k x k factorization and two triangular solves a row of a
-# well-conditioned moment matrix, 1e-4 / 1e-10 as K6.
+# The batched kernels take their lone twins' tolerances (K4b as K4, K1b and
+# K1b-m as K1, K2b-m as K2, K3b-m as K3); K6b, one k x k factorization and
+# two triangular solves a row of a well-conditioned moment matrix, 1e-4 /
+# 1e-10 as K6.  K13 and K13b move values only: bit for bit.
 TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "mstep_rows": 1e-4, "info_scan": 1e-4,
                        "rts_smoother": 1e-4, "ss_cov_path": 1e-4,
                        "affine_scan": 1e-4, "qr_elements": 1e-4,
                        "qr_scan": 1e-4, "batched_info_scan": 1e-4,
                        "batched_rts": 1e-4, "batched_quad": 1e-5,
-                       "batched_solve_rows": 1e-4},
+                       "batched_solve_rows": 1e-4, "batched_obs_stats": 1e-5,
+                       "batched_quad_masked": 1e-5,
+                       "batched_mstep_rows": 1e-4},
        torch.float64: {"quad_local": 1e-10, "obs_stats": 1e-10,
                        "mstep_rows": 1e-9, "info_scan": 1e-9,
                        "rts_smoother": 1e-9, "ss_cov_path": 1e-9,
                        "affine_scan": 1e-9, "qr_elements": 1e-10,
                        "qr_scan": 1e-9, "batched_info_scan": 1e-9,
                        "batched_rts": 1e-9, "batched_quad": 1e-10,
-                       "batched_solve_rows": 1e-10}}
+                       "batched_solve_rows": 1e-10, "batched_obs_stats": 1e-10,
+                       "batched_quad_masked": 1e-10,
+                       "batched_mstep_rows": 1e-9}}
 # The TPU routine each kernel replaces.
 REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "obs_stats": "dfm_tpu/ssm/info_filter.py:69",
@@ -192,7 +222,11 @@ REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "batched_info_scan": "dfm_tpu/estim/batched.py:358",
             "batched_rts": "dfm_tpu/estim/batched.py:444",
             "batched_quad": "dfm_tpu/estim/batched.py:409",
-            "batched_solve_rows": "dfm_tpu/estim/batched.py:106"}
+            "batched_solve_rows": "dfm_tpu/estim/batched.py:106",
+            "batched_ring_append": "dfm_tpu/serve/batched.py:97",
+            "batched_obs_stats": "dfm_tpu/estim/batched.py:593",
+            "batched_quad_masked": "dfm_tpu/estim/batched.py:650",
+            "batched_mstep_rows": "dfm_tpu/estim/batched.py:682"}
 # The variant of each kernel whose f32 record goes into the summary line.
 SUMMARY_VARIANT = {"quad_local": "masked", "obs_stats": "masked",
                    "mstep_rows": "masked", "info_scan": "masked",
@@ -223,17 +257,21 @@ def card_line() -> str:
 
 
 def cuda_ms(fn) -> float:
-    """Mean milliseconds of one call, from CUDA events around a run of
-    back-to-back calls after a warm-up (~0.3 s of work, 3..50 calls)."""
+    """Milliseconds of one call from CUDA events, after a warm-up: one
+    timed call, and unless it took 0.3 s or more (the slow plain twins),
+    the mean over a run of back-to-back calls (~0.3 s of work, 3..50
+    calls)."""
     fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    one = time.perf_counter() - t0
-    reps = max(3, min(50, int(0.3 / max(one, 1e-6))))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    one = start.elapsed_time(end)
+    if one >= 300.0:
+        return one
+    reps = max(3, min(50, int(300.0 / max(one, 1e-3))))
     start.record()
     for _ in range(reps):
         fn()
@@ -677,7 +715,9 @@ OWN_FIT = {"quad_local": "masked", "obs_stats": "masked",
            "affine_scan": "unmasked ss", "qr_elements": "masked pit_qr",
            "qr_scan": "masked pit_qr", "ring_append": "info",
            "batched_info_scan": "fit_many", "batched_rts": "fit_many",
-           "batched_quad": "fit_many", "batched_solve_rows": "fit_many"}
+           "batched_quad": "fit_many", "batched_solve_rows": "fit_many",
+           "batched_ring_append": "fleet", "batched_obs_stats": "fleet",
+           "batched_quad_masked": "fleet", "batched_mstep_rows": "fleet"}
 
 
 def fit_phase(seed: int) -> dict:
@@ -1744,6 +1784,578 @@ def batched_contract_phase(seed: int) -> None:
         raise AssertionError(f"loglik contract broken (fit_many): {rels}")
 
 
+# The fleet: 8 tenants in one bucket at (T_cap, N_max, k_max) = (1000,
+# 10,000, 10): six of 480 x 10,000 at k = 10, two of 400 x 6,000 at k = 8
+# (the T, N and k padding seams).  Each tenant has FLEET_HELD held-out
+# rows; an even drain gives every tenant 2 of them, an odd drain only the
+# FLEET_ODD tenants.
+FLEET_SHAPES = ((480, N, K),) * 6 + ((400, 6000, 8),) * 2
+FLEET_CAP, FLEET_ROWS, FLEET_ITERS, FLEET_DRAINS = 1000, 2, 5, 10
+FLEET_HELD = FLEET_DRAINS * FLEET_ROWS
+FLEET_ODD = (1, 3, 6)
+FLEET_LONE = (0, 6)          # lanes held against their lone sessions
+FLEET_F32_TOL = 5e-3         # the JAX f32 fleet test (tests/test_fleet.py)
+RING_FLEET_DRAINS, PIT_FLEET_DRAINS = 5, 3
+# An f32 pit_qr fleet lane's limit from the f64 answer (relative, each
+# field, worst drain and lane): its f32 lone session itself stands up to
+# 6.0e-3 from that answer and the lane up to 5.0e-3 (root PERF.md), two
+# f32 roundings of one cancelling element build.
+PIT_F32_TOL = 1e-2
+# The kernels this slice added (the fleet's), in the summary line.
+FLEET_NEW = ("batched_ring_append", "batched_obs_stats",
+             "batched_quad_masked", "batched_mstep_rows")
+# Kernels of an info tick, with their launches a tick (5 EM iterations +
+# the reporting smooth; K3b-m and K6b once a M-step; K13b once).
+FLEET_LAUNCHES = {"batched_ring_append": 1, "batched_obs_stats": 6,
+                  "batched_info_scan": 6, "batched_quad_masked": 6,
+                  "batched_rts": 6, "batched_mstep_rows": 5,
+                  "batched_solve_rows": 5}
+
+
+def fleet_tenants(seed: int) -> list:
+    """(fused info fit, fitted panel, held-out rows) of each fleet tenant:
+    its own masked panel (ragged edge, 5% missing) from ``seed + i``, the
+    first T0 rows fitted with ``fit(fused=True)``, 10 iterations."""
+    out = []
+    backend = dt.TorchBackend(filter="info")
+    for i, (T0, N_, K_) in enumerate(FLEET_SHAPES):
+        Ynan, _, _, _ = panel(seed + i, T0 + FLEET_HELD, N_, K_)
+        res = dt.fit(dt.DynamicFactorModel(n_factors=K_, dynamics="ar1"),
+                     Ynan[:T0], backend=backend, fused=True, max_iters=10,
+                     tol=0.0)
+        if res.filter != "info" or not np.isfinite(res.logliks).all():
+            raise AssertionError(f"fleet tenant {i}: fit failed")
+        out.append((res, Ynan[:T0], Ynan[T0:]))
+    return out
+
+
+def fleet_cases(Yb, Wb, pt, t_new, label: str) -> list:
+    """K2b-m, K4b-fwd over a per-step C, K1b-m, K4b-bwd, K3b-m and K6b (A's
+    rows) on the inputs the plain masked batched pipeline makes from a
+    bucket's buffers ``Yb``/``Wb`` (B, T_cap, N) and stacked params ``pt``
+    at live lengths ``t_new``.  Call under ``highest_precision()``."""
+    dtype = Yb.dtype
+    B_, T_, N_ = Yb.shape
+    k = pt.A.shape[-1]
+    k2, k3, BTN = k * k, k ** 3, B_ * T_ * N_
+    b, C, _, _ = tb._batched_obs_stats_masked_plain(Yb, Wb, pt.Lam, pt.R)
+    scan = tb._batched_info_scan_plain(b, C, pt.A, pt.Q, pt.mu0, pt.P0)
+    flt = scan[:4]
+    x_sm, P_sm, P_lag = tb._batched_rts_plain(*flt, pt.A)
+    EffT = P_sm + tb._outer(x_sm)
+    calls = []
+    real = tb._bsolve_rows
+
+    def record(S, V):
+        calls.append((S.contiguous(), V.contiguous()))
+        return tb._bsolve_rows_plain(S, V)
+
+    tb._bsolve_rows = record
+    try:
+        tb.batched_m_step_masked(Yb, Wb, x_sm, P_sm, P_lag, pt,
+                                 EMConfig(filter="info"), t_new)
+    finally:
+        tb._bsolve_rows = real
+    (S, V), = calls
+    return [
+        case("batched_obs_stats", label,
+             lambda: tb._batched_obs_stats_masked(Yb, Wb, pt.Lam, pt.R),
+             lambda: tb._batched_obs_stats_masked_plain(Yb, Wb, pt.Lam,
+                                                        pt.R),
+             (Yb, Wb, pt.Lam, pt.R), BTN * (2 * k + k * (k + 1) + 6)),
+        case("batched_info_scan", label,
+             lambda: tb._batched_info_scan(b, C, pt.A, pt.Q, pt.mu0, pt.P0),
+             lambda: tb._batched_info_scan_plain(b, C, pt.A, pt.Q, pt.mu0,
+                                                 pt.P0),
+             (b, C, pt.A, pt.Q, pt.mu0, pt.P0),
+             B_ * T_ * (12.67 * k3 + 4 * k2),
+             floor=lambda: latency_ms("info_scan", dtype, k, T_)),
+        case("batched_quad_masked", label,
+             lambda: tb._batched_quad_masked(Yb, Wb, pt.Lam, pt.R, scan[0],
+                                             b, C),
+             lambda: tb._batched_quad_masked_plain(Yb, Wb, pt.Lam, pt.R,
+                                                   scan[0], b, C),
+             (Yb, Wb, pt.Lam, pt.R, scan[0], b, C),
+             BTN * (2 * k + 6) + B_ * T_ * 2 * k2),
+        case("batched_rts", label, lambda: tb._batched_rts(*flt, pt.A),
+             lambda: tb._batched_rts_plain(*flt, pt.A), (*flt, pt.A),
+             B_ * T_ * (10.33 * k3 + 4 * k2),
+             floor=lambda: latency_ms("rts_smoother", dtype, k, T_)),
+        case("batched_mstep_rows", label,
+             lambda: tb._batched_mstep_rows(Yb, Wb, x_sm, EffT, P_sm, 1e-6),
+             lambda: tb._batched_mstep_rows_plain(Yb, Wb, x_sm, EffT, P_sm,
+                                                  1e-6),
+             (Yb, Wb, x_sm, EffT, P_sm),
+             BTN * (4 * k + 2 * k * (k + 1) + 5)
+             + B_ * N_ * (k3 // 3 + 6 * k2)),
+        case("batched_solve_rows", f"{label} A rows",
+             lambda: tb._bsolve_rows(S, V),
+             lambda: tb._bsolve_rows_plain(S, V), (S, V),
+             B_ * (k3 / 3 + 2 * V.shape[1] * k2),
+             library=lambda: torch.cholesky_solve(
+                 V.transpose(-1, -2), torch.linalg.cholesky(S))),
+    ]
+
+
+def fleet_ring_case(Yb, n_evict, t_cur, r_max: int, seed: int):
+    """K13b's inputs at a bucket's next tick: each lane's ``r_max`` padded
+    rows (the first 2 random with a full mask) and the (B,) int32 counts
+    on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B_, _, N_ = Yb.shape
+    rows = torch.zeros((B_, r_max, N_), dtype=Yb.dtype, device="cuda")
+    rmask = torch.zeros_like(rows)
+    rmask[:, :FLEET_ROWS] = 1.0
+    rows[:, :FLEET_ROWS] = torch.randn((B_, FLEET_ROWS, N_), generator=g,
+                                       dtype=Yb.dtype, device="cuda")
+    counts = [torch.tensor(np.asarray(c), dtype=torch.int32, device="cuda")
+              for c in (n_evict, t_cur)]
+    return rows, rmask, counts
+
+
+def fleet_ring_check(Yb, Wb, n_evict, t_cur, r_max: int, seed: int,
+                     label: str, timed: bool = False):
+    """K13b against its plain twin on copies of a bucket's buffers, bit for
+    bit; with ``timed`` its record (warm / cold, plain, bound)."""
+    rows, rmask, (ev, tc) = fleet_ring_case(Yb, n_evict, t_cur, r_max, seed)
+    Yk, Wk, Yp, Wp = Yb.clone(), Wb.clone(), Yb.clone(), Wb.clone()
+    n0 = kernels.LAUNCHES["batched_ring_append"]
+    sv.batched_ring_evict_append(Yk, Wk, rows, rmask, ev, tc)
+    launches = kernels.LAUNCHES["batched_ring_append"] - n0
+    sv.batched_ring_evict_append_plain(Yp, Wp, rows, rmask, ev, tc)
+    torch.cuda.synchronize()
+    exact = torch.equal(Yk, Yp) and torch.equal(Wk, Wp)
+    if not exact or launches != 1:
+        err = max(float((Yk - Yp).abs().max()), float((Wk - Wp).abs().max()))
+        raise AssertionError(f"batched_ring_append ({Yb.dtype}, {label}): "
+                             f"bit_exact={exact} (max abs err {err}), "
+                             f"launches {launches}")
+    if not timed:
+        return None
+    B_, T_cap, N_ = Yb.shape
+    run = lambda: sv.batched_ring_evict_append(Yk, Wk, rows, rmask, ev, tc)
+    plain = lambda: sv.batched_ring_evict_append_plain(Yp, Wp, rows, rmask,
+                                                       ev, tc)
+    nbytes = sum(ring_bytes(T_cap, N_, r_max, int(e), int(t), Yb.itemsize)
+                 for e, t in zip(n_evict, t_cur))
+    bound_ms, bound_by = bound(nbytes, 0.0, Yb.dtype)
+    return {"name": "batched_ring_append", "variant": label,
+            "dtype": str(Yb.dtype).replace("torch.", ""), "B": B_,
+            "T_cap": T_cap, "n_evict": [int(e) for e in n_evict],
+            "bit_exact": exact, "max_abs_err": 0.0, "max_rel_err": 0.0,
+            "tol": 0.0, "latency_ms": None, "kernel_ms": cuda_ms(run),
+            "kernel_ms_cold_l2": cuda_ms_cold(run),
+            "plain_ms": cuda_ms(plain), "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "launches": launches}
+
+
+def fleet_kernel_check(bucket, label: str, seed: int,
+                       timed: bool = False) -> dict:
+    """Every kernel of the info tick against its plain twin on a bucket's
+    own buffers and params, f64 then f32 (the TOL rule), K13b bit for bit
+    at the bucket's next (n_evict, t_cur); with ``timed``, the f32 records
+    (warm / cold L2, plain, bound, floor), returned by kernel name."""
+    slots = [bucket.lane_of[ln] for ln in range(bucket.B)]
+    t_cur = np.array([s.t for s in slots])
+    n_evict = np.array([max(0, s.t + FLEET_ROWS - s.capacity)
+                        for s in slots])
+    t_new = torch.tensor(t_cur, dtype=torch.int32, device="cuda")
+    refs, worst, recs = {}, {}, {}
+    for dtype in (torch.float64, torch.float32):
+        Yb = bucket.Ybuf.to(dtype).contiguous()
+        Wb = bucket.Wbuf.to(dtype).contiguous()
+        pt = SSMParams(*(x.to(dtype).contiguous() for x in bucket.p))
+        with highest_precision():
+            for c in fleet_cases(Yb, Wb, pt, t_new, label):
+                key = (c["name"], c["variant"])
+                abs_err, rel, tol, ref, plain_err = compare(c, dtype,
+                                                            refs.get(key))
+                refs[key] = ref
+                worst[f"{c['name']} {str(dtype)[6:]}"] = rel
+                if timed and dtype == torch.float32:
+                    bound_ms, bound_by = bound(
+                        nbytes_of(c["ins"]) + nbytes_of(ref), c["flops"],
+                        dtype)
+                    recs[c["name"]] = {
+                        "name": c["name"], "variant": c["variant"],
+                        "dtype": "float32", "B": bucket.B,
+                        "max_rel_err": rel, "max_abs_err": abs_err,
+                        "tol": tol, "plain_f32_err": plain_err,
+                        "kernel_ms": cuda_ms(c["run"]),
+                        "kernel_ms_cold_l2": cuda_ms_cold(c["run"]),
+                        "plain_ms": cuda_ms(c["plain"]),
+                        "library_ms": (cuda_ms(c["library"])
+                                       if c["library"] else None),
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "latency_ms": c["floor"]() if c["floor"] else None}
+        rec = fleet_ring_check(Yb, Wb, n_evict, t_cur, bucket.r_max, seed,
+                               label, timed=timed and dtype == torch.float32)
+        worst[f"batched_ring_append {str(dtype)[6:]}"] = 0.0
+        if rec is not None:
+            recs["batched_ring_append"] = rec
+        del Yb, Wb, pt
+        torch.cuda.empty_cache()
+    emit({"fleet_kernels": label, "B": bucket.B, "dims": bucket.dims,
+          "max_rel_err": worst})
+    for rec in recs.values():
+        emit(rec)
+    return recs
+
+
+def lane_state(bucket, lane: int) -> list:
+    """Copies of one lane's panel, mask and params on the card."""
+    return [x[lane].clone() for x in (bucket.Ybuf, bucket.Wbuf, *bucket.p)]
+
+
+def drain_timed(fleet) -> tuple:
+    """One synchronized ``drain``: (its outputs, host wall s, the launch
+    counts of its ticks, the blocking reads it made)."""
+    reads = []
+    read = fleet._read
+    fleet._read = lambda out: reads.append(1) or read(out)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fleet.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fleet._read = read
+    return out, wall, dict(kernels.LAUNCHES), len(reads)
+
+
+def check_fleet_out(label: str, out: dict, N_of: dict) -> None:
+    for name, ups in out.items():
+        for u in ups:
+            if not (np.isfinite(u.nowcast).all()
+                    and np.isfinite(u.factors).all()
+                    and np.isfinite(u.forecasts["di"]).all()
+                    and u.nowcast.shape == (N_of[name],)):
+                raise AssertionError(f"fleet {label}: non-finite output "
+                                     f"for {name}")
+
+
+def lone_close(label: str, u, ref) -> float:
+    """The JAX f32 test's agreement of a fleet lane with its lone session
+    (n_iters equal; nowcast and factors within 5e-3 relative + 5e-3
+    absolute); returns the largest |fleet - lone|."""
+    err = 0.0
+    if u.n_iters != ref.n_iters or u.t != ref.t:
+        raise AssertionError(f"{label}: n_iters / t {u.n_iters}/{u.t} vs "
+                             f"lone {ref.n_iters}/{ref.t}")
+    for f in ("nowcast", "factors"):
+        a, b = getattr(u, f), getattr(ref, f)
+        if not np.all(np.abs(a - b) <= FLEET_F32_TOL
+                      + FLEET_F32_TOL * np.abs(b)):
+            raise AssertionError(f"{label}: {f} off its lone session by "
+                                 f"{float(np.abs(a - b).max()):.3e}")
+        err = max(err, float(np.abs(a - b).max()))
+    return err
+
+
+def fleet_phase(seed: int, tenants: list) -> tuple:
+    """The full-width info fleet (10 drains), the same 10 rounds on 8 lone
+    sessions, then every kernel of the tick on the bucket's buffers.
+    Returns (launches a tick by kernel, the f32 kernel records)."""
+    backend = dt.TorchBackend(filter="info")
+    names = [f"t{i}" for i in range(len(tenants))]
+    N_of = {n: t[1].shape[1] for n, t in zip(names, tenants)}
+    fleet = dt.open_fleet([t[0] for t in tenants], [t[1] for t in tenants],
+                          capacity=FLEET_CAP, max_update_rows=FLEET_ROWS,
+                          max_iters=FLEET_ITERS, tol=0.0, max_classes=1,
+                          backend=backend)
+    fleet.check_sync = True
+    (bucket,) = fleet._buckets
+    if bucket.dims != (FLEET_CAP, N, K) or bucket.B != len(tenants):
+        raise AssertionError(f"fleet bucket {bucket}, expected one of "
+                             f"{(FLEET_CAP, N, K)}")
+    used = [0] * len(tenants)
+    rounds, walls, ticks, per_tick, n_reads = [], [], [], [], []
+    frozen_ok = None
+    for d in range(FLEET_DRAINS):
+        active = range(len(tenants)) if d % 2 == 0 else FLEET_ODD
+        batch = {}
+        for i in active:
+            rows = tenants[i][2][used[i]:used[i] + FLEET_ROWS]
+            used[i] += FLEET_ROWS
+            fleet.submit(names[i], rows)
+            batch[i] = rows
+        rounds.append(batch)
+        frozen = [ln for ln in range(bucket.B) if ln not in batch]
+        before = ({ln: lane_state(bucket, ln) for ln in frozen}
+                  if d == 1 else None)
+        out, wall, launches, reads = drain_timed(fleet)
+        check_fleet_out("info", out, N_of)
+        if before is not None:
+            frozen_ok = all(torch.equal(a, b) for ln in frozen
+                            for a, b in zip(before[ln],
+                                            lane_state(bucket, ln)))
+            if not frozen_ok:
+                raise AssertionError("fleet: a frozen lane changed across "
+                                     "an odd tick")
+        walls.append(wall)
+        ticks.append(out[names[next(iter(batch))]][0].wall_s)
+        per_tick.append(launches)
+        n_reads.append(reads)
+        if d == 0:
+            results = out
+        else:
+            for n, ups in out.items():
+                results.setdefault(n, []).extend(ups)
+    bad = [d for d, c in enumerate(per_tick)
+           if any(c[n] != FLEET_LAUNCHES.get(n, 0) for n in c)]
+    if bad or set(n_reads) != {1}:
+        raise AssertionError(f"fleet ticks {bad}: launches "
+                             f"{[per_tick[d] for d in bad]}, expected "
+                             f"{FLEET_LAUNCHES} and no other kernel; reads "
+                             f"{n_reads}")
+    n_q = sum(len(r) for r in rounds)
+    # The same rounds on 8 lone sessions.
+    lone = [dt.open_session(t[0], t[1], backend=backend, capacity=FLEET_CAP,
+                            max_update_rows=FLEET_ROWS,
+                            max_iters=FLEET_ITERS, tol=0.0) for t in tenants]
+    q_walls, got, lone_err = [], [0] * len(tenants), {}
+    for batch in rounds:
+        for i, rows in batch.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            u = lone[i].update(rows)
+            torch.cuda.synchronize()
+            q_walls.append(time.perf_counter() - t0)
+            if i in FLEET_LONE:
+                e = lone_close(f"fleet lane {i}", results[names[i]][got[i]],
+                               u)
+                lone_err[names[i]] = max(lone_err.get(names[i], 0.0), e)
+            got[i] += 1
+    for s in lone:
+        s.close()
+    emit({"fleet": "info", "B": bucket.B, "dims": bucket.dims,
+          "filter": bucket.cfg.filter, "drains": FLEET_DRAINS,
+          "queries": n_q, "tick_p50_ms": pct(walls, 50) * 1e3,
+          "tick_p99_ms": pct(walls, 99) * 1e3,
+          "ticks_ms": [w * 1e3 for w in walls],
+          "wall_s_p50_ms": pct(ticks, 50) * 1e3,
+          "queries_per_s": n_q / sum(walls),
+          "reads_per_tick": sum(n_reads) / len(n_reads),
+          "sync_checked": True,
+          "launches_per_tick": {n: per_tick[0][n] for n in FLEET_LAUNCHES},
+          "frozen_lanes_bit_identical": frozen_ok,
+          "pad_waste_frac": fleet.pad_waste_frac,
+          "lone": {"sessions": len(lone), "queries": len(q_walls),
+                   "query_p50_ms": pct(q_walls, 50) * 1e3,
+                   "query_p99_ms": pct(q_walls, 99) * 1e3,
+                   "queries_per_s": len(q_walls) / sum(q_walls)},
+          "fleet_over_lone_qps": (n_q / sum(walls))
+          / (len(q_walls) / sum(q_walls)),
+          "lane_vs_lone_max_abs": lone_err, "lone_tol": FLEET_F32_TOL})
+    recs = fleet_kernel_check(bucket, "fleet", seed + 300, timed=True)
+    fleet.close()
+    return {n: sum(c[n] for c in per_tick) for n in FLEET_LAUNCHES}, recs
+
+
+def ring_fleet_phase(seed: int, tenants: list) -> None:
+    """The six 10,000-series tenants as a ring fleet at capacity 480:
+    every update evicts 2 rows (K13b's shift); 5 drains, lane 0 held
+    against a lone ring session, every kernel of the tick on the bucket's
+    buffers (K13b bit for bit at its next ring tick), timed."""
+    backend = dt.TorchBackend(filter="info")
+    big = tenants[:6]
+    fleet = dt.open_fleet([t[0] for t in big], [t[1] for t in big],
+                          capacity=SESSION_T0, max_update_rows=FLEET_ROWS,
+                          max_iters=FLEET_ITERS, tol=0.0, max_classes=1,
+                          ring=True, backend=backend)
+    fleet.check_sync = True
+    lone = dt.open_session(big[0][0], big[0][1], backend=backend,
+                           capacity=SESSION_T0, max_update_rows=FLEET_ROWS,
+                           max_iters=FLEET_ITERS, tol=0.0, ring=True)
+    walls, err = [], 0.0
+    for d in range(RING_FLEET_DRAINS):
+        lo = d * FLEET_ROWS
+        for i, t in enumerate(big):
+            fleet.submit(f"t{i}", t[2][lo:lo + FLEET_ROWS])
+        out, wall, launches, reads = drain_timed(fleet)
+        check_fleet_out("ring", out, {f"t{i}": N for i in range(6)})
+        if launches["batched_ring_append"] != 1 or reads != 1:
+            raise AssertionError(f"ring fleet drain {d}: launches "
+                                 f"{launches}, reads {reads}")
+        walls.append(wall)
+        err = max(err, lone_close("ring fleet lane 0", out["t0"][0],
+                                  lone.update(big[0][2][lo:lo + FLEET_ROWS])))
+    (bucket,) = fleet._buckets
+    evicted = [s.n_evicted for s in bucket.slots]
+    if evicted != [RING_FLEET_DRAINS * FLEET_ROWS] * 6:
+        raise AssertionError(f"ring fleet evicted {evicted}")
+    fleet_kernel_check(bucket, "ring fleet", seed + 400, timed=True)
+    emit({"fleet": "ring", "B": bucket.B, "dims": bucket.dims,
+          "drains": RING_FLEET_DRAINS, "n_evicted": evicted,
+          "tick_p50_ms": pct(walls, 50) * 1e3,
+          "ticks_ms": [w * 1e3 for w in walls],
+          "lane0_vs_lone_max_abs": err, "sync_checked": True})
+    lone.close()
+    fleet.close()
+
+
+def rel_err(a, b) -> float:
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def pit_fleet_phase(seed: int, tenants: list) -> None:
+    """Two 10,000-series tenants with ``filter="pit_qr"``, 3 drains, beside
+    lone pit_qr sessions on the same queries: first in f64, where every
+    lane must equal its lone session within 1e-9 relative (the path
+    check); then in f32 (timed), where the fleet lane and the lone session
+    are each measured against that f64 answer, and the fleet lane must
+    stand within PIT_F32_TOL of it (the f32 element build cancels at N =
+    10,000 on both paths, root PERF.md)."""
+    two = tenants[:2]
+    kw = dict(capacity=FLEET_CAP, max_update_rows=FLEET_ROWS,
+              max_iters=FLEET_ITERS, tol=0.0, filter="pit_qr")
+    rec = {"fleet": "pit_qr", "B": 2, "drains": PIT_FLEET_DRAINS,
+           "sync_checked": True}
+    fields = lambda u: {"nowcast": u.nowcast, "factors": u.factors,  # noqa: E731
+                        "forecast y": u.forecasts["y"]}
+    ref64 = {}
+    for dtype in (torch.float64, torch.float32):
+        backend = dt.TorchBackend(dtype=dtype, filter="info")
+        fleet = dt.open_fleet([t[0] for t in two], [t[1] for t in two],
+                              max_classes=1, backend=backend, **kw)
+        fleet.check_sync = True
+        lone = [dt.open_session(t[0], t[1], backend=backend, **kw)
+                for t in two]
+        walls, errs = [], {}
+        for d in range(PIT_FLEET_DRAINS):
+            lo = d * FLEET_ROWS
+            for i, t in enumerate(two):
+                fleet.submit(f"t{i}", t[2][lo:lo + FLEET_ROWS])
+            out, wall, launches, reads = drain_timed(fleet)
+            check_fleet_out("pit_qr", out, {"t0": N, "t1": N})
+            if (launches["batched_ring_append"] != 1 or reads != 1
+                    or launches["qr_scan"] < 1 or launches["info_scan"]
+                    or launches["batched_info_scan"]):
+                raise AssertionError(f"pit_qr fleet drain {d}: launches "
+                                     f"{launches}, reads {reads}")
+            walls.append(wall)
+            for i, t in enumerate(two):
+                u = out[f"t{i}"][0]
+                ref = lone[i].update(t[2][lo:lo + FLEET_ROWS])
+                if (u.n_iters, u.t) != (ref.n_iters, ref.t):
+                    raise AssertionError(f"pit_qr fleet lane {i}: n_iters "
+                                         "or t differ from its lone session")
+                fu, fr = fields(u), fields(ref)
+                if dtype == torch.float64:
+                    ref64[d, i] = fr
+                    pairs = {"fleet_vs_lone": fu}
+                    base = fr
+                else:
+                    pairs = {"fleet_vs_f64": fu, "lone_vs_f64": fr}
+                    base = ref64[d, i]
+                for key, got in pairs.items():
+                    e = errs.setdefault(key, {})
+                    for f in got:
+                        e[f] = max(e.get(f, 0.0), rel_err(got[f], base[f]))
+        name = str(dtype).replace("torch.", "")
+        rec[name] = {"tick_p50_ms": pct(walls, 50) * 1e3,
+                     "ticks_ms": [w * 1e3 for w in walls],
+                     "max_rel_err": errs}
+        for s in lone:
+            s.close()
+        fleet.close()
+    rec["float64"]["tol"] = 1e-9
+    rec["float32"]["tol"] = PIT_F32_TOL
+    emit(rec)
+    bad = {f: e for f, e in rec["float64"]["max_rel_err"]["fleet_vs_lone"]
+           .items() if not e <= 1e-9}
+    if bad:
+        raise AssertionError(f"pit_qr fleet (f64) off its lone sessions: "
+                             f"{bad}")
+    e32 = rec["float32"]["max_rel_err"]
+    bad = {f: e for f, e in e32["fleet_vs_f64"].items()
+           if not e <= PIT_F32_TOL}
+    if bad:
+        raise AssertionError(f"pit_qr fleet (f32) off the f64 answer: "
+                             f"{bad}")
+
+
+def fleet_k_sweep(seed: int) -> None:
+    """The fleet path at other factor counts (k = 1, 3 and 16, the ends
+    of the kernels' compile-time dispatch) on small tenants (50 x 100 and
+    60 x 120, fitted on the CPU in f64): one sync-checked drain of a
+    card f32 fleet, then every kernel of the tick against its plain twin
+    on the bucket's buffers (f64 and f32, the TOL rule; K13b bit for
+    bit)."""
+    cpu = dt.TorchBackend(device="cpu", dtype=torch.float64, filter="info")
+    for k in (1, 3, 16):
+        tens = []
+        for i, (T0, N_) in enumerate(((50, 100), (60, 120))):
+            Ynan, _, _, _ = panel(seed + 700 + i, T0 + 4, N_, k)
+            res = dt.fit(dt.DynamicFactorModel(n_factors=k), Ynan[:T0],
+                         backend=cpu, fused=True, max_iters=4, tol=0.0)
+            tens.append((res, Ynan[:T0], Ynan[T0:]))
+        fl = dt.open_fleet([t[0] for t in tens], [t[1] for t in tens],
+                           capacity=64, max_update_rows=FLEET_ROWS,
+                           max_iters=3, tol=0.0, max_classes=1,
+                           backend=dt.TorchBackend(filter="info"))
+        fl.check_sync = True
+        for i, t in enumerate(tens):
+            fl.submit(f"t{i}", t[2][:FLEET_ROWS])
+        out, _, launches, reads = drain_timed(fl)
+        check_fleet_out(f"k = {k}", out, {"t0": 100, "t1": 120})
+        if launches["batched_ring_append"] != 1 or reads != 1:
+            raise AssertionError(f"fleet k = {k}: launches {launches}, "
+                                 f"reads {reads}")
+        fleet_kernel_check(fl._buckets[0], f"fleet k = {k}", seed + k)
+        fl.close()
+
+
+def fleet_reference_phase(seed: int) -> None:
+    """A fleet at the JAX trio fixture's shapes (10 x 40 and two 12 x 44,
+    k = 2, capacity 56) in f64, on the card against the CPU: three ragged
+    ticks (one tenant sits out the second), within 1e-12 relative."""
+    shapes = ((40, 10), (44, 12), (44, 12))
+    cpu = dt.TorchBackend(device="cpu", dtype=torch.float64, filter="info")
+    tens = []
+    for i, (T0, N_) in enumerate(shapes):
+        Ynan, _, _, _ = panel(seed + 500 + i, T0 + 10, N_, 2)
+        res = dt.fit(dt.DynamicFactorModel(n_factors=2), Ynan[:T0],
+                     backend=cpu, fused=True, max_iters=8, tol=0.0)
+        tens.append((res, Ynan[:T0], Ynan[T0:]))
+    ticks = ((1, 3, 2), (2, 0, 1), (3, 2, 3))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        b = dt.TorchBackend(device=dev, dtype=torch.float64, filter="info")
+        fl = dt.open_fleet([t[0] for t in tens], [t[1] for t in tens],
+                           capacity=56, max_update_rows=3, max_iters=4,
+                           tol=0.0, max_classes=1, backend=b)
+        fl.check_sync = dev == "cuda"
+        used, got = [0, 0, 0], []
+        for tick in ticks:
+            for i, n in enumerate(tick):
+                if n:
+                    fl.submit(f"t{i}", tens[i][2][used[i]:used[i] + n])
+                    used[i] += n
+            got.append(fl.drain())
+        outs[dev] = got
+        fl.close()
+    errs = {}
+    for og, oc in zip(outs["cuda"], outs["cpu"]):
+        for name in oc:
+            ug, uc = og[name][0], oc[name][0]
+            if (ug.n_iters, ug.t) != (uc.n_iters, uc.t):
+                raise AssertionError(f"fleet reference {name}: n_iters/t")
+            for f in ("nowcast", "factors", "factor_cov", "logliks",
+                      "nowcast_sd"):
+                e = rel_err(getattr(ug, f), getattr(uc, f))
+                errs[f] = max(errs.get(f, 0.0), e)
+            for key in ("y", "f", "di"):
+                e = rel_err(ug.forecasts[key], uc.forecasts[key])
+                errs[f"forecast {key}"] = max(errs.get(f"forecast {key}",
+                                                  0.0), e)
+    emit({"fleet_reference": "info", "shapes": shapes, "max_rel_err": errs,
+          "tol": 1e-12})
+    bad = {n: e for n, e in errs.items() if not e <= 1e-12}
+    if bad:
+        raise AssertionError(f"fleet reference disagrees: {bad}")
+
+
 def ptxas_summary(source: str) -> dict:
     """Build seconds and, over the k = 10 instantiations of ``source``
     (every function for a source without a k template), the largest
@@ -1806,6 +2418,14 @@ def main() -> int:
     rolling_phase(args.seed)
     batched_reference_phase(args.seed)
     batched_contract_phase(args.seed)
+    tenants = fleet_tenants(args.seed + 600)
+    launches["fleet"], recs = fleet_phase(args.seed, tenants)
+    summary.update({n: recs[n] for n in FLEET_NEW})
+    ring_fleet_phase(args.seed, tenants)
+    pit_fleet_phase(args.seed, tenants)
+    del tenants
+    fleet_k_sweep(args.seed)
+    fleet_reference_phase(args.seed)
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"dfm_tpu_torch/csrc/{kernels.KERNELS[name][0]}",

@@ -7,7 +7,8 @@ plain-torch version.  ``fit(fused=...)`` is the fused fit with nowcast and
 forecasts; ``open_session`` streams updates into a fitted model;
 ``fit_many`` fits B independent problems in one batched program (EM
 restarts, ``select_n_factors_em``'s k-grid, ``oos_evaluate``'s rolling
-windows).  The package imports neither JAX nor ``dfm_tpu``.
+windows); ``open_fleet`` serves many tenants' sessions, one batched tick
+per capacity class.  The package imports neither JAX nor ``dfm_tpu``.
 """
 
 from .api import DynamicFactorModel, FitResult, TorchBackend, fit, forecast
@@ -15,6 +16,8 @@ from .estim.batched import BatchFitResult, DFMBatchSpec, fit_many
 from .estim.evaluate import OOSResult, oos_evaluate
 from .estim.fused import FusedOptions
 from .estim.select import EMSelectResult, select_n_factors_em
+from .fleet import (FleetBucket, SessionFleet, TenantSlot, fleet_pad_waste,
+                    open_fleet, plan_admission)
 from .kernels import LAUNCHES
 from .serve import NowcastSession, open_session
 from .ssm.params import SSMParams
@@ -23,4 +26,5 @@ __all__ = ["DynamicFactorModel", "FitResult", "TorchBackend", "fit",
            "forecast", "FusedOptions", "NowcastSession", "open_session",
            "SSMParams", "LAUNCHES", "DFMBatchSpec", "BatchFitResult",
            "fit_many", "select_n_factors_em", "EMSelectResult",
-           "oos_evaluate", "OOSResult"]
+           "oos_evaluate", "OOSResult", "open_fleet", "SessionFleet",
+           "FleetBucket", "TenantSlot", "plan_admission", "fleet_pad_waste"]

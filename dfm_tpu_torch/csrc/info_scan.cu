@@ -28,9 +28,11 @@
 // K4b, the batched twins, are the same two kernels launched with one block
 // per lane (B blocks, each lane's tensors batch-major at a lane stride):
 //   forward replaces dfm_tpu/estim/batched.py:_batched_info_scan (line
-//   358), with C (B, k, k) static per lane (its per-lane and per-step
-//   strides also fit the time-varying _batched_info_scan_tv, not ported),
-//   and with the t_seq freeze: where t_mask[b, t] <= 0 the filtered moments
+//   358), with C (B, k, k) static per lane, and the fleet's
+//   dfm_tpu/estim/batched.py:_batched_info_scan_tv (line 614), with a
+//   per-step C (c_lane = T k^2, c_stride = k^2) and no t_mask, so a dead
+//   capacity step (C_t = 0) still advances the prediction; and with the
+//   t_seq freeze: where t_mask[b, t] <= 0 the filtered moments
 //   and the next prediction are the moments that entered the step, chosen
 //   by a branch (never multiplied by the mask), so pad-step junk, even inf
 //   or NaN, cannot reach them;

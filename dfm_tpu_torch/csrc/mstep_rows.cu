@@ -14,6 +14,14 @@
 // MB in f32 at T = 500, N = 10,000); the moments E[f], E[ff'] and P_sm are
 // (T, k, k)-sized and every series reads all of them.
 //
+// K3b-m, the fleet's batched twin, is the same kernel over B lanes (grid
+// (ceil(N / 64), B), every tensor of a lane batch-major at a lane stride,
+// no ridge): it replaces the observation rows of
+// dfm_tpu/estim/batched.py:batched_m_step_masked (lines 701-713).  A
+// never-observed series (an N-pad series of a fleet bucket) gets S_ff = I
+// and S_yf = 0, so exact-zero loadings.  Bound: bytes, Y and W read once,
+// 640 MB at B = 8, T = 1,000, N = 10,000 in f32.
+//
 // Design: one thread per series, so each step's read of Y and of the mask
 // is coalesced across the block.  Two passes over T: the first accumulates
 // S_yf and the packed lower triangle of S_ff in registers (k is a template
@@ -49,6 +57,15 @@ mstep_rows_kernel(const T* __restrict__ Y, const T* __restrict__ mask,
   __shared__ T sM[kTC][K * K];
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const bool live = i < N;
+  // This block's problem lane.
+  const size_t pb = blockIdx.y, tn = (size_t)T_ * N;
+  Y += pb * tn;
+  mask += pb * tn;
+  Ef += pb * (size_t)T_ * K;
+  EffT += pb * (size_t)T_ * K * K;
+  Psm += pb * (size_t)T_ * K * K;
+  Lam += pb * (size_t)N * K;
+  R += pb * N;
 
   T syf[K], S[NC], cnt = T(0);
 #pragma unroll
@@ -155,33 +172,36 @@ mstep_rows_kernel(const T* __restrict__ Y, const T* __restrict__ mask,
 
 template <typename T>
 static int launch(const T* Y, const T* mask, const T* Ef, const T* EffT,
-                  const T* Psm, T* Lam, T* R, int T_, int N, int k,
+                  const T* Psm, T* Lam, T* R, int B, int T_, int N, int k,
                   double r_floor, double lam_ridge, cudaStream_t stream) {
-  if (N <= 0) return (int)cudaGetLastError();
-  const int blocks = (N + kThreads - 1) / kThreads;
-  DFM_DISPATCH_K(k, mstep_rows_kernel<T, K><<<blocks, kThreads, 0, stream>>>(
+  if (N <= 0 || B <= 0) return (int)cudaGetLastError();
+  const dim3 grid((N + kThreads - 1) / kThreads, B);
+  DFM_DISPATCH_K(k, mstep_rows_kernel<T, K><<<grid, kThreads, 0, stream>>>(
                         Y, mask, Ef, EffT, Psm, Lam, R, T_, N, (T)r_floor,
                         (T)lam_ridge))
   return (int)cudaGetLastError();
 }
 
 extern "C" {
+#define DFM_MSTEP_ENTRIES(SFX, T)                                              \
+  int mstep_rows_##SFX(const T* Y, const T* mask, const T* Ef,               \
+                       const T* EffT, const T* Psm, T* Lam, T* R, int T_,    \
+                       int N, int k, double r_floor, double lam_ridge,       \
+                       void* stream) {                                       \
+    return launch<T>(Y, mask, Ef, EffT, Psm, Lam, R, 1, T_, N, k, r_floor,   \
+                     lam_ridge, (cudaStream_t)stream);                       \
+  }                                                                          \
+  int batched_mstep_rows_##SFX(const T* Y, const T* mask, const T* Ef,       \
+                               const T* EffT, const T* Psm, T* Lam, T* R,    \
+                               int B, int T_, int N, int k, double r_floor,  \
+                               void* stream) {                               \
+    return launch<T>(Y, mask, Ef, EffT, Psm, Lam, R, B, T_, N, k, r_floor,   \
+                     0.0, (cudaStream_t)stream);                             \
+  }
 #if DFM_WANT_F32
-int mstep_rows_f32(const float* Y, const float* mask, const float* Ef,
-                   const float* EffT, const float* Psm, float* Lam, float* R,
-                   int T, int N, int k, double r_floor, double lam_ridge,
-                   void* stream) {
-  return launch<float>(Y, mask, Ef, EffT, Psm, Lam, R, T, N, k, r_floor,
-                       lam_ridge, (cudaStream_t)stream);
-}
+DFM_MSTEP_ENTRIES(f32, float)
 #endif
 #if DFM_WANT_F64
-int mstep_rows_f64(const double* Y, const double* mask, const double* Ef,
-                   const double* EffT, const double* Psm, double* Lam,
-                   double* R, int T, int N, int k, double r_floor,
-                   double lam_ridge, void* stream) {
-  return launch<double>(Y, mask, Ef, EffT, Psm, Lam, R, T, N, k, r_floor,
-                        lam_ridge, (cudaStream_t)stream);
-}
+DFM_MSTEP_ENTRIES(f64, double)
 #endif
 }

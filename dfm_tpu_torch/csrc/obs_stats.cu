@@ -13,30 +13,54 @@
 // in f32 at T = 500, N = 10,000) and does ~k(k+3) flops per entry, below
 // the card's flops-per-byte balance at k = 10.
 //
-// Design: one block per t.  Each thread walks series with a stride of
+// K2b-m, the fleet's batched twin, is the same kernel over B lanes (grid
+// (T, B), every tensor of a lane batch-major at a lane stride): it replaces
+// dfm_tpu/estim/batched.py:_batched_obs_stats_masked (line 593), the masked
+// statistics of a fleet tick over each lane's capacity buffer.  Bound:
+// bytes, Y and W read once, 640 MB at B = 8, T = 1,000, N = 10,000 in f32
+// (~0.19 ms at 3.35 TB/s); every block also re-reads its lane's loadings
+// (400 KB, from L2).  Its n_t and ldR_t are summed and written in double,
+// as the JAX function sums them in the accumulation dtype (log R_n is taken
+// in the compute dtype, then widened); the lone K2 keeps them in T, as its
+// JAX branch does.
+//
+// Design: one block per t (and lane).  Each thread walks series with a stride of
 // blockDim.x, keeps its partials of all k + k(k+1)/2 + 2 outputs in
-// registers (k is a template constant so the partials stay in registers),
+// registers (k is a template constant so the partials stay in registers;
+// n and ldR in the accumulation type TA),
 // then every warp reduces its partials with shuffles and the block adds the
 // warps' sums through shared memory.
 #include "common.cuh"
 
 constexpr int kThreads = 256;
 
-template <typename T, int K>
+template <typename T, typename TA, int K>
 __global__ void __launch_bounds__(kThreads)
 obs_stats_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
                  const T* __restrict__ R, const T* __restrict__ mask,
-                 T* __restrict__ b, T* __restrict__ C, T* __restrict__ nobs,
-                 T* __restrict__ ldR, int N) {
+                 T* __restrict__ b, T* __restrict__ C, TA* __restrict__ nobs,
+                 TA* __restrict__ ldR, int N) {
   constexpr int NC = K * (K + 1) / 2;
-  constexpr int NV = K + NC + 2;
+  constexpr int NV = K + NC;
   __shared__ T part[kThreads / 32][NV];
-  const int t = blockIdx.x;
+  __shared__ TA part_a[kThreads / 32][2];
+  const int t = blockIdx.x, T_ = gridDim.x;
+  // This block's problem lane.
+  const size_t pb = blockIdx.y, tn = (size_t)T_ * N;
+  Y += pb * tn;
+  mask += pb * tn;
+  Lam += pb * (size_t)N * K;
+  R += pb * N;
+  b += pb * (size_t)T_ * K;
+  C += pb * (size_t)T_ * K * K;
+  nobs += pb * T_;
+  ldR += pb * T_;
   const T* y = Y + (size_t)t * N;
   const T* w = mask + (size_t)t * N;
   T acc[NV];
 #pragma unroll
   for (int e = 0; e < NV; ++e) acc[e] = T(0);
+  TA acc_n = TA(0), acc_l = TA(0);
   for (int n = threadIdx.x; n < N; n += kThreads) {
     const T wn = w[n];
     const T rinv = T(1) / R[n];
@@ -52,8 +76,8 @@ obs_stats_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
     for (int i = 0; i < K; ++i)
 #pragma unroll
       for (int j = 0; j <= i; ++j) acc[e++] += wr * lam[i] * lam[j];
-    acc[K + NC] += wn;
-    acc[K + NC + 1] += wn * dfm_log(R[n]);
+    acc_n += TA(wn);
+    acc_l += TA(wn) * TA(dfm_log(R[n]));
   }
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
 #pragma unroll
@@ -61,6 +85,14 @@ obs_stats_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
     T v = acc[e];
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
     if (lane == 0) part[wid][e] = v;
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    acc_n += __shfl_down_sync(0xffffffffu, acc_n, o);
+    acc_l += __shfl_down_sync(0xffffffffu, acc_l, o);
+  }
+  if (lane == 0) {
+    part_a[wid][0] = acc_n;
+    part_a[wid][1] = acc_l;
   }
   __syncthreads();
   for (int e = threadIdx.x; e < NV; e += kThreads) {
@@ -74,39 +106,45 @@ obs_stats_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
       T* Ct = C + (size_t)t * K * K;
       Ct[i * K + r] = s;
       Ct[r * K + i] = s;
-    } else if (e == K + NC) {
-      nobs[t] = s;
-    } else {
-      ldR[t] = s;
     }
+  }
+  if (threadIdx.x < 2) {
+    TA s = TA(0);
+    for (int q = 0; q < kThreads / 32; ++q) s += part_a[q][threadIdx.x];
+    (threadIdx.x == 0 ? nobs : ldR)[t] = s;
   }
 }
 
-template <typename T>
+template <typename T, typename TA>
 static int launch(const T* Y, const T* Lam, const T* R, const T* mask, T* b,
-                  T* C, T* nobs, T* ldR, int T_, int N, int k,
+                  T* C, TA* nobs, TA* ldR, int B, int T_, int N, int k,
                   cudaStream_t stream) {
-  if (T_ <= 0) return (int)cudaGetLastError();
-  DFM_DISPATCH_K(k, obs_stats_kernel<T, K><<<T_, kThreads, 0, stream>>>(
+  if (B <= 0 || T_ <= 0) return (int)cudaGetLastError();
+  DFM_DISPATCH_K(k, obs_stats_kernel<T, TA, K><<<dim3(T_, B), kThreads, 0,
+                                             stream>>>(
                         Y, Lam, R, mask, b, C, nobs, ldR, N))
   return (int)cudaGetLastError();
 }
 
 extern "C" {
+#define DFM_OBS_ENTRIES(SFX, T)                                                \
+  int obs_stats_##SFX(const T* Y, const T* Lam, const T* R, const T* mask,   \
+                      T* b, T* C, T* nobs, T* ldR, int T_, int N, int k,     \
+                      void* stream) {                                        \
+    return launch<T, T>(Y, Lam, R, mask, b, C, nobs, ldR, 1, T_, N, k,       \
+                        (cudaStream_t)stream);                               \
+  }                                                                          \
+  int batched_obs_stats_##SFX(const T* Y, const T* Lam, const T* R,          \
+                              const T* mask, T* b, T* C, double* nobs,       \
+                              double* ldR, int B, int T_, int N, int k,      \
+                              void* stream) {                                \
+    return launch<T, double>(Y, Lam, R, mask, b, C, nobs, ldR, B, T_, N, k,  \
+                             (cudaStream_t)stream);                          \
+  }
 #if DFM_WANT_F32
-int obs_stats_f32(const float* Y, const float* Lam, const float* R,
-                  const float* mask, float* b, float* C, float* nobs,
-                  float* ldR, int T, int N, int k, void* stream) {
-  return launch<float>(Y, Lam, R, mask, b, C, nobs, ldR, T, N, k,
-                       (cudaStream_t)stream);
-}
+DFM_OBS_ENTRIES(f32, float)
 #endif
 #if DFM_WANT_F64
-int obs_stats_f64(const double* Y, const double* Lam, const double* R,
-                  const double* mask, double* b, double* C, double* nobs,
-                  double* ldR, int T, int N, int k, void* stream) {
-  return launch<double>(Y, Lam, R, mask, b, C, nobs, ldR, T, N, k,
-                        (cudaStream_t)stream);
-}
+DFM_OBS_ENTRIES(f64, double)
 #endif
 }

@@ -15,6 +15,11 @@
 // U[b, t] = b_t - C_b x_pred,t (line 421, C symmetric) from the x_t it
 // holds in shared memory.
 //
+// K1b-m, the fleet's masked twin, is the same kernel with the mask and a
+// per-step C (c_lane = T k^2, c_tstride = k^2): it replaces the residual
+// pass of dfm_tpu/estim/batched.py:_batched_loglik_masked (lines 656-659),
+// quad[b, t] = sum_n w (y - lam . x_pred)^2 / R and U = b - C_t x_pred.
+//
 // Bound on the H100: bytes.  The kernel must read Y (and the mask) once:
 // 20 MB unmasked, 40 MB masked in f32 at T = 500, N = 10,000 (K1b: 160 MB
 // at B = 8), against ~2(k+2) flops per entry.
@@ -33,8 +38,8 @@ __global__ void quad_local_kernel(const T* __restrict__ Y,
                                   const T* __restrict__ x_pred,
                                   const T* __restrict__ mask,
                                   const T* __restrict__ bvec,
-                                  const T* __restrict__ C,
-                                  double* __restrict__ out,
+                                  const T* __restrict__ C, int c_lane,
+                                  int c_tstride, double* __restrict__ out,
                                   T* __restrict__ U, int N, int k) {
   __shared__ T xs[DFM_KMAX];
   __shared__ double red[32];
@@ -51,7 +56,7 @@ __global__ void quad_local_kernel(const T* __restrict__ Y,
   __syncthreads();
   if (U && threadIdx.x < k) {
     const int j = threadIdx.x;
-    const T* Cb = C + pb * k * k;
+    const T* Cb = C + pb * c_lane + (size_t)t * c_tstride;
     T s = T(0);
     for (int l = 0; l < k; ++l) s += Cb[j * k + l] * xs[l];
     const size_t o = (pb * T_ + t) * k + j;
@@ -74,12 +79,13 @@ __global__ void quad_local_kernel(const T* __restrict__ Y,
 
 template <typename T>
 static int launch(const T* Y, const T* Lam, const T* R, const T* x_pred,
-                  const T* mask, const T* bvec, const T* C, double* out,
-                  T* U, int B, int T_, int N, int k, cudaStream_t stream) {
+                  const T* mask, const T* bvec, const T* C, int c_lane,
+                  int c_tstride, double* out, T* U, int B, int T_, int N,
+                  int k, cudaStream_t stream) {
   if (k < 1 || k > DFM_KMAX) return (int)cudaErrorInvalidValue;
   if (B > 0 && T_ > 0)
     quad_local_kernel<T><<<dim3(T_, B), 256, 0, stream>>>(
-        Y, Lam, R, x_pred, mask, bvec, C, out, U, N, k);
+        Y, Lam, R, x_pred, mask, bvec, C, c_lane, c_tstride, out, U, N, k);
   return (int)cudaGetLastError();
 }
 
@@ -88,15 +94,23 @@ extern "C" {
   int quad_local_##SFX(const T* Y, const T* Lam, const T* R,                 \
                        const T* x_pred, const T* mask, double* out, int T_,  \
                        int N, int k, void* stream) {                         \
-    return launch<T>(Y, Lam, R, x_pred, mask, nullptr, nullptr, out,         \
+    return launch<T>(Y, Lam, R, x_pred, mask, nullptr, nullptr, 0, 0, out,   \
                      nullptr, 1, T_, N, k, (cudaStream_t)stream);            \
   }                                                                          \
   int batched_quad_##SFX(const T* Y, const T* Lam, const T* R,               \
                          const T* x_pred, const T* bvec, const T* C,         \
                          double* out, T* U, int B, int T_, int N, int k,     \
                          void* stream) {                                     \
-    return launch<T>(Y, Lam, R, x_pred, nullptr, bvec, C, out, U, B, T_, N,  \
-                     k, (cudaStream_t)stream);                               \
+    return launch<T>(Y, Lam, R, x_pred, nullptr, bvec, C, k * k, 0, out, U,  \
+                     B, T_, N, k, (cudaStream_t)stream);                     \
+  }                                                                          \
+  int batched_quad_masked_##SFX(const T* Y, const T* Lam, const T* R,        \
+                                const T* x_pred, const T* mask,              \
+                                const T* bvec, const T* C, double* out,      \
+                                T* U, int B, int T_, int N, int k,           \
+                                void* stream) {                              \
+    return launch<T>(Y, Lam, R, x_pred, mask, bvec, C, T_ * k * k, k * k,    \
+                     out, U, B, T_, N, k, (cudaStream_t)stream);             \
   }
 #if DFM_WANT_F32
 DFM_QUAD_ENTRIES(f32, float)

@@ -1,4 +1,4 @@
-// K13, single-session form: ring eviction and ragged append, in place.
+// K13: ring eviction and ragged append, in place.
 //
 // Replaces dfm_tpu/serve/batched.py:ring_evict (line 72) together with the
 // append that follows it in dfm_tpu/serve/session.py (lines 151-155):
@@ -9,6 +9,20 @@
 // the compute dtype.  The kernel moves values and does no arithmetic, so it
 // equals its plain twin (serve/batched.py:ring_evict_append_plain) bit for
 // bit.
+//
+// K13b, the fleet's batched form, is the same column walk over B lanes
+// (blockIdx.z), each lane's (T_cap, N) buffers and (r_max, N) rows at a
+// lane stride, with the lane's n_evict and t_cur read from two (B,) int32
+// arrays in device memory (the tick builds them; no host integer per
+// lane).  It replaces dfm_tpu/serve/batched.py:batched_ring_evict (line
+// 97) together with dfm_tpu/estim/batched.py:batched_ragged_append (line
+// 564), one launch a tick; its plain twin is
+// dfm_tpu_torch/serve/batched.py:batched_ring_evict_append_plain.  A lane
+// with n_evict = 0 and all-zero rows writes zeros on zeros only, and a
+// free lane at t_cur = T_cap writes nothing, so both come through bit for
+// bit.  At B = 8, T_cap = 1,000, N = 10,000 in f32 a non-ring tick moves
+// the append rows only (~1.3 MB); a ring tick at T_cap = 480, e = 2
+// shifts every lane: ~6 x 77 MB for six ring lanes.
 //
 // Precondition (the session's buffer invariant): every row at and past
 // t_cur is exactly zero on entry.  The kernel therefore zeroes only the
@@ -39,14 +53,12 @@
 
 constexpr int RING_BATCH = 16;
 
+// One column of one buffer: the shift, the append and the re-zeroing of
+// the vacated rows, in ascending t (see above).
 template <typename T>
-__global__ void ring_append_kernel(T* Ybuf, T* Wbuf, const T* rows,
-                                   const T* rmask, int T_cap, int N,
-                                   int r_max, int n_evict, int t_cur) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  T* buf = blockIdx.y == 0 ? Ybuf : Wbuf;
-  const T* src = blockIdx.y == 0 ? rows : rmask;
+__device__ __forceinline__ void ring_column(T* buf, const T* src, int n,
+                                            int T_cap, int N, int r_max,
+                                            int n_evict, int t_cur) {
   const size_t ld = (size_t)N;
   const int t_keep = t_cur - n_evict;
   if (n_evict > 0) {
@@ -70,6 +82,37 @@ __global__ void ring_append_kernel(T* Ybuf, T* Wbuf, const T* rows,
 }
 
 template <typename T>
+__global__ void ring_append_kernel(T* Ybuf, T* Wbuf, const T* rows,
+                                   const T* rmask, int T_cap, int N,
+                                   int r_max, int n_evict, int t_cur) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  ring_column(blockIdx.y == 0 ? Ybuf : Wbuf,
+              blockIdx.y == 0 ? rows : rmask, n, T_cap, N, r_max, n_evict,
+              t_cur);
+}
+
+// K13b: the same per lane (blockIdx.z), with the lane's counts read from
+// device memory.  The host validated them; a lane whose counts are out of
+// range is left untouched rather than written out of bounds.
+template <typename T>
+__global__ void batched_ring_append_kernel(T* Ybuf, T* Wbuf, const T* rows,
+                                           const T* rmask,
+                                           const int* __restrict__ n_evict,
+                                           const int* __restrict__ t_cur,
+                                           int T_cap, int N, int r_max) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const size_t lane = blockIdx.z;
+  const int e = n_evict[lane], tc = t_cur[lane];
+  if (e < 0 || e > tc || tc > T_cap) return;
+  const size_t boff = lane * (size_t)T_cap * N, roff = lane * (size_t)r_max * N;
+  ring_column((blockIdx.y == 0 ? Ybuf : Wbuf) + boff,
+              (blockIdx.y == 0 ? rows : rmask) + roff, n, T_cap, N, r_max, e,
+              tc);
+}
+
+template <typename T>
 static int launch(T* Ybuf, T* Wbuf, const T* rows, const T* rmask, int T_cap,
                   int N, int r_max, int n_evict, int t_cur,
                   cudaStream_t stream) {
@@ -86,21 +129,39 @@ static int launch(T* Ybuf, T* Wbuf, const T* rows, const T* rmask, int T_cap,
   return (int)cudaGetLastError();
 }
 
-extern "C" {
-#if DFM_WANT_F32
-int ring_append_f32(float* Ybuf, float* Wbuf, const float* rows,
-                    const float* rmask, int T_cap, int N, int r_max,
-                    int n_evict, int t_cur, void* stream) {
-  return launch<float>(Ybuf, Wbuf, rows, rmask, T_cap, N, r_max, n_evict,
-                       t_cur, (cudaStream_t)stream);
+template <typename T>
+static int launch_batched(T* Ybuf, T* Wbuf, const T* rows, const T* rmask,
+                          const int* n_evict, const int* t_cur, int B,
+                          int T_cap, int N, int r_max, cudaStream_t stream) {
+  if (B < 0 || T_cap < 0 || N < 0 || r_max < 0 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (B > 0 && N > 0) {
+    const dim3 grid((N + 63) / 64, 2, B);
+    batched_ring_append_kernel<T><<<grid, 64, 0, stream>>>(
+        Ybuf, Wbuf, rows, rmask, n_evict, t_cur, T_cap, N, r_max);
+  }
+  return (int)cudaGetLastError();
 }
+
+extern "C" {
+#define DFM_RING_ENTRIES(SFX, T)                                               \
+  int ring_append_##SFX(T* Ybuf, T* Wbuf, const T* rows, const T* rmask,     \
+                        int T_cap, int N, int r_max, int n_evict, int t_cur, \
+                        void* stream) {                                      \
+    return launch<T>(Ybuf, Wbuf, rows, rmask, T_cap, N, r_max, n_evict,      \
+                     t_cur, (cudaStream_t)stream);                           \
+  }                                                                          \
+  int batched_ring_append_##SFX(T* Ybuf, T* Wbuf, const T* rows,             \
+                                const T* rmask, const int* n_evict,          \
+                                const int* t_cur, int B, int T_cap, int N,   \
+                                int r_max, void* stream) {                   \
+    return launch_batched<T>(Ybuf, Wbuf, rows, rmask, n_evict, t_cur, B,     \
+                             T_cap, N, r_max, (cudaStream_t)stream);         \
+  }
+#if DFM_WANT_F32
+DFM_RING_ENTRIES(f32, float)
 #endif
 #if DFM_WANT_F64
-int ring_append_f64(double* Ybuf, double* Wbuf, const double* rows,
-                    const double* rmask, int T_cap, int N, int r_max,
-                    int n_evict, int t_cur, void* stream) {
-  return launch<double>(Ybuf, Wbuf, rows, rmask, T_cap, N, r_max, n_evict,
-                        t_cur, (cudaStream_t)stream);
-}
+DFM_RING_ENTRIES(f64, double)
 #endif
 }

@@ -39,9 +39,19 @@ Not ported here, each raising ``NotImplementedError`` where the JAX
 package takes it: ``backend="sharded"`` and ``n_devices`` (ROADMAP Queue
 1 item 12), ``pipeline`` (item 4).  There is no ``robust`` keyword until
 item 5 ports the guard; without faults the unguarded path computes what
-the JAX package's guarded default computes.  The masked serving twins of
-the JAX module wait for fleets (item 8).  ``pad_panel_to_t`` also serves
-the capacity-padded panels of ``serve.session``.
+the JAX package's guarded default computes.  ``pad_panel_to_t`` also
+serves the capacity-padded panels of ``serve.session``.
+
+The serving twins below the M-step are the fleet's (``serve.batched``,
+``fleet``): the elementwise-masked filter and M-step over B capacity
+buffers, whose kernels are K2b-m ``_batched_obs_stats_masked``
+(``csrc/obs_stats.cu``), K4b-fwd with a per-step C
+(``_batched_info_scan`` given C (B, T, k, k): the JAX package's
+``_batched_info_scan_tv``), K1b-m ``_batched_quad_masked``
+(``csrc/quad_local.cu``) and K3b-m ``_batched_mstep_rows``
+(``csrc/mstep_rows.cu``), each with its plain twin beside it, and the
+plain ragged append (``batched_ragged_append``; the fleet's kernel K13b
+fuses it with the ring eviction, ``serve.batched``).
 """
 
 from __future__ import annotations
@@ -69,7 +79,8 @@ __all__ = ["DFMBatchSpec", "BatchFitResult", "fit_many", "run_batched_em",
            "stack_params", "unstack_params", "pad_params_to_k",
            "slice_params_to_k", "batched_m_step", "Hetero", "make_hetero",
            "pad_panel_to_t", "pad_panel_to_n", "pad_params_to_n",
-           "slice_params_to_n"]
+           "slice_params_to_n", "batched_ragged_append",
+           "batched_filter_masked", "batched_m_step_masked"]
 
 _LOG2PI = 1.8378770664093453
 
@@ -332,18 +343,23 @@ def _batched_obs_stats(Y, Lam, R):
 def _batched_info_scan_plain(b, C, A, Q, mu0, P0, t_mask=None):
     """Plain twin of K4b-fwd: the k x k info-form scan over B problems,
     batch-major b (B, T, k) in, batch-major (x_pred, P_pred, x_filt,
-    P_filt, logdetG) out.  ``t_mask`` (B, T) holds a problem's carry at its
-    pad steps (selected, never multiplied)."""
+    P_filt, logdetG) out.  C is (B, k, k), static per lane, or (B, T, k,
+    k), one per step (the fleet's scan, the JAX ``_batched_info_scan_tv``,
+    where a dead capacity step, C_t = 0, is an exact no-op update whose
+    prediction still advances).  ``t_mask``
+    (B, T) holds a problem's carry at its pad steps (selected, never
+    multiplied)."""
     T, k = b.shape[1], b.shape[2]
     I_k = torch.eye(k, dtype=b.dtype, device=b.device)
     x, P = mu0, P0
     out = [[], [], [], [], []]
     for t in range(T):
+        C_t = C if C.ndim == 3 else C[:, t]
         Lp = bchol(P)
-        G = I_k + _bT(Lp) @ (C @ Lp)                # >= I: no jitter needed
+        G = I_k + _bT(Lp) @ (C_t @ Lp)              # >= I: no jitter needed
         Lg = bchol(G, jitter=0.0)
         P_f = sym(Lp @ bchol_solve(Lg, _bT(Lp)))
-        u = b[:, t] - (C @ x[..., None])[..., 0]
+        u = b[:, t] - (C_t @ x[..., None])[..., 0]
         x_f = x + (P_f @ u[..., None])[..., 0]
         if t_mask is not None:
             s = t_mask[:, t] > 0
@@ -368,10 +384,11 @@ def _batched_info_scan(b, C, A, Q, mu0, P0, t_mask=None):
     B, T, k = b.shape
     dt, dev = b.dtype, b.device
     kernels.check_k("batched_info_scan", k)
+    tv = C.ndim == 4
     ins = [x.contiguous() for x in (b, C, A, Q, mu0, P0)]
     for name, x, shape in zip(("b", "C", "A", "Q", "mu0", "P0"), ins,
-                              ((B, T, k), (B, k, k), (B, k, k), (B, k, k),
-                               (B, k), (B, k, k))):
+                              ((B, T, k), (B, T, k, k) if tv else (B, k, k),
+                               (B, k, k), (B, k, k), (B, k), (B, k, k))):
         kernels.check_tensor(name, x, shape, dt, dev)
     if t_mask is not None:
         t_mask = t_mask.contiguous()
@@ -382,8 +399,10 @@ def _batched_info_scan(b, C, A, Q, mu0, P0, t_mask=None):
     P_filt = torch.empty_like(P_pred)
     logdetG = torch.empty((B, T), dtype=dt, device=dev)
     b, C, A, Q, mu0, P0 = ins
-    kernels.launch("batched_info_scan", dt, b, C, k * k, 0, A, Q, mu0, P0,
-                   t_mask, x_pred, P_pred, x_filt, P_filt, logdetG, B, T, k)
+    c_lane, c_stride = (T * k * k, k * k) if tv else (k * k, 0)
+    kernels.launch("batched_info_scan", dt, b, C, c_lane, c_stride, A, Q,
+                   mu0, P0, t_mask, x_pred, P_pred, x_filt, P_filt, logdetG,
+                   B, T, k)
     return x_pred, P_pred, x_filt, P_filt, logdetG
 
 
@@ -563,6 +582,197 @@ def batched_m_step(Y, x_sm, P_sm, P_lag, p: SSMParams, cfg: EMConfig, Ysq,
                  + A @ S_lag @ _bT(A)) / T_q)
     if hetero is not None and hetero.q_scale is not None:
         Q = hetero.q_scale[:, None, None] * Q
+    mu0, P0 = p.mu0, p.P0
+    if cfg.estimate_init:
+        mu0, P0 = x_sm[:, 0], sym(P_sm[:, 0])
+    return SSMParams(*(x.contiguous() for x in (Lam, A, Q, R, mu0, P0)))
+
+
+# ---------------------------------------------------------------------------
+# Serving twins: the fleet's elementwise-masked batched filter and M-step
+# and the ragged append (the B-way batch of serve/session.py's capacity-
+# padded query; every formula mirrors dfm_tpu.estim.batched op for op, so
+# a fleet lane pins to the same tenant's lone session)
+# ---------------------------------------------------------------------------
+
+def batched_ragged_append(Ybuf, Wbuf, rows, rmask, t_cur) -> None:
+    """The append half of K13b's plain twin, in place: lane b's
+    ``rows[b]`` / ``rmask[b]`` (r_max, N) land at rows t_cur[b] + j of
+    ``Ybuf[b]`` / ``Wbuf[b]``, the rows past capacity dropped (the JAX
+    scatter's ``mode="drop"``).  The host pads each lane's rows past its
+    true count with exact zeros, so those land zeros on the already-zero
+    pad region.  ``t_cur`` (B,) integer tensor."""
+    T_cap, r_max = Ybuf.shape[1], rows.shape[1]
+    for b, t0 in enumerate(t_cur.tolist()):
+        n_in = max(0, min(r_max, T_cap - t0))
+        Ybuf[b, t0:t0 + n_in] = rows[b, :n_in]
+        Wbuf[b, t0:t0 + n_in] = rmask[b, :n_in]
+
+
+def _batched_obs_stats_masked_plain(Y, W, Lam, R):
+    """Plain twin of K2b-m: per-lane time-varying statistics of an
+    elementwise-masked panel, b (B, T, k), C (B, T, k, k), n (B, T) f64,
+    ldR (B, T) f64.  W encodes every missing cell, the dead capacity tail
+    and the inert N-pad series, so a fully masked step gives exact zeros."""
+    acc = accum_dtype()
+    B, T, N = Y.shape
+    k = Lam.shape[-1]
+    Yw = W * torch.nan_to_num(Y)
+    Rinv = 1.0 / R
+    logR = torch.log(R).to(acc)
+    G = Lam * Rinv[..., None]                       # (B, N, k)
+    b = torch.matmul(Yw, G)
+    LL = G[..., :, None] * Lam[..., None, :]        # (B, N, k, k)
+    C = torch.matmul(W, LL.reshape(B, N, k * k)).reshape(B, T, k, k)
+    n = W.sum(-1).to(acc)
+    ldR = torch.matmul(W.to(acc), logR[..., None])[..., 0]
+    return b, C, n, ldR
+
+
+def _batched_obs_stats_masked(Y, W, Lam, R):
+    """The fleet's masked statistics: kernel K2b-m for CUDA tensors."""
+    if Y.device.type == "cpu":
+        return _batched_obs_stats_masked_plain(Y, W, Lam, R)
+    B, T, N = Y.shape
+    k = Lam.shape[-1]
+    dt, dev = Y.dtype, Y.device
+    kernels.check_k("batched_obs_stats", k)
+    for name, x, shape in (("Y", Y, (B, T, N)), ("W", W, (B, T, N)),
+                           ("Lam", Lam, (B, N, k)), ("R", R, (B, N))):
+        kernels.check_tensor(name, x, shape, dt, dev)
+    b = torch.empty((B, T, k), dtype=dt, device=dev)
+    C = torch.empty((B, T, k, k), dtype=dt, device=dev)
+    n = torch.empty((B, T), dtype=accum_dtype(), device=dev)
+    ldR = torch.empty((B, T), dtype=accum_dtype(), device=dev)
+    kernels.launch("batched_obs_stats", dt, Y, Lam, R, W, b, C, n, ldR, B, T,
+                   N, k)
+    return b, C, n, ldR
+
+
+def _batched_quad_masked_plain(Y, W, Lam, R, x_pred, b, C):
+    """Plain twin of K1b-m: (quad_R (B, T) f64, U (B, T, k)) with
+    quad_R = sum_n w (y - lam_n . x_pred)^2 / R_n (a masked residual
+    zeroed before it is squared) and U = b - C_t x_pred."""
+    V = W * torch.nan_to_num(Y - torch.matmul(x_pred, _bT(Lam)))
+    quad = (V * (V / R[:, None, :])).to(accum_dtype()).sum(-1)
+    return quad, b - torch.einsum("btkl,btl->btk", C, x_pred)
+
+
+def _batched_quad_masked(Y, W, Lam, R, x_pred, b, C):
+    """The residual pass of the fleet's loglik: kernel K1b-m for CUDA
+    tensors."""
+    if Y.device.type == "cpu":
+        return _batched_quad_masked_plain(Y, W, Lam, R, x_pred, b, C)
+    B, T, N = Y.shape
+    k = Lam.shape[-1]
+    dt, dev = Y.dtype, Y.device
+    kernels.check_k("batched_quad_masked", k)
+    ins = [x.contiguous() for x in (Y, Lam, R, x_pred, W, b, C)]
+    for name, x, shape in zip(("Y", "Lam", "R", "x_pred", "W", "b", "C"), ins,
+                              ((B, T, N), (B, N, k), (B, N), (B, T, k),
+                               (B, T, N), (B, T, k), (B, T, k, k))):
+        kernels.check_tensor(name, x, shape, dt, dev)
+    quad = torch.empty((B, T), dtype=torch.float64, device=dev)
+    U = torch.empty((B, T, k), dtype=dt, device=dev)
+    kernels.launch("batched_quad_masked", dt, *ins, quad, U, B, T, N, k)
+    return quad, U
+
+
+def _batched_loglik_masked(Y, W, p, b, C, n, ldR, x_pred, P_filt, logdetG):
+    """Per-lane loglik (B,) f64 of the masked fleet filter: the residual
+    pass (K1b-m), U'P_f U in the compute dtype, assembly in f64.  Fully
+    masked steps contribute exact zeros."""
+    acc = accum_dtype()
+    quad_R, U = _batched_quad_masked(Y, W, p.Lam, p.R, x_pred, b, C)
+    upu = torch.einsum("btk,btkl,btl->bt", U, P_filt, U)
+    lls = -0.5 * (n * _LOG2PI + ldR + logdetG.to(acc) + quad_R
+                  - upu.to(acc))
+    return lls.sum(1)
+
+
+def batched_filter_masked(Y, W, p):
+    """Elementwise-masked info-form filter over the lanes: (loglik (B,),
+    batch-major (x_pred, P_pred, x_filt, P_filt)), the B-way twin of
+    ``info_filter(Y, p, mask=W)`` over a capacity-padded panel."""
+    b, C, n, ldR = _batched_obs_stats_masked(Y, W, p.Lam, p.R)
+    xp, Pp, xf, Pf, ldG = _batched_info_scan(b, C, p.A, p.Q, p.mu0, p.P0)
+    ll = _batched_loglik_masked(Y, W, p, b, C, n, ldR, xp, Pf, ldG)
+    return ll, (xp, Pp, xf, Pf)
+
+
+def _batched_mstep_rows_plain(Y, W, x_sm, EffT, P_sm, r_floor: float):
+    """Plain twin of K3b-m: per lane and series, S_yf,i, S_ff,i (identity
+    for a never-observed series, so its loading row is exactly zero), the
+    k x k solve, and R_i = max((sum_t w resid^2 + the P_sm smear) /
+    max(count, 1), r_floor).  Returns (Lam (B, N, k), R (B, N))."""
+    B, T, N = Y.shape
+    k = x_sm.shape[-1]
+    Yz = torch.where(W > 0, torch.nan_to_num(Y), torch.zeros_like(Y))
+    S_yf = torch.matmul(_bT(Yz), x_sm)                       # (B, N, k)
+    S_ff = torch.matmul(_bT(W), EffT.reshape(B, T, k * k)).reshape(
+        B, N, k, k)
+    never = (W.sum(1) == 0)[..., None, None]
+    eye = torch.eye(k, dtype=Y.dtype, device=Y.device)
+    S_ff = torch.where(never, eye, S_ff)
+    Lam = bchol_solve(bchol(S_ff), S_yf)
+    counts = torch.clamp(W.sum(1), min=1.0)
+    resid_sq = (W * (Yz - torch.matmul(x_sm, _bT(Lam))) ** 2).sum(1)
+    PV = torch.matmul(_bT(W), P_sm.reshape(B, T, k * k)).reshape(B, N, k, k)
+    smear = torch.einsum("bnk,bnkl,bnl->bn", Lam, PV, Lam)
+    return Lam, torch.clamp((resid_sq + smear) / counts, min=r_floor)
+
+
+def _batched_mstep_rows(Y, W, x_sm, EffT, P_sm, r_floor: float):
+    """The fleet M-step's observation rows: kernel K3b-m for CUDA
+    tensors."""
+    if Y.device.type == "cpu":
+        return _batched_mstep_rows_plain(Y, W, x_sm, EffT, P_sm, r_floor)
+    B, T, N = Y.shape
+    k = x_sm.shape[-1]
+    dt, dev = Y.dtype, Y.device
+    kernels.check_k("batched_mstep_rows", k)
+    ins = [x.contiguous() for x in (Y, W, x_sm, EffT, P_sm)]
+    for name, x, shape in zip(("Y", "W", "x_sm", "EffT", "P_sm"), ins,
+                              ((B, T, N), (B, T, N), (B, T, k),
+                               (B, T, k, k), (B, T, k, k))):
+        kernels.check_tensor(name, x, shape, dt, dev)
+    Lam = torch.empty((B, N, k), dtype=dt, device=dev)
+    R = torch.empty((B, N), dtype=dt, device=dev)
+    kernels.launch("batched_mstep_rows", dt, *ins, Lam, R, B, T, N, k,
+                   float(r_floor))
+    return Lam, R
+
+
+def batched_m_step_masked(Y, W, x_sm, P_sm, P_lag, p: SSMParams,
+                          cfg: EMConfig, t_new) -> SSMParams:
+    """Closed-form masked M-step per lane, the batched twin of
+    ``em._m_step(Y, mask, ..., n_steps=t_new)`` with per-lane live lengths
+    ``t_new`` ((B,) integer tensor on the device): the observation rows
+    are K3b-m, the dynamics take {0,1} time weights and the ``t_new - 1``
+    transition divisor, A's row solve is K6b."""
+    dt = Y.dtype
+    T = Y.shape[1]
+    EffT = P_sm + _outer(x_sm)                              # (B, T, k, k)
+    cross = P_lag[:, 1:] + x_sm[:, 1:, :, None] * x_sm[:, :-1, None, :]
+    Lam, R = _batched_mstep_rows(Y, W, x_sm, EffT, P_sm, cfg.r_floor)
+    A, Q = p.A, p.Q
+    if cfg.estimate_A or cfg.estimate_Q:
+        t_idx = torch.arange(T, device=Y.device)[None, :]
+        tn = t_new[:, None]
+        w_lag = (t_idx < tn - 1).to(dt)
+        w_cur = ((t_idx >= 1) & (t_idx < tn)).to(dt)
+        w_x = (t_idx[:, :-1] < tn - 1).to(dt)
+        S_lag = torch.einsum("bt,btkl->bkl", w_lag, EffT)
+        S_cur = torch.einsum("bt,btkl->bkl", w_cur, EffT)
+        S_cross = torch.einsum("bt,btkl->bkl", w_x, cross)
+        T_q = (t_new.to(dt) - 1.0)[:, None, None]
+        if cfg.estimate_A:
+            A = _bsolve_rows(S_lag, S_cross)
+            if cfg.estimate_Q:
+                Q = sym((S_cur - A @ _bT(S_cross)) / T_q)
+        elif cfg.estimate_Q:
+            Q = sym((S_cur - A @ _bT(S_cross) - S_cross @ _bT(A)
+                     + A @ S_lag @ _bT(A)) / T_q)
     mu0, P0 = p.mu0, p.P0
     if cfg.estimate_init:
         mu0, P0 = x_sm[:, 0], sym(P_sm[:, 0])

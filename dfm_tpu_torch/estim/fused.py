@@ -82,15 +82,18 @@ def resolve_fused(fused):
 
 def _di_solve(Gff, Gfy, Gyy, bf, by, N, d, ridge):
     """Assemble and solve the N (d, d) normal equations of the
-    diffusion-index regressions (shared factor block, per-series own lag)."""
+    diffusion-index regressions (shared factor block, per-series own lag),
+    over any leading lane axes: Gff (..., d-1, d-1), Gfy and bf (..., d-1,
+    N), Gyy and by (..., N)."""
     dt, dev = Gff.dtype, Gff.device
-    XtX = torch.zeros((N, d, d), dtype=dt, device=dev)
-    XtX[:, :d - 1, :d - 1] = Gff[None]
-    XtX[:, :d - 1, d - 1] = Gfy.T
-    XtX[:, d - 1, :d - 1] = Gfy.T
-    XtX[:, d - 1, d - 1] = Gyy
-    XtX = XtX + ridge * torch.eye(d, dtype=dt, device=dev)[None]
-    Xtz = torch.cat([bf.T, by[:, None]], dim=1)
+    lead = Gyy.shape[:-1]
+    XtX = torch.zeros((*lead, N, d, d), dtype=dt, device=dev)
+    XtX[..., :d - 1, :d - 1] = Gff[..., None, :, :]
+    XtX[..., :d - 1, d - 1] = Gfy.transpose(-1, -2)
+    XtX[..., d - 1, :d - 1] = Gfy.transpose(-1, -2)
+    XtX[..., d - 1, d - 1] = Gyy
+    XtX = XtX + ridge * torch.eye(d, dtype=dt, device=dev)
+    Xtz = torch.cat([bf.transpose(-1, -2), by[..., None]], dim=-1)
     beta, _ = torch.linalg.solve_ex(XtX, Xtz[..., None])
     return beta[..., 0]
 
@@ -104,33 +107,42 @@ def _di_forecast_core(F, Y, horizon: int, ridge: float = 1e-8):
 
 def _di_forecast_core_masked(F, Y, t_new: int, horizon: int,
                              ridge: float = 1e-8):
-    """Diffusion-index h-step forecast of every series on a
-    capacity-padded panel whose first ``t_new`` (host integer) rows are
-    live: y_{t+h} on [1, F_t, y_{t-1}], one regression per column.  The
-    regression rows past the live prefix get exact {0,1} zero weights,
-    and the "last" rows are the rows at ``t_new - 1`` / ``t_new - 2``,
-    clipped into the buffer."""
-    T, k = F.shape
-    N = Y.shape[1]
+    """``_di_forecast_batched`` for one panel whose first ``t_new`` (host
+    integer) rows are live."""
+    t = torch.full((1,), t_new, dtype=torch.int64, device=F.device)
+    return _di_forecast_batched(F[None], Y[None], t, horizon, ridge)[0]
+
+
+def _di_forecast_batched(F, Y, t_new, horizon: int, ridge: float = 1e-8):
+    """Diffusion-index h-step forecast of every series of B lanes at once,
+    F (B, T, k), Y (B, T, N) capacity-padded, ``t_new`` (B,) live lengths
+    on the device (no host read): y_{t+h} on [1, F_t, y_{t-1}], one
+    regression per column, one batched solve of the B N normal equations.
+    The regression rows past a lane's live prefix get exact {0,1} zero
+    weights, and its "last" rows are the rows at ``t_new - 1`` /
+    ``t_new - 2``, clipped into the buffer."""
+    B, T, k = F.shape
+    N = Y.shape[-1]
     d = k + 2
     dt, dev = F.dtype, F.device
     L = max(T - 1 - horizon, 0)
-    n_fit = max(t_new - 1 - horizon, 0)
-    w = (torch.arange(L, device=dev) < n_fit).to(dt)
-    Xf = torch.cat([torch.ones((L, 1), dtype=dt, device=dev), F[1:1 + L]],
-                   dim=1)
-    Ylag = Y[:L]
-    Z = Y[1 + horizon:1 + horizon + L]
-    Xw = Xf * w[:, None]
-    beta = _di_solve(Xw.T @ Xf, Xw.T @ Ylag,
-                     torch.einsum("t,ti,ti->i", w, Ylag, Ylag),
-                     Xw.T @ Z, torch.einsum("t,ti,ti->i", w, Ylag, Z),
+    n_fit = torch.clamp(t_new - 1 - horizon, min=0)
+    w = (torch.arange(L, device=dev)[None, :] < n_fit[:, None]).to(dt)
+    Xf = torch.cat([torch.ones((B, L, 1), dtype=dt, device=dev),
+                    F[:, 1:1 + L]], dim=-1)
+    Ylag = Y[:, :L]
+    Z = Y[:, 1 + horizon:1 + horizon + L]
+    XwT = (Xf * w[..., None]).transpose(-1, -2)
+    beta = _di_solve(XwT @ Xf, XwT @ Ylag,
+                     torch.einsum("bt,bti,bti->bi", w, Ylag, Ylag),
+                     XwT @ Z, torch.einsum("bt,bti,bti->bi", w, Ylag, Z),
                      N, d, ridge)
-    f_last = F[min(max(t_new - 1, 0), T - 1)]
-    y_prev = Y[min(max(t_new - 2, 0), T - 1)]
-    x_last = torch.cat([torch.ones((N, 1), dtype=dt, device=dev),
-                        f_last.expand(N, k), y_prev[:, None]], dim=1)
-    return torch.einsum("nd,nd->n", x_last, beta)
+    row = lambda i: torch.clamp(i, 0, T - 1).long()[:, None, None]  # noqa: E731
+    f_last = F.gather(1, row(t_new - 1).expand(B, 1, k))     # (B, 1, k)
+    y_prev = Y.gather(1, row(t_new - 2).expand(B, 1, N))[:, 0]
+    x_last = torch.cat([torch.ones((B, N, 1), dtype=dt, device=dev),
+                        f_last.expand(B, N, k), y_prev[..., None]], dim=-1)
+    return torch.einsum("bnd,bnd->bn", x_last, beta)
 
 
 def _sel(pred, a, b):

@@ -67,6 +67,10 @@ KERNELS = {
     "batched_rts": ("info_scan.cu", [_P] * 8 + [_I] * 3),
     "batched_quad": ("quad_local.cu", [_P] * 8 + [_I] * 4),
     "batched_solve_rows": ("bsolve_rows.cu", [_P] * 3 + [_I] * 3),
+    "batched_ring_append": ("ring_append.cu", [_P] * 6 + [_I] * 4),
+    "batched_obs_stats": ("obs_stats.cu", [_P] * 8 + [_I] * 4),
+    "batched_quad_masked": ("quad_local.cu", [_P] * 9 + [_I] * 4),
+    "batched_mstep_rows": ("mstep_rows.cu", [_P] * 7 + [_I] * 4 + [_D]),
 }
 
 # Measurement kernels off the model path, in the same form.

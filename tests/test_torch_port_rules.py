@@ -4,8 +4,9 @@
   anything of ``dfm_tpu`` (the port keeps its own copies).
 - No ``time.time()``: wall clocks are ``time.perf_counter`` around work
   that ends in a device sync or a blocking read.
-- Every fit driver runs inside ``highest_precision()`` (no TF32 in f32
-  matrix products: ~1e-4 relative loglik against the 1e-5 contract).
+- Every fit driver, and the fleet tick, runs inside
+  ``highest_precision()`` (no TF32 in f32 matrix products: ~1e-4
+  relative loglik against the 1e-5 contract).
 - On a machine without CUDA the default backend raises instead of running
   on the CPU, and the CPU path launches no kernel.
 """
@@ -33,7 +34,8 @@ FIT_DRIVERS = [("dfm_tpu_torch/api.py", "fit"),
                ("dfm_tpu_torch/estim/batched.py", "fit_many"),
                ("dfm_tpu_torch/estim/batched.py", "run_batched_em"),
                ("dfm_tpu_torch/estim/select.py", "select_n_factors_em"),
-               ("dfm_tpu_torch/estim/evaluate.py", "oos_evaluate")]
+               ("dfm_tpu_torch/estim/evaluate.py", "oos_evaluate"),
+               ("dfm_tpu_torch/fleet/driver.py", "_tick")]
 
 
 def _tree(path):
@@ -56,6 +58,14 @@ def test_no_jax_and_no_reference_package(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "dfm_tpu"), (
             f"{path.relative_to(ROOT)} imports {mod}")
+
+
+@pytest.mark.parametrize("pkg", ["fleet", "sched", "obs", "serve", "estim"])
+def test_the_walk_covers_every_subpackage(pkg):
+    """The import rule above walks every module of the port, the fleet's
+    copied planners (``fleet``, ``sched``, ``obs``) included."""
+    mods = [p for p in PORT_FILES if p.parent.name == pkg]
+    assert len(mods) >= 2, f"dfm_tpu_torch/{pkg}: {mods}"
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -129,10 +139,23 @@ def test_cpu_path_launches_no_kernel():
                        backend=dtt.TorchBackend(device="cpu"), max_iters=3,
                        tol=0.0)
     assert list(res.n_iters) == [3, 3] and res.host_reads == 2
+    Y0 = np.where(np.isnan(Y), 0.0, Y)
+    base = dtt.fit(dtt.DynamicFactorModel(2), Y0[:30], max_iters=2,
+                   backend=dtt.TorchBackend(device="cpu"))
+    fl = dtt.open_fleet([base, base], [Y0[:30], Y0[:30]], capacity=34,
+                        max_update_rows=2, max_iters=2,
+                        backend=dtt.TorchBackend(device="cpu"))
+    fl.submit("t0", Y0[30:32])
+    fl.submit("t1", Y0[30:31])
+    assert fl.drain()["t0"][0].t == 32
     assert set(kernels.LAUNCHES) == {"quad_local", "obs_stats", "mstep_rows",
                                      "info_scan", "rts_smoother",
                                      "ss_cov_path", "affine_scan",
                                      "qr_elements", "qr_scan", "ring_append",
                                      "batched_info_scan", "batched_rts",
-                                     "batched_quad", "batched_solve_rows"}
+                                     "batched_quad", "batched_solve_rows",
+                                     "batched_ring_append",
+                                     "batched_obs_stats",
+                                     "batched_quad_masked",
+                                     "batched_mstep_rows"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())
