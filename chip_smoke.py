@@ -120,6 +120,37 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 18. fleet reference: the JAX trio fixture's shapes (10 x 40, 12 x 44,
    12 x 44, k = 2, capacity 56), card f64 against CPU f64 within 1e-12.
 
+19. lowrank kernels: K9-basis (``csrc/lowrank_scan.cu``'s Jacobi
+   eigensolve, compared on its projector V V' beside
+   ``torch.linalg.eigh``), K9-fwd and K9-bwd against their plain twins on
+   the headline masked panel simulated at k = 16 and its unmasked twin,
+   rank 8, f64 and f32 (the TOL rule), timed warm and cold with their
+   bounds; whether ``torch.linalg.eigh`` on the card synchronizes (it
+   raises under ``set_sync_debug_mode("error")``); then error checks at
+   (k, r) = (1, 1), (3, 3), (16, 16), (17, 8), (50, 8), (100, 8), (100,
+   32) on 120 x 400 panels (statistics from the plain twin above k = 16).
+20. lowrank fits: ``fit(filter="lowrank", rank=8)`` masked (20
+   iterations) and unmasked (10), tol = 0, EM it/s, exactly 1 K9-basis,
+   1 K9-fwd, 1 K9-bwd and 1 K1 an iteration (+1 K2 and 1 K3 masked) and
+   the exact info pair once for the reporting smooth; logliks finite,
+   each drop past the f32 noise floor one the f64 trajectory from the
+   same init makes too (EM at r < k is not monotone); then
+   ``fit(fused=True)`` on the first 480 rows.
+21. lowrank reference and contract: the lowrank fits (masked, unmasked,
+   fused) at 120 x 80, k = 3, rank 2, card f64 against CPU f64 within
+   1e-9; f32 params after 2 updates re-evaluated by the f64 lowrank
+   filter within 1e-5 of the f64 trajectory (k = 16, rank 8).
+22. lowrank session on the fused fit, capacity 1,000, 10 queries of 2
+   rows: 1 read, 1 K13 and 6 each of K9-basis, K9-fwd, K9-bwd a query
+   under ``set_sync_debug_mode("error")``, p50/p99, the query's kernel
+   times, the session's kernels against their plain twins on its buffers.
+23. lowrank fleet: 4 tenants of 480 x 10,000 at k = 16 in one bucket at
+   capacity 1,000, 5 drains, f64 then f32: 1 read a tick and exactly 1
+   K13b, 6 each of K2b-m, K9-basis, K9-fwd, K1b-m and K9-bwd, 5 K3b-m and
+   5 K6b; lanes 0 and 1 against lone lowrank sessions (f64, 1e-9, up to
+   a lane's first divergence); the tick's kernels on the bucket's
+   buffers.
+
 Output: one JSON line per kernel and dtype, one per fit, contract check,
 ring case, session, batched and fleet phase, then the {"kernels": [...]}
 summary, the card line and, last, {"ok": true, "device": {...}}.
@@ -153,6 +184,7 @@ from dfm_tpu_torch.serve import batched as sv
 from dfm_tpu_torch.serve.batched import (ring_evict_append,
                                          ring_evict_append_plain)
 from dfm_tpu_torch.ssm import info_filter as inf
+from dfm_tpu_torch.ssm import lowrank_filter as lr
 from dfm_tpu_torch.ssm import parallel_filter as pf
 from dfm_tpu_torch.ssm import steady as ss
 from dfm_tpu_torch.ssm.kalman import rts_smoother, rts_smoother_plain
@@ -189,7 +221,9 @@ L2_FLUSH_BYTES = 256 * 2**20                   # > 5x the H100's 50 MB L2
 # The batched kernels take their lone twins' tolerances (K4b as K4, K1b and
 # K1b-m as K1, K2b-m as K2, K3b-m as K3); K6b, one k x k factorization and
 # two triangular solves a row of a well-conditioned moment matrix, 1e-4 /
-# 1e-10 as K6.  K13 and K13b move values only: bit for bit.
+# 1e-10 as K6.  K13 and K13b move values only: bit for bit.  K9-fwd and
+# K9-bwd are recursions (1e-4 / 1e-9, as K4); K9-basis is compared on its
+# projector V V', an eigensolve with a gap (1e-4 / 1e-10).
 TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "mstep_rows": 1e-4, "info_scan": 1e-4,
                        "rts_smoother": 1e-4, "ss_cov_path": 1e-4,
@@ -198,7 +232,8 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "batched_rts": 1e-4, "batched_quad": 1e-5,
                        "batched_solve_rows": 1e-4, "batched_obs_stats": 1e-5,
                        "batched_quad_masked": 1e-5,
-                       "batched_mstep_rows": 1e-4},
+                       "batched_mstep_rows": 1e-4, "lowrank_basis": 1e-4,
+                       "lowrank_scan": 1e-4, "lowrank_smoother": 1e-4},
        torch.float64: {"quad_local": 1e-10, "obs_stats": 1e-10,
                        "mstep_rows": 1e-9, "info_scan": 1e-9,
                        "rts_smoother": 1e-9, "ss_cov_path": 1e-9,
@@ -207,7 +242,8 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "batched_rts": 1e-9, "batched_quad": 1e-10,
                        "batched_solve_rows": 1e-10, "batched_obs_stats": 1e-10,
                        "batched_quad_masked": 1e-10,
-                       "batched_mstep_rows": 1e-9}}
+                       "batched_mstep_rows": 1e-9, "lowrank_basis": 1e-10,
+                       "lowrank_scan": 1e-9, "lowrank_smoother": 1e-9}}
 # The TPU routine each kernel replaces.
 REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "obs_stats": "dfm_tpu/ssm/info_filter.py:69",
@@ -226,7 +262,10 @@ REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "batched_ring_append": "dfm_tpu/serve/batched.py:97",
             "batched_obs_stats": "dfm_tpu/estim/batched.py:593",
             "batched_quad_masked": "dfm_tpu/estim/batched.py:650",
-            "batched_mstep_rows": "dfm_tpu/estim/batched.py:682"}
+            "batched_mstep_rows": "dfm_tpu/estim/batched.py:682",
+            "lowrank_basis": "dfm_tpu/ssm/lowrank_filter.py:96",
+            "lowrank_scan": "dfm_tpu/ssm/lowrank_filter.py:107",
+            "lowrank_smoother": "dfm_tpu/ssm/lowrank_filter.py:207"}
 # The variant of each kernel whose f32 record goes into the summary line.
 SUMMARY_VARIANT = {"quad_local": "masked", "obs_stats": "masked",
                    "mstep_rows": "masked", "info_scan": "masked",
@@ -616,6 +655,30 @@ def fit_tau(seed: int) -> int:
     return res.tau
 
 
+def kernel_record(c: dict, dtype, refs: dict) -> dict:
+    """One case compared (``compare``, the f64 plain outputs kept in
+    ``refs`` as the f32 yardstick) and timed: warm and cold L2, the plain
+    twin, the library call, the bound and the latency floor."""
+    name = c["name"]
+    key = (name, c["variant"])
+    n0 = kernels.LAUNCHES[name]
+    abs_err, rel_err, tol, ref, plain_err = compare(c, dtype, refs.get(key))
+    if dtype == torch.float64:
+        refs[key] = ref
+    bound_ms, bound_by = bound(nbytes_of(c["ins"]) + nbytes_of(ref),
+                               c["flops"], dtype)
+    return {"name": name, "variant": c["variant"],
+            "dtype": str(dtype).replace("torch.", ""),
+            "max_rel_err": rel_err, "max_abs_err": abs_err, "tol": tol,
+            "plain_f32_err": plain_err, "kernel_ms": cuda_ms(c["run"]),
+            "kernel_ms_cold_l2": cuda_ms_cold(c["run"]),
+            "plain_ms": cuda_ms(c["plain"]),
+            "library_ms": cuda_ms(c["library"]) if c["library"] else None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "latency_ms": c["floor"]() if c["floor"] else None,
+            "launches": kernels.LAUNCHES[name] - n0}
+
+
 def kernel_phase(seed: int, tau_fit: int) -> dict:
     """Every kernel vs its plain version at the headline shape, f32 and
     f64, timed.  Returns the f32 summary records by kernel name."""
@@ -626,29 +689,8 @@ def kernel_phase(seed: int, tau_fit: int) -> dict:
     for dtype in (torch.float64, torch.float32):
         with highest_precision():
             for c in kernel_cases(*pan, dtype, taus=taus):
+                rec = kernel_record(c, dtype, refs)
                 name = c["name"]
-                key = (name, c["variant"])
-                n0 = kernels.LAUNCHES[name]
-                abs_err, rel_err, tol, ref, plain_err = compare(
-                    c, dtype, refs.get(key))
-                if dtype == torch.float64:
-                    refs[key] = ref
-                kernel_ms = cuda_ms(c["run"])
-                cold_ms = cuda_ms_cold(c["run"])
-                plain_ms = cuda_ms(c["plain"])
-                library_ms = cuda_ms(c["library"]) if c["library"] else None
-                bound_ms, bound_by = bound(
-                    nbytes_of(c["ins"]) + nbytes_of(ref), c["flops"], dtype)
-                rec = {"name": name, "variant": c["variant"],
-                       "dtype": str(dtype).replace("torch.", ""),
-                       "max_rel_err": rel_err, "max_abs_err": abs_err,
-                       "tol": tol, "plain_f32_err": plain_err,
-                       "kernel_ms": kernel_ms,
-                       "kernel_ms_cold_l2": cold_ms,
-                       "plain_ms": plain_ms, "library_ms": library_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by,
-                       "latency_ms": c["floor"]() if c["floor"] else None,
-                       "launches": kernels.LAUNCHES[name] - n0}
                 if name in ("ss_cov_path", "affine_scan"):
                     rec["tau"] = dict(taus)[c["variant"].split()[-1]]
                 emit(rec)
@@ -717,7 +759,10 @@ OWN_FIT = {"quad_local": "masked", "obs_stats": "masked",
            "batched_info_scan": "fit_many", "batched_rts": "fit_many",
            "batched_quad": "fit_many", "batched_solve_rows": "fit_many",
            "batched_ring_append": "fleet", "batched_obs_stats": "fleet",
-           "batched_quad_masked": "fleet", "batched_mstep_rows": "fleet"}
+           "batched_quad_masked": "fleet", "batched_mstep_rows": "fleet",
+           "lowrank_basis": "lowrank masked",
+           "lowrank_scan": "lowrank masked",
+           "lowrank_smoother": "lowrank masked"}
 
 
 def fit_phase(seed: int) -> dict:
@@ -1044,6 +1089,9 @@ def session_kernel_check(sess, label: str, seed: int) -> None:
             cases, stats = masked_cases(Yb, Wb, pt, label=variant)
             if sess.filter == "pit_qr":
                 cases += qr_cases(stats, pt, variant, unit=False)
+            if sess.filter == "lowrank":
+                cases += lowrank_cases(Yb, Wb, pt, lr.resolve_rank(
+                    pt.A.shape[0], sess.rank), variant)
             for c in cases:
                 key = (c["name"], c["variant"])
                 _, rel, _, ref, _ = compare(c, dtype, refs.get(key))
@@ -2355,6 +2403,539 @@ def fleet_reference_phase(seed: int) -> None:
     if bad:
         raise AssertionError(f"fleet reference disagrees: {bad}")
 
+# ---------------------------------------------------------------------------
+# The rank-r engine (K9): the headline panel simulated at k = 16 (the widest
+# k the rest of its path takes), rank 8 (the engine's default cap).
+# ---------------------------------------------------------------------------
+
+LR_K, LR_RANK = 16, 8
+LOWRANK = ("lowrank_basis", "lowrank_scan", "lowrank_smoother")
+LR_SWEEP = ((1, 1), (3, 3), (16, 16), (17, 8), (50, 8), (100, 8), (100, 32))
+LR_FLEET_TENANTS, LR_FLEET_DRAINS = 4, 5
+LR_LONE = (0, 1)             # lanes held against their lone sessions
+# Kernels of a lowrank tick and their launches a tick (5 EM iterations +
+# the reporting smooth; K3b-m and K6b once a M-step; K13b once).
+LR_FLEET_LAUNCHES = {"batched_ring_append": 1, "batched_obs_stats": 6,
+                     "lowrank_basis": 6, "lowrank_scan": 6,
+                     "batched_quad_masked": 6, "lowrank_smoother": 6,
+                     "batched_mstep_rows": 5, "batched_solve_rows": 5}
+
+
+def lowrank_flops(k: int, r: int, T_: int) -> tuple:
+    """Operations of (K9-basis, K9-fwd, K9-bwd) on one lane: a symmetric
+    eigendecomposition with vectors ~9 k^3; a forward step 4 k^3 (the
+    predict) + 6 k^2 r (C V, P J, the downdate) + 8 k r^2 (the r x r
+    products and the k solves with S) + r^3 (two factorizations); a
+    backward step 10 k^2 r + 8 k r^2 + 5 r^3."""
+    return (9.0 * k ** 3,
+            T_ * (4.0 * k ** 3 + 6.0 * k * k * r + 8.0 * k * r * r
+                  + r ** 3),
+            T_ * (10.0 * k * k * r + 8.0 * k * r * r + 5.0 * r ** 3))
+
+
+def lowrank_cases(Y, W, p, r: int, label: str) -> list:
+    """K9-basis (compared on its projector V V'), K9-fwd and K9-bwd on the
+    inputs the plain pipeline makes from a panel on the card: ``Y`` (T, N)
+    with params ``p``, or a bucket's (B, T, N) with stacked params; masked
+    when ``W`` is given (the statistics from the plain K2b-m twin, which
+    takes any k), else the static C.  Call under ``highest_precision()``."""
+    if Y.ndim == 2:
+        Y = Y[None]
+        W = None if W is None else W[None]
+        p = SSMParams(*(x[None] for x in p))
+    B_, T_ = Y.shape[0], Y.shape[1]
+    k = p.A.shape[-1]
+    G = p.Lam / p.R[..., None]
+    C = torch.matmul(G.transpose(-1, -2), p.Lam).contiguous()
+    if W is None:
+        b, Ct = torch.matmul(torch.nan_to_num(Y), G), C
+    else:
+        b, Ct, _, _ = tb._batched_obs_stats_masked_plain(Y, W, p.Lam, p.R)
+    V = lr.lowrank_basis_plain(C, r)
+    fwd_in = (b, Ct, V, p.A, p.Q, p.mu0, p.P0)
+    fwd = lr.lowrank_scan_plain(*fwd_in)
+    bwd_in = (*fwd[:4], p.A, V)
+    fb, ff, fs = (B_ * f for f in lowrank_flops(k, r, T_))
+    return [
+        case("lowrank_basis", label, lambda: lr.lowrank_basis(C, r),
+             lambda: lr.lowrank_basis_plain(C, r), (C,), fb,
+             library=lambda: torch.linalg.eigh(C), gram=(0,)),
+        case("lowrank_scan", label, lambda: lr.lowrank_scan(*fwd_in),
+             lambda: lr.lowrank_scan_plain(*fwd_in), fwd_in, ff),
+        case("lowrank_smoother", label,
+             lambda: lr.lowrank_smoother_scan(*bwd_in),
+             lambda: lr.lowrank_smoother_scan_plain(*bwd_in), bwd_in, fs),
+    ]
+
+
+def eigh_syncs(C) -> bool:
+    """Whether ``torch.linalg.eigh`` on the card synchronizes with the host
+    (raises under ``set_sync_debug_mode("error")``)."""
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.linalg.eigh(C)
+        return False
+    except RuntimeError:
+        return True
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+        torch.cuda.synchronize()
+
+
+def lowrank_kernel_phase(seed: int) -> dict:
+    """K9 at the full width (T = 500, N = 10,000, k = 16, r = 8), masked
+    and unmasked, f64 then f32, each kernel against its plain twin (the
+    TOL rule) and timed (``kernel_record``; K9-basis beside
+    ``torch.linalg.eigh``).  Returns the f32 masked records by name."""
+    Ynan, W, Yfull, p = panel(seed + 800, K_=LR_K)
+    summary, refs = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        Yt, mt, Yf = (torch.as_tensor(a, dtype=dtype, device="cuda")
+                      .contiguous() for a in (Ynan, W, Yfull))
+        pt = SSMParams.from_numpy(p, dtype=dtype, device="cuda")
+        with highest_precision():
+            for c in (lowrank_cases(Yt, mt, pt, LR_RANK, "masked")
+                      + lowrank_cases(Yf, None, pt, LR_RANK, "unmasked")):
+                rec = kernel_record(c, dtype, refs)
+                rec.update({"k": LR_K, "r": LR_RANK})
+                emit(rec)
+                if dtype == torch.float32 and c["variant"] == "masked":
+                    summary[c["name"]] = rec
+        del Yt, mt, Yf
+        torch.cuda.empty_cache()
+    C = torch.matmul((pt.Lam / pt.R[:, None]).T, pt.Lam)
+    emit({"eigh_syncs_on_card": eigh_syncs(C), "k": LR_K})
+    return summary
+
+
+def lowrank_k_sweep(seed: int) -> None:
+    """K9 at other (k, r), the kernels' range to its ends (k = 100, r =
+    32), on 120 x 400 panels with a fully missing step and a step
+    observing 2r series (fewer than k where 2r < k), masked and unmasked,
+    f64 and f32: error checks only."""
+    for k, r in LR_SWEEP:
+        _, W, Yfull, p = panel(seed + 810 + k, T_=120, N_=400, K_=k)
+        W[7] = 0.0
+        W[11] = 0.0
+        W[11, :2 * r] = 1.0
+        Ynan = np.where(W > 0, Yfull, np.nan)
+        refs, worst = {}, {}
+        for dtype in (torch.float64, torch.float32):
+            Yt, mt, Yf = (torch.as_tensor(a, dtype=dtype, device="cuda")
+                          .contiguous() for a in (Ynan, W, Yfull))
+            pt = SSMParams.from_numpy(p, dtype=dtype, device="cuda")
+            with highest_precision():
+                for c in (lowrank_cases(Yt, mt, pt, r, "masked")
+                          + lowrank_cases(Yf, None, pt, r, "unmasked")):
+                    key = (c["name"], c["variant"])
+                    _, rel, _, ref, _ = compare(c, dtype, refs.get(key))
+                    refs[key] = ref
+                    name = f"{c['name']} {c['variant']} {str(dtype)[6:]}"
+                    worst[name] = rel
+        emit({"lowrank_k_sweep": [k, r], "max_rel_err": worst})
+
+
+def lowrank_f64_lls(Y, W, n: int) -> np.ndarray:
+    """The f64 lowrank EM trajectory on the card (``em_fit_scan``, no stop
+    rule) from the init ``fit`` computes, for ``n`` iterations: the
+    yardstick of an f32 loglik drop."""
+    Z, _ = data.standardize(Y, mask=W)
+    Zt = torch.as_tensor(np.where(np.isfinite(Z), Z, 0.0),
+                         dtype=torch.float64, device="cuda")
+    mt = (torch.as_tensor(W, dtype=torch.float64, device="cuda")
+          if W is not None else None)
+    with highest_precision():
+        p0 = SSMParams.from_numpy(pca_init_device(Zt, LR_K),
+                                  dtype=torch.float64, device="cuda")
+        _, lls, _ = em_fit_scan(Zt, p0, n, mask=mt,
+                                cfg=EMConfig(filter="lowrank", rank=LR_RANK))
+    return lls.cpu().numpy()
+
+
+def lowrank_fit_phase(seed: int) -> tuple:
+    """``fit(filter="lowrank", rank=8)`` at 10,000 x 500, k = 16: masked
+    (20 iterations) and unmasked (10), tol = 0, then ``fit(fused=True)``
+    on the masked panel's first 480 rows (20 iterations).  EM at r < k is
+    EM on an approximate likelihood, so a loglik drop past the f32 noise
+    floor passes only where the f64 trajectory from ``fit``'s init drops
+    too (and the chunked driver's divergence rule may stop the fit there).
+    Launches: per iteration 1 K9-basis, 1 K9-fwd, 1 K9-bwd, 1 K1, + 1 K2
+    and 1 K3 masked; the reporting smooth is the exact info pair (1 K2
+    masked, 1 K4 pair, 1 K1).  Returns (launch counts by fit, the fused
+    fit)."""
+    Ynan, W, Yfull, _ = panel(seed + 801, K_=LR_K)
+    model = dt.DynamicFactorModel(n_factors=LR_K, dynamics="ar1")
+    backend = dt.TorchBackend(filter="lowrank", rank=LR_RANK)
+    floor = noise_floor_for(torch.float32, T * N)
+    counts = {}
+    for label, masked, iters in (("lowrank masked", True, 20),
+                                 ("lowrank unmasked", False, 10)):
+        Y = Ynan if masked else Yfull
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = dt.fit(model, Y, backend=backend, max_iters=iters, tol=0.0)
+        y_fore, f_fore = dt.forecast(res, 12)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        lls = res.logliks
+        n = len(lls)
+        chunk = backend.fused_chunk
+        ran = min(iters, -(-n // chunk) * chunk)    # whole chunks run
+        ll64 = lowrank_f64_lls(Y, W if masked else None, n)
+        drops = [i for i in range(1, n) if lls[i] < lls[i - 1] - floor]
+        unexplained = [i for i in drops if not ll64[i] < ll64[i - 1]]
+        steady = [h["secs"] for h in res.history[chunk:]]
+        per_iter = {nm: launches[nm] / ran for nm in
+                    (*LOWRANK, "quad_local", "obs_stats", "mstep_rows")}
+        emit({"fit": label, "filter": res.filter, "rank": LR_RANK, "k": LR_K,
+              "n_iters": res.n_iters, "iterations_run": ran,
+              "converged": res.converged,
+              "loglik_first": float(lls[0]), "loglik_last": float(lls[-1]),
+              "drops_past_floor": drops,
+              "f64_drops": [i for i in range(1, n) if ll64[i] < ll64[i - 1]],
+              "max_drop": float(max(0.0, -np.diff(lls).min())),
+              "noise_floor": floor, "wall_s": wall,
+              "em_iters_per_sec": (len(steady) / sum(steady)
+                                   if steady and sum(steady) > 0 else None),
+              "launches_per_iter": per_iter, "launches": launches})
+        want = {"lowrank_basis": ran, "lowrank_scan": ran,
+                "lowrank_smoother": ran, "quad_local": ran + 1,
+                "obs_stats": ran + 1 if masked else 0,
+                "mstep_rows": ran if masked else 0, "info_scan": 1,
+                "rts_smoother": 1}
+        bad = {nm: launches[nm] for nm in launches
+               if launches[nm] != want.get(nm, 0)}
+        if res.filter != "lowrank" or bad:
+            raise AssertionError(f"{label}: filter {res.filter}, launches "
+                                 f"off the path's {want}: {bad}")
+        if not np.isfinite(lls).all() or unexplained:
+            raise AssertionError(f"{label}: non-finite loglik or drops past "
+                                 f"the noise floor at {unexplained} that "
+                                 "the f64 trajectory does not make")
+        if n != iters and not (drops and drops[-1] == n - 1):
+            raise AssertionError(f"{label}: stopped after {n} iterations")
+        for name, arr in (("factors", res.factors), ("y_fore", y_fore),
+                          ("f_fore", f_fore)):
+            if not np.isfinite(arr).all():
+                raise AssertionError(f"{label}: non-finite {name}")
+        counts[label] = launches
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    fused = dt.fit(model, Ynan[:SESSION_T0], backend=backend, fused=True,
+                   max_iters=20, tol=0.0)
+    wall = time.perf_counter() - t0
+    emit({"fused_fit": "lowrank", "filter": fused.filter,
+          "n_iters": fused.n_iters, "host_reads": fused.host_reads,
+          "converged": fused.converged, "diverged": fused.nowcast is None,
+          "wall_s": wall, "loglik_last": float(fused.logliks[-1]),
+          "launches": dict(kernels.LAUNCHES)})
+    if (fused.filter != "lowrank" or not np.isfinite(fused.logliks).all()
+            or any(kernels.LAUNCHES[nm] < 1 for nm in LOWRANK)):
+        raise AssertionError("lowrank fused fit failed")
+    return counts, fused
+
+
+def lowrank_reference_phase(seed: int) -> None:
+    """The lowrank fits at 120 x 80, k = 3, rank 2 (masked, unmasked,
+    and the masked fused fit), on the card in f64 against the CPU in f64,
+    within 1e-9 relative."""
+    Ynan, _, Yfull, _ = panel(seed + 3, T_=120, N_=80, K_=3)
+    model = dt.DynamicFactorModel(n_factors=3, dynamics="ar1")
+    errs = {}
+    for label, Y, fused in (("masked", Ynan, False),
+                            ("unmasked", Yfull, False),
+                            ("masked fused", Ynan, True)):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            b = dt.TorchBackend(device=dev, dtype=torch.float64,
+                                filter="lowrank", rank=2)
+            kernels.reset_launches()
+            r = dt.fit(model, Y, backend=b, max_iters=10, tol=0.0,
+                       fused=fused)
+            res[dev] = (r, dt.forecast(r, 12)[0], dict(kernels.LAUNCHES))
+        (rg, yg, lg), (rc, yc, _) = res["cuda"], res["cpu"]
+        if any(lg[nm] == 0 for nm in LOWRANK) or rg.n_iters != rc.n_iters:
+            raise AssertionError(f"lowrank reference {label}: launches {lg}, "
+                                 f"n_iters {rg.n_iters} / {rc.n_iters}")
+        for name, g, c in (("logliks", rg.logliks, rc.logliks),
+                           ("Lam", rg.params.Lam, rc.params.Lam),
+                           ("R", rg.params.R, rc.params.R),
+                           ("A", rg.params.A, rc.params.A),
+                           ("factors", rg.factors, rc.factors),
+                           ("y_fore", yg, yc)):
+            errs[f"{label} {name}"] = rel_err(g, c)
+    emit({"reference": "lowrank", "shape": [120, 80, 3], "rank": 2,
+          "max_rel_err": errs, "tol": 1e-9})
+    bad = {n: e for n, e in errs.items() if not e <= 1e-9}
+    if bad:
+        raise AssertionError(f"lowrank card fit disagrees with the CPU "
+                             f"fit: {bad}")
+
+
+def lowrank_contract_phase(seed: int) -> None:
+    """The loglik contract of the rank-r engine at iteration 3: f32 params
+    after 2 updates, evaluated by the f64 lowrank filter on the card, against
+    the f64 lowrank trajectory's loglik at its 2-update params (masked and
+    unmasked, k = 16, r = 8)."""
+    Ynan, W, Yfull, _ = panel(seed + 801, K_=LR_K)
+    dev = torch.device("cuda")
+    cfg = EMConfig(filter="lowrank", rank=LR_RANK)
+    for masked in (True, False):
+        Wm = W if masked else None
+        Z, _ = data.standardize(Ynan if masked else Yfull, mask=Wm)
+        Z = np.where(np.isfinite(Z), Z, 0.0)
+        with highest_precision():
+            p0 = pca_init_device(
+                torch.as_tensor(Z, dtype=torch.float64, device=dev), LR_K)
+            lls = {}
+            for dtype in (torch.float32, torch.float64):
+                Yt = torch.as_tensor(Z, dtype=dtype, device=dev)
+                mt = (torch.as_tensor(Wm, dtype=dtype, device=dev)
+                      if masked else None)
+                pt = SSMParams.from_numpy(p0, dtype=dtype, device=dev)
+                ps, ll, _ = em_fit_scan(Yt, pt, 3, mask=mt, cfg=cfg)
+                lls[dtype] = (ps, ll.cpu().numpy())
+            ref = float(lls[torch.float64][1][2])
+            p2 = lls[torch.float32][0][1].to(dtype=torch.float64)
+            Z64 = torch.as_tensor(Z, dtype=torch.float64, device=dev)
+            m64 = (torch.as_tensor(Wm, dtype=torch.float64, device=dev)
+                   if masked else None)
+            precise = float(lr.lowrank_filter(Z64, p2, mask=m64,
+                                              rank=LR_RANK).loglik)
+        rel = abs(precise - ref) / abs(ref)
+        fast = abs(float(lls[torch.float32][1][2]) - ref) / abs(ref)
+        emit({"contract": f"{'masked' if masked else 'unmasked'} lowrank",
+              "k": LR_K, "rank": LR_RANK, "iter": 3, "loglik_f64": ref,
+              "rel_err_precise": rel, "rel_err_fast": fast, "limit": 1e-5})
+        if not rel < 1e-5:
+            raise AssertionError(f"lowrank loglik contract broken: {rel:.3e}")
+
+
+def lowrank_session_phase(seed: int, fused) -> None:
+    """A lowrank session on the fused lowrank fit, capacity 1,000, 10
+    queries of 2 rows (rows 480-499) and a re-forecast, 5 iterations a
+    query, each query's device work under ``set_sync_debug_mode("error")``:
+    exactly 1 read and 1 K13 a query, and 6 launches each of K9-basis,
+    K9-fwd and K9-bwd (5 EM iterations + the reporting smooth through the
+    lowrank pair); p50/p99; the query's kernel times; then every kernel of
+    its path against its plain twin on the session's own buffers."""
+    Ynan, _, _, _ = panel(seed + 801, K_=LR_K)
+    backend = dt.TorchBackend(filter="lowrank", rank=LR_RANK)
+    sess = dt.open_session(fused, Ynan[:SESSION_T0], backend=backend,
+                           capacity=1000, max_update_rows=8, max_iters=5,
+                           tol=0.0)
+    sess.check_sync = True
+    reads = []
+    read = sess._read
+    sess._read = lambda out: reads.append(1) or read(out)
+    walls, calls, per_query = [], [], []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for q in range(SESSION_UPDATES + 1):
+        lo = SESSION_T0 + q * SESSION_ROWS
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        u = sess.update(Ynan[lo:lo + SESSION_ROWS]
+                        if q < SESSION_UPDATES else None)
+        torch.cuda.synchronize()
+        if q < SESSION_UPDATES:
+            walls.append(u.wall_s)
+            calls.append(time.perf_counter() - c0)
+        per_query.append({n: kernels.LAUNCHES[n] - before[n]
+                          for n in kernels.LAUNCHES})
+        if not (np.isfinite(u.nowcast).all() and np.isfinite(u.factors).all()
+                and u.nowcast.shape == (N,)):
+            raise AssertionError("lowrank session: non-finite output")
+    want = {"ring_append": 1, **{n: 6 for n in LOWRANK}}
+    bad = [q for q, c in enumerate(per_query)
+           if any(c[n] != v for n, v in want.items())]
+    # The query's kernels at its shapes (warm L2): K2, the K9 trio and K1
+    # once an E-step (6), K3 once a M-step (5), K13 once.
+    Yb, Wb, pt = sess._Ybuf, sess._Wbuf, sess._p
+    with highest_precision():
+        stats = inf.obs_stats(Yb, pt.Lam, pt.R, Wb)
+        V = lr.policy_basis(pt.Lam, pt.R, LR_RANK)
+        fwd = lr.lowrank_from_stats(stats, pt, LR_RANK, V=V)
+        kf = FilterResult(*fwd[:4], torch.zeros((), dtype=Yb.dtype))
+        sm = lr.lowrank_smoother(kf, pt, LR_RANK, V=V)
+        EffT, _ = moments(sm)
+        ms = {"obs_stats": cuda_ms(lambda: inf.obs_stats(Yb, pt.Lam, pt.R,
+                                                         Wb)),
+              "lowrank_basis": cuda_ms(lambda: lr.policy_basis(
+                  pt.Lam, pt.R, LR_RANK)),
+              "lowrank_scan": cuda_ms(lambda: lr.lowrank_from_stats(
+                  stats, pt, LR_RANK, V=V)),
+              "quad_local": cuda_ms(lambda: inf.quad_local(
+                  Yb, pt.Lam, pt.R, fwd[0], Wb)),
+              "lowrank_smoother": cuda_ms(lambda: lr.lowrank_smoother(
+                  kf, pt, LR_RANK, V=V)),
+              "mstep_rows": cuda_ms(lambda: mstep_rows(
+                  Yb, Wb, sm.x_sm, EffT, sm.P_sm, None, 1e-6))}
+    per_q = {n: v * (5 if n == "mstep_rows" else 6) for n, v in ms.items()}
+    p50 = pct(walls, 50) * 1e3
+    emit({"session": "lowrank", "filter": sess.filter, "rank": sess.rank,
+          "key": sess.key, "capacity": sess.capacity, "t": sess.t,
+          "queries": SESSION_UPDATES, "p50_ms": p50,
+          "p99_ms": pct(walls, 99) * 1e3,
+          "walls_ms": [w * 1e3 for w in walls],
+          "call_p50_ms": pct(calls, 50) * 1e3,
+          "reads_per_query": len(reads) / len(per_query),
+          "sync_checked": True,
+          "launches_per_query": {n: per_query[-2][n] for n in
+                                 ("ring_append", *LOWRANK, "obs_stats",
+                                  "quad_local", "mstep_rows")},
+          "query_breakdown": {"kernel_ms": ms, "per_query_ms": per_q,
+                              "rest_ms": p50 - sum(per_q.values())}})
+    if bad or len(reads) != len(per_query) or sess.filter != "lowrank":
+        raise AssertionError(f"lowrank session: queries {bad} off {want}; "
+                             f"reads {len(reads)}, engine {sess.filter}")
+    session_kernel_check(sess, "lowrank", seed + 71)
+    sess.close()
+
+
+def lowrank_fleet_phase(seed: int) -> None:
+    """4 tenants of 480 x 10,000 at k = 16 (fused lowrank fits, 10
+    iterations: the fleet inherits their engine, rank auto = 8) in one
+    bucket at capacity 1,000, 5 drains of 2 rows, 5 iterations, tol = 0,
+    beside lone lowrank sessions of lanes LR_LONE on the same queries,
+    first in f64, then in f32 (timed).  Each tick's device part runs under
+    ``set_sync_debug_mode("error")`` with 1 read and exactly
+    LR_FLEET_LAUNCHES.  EM at r < k is not monotone, and a fleet lane and
+    a lone session handle a divergence differently (in the JAX package
+    too: the lane rolls back the offending update, the session keeps its
+    chunk's last-good params), so a lane tracks its lone session up to
+    its first divergence: in f64 each held lane equals its lone session
+    within 1e-9 relative on every query up to and including the first one
+    that diverges on either side (the path check; at least one query).
+    In f32 the lane is measured against the f64 lane and the lone session
+    against the f64 lone session, and reported.  Then every kernel of the
+    tick against its plain twin on the f32 bucket's own buffers."""
+    model = dt.DynamicFactorModel(n_factors=LR_K, dynamics="ar1")
+    held = LR_FLEET_DRAINS * FLEET_ROWS
+    fit_b = dt.TorchBackend(filter="lowrank", rank=LR_RANK)
+    tens = []
+    for i in range(LR_FLEET_TENANTS):
+        Ynan, _, _, _ = panel(seed + 820 + i, SESSION_T0 + held, N, LR_K)
+        res = dt.fit(model, Ynan[:SESSION_T0], backend=fit_b, fused=True,
+                     max_iters=10, tol=0.0)
+        if res.filter != "lowrank" or not np.isfinite(res.logliks).all():
+            raise AssertionError(f"lowrank fleet tenant {i}: fit failed")
+        tens.append((res, Ynan[:SESSION_T0], Ynan[SESSION_T0:]))
+    kw = dict(capacity=FLEET_CAP, max_update_rows=FLEET_ROWS,
+              max_iters=FLEET_ITERS, tol=0.0)
+    N_of = {f"t{i}": N for i in range(LR_FLEET_TENANTS)}
+    rec = {"fleet": "lowrank", "B": LR_FLEET_TENANTS, "drains":
+           LR_FLEET_DRAINS, "queries": LR_FLEET_DRAINS * LR_FLEET_TENANTS,
+           "held_lanes": LR_LONE, "sync_checked": True}
+    ref64, bad = {}, []
+    for dtype in (torch.float64, torch.float32):
+        backend = dt.TorchBackend(dtype=dtype, filter="lowrank",
+                                  rank=LR_RANK)
+        fleet = dt.open_fleet([t[0] for t in tens], [t[1] for t in tens],
+                              max_classes=1, backend=backend, **kw)
+        fleet.check_sync = True
+        (bucket,) = fleet._buckets
+        if (bucket.dims != (FLEET_CAP, N, LR_K) or bucket.B != len(tens)
+                or bucket.cfg.filter != "lowrank"):
+            raise AssertionError(f"lowrank fleet bucket {bucket}")
+        lone = {i: dt.open_session(tens[i][0], tens[i][1], backend=backend,
+                                   **kw) for i in LR_LONE}
+        walls, per_tick, n_reads, errs, same_iters = [], [], [], {}, []
+        tracked = {i: 0 for i in LR_LONE}       # queries held, f64
+        diverged = {i: False for i in LR_LONE}
+        for d in range(LR_FLEET_DRAINS):
+            lo = d * FLEET_ROWS
+            for i, t in enumerate(tens):
+                fleet.submit(f"t{i}", t[2][lo:lo + FLEET_ROWS])
+            out, wall, launches, reads = drain_timed(fleet)
+            check_fleet_out("lowrank", out, N_of)
+            walls.append(wall)
+            per_tick.append(launches)
+            n_reads.append(reads)
+            for i in LR_LONE:
+                u = out[f"t{i}"][0]
+                ref = lone[i].update(tens[i][2][lo:lo + FLEET_ROWS])
+                same_iters.append(u.n_iters == ref.n_iters)
+                got = {"nowcast": u.nowcast, "factors": u.factors,
+                       "forecast y": u.forecasts["y"],
+                       "logliks": u.logliks}
+                want = {"nowcast": ref.nowcast, "factors": ref.factors,
+                        "forecast y": ref.forecasts["y"],
+                        "logliks": ref.logliks}
+                if dtype == torch.float64:
+                    ref64[d, i] = (got, want)
+                    if diverged[i]:
+                        continue
+                    tracked[i] += 1
+                    diverged[i] = u.diverged or ref.diverged
+                    if diverged[i]:     # only the iterations both ran
+                        got = {"logliks": u.logliks}
+                        if u.n_iters != ref.n_iters:
+                            got["logliks"] = np.full(1, np.inf)
+                    checks = [("fleet_vs_lone", got, want)]
+                else:
+                    lane64, lone64 = ref64[d, i]
+                    checks = [("fleet_vs_f64", got, lane64),
+                              ("lone_vs_f64", want, lone64)]
+                for key, vals, base in checks:
+                    e = errs.setdefault(key, {})
+                    for f, v in vals.items():
+                        if v.shape == base[f].shape:
+                            e[f] = max(e.get(f, 0.0), rel_err(v, base[f]))
+        bad += [(str(dtype), d) for d, c in enumerate(per_tick)
+                if any(c[n] != LR_FLEET_LAUNCHES.get(n, 0) for n in c)
+                or n_reads[d] != 1]
+        rec[str(dtype).replace("torch.", "")] = {
+            "tick_p50_ms": pct(walls, 50) * 1e3,
+            "tick_p99_ms": pct(walls, 99) * 1e3,
+            "ticks_ms": [w * 1e3 for w in walls],
+            "queries_per_s": rec["queries"] / sum(walls),
+            "reads_per_tick": sum(n_reads) / len(n_reads),
+            "launches_per_tick": {n: per_tick[0][n]
+                                  for n in LR_FLEET_LAUNCHES},
+            "lane_n_iters_as_lone": sum(same_iters) / len(same_iters),
+            "max_rel_err": errs}
+        if dtype == torch.float64:
+            rec["float64"]["queries_held"] = tracked
+        for sess in lone.values():
+            sess.close()
+        if dtype == torch.float64:
+            fleet.close()
+    rec["dims"] = bucket.dims
+    rec["rank"] = lr.resolve_rank(LR_K, bucket.cfg.rank)
+    rec["float64"]["tol"] = 1e-9
+    emit(rec)
+    e64 = rec["float64"]
+    held_errs = e64["max_rel_err"].get("fleet_vs_lone", {})
+    if bad or min(e64["queries_held"].values()) < 1 or any(
+            not v <= 1e-9 for v in held_errs.values()) or not held_errs:
+        raise AssertionError(f"lowrank fleet: ticks {bad} off "
+                             f"{LR_FLEET_LAUNCHES} or 1 read; f64 lanes "
+                             f"against lone sessions {e64}")
+    fleet_kernel_check(bucket, "lowrank fleet", seed + 830)
+    slots = [bucket.lane_of[ln] for ln in range(bucket.B)]
+    refs, worst = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        Yb = bucket.Ybuf.to(dtype).contiguous()
+        Wb = bucket.Wbuf.to(dtype).contiguous()
+        pt = SSMParams(*(x.to(dtype).contiguous() for x in bucket.p))
+        with highest_precision():
+            for c in lowrank_cases(Yb, Wb, pt, LR_RANK, "lowrank fleet"):
+                key = (c["name"], c["variant"])
+                _, rel, _, ref, _ = compare(c, dtype, refs.get(key))
+                refs[key] = ref
+                worst[f"{c['name']} {str(dtype)[6:]}"] = rel
+        del Yb, Wb, pt
+        torch.cuda.empty_cache()
+    emit({"fleet_kernels": "lowrank fleet K9", "B": bucket.B,
+          "t": [s.t for s in slots], "max_rel_err": worst})
+    fleet.close()
 
 def ptxas_summary(source: str) -> dict:
     """Build seconds and, over the k = 10 instantiations of ``source``
@@ -2426,6 +3007,14 @@ def main() -> int:
     del tenants
     fleet_k_sweep(args.seed)
     fleet_reference_phase(args.seed)
+    summary.update(lowrank_kernel_phase(args.seed))
+    lowrank_k_sweep(args.seed)
+    lr_counts, lr_fused = lowrank_fit_phase(args.seed)
+    launches.update(lr_counts)
+    lowrank_reference_phase(args.seed)
+    lowrank_contract_phase(args.seed)
+    lowrank_session_phase(args.seed, lr_fused)
+    lowrank_fleet_phase(args.seed)
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"dfm_tpu_torch/csrc/{kernels.KERNELS[name][0]}",

@@ -110,17 +110,20 @@ class TorchBackend:
     on CUDA and float64 on the CPU.  filter: "auto" (dense below N = 32,
     "ss" for unmasked panels at N >= 512, info otherwise — the JAX
     package's rule), "dense", "info", "ss" (steady-state; tau from the
-    Riccati mixing time at the init params) or "pit_qr" (square-root
-    parallel-in-time; k <= 10 on CUDA); "pit" and "lowrank" raise until
-    they are ported.  fused_chunk: EM iterations per device chunk between
-    host reads.  device_init: standardize and PCA-init on the device
-    ("auto": when N*T >= 4e6).
+    Riccati mixing time at the init params), "pit_qr" (square-root
+    parallel-in-time; k <= 10 on CUDA) or "lowrank" (the rank-r downdate
+    engine for wide factor models, ``ssm.lowrank_filter``; on CUDA its
+    kernels take k <= 100 and r <= 32, the rest of its path k <= 16);
+    "pit" raises until it is ported.  rank: the rank r of "lowrank" (<= 0:
+    auto, min(k, 8)); the other engines ignore it.  fused_chunk: EM
+    iterations per device chunk between host reads.  device_init:
+    standardize and PCA-init on the device ("auto": when N*T >= 4e6).
     """
 
     name = "torch"
 
     def __init__(self, device="cuda", dtype=None, filter: str = "auto",
-                 fused_chunk: int = 8, device_init="auto"):
+                 fused_chunk: int = 8, device_init="auto", rank: int = 0):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -131,6 +134,7 @@ class TorchBackend:
         if filter not in _FILTERS:
             raise ValueError(f"unknown filter {filter!r}")
         self.filter = filter
+        self.rank = int(rank)
         self.fused_chunk = max(1, int(fused_chunk))
         self.device_init = device_init
 
@@ -256,7 +260,8 @@ def _fit_impl(model, Y, mask, b: TorchBackend, max_iters, tol, init,
         init = b.default_init(Yt, Yz, Wm, model)
     flt = b._filter_for(N, mt is not None)
     cfg = EMConfig(estimate_A=model.estimate_A, estimate_Q=model.estimate_Q,
-                   estimate_init=model.estimate_init, filter=flt)
+                   estimate_init=model.estimate_init, filter=flt,
+                   rank=b.rank)
     if flt == "ss":
         # tau from the covariance recursion's mixing time at the init
         # params (host NumPy, k x k); the freeze delta guards it.
@@ -281,8 +286,8 @@ def _fit_impl(model, Y, mask, b: TorchBackend, max_iters, tol, init,
 
 def _report_smooth(Yt, p: SSMParams, mt, flt: str):
     """The reporting smooth of a chunked fit, as host f64 arrays: dense
-    through the N x N filter, every other engine through the exact
-    info-form pair."""
+    through the N x N filter, every other engine (lowrank too, as in the
+    JAX package) through the exact info-form pair."""
     x_sm, P_sm = smooth(Yt, p, mt, dense=(flt == "dense"))
     return (x_sm.to("cpu", torch.float64).numpy(),
             P_sm.to("cpu", torch.float64).numpy())

@@ -2,7 +2,8 @@
 chunked driver.
 
 The twin of ``dfm_tpu.estim.em`` for the ``dense``, ``info``, ``ss``
-(steady-state) and ``pit_qr`` (square-root parallel-in-time) engines.
+(steady-state), ``pit_qr`` (square-root parallel-in-time) and
+``lowrank`` (rank-r downdate) engines.
 The masked per-series M-step rows are kernel K3 (``csrc/mstep_rows.cu``)
 on CUDA tensors, with ``mstep_rows_plain`` beside it; the unmasked rows
 are a GEMM plus one k x k solve and stay plain torch.  ``n_steps`` runs
@@ -15,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
+from functools import partial
 
 import numpy as np
 import torch
@@ -24,6 +26,8 @@ from ..ops.linalg import solve_psd, sym
 from ..ops.precision import highest_precision
 from ..ssm.info_filter import info_filter
 from ..ssm.kalman import kalman_filter, rts_smoother
+from ..ssm.lowrank_filter import (lowrank_filter, lowrank_filter_smoother,
+                                  lowrank_smoother)
 from ..ssm.parallel_filter import pit_qr_filter, pit_qr_smoother
 from ..ssm.params import SmootherResult, SSMParams
 from ..ssm.steady import DEFAULT_TAU, ss_filter_smoother
@@ -37,7 +41,6 @@ __all__ = ["EMConfig", "em_step", "em_fit_scan", "em_chunk",
 # ROADMAP item that ports each.
 _NOT_PORTED = {
     "pit": "ROADMAP Queue 1 item 10 (the legacy covariance-form pit engine)",
-    "lowrank": "ROADMAP Queue 1 item 10 and Queue 2 K9",
 }
 
 
@@ -49,9 +52,14 @@ class EMConfig:
     "info" (information form, k x k scan; the N-scalable engine), "ss"
     (steady-state accelerated: ``tau`` exact covariance steps, then frozen
     gains; falls back to "info" when masked or T <= 2 tau + 4) or
-    "pit_qr" (square-root parallel-in-time; k <= 10 on CUDA).  The JAX
-    package's other engines raise ``NotImplementedError`` naming the
-    ROADMAP item that ports them.
+    "pit_qr" (square-root parallel-in-time; k <= 10 on CUDA) or
+    "lowrank" (rank-r computation-aware downdate filter and smoother,
+    ``ssm.lowrank_filter``: only r x r factorizations in the scans,
+    conservative covariances, exact at rank = k).  The JAX package's
+    "pit" raises ``NotImplementedError`` naming the ROADMAP item that
+    ports it.
+
+    rank: the rank r of "lowrank" (<= 0: auto, min(k, 8)).
 
     tau: the steady-state horizon of "ss" (``fit`` sizes it with
     ``ssm.steady.auto_tau``).
@@ -67,6 +75,7 @@ class EMConfig:
     filter: str = "dense"
     tau: int = DEFAULT_TAU
     noise_floor_mult: float = 100.0
+    rank: int = 0
     q_scale: float = 1.0
     r_scale: float = 1.0
     lam_ridge: float = 0.0
@@ -76,24 +85,38 @@ class EMConfig:
             raise NotImplementedError(
                 f"filter={self.filter!r} is not ported to dfm_tpu_torch yet: "
                 f"{_NOT_PORTED[self.filter]}")
-        if self.filter not in ("dense", "info", "ss", "pit_qr"):
+        if self.filter not in ("dense", "info", "ss", "pit_qr", "lowrank"):
             raise ValueError(f"unknown filter {self.filter!r}")
 
     def filter_fn(self):
+        if self.filter == "lowrank":
+            return partial(lowrank_filter, rank=self.rank)
         return {"dense": kalman_filter, "info": info_filter,
                 "pit_qr": pit_qr_filter}[self.filter]
 
     def smoother_fn(self):
+        if self.filter == "lowrank":
+            return partial(lowrank_smoother, rank=self.rank)
         return pit_qr_smoother if self.filter == "pit_qr" else rts_smoother
 
     def report_pair(self):
         """Filter and smoother of a reporting smooth at fitted params:
-        pit_qr through itself, dense through the N x N filter, info and ss
+        pit_qr and lowrank through themselves (their smoothed moments are
+        their contract), dense through the N x N filter, info and ss
         through the exact info-form pair."""
-        if self.filter == "pit_qr":
+        if self.filter in ("pit_qr", "lowrank"):
             return self.filter_fn(), self.smoother_fn()
         ff = kalman_filter if self.filter == "dense" else info_filter
         return ff, rts_smoother
+
+    def report_smooth(self, Y, mask, p):
+        """The reporting smooth through ``report_pair``: (kf, sm).
+        lowrank makes its policy basis once for both passes."""
+        if self.filter == "lowrank":
+            return lowrank_filter_smoother(Y, p, mask=mask, rank=self.rank)
+        ff, sf = self.report_pair()
+        kf = ff(Y, p, mask=mask)
+        return kf, sf(kf, p)
 
     def e_step(self, Y, mask, p, sumsq=None):
         """Filter + smoother under the configured engine: (kf, sm, delta),
@@ -102,9 +125,12 @@ class EMConfig:
         if self.filter == "ss":
             return ss_filter_smoother(Y, p, tau=self.tau, mask=mask,
                                       sumsq=sumsq)
+        zero = torch.zeros((), dtype=Y.dtype, device=Y.device)
+        if self.filter == "lowrank":
+            return (*lowrank_filter_smoother(Y, p, mask=mask,
+                                             rank=self.rank), zero)
         kf = self.filter_fn()(Y, p, mask=mask)
-        return (kf, self.smoother_fn()(kf, p),
-                torch.zeros((), dtype=Y.dtype, device=Y.device))
+        return kf, self.smoother_fn()(kf, p), zero
 
 
 def moments(sm: SmootherResult):

@@ -286,9 +286,7 @@ def _fused_fit_core(Y, mask, p0, tol, noise_floor, cfg, max_iters, chunk,
     f, reads = em_while(Y, m, p0, tol, noise_floor, cfg, max_iters, chunk,
                         opts, consts=consts, read_status=True)
     p_fit = f["p"]
-    ff, sf = cfg.report_pair()
-    kf = ff(Y, p_fit, mask=m)
-    sm = sf(kf, p_fit)
+    _, sm = cfg.report_smooth(Y, m, p_fit)
     x_T, P_T = sm.x_sm[-1], sm.P_sm[-1]
     f_fore, y_fore, _ = forecast_path(p_fit, x_T, P_T, opts.horizon)
     out = {"lls": f["lls"], "n_iters": f["it"],

@@ -19,11 +19,22 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
+import torch
+
 from ..obs.cost import em_iter_work, fit_cost_model
 from ..sched.buckets import lane_rent_bytes, plan_capacity_classes
 
-__all__ = ["ClassAssignment", "choose_engine", "plan_admission",
-           "fleet_pad_waste", "plan_residency", "readmission_cost_s"]
+__all__ = ["ClassAssignment", "choose_engine", "device_class",
+           "plan_admission", "fleet_pad_waste", "plan_residency",
+           "readmission_cost_s"]
+
+
+def device_class(device) -> str:
+    """The cost model's device class of a torch device ("gpu" for CUDA,
+    "cpu"), as the JAX package's ``obs.store.device_kind`` files its
+    runs: a fleet is priced from its own device's profiles."""
+    dev = torch.device(device)
+    return "gpu" if dev.type == "cuda" else dev.type
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +70,8 @@ def plan_admission(shapes: Sequence[Tuple[int, int, int]],
     TOTAL class count (each config group gets at least one).  ``model``
     overrides the cost model (default: calibrate from the profile
     registry, device priors when empty — same resolution as
-    ``obs.advise``).  Deterministic given a fixed registry.
+    ``obs.advise``); ``device`` its device class (None: the class of the
+    registry's last profile).  Deterministic given a fixed registry.
     """
     B = len(shapes)
     if B == 0:

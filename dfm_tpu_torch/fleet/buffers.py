@@ -69,12 +69,13 @@ class FleetBucket:
 
     ``entries`` is a list of ``(name, res, Y, mask, capacity, max_iters,
     tol)`` tuples; ``dims = (T_cap, N_max, k_max)`` the class shape every
-    member is padded to; ``filter`` the bucket's engine ("info" or
-    "pit_qr").  ``lane_of`` maps a lane to its tenant.
+    member is padded to; ``filter`` the bucket's engine ("info",
+    "pit_qr" or "lowrank") and ``rank`` its lowrank rank (<= 0: auto, at
+    k_max).  ``lane_of`` maps a lane to its tenant.
     """
 
     def __init__(self, entries, dims, *, r_max: int, backend, opts,
-                 filter: str = "info"):
+                 filter: str = "info", rank: int = 0):
         T_cap, N_max, k_max = dims
         self.dims = tuple(int(d) for d in dims)
         self.r_max = int(r_max)
@@ -116,7 +117,8 @@ class FleetBucket:
         # cap vector below it.
         self.max_iters = max(s.max_iters for s in self.slots)
         self.cfg = EMConfig(estimate_A=est[0], estimate_Q=est[1],
-                            estimate_init=est[2], filter=str(filter))
+                            estimate_init=est[2], filter=str(filter),
+                            rank=int(rank))
         self.upload_panel()
         self.p = stack_params(ps, dtype=self.dt, device=self.dev)
         self.n_ticks = 0

@@ -30,7 +30,11 @@ numbers); request tracing and the live plane (``trace=``,
 ``accounting()``; item 13); the warm/cold tiers and the fleet manifest
 (``resident=``, ``evict``, ``admit``, ``snapshot_all``, ``restore_fleet``,
 ``read_manifest``; item 8, the fleet's next slice); the sharded tick
-(item 12); lowrank buckets (item 10, Queue 2 K9).
+(item 12).
+
+Admission and the "auto" engine price the fleet with the cost model of
+the backend's own device class ("gpu" for CUDA, "cpu"): profiles of
+another device in the registry do not plan this fleet.
 """
 
 from __future__ import annotations
@@ -50,7 +54,8 @@ from ..serve.batched import (CONVERGED, DIVERGED, FleetOptions, _fleet_core,
                              _not_ported)
 from ..serve.session import _Z90, SessionUpdate, _sync_debug_error
 from ..utils.data import build_mask
-from .admission import choose_engine, fleet_pad_waste, plan_admission
+from .admission import (choose_engine, device_class, fleet_pad_waste,
+                        plan_admission)
 from .buffers import FleetBucket
 
 __all__ = ["SessionFleet", "open_fleet", "restore_fleet", "read_manifest"]
@@ -210,11 +215,8 @@ class SessionFleet:
                     f"tenant {names[i]!r}: unknown fleet filter {f_i!r}; "
                     f"buckets route {_FLEET_FILTERS} (or 'auto' for the "
                     "calibrated cost-model choice per class)")
-            if f_i == "lowrank":
-                raise _not_ported("fleet filter='lowrank'",
-                                  "Queue 1 item 10 and Queue 2 K9")
             r_i = int(0 if ranks[i] is None else ranks[i])
-            r_i = r_i if f_i == "auto" else 0
+            r_i = r_i if f_i in ("lowrank", "auto") else 0
             engines.append((f_i, r_i))
             # The engine joins the admission key: buckets are engine-
             # homogeneous.
@@ -222,8 +224,10 @@ class SessionFleet:
                              f_i, r_i))
             entries.append((names[i], res, Y, masks[i], cap, m_it, tl))
         iters = [e[5] for e in entries]
+        device = device_class(b.device)
         classes = plan_admission(shapes, iters, cfg_keys,
-                                 max_classes=max_classes, runs=runs)
+                                 max_classes=max_classes, runs=runs,
+                                 device=device)
         self.pad_waste_frac = fleet_pad_waste(shapes, iters, classes)
         self._r_max = max(1, int(max_update_rows))
         self._ring = bool(ring)
@@ -234,14 +238,10 @@ class SessionFleet:
             eng, rk = engines[ca.members[0]]
             if eng == "auto":
                 eng = choose_engine(ca.dims, max(iters[i] for i in ca.members),
-                                    rank=rk, runs=runs)
-                if eng == "lowrank":
-                    raise _not_ported("fleet filter='lowrank' (chosen by "
-                                      "'auto')",
-                                      "Queue 1 item 10 and Queue 2 K9")
+                                    rank=rk, runs=runs, device=device)
             bk = FleetBucket([entries[i] for i in ca.members], ca.dims,
                              r_max=self._r_max, backend=b, opts=self._opts,
-                             filter=eng)
+                             filter=eng, rank=rk)
             self._buckets.append(bk)
             for s in bk.slots:
                 self._slot_of[s.name] = (bk, s)
@@ -270,7 +270,7 @@ class SessionFleet:
         capacity class."""
         return [{"dims": {"T": bk.dims[0], "N": bk.dims[1],
                           "k": bk.dims[2]},
-                 "filter": bk.cfg.filter, "rank": 0,
+                 "filter": bk.cfg.filter, "rank": bk.cfg.rank,
                  "tenants": [s.name for s in bk.slots]}
                 for bk in self._buckets]
 
@@ -586,12 +586,13 @@ def open_fleet(results, panels, masks=None, **kwargs) -> SessionFleet:
     ring            : ring-buffer panels: a submit past a tenant's
                       capacity evicts its oldest rows on the device
                       (K13b) instead of raising.
-    filter / rank   : per-tenant serving engine ("info", "pit_qr", or
-                      "auto" for the calibrated cost-model choice per
-                      class, evidence-gated); the default inherits each
-                      fit's ``FitResult.filter`` when it is "pit_qr",
-                      else "info".  "lowrank" raises (ROADMAP Queue 1
-                      item 10).
+    filter / rank   : per-tenant serving engine ("info", "pit_qr",
+                      "lowrank", or "auto" for the calibrated cost-model
+                      choice per class, evidence-gated, priced for the
+                      backend's device class) and lowrank rank (<= 0:
+                      auto, min(k_max, 8) of the bucket); the default
+                      inherits each fit's ``FitResult.filter`` when it
+                      is "pit_qr" or "lowrank", else "info".
     backend         : a ``TorchBackend`` (default ``TorchBackend()``,
                       CUDA); "sharded" raises (item 12).
     max_classes     : capacity-class budget for admission control.

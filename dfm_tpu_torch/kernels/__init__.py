@@ -38,7 +38,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["LAUNCHES", "KERNELS", "PROBES", "build", "build_log", "launch",
-           "probe", "reset_launches", "check_k", "check_tensor"]
+           "probe", "reset_launches", "check_k", "check_lowrank",
+           "check_tensor"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -46,6 +47,10 @@ BUILD_DIR = _PKG.parent / "build" / "dfm_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KMAX = 16   # DFM_KMAX in csrc/common.cuh
+# The rank-r kernels' range (DFM_LR_KMAX, DFM_LR_RMAX in lowrank_scan.cu).
+LOWRANK_KMAX, LOWRANK_RMAX = 100, 32
+# The ROADMAP row that ports the kernels past their k range.
+GENERIC_K = "ROADMAP Queue 2, 'Generic k, the kernels already ported'"
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 
@@ -71,6 +76,10 @@ KERNELS = {
     "batched_obs_stats": ("obs_stats.cu", [_P] * 8 + [_I] * 4),
     "batched_quad_masked": ("quad_local.cu", [_P] * 9 + [_I] * 4),
     "batched_mstep_rows": ("mstep_rows.cu", [_P] * 7 + [_I] * 4 + [_D]),
+    "lowrank_basis": ("lowrank_scan.cu", [_P] * 2 + [_I] * 3),
+    "lowrank_scan": ("lowrank_scan.cu", [_P, _P, _I, _I] + [_P] * 11
+                     + [_I] * 4),
+    "lowrank_smoother": ("lowrank_scan.cu", [_P] * 10 + [_I] * 4),
 }
 
 # Measurement kernels off the model path, in the same form.
@@ -181,9 +190,27 @@ def _lib(source: str, suffix: str):
 
 
 def check_k(name: str, k: int) -> None:
-    """Raise unless the factor count is one the kernels take."""
-    if not 1 <= k <= KMAX:
-        raise ValueError(f"{name} kernel takes 1 <= k <= {KMAX}; got k = {k}")
+    """Raise unless the factor count is one the kernels take: k < 1 is
+    an error, k > KMAX not ported yet (the plain twins take any k)."""
+    if k < 1:
+        raise ValueError(f"{name} kernel takes k >= 1; got k = {k}")
+    if k > KMAX:
+        raise NotImplementedError(
+            f"{name} kernel takes k <= {KMAX} on CUDA (got k = {k}); wider "
+            f"factor models are {GENERIC_K}")
+
+
+def check_lowrank(name: str, k: int, r: int) -> None:
+    """Raise unless (k, r) is in the rank-r kernels' range: 1 <= r <=
+    min(k, LOWRANK_RMAX), k <= LOWRANK_KMAX."""
+    if not 1 <= r <= k:
+        raise ValueError(f"{name} kernel takes 1 <= r <= k; got k = {k}, "
+                         f"r = {r}")
+    if k > LOWRANK_KMAX or r > LOWRANK_RMAX:
+        raise NotImplementedError(
+            f"{name} kernel takes k <= {LOWRANK_KMAX} and r <= "
+            f"{LOWRANK_RMAX} on CUDA (got k = {k}, r = {r}); past that is "
+            f"{GENERIC_K}")
 
 
 def check_tensor(name: str, x, shape, dtype, device) -> None:

@@ -21,7 +21,8 @@ import torch
 from .. import kernels
 
 __all__ = ["sym", "default_jitter", "psd_cholesky", "chol_solve",
-           "chol_logdet", "solve_psd", "UNROLL_K_MAX", "QR_UNROLL_K_MAX",
+           "chol_logdet", "solve_psd", "chol_small", "chol_solve_small",
+           "UNROLL_K_MAX", "QR_UNROLL_K_MAX",
            "chol_unrolled", "matmul_vpu", "matvec_vpu",
            "chol_solve_unrolled", "tria_unrolled", "tria",
            "tri_solve_unrolled", "tri_solve", "psd_factor_unrolled",
@@ -78,6 +79,22 @@ def solve_psd(M: torch.Tensor, B: torch.Tensor,
               jitter: float | None = None) -> torch.Tensor:
     """Solve M X = B for symmetric PSD M via Cholesky."""
     return chol_solve(psd_cholesky(M, jitter), B)
+
+
+def chol_small(M: torch.Tensor) -> torch.Tensor:
+    """Cholesky of the small r x r systems of the rank-r engine (its S,
+    Gam and Sig carry their own regularization: no jitter here).  No clamp
+    and no raise: a failed factor's lower triangle becomes NaN, as
+    ``jnp.linalg.cholesky`` gives (``torch.linalg.cholesky`` would raise
+    and read the host)."""
+    L, info = torch.linalg.cholesky_ex(M)
+    bad = (info != 0)[..., None, None]
+    return torch.where(bad, torch.full_like(L, float("nan")).tril(), L)
+
+
+def chol_solve_small(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve (L L') X = B with the factor of ``chol_small``."""
+    return chol_solve(L, B)
 
 
 def chol_unrolled(P: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:

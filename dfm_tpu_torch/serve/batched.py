@@ -23,11 +23,12 @@ static ``max_iters`` warm EM with per-lane freezes, roll-backs and stops
 (``_fleet_em_scan``), the reporting smooth, nowcasts, bands, forecasts and
 diffusion-index forecasts for every lane, with no host read.  Engines:
 ``info`` runs the masked batched twins of ``estim.batched`` (K2b-m,
-K4b-fwd over a per-step C, K1b-m, K4b-bwd, K3b-m, K6b); ``pit_qr`` runs
-the lone masked pit_qr filter and smoother once per lane, which is exact
-because lanes are independent.  ``lowrank`` raises until it is ported
-(ROADMAP Queue 1 item 10, Queue 2 K9), as does the sharded tick
-(``fleet_impl_sharded``, item 12).
+K4b-fwd over a per-step C, K1b-m, K4b-bwd, K3b-m, K6b); ``lowrank`` runs
+K2b-m, K9-basis, K9-fwd, K1b-m (its quad_R) and K9-bwd once each over the
+whole bucket; ``pit_qr`` runs the lone masked pit_qr filter and smoother
+once per lane, which is exact because lanes are independent.  The sharded
+tick (``fleet_impl_sharded``) raises until it is ported (ROADMAP Queue 1
+item 12).
 """
 
 from __future__ import annotations
@@ -38,11 +39,17 @@ from typing import Optional
 import torch
 
 from .. import kernels
-from ..estim.batched import (_bmask, _bT, _batched_rts, batched_filter_masked,
-                             batched_m_step_masked, batched_ragged_append)
+from ..estim.batched import (_batched_obs_stats_masked, _batched_quad_masked,
+                             _batched_rts, _bmask, _bT,
+                             batched_filter_masked, batched_m_step_masked,
+                             batched_ragged_append)
 from ..estim.fused import _di_forecast_batched
 from ..ops.linalg import matmul_vpu, matvec_vpu
 from ..ops.precision import accum_dtype
+from ..ssm.info_filter import ObsStats
+from ..ssm.lowrank_filter import (lowrank_loglik_from_terms, lowrank_scan,
+                                  lowrank_smoother_scan, policy_basis,
+                                  resolve_rank)
 from ..ssm.params import SSMParams
 
 __all__ = ["ring_evict_append", "ring_evict_append_plain", "ring_evict",
@@ -185,13 +192,32 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported to dfm_tpu_torch yet: ROADMAP {item}")
 
 
+def _batched_lowrank_e_step(Ybuf, Wbuf, p, rank: int):
+    """The rank-r masked E-step of every lane at once: K2b-m, K9-basis,
+    K9-fwd, K1b-m (its quad_R) and K9-bwd, one launch each, then each
+    lane's loglik; lane b gets what the lone ``lowrank_filter`` /
+    ``lowrank_smoother`` pair gives on its panel (the JAX fleet's vmap of
+    that pair)."""
+    stats = ObsStats(*_batched_obs_stats_masked(Ybuf, Wbuf, p.Lam, p.R))
+    V = policy_basis(p.Lam, p.R, resolve_rank(p.A.shape[-1], rank))
+    xp, Pp, xf, Pf, ld, corr = lowrank_scan(stats.b, stats.C, V, p.A, p.Q,
+                                            p.mu0, p.P0)
+    quad_R, _ = _batched_quad_masked(Ybuf, Wbuf, p.Lam, p.R, xp, stats.b,
+                                     stats.C)
+    ll = lowrank_loglik_from_terms(stats, ld, corr, quad_R)
+    return (ll, *lowrank_smoother_scan(xp, Pp, xf, Pf, p.A, V))
+
+
 def _batched_e_step(Ybuf, Wbuf, p, cfg):
     """Batched masked E-step routed by ``cfg.filter``: (loglik (B,) f64,
     x_sm, P_sm, P_lag), batch-major.  ``info``: the masked batched twins
-    and K4b-bwd; ``pit_qr``: the lone masked pair once per lane."""
+    and K4b-bwd; ``lowrank``: its batched pass; ``pit_qr``: the lone
+    masked pair once per lane."""
     if cfg.filter == "info":
         ll, (xp, Pp, xf, Pf) = batched_filter_masked(Ybuf, Wbuf, p)
         return (ll, *_batched_rts(xp, Pp, xf, Pf, p.A))
+    if cfg.filter == "lowrank":
+        return _batched_lowrank_e_step(Ybuf, Wbuf, p, cfg.rank)
     if cfg.filter == "pit_qr":
         ff, sf = cfg.filter_fn(), cfg.smoother_fn()
         outs = []
@@ -201,8 +227,7 @@ def _batched_e_step(Ybuf, Wbuf, p, cfg):
             sm = sf(kf, pb)
             outs.append((kf.loglik, sm.x_sm, sm.P_sm, sm.P_lag))
         return tuple(torch.stack(v) for v in zip(*outs))
-    raise _not_ported(f"fleet filter={cfg.filter!r}",
-                      "Queue 1 item 10 and Queue 2 K9")
+    raise ValueError(f"fleet buckets do not route filter={cfg.filter!r}")
 
 
 def _fleet_em_scan(Ybuf, Wbuf, p0, tol, floor, iter_cap, tick_act, t_new,

@@ -35,7 +35,10 @@ step.  Not ported yet, each raising ``NotImplementedError``: the
 self-healing guard (``robust=`` other than None/False; ROADMAP Queue 1
 item 5: without faults the guarded and unguarded paths give the same
 numbers), request tracing and the live plane (``trace=``,
-``accounting()``; item 13), the ``pit`` and ``lowrank`` engines (item 10).
+``accounting()``; item 13), the ``pit`` engine (item 10).  The
+``lowrank`` engine serves at the backend's (or ``rank=``) rank r; its
+reporting smooth is its own rank-r pair, so its bands are the
+conservative rank-r ones.
 """
 
 from __future__ import annotations
@@ -70,7 +73,6 @@ _SESSION_IDS = itertools.count(1)
 _SERVE_FILTERS = ("dense", "info", "pit", "pit_qr", "lowrank")
 _NOT_PORTED = {
     "pit": "ROADMAP Queue 1 item 10 (the covariance-form pit engine)",
-    "lowrank": "ROADMAP Queue 1 item 10 and Queue 2 K9",
 }
 
 # The 90% two-sided band the serving layer reports coverage against.
@@ -82,10 +84,11 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported to dfm_tpu_torch yet: ROADMAP Queue 1 {item}")
 
 
-def _resolve_serve_engine(b, res_filter, filter, N):
-    """A session's engine: an explicit ``filter=`` wins; otherwise the
-    fit's resolved engine when it can serve a masked panel, else the
-    backend's masked pick."""
+def _resolve_serve_engine(b, res_filter, filter, rank, N):
+    """A session's (engine, rank): an explicit ``filter=`` wins;
+    otherwise the fit's resolved engine when it can serve a masked panel,
+    else the backend's masked pick.  The rank (``rank=``, else the
+    backend's) rides only with lowrank; every other engine gets 0."""
     if filter is not None:
         flt = str(filter)
         if flt not in _SERVE_FILTERS:
@@ -99,7 +102,8 @@ def _resolve_serve_engine(b, res_filter, filter, N):
         raise NotImplementedError(
             f"filter={flt!r} is not ported to dfm_tpu_torch yet: "
             f"{_NOT_PORTED[flt]}")
-    return flt
+    r = int(getattr(b, "rank", 0) if rank is None else rank)
+    return flt, (r if flt == "lowrank" else 0)
 
 
 def _check_robust(robust) -> None:
@@ -121,9 +125,7 @@ def _session_core(Ybuf, Wbuf, rows, rmask, n_new: int, n_evict: int,
     f, _ = em_while(Ybuf, Wbuf, p0, tol, floor, cfg, max_iters, chunk, opts,
                     n_steps=t_new)
     p_fit = f["p"]
-    ff, sf = cfg.report_pair()
-    kf = ff(Ybuf, p_fit, mask=Wbuf)
-    sm = sf(kf, p_fit)
+    _, sm = cfg.report_smooth(Ybuf, Wbuf, p_fit)
     i_T = min(max(t_new - 1, 0), Ybuf.shape[0] - 1)
     x_T, P_T = sm.x_sm[i_T], sm.P_sm[i_T]
     f_fore, y_fore, y_sd = forecast_path(p_fit, x_T, P_T, opts.horizon)
@@ -182,7 +184,8 @@ class NowcastSession:
                  max_update_rows: int = 8, max_iters: int = 5,
                  tol: float = 1e-6, horizon: Optional[int] = None,
                  di: Optional[bool] = None, ring: bool = False,
-                 filter: Optional[str] = None, backend=None, robust=None):
+                 filter: Optional[str] = None, rank: Optional[int] = None,
+                 backend=None, robust=None):
         from ..api import DynamicFactorModel, FitResult, TorchBackend
         if not isinstance(res, FitResult):
             raise TypeError(
@@ -217,8 +220,8 @@ class NowcastSession:
                 f"ring mode needs max_update_rows <= capacity so an "
                 f"update never evicts more rows than it appends; got "
                 f"max_update_rows={max_update_rows} > capacity={capacity}")
-        flt = _resolve_serve_engine(b, getattr(res, "filter", None), filter,
-                                    N)
+        engine = _resolve_serve_engine(b, getattr(res, "filter", None),
+                                       filter, rank, N)
         # Frozen standardizer: incoming rows are transformed with the
         # OPEN-time stats (re-standardizing per query would re-unit the
         # device-resident params).
@@ -226,12 +229,12 @@ class NowcastSession:
         Yz = std.transform(Y) if std is not None else Y
         W = build_mask(Y, mask)
         Yz = np.where(W > 0, np.nan_to_num(Yz), 0.0)
-        self._setup(b, res.model, res.params, std, Yz, W, flt, opts,
+        self._setup(b, res.model, res.params, std, Yz, W, engine, opts,
                     capacity=capacity, ring=ring, t_total=T0,
                     max_update_rows=max_update_rows, max_iters=max_iters,
                     tol=tol, n_queries=0)
 
-    def _setup(self, b, model, params, std, Y_live, W_live, flt, opts, *,
+    def _setup(self, b, model, params, std, Y_live, W_live, engine, opts, *,
                capacity, ring, t_total, max_update_rows, max_iters, tol,
                n_queries):
         """Host shadows, the device buffers and params, and the config
@@ -252,9 +255,11 @@ class NowcastSession:
         self._upload_panel()
         self._p = SSMParams.from_numpy(params, dtype=self._dt,
                                        device=self._dev)
+        flt, rank = engine
         self._cfg = EMConfig(estimate_A=model.estimate_A,
                              estimate_Q=model.estimate_Q,
-                             estimate_init=model.estimate_init, filter=flt)
+                             estimate_init=model.estimate_init, filter=flt,
+                             rank=rank)
         self._N = self._Yhost.shape[1]
         self._t = Y_live.shape[0]
         self._t_total = int(t_total)
@@ -288,6 +293,26 @@ class NowcastSession:
     def filter(self) -> str:
         """Resolved serving engine."""
         return self._cfg.filter
+
+    @property
+    def rank(self) -> int:
+        """The lowrank conditioning rank as asked (<= 0: auto); 0 outside
+        ``filter="lowrank"``."""
+        return self._cfg.rank
+
+    @property
+    def key(self) -> str:
+        """The query program's shape key, in the JAX session's format:
+        buffer shape and dtype, engine (with ``rank{r}`` for lowrank), row
+        budget, EM chunk and iteration budget."""
+        parts = ["x".join(map(str, self._Ybuf.shape))
+                 + "x" + str(self._dt).replace("torch.", ""),
+                 self._cfg.filter]
+        if self._cfg.filter == "lowrank":
+            parts.append(f"rank{self._cfg.rank}")
+        parts += [f"rows{self._r_max}", f"chunk{self._chunk}",
+                  f"max{self._max_iters}"]
+        return "/".join(parts)
 
     @property
     def total_rows(self) -> int:
@@ -517,7 +542,7 @@ class NowcastSession:
             "capacity": self._capacity,
             "ring": self._ring,
             "filter": self._cfg.filter,
-            "rank": 0,              # the JAX format's lowrank rank field
+            "rank": self._cfg.rank,
             "t_total": self._t_total,
             "max_update_rows": self._r_max,
             "max_iters": self._max_iters,
@@ -539,7 +564,8 @@ class NowcastSession:
     @classmethod
     def restore(cls, path: str, *, backend=None, robust=None,
                 capacity: Optional[int] = None, ring: Optional[bool] = None,
-                filter: Optional[str] = None) -> "NowcastSession":
+                filter: Optional[str] = None,
+                rank: Optional[int] = None) -> "NowcastSession":
         """Rebuild a warm session from ``snapshot(path)`` (either
         package's).  The stored panel is checked against its content
         fingerprint.  ``capacity``/``ring`` override the stored values; a
@@ -575,6 +601,7 @@ class NowcastSession:
                                else Y_live.shape[0])
             meta["filter"] = (str(z["filter"][()]) if "filter" in z.files
                               else "")
+            meta["rank"] = int(z["rank"][()]) if "rank" in z.files else 0
         if fp and panel_fingerprint(Y_live, W_live) != fp:
             raise ValueError(
                 f"session snapshot {path!r} is corrupt: the stored live "
@@ -612,11 +639,14 @@ class NowcastSession:
                     "capacity >= the stored length")
             Y_live = Y_live[T_live - capacity:]
             W_live = W_live[T_live - capacity:]
-        flt = _resolve_serve_engine(b, meta["filter"], filter, N)
+        engine = _resolve_serve_engine(
+            b, meta["filter"], filter, meta["rank"] if rank is None else rank,
+            N)
         self = cls.__new__(cls)
         self._setup(b, model, params,
                     Standardizer(mean=mean, scale=scale) if mean.size
-                    else None, Y_live, W_live, flt, opts, capacity=capacity,
+                    else None, Y_live, W_live, engine, opts,
+                    capacity=capacity,
                     ring=ring_mode, t_total=int(meta["t_total"]),
                     max_update_rows=int(meta["max_update_rows"]),
                     max_iters=int(meta["max_iters"]), tol=float(meta["tol"]),
@@ -662,9 +692,11 @@ def open_session(res=None, Y=None, mask=None, *, snapshot=None,
     ring            : True turns the panel into a ring buffer: updates
                       past capacity evict the oldest rows (K13) instead
                       of raising.
-    filter          : serving engine ("dense", "info", "pit_qr"); default
-                      inherits the fit's resolved ``FitResult.filter``.
-                      "pit" and "lowrank" raise (ROADMAP Queue 1 item 10).
+    filter / rank   : serving engine ("dense", "info", "pit_qr",
+                      "lowrank") and lowrank conditioning rank; default
+                      inherits the fit's resolved ``FitResult.filter``
+                      (rank from the backend).  "pit" raises (ROADMAP
+                      Queue 1 item 10).
     backend         : a ``TorchBackend`` (default ``TorchBackend()``, CUDA).
     robust          : None/False only (the guard is Queue 1 item 5).
     snapshot        : path written by ``session.snapshot(path)`` (this

@@ -105,7 +105,7 @@ def test_unported_engine_raises_instead_of_switching():
     Y = _panel(40, 30, 2, seed=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dtt.fit(dtt.DynamicFactorModel(2), Y, max_iters=2,
-                backend=dtt.TorchBackend(device="cpu", filter="lowrank"))
+                backend=dtt.TorchBackend(device="cpu", filter="pit"))
 
 
 def test_unmasked_wide_panel_resolves_to_ss_and_matches():

@@ -14,6 +14,7 @@ for bit (values move, nothing is computed).
 """
 
 import dataclasses
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -477,6 +478,74 @@ def test_auto_filter_on_an_empty_registry_is_info(trio):
     assert [c["filter"] for c in fl.classes] == ["info"]
 
 
+def _profiles(path, device):
+    """A registry of two calibrated profiles of one device at the trio's
+    bucket shape: the sequential scan at 10 ms an iteration and the rank-r
+    engine at 1 ms, so its evidence makes "auto" pick lowrank."""
+    path.mkdir(parents=True, exist_ok=True)
+    recs = [{"run_id": f"{device}-{prof}", "kind": "profile",
+             "config": {"device": device, "N": 12, "T": 56, "k": 2,
+                        "profile": prof, "iters": 4},
+             "metrics": {"dispatch_ms_per_program": 80.0,
+                         "sustained_ms_per_iter": ms}}
+            for prof, ms in (("chunked", 10.0), ("lowrank", 1.0))]
+    (path / "runs.jsonl").write_text(
+        "".join(json.dumps(r) + "\n" for r in recs))
+    return str(path)
+
+
+def test_cost_model_is_the_backends_own_device(trio, tmp_path, monkeypatch):
+    """A registry holding only TPU profiles no longer plans a fleet on
+    another device: on the CPU, admission and "auto" price with the "cpu"
+    prior (uncalibrated) and route info, though the TPU evidence alone
+    would pick lowrank."""
+    runs = _profiles(tmp_path / "tpu_runs", "tpu")
+    monkeypatch.setenv("DFM_RUNS", runs)
+    tpu = tadm._load_model(runs, None)
+    assert (tpu.device, tpu.calibrated, tpu.lowrank_calibrated) == (
+        "tpu", True, True)
+    assert tadm.choose_engine((56, 12, 2), 4, runs=runs) == "lowrank"
+    seen = []
+    real = tadm.fit_cost_model
+
+    def spy(profiles, device=None):
+        m = real(profiles, device=device)
+        seen.append(m)
+        return m
+
+    monkeypatch.setattr(tadm, "fit_cost_model", spy)
+    fl = dtt.open_fleet([t[1] for t in trio], [t[2] for t in trio],
+                        backend=CPU, filter="auto", **KW)
+    assert [c["filter"] for c in fl.classes] == ["info"]
+    assert seen and all(m.device == "cpu" and not m.calibrated
+                        for m in seen)
+    assert tadm.device_class(torch.device("cuda")) == "gpu"
+    assert tadm.device_class(CPU.device) == "cpu"
+
+
+def test_auto_routes_lowrank_on_own_device_evidence(trio, tmp_path,
+                                                    monkeypatch):
+    """With calibrated "cpu" profiles that favour the rank-r engine, an
+    "auto" CPU fleet routes its class to lowrank (it raised before the
+    engine was ported) and answers as an explicit lowrank fleet."""
+    monkeypatch.setenv("DFM_RUNS", _profiles(tmp_path / "cpu_runs", "cpu"))
+    fa = dtt.open_fleet([t[1] for t in trio], [t[2] for t in trio],
+                        backend=CPU, filter="auto", **KW)
+    fe = dtt.open_fleet([t[1] for t in trio], [t[2] for t in trio],
+                        backend=CPU, filter="lowrank", **KW)
+    assert [c["filter"] for c in fa.classes] == ["lowrank"]
+    assert fa.classes == fe.classes
+    for fl in (fa, fe):
+        for i in range(3):
+            fl.submit(f"t{i}", trio[i][3][:2])
+    oa, oe = fa.drain(), fe.drain()
+    for name in oe:
+        np.testing.assert_array_equal(oa[name][0].nowcast,
+                                      oe[name][0].nowcast)
+        np.testing.assert_array_equal(oa[name][0].factors,
+                                      oe[name][0].factors)
+
+
 # ------------------------------------------------------ host guards --
 
 def test_open_fleet_validation(trio):
@@ -555,8 +624,6 @@ def _unported(fl, trio):
                                          robust=True),
         "resident": lambda: dtt.open_fleet([res], [Y0], backend=CPU,
                                            resident=1),
-        "lowrank": lambda: dtt.open_fleet([res], [Y0], backend=CPU,
-                                          filter="lowrank", rank=1),
         "sharded": lambda: dtt.open_fleet([res], [Y0], backend="sharded"),
         "trace": lambda: fl.submit("t0", Y0[:1], trace={}),
         "accounting": fl.accounting,
@@ -569,7 +636,7 @@ def _unported(fl, trio):
     }
 
 
-UNPORTED = ["robust", "resident", "lowrank", "sharded", "trace",
+UNPORTED = ["robust", "resident", "sharded", "trace",
             "accounting", "evict", "admit", "snapshot_all", "restore_fleet",
             "read_manifest", "fleet_impl_sharded"]
 

@@ -157,5 +157,6 @@ def test_cpu_path_launches_no_kernel():
                                      "batched_ring_append",
                                      "batched_obs_stats",
                                      "batched_quad_masked",
-                                     "batched_mstep_rows"}
+                                     "batched_mstep_rows", "lowrank_basis",
+                                     "lowrank_scan", "lowrank_smoother"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())

@@ -186,13 +186,32 @@ def test_host_guards_raise_before_device_work(panel, fits):
         dtt.open_session("nope", panel[:40], backend=_tb())
 
 
-@pytest.mark.parametrize("kw", [dict(robust=True), dict(filter="pit"),
-                                dict(filter="lowrank")],
-                         ids=["robust", "pit", "lowrank"])
+@pytest.mark.parametrize("kw", [dict(robust=True), dict(filter="pit")],
+                         ids=["robust", "pit"])
 def test_unported_options_raise(panel, fits, kw):
     _, rt, _ = fits("info", False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dtt.open_session(rt, panel[:40], backend=_tb(), **kw)
+
+
+def test_lowrank_session_snapshot_carries_engine_and_rank(panel, fits,
+                                                          tmp_path):
+    """A lowrank session at rank 1 answers as the JAX one (same shape key,
+    ``rank{r}`` suffix included); its snapshot stores the engine and the
+    rank, and restores as a rank-1 lowrank session in both packages."""
+    rj, rt, jb = fits("info", False)
+    kw = dict(capacity=60, max_update_rows=4, max_iters=3, tol=0.0,
+              filter="lowrank", rank=1)
+    ts = dtt.open_session(rt, panel[:40], backend=_tb(), **kw)
+    js = jopen(rj, panel[:40], backend=jb, robust=False, **kw)
+    assert (ts.filter, ts.rank) == (js.filter, js.rank) == ("lowrank", 1)
+    assert ts.key == js._key and "/rank1/" in ts.key
+    _assert_update_matches(ts.update(panel[40:43]), js.update(panel[40:43]))
+    path = ts.snapshot(str(tmp_path / "lowrank.npz"))
+    tr = dtt.open_session(snapshot=path, backend=_tb())
+    jr = jopen(snapshot=path, backend=jb, robust=False)
+    assert (tr.filter, tr.rank) == (jr.filter, jr.rank) == ("lowrank", 1)
+    _assert_update_matches(tr.update(panel[43:45]), jr.update(panel[43:45]))
 
 
 def test_unported_query_hooks_raise(panel, fits):
