@@ -151,14 +151,35 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    a lane's first divergence); the tick's kernels on the bucket's
    buffers.
 
+24. TVL kernels: K2-tv (``csrc/obs_stats.cu``), K1-tv
+   (``csrc/quad_local.cu``), K11-fwd and K11-bwd (``csrc/tv_loadings.cu``)
+   against their plain twins at S4's full width (T = 300, N = 5,000, k =
+   4; ``simulate_tv_loadings`` at walk scale 0.05), unmasked and masked
+   (the headline ragged edge and 5% scattered missing), f64 and f32 (the
+   TOL rule), timed warm and cold beside the plain twin, a
+   ``torch.einsum`` yardstick (K2-tv: C_t; K1-tv: the loadings' fit) and
+   the bound; then error checks at k = 1, 2, 4, 8, 9 and 16 on 120 x 400
+   panels with a fully missing step and a never-observed series.
+25. TVL fits: ``fit(TVLSpec(n_factors=4, n_rounds=20, tol=0.0), Y)`` at
+   5,000 x 300, unmasked and masked, f32 in chunks of 8, and a 12-step
+   forecast: finite outputs, exactly one read a chunk plus the result's,
+   exactly 1 K2-tv, K4-fwd, K1-tv, K4-bwd, K11-fwd and K11-bwd a round
+   (+1 K2-tv and K4 pair for the reporting pass), rounds/s and the wall;
+   two rounds under ``set_sync_debug_mode("error")``.
+26. TVL reference and contract: card f64 against CPU f64 on a 60 x 80,
+   k = 3 fit (masked and not) within 1e-9; from one init, 2 rounds in f32
+   and f64 at S4, the f32 state re-evaluated by ``tvl_loglik_eval`` in f64
+   within 1e-5 of the f64 state's conditional loglik.
+
 Output: one JSON line per kernel and dtype, one per fit, contract check,
-ring case, session, batched and fleet phase, then the {"kernels": [...]}
+ring case, session, batched, fleet and TVL phase, then the {"kernels": [...]}
 summary, the card line and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import inspect
 import json
 import subprocess
@@ -172,11 +193,14 @@ import dfm_tpu_torch as dt
 from dfm_tpu_torch import kernels
 from dfm_tpu_torch.backends import cpu_ref
 from dfm_tpu_torch.estim import batched as tb
+from dfm_tpu_torch.estim import em as tem
+from dfm_tpu_torch.estim import fused as tfu
 from dfm_tpu_torch.estim.em import (EMConfig, em_fit_scan, moments,
                                     mstep_rows, mstep_rows_plain,
                                     noise_floor_for)
 from dfm_tpu_torch.estim.fused import FusedOptions, run_fused
 from dfm_tpu_torch.estim.init import pca_init_device
+from dfm_tpu_torch.models import tv_loadings as tv
 from dfm_tpu_torch.ops import linalg as la
 from dfm_tpu_torch.ops import scan as sc
 from dfm_tpu_torch.ops.precision import highest_precision
@@ -223,7 +247,9 @@ L2_FLUSH_BYTES = 256 * 2**20                   # > 5x the H100's 50 MB L2
 # two triangular solves a row of a well-conditioned moment matrix, 1e-4 /
 # 1e-10 as K6.  K13 and K13b move values only: bit for bit.  K9-fwd and
 # K9-bwd are recursions (1e-4 / 1e-9, as K4); K9-basis is compared on its
-# projector V V', an eigensolve with a gap (1e-4 / 1e-10).
+# projector V V', an eigensolve with a gap (1e-4 / 1e-10).  K2-tv and K1-tv
+# are one-pass reductions (as K2 and K1); K11-fwd and K11-bwd are T-step
+# recursions a series (as K4), K11-bwd with a k x k factorization a step.
 TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "mstep_rows": 1e-4, "info_scan": 1e-4,
                        "rts_smoother": 1e-4, "ss_cov_path": 1e-4,
@@ -233,7 +259,9 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "batched_solve_rows": 1e-4, "batched_obs_stats": 1e-5,
                        "batched_quad_masked": 1e-5,
                        "batched_mstep_rows": 1e-4, "lowrank_basis": 1e-4,
-                       "lowrank_scan": 1e-4, "lowrank_smoother": 1e-4},
+                       "lowrank_scan": 1e-4, "lowrank_smoother": 1e-4,
+                       "tvl_obs_stats": 1e-5, "tvl_quad": 1e-5,
+                       "loading_filter": 1e-4, "loading_smoother": 1e-4},
        torch.float64: {"quad_local": 1e-10, "obs_stats": 1e-10,
                        "mstep_rows": 1e-9, "info_scan": 1e-9,
                        "rts_smoother": 1e-9, "ss_cov_path": 1e-9,
@@ -243,7 +271,9 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "batched_solve_rows": 1e-10, "batched_obs_stats": 1e-10,
                        "batched_quad_masked": 1e-10,
                        "batched_mstep_rows": 1e-9, "lowrank_basis": 1e-10,
-                       "lowrank_scan": 1e-9, "lowrank_smoother": 1e-9}}
+                       "lowrank_scan": 1e-9, "lowrank_smoother": 1e-9,
+                       "tvl_obs_stats": 1e-10, "tvl_quad": 1e-10,
+                       "loading_filter": 1e-9, "loading_smoother": 1e-9}}
 # The TPU routine each kernel replaces.
 REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "obs_stats": "dfm_tpu/ssm/info_filter.py:69",
@@ -265,7 +295,11 @@ REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "batched_mstep_rows": "dfm_tpu/estim/batched.py:682",
             "lowrank_basis": "dfm_tpu/ssm/lowrank_filter.py:96",
             "lowrank_scan": "dfm_tpu/ssm/lowrank_filter.py:107",
-            "lowrank_smoother": "dfm_tpu/ssm/lowrank_filter.py:207"}
+            "lowrank_smoother": "dfm_tpu/ssm/lowrank_filter.py:207",
+            "tvl_obs_stats": "dfm_tpu/models/tv_loadings.py:81",
+            "tvl_quad": "dfm_tpu/models/tv_loadings.py:111",
+            "loading_filter": "dfm_tpu/models/tv_loadings.py:148",
+            "loading_smoother": "dfm_tpu/models/tv_loadings.py:179"}
 # The variant of each kernel whose f32 record goes into the summary line.
 SUMMARY_VARIANT = {"quad_local": "masked", "obs_stats": "masked",
                    "mstep_rows": "masked", "info_scan": "masked",
@@ -762,7 +796,10 @@ OWN_FIT = {"quad_local": "masked", "obs_stats": "masked",
            "batched_quad_masked": "fleet", "batched_mstep_rows": "fleet",
            "lowrank_basis": "lowrank masked",
            "lowrank_scan": "lowrank masked",
-           "lowrank_smoother": "lowrank masked"}
+           "lowrank_smoother": "lowrank masked",
+           "tvl_obs_stats": "tvl unmasked", "tvl_quad": "tvl unmasked",
+           "loading_filter": "tvl unmasked",
+           "loading_smoother": "tvl unmasked"}
 
 
 def fit_phase(seed: int) -> dict:
@@ -2937,6 +2974,335 @@ def lowrank_fleet_phase(seed: int) -> None:
           "t": [s.t for s in slots], "max_rel_err": worst})
     fleet.close()
 
+# ---------------------------------------------------------------------------
+# The time-varying-loadings family (S4, K11, K2-tv, K1-tv): BASELINE.json's
+# S4 at its full width, 5,000 series x 300 steps, k = 4 (bench/configs.py:
+# 41-43), the random-walk DGP at walk scale 0.05 (bench/run.py:62-64).
+# ---------------------------------------------------------------------------
+
+TVL_T, TVL_N, TVL_K = 300, 5000, 4
+TVL_ROUNDS, TVL_CHUNK = 20, 8
+TVL_NEW = ("tvl_obs_stats", "tvl_quad", "loading_filter", "loading_smoother")
+TVL_SWEEP = (1, 2, 4, 8, 9, 16)
+
+
+def tvl_panel(seed: int, T_: int = TVL_T, N_: int = TVL_N, K_: int = TVL_K):
+    """S4's random-walk-loadings panel: (Y, mask with the headline panel's
+    ragged edge (last 12 rows of 30% of series) and 5% scattered missing,
+    true F (T, k), true loading paths (T, N, k), A, R)."""
+    rng = np.random.default_rng(seed)
+    Y, F, Lams, A, R = dgp.simulate_tv_loadings(N_, T_, K_, rng,
+                                                walk_scale=0.05)
+    W = np.ones((T_, N_))
+    W[T_ - 12:, rng.random(N_) < 0.30] = 0.0
+    W[rng.random((T_, N_)) < 0.05] = 0.0
+    return Y, W, F, Lams, A, R
+
+
+def tvl_cases(Y, W, F, Lams, pt, label: str) -> list:
+    """K2-tv, K1-tv, K11-fwd and K11-bwd on card tensors: ``Y`` (T, N)
+    zero-filled at missing, ``W`` the mask or None, the true factor path
+    ``F`` and loading paths ``Lams`` (T, N, k), params ``pt``; K1-tv at the
+    plain scan's x_pred, K11-bwd on the plain forward pass's output.
+    Library yardsticks: the one ``torch.einsum`` of C_t (K2-tv) and of the
+    loadings' fit (K1-tv).  Call under ``highest_precision()``."""
+    T_, N_, k = Lams.shape
+    stats = tv.obs_stats_tv_plain(Y, Lams, pt.R, W)
+    xp = inf.info_scan_plain(stats, pt.A, pt.Q, pt.mu0, pt.P0)[0]
+    lam_f, P_f = tv.loading_filter_plain(Y, F, pt.Lam0, pt.tau2, pt.R, W)
+    ms = () if W is None else (W,)
+    wr = (1.0 / pt.R).expand(T_, N_) if W is None else W / pt.R
+    tn = T_ * N_
+    return [
+        case("tvl_obs_stats", label,
+             lambda: tv.obs_stats_tv(Y, Lams, pt.R, W),
+             lambda: tv.obs_stats_tv_plain(Y, Lams, pt.R, W),
+             (Y, Lams, pt.R, *ms), tn * (2 * k + k * (k + 1) + 4),
+             library=lambda: torch.einsum("tnk,tn,tnl->tkl", Lams, wr,
+                                          Lams)),
+        case("tvl_quad", label,
+             lambda: tv.quad_local_tv(Y, Lams, pt.R, xp, W),
+             lambda: tv.quad_local_tv_plain(Y, Lams, pt.R, xp, W),
+             (Y, Lams, pt.R, xp, *ms), tn * (4 * k + 5),
+             library=lambda: torch.einsum("tnk,tk->tn", Lams, xp)),
+        case("loading_filter", label,
+             lambda: tv.loading_filter(Y, F, pt.Lam0, pt.tau2, pt.R, W),
+             lambda: tv.loading_filter_plain(Y, F, pt.Lam0, pt.tau2, pt.R,
+                                             W),
+             (Y, F, pt.Lam0, pt.tau2, pt.R, *ms), tn * (5 * k * k + 8 * k)),
+        case("loading_smoother", label,
+             lambda: tv.loading_smoother(lam_f, P_f, pt.tau2),
+             lambda: tv.loading_smoother_plain(lam_f, P_f, pt.tau2),
+             (lam_f, P_f, pt.tau2), tn * (6.5 * k ** 3 + 4 * k * k)),
+    ]
+
+
+def tvl_inputs(pan, dtype):
+    """Card tensors of a ``tvl_panel``: (Y zero-filled, mask, F, Lams,
+    params at the truth with tau2 = 1e-3, Q = I)."""
+    Y, W, F, Lams, A, R = pan
+    N_, k = Lams.shape[1], Lams.shape[2]
+    on = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda").contiguous()
+    pt = tv.TVLParams(Lam0=Lams[0], tau2=np.full((N_,), 1e-3), A=A,
+                      Q=np.eye(k), R=R, mu0=np.zeros(k),
+                      P0=np.eye(k)).to("cuda", dtype)
+    return on(np.where(W > 0, Y, 0.0)), on(W), on(Y), on(F), on(Lams), pt
+
+
+def tvl_kernel_phase(seed: int) -> dict:
+    """The four TVL kernels at S4's full width, unmasked and masked, f64
+    then f32, each against its plain twin (the TOL rule) and timed
+    (``kernel_record``).  Returns the f32 unmasked records by name."""
+    pan = tvl_panel(seed + 900)
+    summary, refs = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        Yz, Wt, Yf, Ft, Lt, pt = tvl_inputs(pan, dtype)
+        with highest_precision():
+            for c in (tvl_cases(Yf, None, Ft, Lt, pt, "unmasked")
+                      + tvl_cases(Yz, Wt, Ft, Lt, pt, "masked")):
+                rec = kernel_record(c, dtype, refs)
+                rec.update({"T": TVL_T, "N": TVL_N, "k": TVL_K})
+                emit(rec)
+                if dtype == torch.float32 and c["variant"] == "unmasked":
+                    summary[c["name"]] = rec
+        del Yz, Wt, Yf, Ft, Lt, pt
+        torch.cuda.empty_cache()
+    return summary
+
+
+def tvl_k_sweep(seed: int) -> None:
+    """The four TVL kernels at k = 1, 2, 4, 8, 9 and 16 (the kernels'
+    dispatch ends, and both sides of the JAX package's UNROLL_K_MAX = 8)
+    on 120 x 400 panels with a fully missing step and a never-observed
+    series, masked and unmasked, f64 and f32: error checks only."""
+    for k in TVL_SWEEP:
+        pan = tvl_panel(seed + 910 + k, T_=120, N_=400, K_=k)
+        pan[1][7] = 0.0
+        pan[1][:, 5] = 0.0
+        refs, worst = {}, {}
+        for dtype in (torch.float64, torch.float32):
+            Yz, Wt, Yf, Ft, Lt, pt = tvl_inputs(pan, dtype)
+            with highest_precision():
+                for c in (tvl_cases(Yf, None, Ft, Lt, pt, "unmasked")
+                          + tvl_cases(Yz, Wt, Ft, Lt, pt, "masked")):
+                    key = (c["name"], c["variant"])
+                    _, rel, _, ref, _ = compare(c, dtype, refs.get(key))
+                    refs[key] = ref
+                    worst[f"{c['name']} {c['variant']} {str(dtype)[6:]}"] = rel
+        emit({"tvl_k_sweep": k, "max_rel_err": worst})
+
+
+class ReadWatch:
+    """Counts and stamps the blocking reads of a TVL fit: one a chunk of
+    ``run_chunked`` (``estim.em.read_host``), then the packed result read
+    (``estim.fused.read_packed``)."""
+
+    def __enter__(self):
+        self.stamps = []
+        self._saved = (tem.read_host, tfu.read_packed)
+
+        def stamp(fn):
+            def stamped(x):
+                out = fn(x)
+                self.stamps.append(time.perf_counter())
+                return out
+            return stamped
+        tem.read_host, tfu.read_packed = map(stamp, self._saved)
+        return self
+
+    def __exit__(self, *exc):
+        tem.read_host, tfu.read_packed = self._saved
+
+
+def tvl_fit_phase(seed: int) -> dict:
+    """``fit(TVLSpec(n_factors=4, n_rounds=20, tol=0.0), Y)`` at 5,000 x
+    300 on ``TorchBackend()`` (f32, chunks of 8), unmasked and masked, with
+    a 12-step forecast: finite logliks, loadings, factors and forecasts;
+    exactly one read a chunk plus the result's; exactly one launch of each
+    of K2-tv, K4-fwd, K1-tv, K4-bwd, K11-fwd and K11-bwd a round run (+1
+    K2-tv and one K4 pair for the reporting pass) and no other kernel.
+    Rounds/s: the rounds after the first chunk over the wall between the
+    first chunk's read and the last one's.  Then ``tvl_round_breakdown``.
+    Returns each fit's launch counts by label."""
+    Y, W, _, _, _, _ = tvl_panel(seed + 901)
+    spec = dt.TVLSpec(n_factors=TVL_K, n_rounds=TVL_ROUNDS, tol=0.0)
+    backend = dt.TorchBackend(fused_chunk=TVL_CHUNK)
+    counts = {}
+    for label, Yx in (("tvl unmasked", Y),
+                      ("tvl masked", np.where(W > 0, Y, np.nan))):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with ReadWatch() as rw:
+            t0 = time.perf_counter()
+            res = dt.fit(spec, Yx, backend=backend)
+            y_fore, f_fore = dt.forecast(res, 12)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        n = len(res.logliks)
+        n_chunks = -(-n // TVL_CHUNK)
+        ran = min(TVL_ROUNDS, n_chunks * TVL_CHUNK)     # whole chunks run
+        chunk_reads = rw.stamps[:n_chunks]
+        steady = ran - TVL_CHUNK
+        per_round = {nm: launches[nm] / ran for nm in
+                     (*TVL_NEW, "info_scan", "rts_smoother")}
+        lls = res.logliks
+        emit({"fit": label, "spec": dataclasses.asdict(spec),
+              "shape": [TVL_T, TVL_N, TVL_K], "n_rounds": n,
+              "rounds_run": ran, "converged": res.converged,
+              "loglik_first": float(lls[0]), "loglik_last": float(lls[-1]),
+              "max_drop": float(max(0.0, -np.diff(lls).min())),
+              "noise_floor": noise_floor_for(torch.float32, TVL_T * TVL_N),
+              "wall_s": wall,
+              "rounds_per_sec": (steady / (chunk_reads[-1] - chunk_reads[0])
+                                 if steady > 0 else None),
+              "reads": len(rw.stamps), "launches_per_round": per_round,
+              "launches": launches})
+        want = {"tvl_obs_stats": ran + 1, "info_scan": ran + 1,
+                "rts_smoother": ran + 1, "tvl_quad": ran,
+                "loading_filter": ran, "loading_smoother": ran}
+        bad = {nm: launches[nm] for nm in launches
+               if launches[nm] != want.get(nm, 0)}
+        if bad or len(rw.stamps) != n_chunks + 1:
+            raise AssertionError(f"{label}: launches off the path's {want}: "
+                                 f"{bad}; reads {len(rw.stamps)}, expected "
+                                 f"{n_chunks + 1}")
+        for name, arr in (("logliks", lls), ("loadings", res.loadings),
+                          ("factors", res.factors), ("y_fore", y_fore),
+                          ("f_fore", f_fore)):
+            if not np.isfinite(arr).all():
+                raise AssertionError(f"{label}: non-finite {name}")
+        if (res.loadings.shape != (TVL_T, TVL_N, TVL_K)
+                or y_fore.shape != (12, TVL_N)):
+            raise AssertionError(f"{label}: unexpected output shapes")
+        counts[label] = launches
+        if label == "tvl unmasked":
+            fitted = res
+    tvl_round_breakdown(Y, fitted, spec)
+    return counts
+
+
+def tvl_round_breakdown(Y, res, spec) -> None:
+    """Where an unmasked S4 round goes (f32, warm L2, at the fitted state
+    ``res`` of panel ``Y``): each path kernel's time and the whole
+    ``tvl_round_core`` on the device (CUDA events, from its first launch
+    to its last); the rest is the round less the kernels (torch glue and
+    launch gaps), not a measured breakdown.  Then two rounds from that
+    state under ``set_sync_debug_mode("error")``: no host read inside a
+    round (the panel is uploaded before the guard)."""
+    Yt = torch.as_tensor(Y, dtype=torch.float32, device="cuda").contiguous()
+    with highest_precision():
+        Lt = torch.as_tensor(res.loadings, dtype=torch.float32,
+                             device="cuda").contiguous()
+        pt = tv.TVLParams(*res.params).to("cuda", torch.float32)
+        stats = tv.obs_stats_tv(Yt, Lt, pt.R)
+        fwd = inf.info_scan(stats, pt.A, pt.Q, pt.mu0, pt.P0)
+        kf = FilterResult(*fwd[:4], None)
+        dummy = SSMParams(Lt[0], pt.A, pt.Q, pt.R, pt.mu0, pt.P0)
+        F = rts_smoother(kf, dummy).x_sm
+        lam_f, P_f = tv.loading_filter(Yt, F, pt.Lam0, pt.tau2, pt.R)
+        ms = {"tvl_obs_stats": cuda_ms(lambda: tv.obs_stats_tv(Yt, Lt, pt.R)),
+              "info_scan": cuda_ms(lambda: inf.info_scan(
+                  stats, pt.A, pt.Q, pt.mu0, pt.P0)),
+              "tvl_quad": cuda_ms(lambda: tv.quad_local_tv(
+                  Yt, Lt, pt.R, fwd[0])),
+              "rts_smoother": cuda_ms(lambda: rts_smoother(kf, dummy)),
+              "loading_filter": cuda_ms(lambda: tv.loading_filter(
+                  Yt, F, pt.Lam0, pt.tau2, pt.R)),
+              "loading_smoother": cuda_ms(lambda: tv.loading_smoother(
+                  lam_f, P_f, pt.tau2))}
+        round_ms = cuda_ms(lambda: tv.tvl_round_core(Yt, None, Lt, pt, spec))
+        torch.cuda.synchronize()
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tv.tvl_round_scan(Yt, None, Lt, pt, spec, 2)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        torch.cuda.synchronize()
+    emit({"tvl_round_breakdown": "unmasked", "shape": [TVL_T, TVL_N, TVL_K],
+          "round_ms": round_ms, "kernel_ms": ms,
+          "rest_ms": round_ms - sum(ms.values()), "rounds_sync_checked": 2})
+
+
+def tvl_reference_phase(seed: int) -> None:
+    """``fit(TVLSpec(n_factors=3, n_rounds=6, tol=0))`` at 60 x 80, unmasked
+    and masked (a fully missing step and a never-observed series), on the
+    card in f64 against the CPU in f64 within 1e-9 relative (logliks,
+    loadings, factors, params, forecast)."""
+    pan = tvl_panel(seed + 902, T_=60, N_=80, K_=3)
+    Y, W = pan[0], pan[1]
+    W[7] = 0.0
+    W[:, 5] = 0.0
+    spec = dt.TVLSpec(n_factors=3, n_rounds=6, tol=0.0)
+    errs = {}
+    for label, Yx in (("unmasked", Y), ("masked", np.where(W > 0, Y, np.nan))):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            kernels.reset_launches()
+            r = dt.fit(spec, Yx, backend=dt.TorchBackend(
+                device=dev, dtype=torch.float64, fused_chunk=4))
+            res[dev] = (r, dt.forecast(r, 12)[0], dict(kernels.LAUNCHES))
+        (rg, yg, lg), (rc, yc, _) = res["cuda"], res["cpu"]
+        if any(lg[nm] == 0 for nm in TVL_NEW) or len(rg.logliks) != len(
+                rc.logliks):
+            raise AssertionError(f"tvl reference {label}: launches {lg}, "
+                                 f"rounds {len(rg.logliks)} / "
+                                 f"{len(rc.logliks)}")
+        for name, g, c in (("logliks", rg.logliks, rc.logliks),
+                           ("loadings", rg.loadings, rc.loadings),
+                           ("factors", rg.factors, rc.factors),
+                           ("tau2", rg.params.tau2, rc.params.tau2),
+                           ("R", rg.params.R, rc.params.R),
+                           ("A", rg.params.A, rc.params.A),
+                           ("y_fore", yg, yc)):
+            errs[f"{label} {name}"] = rel_err(g, c)
+    emit({"reference": "tvl", "shape": [60, 80, 3], "rounds": 6,
+          "max_rel_err": errs, "tol": 1e-9})
+    bad = {n: e for n, e in errs.items() if not e <= 1e-9}
+    if bad:
+        raise AssertionError(f"tvl card fit disagrees with the CPU fit: {bad}")
+
+
+def tvl_contract_phase(seed: int) -> None:
+    """The loglik contract of the TVL family (BASELINE.json:5) at S4's full
+    width, unmasked and masked: from one init (the fit's PCA warm start,
+    tau2 = 1e-4), 2 rounds in f32 and in f64 on the card; the f32 state
+    (loading paths and params, cast to f64) re-evaluated by
+    ``tvl_loglik_eval`` in f64 against the f64 state's conditional loglik
+    after its 2 rounds, within 1e-5 relative."""
+    Y, W, _, _, _, _ = tvl_panel(seed + 901)
+    spec = dt.TVLSpec(n_factors=TVL_K, n_rounds=2, tol=0.0)
+    for masked in (False, True):
+        Wm = W if masked else None
+        Yz = np.where(W > 0, Y, 0.0) if masked else Y
+        p0 = cpu_ref.pca_init(Yz, TVL_K, mask=Wm)
+        init = tv.TVLParams(Lam0=p0.Lam, tau2=np.full((TVL_N,), 1e-4),
+                            A=p0.A, Q=p0.Q, R=p0.R, mu0=p0.mu0, P0=p0.P0)
+        state = {}
+        with highest_precision():
+            for dtype in (torch.float32, torch.float64):
+                Yt = torch.as_tensor(Yz, dtype=dtype, device="cuda")
+                mt = (torch.as_tensor(Wm, dtype=dtype, device="cuda")
+                      if masked else None)
+                pt = init.to("cuda", dtype)
+                L0 = pt.Lam0.expand(TVL_T, TVL_N, TVL_K).contiguous()
+                state[dtype] = tv.tvl_round_scan(Yt, mt, L0, pt, spec, 2)[0]
+            L64, p64 = state[torch.float64]
+            ref = tv.tvl_loglik_eval(Yz, L64, p64, mask=Wm)
+            L32, p32 = state[torch.float32]
+            precise = tv.tvl_loglik_eval(Yz, L32.double(), p32.to(
+                dtype=torch.float64), mask=Wm)
+            fast = tv.tvl_loglik_eval(Yz, L32, p32, mask=Wm, precise=False)
+        rel = abs(precise - ref) / abs(ref)
+        emit({"contract": f"{'masked' if masked else 'unmasked'} tvl",
+              "shape": [TVL_T, TVL_N, TVL_K], "rounds": 2,
+              "loglik_f64": ref, "rel_err_precise": rel,
+              "rel_err_fast": abs(fast - ref) / abs(ref), "limit": 1e-5})
+        if not rel < 1e-5:
+            raise AssertionError(f"tvl loglik contract broken: {rel:.3e}")
+
+
 def ptxas_summary(source: str) -> dict:
     """Build seconds and, over the k = 10 instantiations of ``source``
     (every function for a source without a k template), the largest
@@ -3015,6 +3381,11 @@ def main() -> int:
     lowrank_contract_phase(args.seed)
     lowrank_session_phase(args.seed, lr_fused)
     lowrank_fleet_phase(args.seed)
+    summary.update(tvl_kernel_phase(args.seed))
+    tvl_k_sweep(args.seed)
+    launches.update(tvl_fit_phase(args.seed))
+    tvl_reference_phase(args.seed)
+    tvl_contract_phase(args.seed)
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"dfm_tpu_torch/csrc/{kernels.KERNELS[name][0]}",

@@ -8,7 +8,9 @@ forecasts; ``open_session`` streams updates into a fitted model;
 ``fit_many`` fits B independent problems in one batched program (EM
 restarts, ``select_n_factors_em``'s k-grid, ``oos_evaluate``'s rolling
 windows); ``open_fleet`` serves many tenants' sessions, one batched tick
-per capacity class.  The package imports neither JAX nor ``dfm_tpu``.
+per capacity class; ``fit(TVLSpec(...), Y)`` (or ``tvl_fit``) estimates
+the time-varying-loadings family.  The package imports neither JAX nor
+``dfm_tpu``.
 """
 
 from .api import DynamicFactorModel, FitResult, TorchBackend, fit, forecast
@@ -19,6 +21,7 @@ from .estim.select import EMSelectResult, select_n_factors_em
 from .fleet import (FleetBucket, SessionFleet, TenantSlot, fleet_pad_waste,
                     open_fleet, plan_admission)
 from .kernels import LAUNCHES
+from .models import TVLParams, TVLResult, TVLSpec, tvl_fit, tvl_forecast
 from .serve import NowcastSession, open_session
 from .ssm.params import SSMParams
 
@@ -27,4 +30,5 @@ __all__ = ["DynamicFactorModel", "FitResult", "TorchBackend", "fit",
            "SSMParams", "LAUNCHES", "DFMBatchSpec", "BatchFitResult",
            "fit_many", "select_n_factors_em", "EMSelectResult",
            "oos_evaluate", "OOSResult", "open_fleet", "SessionFleet",
-           "FleetBucket", "TenantSlot", "plan_admission", "fleet_pad_waste"]
+           "FleetBucket", "TenantSlot", "plan_admission", "fleet_pad_waste",
+           "TVLSpec", "TVLParams", "TVLResult", "tvl_fit", "tvl_forecast"]

@@ -4,7 +4,9 @@ The PyTorch twin of ``dfm_tpu.api`` for plain DFM fits:
 standardize -> PCA init -> chunked EM (or, with ``fused=``, the fused fit
 of ``estim.fused``: EM to convergence, smooth, nowcast and forecasts) ->
 reporting smooth, and ``forecast``; ``keep_session=`` opens a streaming
-``serve.NowcastSession`` on the fit.  ``TorchBackend`` runs on CUDA
+``serve.NowcastSession`` on the fit.  ``fit`` also takes a
+``models.TVLSpec`` (the time-varying-loadings family, ``tvl_fit``), as the
+JAX package's ``fit`` routes its family specs.  ``TorchBackend`` runs on CUDA
 unless the caller asks for the CPU (``device="cpu"``), where every
 kernel's plain version runs instead; a CUDA backend on a machine without
 a card raises.
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -23,6 +26,8 @@ from .backends import cpu_ref
 from .estim.em import EMConfig, noise_floor_for, run_em_chunked
 from .estim.fused import resolve_fused, run_fused
 from .estim.init import pca_init_device, standardize_device
+from .models.tv_loadings import (TVLParams, TVLResult, TVLSpec, tvl_fit,
+                                 tvl_forecast)
 from .ops.precision import default_compute_dtype, highest_precision
 from .ssm.info_filter import smooth
 from .ssm.params import SSMParams
@@ -179,14 +184,21 @@ class TorchBackend:
                                 mask=mask)
 
 
-def fit(model: DynamicFactorModel, Y: np.ndarray,
+def fit(model, Y: np.ndarray,
         mask: Optional[np.ndarray] = None,
         backend: Optional[TorchBackend] = None,
         max_iters: Optional[int] = None, tol: Optional[float] = None,
         init=None, fused=False, keep_session=False,
-        warm_start=None) -> FitResult:
+        warm_start=None):
     """Estimate a DFM: standardize -> PCA init -> EM -> smooth.
 
+    model : a ``DynamicFactorModel`` (returns a ``FitResult``) or a
+        ``models.TVLSpec``: the time-varying-loadings family through
+        ``tvl_fit`` on the backend's device, dtype and ``fused_chunk``
+        (returns a ``TVLResult``; ``max_iters`` / ``tol`` override the
+        spec's ``n_rounds`` / ``tol`` only when given, ``init`` must be a
+        ``TVLParams``; ``fused=`` warns and is ignored, ``warm_start=`` and
+        ``keep_session=`` raise ``TypeError``).
     Y    : (T, N) panel; NaNs mark missing observations.
     mask : optional explicit {0,1} mask, combined with the NaN pattern.
     backend : a ``TorchBackend``; None means ``TorchBackend()`` (CUDA).
@@ -207,6 +219,14 @@ def fit(model: DynamicFactorModel, Y: np.ndarray,
     warm_start : not ported yet (ROADMAP Queue 1 item 3, with the fused
         fit's device-panel residency cache); pass ``init=prev.params``.
     """
+    if isinstance(model, TVLSpec):
+        return _family_fit(model, Y, mask, backend, max_iters, tol, init,
+                           fused, keep_session, warm_start)
+    if not isinstance(model, DynamicFactorModel):
+        raise TypeError(
+            f"fit takes a DynamicFactorModel or a TVLSpec; got "
+            f"{type(model).__name__} (the other model families are not "
+            "ported yet: ROADMAP Queue 1 item 11)")
     if warm_start is not None:
         raise NotImplementedError(
             "fit(warm_start=) is not ported to dfm_tpu_torch yet: ROADMAP "
@@ -219,6 +239,37 @@ def fit(model: DynamicFactorModel, Y: np.ndarray,
         from .serve.session import open_session
         skw = dict(keep_session) if isinstance(keep_session, dict) else {}
         res.session = open_session(res, Y, mask=mask, backend=b, **skw)
+    return res
+
+
+def _family_fit(model: TVLSpec, Y, mask, backend, max_iters, tol, init,
+                fused, keep_session, warm_start) -> TVLResult:
+    """The twin of the JAX package's ``_family_fit`` TVL branch: the
+    backend's dtype, device and ``fused_chunk`` carry over; the options the
+    family does not take raise or warn as there."""
+    name = type(model).__name__
+    if warm_start is not None:
+        raise TypeError(
+            f"warm_start is only supported for DynamicFactorModel fits; "
+            f"the {name} family has its own init= type")
+    if keep_session:
+        raise TypeError(f"keep_session: the {name} family has no streaming "
+                        "session")
+    if init is not None and not isinstance(init, TVLParams):
+        raise TypeError(f"init for the {name} family must be TVLParams; "
+                        f"got {type(init).__name__}")
+    b = TorchBackend() if backend is None else backend
+    spec = model
+    if max_iters is not None or tol is not None:
+        spec = dataclasses.replace(
+            model,
+            n_rounds=max_iters if max_iters is not None else model.n_rounds,
+            tol=tol if tol is not None else model.tol)
+    res = tvl_fit(Y, spec, mask=mask, init=init, dtype=b.dtype,
+                  device=b.device, fused_chunk=b.fused_chunk)
+    if fused:
+        warnings.warn(f"the {name} family has no fused while-loop driver; "
+                      "ignoring fused=", RuntimeWarning, stacklevel=3)
     return res
 
 
@@ -327,12 +378,15 @@ def _fit_fused(model, Yt, mt, p0: SSMParams, cfg: EMConfig,
                      host_reads=run.host_reads)
 
 
-def forecast(result: FitResult, horizon: int):
+def forecast(result, horizon: int):
     """h-step-ahead forecasts in ORIGINAL data units (de-standardized).
 
     Returns (y_fore (h, N), f_fore (h, k)), iterating the factor dynamics
-    from the last smoothed state.
+    from the last smoothed state; a ``TVLResult`` goes to ``tvl_forecast``
+    (loadings frozen at T).
     """
+    if isinstance(result, TVLResult):
+        return tvl_forecast(result, horizon)
     f, y, _ = cpu_ref.forecast(result.params, result.factors[-1],
                                result.factor_cov[-1], horizon)
     if result.standardizer is not None:

@@ -24,6 +24,17 @@
 // in the compute dtype, then widened); the lone K2 keeps them in T, as its
 // JAX branch does.
 //
+// K2-tv, the time-varying-loadings twin, is the same kernel with the
+// loadings read at a time stride (Lam_t (T, N, k), a row of N k values a
+// step) and the mask optional: it replaces
+// dfm_tpu/models/tv_loadings.py:obs_stats_tv (line 81), both branches.
+// Unmasked (no mask pointer) it sums y lam / R with w = 1, so n_t = N and
+// ldR_t = sum_n log R_n; n_t and ldR_t are summed and written in double, as
+// K2b-m's.  The unmasked statistics of a static Lam are a GEMM, but over
+// per-step loadings they are not one: this kernel serves both branches.
+// Bound: bytes, Y and the loadings read once, 30 MB in f32 at T = 300,
+// N = 5,000, k = 4 (~9 us at 3.35 TB/s).
+//
 // Design: one block per t (and lane).  Each thread walks series with a stride of
 // blockDim.x, keeps its partials of all k + k(k+1)/2 + 2 outputs in
 // registers (k is a template constant so the partials stay in registers;
@@ -39,7 +50,7 @@ __global__ void __launch_bounds__(kThreads)
 obs_stats_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
                  const T* __restrict__ R, const T* __restrict__ mask,
                  T* __restrict__ b, T* __restrict__ C, TA* __restrict__ nobs,
-                 TA* __restrict__ ldR, int N) {
+                 TA* __restrict__ ldR, int N, size_t lam_tstride) {
   constexpr int NC = K * (K + 1) / 2;
   constexpr int NV = K + NC;
   __shared__ T part[kThreads / 32][NV];
@@ -48,24 +59,24 @@ obs_stats_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
   // This block's problem lane.
   const size_t pb = blockIdx.y, tn = (size_t)T_ * N;
   Y += pb * tn;
-  mask += pb * tn;
-  Lam += pb * (size_t)N * K;
+  if (mask) mask += pb * tn;
+  Lam += pb * (size_t)N * K + t * lam_tstride;
   R += pb * N;
   b += pb * (size_t)T_ * K;
   C += pb * (size_t)T_ * K * K;
   nobs += pb * T_;
   ldR += pb * T_;
   const T* y = Y + (size_t)t * N;
-  const T* w = mask + (size_t)t * N;
+  const T* w = mask ? mask + (size_t)t * N : nullptr;
   T acc[NV];
 #pragma unroll
   for (int e = 0; e < NV; ++e) acc[e] = T(0);
   TA acc_n = TA(0), acc_l = TA(0);
   for (int n = threadIdx.x; n < N; n += kThreads) {
-    const T wn = w[n];
+    const T wn = w ? w[n] : T(1);
     const T rinv = T(1) / R[n];
-    const T yw = wn * nan_to_num(y[n]);
-    const T wr = wn * rinv;
+    const T yw = w ? wn * nan_to_num(y[n]) : y[n];
+    const T wr = w ? wn * rinv : rinv;
     T lam[K];
 #pragma unroll
     for (int j = 0; j < K; ++j) lam[j] = Lam[(size_t)n * K + j];
@@ -118,11 +129,11 @@ obs_stats_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
 template <typename T, typename TA>
 static int launch(const T* Y, const T* Lam, const T* R, const T* mask, T* b,
                   T* C, TA* nobs, TA* ldR, int B, int T_, int N, int k,
-                  cudaStream_t stream) {
+                  size_t lam_tstride, cudaStream_t stream) {
   if (B <= 0 || T_ <= 0) return (int)cudaGetLastError();
   DFM_DISPATCH_K(k, obs_stats_kernel<T, TA, K><<<dim3(T_, B), kThreads, 0,
                                              stream>>>(
-                        Y, Lam, R, mask, b, C, nobs, ldR, N))
+                        Y, Lam, R, mask, b, C, nobs, ldR, N, lam_tstride))
   return (int)cudaGetLastError();
 }
 
@@ -131,15 +142,21 @@ extern "C" {
   int obs_stats_##SFX(const T* Y, const T* Lam, const T* R, const T* mask,   \
                       T* b, T* C, T* nobs, T* ldR, int T_, int N, int k,     \
                       void* stream) {                                        \
-    return launch<T, T>(Y, Lam, R, mask, b, C, nobs, ldR, 1, T_, N, k,       \
+    return launch<T, T>(Y, Lam, R, mask, b, C, nobs, ldR, 1, T_, N, k, 0,    \
                         (cudaStream_t)stream);                               \
+  }                                                                          \
+  int tvl_obs_stats_##SFX(const T* Y, const T* Lam_t, const T* R,            \
+                          const T* mask, T* b, T* C, double* nobs,           \
+                          double* ldR, int T_, int N, int k, void* stream) { \
+    return launch<T, double>(Y, Lam_t, R, mask, b, C, nobs, ldR, 1, T_, N,   \
+                             k, (size_t)N * k, (cudaStream_t)stream);        \
   }                                                                          \
   int batched_obs_stats_##SFX(const T* Y, const T* Lam, const T* R,          \
                               const T* mask, T* b, T* C, double* nobs,       \
                               double* ldR, int B, int T_, int N, int k,      \
                               void* stream) {                                \
     return launch<T, double>(Y, Lam, R, mask, b, C, nobs, ldR, B, T_, N, k,  \
-                             (cudaStream_t)stream);                          \
+                             0, (cudaStream_t)stream);                       \
   }
 #if DFM_WANT_F32
 DFM_OBS_ENTRIES(f32, float)

@@ -20,6 +20,21 @@
 // pass of dfm_tpu/estim/batched.py:_batched_loglik_masked (lines 656-659),
 // quad[b, t] = sum_n w (y - lam . x_pred)^2 / R and U = b - C_t x_pred.
 //
+// K1-tv, the time-varying-loadings twin (tvl_quad_kernel below), replaces
+// the residual pass of dfm_tpu/models/tv_loadings.py:factor_pass_tv (lines
+// 111-117; the same lines in _tvl_loglik_impl, 270-275) with per-step
+// loadings Lam_t (T, N, k):
+//   v = y - lam_t,n . x_pred,t  (masked: w nan_to_num(v)),  vr = v / R_n
+//   quad_R[t] = sum_n v vr      (f64 sum)
+//   U[t]      = sum_n vr lam_t,n  (k,)
+// U comes from the residual, as the JAX function computes it (not from
+// b - C x, equal only in exact arithmetic).  Masked and unmasked, one
+// kernel.  Bound: bytes, Y (and the mask) and the loadings read once, 30
+// MB in f32 at T = 300, N = 5,000, k = 4 (~9 us at 3.35 TB/s).  Design:
+// K1's, with k a template constant so each thread's k partials of U stay
+// in registers; the block reduces them with shuffles and shared memory,
+// in the compute type, and the quadratic in double.
+//
 // Bound on the H100: bytes.  The kernel must read Y (and the mask) once:
 // 20 MB unmasked, 40 MB masked in f32 at T = 500, N = 10,000 (K1b: 160 MB
 // at B = 8), against ~2(k+2) flops per entry.
@@ -77,6 +92,67 @@ __global__ void quad_local_kernel(const T* __restrict__ Y,
   if (threadIdx.x == 0) out[t] = acc;
 }
 
+template <typename T, int K>
+__global__ void __launch_bounds__(256)
+tvl_quad_kernel(const T* __restrict__ Y, const T* __restrict__ Lam_t,
+                const T* __restrict__ R, const T* __restrict__ x_pred,
+                const T* __restrict__ mask, double* __restrict__ out,
+                T* __restrict__ U, int N) {
+  constexpr int kW = 256 / 32;
+  __shared__ T xs[K];
+  __shared__ T part[kW][K];
+  __shared__ double red[32];
+  const int t = blockIdx.x;
+  if (threadIdx.x < K) xs[threadIdx.x] = x_pred[(size_t)t * K + threadIdx.x];
+  __syncthreads();
+  const T* y = Y + (size_t)t * N;
+  const T* w = mask ? mask + (size_t)t * N : nullptr;
+  const T* lam_row = Lam_t + (size_t)t * N * K;
+  double acc = 0.0;
+  T u[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) u[j] = T(0);
+  for (int n = threadIdx.x; n < N; n += 256) {
+    T lam[K];
+    T fit = T(0);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      lam[j] = lam_row[(size_t)n * K + j];
+      fit += lam[j] * xs[j];
+    }
+    T v = y[n] - fit;
+    if (w) v = w[n] * nan_to_num(v);
+    const T vr = v / R[n];
+    acc += (double)(v * vr);
+#pragma unroll
+    for (int j = 0; j < K; ++j) u[j] += vr * lam[j];
+  }
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    T v = u[j];
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) part[wid][j] = v;
+  }
+  acc = block_reduce_sum(acc, red);   // its __syncthreads orders part too
+  if (threadIdx.x == 0) out[t] = acc;
+  if (threadIdx.x < K) {
+    T s = T(0);
+    for (int q = 0; q < kW; ++q) s += part[q][threadIdx.x];
+    U[(size_t)t * K + threadIdx.x] = s;
+  }
+}
+
+template <typename T>
+static int launch_tvl(const T* Y, const T* Lam_t, const T* R,
+                      const T* x_pred, const T* mask, double* out, T* U,
+                      int T_, int N, int k, cudaStream_t stream) {
+  if (T_ <= 0) return (int)cudaGetLastError();
+  DFM_DISPATCH_K(k, tvl_quad_kernel<T, K><<<T_, 256, 0, stream>>>(
+                        Y, Lam_t, R, x_pred, mask, out, U, N))
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch(const T* Y, const T* Lam, const T* R, const T* x_pred,
                   const T* mask, const T* bvec, const T* C, int c_lane,
@@ -96,6 +172,12 @@ extern "C" {
                        int N, int k, void* stream) {                         \
     return launch<T>(Y, Lam, R, x_pred, mask, nullptr, nullptr, 0, 0, out,   \
                      nullptr, 1, T_, N, k, (cudaStream_t)stream);            \
+  }                                                                          \
+  int tvl_quad_##SFX(const T* Y, const T* Lam_t, const T* R,                 \
+                     const T* x_pred, const T* mask, double* out, T* U,      \
+                     int T_, int N, int k, void* stream) {                   \
+    return launch_tvl<T>(Y, Lam_t, R, x_pred, mask, out, U, T_, N, k,        \
+                         (cudaStream_t)stream);                              \
   }                                                                          \
   int batched_quad_##SFX(const T* Y, const T* Lam, const T* R,               \
                          const T* x_pred, const T* bvec, const T* C,         \

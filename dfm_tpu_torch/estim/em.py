@@ -33,7 +33,8 @@ from ..ssm.params import SmootherResult, SSMParams
 from ..ssm.steady import DEFAULT_TAU, ss_filter_smoother
 
 __all__ = ["EMConfig", "em_step", "em_fit_scan", "em_chunk",
-           "run_em_chunked", "em_progress", "noise_floor_for",
+           "run_em_chunked", "run_chunked", "read_host", "em_progress",
+           "noise_floor_for",
            "warn_ss_delta", "moments", "moment_sums", "mstep_rows", "mstep_rows_plain", "mstep_dynamics",
            "mstep_dynamics_sums", "mstep_dynamics_tmasked", "cfg_hypers"]
 
@@ -416,64 +417,100 @@ def noise_floor_for(dtype, n_obs: float = 1.0, mult: float = 100.0) -> float:
     return mult * float(torch.finfo(dtype).eps) * max(n_obs, 1.0)
 
 
+def read_host(x: torch.Tensor) -> np.ndarray:
+    """The blocking device->host read of a ``run_chunked`` chunk."""
+    return x.cpu().numpy()
+
+
+def run_chunked(scan_fn, state0, max_iters: int, tol: float,
+                noise_floor: float, fused_chunk: int = 8,
+                monotone: bool = True):
+    """The stop-and-select loop of the JAX package's ``run_em_chunked``,
+    over any update.
+
+    ``scan_fn(state, n)`` runs n updates on the device with no host read
+    and returns (the states after each update, a list of n; the logliks
+    (n,) at each update's entering state, a tensor; per-update extras (n,)
+    or None).  Each chunk of up to ``fused_chunk`` updates is read with
+    ONE blocking read (``read_host``: the logliks, stacked with the extras
+    if any).  The states of the current chunk and the two the stopping
+    rule can still pick from the one before (its last two update counts)
+    stay on the device, so a mid-chunk stop returns the state of exactly
+    the update count the rule chose (converged: every update that ran;
+    diverged: the state entering the pre-drop update).
+
+    Returns (state, logliks (n,) np.float64, converged, update count,
+    secs, extras) with ``secs[i]`` the host wall of update i's chunk,
+    ending at its read, on the chunk's first update and 0.0 on the others,
+    and ``extras`` the read extras of each chunk up to the stop (a list of
+    arrays; empty without extras).
+    """
+    fused_chunk = max(1, int(fused_chunk))
+    by_iter = {0: state0}      # update count -> state
+    lls: list = []
+    secs: list = []
+    extras: list = []
+    converged = stop = False
+    target = it = 0
+    while it < max_iters and not stop:
+        t0 = time.perf_counter()
+        n = min(fused_chunk, max_iters - it)
+        states, chunk, extra = scan_fn(by_iter[it], n)
+        if extra is None:
+            chunk = read_host(chunk)                            # one read
+        else:
+            chunk, extra = read_host(torch.stack(
+                [chunk, extra.to(chunk.dtype)]))                # one read
+        wall = time.perf_counter() - t0
+        by_iter = {i: q for i, q in by_iter.items() if i >= it - 1}
+        by_iter.update({it + j + 1: q for j, q in enumerate(states)})
+        for j, ll in enumerate(chunk):
+            lls.append(float(ll))
+            secs.append(wall if j == 0 else 0.0)
+            state = em_progress(lls, tol, noise_floor, monotone=monotone)
+            if state != "continue":
+                converged = state == "converged"
+                target = (len(lls) if converged
+                          else max(len(lls) - 2, 0))
+                stop = True
+                break
+        # Updates after a stop ran but are discarded: their extras do not
+        # count.
+        if extra is not None:
+            extras.append(extra[:j + 1])
+        it += n
+    iters = target if stop else it
+    return (by_iter[iters], np.asarray(lls), converged, iters, secs,
+            extras)
+
+
 def run_em_chunked(Y, mask, p0: SSMParams, cfg: EMConfig, max_iters: int,
                    tol: float, fused_chunk: int = 8):
     """Chunked EM driver with the stop semantics of the JAX package's
-    ``run_em_chunked``.
+    ``run_em_chunked`` (``run_chunked`` over ``em_fit_scan``).
 
     Each chunk runs up to ``fused_chunk`` iterations on the device and
     reads the chunk's logliks and ss freeze deltas with ONE blocking
-    device->host read.  The params after every update of the current and
-    previous chunk stay on the device, so a mid-chunk stop returns params
-    that embody exactly the update count the stopping rule chose
-    (converged: every iteration that ran; diverged: the params entering
-    the pre-drop iteration).
+    device->host read; a mid-chunk stop returns params that embody
+    exactly the update count the stopping rule chose.
 
     Returns (params, logliks (n,) np.float64, converged, params_iters,
-    secs, max_delta) with ``secs[i]`` the host wall time of iteration i's
-    chunk, ending at its blocking read, on the chunk's first iteration and
-    0.0 on the others (the host sees a chunk as one step), and
-    ``max_delta`` the largest ss freeze delta of the iterations up to the
-    stop (0.0 for the other engines; above 1e-4 it warns).
+    secs, max_delta) with ``secs`` as ``run_chunked``'s and ``max_delta``
+    the largest ss freeze delta of the iterations up to the stop (0.0 for
+    the other engines; above 1e-4 it warns).
     """
-    fused_chunk = max(1, int(fused_chunk))
     noise_floor = noise_floor_for(Y.dtype, Y.numel(),
                                   mult=cfg.noise_floor_mult)
-    monotone = cfg_hypers(cfg) is None
     consts = _panel_consts(Y, mask is not None, cfg)
-    by_iter = {0: p0}          # update count -> params (two chunks kept)
-    lls: list = []
-    secs: list = []
-    max_delta = 0.0
-    converged = stop = False
-    target = it = 0
     with highest_precision():
-        while it < max_iters and not stop:
-            t0 = time.perf_counter()
-            n = min(fused_chunk, max_iters - it)
-            ps, chunk, deltas = em_fit_scan(Y, by_iter[it], n, mask=mask,
-                                            cfg=cfg, consts=consts)
-            chunk, deltas = torch.stack(
-                [chunk, deltas.to(chunk.dtype)]).cpu().numpy()   # one read
-            wall = time.perf_counter() - t0
-            by_iter = {i: q for i, q in by_iter.items() if i >= it - fused_chunk}
-            by_iter.update({it + j + 1: q for j, q in enumerate(ps)})
-            for j, ll in enumerate(chunk):
-                lls.append(float(ll))
-                secs.append(wall if j == 0 else 0.0)
-                state = em_progress(lls, tol, noise_floor, monotone=monotone)
-                if state != "continue":
-                    converged = state == "converged"
-                    target = (len(lls) if converged
-                              else max(len(lls) - 2, 0))
-                    stop = True
-                    break
-            # Iterations after a stop ran but are discarded: their deltas
-            # do not count.
-            max_delta = max(max_delta, float(np.max(deltas[:j + 1])))
-            it += n
+        p, lls, converged, p_iters, secs, deltas = run_chunked(
+            lambda q, n: em_fit_scan(Y, q, n, mask=mask, cfg=cfg,
+                                     consts=consts),
+            p0, max_iters, tol, noise_floor, fused_chunk,
+            monotone=cfg_hypers(cfg) is None)
+    max_delta = 0.0
+    for d in deltas:
+        max_delta = max(max_delta, float(np.max(d)))
     if cfg.filter == "ss":
         warn_ss_delta(max_delta, cfg.tau)
-    p_iters = target if stop else it
-    return (by_iter[p_iters], np.asarray(lls), converged, p_iters, secs,
-            max_delta)
+    return p, lls, converged, p_iters, secs, max_delta

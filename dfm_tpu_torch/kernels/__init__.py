@@ -80,6 +80,10 @@ KERNELS = {
     "lowrank_scan": ("lowrank_scan.cu", [_P, _P, _I, _I] + [_P] * 11
                      + [_I] * 4),
     "lowrank_smoother": ("lowrank_scan.cu", [_P] * 10 + [_I] * 4),
+    "tvl_obs_stats": ("obs_stats.cu", [_P] * 8 + [_I] * 3),
+    "tvl_quad": ("quad_local.cu", [_P] * 7 + [_I] * 3),
+    "loading_filter": ("tv_loadings.cu", [_P] * 8 + [_I] * 3),
+    "loading_smoother": ("tv_loadings.cu", [_P] * 6 + [_I] * 3),
 }
 
 # Measurement kernels off the model path, in the same form.

@@ -1,7 +1,8 @@
 """Factor-model data-generating process (a copy of ``dfm_tpu.utils.dgp``).
 
 Draw loadings, simulate a stable factor VAR(1) path, add idiosyncratic
-noise.  Deterministic given the NumPy generator, so the same seed gives the
+noise; ``simulate_tv_loadings`` draws the random-walk-loadings panel of the
+time-varying-loadings family (config S4).  Deterministic given the NumPy generator, so the same seed gives the
 same panel as the JAX package's copy.
 """
 
@@ -13,7 +14,7 @@ import numpy as np
 
 from ..backends.cpu_ref import SSMParams, _solve_discrete_lyapunov_or_eye
 
-__all__ = ["dfm_params", "simulate"]
+__all__ = ["dfm_params", "simulate", "simulate_tv_loadings"]
 
 
 def stable_var1(k: int, rng: np.random.Generator,
@@ -57,3 +58,26 @@ def simulate(p: SSMParams, T: int, rng: np.random.Generator
     E = rng.standard_normal((T, N)) * np.sqrt(p.R)
     Y = F @ p.Lam.T + E
     return Y, F
+
+
+def simulate_tv_loadings(N: int, T: int, k: int, rng: np.random.Generator,
+                         walk_scale: float = 0.02,
+                         noise_scale: float = 1.0):
+    """Random-walk-loadings DGP (config S4, BASELINE.json:10).
+
+    lam_{i,t} = lam_{i,t-1} + walk_scale * xi,  y_t = Lam_t f_t + eps.
+    Returns (Y, F, Lams (T,N,k), A (k,k), R (N,))."""
+    A = stable_var1(k, rng)
+    F = np.zeros((T, k))
+    f = rng.standard_normal(k)
+    for t in range(T):
+        if t > 0:
+            f = A @ F[t - 1] + rng.standard_normal(k)
+        F[t] = f
+    Lam0 = rng.standard_normal((N, k))
+    steps = walk_scale * rng.standard_normal((T, N, k))
+    steps[0] = 0.0
+    Lams = Lam0[None] + np.cumsum(steps, axis=0)
+    R = noise_scale * (0.5 + rng.random(N))
+    Y = np.einsum("tnk,tk->tn", Lams, F) + rng.standard_normal((T, N)) * np.sqrt(R)
+    return Y, F, Lams, A, R

@@ -35,7 +35,9 @@ FIT_DRIVERS = [("dfm_tpu_torch/api.py", "fit"),
                ("dfm_tpu_torch/estim/batched.py", "run_batched_em"),
                ("dfm_tpu_torch/estim/select.py", "select_n_factors_em"),
                ("dfm_tpu_torch/estim/evaluate.py", "oos_evaluate"),
-               ("dfm_tpu_torch/fleet/driver.py", "_tick")]
+               ("dfm_tpu_torch/fleet/driver.py", "_tick"),
+               ("dfm_tpu_torch/models/tv_loadings.py", "tvl_fit"),
+               ("dfm_tpu_torch/models/tv_loadings.py", "tvl_loglik_eval")]
 
 
 def _tree(path):
@@ -60,10 +62,12 @@ def test_no_jax_and_no_reference_package(path):
             f"{path.relative_to(ROOT)} imports {mod}")
 
 
-@pytest.mark.parametrize("pkg", ["fleet", "sched", "obs", "serve", "estim"])
+@pytest.mark.parametrize("pkg", ["fleet", "sched", "obs", "serve", "estim",
+                                 "models"])
 def test_the_walk_covers_every_subpackage(pkg):
     """The import rule above walks every module of the port, the fleet's
-    copied planners (``fleet``, ``sched``, ``obs``) included."""
+    copied planners (``fleet``, ``sched``, ``obs``) and the model families
+    (``models``) included."""
     mods = [p for p in PORT_FILES if p.parent.name == pkg]
     assert len(mods) >= 2, f"dfm_tpu_torch/{pkg}: {mods}"
 
@@ -158,5 +162,7 @@ def test_cpu_path_launches_no_kernel():
                                      "batched_obs_stats",
                                      "batched_quad_masked",
                                      "batched_mstep_rows", "lowrank_basis",
-                                     "lowrank_scan", "lowrank_smoother"}
+                                     "lowrank_scan", "lowrank_smoother",
+                                     "tvl_obs_stats", "tvl_quad",
+                                     "loading_filter", "loading_smoother"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())
