@@ -171,9 +171,36 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    and f64 at S4, the f32 state re-evaluated by ``tvl_loglik_eval`` in f64
    within 1e-5 of the f64 state's conditional loglik.
 
+27. MF kernels: K12, the wide kernels (K2-wide ``csrc/obs_stats.cu``,
+   K4-wide forward and backward ``csrc/info_scan.cu``, K1-wide
+   ``csrc/quad_local.cu``, the lone entry points' kernels for 16 < k <=
+   32) against their plain twins at S3's full width (the augmented
+   loadings of the fit's PCA init, m = 25, T = 300, N = 2,000:
+   ``simulate_mixed_freq(1600, 400, 300, 5)`` with 10% ragged missing,
+   bench/run.py:54-60), f64 and f32 (the TOL rule), timed warm and cold
+   beside the plain twin, the ``einsum`` yardstick (K2-wide: C_t; K1-wide:
+   the loadings' fit), the bound and, for the K4-wide pair, the latency
+   floor at m = 25; then error checks at k = 17, 20, 25 and 32 on 120 x
+   400 panels with a fully missing step and a never-observed series.
+28. MF fits: ``fit(MixedFreqSpec(1600, 400, 5), Y, mask=W)`` at S3, f32,
+   10 iterations, tol = 0, chunks of 8, ``time_scan="seq"`` and
+   ``"lowrank"`` (rank 5), and a 12-step forecast: finite outputs, exactly
+   one read a chunk plus the result's (3), exactly one launch of each path
+   kernel an iteration (+1 for the reporting smooth) and no other kernel,
+   EM it/s and the wall; the ``seq`` iteration's breakdown (kernels at
+   the dtypes the path runs them in: the augmented scans in f64) and two
+   iterations under ``set_sync_debug_mode("error")``.
+29. MF reference: ``fit(MixedFreqSpec(24, 8, 5))`` at 60 steps (m = 25,
+   a fully missing step, a never-observed monthly series), ``seq`` and
+   ``lowrank`` (rank 4), card f64 against CPU f64 within 1e-9.
+30. MF contract: from the PCA init, 2 EM iterations in f32 and f64 at S3
+   (``seq`` and ``lowrank``); the f32 params by
+   ``mf_loglik_eval(precise=True)`` within 1e-5 of the f64 params'.
+
 Output: one JSON line per kernel and dtype, one per fit, contract check,
-ring case, session, batched, fleet and TVL phase, then the {"kernels": [...]}
-summary, the card line and, last, {"ok": true, "device": {...}}.
+ring case, session, batched, fleet, TVL and MF phase, then the
+{"kernels": [...]} summary, the card line and, last, {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -200,6 +227,7 @@ from dfm_tpu_torch.estim.em import (EMConfig, em_fit_scan, moments,
                                     noise_floor_for)
 from dfm_tpu_torch.estim.fused import FusedOptions, run_fused
 from dfm_tpu_torch.estim.init import pca_init_device
+from dfm_tpu_torch.models import mixed_freq as mf
 from dfm_tpu_torch.models import tv_loadings as tv
 from dfm_tpu_torch.ops import linalg as la
 from dfm_tpu_torch.ops import scan as sc
@@ -250,6 +278,8 @@ L2_FLUSH_BYTES = 256 * 2**20                   # > 5x the H100's 50 MB L2
 # projector V V', an eigensolve with a gap (1e-4 / 1e-10).  K2-tv and K1-tv
 # are one-pass reductions (as K2 and K1); K11-fwd and K11-bwd are T-step
 # recursions a series (as K4), K11-bwd with a k x k factorization a step.
+# The wide kernels (K12) take their k <= 16 twins' tolerances: K2-wide and
+# K1-wide one-pass reductions, the K4-wide pair recursions.
 TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "mstep_rows": 1e-4, "info_scan": 1e-4,
                        "rts_smoother": 1e-4, "ss_cov_path": 1e-4,
@@ -261,7 +291,9 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "batched_mstep_rows": 1e-4, "lowrank_basis": 1e-4,
                        "lowrank_scan": 1e-4, "lowrank_smoother": 1e-4,
                        "tvl_obs_stats": 1e-5, "tvl_quad": 1e-5,
-                       "loading_filter": 1e-4, "loading_smoother": 1e-4},
+                       "loading_filter": 1e-4, "loading_smoother": 1e-4,
+                       "obs_stats_wide": 1e-5, "quad_local_wide": 1e-5,
+                       "info_scan_wide": 1e-4, "rts_smoother_wide": 1e-4},
        torch.float64: {"quad_local": 1e-10, "obs_stats": 1e-10,
                        "mstep_rows": 1e-9, "info_scan": 1e-9,
                        "rts_smoother": 1e-9, "ss_cov_path": 1e-9,
@@ -273,7 +305,9 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "batched_mstep_rows": 1e-9, "lowrank_basis": 1e-10,
                        "lowrank_scan": 1e-9, "lowrank_smoother": 1e-9,
                        "tvl_obs_stats": 1e-10, "tvl_quad": 1e-10,
-                       "loading_filter": 1e-9, "loading_smoother": 1e-9}}
+                       "loading_filter": 1e-9, "loading_smoother": 1e-9,
+                       "obs_stats_wide": 1e-10, "quad_local_wide": 1e-10,
+                       "info_scan_wide": 1e-9, "rts_smoother_wide": 1e-9}}
 # The TPU routine each kernel replaces.
 REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "obs_stats": "dfm_tpu/ssm/info_filter.py:69",
@@ -299,7 +333,11 @@ REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "tvl_obs_stats": "dfm_tpu/models/tv_loadings.py:81",
             "tvl_quad": "dfm_tpu/models/tv_loadings.py:111",
             "loading_filter": "dfm_tpu/models/tv_loadings.py:148",
-            "loading_smoother": "dfm_tpu/models/tv_loadings.py:179"}
+            "loading_smoother": "dfm_tpu/models/tv_loadings.py:179",
+            "obs_stats_wide": "dfm_tpu/models/mixed_freq.py:154",
+            "info_scan_wide": "dfm_tpu/models/mixed_freq.py:183",
+            "quad_local_wide": "dfm_tpu/models/mixed_freq.py:185",
+            "rts_smoother_wide": "dfm_tpu/models/mixed_freq.py:202"}
 # The variant of each kernel whose f32 record goes into the summary line.
 SUMMARY_VARIANT = {"quad_local": "masked", "obs_stats": "masked",
                    "mstep_rows": "masked", "info_scan": "masked",
@@ -390,6 +428,11 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     t_ops = flops / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def k4_flops(T_: int, k: int, per_k3: float) -> float:
+    """Operations of a K4 pass: ``per_k3`` k^3 + 4 k^2 a step."""
+    return T_ * (per_k3 * k ** 3 + 4 * k * k)
 
 
 def panel(seed: int, T_: int = T, N_: int = N, K_: int = K):
@@ -799,7 +842,9 @@ OWN_FIT = {"quad_local": "masked", "obs_stats": "masked",
            "lowrank_smoother": "lowrank masked",
            "tvl_obs_stats": "tvl unmasked", "tvl_quad": "tvl unmasked",
            "loading_filter": "tvl unmasked",
-           "loading_smoother": "tvl unmasked"}
+           "loading_smoother": "tvl unmasked",
+           "obs_stats_wide": "mf seq", "info_scan_wide": "mf seq",
+           "quad_local_wide": "mf seq", "rts_smoother_wide": "mf seq"}
 
 
 def fit_phase(seed: int) -> dict:
@@ -3187,7 +3232,8 @@ def tvl_round_breakdown(Y, res, spec) -> None:
     ``res`` of panel ``Y``): each path kernel's time and the whole
     ``tvl_round_core`` on the device (CUDA events, from its first launch
     to its last); the rest is the round less the kernels (torch glue and
-    launch gaps), not a measured breakdown.  Then two rounds from that
+    launch gaps), not a measured breakdown.  Beside it the K4 pair's plain
+    twins, bytes bound and latency floor at S4 (``k4_pair``).  Then two rounds from that
     state under ``set_sync_debug_mode("error")``: no host read inside a
     round (the panel is uploaded before the guard)."""
     Yt = torch.as_tensor(Y, dtype=torch.float32, device="cuda").contiguous()
@@ -3211,6 +3257,23 @@ def tvl_round_breakdown(Y, res, spec) -> None:
                   Yt, F, pt.Lam0, pt.tau2, pt.R)),
               "loading_smoother": cuda_ms(lambda: tv.loading_smoother(
                   lam_f, P_f, pt.tau2))}
+        # The K4 pair over the per-step C: its plain twins and bytes bound
+        # (each input read once, each output written once).
+        fwd_in = (stats.b, stats.C, pt.A, pt.Q, pt.mu0, pt.P0)
+        k4 = {"fwd_plain_ms": cuda_ms(lambda: inf.info_scan_plain(
+                  stats, pt.A, pt.Q, pt.mu0, pt.P0)),
+              "bwd_plain_ms": cuda_ms(lambda: rts_smoother_plain(kf, dummy)),
+              "fwd_bound_ms": bound(nbytes_of(fwd_in) + nbytes_of(fwd),
+                                    k4_flops(TVL_T, TVL_K, 12.67),
+                                    torch.float32)[0],
+              "bwd_bound_ms": bound(
+                  nbytes_of((*fwd[:4], pt.A)) + nbytes_of(fwd[:1])
+                  + 2 * nbytes_of(fwd[1:2]),
+                  k4_flops(TVL_T, TVL_K, 9.0), torch.float32)[0],
+              "fwd_floor_ms": latency_ms("info_scan", torch.float32, TVL_K,
+                                         TVL_T),
+              "bwd_floor_ms": latency_ms("rts_smoother", torch.float32,
+                                         TVL_K, TVL_T)}
         round_ms = cuda_ms(lambda: tv.tvl_round_core(Yt, None, Lt, pt, spec))
         torch.cuda.synchronize()
         prev = torch.cuda.get_sync_debug_mode()
@@ -3222,7 +3285,8 @@ def tvl_round_breakdown(Y, res, spec) -> None:
         torch.cuda.synchronize()
     emit({"tvl_round_breakdown": "unmasked", "shape": [TVL_T, TVL_N, TVL_K],
           "round_ms": round_ms, "kernel_ms": ms,
-          "rest_ms": round_ms - sum(ms.values()), "rounds_sync_checked": 2})
+          "rest_ms": round_ms - sum(ms.values()), "rounds_sync_checked": 2,
+          "k4_pair": k4})
 
 
 def tvl_reference_phase(seed: int) -> None:
@@ -3301,6 +3365,349 @@ def tvl_contract_phase(seed: int) -> None:
               "rel_err_fast": abs(fast - ref) / abs(ref), "limit": 1e-5})
         if not rel < 1e-5:
             raise AssertionError(f"tvl loglik contract broken: {rel:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# Mixed-frequency family (config S3): BASELINE.json:9, bench/configs.py:37-40
+# (2,000 series, 400 quarterly, T = 300, k = 5, 10% ragged missing), the
+# panel of bench/run.py:54-60.
+# ---------------------------------------------------------------------------
+
+MF_NM, MF_NQ, MF_T, MF_K = 1600, 400, 300, 5
+MF_ITERS, MF_CHUNK = 10, 8
+# The lowrank route at r = k: above k, a step with no quarterly observation
+# has a rank-k C_t and the rank-r scan goes to NaN at S3 in both packages.
+MF_RANK = 5
+MF_NEW = ("obs_stats_wide", "info_scan_wide", "quad_local_wide",
+          "rts_smoother_wide")
+MF_SWEEP = (17, 20, 25, 32)
+# The dtype each wide kernel runs in on the f32 S3 path (the augmented
+# scans in f64): the summary line reports that record.
+MF_PATH_DTYPE = {"obs_stats_wide": torch.float32,
+                 "quad_local_wide": torch.float32,
+                 "info_scan_wide": torch.float64,
+                 "rts_smoother_wide": torch.float64}
+# Per fit: (label, time_scan, kernels that launch once an iteration and once
+# for the reporting smooth).
+MF_FITS = (("mf seq", "seq", MF_NEW),
+           ("mf lowrank", "lowrank",
+            ("obs_stats_wide", "lowrank_basis", "lowrank_scan",
+             "quad_local_wide", "lowrank_smoother")))
+
+
+def mf_spec(ts: str = "seq", nm: int = MF_NM, nq: int = MF_NQ,
+            k: int = MF_K, rank: int = MF_RANK):
+    return dt.MixedFreqSpec(n_monthly=nm, n_quarterly=nq, n_factors=k,
+                            time_scan=ts, rank=rank)
+
+
+def mf_panel(seed: int, nm: int = MF_NM, nq: int = MF_NQ, T_: int = MF_T,
+             k: int = MF_K):
+    """S3's panel (bench/run.py:54-60): (Y with NaN at missing, mask)."""
+    rng = np.random.default_rng(seed)
+    Y, mask, _, _ = dgp.simulate_mixed_freq(nm, nq, T_, k, rng)
+    mask = mask * dgp.random_mask(T_, nm + nq, rng, 0.1)
+    return np.where(mask > 0, Y, np.nan), mask
+
+
+def mf_inputs(pan, spec):
+    """As ``mf_fit`` makes them on the host: (the standardized panel
+    zero-filled at missing, the mask, the PCA init)."""
+    Y, W = pan
+    Wm = data.build_mask(Y, W)
+    Ys, _ = data.standardize(Y, mask=Wm)
+    return np.nan_to_num(Ys * (Wm > 0)), Wm, mf.mf_pca_init(Ys, Wm, spec)
+
+
+def wide_cases(Yt, Wt, p: SSMParams, label: str) -> list:
+    """K2-wide, K4-wide forward, K1-wide (``loglik_terms_local``) and
+    K4-wide backward on card tensors at p's width (17..32), on inputs the
+    plain pipeline makes; K4-wide beside its latency floor.  Library
+    yardsticks: ``einsum`` of C_t (K2-wide) and of the loadings' fit
+    (K1-wide).  Call under ``highest_precision()``."""
+    T_, N_ = Yt.shape
+    m = p.A.shape[0]
+    dtype = Yt.dtype
+    stats = inf.obs_stats_plain(Yt, p.Lam, p.R, Wt)
+    scan = inf.info_scan_plain(stats, p.A, p.Q, p.mu0, p.P0)
+    kf = FilterResult(*scan[:4], None)
+    scan_in = (stats.b, stats.C, p.A, p.Q, p.mu0, p.P0)
+    wr = (Wt / p.R).contiguous()
+    return [
+        case("obs_stats_wide", label,
+             lambda: inf.obs_stats(Yt, p.Lam, p.R, Wt),
+             lambda: inf.obs_stats_plain(Yt, p.Lam, p.R, Wt),
+             (Yt, p.Lam, p.R, Wt), 2 * T_ * N_ * (m + m * (m + 1) // 2),
+             library=lambda: torch.einsum("tn,ni,nj->tij", wr, p.Lam,
+                                          p.Lam)),
+        case("info_scan_wide", label,
+             lambda: inf.info_scan(stats, p.A, p.Q, p.mu0, p.P0),
+             lambda: inf.info_scan_plain(stats, p.A, p.Q, p.mu0, p.P0),
+             scan_in, k4_flops(T_, m, 12.67),
+             floor=lambda: latency_ms("info_scan", dtype, m, T_)),
+        case("quad_local_wide", label,
+             lambda: inf.loglik_terms_local(Yt, p.Lam, p.R, scan[0], Wt),
+             lambda: inf.loglik_terms_local_plain(Yt, p.Lam, p.R, scan[0],
+                                                  Wt),
+             (Yt, p.Lam, p.R, scan[0], Wt), T_ * N_ * (4 * m + 5),
+             library=lambda: torch.einsum("nk,tk->tn", p.Lam, scan[0])),
+        case("rts_smoother_wide", label,
+             lambda: rts_smoother(kf, p),
+             lambda: rts_smoother_plain(kf, p),
+             (*scan[:4], p.A), k4_flops(T_, m, 9.0),
+             floor=lambda: latency_ms("rts_smoother", dtype, m, T_)),
+    ]
+
+
+def mf_kernel_phase(seed: int) -> dict:
+    """The four wide kernels at S3's full width (the augmented loadings of
+    the fit's PCA init, m = 25, T = 300, N = 2,000), f64 then f32, each
+    against its plain twin (the TOL rule) and timed (``kernel_record``).
+    Returns, by name, the record in the dtype the f32 path runs it in
+    (``MF_PATH_DTYPE``)."""
+    spec = mf_spec()
+    Yz, W, init = mf_inputs(mf_panel(seed + 1000), spec)
+    summary, refs = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        with highest_precision():
+            Yt = torch.as_tensor(Yz, dtype=dtype, device="cuda").contiguous()
+            Wt = torch.as_tensor(W, dtype=dtype, device="cuda").contiguous()
+            aug = mf.augment(mf.MFParams(*init).to("cuda", dtype), spec)
+            for c in wide_cases(Yt, Wt, aug, "S3"):
+                rec = kernel_record(c, dtype, refs)
+                rec.update({"T": MF_T, "N": MF_NM + MF_NQ,
+                            "m": spec.state_dim})
+                emit(rec)
+                if dtype == MF_PATH_DTYPE[c["name"]]:
+                    summary[c["name"]] = rec
+        torch.cuda.empty_cache()
+    return summary
+
+
+def mf_k_sweep(seed: int) -> None:
+    """The four wide kernels at k = 17, 20, 25 and 32 (the wide range's
+    ends and S3's m) on 120 x 400 panels with a fully missing step and a
+    never-observed series, f64 and f32: error checks only."""
+    for k in MF_SWEEP:
+        _, W, Yfull, p = panel(seed + 1010 + k, T_=120, N_=400, K_=k)
+        W[7] = 0.0
+        W[:, 5] = 0.0
+        refs, worst = {}, {}
+        for dtype in (torch.float64, torch.float32):
+            with highest_precision():
+                Wt = torch.as_tensor(W, dtype=dtype, device="cuda")
+                Yt = (torch.as_tensor(Yfull, dtype=dtype, device="cuda")
+                      * Wt).contiguous()
+                pt = SSMParams.from_numpy(p, dtype=dtype, device="cuda")
+                for c in wide_cases(Yt, Wt.contiguous(), pt, f"k={k}"):
+                    key = (c["name"], c["variant"])
+                    _, rel, _, ref, _ = compare(c, dtype, refs.get(key))
+                    refs[key] = ref
+                    worst[f"{c['name']} {str(dtype)[6:]}"] = rel
+        emit({"mf_k_sweep": k, "max_rel_err": worst})
+
+
+def mf_fit_phase(seed: int) -> dict:
+    """``fit(MixedFreqSpec(1600, 400, 5), Y, mask=W)`` at S3 on
+    ``TorchBackend()`` (f32, chunks of 8, 10 iterations, tol = 0) with
+    ``time_scan="seq"`` and ``"lowrank"`` (rank 5), and a 12-step
+    forecast: finite outputs of S3's shapes, exactly one read a chunk plus
+    the result's, exactly one launch of each path kernel an iteration run
+    (+1 for the reporting smooth) and no other kernel.  EM it/s: the
+    iterations after the first chunk over the wall between the first and
+    the last chunk reads.  Then ``mf_iteration_breakdown``.  Returns each
+    fit's launch counts by label."""
+    Y, W = mf_panel(seed + 1001)
+    backend = dt.TorchBackend(fused_chunk=MF_CHUNK)
+    counts = {}
+    for label, ts, need in MF_FITS:
+        spec = mf_spec(ts)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with ReadWatch() as rw:
+            t0 = time.perf_counter()
+            res = dt.fit(spec, Y, mask=W, backend=backend,
+                         max_iters=MF_ITERS, tol=0.0)
+            y_fore, f_fore = dt.forecast(res, 12)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        lls = res.logliks
+        n = len(lls)
+        n_chunks = -(-n // MF_CHUNK)
+        ran = min(MF_ITERS, n_chunks * MF_CHUNK)        # whole chunks run
+        chunk_reads = rw.stamps[:n_chunks]
+        steady = ran - MF_CHUNK
+        emit({"fit": label, "spec": dataclasses.asdict(spec),
+              "shape": [MF_T, MF_NM + MF_NQ, MF_K], "n_iters": n,
+              "iters_run": ran, "converged": res.converged,
+              "loglik_first": float(lls[0]), "loglik_last": float(lls[-1]),
+              "max_drop": float(max(0.0, -np.diff(lls).min())),
+              "noise_floor": noise_floor_for(torch.float32,
+                                             MF_T * (MF_NM + MF_NQ)),
+              "wall_s": wall,
+              "em_iters_per_sec": (steady / (chunk_reads[-1]
+                                             - chunk_reads[0])
+                                   if steady > 0 else None),
+              "reads": len(rw.stamps),
+              "launches_per_iter": {nm: launches[nm] / ran for nm in need},
+              "launches": {nm: v for nm, v in launches.items() if v}})
+        want = {nm: ran + 1 for nm in need}
+        bad = {nm: launches[nm] for nm in launches
+               if launches[nm] != want.get(nm, 0)}
+        if bad or len(rw.stamps) != n_chunks + 1:
+            raise AssertionError(f"{label}: launches off the path's {want}: "
+                                 f"{bad}; reads {len(rw.stamps)}, expected "
+                                 f"{n_chunks + 1}")
+        for name, arr in (("logliks", lls), ("nowcast", res.nowcast),
+                          ("factors", res.factors), ("state_T", res.state_T),
+                          ("y_fore", y_fore), ("f_fore", f_fore)):
+            if not np.isfinite(arr).all():
+                raise AssertionError(f"{label}: non-finite {name}")
+        if (res.nowcast.shape != (MF_T, MF_NM + MF_NQ)
+                or res.state_T.shape != (5 * MF_K,)
+                or y_fore.shape != (12, MF_NM + MF_NQ)):
+            raise AssertionError(f"{label}: unexpected output shapes")
+        counts[label] = launches
+        if ts == "seq":
+            fitted = res
+    mf_iteration_breakdown(Y, W, fitted)
+    return counts
+
+
+def mf_iteration_breakdown(Y, W, res) -> None:
+    """Where an S3 ``seq`` iteration goes (f32, warm L2, at the fitted
+    params): each path kernel at the dtype the path runs it in and the
+    whole ``mf_em_core`` on the device (CUDA events); the rest is the
+    iteration less the kernels (the widening and narrowing casts, the
+    loglik assembly, the M-step's einsums and solves, launch gaps).  Then
+    two iterations under ``set_sync_debug_mode("error")``: no host read
+    inside an iteration (the panel and params are uploaded before the
+    guard)."""
+    spec = res.spec
+    Yz, Wm, _ = mf_inputs((Y, W), spec)
+    f32, f64 = torch.float32, torch.float64
+    with highest_precision():
+        Yt = torch.as_tensor(Yz, dtype=f32, device="cuda").contiguous()
+        Wt = torch.as_tensor(Wm, dtype=f32, device="cuda").contiguous()
+        pt = mf.MFParams(*res.params).to("cuda", f32)
+        aug = mf.augment(pt, spec)
+        stats = inf.obs_stats(Yt, aug.Lam, aug.R, Wt)
+        s64 = inf.ObsStats(*(x.to(f64) for x in stats))
+        a64 = aug.to(dtype=f64)
+        fwd = inf.info_scan(s64, a64.A, a64.Q, a64.mu0, a64.P0)
+        kf = FilterResult(*fwd[:4], None)
+        xp = fwd[0].to(f32)
+        ms = {"obs_stats_wide": cuda_ms(lambda: inf.obs_stats(
+                  Yt, aug.Lam, aug.R, Wt)),
+              "info_scan_wide": cuda_ms(lambda: inf.info_scan(
+                  s64, a64.A, a64.Q, a64.mu0, a64.P0)),
+              "quad_local_wide": cuda_ms(lambda: inf.loglik_terms_local(
+                  Yt, aug.Lam, aug.R, xp, Wt)),
+              "rts_smoother_wide": cuda_ms(lambda: rts_smoother(kf, a64))}
+        iter_ms = cuda_ms(lambda: mf.mf_em_core(Yt, Wt, pt, spec))
+        mf.mf_em_scan(Yt, Wt, pt, spec, 1)
+        torch.cuda.synchronize()
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            mf.mf_em_scan(Yt, Wt, pt, spec, 2)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        torch.cuda.synchronize()
+    emit({"mf_iteration_breakdown": "seq",
+          "shape": [MF_T, MF_NM + MF_NQ, MF_K], "m": spec.state_dim,
+          "iter_ms": iter_ms, "kernel_ms": ms,
+          "rest_ms": iter_ms - sum(ms.values()),
+          "iters_sync_checked": 2})
+
+
+def mf_small(seed: int):
+    """A 60-step panel of 24 monthly + 8 quarterly series at k = 5 (m =
+    25, the wide kernels) with a fully missing step and a never-observed
+    monthly series: (Y with NaN, mask)."""
+    Y, W = mf_panel(seed, nm=24, nq=8, T_=60)
+    W[17] = 0.0
+    W[:, 2] = 0.0
+    return np.where(W > 0, Y, np.nan), W
+
+
+def mf_reference_phase(seed: int) -> None:
+    """``fit(MixedFreqSpec(24, 8, 5))`` at 60 steps (``mf_small``), 6
+    iterations, tol = 0, chunks of 3, ``seq`` and ``lowrank`` (rank 4),
+    on the card in f64 against the CPU in f64 within 1e-9 relative
+    (logliks, params, nowcast, factors, state_T, forecast)."""
+    Y, W = mf_small(seed + 1002)
+    errs = {}
+    for ts, need in (("seq", MF_NEW),
+                     ("lowrank", ("obs_stats_wide", "lowrank_basis",
+                                  "lowrank_scan", "quad_local_wide",
+                                  "lowrank_smoother"))):
+        spec = mf_spec(ts, nm=24, nq=8, rank=4)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            kernels.reset_launches()
+            r = dt.fit(spec, Y, mask=W, max_iters=6, tol=0.0,
+                       backend=dt.TorchBackend(device=dev,
+                                               dtype=torch.float64,
+                                               fused_chunk=3))
+            res[dev] = (r, dt.forecast(r, 12)[0], dict(kernels.LAUNCHES))
+        (rg, yg, lg), (rc, yc, _) = res["cuda"], res["cpu"]
+        if any(lg[nm] == 0 for nm in need) or len(rg.logliks) != len(
+                rc.logliks):
+            raise AssertionError(f"mf reference {ts}: launches {lg}, "
+                                 f"iterations {len(rg.logliks)} / "
+                                 f"{len(rc.logliks)}")
+        pairs = [("logliks", rg.logliks, rc.logliks),
+                 ("nowcast", rg.nowcast, rc.nowcast),
+                 ("factors", rg.factors, rc.factors),
+                 ("state_T", rg.state_T, rc.state_T), ("y_fore", yg, yc)]
+        pairs += [(f, getattr(rg.params, f), getattr(rc.params, f))
+                  for f in mf.MFParams._fields if f != "mu0"]   # mu0 = 0
+        for name, g, c in pairs:
+            errs[f"{ts} {name}"] = rel_err(g, c)
+    emit({"reference": "mf", "shape": [60, 32, 5], "m": 25, "iters": 6,
+          "max_rel_err": errs, "tol": 1e-9})
+    bad = {n: e for n, e in errs.items() if not e <= 1e-9}
+    if bad:
+        raise AssertionError(f"mf card fit disagrees with the CPU fit: {bad}")
+
+
+def mf_contract_phase(seed: int) -> None:
+    """The loglik contract of S3 (BASELINE.json:5, bench/run.py:173-176):
+    from one init (the fit's PCA warm start), 2 EM iterations in f32 and in
+    f64 on the card (``mf_em_scan``), ``seq`` and ``lowrank``; the f32
+    params re-evaluated by ``mf_loglik_eval(precise=True)`` (the augmented
+    info-form filter in f64) against the f64 params' after their 2
+    iterations, within 1e-5 relative."""
+    pan = mf_panel(seed + 1001)
+    for ts in ("seq", "lowrank"):
+        spec = mf_spec(ts)
+        Yz, W, init = mf_inputs(pan, spec)
+        params = {}
+        with highest_precision():
+            for dtype in (torch.float32, torch.float64):
+                Yt = torch.as_tensor(Yz, dtype=dtype, device="cuda")
+                Wt = torch.as_tensor(W, dtype=dtype, device="cuda")
+                p0 = mf.MFParams(*init).to("cuda", dtype)
+                params[dtype] = mf.mf_em_scan(Yt.contiguous(),
+                                              Wt.contiguous(), p0, spec,
+                                              2)[0]
+        p32, p64 = params[torch.float32], params[torch.float64]
+        ref = mf.mf_loglik_eval(Yz, W, p64, spec, device="cuda")
+        precise = mf.mf_loglik_eval(Yz, W, p32, spec, device="cuda")
+        fast = mf.mf_loglik_eval(Yz.astype(np.float32), W, p32, spec,
+                                 precise=False, device="cuda")
+        # (the seq route's fast figure is the f32 in-loop loglik)
+        rel = abs(precise - ref) / abs(ref)
+        # The fast figure is the route's own E-step loglik: the rank-r
+        # route's is an approximate likelihood, not comparable.
+        emit({"contract": f"mf {ts}", "shape": [MF_T, MF_NM + MF_NQ, MF_K],
+              "iters": 2, "loglik_f64": ref, "rel_err_precise": rel,
+              "rel_err_fast": (abs(fast - ref) / abs(ref) if ts == "seq"
+                               else None), "limit": 1e-5})
+        if not rel < 1e-5:
+            raise AssertionError(f"mf loglik contract broken: {rel:.3e}")
 
 
 def ptxas_summary(source: str) -> dict:
@@ -3386,6 +3793,11 @@ def main() -> int:
     launches.update(tvl_fit_phase(args.seed))
     tvl_reference_phase(args.seed)
     tvl_contract_phase(args.seed)
+    summary.update(mf_kernel_phase(args.seed))
+    mf_k_sweep(args.seed)
+    launches.update(mf_fit_phase(args.seed))
+    mf_reference_phase(args.seed)
+    mf_contract_phase(args.seed)
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"dfm_tpu_torch/csrc/{kernels.KERNELS[name][0]}",

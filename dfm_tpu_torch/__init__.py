@@ -9,7 +9,8 @@ forecasts; ``open_session`` streams updates into a fitted model;
 restarts, ``select_n_factors_em``'s k-grid, ``oos_evaluate``'s rolling
 windows); ``open_fleet`` serves many tenants' sessions, one batched tick
 per capacity class; ``fit(TVLSpec(...), Y)`` (or ``tvl_fit``) estimates
-the time-varying-loadings family.  The package imports neither JAX nor
+the time-varying-loadings family and ``fit(MixedFreqSpec(...), Y,
+mask=...)`` (or ``mf_fit``) the mixed-frequency nowcasting family.  The package imports neither JAX nor
 ``dfm_tpu``.
 """
 
@@ -21,7 +22,9 @@ from .estim.select import EMSelectResult, select_n_factors_em
 from .fleet import (FleetBucket, SessionFleet, TenantSlot, fleet_pad_waste,
                     open_fleet, plan_admission)
 from .kernels import LAUNCHES
-from .models import TVLParams, TVLResult, TVLSpec, tvl_fit, tvl_forecast
+from .models import (MFParams, MFResult, MixedFreqSpec, TVLParams, TVLResult,
+                     TVLSpec, mf_fit, mf_forecast, mf_loglik_eval, tvl_fit,
+                     tvl_forecast)
 from .serve import NowcastSession, open_session
 from .ssm.params import SSMParams
 
@@ -31,4 +34,6 @@ __all__ = ["DynamicFactorModel", "FitResult", "TorchBackend", "fit",
            "fit_many", "select_n_factors_em", "EMSelectResult",
            "oos_evaluate", "OOSResult", "open_fleet", "SessionFleet",
            "FleetBucket", "TenantSlot", "plan_admission", "fleet_pad_waste",
-           "TVLSpec", "TVLParams", "TVLResult", "tvl_fit", "tvl_forecast"]
+           "TVLSpec", "TVLParams", "TVLResult", "tvl_fit", "tvl_forecast",
+           "MixedFreqSpec", "MFParams", "MFResult", "mf_fit", "mf_forecast",
+           "mf_loglik_eval"]

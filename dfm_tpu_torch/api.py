@@ -5,7 +5,8 @@ standardize -> PCA init -> chunked EM (or, with ``fused=``, the fused fit
 of ``estim.fused``: EM to convergence, smooth, nowcast and forecasts) ->
 reporting smooth, and ``forecast``; ``keep_session=`` opens a streaming
 ``serve.NowcastSession`` on the fit.  ``fit`` also takes a
-``models.TVLSpec`` (the time-varying-loadings family, ``tvl_fit``), as the
+``models.TVLSpec`` (the time-varying-loadings family, ``tvl_fit``) and a
+``models.MixedFreqSpec`` (the mixed-frequency family, ``mf_fit``), as the
 JAX package's ``fit`` routes its family specs.  ``TorchBackend`` runs on CUDA
 unless the caller asks for the CPU (``device="cpu"``), where every
 kernel's plain version runs instead; a CUDA backend on a machine without
@@ -26,6 +27,8 @@ from .backends import cpu_ref
 from .estim.em import EMConfig, noise_floor_for, run_em_chunked
 from .estim.fused import resolve_fused, run_fused
 from .estim.init import pca_init_device, standardize_device
+from .models.mixed_freq import (MFParams, MFResult, MixedFreqSpec, mf_fit,
+                                mf_forecast)
 from .models.tv_loadings import (TVLParams, TVLResult, TVLSpec, tvl_fit,
                                  tvl_forecast)
 from .ops.precision import default_compute_dtype, highest_precision
@@ -198,7 +201,10 @@ def fit(model, Y: np.ndarray,
         (returns a ``TVLResult``; ``max_iters`` / ``tol`` override the
         spec's ``n_rounds`` / ``tol`` only when given, ``init`` must be a
         ``TVLParams``; ``fused=`` warns and is ignored, ``warm_start=`` and
-        ``keep_session=`` raise ``TypeError``).
+        ``keep_session=`` raise ``TypeError``), or a
+        ``models.MixedFreqSpec``: the mixed-frequency family through
+        ``mf_fit`` likewise (returns an ``MFResult``; ``init`` an
+        ``MFParams``, ``max_iters`` / ``tol`` as for a plain fit).
     Y    : (T, N) panel; NaNs mark missing observations.
     mask : optional explicit {0,1} mask, combined with the NaN pattern.
     backend : a ``TorchBackend``; None means ``TorchBackend()`` (CUDA).
@@ -219,13 +225,13 @@ def fit(model, Y: np.ndarray,
     warm_start : not ported yet (ROADMAP Queue 1 item 3, with the fused
         fit's device-panel residency cache); pass ``init=prev.params``.
     """
-    if isinstance(model, TVLSpec):
+    if isinstance(model, (TVLSpec, MixedFreqSpec)):
         return _family_fit(model, Y, mask, backend, max_iters, tol, init,
                            fused, keep_session, warm_start)
     if not isinstance(model, DynamicFactorModel):
         raise TypeError(
-            f"fit takes a DynamicFactorModel or a TVLSpec; got "
-            f"{type(model).__name__} (the other model families are not "
+            f"fit takes a MixedFreqSpec, a DynamicFactorModel or a TVLSpec; "
+            f"got {type(model).__name__} (the other model families are not "
             "ported yet: ROADMAP Queue 1 item 11)")
     if warm_start is not None:
         raise NotImplementedError(
@@ -242,11 +248,12 @@ def fit(model, Y: np.ndarray,
     return res
 
 
-def _family_fit(model: TVLSpec, Y, mask, backend, max_iters, tol, init,
-                fused, keep_session, warm_start) -> TVLResult:
-    """The twin of the JAX package's ``_family_fit`` TVL branch: the
-    backend's dtype, device and ``fused_chunk`` carry over; the options the
-    family does not take raise or warn as there."""
+def _family_fit(model, Y, mask, backend, max_iters, tol, init, fused,
+                keep_session, warm_start):
+    """The twin of the JAX package's ``_family_fit`` TVL and MF branches:
+    the backend's dtype, device and ``fused_chunk`` carry over; the options
+    the family does not take raise or warn as there.  Returns the family's
+    ``TVLResult`` or ``MFResult``."""
     name = type(model).__name__
     if warm_start is not None:
         raise TypeError(
@@ -255,18 +262,24 @@ def _family_fit(model: TVLSpec, Y, mask, backend, max_iters, tol, init,
     if keep_session:
         raise TypeError(f"keep_session: the {name} family has no streaming "
                         "session")
-    if init is not None and not isinstance(init, TVLParams):
-        raise TypeError(f"init for the {name} family must be TVLParams; "
-                        f"got {type(init).__name__}")
+    params = MFParams if isinstance(model, MixedFreqSpec) else TVLParams
+    if init is not None and not isinstance(init, params):
+        raise TypeError(f"init for the {name} family must be "
+                        f"{params.__name__}; got {type(init).__name__}")
     b = TorchBackend() if backend is None else backend
-    spec = model
-    if max_iters is not None or tol is not None:
-        spec = dataclasses.replace(
-            model,
-            n_rounds=max_iters if max_iters is not None else model.n_rounds,
-            tol=tol if tol is not None else model.tol)
-    res = tvl_fit(Y, spec, mask=mask, init=init, dtype=b.dtype,
-                  device=b.device, fused_chunk=b.fused_chunk)
+    kw = dict(mask=mask, init=init, dtype=b.dtype, device=b.device,
+              fused_chunk=b.fused_chunk)
+    if isinstance(model, MixedFreqSpec):
+        res = mf_fit(Y, model, max_iters=50 if max_iters is None
+                     else max_iters, tol=1e-6 if tol is None else tol, **kw)
+    else:
+        spec = model
+        if max_iters is not None or tol is not None:
+            spec = dataclasses.replace(
+                model, n_rounds=max_iters if max_iters is not None
+                else model.n_rounds, tol=tol if tol is not None
+                else model.tol)
+        res = tvl_fit(Y, spec, **kw)
     if fused:
         warnings.warn(f"the {name} family has no fused while-loop driver; "
                       "ignoring fused=", RuntimeWarning, stacklevel=3)
@@ -383,8 +396,11 @@ def forecast(result, horizon: int):
 
     Returns (y_fore (h, N), f_fore (h, k)), iterating the factor dynamics
     from the last smoothed state; a ``TVLResult`` goes to ``tvl_forecast``
-    (loadings frozen at T).
+    (loadings frozen at T), an ``MFResult`` to ``mf_forecast`` (the
+    augmented companion state).
     """
+    if isinstance(result, MFResult):
+        return mf_forecast(result, horizon)
     if isinstance(result, TVLResult):
         return tvl_forecast(result, horizon)
     f, y, _ = cpu_ref.forecast(result.params, result.factors[-1],

@@ -22,6 +22,10 @@
 
 // Largest factor count the kernels take; the wrappers raise above it.
 #define DFM_KMAX 16
+// Largest state width of the wide kernels (K12: the lone masked K2, the K4
+// pair and K1 at 16 < k <= 32, the mixed-frequency augmented state): one
+// warp still owns a column per lane.
+#define DFM_WIDE_KMAX 32
 
 // Scalar maths with one spelling for float and double.
 __device__ __forceinline__ float dfm_sqrt(float x) { return sqrtf(x); }
@@ -78,3 +82,34 @@ __device__ A block_reduce_sum(A v, A* smem) {
     DFM_CASE_K(15, __VA_ARGS__) DFM_CASE_K(16, __VA_ARGS__)                  \
     default: return (int)cudaErrorInvalidValue;                              \
   }
+// The same for k = 1..DFM_WIDE_KMAX.
+#define DFM_DISPATCH_WIDE_K(k, ...)                                          \
+  switch (k) {                                                               \
+    DFM_CASE_K(1, __VA_ARGS__) DFM_CASE_K(2, __VA_ARGS__)                    \
+    DFM_CASE_K(3, __VA_ARGS__) DFM_CASE_K(4, __VA_ARGS__)                    \
+    DFM_CASE_K(5, __VA_ARGS__) DFM_CASE_K(6, __VA_ARGS__)                    \
+    DFM_CASE_K(7, __VA_ARGS__) DFM_CASE_K(8, __VA_ARGS__)                    \
+    DFM_CASE_K(9, __VA_ARGS__) DFM_CASE_K(10, __VA_ARGS__)                   \
+    DFM_CASE_K(11, __VA_ARGS__) DFM_CASE_K(12, __VA_ARGS__)                  \
+    DFM_CASE_K(13, __VA_ARGS__) DFM_CASE_K(14, __VA_ARGS__)                  \
+    DFM_CASE_K(15, __VA_ARGS__) DFM_CASE_K(16, __VA_ARGS__)                  \
+    DFM_CASE_K(17, __VA_ARGS__) DFM_CASE_K(18, __VA_ARGS__)                  \
+    DFM_CASE_K(19, __VA_ARGS__) DFM_CASE_K(20, __VA_ARGS__)                  \
+    DFM_CASE_K(21, __VA_ARGS__) DFM_CASE_K(22, __VA_ARGS__)                  \
+    DFM_CASE_K(23, __VA_ARGS__) DFM_CASE_K(24, __VA_ARGS__)                  \
+    DFM_CASE_K(25, __VA_ARGS__) DFM_CASE_K(26, __VA_ARGS__)                  \
+    DFM_CASE_K(27, __VA_ARGS__) DFM_CASE_K(28, __VA_ARGS__)                  \
+    DFM_CASE_K(29, __VA_ARGS__) DFM_CASE_K(30, __VA_ARGS__)                  \
+    DFM_CASE_K(31, __VA_ARGS__) DFM_CASE_K(32, __VA_ARGS__)                  \
+    default: return (int)cudaErrorInvalidValue;                              \
+  }
+
+// Opts ``kernel`` in to ``bytes`` of dynamic shared memory where that is
+// above the 48 KB a launch gets without asking.
+template <typename F>
+static cudaError_t dfm_smem_optin(F kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}

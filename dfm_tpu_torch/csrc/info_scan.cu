@@ -40,21 +40,35 @@
 // Each lane is the lone chain, so the batched passes are latency-bound as
 // K4 is: B lanes run side by side on B SMs, a pass takes about the lone
 // pass's time.  The lone entry points launch one block with no mask.
+//
+// K12 = K4-wide, the wide pair (info_scan_wide, rts_smoother_wide): the
+// same two passes for a lone chain at any k <= DFM_WIDE_KMAX = 32, which
+// the lone wrappers take for 16 < k <= 32.  It replaces the same two JAX
+// routines where dfm_tpu/models/mixed_freq.py:mf_em_core runs them on the
+// m = L k augmented state (lines 183 and 202; m = 25 at S3, in f64 on the
+// card as the module's docstring sets out).  One warp still owns a column
+// per lane (k <= 32), so the pass bodies and the warp routines are the k <=
+// 16 kernels' own, instantiated at a leading dimension of 33; the ten (nine)
+// m x m matrices live in dynamic shared memory sized from the runtime k
+// (67 KB forward in f64 at m = 25, 85 KB at m = 32; opted in above 48 KB).
+// Bound: latency, as K4: a chain of T dependent m x m factorizations,
+// solves and products, one lane's work growing ~m^2 a product.  The k <= 16
+// kernels keep their static shared arrays and launch as before.
 #include "warp_linalg.cuh"
 
-template <typename T>
-__global__ void __launch_bounds__(32)
-info_scan_kernel(const T* __restrict__ b, const T* __restrict__ C,
-                 int c_lane, int c_stride, const T* __restrict__ A,
-                 const T* __restrict__ Q, const T* __restrict__ mu0,
-                 const T* __restrict__ P0, const T* __restrict__ t_mask,
-                 T* __restrict__ x_pred, T* __restrict__ P_pred,
-                 T* __restrict__ x_filt, T* __restrict__ P_filt,
-                 T* __restrict__ logdetG, int T_, int k) {
-  __shared__ T P[DFM_KMAX][LD], Lp[DFM_KMAX][LD], Cm[DFM_KMAX][LD],
-      CL[DFM_KMAX][LD], G[DFM_KMAX][LD], Lg[DFM_KMAX][LD], X[DFM_KMAX][LD],
-      Pf[DFM_KMAX][LD], Am[DFM_KMAX][LD], Qm[DFM_KMAX][LD];
-  __shared__ T x[DFM_KMAX], u[DFM_KMAX], xf[DFM_KMAX];
+// One forward pass in one warp; the matrices and vectors are the caller's
+// shared memory (static for k <= 16, dynamic for the wide kernel).
+template <typename T, int LDV>
+__device__ __forceinline__ void info_scan_pass(
+    SMat<T, LDV> P, SMat<T, LDV> Lp, SMat<T, LDV> Cm, SMat<T, LDV> CL,
+    SMat<T, LDV> G, SMat<T, LDV> Lg, SMat<T, LDV> X, SMat<T, LDV> Pf,
+    SMat<T, LDV> Am, SMat<T, LDV> Qm, T* x, T* u, T* xf,
+    const T* __restrict__ b, const T* __restrict__ C, int c_lane,
+    int c_stride, const T* __restrict__ A, const T* __restrict__ Q,
+    const T* __restrict__ mu0, const T* __restrict__ P0,
+    const T* __restrict__ t_mask, T* __restrict__ x_pred,
+    T* __restrict__ P_pred, T* __restrict__ x_filt, T* __restrict__ P_filt,
+    T* __restrict__ logdetG, int T_, int k) {
   const int lane = threadIdx.x;
   const int kk = k * k;
   // This block's problem lane.
@@ -123,16 +137,66 @@ info_scan_kernel(const T* __restrict__ b, const T* __restrict__ C,
 
 template <typename T>
 __global__ void __launch_bounds__(32)
-rts_smoother_kernel(const T* __restrict__ x_pred,
-                    const T* __restrict__ P_pred,
-                    const T* __restrict__ x_filt,
-                    const T* __restrict__ P_filt, const T* __restrict__ A,
-                    T* __restrict__ x_sm, T* __restrict__ P_sm,
-                    T* __restrict__ P_lag, int T_, int k) {
-  __shared__ T Am[DFM_KMAX][LD], Lc[DFM_KMAX][LD], Ppn[DFM_KMAX][LD],
-      Pft[DFM_KMAX][LD], Z[DFM_KMAX][LD], D[DFM_KMAX][LD], T1[DFM_KMAX][LD],
-      T2[DFM_KMAX][LD], Pn[DFM_KMAX][LD];
-  __shared__ T xn[DFM_KMAX], dx[DFM_KMAX], xs[DFM_KMAX];
+info_scan_kernel(const T* __restrict__ b, const T* __restrict__ C,
+                 int c_lane, int c_stride, const T* __restrict__ A,
+                 const T* __restrict__ Q, const T* __restrict__ mu0,
+                 const T* __restrict__ P0, const T* __restrict__ t_mask,
+                 T* __restrict__ x_pred, T* __restrict__ P_pred,
+                 T* __restrict__ x_filt, T* __restrict__ P_filt,
+                 T* __restrict__ logdetG, int T_, int k) {
+  __shared__ T P[DFM_KMAX][LD], Lp[DFM_KMAX][LD], Cm[DFM_KMAX][LD],
+      CL[DFM_KMAX][LD], G[DFM_KMAX][LD], Lg[DFM_KMAX][LD], X[DFM_KMAX][LD],
+      Pf[DFM_KMAX][LD], Am[DFM_KMAX][LD], Qm[DFM_KMAX][LD];
+  __shared__ T x[DFM_KMAX], u[DFM_KMAX], xf[DFM_KMAX];
+  info_scan_pass<T, LD>(P, Lp, Cm, CL, G, Lg, X, Pf, Am, Qm, x, u, xf, b, C,
+                        c_lane, c_stride, A, Q, mu0, P0, t_mask, x_pred,
+                        P_pred, x_filt, P_filt, logdetG, T_, k);
+}
+
+// The k x WIDE_LD slot i of the dynamic shared memory at ``base``.
+template <typename T>
+__device__ __forceinline__ SMat<T, WIDE_LD> wide_slot(T* base, int i,
+                                                      int k) {
+  return reinterpret_cast<SMat<T, WIDE_LD>>(base + (size_t)i * k * WIDE_LD);
+}
+
+// Dynamic shared memory of the wide passes: ``mats`` k x WIDE_LD matrices
+// and three k-vectors.
+template <typename T>
+static size_t wide_smem(int k, int mats) {
+  return sizeof(T) * ((size_t)mats * k * WIDE_LD + 3 * (size_t)k);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32)
+info_scan_wide_kernel(const T* __restrict__ b, const T* __restrict__ C,
+                      int c_lane, int c_stride, const T* __restrict__ A,
+                      const T* __restrict__ Q, const T* __restrict__ mu0,
+                      const T* __restrict__ P0, const T* __restrict__ t_mask,
+                      T* __restrict__ x_pred, T* __restrict__ P_pred,
+                      T* __restrict__ x_filt, T* __restrict__ P_filt,
+                      T* __restrict__ logdetG, int T_, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  T* vec = sm + (size_t)10 * k * WIDE_LD;
+  info_scan_pass<T, WIDE_LD>(
+      wide_slot(sm, 0, k), wide_slot(sm, 1, k), wide_slot(sm, 2, k),
+      wide_slot(sm, 3, k), wide_slot(sm, 4, k), wide_slot(sm, 5, k),
+      wide_slot(sm, 6, k), wide_slot(sm, 7, k), wide_slot(sm, 8, k),
+      wide_slot(sm, 9, k), vec, vec + k, vec + 2 * k, b, C, c_lane, c_stride,
+      A, Q, mu0, P0, t_mask, x_pred, P_pred, x_filt, P_filt, logdetG, T_, k);
+}
+
+// One backward pass in one warp, as info_scan_pass.
+template <typename T, int LDV>
+__device__ __forceinline__ void rts_pass(
+    SMat<T, LDV> Am, SMat<T, LDV> Lc, SMat<T, LDV> Ppn, SMat<T, LDV> Pft,
+    SMat<T, LDV> Z, SMat<T, LDV> D, SMat<T, LDV> T1, SMat<T, LDV> T2,
+    SMat<T, LDV> Pn, T* xn, T* dx, T* xs,
+    const T* __restrict__ x_pred, const T* __restrict__ P_pred,
+    const T* __restrict__ x_filt, const T* __restrict__ P_filt,
+    const T* __restrict__ A, T* __restrict__ x_sm, T* __restrict__ P_sm,
+    T* __restrict__ P_lag, int T_, int k) {
   const int lane = threadIdx.x;
   const int kk = k * k;
   const T jit = dfm_jitter<T>();
@@ -201,6 +265,42 @@ rts_smoother_kernel(const T* __restrict__ x_pred,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(32)
+rts_smoother_kernel(const T* __restrict__ x_pred,
+                    const T* __restrict__ P_pred,
+                    const T* __restrict__ x_filt,
+                    const T* __restrict__ P_filt, const T* __restrict__ A,
+                    T* __restrict__ x_sm, T* __restrict__ P_sm,
+                    T* __restrict__ P_lag, int T_, int k) {
+  __shared__ T Am[DFM_KMAX][LD], Lc[DFM_KMAX][LD], Ppn[DFM_KMAX][LD],
+      Pft[DFM_KMAX][LD], Z[DFM_KMAX][LD], D[DFM_KMAX][LD], T1[DFM_KMAX][LD],
+      T2[DFM_KMAX][LD], Pn[DFM_KMAX][LD];
+  __shared__ T xn[DFM_KMAX], dx[DFM_KMAX], xs[DFM_KMAX];
+  rts_pass<T, LD>(Am, Lc, Ppn, Pft, Z, D, T1, T2, Pn, xn, dx, xs, x_pred,
+                  P_pred, x_filt, P_filt, A, x_sm, P_sm, P_lag, T_, k);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32)
+rts_smoother_wide_kernel(const T* __restrict__ x_pred,
+                         const T* __restrict__ P_pred,
+                         const T* __restrict__ x_filt,
+                         const T* __restrict__ P_filt,
+                         const T* __restrict__ A, T* __restrict__ x_sm,
+                         T* __restrict__ P_sm, T* __restrict__ P_lag, int T_,
+                         int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  T* vec = sm + (size_t)9 * k * WIDE_LD;
+  rts_pass<T, WIDE_LD>(
+      wide_slot(sm, 0, k), wide_slot(sm, 1, k), wide_slot(sm, 2, k),
+      wide_slot(sm, 3, k), wide_slot(sm, 4, k), wide_slot(sm, 5, k),
+      wide_slot(sm, 6, k), wide_slot(sm, 7, k), wide_slot(sm, 8, k), vec,
+      vec + k, vec + 2 * k, x_pred, P_pred, x_filt, P_filt, A, x_sm, P_sm,
+      P_lag, T_, k);
+}
+
+template <typename T>
 static int launch_scan(const T* b, const T* C, int c_lane, int c_stride,
                        const T* A, const T* Q, const T* mu0, const T* P0,
                        const T* t_mask, T* x_pred, T* P_pred, T* x_filt,
@@ -223,6 +323,37 @@ static int launch_rts(const T* x_pred, const T* P_pred, const T* x_filt,
     rts_smoother_kernel<T><<<B, 32, 0, stream>>>(x_pred, P_pred, x_filt,
                                                  P_filt, A, x_sm, P_sm, P_lag,
                                                  T_, k);
+  return (int)cudaGetLastError();
+}
+
+// The wide pair: one lone chain, 1 <= k <= DFM_WIDE_KMAX.
+template <typename T>
+static int launch_scan_wide(const T* b, const T* C, int c_stride, const T* A,
+                            const T* Q, const T* mu0, const T* P0, T* x_pred,
+                            T* P_pred, T* x_filt, T* P_filt, T* logdetG,
+                            int T_, int k, cudaStream_t stream) {
+  if (k < 1 || k > DFM_WIDE_KMAX) return (int)cudaErrorInvalidValue;
+  if (T_ <= 0) return (int)cudaGetLastError();
+  const size_t bytes = wide_smem<T>(k, 10);
+  const cudaError_t e = dfm_smem_optin(info_scan_wide_kernel<T>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  info_scan_wide_kernel<T><<<1, 32, bytes, stream>>>(
+      b, C, 0, c_stride, A, Q, mu0, P0, nullptr, x_pred, P_pred, x_filt,
+      P_filt, logdetG, T_, k);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_rts_wide(const T* x_pred, const T* P_pred, const T* x_filt,
+                           const T* P_filt, const T* A, T* x_sm, T* P_sm,
+                           T* P_lag, int T_, int k, cudaStream_t stream) {
+  if (k < 1 || k > DFM_WIDE_KMAX) return (int)cudaErrorInvalidValue;
+  if (T_ <= 0) return (int)cudaGetLastError();
+  const size_t bytes = wide_smem<T>(k, 9);
+  const cudaError_t e = dfm_smem_optin(rts_smoother_wide_kernel<T>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  rts_smoother_wide_kernel<T><<<1, 32, bytes, stream>>>(
+      x_pred, P_pred, x_filt, P_filt, A, x_sm, P_sm, P_lag, T_, k);
   return (int)cudaGetLastError();
 }
 
@@ -257,6 +388,22 @@ extern "C" {
                         T* P_lag, int B, int T_, int k, void* stream) {      \
     return launch_rts<T>(x_pred, P_pred, x_filt, P_filt, A, x_sm, P_sm,      \
                          P_lag, B, T_, k, (cudaStream_t)stream);             \
+  }                                                                          \
+  int info_scan_wide_##SFX(const T* b, const T* C, int c_stride,             \
+                           const T* A, const T* Q, const T* mu0,             \
+                           const T* P0, T* x_pred, T* P_pred, T* x_filt,     \
+                           T* P_filt, T* logdetG, int T_, int k,             \
+                           void* stream) {                                   \
+    return launch_scan_wide<T>(b, C, c_stride, A, Q, mu0, P0, x_pred,        \
+                               P_pred, x_filt, P_filt, logdetG, T_, k,       \
+                               (cudaStream_t)stream);                        \
+  }                                                                          \
+  int rts_smoother_wide_##SFX(const T* x_pred, const T* P_pred,              \
+                              const T* x_filt, const T* P_filt, const T* A,  \
+                              T* x_sm, T* P_sm, T* P_lag, int T_, int k,     \
+                              void* stream) {                                \
+    return launch_rts_wide<T>(x_pred, P_pred, x_filt, P_filt, A, x_sm, P_sm, \
+                              P_lag, T_, k, (cudaStream_t)stream);           \
   }
 #if DFM_WANT_F32
 DFM_SCAN_ENTRIES(f32, float)

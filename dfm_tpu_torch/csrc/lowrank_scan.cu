@@ -563,11 +563,8 @@ template <typename K, typename... Args>
 static int lr_launch(K kernel, size_t bytes, int B, cudaStream_t stream,
                      Args... args) {
   if (bytes > LR_SMEM_MAX) return (int)cudaErrorInvalidValue;
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e = dfm_smem_optin(kernel, bytes);
+  if (e != cudaSuccess) return (int)e;
   kernel<<<B, LR_THREADS, bytes, stream>>>(args...);
   return (int)cudaGetLastError();
 }

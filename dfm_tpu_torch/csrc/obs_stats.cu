@@ -35,6 +35,19 @@
 // Bound: bytes, Y and the loadings read once, 30 MB in f32 at T = 300,
 // N = 5,000, k = 4 (~9 us at 3.35 TB/s).
 //
+// K12 = K2-wide (obs_stats_wide_kernel below): the lone masked K2 at any k
+// <= DFM_WIDE_KMAX = 32, which the lone wrapper takes for 16 < k <= 32.  It
+// replaces the masked obs_stats where dfm_tpu/models/mixed_freq.py:
+// mf_em_core runs it on the augmented loadings (line 154; the m = L k
+// columns of ``augment``, lines 110-114: m = 25 at S3, 2,000 series x 300
+// steps).  At m = 25 a step has m + m(m+1)/2 = 350 sums, too many partials
+// for a thread's registers, so the design turns around: one block of 256
+// threads a step stages a tile of 64 series (w/R, w y/R and the m loadings)
+// in shared memory, and each thread owns at most three of the sums and
+// loops over the tile.  n_t and ldR_t are summed in T, as the lone K2's.
+// Bound: operations at S3, 2 T N 350 = 420 MFLOP (~6 us at 67 TFLOP/s),
+// beside Y and the mask, 4.8 MB in f32 (~1.4 us).
+//
 // Design: one block per t (and lane).  Each thread walks series with a stride of
 // blockDim.x, keeps its partials of all k + k(k+1)/2 + 2 outputs in
 // registers (k is a template constant so the partials stay in registers;
@@ -126,6 +139,103 @@ obs_stats_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
   }
 }
 
+constexpr int kWideTile = 64;
+// The most sums a thread owns (3: 560 sums at k = 32 over 256 threads).
+constexpr int kWideSums =
+    DFM_WIDE_KMAX + DFM_WIDE_KMAX * (DFM_WIDE_KMAX + 1) / 2;
+constexpr int kWideOwn = (kWideSums + kThreads - 1) / kThreads;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+obs_stats_wide_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
+                      const T* __restrict__ R, const T* __restrict__ mask,
+                      T* __restrict__ b, T* __restrict__ C,
+                      T* __restrict__ nobs, T* __restrict__ ldR, int N,
+                      int k) {
+  __shared__ T lam[kWideTile][DFM_WIDE_KMAX + 1];
+  __shared__ T wr[kWideTile], yr[kWideTile];
+  __shared__ T red[32];
+  const int t = blockIdx.x, tid = threadIdx.x;
+  const int nv = k + k * (k + 1) / 2;
+  const T* y = Y + (size_t)t * N;
+  const T* w = mask + (size_t)t * N;
+  // The sums this thread owns: e < k is b[e]; else the packed (i, j), j <= i.
+  int oi[kWideOwn], oj[kWideOwn];
+  T acc[kWideOwn];
+#pragma unroll
+  for (int q = 0; q < kWideOwn; ++q) {
+    const int e = tid + q * kThreads;
+    oi[q] = -1;
+    oj[q] = -1;
+    acc[q] = T(0);
+    if (e < k) {
+      oi[q] = e;
+    } else if (e < nv) {
+      int r = e - k, i = 0;
+      while (r > i) { r -= i + 1; ++i; }
+      oi[q] = i;
+      oj[q] = r;
+    }
+  }
+  T acc_n = T(0), acc_l = T(0);
+  for (int n0 = 0; n0 < N; n0 += kWideTile) {
+    const int nt = min(kWideTile, N - n0);
+    __syncthreads();                       // the previous tile is consumed
+    for (int e = tid; e < nt * k; e += kThreads)
+      lam[e / k][e % k] = Lam[(size_t)n0 * k + e];
+    if (tid < nt) {
+      const int n = n0 + tid;
+      const T wn = w[n];
+      const T rinv = T(1) / R[n];
+      wr[tid] = wn * rinv;
+      yr[tid] = wn * nan_to_num(y[n]) * rinv;
+      acc_n += wn;
+      acc_l += wn * dfm_log(R[n]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kWideOwn; ++q) {
+      const int i = oi[q], j = oj[q];
+      if (i < 0) continue;
+      T s = acc[q];
+      if (j < 0) {
+        for (int n = 0; n < nt; ++n) s += yr[n] * lam[n][i];
+      } else {
+        for (int n = 0; n < nt; ++n) s += wr[n] * lam[n][i] * lam[n][j];
+      }
+      acc[q] = s;
+    }
+  }
+  T* Ct = C + (size_t)t * k * k;
+#pragma unroll
+  for (int q = 0; q < kWideOwn; ++q) {
+    const int i = oi[q], j = oj[q];
+    if (i < 0) continue;
+    if (j < 0) {
+      b[(size_t)t * k + i] = acc[q];
+    } else {
+      Ct[i * k + j] = acc[q];
+      Ct[j * k + i] = acc[q];
+    }
+  }
+  acc_n = block_reduce_sum(acc_n, red);
+  if (tid == 0) nobs[t] = acc_n;
+  __syncthreads();
+  acc_l = block_reduce_sum(acc_l, red);
+  if (tid == 0) ldR[t] = acc_l;
+}
+
+template <typename T>
+static int launch_wide(const T* Y, const T* Lam, const T* R, const T* mask,
+                       T* b, T* C, T* nobs, T* ldR, int T_, int N, int k,
+                       cudaStream_t stream) {
+  if (k < 1 || k > DFM_WIDE_KMAX) return (int)cudaErrorInvalidValue;
+  if (T_ > 0)
+    obs_stats_wide_kernel<T><<<T_, kThreads, 0, stream>>>(
+        Y, Lam, R, mask, b, C, nobs, ldR, N, k);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, typename TA>
 static int launch(const T* Y, const T* Lam, const T* R, const T* mask, T* b,
                   T* C, TA* nobs, TA* ldR, int B, int T_, int N, int k,
@@ -157,6 +267,12 @@ extern "C" {
                               void* stream) {                                \
     return launch<T, double>(Y, Lam, R, mask, b, C, nobs, ldR, B, T_, N, k,  \
                              0, (cudaStream_t)stream);                       \
+  }                                                                          \
+  int obs_stats_wide_##SFX(const T* Y, const T* Lam, const T* R,             \
+                           const T* mask, T* b, T* C, T* nobs, T* ldR,       \
+                           int T_, int N, int k, void* stream) {             \
+    return launch_wide<T>(Y, Lam, R, mask, b, C, nobs, ldR, T_, N, k,        \
+                          (cudaStream_t)stream);                             \
   }
 #if DFM_WANT_F32
 DFM_OBS_ENTRIES(f32, float)

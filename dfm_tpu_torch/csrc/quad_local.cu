@@ -20,7 +20,7 @@
 // pass of dfm_tpu/estim/batched.py:_batched_loglik_masked (lines 656-659),
 // quad[b, t] = sum_n w (y - lam . x_pred)^2 / R and U = b - C_t x_pred.
 //
-// K1-tv, the time-varying-loadings twin (tvl_quad_kernel below), replaces
+// K1-tv, the time-varying-loadings twin (quad_terms_kernel below), replaces
 // the residual pass of dfm_tpu/models/tv_loadings.py:factor_pass_tv (lines
 // 111-117; the same lines in _tvl_loglik_impl, 270-275) with per-step
 // loadings Lam_t (T, N, k):
@@ -34,6 +34,15 @@
 // K1's, with k a template constant so each thread's k partials of U stay
 // in registers; the block reduces them with shuffles and shared memory,
 // in the compute type, and the quadratic in double.
+//
+// K12 = K1-wide, the same kernel (quad_terms_kernel) over static loadings
+// (a loading time stride of 0) at k <= DFM_WIDE_KMAX = 32: it replaces
+// dfm_tpu/ssm/info_filter.py:loglik_terms_local (line 139) where
+// dfm_tpu/models/mixed_freq.py:mf_em_core runs it on the augmented loadings
+// (lines 185-186; m = 25 at S3): quad_R (f64 sum) and U = sum_n (v / R_n)
+// lam_n from the masked residual at x_pred, as K1-tv.  The lone quad_local
+// wrapper takes it (with no U) for 16 < k <= 32.  Bound: bytes, Y, the mask
+// and the loadings read once, 4.8 MB in f32 at S3 (T = 300, N = 2,000).
 //
 // Bound on the H100: bytes.  The kernel must read Y (and the mask) once:
 // 20 MB unmasked, 40 MB masked in f32 at T = 500, N = 10,000 (K1b: 160 MB
@@ -92,12 +101,14 @@ __global__ void quad_local_kernel(const T* __restrict__ Y,
   if (threadIdx.x == 0) out[t] = acc;
 }
 
+// K1-tv and K1-wide: Lam_t advances lam_tstride values a step (N K for
+// per-step loadings, 0 for static ones); U may be null (quad_R only).
 template <typename T, int K>
 __global__ void __launch_bounds__(256)
-tvl_quad_kernel(const T* __restrict__ Y, const T* __restrict__ Lam_t,
-                const T* __restrict__ R, const T* __restrict__ x_pred,
-                const T* __restrict__ mask, double* __restrict__ out,
-                T* __restrict__ U, int N) {
+quad_terms_kernel(const T* __restrict__ Y, const T* __restrict__ Lam_t,
+                  const T* __restrict__ R, const T* __restrict__ x_pred,
+                  const T* __restrict__ mask, double* __restrict__ out,
+                  T* __restrict__ U, int N, size_t lam_tstride) {
   constexpr int kW = 256 / 32;
   __shared__ T xs[K];
   __shared__ T part[kW][K];
@@ -107,7 +118,7 @@ tvl_quad_kernel(const T* __restrict__ Y, const T* __restrict__ Lam_t,
   __syncthreads();
   const T* y = Y + (size_t)t * N;
   const T* w = mask ? mask + (size_t)t * N : nullptr;
-  const T* lam_row = Lam_t + (size_t)t * N * K;
+  const T* lam_row = Lam_t + (size_t)t * lam_tstride;
   double acc = 0.0;
   T u[K];
 #pragma unroll
@@ -136,7 +147,7 @@ tvl_quad_kernel(const T* __restrict__ Y, const T* __restrict__ Lam_t,
   }
   acc = block_reduce_sum(acc, red);   // its __syncthreads orders part too
   if (threadIdx.x == 0) out[t] = acc;
-  if (threadIdx.x < K) {
+  if (U && threadIdx.x < K) {
     T s = T(0);
     for (int q = 0; q < kW; ++q) s += part[q][threadIdx.x];
     U[(size_t)t * K + threadIdx.x] = s;
@@ -148,8 +159,19 @@ static int launch_tvl(const T* Y, const T* Lam_t, const T* R,
                       const T* x_pred, const T* mask, double* out, T* U,
                       int T_, int N, int k, cudaStream_t stream) {
   if (T_ <= 0) return (int)cudaGetLastError();
-  DFM_DISPATCH_K(k, tvl_quad_kernel<T, K><<<T_, 256, 0, stream>>>(
-                        Y, Lam_t, R, x_pred, mask, out, U, N))
+  DFM_DISPATCH_K(k, quad_terms_kernel<T, K><<<T_, 256, 0, stream>>>(
+                        Y, Lam_t, R, x_pred, mask, out, U, N,
+                        (size_t)N * K))
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_wide(const T* Y, const T* Lam, const T* R, const T* x_pred,
+                       const T* mask, double* out, T* U, int T_, int N,
+                       int k, cudaStream_t stream) {
+  if (T_ <= 0) return (int)cudaGetLastError();
+  DFM_DISPATCH_WIDE_K(k, quad_terms_kernel<T, K><<<T_, 256, 0, stream>>>(
+                             Y, Lam, R, x_pred, mask, out, U, N, 0))
   return (int)cudaGetLastError();
 }
 
@@ -193,6 +215,12 @@ extern "C" {
                                 void* stream) {                              \
     return launch<T>(Y, Lam, R, x_pred, mask, bvec, C, T_ * k * k, k * k,    \
                      out, U, B, T_, N, k, (cudaStream_t)stream);             \
+  }                                                                          \
+  int quad_local_wide_##SFX(const T* Y, const T* Lam, const T* R,            \
+                            const T* x_pred, const T* mask, double* out,     \
+                            T* U, int T_, int N, int k, void* stream) {      \
+    return launch_wide<T>(Y, Lam, R, x_pred, mask, out, U, T_, N, k,         \
+                          (cudaStream_t)stream);                             \
   }
 #if DFM_WANT_F32
 DFM_QUAD_ENTRIES(f32, float)

@@ -185,9 +185,7 @@ static int launch(const T* C, const T* A, const T* Q, const T* P0, T* Pp,
                   T* Psm_end_rev, int tau, int k, cudaStream_t stream) {
   if (k < 1 || k > DFM_KMAX || tau < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)SS_SLOTS * MAT * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      ss_cov_path_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const cudaError_t err = dfm_smem_optin(ss_cov_path_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
   ss_cov_path_kernel<T><<<1, 32 * SS_WARPS, smem, stream>>>(
       C, A, Q, P0, Pp, Pf, M, ldG, delta, J, Psm_front, Psm_end_rev, tau, k);

@@ -32,6 +32,7 @@
 // Each operation on the chain is an fma, a sqrt or a division whose
 // operands come from memory, so nothing folds; the values stay near fixed
 // points (x -> x h + c, x -> b - (a / sqrt x)^2), so nothing overflows.
+// k runs to DFM_WIDE_KMAX: the same floor for the wide K4 pair (K12).
 #include "common.cuh"
 
 __host__ __device__ constexpr int ceil_log2(int k) {
@@ -113,8 +114,8 @@ step_chain_kernel(const T* __restrict__ consts, T* __restrict__ out, int T_,
 template <typename T>
 static int launch_chain(const T* consts, T* out, int T_, int k, int backward,
                         cudaStream_t stream) {
-  DFM_DISPATCH_K(k, step_chain_kernel<T, K><<<1, 1, 0, stream>>>(
-                        consts, out, T_, backward))
+  DFM_DISPATCH_WIDE_K(k, step_chain_kernel<T, K><<<1, 1, 0, stream>>>(
+                             consts, out, T_, backward))
   return (int)cudaGetLastError();
 }
 

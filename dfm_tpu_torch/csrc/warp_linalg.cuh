@@ -1,28 +1,32 @@
 // One-warp k x k linear algebra in shared memory, shared by K4
 // (info_scan.cu) and K5a (ss_cov_path.cu).
 //
-// All matrices are row-major in shared memory with leading dimension
-// DFM_KMAX + 1, so lanes reading different rows hit different banks.  Lane
-// j computes column j of each product and solves for column j of each
-// right-hand side; the Cholesky factorization goes column by column, lane i
-// updating row i.  __syncwarp() separates the phases, so every function is
-// called by all 32 lanes of one warp.  k <= DFM_KMAX.  The lane is
-// threadIdx.x % 32, so any warp of a block may call them on its own
-// matrices.
+// All matrices are row-major in shared memory with a leading dimension one
+// past the widest k they take, so lanes reading different rows hit
+// different banks: LD = DFM_KMAX + 1 for the k <= DFM_KMAX kernels, WIDE_LD
+// = DFM_WIDE_KMAX + 1 for the wide K4 pair (k <= 32, the matrices in
+// dynamic shared memory); the leading dimension is a template parameter
+// deduced from the matrices passed.  Lane j computes column j of each
+// product and solves for column j of each right-hand side; the Cholesky
+// factorization goes column by column, lane i updating row i.
+// __syncwarp() separates the phases, so every function is called by all
+// 32 lanes of one warp.  The lane is threadIdx.x % 32, so any warp of a
+// block may call them on its own matrices.
 #pragma once
 
 #include "common.cuh"
 
 constexpr int LD = DFM_KMAX + 1;
+constexpr int WIDE_LD = DFM_WIDE_KMAX + 1;
 
-template <typename T>
-using SMat = T (*)[LD];
+template <typename T, int LDV = LD>
+using SMat = T (*)[LDV];
 
 __device__ __forceinline__ int warp_lane() { return threadIdx.x & 31; }
 
 // C = op(A) op(B); lane j computes column j.  C aliases neither A nor B.
-template <typename T, bool TA, bool TB>
-__device__ void mm(SMat<T> C, SMat<T> A, SMat<T> B, int k) {
+template <typename T, bool TA, bool TB, int LDV>
+__device__ void mm(SMat<T, LDV> C, SMat<T, LDV> A, SMat<T, LDV> B, int k) {
   const int j = warp_lane();
   if (j < k) {
     for (int i = 0; i < k; ++i) {
@@ -38,8 +42,8 @@ __device__ void mm(SMat<T> C, SMat<T> A, SMat<T> B, int k) {
 // In-place Cholesky of the lower triangle of W (which already holds
 // sym(M) + jitter I); the strict upper triangle is zeroed.  No clamp: a
 // negative pivot gives NaN, as jnp.linalg.cholesky does.
-template <typename T>
-__device__ void chol_inplace(SMat<T> W, int k) {
+template <typename T, int LDV>
+__device__ void chol_inplace(SMat<T, LDV> W, int k) {
   const int lane = warp_lane();
   for (int p = 0; p < k; ++p) {
     const T d = dfm_sqrt(W[p][p]);
@@ -60,8 +64,9 @@ __device__ void chol_inplace(SMat<T> W, int k) {
 
 // X = (L L')^{-1} op(B); lane j solves for column j.  X may alias B when
 // op is the identity.
-template <typename T, bool TB>
-__device__ void chol_solve_cols(SMat<T> X, SMat<T> L, SMat<T> B, int k) {
+template <typename T, bool TB, int LDV>
+__device__ void chol_solve_cols(SMat<T, LDV> X, SMat<T, LDV> L,
+                                SMat<T, LDV> B, int k) {
   const int j = warp_lane();
   if (j < k) {
     for (int i = 0; i < k; ++i) {
@@ -82,10 +87,11 @@ __device__ void chol_solve_cols(SMat<T> X, SMat<T> L, SMat<T> B, int k) {
 // P:  Lp = chol(sym(P) + jitter I);  G = I + Lp' C Lp;  Lg = chol(sym(G))
 // with no jitter (G >= I);  Pf = sym(Lp G^{-1} Lp').  CL, G and X are
 // scratch; Lp and Lg keep the two factors.
-template <typename T>
-__device__ void info_cov_update(SMat<T> P, SMat<T> Cm, SMat<T> Lp,
-                                SMat<T> CL, SMat<T> G, SMat<T> Lg, SMat<T> X,
-                                SMat<T> Pf, int k) {
+template <typename T, int LDV>
+__device__ void info_cov_update(SMat<T, LDV> P, SMat<T, LDV> Cm,
+                                SMat<T, LDV> Lp, SMat<T, LDV> CL,
+                                SMat<T, LDV> G, SMat<T, LDV> Lg,
+                                SMat<T, LDV> X, SMat<T, LDV> Pf, int k) {
   const int lane = warp_lane();
   const T jit = dfm_jitter<T>();
   for (int e = lane; e < k * k; e += 32) {
@@ -113,9 +119,10 @@ __device__ void info_cov_update(SMat<T> P, SMat<T> Cm, SMat<T> Lp,
 }
 
 // The prediction  P = sym(A Pf A' + Q);  W1 and W2 are scratch.
-template <typename T>
-__device__ void predict_cov(SMat<T> P, SMat<T> Pf, SMat<T> Am, SMat<T> Qm,
-                            SMat<T> W1, SMat<T> W2, int k) {
+template <typename T, int LDV>
+__device__ void predict_cov(SMat<T, LDV> P, SMat<T, LDV> Pf, SMat<T, LDV> Am,
+                            SMat<T, LDV> Qm, SMat<T, LDV> W1, SMat<T, LDV> W2,
+                            int k) {
   mm<T, false, false>(W1, Am, Pf, k);                   // A P_f
   mm<T, false, true>(W2, W1, Am, k);                    // A P_f A'
   for (int e = warp_lane(); e < k * k; e += 32) {
@@ -126,8 +133,8 @@ __device__ void predict_cov(SMat<T> P, SMat<T> Pf, SMat<T> Am, SMat<T> Qm,
 }
 
 // 2 sum_i log L[i][i], valid in every lane.
-template <typename T>
-__device__ T chol_logdet_warp(SMat<T> L, int k) {
+template <typename T, int LDV>
+__device__ T chol_logdet_warp(SMat<T, LDV> L, int k) {
   T s = T(0);
   for (int i = 0; i < k; ++i) s += dfm_log(L[i][i]);
   return T(2) * s;

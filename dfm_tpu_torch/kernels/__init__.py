@@ -39,7 +39,7 @@ import torch
 
 __all__ = ["LAUNCHES", "KERNELS", "PROBES", "build", "build_log", "launch",
            "probe", "reset_launches", "check_k", "check_lowrank",
-           "check_tensor"]
+           "check_tensor", "WIDE", "route"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -47,6 +47,10 @@ BUILD_DIR = _PKG.parent / "build" / "dfm_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KMAX = 16   # DFM_KMAX in csrc/common.cuh
+# The wide kernels' range (DFM_WIDE_KMAX): K12, the lone masked K2, the K4
+# pair and K1 at state widths past KMAX (the mixed-frequency augmented
+# state, m = 25 at S3).
+WIDE_KMAX = 32
 # The rank-r kernels' range (DFM_LR_KMAX, DFM_LR_RMAX in lowrank_scan.cu).
 LOWRANK_KMAX, LOWRANK_RMAX = 100, 32
 # The ROADMAP row that ports the kernels past their k range.
@@ -84,7 +88,16 @@ KERNELS = {
     "tvl_quad": ("quad_local.cu", [_P] * 7 + [_I] * 3),
     "loading_filter": ("tv_loadings.cu", [_P] * 8 + [_I] * 3),
     "loading_smoother": ("tv_loadings.cu", [_P] * 6 + [_I] * 3),
+    "obs_stats_wide": ("obs_stats.cu", [_P] * 8 + [_I] * 3),
+    "info_scan_wide": ("info_scan.cu", [_P, _P, _I] + [_P] * 9 + [_I] * 2),
+    "rts_smoother_wide": ("info_scan.cu", [_P] * 8 + [_I] * 2),
+    "quad_local_wide": ("quad_local.cu", [_P] * 7 + [_I] * 3),
 }
+
+# The lone entry points with a wide kernel beside the k <= KMAX one, and
+# its name.  Every other kernel stops at KMAX.
+WIDE = {"obs_stats": "obs_stats_wide", "info_scan": "info_scan_wide",
+        "rts_smoother": "rts_smoother_wide", "quad_local": "quad_local_wide"}
 
 # Measurement kernels off the model path, in the same form.
 PROBES = {
@@ -193,15 +206,24 @@ def _lib(source: str, suffix: str):
     return lib
 
 
-def check_k(name: str, k: int) -> None:
-    """Raise unless the factor count is one the kernels take: k < 1 is
-    an error, k > KMAX not ported yet (the plain twins take any k)."""
+def check_k(name: str, k: int, kmax: int = KMAX) -> None:
+    """Raise unless the factor count is one the kernel takes: k < 1 is
+    an error, k > kmax (KMAX; WIDE_KMAX for the wide kernels) not ported
+    yet (the plain twins take any k)."""
     if k < 1:
         raise ValueError(f"{name} kernel takes k >= 1; got k = {k}")
-    if k > KMAX:
+    if k > kmax:
         raise NotImplementedError(
-            f"{name} kernel takes k <= {KMAX} on CUDA (got k = {k}); wider "
+            f"{name} kernel takes k <= {kmax} on CUDA (got k = {k}); wider "
             f"factor models are {GENERIC_K}")
+
+
+def route(name: str, k: int) -> str:
+    """The kernel that one of the ``WIDE`` lone entry points launches at
+    k: ``name`` itself for k <= KMAX, its wide kernel for KMAX < k <=
+    WIDE_KMAX; raises as ``check_k`` past that."""
+    check_k(name, k, WIDE_KMAX)
+    return name if k <= KMAX else WIDE[name]
 
 
 def check_lowrank(name: str, k: int, r: int) -> None:

@@ -5,7 +5,12 @@ both the CPU and the H100, so the accumulation dtype is always float64:
 
 - ``accum_dtype()``: the dtype of the three (T,)-sized assembly points
   (the unmasked ``ldR`` sum, the ``quad_R`` row-sum and the loglik
-  assembly), each a measured fix of the 1e-5 loglik contract.
+  assembly), each a measured fix of the 1e-5 loglik contract.  It also
+  stands for the JAX ``accum_dtype(dt, native_only=True)``, the upgrade
+  of SEQUENTIAL work (the mixed-frequency augmented-state scans,
+  ``models.mixed_freq``) only where f64 is native: f64 is native on the
+  CPU and on the H100 alike, so the port always upgrades and needs no
+  second policy.
 - ``default_compute_dtype(device)``: float32 on CUDA, float64 on the CPU
   (the golden/test regime).
 - ``highest_precision()``: a context that keeps float32 matrix products in

@@ -15,11 +15,15 @@ and the time scan is pure k x k:
 The quadratic v'R^{-1}v comes from a second pass over the true residuals
 (the expanded form cancels catastrophically in f32).
 
-Three routines here are kernels on CUDA tensors, each with its plain
+Four routines here are kernels on CUDA tensors, each with its plain
 version beside it (the wrapper takes the plain version only for CPU
 tensors): K2 ``obs_stats`` when masked (``csrc/obs_stats.cu``; the unmasked
 statistics are a GEMM and stay ``torch.matmul``), K4-forward ``info_scan``
-(``csrc/info_scan.cu``) and K1 ``quad_local`` (``csrc/quad_local.cu``).
+(``csrc/info_scan.cu``), K1 ``quad_local`` (``csrc/quad_local.cu``) and
+``loglik_terms_local`` (quad_R and U from the residual, K1-wide).  The
+first three launch their k <= 16 kernel, or for 16 < k <= 32 their wide
+kernel (K12, ``kernels.route``), and raise past 32; ``loglik_terms_local``
+launches K1-wide at every k <= 32.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from .params import FilterResult, SSMParams
 
 __all__ = ["ObsStats", "obs_stats", "obs_stats_plain", "info_scan",
            "info_scan_plain", "quad_local", "quad_local_plain",
+           "loglik_terms_local", "loglik_terms_local_plain",
            "u_from_stats", "quad_expanded", "loglik_from_terms",
            "info_filter_from_stats",
            "info_filter", "loglik_eval", "smooth"]
@@ -81,14 +86,15 @@ def obs_stats(Y: torch.Tensor, Lam: torch.Tensor, R: torch.Tensor,
     """Reduce the panel to k-dimensional per-step statistics.
 
     Y (T, N), Lam (N, k), R (N,); mask optional (T, N) {0,1} in Y's dtype.
-    Unmasked: torch.matmul.  Masked: kernel K2 for CUDA tensors.
+    Unmasked: torch.matmul.  Masked: kernel K2 for CUDA tensors (K2-wide
+    for 16 < k <= 32).
     """
     if mask is None or Y.device.type == "cpu":
         return obs_stats_plain(Y, Lam, R, mask)
     T, N = Y.shape
     k = Lam.shape[1]
     dt, dev = Y.dtype, Y.device
-    kernels.check_k("obs_stats", k)
+    kernel = kernels.route("obs_stats", k)
     for name, x, shape in (("Y", Y, (T, N)), ("Lam", Lam, (N, k)),
                            ("R", R, (N,)), ("mask", mask, (T, N))):
         kernels.check_tensor(name, x, shape, dt, dev)
@@ -96,7 +102,7 @@ def obs_stats(Y: torch.Tensor, Lam: torch.Tensor, R: torch.Tensor,
     C = torch.empty((T, k, k), dtype=dt, device=dev)
     n = torch.empty((T,), dtype=dt, device=dev)
     ldR = torch.empty((T,), dtype=dt, device=dev)
-    kernels.launch("obs_stats", dt, Y, Lam, R, mask, b, C, n, ldR, T, N, k)
+    kernels.launch(kernel, dt, Y, Lam, R, mask, b, C, n, ldR, T, N, k)
     return ObsStats(b, C, n, ldR)
 
 
@@ -127,13 +133,14 @@ def info_scan_plain(stats: ObsStats, A, Q, mu0, P0):
 
 
 def info_scan(stats: ObsStats, A, Q, mu0, P0):
-    """The k x k time scan: kernel K4-forward for CUDA tensors."""
+    """The k x k time scan: kernel K4-forward for CUDA tensors (K4-wide
+    for 16 < k <= 32)."""
     b = stats.b
     if b.device.type == "cpu":
         return info_scan_plain(stats, A, Q, mu0, P0)
     T, k = b.shape
     dt, dev = b.dtype, b.device
-    kernels.check_k("info_scan", k)
+    kernel = kernels.route("info_scan", k)
     static_C = stats.C.ndim == 2
     for name, x, shape in (("b", b, (T, k)),
                            ("C", stats.C, (k, k) if static_C else (T, k, k)),
@@ -145,7 +152,7 @@ def info_scan(stats: ObsStats, A, Q, mu0, P0):
     x_filt = torch.empty((T, k), dtype=dt, device=dev)
     P_filt = torch.empty((T, k, k), dtype=dt, device=dev)
     logdetG = torch.empty((T,), dtype=dt, device=dev)
-    kernels.launch("info_scan", dt, b, stats.C, 0 if static_C else k * k,
+    kernels.launch(kernel, dt, b, stats.C, 0 if static_C else k * k,
                    A, Q, mu0, P0, x_pred, P_pred, x_filt, P_filt, logdetG,
                    T, k)
     return x_pred, P_pred, x_filt, P_filt, logdetG
@@ -163,23 +170,57 @@ def quad_local(Y: torch.Tensor, Lam: torch.Tensor, R: torch.Tensor,
                x_pred: torch.Tensor,
                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The innovation quadratic quad_R (T,), f64: kernel K1 for CUDA
-    tensors.  (The JAX routine also returns the residual panel, which its
-    caller drops; here it is never formed.)"""
+    tensors (K1-wide, with no U, for 16 < k <= 32).  (The JAX routine also
+    returns the residual panel, which its caller drops; here it is never
+    formed.)"""
     if Y.device.type == "cpu":
         return quad_local_plain(Y, Lam, R, x_pred, mask)
+    T = Y.shape[0]
+    kernel = kernels.route("quad_local", Lam.shape[1])
+    out = torch.empty((T,), dtype=torch.float64, device=Y.device)
+    if kernel == "quad_local":
+        _quad_launch(kernel, Y, Lam, R, x_pred, mask, out)
+    else:
+        _quad_launch(kernel, Y, Lam, R, x_pred, mask, out, None)
+    return out
+
+
+def _quad_launch(kernel, Y, Lam, R, x_pred, mask, *outs) -> None:
+    """Check the residual pass's inputs and launch ``kernel`` on them."""
     T, N = Y.shape
     k = Lam.shape[1]
     dt, dev = Y.dtype, Y.device
-    kernels.check_k("quad_local", k)
     checks = [("Y", Y, (T, N)), ("Lam", Lam, (N, k)), ("R", R, (N,)),
               ("x_pred", x_pred, (T, k))]
     if mask is not None:
         checks.append(("mask", mask, (T, N)))
     for name, x, shape in checks:
         kernels.check_tensor(name, x, shape, dt, dev)
-    out = torch.empty((T,), dtype=torch.float64, device=dev)
-    kernels.launch("quad_local", dt, Y, Lam, R, x_pred, mask, out, T, N, k)
-    return out
+    kernels.launch(kernel, dt, Y, Lam, R, x_pred, mask, *outs, T, N, k)
+
+
+def loglik_terms_local_plain(Y, Lam, R, x_pred, mask=None):
+    """Plain-torch residual pass: (quad_R (T,) f64, U (T, k)), v = y -
+    lam_n . x_pred,t (masked: w nan_to_num(v)), U = sum_n (v / R_n) lam_n."""
+    V = Y - x_pred @ Lam.T
+    if mask is not None:
+        V = mask.to(Y.dtype) * torch.nan_to_num(V)
+    VR = V / R[None, :]
+    return (V * VR).to(accum_dtype()).sum(dim=1), VR @ Lam
+
+
+def loglik_terms_local(Y, Lam, R, x_pred, mask=None):
+    """The innovation-quadratic reductions with U from the true residuals
+    (the JAX function of this name; U = b - C x_pred only in exact
+    arithmetic): kernel K1-wide for CUDA tensors at any k <= 32."""
+    if Y.device.type == "cpu":
+        return loglik_terms_local_plain(Y, Lam, R, x_pred, mask)
+    T, k = x_pred.shape
+    kernels.check_k("quad_local_wide", k, kernels.WIDE_KMAX)
+    quad = torch.empty((T,), dtype=torch.float64, device=Y.device)
+    U = torch.empty((T, k), dtype=Y.dtype, device=Y.device)
+    _quad_launch("quad_local_wide", Y, Lam, R, x_pred, mask, quad, U)
+    return quad, U
 
 
 def u_from_stats(stats: ObsStats, x_pred: torch.Tensor) -> torch.Tensor:

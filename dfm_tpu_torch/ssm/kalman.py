@@ -3,9 +3,9 @@
 The PyTorch twin of ``dfm_tpu.ssm.kalman``.  ``kalman_filter`` is the
 small-N engine (``filter="auto"`` picks it below N = 32): an N x N
 innovation covariance per step, plain torch over a Python loop.
-``rts_smoother`` is the backward half of kernel K4 (``csrc/info_scan.cu``);
-``rts_smoother_plain`` is its plain-torch version, which the wrapper takes
-only for CPU tensors.
+``rts_smoother`` is the backward half of kernel K4 (``csrc/info_scan.cu``;
+K4-wide for 16 < k <= 32); ``rts_smoother_plain`` is its plain-torch
+version, which the wrapper takes only for CPU tensors.
 
 Missing data keeps static shapes: for mask w_t the masked model is
     Lam_t = diag(w_t) Lam,  y_t -> w_t * y_t,  R_t = w_t * R + (1 - w_t)
@@ -96,14 +96,14 @@ def rts_smoother_plain(kf: FilterResult, p: SSMParams) -> SmootherResult:
 
 
 def rts_smoother(kf: FilterResult, p: SSMParams) -> SmootherResult:
-    """RTS smoother: kernel K4-backward for CUDA tensors, the plain
-    version for CPU tensors."""
+    """RTS smoother: kernel K4-backward for CUDA tensors (K4-wide for
+    16 < k <= 32), the plain version for CPU tensors."""
     x_filt = kf.x_filt
     if x_filt.device.type == "cpu":
         return rts_smoother_plain(kf, p)
     T, k = x_filt.shape
     dt, dev = x_filt.dtype, x_filt.device
-    kernels.check_k("rts_smoother", k)
+    kernel = kernels.route("rts_smoother", k)
     A = p.A.to(dt).contiguous()
     for name, x, shape in (("x_pred", kf.x_pred, (T, k)),
                            ("P_pred", kf.P_pred, (T, k, k)),
@@ -114,6 +114,6 @@ def rts_smoother(kf: FilterResult, p: SSMParams) -> SmootherResult:
     x_sm = torch.empty((T, k), dtype=dt, device=dev)
     P_sm = torch.empty((T, k, k), dtype=dt, device=dev)
     P_lag = torch.empty((T, k, k), dtype=dt, device=dev)
-    kernels.launch("rts_smoother", dt, kf.x_pred, kf.P_pred, kf.x_filt,
+    kernels.launch(kernel, dt, kf.x_pred, kf.P_pred, kf.x_filt,
                    kf.P_filt, A, x_sm, P_sm, P_lag, T, k)
     return SmootherResult(x_sm, P_sm, P_lag)

@@ -2,8 +2,10 @@
 
 Draw loadings, simulate a stable factor VAR(1) path, add idiosyncratic
 noise; ``simulate_tv_loadings`` draws the random-walk-loadings panel of the
-time-varying-loadings family (config S4).  Deterministic given the NumPy generator, so the same seed gives the
-same panel as the JAX package's copy.
+time-varying-loadings family (config S4), ``simulate_mixed_freq`` the
+monthly/quarterly panel of the mixed-frequency family (config S3).
+Deterministic given the NumPy generator, so the same seed gives the same
+panel as the JAX package's copy.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import numpy as np
 
 from ..backends.cpu_ref import SSMParams, _solve_discrete_lyapunov_or_eye
 
-__all__ = ["dfm_params", "simulate", "simulate_tv_loadings"]
+__all__ = ["dfm_params", "simulate", "simulate_tv_loadings", "random_mask",
+           "mixed_freq_mask", "simulate_mixed_freq"]
 
 
 def stable_var1(k: int, rng: np.random.Generator,
@@ -81,3 +84,57 @@ def simulate_tv_loadings(N: int, T: int, k: int, rng: np.random.Generator,
     R = noise_scale * (0.5 + rng.random(N))
     Y = np.einsum("tnk,tk->tn", Lams, F) + rng.standard_normal((T, N)) * np.sqrt(R)
     return Y, F, Lams, A, R
+
+
+def random_mask(T: int, N: int, rng: np.random.Generator,
+                frac_missing: float = 0.1) -> np.ndarray:
+    """{0,1} observation mask with i.i.d. missingness."""
+    return (rng.random((T, N)) >= frac_missing).astype(np.float64)
+
+
+def mixed_freq_mask(T: int, N: int, n_quarterly: int) -> np.ndarray:
+    """Monthly/quarterly mask: last ``n_quarterly`` series observed every 3rd
+    period only (months 3, 6, ... -> indices 2, 5, ...), per the
+    Mariano-Murasawa setup of SURVEY.md section 3.4."""
+    mask = np.ones((T, N))
+    q = np.zeros(T)
+    q[2::3] = 1.0
+    mask[:, N - n_quarterly:] = q[:, None]
+    return mask
+
+
+def simulate_mixed_freq(n_monthly: int, n_quarterly: int, T: int, k: int,
+                        rng: np.random.Generator,
+                        weights=(1.0, 2.0, 3.0, 2.0, 1.0),
+                        noise_scale: float = 1.0):
+    """Mixed-frequency DGP (config S3, BASELINE.json:9; SURVEY.md section 3.4).
+
+    Monthly series load on f_t; quarterly series load on the Mariano-Murasawa
+    weighted lag combination g_t = sum_j w_j f_{t-j} (w = [1,2,3,2,1]/3) and
+    are observed only at months 3, 6, ... (indices 2, 5, ...).
+
+    Returns (Y (T, Nm+Nq) with NaN at unobserved, mask, F (T, k), truth dict).
+    """
+    wv = np.asarray(weights, np.float64) / 3.0
+    L = len(wv)
+    A = stable_var1(k, rng)
+    F = np.zeros((T + L - 1, k))
+    f = rng.standard_normal(k)
+    for t in range(T + L - 1):
+        if t > 0:
+            f = A @ F[t - 1] + rng.standard_normal(k)
+        F[t] = f
+    Fw = F[L - 1:]                                 # aligned current factor
+    G = sum(wv[j] * F[L - 1 - j: L - 1 - j + T] for j in range(L))
+    Lam_m = rng.standard_normal((n_monthly, k))
+    Lam_q = rng.standard_normal((n_quarterly, k))
+    R = noise_scale * (0.5 + rng.random(n_monthly + n_quarterly))
+    Ym = Fw @ Lam_m.T + rng.standard_normal((T, n_monthly)) * np.sqrt(
+        R[:n_monthly])
+    Yq = G @ Lam_q.T + rng.standard_normal((T, n_quarterly)) * np.sqrt(
+        R[n_monthly:])
+    Y = np.concatenate([Ym, Yq], axis=1)
+    mask = mixed_freq_mask(T, n_monthly + n_quarterly, n_quarterly)
+    Y = np.where(mask > 0, Y, np.nan)
+    truth = {"Lam_m": Lam_m, "Lam_q": Lam_q, "A": A, "R": R, "G": G}
+    return Y, mask, Fw, truth

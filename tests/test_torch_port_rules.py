@@ -37,7 +37,9 @@ FIT_DRIVERS = [("dfm_tpu_torch/api.py", "fit"),
                ("dfm_tpu_torch/estim/evaluate.py", "oos_evaluate"),
                ("dfm_tpu_torch/fleet/driver.py", "_tick"),
                ("dfm_tpu_torch/models/tv_loadings.py", "tvl_fit"),
-               ("dfm_tpu_torch/models/tv_loadings.py", "tvl_loglik_eval")]
+               ("dfm_tpu_torch/models/tv_loadings.py", "tvl_loglik_eval"),
+               ("dfm_tpu_torch/models/mixed_freq.py", "mf_fit"),
+               ("dfm_tpu_torch/models/mixed_freq.py", "mf_loglik_eval")]
 
 
 def _tree(path):
@@ -152,6 +154,10 @@ def test_cpu_path_launches_no_kernel():
     fl.submit("t0", Y0[30:32])
     fl.submit("t1", Y0[30:31])
     assert fl.drain()["t0"][0].t == 32
+    res = dtt.fit(dtt.MixedFreqSpec(n_monthly=40, n_quarterly=5, n_factors=4),
+                  Y, max_iters=2, tol=0.0,
+                  backend=dtt.TorchBackend(device="cpu"))
+    assert res.state_T.shape == (20,) and len(res.logliks) == 2
     assert set(kernels.LAUNCHES) == {"quad_local", "obs_stats", "mstep_rows",
                                      "info_scan", "rts_smoother",
                                      "ss_cov_path", "affine_scan",
@@ -164,5 +170,7 @@ def test_cpu_path_launches_no_kernel():
                                      "batched_mstep_rows", "lowrank_basis",
                                      "lowrank_scan", "lowrank_smoother",
                                      "tvl_obs_stats", "tvl_quad",
-                                     "loading_filter", "loading_smoother"}
+                                     "loading_filter", "loading_smoother",
+                                     "obs_stats_wide", "info_scan_wide",
+                                     "rts_smoother_wide", "quad_local_wide"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())
