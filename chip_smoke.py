@@ -197,8 +197,44 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (``seq`` and ``lowrank``); the f32 params by
    ``mf_loglik_eval(precise=True)`` within 1e-5 of the f64 params'.
 
+31. SV kernels: K10-fwd (``csrc/sv_rbpf.cu``'s RBPF scan, residual and
+   expanded forms) and K10-ffbs (its backward sampler) against their plain
+   twins at S5's full width (``simulate_sv(10000, 1000, 5)`` standardized
+   as phase 32's fit saw it, the fit's params, sigma_h and h_0 center, M =
+   256, S = 64), on the same draws (made on the host in f64, cast):
+   f64 every output through all T steps (ll_rel and the particle history
+   within 1e-10, the weight-derived outputs within SV_WEIGHT_TOL's 1e-8;
+   the resampling decisions and the gathered particles the same at every
+   step), f32 every output before the first step at which the two
+   resample differently (a decision flip must sit within the f32
+   tolerance of ESS of the threshold; an index flip is reported); K10-ffbs exactly (its outputs
+   are copies of h rows), in f32 up to argmax near-ties; each bit for bit
+   across two runs; timed warm and cold beside the plain twin, the
+   residual stage's two ``torch.matmul`` products (T x one step's) and the
+   bound, K10-fwd beside K4's latency floor at k = 5; then the same checks
+   at (k, M) = (1, 64), (2, 64), (8, 64), (9, 64), (16, 64), (5, 1), (5,
+   512), (5, 1,024) on 60 x 300 panels, and k = 17 and M = 1,025 must
+   raise NotImplementedError.
+32. SV fit (run before 31, which takes its params): ``fit(SVSpec(
+   n_factors=5, n_particles=256), Y, max_iters=1)`` at S5, f32 (the
+   pre-fit ``auto`` -> ``ss``, one particle-EM iteration and the final
+   E-step) and ``forecast(res, 12)``: finite outputs, sigma_h >= 1e-4,
+   exactly one K10-fwd and one K10-ffbs and no other kernel an E-step,
+   one read an E-step plus the result's; the fit wall; the filter pass at
+   the estimated params (``store_paths=False``): host seconds a pass,
+   best of 3 after a warm pass, and passes/s; the K10-fwd pass split by
+   ``torch.profiler`` into its residual and step stages and the launch
+   gaps; one E-step and its M-step under
+   ``set_sync_debug_mode("error")``.
+33. SV reference and contract: ``sv_fit`` of ``simulate_sv(40, 120, 2)``,
+   M = 64, 2 iterations, card f64 against CPU f64 on the same draws
+   within 1e-9; at S5, sigma_h = 0 and h0_scale = 0, the RBPF loglik
+   against the exact Kalman loglik (the port's f64 ``loglik_eval``)
+   within 1e-9 in f64 and 1e-5 in f32; the matched-draws f32 against f64
+   loglik at the fitted sigma_h with both resample counts (not gated).
+
 Output: one JSON line per kernel and dtype, one per fit, contract check,
-ring case, session, batched, fleet, TVL and MF phase, then the
+ring case, session, batched, fleet, TVL, MF and SV phase, then the
 {"kernels": [...]} summary, the card line and, last, {"ok": true,
 "device": {...}}.
 """
@@ -228,11 +264,12 @@ from dfm_tpu_torch.estim.em import (EMConfig, em_fit_scan, moments,
 from dfm_tpu_torch.estim.fused import FusedOptions, run_fused
 from dfm_tpu_torch.estim.init import pca_init_device
 from dfm_tpu_torch.models import mixed_freq as mf
+from dfm_tpu_torch.models import sv
 from dfm_tpu_torch.models import tv_loadings as tv
 from dfm_tpu_torch.ops import linalg as la
 from dfm_tpu_torch.ops import scan as sc
 from dfm_tpu_torch.ops.precision import highest_precision
-from dfm_tpu_torch.serve import batched as sv
+from dfm_tpu_torch.serve import batched as sb
 from dfm_tpu_torch.serve.batched import (ring_evict_append,
                                          ring_evict_append_plain)
 from dfm_tpu_torch.ssm import info_filter as inf
@@ -279,7 +316,10 @@ L2_FLUSH_BYTES = 256 * 2**20                   # > 5x the H100's 50 MB L2
 # are one-pass reductions (as K2 and K1); K11-fwd and K11-bwd are T-step
 # recursions a series (as K4), K11-bwd with a k x k factorization a step.
 # The wide kernels (K12) take their k <= 16 twins' tolerances: K2-wide and
-# K1-wide one-pass reductions, the K4-wide pair recursions.
+# K1-wide one-pass reductions, the K4-wide pair recursions.  K10-fwd's
+# ll_rel and particle history take 1e-10 / 1e-4, its weight-derived
+# outputs SV_WEIGHT_TOL (below); K10-ffbs copies h rows: exact (0) but
+# for f32 argmax near-ties (``ffbs_compare``).
 TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "mstep_rows": 1e-4, "info_scan": 1e-4,
                        "rts_smoother": 1e-4, "ss_cov_path": 1e-4,
@@ -293,7 +333,8 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "tvl_obs_stats": 1e-5, "tvl_quad": 1e-5,
                        "loading_filter": 1e-4, "loading_smoother": 1e-4,
                        "obs_stats_wide": 1e-5, "quad_local_wide": 1e-5,
-                       "info_scan_wide": 1e-4, "rts_smoother_wide": 1e-4},
+                       "info_scan_wide": 1e-4, "rts_smoother_wide": 1e-4,
+                       "sv_rbpf": 1e-4, "sv_ffbs": 0.0},
        torch.float64: {"quad_local": 1e-10, "obs_stats": 1e-10,
                        "mstep_rows": 1e-9, "info_scan": 1e-9,
                        "rts_smoother": 1e-9, "ss_cov_path": 1e-9,
@@ -307,7 +348,8 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "tvl_obs_stats": 1e-10, "tvl_quad": 1e-10,
                        "loading_filter": 1e-9, "loading_smoother": 1e-9,
                        "obs_stats_wide": 1e-10, "quad_local_wide": 1e-10,
-                       "info_scan_wide": 1e-9, "rts_smoother_wide": 1e-9}}
+                       "info_scan_wide": 1e-9, "rts_smoother_wide": 1e-9,
+                       "sv_rbpf": 1e-10, "sv_ffbs": 0.0}}
 # The TPU routine each kernel replaces.
 REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "obs_stats": "dfm_tpu/ssm/info_filter.py:69",
@@ -337,7 +379,9 @@ REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "obs_stats_wide": "dfm_tpu/models/mixed_freq.py:154",
             "info_scan_wide": "dfm_tpu/models/mixed_freq.py:183",
             "quad_local_wide": "dfm_tpu/models/mixed_freq.py:185",
-            "rts_smoother_wide": "dfm_tpu/models/mixed_freq.py:202"}
+            "rts_smoother_wide": "dfm_tpu/models/mixed_freq.py:202",
+            "sv_rbpf": "dfm_tpu/models/sv.py:103",
+            "sv_ffbs": "dfm_tpu/models/sv.py:297"}
 # The variant of each kernel whose f32 record goes into the summary line.
 SUMMARY_VARIANT = {"quad_local": "masked", "obs_stats": "masked",
                    "mstep_rows": "masked", "info_scan": "masked",
@@ -844,7 +888,8 @@ OWN_FIT = {"quad_local": "masked", "obs_stats": "masked",
            "loading_filter": "tvl unmasked",
            "loading_smoother": "tvl unmasked",
            "obs_stats_wide": "mf seq", "info_scan_wide": "mf seq",
-           "quad_local_wide": "mf seq", "rts_smoother_wide": "mf seq"}
+           "quad_local_wide": "mf seq", "rts_smoother_wide": "mf seq",
+           "sv_rbpf": "sv fit", "sv_ffbs": "sv fit"}
 
 
 def fit_phase(seed: int) -> dict:
@@ -2050,9 +2095,9 @@ def fleet_ring_check(Yb, Wb, n_evict, t_cur, r_max: int, seed: int,
     rows, rmask, (ev, tc) = fleet_ring_case(Yb, n_evict, t_cur, r_max, seed)
     Yk, Wk, Yp, Wp = Yb.clone(), Wb.clone(), Yb.clone(), Wb.clone()
     n0 = kernels.LAUNCHES["batched_ring_append"]
-    sv.batched_ring_evict_append(Yk, Wk, rows, rmask, ev, tc)
+    sb.batched_ring_evict_append(Yk, Wk, rows, rmask, ev, tc)
     launches = kernels.LAUNCHES["batched_ring_append"] - n0
-    sv.batched_ring_evict_append_plain(Yp, Wp, rows, rmask, ev, tc)
+    sb.batched_ring_evict_append_plain(Yp, Wp, rows, rmask, ev, tc)
     torch.cuda.synchronize()
     exact = torch.equal(Yk, Yp) and torch.equal(Wk, Wp)
     if not exact or launches != 1:
@@ -2063,8 +2108,8 @@ def fleet_ring_check(Yb, Wb, n_evict, t_cur, r_max: int, seed: int,
     if not timed:
         return None
     B_, T_cap, N_ = Yb.shape
-    run = lambda: sv.batched_ring_evict_append(Yk, Wk, rows, rmask, ev, tc)
-    plain = lambda: sv.batched_ring_evict_append_plain(Yp, Wp, rows, rmask,
+    run = lambda: sb.batched_ring_evict_append(Yk, Wk, rows, rmask, ev, tc)
+    plain = lambda: sb.batched_ring_evict_append_plain(Yp, Wp, rows, rmask,
                                                        ev, tc)
     nbytes = sum(ring_bytes(T_cap, N_, r_max, int(e), int(t), Yb.itemsize)
                  for e, t in zip(n_evict, t_cur))
@@ -3710,6 +3755,577 @@ def mf_contract_phase(seed: int) -> None:
             raise AssertionError(f"mf loglik contract broken: {rel:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# The stochastic-volatility family (config S5, K10): BASELINE.json:11,
+# 10,000 series x 1,000 steps, k = 5 (bench/configs.py:45-46), the panel
+# of bench/run.py:66-67 (``simulate_sv``), M = 256 particles
+# (bench/run.py:76) and the default S = 64 FFBS draws.
+# ---------------------------------------------------------------------------
+
+SV_T, SV_N, SV_K, SV_M = 1000, 10_000, 5, 256
+SV_NEW = ("sv_rbpf", "sv_ffbs")
+# (k, M): both sides of UNROLL_K_MAX = 8 and the dispatch ends; one
+# particle, and the step block past 256 threads up to its 1,024.
+SV_SWEEP = ((1, 64), (2, 64), (8, 64), (9, 64), (16, 64), (5, 1), (5, 512),
+            (5, 1024))
+SV_OUTS = ("ll_rel", "f_mean", "h_mean", "ess", "n_resamples", "h_hist",
+           "logw_hist")
+# An index flip in f32: a gathered h row that moved by more than this
+# (distinct particles' h paths differ by ~sigma_h; the kernel's fma moves
+# a row by ulps).
+SV_ROW_FLIP = 1e-4
+# f32 Gumbel-max near-tie: the two particles' backward scores within this
+# relative distance (f32 rounding of ~|score| terms).
+SV_TIE = 1e-5
+# K10-fwd's weight-derived outputs (ESS, the log-weights, the weighted
+# means), max|err| / max|plain|.  Each step's log-weight increment is a
+# difference of N-term sums of magnitude ~N (10,000 at S5), which the
+# kernel and its twin add in other orders: ~sqrt(N) N eps apart (1e-10 in
+# f64; in f32 the twin's own N-term f32 sums, ~N log2(N) eps32 ~ 1e-2).
+# The log-weights carry it from step to step until a resampling, and ESS
+# doubles the weights' relative error.  ll_rel and the gathered particles
+# take TOL's 1e-10 / 1e-4, n_resamples exactly.
+SV_WEIGHT_TOL = {torch.float64: 1e-8, torch.float32: 5e-2}
+SV_WEIGHTED = ("f_mean", "h_mean", "ess", "logw_hist")
+
+
+def sv_panel(seed: int, T_: int = SV_T, N_: int = SV_N, K_: int = SV_K):
+    """``simulate_sv`` (walk scale 0.05): (Y, the DGP's params)."""
+    Y, _, _, p = dgp.simulate_sv(N_, T_, K_, np.random.default_rng(seed))
+    return Y, p
+
+
+def sv_draws64(T_: int, spec, seed: int):
+    """One E-step's draws in f64 from a seeded host generator; each run
+    casts them to its device and dtype, so every comparison is on the same
+    numbers."""
+    g = torch.Generator().manual_seed(seed)
+    return sv.estep_draws(T_, spec, True, torch.float64, "cpu", g)
+
+
+def sv_args(Yz, p, sigma_h, h_center, draws, dtype):
+    """Card tensors of one RBPF pass in ``dtype``: (the scan's leading
+    arguments, ``SVDraws``, ``FFBSDraws``).  B = Y R^{-1} Lam is read only
+    by the expanded form."""
+    on = lambda a: torch.as_tensor(np.asarray(a) if not torch.is_tensor(a)
+                                   else a).to("cuda", dtype).contiguous()
+    Yt = on(Yz)
+    pt = SSMParams(*(on(getattr(p, f)) for f in SSMParams._fields))
+    G0 = pt.Lam / pt.R[:, None]
+    args = (Yt, pt.Lam, pt.R, (pt.Lam.T @ G0).contiguous(),
+            (Yt @ G0).contiguous(), pt.A, pt.mu0, pt.P0, on(h_center),
+            on(sigma_h))
+    return (args, sv.SVDraws(*map(on, draws[0])),
+            sv.FFBSDraws(*map(on, draws[1])))
+
+
+def cuda_ms_once(fn) -> tuple:
+    """(milliseconds on CUDA events, result) of one call of ``fn``: the
+    plain twin's S5 pass takes seconds, so its comparison call is its
+    timing (a Python loop of ~60 launches a step, warm after the
+    kernel's runs)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def sv_run(fn, args, fd, spec, residual: bool, store: bool = True):
+    return fn(*args, spec.h0_scale, fd, spec.ess_frac, residual, store)
+
+
+def sv_split(kern, plain, thr: float, dtype):
+    """(t*, kind, n_rows): the first step at which the kernel and its twin
+    resample differently, their decisions (ESS < thr) or, both resampling,
+    the particles they gather (an h row moved past SV_ROW_FLIP; n_rows
+    such rows); (None, None, 0) if they never do."""
+    dk, dp = kern[3] < thr, plain[3] < thr
+    rows = (kern[5] - plain[5]).abs().amax(-1) > SV_ROW_FLIP      # (T, M)
+    bad = (dk != dp) | (dk & dp & rows.any(-1))
+    if not bool(bad.any()):
+        return None, None, 0
+    t = int(bad.nonzero()[0, 0])
+    kind = "decision" if bool(dk[t] != dp[t]) else "indices"
+    return t, kind, int(rows[t].sum())
+
+
+def sv_compare(kern, plain, dtype, thr: float, label: str) -> dict:
+    """K10-fwd against its twin: in f64 every output through all T steps
+    (TOL, SV_WEIGHT_TOL), the same resampling decisions at every step and
+    the same gathered particles; in f32 every output before the first step
+    t* at which the two resample differently (``sv_split``), and ll_rel
+    and ESS (computed before the gather) at t* too.  At a decision flip
+    the ESS margin |ESS - ess_frac M| must lie within the f32 tolerance of
+    ESS (SV_WEIGHT_TOL x ess_frac M); an index flip is reported with its
+    row count.  Returns the record's error fields."""
+    t_star, kind, n_rows = sv_split(kern, plain, thr, dtype)
+    if dtype == torch.float64 and t_star is not None:
+        raise AssertionError(f"sv_rbpf f64 {label}: resampled differently "
+                             f"from its twin at step {t_star} ({kind})")
+    T_ = kern[0].shape[0]
+    win = T_ if t_star is None else t_star
+    errs, abs_err = {}, 0.0
+    for name, g, r in zip(SV_OUTS, kern, plain):
+        if g is None:
+            continue
+        if not bool(torch.isfinite(g.double()).all()):
+            raise AssertionError(f"sv_rbpf {label}: non-finite {name}")
+        if name == "n_resamples":
+            if t_star is None and int(g) != int(r):
+                raise AssertionError(f"sv_rbpf {label}: n_resamples "
+                                     f"{int(g)} != {int(r)}")
+            continue
+        n = win + 1 if (name in ("ll_rel", "ess") and t_star is not None) \
+            else win
+        g, r = g[:n].double(), r[:n].double()
+        if n == 0:
+            continue
+        e = float((g - r).abs().max())
+        scale = max(float(r.abs().max()), 1e-300)
+        errs[name] = e / scale
+        abs_err = max(abs_err, e)
+        tol = (SV_WEIGHT_TOL[dtype] if name in SV_WEIGHTED
+               else TOL[dtype]["sv_rbpf"])
+        if not e <= tol * scale:
+            raise AssertionError(f"sv_rbpf ({dtype}, {label}) {name} over "
+                                 f"{n} steps: {e:.3e} > {tol:.0e} x "
+                                 f"{scale:.3e}")
+    out = {"max_rel_err": max(errs.values()), "max_abs_err": abs_err,
+           "rel_err": errs, "tol": TOL[dtype]["sv_rbpf"],
+           "weight_tol": SV_WEIGHT_TOL[dtype], "first_split": t_star,
+           "split_kind": kind, "n_resamples": [int(kern[4]),
+                                               int(plain[4])]}
+    if kind == "decision":
+        ek, ep = float(kern[3][t_star]), float(plain[3][t_star])
+        margin = min(abs(ek - thr), abs(ep - thr))
+        allowed = SV_WEIGHT_TOL[dtype] * thr
+        out.update({"split_ess": [ek, ep], "ess_margin": margin,
+                    "ess_margin_allowed": allowed})
+        if not margin <= allowed:
+            raise AssertionError(f"sv_rbpf ({dtype}, {label}): decision "
+                                 f"flip at step {t_star} with ESS margin "
+                                 f"{margin:.3e} > {allowed:.3e}")
+    elif kind == "indices":
+        out["split_rows"] = n_rows
+    return out
+
+
+def ffbs_compare(Hk, Hp, h_hist, logw, sigma, bd, dtype, label: str) -> dict:
+    """K10-ffbs against its twin on the same filter history: the outputs
+    are copies of h rows, so they agree exactly unless an argmax flips.
+    In f64 none may; in f32 each draw's first flip (backward) must be a
+    near-tie: the two chosen particles' scores, recomputed in f64, within
+    SV_TIE of each other."""
+    diff = (Hk != Hp).any(-1)                                   # (T, S)
+    if not bool(diff.any()):
+        return {"max_rel_err": 0.0, "max_abs_err": 0.0, "flips": 0}
+    if dtype == torch.float64:
+        raise AssertionError(f"sv_ffbs f64 {label}: paths differ at "
+                             f"{int(diff.sum())} (step, draw) cells")
+    T_ = Hk.shape[0]
+    s2 = torch.clamp(sigma.double() ** 2, min=1e-20)
+    gaps = []
+    for s in diff.any(0).nonzero()[:, 0].tolist():
+        t = int(diff[:, s].nonzero()[-1, 0])                 # first, backward
+        if t == T_ - 1:
+            v = logw[t].double() + bd.g_last[s].double()
+        else:
+            d2 = ((Hp[t + 1, s].double()[None] - h_hist[t].double()) ** 2
+                  / s2).sum(-1)
+            v = logw[t].double() - 0.5 * d2 + bd.g[t, s].double()
+        ik = int((h_hist[t] == Hk[t, s]).all(-1).nonzero()[0, 0])
+        ip = int((h_hist[t] == Hp[t, s]).all(-1).nonzero()[0, 0])
+        gaps.append(float((v[ik] - v[ip]).abs()
+                          / max(float(v[ik].abs()), 1.0)))
+    e = float((Hk - Hp).abs().max())
+    out = {"max_rel_err": e / float(Hp.abs().max()), "max_abs_err": e,
+           "flips": len(gaps), "max_tie_gap": max(gaps)}
+    if not max(gaps) <= SV_TIE:
+        raise AssertionError(f"sv_ffbs f32 {label}: a flipped argmax with "
+                             f"score gap {max(gaps):.3e} > {SV_TIE}")
+    return out
+
+
+def sv_kernel_cases(Yz, p, sigma_h, h_center, spec, draws, dtype,
+                    label: str, timed: bool) -> list:
+    """K10-fwd (residual, expanded) and K10-ffbs on one panel in
+    ``dtype``: each against its twin, the kernel run twice (bit for bit),
+    and, when ``timed``, timed warm and cold beside the twin, the
+    yardstick and the bound.  Returns one record each."""
+    args, fd, bd = sv_args(Yz, p, sigma_h, h_center, draws, dtype)
+    T_, N_ = args[0].shape
+    M_, k = fd.h0.shape
+    S_ = bd.g_last.shape[0]
+    thr = spec.ess_frac * M_
+    recs = []
+    with highest_precision():
+        for form in ("residual", "expanded"):
+            residual = form == "residual"
+            kern = sv_run(sv.rbpf_scan, args, fd, spec, residual)
+            again = sv_run(sv.rbpf_scan, args, fd, spec, residual)
+            plain_ms, plain = cuda_ms_once(lambda: sv_run(
+                sv.rbpf_scan_plain, args, fd, spec, residual))
+            same = all(torch.equal(a, b) for a, b in zip(kern, again)
+                       if a is not None)
+            if not same:
+                raise AssertionError(f"sv_rbpf {label} {form}: two runs "
+                                     "on the same draws differ")
+            rec = {"name": "sv_rbpf", "variant": f"{label} {form}",
+                   "dtype": str(dtype)[6:], "T": T_, "N": N_, "k": k,
+                   "M": M_, "bitwise_rerun": same,
+                   **sv_compare(kern, plain, dtype, thr, f"{label} {form}")}
+            if timed:
+                run = lambda: sv_run(sv.rbpf_scan, args, fd, spec, residual,
+                                     False)
+                ins = (args[0] if residual else args[4], *args[1:4],
+                       *args[5:], *fd)
+                outs = (kern[0], kern[1], kern[2], kern[3], kern[4])
+                flops = T_ * M_ * (15 * k ** 3 + 8 * k * k)
+                if residual:
+                    flops += T_ * (4 * M_ * N_ * k + 3 * M_ * N_)
+                bms, bby = bound(nbytes_of(ins) + nbytes_of(outs), flops,
+                                 dtype)
+                xp = fd.h0 @ args[5].T                           # (M, k)
+                lib = (lambda: ((args[0][0][None] - xp @ args[1].T)
+                                / args[2][None]) @ args[1])
+                rec.update({
+                    "kernel_ms": cuda_ms(run),
+                    "kernel_ms_cold_l2": cuda_ms_cold(run, reps=3),
+                    "plain_ms": plain_ms,
+                    "library_ms": (T_ * cuda_ms(lib) if residual else None),
+                    "bound_ms": bms, "bound_by": bby,
+                    "latency_ms": latency_ms("info_scan", dtype, k, T_)})
+            recs.append(rec)
+            if residual:
+                hist = kern
+        Hk = sv.ffbs(hist[5], hist[6], args[9], bd)
+        Hp = sv.ffbs_plain(hist[5], hist[6], args[9], bd)
+        torch.cuda.synchronize()
+        if not torch.equal(Hk, sv.ffbs(hist[5], hist[6], args[9], bd)):
+            raise AssertionError(f"sv_ffbs {label}: two runs differ")
+        rec = {"name": "sv_ffbs", "variant": label,
+               "dtype": str(dtype)[6:], "T": T_, "M": M_, "S": S_, "k": k,
+               **ffbs_compare(Hk, Hp, hist[5], hist[6], args[9], bd, dtype,
+                              label)}
+        if timed:
+            run = lambda: sv.ffbs(hist[5], hist[6], args[9], bd)
+            rec.update({
+                "kernel_ms": cuda_ms(run),
+                "kernel_ms_cold_l2": cuda_ms_cold(run, reps=3),
+                "plain_ms": cuda_ms(lambda: sv.ffbs_plain(
+                    hist[5], hist[6], args[9], bd)),
+                "library_ms": None, "latency_ms": None})
+            rec["bound_ms"], rec["bound_by"] = bound(
+                nbytes_of((hist[5], hist[6], args[9], *bd, Hk)),
+                (T_ - 1) * S_ * M_ * (3 * k + 3), dtype)
+        recs.append(rec)
+    return recs
+
+
+def sv_kernel_phase(seed: int, fit) -> dict:
+    """Phase 31: K10-fwd (residual and expanded) and K10-ffbs against
+    their plain twins at S5's full width, on the same draws: the panel
+    standardized as the fit saw it, the fit's params, sigma_h and h_0
+    center; f64 then f32 (``sv_compare``, ``ffbs_compare``); timed.
+    Returns the f32 residual and FFBS records by name."""
+    Y, _ = sv_panel(seed + 1101)
+    Yz = fit.standardizer.transform(Y)
+    spec = dt.SVSpec(n_factors=SV_K, n_particles=SV_M)
+    draws = sv_draws64(SV_T, spec, seed + 1103)
+    summary = {}
+    for dtype in (torch.float64, torch.float32):
+        for rec in sv_kernel_cases(Yz, fit.params, fit.sigma_h, fit.h_center,
+                                   spec, draws, dtype, "S5", timed=True):
+            emit(rec)
+            if dtype == torch.float32 and rec["variant"] in ("S5 residual",
+                                                             "S5"):
+                summary[rec["name"]] = rec
+        torch.cuda.empty_cache()
+    return summary
+
+
+def sv_k_sweep(seed: int) -> None:
+    """K10 at (k, M) in SV_SWEEP on 60 x 300 panels (the DGP's params,
+    sigma_h 0.1), f64 and f32, both forms and FFBS (S = 16): error checks
+    only; then k = 17 and M = 1,025 must raise NotImplementedError."""
+    for i, (k, M_) in enumerate(SV_SWEEP):
+        Y, p = sv_panel(seed + 1120 + i, T_=60, N_=300, K_=k)
+        spec = dt.SVSpec(n_factors=k, n_particles=M_, n_smooth_draws=16)
+        draws = sv_draws64(60, spec, seed + 1140 + i)
+        worst = {}
+        for dtype in (torch.float64, torch.float32):
+            for rec in sv_kernel_cases(Y, p, np.full(k, 0.1), np.zeros(k),
+                                       spec, draws, dtype, f"k{k} M{M_}",
+                                       timed=False):
+                worst[f"{rec['variant']} {rec['dtype']}"] = {
+                    x: rec.get(x) for x in ("max_rel_err", "first_split",
+                                            "split_kind", "flips")
+                    if rec.get(x) is not None}
+        emit({"sv_k_sweep": [k, M_], "checks": worst})
+    for k, M_ in ((17, 64), (5, 1025)):
+        spec = dt.SVSpec(n_factors=k, n_particles=M_, n_smooth_draws=4)
+        Y, p = sv_panel(seed + 1160, T_=10, N_=40, K_=k)
+        args, fd, _ = sv_args(Y, p, np.full(k, 0.1), np.zeros(k),
+                              sv_draws64(10, spec, 1), torch.float32)
+        try:
+            sv_run(sv.rbpf_scan, args, fd, spec, True)
+        except NotImplementedError as e:
+            emit({"sv_range": [k, M_], "raises": str(e)[:120]})
+        else:
+            raise AssertionError(f"sv_rbpf at k = {k}, M = {M_} did not "
+                                 "raise")
+
+
+class SVWatch:
+    """Stamps an SV fit's E-steps (``models.sv.e_step_device``, with the
+    launches each made) and its blocking reads (``estim.fused.read_packed``,
+    which each pass's read and the result's go through), in order."""
+
+    def __enter__(self):
+        self.events = []
+        self._saved = (sv.e_step_device, tfu.read_packed)
+        e_step, read = self._saved
+
+        def watched_e_step(*a, **kw):
+            n0 = dict(kernels.LAUNCHES)
+            out = e_step(*a, **kw)
+            self.events.append(("E", {nm: v - n0[nm] for nm, v in
+                                      kernels.LAUNCHES.items() if v != n0[nm]}))
+            return out
+
+        def watched_read(x):
+            out = read(x)
+            self.events.append(("R", time.perf_counter()))
+            return out
+        sv.e_step_device, tfu.read_packed = watched_e_step, watched_read
+        return self
+
+    def __exit__(self, *exc):
+        sv.e_step_device, tfu.read_packed = self._saved
+
+
+def device_ms_by_kernel(fn) -> dict:
+    """Device milliseconds and launches of each kernel that ``fn`` runs,
+    from ``torch.profiler`` (CUPTI); empty if the profiler saw no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us and ev.count:
+            out[ev.key] = (us / 1e3, ev.count)
+    return out
+
+
+def sv_fit_phase(seed: int):
+    """Phase 32: ``fit(SVSpec(n_factors=5, n_particles=256), Y,
+    max_iters=1)`` at S5 (f32): the pre-fit (``auto`` -> ``ss``, the api's
+    20 EM iterations), one particle-EM iteration and the final E-step,
+    then ``forecast(res, 12)``: finite outputs of S5's shapes, sigma_h >=
+    1e-4; exactly one K10-fwd and one K10-ffbs and no other kernel an
+    E-step, and one read an E-step plus the result's; the fit wall; then
+    ``sv_pass_breakdown``.  Returns (the launch counts, the fit)."""
+    Y, _ = sv_panel(seed + 1101)
+    spec = dt.SVSpec(n_factors=SV_K, n_particles=SV_M)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with SVWatch() as w:
+        t0 = time.perf_counter()
+        res = dt.fit(spec, Y, max_iters=1)
+        y_fore, f_fore = dt.forecast(res, 12)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    kinds = [e[0] for e in w.events]
+    first = kinds.index("E")
+    e_launches = [e[1] for e in w.events if e[0] == "E"]
+    emit({"fit": "sv", "spec": dataclasses.asdict(spec),
+          "shape": [SV_T, SV_N, SV_K], "wall_s": wall,
+          "logliks": [float(x) for x in res.logliks],
+          "sigma_h": res.sigma_h.tolist(), "h_center": res.h_center.tolist(),
+          "n_resamples": int(res.result.n_resamples),
+          "events_from_first_e_step": "".join(kinds[first:]),
+          "launches_per_e_step": e_launches,
+          "launches": {nm: v for nm, v in launches.items() if v}})
+    if (kinds[first:] != ["E", "R", "E", "R", "R"]
+            or any(e != {"sv_rbpf": 1, "sv_ffbs": 1} for e in e_launches)):
+        raise AssertionError(f"sv fit: events {kinds[first:]}, E-step "
+                             f"launches {e_launches}")
+    for name, arr in (("logliks", res.logliks), ("sigma_h", res.sigma_h),
+                      ("h_center", res.h_center),
+                      ("h_smooth", res.h_smooth),
+                      ("vol_paths", res.vol_paths), ("y_fore", y_fore),
+                      ("f_fore", f_fore)):
+        if not np.isfinite(arr).all():
+            raise AssertionError(f"sv fit: non-finite {name}")
+    if not (res.sigma_h >= sv.SIGMA_FLOOR).all():
+        raise AssertionError(f"sv fit: sigma_h {res.sigma_h} under the "
+                             "floor")
+    if res.h_smooth.shape != (SV_T, SV_K) or y_fore.shape != (12, SV_N):
+        raise AssertionError("sv fit: unexpected output shapes")
+    sv_pass_breakdown(Y, res, spec)
+    return {"sv fit": launches}, res
+
+
+def sv_pass_breakdown(Y, res, spec) -> None:
+    """The filter pass at the estimated params (f32, ``store_paths=False``,
+    bench/run.py:111-135): host seconds a pass, best of 3 after a warm
+    pass (``sv_filter``, the read included), and passes/s; the K10-fwd
+    pass alone on CUDA events, split by ``torch.profiler`` into the
+    residual stage, the step stage and the init, the rest being the launch
+    gaps (2T + 1 launches a pass); the E-step (K10-fwd with the history,
+    K10-ffbs, the f64 increments) on CUDA events.  Then one E-step and its
+    M-step under ``set_sync_debug_mode("error")`` (the panel, params and
+    generator made before the guard, the draws inside)."""
+    f32 = torch.float32
+    with highest_precision():
+        Yt = torch.as_tensor(res.standardizer.transform(Y), dtype=f32,
+                             device="cuda").contiguous()
+        pt = SSMParams.from_numpy(res.params, dtype=f32, device="cuda")
+        sig = torch.as_tensor(res.sigma_h, dtype=f32, device="cuda")
+        hc = torch.as_tensor(res.h_center, dtype=f32, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+
+        def one_pass():
+            t0 = time.perf_counter()
+            r = sv.sv_filter(Yt, pt, spec, generator=gen, sigma_h=sig,
+                             h_center=hc, store_paths=False)
+            float(r.loglik)
+            return time.perf_counter() - t0
+        one_pass()
+        pass_s = min(one_pass() for _ in range(3))
+        draws = sv.estep_draws(SV_T, spec, True, f32, "cuda", gen)
+        G0 = pt.Lam / pt.R[:, None]
+        C = (pt.Lam.T @ G0).contiguous()
+        run = lambda: sv.rbpf_scan(Yt, pt.Lam, pt.R, C, None, pt.A, pt.mu0,
+                                   pt.P0, hc, sig, spec.h0_scale, draws[0],
+                                   spec.ess_frac, True, False)
+        pass_ms = cuda_ms(run)
+        by_kernel = device_ms_by_kernel(run)
+        stage = {}
+        for key, (ms, n) in by_kernel.items():
+            for nm in ("sv_residual_kernel", "sv_step_kernel",
+                       "sv_init_kernel"):
+                if nm in key:
+                    stage[nm] = (stage.get(nm, (0.0, 0))[0] + ms,
+                                 stage.get(nm, (0.0, 0))[1] + n)
+        e_ms = cuda_ms(lambda: sv.e_step_device(Yt, pt, spec, sig, hc, draws,
+                                                smooth=True))
+        torch.cuda.synchronize()
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dr = sv.estep_draws(SV_T, spec, True, f32, "cuda", gen)
+            _, H = sv.e_step_device(Yt, pt, spec, sig, hc, dr, smooth=True)
+            sv.m_step(H, sig, None, 3.0)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        torch.cuda.synchronize()
+    measured = sum(ms for ms, _ in stage.values())
+    emit({"sv_pass_breakdown": "residual f32", "shape": [SV_T, SV_N, SV_K],
+          "M": SV_M, "pass_s": pass_s, "passes_per_sec": 1.0 / pass_s,
+          "kernel_pass_ms": pass_ms,
+          "stage_ms": {nm: ms for nm, (ms, _) in stage.items()} or
+          "not measured (no device time from the profiler)",
+          "stage_launches": {nm: n for nm, (_, n) in stage.items()},
+          "launches_under_pass": 2 * SV_T + 1,
+          "gaps_ms": pass_ms - measured if stage else None,
+          "e_step_ms": e_ms, "e_steps_sync_checked": 1})
+
+
+def sv_reference_phase(seed: int) -> None:
+    """Phase 33a: ``sv_fit`` of ``simulate_sv(40, 120, 2)``, M = 64, 2
+    particle-EM iterations and the final E-step, on the card in f64
+    against the CPU in f64 on the same draws (made on the host), within
+    1e-9 relative (logliks, sigma_h, h_center, h_smooth, the forecast)."""
+    Y, _ = sv_panel(seed + 1102, T_=120, N_=40, K_=2)
+    spec = dt.SVSpec(n_factors=2, n_particles=64)
+    draws = [sv_draws64(120, spec, seed + 1110 + i) for i in range(3)]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        kernels.reset_launches()
+        dr = [(sv.SVDraws(*(x.to(dev) for x in a)),
+               sv.FFBSDraws(*(x.to(dev) for x in b))) for a, b in draws]
+        r = sv.sv_fit(Y, spec, sv_iters=2, draws=dr,
+                      backend=dt.TorchBackend(device=dev,
+                                              dtype=torch.float64))
+        res[dev] = (r, dt.forecast(r, 12)[0], dict(kernels.LAUNCHES))
+    (rg, yg, lg), (rc, yc, _) = res["cuda"], res["cpu"]
+    if lg["sv_rbpf"] != 3 or lg["sv_ffbs"] != 3:
+        raise AssertionError(f"sv reference: launches {lg}")
+    errs = {name: rel_err(g, c) for name, g, c in (
+        ("logliks", rg.logliks, rc.logliks), ("sigma_h", rg.sigma_h,
+                                              rc.sigma_h),
+        ("h_center", rg.h_center, rc.h_center),
+        ("h_smooth", rg.h_smooth, rc.h_smooth), ("y_fore", yg, yc))}
+    emit({"reference": "sv", "shape": [120, 40, 2], "M": 64, "sv_iters": 2,
+          "max_rel_err": errs, "tol": 1e-9})
+    bad = {n: e for n, e in errs.items() if not e <= 1e-9}
+    if bad:
+        raise AssertionError(f"sv card fit disagrees with the CPU fit: {bad}")
+
+
+def sv_contract_phase(seed: int, fit) -> None:
+    """Phase 33b-c at S5's full width, the panel as the fit saw it.  (b)
+    sigma_h = 0, h0_scale = 0: every particle carries h = log diag Q, so
+    the RBPF loglik (M = 256) is the exact Kalman loglik with Q =
+    diag(diag Q) (tests/test_sv.py:20-32), here the port's f64
+    ``loglik_eval`` on the card: within 1e-9 in f64 and 1e-5 in f32,
+    gated.  The RBPF predicts its step 0 from (mu0, P0) where the info
+    filter takes them as the step-0 prediction, so the oracle's are (A
+    mu0, A P0 A' + Q) (equal only for a stationary P0, as
+    ``dgp.dfm_params`` draws it in that test).  (c) f32 against f64 on the same draws at the fitted sigma_h
+    and h_0 center (bench/run.py:193-214), with both runs' resample
+    counts: a Monte-Carlo estimate, one flipped decision changes the path,
+    so not gated."""
+    Y, _ = sv_panel(seed + 1101)
+    Yz = fit.standardizer.transform(Y)
+    p = fit.params
+    Qd = np.diag(np.diag(p.Q))
+    p_diag = cpu_ref.SSMParams(p.Lam, p.A, Qd, p.R, p.mu0, p.P0)
+    p_kf = cpu_ref.SSMParams(p.Lam, p.A, Qd, p.R, p.A @ p.mu0,
+                             p.A @ p.P0 @ p.A.T + Qd)
+    ll_kf = inf.loglik_eval(Yz, p_kf, precise=True, device="cuda")
+    spec0 = dt.SVSpec(n_factors=SV_K, n_particles=SV_M, sigma_h=0.0,
+                      h0_scale=0.0)
+    spec = dt.SVSpec(n_factors=SV_K, n_particles=SV_M)
+    fd = sv_draws64(SV_T, spec, seed + 1104)[0]
+    lims = {torch.float64: 1e-9, torch.float32: 1e-5}
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        Yt = torch.as_tensor(Yz, dtype=dtype, device="cuda").contiguous()
+        d = sv.SVDraws(*(x.to("cuda", dtype) for x in fd))
+        r0 = sv.sv_filter(Yt, SSMParams.from_numpy(p_diag, dtype=dtype,
+                                                   device="cuda"),
+                          spec0, draws=d, store_paths=False)
+        rel = abs(float(r0.loglik) - ll_kf) / abs(ll_kf)
+        r = sv.sv_filter(Yt, SSMParams.from_numpy(p, dtype=dtype,
+                                                  device="cuda"),
+                         spec, draws=d, sigma_h=fit.sigma_h,
+                         h_center=fit.h_center, store_paths=False)
+        out[dtype] = (rel, float(r.loglik), int(r.n_resamples))
+        emit({"contract": f"sv linear-Gaussian limit {str(dtype)[6:]}",
+              "shape": [SV_T, SV_N, SV_K], "M": SV_M,
+              "loglik_kalman_f64": ll_kf, "loglik_rbpf": float(r0.loglik),
+              "rel_err": rel, "limit": lims[dtype]})
+        if not rel <= lims[dtype]:
+            raise AssertionError(f"sv linear-Gaussian limit "
+                                 f"({dtype}): {rel:.3e} > {lims[dtype]}")
+    (_, l64, n64), (_, l32, n32) = out[torch.float64], out[torch.float32]
+    emit({"contract": "sv matched draws f32 vs f64 (not gated)",
+          "shape": [SV_T, SV_N, SV_K], "M": SV_M, "loglik_f64": l64,
+          "loglik_f32": l32, "rel_err": abs(l32 - l64) / abs(l64),
+          "n_resamples_f64": n64, "n_resamples_f32": n32})
+
+
 def ptxas_summary(source: str) -> dict:
     """Build seconds and, over the k = 10 instantiations of ``source``
     (every function for a source without a k template), the largest
@@ -3749,6 +4365,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     emit({"build_s": kernels.build(), "torch": torch.__version__,
@@ -3798,6 +4415,15 @@ def main() -> int:
     launches.update(mf_fit_phase(args.seed))
     mf_reference_phase(args.seed)
     mf_contract_phase(args.seed)
+    t_sv = time.perf_counter()
+    sv_counts, sv_fit = sv_fit_phase(args.seed)
+    launches.update(sv_counts)
+    summary.update(sv_kernel_phase(args.seed, sv_fit))
+    sv_k_sweep(args.seed)
+    sv_reference_phase(args.seed)
+    sv_contract_phase(args.seed, sv_fit)
+    emit({"sv_phases_s": time.perf_counter() - t_sv,
+          "script_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"dfm_tpu_torch/csrc/{kernels.KERNELS[name][0]}",

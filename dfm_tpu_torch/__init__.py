@@ -9,9 +9,10 @@ forecasts; ``open_session`` streams updates into a fitted model;
 restarts, ``select_n_factors_em``'s k-grid, ``oos_evaluate``'s rolling
 windows); ``open_fleet`` serves many tenants' sessions, one batched tick
 per capacity class; ``fit(TVLSpec(...), Y)`` (or ``tvl_fit``) estimates
-the time-varying-loadings family and ``fit(MixedFreqSpec(...), Y,
-mask=...)`` (or ``mf_fit``) the mixed-frequency nowcasting family.  The package imports neither JAX nor
-``dfm_tpu``.
+the time-varying-loadings family, ``fit(MixedFreqSpec(...), Y,
+mask=...)`` (or ``mf_fit``) the mixed-frequency nowcasting family and
+``fit(SVSpec(...), Y)`` (or ``sv_fit``) the stochastic-volatility family.
+The package imports neither JAX nor ``dfm_tpu``.
 """
 
 from .api import DynamicFactorModel, FitResult, TorchBackend, fit, forecast
@@ -22,9 +23,10 @@ from .estim.select import EMSelectResult, select_n_factors_em
 from .fleet import (FleetBucket, SessionFleet, TenantSlot, fleet_pad_waste,
                     open_fleet, plan_admission)
 from .kernels import LAUNCHES
-from .models import (MFParams, MFResult, MixedFreqSpec, TVLParams, TVLResult,
-                     TVLSpec, mf_fit, mf_forecast, mf_loglik_eval, tvl_fit,
-                     tvl_forecast)
+from .models import (FFBSDraws, MFParams, MFResult, MixedFreqSpec, SVDraws,
+                     SVFit, SVResult, SVSpec, TVLParams, TVLResult, TVLSpec,
+                     mf_fit, mf_forecast, mf_loglik_eval, sv_filter, sv_fit,
+                     sv_forecast, sv_smooth_h, tvl_fit, tvl_forecast)
 from .serve import NowcastSession, open_session
 from .ssm.params import SSMParams
 
@@ -36,4 +38,5 @@ __all__ = ["DynamicFactorModel", "FitResult", "TorchBackend", "fit",
            "FleetBucket", "TenantSlot", "plan_admission", "fleet_pad_waste",
            "TVLSpec", "TVLParams", "TVLResult", "tvl_fit", "tvl_forecast",
            "MixedFreqSpec", "MFParams", "MFResult", "mf_fit", "mf_forecast",
-           "mf_loglik_eval"]
+           "mf_loglik_eval", "SVSpec", "SVResult", "SVFit", "SVDraws",
+           "FFBSDraws", "sv_filter", "sv_smooth_h", "sv_fit", "sv_forecast"]

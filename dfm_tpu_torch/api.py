@@ -5,8 +5,9 @@ standardize -> PCA init -> chunked EM (or, with ``fused=``, the fused fit
 of ``estim.fused``: EM to convergence, smooth, nowcast and forecasts) ->
 reporting smooth, and ``forecast``; ``keep_session=`` opens a streaming
 ``serve.NowcastSession`` on the fit.  ``fit`` also takes a
-``models.TVLSpec`` (the time-varying-loadings family, ``tvl_fit``) and a
-``models.MixedFreqSpec`` (the mixed-frequency family, ``mf_fit``), as the
+``models.TVLSpec`` (the time-varying-loadings family, ``tvl_fit``), a
+``models.MixedFreqSpec`` (the mixed-frequency family, ``mf_fit``) and a
+``models.SVSpec`` (the stochastic-volatility family, ``sv_fit``), as the
 JAX package's ``fit`` routes its family specs.  ``TorchBackend`` runs on CUDA
 unless the caller asks for the CPU (``device="cpu"``), where every
 kernel's plain version runs instead; a CUDA backend on a machine without
@@ -29,6 +30,7 @@ from .estim.fused import resolve_fused, run_fused
 from .estim.init import pca_init_device, standardize_device
 from .models.mixed_freq import (MFParams, MFResult, MixedFreqSpec, mf_fit,
                                 mf_forecast)
+from .models.sv import SVFit, SVSpec, sv_fit, sv_forecast
 from .models.tv_loadings import (TVLParams, TVLResult, TVLSpec, tvl_fit,
                                  tvl_forecast)
 from .ops.precision import default_compute_dtype, highest_precision
@@ -204,7 +206,12 @@ def fit(model, Y: np.ndarray,
         ``keep_session=`` raise ``TypeError``), or a
         ``models.MixedFreqSpec``: the mixed-frequency family through
         ``mf_fit`` likewise (returns an ``MFResult``; ``init`` an
-        ``MFParams``, ``max_iters`` / ``tol`` as for a plain fit).
+        ``MFParams``, ``max_iters`` / ``tol`` as for a plain fit), or a
+        ``models.SVSpec``: the stochastic-volatility family through
+        ``sv_fit`` with the backend as its pre-fit's (returns an
+        ``SVFit``; ``max_iters`` is the particle-EM round count
+        ``sv_iters``, default 10, ``tol`` is ignored; a mask, NaN in Y or
+        ``init`` raise ``ValueError``).
     Y    : (T, N) panel; NaNs mark missing observations.
     mask : optional explicit {0,1} mask, combined with the NaN pattern.
     backend : a ``TorchBackend``; None means ``TorchBackend()`` (CUDA).
@@ -225,14 +232,13 @@ def fit(model, Y: np.ndarray,
     warm_start : not ported yet (ROADMAP Queue 1 item 3, with the fused
         fit's device-panel residency cache); pass ``init=prev.params``.
     """
-    if isinstance(model, (TVLSpec, MixedFreqSpec)):
+    if isinstance(model, (TVLSpec, MixedFreqSpec, SVSpec)):
         return _family_fit(model, Y, mask, backend, max_iters, tol, init,
                            fused, keep_session, warm_start)
     if not isinstance(model, DynamicFactorModel):
         raise TypeError(
-            f"fit takes a MixedFreqSpec, a DynamicFactorModel or a TVLSpec; "
-            f"got {type(model).__name__} (the other model families are not "
-            "ported yet: ROADMAP Queue 1 item 11)")
+            f"fit takes a MixedFreqSpec, an SVSpec, a DynamicFactorModel or "
+            f"a TVLSpec; got {type(model).__name__}")
     if warm_start is not None:
         raise NotImplementedError(
             "fit(warm_start=) is not ported to dfm_tpu_torch yet: ROADMAP "
@@ -250,10 +256,11 @@ def fit(model, Y: np.ndarray,
 
 def _family_fit(model, Y, mask, backend, max_iters, tol, init, fused,
                 keep_session, warm_start):
-    """The twin of the JAX package's ``_family_fit`` TVL and MF branches:
-    the backend's dtype, device and ``fused_chunk`` carry over; the options
-    the family does not take raise or warn as there.  Returns the family's
-    ``TVLResult`` or ``MFResult``."""
+    """The twin of the JAX package's ``_family_fit``: the backend's dtype,
+    device and ``fused_chunk`` carry over (for SV the whole backend drives
+    the pre-fit and the particle EM); the options the family does not take
+    raise or warn as there.  Returns the family's ``TVLResult``,
+    ``MFResult`` or ``SVFit``."""
     name = type(model).__name__
     if warm_start is not None:
         raise TypeError(
@@ -262,14 +269,26 @@ def _family_fit(model, Y, mask, backend, max_iters, tol, init, fused,
     if keep_session:
         raise TypeError(f"keep_session: the {name} family has no streaming "
                         "session")
-    params = MFParams if isinstance(model, MixedFreqSpec) else TVLParams
-    if init is not None and not isinstance(init, params):
-        raise TypeError(f"init for the {name} family must be "
-                        f"{params.__name__}; got {type(init).__name__}")
+    if isinstance(model, SVSpec):
+        if mask is not None or not bool(np.isfinite(np.asarray(Y)).all()):
+            # sv_filter has no missing-data handling: NaNs would poison
+            # the loglik and the vol paths.
+            raise ValueError("the SV family does not support missing data")
+        if init is not None:
+            raise ValueError("sv_fit estimates its own warm start; init is "
+                             "not supported (see models.sv.sv_fit)")
+    else:
+        params = MFParams if isinstance(model, MixedFreqSpec) else TVLParams
+        if init is not None and not isinstance(init, params):
+            raise TypeError(f"init for the {name} family must be "
+                            f"{params.__name__}; got {type(init).__name__}")
     b = TorchBackend() if backend is None else backend
     kw = dict(mask=mask, init=init, dtype=b.dtype, device=b.device,
               fused_chunk=b.fused_chunk)
-    if isinstance(model, MixedFreqSpec):
+    if isinstance(model, SVSpec):
+        res = sv_fit(Y, model, backend=b,
+                     sv_iters=10 if max_iters is None else max_iters)
+    elif isinstance(model, MixedFreqSpec):
         res = mf_fit(Y, model, max_iters=50 if max_iters is None
                      else max_iters, tol=1e-6 if tol is None else tol, **kw)
     else:
@@ -397,8 +416,11 @@ def forecast(result, horizon: int):
     Returns (y_fore (h, N), f_fore (h, k)), iterating the factor dynamics
     from the last smoothed state; a ``TVLResult`` goes to ``tvl_forecast``
     (loadings frozen at T), an ``MFResult`` to ``mf_forecast`` (the
-    augmented companion state).
+    augmented companion state), an ``SVFit`` to ``sv_forecast``
+    (conditional means; its vol bands are ``sv_forecast``'s third return).
     """
+    if isinstance(result, SVFit):
+        return sv_forecast(result, horizon)[:2]
     if isinstance(result, MFResult):
         return mf_forecast(result, horizon)
     if isinstance(result, TVLResult):

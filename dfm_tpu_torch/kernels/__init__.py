@@ -39,7 +39,7 @@ import torch
 
 __all__ = ["LAUNCHES", "KERNELS", "PROBES", "build", "build_log", "launch",
            "probe", "reset_launches", "check_k", "check_lowrank",
-           "check_tensor", "WIDE", "route"]
+           "check_particles", "check_tensor", "WIDE", "route"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -55,6 +55,11 @@ WIDE_KMAX = 32
 LOWRANK_KMAX, LOWRANK_RMAX = 100, 32
 # The ROADMAP row that ports the kernels past their k range.
 GENERIC_K = "ROADMAP Queue 2, 'Generic k, the kernels already ported'"
+# K10's particle range (DFM_SV_MMAX in sv_rbpf.cu: the step kernel is one
+# block, a particle a thread) and the residual stage's series tile
+# (SV_TILE there), which sizes the per-tile partials the wrapper allocates.
+SV_MMAX, SV_TILE = 1024, 64
+SV_PARTICLES = "ROADMAP Queue 2, 'K10 past 1,024 particles'"
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 
@@ -92,6 +97,8 @@ KERNELS = {
     "info_scan_wide": ("info_scan.cu", [_P, _P, _I] + [_P] * 9 + [_I] * 2),
     "rts_smoother_wide": ("info_scan.cu", [_P] * 8 + [_I] * 2),
     "quad_local_wide": ("quad_local.cu", [_P] * 7 + [_I] * 3),
+    "sv_rbpf": ("sv_rbpf.cu", [_P] * 23 + [_I] * 5 + [_D] * 2),
+    "sv_ffbs": ("sv_rbpf.cu", [_P] * 6 + [_I] * 4),
 }
 
 # The lone entry points with a wide kernel beside the k <= KMAX one, and
@@ -237,6 +244,17 @@ def check_lowrank(name: str, k: int, r: int) -> None:
             f"{name} kernel takes k <= {LOWRANK_KMAX} and r <= "
             f"{LOWRANK_RMAX} on CUDA (got k = {k}, r = {r}); past that is "
             f"{GENERIC_K}")
+
+
+def check_particles(name: str, M: int) -> None:
+    """Raise unless the particle count is one K10 takes: M < 1 is an
+    error, M > SV_MMAX not ported yet (the plain twins take any M)."""
+    if M < 1:
+        raise ValueError(f"{name} kernel takes M >= 1 particles; got {M}")
+    if M > SV_MMAX:
+        raise NotImplementedError(
+            f"{name} kernel takes M <= {SV_MMAX} particles on CUDA (got "
+            f"M = {M}): more is {SV_PARTICLES}")
 
 
 def check_tensor(name: str, x, shape, dtype, device) -> None:

@@ -3,7 +3,8 @@
 Draw loadings, simulate a stable factor VAR(1) path, add idiosyncratic
 noise; ``simulate_tv_loadings`` draws the random-walk-loadings panel of the
 time-varying-loadings family (config S4), ``simulate_mixed_freq`` the
-monthly/quarterly panel of the mixed-frequency family (config S3).
+monthly/quarterly panel of the mixed-frequency family (config S3),
+``simulate_sv`` the stochastic-volatility panel (config S5).
 Deterministic given the NumPy generator, so the same seed gives the same
 panel as the JAX package's copy.
 """
@@ -17,7 +18,7 @@ import numpy as np
 from ..backends.cpu_ref import SSMParams, _solve_discrete_lyapunov_or_eye
 
 __all__ = ["dfm_params", "simulate", "simulate_tv_loadings", "random_mask",
-           "mixed_freq_mask", "simulate_mixed_freq"]
+           "mixed_freq_mask", "simulate_mixed_freq", "simulate_sv"]
 
 
 def stable_var1(k: int, rng: np.random.Generator,
@@ -84,6 +85,29 @@ def simulate_tv_loadings(N: int, T: int, k: int, rng: np.random.Generator,
     R = noise_scale * (0.5 + rng.random(N))
     Y = np.einsum("tnk,tk->tn", Lams, F) + rng.standard_normal((T, N)) * np.sqrt(R)
     return Y, F, Lams, A, R
+
+
+def simulate_sv(N: int, T: int, k: int, rng: np.random.Generator,
+                vol_walk_scale: float = 0.05):
+    """Stochastic-volatility DGP (config S5, BASELINE.json:11).
+
+    Factor innovation log-variances follow random walks:
+        h_t = h_{t-1} + vol_walk_scale * xi,   Q_t = diag(exp(h_t)).
+    Returns (Y, F, H (T,k), params-without-SV for RBPF init)."""
+    A = stable_var1(k, rng)
+    Lam = rng.standard_normal((N, k))
+    R = 0.5 + rng.random(N)
+    H = np.cumsum(np.r_[np.zeros((1, k)),
+                        vol_walk_scale * rng.standard_normal((T - 1, k))], axis=0)
+    F = np.zeros((T, k))
+    f = rng.standard_normal(k)
+    for t in range(T):
+        if t > 0:
+            f = A @ F[t - 1] + np.exp(0.5 * H[t]) * rng.standard_normal(k)
+        F[t] = f
+    Y = F @ Lam.T + rng.standard_normal((T, N)) * np.sqrt(R)
+    p = SSMParams(Lam, A, np.eye(k), R, np.zeros(k), np.eye(k))
+    return Y, F, H, p
 
 
 def random_mask(T: int, N: int, rng: np.random.Generator,

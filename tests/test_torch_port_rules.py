@@ -39,7 +39,9 @@ FIT_DRIVERS = [("dfm_tpu_torch/api.py", "fit"),
                ("dfm_tpu_torch/models/tv_loadings.py", "tvl_fit"),
                ("dfm_tpu_torch/models/tv_loadings.py", "tvl_loglik_eval"),
                ("dfm_tpu_torch/models/mixed_freq.py", "mf_fit"),
-               ("dfm_tpu_torch/models/mixed_freq.py", "mf_loglik_eval")]
+               ("dfm_tpu_torch/models/mixed_freq.py", "mf_loglik_eval"),
+               ("dfm_tpu_torch/models/sv.py", "sv_fit"),
+               ("dfm_tpu_torch/models/sv.py", "sv_filter")]
 
 
 def _tree(path):
@@ -158,6 +160,9 @@ def test_cpu_path_launches_no_kernel():
                   Y, max_iters=2, tol=0.0,
                   backend=dtt.TorchBackend(device="cpu"))
     assert res.state_T.shape == (20,) and len(res.logliks) == 2
+    res = dtt.fit(dtt.SVSpec(n_factors=2, n_particles=16, n_smooth_draws=4),
+                  Y0, max_iters=1, backend=dtt.TorchBackend(device="cpu"))
+    assert res.h_smooth.shape == (40, 2) and len(res.logliks) == 2
     assert set(kernels.LAUNCHES) == {"quad_local", "obs_stats", "mstep_rows",
                                      "info_scan", "rts_smoother",
                                      "ss_cov_path", "affine_scan",
@@ -172,5 +177,6 @@ def test_cpu_path_launches_no_kernel():
                                      "tvl_obs_stats", "tvl_quad",
                                      "loading_filter", "loading_smoother",
                                      "obs_stats_wide", "info_scan_wide",
-                                     "rts_smoother_wide", "quad_local_wide"}
+                                     "rts_smoother_wide", "quad_local_wide",
+                                     "sv_rbpf", "sv_ffbs"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())
