@@ -27,20 +27,23 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    panel with a ragged edge and scattered missing values (filter="auto"
    must resolve to "info"), the same panel fully observed with
    filter="auto" (must resolve to the steady-state engine "ss") and with
-   filter="info", and the masked panel with filter="pit_qr": 20 EM
-   iterations with tol = 0 (10 for the unmasked "info" run), the reporting
-   smooth and a 12-step forecast.  Logliks must be finite and
+   filter="info", and the masked panel with filter="pit_qr" and "pit": 20
+   EM iterations with tol = 0 (10 for the unmasked "info" run), the
+   reporting smooth and a 12-step forecast.  Logliks must be finite and
    non-decreasing within the f32 noise floor, factors and forecasts
    finite, and every kernel of the path launched (launch counts are reset
-   just before each fit), the engine's own kernels every iteration.
+   just before each fit), the engine's own kernels every iteration; the
+   pit fit's launches exactly (``pit_fit_launches``: 4 K14-el and 2
+   K14-scan, K2, K1-wide and K3 an iteration, the info pair once), one
+   read a chunk, its EM it/s beside the masked info and pit_qr rates.
 4. reference: the same fit at a small size, masked and not (k = 3), and
-   through "ss" (150 x 80) and "pit_qr" (120 x 80, masked), on the card in
-   f64 against the CPU in f64 (the plain versions), within 1e-9 (1e-10
-   for the two new engines).
+   through "ss" (150 x 80), "pit_qr" and "pit" (120 x 80, masked), on the
+   card in f64 against the CPU in f64 (the plain versions), within 1e-9
+   (1e-10 for ss, pit_qr and pit).
 5. contract: from one init, 3 EM iterations in f32 and in f64; the f32
    params re-evaluated in f64 must be within 1e-5 relative of the f64
    trajectory's loglik at iteration 3: info masked and unmasked, ss
-   unmasked (at the fit's tau), pit_qr masked.
+   unmasked (at the fit's tau), pit_qr and pit masked.
 6. ring kernel: K13 (``ring_append``) against its plain twin at
    T_cap = 1,000, N = 10,000, r_max = 8, f32 and f64, bit for bit
    (tolerance 0), for (n_evict, n_new) in (0, 0), (0, 2), (0, 8), (2, 2),
@@ -49,15 +52,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    twin, ``torch.roll`` + ``index_copy_`` and its bound, and at the ring
    session's own shape (T_cap = 480, e = 2).
 7. sessions, full width: the masked headline panel's first 480 rows
-   fitted with ``fit(fused=True)`` (20 iterations, tol = 0; info, and
-   pit_qr), then three sessions, each with 10 updates of 2 rows (rows
+   fitted with ``fit(fused=True)`` (20 iterations, tol = 0; info, pit_qr
+   and pit), then four sessions, each with 10 updates of 2 rows (rows
    480-499, ragged mask) and a re-forecast (no rows), 5 warm EM
    iterations a query: info at
-   capacity 1,000, pit_qr at capacity 1,000, and an info ring at
-   capacity 480 (every update evicts 2).  Each query's device work runs
+   capacity 1,000, pit_qr at capacity 1,000, an info ring at capacity
+   480 (every update evicts 2) and pit at capacity 1,000.  Each query's device work runs
    under ``torch.cuda.set_sync_debug_mode("error")`` and is followed by
-   one counted read; K13 must launch exactly once a query, K4 (info) or
-   K8 (pit_qr) every query.  Synchronized query walls (p50, p99: the
+   one counted read; K13 must launch exactly once a query, K4 (info), K8
+   (pit_qr) or K14-scan (pit) every query.  Synchronized query walls (p50, p99: the
    session's own ``wall_s``, upload to read, and the whole ``update``
    call, host checks and the host mirror included), the
    info query's kernel times at its shapes; after each session's last
@@ -68,7 +71,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    from the info session's entry params of its last query, and its
    device part alone (``run_fused`` on the panel already on the card).
 8. session reference: at 120 x 80, k = 3, a ``standardize=False`` model,
-   a ring session with 3 updates (the first evicts), on the card in f64
+   info and pit ring sessions with 3 updates (the first evicts), on the
+   card in f64
    against the same session on the CPU in f64, and against the card's
    cold fused fit of the trailing window from the same start params,
    within 1e-10 relative (nowcast, factors, factor_cov, forecasts,
@@ -183,18 +187,20 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    floor at m = 25; then error checks at k = 17, 20, 25 and 32 on 120 x
    400 panels with a fully missing step and a never-observed series.
 28. MF fits: ``fit(MixedFreqSpec(1600, 400, 5), Y, mask=W)`` at S3, f32,
-   10 iterations, tol = 0, chunks of 8, ``time_scan="seq"`` and
-   ``"lowrank"`` (rank 5), and a 12-step forecast: finite outputs, exactly
-   one read a chunk plus the result's (3), exactly one launch of each path
-   kernel an iteration (+1 for the reporting smooth) and no other kernel,
-   EM it/s and the wall; the ``seq`` iteration's breakdown (kernels at
-   the dtypes the path runs them in: the augmented scans in f64) and two
-   iterations under ``set_sync_debug_mode("error")``.
+   10 iterations, tol = 0, chunks of 8, ``time_scan="seq"``,
+   ``"lowrank"`` (rank 5) and ``"pit"``, and a 12-step forecast: finite
+   outputs, exactly one read a chunk plus the result's (3), exactly each
+   path kernel's launches an E-step (``MF_ROUTES``) for every iteration
+   and the reporting smooth and no other kernel, EM it/s (pit beside
+   seq) and the wall; the ``seq`` and ``pit`` iterations' breakdowns
+   (kernels at the dtypes the path runs them in: the augmented scans in
+   f64) and two iterations under ``set_sync_debug_mode("error")``.
 29. MF reference: ``fit(MixedFreqSpec(24, 8, 5))`` at 60 steps (m = 25,
-   a fully missing step, a never-observed monthly series), ``seq`` and
-   ``lowrank`` (rank 4), card f64 against CPU f64 within 1e-9.
+   a fully missing step, a never-observed monthly series), ``seq``,
+   ``lowrank`` (rank 4) and ``pit``, card f64 against CPU f64 within 1e-9
+   (1e-10 for ``pit``).
 30. MF contract: from the PCA init, 2 EM iterations in f32 and f64 at S3
-   (``seq`` and ``lowrank``); the f32 params by
+   (``seq``, ``lowrank`` and ``pit``); the f32 params by
    ``mf_loglik_eval(precise=True)`` within 1e-5 of the f64 params'.
 
 31. SV kernels: K10-fwd (``csrc/sv_rbpf.cu``'s RBPF scan, residual and
@@ -233,8 +239,23 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    within 1e-9 in f64 and 1e-5 in f32; the matched-draws f32 against f64
    loglik at the fitted sigma_h with both resample counts (not gated).
 
+34. K14 kernels: K14-el (``csrc/pit_elements.cu``: the filter elements,
+   the filter assembly, the smoother elements, P_lag) and K14-scan
+   (``csrc/pit_scan.cu``: the prefix and the suffix) against their plain
+   twins at the masked headline panel, S3's statistics (m = 25) and
+   bench/longt.py's largest point (T = 4,000, N = 24, k = 2), f64 and
+   f32 (the TOL rule), timed warm and cold beside the plain twin, the
+   bound, K4's latency floor at the same (T, k) (the scans), the combines
+   in sequence and a one-call yardstick where there is one.
+35. K14 sweep: every mode at k = 1, 2, 3, 10, 16, 17, 25, 32 (T = 97)
+   and T = 1, 2, 3, 7, 97 (k = 3) on panels with a fully missing step 0
+   and a step observing fewer than k series; k = 33 must raise
+   NotImplementedError in every launcher.
+36. long-T: 16-iteration ``info``, ``pit`` and ``pit_qr`` fits at T =
+   4,000, N = 24, k = 2 (f32): their walls.
+
 Output: one JSON line per kernel and dtype, one per fit, contract check,
-ring case, session, batched, fleet, TVL, MF and SV phase, then the
+ring case, session, batched, fleet, TVL, MF, SV and K14 phase, then the
 {"kernels": [...]} summary, the card line and, last, {"ok": true,
 "device": {...}}.
 """
@@ -319,7 +340,10 @@ L2_FLUSH_BYTES = 256 * 2**20                   # > 5x the H100's 50 MB L2
 # K1-wide one-pass reductions, the K4-wide pair recursions.  K10-fwd's
 # ll_rel and particle history take 1e-10 / 1e-4, its weight-derived
 # outputs SV_WEIGHT_TOL (below); K10-ffbs copies h rows: exact (0) but
-# for f32 argmax near-ties (``ffbs_compare``).
+# for f32 argmax near-ties (``ffbs_compare``).  K14-el, a step's LU
+# solves, Cholesky factorizations and products, takes 1e-4 / 1e-10 as
+# qr_elements; K14-scan, ~2 sqrt(T) dependent combines with general
+# solves, 1e-4 / 1e-9 as the other scans.
 TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "mstep_rows": 1e-4, "info_scan": 1e-4,
                        "rts_smoother": 1e-4, "ss_cov_path": 1e-4,
@@ -334,7 +358,8 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "loading_filter": 1e-4, "loading_smoother": 1e-4,
                        "obs_stats_wide": 1e-5, "quad_local_wide": 1e-5,
                        "info_scan_wide": 1e-4, "rts_smoother_wide": 1e-4,
-                       "sv_rbpf": 1e-4, "sv_ffbs": 0.0},
+                       "sv_rbpf": 1e-4, "sv_ffbs": 0.0,
+                       "pit_elements": 1e-4, "pit_scan": 1e-4},
        torch.float64: {"quad_local": 1e-10, "obs_stats": 1e-10,
                        "mstep_rows": 1e-9, "info_scan": 1e-9,
                        "rts_smoother": 1e-9, "ss_cov_path": 1e-9,
@@ -349,7 +374,8 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "loading_filter": 1e-9, "loading_smoother": 1e-9,
                        "obs_stats_wide": 1e-10, "quad_local_wide": 1e-10,
                        "info_scan_wide": 1e-9, "rts_smoother_wide": 1e-9,
-                       "sv_rbpf": 1e-10, "sv_ffbs": 0.0}}
+                       "sv_rbpf": 1e-10, "sv_ffbs": 0.0,
+                       "pit_elements": 1e-10, "pit_scan": 1e-9}}
 # The TPU routine each kernel replaces.
 REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "obs_stats": "dfm_tpu/ssm/info_filter.py:69",
@@ -381,7 +407,9 @@ REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "quad_local_wide": "dfm_tpu/models/mixed_freq.py:185",
             "rts_smoother_wide": "dfm_tpu/models/mixed_freq.py:202",
             "sv_rbpf": "dfm_tpu/models/sv.py:103",
-            "sv_ffbs": "dfm_tpu/models/sv.py:297"}
+            "sv_ffbs": "dfm_tpu/models/sv.py:297",
+            "pit_elements": "dfm_tpu/ssm/parallel_filter.py:70",
+            "pit_scan": "dfm_tpu/ssm/parallel_filter.py:109"}
 # The variant of each kernel whose f32 record goes into the summary line.
 SUMMARY_VARIANT = {"quad_local": "masked", "obs_stats": "masked",
                    "mstep_rows": "masked", "info_scan": "masked",
@@ -869,7 +897,28 @@ FITS = (
     ("unmasked info", False, "info", "info", 10,
      ("quad_local", "info_scan", "rts_smoother"),
      ("quad_local", "info_scan", "rts_smoother")),
+    ("masked pit", True, "pit", "pit", 20,
+     ("pit_elements", "pit_scan", "obs_stats", "quad_local_wide",
+      "mstep_rows", "info_scan", "rts_smoother"),
+     ("pit_elements", "pit_scan", "obs_stats", "quad_local_wide",
+      "mstep_rows")),
 )
+# The masked pit fit's launches, exactly: a K14 E-step is four
+# pit_elements (elements, assembly, smoother elements, P_lag) and two
+# pit_scan (prefix, suffix); K2, K1-wide (``loglik_terms_local``) and K3
+# once an iteration; the info pair once for the reporting smooth.
+PIT_PER_ITER = {"pit_elements": 4, "pit_scan": 2}
+
+
+def pit_fit_launches(iters: int) -> dict:
+    return {"pit_elements": 4 * iters, "pit_scan": 2 * iters,
+            "obs_stats": iters + 1, "quad_local_wide": iters,
+            "mstep_rows": iters, "quad_local": 1, "info_scan": 1,
+            "rts_smoother": 1}
+
+
+# EM it/s of each headline fit by label (fit_phase fills it).
+RATES: dict = {}
 # The fit whose launch counts the summary line reports for each kernel:
 # the path that kernel serves.
 OWN_FIT = {"quad_local": "masked", "obs_stats": "masked",
@@ -889,7 +938,8 @@ OWN_FIT = {"quad_local": "masked", "obs_stats": "masked",
            "loading_smoother": "tvl unmasked",
            "obs_stats_wide": "mf seq", "info_scan_wide": "mf seq",
            "quad_local_wide": "mf seq", "rts_smoother_wide": "mf seq",
-           "sv_rbpf": "sv fit", "sv_ffbs": "sv fit"}
+           "sv_rbpf": "sv fit", "sv_ffbs": "sv fit",
+           "pit_elements": "masked pit", "pit_scan": "masked pit"}
 
 
 def fit_phase(seed: int) -> dict:
@@ -902,11 +952,13 @@ def fit_phase(seed: int) -> dict:
         backend = dt.TorchBackend(filter=flt)
         torch.cuda.synchronize()
         kernels.reset_launches()
-        t0 = time.perf_counter()
-        res = dt.fit(model, Y, backend=backend, max_iters=iters, tol=0.0)
-        y_fore, f_fore = dt.forecast(res, 12)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with ReadWatch() as rw:
+            t0 = time.perf_counter()
+            res = dt.fit(model, Y, backend=backend, max_iters=iters,
+                         tol=0.0)
+            y_fore, f_fore = dt.forecast(res, 12)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         lls = res.logliks
         floor = noise_floor_for(torch.float32, T * N)
@@ -920,8 +972,9 @@ def fit_phase(seed: int) -> dict:
                "noise_floor": floor, "wall_s": wall,
                "em_iters_per_sec": (len(steady) / sum(steady)
                                     if steady and sum(steady) > 0 else None),
-               "launches": launches}
+               "chunk_reads": len(rw.stamps), "launches": launches}
         emit(rec)
+        RATES[label] = rec["em_iters_per_sec"]
         if res.filter != engine:
             raise AssertionError(f"{label}: filter={flt!r} resolved to "
                                  f"{res.filter!r}, expected {engine!r}")
@@ -949,6 +1002,23 @@ def fit_phase(seed: int) -> dict:
             raise AssertionError(f"{label}: kernels not launched on the fit "
                                  f"path: {missing}; launched fewer times "
                                  f"than iterations: {short}")
+        if engine == "pit":
+            n_chunks = -(-iters // chunk)
+            want = pit_fit_launches(iters)
+            bad = {n: v for n, v in launches.items()
+                   if v != want.get(n, 0)}
+            # reads: one a chunk, and the reporting smooth's host copy.
+            emit({"pit_fit": label, "em_iters_per_sec": RATES[label],
+                  "info_em_iters_per_sec": RATES["masked"],
+                  "pit_qr_em_iters_per_sec": RATES["masked pit_qr"],
+                  "reads": len(rw.stamps) + 1, "n_chunks": n_chunks,
+                  "launches_per_iter": {n: launches[n] / iters
+                                        for n in PIT_PER_ITER},
+                  "wall_s": wall})
+            if bad or len(rw.stamps) != n_chunks:
+                raise AssertionError(f"{label}: launches off {want}: {bad}; "
+                                     f"chunk reads {len(rw.stamps)}, "
+                                     f"expected {n_chunks}")
         counts[label] = launches
     return counts
 
@@ -960,14 +1030,16 @@ def reference_phase(seed: int) -> None:
     k = 3, masked and not, within 1e-9 relative (each kernel pass agrees
     to ~1e-15 in f64; 10 EM iterations carry each pass's rounding into the
     next params); the ss fit (150 x 80, unmasked) and the pit_qr fit
-    (120 x 80, masked) within 1e-10."""
+    (120 x 80, masked) within 1e-10, and the pit fit (120 x 80, masked)
+    within 1e-10."""
     Ynan, _, Yfull, _ = panel(seed + 3, T_=120, N_=80, K_=3)
     _, _, Ylong, _ = panel(seed + 4, T_=150, N_=80, K_=3)
     model = dt.DynamicFactorModel(n_factors=3, dynamics="ar1")
     for label, Y, flt, tol in (("masked", Ynan, "info", 1e-9),
                                ("unmasked", Yfull, "info", 1e-9),
                                ("unmasked ss", Ylong, "ss", 1e-10),
-                               ("masked pit_qr", Ynan, "pit_qr", 1e-10)):
+                               ("masked pit_qr", Ynan, "pit_qr", 1e-10),
+                               ("masked pit", Ynan, "pit", 1e-10)):
         res = {}
         for dev in ("cuda", "cpu"):
             b = dt.TorchBackend(device=dev, dtype=torch.float64, filter=flt)
@@ -976,7 +1048,8 @@ def reference_phase(seed: int) -> None:
             res[dev] = (r, dt.forecast(r, 12)[0], dict(kernels.LAUNCHES))
         (rg, yg, lg), (rc, yc, _) = res["cuda"], res["cpu"]
         own = {"ss": ("ss_cov_path", "affine_scan"),
-               "pit_qr": ("qr_elements", "qr_scan")}.get(flt, ())
+               "pit_qr": ("qr_elements", "qr_scan"),
+               "pit": ("pit_elements", "pit_scan")}.get(flt, ())
         if any(lg[n] == 0 for n in own):
             raise AssertionError(f"reference {label}: the card fit did not "
                                  f"launch {own} (launches {lg})")
@@ -1005,7 +1078,7 @@ def contract_phase(seed: int) -> None:
     Ynan, W, Yfull, _ = panel(seed + 1)
     dev = torch.device("cuda")
     for engine, masked in (("info", True), ("info", False), ("ss", False),
-                           ("pit_qr", True)):
+                           ("pit_qr", True), ("pit", True)):
         Y = Ynan if masked else Yfull
         Wm = W if masked else None
         Z, _ = data.standardize(Y, mask=Wm)
@@ -1155,7 +1228,8 @@ def ring_phase(seed: int) -> dict:
 # that must launch on every query).
 SESSIONS = (("info", "info", False, 1000, "info_scan"),
             ("pit_qr", "pit_qr", False, 1000, "qr_scan"),
-            ("ring", "info", True, SESSION_T0, "info_scan"))
+            ("ring", "info", True, SESSION_T0, "info_scan"),
+            ("pit", "pit", False, 1000, "pit_scan"))
 
 
 def pct(xs, q: float) -> float:
@@ -1216,6 +1290,8 @@ def session_kernel_check(sess, label: str, seed: int) -> None:
             cases, stats = masked_cases(Yb, Wb, pt, label=variant)
             if sess.filter == "pit_qr":
                 cases += qr_cases(stats, pt, variant, unit=False)
+            if sess.filter == "pit":
+                cases += pit_cases(stats, pt, variant)
             if sess.filter == "lowrank":
                 cases += lowrank_cases(Yb, Wb, pt, lr.resolve_rank(
                     pt.A.shape[0], sess.rank), variant)
@@ -1245,7 +1321,7 @@ def session_phase(seed: int) -> dict:
     model = dt.DynamicFactorModel(n_factors=K, dynamics="ar1")
     T_end = SESSION_T0 + SESSION_UPDATES * SESSION_ROWS
     fits = {}
-    for engine in ("info", "pit_qr"):
+    for engine in ("info", "pit_qr", "pit"):
         backend = dt.TorchBackend(filter="auto" if engine == "info"
                                   else engine)
         torch.cuda.synchronize()
@@ -1319,7 +1395,8 @@ def session_phase(seed: int) -> dict:
                "launches_per_query": {n: per_query[-2][n] for n in
                                       ("ring_append", "info_scan",
                                        "rts_smoother", "qr_scan",
-                                       "qr_elements", "mstep_rows")},
+                                       "qr_elements", "pit_scan",
+                                       "pit_elements", "mstep_rows")},
                "n_iters_last": u.n_iters}
         emit(rec)
         bad = [q for q, c in enumerate(per_query)
@@ -1370,16 +1447,22 @@ def session_phase(seed: int) -> dict:
 
 
 def session_reference_phase(seed: int) -> None:
-    """A ring session at 120 x 80, k = 3 (standardize=False), 3 updates,
-    on the card in f64 against the CPU in f64 and against the card's cold
-    fused fit of the trailing window, within 1e-10 relative."""
+    """A ring session at 120 x 80, k = 3 (standardize=False), 3 updates
+    (the first one evicting), info and pit, on the card in f64 against the
+    CPU in f64 and against the card's cold fused fit of the trailing
+    window, within 1e-10 relative."""
+    for engine in ("info", "pit"):
+        _session_reference(seed, engine)
+
+
+def _session_reference(seed: int, engine: str) -> None:
     Ynan, _, _, _ = panel(seed + 5, T_=130, N_=80, K_=3)
     model = dt.DynamicFactorModel(n_factors=3, dynamics="ar1",
                                   standardize=False)
     ups = ((120, 123), (123, 124), (124, 128))
     out = {}
     for dev in ("cuda", "cpu"):
-        b = dt.TorchBackend(device=dev, dtype=torch.float64, filter="info")
+        b = dt.TorchBackend(device=dev, dtype=torch.float64, filter=engine)
         res = dt.fit(model, Ynan[:120], backend=b, fused=True, max_iters=10,
                      tol=0.0)
         sess = dt.open_session(res, Ynan[:120], backend=b, capacity=120,
@@ -1412,7 +1495,7 @@ def session_reference_phase(seed: int) -> None:
         for f in ("nowcast", "factors", "factor_cov", "logliks"):
             worst(f"session-cold {f}", getattr(u, f), getattr(ref, f))
         worst("session-cold forecast y", u.forecasts["y"], ref.forecasts["y"])
-    emit({"session_reference": "ring info", "shape": [120, 80, 3],
+    emit({"session_reference": f"ring {engine}", "shape": [120, 80, 3],
           "max_rel_err": errs, "tol": 1e-10})
     bad = {n: e for n, e in errs.items() if not e <= 1e-10}
     if bad:
@@ -3432,12 +3515,16 @@ MF_PATH_DTYPE = {"obs_stats_wide": torch.float32,
                  "quad_local_wide": torch.float32,
                  "info_scan_wide": torch.float64,
                  "rts_smoother_wide": torch.float64}
-# Per fit: (label, time_scan, kernels that launch once an iteration and once
-# for the reporting smooth).
-MF_FITS = (("mf seq", "seq", MF_NEW),
-           ("mf lowrank", "lowrank",
-            ("obs_stats_wide", "lowrank_basis", "lowrank_scan",
-             "quad_local_wide", "lowrank_smoother")))
+# Per route: the kernels it launches and how many times an E-step (each
+# iteration and the reporting smooth run one).
+MF_ROUTES = {"seq": dict.fromkeys(MF_NEW, 1),
+             "lowrank": dict.fromkeys(
+                 ("obs_stats_wide", "lowrank_basis", "lowrank_scan",
+                  "quad_local_wide", "lowrank_smoother"), 1),
+             "pit": {"obs_stats_wide": 1, "pit_elements": 4, "pit_scan": 2,
+                     "quad_local_wide": 1}}
+# Per fit: (label, time_scan).
+MF_FITS = (("mf seq", "seq"), ("mf lowrank", "lowrank"), ("mf pit", "pit"))
 
 
 def mf_spec(ts: str = "seq", nm: int = MF_NM, nq: int = MF_NQ,
@@ -3555,17 +3642,19 @@ def mf_k_sweep(seed: int) -> None:
 def mf_fit_phase(seed: int) -> dict:
     """``fit(MixedFreqSpec(1600, 400, 5), Y, mask=W)`` at S3 on
     ``TorchBackend()`` (f32, chunks of 8, 10 iterations, tol = 0) with
-    ``time_scan="seq"`` and ``"lowrank"`` (rank 5), and a 12-step
-    forecast: finite outputs of S3's shapes, exactly one read a chunk plus
-    the result's, exactly one launch of each path kernel an iteration run
-    (+1 for the reporting smooth) and no other kernel.  EM it/s: the
-    iterations after the first chunk over the wall between the first and
-    the last chunk reads.  Then ``mf_iteration_breakdown``.  Returns each
-    fit's launch counts by label."""
+    ``time_scan="seq"``, ``"lowrank"`` (rank 5) and ``"pit"``, and a
+    12-step forecast: finite outputs of S3's shapes, exactly one read a
+    chunk plus the result's, exactly the route's launches an E-step
+    (``MF_ROUTES``) for each iteration run and the reporting smooth, and no
+    other kernel.  EM it/s: the iterations after the first chunk over the
+    wall between the first and the last chunk reads.  Then
+    ``mf_iteration_breakdown`` of ``seq`` and ``pit``.  Returns each fit's
+    launch counts by label."""
     Y, W = mf_panel(seed + 1001)
     backend = dt.TorchBackend(fused_chunk=MF_CHUNK)
-    counts = {}
-    for label, ts, need in MF_FITS:
+    counts, fitted, rates = {}, {}, {}
+    for label, ts in MF_FITS:
+        need = MF_ROUTES[ts]
         spec = mf_spec(ts)
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -3583,6 +3672,8 @@ def mf_fit_phase(seed: int) -> dict:
         ran = min(MF_ITERS, n_chunks * MF_CHUNK)        # whole chunks run
         chunk_reads = rw.stamps[:n_chunks]
         steady = ran - MF_CHUNK
+        rates[ts] = (steady / (chunk_reads[-1] - chunk_reads[0])
+                     if steady > 0 else None)
         emit({"fit": label, "spec": dataclasses.asdict(spec),
               "shape": [MF_T, MF_NM + MF_NQ, MF_K], "n_iters": n,
               "iters_run": ran, "converged": res.converged,
@@ -3591,13 +3682,10 @@ def mf_fit_phase(seed: int) -> dict:
               "noise_floor": noise_floor_for(torch.float32,
                                              MF_T * (MF_NM + MF_NQ)),
               "wall_s": wall,
-              "em_iters_per_sec": (steady / (chunk_reads[-1]
-                                             - chunk_reads[0])
-                                   if steady > 0 else None),
-              "reads": len(rw.stamps),
+              "em_iters_per_sec": rates[ts], "reads": len(rw.stamps),
               "launches_per_iter": {nm: launches[nm] / ran for nm in need},
               "launches": {nm: v for nm, v in launches.items() if v}})
-        want = {nm: ran + 1 for nm in need}
+        want = {nm: per * (ran + 1) for nm, per in need.items()}
         bad = {nm: launches[nm] for nm in launches
                if launches[nm] != want.get(nm, 0)}
         if bad or len(rw.stamps) != n_chunks + 1:
@@ -3614,21 +3702,23 @@ def mf_fit_phase(seed: int) -> dict:
                 or y_fore.shape != (12, MF_NM + MF_NQ)):
             raise AssertionError(f"{label}: unexpected output shapes")
         counts[label] = launches
-        if ts == "seq":
-            fitted = res
-    mf_iteration_breakdown(Y, W, fitted)
+        fitted[ts] = res
+    emit({"mf_pit_vs_seq": {"pit_em_iters_per_sec": rates["pit"],
+                            "seq_em_iters_per_sec": rates["seq"]}})
+    for ts in ("seq", "pit"):
+        mf_iteration_breakdown(Y, W, fitted[ts])
     return counts
 
 
 def mf_iteration_breakdown(Y, W, res) -> None:
-    """Where an S3 ``seq`` iteration goes (f32, warm L2, at the fitted
-    params): each path kernel at the dtype the path runs it in and the
-    whole ``mf_em_core`` on the device (CUDA events); the rest is the
-    iteration less the kernels (the widening and narrowing casts, the
-    loglik assembly, the M-step's einsums and solves, launch gaps).  Then
-    two iterations under ``set_sync_debug_mode("error")``: no host read
-    inside an iteration (the panel and params are uploaded before the
-    guard)."""
+    """Where an S3 ``seq`` or ``pit`` iteration goes (f32, warm L2, at the
+    fitted params): each path kernel (each K14 mode) at the dtype the path
+    runs it in, times its launches an iteration, and the whole
+    ``mf_em_core`` on the device (CUDA events); the rest is the iteration
+    less the kernels (the widening and narrowing casts, the loglik
+    assembly, the M-step's einsums and solves, launch gaps).  Then two
+    iterations under ``set_sync_debug_mode("error")``: no host read inside
+    an iteration (the panel and params are uploaded before the guard)."""
     spec = res.spec
     Yz, Wm, _ = mf_inputs((Y, W), spec)
     f32, f64 = torch.float32, torch.float64
@@ -3640,16 +3730,24 @@ def mf_iteration_breakdown(Y, W, res) -> None:
         stats = inf.obs_stats(Yt, aug.Lam, aug.R, Wt)
         s64 = inf.ObsStats(*(x.to(f64) for x in stats))
         a64 = aug.to(dtype=f64)
-        fwd = inf.info_scan(s64, a64.A, a64.Q, a64.mu0, a64.P0)
+        if spec.time_scan == "pit":
+            fwd = pf.pit_from_stats(s64, a64)
+        else:
+            fwd = inf.info_scan(s64, a64.A, a64.Q, a64.mu0, a64.P0)
         kf = FilterResult(*fwd[:4], None)
         xp = fwd[0].to(f32)
         ms = {"obs_stats_wide": cuda_ms(lambda: inf.obs_stats(
                   Yt, aug.Lam, aug.R, Wt)),
-              "info_scan_wide": cuda_ms(lambda: inf.info_scan(
-                  s64, a64.A, a64.Q, a64.mu0, a64.P0)),
               "quad_local_wide": cuda_ms(lambda: inf.loglik_terms_local(
-                  Yt, aug.Lam, aug.R, xp, Wt)),
-              "rts_smoother_wide": cuda_ms(lambda: rts_smoother(kf, a64))}
+                  Yt, aug.Lam, aug.R, xp, Wt))}
+        if spec.time_scan == "pit":
+            for c in pit_cases(s64, a64, "S3 breakdown"):
+                ms[c["variant"].replace(" S3 breakdown", "")] = \
+                    cuda_ms(c["run"])
+        else:
+            ms["info_scan_wide"] = cuda_ms(lambda: inf.info_scan(
+                s64, a64.A, a64.Q, a64.mu0, a64.P0))
+            ms["rts_smoother_wide"] = cuda_ms(lambda: rts_smoother(kf, a64))
         iter_ms = cuda_ms(lambda: mf.mf_em_core(Yt, Wt, pt, spec))
         mf.mf_em_scan(Yt, Wt, pt, spec, 1)
         torch.cuda.synchronize()
@@ -3660,7 +3758,7 @@ def mf_iteration_breakdown(Y, W, res) -> None:
         finally:
             torch.cuda.set_sync_debug_mode(prev)
         torch.cuda.synchronize()
-    emit({"mf_iteration_breakdown": "seq",
+    emit({"mf_iteration_breakdown": spec.time_scan,
           "shape": [MF_T, MF_NM + MF_NQ, MF_K], "m": spec.state_dim,
           "iter_ms": iter_ms, "kernel_ms": ms,
           "rest_ms": iter_ms - sum(ms.values()),
@@ -3679,15 +3777,13 @@ def mf_small(seed: int):
 
 def mf_reference_phase(seed: int) -> None:
     """``fit(MixedFreqSpec(24, 8, 5))`` at 60 steps (``mf_small``), 6
-    iterations, tol = 0, chunks of 3, ``seq`` and ``lowrank`` (rank 4),
-    on the card in f64 against the CPU in f64 within 1e-9 relative
-    (logliks, params, nowcast, factors, state_T, forecast)."""
+    iterations, tol = 0, chunks of 3, ``seq``, ``lowrank`` (rank 4) and
+    ``pit``, on the card in f64 against the CPU in f64 within 1e-9
+    relative (1e-10 for ``pit``; logliks, params, nowcast, factors,
+    state_T, forecast)."""
     Y, W = mf_small(seed + 1002)
     errs = {}
-    for ts, need in (("seq", MF_NEW),
-                     ("lowrank", ("obs_stats_wide", "lowrank_basis",
-                                  "lowrank_scan", "quad_local_wide",
-                                  "lowrank_smoother"))):
+    for ts, need in MF_ROUTES.items():
         spec = mf_spec(ts, nm=24, nq=8, rank=4)
         res = {}
         for dev in ("cuda", "cpu"):
@@ -3711,9 +3807,10 @@ def mf_reference_phase(seed: int) -> None:
                   for f in mf.MFParams._fields if f != "mu0"]   # mu0 = 0
         for name, g, c in pairs:
             errs[f"{ts} {name}"] = rel_err(g, c)
+    tol = {"seq": 1e-9, "lowrank": 1e-9, "pit": 1e-10}
     emit({"reference": "mf", "shape": [60, 32, 5], "m": 25, "iters": 6,
-          "max_rel_err": errs, "tol": 1e-9})
-    bad = {n: e for n, e in errs.items() if not e <= 1e-9}
+          "max_rel_err": errs, "tol": tol})
+    bad = {n: e for n, e in errs.items() if not e <= tol[n.split()[0]]}
     if bad:
         raise AssertionError(f"mf card fit disagrees with the CPU fit: {bad}")
 
@@ -3721,12 +3818,12 @@ def mf_reference_phase(seed: int) -> None:
 def mf_contract_phase(seed: int) -> None:
     """The loglik contract of S3 (BASELINE.json:5, bench/run.py:173-176):
     from one init (the fit's PCA warm start), 2 EM iterations in f32 and in
-    f64 on the card (``mf_em_scan``), ``seq`` and ``lowrank``; the f32
-    params re-evaluated by ``mf_loglik_eval(precise=True)`` (the augmented
-    info-form filter in f64) against the f64 params' after their 2
-    iterations, within 1e-5 relative."""
+    f64 on the card (``mf_em_scan``), ``seq``, ``lowrank`` and ``pit``; the
+    f32 params re-evaluated by ``mf_loglik_eval(precise=True)`` (the
+    augmented info-form filter in f64) against the f64 params' after their
+    2 iterations, within 1e-5 relative."""
     pan = mf_panel(seed + 1001)
-    for ts in ("seq", "lowrank"):
+    for ts in ("seq", "lowrank", "pit"):
         spec = mf_spec(ts)
         Yz, W, init = mf_inputs(pan, spec)
         params = {}
@@ -3749,8 +3846,9 @@ def mf_contract_phase(seed: int) -> None:
         # route's is an approximate likelihood, not comparable.
         emit({"contract": f"mf {ts}", "shape": [MF_T, MF_NM + MF_NQ, MF_K],
               "iters": 2, "loglik_f64": ref, "rel_err_precise": rel,
-              "rel_err_fast": (abs(fast - ref) / abs(ref) if ts == "seq"
-                               else None), "limit": 1e-5})
+              "rel_err_fast": (abs(fast - ref) / abs(ref)
+                               if ts != "lowrank" else None),
+              "limit": 1e-5})
         if not rel < 1e-5:
             raise AssertionError(f"mf loglik contract broken: {rel:.3e}")
 
@@ -4326,6 +4424,227 @@ def sv_contract_phase(seed: int, fit) -> None:
           "n_resamples_f64": n64, "n_resamples_f32": n32})
 
 
+# ---------------------------------------------------------------------------
+# The covariance-form parallel-in-time engine (pit, K14): its two kernels at
+# the headline shape, S3's augmented statistics and bench/longt.py's
+# largest point (N = 24, k = 2, T = 4,000: bench/longt.py:37-38).  Its fit,
+# session, MF route, references and contracts run in the phases above.
+# ---------------------------------------------------------------------------
+
+PIT_NEW = ("pit_elements", "pit_scan")
+PIT_K_SWEEP = (1, 2, 3, 10, 16, 17, 25, 32)
+PIT_T_SWEEP = (1, 2, 3, 7, 97)
+LONGT_T, LONGT_N, LONGT_K, LONGT_ITERS = 4000, 24, 2, 16
+# The one-call yardsticks of ``pit_cases`` by mode.
+PIT_LIBRARY = {"filter elements": "torch.linalg.solve(I + Q C_t, [F | Q])",
+               "P_lag": "torch.matmul(P_sm[1:], J')"}
+
+
+def pit_chain(T_: int) -> list:
+    """The combines in sequence of one K14-scan pass: phase 1 (S - 1),
+    phase 2 (B - 2), phase 3 (one, every element in parallel) and the
+    tail (T - T0)."""
+    S = sc.block_size(T_)
+    B = T_ // S
+    return [S - 1, max(B - 2, 0), int(B > 1), T_ - B * S]
+
+
+def pit_cases(stats, pt, label: str) -> list:
+    """Every K14 mode on the elements and moments the plain engine makes
+    from ``stats``: the filter elements, the prefix, the assembly, the
+    smoother elements, the suffix and P_lag.  Library yardsticks: for the
+    element build one batched ``torch.linalg.solve`` of its systems (I + Q
+    C_t against [F | Q]: half the build), for P_lag one ``matmul`` (all
+    but its zero row); the scans sit beside K4's latency floor at the same
+    (T, k)."""
+    stats = inf.ObsStats(*(x.contiguous() for x in stats))
+    A, Q, mu0, P0 = pt.A, pt.Q, pt.mu0, pt.P0
+    dtype = A.dtype
+    T_, k = stats.b.shape
+    k3 = k ** 3
+    el = tuple(x.contiguous() for x in
+               pf.pit_filter_elements_plain(stats, A, Q, mu0, P0))
+    pref = tuple(x.contiguous() for x in pf.pit_scan_plain(el))
+    asm = pf.pit_filter_assemble_plain(pref[1], pref[2], stats.C, A, Q, mu0,
+                                       P0)
+    kf = FilterResult(asm[0].contiguous(), asm[1].contiguous(), pref[1],
+                      pref[2], None)
+    (E, g, L), J = pf.pit_smoother_elements_plain(kf, A)
+    sel = (E.contiguous(), g.contiguous(), L.contiguous())
+    J = J.contiguous()
+    suf = tuple(x.contiguous() for x in pf.pit_scan_plain(sel, True))
+    C_t = stats.C if stats.C.ndim == 3 else stats.C.expand(T_, k, k)
+    M = (torch.eye(k, dtype=dtype, device=A.device)
+         + torch.einsum("kl,tlm->tkm", Q, C_t)).contiguous()
+    rhs = torch.cat([A, Q], dim=-1).expand(T_, k, 2 * k).contiguous()
+    n_comb = n_combines(T_)
+    return [
+        case("pit_elements", f"filter elements {label}",
+             lambda: pf.pit_filter_elements(stats, A, Q, mu0, P0),
+             lambda: pf.pit_filter_elements_plain(stats, A, Q, mu0, P0),
+             (stats.b, stats.C, A, Q, mu0, P0), T_ * 15.3 * k3,
+             library=lambda: torch.linalg.solve(M, rhs)),
+        case("pit_scan", f"prefix {label}", lambda: pf.pit_scan(el),
+             lambda: pf.pit_scan_plain(el), el, n_comb * 17.0 * k3,
+             floor=lambda: latency_ms("info_scan", dtype, k, T_)),
+        case("pit_elements", f"assemble {label}",
+             lambda: pf.pit_filter_assemble(pref[1], pref[2], stats.C, A, Q,
+                                            mu0, P0),
+             lambda: pf.pit_filter_assemble_plain(pref[1], pref[2], stats.C,
+                                                  A, Q, mu0, P0),
+             (pref[1], pref[2], stats.C, A, Q, mu0, P0), T_ * 8.7 * k3),
+        case("pit_elements", f"smoother elements {label}",
+             lambda: pf.pit_smoother_elements(kf, A)[0],
+             lambda: pf.pit_smoother_elements_plain(kf, A)[0],
+             (kf.x_pred, kf.P_pred, kf.x_filt, kf.P_filt, A),
+             T_ * 8.3 * k3),
+        case("pit_scan", f"suffix {label}", lambda: pf.pit_scan(sel, True),
+             lambda: pf.pit_scan_plain(sel, True), sel, n_comb * 6.0 * k3,
+             floor=lambda: latency_ms("rts_smoother", dtype, k, T_)),
+        case("pit_elements", f"P_lag {label}",
+             lambda: pf.pit_smoother_assemble(suf[2], J),
+             lambda: pf.pit_smoother_assemble_plain(suf[2], J),
+             (suf[2], J), T_ * 2.0 * k3,
+             library=lambda: torch.matmul(suf[2][1:], J.transpose(-1, -2))),
+    ]
+
+
+def pit_shapes(seed: int, dtype) -> list:
+    """(label, stats, params) on the card in ``dtype``: the masked
+    headline panel (a per-step C), S3's statistics (the augmented
+    loadings of the fit's PCA init, m = 25, T = 300) and the long-T point
+    (unmasked: one static C)."""
+    dev = torch.device("cuda")
+    Ynan, W, _, p = panel(seed)
+    Yt = torch.as_tensor(np.where(W > 0, Ynan, 0.0), dtype=dtype,
+                         device=dev)
+    pt = SSMParams.from_numpy(p, dtype=dtype, device=dev)
+    out = [("masked", inf.obs_stats_plain(
+        Yt, pt.Lam, pt.R, torch.as_tensor(W, dtype=dtype, device=dev)), pt)]
+    spec = mf_spec()
+    Yz, Wm, init = mf_inputs(mf_panel(seed + 1000), spec)
+    aug = mf.augment(mf.MFParams(*init).to("cuda", dtype), spec)
+    out.append(("S3", inf.obs_stats_plain(
+        torch.as_tensor(Yz, dtype=dtype, device=dev), aug.Lam, aug.R,
+        torch.as_tensor(Wm, dtype=dtype, device=dev)), aug))
+    _, _, Yl, pl = panel(seed + 1100, T_=LONGT_T, N_=LONGT_N, K_=LONGT_K)
+    ptl = SSMParams.from_numpy(pl, dtype=dtype, device=dev)
+    out.append(("long-T", inf.obs_stats_plain(
+        torch.as_tensor(Yl, dtype=dtype, device=dev), ptl.Lam, ptl.R), ptl))
+    return [(lb, inf.ObsStats(*(x.contiguous() for x in st)), q)
+            for lb, st, q in out]
+
+
+def pit_kernel_phase(seed: int) -> dict:
+    """Every K14 mode against its plain twin at the three shapes of
+    ``pit_shapes``, f64 then f32 (the TOL rule), timed warm and cold
+    (``kernel_record``) beside the plain twin, the bound, the library
+    yardstick (the element build), K4's latency floor (the scans) and
+    the combines in sequence.  Returns the f32 headline records of the
+    element build and the prefix by kernel name."""
+    summary, refs = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        with highest_precision():
+            for label, stats, pt in pit_shapes(seed, dtype):
+                T_, k = stats.b.shape
+                for c in pit_cases(stats, pt, label):
+                    rec = kernel_record(c, dtype, refs)
+                    rec.update({"T": T_, "k": k})
+                    if c["name"] == "pit_scan":
+                        rec["combines_in_sequence"] = pit_chain(T_)
+                    rec["library_call"] = PIT_LIBRARY.get(
+                        c["variant"][:-len(label) - 1])
+                    emit(rec)
+                    if (dtype == torch.float32 and c["variant"] in
+                            ("filter elements masked", "prefix masked")):
+                        summary[c["name"]] = rec
+        torch.cuda.empty_cache()
+    return summary
+
+
+def pit_k_sweep(seed: int) -> None:
+    """Every K14 mode at k = 1, 2, 3, 10, 16, 17, 25 and 32 (T = 97) and
+    at T = 1, 2, 3, 7 and 97 (k = 3), on small panels whose step 0 is
+    fully missing and whose step 7 observes fewer than k series, f64 and
+    f32: error checks only.  Then k = 33 must raise NotImplementedError
+    in every launcher."""
+    shapes = [(97, k) for k in PIT_K_SWEEP] + [(t, 3) for t in PIT_T_SWEEP]
+    for T_, k in shapes:
+        _, W, Yfull, p = panel(seed + 1200 + k + T_, T_=T_, N_=300, K_=k)
+        W[0] = 0.0
+        if T_ > 7:
+            W[7] = 0.0
+            W[7, :k - 1] = 1.0
+        refs, worst = {}, {}
+        for dtype in (torch.float64, torch.float32):
+            with highest_precision():
+                Wt = torch.as_tensor(W, dtype=dtype, device="cuda")
+                Yt = torch.as_tensor(Yfull, dtype=dtype, device="cuda") * Wt
+                pt = SSMParams.from_numpy(p, dtype=dtype, device="cuda")
+                stats = inf.ObsStats(*(x.contiguous() for x in
+                                       inf.obs_stats_plain(Yt, pt.Lam, pt.R,
+                                                           Wt)))
+                for c in pit_cases(stats, pt, f"T={T_} k={k}"):
+                    key = (c["name"], c["variant"])
+                    _, rel, _, ref, _ = compare(c, dtype, refs.get(key))
+                    refs[key] = ref
+                    mode = c["variant"].split(" T=")[0]
+                    worst[f"{mode} {str(dtype)[6:]}"] = rel
+        emit({"pit_sweep": {"T": T_, "k": k}, "max_rel_err": worst})
+    k = kernels.WIDE_KMAX + 1
+    z = dict(dtype=torch.float32, device="cuda")
+    mats, vecs = torch.zeros((5, k, k), **z), torch.zeros((5, k), **z)
+    eye, v0 = torch.eye(k, **z), torch.zeros(k, **z)
+    st = inf.ObsStats(vecs, mats, torch.zeros(5, **z), torch.zeros(5, **z))
+    kf = FilterResult(vecs, mats, vecs, mats, None)
+    calls = {"filter elements": lambda: pf.pit_filter_elements(
+                 st, eye, eye, v0, eye),
+             "prefix": lambda: pf.pit_scan((mats, vecs, mats, vecs, mats)),
+             "assemble": lambda: pf.pit_filter_assemble(
+                 vecs, mats, mats, eye, eye, v0, eye),
+             "smoother elements": lambda: pf.pit_smoother_elements(kf, eye),
+             "P_lag": lambda: pf.pit_smoother_assemble(mats, mats[:4])}
+    raised = {}
+    for name, fn in calls.items():
+        try:
+            fn()
+        except NotImplementedError as e:
+            raised[name] = str(e)
+    emit({"pit_k33": sorted(raised)})
+    if len(raised) != len(calls):
+        raise AssertionError(f"K14 at k = {k}: only {sorted(raised)} raised")
+
+
+def pit_longt_phase(seed: int) -> None:
+    """bench/longt.py's largest point (N = 24, k = 2, T = 4,000,
+    standardize=False, f32): the walls of 16-iteration ``info``, ``pit``
+    and ``pit_qr`` fits (tol = 0), each the second of two runs (the first
+    warms the caches); finite logliks, the engine asked for, K14 launched
+    on the pit fit."""
+    _, _, Y, _ = panel(seed + 1100, T_=LONGT_T, N_=LONGT_N, K_=LONGT_K)
+    model = dt.DynamicFactorModel(n_factors=LONGT_K, standardize=False)
+    walls = {}
+    for engine in ("info", "pit", "pit_qr"):
+        backend = dt.TorchBackend(filter=engine)
+        for _ in range(2):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = dt.fit(model, Y, backend=backend, max_iters=LONGT_ITERS,
+                         tol=0.0)
+            torch.cuda.synchronize()
+            walls[engine] = time.perf_counter() - t0
+        if (res.filter != engine or not np.isfinite(res.logliks).all()
+                or res.n_iters != LONGT_ITERS):
+            raise AssertionError(f"long-T {engine} fit failed: "
+                                 f"{res.filter}, {res.n_iters} iterations")
+        if engine == "pit" and any(kernels.LAUNCHES[n] < LONGT_ITERS
+                                   for n in PIT_NEW):
+            raise AssertionError(f"long-T pit: launches {kernels.LAUNCHES}")
+    emit({"longt": {"T": LONGT_T, "N": LONGT_N, "k": LONGT_K,
+                    "iters": LONGT_ITERS}, "fit_wall_s": walls})
+
+
 def ptxas_summary(source: str) -> dict:
     """Build seconds and, over the k = 10 instantiations of ``source``
     (every function for a source without a k template), the largest
@@ -4422,7 +4741,12 @@ def main() -> int:
     sv_k_sweep(args.seed)
     sv_reference_phase(args.seed)
     sv_contract_phase(args.seed, sv_fit)
-    emit({"sv_phases_s": time.perf_counter() - t_sv,
+    t_pit = time.perf_counter()
+    summary.update(pit_kernel_phase(args.seed))
+    pit_k_sweep(args.seed)
+    pit_longt_phase(args.seed)
+    emit({"sv_phases_s": t_pit - t_sv,
+          "pit_kernel_phases_s": time.perf_counter() - t_pit,
           "script_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda",

@@ -1,5 +1,6 @@
 // One-warp k x k linear algebra in shared memory, shared by K4
-// (info_scan.cu) and K5a (ss_cov_path.cu).
+// (info_scan.cu), K5a (ss_cov_path.cu) and K14 (pit_elements.cu,
+// pit_scan.cu).
 //
 // All matrices are row-major in shared memory with a leading dimension one
 // past the widest k they take, so lanes reading different rows hit
@@ -8,7 +9,9 @@
 // dynamic shared memory); the leading dimension is a template parameter
 // deduced from the matrices passed.  Lane j computes column j of each
 // product and solves for column j of each right-hand side; the Cholesky
-// factorization goes column by column, lane i updating row i.
+// factorization goes column by column, lane i updating row i; the LU
+// factorization picks its pivot across the lanes (lane i holds row i) and
+// updates the trailing block a column a lane.
 // __syncwarp() separates the phases, so every function is called by all
 // 32 lanes of one warp.  The lane is threadIdx.x % 32, so any warp of a
 // block may call them on its own matrices.
@@ -23,6 +26,46 @@ template <typename T, int LDV = LD>
 using SMat = T (*)[LDV];
 
 __device__ __forceinline__ int warp_lane() { return threadIdx.x & 31; }
+
+__device__ __forceinline__ float dfm_abs(float x) { return fabsf(x); }
+__device__ __forceinline__ double dfm_abs(double x) { return fabs(x); }
+
+// Matrix slot i of k rows at leading dimension LDV in shared memory.
+template <typename T, int LDV>
+__device__ __forceinline__ SMat<T, LDV> smem_slot(T* base, int i, int k) {
+  return reinterpret_cast<SMat<T, LDV>>(base + (size_t)i * k * LDV);
+}
+
+// k x k row-major global <-> shared, lanes over the elements; ``symm``
+// loads the symmetric part 0.5 (M + M').  Each ends with __syncwarp().
+template <typename T, int LDV>
+__device__ void warp_load(SMat<T, LDV> M, const T* __restrict__ g, int k,
+                          bool symm = false) {
+  for (int e = warp_lane(); e < k * k; e += 32) {
+    const int i = e / k, j = e % k;
+    M[i][j] = symm ? T(0.5) * (g[i * k + j] + g[j * k + i]) : g[e];
+  }
+  __syncwarp();
+}
+template <typename T, int LDV>
+__device__ void warp_store(T* __restrict__ g, SMat<T, LDV> M, int k) {
+  for (int e = warp_lane(); e < k * k; e += 32) g[e] = M[e / k][e % k];
+  __syncwarp();
+}
+template <typename T, int LDV>
+__device__ void warp_copy(SMat<T, LDV> D, SMat<T, LDV> S, int k) {
+  for (int e = warp_lane(); e < k * k; e += 32)
+    D[e / k][e % k] = S[e / k][e % k];
+  __syncwarp();
+}
+
+// sum_l op(M)[i][l] v[l], one row in one lane.
+template <typename T, int LDV, bool TM>
+__device__ T row_dot(SMat<T, LDV> M, const T* v, int i, int k) {
+  T s = T(0);
+  for (int l = 0; l < k; ++l) s += (TM ? M[l][i] : M[i][l]) * v[l];
+  return s;
+}
 
 // C = op(A) op(B); lane j computes column j.  C aliases neither A nor B.
 template <typename T, bool TA, bool TB, int LDV>
@@ -138,4 +181,103 @@ __device__ T chol_logdet_warp(SMat<T, LDV> L, int k) {
   T s = T(0);
   for (int i = 0; i < k; ++i) s += dfm_log(L[i][i]);
   return T(2) * s;
+}
+
+// In-place LU factorization with partial pivoting, W = P L U (L unit lower
+// below the diagonal, U on and above it), as LAPACK's getrf pivots: at
+// column p the pivot row is the first index of the largest |W[i][p]|, i >=
+// p (a warp arg-max, ties to the lower index), and piv[p] records it.  No
+// check for a zero pivot: a singular W gives inf/NaN, as an unchecked
+// solve does.  piv holds k ints in shared memory.
+template <typename T, int LDV>
+__device__ void lu_inplace(SMat<T, LDV> W, int* piv, int k) {
+  const int lane = warp_lane();
+  for (int p = 0; p < k; ++p) {
+    const bool cand = lane >= p && lane < k;
+    T best = cand ? dfm_abs(W[lane][p]) : T(-1);
+    int idx = cand ? lane : 32;
+    for (int o = 16; o > 0; o >>= 1) {
+      const T ob = __shfl_xor_sync(0xffffffffu, best, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, idx, o);
+      if (ob > best || (ob == best && oi < idx)) {
+        best = ob;
+        idx = oi;
+      }
+    }
+    // NaN compares false, so lanes may disagree on a NaN column: take
+    // lane 0's answer, and no swap past k.
+    idx = __shfl_sync(0xffffffffu, idx, 0);
+    if (idx >= k) idx = p;
+    if (lane == 0) piv[p] = idx;
+    if (idx != p && lane < k) {
+      const T tmp = W[p][lane];
+      W[p][lane] = W[idx][lane];
+      W[idx][lane] = tmp;
+    }
+    __syncwarp();
+    const T d = W[p][p];
+    if (lane > p && lane < k) W[lane][p] /= d;
+    __syncwarp();
+    if (lane > p && lane < k) {
+      const T u = W[p][lane];
+      for (int i = p + 1; i < k; ++i) W[i][lane] -= W[i][p] * u;
+    }
+    __syncwarp();
+  }
+}
+
+// X = W^{-1} X (the first nrhs columns of X) with W's factors from
+// lu_inplace: the row interchanges, then unit-lower forward and upper back
+// substitution; lane j solves column j.
+template <typename T, int LDV>
+__device__ void lu_solve_cols(SMat<T, LDV> LU, const int* piv,
+                              SMat<T, LDV> X, int k, int nrhs) {
+  const int j = warp_lane();
+  if (j < nrhs) {
+    for (int p = 0; p < k; ++p) {
+      const int r = piv[p];
+      if (r != p) {
+        const T tmp = X[p][j];
+        X[p][j] = X[r][j];
+        X[r][j] = tmp;
+      }
+    }
+    for (int i = 1; i < k; ++i) {
+      T s = X[i][j];
+      for (int m = 0; m < i; ++m) s -= LU[i][m] * X[m][j];
+      X[i][j] = s;
+    }
+    for (int i = k - 1; i >= 0; --i) {
+      T s = X[i][j];
+      for (int m = i + 1; m < k; ++m) s -= LU[i][m] * X[m][j];
+      X[i][j] = s / LU[i][i];
+    }
+  }
+  __syncwarp();
+}
+
+// v = W^{-1} v for one right-hand side vector in shared memory (lane 0).
+template <typename T, int LDV>
+__device__ void lu_solve_vec(SMat<T, LDV> LU, const int* piv, T* v, int k) {
+  if (warp_lane() == 0) {
+    for (int p = 0; p < k; ++p) {
+      const int r = piv[p];
+      if (r != p) {
+        const T tmp = v[p];
+        v[p] = v[r];
+        v[r] = tmp;
+      }
+    }
+    for (int i = 1; i < k; ++i) {
+      T s = v[i];
+      for (int m = 0; m < i; ++m) s -= LU[i][m] * v[m];
+      v[i] = s;
+    }
+    for (int i = k - 1; i >= 0; --i) {
+      T s = v[i];
+      for (int m = i + 1; m < k; ++m) s -= LU[i][m] * v[m];
+      v[i] = s / LU[i][i];
+    }
+  }
+  __syncwarp();
 }

@@ -2,8 +2,8 @@
 chunked driver.
 
 The twin of ``dfm_tpu.estim.em`` for the ``dense``, ``info``, ``ss``
-(steady-state), ``pit_qr`` (square-root parallel-in-time) and
-``lowrank`` (rank-r downdate) engines.
+(steady-state), ``pit`` (covariance-form parallel-in-time), ``pit_qr``
+(square-root parallel-in-time) and ``lowrank`` (rank-r downdate) engines.
 The masked per-series M-step rows are kernel K3 (``csrc/mstep_rows.cu``)
 on CUDA tensors, with ``mstep_rows_plain`` beside it; the unmasked rows
 are a GEMM plus one k x k solve and stay plain torch.  ``n_steps`` runs
@@ -28,7 +28,8 @@ from ..ssm.info_filter import info_filter
 from ..ssm.kalman import kalman_filter, rts_smoother
 from ..ssm.lowrank_filter import (lowrank_filter, lowrank_filter_smoother,
                                   lowrank_smoother)
-from ..ssm.parallel_filter import pit_qr_filter, pit_qr_smoother
+from ..ssm.parallel_filter import (pit_filter, pit_qr_filter,
+                                   pit_qr_smoother, pit_smoother)
 from ..ssm.params import SmootherResult, SSMParams
 from ..ssm.steady import DEFAULT_TAU, ss_filter_smoother
 
@@ -38,13 +39,6 @@ __all__ = ["EMConfig", "em_step", "em_fit_scan", "em_chunk",
            "warn_ss_delta", "moments", "moment_sums", "mstep_rows", "mstep_rows_plain", "mstep_dynamics",
            "mstep_dynamics_sums", "mstep_dynamics_tmasked", "cfg_hypers"]
 
-# Engines of the JAX package that this package does not have yet, with the
-# ROADMAP item that ports each.
-_NOT_PORTED = {
-    "pit": "ROADMAP Queue 1 item 10 (the legacy covariance-form pit engine)",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class EMConfig:
     """EM switches.
@@ -52,13 +46,12 @@ class EMConfig:
     filter: "dense" (N x N innovation covariance, the small-N engine),
     "info" (information form, k x k scan; the N-scalable engine), "ss"
     (steady-state accelerated: ``tau`` exact covariance steps, then frozen
-    gains; falls back to "info" when masked or T <= 2 tau + 4) or
-    "pit_qr" (square-root parallel-in-time; k <= 10 on CUDA) or
-    "lowrank" (rank-r computation-aware downdate filter and smoother,
+    gains; falls back to "info" when masked or T <= 2 tau + 4), "pit"
+    (covariance-form parallel-in-time; k <= 32 on CUDA), "pit_qr"
+    (square-root parallel-in-time; k <= 10 on CUDA) or "lowrank" (rank-r
+    computation-aware downdate filter and smoother,
     ``ssm.lowrank_filter``: only r x r factorizations in the scans,
-    conservative covariances, exact at rank = k).  The JAX package's
-    "pit" raises ``NotImplementedError`` naming the ROADMAP item that
-    ports it.
+    conservative covariances, exact at rank = k).
 
     rank: the rank r of "lowrank" (<= 0: auto, min(k, 8)).
 
@@ -82,28 +75,26 @@ class EMConfig:
     lam_ridge: float = 0.0
 
     def __post_init__(self):
-        if self.filter in _NOT_PORTED:
-            raise NotImplementedError(
-                f"filter={self.filter!r} is not ported to dfm_tpu_torch yet: "
-                f"{_NOT_PORTED[self.filter]}")
-        if self.filter not in ("dense", "info", "ss", "pit_qr", "lowrank"):
+        if self.filter not in ("dense", "info", "ss", "pit", "pit_qr",
+                               "lowrank"):
             raise ValueError(f"unknown filter {self.filter!r}")
 
     def filter_fn(self):
         if self.filter == "lowrank":
             return partial(lowrank_filter, rank=self.rank)
         return {"dense": kalman_filter, "info": info_filter,
-                "pit_qr": pit_qr_filter}[self.filter]
+                "pit": pit_filter, "pit_qr": pit_qr_filter}[self.filter]
 
     def smoother_fn(self):
         if self.filter == "lowrank":
             return partial(lowrank_smoother, rank=self.rank)
-        return pit_qr_smoother if self.filter == "pit_qr" else rts_smoother
+        return {"pit": pit_smoother,
+                "pit_qr": pit_qr_smoother}.get(self.filter, rts_smoother)
 
     def report_pair(self):
         """Filter and smoother of a reporting smooth at fitted params:
         pit_qr and lowrank through themselves (their smoothed moments are
-        their contract), dense through the N x N filter, info and ss
+        their contract), dense through the N x N filter, info, ss and pit
         through the exact info-form pair."""
         if self.filter in ("pit_qr", "lowrank"):
             return self.filter_fn(), self.smoother_fn()

@@ -49,7 +49,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KMAX = 16   # DFM_KMAX in csrc/common.cuh
 # The wide kernels' range (DFM_WIDE_KMAX): K12, the lone masked K2, the K4
 # pair and K1 at state widths past KMAX (the mixed-frequency augmented
-# state, m = 25 at S3).
+# state, m = 25 at S3), and K14 (pit_elements, pit_scan) at every k.
 WIDE_KMAX = 32
 # The rank-r kernels' range (DFM_LR_KMAX, DFM_LR_RMAX in lowrank_scan.cu).
 LOWRANK_KMAX, LOWRANK_RMAX = 100, 32
@@ -99,6 +99,8 @@ KERNELS = {
     "quad_local_wide": ("quad_local.cu", [_P] * 7 + [_I] * 3),
     "sv_rbpf": ("sv_rbpf.cu", [_P] * 23 + [_I] * 5 + [_D] * 2),
     "sv_ffbs": ("sv_rbpf.cu", [_P] * 6 + [_I] * 4),
+    "pit_elements": ("pit_elements.cu", [_I] + [_P] * 12 + [_I] * 3),
+    "pit_scan": ("pit_scan.cu", [_I] + [_P] * 6 + [_I] * 3),
 }
 
 # The lone entry points with a wide kernel beside the k <= KMAX one, and

@@ -30,9 +30,12 @@ is native on the H100 as on the CPU.  At S3 (m = 25) the K4 pair and K1,
 K2 take their wide kernels (K12, 16 < k <= 32); at m <= 16 the K4 pair
 and K2 take the k <= 16 kernels, and ``loglik_terms_local`` K1-wide at any
 m <= 32.  ``time_scan="lowrank"`` replaces the K4 pair by the rank-r K9
-trio (one K9-basis an iteration, shared by both scans).
-``time_scan="pit"`` waits for K14 and ``"pit_qr"`` for the square-root
-kernels past k = 10: both raise.  ``mf_fit`` and ``mf_loglik_eval`` run
+trio (one K9-basis an iteration, shared by both scans);
+``time_scan="pit"`` by the covariance-form parallel-in-time pair (K14:
+``pit_elements`` and ``pit_scan``, four and two launches an iteration, in
+f64 on the augmented statistics).  ``"pit_qr"`` waits for the
+square-root kernels past k = 10 and raises.  ``mf_fit`` and
+``mf_loglik_eval`` run
 under ``highest_precision()``: reduced-precision products wobble the
 augmented statistics enough to fake divergences.
 """
@@ -61,6 +64,7 @@ from ..ssm.lowrank_filter import (lowrank_from_stats,
                                   lowrank_loglik_from_terms,
                                   lowrank_smoother, policy_basis,
                                   resolve_rank)
+from ..ssm.parallel_filter import pit_from_stats, pit_smoother
 from ..ssm.params import FilterResult, SmootherResult, SSMParams
 from ..utils.data import build_mask, standardize as _standardize
 
@@ -74,9 +78,10 @@ MM_WEIGHTS = (1.0 / 3, 2.0 / 3, 1.0, 2.0 / 3, 1.0 / 3)
 @dataclasses.dataclass(frozen=True)
 class MixedFreqSpec:
     """Static model description.  ``time_scan``: "seq" (the filter and RTS
-    pair, the default) or "lowrank" (the rank-r scans at ``rank``, <= 0
-    for min(m, 8)) run; "pit" and "pit_qr" are accepted, as in the JAX
-    package, and raise when a fit or an E-step runs them."""
+    pair, the default), "pit" (the covariance-form parallel-in-time pair)
+    or "lowrank" (the rank-r scans at ``rank``, <= 0 for min(m, 8)) run;
+    "pit_qr" is accepted, as in the JAX package, and raises when a fit or
+    an E-step runs it."""
     n_monthly: int
     n_quarterly: int
     n_factors: int
@@ -99,11 +104,6 @@ class MixedFreqSpec:
 
 
 def _check_time_scan(spec: MixedFreqSpec) -> None:
-    if spec.time_scan == "pit":
-        raise NotImplementedError(
-            "MixedFreqSpec(time_scan='pit') runs the covariance-form "
-            "parallel-in-time engine, not ported to dfm_tpu_torch yet: "
-            "ROADMAP Queue 1 item 10 (K14)")
     if spec.time_scan == "pit_qr":
         raise NotImplementedError(
             f"MixedFreqSpec(time_scan='pit_qr') runs the square-root engine "
@@ -190,6 +190,8 @@ def _e_step(Y, mask, p: MFParams, spec: MixedFreqSpec):
                          resolve_rank(spec.state_dim, spec.rank))
         xp, Pp, xf, Pf, logdetG, corr = lowrank_from_stats(
             stats_acc, aug_acc, spec.rank, V)
+    elif spec.time_scan == "pit":
+        xp, Pp, xf, Pf, logdetG = pit_from_stats(stats_acc, aug_acc)
     else:
         xp, Pp, xf, Pf, logdetG = info_scan(stats_acc, aug_acc.A, aug_acc.Q,
                                             aug_acc.mu0, aug_acc.P0)
@@ -202,6 +204,8 @@ def _e_step(Y, mask, p: MFParams, spec: MixedFreqSpec):
     kf = FilterResult(xp, Pp, xf, Pf, ll)
     if spec.time_scan == "lowrank":
         sm = lowrank_smoother(kf, aug_acc, spec.rank, V)
+    elif spec.time_scan == "pit":
+        sm = pit_smoother(kf, aug_acc)
     else:
         sm = rts_smoother(kf, aug_acc)
     return kf, sm

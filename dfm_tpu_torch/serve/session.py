@@ -35,8 +35,9 @@ step.  Not ported yet, each raising ``NotImplementedError``: the
 self-healing guard (``robust=`` other than None/False; ROADMAP Queue 1
 item 5: without faults the guarded and unguarded paths give the same
 numbers), request tracing and the live plane (``trace=``,
-``accounting()``; item 13), the ``pit`` engine (item 10).  The
-``lowrank`` engine serves at the backend's (or ``rank=``) rank r; its
+``accounting()``; item 13).  The ``pit`` engine runs the
+covariance-form parallel-in-time E-step (K14) over the whole capacity.
+The ``lowrank`` engine serves at the backend's (or ``rank=``) rank r; its
 reporting smooth is its own rank-r pair, so its bands are the
 conservative rank-r ones.
 """
@@ -69,11 +70,8 @@ __all__ = ["NowcastSession", "SessionUpdate", "open_session"]
 _SESSION_IDS = itertools.count(1)
 
 # Engines a session can route (EMConfig.filter values whose masked filter
-# and smoother serve a capacity-padded panel), and those still to port.
+# and smoother serve a capacity-padded panel).
 _SERVE_FILTERS = ("dense", "info", "pit", "pit_qr", "lowrank")
-_NOT_PORTED = {
-    "pit": "ROADMAP Queue 1 item 10 (the covariance-form pit engine)",
-}
 
 # The 90% two-sided band the serving layer reports coverage against.
 _Z90 = 1.6448536269514722
@@ -98,10 +96,6 @@ def _resolve_serve_engine(b, res_filter, filter, rank, N):
     else:
         flt = (res_filter if res_filter in _SERVE_FILTERS
                else b._filter_for(N, True))
-    if flt in _NOT_PORTED:
-        raise NotImplementedError(
-            f"filter={flt!r} is not ported to dfm_tpu_torch yet: "
-            f"{_NOT_PORTED[flt]}")
     r = int(getattr(b, "rank", 0) if rank is None else rank)
     return flt, (r if flt == "lowrank" else 0)
 
@@ -692,11 +686,10 @@ def open_session(res=None, Y=None, mask=None, *, snapshot=None,
     ring            : True turns the panel into a ring buffer: updates
                       past capacity evict the oldest rows (K13) instead
                       of raising.
-    filter / rank   : serving engine ("dense", "info", "pit_qr",
+    filter / rank   : serving engine ("dense", "info", "pit", "pit_qr",
                       "lowrank") and lowrank conditioning rank; default
                       inherits the fit's resolved ``FitResult.filter``
-                      (rank from the backend).  "pit" raises (ROADMAP
-                      Queue 1 item 10).
+                      (rank from the backend).
     backend         : a ``TorchBackend`` (default ``TorchBackend()``, CUDA).
     robust          : None/False only (the guard is Queue 1 item 5).
     snapshot        : path written by ``session.snapshot(path)`` (this

@@ -1,23 +1,38 @@
-"""Square-root parallel-in-time filter and smoother, ``pit_qr`` (twin of
-the QR-factor half of ``dfm_tpu.ssm.parallel_filter``).
+"""Parallel-in-time filters and smoothers (twins of
+``dfm_tpu.ssm.parallel_filter``): the covariance-form engine ``pit`` and
+the square-root engine ``pit_qr``.
 
 Filtering is associative (Sarkka & Garcia-Fernandez): each step is an
-element (A, b, U, eta, Z) of a semigroup whose inclusive prefix product
-carries the filtered mean b and a square-root factor U of the filtered
-covariance, C = U U'.  The elements carry square-root factors, and every
+element of a semigroup whose inclusive prefix product carries the
+filtered moments, and the RTS smoother is the reverse prefix of affine
+elements.  The blocked scan (``ops.scan.blocked_scan``) runs ~2 sqrt(T)
+combines in sequence, batched over blocks.
+
+``pit``: elements (A, b, C, eta, J) built from the information-form
+statistics by push-through solves with I + Q C_t and I + C_t Q (the t = 0
+element from (mu0, P0)); the combine carries general solves with
+D = (1 + jitter) I + C_i J_j and E = (1 + jitter) I + J_j C_i; after the
+prefix (b_t, C_t) are the filtered moments, and the predicted moments and
+log|I + Lp' C_t Lp| follow one step off them.  The smoother's elements
+are (E, g, L), E_t the RTS gain.  Kernels on CUDA tensors (K14):
+``pit_elements`` (``csrc/pit_elements.cu``: the filter elements, the
+filter assembly, the smoother elements and P_lag, one warp a step) and
+``pit_scan`` (``csrc/pit_scan.cu``: the blocked prefix and suffix, one
+warp a combine, a launch a phase); both take k <= 32
+(``kernels.WIDE_KMAX``).
+
+``pit_qr``: the elements carry square-root factors, C = U U', and every
 combine is a thin QR (``tria``) of stacked factors plus triangular solves
 against Cholesky factors of I + (PSD), so no jitter is needed.  The
 smoother is the reverse prefix of affine elements (E, g, D) with L = D D'.
-The blocked scan runs ~2 sqrt(T) combines in sequence, batched over
-blocks.
-
-Kernels on CUDA tensors (the plain twins, beside each, run for CPU
-tensors): ``qr_elements`` (``csrc/qr_elements.cu``: the element builds
-and the post-scan assemblies, one thread per step, on the K6/K7 device
-functions of ``csrc/small_linalg.cuh``) and ``qr_scan``
+Kernels on CUDA tensors: ``qr_elements`` (``csrc/qr_elements.cu``: the
+element builds and the post-scan assemblies, one thread per step, on the
+K6/K7 device functions of ``csrc/small_linalg.cuh``) and ``qr_scan``
 (``csrc/qr_scan.cu``: K8, the blocked prefix and suffix with the QR
-combines).  The kernels take k <= 10 (``QR_UNROLL_K_MAX``); above it a
-CUDA call raises ``NotImplementedError``.
+combines).  They take k <= 10 (``QR_UNROLL_K_MAX``); above it a CUDA call
+raises ``NotImplementedError``.
+
+The plain twin beside each launcher runs for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -27,15 +42,22 @@ from typing import Optional
 import torch
 
 from .. import kernels
-from ..ops.linalg import (chol_solve_unrolled, chol_unrolled, check_qr_k,
-                          matmul_vpu, matvec_vpu, psd_factor, tri_solve,
-                          tria)
+from ..ops.linalg import (chol_logdet, chol_solve, chol_solve_unrolled,
+                          chol_unrolled, check_qr_k, default_jitter,
+                          matmul_vpu, matvec_vpu, psd_cholesky, psd_factor,
+                          sym, tri_solve, tria)
 from ..ops.scan import block_size, blocked_scan
-from .info_filter import (ObsStats, loglik_from_terms, obs_stats,
-                          quad_local, u_from_stats)
+from .info_filter import (ObsStats, loglik_from_terms, loglik_terms_local,
+                          obs_stats, quad_local, u_from_stats)
 from .params import FilterResult, SmootherResult, SSMParams
 
-__all__ = ["qr_generic_elements", "qr_init_posterior", "qr_filter_elements",
+__all__ = ["pit_filter_elements", "pit_filter_elements_plain",
+           "pit_scan", "pit_scan_plain", "pit_filter_assemble",
+           "pit_filter_assemble_plain", "pit_from_stats", "pit_filter",
+           "pit_smoother_elements", "pit_smoother_elements_plain",
+           "pit_smoother_assemble", "pit_smoother_assemble_plain",
+           "pit_smoother", "pit_filter_smoother", "SCAN_ASSOCIATIVE",
+           "qr_generic_elements", "qr_init_posterior", "qr_filter_elements",
            "qr_filter_elements_plain", "qr_combine_filter",
            "qr_combine_smoother", "qr_scan", "qr_scan_plain",
            "pit_qr_from_stats", "qr_filter_assemble",
@@ -52,6 +74,305 @@ def _gram(U):
 
 def _bcast(M, T):
     return M.expand((T,) + M.shape)
+
+
+# Name of the ROADMAP row that ports the log-depth associative scan.
+SCAN_ASSOCIATIVE = "ROADMAP Queue 2, 'scan_impl=\"associative\"'"
+
+
+def _mv(M, v):
+    """Batched matrix-vector product (..., i, j) x (..., j)."""
+    return torch.einsum("...kl,...l->...k", M, v)
+
+
+def _check_scan_impl(scan_impl: str) -> None:
+    if scan_impl == "associative":
+        raise NotImplementedError(
+            "scan_impl='associative' (the log-depth associative scan) is "
+            f"not ported to dfm_tpu_torch yet: {SCAN_ASSOCIATIVE}; "
+            "scan_impl='blocked' runs")
+    if scan_impl != "blocked":
+        raise ValueError(f"unknown scan_impl {scan_impl!r}")
+
+
+def _filter_elements(stats: ObsStats, A, Q, mu0, P0):
+    """Covariance-form elements (A, b, C, eta, J) from the info-form
+    statistics, by the push-through solves
+        A_t = (I + Q C_t)^{-1} F        b_t = Q (I + C_t Q)^{-1} bobs_t
+        C_t = (I + Q C_t)^{-1} Q        eta_t = F' (I + C_t Q)^{-1} bobs_t
+        J_t = F' (I + C_t Q)^{-1} C_t F
+    and at t = 0 the first posterior from (mu0, P0) with A_0 = 0, eta_0 =
+    0, J_0 = 0.  The plain twin of ``pit_filter_elements``."""
+    T, k = stats.b.shape
+    dt, dev = stats.b.dtype, stats.b.device
+    I_k = torch.eye(k, dtype=dt, device=dev)
+    C_t = stats.C if stats.C.ndim == 3 else _bcast(stats.C, T)
+    bobs = stats.b
+    M = I_k + torch.einsum("kl,tlm->tkm", Q, C_t)           # I + Q C_t
+    A_el = torch.linalg.solve(M, _bcast(A, T))
+    C_el = sym(torch.linalg.solve(M, _bcast(Q, T)))
+    N_ = I_k + torch.einsum("tkl,lm->tkm", C_t, Q)          # I + C_t Q
+    Ninv_b = torch.linalg.solve(N_, bobs[..., None])[..., 0]
+    b_el = torch.einsum("kl,tl->tk", Q, Ninv_b)
+    eta_el = torch.einsum("lk,tl->tk", A, Ninv_b)
+    NinvC = torch.linalg.solve(N_, C_t)
+    J_el = sym(torch.einsum("lk,tlm,mn->tkn", A, NinvC, A))
+    C0 = C_t[0]
+    b0 = mu0 + P0 @ torch.linalg.solve(I_k + C0 @ P0, bobs[0] - C0 @ mu0)
+    A_el[0] = 0.0
+    b_el[0] = b0
+    C_el[0] = sym(torch.linalg.solve(I_k + P0 @ C0, P0))
+    eta_el[0] = 0.0
+    J_el[0] = 0.0
+    return (A_el, b_el, C_el, eta_el, J_el)
+
+
+pit_filter_elements_plain = _filter_elements
+
+
+def _pit_launch(mode: int, dt, ins, outs, n: int, k: int,
+                c_stride: int = 0):
+    ins = list(ins) + [None] * (7 - len(ins))
+    outs = list(outs) + [None] * (5 - len(outs))
+    kernels.launch("pit_elements", dt, mode, *ins, *outs, n, k, c_stride)
+
+
+def pit_filter_elements(stats: ObsStats, A, Q, mu0, P0):
+    """The filter elements (A, b, C, eta, J), (T, k, k) / (T, k) each.
+    Kernel pit_elements (mode 0) for CUDA tensors."""
+    b = stats.b
+    if b.device.type == "cpu":
+        return _filter_elements(stats, A, Q, mu0, P0)
+    T, k = b.shape
+    dt, dev = b.dtype, b.device
+    kernels.check_k("pit_elements", k, kernels.WIDE_KMAX)
+    static_C = stats.C.ndim == 2
+    _check(dt, dev, ("b", b, (T, k)),
+           ("C", stats.C, (k, k) if static_C else (T, k, k)),
+           ("A", A, (k, k)), ("Q", Q, (k, k)), ("mu0", mu0, (k,)),
+           ("P0", P0, (k, k)))
+    outs = tuple(torch.empty(s, dtype=dt, device=dev)
+                 for s in ((T, k, k), (T, k), (T, k, k), (T, k), (T, k, k)))
+    _pit_launch(0, dt, (b, stats.C, A, Q, mu0, P0), outs, T, k,
+                0 if static_C else k * k)
+    return outs
+
+
+def _combine_filter(ei, ej):
+    """Associative filtering product (ei earlier, ej later), batched over
+    leading axes:
+        D = (1 + jitter) I + C_i J_j,   E = (1 + jitter) I + J_j C_i
+        A = A_j D^{-1} A_i,   b = A_j D^{-1} (b_i + C_i eta_j) + b_j
+        C = sym(A_j D^{-1} C_i A_j' + C_j)
+        eta = A_i' E^{-1} (eta_j - J_j b_i) + eta_i
+        J = sym(A_i' E^{-1} J_j A_i + J_i)
+    with C_i and J_j symmetrized on entry (the JAX package's f32 rules)."""
+    Ai, bi, Ci, etai, Ji = ei
+    Aj, bj, Cj, etaj, Jj = ej
+    k = Ai.shape[-1]
+    Ci, Jj = sym(Ci), sym(Jj)
+    jit_eye = (1.0 + default_jitter(Ai.dtype)) * torch.eye(
+        k, dtype=Ai.dtype, device=Ai.device)
+    D = jit_eye + Ci @ Jj
+    AjD = torch.linalg.solve(D.transpose(-1, -2),
+                             Aj.transpose(-1, -2)).transpose(-1, -2)
+    A = AjD @ Ai
+    b = _mv(AjD, bi + _mv(Ci, etaj)) + bj
+    C = sym(AjD @ Ci @ Aj.transpose(-1, -2) + Cj)
+    E = jit_eye + Jj @ Ci
+    AiT = Ai.transpose(-1, -2)
+    EinvRHS = torch.linalg.solve(E, (etaj - _mv(Jj, bi))[..., None])
+    eta = _mv(AiT, EinvRHS[..., 0]) + etai
+    J = sym(AiT @ torch.linalg.solve(E, Jj @ Ai) + Ji)
+    return (A, b, C, eta, J)
+
+
+def _combine_smoother(elater, eearlier):
+    """Compose x_t = E x_{t+1} + g + noise(L) elements: the earlier
+    element is the outer map, E = E_e E_l, g = E_e g_l + g_e, L =
+    sym(E_e L_l E_e' + L_e).  Argument order (later, earlier), as
+    ``blocked_scan(..., reverse=True)`` calls it."""
+    El, gl, Ll = elater
+    Ee, ge, Le = eearlier
+    E = Ee @ El
+    g = _mv(Ee, gl) + ge
+    L = sym(Ee @ Ll @ Ee.transpose(-1, -2) + Le)
+    return (E, g, L)
+
+
+def pit_scan_plain(elems: tuple, smoother: bool = False) -> tuple:
+    """Plain twin of ``pit_scan``: ``blocked_scan`` with the covariance-form
+    combines."""
+    if smoother:
+        return blocked_scan(_combine_smoother, elems, reverse=True)
+    return blocked_scan(_combine_filter, elems)
+
+
+def pit_scan(elems: tuple, smoother: bool = False) -> tuple:
+    """Inclusive prefix of the filter elements (A, b, C, eta, J), or
+    inclusive suffix of the smoother elements (E, g, L).  Kernel pit_scan
+    for CUDA tensors (one call: four launches, one a phase of
+    ``blocked_scan``); the inputs are left as they are."""
+    if elems[0].device.type == "cpu":
+        return pit_scan_plain(elems, smoother)
+    T, k = elems[1].shape
+    dt, dev = elems[0].dtype, elems[0].device
+    kernels.check_k("pit_scan", k, kernels.WIDE_KMAX)
+    # Contiguous copies, scanned in place.
+    out = tuple(x.clone(memory_format=torch.contiguous_format)
+                for x in elems)
+    shapes = ((T, k, k), (T, k), (T, k, k), (T, k), (T, k, k))
+    _check(dt, dev, *((f"elems[{i}]", x, s)
+                      for i, (x, s) in enumerate(zip(out, shapes))))
+    S = block_size(T)
+    per = (2 * k * k + k) if smoother else (3 * k * k + 2 * k)
+    scratch = torch.empty((T // S) * per, dtype=dt, device=dev)
+    ptrs = list(out) + [None] * (5 - len(out))
+    kernels.launch("pit_scan", dt, int(smoother), *ptrs, scratch, T, S, k)
+    return out
+
+
+def pit_filter_assemble_plain(x_f, P_f, C, A, Q, mu0, P0):
+    """Plain twin of ``pit_filter_assemble``."""
+    T, k = x_f.shape
+    x_pred = torch.cat([mu0[None], x_f[:-1] @ A.T], dim=0)
+    P_pred = torch.cat(
+        [P0[None], sym(torch.einsum("ij,tjl,kl->tik", A, P_f[:-1], A)
+                       + Q[None])], dim=0)
+    C_t = C if C.ndim == 3 else _bcast(C, T)
+    Lp = psd_cholesky(P_pred)
+    G = torch.eye(k, dtype=x_f.dtype, device=x_f.device)[None] + \
+        torch.einsum("tlk,tlm,tmn->tkn", Lp, C_t, Lp)
+    return x_pred, P_pred, chol_logdet(psd_cholesky(G, jitter=0.0))
+
+
+def pit_filter_assemble(x_f, P_f, C, A, Q, mu0, P0):
+    """The moments after the filter scan: (x_pred, P_pred, logdetG), with
+    P_pred,t = sym(A P_f,t-1 A' + Q) (P_pred,0 = P0), Lp_t the jittered
+    Cholesky factor of P_pred,t and logdetG_t = log|I + Lp_t' C_t Lp_t|
+    from an unjittered Cholesky.  Kernel pit_elements (mode 1) for CUDA
+    tensors."""
+    if x_f.device.type == "cpu":
+        return pit_filter_assemble_plain(x_f, P_f, C, A, Q, mu0, P0)
+    T, k = x_f.shape
+    dt, dev = x_f.dtype, x_f.device
+    kernels.check_k("pit_elements", k, kernels.WIDE_KMAX)
+    static_C = C.ndim == 2
+    _check(dt, dev, ("x_f", x_f, (T, k)), ("P_f", P_f, (T, k, k)),
+           ("C", C, (k, k) if static_C else (T, k, k)), ("A", A, (k, k)),
+           ("Q", Q, (k, k)), ("mu0", mu0, (k,)), ("P0", P0, (k, k)))
+    outs = tuple(torch.empty(s, dtype=dt, device=dev)
+                 for s in ((T, k), (T, k, k), (T,)))
+    _pit_launch(1, dt, (x_f, P_f, C, A, Q, mu0, P0), outs, T, k,
+                0 if static_C else k * k)
+    return outs
+
+
+def pit_from_stats(stats: ObsStats, p: SSMParams, scan_impl: str = "blocked"):
+    """Element build + prefix product + moment and logdet assembly from the
+    statistics: (x_pred, P_pred, x_filt, P_filt, logdetG).  The innovation
+    quadratic is the caller's (it needs the panel).  Shared by
+    ``pit_filter`` and the mixed-frequency E-step (``time_scan="pit"``)."""
+    _check_scan_impl(scan_impl)
+    elems = pit_filter_elements(stats, p.A, p.Q, p.mu0, p.P0)
+    pref = pit_scan(elems)
+    x_f, P_f = pref[1], pref[2]
+    x_pred, P_pred, logdetG = pit_filter_assemble(
+        x_f, P_f, stats.C, p.A, p.Q, p.mu0, p.P0)
+    return x_pred, P_pred, x_f, P_f, logdetG
+
+
+def pit_filter(Y: torch.Tensor, p: SSMParams,
+               mask: Optional[torch.Tensor] = None,
+               scan_impl: str = "blocked") -> FilterResult:
+    """Covariance-form parallel-in-time filter: the contract of
+    ``info_filter`` (exact loglik, predicted and filtered moments).
+    ``scan_impl``: "blocked" (the only one ported; "associative" raises)."""
+    p = p.to(dtype=Y.dtype)
+    stats = obs_stats(Y, p.Lam, p.R, mask=mask)
+    x_pred, P_pred, x_f, P_f, logdetG = pit_from_stats(stats, p, scan_impl)
+    quad_R, U = loglik_terms_local(Y, p.Lam, p.R, x_pred, mask)
+    ll = loglik_from_terms(stats, logdetG, P_f, quad_R, U)
+    return FilterResult(x_pred, P_pred, x_f, P_f, ll)
+
+
+def _smoother_elements(kf: FilterResult, A):
+    """Affine smoothing elements (E, g, L) and the gains J (T-1, k, k):
+    J_t = P_f,t A' P_pred,t+1^{-1} (jittered Cholesky), E_t = J_t, g_t =
+    x_f,t - J_t x_pred,t+1, L_t = sym(P_f,t - J_t P_pred,t+1 J_t'); the
+    last element anchors at T-1 (E = 0, g = x_f, L = P_f).  The plain
+    twin of ``pit_smoother_elements``."""
+    T, k = kf.x_filt.shape
+    Pp_next = kf.P_pred[1:]
+    L = psd_cholesky(Pp_next)
+    APf = torch.einsum("ij,tjk->tik", A, kf.P_filt[:-1])
+    J = chol_solve(L, APf).transpose(-1, -2)
+    E = torch.cat([J, torch.zeros((1, k, k), dtype=J.dtype,
+                                  device=J.device)], dim=0)
+    g_head = kf.x_filt[:-1] - torch.einsum("tkl,tl->tk", J, kf.x_pred[1:])
+    g = torch.cat([g_head, kf.x_filt[-1:]], dim=0)
+    L_head = sym(kf.P_filt[:-1]
+                 - torch.einsum("tkl,tlm,tnm->tkn", J, Pp_next, J))
+    L_el = torch.cat([L_head, kf.P_filt[-1:]], dim=0)
+    return (E, g, L_el), J
+
+
+pit_smoother_elements_plain = _smoother_elements
+
+
+def pit_smoother_elements(kf: FilterResult, A):
+    """The smoothing elements (E, g, L) and the gains J = E[:-1].  Kernel
+    pit_elements (mode 2) for CUDA tensors."""
+    x_filt = kf.x_filt
+    if x_filt.device.type == "cpu":
+        return _smoother_elements(kf, A)
+    T, k = x_filt.shape
+    dt, dev = x_filt.dtype, x_filt.device
+    kernels.check_k("pit_elements", k, kernels.WIDE_KMAX)
+    _check(dt, dev, ("x_pred", kf.x_pred, (T, k)),
+           ("P_pred", kf.P_pred, (T, k, k)), ("x_filt", x_filt, (T, k)),
+           ("P_filt", kf.P_filt, (T, k, k)), ("A", A, (k, k)))
+    E, g, L = (torch.empty(s, dtype=dt, device=dev)
+               for s in ((T, k, k), (T, k), (T, k, k)))
+    _pit_launch(2, dt, (kf.x_pred, kf.P_pred, x_filt, kf.P_filt, A),
+                (E, g, L), T, k)
+    return (E, g, L), E[:T - 1]
+
+
+def pit_smoother_assemble_plain(P_sm, J):
+    """Plain twin of ``pit_smoother_assemble``."""
+    return torch.cat([torch.zeros_like(P_sm[:1]),
+                      torch.einsum("tij,tkj->tik", P_sm[1:], J)], dim=0)
+
+
+def pit_smoother_assemble(P_sm, J):
+    """P_lag with P_lag,t = P_sm,t J_{t-1}' and P_lag,0 = 0.  Kernel
+    pit_elements (mode 3) for CUDA tensors."""
+    if P_sm.device.type == "cpu":
+        return pit_smoother_assemble_plain(P_sm, J)
+    T, k = P_sm.shape[0], P_sm.shape[1]
+    dt, dev = P_sm.dtype, P_sm.device
+    kernels.check_k("pit_elements", k, kernels.WIDE_KMAX)
+    _check(dt, dev, ("P_sm", P_sm, (T, k, k)), ("J", J, (T - 1, k, k)))
+    P_lag = torch.empty((T, k, k), dtype=dt, device=dev)
+    _pit_launch(3, dt, (P_sm, J), (P_lag,), T, k)
+    return P_lag
+
+
+def pit_smoother(kf: FilterResult, p: SSMParams,
+                 scan_impl: str = "blocked") -> SmootherResult:
+    """Covariance-form parallel-in-time RTS smoother: the contract of
+    ``rts_smoother``."""
+    _check_scan_impl(scan_impl)
+    p = p.to(dtype=kf.x_filt.dtype)
+    elems, J = pit_smoother_elements(kf, p.A)
+    suf = pit_scan(elems, smoother=True)
+    return SmootherResult(suf[1], suf[2], pit_smoother_assemble(suf[2], J))
+
+
+def pit_filter_smoother(Y, p, mask=None):
+    kf = pit_filter(Y, p, mask=mask)
+    return kf, pit_smoother(kf, p)
 
 
 def qr_generic_elements(stats: ObsStats, A, Q):

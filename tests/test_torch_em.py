@@ -156,19 +156,13 @@ def test_em_progress_and_noise_floor(lls, tol, floor, monotone):
             == jem.noise_floor_for(jnp.float32, 5e6))
 
 
-@pytest.mark.parametrize("flt", ["pit"])
-def test_unported_engines_raise_naming_the_roadmap(flt):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tem.EMConfig(filter=flt)
-
-
-@pytest.mark.parametrize("flt", ["ss", "pit_qr", "lowrank"])
+@pytest.mark.parametrize("flt", ["ss", "pit", "pit_qr", "lowrank"])
 def test_ported_engines_construct_and_match_one_e_step(panel, flt):
-    """Unmasked for ss (masked would fall back to info), masked for
+    """Unmasked for ss (masked would fall back to info), masked for pit,
     pit_qr and lowrank (auto rank: r = k = 3); tau = 12 keeps T = 60
     above the ss fallback (2 tau + 4)."""
     p, Y, W, Ynan, _ = panel
-    masked = flt in ("pit_qr", "lowrank")
+    masked = flt in ("pit", "pit_qr", "lowrank")
     Yin = np.where(W > 0, Ynan, 0.0) if masked else Y
     cfg_t = tem.EMConfig(filter=flt, tau=12)
     cfg_j = jem.EMConfig(filter=flt, tau=12)
@@ -185,12 +179,13 @@ def test_ported_engines_construct_and_match_one_e_step(panel, flt):
     assert float(dt_) == pytest.approx(float(dj), abs=1e-14)
 
 
-@pytest.mark.parametrize("flt", ["dense", "info", "ss", "pit_qr", "lowrank"])
+@pytest.mark.parametrize("flt", ["dense", "info", "ss", "pit", "pit_qr",
+                                 "lowrank"])
 def test_engine_function_pairs_match_the_reference(flt):
     """filter_fn / smoother_fn / report_pair name the same routines as the
     JAX package's (the reporting pair: pit_qr and lowrank through
-    themselves, ss through the exact info pair); lowrank's are partials
-    that carry the rank."""
+    themselves, ss and pit through the exact info pair); lowrank's are
+    partials that carry the rank."""
     cfg_t = tem.EMConfig(filter=flt, rank=2)
     cfg_j = jem.EMConfig(filter=flt, rank=2)
 

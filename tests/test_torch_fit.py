@@ -102,10 +102,21 @@ def test_device_init_fit_up_to_column_sign():
 
 
 def test_unported_engine_raises_instead_of_switching():
+    """filter="pit" raised while the engine was unported; now it runs the
+    covariance-form engine itself (no switch to another engine) and
+    matches the JAX fit."""
     Y = _panel(40, 30, 2, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dtt.fit(dtt.DynamicFactorModel(2), Y, max_iters=2,
-                backend=dtt.TorchBackend(device="cpu", filter="pit"))
+    kw = dict(max_iters=4, tol=0.0)
+    rj = jfit(JModel(2), Y, backend=TPUBackend(dtype=np.float64,
+                                               filter="pit"), **kw)
+    rt = dtt.fit(dtt.DynamicFactorModel(2), Y, **kw,
+                 backend=dtt.TorchBackend(device="cpu", dtype=torch.float64,
+                                          filter="pit"))
+    assert rt.filter == rj.filter == "pit"
+    np.testing.assert_allclose(rt.logliks, rj.logliks, rtol=RTOL)
+    s = _signs(rt.params.Lam, rj.params.Lam)
+    close(rt.params.Lam * s, rj.params.Lam, RTOL)
+    close(rt.factors * s, rj.factors, RTOL)
 
 
 def test_unmasked_wide_panel_resolves_to_ss_and_matches():

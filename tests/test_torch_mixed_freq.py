@@ -278,7 +278,7 @@ def test_api_fit_routes_mixed_freq_spec_like_jax():
 
 def test_mf_routes_and_options_that_raise():
     Y, W = _panel("m10")
-    for ts, match in (("pit", "item 10"), ("pit_qr", "QR past 10")):
+    for ts, match in (("pit_qr", "QR past 10"),):
         spec = _specs("m10", ts)[1]
         with pytest.raises(NotImplementedError, match=match):
             dtt.fit(spec, Y, mask=W, backend=CPU, max_iters=2)

@@ -163,6 +163,9 @@ def test_cpu_path_launches_no_kernel():
     res = dtt.fit(dtt.SVSpec(n_factors=2, n_particles=16, n_smooth_draws=4),
                   Y0, max_iters=1, backend=dtt.TorchBackend(device="cpu"))
     assert res.h_smooth.shape == (40, 2) and len(res.logliks) == 2
+    res = dtt.fit(dtt.DynamicFactorModel(2), Y, max_iters=2, tol=0.0,
+                  backend=dtt.TorchBackend(device="cpu", filter="pit"))
+    assert res.filter == "pit" and res.n_iters == 2
     assert set(kernels.LAUNCHES) == {"quad_local", "obs_stats", "mstep_rows",
                                      "info_scan", "rts_smoother",
                                      "ss_cov_path", "affine_scan",
@@ -178,5 +181,6 @@ def test_cpu_path_launches_no_kernel():
                                      "loading_filter", "loading_smoother",
                                      "obs_stats_wide", "info_scan_wide",
                                      "rts_smoother_wide", "quad_local_wide",
-                                     "sv_rbpf", "sv_ffbs"}
+                                     "sv_rbpf", "sv_ffbs", "pit_elements",
+                                     "pit_scan"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())

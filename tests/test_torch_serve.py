@@ -186,8 +186,7 @@ def test_host_guards_raise_before_device_work(panel, fits):
         dtt.open_session("nope", panel[:40], backend=_tb())
 
 
-@pytest.mark.parametrize("kw", [dict(robust=True), dict(filter="pit")],
-                         ids=["robust", "pit"])
+@pytest.mark.parametrize("kw", [dict(robust=True)], ids=["robust"])
 def test_unported_options_raise(panel, fits, kw):
     _, rt, _ = fits("info", False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
