@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Bring-up check of the PyTorch/CUDA port (dfm_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--phases headline,session,...]
+
+``--phases`` takes a comma list of phase groups (all by default, the
+acceptance run): headline (phases 2-5), session (6-8), batched (9-13),
+fleet (14-18), lowrank (19-23), tvl (24-26), mf (27-30), sv (31-33), pit
+(34-36), dense (37-39), wide (40-43).  The setup, the build and the final
+lines always run.
 
 Phases, each of which raises (and the script exits non-zero) on failure:
 
@@ -251,11 +257,53 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    and T = 1, 2, 3, 7, 97 (k = 3) on panels with a fully missing step 0
    and a step observing fewer than k series; k = 33 must raise
    NotImplementedError in every launcher.
-36. long-T: 16-iteration ``info``, ``pit`` and ``pit_qr`` fits at T =
-   4,000, N = 24, k = 2 (f32): their walls.
+36. long-T: 16-iteration ``info``, ``pit``, ``pit_qr``, ``dense`` and
+   ``auto`` (which must resolve to ``dense``) fits at T = 4,000, N = 24,
+   k = 2 (f32): their walls.
+
+37. K15 (``csrc/dense_filter.cu``, the dense small-N filter) against its
+   plain twin at (T, N, k) = (500, 31, 10) masked (the widest panel
+   ``auto`` routes dense), (4,000, 24, 2) (bench/longt.py's largest
+   point) and (1,000, 31, 10) masked (a session's capacity), f64 and f32
+   (the TOL rule), timed warm and cold beside the plain twin, the bound
+   and K4's latency floor at the same (T, k); then error checks at k =
+   1, 2, 3, 10, 16, 17, 25, 32 with N in {k, 31, 32} on 40-step panels
+   with step 0 fully missing and a step observing fewer than k series;
+   N = 33 and k = 33 must raise NotImplementedError.
+38. dense fit: ``fit`` (auto -> dense) on the masked headline panel's
+   first 31 series, 20 iterations, tol = 0, f32, the reporting smooth and
+   a 12-step forecast: exactly 21 K15, 20 K3 and 21 K4-backward launches
+   and no other kernel, one read a chunk; EM it/s, the wall; then
+   ``fit(fused=True)`` on its first 480 rows and a dense session on it at
+   capacity 1,000 (10 queries of 2 rows, one read and no sync a query,
+   p50 and p99); the iteration's breakdown (K15, K4-backward and K3
+   against the whole ``em_step``).
+39. dense reference: ``fit(auto)`` at 40 x 20, k = 3, masked, and a dense
+   ring session (120 x 20), card f64 against CPU f64 within 1e-10.
+40. wide kernels: K3-wide (``csrc/mstep_rows.cu``), K5a-wide
+   (``csrc/ss_cov_path.cu``) and K5b-wide (``csrc/affine_scan.cu``), the
+   kernels the lone wrappers take at 16 < k <= 32, against their plain
+   twins on the headline panel simulated at k = 25 (K3 masked, K5 on the
+   fully observed twin at the tau ``fit`` picks and at 192), f64 and f32
+   (the TOL rule), timed warm and cold beside the plain twin, with the
+   bound and K4's latency floor at k = 25; then error checks through
+   the wrappers at k = 1, 2, 3, 10, 16, 17, 25, 32 on 120 x 400 panels;
+   k = 33 must raise NotImplementedError in all three.
+41. generic-k fits at k = 25 on the headline panel, 20 iterations, tol =
+   0, f32: masked ``auto`` (-> info), masked ``pit``, masked ``lowrank``
+   (rank 8) and unmasked ``auto`` (-> ss): the wide kernels every
+   iteration and no k <= 16 kernel of a wide entry point, one read a
+   chunk, EM it/s and the wall; then a masked info session at k = 25
+   (capacity 1,000, 10 queries of 2 rows, one read a query).
+42. generic-k reference: ``fit`` at 120 x 80, k = 20, masked (auto ->
+   info) and unmasked (``filter="ss"``), card f64 against CPU f64 within
+   1e-10.
+43. contract: the loglik contract of phase 5 for the dense fit (k = 10,
+   N = 31) and the k = 25 masked info and unmasked ss fits.
 
 Output: one JSON line per kernel and dtype, one per fit, contract check,
-ring case, session, batched, fleet, TVL, MF, SV and K14 phase, then the
+ring case, session, batched, fleet, TVL, MF, SV, K14, dense and wide
+phase, the seconds of each phase group and of the script, then the
 {"kernels": [...]} summary, the card line and, last, {"ok": true,
 "device": {...}}.
 """
@@ -297,7 +345,8 @@ from dfm_tpu_torch.ssm import info_filter as inf
 from dfm_tpu_torch.ssm import lowrank_filter as lr
 from dfm_tpu_torch.ssm import parallel_filter as pf
 from dfm_tpu_torch.ssm import steady as ss
-from dfm_tpu_torch.ssm.kalman import rts_smoother, rts_smoother_plain
+from dfm_tpu_torch.ssm.kalman import (kalman_filter, kalman_filter_plain,
+                                      rts_smoother, rts_smoother_plain)
 from dfm_tpu_torch.ssm.params import FilterResult, SSMParams
 from dfm_tpu_torch.utils import data, dgp
 
@@ -343,7 +392,9 @@ L2_FLUSH_BYTES = 256 * 2**20                   # > 5x the H100's 50 MB L2
 # for f32 argmax near-ties (``ffbs_compare``).  K14-el, a step's LU
 # solves, Cholesky factorizations and products, takes 1e-4 / 1e-10 as
 # qr_elements; K14-scan, ~2 sqrt(T) dependent combines with general
-# solves, 1e-4 / 1e-9 as the other scans.
+# solves, 1e-4 / 1e-9 as the other scans.  K15, a T-step recursion with
+# an N x N factorization a step, takes 1e-4 / 1e-9 as K4; the wide K3,
+# K5a and K5b their k <= 16 kernels' tolerances.
 TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "mstep_rows": 1e-4, "info_scan": 1e-4,
                        "rts_smoother": 1e-4, "ss_cov_path": 1e-4,
@@ -359,7 +410,9 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "obs_stats_wide": 1e-5, "quad_local_wide": 1e-5,
                        "info_scan_wide": 1e-4, "rts_smoother_wide": 1e-4,
                        "sv_rbpf": 1e-4, "sv_ffbs": 0.0,
-                       "pit_elements": 1e-4, "pit_scan": 1e-4},
+                       "pit_elements": 1e-4, "pit_scan": 1e-4,
+                       "dense_filter": 1e-4, "mstep_rows_wide": 1e-4,
+                       "ss_cov_path_wide": 1e-4, "affine_scan_wide": 1e-4},
        torch.float64: {"quad_local": 1e-10, "obs_stats": 1e-10,
                        "mstep_rows": 1e-9, "info_scan": 1e-9,
                        "rts_smoother": 1e-9, "ss_cov_path": 1e-9,
@@ -375,7 +428,9 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "obs_stats_wide": 1e-10, "quad_local_wide": 1e-10,
                        "info_scan_wide": 1e-9, "rts_smoother_wide": 1e-9,
                        "sv_rbpf": 1e-10, "sv_ffbs": 0.0,
-                       "pit_elements": 1e-10, "pit_scan": 1e-9}}
+                       "pit_elements": 1e-10, "pit_scan": 1e-9,
+                       "dense_filter": 1e-9, "mstep_rows_wide": 1e-9,
+                       "ss_cov_path_wide": 1e-9, "affine_scan_wide": 1e-9}}
 # The TPU routine each kernel replaces.
 REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "obs_stats": "dfm_tpu/ssm/info_filter.py:69",
@@ -409,7 +464,11 @@ REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "sv_rbpf": "dfm_tpu/models/sv.py:103",
             "sv_ffbs": "dfm_tpu/models/sv.py:297",
             "pit_elements": "dfm_tpu/ssm/parallel_filter.py:70",
-            "pit_scan": "dfm_tpu/ssm/parallel_filter.py:109"}
+            "pit_scan": "dfm_tpu/ssm/parallel_filter.py:109",
+            "dense_filter": "dfm_tpu/ssm/kalman.py:43",
+            "mstep_rows_wide": "dfm_tpu/estim/em.py:163",
+            "ss_cov_path_wide": "dfm_tpu/ssm/steady.py:124",
+            "affine_scan_wide": "dfm_tpu/ops/scan.py:39"}
 # The variant of each kernel whose f32 record goes into the summary line.
 SUMMARY_VARIANT = {"quad_local": "masked", "obs_stats": "masked",
                    "mstep_rows": "masked", "info_scan": "masked",
@@ -783,6 +842,8 @@ def compare(c: dict, dtype, ref64=None) -> tuple:
                 f"{scale:.3e} + {F32_NOISE_MULT} x max|plain - plain_f64| "
                 f"{noise:.3e}")
         abs_err = max(abs_err, e)
+        if e / scale > rel_err or i == 0:
+            c["worst_output"] = i        # the output at max_rel_err
         rel_err = max(rel_err, e / scale)
         plain_err = max(plain_err, noise / scale)
     return abs_err, rel_err, tol, ref, plain_err
@@ -792,11 +853,12 @@ def nbytes_of(tensors) -> int:
     return sum(x.numel() * x.element_size() for x in tensors)
 
 
-def fit_tau(seed: int) -> int:
+def fit_tau(seed: int, k: int = K, offset: int = 1) -> int:
     """The tau that ``fit`` picks for the unmasked headline panel (its
-    init, then ``auto_tau``): a fit with no EM iteration reports it."""
-    _, _, Yfull, _ = panel(seed + 1)
-    model = dt.DynamicFactorModel(n_factors=K, dynamics="ar1")
+    init, then ``auto_tau``; the panel simulated at k factors from seed +
+    ``offset``): a fit with no EM iteration reports it."""
+    _, _, Yfull, _ = panel(seed + offset, K_=k)
+    model = dt.DynamicFactorModel(n_factors=k, dynamics="ar1")
     res = dt.fit(model, Yfull, backend=dt.TorchBackend(), max_iters=0)
     if res.filter != "ss":
         raise AssertionError(f"unmasked headline fit resolved to "
@@ -939,7 +1001,10 @@ OWN_FIT = {"quad_local": "masked", "obs_stats": "masked",
            "obs_stats_wide": "mf seq", "info_scan_wide": "mf seq",
            "quad_local_wide": "mf seq", "rts_smoother_wide": "mf seq",
            "sv_rbpf": "sv fit", "sv_ffbs": "sv fit",
-           "pit_elements": "masked pit", "pit_scan": "masked pit"}
+           "pit_elements": "masked pit", "pit_scan": "masked pit",
+           "dense_filter": "dense", "mstep_rows_wide": "k25 masked auto",
+           "ss_cov_path_wide": "k25 unmasked auto",
+           "affine_scan_wide": "k25 unmasked auto"}
 
 
 def fit_phase(seed: int) -> dict:
@@ -1034,40 +1099,59 @@ def reference_phase(seed: int) -> None:
     within 1e-10."""
     Ynan, _, Yfull, _ = panel(seed + 3, T_=120, N_=80, K_=3)
     _, _, Ylong, _ = panel(seed + 4, T_=150, N_=80, K_=3)
-    model = dt.DynamicFactorModel(n_factors=3, dynamics="ar1")
     for label, Y, flt, tol in (("masked", Ynan, "info", 1e-9),
                                ("unmasked", Yfull, "info", 1e-9),
                                ("unmasked ss", Ylong, "ss", 1e-10),
                                ("masked pit_qr", Ynan, "pit_qr", 1e-10),
                                ("masked pit", Ynan, "pit", 1e-10)):
-        res = {}
-        for dev in ("cuda", "cpu"):
-            b = dt.TorchBackend(device=dev, dtype=torch.float64, filter=flt)
-            kernels.reset_launches()
-            r = dt.fit(model, Y, backend=b, max_iters=10, tol=0.0)
-            res[dev] = (r, dt.forecast(r, 12)[0], dict(kernels.LAUNCHES))
-        (rg, yg, lg), (rc, yc, _) = res["cuda"], res["cpu"]
-        own = {"ss": ("ss_cov_path", "affine_scan"),
-               "pit_qr": ("qr_elements", "qr_scan"),
-               "pit": ("pit_elements", "pit_scan")}.get(flt, ())
-        if any(lg[n] == 0 for n in own):
-            raise AssertionError(f"reference {label}: the card fit did not "
-                                 f"launch {own} (launches {lg})")
-        errs = {}
-        for name, g, c in (("logliks", rg.logliks, rc.logliks),
-                           ("Lam", rg.params.Lam, rc.params.Lam),
-                           ("R", rg.params.R, rc.params.R),
-                           ("A", rg.params.A, rc.params.A),
-                           ("factors", rg.factors, rc.factors),
-                           ("y_fore", yg, yc)):
-            errs[name] = float(np.abs(g - c).max() / np.abs(c).max())
-        emit({"reference": label, "filter": rg.filter, "tau": rg.tau,
-              "shape": [Y.shape[0], Y.shape[1], 3], "max_rel_err": errs,
-              "tol": tol})
-        bad = {n: e for n, e in errs.items() if not e <= tol}
-        if bad:
-            raise AssertionError(f"card fit disagrees with the CPU fit "
-                                 f"({label}): {bad}")
+        reference_fit(label, Y, 3, flt, tol)
+
+
+# The kernels a reference fit on the card must launch, by engine.
+REFERENCE_OWN = {"ss": ("ss_cov_path", "affine_scan"),
+                 "pit_qr": ("qr_elements", "qr_scan"),
+                 "pit": ("pit_elements", "pit_scan"),
+                 "dense": ("dense_filter",)}
+
+
+def reference_fit(label: str, Y, k: int, flt: str, tol: float,
+                  engine=None) -> None:
+    """One 10-iteration fit of ``Y`` at k factors with ``filter=flt`` on
+    the card in f64 against the same fit on the CPU in f64 (the plain
+    twins): logliks, params, factors and forecasts within ``tol``
+    relative.  The card fit must resolve to ``engine`` (default ``flt``)
+    and launch that engine's own kernels (``REFERENCE_OWN``; at k > KMAX
+    the wide kernels of ss)."""
+    engine = engine or flt
+    model = dt.DynamicFactorModel(n_factors=k, dynamics="ar1")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        b = dt.TorchBackend(device=dev, dtype=torch.float64, filter=flt)
+        kernels.reset_launches()
+        r = dt.fit(model, Y, backend=b, max_iters=10, tol=0.0)
+        res[dev] = (r, dt.forecast(r, 12)[0], dict(kernels.LAUNCHES))
+    (rg, yg, lg), (rc, yc, _) = res["cuda"], res["cpu"]
+    own = tuple(kernels.route(n, k) if n in kernels.WIDE else n
+                for n in REFERENCE_OWN.get(engine, ()))
+    if rg.filter != engine or any(lg[n] == 0 for n in own):
+        raise AssertionError(f"reference {label}: the card fit ran "
+                             f"{rg.filter!r}, not {engine!r}, or did not "
+                             f"launch {own} (launches {lg})")
+    errs = {}
+    for name, g, c in (("logliks", rg.logliks, rc.logliks),
+                       ("Lam", rg.params.Lam, rc.params.Lam),
+                       ("R", rg.params.R, rc.params.R),
+                       ("A", rg.params.A, rc.params.A),
+                       ("factors", rg.factors, rc.factors),
+                       ("y_fore", yg, yc)):
+        errs[name] = float(np.abs(g - c).max() / np.abs(c).max())
+    emit({"reference": label, "filter": rg.filter, "tau": rg.tau,
+          "shape": [Y.shape[0], Y.shape[1], k], "max_rel_err": errs,
+          "tol": tol})
+    bad = {n: e for n, e in errs.items() if not e <= tol}
+    if bad:
+        raise AssertionError(f"card fit disagrees with the CPU fit "
+                             f"({label}): {bad}")
 
 
 def contract_phase(seed: int) -> None:
@@ -1076,41 +1160,49 @@ def contract_phase(seed: int) -> None:
     filter, against the f64 trajectory's loglik of the same engine (same
     tau) at its 2-update params."""
     Ynan, W, Yfull, _ = panel(seed + 1)
-    dev = torch.device("cuda")
     for engine, masked in (("info", True), ("info", False), ("ss", False),
                            ("pit_qr", True), ("pit", True)):
-        Y = Ynan if masked else Yfull
-        Wm = W if masked else None
-        Z, _ = data.standardize(Y, mask=Wm)
-        Z = np.where(np.isfinite(Z), Z, 0.0)
-        with highest_precision():
-            p0 = pca_init_device(
-                torch.as_tensor(Z, dtype=torch.float64, device=dev), K)
-            cfg = EMConfig(filter=engine)
-            if engine == "ss":
-                cfg = EMConfig(filter="ss", tau=ss.auto_tau(p0))
-            lls = {}
-            for dtype in (torch.float32, torch.float64):
-                Yt = torch.as_tensor(Z, dtype=dtype, device=dev)
-                mt = (torch.as_tensor(Wm, dtype=dtype, device=dev)
-                      if masked else None)
-                pt = SSMParams.from_numpy(p0, dtype=dtype, device=dev)
-                ps, ll, _ = em_fit_scan(Yt, pt, 3, mask=mt, cfg=cfg)
-                lls[dtype] = (ps, ll.cpu().numpy())
-            ref = float(lls[torch.float64][1][2])
-            p2 = lls[torch.float32][0][1].to_numpy()
-            precise = inf.loglik_eval(
-                torch.as_tensor(Z, dtype=torch.float64, device=dev), p2,
-                mask=Wm, precise=True)
-        rel = abs(precise - ref) / abs(ref)
-        fast = abs(float(lls[torch.float32][1][2]) - ref) / abs(ref)
-        emit({"contract": f"{'masked' if masked else 'unmasked'} {engine}",
-              "tau": cfg.tau if engine == "ss" else None, "iter": 3,
-              "loglik_f64": ref, "rel_err_precise": rel,
-              "rel_err_fast": fast, "limit": 1e-5})
-        if not rel < 1e-5:
-            raise AssertionError(f"loglik contract broken ({engine}): "
-                                 f"{rel:.3e}")
+        loglik_contract(f"{'masked' if masked else 'unmasked'} {engine}",
+                        Ynan if masked else Yfull, W if masked else None, K,
+                        engine)
+
+
+def loglik_contract(label: str, Y, Wm, k: int, engine: str) -> None:
+    """The contract of ``contract_phase`` for one engine on the panel
+    ``Y`` (mask ``Wm`` or None) at k factors, from its device PCA init; ss
+    at ``auto_tau`` of that init."""
+    dev = torch.device("cuda")
+    masked = Wm is not None
+    Z, _ = data.standardize(Y, mask=Wm)
+    Z = np.where(np.isfinite(Z), Z, 0.0)
+    with highest_precision():
+        p0 = pca_init_device(
+            torch.as_tensor(Z, dtype=torch.float64, device=dev), k)
+        cfg = EMConfig(filter=engine)
+        if engine == "ss":
+            cfg = EMConfig(filter="ss", tau=ss.auto_tau(p0))
+        lls = {}
+        for dtype in (torch.float32, torch.float64):
+            Yt = torch.as_tensor(Z, dtype=dtype, device=dev)
+            mt = (torch.as_tensor(Wm, dtype=dtype, device=dev)
+                  if masked else None)
+            pt = SSMParams.from_numpy(p0, dtype=dtype, device=dev)
+            ps, ll, _ = em_fit_scan(Yt, pt, 3, mask=mt, cfg=cfg)
+            lls[dtype] = (ps, ll.cpu().numpy())
+        ref = float(lls[torch.float64][1][2])
+        p2 = lls[torch.float32][0][1].to_numpy()
+        precise = inf.loglik_eval(
+            torch.as_tensor(Z, dtype=torch.float64, device=dev), p2,
+            mask=Wm, precise=True)
+    rel = abs(precise - ref) / abs(ref)
+    fast = abs(float(lls[torch.float32][1][2]) - ref) / abs(ref)
+    emit({"contract": label, "k": k, "N": Y.shape[1],
+          "tau": cfg.tau if engine == "ss" else None, "iter": 3,
+          "loglik_f64": ref, "rel_err_precise": rel, "rel_err_fast": fast,
+          "limit": 1e-5})
+    if not rel < 1e-5:
+        raise AssertionError(f"loglik contract broken ({label}): "
+                             f"{rel:.3e}")
 
 
 RING_CASES = ((0, 0), (0, 2), (0, 8), (2, 2), (8, 8))
@@ -1314,6 +1406,69 @@ def session_kernel_check(sess, label: str, seed: int) -> None:
           "filter": sess.filter, "max_rel_err": worst})
 
 
+def drive_session(sess, label: str, Ynan, engine: str, own: str,
+                  on_query=None) -> tuple:
+    """Ten updates of SESSION_ROWS rows of ``Ynan`` from SESSION_T0, then
+    a pure re-forecast (no rows; still one K13 launch and one read), each
+    query's device work under ``set_sync_debug_mode("error")`` and followed
+    by one counted read; launch counts are reset before the first query.
+    Emits the session's record and raises unless every query launched K13
+    once and ``own`` at least once, read the host once, and the session
+    serves ``engine``.  ``on_query(q)`` runs before query q.  Returns (the
+    record, the updates' walls)."""
+    sess.check_sync = True
+    reads = []
+    read = sess._read
+    sess._read = lambda out: reads.append(1) or read(out)
+    walls, calls, per_query = [], [], []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for q in range(SESSION_UPDATES + 1):
+        lo = SESSION_T0 + q * SESSION_ROWS
+        if on_query is not None:
+            on_query(q)
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        u = sess.update(Ynan[lo:lo + SESSION_ROWS]
+                        if q < SESSION_UPDATES else None)
+        torch.cuda.synchronize()
+        call = time.perf_counter() - c0
+        if q < SESSION_UPDATES:
+            walls.append(u.wall_s)
+            calls.append(call)
+        per_query.append({n: kernels.LAUNCHES[n] - before[n]
+                          for n in kernels.LAUNCHES})
+        if not (np.isfinite(u.nowcast).all()
+                and np.isfinite(u.factors).all()
+                and np.isfinite(u.forecasts["di"]).all()
+                and u.nowcast.shape == (Ynan.shape[1],)):
+            raise AssertionError(f"session {label}: non-finite output")
+    rec = {"session": label, "filter": sess.filter, "ring": sess.ring,
+           "capacity": sess.capacity, "t": sess.t,
+           "n_evicted": sess.n_evicted, "queries": SESSION_UPDATES,
+           "p50_ms": pct(walls, 50) * 1e3, "p99_ms": pct(walls, 99) * 1e3,
+           "walls_ms": [w * 1e3 for w in walls],
+           "call_p50_ms": pct(calls, 50) * 1e3,
+           "call_p99_ms": pct(calls, 99) * 1e3,
+           "calls_ms": [c * 1e3 for c in calls],
+           "reads_per_query": len(reads) / len(per_query),
+           "reforecast_launches": {n: per_query[-1][n] for n in
+                                   ("ring_append", own)},
+           "sync_checked": True,
+           "launches_per_query": {n: v for n, v in per_query[-2].items()
+                                  if v},
+           "n_iters_last": u.n_iters}
+    emit(rec)
+    bad = [q for q, c in enumerate(per_query)
+           if c["ring_append"] != 1 or c[own] < 1]
+    if bad or len(reads) != len(per_query) or sess.filter != engine:
+        raise AssertionError(f"session {label}: queries {bad} missed one "
+                             f"ring_append launch or {own}; reads "
+                             f"{len(reads)}, engine {sess.filter}")
+    return rec, walls
+
+
 def session_phase(seed: int) -> dict:
     """The full-width sessions; returns each session's launch counts over
     its queries by label."""
@@ -1349,62 +1504,14 @@ def session_phase(seed: int) -> dict:
         sess = dt.open_session(res, Ynan[:SESSION_T0], backend=backend,
                                capacity=cap, max_update_rows=8, max_iters=5,
                                tol=0.0, ring=ring)
-        sess.check_sync = True
-        reads = []
-        read = sess._read
-        sess._read = lambda out: reads.append(1) or read(out)
-        walls, calls, per_query = [], [], []
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        # 10 updates, then a pure re-forecast (no rows; still one K13
-        # launch and one read); the walls are the updates'.
-        for q in range(SESSION_UPDATES + 1):
-            lo = SESSION_T0 + q * SESSION_ROWS
+
+        def keep_entry(q, sess=sess, label=label):
+            nonlocal entry
             if label == "info" and q == SESSION_UPDATES - 1:
                 entry = sess.params()
-            before = dict(kernels.LAUNCHES)
-            torch.cuda.synchronize()
-            c0 = time.perf_counter()
-            u = sess.update(Ynan[lo:lo + SESSION_ROWS]
-                            if q < SESSION_UPDATES else None)
-            torch.cuda.synchronize()
-            call = time.perf_counter() - c0
-            if q < SESSION_UPDATES:
-                walls.append(u.wall_s)
-                calls.append(call)
-            per_query.append({n: kernels.LAUNCHES[n] - before[n]
-                              for n in kernels.LAUNCHES})
-            if not (np.isfinite(u.nowcast).all()
-                    and np.isfinite(u.factors).all()
-                    and np.isfinite(u.forecasts["di"]).all()
-                    and u.nowcast.shape == (N,)):
-                raise AssertionError(f"session {label}: non-finite output")
+        rec, walls = drive_session(sess, label, Ynan, engine, own,
+                                   keep_entry)
         counts[label] = dict(kernels.LAUNCHES)
-        rec = {"session": label, "filter": sess.filter, "ring": ring,
-               "capacity": cap, "t": sess.t, "n_evicted": sess.n_evicted,
-               "queries": SESSION_UPDATES, "p50_ms": pct(walls, 50) * 1e3,
-               "p99_ms": pct(walls, 99) * 1e3,
-               "walls_ms": [w * 1e3 for w in walls],
-               "call_p50_ms": pct(calls, 50) * 1e3,
-               "call_p99_ms": pct(calls, 99) * 1e3,
-               "calls_ms": [c * 1e3 for c in calls],
-               "reads_per_query": len(reads) / len(per_query),
-               "reforecast_launches": {n: per_query[-1][n] for n in
-                                       ("ring_append", own)},
-               "sync_checked": True,
-               "launches_per_query": {n: per_query[-2][n] for n in
-                                      ("ring_append", "info_scan",
-                                       "rts_smoother", "qr_scan",
-                                       "qr_elements", "pit_scan",
-                                       "pit_elements", "mstep_rows")},
-               "n_iters_last": u.n_iters}
-        emit(rec)
-        bad = [q for q, c in enumerate(per_query)
-               if c["ring_append"] != 1 or c[own] < 1]
-        if bad or len(reads) != len(per_query) or sess.filter != engine:
-            raise AssertionError(f"session {label}: queries {bad} missed "
-                                 f"one ring_append launch or {own}; reads "
-                                 f"{len(reads)}, engine {sess.filter}")
         if ring and sess.n_evicted != SESSION_UPDATES * SESSION_ROWS:
             raise AssertionError(f"ring session evicted {sess.n_evicted}")
         if label == "info":
@@ -1455,8 +1562,8 @@ def session_reference_phase(seed: int) -> None:
         _session_reference(seed, engine)
 
 
-def _session_reference(seed: int, engine: str) -> None:
-    Ynan, _, _, _ = panel(seed + 5, T_=130, N_=80, K_=3)
+def _session_reference(seed: int, engine: str, N_: int = 80) -> None:
+    Ynan, _, _, _ = panel(seed + 5, T_=130, N_=N_, K_=3)
     model = dt.DynamicFactorModel(n_factors=3, dynamics="ar1",
                                   standardize=False)
     ups = ((120, 123), (123, 124), (124, 128))
@@ -1495,7 +1602,7 @@ def _session_reference(seed: int, engine: str) -> None:
         for f in ("nowcast", "factors", "factor_cov", "logliks"):
             worst(f"session-cold {f}", getattr(u, f), getattr(ref, f))
         worst("session-cold forecast y", u.forecasts["y"], ref.forecasts["y"])
-    emit({"session_reference": f"ring {engine}", "shape": [120, 80, 3],
+    emit({"session_reference": f"ring {engine}", "shape": [120, N_, 3],
           "max_rel_err": errs, "tol": 1e-10})
     bad = {n: e for n, e in errs.items() if not e <= 1e-10}
     if bad:
@@ -4617,14 +4724,17 @@ def pit_k_sweep(seed: int) -> None:
 
 def pit_longt_phase(seed: int) -> None:
     """bench/longt.py's largest point (N = 24, k = 2, T = 4,000,
-    standardize=False, f32): the walls of 16-iteration ``info``, ``pit``
-    and ``pit_qr`` fits (tol = 0), each the second of two runs (the first
-    warms the caches); finite logliks, the engine asked for, K14 launched
-    on the pit fit."""
+    standardize=False, f32): the walls of 16-iteration ``info``, ``pit``,
+    ``pit_qr``, ``dense`` and ``auto`` fits (tol = 0), each the second of
+    two runs (the first warms the caches); finite logliks, the engine
+    asked for (``auto`` resolves to ``dense`` at N = 24), K14 launched on
+    the pit fit and K15 on the dense ones."""
     _, _, Y, _ = panel(seed + 1100, T_=LONGT_T, N_=LONGT_N, K_=LONGT_K)
     model = dt.DynamicFactorModel(n_factors=LONGT_K, standardize=False)
     walls = {}
-    for engine in ("info", "pit", "pit_qr"):
+    own = {"pit": PIT_NEW, "dense": ("dense_filter",),
+           "auto": ("dense_filter",)}
+    for engine in ("info", "pit", "pit_qr", "dense", "auto"):
         backend = dt.TorchBackend(filter=engine)
         for _ in range(2):
             torch.cuda.synchronize()
@@ -4634,15 +4744,461 @@ def pit_longt_phase(seed: int) -> None:
                          tol=0.0)
             torch.cuda.synchronize()
             walls[engine] = time.perf_counter() - t0
-        if (res.filter != engine or not np.isfinite(res.logliks).all()
+        resolved = "dense" if engine == "auto" else engine
+        if (res.filter != resolved or not np.isfinite(res.logliks).all()
                 or res.n_iters != LONGT_ITERS):
             raise AssertionError(f"long-T {engine} fit failed: "
                                  f"{res.filter}, {res.n_iters} iterations")
-        if engine == "pit" and any(kernels.LAUNCHES[n] < LONGT_ITERS
-                                   for n in PIT_NEW):
-            raise AssertionError(f"long-T pit: launches {kernels.LAUNCHES}")
+        if any(kernels.LAUNCHES[n] < LONGT_ITERS
+               for n in own.get(engine, ())):
+            raise AssertionError(f"long-T {engine}: launches "
+                                 f"{kernels.LAUNCHES}")
     emit({"longt": {"T": LONGT_T, "N": LONGT_N, "k": LONGT_K,
                     "iters": LONGT_ITERS}, "fit_wall_s": walls})
+
+
+# ------------------------------------------------- K15 and generic k --
+
+DENSE_N = 31                 # the widest panel auto routes to dense
+DENSE_ITERS = 20
+# K15's timed shapes: (label, T, N, k, masked): the masked headline panel's
+# first 31 series, bench/longt.py's largest point, a session's capacity.
+DENSE_SHAPES = (("masked", T, DENSE_N, K, True),
+                ("long-T", LONGT_T, LONGT_N, LONGT_K, False),
+                ("session capacity", 1000, DENSE_N, K, True))
+WIDE_SWEEP = (1, 2, 3, 10, 16, 17, 25, 32)
+WIDE_K = 25                  # BENCH_kscale.json's exact fits
+WIDE_SEED = 1302             # the k = 25 panel: seed + WIDE_SEED
+WIDE_ITERS = 20
+# The generic-k fits at WIDE_K: (label, masked, filter asked, engine it
+# resolves to, extra backend options, kernels launched every iteration).
+WIDE_FITS = (
+    ("k25 masked auto", True, "auto", "info", {},
+     ("obs_stats_wide", "info_scan_wide", "quad_local_wide",
+      "rts_smoother_wide", "mstep_rows_wide")),
+    ("k25 masked pit", True, "pit", "pit", {},
+     ("pit_elements", "pit_scan", "obs_stats_wide", "quad_local_wide",
+      "mstep_rows_wide")),
+    ("k25 masked lowrank", True, "lowrank", "lowrank", {"rank": 8},
+     ("lowrank_basis", "lowrank_scan", "lowrank_smoother", "obs_stats_wide",
+      "mstep_rows_wide")),
+    ("k25 unmasked auto", False, "auto", "ss", {},
+     ("ss_cov_path_wide", "affine_scan_wide")),
+)
+
+
+def dense_flops(T_: int, N_: int, k: int) -> float:
+    """Operations of a K15 pass: per step the N x N Cholesky (N^3 / 3),
+    two triangular solves against k + 1 right-hand sides, S = (H P) H',
+    the gain products, the Joseph update and the prediction (the whole
+    N x N algebra: masked rows are rows of the identity, still computed)."""
+    return T_ * (N_ ** 3 / 3 + 2 * N_ * N_ * (k + 1) + 2 * N_ * N_ * k
+                 + 7 * N_ * k * k + 8 * k ** 3)
+
+
+def dense_case(Yt, mt, pt, label: str) -> dict:
+    T_, N_ = Yt.shape
+    k = pt.A.shape[0]
+    ins = (Yt, *pt) if mt is None else (Yt, mt, *pt)
+    return case("dense_filter", label,
+                lambda: kalman_filter(Yt, pt, mt),
+                lambda: kalman_filter_plain(Yt, pt, mt), ins,
+                dense_flops(T_, N_, k),
+                floor=lambda: latency_ms("info_scan", Yt.dtype, k, T_))
+
+
+def dense_inputs(Ynan, W, p, dtype, masked: bool = True):
+    dev = torch.device("cuda")
+    Yt = torch.as_tensor(Ynan, dtype=dtype, device=dev).contiguous()
+    mt = (torch.as_tensor(W, dtype=dtype, device=dev).contiguous()
+          if masked else None)
+    return Yt, mt, SSMParams.from_numpy(p, dtype=dtype, device=dev)
+
+
+def dense_kernel_phase(seed: int) -> dict:
+    """K15 against its plain twin at ``DENSE_SHAPES``, f64 then f32 (the
+    TOL rule), timed warm and cold beside the plain twin, the bound and
+    K4's latency floor at the same (T, k).  Returns the f32 masked
+    record."""
+    summary, refs = {}, {}
+    pans = {label: panel(seed + 1200 + i, T_=T_, N_=N_, K_=k)
+            for i, (label, T_, N_, k, _) in enumerate(DENSE_SHAPES)}
+    for dtype in (torch.float64, torch.float32):
+        with highest_precision():
+            for label, T_, N_, k, masked in DENSE_SHAPES:
+                Ynan, W, Yfull, p = pans[label]
+                Yt, mt, pt = dense_inputs(Ynan if masked else Yfull, W, p,
+                                          dtype, masked)
+                rec = kernel_record(dense_case(Yt, mt, pt, label), dtype,
+                                    refs)
+                rec["shape"] = [T_, N_, k]
+                emit(rec)
+                if dtype == torch.float32 and label == "masked":
+                    summary["dense_filter"] = rec
+    return summary
+
+
+def dense_k_sweep(seed: int) -> None:
+    """K15 at k in WIDE_SWEEP with N in {k, 31, 32} on 40-step panels with
+    step 0 fully missing and a step observing fewer than k series, f64 and
+    f32 (error checks only); N = 33 and k = 33 must raise."""
+    worst = {}
+    for k in WIDE_SWEEP:
+        for N_ in sorted({k, 31, 32}):
+            _, W, Yfull, p = panel(seed + 1210 + k, T_=40, N_=N_, K_=k)
+            W[0] = 0.0
+            W[5] = 0.0
+            W[5, :k - 1] = 1.0
+            Ynan = np.where(W > 0, Yfull, np.nan)
+            refs = {}
+            for dtype in (torch.float64, torch.float32):
+                with highest_precision():
+                    c = dense_case(*dense_inputs(Ynan, W, p, dtype), "sweep")
+                    _, rel, _, ref, _ = compare(c, dtype, refs.get("k15"))
+                refs["k15"] = ref
+                key = f"k={k} {str(dtype)[6:]}"
+                worst[key] = max(worst.get(key, 0.0), rel)
+    raised = []
+    for N_, k in ((33, 3), (3, 33)):
+        Yt = torch.zeros((5, N_), device="cuda")
+        pt = SSMParams(*(torch.zeros(s, device="cuda") for s in
+                         ((N_, k), (k, k), (k, k), (N_,), (k,), (k, k))))
+        try:
+            kalman_filter(Yt, pt)
+        except NotImplementedError:
+            raised.append([N_, k])
+    emit({"dense_k_sweep": list(WIDE_SWEEP), "max_rel_err": worst,
+          "raised": raised})
+    if len(raised) != 2:
+        raise AssertionError(f"K15 past N, k = 32: only {raised} raised")
+
+
+def dense_fit_launches(iters: int) -> dict:
+    """A masked dense fit's launches, exactly: K15, K3 and K4-backward an
+    iteration, and K15 + K4-backward once more for the reporting smooth."""
+    return {"dense_filter": iters + 1, "mstep_rows": iters,
+            "rts_smoother": iters + 1}
+
+
+def dense_fit_phase(seed: int) -> dict:
+    """``fit`` (auto -> dense) on the first 31 series of the masked
+    headline panel (20 iterations, tol = 0, f32), the reporting smooth and
+    a 12-step forecast; ``fit(fused=True)`` on its first 480 rows; a dense
+    session on that at capacity 1,000 (10 queries of 2 rows, one read a
+    query under the sync check).  Returns the launch counts by label."""
+    Ynan, _, _, _ = panel(seed + 1)
+    Yd = Ynan[:, :DENSE_N]
+    model = dt.DynamicFactorModel(n_factors=K, dynamics="ar1")
+    backend = dt.TorchBackend()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with ReadWatch() as rw:
+        t0 = time.perf_counter()
+        res = dt.fit(model, Yd, backend=backend, max_iters=DENSE_ITERS,
+                     tol=0.0)
+        y_fore, _ = dt.forecast(res, 12)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    lls = res.logliks
+    chunk = backend.fused_chunk
+    steady = [h["secs"] for h in res.history[chunk:]]
+    n_chunks = -(-DENSE_ITERS // chunk)
+    floor = noise_floor_for(torch.float32, Yd.size)
+    want = dense_fit_launches(DENSE_ITERS)
+    bad = {n: v for n, v in launches.items() if v != want.get(n, 0)}
+    rec = {"fit": "dense", "filter": res.filter, "shape": [T, DENSE_N, K],
+           "n_iters": res.n_iters, "loglik_first": float(lls[0]),
+           "loglik_last": float(lls[-1]),
+           "max_drop": float(max(0.0, -np.diff(lls).min())),
+           "noise_floor": floor, "wall_s": wall,
+           "em_iters_per_sec": (len(steady) / sum(steady)
+                                if steady and sum(steady) > 0 else None),
+           "reads": len(rw.stamps) + 1, "n_chunks": n_chunks,
+           "launches": {n: v for n, v in launches.items() if v}}
+    emit(rec)
+    if (res.filter != "dense" or res.n_iters != DENSE_ITERS
+            or not np.isfinite(lls).all() or np.diff(lls).min() < -floor
+            or not np.isfinite(res.factors).all()
+            or not np.isfinite(y_fore).all()
+            or y_fore.shape != (12, DENSE_N)):
+        raise AssertionError(f"dense fit failed: {res.filter}, "
+                             f"{res.n_iters} iterations, logliks {lls}")
+    if bad or len(rw.stamps) != n_chunks:
+        raise AssertionError(f"dense fit: launches off {want}: {bad}; "
+                             f"chunk reads {len(rw.stamps)}, expected "
+                             f"{n_chunks}")
+    counts = {"dense": launches}
+    dense_iteration_breakdown(Yd, res)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    fused = dt.fit(model, Yd[:SESSION_T0], backend=backend, fused=True,
+                   max_iters=DENSE_ITERS, tol=0.0)
+    emit({"fused_fit": "dense", "filter": fused.filter,
+          "n_iters": fused.n_iters, "host_reads": fused.host_reads,
+          "wall_s": time.perf_counter() - t0,
+          "loglik_last": float(fused.logliks[-1]),
+          "launches": {n: v for n, v in kernels.LAUNCHES.items() if v}})
+    if (fused.filter != "dense" or fused.n_iters != DENSE_ITERS
+            or not np.isfinite(fused.logliks).all()
+            or kernels.LAUNCHES["dense_filter"] < DENSE_ITERS):
+        raise AssertionError(f"dense fused fit failed: {fused.filter}, "
+                             f"{fused.n_iters} iterations")
+    sess = dt.open_session(fused, Yd[:SESSION_T0], backend=backend,
+                           capacity=1000, max_update_rows=8, max_iters=5,
+                           tol=0.0)
+    drive_session(sess, "dense", Yd, "dense", "dense_filter")
+    counts["dense session"] = dict(kernels.LAUNCHES)
+    sess.close()
+    return counts
+
+
+def dense_iteration_breakdown(Y, res) -> None:
+    """Where a dense EM iteration goes (f32, warm L2, at the fitted params
+    on the standardized panel): K15, K4-backward and K3 (CUDA events)
+    against the whole ``em_step`` on the device; the rest is the
+    iteration less the three (the moments, the k x k M-step, launch
+    gaps)."""
+    W = data.build_mask(Y)
+    Z, _ = data.standardize(Y, mask=W)
+    f32 = torch.float32
+    with highest_precision():
+        Zt = torch.as_tensor(np.where(W > 0, np.nan_to_num(Z), 0.0),
+                             dtype=f32, device="cuda").contiguous()
+        Wt = torch.as_tensor(W, dtype=f32, device="cuda").contiguous()
+        pt = SSMParams.from_numpy(res.params, dtype=f32, device="cuda")
+        kf = kalman_filter(Zt, pt, Wt)
+        sm = rts_smoother(kf, pt)
+        EffT, _ = moments(sm)
+        ms = {"dense_filter": cuda_ms(lambda: kalman_filter(Zt, pt, Wt)),
+              "rts_smoother": cuda_ms(lambda: rts_smoother(kf, pt)),
+              "mstep_rows": cuda_ms(lambda: mstep_rows(
+                  Zt, Wt, sm.x_sm, EffT, sm.P_sm, None, 1e-6))}
+        cfg = EMConfig(filter="dense")
+        iter_ms = cuda_ms(lambda: tem.em_step(Zt, pt, Wt, cfg))
+    emit({"dense_iteration_breakdown": list(Y.shape) + [res.params.A.shape[0]],
+          "iter_ms": iter_ms, "kernel_ms": ms,
+          "rest_ms": iter_ms - sum(ms.values())})
+
+
+def dense_reference_phase(seed: int) -> None:
+    """Dense ``fit(auto)`` at 40 x 20, k = 3, masked, and a dense ring
+    session (120 x 20), card f64 against CPU f64 within 1e-10."""
+    Ynan, _, _, _ = panel(seed + 1220, T_=40, N_=20, K_=3)
+    reference_fit("dense masked", Ynan, 3, "auto", 1e-10, engine="dense")
+    _session_reference(seed, "dense", N_=20)
+
+
+def wide_k_cases(Ynan, W, Yfull, p, dtype, taus) -> list:
+    """K3-wide on the masked panel's plain smoother moments, K5a-wide and
+    K5b-wide on the unmasked panel's plain ss pass at each (label, tau) of
+    ``taus``: cases named by the kernel each wrapper routes to."""
+    dev = torch.device("cuda")
+    Yt = torch.as_tensor(Ynan, dtype=dtype, device=dev).contiguous()
+    Yf = torch.as_tensor(Yfull, dtype=dtype, device=dev).contiguous()
+    mt = torch.as_tensor(W, dtype=dtype, device=dev).contiguous()
+    pt = SSMParams.from_numpy(p, dtype=dtype, device=dev)
+    T_, N_ = Yt.shape
+    k = pt.A.shape[0]
+    TN, k2, k3 = T_ * N_, k * k, k ** 3
+    stats = inf.obs_stats_plain(Yt, pt.Lam, pt.R, mt)
+    scan = inf.info_scan_plain(stats, pt.A, pt.Q, pt.mu0, pt.P0)
+    kf = FilterResult(*scan[:4], torch.zeros((), dtype=dtype))
+    sm = rts_smoother_plain(kf, pt)
+    EffT, _ = moments(sm)
+    cases = [case(kernels.route("mstep_rows", k), "masked",
+                  lambda: mstep_rows(Yt, mt, sm.x_sm, EffT, sm.P_sm, None,
+                                     1e-6),
+                  lambda: mstep_rows_plain(Yt, mt, sm.x_sm, EffT, sm.P_sm,
+                                           1e-6),
+                  (Yt, mt, sm.x_sm, EffT, sm.P_sm),
+                  TN * (4 * k + 2 * k * (k + 1) + 5) + N_ * (k3 // 3
+                                                             + 6 * k2),
+                  floor=lambda: latency_ms("info_scan", dtype, k, T_))]
+    ustats = inf.obs_stats_plain(Yf, pt.Lam, pt.R)
+    C = ustats.C
+    for label, tau in taus:
+        path, fwd, rev = ss_inputs(ustats, pt, tau)
+        cases += [
+            case(kernels.route("ss_cov_path", k), label,
+                 lambda tau=tau: ss.ss_cov_path(C, pt.A, pt.Q, pt.P0, tau),
+                 lambda tau=tau: ss.ss_cov_path_plain(C, pt.A, pt.Q, pt.P0,
+                                                      tau),
+                 (C, pt.A, pt.Q, pt.P0), tau * 27.0 * k3,
+                 floor=lambda tau=tau: (
+                     latency_ms("info_scan", dtype, k, tau)
+                     + latency_ms("rts_smoother", dtype, k, 2 * tau + 1))),
+            case(kernels.route("affine_scan", k), f"forward {label}",
+                 lambda fwd=fwd: sc.affine_scan(*fwd),
+                 lambda fwd=fwd: sc.affine_scan_plain(*fwd), fwd,
+                 2.0 * T_ * k2, floor=lambda: latency_ms(
+                     "info_scan", dtype, k, T_)),
+            case(kernels.route("affine_scan", k), f"reverse {label}",
+                 lambda rev=rev: sc.affine_scan(*rev, reverse=True),
+                 lambda rev=rev: sc.affine_scan_plain(*rev, reverse=True),
+                 rev, 2.0 * T_ * k2, floor=lambda: latency_ms(
+                     "info_scan", dtype, k, T_)),
+        ]
+    return cases
+
+
+def wide_kernel_phase(seed: int, tau_fit: int) -> dict:
+    """K3-wide, K5a-wide and K5b-wide at the headline panel simulated at
+    k = 25 (K5 at the fit's tau and at 192), f64 then f32 (the TOL rule),
+    timed warm and cold beside the plain twin, with the bound and K4's
+    latency floor at k = 25 (K5a: tau forward and 2 tau + 1 backward
+    steps; K3 and K5b: T forward steps, a yardstick, not their own
+    chain).  Returns the f32 records of the summary line."""
+    pan = panel(seed + WIDE_SEED, K_=WIDE_K)
+    taus = [("tau_fit", tau_fit), (f"tau={TAU_MAX}", TAU_MAX)]
+    want = {"mstep_rows_wide": "masked", "ss_cov_path_wide": "tau_fit",
+            "affine_scan_wide": "forward tau_fit"}
+    summary, refs = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        with highest_precision():
+            for c in wide_k_cases(*pan, dtype, taus):
+                rec = kernel_record(c, dtype, refs)
+                rec["k"] = WIDE_K
+                if c["name"] != "mstep_rows_wide":
+                    rec["tau"] = dict(taus)[c["variant"].split()[-1]]
+                emit(rec)
+                if (dtype == torch.float32
+                        and c["variant"] == want[c["name"]]):
+                    summary[c["name"]] = rec
+        torch.cuda.empty_cache()
+    return summary
+
+
+def wide_k_sweep(seed: int) -> None:
+    """K3, K5a and K5b through their wrappers (today's kernel for k <= 16,
+    the wide one past it) at k in WIDE_SWEEP on 120 x 400 panels with a
+    fully missing step and a step observing fewer than k series, tau =
+    24, f64 and f32 (error checks only); k = 33 must raise in all three."""
+    for k in WIDE_SWEEP:
+        _, W, Yfull, p = panel(seed + 1310 + k, T_=120, N_=400, K_=k)
+        W[7] = 0.0
+        W[11] = 0.0
+        W[11, :k - 1] = 1.0
+        Ynan = np.where(W > 0, Yfull, np.nan)
+        refs, worst = {}, {}
+        for dtype in (torch.float64, torch.float32):
+            with highest_precision():
+                for c in wide_k_cases(Ynan, W, Yfull, p, dtype,
+                                    [("tau=24", 24)]):
+                    key = (c["name"], c["variant"])
+                    _, rel, _, ref, _ = compare(c, dtype, refs.get(key))
+                    refs[key] = ref
+                    name = f"{c['name']} {str(dtype)[6:]}"
+                    if rel >= worst.get(name, (0.0,))[0]:
+                        worst[name] = (rel, c["worst_output"])
+        emit({"wide_k_sweep": k,
+              "max_rel_err": {n: v[0] for n, v in worst.items()},
+              "worst_output": {n: v[1] for n, v in worst.items()}})
+    k = WIDE_SWEEP[-1] + 1
+    z = torch.zeros
+    calls = {"mstep_rows": lambda: mstep_rows(
+                 z((4, 8), device="cuda"), z((4, 8), device="cuda"),
+                 z((4, k), device="cuda"), z((4, k, k), device="cuda"),
+                 z((4, k, k), device="cuda"), None, 1e-6),
+             "ss_cov_path": lambda: ss.ss_cov_path(
+                 *(z((k, k), device="cuda") for _ in range(4)), 4),
+             "affine_scan": lambda: sc.affine_scan(
+                 z((6, k), device="cuda"), z((2, k, k), device="cuda"),
+                 z((k, k), device="cuda"), z((k,), device="cuda"))}
+    raised = []
+    for name, fn in calls.items():
+        try:
+            fn()
+        except NotImplementedError:
+            raised.append(name)
+    emit({"wide_k33": raised})
+    if len(raised) != len(calls):
+        raise AssertionError(f"k = 33: only {raised} raised")
+
+
+def wide_fit_phase(seed: int) -> dict:
+    """The generic-k fits (``WIDE_FITS``) on the headline panel simulated
+    at k = 25, 20 iterations, tol = 0, f32, with a 12-step forecast: the
+    engine asked for, every listed kernel launched every iteration and no
+    k <= 16 kernel of a ``kernels.WIDE`` entry point, one read a chunk;
+    EM it/s and the wall.  Then a masked info session at k = 25 (fused fit
+    of the first 480 rows, capacity 1,000, 10 queries of 2 rows, one read
+    a query under the sync check).  Returns the launch counts by label."""
+    Ynan, _, Yfull, _ = panel(seed + WIDE_SEED, K_=WIDE_K)
+    model = dt.DynamicFactorModel(n_factors=WIDE_K, dynamics="ar1")
+    counts = {}
+    iters = WIDE_ITERS
+    for label, masked, flt, engine, extra, every in WIDE_FITS:
+        backend = dt.TorchBackend(filter=flt, **extra)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with ReadWatch() as rw:
+            t0 = time.perf_counter()
+            res = dt.fit(model, Ynan if masked else Yfull, backend=backend,
+                         max_iters=iters, tol=0.0)
+            y_fore, _ = dt.forecast(res, 12)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        chunk = backend.fused_chunk
+        steady = [h["secs"] for h in res.history[chunk:]]
+        n_chunks = -(-iters // chunk)
+        narrow = [n for n in kernels.WIDE if launches[n]]
+        short = [n for n in every if launches[n] < iters]
+        rec = {"fit": label, "filter": res.filter, "k": WIDE_K,
+               "tau": res.tau, "n_iters": res.n_iters,
+               "loglik_first": float(res.logliks[0]),
+               "loglik_last": float(res.logliks[-1]), "wall_s": wall,
+               "em_iters_per_sec": (len(steady) / sum(steady)
+                                    if steady and sum(steady) > 0 else None),
+               "reads": len(rw.stamps) + 1, "n_chunks": n_chunks,
+               "launches": {n: v for n, v in launches.items() if v}}
+        emit(rec)
+        RATES[label] = rec["em_iters_per_sec"]
+        if (res.filter != engine or res.n_iters != iters
+                or not np.isfinite(res.logliks).all()
+                or not np.isfinite(res.factors).all()
+                or not np.isfinite(y_fore).all()):
+            raise AssertionError(f"{label}: {res.filter}, {res.n_iters} "
+                                 "iterations or non-finite outputs")
+        if narrow or short or len(rw.stamps) != n_chunks:
+            raise AssertionError(f"{label}: k <= 16 kernels launched "
+                                 f"{narrow}; fewer launches than "
+                                 f"iterations {short}; chunk reads "
+                                 f"{len(rw.stamps)} of {n_chunks}")
+        counts[label] = launches
+    backend = dt.TorchBackend()
+    fused = dt.fit(model, Ynan[:SESSION_T0], backend=backend, fused=True,
+                   max_iters=iters, tol=0.0)
+    if fused.filter != "info" or not np.isfinite(fused.logliks).all():
+        raise AssertionError(f"k = 25 fused fit failed: {fused.filter}")
+    sess = dt.open_session(fused, Ynan[:SESSION_T0], backend=backend,
+                           capacity=1000, max_update_rows=8, max_iters=5,
+                           tol=0.0)
+    drive_session(sess, "info k25", Ynan, "info", "info_scan_wide")
+    counts["info k25 session"] = dict(kernels.LAUNCHES)
+    sess.close()
+    return counts
+
+
+def wide_reference_phase(seed: int) -> None:
+    """``fit`` at 120 x 80, k = 20, masked (auto -> info) and unmasked
+    (filter="ss"), card f64 against CPU f64 within 1e-10."""
+    Ynan, _, Yfull, _ = panel(seed + 1320, T_=120, N_=80, K_=20)
+    reference_fit("k20 masked", Ynan, 20, "auto", 1e-10, engine="info")
+    reference_fit("k20 unmasked ss", Yfull, 20, "ss", 1e-10)
+
+
+def wide_contract_phase(seed: int) -> None:
+    """The loglik contract (``loglik_contract``) of the dense fit (the
+    masked panel's first 31 series, k = 10) and of the k = 25 masked info
+    and unmasked ss fits."""
+    Ynan, W, _, _ = panel(seed + 1)
+    loglik_contract("dense masked", Ynan[:, :DENSE_N], W[:, :DENSE_N], K,
+                    "dense")
+    Ynan, W, Yfull, _ = panel(seed + WIDE_SEED, K_=WIDE_K)
+    loglik_contract("k25 masked info", Ynan, W, WIDE_K, "info")
+    loglik_contract("k25 unmasked ss", Yfull, None, WIDE_K, "ss")
 
 
 def ptxas_summary(source: str) -> dict:
@@ -4676,83 +5232,120 @@ def ptxas_summary(source: str) -> dict:
     return rec
 
 
+# Phase groups of ``--phases``, in run order.
+PHASES = ("headline", "session", "batched", "fleet", "lowrank", "tvl", "mf",
+          "sv", "pit", "dense", "wide")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma list of phase groups to run, of "
+                         f"{', '.join(PHASES)} (default: all)")
     args = ap.parse_args()
+    want = [g for g in args.phases.split(",") if g]
+    unknown = sorted(set(want) - set(PHASES))
+    if unknown or not want:
+        ap.error(f"unknown phase groups {unknown}; pick from {PHASES}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    seed = args.seed
     t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     emit({"build_s": kernels.build(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda, "phases": want})
     for source in sorted({src for src, _ in kernels.KERNELS.values()}):
         emit(ptxas_summary(source))
-    tau_fit = fit_tau(args.seed)
-    emit({"tau_fit": tau_fit})
-    summary = kernel_phase(args.seed, tau_fit)
-    k_sweep(args.seed)
-    launches = fit_phase(args.seed)
-    reference_phase(args.seed)
-    contract_phase(args.seed)
-    summary["ring_append"] = ring_phase(args.seed)
-    launches.update(session_phase(args.seed))
-    session_reference_phase(args.seed)
-    summary.update(batched_kernel_phase(args.seed))
-    batched_k_sweep(args.seed)
-    launches.update(fit_many_phase(args.seed))
-    kgrid_phase(args.seed)
-    rolling_phase(args.seed)
-    batched_reference_phase(args.seed)
-    batched_contract_phase(args.seed)
-    tenants = fleet_tenants(args.seed + 600)
-    launches["fleet"], recs = fleet_phase(args.seed, tenants)
-    summary.update({n: recs[n] for n in FLEET_NEW})
-    ring_fleet_phase(args.seed, tenants)
-    pit_fleet_phase(args.seed, tenants)
-    del tenants
-    fleet_k_sweep(args.seed)
-    fleet_reference_phase(args.seed)
-    summary.update(lowrank_kernel_phase(args.seed))
-    lowrank_k_sweep(args.seed)
-    lr_counts, lr_fused = lowrank_fit_phase(args.seed)
-    launches.update(lr_counts)
-    lowrank_reference_phase(args.seed)
-    lowrank_contract_phase(args.seed)
-    lowrank_session_phase(args.seed, lr_fused)
-    lowrank_fleet_phase(args.seed)
-    summary.update(tvl_kernel_phase(args.seed))
-    tvl_k_sweep(args.seed)
-    launches.update(tvl_fit_phase(args.seed))
-    tvl_reference_phase(args.seed)
-    tvl_contract_phase(args.seed)
-    summary.update(mf_kernel_phase(args.seed))
-    mf_k_sweep(args.seed)
-    launches.update(mf_fit_phase(args.seed))
-    mf_reference_phase(args.seed)
-    mf_contract_phase(args.seed)
-    t_sv = time.perf_counter()
-    sv_counts, sv_fit = sv_fit_phase(args.seed)
-    launches.update(sv_counts)
-    summary.update(sv_kernel_phase(args.seed, sv_fit))
-    sv_k_sweep(args.seed)
-    sv_reference_phase(args.seed)
-    sv_contract_phase(args.seed, sv_fit)
-    t_pit = time.perf_counter()
-    summary.update(pit_kernel_phase(args.seed))
-    pit_k_sweep(args.seed)
-    pit_longt_phase(args.seed)
-    emit({"sv_phases_s": t_pit - t_sv,
-          "pit_kernel_phases_s": time.perf_counter() - t_pit,
-          "script_s": time.perf_counter() - t_start})
+    summary, launches, group_s = {}, {}, {}
+    for group in PHASES:
+        if group not in want:
+            continue
+        t0 = time.perf_counter()
+        if group == "headline":
+            tau_fit = fit_tau(seed)
+            emit({"tau_fit": tau_fit})
+            summary.update(kernel_phase(seed, tau_fit))
+            k_sweep(seed)
+            launches.update(fit_phase(seed))
+            reference_phase(seed)
+            contract_phase(seed)
+        elif group == "session":
+            summary["ring_append"] = ring_phase(seed)
+            launches.update(session_phase(seed))
+            session_reference_phase(seed)
+        elif group == "batched":
+            summary.update(batched_kernel_phase(seed))
+            batched_k_sweep(seed)
+            launches.update(fit_many_phase(seed))
+            kgrid_phase(seed)
+            rolling_phase(seed)
+            batched_reference_phase(seed)
+            batched_contract_phase(seed)
+        elif group == "fleet":
+            tenants = fleet_tenants(seed + 600)
+            launches["fleet"], recs = fleet_phase(seed, tenants)
+            summary.update({n: recs[n] for n in FLEET_NEW})
+            ring_fleet_phase(seed, tenants)
+            pit_fleet_phase(seed, tenants)
+            del tenants
+            fleet_k_sweep(seed)
+            fleet_reference_phase(seed)
+        elif group == "lowrank":
+            summary.update(lowrank_kernel_phase(seed))
+            lowrank_k_sweep(seed)
+            lr_counts, lr_fused = lowrank_fit_phase(seed)
+            launches.update(lr_counts)
+            lowrank_reference_phase(seed)
+            lowrank_contract_phase(seed)
+            lowrank_session_phase(seed, lr_fused)
+            lowrank_fleet_phase(seed)
+        elif group == "tvl":
+            summary.update(tvl_kernel_phase(seed))
+            tvl_k_sweep(seed)
+            launches.update(tvl_fit_phase(seed))
+            tvl_reference_phase(seed)
+            tvl_contract_phase(seed)
+        elif group == "mf":
+            summary.update(mf_kernel_phase(seed))
+            mf_k_sweep(seed)
+            launches.update(mf_fit_phase(seed))
+            mf_reference_phase(seed)
+            mf_contract_phase(seed)
+        elif group == "sv":
+            sv_counts, sv_fit = sv_fit_phase(seed)
+            launches.update(sv_counts)
+            summary.update(sv_kernel_phase(seed, sv_fit))
+            sv_k_sweep(seed)
+            sv_reference_phase(seed)
+            sv_contract_phase(seed, sv_fit)
+        elif group == "pit":
+            summary.update(pit_kernel_phase(seed))
+            pit_k_sweep(seed)
+            pit_longt_phase(seed)
+        elif group == "dense":
+            summary.update(dense_kernel_phase(seed))
+            dense_k_sweep(seed)
+            launches.update(dense_fit_phase(seed))
+            dense_reference_phase(seed)
+        elif group == "wide":
+            tau_wide = fit_tau(seed, WIDE_K, WIDE_SEED)
+            emit({"tau_fit": tau_wide, "k": WIDE_K})
+            summary.update(wide_kernel_phase(seed, tau_wide))
+            wide_k_sweep(seed)
+            launches.update(wide_fit_phase(seed))
+            wide_reference_phase(seed)
+            wide_contract_phase(seed)
+        group_s[group] = time.perf_counter() - t0
+    emit({"phase_s": group_s, "script_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"dfm_tpu_torch/csrc/{kernels.KERNELS[name][0]}",
          "replaces": REPLACES[name], "variant": rec["variant"],
-         "launches": launches[OWN_FIT[name]][name],
+         "launches": launches.get(OWN_FIT[name], {}).get(name),
          "launches_fit": OWN_FIT[name],
          "max_abs_err": rec["max_abs_err"], "max_rel_err": rec["max_rel_err"],
          "ms": rec["kernel_ms"], "ms_cold_l2": rec["kernel_ms_cold_l2"],

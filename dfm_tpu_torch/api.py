@@ -119,13 +119,14 @@ class TorchBackend:
     kernel's plain-torch version).  dtype: compute dtype, None for float32
     on CUDA and float64 on the CPU.  filter: "auto" (dense below N = 32,
     "ss" for unmasked panels at N >= 512, info otherwise — the JAX
-    package's rule), "dense", "info", "ss" (steady-state; tau from the
-    Riccati mixing time at the init params), "pit" (covariance-form
-    parallel-in-time; on CUDA its kernels take k <= 32, the masked M-step
-    k <= 16), "pit_qr" (square-root parallel-in-time; k <= 10 on
+    package's rule), "dense" (the N x N filter, kernel K15: N <= 32 and
+    k <= 32 on CUDA), "info", "ss" (steady-state; tau from the Riccati
+    mixing time at the init params), "pit" (covariance-form
+    parallel-in-time), "pit_qr" (square-root parallel-in-time; k <= 10 on
     CUDA) or "lowrank" (the rank-r downdate engine for wide factor models,
     ``ssm.lowrank_filter``; on CUDA its kernels take k <= 100 and r <= 32,
-    the rest of its path k <= 16).  rank: the rank r of "lowrank" (<= 0:
+    the rest of its path k <= 32).  On CUDA every engine but "pit_qr"
+    takes k <= 32 on the lone paths.  rank: the rank r of "lowrank" (<= 0:
     auto, min(k, 8)); the other engines ignore it.  fused_chunk: EM
     iterations per device chunk between host reads.  device_init:
     standardize and PCA-init on the device ("auto": when N*T >= 4e6).

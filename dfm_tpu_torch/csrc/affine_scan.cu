@@ -23,6 +23,17 @@
 // Only the order of additions differs from the sequential recursion; the
 // closed-loop M of the filter and smoother has spectral radius < 1, so the
 // carried maps stay bounded.  k is a template constant (1 .. DFM_KMAX).
+//
+// K5b-wide (affine_scan_wide): the same scan at 16 < k <= DFM_WIDE_KMAX =
+// 32, which the wrapper takes there (the unmasked auto -> ss fit at wide
+// k).  The map [Phi | z] has k + 1 <= 33 columns, one past a warp at k =
+// 32, so lane j runs the columns j, j + 32, ... (lane 0 runs z as a second
+// column at k = 32).  Two k-vectors a thread in registers hold k = 32 in
+// f64 only at 255 registers, so the block has AFW_WARPS = 8 warps (256
+// threads), and the maps (8 x 32 x 33 values, 68 KB in f64) sit in
+// dynamic shared memory.  The vectors' width is a template bucket KP in
+// {20, 24, 28, 32} with zeros past the runtime k (four instantiations
+// instead of sixteen: a fully unrolled KP x KP product compiles slowly).
 #include "common.cuh"
 
 constexpr int AF_WARPS = 16;
@@ -108,6 +119,155 @@ affine_scan_kernel(const T* __restrict__ d, const T* __restrict__ Mh,
   }
 }
 
+constexpr int AFW_WARPS = 8;
+
+template <typename T>
+static size_t afw_smem(int k) {
+  return sizeof(T) * ((size_t)k * k + (size_t)AFW_WARPS * k * (k + 1) +
+                      (size_t)AFW_WARPS * k);
+}
+
+// Row r, column l of the k x k step map at Mt, zero past k: the KP-wide
+// vectors carry zeros there, so a bucket KP >= k runs the k-wide scan.
+template <typename T>
+__device__ __forceinline__ T map_at(const T* Mt, int r, int l, int k) {
+  return (r < k && l < k) ? Mt[r * k + l] : T(0);
+}
+
+template <typename T, int KP>
+__global__ void __launch_bounds__(32 * AFW_WARPS)
+affine_scan_wide_kernel(const T* __restrict__ d, const T* __restrict__ Mh,
+                        const T* __restrict__ M, const T* __restrict__ xb,
+                        T* __restrict__ x, int T_, int h, int k,
+                        int reverse) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ms = reinterpret_cast<T*>(smem_raw);                 // [k][k]
+  T* Phi = Ms + k * k;                                    // [AFW][k][k + 1]
+  T* cin = Phi + AFW_WARPS * k * (k + 1);                 // [AFW][k]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int e = threadIdx.x; e < k * k; e += blockDim.x) Ms[e] = M[e];
+  const int n = T_ - 1;                       // steps, at positions 1 .. n
+  const int L = (n + AFW_WARPS - 1) / AFW_WARPS;
+  const int lo = 1 + warp * L, hi = min(1 + (warp + 1) * L, n + 1);
+  T* Pw = Phi + (size_t)warp * k * (k + 1);
+  __syncthreads();
+
+  // Phase 1: column j of [Phi | z] from a zero carry (e_j for j < k, the
+  // zero vector plus the d_t for z = column k).
+  for (int j = lane; j <= k; j += 32) {
+    T col[KP];
+#pragma unroll
+    for (int r = 0; r < KP; ++r) col[r] = (r == j && j < k) ? T(1) : T(0);
+    for (int i = lo; i < hi; ++i) {
+      const int t = reverse ? T_ - 1 - i : i;
+      const T* Mt = t < h ? Mh + (size_t)t * k * k : Ms;
+      T nw[KP];
+#pragma unroll
+      for (int r = 0; r < KP; ++r) {
+        T s = T(0);
+#pragma unroll
+        for (int l = 0; l < KP; ++l) s += map_at(Mt, r, l, k) * col[l];
+        nw[r] = s;
+      }
+      if (j == k) {
+#pragma unroll
+        for (int r = 0; r < KP; ++r)
+          if (r < k) nw[r] += d[(size_t)t * k + r];
+      }
+#pragma unroll
+      for (int r = 0; r < KP; ++r) col[r] = nw[r];
+    }
+#pragma unroll
+    for (int r = 0; r < KP; ++r)
+      if (r < k) Pw[r * (k + 1) + j] = col[r];
+  }
+  __syncthreads();
+
+  // Phase 2: the entry state of every warp's run (warp 0, lane 0 stores).
+  if (warp == 0) {
+    T c[KP];
+#pragma unroll
+    for (int r = 0; r < KP; ++r) c[r] = r < k ? xb[r] : T(0);
+    for (int w = 0; w < AFW_WARPS; ++w) {
+      const T* P = Phi + (size_t)w * k * (k + 1);
+      if (lane == 0) {
+#pragma unroll
+        for (int r = 0; r < KP; ++r)
+          if (r < k) cin[w * k + r] = c[r];
+      }
+      T nc[KP];
+#pragma unroll
+      for (int r = 0; r < KP; ++r) {
+        T s = r < k ? P[r * (k + 1) + k] : T(0);
+#pragma unroll
+        for (int l = 0; l < KP; ++l)
+          s += (r < k && l < k ? P[r * (k + 1) + l] : T(0)) * c[l];
+        nc[r] = s;
+      }
+#pragma unroll
+      for (int r = 0; r < KP; ++r) c[r] = nc[r];
+    }
+  }
+  __syncthreads();
+
+  // Phase 3: re-run each run from its entry state; lane r writes x_t[r].
+  {
+    T c[KP];
+#pragma unroll
+    for (int r = 0; r < KP; ++r) c[r] = r < k ? cin[warp * k + r] : T(0);
+    for (int i = lo; i < hi; ++i) {
+      const int t = reverse ? T_ - 1 - i : i;
+      const T* Mt = t < h ? Mh + (size_t)t * k * k : Ms;
+      T nw[KP];
+#pragma unroll
+      for (int r = 0; r < KP; ++r) {
+        T s = T(0);
+#pragma unroll
+        for (int l = 0; l < KP; ++l) s += map_at(Mt, r, l, k) * c[l];
+        nw[r] = r < k ? s + d[(size_t)t * k + r] : T(0);
+      }
+#pragma unroll
+      for (int r = 0; r < KP; ++r) {
+        c[r] = nw[r];
+        if (r == lane && r < k) x[(size_t)t * k + r] = nw[r];
+      }
+    }
+  }
+  if (threadIdx.x < k) {
+    const int tb = reverse ? T_ - 1 : 0;
+    x[(size_t)tb * k + threadIdx.x] = xb[threadIdx.x];
+  }
+}
+
+template <typename T, int KP>
+static int launch_wide_kp(const T* d, const T* Mh, const T* M, const T* xb,
+                          T* x, int T_, int h, int k, int reverse,
+                          cudaStream_t stream) {
+  const size_t bytes = afw_smem<T>(k);
+  const cudaError_t e =
+      dfm_smem_optin(affine_scan_wide_kernel<T, KP>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  affine_scan_wide_kernel<T, KP><<<1, 32 * AFW_WARPS, bytes, stream>>>(
+      d, Mh, M, xb, x, T_, h, k, reverse);
+  return (int)cudaGetLastError();
+}
+
+// k in 1 .. DFM_WIDE_KMAX, run at the bucket KP in {20, 24, 28, 32} >= k.
+template <typename T>
+static int launch_wide(const T* d, const T* Mh, const T* M, const T* xb,
+                       T* x, int T_, int h, int k, int reverse,
+                       cudaStream_t stream) {
+  if (T_ < 1 || h < 0 || k < 1 || k > DFM_WIDE_KMAX)
+    return (int)cudaErrorInvalidValue;
+  if (k <= 20)
+    return launch_wide_kp<T, 20>(d, Mh, M, xb, x, T_, h, k, reverse, stream);
+  if (k <= 24)
+    return launch_wide_kp<T, 24>(d, Mh, M, xb, x, T_, h, k, reverse, stream);
+  if (k <= 28)
+    return launch_wide_kp<T, 28>(d, Mh, M, xb, x, T_, h, k, reverse, stream);
+  return launch_wide_kp<T, 32>(d, Mh, M, xb, x, T_, h, k, reverse, stream);
+}
+
 template <typename T>
 static int launch(const T* d, const T* Mh, const T* M, const T* xb, T* x,
                   int T_, int h, int k, int reverse, cudaStream_t stream) {
@@ -118,20 +278,23 @@ static int launch(const T* d, const T* Mh, const T* M, const T* xb, T* x,
 }
 
 extern "C" {
+#define DFM_AFFINE_ENTRIES(SFX, T)                                             \
+  int affine_scan_##SFX(const T* d, const T* Mh, const T* M, const T* xb,    \
+                        T* x, int T_, int h, int k, int reverse,             \
+                        void* stream) {                                      \
+    return launch<T>(d, Mh, M, xb, x, T_, h, k, reverse,                     \
+                     (cudaStream_t)stream);                                  \
+  }                                                                          \
+  int affine_scan_wide_##SFX(const T* d, const T* Mh, const T* M,            \
+                             const T* xb, T* x, int T_, int h, int k,        \
+                             int reverse, void* stream) {                    \
+    return launch_wide<T>(d, Mh, M, xb, x, T_, h, k, reverse,                \
+                          (cudaStream_t)stream);                             \
+  }
 #if DFM_WANT_F32
-int affine_scan_f32(const float* d, const float* Mh, const float* M,
-                    const float* xb, float* x, int T, int h, int k,
-                    int reverse, void* stream) {
-  return launch<float>(d, Mh, M, xb, x, T, h, k, reverse,
-                       (cudaStream_t)stream);
-}
+DFM_AFFINE_ENTRIES(f32, float)
 #endif
 #if DFM_WANT_F64
-int affine_scan_f64(const double* d, const double* Mh, const double* M,
-                    const double* xb, double* x, int T, int h, int k,
-                    int reverse, void* stream) {
-  return launch<double>(d, Mh, M, xb, x, T, h, k, reverse,
-                        (cudaStream_t)stream);
-}
+DFM_AFFINE_ENTRIES(f64, double)
 #endif
 }

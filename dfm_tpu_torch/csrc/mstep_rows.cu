@@ -28,7 +28,25 @@
 // constant) and solves the k x k system in place; the second accumulates
 // the residual sum and the packed P_sm sum for the smear.  The block stages
 // chunks of kTC steps of the moments in shared memory, because every series
-// of the block reads them.
+// of the block reads them.  k <= DFM_KMAX.
+//
+// K3-wide (mstep_rows_wide): the same rows at k <= DFM_WIDE_KMAX = 32, which
+// the lone wrapper takes for 16 < k <= 32 (the masked info, pit and lowrank
+// fits at wide k).  A thread a series would keep the k (k + 1) / 2 = 528
+// packed sums of S_ff in registers at k = 32 and spill, so the sums of a
+// series are split over the warps of a block: a block owns a tile of 32
+// series (a lane a series, so the reads of Y and the mask stay coalesced)
+// and 8 warps; warp w accumulates the entries e = w + 8 j of the NE = k (k +
+// 1) / 2 + k sums (packed S_ff, then S_yf) in registers, JB of them, JB a
+// template bucket (24, 40, 56, 72) of the runtime k.  The moments of a chunk
+// of 8 steps are staged packed in shared memory (a warp reads one value a
+// sum, broadcast), with the chunk's weights and zero-filled values (a warp a
+// step).  Between the passes the sums go to shared memory ([NE][32], 143 KB
+// in f64 at k = 32, opted in) and warp 0 factors and solves a series a lane;
+// the second pass accumulates the packed P_sm sums the same way while each
+// thread owns one (step, series) residual of the chunk.  Bound: operations
+// at k = 25 (the sums are NE x T x N multiply-adds a pass, ~3.5 GFLOP a
+// pass at the headline panel, against 40 MB of Y and the mask in f32).
 #include "common.cuh"
 
 constexpr int kThreads = 64;
@@ -170,6 +188,206 @@ mstep_rows_kernel(const T* __restrict__ Y, const T* __restrict__ mask,
   R[i] = r > r_floor ? r : r_floor;
 }
 
+constexpr int kWideWarps = 8;               // = steps of a staged chunk
+constexpr int kWideThreads = 32 * kWideWarps;
+constexpr int kWideTile = 32;               // series a block, a lane a series
+
+template <typename T>
+static size_t wide_smem(int k) {
+  const int ne = k * (k + 1) / 2 + k;
+  return sizeof(T) * ((size_t)ne * kWideTile + (size_t)kWideWarps * ne +
+                      3 * (size_t)kWideWarps * kWideTile);
+}
+
+template <typename T, int JB>
+__global__ void __launch_bounds__(kWideThreads)
+mstep_rows_wide_kernel(const T* __restrict__ Y, const T* __restrict__ mask,
+                       const T* __restrict__ Ef, const T* __restrict__ EffT,
+                       const T* __restrict__ Psm, T* __restrict__ Lam,
+                       T* __restrict__ R, int T_, int N, int k, T r_floor,
+                       T lam_ridge) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nc = k * (k + 1) / 2, ne = nc + k, kk = k * k;
+  T* sS = reinterpret_cast<T*>(smem_raw);       // [ne][32] sums, factor, lam
+  T* sZ = sS + (size_t)ne * kWideTile;          // [8][ne] staged moments
+  T* sW = sZ + (size_t)kWideWarps * ne;         // [8][32] weights
+  T* sYz = sW + kWideWarps * kWideTile;         // [8][32] zero-filled values
+  T* sRed = sYz + kWideWarps * kWideTile;       // [8][32] residual partials
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * kWideTile + lane;
+  const bool live = i < N;
+
+  // Stage steps [t0, t0 + nt): the packed lower triangle of M_t and Ef_t,
+  // and (a warp a step) the tile's weights and zero-filled values.
+  auto stage = [&](const T* M, int t0, int nt) {
+    for (int q = threadIdx.x; q < nt * kk; q += kWideThreads) {
+      const int tt = q / kk, r = q % kk, a = r / k, c = r % k;
+      if (c <= a) sZ[tt * ne + tri(a, c)] = M[(size_t)t0 * kk + q];
+    }
+    for (int q = threadIdx.x; q < nt * k; q += kWideThreads)
+      sZ[(q / k) * ne + nc + q % k] = Ef[(size_t)t0 * k + q];
+    if (warp < nt) {
+      const size_t off = (size_t)(t0 + warp) * N + i;
+      const T w = live ? mask[off] : T(0);
+      sW[warp * kWideTile + lane] = w;
+      sYz[warp * kWideTile + lane] =
+          w > T(0) ? nan_to_num(Y[off]) : T(0);
+    }
+  };
+
+  T acc[JB];
+#pragma unroll
+  for (int j = 0; j < JB; ++j) acc[j] = T(0);
+  T cnt = T(0);
+  for (int t0 = 0; t0 < T_; t0 += kWideWarps) {
+    const int nt = min(kWideWarps, T_ - t0);
+    __syncthreads();
+    stage(EffT, t0, nt);
+    __syncthreads();
+    for (int tt = 0; tt < nt; ++tt) {
+      const T w = sW[tt * kWideTile + lane];
+      const T yz = sYz[tt * kWideTile + lane];
+      const T* z = sZ + tt * ne;
+      cnt += w;
+#pragma unroll
+      for (int j = 0; j < JB; ++j) {
+        const int e = warp + kWideWarps * j;
+        if (e < ne) acc[j] += (e < nc ? w : yz) * z[e];
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < JB; ++j) {
+    const int e = warp + kWideWarps * j;
+    if (e < ne) sS[e * kWideTile + lane] = acc[j];
+  }
+  __syncthreads();
+
+  // Warp 0, a series a lane: never observed -> S_ff = I; the ridge, then
+  // psd_cholesky's jitter; Cholesky in place (no clamp); the two solves
+  // turn S_yf (at [nc, ne)) into the loadings in place.
+  if (warp == 0) {
+    T* S = sS + lane;                       // entry e at S[e * 32]
+    const T jit = dfm_jitter<T>();
+    for (int a = 0; a < k; ++a)
+      for (int c = 0; c <= a; ++c) {
+        T& v = S[tri(a, c) * kWideTile];
+        if (cnt == T(0)) v = a == c ? T(1) : T(0);
+        if (a == c) v = (v + lam_ridge) + jit;
+      }
+    for (int a = 0; a < k; ++a)
+      for (int c = 0; c <= a; ++c) {
+        T s = S[tri(a, c) * kWideTile];
+        for (int m = 0; m < c; ++m)
+          s -= S[tri(a, m) * kWideTile] * S[tri(c, m) * kWideTile];
+        S[tri(a, c) * kWideTile] =
+            a == c ? dfm_sqrt(s) : s / S[tri(c, c) * kWideTile];
+      }
+    T* lam = S + nc * kWideTile;
+    for (int a = 0; a < k; ++a) {
+      T s = lam[a * kWideTile];
+      for (int m = 0; m < a; ++m)
+        s -= S[tri(a, m) * kWideTile] * lam[m * kWideTile];
+      lam[a * kWideTile] = s / S[tri(a, a) * kWideTile];
+    }
+    for (int a = k - 1; a >= 0; --a) {
+      T s = lam[a * kWideTile];
+      for (int m = a + 1; m < k; ++m)
+        s -= S[tri(m, a) * kWideTile] * lam[m * kWideTile];
+      lam[a * kWideTile] = s / S[tri(a, a) * kWideTile];
+    }
+  }
+  __syncthreads();
+
+  // Second pass: the packed sum_t w P_sm,t (registers, as above) and the
+  // residual sum, thread (warp, lane) owning step t0 + warp of each chunk.
+  const T* lam = sS + (size_t)nc * kWideTile + lane;
+  T rs = T(0);
+#pragma unroll
+  for (int j = 0; j < JB; ++j) acc[j] = T(0);
+  for (int t0 = 0; t0 < T_; t0 += kWideWarps) {
+    const int nt = min(kWideWarps, T_ - t0);
+    __syncthreads();
+    stage(Psm, t0, nt);
+    __syncthreads();
+    if (warp < nt) {
+      const T* z = sZ + warp * ne + nc;
+      T fit = T(0);
+      for (int j = 0; j < k; ++j) fit += z[j] * lam[j * kWideTile];
+      const T v = sYz[warp * kWideTile + lane] - fit;
+      rs += sW[warp * kWideTile + lane] * (v * v);
+    }
+    for (int tt = 0; tt < nt; ++tt) {
+      const T w = sW[tt * kWideTile + lane];
+      const T* z = sZ + tt * ne;
+#pragma unroll
+      for (int j = 0; j < JB; ++j) {
+        const int e = warp + kWideWarps * j;
+        if (e < nc) acc[j] += w * z[e];
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < JB; ++j) {
+    const int e = warp + kWideWarps * j;
+    if (e < nc) sS[e * kWideTile + lane] = acc[j];
+  }
+  sRed[warp * kWideTile + lane] = rs;
+  __syncthreads();
+  if (warp != 0 || !live) return;
+  rs = T(0);
+  for (int w = 0; w < kWideWarps; ++w) rs += sRed[w * kWideTile + lane];
+  const T* S = sS + lane;
+  T smear = T(0);
+  for (int a = 0; a < k; ++a) {
+    T row = T(0);
+    for (int c = 0; c < k; ++c)
+      row += S[(c <= a ? tri(a, c) : tri(c, a)) * kWideTile] *
+             lam[c * kWideTile];
+    smear += lam[a * kWideTile] * row;
+  }
+  const T counts = cnt > T(1) ? cnt : T(1);
+  const T r = (rs + smear) / counts;
+  for (int a = 0; a < k; ++a) Lam[(size_t)i * k + a] = lam[a * kWideTile];
+  R[i] = r > r_floor ? r : r_floor;
+}
+
+// The wide launch: JB, the accumulators a thread, covers ceil(ne / 8).
+template <typename T, int JB>
+static int launch_wide_jb(const T* Y, const T* mask, const T* Ef,
+                          const T* EffT, const T* Psm, T* Lam, T* R, int T_,
+                          int N, int k, double r_floor, double lam_ridge,
+                          cudaStream_t stream) {
+  const size_t bytes = wide_smem<T>(k);
+  const cudaError_t e = dfm_smem_optin(mstep_rows_wide_kernel<T, JB>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (N + kWideTile - 1) / kWideTile;
+  mstep_rows_wide_kernel<T, JB><<<grid, kWideThreads, bytes, stream>>>(
+      Y, mask, Ef, EffT, Psm, Lam, R, T_, N, k, (T)r_floor, (T)lam_ridge);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_wide(const T* Y, const T* mask, const T* Ef, const T* EffT,
+                       const T* Psm, T* Lam, T* R, int T_, int N, int k,
+                       double r_floor, double lam_ridge, cudaStream_t stream) {
+  if (k < 1 || k > DFM_WIDE_KMAX) return (int)cudaErrorInvalidValue;
+  if (N <= 0) return (int)cudaGetLastError();
+  const int need = (k * (k + 1) / 2 + k + kWideWarps - 1) / kWideWarps;
+  if (need <= 24)
+    return launch_wide_jb<T, 24>(Y, mask, Ef, EffT, Psm, Lam, R, T_, N, k,
+                                 r_floor, lam_ridge, stream);
+  if (need <= 40)
+    return launch_wide_jb<T, 40>(Y, mask, Ef, EffT, Psm, Lam, R, T_, N, k,
+                                 r_floor, lam_ridge, stream);
+  if (need <= 56)
+    return launch_wide_jb<T, 56>(Y, mask, Ef, EffT, Psm, Lam, R, T_, N, k,
+                                 r_floor, lam_ridge, stream);
+  return launch_wide_jb<T, 72>(Y, mask, Ef, EffT, Psm, Lam, R, T_, N, k,
+                               r_floor, lam_ridge, stream);
+}
+
 template <typename T>
 static int launch(const T* Y, const T* mask, const T* Ef, const T* EffT,
                   const T* Psm, T* Lam, T* R, int B, int T_, int N, int k,
@@ -197,6 +415,13 @@ extern "C" {
                                void* stream) {                               \
     return launch<T>(Y, mask, Ef, EffT, Psm, Lam, R, B, T_, N, k, r_floor,   \
                      0.0, (cudaStream_t)stream);                             \
+  }                                                                          \
+  int mstep_rows_wide_##SFX(const T* Y, const T* mask, const T* Ef,          \
+                            const T* EffT, const T* Psm, T* Lam, T* R,       \
+                            int T_, int N, int k, double r_floor,            \
+                            double lam_ridge, void* stream) {                \
+    return launch_wide<T>(Y, mask, Ef, EffT, Psm, Lam, R, T_, N, k, r_floor, \
+                          lam_ridge, (cudaStream_t)stream);                  \
   }
 #if DFM_WANT_F32
 DFM_MSTEP_ENTRIES(f32, float)

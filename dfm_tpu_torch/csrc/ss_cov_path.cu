@@ -29,15 +29,24 @@
 // in dynamic shared memory (leading dimension DFM_KMAX + 1), the one-warp
 // routines of K4, the J_t spread over SS_WARPS warps, one launch so the
 // 3 tau steps cost no launches.  k <= DFM_KMAX.
+//
+// K5a-wide (ss_cov_path_wide): the same kernel at k <= DFM_WIDE_KMAX = 32,
+// which the wrapper takes for 16 < k <= 32 (the unmasked auto -> ss fit at
+// wide k).  The matrices sit at the wide leading dimension (33) in slots
+// of k rows; 12 + 3 SS_WARPS slots would be 507 KB in f64 at k = 32, over
+// the 227 KB a block may opt in to, so phase B runs on SS_WIDE_WARPS = 4
+// warps: 24 slots, 203 KB in f64 at k = 32.
 #include "warp_linalg.cuh"
 
 constexpr int SS_WARPS = 16;
-constexpr int MAT = DFM_KMAX * LD;         // elements of one matrix slot
-constexpr int SS_SLOTS = 12 + 3 * SS_WARPS;
+constexpr int SS_WIDE_WARPS = 4;
 
-template <typename T>
-__device__ __forceinline__ SMat<T> slot(T* base, int i) {
-  return reinterpret_cast<SMat<T>>(base + (size_t)i * MAT);
+__host__ __device__ constexpr int ss_slots(int warps) { return 12 + 3 * warps; }
+
+// Matrix slot i of ``mat`` elements (rows x LDV) in shared memory.
+template <typename T, int LDV>
+__device__ __forceinline__ SMat<T, LDV> slot(T* base, int i, int mat) {
+  return reinterpret_cast<SMat<T, LDV>>(base + (size_t)i * mat);
 }
 
 // max that keeps a NaN, as jnp.max does.
@@ -46,26 +55,30 @@ __device__ __forceinline__ T nan_max(T a, T b) {
   return (isnan(a) || a > b) ? a : b;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(32 * SS_WARPS)
+// The pass at leading dimension LDV with NW warps; ``mat`` elements a slot.
+template <typename T, int LDV, int NW>
+__global__ void __launch_bounds__(32 * NW)
 ss_cov_path_kernel(const T* __restrict__ C, const T* __restrict__ A,
                    const T* __restrict__ Q, const T* __restrict__ P0,
                    T* Pp, T* Pf, T* __restrict__ M, T* __restrict__ ldG,
                    T* __restrict__ delta, T* J, T* __restrict__ Psm_front,
-                   T* __restrict__ Psm_end_rev, int tau, int k) {
+                   T* __restrict__ Psm_end_rev, int tau, int k, int mat) {
+  using SM = SMat<T, LDV>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int lane = warp_lane(), warp = threadIdx.x >> 5;
   const int kk = k * k;
   const T jit = dfm_jitter<T>();
-  SMat<T> Am = slot(sm, 8);
+  SM Am = slot<T, LDV>(sm, 8, mat);
 
   // ---- phase A: tau exact covariance steps (warp 0) ----
   if (warp == 0) {
-    SMat<T> P = slot(sm, 0), Lp = slot(sm, 1), Cm = slot(sm, 2),
-            CL = slot(sm, 3), G = slot(sm, 4), Lg = slot(sm, 5),
-            X = slot(sm, 6), Pfm = slot(sm, 7), Qm = slot(sm, 9),
-            CA = slot(sm, 10), Pprev = slot(sm, 11);
+    SM P = slot<T, LDV>(sm, 0, mat), Lp = slot<T, LDV>(sm, 1, mat),
+       Cm = slot<T, LDV>(sm, 2, mat), CL = slot<T, LDV>(sm, 3, mat),
+       G = slot<T, LDV>(sm, 4, mat), Lg = slot<T, LDV>(sm, 5, mat),
+       X = slot<T, LDV>(sm, 6, mat), Pfm = slot<T, LDV>(sm, 7, mat),
+       Qm = slot<T, LDV>(sm, 9, mat), CA = slot<T, LDV>(sm, 10, mat),
+       Pprev = slot<T, LDV>(sm, 11, mat);
     for (int e = lane; e < kk; e += 32) {
       const int i = e / k, j = e % k;
       Am[i][j] = A[e];
@@ -109,9 +122,10 @@ ss_cov_path_kernel(const T* __restrict__ C, const T* __restrict__ A,
 
   // ---- phase B: the gains, one warp per t ----
   {
-    SMat<T> Lc = slot(sm, 12 + 3 * warp), Pft = slot(sm, 13 + 3 * warp),
-            Z = slot(sm, 14 + 3 * warp);
-    for (int t = warp; t < tau; t += SS_WARPS) {
+    SM Lc = slot<T, LDV>(sm, 12 + 3 * warp, mat),
+       Pft = slot<T, LDV>(sm, 13 + 3 * warp, mat),
+       Z = slot<T, LDV>(sm, 14 + 3 * warp, mat);
+    for (int t = warp; t < tau; t += NW) {
       const T* Ppu = Pp + (size_t)min(t + 1, tau - 1) * kk;
       for (int e = lane; e < kk; e += 32) {
         const int i = e / k, j = e % k;
@@ -131,9 +145,10 @@ ss_cov_path_kernel(const T* __restrict__ C, const T* __restrict__ A,
 
   // ---- phase C: the backward passes of the smoothed covariance ----
   if (warp == 0) {
-    SMat<T> Jm = slot(sm, 0), D = slot(sm, 1), T1 = slot(sm, 2),
-            T2 = slot(sm, 3), Ps = slot(sm, 4), Pfs = slot(sm, 5),
-            Pps = slot(sm, 6);
+    SM Jm = slot<T, LDV>(sm, 0, mat), D = slot<T, LDV>(sm, 1, mat),
+       T1 = slot<T, LDV>(sm, 2, mat), T2 = slot<T, LDV>(sm, 3, mat),
+       Ps = slot<T, LDV>(sm, 4, mat), Pfs = slot<T, LDV>(sm, 5, mat),
+       Pps = slot<T, LDV>(sm, 6, mat);
     const size_t ss = (size_t)(tau - 1) * kk;
     for (int e = lane; e < kk; e += 32) {
       const int i = e / k, j = e % k;
@@ -179,36 +194,62 @@ ss_cov_path_kernel(const T* __restrict__ C, const T* __restrict__ A,
   }
 }
 
+// k <= kmax at leading dimension LDV on NW warps; slots of ``rows`` rows.
+template <typename T, int LDV, int NW>
+static int launch_pass(const T* C, const T* A, const T* Q, const T* P0,
+                       T* Pp, T* Pf, T* M, T* ldG, T* delta, T* J,
+                       T* Psm_front, T* Psm_end_rev, int tau, int k, int kmax,
+                       int rows, cudaStream_t stream) {
+  if (k < 1 || k > kmax || tau < 1) return (int)cudaErrorInvalidValue;
+  const int mat = rows * LDV;
+  const size_t smem = (size_t)ss_slots(NW) * mat * sizeof(T);
+  const cudaError_t err =
+      dfm_smem_optin(ss_cov_path_kernel<T, LDV, NW>, smem);
+  if (err != cudaSuccess) return (int)err;
+  ss_cov_path_kernel<T, LDV, NW><<<1, 32 * NW, smem, stream>>>(
+      C, A, Q, P0, Pp, Pf, M, ldG, delta, J, Psm_front, Psm_end_rev, tau, k,
+      mat);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch(const T* C, const T* A, const T* Q, const T* P0, T* Pp,
                   T* Pf, T* M, T* ldG, T* delta, T* J, T* Psm_front,
                   T* Psm_end_rev, int tau, int k, cudaStream_t stream) {
-  if (k < 1 || k > DFM_KMAX || tau < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)SS_SLOTS * MAT * sizeof(T);
-  const cudaError_t err = dfm_smem_optin(ss_cov_path_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  ss_cov_path_kernel<T><<<1, 32 * SS_WARPS, smem, stream>>>(
-      C, A, Q, P0, Pp, Pf, M, ldG, delta, J, Psm_front, Psm_end_rev, tau, k);
-  return (int)cudaGetLastError();
+  return launch_pass<T, LD, SS_WARPS>(C, A, Q, P0, Pp, Pf, M, ldG, delta, J,
+                                      Psm_front, Psm_end_rev, tau, k,
+                                      DFM_KMAX, DFM_KMAX, stream);
+}
+
+template <typename T>
+static int launch_wide(const T* C, const T* A, const T* Q, const T* P0, T* Pp,
+                       T* Pf, T* M, T* ldG, T* delta, T* J, T* Psm_front,
+                       T* Psm_end_rev, int tau, int k, cudaStream_t stream) {
+  return launch_pass<T, WIDE_LD, SS_WIDE_WARPS>(
+      C, A, Q, P0, Pp, Pf, M, ldG, delta, J, Psm_front, Psm_end_rev, tau, k,
+      DFM_WIDE_KMAX, k, stream);
 }
 
 extern "C" {
+#define DFM_SS_ENTRIES(SFX, T)                                                 \
+  int ss_cov_path_##SFX(const T* C, const T* A, const T* Q, const T* P0,     \
+                        T* Pp, T* Pf, T* M, T* ldG, T* delta, T* J,          \
+                        T* Psm_front, T* Psm_end_rev, int tau, int k,        \
+                        void* stream) {                                      \
+    return launch<T>(C, A, Q, P0, Pp, Pf, M, ldG, delta, J, Psm_front,       \
+                     Psm_end_rev, tau, k, (cudaStream_t)stream);             \
+  }                                                                          \
+  int ss_cov_path_wide_##SFX(const T* C, const T* A, const T* Q,             \
+                             const T* P0, T* Pp, T* Pf, T* M, T* ldG,        \
+                             T* delta, T* J, T* Psm_front, T* Psm_end_rev,   \
+                             int tau, int k, void* stream) {                 \
+    return launch_wide<T>(C, A, Q, P0, Pp, Pf, M, ldG, delta, J, Psm_front,  \
+                          Psm_end_rev, tau, k, (cudaStream_t)stream);        \
+  }
 #if DFM_WANT_F32
-int ss_cov_path_f32(const float* C, const float* A, const float* Q,
-                    const float* P0, float* Pp, float* Pf, float* M,
-                    float* ldG, float* delta, float* J, float* Psm_front,
-                    float* Psm_end_rev, int tau, int k, void* stream) {
-  return launch<float>(C, A, Q, P0, Pp, Pf, M, ldG, delta, J, Psm_front,
-                       Psm_end_rev, tau, k, (cudaStream_t)stream);
-}
+DFM_SS_ENTRIES(f32, float)
 #endif
 #if DFM_WANT_F64
-int ss_cov_path_f64(const double* C, const double* A, const double* Q,
-                    const double* P0, double* Pp, double* Pf, double* M,
-                    double* ldG, double* delta, double* J, double* Psm_front,
-                    double* Psm_end_rev, int tau, int k, void* stream) {
-  return launch<double>(C, A, Q, P0, Pp, Pf, M, ldG, delta, J, Psm_front,
-                        Psm_end_rev, tau, k, (cudaStream_t)stream);
-}
+DFM_SS_ENTRIES(f64, double)
 #endif
 }

@@ -4,8 +4,9 @@ chunked driver.
 The twin of ``dfm_tpu.estim.em`` for the ``dense``, ``info``, ``ss``
 (steady-state), ``pit`` (covariance-form parallel-in-time), ``pit_qr``
 (square-root parallel-in-time) and ``lowrank`` (rank-r downdate) engines.
-The masked per-series M-step rows are kernel K3 (``csrc/mstep_rows.cu``)
-on CUDA tensors, with ``mstep_rows_plain`` beside it; the unmasked rows
+The masked per-series M-step rows are kernel K3 (``csrc/mstep_rows.cu``;
+K3-wide for 16 < k <= 32) on CUDA tensors, with ``mstep_rows_plain``
+beside it; the unmasked rows
 are a GEMM plus one k x k solve and stay plain torch.  ``n_steps`` runs
 the M-step on a capacity-padded panel (the t-masked dynamics of serving
 sessions), and ``em_chunk`` is the live-capped chunk of the fused fit.
@@ -173,14 +174,14 @@ def _mstep_rows_masked(Y, mask, Ef, EffT, P_sm, r_floor, lam_ridge):
     T, N = Y.shape
     k = Ef.shape[1]
     dt, dev = Y.dtype, Y.device
-    kernels.check_k("mstep_rows", k)
+    kernel = kernels.route("mstep_rows", k)
     for name, x, shape in (("Y", Y, (T, N)), ("mask", mask, (T, N)),
                            ("Ef", Ef, (T, k)), ("EffT", EffT, (T, k, k)),
                            ("P_sm", P_sm, (T, k, k))):
         kernels.check_tensor(name, x, shape, dt, dev)
     Lam = torch.empty((N, k), dtype=dt, device=dev)
     R = torch.empty((N,), dtype=dt, device=dev)
-    kernels.launch("mstep_rows", dt, Y, mask, Ef, EffT, P_sm, Lam, R, T, N,
+    kernels.launch(kernel, dt, Y, mask, Ef, EffT, P_sm, Lam, R, T, N,
                    k, float(r_floor),
                    0.0 if lam_ridge is None else float(lam_ridge))
     return Lam, R
@@ -191,8 +192,8 @@ def mstep_rows(Y, mask, Ef, EffT, P_sm, S_ff, r_floor: float, Ysq=None,
     """Per-series M-step rows: new (Lam (N, k), R (N,)).
 
     Unmasked: S_yf = Y'E[f], one k x k solve, R from the hoisted ``Ysq``.
-    Masked: kernel K3 for CUDA tensors.  ``lam_ridge`` (optional) solves
-    (S_ff + lam I) instead of S_ff.
+    Masked: kernel K3 for CUDA tensors (K3-wide for 16 < k <= 32).
+    ``lam_ridge`` (optional) solves (S_ff + lam I) instead of S_ff.
     """
     if mask is not None:
         return _mstep_rows_masked(Y, mask, Ef, EffT, P_sm, r_floor,

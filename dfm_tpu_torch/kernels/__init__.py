@@ -39,7 +39,7 @@ import torch
 
 __all__ = ["LAUNCHES", "KERNELS", "PROBES", "build", "build_log", "launch",
            "probe", "reset_launches", "check_k", "check_lowrank",
-           "check_particles", "check_tensor", "WIDE", "route"]
+           "check_dense", "check_particles", "check_tensor", "WIDE", "route"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -49,12 +49,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KMAX = 16   # DFM_KMAX in csrc/common.cuh
 # The wide kernels' range (DFM_WIDE_KMAX): K12, the lone masked K2, the K4
 # pair and K1 at state widths past KMAX (the mixed-frequency augmented
-# state, m = 25 at S3), and K14 (pit_elements, pit_scan) at every k.
+# state, m = 25 at S3), K3, K5a and K5b past KMAX (the lone fits at 16 <
+# k <= 32), K14 (pit_elements, pit_scan) at every k, and K15
+# (dense_filter) at every N and k.
 WIDE_KMAX = 32
 # The rank-r kernels' range (DFM_LR_KMAX, DFM_LR_RMAX in lowrank_scan.cu).
 LOWRANK_KMAX, LOWRANK_RMAX = 100, 32
 # The ROADMAP row that ports the kernels past their k range.
 GENERIC_K = "ROADMAP Queue 2, 'Generic k, the kernels already ported'"
+# The ROADMAP row that ports K15 (``dense_filter``) past N = 32 (the JAX
+# package's ``auto`` never routes a panel of N >= 32 to the dense engine).
+DENSE_PAST_32 = "ROADMAP Queue 2, 'The dense engine past N = 32'"
 # K10's particle range (DFM_SV_MMAX in sv_rbpf.cu: the step kernel is one
 # block, a particle a thread) and the residual stage's series tile
 # (SV_TILE there), which sizes the per-tile partials the wrapper allocates.
@@ -101,12 +106,18 @@ KERNELS = {
     "sv_ffbs": ("sv_rbpf.cu", [_P] * 6 + [_I] * 4),
     "pit_elements": ("pit_elements.cu", [_I] + [_P] * 12 + [_I] * 3),
     "pit_scan": ("pit_scan.cu", [_I] + [_P] * 6 + [_I] * 3),
+    "dense_filter": ("dense_filter.cu", [_P] * 13 + [_I] * 3),
+    "mstep_rows_wide": ("mstep_rows.cu", [_P] * 7 + [_I] * 3 + [_D] * 2),
+    "ss_cov_path_wide": ("ss_cov_path.cu", [_P] * 12 + [_I] * 2),
+    "affine_scan_wide": ("affine_scan.cu", [_P] * 5 + [_I] * 4),
 }
 
 # The lone entry points with a wide kernel beside the k <= KMAX one, and
 # its name.  Every other kernel stops at KMAX.
 WIDE = {"obs_stats": "obs_stats_wide", "info_scan": "info_scan_wide",
-        "rts_smoother": "rts_smoother_wide", "quad_local": "quad_local_wide"}
+        "rts_smoother": "rts_smoother_wide", "quad_local": "quad_local_wide",
+        "mstep_rows": "mstep_rows_wide", "ss_cov_path": "ss_cov_path_wide",
+        "affine_scan": "affine_scan_wide"}
 
 # Measurement kernels off the model path, in the same form.
 PROBES = {
@@ -246,6 +257,19 @@ def check_lowrank(name: str, k: int, r: int) -> None:
             f"{name} kernel takes k <= {LOWRANK_KMAX} and r <= "
             f"{LOWRANK_RMAX} on CUDA (got k = {k}, r = {r}); past that is "
             f"{GENERIC_K}")
+
+
+def check_dense(name: str, N: int, k: int) -> None:
+    """Raise unless (N, k) is in K15's range: N, k >= 1 is required,
+    N > WIDE_KMAX or k > WIDE_KMAX not ported yet (the plain twin takes
+    any N and k)."""
+    if N < 1 or k < 1:
+        raise ValueError(f"{name} kernel takes N, k >= 1; got N = {N}, "
+                         f"k = {k}")
+    if N > WIDE_KMAX or k > WIDE_KMAX:
+        raise NotImplementedError(
+            f"{name} kernel takes N <= {WIDE_KMAX} and k <= {WIDE_KMAX} on "
+            f"CUDA (got N = {N}, k = {k}); past that is {DENSE_PAST_32}")
 
 
 def check_particles(name: str, M: int) -> None:

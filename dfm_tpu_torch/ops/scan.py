@@ -1,9 +1,10 @@
 """Prefix scans of the steady-state and square-root engines (twins of
 ``dfm_tpu.ops.scan``).
 
-``affine_scan`` is kernel K5b (``csrc/affine_scan.cu``): the whole mean
-recursion x_t = M_t x_{t-1} + d_t of the steady-state engine, an exact
-coefficient head and a constant tail, forward or in reverse.  Its plain
+``affine_scan`` is kernel K5b (``csrc/affine_scan.cu``; K5b-wide for
+16 < k <= 32): the whole mean recursion x_t = M_t x_{t-1} + d_t of the
+steady-state engine, an exact coefficient head and a constant tail,
+forward or in reverse.  Its plain
 twin runs the head in sequence and the tail with ``affine_const_prefix``
 (the JAX package's shift-doubling), as ``dfm_tpu.ssm.steady`` does.
 
@@ -75,19 +76,20 @@ def affine_scan(d: torch.Tensor, Mh: torch.Tensor, M: torch.Tensor,
     """The recursion over t in [0, T) with M_t = Mh[t] for t < h and M
     after: forward x_0 = xb, x_t = M_t x_{t-1} + d_t; reverse x_{T-1} =
     xb, x_t = M_t x_{t+1} + d_t.  d (T, k) (its boundary row is not
-    read), Mh (h, k, k), M (k, k), xb (k,).  Kernel K5b for CUDA tensors.
+    read), Mh (h, k, k), M (k, k), xb (k,).  Kernel K5b for CUDA tensors
+    (K5b-wide for 16 < k <= 32).
     """
     if d.device.type == "cpu":
         return affine_scan_plain(d, Mh, M, xb, reverse)
     T_, k = d.shape
     h = Mh.shape[0]
     dt, dev = d.dtype, d.device
-    kernels.check_k("affine_scan", k)
+    kernel = kernels.route("affine_scan", k)
     for name, x, shape in (("d", d, (T_, k)), ("Mh", Mh, (h, k, k)),
                            ("M", M, (k, k)), ("xb", xb, (k,))):
         kernels.check_tensor(name, x, shape, dt, dev)
     x = torch.empty((T_, k), dtype=dt, device=dev)
-    kernels.launch("affine_scan", dt, d, Mh, M, xb, x, T_, h, k,
+    kernels.launch(kernel, dt, d, Mh, M, xb, x, T_, h, k,
                    int(reverse))
     return x
 

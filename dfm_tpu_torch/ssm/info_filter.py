@@ -306,8 +306,8 @@ def loglik_eval(Y, p, mask=None, precise: bool = True,
 def smooth(Y: torch.Tensor, p: SSMParams, mask=None,
            dense: bool = False):
     """Filter + RTS smoother at ``p``; returns (x_sm, P_sm) on Y's device.
-    ``dense`` uses the N x N filter (the small-N engine) instead of the
-    information form."""
+    ``dense`` uses the N x N filter (the small-N engine, kernel K15 on
+    CUDA) instead of the information form."""
     kf = (kalman_filter if dense else info_filter)(Y, p, mask=mask)
     sm = rts_smoother(kf, p.to(dtype=Y.dtype))
     return sm.x_sm, sm.P_sm

@@ -1,8 +1,11 @@
 """Dense-covariance Kalman filter and the RTS smoother.
 
 The PyTorch twin of ``dfm_tpu.ssm.kalman``.  ``kalman_filter`` is the
-small-N engine (``filter="auto"`` picks it below N = 32): an N x N
-innovation covariance per step, plain torch over a Python loop.
+small-N engine (``filter="auto"`` picks it below N = 32: an N x N
+innovation covariance a step): kernel K15 (``csrc/dense_filter.cu``, the
+whole T-step chain in one launch, N <= 32 and k <= 32) for CUDA tensors;
+``kalman_filter_plain``, the same step as a Python loop of torch ops, is
+its plain version, which the wrapper takes only for CPU tensors.
 ``rts_smoother`` is the backward half of kernel K4 (``csrc/info_scan.cu``;
 K4-wide for 16 < k <= 32); ``rts_smoother_plain`` is its plain-torch
 version, which the wrapper takes only for CPU tensors.
@@ -22,7 +25,8 @@ from .. import kernels
 from ..ops.linalg import chol_logdet, chol_solve, psd_cholesky, sym
 from .params import FilterResult, SmootherResult, SSMParams
 
-__all__ = ["kalman_filter", "rts_smoother", "rts_smoother_plain"]
+__all__ = ["kalman_filter", "kalman_filter_plain", "rts_smoother",
+           "rts_smoother_plain"]
 
 _LOG2PI = 1.8378770664093453  # log(2*pi)
 
@@ -35,12 +39,10 @@ def _masked_obs(y_t, mask_t, Lam, R):
     return w * torch.nan_to_num(y_t), w[:, None] * Lam, w * R + (1.0 - w)
 
 
-def kalman_filter(Y: torch.Tensor, p: SSMParams,
-                  mask: Optional[torch.Tensor] = None) -> FilterResult:
-    """Forward filter with exact log-likelihood; O(T N^3).
-
-    Y: (T, N); mask: optional (T, N) {0,1}.  Joseph-form covariance update.
-    """
+def kalman_filter_plain(Y: torch.Tensor, p: SSMParams,
+                        mask: Optional[torch.Tensor] = None) -> FilterResult:
+    """Plain twin of ``kalman_filter``: the step as a Python loop of torch
+    ops.  Joseph-form covariance update."""
     dtype = Y.dtype
     p = p.to(dtype=dtype)
     T, N = Y.shape
@@ -70,6 +72,40 @@ def kalman_filter(Y: torch.Tensor, p: SSMParams,
         P = sym(p.A @ P_f @ p.A.T + p.Q)
     return FilterResult(torch.stack(xp), torch.stack(Pp), torch.stack(xf),
                         torch.stack(Pf), torch.stack(lls).sum())
+
+
+def kalman_filter(Y: torch.Tensor, p: SSMParams,
+                  mask: Optional[torch.Tensor] = None) -> FilterResult:
+    """Forward filter with exact log-likelihood; O(T N^3).
+
+    Y: (T, N); mask: optional (T, N) {0,1}.  Joseph-form covariance update.
+    Kernel K15 for CUDA tensors (N <= 32, k <= 32; past that
+    ``NotImplementedError``), the plain version for CPU tensors.
+    """
+    if Y.device.type == "cpu":
+        return kalman_filter_plain(Y, p, mask)
+    T, N = Y.shape
+    k = p.Lam.shape[1]
+    dt, dev = Y.dtype, Y.device
+    kernels.check_dense("dense_filter", N, k)
+    p = SSMParams(*(x.to(dt).contiguous() for x in p))
+    Y = Y.contiguous()
+    ins = [("Y", Y, (T, N)), ("Lam", p.Lam, (N, k)), ("R", p.R, (N,)),
+           ("A", p.A, (k, k)), ("Q", p.Q, (k, k)), ("mu0", p.mu0, (k,)),
+           ("P0", p.P0, (k, k))]
+    if mask is not None:
+        mask = mask.to(dt).contiguous()
+        ins.append(("mask", mask, (T, N)))
+    for name, x, shape in ins:
+        kernels.check_tensor(name, x, shape, dt, dev)
+    x_pred = torch.empty((T, k), dtype=dt, device=dev)
+    P_pred = torch.empty((T, k, k), dtype=dt, device=dev)
+    x_filt = torch.empty((T, k), dtype=dt, device=dev)
+    P_filt = torch.empty((T, k, k), dtype=dt, device=dev)
+    lls = torch.empty((T,), dtype=dt, device=dev)
+    kernels.launch("dense_filter", dt, Y, mask, p.Lam, p.R, p.A, p.Q, p.mu0,
+                   p.P0, x_pred, P_pred, x_filt, P_filt, lls, T, N, k)
+    return FilterResult(x_pred, P_pred, x_filt, P_filt, lls.sum())
 
 
 def rts_smoother_plain(kf: FilterResult, p: SSMParams) -> SmootherResult:

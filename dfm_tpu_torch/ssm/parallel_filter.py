@@ -589,9 +589,12 @@ def qr_filter_assemble(x_f, U_f, C, A, Q, mu0, P0):
     return outs
 
 
-def pit_qr_from_stats(stats: ObsStats, p: SSMParams):
+def pit_qr_from_stats(stats: ObsStats, p: SSMParams,
+                      scan_impl: str = "blocked"):
     """Element build + prefix scan + moment assembly: (x_pred, P_pred,
-    x_f, P_f, logdetG)."""
+    x_f, P_f, logdetG).  ``scan_impl``: "blocked" (the only one ported;
+    "associative" raises)."""
+    _check_scan_impl(scan_impl)
     elems = qr_filter_elements(stats, p.A, p.Q, p.mu0, p.P0)
     pref = qr_scan(elems)
     x_f, U_f = pref[1], pref[2]
@@ -601,12 +604,15 @@ def pit_qr_from_stats(stats: ObsStats, p: SSMParams):
 
 
 def pit_qr_filter(Y: torch.Tensor, p: SSMParams,
-                  mask: Optional[torch.Tensor] = None) -> FilterResult:
+                  mask: Optional[torch.Tensor] = None,
+                  scan_impl: str = "blocked") -> FilterResult:
     """Square-root parallel-in-time filter: the contract of
-    ``info_filter`` (exact loglik, predicted and filtered moments)."""
+    ``info_filter`` (exact loglik, predicted and filtered moments).
+    ``scan_impl``: as ``pit_qr_from_stats``."""
     p = p.to(dtype=Y.dtype)
     stats = obs_stats(Y, p.Lam, p.R, mask=mask)
-    x_pred, P_pred, x_f, P_f, logdetG = pit_qr_from_stats(stats, p)
+    x_pred, P_pred, x_f, P_f, logdetG = pit_qr_from_stats(stats, p,
+                                                          scan_impl)
     quad_R = quad_local(Y, p.Lam, p.R, x_pred, mask)
     ll = loglik_from_terms(stats, logdetG, P_f, quad_R,
                            u_from_stats(stats, x_pred))
@@ -677,9 +683,11 @@ def qr_smoother_assemble(D_sm, J):
     return P_sm, P_lag
 
 
-def pit_qr_smoother(kf: FilterResult, p: SSMParams) -> SmootherResult:
+def pit_qr_smoother(kf: FilterResult, p: SSMParams,
+                    scan_impl: str = "blocked") -> SmootherResult:
     """Square-root parallel-in-time RTS smoother: the contract of
-    ``rts_smoother``."""
+    ``rts_smoother``.  ``scan_impl``: as ``pit_qr_from_stats``."""
+    _check_scan_impl(scan_impl)
     p = p.to(dtype=kf.x_filt.dtype)
     elems, J = qr_smoother_elements(kf, p.A, p.Q)
     suf = qr_scan(elems, smoother=True)

@@ -16,7 +16,9 @@ Two kernels carry it on CUDA tensors, each with its plain twin beside it
   covariance steps, the gains J_t and the two backward passes of the
   smoothed covariance, in one launch;
 - K5b ``ops.scan.affine_scan`` (``csrc/affine_scan.cu``): the filtered
-  means forward and the smoothed means in reverse.
+  means forward and the smoothed means in reverse;
+
+each with a wide kernel for 16 < k <= 32 (``kernels.route``).
 
 Exactness: not bit-exact against the exact pair; the freeze error decays
 like rho(closed loop)^(2 tau), and ``delta`` (the relative change of the
@@ -135,13 +137,13 @@ def ss_cov_path(C: torch.Tensor, A: torch.Tensor, Q: torch.Tensor,
     and J_ss last), and the two backward smoothed-covariance passes:
     Psm_front (tau, k, k) at t = 0 .. tau-1 and Psm_end_rev (tau, k, k)
     in step order from the end (its last entry is the interior fixed
-    point).  Kernel K5a for CUDA tensors.
+    point).  Kernel K5a for CUDA tensors (K5a-wide for 16 < k <= 32).
     """
     if C.device.type == "cpu":
         return ss_cov_path_plain(C, A, Q, P0, tau)
     k = A.shape[0]
     dt, dev = A.dtype, A.device
-    kernels.check_k("ss_cov_path", k)
+    kernel = kernels.route("ss_cov_path", k)
     if tau < 1:
         raise ValueError(f"ss_cov_path: tau = {tau} < 1")
     for name, x in (("C", C), ("A", A), ("Q", Q), ("P0", P0)):
@@ -150,7 +152,7 @@ def ss_cov_path(C: torch.Tensor, A: torch.Tensor, Q: torch.Tensor,
     ldG = torch.empty((tau,), dtype=dt, device=dev)
     delta = torch.empty((1,), dtype=dt, device=dev)
     Pp, Pf, M, J, front, end_rev = mats
-    kernels.launch("ss_cov_path", dt, C, A, Q, P0, Pp, Pf, M, ldG, delta, J,
+    kernels.launch(kernel, dt, C, A, Q, P0, Pp, Pf, M, ldG, delta, J,
                    front, end_rev, tau, k)
     return Pp, Pf, M, ldG, delta[0], J, front, end_rev
 

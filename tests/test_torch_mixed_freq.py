@@ -340,11 +340,15 @@ def test_past_the_wide_range_raises_naming_the_roadmap_row():
     kernels.check_k("quad_local_wide", 32, kernels.WIDE_KMAX)
     with pytest.raises(NotImplementedError, match="Generic k"):
         kernels.check_k("quad_local_wide", 33, kernels.WIDE_KMAX)
-    # Every other kernel stops at 16.
-    for name in ("batched_info_scan", "mstep_rows", "tvl_quad",
-                 "loading_filter", "ss_cov_path"):
+    # Every other kernel stops at 16, but K3 and K5a, whose wide kernels
+    # take 16 < k <= 32 and stop at 33.
+    for name in ("batched_info_scan", "tvl_quad", "loading_filter"):
         with pytest.raises(NotImplementedError, match="Generic k"):
             kernels.check_k(name, 17)
+    for name in ("mstep_rows", "ss_cov_path"):
+        assert kernels.route(name, 17) == kernels.WIDE[name]
+        with pytest.raises(NotImplementedError, match="Generic k"):
+            kernels.route(name, 33)
 
 
 def test_mf_cpu_path_launches_no_kernel():

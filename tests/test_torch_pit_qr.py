@@ -21,12 +21,14 @@ from dfm_tpu.backends import cpu_ref as jcpu
 from dfm_tpu.estim import em as jem
 from dfm_tpu.ops import linalg as jla
 from dfm_tpu.ops import scan as jsc
+from dfm_tpu.ssm import info_filter as jif
 from dfm_tpu.ssm import parallel_filter as jpf
 from dfm_tpu.ssm.params import SSMParams as JP
 from dfm_tpu.utils import dgp
 from dfm_tpu_torch.estim import em as tem
 from dfm_tpu_torch.ops import linalg as tla
 from dfm_tpu_torch.ops import scan as tsc
+from dfm_tpu_torch.ssm import info_filter as tif
 from dfm_tpu_torch.ssm import parallel_filter as tpf
 from dfm_tpu_torch.ssm.params import SSMParams as TP
 from torch_parity import close, one_torch_thread  # noqa: F401
@@ -208,3 +210,37 @@ def test_em_through_pit_qr_matches_jax(setup):
     np.testing.assert_allclose(lls_t.numpy(), np.asarray(lls_j), rtol=1e-9)
     for g, w in zip(ps[-1], pj):
         close(g, w, 1e-9)
+
+
+@pytest.mark.parametrize("scan_impl", ["blocked", "associative"])
+def test_pit_qr_functions_take_scan_impl(setup, scan_impl):
+    """``pit_qr_from_stats``, ``pit_qr_filter`` and ``pit_qr_smoother``
+    take ``scan_impl`` as their JAX twins do: "blocked" gives the twins'
+    answers, "associative" (not ported) raises naming the ROADMAP row."""
+    p, Y, W = setup
+    pj, pt = JP.from_numpy(p, jnp.float64), TP.from_numpy(p)
+    Yt, Wt = torch.as_tensor(Y), torch.as_tensor(W)
+    st = tif.obs_stats(Yt, pt.Lam, pt.R, mask=Wt)
+    if scan_impl == "associative":
+        kt = tpf.pit_qr_filter(Yt, pt, mask=Wt)
+        for call in (lambda: tpf.pit_qr_from_stats(st, pt, scan_impl),
+                     lambda: tpf.pit_qr_filter(Yt, pt, mask=Wt,
+                                               scan_impl=scan_impl),
+                     lambda: tpf.pit_qr_smoother(kt, pt, scan_impl)):
+            with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+                call()
+        return
+    sj = jif.obs_stats(jnp.asarray(Y), pj.Lam, pj.R, mask=jnp.asarray(W))
+    for got, want in zip(tpf.pit_qr_from_stats(st, pt, scan_impl),
+                         jpf.pit_qr_from_stats(sj, pj, scan_impl)):
+        np.testing.assert_allclose(got, want, atol=1e-9)
+    kj = jpf.pit_qr_filter(jnp.asarray(Y), pj, mask=jnp.asarray(W),
+                           scan_impl=scan_impl)
+    kt = tpf.pit_qr_filter(Yt, pt, mask=Wt, scan_impl=scan_impl)
+    assert abs(float(kt.loglik) - float(kj.loglik)) < 1e-7 * abs(
+        float(kj.loglik))
+    smj = jpf.pit_qr_smoother(kj, pj, scan_impl=scan_impl)
+    smt = tpf.pit_qr_smoother(kt, pt, scan_impl=scan_impl)
+    for name in ("x_sm", "P_sm", "P_lag"):
+        np.testing.assert_allclose(getattr(smt, name), getattr(smj, name),
+                                   atol=1e-8)

@@ -166,6 +166,9 @@ def test_cpu_path_launches_no_kernel():
     res = dtt.fit(dtt.DynamicFactorModel(2), Y, max_iters=2, tol=0.0,
                   backend=dtt.TorchBackend(device="cpu", filter="pit"))
     assert res.filter == "pit" and res.n_iters == 2
+    res = dtt.fit(dtt.DynamicFactorModel(2), Y[:, :20], max_iters=2,
+                  tol=0.0, backend=dtt.TorchBackend(device="cpu"))
+    assert res.filter == "dense" and res.n_iters == 2
     assert set(kernels.LAUNCHES) == {"quad_local", "obs_stats", "mstep_rows",
                                      "info_scan", "rts_smoother",
                                      "ss_cov_path", "affine_scan",
@@ -182,5 +185,7 @@ def test_cpu_path_launches_no_kernel():
                                      "obs_stats_wide", "info_scan_wide",
                                      "rts_smoother_wide", "quad_local_wide",
                                      "sv_rbpf", "sv_ffbs", "pit_elements",
-                                     "pit_scan"}
+                                     "pit_scan", "dense_filter",
+                                     "mstep_rows_wide", "ss_cov_path_wide",
+                                     "affine_scan_wide"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())
