@@ -6,8 +6,8 @@
 ``--phases`` takes a comma list of phase groups (all by default, the
 acceptance run): headline (phases 2-5), session (6-8), batched (9-13),
 fleet (14-18), lowrank (19-23), tvl (24-26), mf (27-30), sv (31-33), pit
-(34-36), dense (37-39), wide (40-43).  The setup, the build and the final
-lines always run.
+(34-36), dense (37-39), wide (40-43), bwide (44-49).  The setup, the build
+and the final lines always run.
 
 Phases, each of which raises (and the script exits non-zero) on failure:
 
@@ -300,6 +300,40 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    1e-10.
 43. contract: the loglik contract of phase 5 for the dense fit (k = 10,
    N = 31) and the k = 25 masked info and unmasked ss fits.
+44. batched wide kernels: K4b-wide (both passes, ``csrc/info_scan.cu``),
+   K1b-wide (``csrc/quad_local.cu``) and K6b-wide (``csrc/bsolve_rows.cu``,
+   the loadings' and A's rows), the batched wrappers' kernels at 16 < k
+   <= 32, against their plain twins on the 8-restart ``fit_many`` inputs
+   of the unmasked k = 25 panel (B = 8, T = 500, N = 10,000), and the lone
+   K4-wide pair alone at (T, k) = (500, 25) on the masked panel, f64 and
+   f32 (the TOL rule), timed warm and cold beside the plain twin, the
+   bound, K4's latency floor at k = 25 and, for K6b, ``cholesky`` +
+   ``cholesky_solve``.
+45. batched k-sweep: the batched kernels through their wrappers at k =
+   17, 24, 25 and 32 on phase 9's 120 x 400 shapes (the Hetero bucket's
+   scan with NaN and inf at its pad steps), the fleet path at k = 17 and
+   32 (phase 17's tenants, every kernel of the tick against its twin), and
+   k = 33 must raise NotImplementedError in all seven wrappers.
+46. batched paths at k = 25 (f32): ``fit_many`` of 8 restarts of the
+   unmasked k = 25 panel (20 iterations, tol = 0) beside 8 looped lone
+   info fits; ``select_n_factors_em`` over k = 8, 16, 20, 24, 25, 28, 32
+   (B = 7 lanes padded to 32); ``oos_evaluate(engine="batched")``, 12
+   windows of 400 rows, 10 iterations: each with n_chunks + 1 reads and
+   exactly the wide twins' launches of phases 10-12 (no k <= 16 batched
+   kernel).
+47. k = 25 fleets: phase 14 on four masked 480 x 10,000 tenants at k =
+   25 and two 400 x 6,000 at k = 12 in one info bucket at (1,000, 10,000,
+   25), 5 drains (odd drains: tenants 1, 3 and 5), 1 read and exactly
+   phase 14's launches (the wide twins) a tick under the sync check, lane
+   0 (k = 25) and lane 4 (k = 12, padded across 16) held to their lone
+   sessions within 5e-3, then the tick's kernels on the bucket's buffers
+   (f64 and f32, timed); phase 23 on two 480 x 10,000 tenants at k = 25
+   in a lowrank bucket (rank 8, 3 drains, f64 then f32).
+48. batched reference at k = 20: ``fit_many`` of 3 panels and a Hetero
+   ``run_batched_em`` at 120 x 80, and a 3-tick fleet of a 100 x 40 tenant
+   at k = 20 and a 90 x 30 tenant at k = 12, card f64 against CPU f64
+   within 1e-12.
+49. contract: phase 13's loglik contract for the 8 f32 restarts at k = 25.
 
 Output: one JSON line per kernel and dtype, one per fit, contract check,
 ring case, session, batched, fleet, TVL, MF, SV, K14, dense and wide
@@ -394,7 +428,8 @@ L2_FLUSH_BYTES = 256 * 2**20                   # > 5x the H100's 50 MB L2
 # qr_elements; K14-scan, ~2 sqrt(T) dependent combines with general
 # solves, 1e-4 / 1e-9 as the other scans.  K15, a T-step recursion with
 # an N x N factorization a step, takes 1e-4 / 1e-9 as K4; the wide K3,
-# K5a and K5b their k <= 16 kernels' tolerances.
+# K5a and K5b, and the batched wide twins (K4b, K1b, K6b, K2b-m, K1b-m,
+# K3b-m at 16 < k <= 32), their k <= 16 kernels' tolerances.
 TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "mstep_rows": 1e-4, "info_scan": 1e-4,
                        "rts_smoother": 1e-4, "ss_cov_path": 1e-4,
@@ -412,7 +447,13 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "sv_rbpf": 1e-4, "sv_ffbs": 0.0,
                        "pit_elements": 1e-4, "pit_scan": 1e-4,
                        "dense_filter": 1e-4, "mstep_rows_wide": 1e-4,
-                       "ss_cov_path_wide": 1e-4, "affine_scan_wide": 1e-4},
+                       "ss_cov_path_wide": 1e-4, "affine_scan_wide": 1e-4,
+                       "batched_info_scan_wide": 1e-4,
+                       "batched_rts_wide": 1e-4, "batched_quad_wide": 1e-5,
+                       "batched_quad_masked_wide": 1e-5,
+                       "batched_solve_rows_wide": 1e-4,
+                       "batched_obs_stats_wide": 1e-5,
+                       "batched_mstep_rows_wide": 1e-4},
        torch.float64: {"quad_local": 1e-10, "obs_stats": 1e-10,
                        "mstep_rows": 1e-9, "info_scan": 1e-9,
                        "rts_smoother": 1e-9, "ss_cov_path": 1e-9,
@@ -430,7 +471,13 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "sv_rbpf": 1e-10, "sv_ffbs": 0.0,
                        "pit_elements": 1e-10, "pit_scan": 1e-9,
                        "dense_filter": 1e-9, "mstep_rows_wide": 1e-9,
-                       "ss_cov_path_wide": 1e-9, "affine_scan_wide": 1e-9}}
+                       "ss_cov_path_wide": 1e-9, "affine_scan_wide": 1e-9,
+                       "batched_info_scan_wide": 1e-9,
+                       "batched_rts_wide": 1e-9, "batched_quad_wide": 1e-10,
+                       "batched_quad_masked_wide": 1e-10,
+                       "batched_solve_rows_wide": 1e-10,
+                       "batched_obs_stats_wide": 1e-10,
+                       "batched_mstep_rows_wide": 1e-9}}
 # The TPU routine each kernel replaces.
 REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "obs_stats": "dfm_tpu/ssm/info_filter.py:69",
@@ -468,7 +515,14 @@ REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "dense_filter": "dfm_tpu/ssm/kalman.py:43",
             "mstep_rows_wide": "dfm_tpu/estim/em.py:163",
             "ss_cov_path_wide": "dfm_tpu/ssm/steady.py:124",
-            "affine_scan_wide": "dfm_tpu/ops/scan.py:39"}
+            "affine_scan_wide": "dfm_tpu/ops/scan.py:39",
+            "batched_info_scan_wide": "dfm_tpu/estim/batched.py:358",
+            "batched_rts_wide": "dfm_tpu/estim/batched.py:444",
+            "batched_quad_wide": "dfm_tpu/estim/batched.py:409",
+            "batched_quad_masked_wide": "dfm_tpu/estim/batched.py:650",
+            "batched_solve_rows_wide": "dfm_tpu/estim/batched.py:106",
+            "batched_obs_stats_wide": "dfm_tpu/estim/batched.py:593",
+            "batched_mstep_rows_wide": "dfm_tpu/estim/batched.py:682"}
 # The variant of each kernel whose f32 record goes into the summary line.
 SUMMARY_VARIANT = {"quad_local": "masked", "obs_stats": "masked",
                    "mstep_rows": "masked", "info_scan": "masked",
@@ -700,8 +754,9 @@ def qr_cases(stats, pt, label: str, unit: bool = True) -> list:
 def masked_cases(Yt, mt, pt, label: str = "masked",
                  lam_ridge=None) -> tuple:
     """K1-K4 on a masked panel already on the card, on inputs the plain
-    pipeline makes from it (K3 with ``lam_ridge`` when given): (cases,
-    the plain observation stats).  Call under ``highest_precision()``."""
+    pipeline makes from it (K3 with ``lam_ridge`` when given), each case
+    named by the kernel its wrapper routes to at this k: (cases, the plain
+    observation stats).  Call under ``highest_precision()``."""
     dtype = Yt.dtype
     T_, N_ = Yt.shape
     k = pt.A.shape[0]
@@ -713,27 +768,28 @@ def masked_cases(Yt, mt, pt, label: str = "masked",
     EffT, _ = moments(sm)
     scan_in = (stats.b, stats.C, pt.A, pt.Q, pt.mu0, pt.P0)
     cases = [
-        case("obs_stats", label,
+        case(kernels.route("obs_stats", k), label,
              lambda: inf.obs_stats(Yt, pt.Lam, pt.R, mt),
              lambda: inf.obs_stats_plain(Yt, pt.Lam, pt.R, mt),
              (Yt, pt.Lam, pt.R, mt), TN * (2 * k + k * (k + 1) + 6),
              library=lambda: torch.einsum("nk,tn,n,nl->tkl", pt.Lam, mt,
                                           1.0 / pt.R, pt.Lam)),
-        case("info_scan", label,
+        case(kernels.route("info_scan", k), label,
              lambda: inf.info_scan(stats, pt.A, pt.Q, pt.mu0, pt.P0),
              lambda: inf.info_scan_plain(stats, pt.A, pt.Q, pt.mu0, pt.P0),
              scan_in, T_ * (12.67 * k3 + 4 * k2),
              floor=lambda: latency_ms("info_scan", dtype, k, T_)),
-        case("quad_local", label,
+        case(kernels.route("quad_local", k), label,
              lambda: inf.quad_local(Yt, pt.Lam, pt.R, scan[0], mt),
              lambda: inf.quad_local_plain(Yt, pt.Lam, pt.R, scan[0], mt),
              (Yt, pt.Lam, pt.R, scan[0], mt), TN * (2 * k + 5)),
-        case("rts_smoother", label, lambda: rts_smoother(kf, pt),
+        case(kernels.route("rts_smoother", k), label,
+             lambda: rts_smoother(kf, pt),
              lambda: rts_smoother_plain(kf, pt),
              (kf.x_pred, kf.P_pred, kf.x_filt, kf.P_filt, pt.A),
              T_ * (10.33 * k3 + 4 * k2),
              floor=lambda: latency_ms("rts_smoother", dtype, k, T_)),
-        case("mstep_rows", label,
+        case(kernels.route("mstep_rows", k), label,
              lambda: mstep_rows(Yt, mt, sm.x_sm, EffT, sm.P_sm, None, 1e-6,
                                 lam_ridge=lam_ridge),
              lambda: mstep_rows_plain(Yt, mt, sm.x_sm, EffT, sm.P_sm, 1e-6,
@@ -1004,7 +1060,14 @@ OWN_FIT = {"quad_local": "masked", "obs_stats": "masked",
            "pit_elements": "masked pit", "pit_scan": "masked pit",
            "dense_filter": "dense", "mstep_rows_wide": "k25 masked auto",
            "ss_cov_path_wide": "k25 unmasked auto",
-           "affine_scan_wide": "k25 unmasked auto"}
+           "affine_scan_wide": "k25 unmasked auto",
+           "batched_info_scan_wide": "fit_many k25",
+           "batched_rts_wide": "fit_many k25",
+           "batched_quad_wide": "fit_many k25",
+           "batched_solve_rows_wide": "fit_many k25",
+           "batched_obs_stats_wide": "fleet k25",
+           "batched_quad_masked_wide": "fleet k25",
+           "batched_mstep_rows_wide": "fleet k25"}
 
 
 def fit_phase(seed: int) -> dict:
@@ -1660,19 +1723,29 @@ class BatchedWatch:
         tb.read_packed, tb.run_batched_em = self._saved
 
 
-def check_batched_launches(label: str, launches: dict, iters: int) -> dict:
+def routed(counts: dict, k: int) -> dict:
+    """``counts`` keyed by the kernel each entry point launches at k (its
+    wide twin at 16 < k <= 32: ``kernels.route``)."""
+    return {kernels.route(n, k) if n in kernels.WIDE else n: c
+            for n, c in counts.items()}
+
+
+def check_batched_launches(label: str, launches: dict, iters: int,
+                           k: int = K) -> dict:
     """Per batched EM iteration (A estimated): one K4b pair, one K1b and
-    two K6b; the final smooth one more K4b pair; no other kernel.  Returns
-    the launches per iteration, the smooth's included."""
-    want = {"batched_info_scan": iters + 1, "batched_rts": iters + 1,
-            "batched_quad": iters, "batched_solve_rows": 2 * iters}
+    two K6b (their wide twins at 16 < k <= 32); the final smooth one more
+    K4b pair; no other kernel.  Returns the launches per iteration, the
+    smooth's included."""
+    want = routed({"batched_info_scan": iters + 1, "batched_rts": iters + 1,
+                   "batched_quad": iters, "batched_solve_rows": 2 * iters},
+                  k)
     wrong = {n: launches[n] for n in launches
              if launches[n] != want.get(n, 0)}
     if wrong:
         raise AssertionError(f"{label} launches {wrong} in {iters} "
                              f"iterations, expected {want} and no other "
                              "kernel")
-    return {n: launches[n] / iters for n in BATCHED}
+    return {n: launches[n] / iters for n in want}
 
 
 def solve_inputs(Yt, sm, pt, hetero=None) -> list:
@@ -1695,11 +1768,15 @@ def solve_inputs(Yt, sm, pt, hetero=None) -> list:
     return calls
 
 
-def batched_cases(Yt, pt, label: str, hetero=None) -> list:
-    """K4b-fwd, K1b, K4b-bwd and K6b (the loadings' and A's solves) on the
-    inputs the plain batched pipeline makes from the stacked panel ``Yt``
-    and params ``pt`` (with the Hetero freeze and masked sums when
-    given).  Call under ``highest_precision()``."""
+def batched_cases(Yt, pt, label: str, hetero=None, junk: bool = False
+                  ) -> list:
+    """K4b-fwd, K1b, K4b-bwd and K6b (the loadings' and A's solves; their
+    wide twins at 16 < k <= 32, each case named by the kernel its wrapper
+    routes to) on the inputs the plain batched pipeline makes from the
+    stacked panel ``Yt`` and params ``pt`` (with the Hetero freeze and
+    masked sums when given).  With ``junk`` the scan's b holds NaN and
+    inf at every lane's pad steps (the freeze must select, never
+    multiply).  Call under ``highest_precision()``."""
     dtype = Yt.dtype
     B_, T_, N_ = Yt.shape
     k = pt.A.shape[-1]
@@ -1709,22 +1786,28 @@ def batched_cases(Yt, pt, label: str, hetero=None) -> list:
     scan = tb._batched_info_scan_plain(b, C, pt.A, pt.Q, pt.mu0, pt.P0, tm)
     flt = scan[:4]
     sm = tb._batched_rts_plain(*flt, pt.A)
-    scan_in = (b, C, pt.A, pt.Q, pt.mu0, pt.P0) + (() if tm is None
-                                                   else (tm,))
+    bs = b
+    if junk and tm is not None:
+        pad = (tm <= 0)[..., None].expand_as(b)
+        bs = torch.where(pad, torch.full_like(b, float("nan")), b)
+        bs[:, -1, 0] = torch.where(pad[:, -1, 0], float("inf"), bs[:, -1, 0])
+    scan_in = (bs, C, pt.A, pt.Q, pt.mu0, pt.P0) + (() if tm is None
+                                                    else (tm,))
     cases = [
-        case("batched_info_scan", label,
-             lambda: tb._batched_info_scan(b, C, pt.A, pt.Q, pt.mu0, pt.P0,
+        case(kernels.route("batched_info_scan", k), label,
+             lambda: tb._batched_info_scan(bs, C, pt.A, pt.Q, pt.mu0, pt.P0,
                                            tm),
-             lambda: tb._batched_info_scan_plain(b, C, pt.A, pt.Q, pt.mu0,
+             lambda: tb._batched_info_scan_plain(bs, C, pt.A, pt.Q, pt.mu0,
                                                  pt.P0, tm),
              scan_in, B_ * T_ * (12.67 * k3 + 4 * k2),
              floor=lambda: latency_ms("info_scan", dtype, k, T_)),
-        case("batched_quad", label,
+        case(kernels.route("batched_quad", k), label,
              lambda: tb._batched_quad(Yt, pt.Lam, pt.R, scan[0], b, C),
              lambda: tb._batched_quad_plain(Yt, pt.Lam, pt.R, scan[0], b, C),
              (Yt, pt.Lam, pt.R, scan[0], b, C),
              B_ * T_ * (N_ * (2 * k + 5) + 2 * k2)),
-        case("batched_rts", label, lambda: tb._batched_rts(*flt, pt.A),
+        case(kernels.route("batched_rts", k), label,
+             lambda: tb._batched_rts(*flt, pt.A),
              lambda: tb._batched_rts_plain(*flt, pt.A), (*flt, pt.A),
              B_ * T_ * (10.33 * k3 + 4 * k2),
              floor=lambda: latency_ms("rts_smoother", dtype, k, T_)),
@@ -1732,7 +1815,7 @@ def batched_cases(Yt, pt, label: str, hetero=None) -> list:
     for which, (S, V) in zip(("Lam rows", "A rows"),
                              solve_inputs(Yt, sm, pt, hetero)):
         cases.append(case(
-            "batched_solve_rows", f"{label} {which}",
+            kernels.route("batched_solve_rows", k), f"{label} {which}",
             lambda S=S, V=V: tb._bsolve_rows(S, V),
             lambda S=S, V=V: tb._bsolve_rows_plain(S, V), (S, V),
             B_ * (k3 / 3 + 2 * V.shape[1] * k2),
@@ -1852,11 +1935,12 @@ def batched_kernel_phase(seed: int) -> dict:
     return summary
 
 
-def batched_k_sweep(seed: int) -> None:
-    """The batched kernels at the ends of their k dispatch, k = 1 and 16,
-    on 120 x 400 panels (B = 3 restarts and a B = 4 Hetero bucket), f64
-    and f32: error checks only."""
-    for k in (1, 16):
+def batched_k_sweep(seed: int, ks=(1, 16), junk: bool = False) -> None:
+    """The batched kernels at each k of ``ks`` (by default the ends of
+    their k dispatch, 1 and 16) on 120 x 400 panels (B = 3 restarts, a
+    B = 4 Hetero bucket, with ``junk`` NaN and inf in its scan's pad
+    steps, and the B = k k-grid), f64 and f32: error checks only."""
+    for k in ks:
         refs = {}
         inputs = batched_inputs(seed + 2, T_=120, N_=400, K_=k, B_=3)
         for dtype in (torch.float64, torch.float32):
@@ -1869,7 +1953,7 @@ def batched_k_sweep(seed: int) -> None:
                     *het, 120, 400, dtype=dtype, tol=0.0, iter_cap=5,
                     device="cuda")
                 with highest_precision():
-                    for c in batched_cases(Yt, pt, label, hetero):
+                    for c in batched_cases(Yt, pt, label, hetero, junk):
                         key = (c["name"], c["variant"])
                         _, rel, _, ref, _ = compare(c, dtype, refs.get(key))
                         refs[key] = ref
@@ -1887,16 +1971,18 @@ def em_rate(history, chunk: int):
     return len(steady), sum(steady)
 
 
-def fit_many_phase(seed: int) -> dict:
+def fit_many_phase(seed: int, k: int = K, offset: int = 1,
+                   label: str = "fit_many", lone_ss: bool = True) -> dict:
     """``fit_many`` on 8 restarts of the unmasked headline panel (k = 10,
-    20 iterations, tol = 0, f32): aggregate EM iterations/s (B x the
-    iterations after the first chunk over the host wall of those chunks,
-    each chunk ending in its one read), reads, launches per iteration;
-    then 8 looped lone ``fit(filter="info")`` runs from the same inits and
-    one lone ``fit`` (auto -> ss) from restart 0's, same budget.  Returns
-    the fit_many's launch counts under "fit_many"."""
-    _, _, Yfull, _ = panel(seed + 1)
-    model = dt.DynamicFactorModel(n_factors=K)
+    from ``panel(seed + offset)``; 20 iterations, tol = 0, f32): aggregate
+    EM iterations/s (B x the iterations after the first chunk over the
+    host wall of those chunks, each chunk ending in its one read), reads,
+    launches per iteration; then 8 looped lone ``fit(filter="info")`` runs
+    from the same inits and (``lone_ss``) one lone ``fit`` (auto -> ss)
+    from restart 0's, same budget.  Returns the fit_many's launch counts
+    under ``label``."""
+    _, _, Yfull, _ = panel(seed + offset, K_=k)
+    model = dt.DynamicFactorModel(n_factors=k)
     spec = dt.DFMBatchSpec.restarts(model, Yfull, B_RESTARTS)
     chunk, iters = 8, FIT_MANY_ITERS
     torch.cuda.synchronize()
@@ -1915,8 +2001,10 @@ def fit_many_phase(seed: int) -> dict:
     lls = np.stack(res.logliks)
     # The lone comparisons, same inits and budget.
     lone = {}
-    for label, flt, inits in (("looped info", "info", spec.inits),
-                              ("lone ss", "auto", spec.inits[:1])):
+    runs = [("looped info", "info", spec.inits)]
+    if lone_ss:
+        runs.append(("lone ss", "auto", spec.inits[:1]))
+    for name, flt, inits in runs:
         n_it = secs = 0.0
         t1 = time.perf_counter()
         for p0 in inits:
@@ -1926,11 +2014,11 @@ def fit_many_phase(seed: int) -> dict:
             n_it += n
             secs += s_
         torch.cuda.synchronize()
-        lone[label] = {"filter": r.filter, "fits": len(inits),
-                       "wall_s": time.perf_counter() - t1,
-                       "em_iters_per_sec": n_it / secs}
-    per_iter = {n: launches[n] / iters for n in launches}
-    rec = {"fit_many": "restarts", "B": B_RESTARTS, "k": K, "n_iters":
+        lone[name] = {"filter": r.filter, "fits": len(inits),
+                      "wall_s": time.perf_counter() - t1,
+                      "em_iters_per_sec": n_it / secs}
+    per_iter = {n: launches[n] / iters for n in launches if launches[n]}
+    rec = {"fit_many": label, "B": B_RESTARTS, "k": k, "n_iters":
            res.n_iters.tolist(), "wall_s": wall,
            "em_wall_s": w.reads[-1] - w.em_start,
            "init_s": w.em_start - t0,
@@ -1942,10 +2030,12 @@ def fit_many_phase(seed: int) -> dict:
            "max_drop": float(max(0.0, -np.diff(lls, axis=1).min())),
            "noise_floor": floor, "lone": lone,
            "aggregate_over_looped_info": agg / lone["looped info"][
-               "em_iters_per_sec"],
-           "aggregate_over_lone_ss": agg / lone["lone ss"]["em_iters_per_sec"]}
+               "em_iters_per_sec"]}
+    if lone_ss:
+        rec["aggregate_over_lone_ss"] = (agg / lone["lone ss"]
+                                         ["em_iters_per_sec"])
     emit(rec)
-    check_batched_launches("fit_many", launches, iters)
+    check_batched_launches(label, launches, iters, k)
     if len(w.reads) != n_chunks + 1 or res.host_reads != n_chunks + 1:
         raise AssertionError(f"fit_many read {len(w.reads)} times "
                              f"(host_reads {res.host_reads}), expected "
@@ -1957,26 +2047,28 @@ def fit_many_phase(seed: int) -> dict:
         raise AssertionError(f"fit_many: a loglik dropped by "
                              f"{-np.diff(lls, axis=1).min()} > {floor}")
     for f, P in zip(res.factors, res.factor_cov):
-        if (f.shape != (T, K) or P.shape != (T, K, K)
+        if (f.shape != (T, k) or P.shape != (T, k, k)
                 or not (np.isfinite(f).all() and np.isfinite(P).all())):
             raise AssertionError("fit_many: bad factors")
-    if lone["lone ss"]["filter"] != "ss":
+    if lone_ss and lone["lone ss"]["filter"] != "ss":
         raise AssertionError("the lone auto fit did not resolve to ss")
-    return {"fit_many": launches}
+    return {label: launches}
 
 
-def kgrid_phase(seed: int) -> None:
-    """``select_n_factors_em`` over k = 1..10 on the unmasked headline
-    panel (20 iterations, tol = 0, f32): the wall, the EM part (from the
-    batched EM's start, after the host PCA inits, to its last read),
-    k_best, the lane logliks, the reads and the launches per iteration
-    (counted from the EM's start)."""
-    _, _, Yfull, _ = panel(seed + 1)
+def kgrid_phase(seed: int, ks=range(1, K + 1), k: int = K,
+                offset: int = 1) -> None:
+    """``select_n_factors_em`` over ``ks`` (k = 1..10) on the unmasked
+    headline panel (simulated at k factors from ``seed + offset``; 20
+    iterations, tol = 0, f32): the wall, the EM part (from the batched
+    EM's start, after the host PCA inits, to its last read), k_best, the
+    lane logliks, the reads and the launches per iteration (counted from
+    the EM's start), at max(ks) the wide twins past 16."""
+    _, _, Yfull, _ = panel(seed + offset, K_=k)
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with BatchedWatch() as w:
-        sel = dt.select_n_factors_em(Yfull, ks=range(1, K + 1),
+        sel = dt.select_n_factors_em(Yfull, ks=ks,
                                      max_iters=FIT_MANY_ITERS, tol=0.0,
                                      backend=dt.TorchBackend())
     wall = time.perf_counter() - t0
@@ -1996,10 +2088,10 @@ def kgrid_phase(seed: int) -> None:
                              f"{sel.fit.n_iters}, reads {len(w.reads)}, "
                              f"EM iterations {w.em_iters}, launches before "
                              f"the EM {w.before_em}")
-    check_batched_launches("k-grid", launches, FIT_MANY_ITERS)
+    check_batched_launches("k-grid", launches, FIT_MANY_ITERS, max(ks))
 
 
-def rolling_phase(seed: int) -> None:
+def rolling_phase(seed: int, k: int = K, offset: int = 1) -> None:
     """``oos_evaluate(engine="batched")``: 12 rolling windows of 400 rows
     (4T/5) of the unmasked headline panel, horizon 1, 10 iterations at the
     default tol (the first window's lone fit seeds every window): the
@@ -2008,9 +2100,10 @@ def rolling_phase(seed: int) -> None:
     loglik fell, the plateau stop, which at f32 may be rounding), the mean
     relative RMSE against the last-value forecast, the lone fit's launches
     and the batched EM's launches per iteration (counted from its
-    start)."""
-    _, _, Yfull, _ = panel(seed + 1)
-    model = dt.DynamicFactorModel(n_factors=K)
+    start); the panel simulated at k factors from ``seed + offset``, the
+    model at k."""
+    _, _, Yfull, _ = panel(seed + offset, K_=k)
+    model = dt.DynamicFactorModel(n_factors=k)
     tol = inspect.signature(dt.fit_many).parameters["tol"].default
     kernels.reset_launches()
     torch.cuda.synchronize()
@@ -2029,7 +2122,7 @@ def rolling_phase(seed: int) -> None:
         last = (tr[-1] - tr[-2]) / max(abs(tr[-2]), 1e-12)
         stops.append(None if not c else "rel" if abs(last) < tol else "drop")
     n_chunks = -(-w.em_iters // 8)
-    emit({"rolling_windows": len(oos.origins), "train": ROLL_TRAIN,
+    emit({"rolling_windows": len(oos.origins), "k": k, "train": ROLL_TRAIN,
           "wall_s": wall, "em_wall_s": w.reads[-1] - w.em_start,
           "reads": len(w.reads), "tol": tol, "em_iters": w.em_iters,
           "n_iters": [len(t) for t in lls], "converged": conv.tolist(),
@@ -2044,27 +2137,29 @@ def rolling_phase(seed: int) -> None:
             or not np.isfinite(rel).all()
             or not np.array_equal(oos.origins, rolling_origins())
             or len(w.reads) != n_chunks + 1
-            or any(w.before_em[n] for n in BATCHED)
+            or any(w.before_em[n] for n in routed(dict.fromkeys(BATCHED),
+                                                  k))
             or not any(w.before_em.values())):
         raise AssertionError(f"rolling windows: origins {oos.origins}, "
                              f"finite {np.isfinite(rel).all()}, reads "
                              f"{len(w.reads)} for {w.em_iters} EM "
                              f"iterations, lone fit launches {w.before_em}")
-    check_batched_launches("rolling windows", launches, w.em_iters)
+    check_batched_launches("rolling windows", launches, w.em_iters, k)
 
 
-def batched_reference_phase(seed: int) -> None:
+def batched_reference_phase(seed: int, k: int = 3,
+                            tol: float = 1e-10) -> None:
     """At 120 x 80, k = 3: ``fit_many`` of three panels (10 iterations,
     tol = 0) and ``run_batched_em`` on a Hetero bucket (lane 1 ragged in
     T, lane 2 in N; 10 iterations, chunks of 4), on the card in f64
-    against the CPU in f64, within 1e-10 relative."""
-    Ys = [panel(seed + 3 + i, T_=120, N_=80, K_=3)[2] for i in range(3)]
+    against the CPU in f64, within ``tol`` relative."""
+    Ys = [panel(seed + 3 + i, T_=120, N_=80, K_=k)[2] for i in range(3)]
     Yb = np.stack(Ys)
-    model = dt.DynamicFactorModel(n_factors=3)
+    model = dt.DynamicFactorModel(n_factors=k)
     Z = np.stack([data.standardize(y)[0] for y in Ys])
     Yh, ph = [], []
     for i, (t, n) in enumerate(((120, 80), (90, 80), (120, 60))):
-        y, p = hetero_lanes(Z[i], cpu_ref.pca_init(Z[i][:t, :n], 3), [t],
+        y, p = hetero_lanes(Z[i], cpu_ref.pca_init(Z[i][:t, :n], k), [t],
                             [n])
         Yh.append(y[0])
         ph += p
@@ -2084,7 +2179,7 @@ def batched_reference_phase(seed: int) -> None:
                 0.0, fused_chunk=4, hetero=het)
         out[dev] = (r, h, dict(kernels.LAUNCHES))
     (rg, hg, lg), (rc, hc, _) = out["cuda"], out["cpu"]
-    if any(lg[n] == 0 for n in BATCHED):
+    if any(lg[n] == 0 for n in routed(dict.fromkeys(BATCHED), k)):
         raise AssertionError(f"batched reference: the card run did not "
                              f"launch every batched kernel ({lg})")
     errs = {}
@@ -2104,22 +2199,23 @@ def batched_reference_phase(seed: int) -> None:
     for f in ("Lam", "A", "Q", "R"):
         worst(f"hetero {f}", getattr(hg[0], f).cpu().numpy(),
               getattr(hc[0], f).numpy())
-    emit({"batched_reference": "fit_many + hetero", "shape": [3, 120, 80, 3],
-          "max_rel_err": errs, "tol": 1e-10,
+    emit({"batched_reference": "fit_many + hetero", "shape": [3, 120, 80, k],
+          "max_rel_err": errs, "tol": tol,
           "hetero_n_iters": [len(t) for t in hg[1]]})
-    bad = {n: e for n, e in errs.items() if not e <= 1e-10}
+    bad = {n: e for n, e in errs.items() if not e <= tol}
     if bad or [len(t) for t in hg[1]] != [len(t) for t in hc[1]]:
         raise AssertionError(f"batched card run disagrees with the CPU: "
                              f"{bad}")
 
 
-def batched_contract_phase(seed: int) -> None:
+def batched_contract_phase(seed: int, k: int = K, offset: int = 1) -> None:
     """The 1e-5 loglik contract for each lane of an f32 batched fit of the
-    8 restarts at the headline shape, as contract_phase evaluates it: the
-    f32 params after 2 updates, evaluated with the exact f64 filter,
-    against the f64 batched trajectory's loglik at iteration 3."""
-    _, _, Yfull, _ = panel(seed + 1)
-    spec = dt.DFMBatchSpec.restarts(dt.DynamicFactorModel(n_factors=K),
+    8 restarts at the headline shape (simulated at k factors from ``seed
+    + offset``), as contract_phase evaluates it: the f32 params after 2
+    updates, evaluated with the exact f64 filter, against the f64 batched
+    trajectory's loglik at iteration 3."""
+    _, _, Yfull, _ = panel(seed + offset, K_=k)
+    spec = dt.DFMBatchSpec.restarts(dt.DynamicFactorModel(n_factors=k),
                                     Yfull, B_RESTARTS)
     Z = data.standardize(Yfull)[0]
     Zb = np.ascontiguousarray(np.broadcast_to(Z, (B_RESTARTS, T, N)))
@@ -2143,8 +2239,9 @@ def batched_contract_phase(seed: int) -> None:
             rels.append(abs(precise - ref) / abs(ref))
             fasts.append(abs(float(runs[(torch.float32, 3)][1][b][2]) - ref)
                          / abs(ref))
-    emit({"contract": "fit_many restarts", "B": B_RESTARTS, "iter": 3,
-          "rel_err_precise": rels, "rel_err_fast": fasts, "limit": 1e-5})
+    emit({"contract": "fit_many restarts", "B": B_RESTARTS, "k": k,
+          "iter": 3, "rel_err_precise": rels, "rel_err_fast": fasts,
+          "limit": 1e-5})
     if not max(rels) < 1e-5:
         raise AssertionError(f"loglik contract broken (fit_many): {rels}")
 
@@ -2177,14 +2274,16 @@ FLEET_LAUNCHES = {"batched_ring_append": 1, "batched_obs_stats": 6,
                   "batched_solve_rows": 5}
 
 
-def fleet_tenants(seed: int) -> list:
-    """(fused info fit, fitted panel, held-out rows) of each fleet tenant:
-    its own masked panel (ragged edge, 5% missing) from ``seed + i``, the
-    first T0 rows fitted with ``fit(fused=True)``, 10 iterations."""
+def fleet_tenants(seed: int, shapes=FLEET_SHAPES,
+                  held: int = FLEET_HELD) -> list:
+    """(fused info fit, fitted panel, held-out rows) of each fleet tenant
+    of ``shapes`` (T0, N, k): its own masked panel (ragged edge, 5%
+    missing) from ``seed + i``, the first T0 rows fitted with
+    ``fit(fused=True)``, 10 iterations, ``held`` rows held out."""
     out = []
     backend = dt.TorchBackend(filter="info")
-    for i, (T0, N_, K_) in enumerate(FLEET_SHAPES):
-        Ynan, _, _, _ = panel(seed + i, T0 + FLEET_HELD, N_, K_)
+    for i, (T0, N_, K_) in enumerate(shapes):
+        Ynan, _, _, _ = panel(seed + i, T0 + held, N_, K_)
         res = dt.fit(dt.DynamicFactorModel(n_factors=K_, dynamics="ar1"),
                      Ynan[:T0], backend=backend, fused=True, max_iters=10,
                      tol=0.0)
@@ -2196,9 +2295,11 @@ def fleet_tenants(seed: int) -> list:
 
 def fleet_cases(Yb, Wb, pt, t_new, label: str) -> list:
     """K2b-m, K4b-fwd over a per-step C, K1b-m, K4b-bwd, K3b-m and K6b (A's
-    rows) on the inputs the plain masked batched pipeline makes from a
-    bucket's buffers ``Yb``/``Wb`` (B, T_cap, N) and stacked params ``pt``
-    at live lengths ``t_new``.  Call under ``highest_precision()``."""
+    rows; their wide twins at 16 < k <= 32, each case named by the kernel
+    its wrapper routes to) on the inputs the plain masked batched
+    pipeline makes from a bucket's buffers ``Yb``/``Wb`` (B, T_cap, N) and
+    stacked params ``pt`` at live lengths ``t_new``.  Call under
+    ``highest_precision()``."""
     dtype = Yb.dtype
     B_, T_, N_ = Yb.shape
     k = pt.A.shape[-1]
@@ -2223,37 +2324,38 @@ def fleet_cases(Yb, Wb, pt, t_new, label: str) -> list:
         tb._bsolve_rows = real
     (S, V), = calls
     return [
-        case("batched_obs_stats", label,
+        case(kernels.route("batched_obs_stats", k), label,
              lambda: tb._batched_obs_stats_masked(Yb, Wb, pt.Lam, pt.R),
              lambda: tb._batched_obs_stats_masked_plain(Yb, Wb, pt.Lam,
                                                         pt.R),
              (Yb, Wb, pt.Lam, pt.R), BTN * (2 * k + k * (k + 1) + 6)),
-        case("batched_info_scan", label,
+        case(kernels.route("batched_info_scan", k), label,
              lambda: tb._batched_info_scan(b, C, pt.A, pt.Q, pt.mu0, pt.P0),
              lambda: tb._batched_info_scan_plain(b, C, pt.A, pt.Q, pt.mu0,
                                                  pt.P0),
              (b, C, pt.A, pt.Q, pt.mu0, pt.P0),
              B_ * T_ * (12.67 * k3 + 4 * k2),
              floor=lambda: latency_ms("info_scan", dtype, k, T_)),
-        case("batched_quad_masked", label,
+        case(kernels.route("batched_quad_masked", k), label,
              lambda: tb._batched_quad_masked(Yb, Wb, pt.Lam, pt.R, scan[0],
                                              b, C),
              lambda: tb._batched_quad_masked_plain(Yb, Wb, pt.Lam, pt.R,
                                                    scan[0], b, C),
              (Yb, Wb, pt.Lam, pt.R, scan[0], b, C),
              BTN * (2 * k + 6) + B_ * T_ * 2 * k2),
-        case("batched_rts", label, lambda: tb._batched_rts(*flt, pt.A),
+        case(kernels.route("batched_rts", k), label,
+             lambda: tb._batched_rts(*flt, pt.A),
              lambda: tb._batched_rts_plain(*flt, pt.A), (*flt, pt.A),
              B_ * T_ * (10.33 * k3 + 4 * k2),
              floor=lambda: latency_ms("rts_smoother", dtype, k, T_)),
-        case("batched_mstep_rows", label,
+        case(kernels.route("batched_mstep_rows", k), label,
              lambda: tb._batched_mstep_rows(Yb, Wb, x_sm, EffT, P_sm, 1e-6),
              lambda: tb._batched_mstep_rows_plain(Yb, Wb, x_sm, EffT, P_sm,
                                                   1e-6),
              (Yb, Wb, x_sm, EffT, P_sm),
              BTN * (4 * k + 2 * k * (k + 1) + 5)
              + B_ * N_ * (k3 // 3 + 6 * k2)),
-        case("batched_solve_rows", f"{label} A rows",
+        case(kernels.route("batched_solve_rows", k), f"{label} A rows",
              lambda: tb._bsolve_rows(S, V),
              lambda: tb._bsolve_rows_plain(S, V), (S, V),
              B_ * (k3 / 3 + 2 * V.shape[1] * k2),
@@ -2417,10 +2519,15 @@ def lone_close(label: str, u, ref) -> float:
     return err
 
 
-def fleet_phase(seed: int, tenants: list) -> tuple:
-    """The full-width info fleet (10 drains), the same 10 rounds on 8 lone
-    sessions, then every kernel of the tick on the bucket's buffers.
-    Returns (launches a tick by kernel, the f32 kernel records)."""
+def fleet_phase(seed: int, tenants: list, k: int = K,
+                drains: int = FLEET_DRAINS, odd=FLEET_ODD, held=FLEET_LONE,
+                label: str = "info") -> tuple:
+    """The full-width info fleet (``drains`` drains; at odd drains only
+    the ``odd`` tenants; one bucket at (FLEET_CAP, N, k), the wide twins
+    at 16 < k <= 32), the same rounds on lone sessions of every tenant
+    (lanes ``held`` held to theirs within FLEET_F32_TOL), then every kernel
+    of the tick on the bucket's buffers.  Returns (launches by kernel over
+    the ticks, the f32 kernel records)."""
     backend = dt.TorchBackend(filter="info")
     names = [f"t{i}" for i in range(len(tenants))]
     N_of = {n: t[1].shape[1] for n, t in zip(names, tenants)}
@@ -2430,14 +2537,15 @@ def fleet_phase(seed: int, tenants: list) -> tuple:
                           backend=backend)
     fleet.check_sync = True
     (bucket,) = fleet._buckets
-    if bucket.dims != (FLEET_CAP, N, K) or bucket.B != len(tenants):
+    if bucket.dims != (FLEET_CAP, N, k) or bucket.B != len(tenants):
         raise AssertionError(f"fleet bucket {bucket}, expected one of "
-                             f"{(FLEET_CAP, N, K)}")
+                             f"{(FLEET_CAP, N, k)}")
+    want = routed(FLEET_LAUNCHES, k)
     used = [0] * len(tenants)
     rounds, walls, ticks, per_tick, n_reads = [], [], [], [], []
     frozen_ok = None
-    for d in range(FLEET_DRAINS):
-        active = range(len(tenants)) if d % 2 == 0 else FLEET_ODD
+    for d in range(drains):
+        active = range(len(tenants)) if d % 2 == 0 else odd
         batch = {}
         for i in active:
             rows = tenants[i][2][used[i]:used[i] + FLEET_ROWS]
@@ -2449,7 +2557,7 @@ def fleet_phase(seed: int, tenants: list) -> tuple:
         before = ({ln: lane_state(bucket, ln) for ln in frozen}
                   if d == 1 else None)
         out, wall, launches, reads = drain_timed(fleet)
-        check_fleet_out("info", out, N_of)
+        check_fleet_out(label, out, N_of)
         if before is not None:
             frozen_ok = all(torch.equal(a, b) for ln in frozen
                             for a, b in zip(before[ln],
@@ -2467,14 +2575,14 @@ def fleet_phase(seed: int, tenants: list) -> tuple:
             for n, ups in out.items():
                 results.setdefault(n, []).extend(ups)
     bad = [d for d, c in enumerate(per_tick)
-           if any(c[n] != FLEET_LAUNCHES.get(n, 0) for n in c)]
+           if any(c[n] != want.get(n, 0) for n in c)]
     if bad or set(n_reads) != {1}:
         raise AssertionError(f"fleet ticks {bad}: launches "
                              f"{[per_tick[d] for d in bad]}, expected "
-                             f"{FLEET_LAUNCHES} and no other kernel; reads "
+                             f"{want} and no other kernel; reads "
                              f"{n_reads}")
     n_q = sum(len(r) for r in rounds)
-    # The same rounds on 8 lone sessions.
+    # The same rounds on lone sessions.
     lone = [dt.open_session(t[0], t[1], backend=backend, capacity=FLEET_CAP,
                             max_update_rows=FLEET_ROWS,
                             max_iters=FLEET_ITERS, tol=0.0) for t in tenants]
@@ -2486,15 +2594,15 @@ def fleet_phase(seed: int, tenants: list) -> tuple:
             u = lone[i].update(rows)
             torch.cuda.synchronize()
             q_walls.append(time.perf_counter() - t0)
-            if i in FLEET_LONE:
+            if i in held:
                 e = lone_close(f"fleet lane {i}", results[names[i]][got[i]],
                                u)
                 lone_err[names[i]] = max(lone_err.get(names[i], 0.0), e)
             got[i] += 1
     for s in lone:
         s.close()
-    emit({"fleet": "info", "B": bucket.B, "dims": bucket.dims,
-          "filter": bucket.cfg.filter, "drains": FLEET_DRAINS,
+    emit({"fleet": label, "B": bucket.B, "dims": bucket.dims,
+          "filter": bucket.cfg.filter, "drains": drains,
           "queries": n_q, "tick_p50_ms": pct(walls, 50) * 1e3,
           "tick_p99_ms": pct(walls, 99) * 1e3,
           "ticks_ms": [w * 1e3 for w in walls],
@@ -2502,7 +2610,7 @@ def fleet_phase(seed: int, tenants: list) -> tuple:
           "queries_per_s": n_q / sum(walls),
           "reads_per_tick": sum(n_reads) / len(n_reads),
           "sync_checked": True,
-          "launches_per_tick": {n: per_tick[0][n] for n in FLEET_LAUNCHES},
+          "launches_per_tick": {n: per_tick[0][n] for n in want},
           "frozen_lanes_bit_identical": frozen_ok,
           "pad_waste_frac": fleet.pad_waste_frac,
           "lone": {"sessions": len(lone), "queries": len(q_walls),
@@ -2512,9 +2620,10 @@ def fleet_phase(seed: int, tenants: list) -> tuple:
           "fleet_over_lone_qps": (n_q / sum(walls))
           / (len(q_walls) / sum(q_walls)),
           "lane_vs_lone_max_abs": lone_err, "lone_tol": FLEET_F32_TOL})
-    recs = fleet_kernel_check(bucket, "fleet", seed + 300, timed=True)
+    recs = fleet_kernel_check(bucket, "fleet" if k == K else f"fleet k{k}",
+                              seed + 300, timed=True)
     fleet.close()
-    return {n: sum(c[n] for c in per_tick) for n in FLEET_LAUNCHES}, recs
+    return {n: sum(c[n] for c in per_tick) for n in want}, recs
 
 
 def ring_fleet_phase(seed: int, tenants: list) -> None:
@@ -2640,15 +2749,15 @@ def pit_fleet_phase(seed: int, tenants: list) -> None:
                              f"{bad}")
 
 
-def fleet_k_sweep(seed: int) -> None:
-    """The fleet path at other factor counts (k = 1, 3 and 16, the ends
-    of the kernels' compile-time dispatch) on small tenants (50 x 100 and
-    60 x 120, fitted on the CPU in f64): one sync-checked drain of a
-    card f32 fleet, then every kernel of the tick against its plain twin
+def fleet_k_sweep(seed: int, ks=(1, 3, 16)) -> None:
+    """The fleet path at other factor counts (by default k = 1, 3 and 16,
+    the ends of the kernels' compile-time dispatch) on small tenants (50 x
+    100 and 60 x 120, fitted on the CPU in f64): one sync-checked drain of
+    a card f32 fleet, then every kernel of the tick against its plain twin
     on the bucket's buffers (f64 and f32, the TOL rule; K13b bit for
     bit)."""
     cpu = dt.TorchBackend(device="cpu", dtype=torch.float64, filter="info")
-    for k in (1, 3, 16):
+    for k in ks:
         tens = []
         for i, (T0, N_) in enumerate(((50, 100), (60, 120))):
             Ynan, _, _, _ = panel(seed + 700 + i, T0 + 4, N_, k)
@@ -2671,27 +2780,34 @@ def fleet_k_sweep(seed: int) -> None:
         fl.close()
 
 
-def fleet_reference_phase(seed: int) -> None:
-    """A fleet at the JAX trio fixture's shapes (10 x 40 and two 12 x 44,
-    k = 2, capacity 56) in f64, on the card against the CPU: three ragged
-    ticks (one tenant sits out the second), within 1e-12 relative."""
-    shapes = ((40, 10), (44, 12), (44, 12))
+# The JAX trio fixture's tenants (T0, N, k) and ticks (rows per tenant).
+FLEET_REF_SHAPES = ((40, 10, 2), (44, 12, 2), (44, 12, 2))
+FLEET_REF_TICKS = ((1, 3, 2), (2, 0, 1), (3, 2, 3))
+
+
+def fleet_reference_phase(seed: int, shapes=FLEET_REF_SHAPES,
+                          ticks=FLEET_REF_TICKS,
+                          capacity: int = 56) -> None:
+    """A fleet in f64 on the card against the CPU, within 1e-12 relative:
+    by default at the JAX trio fixture's shapes (10 x 40 and two 12 x 44,
+    k = 2, capacity 56), three ragged ticks (one tenant sits out the
+    second)."""
     cpu = dt.TorchBackend(device="cpu", dtype=torch.float64, filter="info")
     tens = []
-    for i, (T0, N_) in enumerate(shapes):
-        Ynan, _, _, _ = panel(seed + 500 + i, T0 + 10, N_, 2)
-        res = dt.fit(dt.DynamicFactorModel(n_factors=2), Ynan[:T0],
+    for i, (T0, N_, k) in enumerate(shapes):
+        Ynan, _, _, _ = panel(seed + 500 + i, T0 + 10, N_, k)
+        res = dt.fit(dt.DynamicFactorModel(n_factors=k), Ynan[:T0],
                      backend=cpu, fused=True, max_iters=8, tol=0.0)
         tens.append((res, Ynan[:T0], Ynan[T0:]))
-    ticks = ((1, 3, 2), (2, 0, 1), (3, 2, 3))
     outs = {}
     for dev in ("cuda", "cpu"):
         b = dt.TorchBackend(device=dev, dtype=torch.float64, filter="info")
+        kernels.reset_launches()
         fl = dt.open_fleet([t[0] for t in tens], [t[1] for t in tens],
-                           capacity=56, max_update_rows=3, max_iters=4,
-                           tol=0.0, max_classes=1, backend=b)
+                           capacity=capacity, max_update_rows=3,
+                           max_iters=4, tol=0.0, max_classes=1, backend=b)
         fl.check_sync = dev == "cuda"
-        used, got = [0, 0, 0], []
+        used, got = [0] * len(tens), []
         for tick in ticks:
             for i, n in enumerate(tick):
                 if n:
@@ -2699,6 +2815,13 @@ def fleet_reference_phase(seed: int) -> None:
                     used[i] += n
             got.append(fl.drain())
         outs[dev] = got
+        if dev == "cuda":
+            k_max = max(sh[2] for sh in shapes)
+            idle = [n for n in routed(FLEET_LAUNCHES, k_max)
+                    if not kernels.LAUNCHES[n]]
+            if idle:
+                raise AssertionError(f"fleet reference: the card run did "
+                                     f"not launch {idle}")
         fl.close()
     errs = {}
     for og, oc in zip(outs["cuda"], outs["cpu"]):
@@ -2714,8 +2837,8 @@ def fleet_reference_phase(seed: int) -> None:
                 e = rel_err(ug.forecasts[key], uc.forecasts[key])
                 errs[f"forecast {key}"] = max(errs.get(f"forecast {key}",
                                                   0.0), e)
-    emit({"fleet_reference": "info", "shapes": shapes, "max_rel_err": errs,
-          "tol": 1e-12})
+    emit({"fleet_reference": "info", "shapes": shapes, "capacity": capacity,
+          "max_rel_err": errs, "tol": 1e-12})
     bad = {n: e for n, e in errs.items() if not e <= 1e-12}
     if bad:
         raise AssertionError(f"fleet reference disagrees: {bad}")
@@ -3116,10 +3239,13 @@ def lowrank_session_phase(seed: int, fused) -> None:
     sess.close()
 
 
-def lowrank_fleet_phase(seed: int) -> None:
-    """4 tenants of 480 x 10,000 at k = 16 (fused lowrank fits, 10
-    iterations: the fleet inherits their engine, rank auto = 8) in one
-    bucket at capacity 1,000, 5 drains of 2 rows, 5 iterations, tol = 0,
+def lowrank_fleet_phase(seed: int, k: int = LR_K,
+                        n_tenants: int = LR_FLEET_TENANTS,
+                        drains: int = LR_FLEET_DRAINS) -> None:
+    """4 tenants of 480 x 10,000 at k = 16 (``n_tenants`` at k; fused
+    lowrank fits, 10 iterations: the fleet inherits their engine, rank
+    auto = 8) in one bucket at capacity 1,000, 5 drains (``drains``) of 2
+    rows, 5 iterations, tol = 0,
     beside lone lowrank sessions of lanes LR_LONE on the same queries,
     first in f64, then in f32 (timed).  Each tick's device part runs under
     ``set_sync_debug_mode("error")`` with 1 read and exactly
@@ -3132,13 +3258,14 @@ def lowrank_fleet_phase(seed: int) -> None:
     that diverges on either side (the path check; at least one query).
     In f32 the lane is measured against the f64 lane and the lone session
     against the f64 lone session, and reported.  Then every kernel of the
-    tick against its plain twin on the f32 bucket's own buffers."""
-    model = dt.DynamicFactorModel(n_factors=LR_K, dynamics="ar1")
-    held = LR_FLEET_DRAINS * FLEET_ROWS
+    tick against its plain twin on the f32 bucket's own buffers (the wide
+    twins of K2b-m, K1b-m, K3b-m and K6b at 16 < k <= 32)."""
+    model = dt.DynamicFactorModel(n_factors=k, dynamics="ar1")
+    held = drains * FLEET_ROWS
     fit_b = dt.TorchBackend(filter="lowrank", rank=LR_RANK)
     tens = []
-    for i in range(LR_FLEET_TENANTS):
-        Ynan, _, _, _ = panel(seed + 820 + i, SESSION_T0 + held, N, LR_K)
+    for i in range(n_tenants):
+        Ynan, _, _, _ = panel(seed + 820 + i, SESSION_T0 + held, N, k)
         res = dt.fit(model, Ynan[:SESSION_T0], backend=fit_b, fused=True,
                      max_iters=10, tol=0.0)
         if res.filter != "lowrank" or not np.isfinite(res.logliks).all():
@@ -3146,10 +3273,11 @@ def lowrank_fleet_phase(seed: int) -> None:
         tens.append((res, Ynan[:SESSION_T0], Ynan[SESSION_T0:]))
     kw = dict(capacity=FLEET_CAP, max_update_rows=FLEET_ROWS,
               max_iters=FLEET_ITERS, tol=0.0)
-    N_of = {f"t{i}": N for i in range(LR_FLEET_TENANTS)}
-    rec = {"fleet": "lowrank", "B": LR_FLEET_TENANTS, "drains":
-           LR_FLEET_DRAINS, "queries": LR_FLEET_DRAINS * LR_FLEET_TENANTS,
-           "held_lanes": LR_LONE, "sync_checked": True}
+    N_of = {f"t{i}": N for i in range(n_tenants)}
+    expect = routed(LR_FLEET_LAUNCHES, k)
+    rec = {"fleet": "lowrank", "k": k, "B": n_tenants, "drains": drains,
+           "queries": drains * n_tenants, "held_lanes": LR_LONE,
+           "sync_checked": True}
     ref64, bad = {}, []
     for dtype in (torch.float64, torch.float32):
         backend = dt.TorchBackend(dtype=dtype, filter="lowrank",
@@ -3158,7 +3286,7 @@ def lowrank_fleet_phase(seed: int) -> None:
                               max_classes=1, backend=backend, **kw)
         fleet.check_sync = True
         (bucket,) = fleet._buckets
-        if (bucket.dims != (FLEET_CAP, N, LR_K) or bucket.B != len(tens)
+        if (bucket.dims != (FLEET_CAP, N, k) or bucket.B != len(tens)
                 or bucket.cfg.filter != "lowrank"):
             raise AssertionError(f"lowrank fleet bucket {bucket}")
         lone = {i: dt.open_session(tens[i][0], tens[i][1], backend=backend,
@@ -3166,7 +3294,7 @@ def lowrank_fleet_phase(seed: int) -> None:
         walls, per_tick, n_reads, errs, same_iters = [], [], [], {}, []
         tracked = {i: 0 for i in LR_LONE}       # queries held, f64
         diverged = {i: False for i in LR_LONE}
-        for d in range(LR_FLEET_DRAINS):
+        for d in range(drains):
             lo = d * FLEET_ROWS
             for i, t in enumerate(tens):
                 fleet.submit(f"t{i}", t[2][lo:lo + FLEET_ROWS])
@@ -3206,7 +3334,7 @@ def lowrank_fleet_phase(seed: int) -> None:
                         if v.shape == base[f].shape:
                             e[f] = max(e.get(f, 0.0), rel_err(v, base[f]))
         bad += [(str(dtype), d) for d, c in enumerate(per_tick)
-                if any(c[n] != LR_FLEET_LAUNCHES.get(n, 0) for n in c)
+                if any(c[n] != expect.get(n, 0) for n in c)
                 or n_reads[d] != 1]
         rec[str(dtype).replace("torch.", "")] = {
             "tick_p50_ms": pct(walls, 50) * 1e3,
@@ -3214,8 +3342,7 @@ def lowrank_fleet_phase(seed: int) -> None:
             "ticks_ms": [w * 1e3 for w in walls],
             "queries_per_s": rec["queries"] / sum(walls),
             "reads_per_tick": sum(n_reads) / len(n_reads),
-            "launches_per_tick": {n: per_tick[0][n]
-                                  for n in LR_FLEET_LAUNCHES},
+            "launches_per_tick": {n: per_tick[0][n] for n in expect},
             "lane_n_iters_as_lone": sum(same_iters) / len(same_iters),
             "max_rel_err": errs}
         if dtype == torch.float64:
@@ -3225,7 +3352,7 @@ def lowrank_fleet_phase(seed: int) -> None:
         if dtype == torch.float64:
             fleet.close()
     rec["dims"] = bucket.dims
-    rec["rank"] = lr.resolve_rank(LR_K, bucket.cfg.rank)
+    rec["rank"] = lr.resolve_rank(k, bucket.cfg.rank)
     rec["float64"]["tol"] = 1e-9
     emit(rec)
     e64 = rec["float64"]
@@ -3233,7 +3360,7 @@ def lowrank_fleet_phase(seed: int) -> None:
     if bad or min(e64["queries_held"].values()) < 1 or any(
             not v <= 1e-9 for v in held_errs.values()) or not held_errs:
         raise AssertionError(f"lowrank fleet: ticks {bad} off "
-                             f"{LR_FLEET_LAUNCHES} or 1 read; f64 lanes "
+                             f"{expect} or 1 read; f64 lanes "
                              f"against lone sessions {e64}")
     fleet_kernel_check(bucket, "lowrank fleet", seed + 830)
     slots = [bucket.lane_of[ln] for ln in range(bucket.B)]
@@ -5200,6 +5327,111 @@ def wide_contract_phase(seed: int) -> None:
     loglik_contract("k25 masked info", Ynan, W, WIDE_K, "info")
     loglik_contract("k25 unmasked ss", Yfull, None, WIDE_K, "ss")
 
+# ------------------------------------------- the batched twins at wide k --
+
+# The k-grid of the bwide group: B = 7 lanes padded to k_max = 32, so the
+# wide twins run at the end of their range.
+BWIDE_KS = (8, 16, 20, 24, 25, 28, 32)
+BWIDE_SWEEP = (17, 24, 25, 32)
+# The k = 25 fleet: four masked 480 x 10,000 tenants at k = 25 and two
+# 400 x 6,000 at k = 12, one bucket at (1,000, 10,000, 25) padded in T, N
+# and k (across 16); at odd drains tenants 1, 3 and 5; lanes 0 (k = 25) and
+# 4 (k = 12) held to their lone sessions.  The lowrank bucket: two tenants
+# at k = 25.
+BWIDE_FLEET_SHAPES = ((SESSION_T0, N, WIDE_K),) * 4 + ((400, 6000, 12),) * 2
+BWIDE_DRAINS, BWIDE_ODD, BWIDE_HELD = 5, (1, 3, 5), (0, 4)
+BWIDE_LR_TENANTS, BWIDE_LR_DRAINS = 2, 3
+BWIDE_FLEET_NEW = ("batched_obs_stats_wide", "batched_quad_masked_wide",
+                   "batched_mstep_rows_wide")
+# The k = 20 fleet reference: a k = 20 and a k = 12 tenant (one bucket
+# padding the second across 16), three ragged ticks.
+BWIDE_REF_SHAPES = ((100, 40, 20), (90, 30, 12))
+BWIDE_REF_TICKS = ((1, 3), (2, 0), (3, 2))
+
+
+def bwide_kernel_phase(seed: int) -> dict:
+    """K4b-wide (both passes), K1b-wide and K6b-wide (the loadings' and
+    A's rows) against their plain twins on the 8-restart ``fit_many``
+    inputs of the unmasked k = 25 panel (B = 8, T = 500, N = 10,000), and
+    the lone K4-wide pair alone at (T, k) = (500, 25) on the masked panel,
+    f64 then f32 (the TOL rule), timed warm and cold beside the plain twin,
+    the bound, K4's latency floor at k = 25 and K6b's library call.
+    Returns the f32 restart records by kernel name."""
+    Ynan, W, Yfull, p = panel(seed + WIDE_SEED, K_=WIDE_K)
+    spec = dt.DFMBatchSpec.restarts(dt.DynamicFactorModel(n_factors=WIDE_K),
+                                    Yfull, B_RESTARTS)
+    Zb = np.ascontiguousarray(np.broadcast_to(
+        data.standardize(Yfull)[0], (B_RESTARTS, T, N)))
+    summary, refs = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        Yt = torch.tensor(Zb, dtype=dtype, device="cuda")
+        pt = tb.stack_params(spec.inits, dtype=dtype, device="cuda")
+        lone = [torch.as_tensor(x, dtype=dtype, device="cuda").contiguous()
+                for x in (Ynan, W)]
+        with highest_precision():
+            pair = [c for c in masked_cases(
+                        *lone, SSMParams.from_numpy(p, dtype=dtype,
+                                                    device="cuda"),
+                        "lone k25 masked")[0]
+                    if c["name"] in ("info_scan_wide", "rts_smoother_wide")]
+            cases = batched_cases(Yt, pt, "restarts k25") + pair
+            for c in cases:
+                rec = kernel_record(c, dtype, refs)
+                rec["k"] = WIDE_K
+                rec["B"] = B_RESTARTS if c["name"].startswith("batched") else 1
+                emit(rec)
+                if (dtype == torch.float32 and c["variant"] in
+                        ("restarts k25", "restarts k25 Lam rows")):
+                    summary[c["name"]] = rec
+        del Yt, pt, lone, cases, pair
+        torch.cuda.empty_cache()
+    return summary
+
+
+def bwide_k_sweep(seed: int) -> None:
+    """The batched twins through their wrappers at k in BWIDE_SWEEP
+    (``batched_k_sweep``'s 120 x 400 shapes, the Hetero bucket's scan
+    with NaN and inf at its pad steps), the fleet path at k = 17 and 32
+    (``fleet_k_sweep``), and k = 33 must raise NotImplementedError in all
+    seven wrappers."""
+    batched_k_sweep(seed + 1370, BWIDE_SWEEP, junk=True)
+    fleet_k_sweep(seed + 1380, (17, 32))
+    k = kernels.WIDE_KMAX + 1
+
+    def z(*shape):
+        return torch.zeros(shape, device="cuda")
+
+    calls = {
+        "batched_info_scan": lambda: tb._batched_info_scan(
+            z(2, 4, k), z(2, k, k), z(2, k, k), z(2, k, k), z(2, k),
+            z(2, k, k)),
+        "batched_rts": lambda: tb._batched_rts(
+            z(2, 4, k), z(2, 4, k, k), z(2, 4, k), z(2, 4, k, k),
+            z(2, k, k)),
+        "batched_quad": lambda: tb._batched_quad(
+            z(2, 4, 8), z(2, 8, k), z(2, 8), z(2, 4, k), z(2, 4, k),
+            z(2, k, k)),
+        "batched_quad_masked": lambda: tb._batched_quad_masked(
+            z(2, 4, 8), z(2, 4, 8), z(2, 8, k), z(2, 8), z(2, 4, k),
+            z(2, 4, k), z(2, 4, k, k)),
+        "batched_solve_rows": lambda: tb._bsolve_rows(z(2, k, k),
+                                                      z(2, 8, k)),
+        "batched_obs_stats": lambda: tb._batched_obs_stats_masked(
+            z(2, 4, 8), z(2, 4, 8), z(2, 8, k), z(2, 8)),
+        "batched_mstep_rows": lambda: tb._batched_mstep_rows(
+            z(2, 4, 8), z(2, 4, 8), z(2, 4, k), z(2, 4, k, k),
+            z(2, 4, k, k), 1e-6),
+    }
+    raised = []
+    for name, fn in calls.items():
+        try:
+            fn()
+        except NotImplementedError:
+            raised.append(name)
+    emit({"bwide_k33": raised})
+    if len(raised) != len(calls):
+        raise AssertionError(f"k = 33: only {raised} raised")
+
 
 def ptxas_summary(source: str) -> dict:
     """Build seconds and, over the k = 10 instantiations of ``source``
@@ -5234,7 +5466,7 @@ def ptxas_summary(source: str) -> dict:
 
 # Phase groups of ``--phases``, in run order.
 PHASES = ("headline", "session", "batched", "fleet", "lowrank", "tvl", "mf",
-          "sv", "pit", "dense", "wide")
+          "sv", "pit", "dense", "wide", "bwide")
 
 
 def main() -> int:
@@ -5339,6 +5571,26 @@ def main() -> int:
             launches.update(wide_fit_phase(seed))
             wide_reference_phase(seed)
             wide_contract_phase(seed)
+        elif group == "bwide":
+            summary.update(bwide_kernel_phase(seed))
+            bwide_k_sweep(seed)
+            launches.update(fit_many_phase(seed, WIDE_K, WIDE_SEED,
+                                           "fit_many k25", lone_ss=False))
+            kgrid_phase(seed, BWIDE_KS, WIDE_K, WIDE_SEED)
+            rolling_phase(seed, WIDE_K, WIDE_SEED)
+            tenants = fleet_tenants(seed + 1340, BWIDE_FLEET_SHAPES,
+                                    BWIDE_DRAINS * FLEET_ROWS)
+            launches["fleet k25"], recs = fleet_phase(
+                seed + 1040, tenants, WIDE_K, BWIDE_DRAINS, BWIDE_ODD,
+                BWIDE_HELD, "info k25")
+            del tenants
+            summary.update({n: recs[n] for n in BWIDE_FLEET_NEW})
+            lowrank_fleet_phase(seed + 540, WIDE_K, BWIDE_LR_TENANTS,
+                                BWIDE_LR_DRAINS)
+            batched_reference_phase(seed + 1390, k=20, tol=1e-12)
+            fleet_reference_phase(seed + 1400, BWIDE_REF_SHAPES,
+                                  BWIDE_REF_TICKS, capacity=120)
+            batched_contract_phase(seed, WIDE_K, WIDE_SEED)
         group_s[group] = time.perf_counter() - t0
     emit({"phase_s": group_s, "script_s": time.perf_counter() - t_start})
     emit({"kernels": [

@@ -18,7 +18,20 @@
 // every thread solves one row in registers (k is a template constant), by
 // forward and back substitution against the shared factor, and writes it.
 // Neighbouring threads read neighbouring rows, k values apart.
-#include "common.cuh"
+//
+// K6b-wide (batched_solve_rows_wide): the same solve at 16 < k <= 32, the
+// batched M-steps' kernel there (fit_many, the k-grid, the rolling windows
+// and the fleet's A rows past k = 16).  A row stays in registers, so the
+// width is a template constant, taken in buckets KP in {20, 24, 28, 32} >= k
+// (four instantiations a dtype, as K5b-wide's, not sixteen): S is padded
+// with an identity block and each row of V with zero columns, which is
+// exact (the factor is block diagonal, the padded unknowns solve to zero
+// and are never written).  At k = 32 a serial factorization in one thread
+// would be ~5,500 dependent multiply-adds, so warp 0 factors S with the
+// one-warp Cholesky of warp_linalg.cuh (a column a step, a lane a row),
+// leading dimension 33.  Bound: bytes, V read and X written once (6.4 MB
+// each in f32 at B = 8, N = 10,000, k = 25) against ~2 k^2 flops a row.
+#include "warp_linalg.cuh"
 
 constexpr int kRowThreads = 128;
 
@@ -67,6 +80,72 @@ bsolve_rows_kernel(const T* __restrict__ S, const T* __restrict__ V,
   for (int a = 0; a < K; ++a) X[row + a] = x[a];
 }
 
+template <typename T, int KP>
+__global__ void __launch_bounds__(kRowThreads)
+bsolve_rows_wide_kernel(const T* __restrict__ S, const T* __restrict__ V,
+                        T* __restrict__ X, int n, int k) {
+  __shared__ T L[DFM_WIDE_KMAX][WIDE_LD];
+  const size_t pb = blockIdx.y;
+  if (threadIdx.x < 32) {
+    const T* Sb = S + pb * k * k;
+    const T jit = dfm_jitter<T>();
+    for (int e = threadIdx.x; e < KP * KP; e += 32) {
+      const int a = e / KP, c = e % KP;
+      L[a][c] = a < k && c < k
+                    ? T(0.5) * (Sb[a * k + c] + Sb[c * k + a]) +
+                          (a == c ? jit : T(0))
+                    : T(a == c ? 1 : 0);
+    }
+    __syncwarp();
+    chol_inplace<T>(L, k);
+  }
+  __syncthreads();
+  const int i = blockIdx.x * kRowThreads + threadIdx.x;
+  if (i >= n) return;
+  const size_t row = (pb * n + i) * k;
+  T x[KP];
+#pragma unroll
+  for (int a = 0; a < KP; ++a) x[a] = a < k ? V[row + a] : T(0);
+#pragma unroll
+  for (int a = 0; a < KP; ++a) {
+    T s = x[a];
+#pragma unroll
+    for (int m = 0; m < a; ++m) s -= L[a][m] * x[m];
+    x[a] = s / L[a][a];
+  }
+#pragma unroll
+  for (int a = KP - 1; a >= 0; --a) {
+    T s = x[a];
+#pragma unroll
+    for (int m = a + 1; m < KP; ++m) s -= L[m][a] * x[m];
+    x[a] = s / L[a][a];
+  }
+#pragma unroll
+  for (int a = 0; a < KP; ++a)
+    if (a < k) X[row + a] = x[a];
+}
+
+template <typename T, int KP>
+static int launch_wide_kp(const T* S, const T* V, T* X, int B, int n, int k,
+                          cudaStream_t stream) {
+  const dim3 grid((n + kRowThreads - 1) / kRowThreads, B);
+  bsolve_rows_wide_kernel<T, KP><<<grid, kRowThreads, 0, stream>>>(S, V, X,
+                                                                   n, k);
+  return (int)cudaGetLastError();
+}
+
+// k in 1 .. DFM_WIDE_KMAX, run at the bucket KP in {20, 24, 28, 32} >= k.
+template <typename T>
+static int launch_wide(const T* S, const T* V, T* X, int B, int n, int k,
+                       cudaStream_t stream) {
+  if (k < 1 || k > DFM_WIDE_KMAX) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || n <= 0) return (int)cudaGetLastError();
+  if (k <= 20) return launch_wide_kp<T, 20>(S, V, X, B, n, k, stream);
+  if (k <= 24) return launch_wide_kp<T, 24>(S, V, X, B, n, k, stream);
+  if (k <= 28) return launch_wide_kp<T, 28>(S, V, X, B, n, k, stream);
+  return launch_wide_kp<T, 32>(S, V, X, B, n, k, stream);
+}
+
 template <typename T>
 static int launch(const T* S, const T* V, T* X, int B, int n, int k,
                   cudaStream_t stream) {
@@ -78,16 +157,19 @@ static int launch(const T* S, const T* V, T* X, int B, int n, int k,
 }
 
 extern "C" {
+#define DFM_BSOLVE_ENTRIES(SFX, T)                                             \
+  int batched_solve_rows_##SFX(const T* S, const T* V, T* X, int B, int n,   \
+                               int k, void* stream) {                        \
+    return launch<T>(S, V, X, B, n, k, (cudaStream_t)stream);                \
+  }                                                                          \
+  int batched_solve_rows_wide_##SFX(const T* S, const T* V, T* X, int B,     \
+                                    int n, int k, void* stream) {            \
+    return launch_wide<T>(S, V, X, B, n, k, (cudaStream_t)stream);           \
+  }
 #if DFM_WANT_F32
-int batched_solve_rows_f32(const float* S, const float* V, float* X, int B,
-                           int n, int k, void* stream) {
-  return launch<float>(S, V, X, B, n, k, (cudaStream_t)stream);
-}
+DFM_BSOLVE_ENTRIES(f32, float)
 #endif
 #if DFM_WANT_F64
-int batched_solve_rows_f64(const double* S, const double* V, double* X,
-                           int B, int n, int k, void* stream) {
-  return launch<double>(S, V, X, B, n, k, (cudaStream_t)stream);
-}
+DFM_BSOLVE_ENTRIES(f64, double)
 #endif
 }

@@ -54,6 +54,19 @@
 // Bound: latency, as K4: a chain of T dependent m x m factorizations,
 // solves and products, one lane's work growing ~m^2 a product.  The k <= 16
 // kernels keep their static shared arrays and launch as before.
+//
+// K4b-wide, the batched wide pair (batched_info_scan_wide,
+// batched_rts_wide): the wide kernels launched with one block a lane, as
+// K4b launches K4's, for the batched wrappers at 16 < k <= 32.  They
+// replace the same JAX routines as K4b (dfm_tpu/estim/batched.py:
+// _batched_info_scan, line 358, with C static per lane or per step, the
+// fleet's _batched_info_scan_tv, line 614; _batched_rts, line 444) at wide
+// k: fit_many, the k-grid and the rolling windows past k = 16, and a fleet
+// bucket padded past 16.  The t_seq freeze is the shared pass body's
+// branch (the wide lone launch passes no mask).  Each block opts in to its
+// dynamic shared memory as the lone wide launch does (85 KB forward in f64
+// at k = 32: two blocks an SM).  Bound: latency, as the lone wide pair:
+// the B lanes run side by side, one SM each.
 #include "warp_linalg.cuh"
 
 // One forward pass in one warp; the matrices and vectors are the caller's
@@ -326,19 +339,21 @@ static int launch_rts(const T* x_pred, const T* P_pred, const T* x_filt,
   return (int)cudaGetLastError();
 }
 
-// The wide pair: one lone chain, 1 <= k <= DFM_WIDE_KMAX.
+// The wide pair over B lanes (B = 1, no mask: the lone chain), 1 <= k <=
+// DFM_WIDE_KMAX.
 template <typename T>
-static int launch_scan_wide(const T* b, const T* C, int c_stride, const T* A,
-                            const T* Q, const T* mu0, const T* P0, T* x_pred,
-                            T* P_pred, T* x_filt, T* P_filt, T* logdetG,
-                            int T_, int k, cudaStream_t stream) {
+static int launch_scan_wide(const T* b, const T* C, int c_lane, int c_stride,
+                            const T* A, const T* Q, const T* mu0, const T* P0,
+                            const T* t_mask, T* x_pred, T* P_pred, T* x_filt,
+                            T* P_filt, T* logdetG, int B, int T_, int k,
+                            cudaStream_t stream) {
   if (k < 1 || k > DFM_WIDE_KMAX) return (int)cudaErrorInvalidValue;
-  if (T_ <= 0) return (int)cudaGetLastError();
+  if (B <= 0 || T_ <= 0) return (int)cudaGetLastError();
   const size_t bytes = wide_smem<T>(k, 10);
   const cudaError_t e = dfm_smem_optin(info_scan_wide_kernel<T>, bytes);
   if (e != cudaSuccess) return (int)e;
-  info_scan_wide_kernel<T><<<1, 32, bytes, stream>>>(
-      b, C, 0, c_stride, A, Q, mu0, P0, nullptr, x_pred, P_pred, x_filt,
+  info_scan_wide_kernel<T><<<B, 32, bytes, stream>>>(
+      b, C, c_lane, c_stride, A, Q, mu0, P0, t_mask, x_pred, P_pred, x_filt,
       P_filt, logdetG, T_, k);
   return (int)cudaGetLastError();
 }
@@ -346,13 +361,14 @@ static int launch_scan_wide(const T* b, const T* C, int c_stride, const T* A,
 template <typename T>
 static int launch_rts_wide(const T* x_pred, const T* P_pred, const T* x_filt,
                            const T* P_filt, const T* A, T* x_sm, T* P_sm,
-                           T* P_lag, int T_, int k, cudaStream_t stream) {
+                           T* P_lag, int B, int T_, int k,
+                           cudaStream_t stream) {
   if (k < 1 || k > DFM_WIDE_KMAX) return (int)cudaErrorInvalidValue;
-  if (T_ <= 0) return (int)cudaGetLastError();
+  if (B <= 0 || T_ <= 0) return (int)cudaGetLastError();
   const size_t bytes = wide_smem<T>(k, 9);
   const cudaError_t e = dfm_smem_optin(rts_smoother_wide_kernel<T>, bytes);
   if (e != cudaSuccess) return (int)e;
-  rts_smoother_wide_kernel<T><<<1, 32, bytes, stream>>>(
+  rts_smoother_wide_kernel<T><<<B, 32, bytes, stream>>>(
       x_pred, P_pred, x_filt, P_filt, A, x_sm, P_sm, P_lag, T_, k);
   return (int)cudaGetLastError();
 }
@@ -394,16 +410,33 @@ extern "C" {
                            const T* P0, T* x_pred, T* P_pred, T* x_filt,     \
                            T* P_filt, T* logdetG, int T_, int k,             \
                            void* stream) {                                   \
-    return launch_scan_wide<T>(b, C, c_stride, A, Q, mu0, P0, x_pred,        \
-                               P_pred, x_filt, P_filt, logdetG, T_, k,       \
-                               (cudaStream_t)stream);                        \
+    return launch_scan_wide<T>(b, C, 0, c_stride, A, Q, mu0, P0, nullptr,    \
+                               x_pred, P_pred, x_filt, P_filt, logdetG, 1,   \
+                               T_, k, (cudaStream_t)stream);                 \
+  }                                                                          \
+  int batched_info_scan_wide_##SFX(const T* b, const T* C, int c_lane,       \
+                                   int c_stride, const T* A, const T* Q,     \
+                                   const T* mu0, const T* P0,                \
+                                   const T* t_mask, T* x_pred, T* P_pred,    \
+                                   T* x_filt, T* P_filt, T* logdetG, int B,  \
+                                   int T_, int k, void* stream) {            \
+    return launch_scan_wide<T>(b, C, c_lane, c_stride, A, Q, mu0, P0,        \
+                               t_mask, x_pred, P_pred, x_filt, P_filt,       \
+                               logdetG, B, T_, k, (cudaStream_t)stream);     \
   }                                                                          \
   int rts_smoother_wide_##SFX(const T* x_pred, const T* P_pred,              \
                               const T* x_filt, const T* P_filt, const T* A,  \
                               T* x_sm, T* P_sm, T* P_lag, int T_, int k,     \
                               void* stream) {                                \
     return launch_rts_wide<T>(x_pred, P_pred, x_filt, P_filt, A, x_sm, P_sm, \
-                              P_lag, T_, k, (cudaStream_t)stream);           \
+                              P_lag, 1, T_, k, (cudaStream_t)stream);        \
+  }                                                                          \
+  int batched_rts_wide_##SFX(const T* x_pred, const T* P_pred,               \
+                             const T* x_filt, const T* P_filt, const T* A,   \
+                             T* x_sm, T* P_sm, T* P_lag, int B, int T_,      \
+                             int k, void* stream) {                          \
+    return launch_rts_wide<T>(x_pred, P_pred, x_filt, P_filt, A, x_sm, P_sm, \
+                              P_lag, B, T_, k, (cudaStream_t)stream);        \
   }
 #if DFM_WANT_F32
 DFM_SCAN_ENTRIES(f32, float)

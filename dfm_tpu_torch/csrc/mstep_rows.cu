@@ -47,6 +47,18 @@
 // thread owns one (step, series) residual of the chunk.  Bound: operations
 // at k = 25 (the sums are NE x T x N multiply-adds a pass, ~3.5 GFLOP a
 // pass at the headline panel, against 40 MB of Y and the mask in f32).
+//
+// K3b-m-wide (batched_mstep_rows_wide): K3-wide with blockIdx.y a lane
+// (grid (ceil(N / 32), B), every tensor of a lane batch-major at a lane
+// stride) and no ridge, the fleet M-step's rows at 16 < k <= 32: it
+// replaces the observation rows of dfm_tpu/estim/batched.py:
+// batched_m_step_masked (lines 701-713) at wide k, as K3b-m is K3 with a
+// lane dimension.  A never-observed series (an N-pad series) gets S_ff = I
+// and S_yf = 0: exact-zero loadings and R at the floor.  The lone and the
+// batched entry run one kernel, so the shared-memory opt-in (143 KB in f64
+// at k = 32: one block an SM) covers both.  Bound: operations, ~7 GFLOP a
+// pass a lane at T = 1,000, N = 10,000, k = 25, against 480 MB of Y and W
+// at B = 6 in f32.
 #include "common.cuh"
 
 constexpr int kThreads = 64;
@@ -216,6 +228,15 @@ mstep_rows_wide_kernel(const T* __restrict__ Y, const T* __restrict__ mask,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int i = blockIdx.x * kWideTile + lane;
   const bool live = i < N;
+  // This block's problem lane.
+  const size_t pb = blockIdx.y, tn = (size_t)T_ * N;
+  Y += pb * tn;
+  mask += pb * tn;
+  Ef += pb * (size_t)T_ * k;
+  EffT += pb * (size_t)T_ * kk;
+  Psm += pb * (size_t)T_ * kk;
+  Lam += pb * (size_t)N * k;
+  R += pb * N;
 
   // Stage steps [t0, t0 + nt): the packed lower triangle of M_t and Ef_t,
   // and (a warp a step) the tile's weights and zero-filled values.
@@ -356,13 +377,13 @@ mstep_rows_wide_kernel(const T* __restrict__ Y, const T* __restrict__ mask,
 // The wide launch: JB, the accumulators a thread, covers ceil(ne / 8).
 template <typename T, int JB>
 static int launch_wide_jb(const T* Y, const T* mask, const T* Ef,
-                          const T* EffT, const T* Psm, T* Lam, T* R, int T_,
-                          int N, int k, double r_floor, double lam_ridge,
-                          cudaStream_t stream) {
+                          const T* EffT, const T* Psm, T* Lam, T* R, int B,
+                          int T_, int N, int k, double r_floor,
+                          double lam_ridge, cudaStream_t stream) {
   const size_t bytes = wide_smem<T>(k);
   const cudaError_t e = dfm_smem_optin(mstep_rows_wide_kernel<T, JB>, bytes);
   if (e != cudaSuccess) return (int)e;
-  const int grid = (N + kWideTile - 1) / kWideTile;
+  const dim3 grid((N + kWideTile - 1) / kWideTile, B);
   mstep_rows_wide_kernel<T, JB><<<grid, kWideThreads, bytes, stream>>>(
       Y, mask, Ef, EffT, Psm, Lam, R, T_, N, k, (T)r_floor, (T)lam_ridge);
   return (int)cudaGetLastError();
@@ -370,21 +391,22 @@ static int launch_wide_jb(const T* Y, const T* mask, const T* Ef,
 
 template <typename T>
 static int launch_wide(const T* Y, const T* mask, const T* Ef, const T* EffT,
-                       const T* Psm, T* Lam, T* R, int T_, int N, int k,
-                       double r_floor, double lam_ridge, cudaStream_t stream) {
+                       const T* Psm, T* Lam, T* R, int B, int T_, int N,
+                       int k, double r_floor, double lam_ridge,
+                       cudaStream_t stream) {
   if (k < 1 || k > DFM_WIDE_KMAX) return (int)cudaErrorInvalidValue;
-  if (N <= 0) return (int)cudaGetLastError();
+  if (N <= 0 || B <= 0) return (int)cudaGetLastError();
   const int need = (k * (k + 1) / 2 + k + kWideWarps - 1) / kWideWarps;
   if (need <= 24)
-    return launch_wide_jb<T, 24>(Y, mask, Ef, EffT, Psm, Lam, R, T_, N, k,
+    return launch_wide_jb<T, 24>(Y, mask, Ef, EffT, Psm, Lam, R, B, T_, N, k,
                                  r_floor, lam_ridge, stream);
   if (need <= 40)
-    return launch_wide_jb<T, 40>(Y, mask, Ef, EffT, Psm, Lam, R, T_, N, k,
+    return launch_wide_jb<T, 40>(Y, mask, Ef, EffT, Psm, Lam, R, B, T_, N, k,
                                  r_floor, lam_ridge, stream);
   if (need <= 56)
-    return launch_wide_jb<T, 56>(Y, mask, Ef, EffT, Psm, Lam, R, T_, N, k,
+    return launch_wide_jb<T, 56>(Y, mask, Ef, EffT, Psm, Lam, R, B, T_, N, k,
                                  r_floor, lam_ridge, stream);
-  return launch_wide_jb<T, 72>(Y, mask, Ef, EffT, Psm, Lam, R, T_, N, k,
+  return launch_wide_jb<T, 72>(Y, mask, Ef, EffT, Psm, Lam, R, B, T_, N, k,
                                r_floor, lam_ridge, stream);
 }
 
@@ -420,8 +442,15 @@ extern "C" {
                             const T* EffT, const T* Psm, T* Lam, T* R,       \
                             int T_, int N, int k, double r_floor,            \
                             double lam_ridge, void* stream) {                \
-    return launch_wide<T>(Y, mask, Ef, EffT, Psm, Lam, R, T_, N, k, r_floor, \
-                          lam_ridge, (cudaStream_t)stream);                  \
+    return launch_wide<T>(Y, mask, Ef, EffT, Psm, Lam, R, 1, T_, N, k,       \
+                          r_floor, lam_ridge, (cudaStream_t)stream);         \
+  }                                                                          \
+  int batched_mstep_rows_wide_##SFX(const T* Y, const T* mask, const T* Ef,  \
+                                    const T* EffT, const T* Psm, T* Lam,     \
+                                    T* R, int B, int T_, int N, int k,       \
+                                    double r_floor, void* stream) {          \
+    return launch_wide<T>(Y, mask, Ef, EffT, Psm, Lam, R, B, T_, N, k,       \
+                          r_floor, 0.0, (cudaStream_t)stream);               \
   }
 #if DFM_WANT_F32
 DFM_MSTEP_ENTRIES(f32, float)

@@ -48,6 +48,16 @@
 // Bound: operations at S3, 2 T N 350 = 420 MFLOP (~6 us at 67 TFLOP/s),
 // beside Y and the mask, 4.8 MB in f32 (~1.4 us).
 //
+// K2b-m-wide (batched_obs_stats_wide): K2-wide with blockIdx.y a lane, every
+// tensor of a lane batch-major at a lane stride, as K2b-m is K2 over a
+// (T, B) grid: the fleet's masked statistics at 16 < k <= 32 (a bucket
+// padded past k = 16, and a lowrank bucket's statistics there).  It
+// replaces dfm_tpu/estim/batched.py:_batched_obs_stats_masked (line 593) at
+// wide k; n_t and ldR_t are summed and written in double, as K2b-m's.
+// Bound: bytes, Y and W read once (480 MB at B = 6, T = 1,000, N = 10,000
+// in f32, ~0.14 ms) against 2 B T N (k + k(k+1)/2) = 42 GFLOP at k = 25
+// (~0.63 ms at 67 TFLOP/s): operations.
+//
 // Design: one block per t (and lane).  Each thread walks series with a stride of
 // blockDim.x, keeps its partials of all k + k(k+1)/2 + 2 outputs in
 // registers (k is a template constant so the partials stay in registers;
@@ -145,18 +155,30 @@ constexpr int kWideSums =
     DFM_WIDE_KMAX + DFM_WIDE_KMAX * (DFM_WIDE_KMAX + 1) / 2;
 constexpr int kWideOwn = (kWideSums + kThreads - 1) / kThreads;
 
-template <typename T>
+// n_t and ldR_t in TA (T for the lone K2-wide, double for K2b-m-wide);
+// blockIdx.y is the lane.
+template <typename T, typename TA>
 __global__ void __launch_bounds__(kThreads)
 obs_stats_wide_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
                       const T* __restrict__ R, const T* __restrict__ mask,
                       T* __restrict__ b, T* __restrict__ C,
-                      T* __restrict__ nobs, T* __restrict__ ldR, int N,
+                      TA* __restrict__ nobs, TA* __restrict__ ldR, int N,
                       int k) {
   __shared__ T lam[kWideTile][DFM_WIDE_KMAX + 1];
   __shared__ T wr[kWideTile], yr[kWideTile];
-  __shared__ T red[32];
-  const int t = blockIdx.x, tid = threadIdx.x;
+  __shared__ TA red[32];
+  const int t = blockIdx.x, tid = threadIdx.x, T_ = gridDim.x;
   const int nv = k + k * (k + 1) / 2;
+  // This block's problem lane.
+  const size_t pb = blockIdx.y, tn = (size_t)T_ * N;
+  Y += pb * tn;
+  mask += pb * tn;
+  Lam += pb * (size_t)N * k;
+  R += pb * N;
+  b += pb * (size_t)T_ * k;
+  C += pb * (size_t)T_ * k * k;
+  nobs += pb * T_;
+  ldR += pb * T_;
   const T* y = Y + (size_t)t * N;
   const T* w = mask + (size_t)t * N;
   // The sums this thread owns: e < k is b[e]; else the packed (i, j), j <= i.
@@ -177,7 +199,7 @@ obs_stats_wide_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
       oj[q] = r;
     }
   }
-  T acc_n = T(0), acc_l = T(0);
+  TA acc_n = TA(0), acc_l = TA(0);
   for (int n0 = 0; n0 < N; n0 += kWideTile) {
     const int nt = min(kWideTile, N - n0);
     __syncthreads();                       // the previous tile is consumed
@@ -189,8 +211,8 @@ obs_stats_wide_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
       const T rinv = T(1) / R[n];
       wr[tid] = wn * rinv;
       yr[tid] = wn * nan_to_num(y[n]) * rinv;
-      acc_n += wn;
-      acc_l += wn * dfm_log(R[n]);
+      acc_n += TA(wn);
+      acc_l += TA(wn) * TA(dfm_log(R[n]));
     }
     __syncthreads();
 #pragma unroll
@@ -225,13 +247,13 @@ obs_stats_wide_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
   if (tid == 0) ldR[t] = acc_l;
 }
 
-template <typename T>
+template <typename T, typename TA>
 static int launch_wide(const T* Y, const T* Lam, const T* R, const T* mask,
-                       T* b, T* C, T* nobs, T* ldR, int T_, int N, int k,
-                       cudaStream_t stream) {
+                       T* b, T* C, TA* nobs, TA* ldR, int B, int T_, int N,
+                       int k, cudaStream_t stream) {
   if (k < 1 || k > DFM_WIDE_KMAX) return (int)cudaErrorInvalidValue;
-  if (T_ > 0)
-    obs_stats_wide_kernel<T><<<T_, kThreads, 0, stream>>>(
+  if (B > 0 && T_ > 0)
+    obs_stats_wide_kernel<T, TA><<<dim3(T_, B), kThreads, 0, stream>>>(
         Y, Lam, R, mask, b, C, nobs, ldR, N, k);
   return (int)cudaGetLastError();
 }
@@ -271,8 +293,15 @@ extern "C" {
   int obs_stats_wide_##SFX(const T* Y, const T* Lam, const T* R,             \
                            const T* mask, T* b, T* C, T* nobs, T* ldR,       \
                            int T_, int N, int k, void* stream) {             \
-    return launch_wide<T>(Y, Lam, R, mask, b, C, nobs, ldR, T_, N, k,        \
-                          (cudaStream_t)stream);                             \
+    return launch_wide<T, T>(Y, Lam, R, mask, b, C, nobs, ldR, 1, T_, N, k,  \
+                             (cudaStream_t)stream);                          \
+  }                                                                          \
+  int batched_obs_stats_wide_##SFX(const T* Y, const T* Lam, const T* R,     \
+                                   const T* mask, T* b, T* C, double* nobs,  \
+                                   double* ldR, int B, int T_, int N, int k, \
+                                   void* stream) {                           \
+    return launch_wide<T, double>(Y, Lam, R, mask, b, C, nobs, ldR, B, T_,   \
+                                  N, k, (cudaStream_t)stream);               \
   }
 #if DFM_WANT_F32
 DFM_OBS_ENTRIES(f32, float)

@@ -44,6 +44,17 @@
 // wrapper takes it (with no U) for 16 < k <= 32.  Bound: bytes, Y, the mask
 // and the loadings read once, 4.8 MB in f32 at S3 (T = 300, N = 2,000).
 //
+// K1b-wide and K1b-m-wide (batched_quad_wide, batched_quad_masked_wide):
+// K1b and K1b-m at 16 < k <= 32, the batched wrappers' kernels there.  They
+// replace the same residual passes at wide k (fit_many, the k-grid and the
+// rolling windows past k = 16; a fleet bucket padded past 16).  K1b's body
+// already takes a runtime k and forms U = b - C x_pred from the x_t it
+// holds (not from the residual, as K1-wide does), so the wide twin is that
+// body with its shared x_t sized DFM_WIDE_KMAX: one more instantiation a
+// dtype, not K1-wide's 32 unrolled widths.  Bound: bytes, Y (and the mask)
+// read once, 160 MB at B = 8, T = 500, N = 10,000 in f32 (K1b-m-wide: 480
+// MB at B = 6, T = 1,000).
+//
 // Bound on the H100: bytes.  The kernel must read Y (and the mask) once:
 // 20 MB unmasked, 40 MB masked in f32 at T = 500, N = 10,000 (K1b: 160 MB
 // at B = 8), against ~2(k+2) flops per entry.
@@ -55,7 +66,9 @@
 // then reduces in double.
 #include "common.cuh"
 
-template <typename T>
+// KX: the capacity of the shared x_t (DFM_KMAX, or DFM_WIDE_KMAX for the
+// batched wide twins).
+template <typename T, int KX>
 __global__ void quad_local_kernel(const T* __restrict__ Y,
                                   const T* __restrict__ Lam,
                                   const T* __restrict__ R,
@@ -65,7 +78,7 @@ __global__ void quad_local_kernel(const T* __restrict__ Y,
                                   const T* __restrict__ C, int c_lane,
                                   int c_tstride, double* __restrict__ out,
                                   T* __restrict__ U, int N, int k) {
-  __shared__ T xs[DFM_KMAX];
+  __shared__ T xs[KX];
   __shared__ double red[32];
   const int t = blockIdx.x, T_ = gridDim.x;
   // This block's problem lane.
@@ -175,14 +188,14 @@ static int launch_wide(const T* Y, const T* Lam, const T* R, const T* x_pred,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int KX = DFM_KMAX>
 static int launch(const T* Y, const T* Lam, const T* R, const T* x_pred,
                   const T* mask, const T* bvec, const T* C, int c_lane,
                   int c_tstride, double* out, T* U, int B, int T_, int N,
                   int k, cudaStream_t stream) {
-  if (k < 1 || k > DFM_KMAX) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > KX) return (int)cudaErrorInvalidValue;
   if (B > 0 && T_ > 0)
-    quad_local_kernel<T><<<dim3(T_, B), 256, 0, stream>>>(
+    quad_local_kernel<T, KX><<<dim3(T_, B), 256, 0, stream>>>(
         Y, Lam, R, x_pred, mask, bvec, C, c_lane, c_tstride, out, U, N, k);
   return (int)cudaGetLastError();
 }
@@ -215,6 +228,23 @@ extern "C" {
                                 void* stream) {                              \
     return launch<T>(Y, Lam, R, x_pred, mask, bvec, C, T_ * k * k, k * k,    \
                      out, U, B, T_, N, k, (cudaStream_t)stream);             \
+  }                                                                          \
+  int batched_quad_wide_##SFX(const T* Y, const T* Lam, const T* R,          \
+                              const T* x_pred, const T* bvec, const T* C,    \
+                              double* out, T* U, int B, int T_, int N,       \
+                              int k, void* stream) {                         \
+    return launch<T, DFM_WIDE_KMAX>(Y, Lam, R, x_pred, nullptr, bvec, C,     \
+                                    k * k, 0, out, U, B, T_, N, k,           \
+                                    (cudaStream_t)stream);                   \
+  }                                                                          \
+  int batched_quad_masked_wide_##SFX(const T* Y, const T* Lam, const T* R,   \
+                                     const T* x_pred, const T* mask,         \
+                                     const T* bvec, const T* C, double* out, \
+                                     T* U, int B, int T_, int N, int k,      \
+                                     void* stream) {                         \
+    return launch<T, DFM_WIDE_KMAX>(Y, Lam, R, x_pred, mask, bvec, C,        \
+                                    T_ * k * k, k * k, out, U, B, T_, N, k,  \
+                                    (cudaStream_t)stream);                   \
   }                                                                          \
   int quad_local_wide_##SFX(const T* Y, const T* Lam, const T* R,            \
                             const T* x_pred, const T* mask, double* out,     \

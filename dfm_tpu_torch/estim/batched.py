@@ -22,10 +22,13 @@ Four routines are kernels on CUDA tensors, each with its plain-torch twin
 beside it (the wrapper takes the twin only for CPU tensors): K4b-fwd
 ``_batched_info_scan`` and K4b-bwd ``_batched_rts`` (``csrc/info_scan.cu``,
 K4 with one block per lane), K1b ``_batched_quad`` (``csrc/quad_local.cu``)
-and K6b ``_bsolve_rows`` (``csrc/bsolve_rows.cu``).  Unlike the JAX
-twins' time-major scans, the scan kernels take and return batch-major
-(B, T, ...) tensors; ``_batched_filter``, ``_batched_rts`` and
-``batched_m_step`` keep the JAX layout.
+and K6b ``_bsolve_rows`` (``csrc/bsolve_rows.cu``).  Each wrapper, the
+fleet's below too, takes its kernel through ``kernels.route``: the k <= 16
+kernel, or at 16 < k <= 32 its wide twin in the same source; past 32 it
+raises ``NotImplementedError``.  Unlike the JAX twins' time-major scans,
+the scan kernels take and return batch-major (B, T, ...) tensors;
+``_batched_filter``, ``_batched_rts`` and ``batched_m_step`` keep the JAX
+layout.
 
 Problems may differ by init (restarts), by data (windows) or by active
 factor count (k-grid): a k_b < k_max problem is padded with inert trailing
@@ -120,17 +123,17 @@ def _bsolve_rows_plain(S, V):
 
 def _bsolve_rows(S, V):
     """The row-wise PSD solve of the batched M-step: kernel K6b for CUDA
-    tensors."""
+    tensors (K6b-wide for 16 < k <= 32)."""
     if S.device.type == "cpu":
         return _bsolve_rows_plain(S, V)
     B, n, k = V.shape
     dt, dev = V.dtype, V.device
-    kernels.check_k("batched_solve_rows", k)
+    kernel = kernels.route("batched_solve_rows", k)
     S, V = S.contiguous(), V.contiguous()
     kernels.check_tensor("S", S, (B, k, k), dt, dev)
     kernels.check_tensor("V", V, (B, n, k), dt, dev)
     X = torch.empty_like(V)
-    kernels.launch("batched_solve_rows", dt, S, V, X, B, n, k)
+    kernels.launch(kernel, dt, S, V, X, B, n, k)
     return X
 
 
@@ -378,12 +381,12 @@ def _batched_info_scan_plain(b, C, A, Q, mu0, P0, t_mask=None):
 
 def _batched_info_scan(b, C, A, Q, mu0, P0, t_mask=None):
     """The batched k x k scan (batch-major): kernel K4b-fwd for CUDA
-    tensors."""
+    tensors (K4b-wide for 16 < k <= 32)."""
     if b.device.type == "cpu":
         return _batched_info_scan_plain(b, C, A, Q, mu0, P0, t_mask)
     B, T, k = b.shape
     dt, dev = b.dtype, b.device
-    kernels.check_k("batched_info_scan", k)
+    kernel = kernels.route("batched_info_scan", k)
     tv = C.ndim == 4
     ins = [x.contiguous() for x in (b, C, A, Q, mu0, P0)]
     for name, x, shape in zip(("b", "C", "A", "Q", "mu0", "P0"), ins,
@@ -400,9 +403,8 @@ def _batched_info_scan(b, C, A, Q, mu0, P0, t_mask=None):
     logdetG = torch.empty((B, T), dtype=dt, device=dev)
     b, C, A, Q, mu0, P0 = ins
     c_lane, c_stride = (T * k * k, k * k) if tv else (k * k, 0)
-    kernels.launch("batched_info_scan", dt, b, C, c_lane, c_stride, A, Q,
-                   mu0, P0, t_mask, x_pred, P_pred, x_filt, P_filt, logdetG,
-                   B, T, k)
+    kernels.launch(kernel, dt, b, C, c_lane, c_stride, A, Q, mu0, P0, t_mask,
+                   x_pred, P_pred, x_filt, P_filt, logdetG, B, T, k)
     return x_pred, P_pred, x_filt, P_filt, logdetG
 
 
@@ -424,13 +426,14 @@ def _batched_quad_plain(Y, Lam, R, x_pred, b, C):
 
 def _batched_quad(Y, Lam, R, x_pred, b, C):
     """The residual pass of the batched loglik: kernel K1b for CUDA
-    tensors (the (B, T, N) residual is never stored)."""
+    tensors (K1b-wide for 16 < k <= 32; the (B, T, N) residual is never
+    stored)."""
     if Y.device.type == "cpu":
         return _batched_quad_plain(Y, Lam, R, x_pred, b, C)
     B, T, N = Y.shape
     k = Lam.shape[-1]
     dt, dev = Y.dtype, Y.device
-    kernels.check_k("batched_quad", k)
+    kernel = kernels.route("batched_quad", k)
     ins = [x.contiguous() for x in (Y, Lam, R, x_pred, b, C)]
     for name, x, shape in zip(("Y", "Lam", "R", "x_pred", "b", "C"), ins,
                               ((B, T, N), (B, N, k), (B, N), (B, T, k),
@@ -438,7 +441,7 @@ def _batched_quad(Y, Lam, R, x_pred, b, C):
         kernels.check_tensor(name, x, shape, dt, dev)
     quad = torch.empty((B, T), dtype=torch.float64, device=dev)
     U = torch.empty((B, T, k), dtype=dt, device=dev)
-    kernels.launch("batched_quad", dt, *ins, quad, U, B, T, N, k)
+    kernels.launch(kernel, dt, *ins, quad, U, B, T, N, k)
     return quad, U
 
 
@@ -498,12 +501,13 @@ def _batched_rts_plain(xp, Pp, xf, Pf, A):
 
 
 def _batched_rts(xp, Pp, xf, Pf, A):
-    """Batched RTS smoother: kernel K4b-bwd for CUDA tensors."""
+    """Batched RTS smoother: kernel K4b-bwd for CUDA tensors (K4b-wide
+    for 16 < k <= 32)."""
     if xf.device.type == "cpu":
         return _batched_rts_plain(xp, Pp, xf, Pf, A)
     B, T, k = xf.shape
     dt, dev = xf.dtype, xf.device
-    kernels.check_k("batched_rts", k)
+    kernel = kernels.route("batched_rts", k)
     ins = [x.contiguous() for x in (xp, Pp, xf, Pf, A)]
     for name, x, shape in zip(("x_pred", "P_pred", "x_filt", "P_filt", "A"),
                               ins, ((B, T, k), (B, T, k, k), (B, T, k),
@@ -512,7 +516,7 @@ def _batched_rts(xp, Pp, xf, Pf, A):
     x_sm = torch.empty((B, T, k), dtype=dt, device=dev)
     P_sm = torch.empty((B, T, k, k), dtype=dt, device=dev)
     P_lag = torch.empty_like(P_sm)
-    kernels.launch("batched_rts", dt, *ins, x_sm, P_sm, P_lag, B, T, k)
+    kernels.launch(kernel, dt, *ins, x_sm, P_sm, P_lag, B, T, k)
     return x_sm, P_sm, P_lag
 
 
@@ -630,13 +634,14 @@ def _batched_obs_stats_masked_plain(Y, W, Lam, R):
 
 
 def _batched_obs_stats_masked(Y, W, Lam, R):
-    """The fleet's masked statistics: kernel K2b-m for CUDA tensors."""
+    """The fleet's masked statistics: kernel K2b-m for CUDA tensors
+    (K2b-m-wide for 16 < k <= 32)."""
     if Y.device.type == "cpu":
         return _batched_obs_stats_masked_plain(Y, W, Lam, R)
     B, T, N = Y.shape
     k = Lam.shape[-1]
     dt, dev = Y.dtype, Y.device
-    kernels.check_k("batched_obs_stats", k)
+    kernel = kernels.route("batched_obs_stats", k)
     for name, x, shape in (("Y", Y, (B, T, N)), ("W", W, (B, T, N)),
                            ("Lam", Lam, (B, N, k)), ("R", R, (B, N))):
         kernels.check_tensor(name, x, shape, dt, dev)
@@ -644,8 +649,7 @@ def _batched_obs_stats_masked(Y, W, Lam, R):
     C = torch.empty((B, T, k, k), dtype=dt, device=dev)
     n = torch.empty((B, T), dtype=accum_dtype(), device=dev)
     ldR = torch.empty((B, T), dtype=accum_dtype(), device=dev)
-    kernels.launch("batched_obs_stats", dt, Y, Lam, R, W, b, C, n, ldR, B, T,
-                   N, k)
+    kernels.launch(kernel, dt, Y, Lam, R, W, b, C, n, ldR, B, T, N, k)
     return b, C, n, ldR
 
 
@@ -660,13 +664,13 @@ def _batched_quad_masked_plain(Y, W, Lam, R, x_pred, b, C):
 
 def _batched_quad_masked(Y, W, Lam, R, x_pred, b, C):
     """The residual pass of the fleet's loglik: kernel K1b-m for CUDA
-    tensors."""
+    tensors (K1b-m-wide for 16 < k <= 32)."""
     if Y.device.type == "cpu":
         return _batched_quad_masked_plain(Y, W, Lam, R, x_pred, b, C)
     B, T, N = Y.shape
     k = Lam.shape[-1]
     dt, dev = Y.dtype, Y.device
-    kernels.check_k("batched_quad_masked", k)
+    kernel = kernels.route("batched_quad_masked", k)
     ins = [x.contiguous() for x in (Y, Lam, R, x_pred, W, b, C)]
     for name, x, shape in zip(("Y", "Lam", "R", "x_pred", "W", "b", "C"), ins,
                               ((B, T, N), (B, N, k), (B, N), (B, T, k),
@@ -674,7 +678,7 @@ def _batched_quad_masked(Y, W, Lam, R, x_pred, b, C):
         kernels.check_tensor(name, x, shape, dt, dev)
     quad = torch.empty((B, T), dtype=torch.float64, device=dev)
     U = torch.empty((B, T, k), dtype=dt, device=dev)
-    kernels.launch("batched_quad_masked", dt, *ins, quad, U, B, T, N, k)
+    kernels.launch(kernel, dt, *ins, quad, U, B, T, N, k)
     return quad, U
 
 
@@ -724,13 +728,13 @@ def _batched_mstep_rows_plain(Y, W, x_sm, EffT, P_sm, r_floor: float):
 
 def _batched_mstep_rows(Y, W, x_sm, EffT, P_sm, r_floor: float):
     """The fleet M-step's observation rows: kernel K3b-m for CUDA
-    tensors."""
+    tensors (K3b-m-wide for 16 < k <= 32)."""
     if Y.device.type == "cpu":
         return _batched_mstep_rows_plain(Y, W, x_sm, EffT, P_sm, r_floor)
     B, T, N = Y.shape
     k = x_sm.shape[-1]
     dt, dev = Y.dtype, Y.device
-    kernels.check_k("batched_mstep_rows", k)
+    kernel = kernels.route("batched_mstep_rows", k)
     ins = [x.contiguous() for x in (Y, W, x_sm, EffT, P_sm)]
     for name, x, shape in zip(("Y", "W", "x_sm", "EffT", "P_sm"), ins,
                               ((B, T, N), (B, T, N), (B, T, k),
@@ -738,8 +742,7 @@ def _batched_mstep_rows(Y, W, x_sm, EffT, P_sm, r_floor: float):
         kernels.check_tensor(name, x, shape, dt, dev)
     Lam = torch.empty((B, N, k), dtype=dt, device=dev)
     R = torch.empty((B, N), dtype=dt, device=dev)
-    kernels.launch("batched_mstep_rows", dt, *ins, Lam, R, B, T, N, k,
-                   float(r_floor))
+    kernels.launch(kernel, dt, *ins, Lam, R, B, T, N, k, float(r_floor))
     return Lam, R
 
 

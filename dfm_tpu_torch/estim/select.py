@@ -3,7 +3,7 @@
 The port's twin of ``dfm_tpu.estim.select.select_n_factors_em`` (and its
 ``EMSelectResult``).  The NumPy helpers of the JAX module
 (``bai_ng_ic``, ``lasso_path``, ``targeted_predictors``) are not ported
-yet (ROADMAP Queue 1 item 6).
+yet (ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations

@@ -50,7 +50,9 @@ KMAX = 16   # DFM_KMAX in csrc/common.cuh
 # The wide kernels' range (DFM_WIDE_KMAX): K12, the lone masked K2, the K4
 # pair and K1 at state widths past KMAX (the mixed-frequency augmented
 # state, m = 25 at S3), K3, K5a and K5b past KMAX (the lone fits at 16 <
-# k <= 32), K14 (pit_elements, pit_scan) at every k, and K15
+# k <= 32), the batched twins K4b, K1b, K6b, K2b-m, K1b-m and K3b-m past
+# KMAX (fit_many, the k-grid, the rolling windows and fleet buckets at
+# 16 < k <= 32), K14 (pit_elements, pit_scan) at every k, and K15
 # (dense_filter) at every N and k.
 WIDE_KMAX = 32
 # The rank-r kernels' range (DFM_LR_KMAX, DFM_LR_RMAX in lowrank_scan.cu).
@@ -110,14 +112,31 @@ KERNELS = {
     "mstep_rows_wide": ("mstep_rows.cu", [_P] * 7 + [_I] * 3 + [_D] * 2),
     "ss_cov_path_wide": ("ss_cov_path.cu", [_P] * 12 + [_I] * 2),
     "affine_scan_wide": ("affine_scan.cu", [_P] * 5 + [_I] * 4),
+    "batched_info_scan_wide": ("info_scan.cu",
+                               [_P, _P, _I, _I] + [_P] * 10 + [_I] * 3),
+    "batched_rts_wide": ("info_scan.cu", [_P] * 8 + [_I] * 3),
+    "batched_quad_wide": ("quad_local.cu", [_P] * 8 + [_I] * 4),
+    "batched_quad_masked_wide": ("quad_local.cu", [_P] * 9 + [_I] * 4),
+    "batched_solve_rows_wide": ("bsolve_rows.cu", [_P] * 3 + [_I] * 3),
+    "batched_obs_stats_wide": ("obs_stats.cu", [_P] * 8 + [_I] * 4),
+    "batched_mstep_rows_wide": ("mstep_rows.cu",
+                                [_P] * 7 + [_I] * 4 + [_D]),
 }
 
-# The lone entry points with a wide kernel beside the k <= KMAX one, and
-# its name.  Every other kernel stops at KMAX.
+# The entry points with a wide kernel beside the k <= KMAX one, and its
+# name (each batched twin's wide kernel takes its C arguments).  Every
+# other kernel stops at KMAX.
 WIDE = {"obs_stats": "obs_stats_wide", "info_scan": "info_scan_wide",
         "rts_smoother": "rts_smoother_wide", "quad_local": "quad_local_wide",
         "mstep_rows": "mstep_rows_wide", "ss_cov_path": "ss_cov_path_wide",
-        "affine_scan": "affine_scan_wide"}
+        "affine_scan": "affine_scan_wide",
+        "batched_info_scan": "batched_info_scan_wide",
+        "batched_rts": "batched_rts_wide",
+        "batched_quad": "batched_quad_wide",
+        "batched_quad_masked": "batched_quad_masked_wide",
+        "batched_solve_rows": "batched_solve_rows_wide",
+        "batched_obs_stats": "batched_obs_stats_wide",
+        "batched_mstep_rows": "batched_mstep_rows_wide"}
 
 # Measurement kernels off the model path, in the same form.
 PROBES = {
@@ -239,8 +258,8 @@ def check_k(name: str, k: int, kmax: int = KMAX) -> None:
 
 
 def route(name: str, k: int) -> str:
-    """The kernel that one of the ``WIDE`` lone entry points launches at
-    k: ``name`` itself for k <= KMAX, its wide kernel for KMAX < k <=
+    """The kernel that one of the ``WIDE`` entry points launches at k:
+    ``name`` itself for k <= KMAX, its wide kernel for KMAX < k <=
     WIDE_KMAX; raises as ``check_k`` past that."""
     check_k(name, k, WIDE_KMAX)
     return name if k <= KMAX else WIDE[name]

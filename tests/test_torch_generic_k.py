@@ -80,6 +80,7 @@ def test_wide_routes_raise_at_33_naming_the_roadmap_row(name):
         kernels.route(name, 33)
     with pytest.raises(ValueError):
         kernels.route(name, 0)
-    # The batched twin of K3 stays at 16.
+    # check_k keeps its default range, KMAX: the batched twins reach their
+    # wide kernels through route (tests/test_torch_batched_wide.py).
     with pytest.raises(NotImplementedError, match="Generic k"):
         kernels.check_k("batched_mstep_rows", 17)

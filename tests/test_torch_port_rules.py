@@ -187,5 +187,11 @@ def test_cpu_path_launches_no_kernel():
                                      "sv_rbpf", "sv_ffbs", "pit_elements",
                                      "pit_scan", "dense_filter",
                                      "mstep_rows_wide", "ss_cov_path_wide",
-                                     "affine_scan_wide"}
+                                     "affine_scan_wide",
+                                     "batched_info_scan_wide",
+                                     "batched_rts_wide", "batched_quad_wide",
+                                     "batched_quad_masked_wide",
+                                     "batched_solve_rows_wide",
+                                     "batched_obs_stats_wide",
+                                     "batched_mstep_rows_wide"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())
