@@ -6,8 +6,8 @@
 ``--phases`` takes a comma list of phase groups (all by default, the
 acceptance run): headline (phases 2-5), session (6-8), batched (9-13),
 fleet (14-18), lowrank (19-23), tvl (24-26), mf (27-30), sv (31-33), pit
-(34-36), dense (37-39), wide (40-43), bwide (44-49).  The setup, the build
-and the final lines always run.
+(34-36), dense (37-39), wide (40-43), bwide (44-49), kbig (50-57).  The
+setup, the build and the final lines always run.
 
 Phases, each of which raises (and the script exits non-zero) on failure:
 
@@ -155,7 +155,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    under ``set_sync_debug_mode("error")``, p50/p99, the query's kernel
    times, the session's kernels against their plain twins on its buffers.
 23. lowrank fleet: 4 tenants of 480 x 10,000 at k = 16 in one bucket at
-   capacity 1,000, 5 drains, f64 then f32: 1 read a tick and exactly 1
+   capacity 1,000, 3 drains, f64 then f32: 1 read a tick and exactly 1
    K13b, 6 each of K2b-m, K9-basis, K9-fwd, K1b-m and K9-bwd, 5 K3b-m and
    5 K6b; lanes 0 and 1 against lone lowrank sessions (f64, 1e-9, up to
    a lane's first divergence); the tick's kernels on the bucket's
@@ -267,9 +267,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    point) and (1,000, 31, 10) masked (a session's capacity), f64 and f32
    (the TOL rule), timed warm and cold beside the plain twin, the bound
    and K4's latency floor at the same (T, k); then error checks at k =
-   1, 2, 3, 10, 16, 17, 25, 32 with N in {k, 31, 32} on 40-step panels
-   with step 0 fully missing and a step observing fewer than k series;
-   N = 33 and k = 33 must raise NotImplementedError.
+   1, 3, 16, 17, 25, 32 with N in {k, 31, 32} on 40-step panels with
+   step 0 fully missing and a step observing fewer than k series; N = 33
+   and k = 33 must raise NotImplementedError.
 38. dense fit: ``fit`` (auto -> dense) on the masked headline panel's
    first 31 series, 20 iterations, tol = 0, f32, the reporting smooth and
    a 12-step forecast: exactly 21 K15, 20 K3 and 21 K4-backward launches
@@ -287,8 +287,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    fully observed twin at the tau ``fit`` picks and at 192), f64 and f32
    (the TOL rule), timed warm and cold beside the plain twin, with the
    bound and K4's latency floor at k = 25; then error checks through
-   the wrappers at k = 1, 2, 3, 10, 16, 17, 25, 32 on 120 x 400 panels;
-   k = 33 must raise NotImplementedError in all three.
+   the wrappers at k = 1, 3, 16, 17, 25, 32 on 120 x 400 panels; K5a and
+   K5b must raise NotImplementedError at k = 33, K3 (generic past 32) at
+   129.
 41. generic-k fits at k = 25 on the headline panel, 20 iterations, tol =
    0, f32: masked ``auto`` (-> info), masked ``pit``, masked ``lowrank``
    (rank 8) and unmasked ``auto`` (-> ss): the wide kernels every
@@ -310,34 +311,69 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    bound, K4's latency floor at k = 25 and, for K6b, ``cholesky`` +
    ``cholesky_solve``.
 45. batched k-sweep: the batched kernels through their wrappers at k =
-   17, 24, 25 and 32 on phase 9's 120 x 400 shapes (the Hetero bucket's
+   17, 25 and 32 on phase 9's 120 x 400 shapes (the Hetero bucket's
    scan with NaN and inf at its pad steps), the fleet path at k = 17 and
    32 (phase 17's tenants, every kernel of the tick against its twin), and
    k = 33 must raise NotImplementedError in all seven wrappers.
 46. batched paths at k = 25 (f32): ``fit_many`` of 8 restarts of the
    unmasked k = 25 panel (20 iterations, tol = 0) beside 8 looped lone
-   info fits; ``select_n_factors_em`` over k = 8, 16, 20, 24, 25, 28, 32
-   (B = 7 lanes padded to 32); ``oos_evaluate(engine="batched")``, 12
+   info fits; ``select_n_factors_em`` over k = 8, 16, 25, 32 (B = 4
+   lanes padded to 32); ``oos_evaluate(engine="batched")``, 12
    windows of 400 rows, 10 iterations: each with n_chunks + 1 reads and
    exactly the wide twins' launches of phases 10-12 (no k <= 16 batched
    kernel).
 47. k = 25 fleets: phase 14 on four masked 480 x 10,000 tenants at k =
    25 and two 400 x 6,000 at k = 12 in one info bucket at (1,000, 10,000,
-   25), 5 drains (odd drains: tenants 1, 3 and 5), 1 read and exactly
+   25), 3 drains (odd drains: tenants 1, 3 and 5), 1 read and exactly
    phase 14's launches (the wide twins) a tick under the sync check, lane
    0 (k = 25) and lane 4 (k = 12, padded across 16) held to their lone
    sessions within 5e-3, then the tick's kernels on the bucket's buffers
    (f64 and f32, timed); phase 23 on two 480 x 10,000 tenants at k = 25
-   in a lowrank bucket (rank 8, 3 drains, f64 then f32).
+   in a lowrank bucket (rank 8, 2 drains, f64 then f32).
 48. batched reference at k = 20: ``fit_many`` of 3 panels and a Hetero
    ``run_batched_em`` at 120 x 80, and a 3-tick fleet of a 100 x 40 tenant
    at k = 20 and a 90 x 30 tenant at k = 12, card f64 against CPU f64
    within 1e-12.
 49. contract: phase 13's loglik contract for the 8 f32 restarts at k = 25.
 
+50. generic kernels: K2-gen (``csrc/obs_stats.cu``), the K4-gen pair
+   (``csrc/info_scan.cu`` on ``csrc/cta_linalg.cuh``), K1-gen
+   (``csrc/quad_local.cu``: ``quad_local`` and ``loglik_terms_local``)
+   and K3-gen (``csrc/mstep_rows.cu``), the lone kernels past k = 32,
+   against their plain twins on the headline panel simulated at k = 50
+   and 100 (T = 500, N = 10,000), masked and (K4 forward, K1) unmasked,
+   f64 and f32 (the TOL rule), timed warm and cold beside the plain twin, the
+   bound, K2-gen's ``einsum`` (C_t) and the K4-gen pair's latency floor.
+51. k-sweep: the same at k = 33, 40, 48, 64, 96, 100, 127, 128 on 120 x
+   400 panels with a fully missing step, a step observing fewer than k
+   series and a never-observed series (K3 with a ridge); k = 129 must
+   raise NotImplementedError in every lone entry point before any launch.
+52. fits at k > 32: masked ``auto`` (-> info), unmasked ``info`` and
+   masked ``lowrank`` (rank 8) at k = 50; unmasked ``info`` and
+   ``lowrank`` and masked ``info`` at k = 100; 10 iterations, tol = 0,
+   f32: exact launches (the generic kernels, no k <= 32 kernel of
+   K1-K4), one read a chunk, logliks within the noise floor (lowrank:
+   drops the f64 trajectory makes too), EM it/s and each info fit's
+   iteration split into its kernels.
+53. kscale's own shape (N = 120, T = 200, k = 50 and 100, 12 iterations):
+   the warm fit wall (best of 2) of exact ``info`` over ``lowrank`` and
+   each f32 fit's final-loglik error against the f64 info fit (printed).
+54. ``fit(fused=True)`` on the masked k = 50 panel's first 480 rows and an
+   info session on it (capacity 1,000, 3 queries of 2 rows, one read a
+   query under the sync check).
+55. mixed frequency past 32: ``MixedFreqSpec(1600, 400, 7)`` (m = 35)
+   ``seq`` at S3's shape, 5 iterations, f32 (exact launches of K2-gen,
+   K4-gen and K1-gen an E-step, n_chunks + 1 reads); card f64 against CPU
+   f64 on a 24 + 8 series x 60 panel within 1e-9.
+56. reference: ``fit`` at 100 x 60, k = 40, masked, ``info`` and
+   ``lowrank`` (rank 4), card f64 against CPU f64 within 1e-12.
+57. contract: phase 5's loglik contract for the masked info fits at k =
+   50 and 100.
+
 Output: one JSON line per kernel and dtype, one per fit, contract check,
-ring case, session, batched, fleet, TVL, MF, SV, K14, dense and wide
-phase, the seconds of each phase group and of the script, then the
+ring case, session, batched, fleet, TVL, MF, SV, K14, dense, wide and
+kbig phase, the seconds of each phase group as it ends and of the
+script, then the
 {"kernels": [...]} summary, the card line and, last, {"ok": true,
 "device": {...}}.
 """
@@ -429,7 +465,10 @@ L2_FLUSH_BYTES = 256 * 2**20                   # > 5x the H100's 50 MB L2
 # solves, 1e-4 / 1e-9 as the other scans.  K15, a T-step recursion with
 # an N x N factorization a step, takes 1e-4 / 1e-9 as K4; the wide K3,
 # K5a and K5b, and the batched wide twins (K4b, K1b, K6b, K2b-m, K1b-m,
-# K3b-m at 16 < k <= 32), their k <= 16 kernels' tolerances.
+# K3b-m at 16 < k <= 32), their k <= 16 kernels' tolerances.  The generic
+# kernels past 32 (K2-gen, the K4-gen pair, K1-gen, K3-gen) take their
+# lone twins' f32 tolerances and 1e-10 in f64 (measured <= 1e-12 at k =
+# 33..128 on 120 x 400 panels and at the headline shape).
 TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "mstep_rows": 1e-4, "info_scan": 1e-4,
                        "rts_smoother": 1e-4, "ss_cov_path": 1e-4,
@@ -453,7 +492,10 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "batched_quad_masked_wide": 1e-5,
                        "batched_solve_rows_wide": 1e-4,
                        "batched_obs_stats_wide": 1e-5,
-                       "batched_mstep_rows_wide": 1e-4},
+                       "batched_mstep_rows_wide": 1e-4,
+                       "obs_stats_gen": 1e-5, "quad_local_gen": 1e-5,
+                       "info_scan_gen": 1e-4, "rts_smoother_gen": 1e-4,
+                       "mstep_rows_gen": 1e-4},
        torch.float64: {"quad_local": 1e-10, "obs_stats": 1e-10,
                        "mstep_rows": 1e-9, "info_scan": 1e-9,
                        "rts_smoother": 1e-9, "ss_cov_path": 1e-9,
@@ -477,7 +519,10 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "batched_quad_masked_wide": 1e-10,
                        "batched_solve_rows_wide": 1e-10,
                        "batched_obs_stats_wide": 1e-10,
-                       "batched_mstep_rows_wide": 1e-9}}
+                       "batched_mstep_rows_wide": 1e-9,
+                       "obs_stats_gen": 1e-10, "quad_local_gen": 1e-10,
+                       "info_scan_gen": 1e-10, "rts_smoother_gen": 1e-10,
+                       "mstep_rows_gen": 1e-10}}
 # The TPU routine each kernel replaces.
 REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "obs_stats": "dfm_tpu/ssm/info_filter.py:69",
@@ -522,7 +567,12 @@ REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "batched_quad_masked_wide": "dfm_tpu/estim/batched.py:650",
             "batched_solve_rows_wide": "dfm_tpu/estim/batched.py:106",
             "batched_obs_stats_wide": "dfm_tpu/estim/batched.py:593",
-            "batched_mstep_rows_wide": "dfm_tpu/estim/batched.py:682"}
+            "batched_mstep_rows_wide": "dfm_tpu/estim/batched.py:682",
+            "obs_stats_gen": "dfm_tpu/ssm/info_filter.py:69",
+            "info_scan_gen": "dfm_tpu/ssm/info_filter.py:104",
+            "rts_smoother_gen": "dfm_tpu/ssm/kalman.py:84",
+            "quad_local_gen": "dfm_tpu/ssm/info_filter.py:159",
+            "mstep_rows_gen": "dfm_tpu/estim/em.py:163"}
 # The variant of each kernel whose f32 record goes into the summary line.
 SUMMARY_VARIANT = {"quad_local": "masked", "obs_stats": "masked",
                    "mstep_rows": "masked", "info_scan": "masked",
@@ -552,12 +602,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn) -> float:
-    """Milliseconds of one call from CUDA events, after a warm-up: one
-    timed call, and unless it took 0.3 s or more (the slow plain twins),
-    the mean over a run of back-to-back calls (~0.3 s of work, 3..50
+def cuda_ms(fn, warm: bool = True) -> float:
+    """Milliseconds of one call from CUDA events, after a warm-up (skipped
+    when ``warm`` is False: the caller has just run ``fn``): one timed
+    call, and unless it took 0.1 s or more (the slow plain twins), the
+    mean over a run of back-to-back calls (~0.1 s of work, 3..50
     calls)."""
-    fn()
+    if warm:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -565,9 +617,9 @@ def cuda_ms(fn) -> float:
     end.record()
     end.synchronize()
     one = start.elapsed_time(end)
-    if one >= 300.0:
+    if one >= 100.0:
         return one
-    reps = max(3, min(50, int(300.0 / max(one, 1e-3))))
+    reps = max(3, min(50, int(100.0 / max(one, 1e-3))))
     start.record()
     for _ in range(reps):
         fn()
@@ -576,12 +628,13 @@ def cuda_ms(fn) -> float:
     return start.elapsed_time(end) / reps
 
 
-def cuda_ms_cold(fn, reps: int = 10) -> float:
+def cuda_ms_cold(fn, reps: int = 3, warm: bool = True) -> float:
     """Mean milliseconds of one call with a cold L2: a buffer five times
     the L2 is overwritten before each call, and CUDA events time the call
-    alone."""
+    alone (after a warm-up unless ``warm`` is False)."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    fn()
+    if warm:
+        fn()
     pairs = []
     for _ in range(reps):
         flush.zero_()
@@ -937,9 +990,11 @@ def kernel_record(c: dict, dtype, refs: dict) -> dict:
     return {"name": name, "variant": c["variant"],
             "dtype": str(dtype).replace("torch.", ""),
             "max_rel_err": rel_err, "max_abs_err": abs_err, "tol": tol,
-            "plain_f32_err": plain_err, "kernel_ms": cuda_ms(c["run"]),
-            "kernel_ms_cold_l2": cuda_ms_cold(c["run"]),
-            "plain_ms": cuda_ms(c["plain"]),
+            "plain_f32_err": plain_err,
+            "kernel_ms": cuda_ms(c["run"], warm=False),
+            "kernel_ms_cold_l2": cuda_ms_cold(c["run"],
+                                              c.get("cold_reps", 3), False),
+            "plain_ms": cuda_ms(c["plain"], warm=False),
             "library_ms": cuda_ms(c["library"]) if c["library"] else None,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "latency_ms": c["floor"]() if c["floor"] else None,
@@ -1067,7 +1122,12 @@ OWN_FIT = {"quad_local": "masked", "obs_stats": "masked",
            "batched_solve_rows_wide": "fit_many k25",
            "batched_obs_stats_wide": "fleet k25",
            "batched_quad_masked_wide": "fleet k25",
-           "batched_mstep_rows_wide": "fleet k25"}
+           "batched_mstep_rows_wide": "fleet k25",
+           "obs_stats_gen": "k100 masked info",
+           "info_scan_gen": "k100 masked info",
+           "rts_smoother_gen": "k100 masked info",
+           "quad_local_gen": "k100 masked info",
+           "mstep_rows_gen": "k100 masked info"}
 
 
 def fit_phase(seed: int) -> dict:
@@ -1178,24 +1238,26 @@ REFERENCE_OWN = {"ss": ("ss_cov_path", "affine_scan"),
 
 
 def reference_fit(label: str, Y, k: int, flt: str, tol: float,
-                  engine=None) -> None:
+                  engine=None, extra=None, own=None) -> None:
     """One 10-iteration fit of ``Y`` at k factors with ``filter=flt`` on
     the card in f64 against the same fit on the CPU in f64 (the plain
     twins): logliks, params, factors and forecasts within ``tol``
     relative.  The card fit must resolve to ``engine`` (default ``flt``)
-    and launch that engine's own kernels (``REFERENCE_OWN``; at k > KMAX
-    the wide kernels of ss)."""
+    and launch that engine's own kernels (``own``, default
+    ``REFERENCE_OWN``; each entry point's kernel at k: ``kernels.route``).
+    ``extra``: more backend options (a rank)."""
     engine = engine or flt
     model = dt.DynamicFactorModel(n_factors=k, dynamics="ar1")
     res = {}
     for dev in ("cuda", "cpu"):
-        b = dt.TorchBackend(device=dev, dtype=torch.float64, filter=flt)
+        b = dt.TorchBackend(device=dev, dtype=torch.float64, filter=flt,
+                            **(extra or {}))
         kernels.reset_launches()
         r = dt.fit(model, Y, backend=b, max_iters=10, tol=0.0)
         res[dev] = (r, dt.forecast(r, 12)[0], dict(kernels.LAUNCHES))
     (rg, yg, lg), (rc, yc, _) = res["cuda"], res["cpu"]
     own = tuple(kernels.route(n, k) if n in kernels.WIDE else n
-                for n in REFERENCE_OWN.get(engine, ()))
+                for n in (own or REFERENCE_OWN.get(engine, ())))
     if rg.filter != engine or any(lg[n] == 0 for n in own):
         raise AssertionError(f"reference {label}: the card fit ran "
                              f"{rg.filter!r}, not {engine!r}, or did not "
@@ -1470,8 +1532,9 @@ def session_kernel_check(sess, label: str, seed: int) -> None:
 
 
 def drive_session(sess, label: str, Ynan, engine: str, own: str,
-                  on_query=None) -> tuple:
-    """Ten updates of SESSION_ROWS rows of ``Ynan`` from SESSION_T0, then
+                  on_query=None, queries: int = SESSION_UPDATES) -> tuple:
+    """``queries`` (ten) updates of SESSION_ROWS rows of ``Ynan`` from
+    SESSION_T0, then
     a pure re-forecast (no rows; still one K13 launch and one read), each
     query's device work under ``set_sync_debug_mode("error")`` and followed
     by one counted read; launch counts are reset before the first query.
@@ -1486,18 +1549,17 @@ def drive_session(sess, label: str, Ynan, engine: str, own: str,
     walls, calls, per_query = [], [], []
     torch.cuda.synchronize()
     kernels.reset_launches()
-    for q in range(SESSION_UPDATES + 1):
+    for q in range(queries + 1):
         lo = SESSION_T0 + q * SESSION_ROWS
         if on_query is not None:
             on_query(q)
         before = dict(kernels.LAUNCHES)
         torch.cuda.synchronize()
         c0 = time.perf_counter()
-        u = sess.update(Ynan[lo:lo + SESSION_ROWS]
-                        if q < SESSION_UPDATES else None)
+        u = sess.update(Ynan[lo:lo + SESSION_ROWS] if q < queries else None)
         torch.cuda.synchronize()
         call = time.perf_counter() - c0
-        if q < SESSION_UPDATES:
+        if q < queries:
             walls.append(u.wall_s)
             calls.append(call)
         per_query.append({n: kernels.LAUNCHES[n] - before[n]
@@ -1509,7 +1571,7 @@ def drive_session(sess, label: str, Ynan, engine: str, own: str,
             raise AssertionError(f"session {label}: non-finite output")
     rec = {"session": label, "filter": sess.filter, "ring": sess.ring,
            "capacity": sess.capacity, "t": sess.t,
-           "n_evicted": sess.n_evicted, "queries": SESSION_UPDATES,
+           "n_evicted": sess.n_evicted, "queries": queries,
            "p50_ms": pct(walls, 50) * 1e3, "p99_ms": pct(walls, 99) * 1e3,
            "walls_ms": [w * 1e3 for w in walls],
            "call_p50_ms": pct(calls, 50) * 1e3,
@@ -1917,9 +1979,10 @@ def batched_kernel_phase(seed: int) -> dict:
                            "B": Yt.shape[0], "max_rel_err": rel_err,
                            "max_abs_err": abs_err, "tol": tol,
                            "plain_f32_err": plain_err,
-                           "kernel_ms": cuda_ms(c["run"]),
-                           "kernel_ms_cold_l2": cuda_ms_cold(c["run"]),
-                           "plain_ms": cuda_ms(c["plain"]),
+                           "kernel_ms": cuda_ms(c["run"], warm=False),
+                           "kernel_ms_cold_l2": cuda_ms_cold(
+                               c["run"], c.get("cold_reps", 3), False),
+                           "plain_ms": cuda_ms(c["plain"], warm=False),
                            "library_ms": (cuda_ms(c["library"])
                                           if c["library"] else None),
                            "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2448,9 +2511,10 @@ def fleet_kernel_check(bucket, label: str, seed: int,
                         "dtype": "float32", "B": bucket.B,
                         "max_rel_err": rel, "max_abs_err": abs_err,
                         "tol": tol, "plain_f32_err": plain_err,
-                        "kernel_ms": cuda_ms(c["run"]),
-                        "kernel_ms_cold_l2": cuda_ms_cold(c["run"]),
-                        "plain_ms": cuda_ms(c["plain"]),
+                        "kernel_ms": cuda_ms(c["run"], warm=False),
+                        "kernel_ms_cold_l2": cuda_ms_cold(
+                            c["run"], c.get("cold_reps", 3), False),
+                        "plain_ms": cuda_ms(c["plain"], warm=False),
                         "library_ms": (cuda_ms(c["library"])
                                        if c["library"] else None),
                         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2851,7 +2915,7 @@ def fleet_reference_phase(seed: int, shapes=FLEET_REF_SHAPES,
 LR_K, LR_RANK = 16, 8
 LOWRANK = ("lowrank_basis", "lowrank_scan", "lowrank_smoother")
 LR_SWEEP = ((1, 1), (3, 3), (16, 16), (17, 8), (50, 8), (100, 8), (100, 32))
-LR_FLEET_TENANTS, LR_FLEET_DRAINS = 4, 5
+LR_FLEET_TENANTS, LR_FLEET_DRAINS = 4, 3
 LR_LONE = (0, 1)             # lanes held against their lone sessions
 # Kernels of a lowrank tick and their launches a tick (5 EM iterations +
 # the reporting smooth; K3b-m and K6b once a M-step; K13b once).
@@ -2977,7 +3041,8 @@ def lowrank_k_sweep(seed: int) -> None:
         emit({"lowrank_k_sweep": [k, r], "max_rel_err": worst})
 
 
-def lowrank_f64_lls(Y, W, n: int) -> np.ndarray:
+def lowrank_f64_lls(Y, W, n: int, k: int = LR_K,
+                    rank: int = LR_RANK) -> np.ndarray:
     """The f64 lowrank EM trajectory on the card (``em_fit_scan``, no stop
     rule) from the init ``fit`` computes, for ``n`` iterations: the
     yardstick of an f32 loglik drop."""
@@ -2987,10 +3052,10 @@ def lowrank_f64_lls(Y, W, n: int) -> np.ndarray:
     mt = (torch.as_tensor(W, dtype=torch.float64, device="cuda")
           if W is not None else None)
     with highest_precision():
-        p0 = SSMParams.from_numpy(pca_init_device(Zt, LR_K),
+        p0 = SSMParams.from_numpy(pca_init_device(Zt, k),
                                   dtype=torch.float64, device="cuda")
         _, lls, _ = em_fit_scan(Zt, p0, n, mask=mt,
-                                cfg=EMConfig(filter="lowrank", rank=LR_RANK))
+                                cfg=EMConfig(filter="lowrank", rank=rank))
     return lls.cpu().numpy()
 
 
@@ -3244,7 +3309,7 @@ def lowrank_fleet_phase(seed: int, k: int = LR_K,
                         drains: int = LR_FLEET_DRAINS) -> None:
     """4 tenants of 480 x 10,000 at k = 16 (``n_tenants`` at k; fused
     lowrank fits, 10 iterations: the fleet inherits their engine, rank
-    auto = 8) in one bucket at capacity 1,000, 5 drains (``drains``) of 2
+    auto = 8) in one bucket at capacity 1,000, 3 drains (``drains``) of 2
     rows, 5 iterations, tol = 0,
     beside lone lowrank sessions of lanes LR_LONE on the same queries,
     first in f64, then in f32 (timed).  Each tick's device part runs under
@@ -4893,7 +4958,7 @@ DENSE_ITERS = 20
 DENSE_SHAPES = (("masked", T, DENSE_N, K, True),
                 ("long-T", LONGT_T, LONGT_N, LONGT_K, False),
                 ("session capacity", 1000, DENSE_N, K, True))
-WIDE_SWEEP = (1, 2, 3, 10, 16, 17, 25, 32)
+WIDE_SWEEP = (1, 3, 16, 17, 25, 32)
 WIDE_K = 25                  # BENCH_kscale.json's exact fits
 WIDE_SEED = 1302             # the k = 25 panel: seed + WIDE_SEED
 WIDE_ITERS = 20
@@ -5200,7 +5265,8 @@ def wide_k_sweep(seed: int) -> None:
     """K3, K5a and K5b through their wrappers (today's kernel for k <= 16,
     the wide one past it) at k in WIDE_SWEEP on 120 x 400 panels with a
     fully missing step and a step observing fewer than k series, tau =
-    24, f64 and f32 (error checks only); k = 33 must raise in all three."""
+    24, f64 and f32 (error checks only); K5a and K5b must raise at k =
+    33, K3 (generic past 32) at 129."""
     for k in WIDE_SWEEP:
         _, W, Yfull, p = panel(seed + 1310 + k, T_=120, N_=400, K_=k)
         W[7] = 0.0
@@ -5221,17 +5287,17 @@ def wide_k_sweep(seed: int) -> None:
         emit({"wide_k_sweep": k,
               "max_rel_err": {n: v[0] for n, v in worst.items()},
               "worst_output": {n: v[1] for n, v in worst.items()}})
+    # Each at the end of its range: K5a and K5b at 33, K3 (a generic
+    # kernel past 32) at 129.
     k = WIDE_SWEEP[-1] + 1
     z = torch.zeros
-    calls = {"mstep_rows": lambda: mstep_rows(
-                 z((4, 8), device="cuda"), z((4, 8), device="cuda"),
-                 z((4, k), device="cuda"), z((4, k, k), device="cuda"),
-                 z((4, k, k), device="cuda"), None, 1e-6),
-             "ss_cov_path": lambda: ss.ss_cov_path(
+    calls = {"ss_cov_path": lambda: ss.ss_cov_path(
                  *(z((k, k), device="cuda") for _ in range(4)), 4),
              "affine_scan": lambda: sc.affine_scan(
                  z((6, k), device="cuda"), z((2, k, k), device="cuda"),
-                 z((k, k), device="cuda"), z((k,), device="cuda"))}
+                 z((k, k), device="cuda"), z((k,), device="cuda")),
+             "mstep_rows": kbig_raise_calls(kernels.GEN_KMAX + 1)[
+                 "mstep_rows"]}
     raised = []
     for name, fn in calls.items():
         try:
@@ -5240,7 +5306,7 @@ def wide_k_sweep(seed: int) -> None:
             raised.append(name)
     emit({"wide_k33": raised})
     if len(raised) != len(calls):
-        raise AssertionError(f"k = 33: only {raised} raised")
+        raise AssertionError(f"past the range: only {raised} raised")
 
 
 def wide_fit_phase(seed: int) -> dict:
@@ -5329,18 +5395,18 @@ def wide_contract_phase(seed: int) -> None:
 
 # ------------------------------------------- the batched twins at wide k --
 
-# The k-grid of the bwide group: B = 7 lanes padded to k_max = 32, so the
+# The k-grid of the bwide group: B = 4 lanes padded to k_max = 32, so the
 # wide twins run at the end of their range.
-BWIDE_KS = (8, 16, 20, 24, 25, 28, 32)
-BWIDE_SWEEP = (17, 24, 25, 32)
+BWIDE_KS = (8, 16, 25, 32)
+BWIDE_SWEEP = (17, 25, 32)
 # The k = 25 fleet: four masked 480 x 10,000 tenants at k = 25 and two
 # 400 x 6,000 at k = 12, one bucket at (1,000, 10,000, 25) padded in T, N
 # and k (across 16); at odd drains tenants 1, 3 and 5; lanes 0 (k = 25) and
 # 4 (k = 12) held to their lone sessions.  The lowrank bucket: two tenants
 # at k = 25.
 BWIDE_FLEET_SHAPES = ((SESSION_T0, N, WIDE_K),) * 4 + ((400, 6000, 12),) * 2
-BWIDE_DRAINS, BWIDE_ODD, BWIDE_HELD = 5, (1, 3, 5), (0, 4)
-BWIDE_LR_TENANTS, BWIDE_LR_DRAINS = 2, 3
+BWIDE_DRAINS, BWIDE_ODD, BWIDE_HELD = 3, (1, 3, 5), (0, 4)
+BWIDE_LR_TENANTS, BWIDE_LR_DRAINS = 2, 2
 BWIDE_FLEET_NEW = ("batched_obs_stats_wide", "batched_quad_masked_wide",
                    "batched_mstep_rows_wide")
 # The k = 20 fleet reference: a k = 20 and a k = 12 tenant (one bucket
@@ -5433,6 +5499,488 @@ def bwide_k_sweep(seed: int) -> None:
         raise AssertionError(f"k = 33: only {raised} raised")
 
 
+# ---------------------------------------- the lone paths past k = 32 --
+
+# The generic kernels past 32 (K2-gen, the K4-gen pair, K1-gen, K3-gen) at
+# BENCH_kscale.json's widest exact points, k = 50 and 100, on the headline
+# panel simulated at each k (seed + KBIG_SEED + k).
+KBIG_KS = (50, 100)
+KBIG_SEED = 1500
+KBIG_ITERS = 10
+KBIG_SWEEP = (33, 40, 48, 64, 96, 100, 127, 128)
+KBIG_NEW = ("obs_stats_gen", "info_scan_gen", "rts_smoother_gen",
+            "quad_local_gen", "mstep_rows_gen")
+# The fits: (label, k, masked, filter asked, engine it resolves to, extra
+# backend options).  k = 100 unmasked info and lowrank are kscale's pair at
+# full N.
+KBIG_FITS = (
+    ("k50 masked auto", 50, True, "auto", "info", {}),
+    ("k50 unmasked info", 50, False, "info", "info", {}),
+    ("k50 masked lowrank", 50, True, "lowrank", "lowrank", {"rank": 8}),
+    ("k100 unmasked info", 100, False, "info", "info", {}),
+    ("k100 unmasked lowrank", 100, False, "lowrank", "lowrank", {"rank": 8}),
+    ("k100 masked info", 100, True, "info", "info", {}),
+)
+# bench/kscale.py's own shape and budget (its defaults: N = 120, T = 200,
+# 12 iterations, the DGP seed 3000 + k, rank auto = min(k, 8); best of 2,
+# not its 3, for the script's time).
+KSCALE_N, KSCALE_T, KSCALE_ITERS, KSCALE_REPS = 120, 200, 12, 2
+KBIG_MF_K, KBIG_MF_ITERS = 7, 5       # m = 35
+KBIG_SESSION_QUERIES = 3
+
+
+def kbig_cases(Ynan, W, Yfull, p, dtype, lam_ridge=None) -> list:
+    """K2-gen, the K4-gen pair, K1-gen (``quad_local``, and
+    ``loglik_terms_local`` with U) and K3-gen on the masked panel, and
+    K4-gen forward (static C_t) and K1-gen on its fully observed twin (the
+    backward pass takes no mask or C_t: its masked case covers it), on
+    inputs the plain pipeline makes on the card: cases named by the kernel
+    each wrapper routes to at this k (K3 with ``lam_ridge`` when given).  The K4-gen
+    cases time a cold L2 over 2 calls (a pass is ~0.1-0.35 s).  Call under
+    ``highest_precision()``."""
+    dev = torch.device("cuda")
+    Yt = torch.as_tensor(Ynan, dtype=dtype, device=dev).contiguous()
+    Yf = torch.as_tensor(Yfull, dtype=dtype, device=dev).contiguous()
+    mt = torch.as_tensor(W, dtype=dtype, device=dev).contiguous()
+    pt = SSMParams.from_numpy(p, dtype=dtype, device=dev)
+    T_, N_ = Yt.shape
+    k = pt.A.shape[0]
+    TN, k2, k3 = T_ * N_, k * k, k ** 3
+    cases, stats = masked_cases(Yt, mt, pt, lam_ridge=lam_ridge)
+    xp = inf.info_scan_plain(stats, pt.A, pt.Q, pt.mu0, pt.P0)[0]
+    ustats = inf.obs_stats_plain(Yf, pt.Lam, pt.R)
+    uscan = inf.info_scan_plain(ustats, pt.A, pt.Q, pt.mu0, pt.P0)
+    fwd, bwd, quad = (kernels.route(n, k) for n in
+                      ("info_scan", "rts_smoother", "quad_local"))
+    cases += [
+        case(fwd, "unmasked",
+             lambda: inf.info_scan(ustats, pt.A, pt.Q, pt.mu0, pt.P0),
+             lambda: inf.info_scan_plain(ustats, pt.A, pt.Q, pt.mu0, pt.P0),
+             (ustats.b, ustats.C, pt.A, pt.Q, pt.mu0, pt.P0),
+             T_ * (12.67 * k3 + 4 * k2),
+             floor=lambda: latency_ms("info_scan", dtype, k, T_)),
+        case(quad, "unmasked",
+             lambda: inf.quad_local(Yf, pt.Lam, pt.R, uscan[0]),
+             lambda: inf.quad_local_plain(Yf, pt.Lam, pt.R, uscan[0]),
+             (Yf, pt.Lam, pt.R, uscan[0]), TN * (2 * k + 5)),
+        case(quad, "masked U",
+             lambda: inf.loglik_terms_local(Yt, pt.Lam, pt.R, xp, mt),
+             lambda: inf.loglik_terms_local_plain(Yt, pt.Lam, pt.R, xp, mt),
+             (Yt, pt.Lam, pt.R, xp, mt), TN * (4 * k + 6)),
+    ]
+    for c in cases:
+        if c["name"] in (fwd, bwd):
+            c["cold_reps"] = 2
+    return cases
+
+
+def kbig_kernel_phase(seed: int) -> dict:
+    """The generic kernels against their plain twins at (T, N, k) = (500,
+    10,000, 50) and (500, 10,000, 100), f64 then f32 (the TOL rule),
+    masked and not, timed warm and cold beside the plain twin, the bound,
+    K2-gen's ``einsum`` (C_t) and, for the K4-gen pair, the latency floor
+    at the same (T, k).  Returns the f32 masked records at k = 100 for the
+    summary line."""
+    summary = {}
+    for k in KBIG_KS:
+        pan = panel(seed + KBIG_SEED + k, K_=k)
+        refs = {}
+        for dtype in (torch.float64, torch.float32):
+            with highest_precision():
+                for c in kbig_cases(*pan, dtype):
+                    rec = kernel_record(c, dtype, refs)
+                    rec["k"] = k
+                    emit(rec)
+                    if (dtype == torch.float32 and k == KBIG_KS[-1]
+                            and c["variant"] == "masked"):
+                        summary[c["name"]] = rec
+            torch.cuda.empty_cache()
+        del pan, refs
+    return summary
+
+
+def kbig_raise_calls(k: int) -> dict:
+    """Each lone entry point of the generic kernels called at k on card
+    tensors of zeros (T = 4, N = 8)."""
+    def z(*shape):
+        return torch.zeros(shape, device="cuda")
+    st = inf.ObsStats(z(4, k), z(4, k, k), z(4), z(4))
+    kf = FilterResult(z(4, k), z(4, k, k), z(4, k), z(4, k, k), z())
+    pk = SSMParams(z(8, k), z(k, k), z(k, k), z(8), z(k), z(k, k))
+    return {
+        "obs_stats": lambda: inf.obs_stats(z(4, 8), z(8, k), z(8), z(4, 8)),
+        "info_scan": lambda: inf.info_scan(st, z(k, k), z(k, k), z(k),
+                                           z(k, k)),
+        "rts_smoother": lambda: rts_smoother(kf, pk),
+        "quad_local": lambda: inf.quad_local(z(4, 8), z(8, k), z(8),
+                                             z(4, k)),
+        "loglik_terms_local": lambda: inf.loglik_terms_local(
+            z(4, 8), z(8, k), z(8), z(4, k)),
+        "mstep_rows": lambda: mstep_rows(z(4, 8), z(4, 8), z(4, k),
+                                         z(4, k, k), z(4, k, k), None, 1e-6),
+    }
+
+
+def kbig_k_sweep(seed: int) -> None:
+    """The generic kernels through their wrappers at k in KBIG_SWEEP on
+    120 x 400 panels with a fully missing step, a step observing fewer
+    than k series and a never-observed series, K3 with a loading ridge,
+    f64 and f32 (error checks only); then k = 129 must raise
+    NotImplementedError in every lone entry point before any launch."""
+    for k in KBIG_SWEEP:
+        _, W, Yfull, p = panel(seed + KBIG_SEED + 200 + k, T_=120, N_=400,
+                               K_=k)
+        W[7] = 0.0
+        W[11] = 0.0
+        W[11, :k - 1] = 1.0
+        W[:, 3] = 0.0
+        Ynan = np.where(W > 0, Yfull, np.nan)
+        refs, worst = {}, {}
+        for dtype in (torch.float64, torch.float32):
+            with highest_precision():
+                for c in kbig_cases(Ynan, W, Yfull, p, dtype, lam_ridge=0.5):
+                    key = (c["name"], c["variant"])
+                    _, rel, _, ref, _ = compare(c, dtype, refs.get(key))
+                    refs[key] = ref
+                    name = f"{c['name']} {str(dtype)[6:]}"
+                    worst[name] = max(worst.get(name, 0.0), rel)
+        emit({"kbig_k_sweep": k, "max_rel_err": worst})
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    raised = []
+    for name, fn in kbig_raise_calls(kernels.GEN_KMAX + 1).items():
+        try:
+            fn()
+        except NotImplementedError:
+            raised.append(name)
+    launched = sum(kernels.LAUNCHES.values())
+    emit({"kbig_k129_raised": raised, "launches": launched})
+    if len(raised) != 6 or launched:
+        raise AssertionError(f"k = 129: only {raised} raised, {launched} "
+                             "launches")
+
+
+def kbig_fit_launches(k: int, masked: bool, engine: str, ran: int) -> dict:
+    """A kbig fit's launches, exactly, for ``ran`` iterations: info runs
+    the K4 pair and K1 every iteration and once more for the reporting
+    smooth, masked also K2 (as K1) and K3 (every iteration); lowrank runs
+    the K9 trio and K1 every iteration, masked K2 and K3, and the exact
+    info pair (K2 masked, the K4 pair, K1) for the reporting smooth."""
+    if engine == "info":
+        want = {"info_scan": ran + 1, "rts_smoother": ran + 1,
+                "quad_local": ran + 1}
+    else:
+        want = {"lowrank_basis": ran, "lowrank_scan": ran,
+                "lowrank_smoother": ran, "quad_local": ran + 1,
+                "info_scan": 1, "rts_smoother": 1}
+    if masked:
+        want.update(obs_stats=ran + 1, mstep_rows=ran)
+    return routed(want, k)
+
+
+def kbig_fit_phase(seed: int) -> dict:
+    """``KBIG_FITS`` on the headline panel simulated at k = 50 and 100, 10
+    iterations, tol = 0, f32, with a 12-step forecast: the engine asked
+    for, finite outputs, exactly ``kbig_fit_launches`` (the generic
+    kernels, no k <= 32 kernel of K1-K4), one read a chunk (and the
+    result's), logliks non-decreasing within the f32 noise floor (lowrank:
+    a drop past it only where the f64 trajectory from ``fit``'s init
+    drops too, as phase 20); EM it/s and the wall; each masked info
+    fit's iteration split into its kernels.  Returns the launch counts by
+    label."""
+    counts, pans = {}, {}
+    floor = noise_floor_for(torch.float32, T * N)
+    for label, k, masked, flt, engine, extra in KBIG_FITS:
+        if k not in pans:
+            pans = {k: panel(seed + KBIG_SEED + k, K_=k)}
+        Ynan, W, Yfull, _ = pans[k]
+        Y = Ynan if masked else Yfull
+        model = dt.DynamicFactorModel(n_factors=k, dynamics="ar1")
+        backend = dt.TorchBackend(filter=flt, **extra)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with ReadWatch() as rw:
+            t0 = time.perf_counter()
+            res = dt.fit(model, Y, backend=backend, max_iters=KBIG_ITERS,
+                         tol=0.0)
+            y_fore, f_fore = dt.forecast(res, 12)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        lls = res.logliks
+        n = len(lls)
+        chunk = backend.fused_chunk
+        n_chunks = -(-n // chunk)
+        ran = min(KBIG_ITERS, n_chunks * chunk)     # whole chunks run
+        drops = [i for i in range(1, n) if lls[i] < lls[i - 1] - floor]
+        unexplained, f64_drops = drops, None
+        if engine == "lowrank" and drops:
+            ll64 = lowrank_f64_lls(Y, W if masked else None, n, k,
+                                   extra["rank"])
+            f64_drops = [i for i in range(1, n) if ll64[i] < ll64[i - 1]]
+            unexplained = [i for i in drops if i not in f64_drops]
+        want = kbig_fit_launches(k, masked, engine, ran)
+        bad = {nm: v for nm, v in launches.items() if v != want.get(nm, 0)}
+        steady = [h["secs"] for h in res.history[chunk:]]
+        rec = {"fit": label, "filter": res.filter, "k": k, **extra,
+               "n_iters": n, "iterations_run": ran,
+               "loglik_first": float(lls[0]), "loglik_last": float(lls[-1]),
+               "max_drop": float(max(0.0, -np.diff(lls).min())),
+               "noise_floor": floor, "drops_past_floor": drops,
+               "f64_drops": f64_drops, "wall_s": wall,
+               "em_iters_per_sec": (len(steady) / sum(steady)
+                                    if steady and sum(steady) > 0 else None),
+               "reads": len(rw.stamps) + 1, "n_chunks": n_chunks,
+               "launches": {nm: v for nm, v in launches.items() if v}}
+        emit(rec)
+        RATES[label] = rec["em_iters_per_sec"]
+        stopped = n != KBIG_ITERS and not (engine == "lowrank" and drops
+                                           and drops[-1] == n - 1)
+        if (res.filter != engine or stopped or not np.isfinite(lls).all()
+                or unexplained):
+            raise AssertionError(f"{label}: {res.filter}, {n} iterations, "
+                                 f"drops past the noise floor {drops} "
+                                 f"(unexplained {unexplained})")
+        for name, arr in (("factors", res.factors), ("y_fore", y_fore),
+                          ("f_fore", f_fore)):
+            if not np.isfinite(arr).all():
+                raise AssertionError(f"{label}: non-finite {name}")
+        if bad or len(rw.stamps) != n_chunks:
+            raise AssertionError(f"{label}: launches off {want}: {bad}; "
+                                 f"chunk reads {len(rw.stamps)} of "
+                                 f"{n_chunks}")
+        counts[label] = launches
+        if engine == "info" and masked:
+            kbig_iteration_breakdown(label, Y, res, masked)
+    return counts
+
+
+def kbig_iteration_breakdown(label: str, Y, res, masked: bool) -> None:
+    """Where an info EM iteration at k > 32 goes (f32, warm L2, at the
+    fitted params on the standardized panel): each generic kernel (CUDA
+    events) against the whole ``em_step``; the rest is the iteration less
+    the kernels (the moments, the k x k M-step, launch gaps)."""
+    W = data.build_mask(Y)
+    Z, _ = data.standardize(Y, mask=W)
+    f32 = torch.float32
+    with highest_precision():
+        Zt = torch.as_tensor(np.where(W > 0, np.nan_to_num(Z), 0.0),
+                             dtype=f32, device="cuda").contiguous()
+        Wt = (torch.as_tensor(W, dtype=f32, device="cuda").contiguous()
+              if masked else None)
+        pt = SSMParams.from_numpy(res.params, dtype=f32, device="cuda")
+        stats = inf.obs_stats(Zt, pt.Lam, pt.R, Wt)
+        scan = inf.info_scan(stats, pt.A, pt.Q, pt.mu0, pt.P0)
+        kf = FilterResult(*scan[:4], torch.zeros((), dtype=f32))
+        sm = rts_smoother(kf, pt)
+        EffT, _ = moments(sm)
+        k = pt.A.shape[0]
+        ms = {kernels.route("info_scan", k): cuda_ms(
+                  lambda: inf.info_scan(stats, pt.A, pt.Q, pt.mu0, pt.P0)),
+              kernels.route("rts_smoother", k): cuda_ms(
+                  lambda: rts_smoother(kf, pt)),
+              kernels.route("quad_local", k): cuda_ms(
+                  lambda: inf.quad_local(Zt, pt.Lam, pt.R, scan[0], Wt))}
+        if masked:
+            ms[kernels.route("obs_stats", k)] = cuda_ms(
+                lambda: inf.obs_stats(Zt, pt.Lam, pt.R, Wt))
+            ms[kernels.route("mstep_rows", k)] = cuda_ms(
+                lambda: mstep_rows(Zt, Wt, sm.x_sm, EffT, sm.P_sm, None,
+                                   1e-6))
+        iter_ms = cuda_ms(lambda: tem.em_step(Zt, pt, Wt,
+                                              EMConfig(filter="info")))
+    emit({"kbig_iteration_breakdown": label, "shape": [*Y.shape, k],
+          "iter_ms": iter_ms, "kernel_ms": ms,
+          "rest_ms": iter_ms - sum(ms.values())})
+
+
+def kscale_phase(seed: int) -> None:
+    """``bench/kscale.py``'s own shape on the card: N = 120, T = 200, k =
+    50 and 100, 12 iterations, the panel standardized and its PCA init
+    (``cpu_ref.pca_init``) given to every fit (``standardize=False``): the
+    warm chunked-fit wall (best of 2, the fit's own reads the barrier) of
+    the exact ``info`` fit over the ``lowrank`` fit (rank auto = min(k, 8))
+    -- kscale's ``kscale_speedup_k50`` / ``_k100`` -- and each f32 fit's
+    final-loglik error against the f64 ``info`` fit.  Printed, not
+    gated."""
+    for k in KBIG_KS:
+        rng = np.random.default_rng(3000 + k)
+        p_true = dgp.dfm_params(KSCALE_N, k, rng)
+        Y_raw, _ = dgp.simulate(p_true, KSCALE_T, rng)
+        Y = (Y_raw - Y_raw.mean(0)) / Y_raw.std(0)
+        p0 = cpu_ref.pca_init(Y, k)
+        model = dt.DynamicFactorModel(n_factors=k, standardize=False)
+        kw = dict(max_iters=KSCALE_ITERS, tol=0.0, init=p0)
+        ref = dt.fit(model, Y, backend=dt.TorchBackend(
+            dtype=torch.float64, filter="info"), **kw)
+        ll_ref = float(ref.logliks[-1])
+        walls, errs, launched = {}, {}, {}
+        for name in ("info", "lowrank"):
+            b = dt.TorchBackend(filter=name)
+            kernels.reset_launches()
+            r = dt.fit(model, Y, backend=b, **kw)
+            launched[name] = {nm: v for nm, v in kernels.LAUNCHES.items()
+                              if v}
+            errs[name] = abs(float(r.logliks[-1]) - ll_ref) / abs(ll_ref)
+            best = float("inf")
+            for _ in range(KSCALE_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dt.fit(model, Y, backend=b, **kw)
+                best = min(best, time.perf_counter() - t0)
+            walls[name] = best
+        emit({"kscale": k, "shape_N_T": [KSCALE_N, KSCALE_T],
+              "em_iters": KSCALE_ITERS, "rank": min(k, 8),
+              "wall_s": walls,
+              f"kscale_speedup_k{k}": walls["info"] / walls["lowrank"],
+              f"kscale_exact_iters_per_sec_k{k}":
+                  KSCALE_ITERS / walls["info"],
+              "f32_final_loglik_rel_err_vs_f64_info": errs,
+              "launches": launched})
+
+
+def kbig_session_phase(seed: int) -> dict:
+    """``fit(fused=True)`` on the masked k = 50 panel's first 480 rows (10
+    iterations, tol = 0, f32), then an info session on it at capacity
+    1,000 with 3 queries of 2 rows and a re-forecast: one read a query
+    under the sync check, K13 and K4-gen forward every query.  Returns
+    the launch counts by label."""
+    k = KBIG_KS[0]
+    Ynan = panel(seed + KBIG_SEED + k, K_=k)[0]
+    model = dt.DynamicFactorModel(n_factors=k, dynamics="ar1")
+    backend = dt.TorchBackend()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    fused = dt.fit(model, Ynan[:SESSION_T0], backend=backend, fused=True,
+                   max_iters=KBIG_ITERS, tol=0.0)
+    wall = time.perf_counter() - t0
+    launches = {nm: v for nm, v in kernels.LAUNCHES.items() if v}
+    emit({"fused_fit": f"k{k} info", "filter": fused.filter,
+          "n_iters": fused.n_iters, "host_reads": fused.host_reads,
+          "wall_s": wall, "loglik_last": float(fused.logliks[-1]),
+          "launches": launches})
+    narrow = [nm for nm in launches if nm in kernels.WIDE
+              or nm in kernels.WIDE.values()]
+    if (fused.filter != "info" or not np.isfinite(fused.logliks).all()
+            or narrow or launches.get("info_scan_gen", 0) < KBIG_ITERS):
+        raise AssertionError(f"k = {k} fused fit failed: {fused.filter}, "
+                             f"launches {launches}")
+    sess = dt.open_session(fused, Ynan[:SESSION_T0], backend=backend,
+                           capacity=1000, max_update_rows=8, max_iters=5,
+                           tol=0.0)
+    drive_session(sess, f"info k{k}", Ynan, "info", "info_scan_gen",
+                  queries=KBIG_SESSION_QUERIES)
+    counts = {f"info k{k} session": dict(kernels.LAUNCHES)}
+    sess.close()
+    return counts
+
+
+def kbig_mf_phase(seed: int) -> dict:
+    """The mixed-frequency ``seq`` route past 32: ``fit(MixedFreqSpec(1600,
+    400, 7), Y, mask=W)`` on an S3-shaped panel at k = 7 (m = 35), f32,
+    chunks of 8, 5 iterations, tol = 0, and a 12-step forecast: finite
+    outputs, one read a chunk plus the result's, exactly one K2-gen,
+    K4-gen forward, K1-gen and K4-gen backward an E-step (the augmented
+    scans in f64) and no other kernel.  Then ``fit(MixedFreqSpec(24, 8,
+    7))`` at 60 steps (a fully missing step, a never-observed monthly
+    series), card f64 against CPU f64 within 1e-9.  Returns the fit's
+    launch counts."""
+    k, m = KBIG_MF_K, 5 * KBIG_MF_K
+    Y, W = mf_panel(seed + 1501, k=k)
+    backend = dt.TorchBackend(fused_chunk=MF_CHUNK)
+    spec = mf_spec("seq", k=k)
+    need = [kernels.route(nm, m) for nm in
+            ("obs_stats", "info_scan", "quad_local", "rts_smoother")]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with ReadWatch() as rw:
+        t0 = time.perf_counter()
+        res = dt.fit(spec, Y, mask=W, backend=backend,
+                     max_iters=KBIG_MF_ITERS, tol=0.0)
+        y_fore, f_fore = dt.forecast(res, 12)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    lls = res.logliks
+    n_chunks = -(-len(lls) // MF_CHUNK)
+    ran = min(KBIG_MF_ITERS, n_chunks * MF_CHUNK)
+    want = {nm: ran + 1 for nm in need}
+    bad = {nm: v for nm, v in launches.items() if v != want.get(nm, 0)}
+    emit({"fit": f"mf seq m{m}", "spec": dataclasses.asdict(spec),
+          "shape": [MF_T, MF_NM + MF_NQ, k], "m": m, "n_iters": len(lls),
+          "loglik_first": float(lls[0]), "loglik_last": float(lls[-1]),
+          "max_drop": float(max(0.0, -np.diff(lls).min())),
+          "noise_floor": noise_floor_for(torch.float32,
+                                         MF_T * (MF_NM + MF_NQ)),
+          "wall_s": wall, "reads": len(rw.stamps),
+          "launches": {nm: v for nm, v in launches.items() if v}})
+    if bad or len(rw.stamps) != n_chunks + 1:
+        raise AssertionError(f"mf m = {m}: launches off {want}: {bad}; "
+                             f"reads {len(rw.stamps)} of {n_chunks + 1}")
+    for name, arr in (("logliks", lls), ("nowcast", res.nowcast),
+                      ("factors", res.factors), ("state_T", res.state_T),
+                      ("y_fore", y_fore), ("f_fore", f_fore)):
+        if not np.isfinite(arr).all():
+            raise AssertionError(f"mf m = {m}: non-finite {name}")
+    if res.state_T.shape != (m,) or y_fore.shape != (12, MF_NM + MF_NQ):
+        raise AssertionError(f"mf m = {m}: unexpected output shapes")
+    Ys, Ws = mf_panel(seed + 1502, nm=24, nq=8, T_=60, k=k)
+    Ws[17] = 0.0
+    Ws[:, 2] = 0.0
+    Ys = np.where(Ws > 0, Ys, np.nan)
+    spec = mf_spec("seq", nm=24, nq=8, k=k)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        kernels.reset_launches()
+        r = dt.fit(spec, Ys, mask=Ws, max_iters=6, tol=0.0,
+                   backend=dt.TorchBackend(device=dev, dtype=torch.float64,
+                                           fused_chunk=3))
+        out[dev] = (r, dt.forecast(r, 12)[0], dict(kernels.LAUNCHES))
+    (rg, yg, lg), (rc, yc, _) = out["cuda"], out["cpu"]
+    pairs = [("logliks", rg.logliks, rc.logliks),
+             ("nowcast", rg.nowcast, rc.nowcast),
+             ("factors", rg.factors, rc.factors),
+             ("state_T", rg.state_T, rc.state_T), ("y_fore", yg, yc)]
+    pairs += [(f, getattr(rg.params, f), getattr(rc.params, f))
+              for f in mf.MFParams._fields if f != "mu0"]   # mu0 = 0
+    errs = {name: rel_err(g, c) for name, g, c in pairs}
+    emit({"reference": f"mf seq m{m}", "shape": [60, 32, k], "iters": 6,
+          "max_rel_err": errs, "tol": 1e-9})
+    if any(lg[nm] == 0 for nm in need) or any(e > 1e-9 for e in
+                                              errs.values()):
+        raise AssertionError(f"mf m = {m} card fit disagrees with the CPU "
+                             f"fit or skipped its kernels: {errs}, {lg}")
+    return {f"mf seq m{m}": launches}
+
+
+def kbig_reference_phase(seed: int) -> None:
+    """``fit`` at 100 x 60, k = 40, masked (scattered missing values, a
+    ragged edge, one series observed at its first step alone: ``fit``
+    refuses an all-missing column), ``filter="info"`` and ``"lowrank"``
+    (rank 4), card f64 against CPU f64 within 1e-12."""
+    k = 40
+    _, W, Yfull, _ = panel(seed + KBIG_SEED + k, T_=100, N_=60, K_=k)
+    W[:, 5] = 0.0
+    W[0, 5] = 1.0
+    Ynan = np.where(W > 0, Yfull, np.nan)
+    own = ("obs_stats", "info_scan", "rts_smoother", "quad_local",
+           "mstep_rows")
+    reference_fit("k40 masked info", Ynan, k, "info", 1e-12, own=own)
+    reference_fit("k40 masked lowrank", Ynan, k, "lowrank", 1e-12,
+                  extra={"rank": 4},
+                  own=("lowrank_scan", "obs_stats", "quad_local",
+                       "mstep_rows"))
+
+
+def kbig_contract_phase(seed: int) -> None:
+    """The loglik contract (``loglik_contract``) of the masked info fits
+    at k = 50 and 100 on the headline panel simulated at each k."""
+    for k in KBIG_KS:
+        Ynan, W, _, _ = panel(seed + KBIG_SEED + k, K_=k)
+        loglik_contract(f"k{k} masked info", Ynan, W, k, "info")
+
+
 def ptxas_summary(source: str) -> dict:
     """Build seconds and, over the k = 10 instantiations of ``source``
     (every function for a source without a k template), the largest
@@ -5466,7 +6014,7 @@ def ptxas_summary(source: str) -> dict:
 
 # Phase groups of ``--phases``, in run order.
 PHASES = ("headline", "session", "batched", "fleet", "lowrank", "tvl", "mf",
-          "sv", "pit", "dense", "wide", "bwide")
+          "sv", "pit", "dense", "wide", "bwide", "kbig")
 
 
 def main() -> int:
@@ -5591,7 +6139,18 @@ def main() -> int:
             fleet_reference_phase(seed + 1400, BWIDE_REF_SHAPES,
                                   BWIDE_REF_TICKS, capacity=120)
             batched_contract_phase(seed, WIDE_K, WIDE_SEED)
+        elif group == "kbig":
+            summary.update(kbig_kernel_phase(seed))
+            kbig_k_sweep(seed)
+            launches.update(kbig_fit_phase(seed))
+            kscale_phase(seed)
+            launches.update(kbig_session_phase(seed))
+            launches.update(kbig_mf_phase(seed))
+            kbig_reference_phase(seed)
+            kbig_contract_phase(seed)
         group_s[group] = time.perf_counter() - t0
+        emit({"group_s": {group: group_s[group]},
+              "script_s": time.perf_counter() - t_start})
     emit({"phase_s": group_s, "script_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda",

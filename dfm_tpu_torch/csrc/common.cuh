@@ -26,6 +26,9 @@
 // pair and K1 at 16 < k <= 32, the mixed-frequency augmented state): one
 // warp still owns a column per lane.
 #define DFM_WIDE_KMAX 32
+// Largest state width of the generic kernels (the lone K2, the K4 pair, K1
+// and K3 at 32 < k <= 128): a runtime k, the k x k algebra tiled in 32s.
+#define DFM_GEN_KMAX 128
 
 // Scalar maths with one spelling for float and double.
 __device__ __forceinline__ float dfm_sqrt(float x) { return sqrtf(x); }

@@ -1,0 +1,452 @@
+// CTA-wide k x k linear algebra in global memory, for the generic K4 pair
+// (info_scan.cu, 32 < k <= DFM_GEN_KMAX = 128).
+//
+// At k = 100 one matrix is 40 KB in f32 and 80 KB in f64, so the ten
+// matrices a step of the one-warp kernels keeps in shared memory no longer
+// fit (808 KB in f64).  Here the matrices are rows of the pass's outputs
+// (P_pred[t], P_filt[t], P_sm[t], P_lag[t]) and a few workspace matrices
+// that the wrapper allocates: all row-major at a leading dimension of k in
+// global memory, where the working set (a few hundred KB) stays in L2.
+// Every routine is called by all GEN_THREADS threads of one block, stages
+// 32-wide tiles or panels through the shared scratch ``sm`` and begins and
+// ends with __syncthreads(), so a routine's global writes are visible to
+// the next one (a block-scope barrier orders global memory too).  The
+// routines are __noinline__: each is compiled once with its own register
+// allocation instead of unrolled into every call site (a call is a few
+// instructions beside thousands of fmas).  No
+// pointer here is __restrict__: the outputs of one routine are the inputs
+// of the next within a launch, so loads must not go through the read-only
+// cache.
+//
+// - cta_gemm: C = alpha op(A) op(B) (+ D) (+ I), the whole m x n output at
+//   once, a 16 x 16 grid of threads each holding an RB x RB register block
+//   (rows ty + 16 i, columns tx + 16 j), over 32-deep slices of A and B
+//   staged in shared memory by cp.async, double-buffered (the slices come
+//   from L2, and one block cannot hide that latency with other warps).  RB
+//   (2, 4 or 8) is picked from m and n at run time, so one instantiation a
+//   dtype serves every k.
+// - cta_potrf: right-looking blocked Cholesky: a 32-wide panel, its
+//   diagonal block factored by one warp in registers (chol32_regs), the
+//   rows below solved a thread a row (in registers, right-looking), then
+//   the trailing block updated by a cta_gemm.
+// - cta_sym: sym(M) (+ jitter) by 32 x 32 tile pairs, a warp a pair.
+// - cta_trsm_right: X <- X L^{-T} or X L^{-1} by 32-column blocks: the
+//   block's update from the columns already solved is a cta_gemm, then a
+//   thread a row substitutes against the 32 x 32 diagonal block, as the
+//   panel rows are.
+#pragma once
+
+#include <cuda_pipeline.h>
+
+#include "warp_linalg.cuh"
+
+constexpr int GEN_THREADS = 256;
+constexpr int GEN_TB = 32;          // tile, slice and panel width
+
+// The rows (columns) a gemm slice holds at width k: 16 RB, with cta_gemm's
+// register block RB = 2, 4 or 8.
+__host__ __device__ constexpr int gen_kp(int k) {
+  return k > 64 ? 128 : k > 32 ? 64 : 32;
+}
+
+__host__ __device__ constexpr int gen_max(int a, int b) { return a > b ? a : b; }
+
+// Elements of shared scratch the routines below need at k: two stages of
+// two gemm slices of 32 x (kp + 1), a (32 + k) x 33 panel / diagonal
+// block and rows, or a 32 x 33 tile a warp.
+__host__ __device__ constexpr int gen_scratch(int k) {
+  return gen_max(gen_max(4 * GEN_TB * (gen_kp(k) + 1), (GEN_TB + k) * WIDE_LD),
+                 GEN_THREADS / 32 * GEN_TB * WIDE_LD);
+}
+
+// For e = threadIdx.x + GEN_THREADS u over [0, n): v = load(e), then
+// store(e, v), in batches of 8 whose loads all issue before any of their
+// stores.  A load the compiler cannot prove apart from an earlier global
+// store waits for it, so a plain loop pays an L2 round trip an element.
+template <typename L, typename S>
+__device__ __forceinline__ void cta_batched(int n, L load, S store) {
+  constexpr int U = 8;
+  for (int e0 = threadIdx.x; e0 < n; e0 += U * GEN_THREADS) {
+    decltype(load(0)) v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * GEN_THREADS;
+      if (e < n) v[u] = load(e);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * GEN_THREADS;
+      if (e < n) store(e, v[u]);
+    }
+  }
+}
+
+template <typename T, int RBM, int RBN>
+__device__ __noinline__ void gemm_core(T* C, int ldc, const T* A, int lda,
+                                          bool ta, const T* B, int ldb,
+                                          bool tb, int m, int n, int kk,
+                                          T alpha, const T* D, int ldd,
+                                          bool add_eye, T* sm) {
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  constexpr int mpa = 16 * RBM, mpb = 16 * RBN;   // rows, columns a slice
+  constexpr int lda_s = mpa + 1, ldb_s = mpb + 1;
+  constexpr int slice = GEN_TB * (lda_s + ldb_s); // one stage: As then Bs
+  // Stage the slice at depth l0 into buffer ``buf`` with cp.async (no
+  // registers held, every copy in flight at once; zero-filled past m, n
+  // and kk): As[l][i] = op(A)(i, l0 + l), Bs[l][j] = op(B)(l0 + l, j).
+  // Consecutive threads read consecutive addresses of A and B.
+  auto stage = [&](int l0, int buf) {
+    T* As = sm + buf * slice;
+    T* Bs = As + GEN_TB * lda_s;
+    const int nl = min(GEN_TB, kk - l0);
+#pragma unroll 4
+    for (int e = tid; e < GEN_TB * mpa; e += GEN_THREADS) {
+      int i, l;
+      if (ta) { i = e % mpa; l = e / mpa; }
+      else    { l = e % GEN_TB; i = e / GEN_TB; }
+      const bool ok = i < m && l < nl;
+      const T* src = !ok ? A : ta ? A + (size_t)(l0 + l) * lda + i
+                                  : A + (size_t)i * lda + l0 + l;
+      __pipeline_memcpy_async(As + l * lda_s + i, src, sizeof(T),
+                              ok ? 0 : sizeof(T));
+    }
+#pragma unroll 4
+    for (int e = tid; e < GEN_TB * mpb; e += GEN_THREADS) {
+      int j, l;
+      if (tb) { l = e % GEN_TB; j = e / GEN_TB; }
+      else    { j = e % mpb; l = e / mpb; }
+      const bool ok = j < n && l < nl;
+      const T* src = !ok ? B : tb ? B + (size_t)j * ldb + l0 + l
+                                  : B + (size_t)(l0 + l) * ldb + j;
+      __pipeline_memcpy_async(Bs + l * ldb_s + j, src, sizeof(T),
+                              ok ? 0 : sizeof(T));
+    }
+    __pipeline_commit();
+  };
+  T acc[RBM][RBN];
+#pragma unroll
+  for (int i = 0; i < RBM; ++i)
+#pragma unroll
+    for (int j = 0; j < RBN; ++j) acc[i][j] = T(0);
+  __syncthreads();                        // the caller's writes are visible
+  if (kk > 0) stage(0, 0);
+  for (int l0 = 0, s = 0; l0 < kk; l0 += GEN_TB, ++s) {
+    const int nl = min(GEN_TB, kk - l0);
+    // Double buffering: the next slice loads while this one is consumed.
+    if (l0 + GEN_TB < kk) {
+      stage(l0 + GEN_TB, (s + 1) & 1);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
+    const T* As = sm + (s & 1) * slice;
+    const T* Bs = As + GEN_TB * lda_s;
+    for (int l = 0; l < nl; ++l) {
+      T a[RBM], b[RBN];
+#pragma unroll
+      for (int i = 0; i < RBM; ++i) a[i] = As[l * lda_s + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < RBN; ++j) b[j] = Bs[l * ldb_s + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < RBM; ++i)
+#pragma unroll
+        for (int j = 0; j < RBN; ++j) acc[i][j] += a[i] * b[j];
+    }
+    __syncthreads();                      // this buffer may be restaged
+  }
+  // Every D load before the first store to C.
+#pragma unroll
+  for (int i = 0; i < RBM; ++i)
+#pragma unroll
+    for (int j = 0; j < RBN; ++j) {
+      const int r = ty + 16 * i, c = tx + 16 * j;
+      T v = alpha * acc[i][j];
+      if (D && r < m && c < n) v += D[(size_t)r * ldd + c];
+      if (add_eye && r == c) v += T(1);
+      acc[i][j] = v;
+    }
+#pragma unroll
+  for (int i = 0; i < RBM; ++i)
+#pragma unroll
+    for (int j = 0; j < RBN; ++j) {
+      const int r = ty + 16 * i, c = tx + 16 * j;
+      if (r < m && c < n) C[(size_t)r * ldc + c] = acc[i][j];
+    }
+  __syncthreads();
+}
+
+// C (m x n, ldc) = alpha op(A) op(B) + D (when given) + I (when add_eye),
+// with op(A)(i, l) = ta ? A[l][i] : A[i][l] and op(B)(l, j) = tb ? B[j][l]
+// : B[l][j] over l < kk; m, n <= DFM_GEN_KMAX.  C may be D (each element is
+// read and written by one thread); it shares no element with A or B.
+template <typename T>
+__device__ void cta_gemm(T* C, int ldc, const T* A, int lda, bool ta,
+                         const T* B, int ldb, bool tb, int m, int n, int kk,
+                         T alpha, const T* D, int ldd, bool add_eye, T* sm) {
+  // Register blocks as gen_kp: square, or 2 columns wide for the n <= 32
+  // updates of the panels and triangular solves.
+  const int rm = gen_kp(m) / 16, rn = gen_kp(n) / 16;
+  if (rn == 2 && rm == 8)
+    gemm_core<T, 8, 2>(C, ldc, A, lda, ta, B, ldb, tb, m, n, kk, alpha, D,
+                       ldd, add_eye, sm);
+  else if (rn == 2 && rm == 4)
+    gemm_core<T, 4, 2>(C, ldc, A, lda, ta, B, ldb, tb, m, n, kk, alpha, D,
+                       ldd, add_eye, sm);
+  else if (max(rm, rn) == 8)
+    gemm_core<T, 8, 8>(C, ldc, A, lda, ta, B, ldb, tb, m, n, kk, alpha, D,
+                       ldd, add_eye, sm);
+  else if (max(rm, rn) == 4)
+    gemm_core<T, 4, 4>(C, ldc, A, lda, ta, B, ldb, tb, m, n, kk, alpha, D,
+                       ldd, add_eye, sm);
+  else
+    gemm_core<T, 2, 2>(C, ldc, A, lda, ta, B, ldb, tb, m, n, kk, alpha, D,
+                       ldd, add_eye, sm);
+}
+
+// W = sym(M) = 0.5 (M + M') (+ the dtype's jitter on the diagonal when
+// jit: psd_cholesky's input), k x k at a leading dimension of k, by 32 x
+// 32 tile pairs (I, J), I <= J, a warp a pair: tile (J, I) and the mirror
+// of the result pass through the warp's 32 x 33 tile of ``sm``, so every
+// global access is a coalesced row (a transposed element-wise pass is
+// bound by one L2 sector an access).  Each pair's reads precede its
+// writes, so W may be M.
+template <typename T>
+__device__ __noinline__ void cta_sym(T* W, const T* M, int k, bool jit,
+                                     T* sm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nt = (k + GEN_TB - 1) / GEN_TB;
+  const T jv = jit ? dfm_jitter<T>() : T(0);
+  SMat<T, WIDE_LD> buf =
+      reinterpret_cast<SMat<T, WIDE_LD>>(sm + warp * GEN_TB * WIDE_LD);
+  __syncthreads();
+  for (int q = warp; q < nt * (nt + 1) / 2; q += GEN_THREADS / 32) {
+    int I = q, J = 0;                     // q = J (J + 1) / 2 + I, I <= J
+    while (I > J) { I -= J + 1; ++J; }
+    const int i0 = I * GEN_TB, j0 = J * GEN_TB, c = lane;
+    T a[GEN_TB];
+#pragma unroll
+    for (int r = 0; r < GEN_TB; ++r) {
+      buf[r][c] = j0 + r < k && i0 + c < k
+                      ? M[(size_t)(j0 + r) * k + i0 + c] : T(0);
+      a[r] = i0 + r < k && j0 + c < k ? M[(size_t)(i0 + r) * k + j0 + c]
+                                      : T(0);
+    }
+    __syncwarp();
+    // v(i0 + r, j0 + c) = 0.5 (M[i0 + r][j0 + c] + M[j0 + c][i0 + r]).
+#pragma unroll
+    for (int r = 0; r < GEN_TB; ++r) {
+      const T v = T(0.5) * (a[r] + buf[c][r]);
+      a[r] = i0 + r == j0 + c ? v + jv : v;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < GEN_TB; ++r) {
+      if (i0 + r < k && j0 + c < k) W[(size_t)(i0 + r) * k + j0 + c] = a[r];
+      buf[c][r] = a[r];
+    }
+    __syncwarp();
+    if (I != J) {
+#pragma unroll
+      for (int r = 0; r < GEN_TB; ++r)
+        if (j0 + r < k && i0 + c < k)
+          W[(size_t)(j0 + r) * k + i0 + c] = buf[r][c];
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+}
+
+// In-place Cholesky of the nb x nb (nb <= 32) block at the top of the
+// shared panel W by one warp, lane i holding row i in registers: column by
+// column, right-looking (the arithmetic of warp_linalg.cuh's chol_inplace,
+// whose shared read-modify-write loops cost ~39k cycles at nb = 32), the
+// pivot and column entries passed by shuffles.  The strict upper triangle
+// is zeroed.
+template <typename T>
+__device__ void chol32_regs(SMat<T, WIDE_LD> W, int nb) {
+  const int lane = threadIdx.x & 31;
+  T row[GEN_TB];
+#pragma unroll
+  for (int c = 0; c < GEN_TB; ++c)
+    row[c] = lane < nb && c < nb ? W[lane][c] : T(0);
+#pragma unroll
+  for (int p = 0; p < GEN_TB; ++p) {
+    if (p >= nb) break;
+    const T d = dfm_sqrt(__shfl_sync(0xffffffffu, row[p], p));
+    if (lane == p) row[p] = d;
+    else if (lane > p) row[p] /= d;
+#pragma unroll
+    for (int j = p + 1; j < GEN_TB; ++j) {
+      const T ljp = __shfl_sync(0xffffffffu, row[p], j);
+      if (j <= lane) row[j] -= row[p] * ljp;
+    }
+  }
+  if (lane < nb) {
+#pragma unroll
+    for (int c = 0; c < GEN_TB; ++c)
+      if (c < nb) W[lane][c] = c <= lane ? row[c] : T(0);
+  }
+  __syncwarp();
+}
+
+// x <- x L^{-T} (trans: solves x L' = b) or x L^{-1} (!trans: x L = b) for
+// one row x of nb <= 32 values in registers against the nb x nb lower
+// triangular L in shared memory, right-looking: each solved value updates
+// the rest at once, so the dependent chain is nb divisions and fmas.
+template <typename T, bool TRANS>
+__device__ __forceinline__ void row_solve(T (&x)[GEN_TB], SMat<T, WIDE_LD> L,
+                                          int nb) {
+  if (TRANS) {
+#pragma unroll
+    for (int c = 0; c < GEN_TB; ++c) {
+      if (c >= nb) break;
+      x[c] /= L[c][c];
+#pragma unroll
+      for (int j = c + 1; j < GEN_TB; ++j)
+        if (j < nb) x[j] -= x[c] * L[j][c];
+    }
+  } else {
+#pragma unroll
+    for (int c = GEN_TB - 1; c >= 0; --c) {
+      if (c >= nb) continue;
+      x[c] /= L[c][c];
+#pragma unroll
+      for (int j = 0; j < c; ++j) x[j] -= x[c] * L[c][j];
+    }
+  }
+}
+
+// Row r of the shared rows Xs (nb values) through row_solve in registers.
+template <typename T, bool TRANS>
+__device__ __forceinline__ void shared_row_solve(SMat<T, WIDE_LD> Xs, int r,
+                                                 SMat<T, WIDE_LD> L, int nb) {
+  T x[GEN_TB];
+#pragma unroll
+  for (int c = 0; c < GEN_TB; ++c) x[c] = c < nb ? Xs[r][c] : T(0);
+  row_solve<T, TRANS>(x, L, nb);
+#pragma unroll
+  for (int c = 0; c < GEN_TB; ++c)
+    if (c < nb) Xs[r][c] = x[c];
+}
+
+// In-place Cholesky of the k x k matrix at A (leading dimension k): the
+// lower triangle is read, L is written to it and the strict upper triangle
+// is zeroed.  No jitter and no clamp (the caller adds psd_cholesky's
+// jitter): a negative pivot gives NaN, as jnp.linalg.cholesky does.
+template <typename T>
+__device__ __noinline__ void cta_potrf(T* A, int k, T* sm) {
+  const int tid = threadIdx.x;
+  SMat<T, WIDE_LD> pan = reinterpret_cast<SMat<T, WIDE_LD>>(sm);
+  for (int p0 = 0; p0 < k; p0 += GEN_TB) {
+    const int nb = min(GEN_TB, k - p0), rows = k - p0;
+    __syncthreads();
+    cta_batched(
+        rows * nb,
+        [&](int e) { return A[(size_t)(p0 + e / nb) * k + p0 + e % nb]; },
+        [&](int e, T v) { pan[e / nb][e % nb] = v; });
+    __syncthreads();
+    if (tid < 32) chol32_regs<T>(pan, nb);
+    __syncthreads();
+    // L21 = A21 L11^{-T}, a thread a row.
+    for (int r = nb + tid; r < rows; r += GEN_THREADS)
+      shared_row_solve<T, true>(pan, r, pan, nb);
+    __syncthreads();
+    for (int e = tid; e < rows * nb; e += GEN_THREADS)
+      A[(size_t)(p0 + e / nb) * k + p0 + e % nb] = pan[e / nb][e % nb];
+    // A22 -= L21 L21' (the whole square; the strict upper half is zeroed
+    // at the end).
+    const int m2 = rows - nb;
+    if (m2 > 0) {
+      T* A22 = A + (size_t)(p0 + nb) * k + p0 + nb;
+      const T* L21 = A + (size_t)(p0 + nb) * k + p0;
+      cta_gemm<T>(A22, k, L21, k, false, L21, k, true, m2, m2, nb, T(-1), A22,
+                  k, false, sm);
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < k * k; e += GEN_THREADS)
+    if (e % k > e / k) A[e] = T(0);
+  __syncthreads();
+}
+
+// X (m x k, leading dimension k) <- X L^{-T} (trans: solves X L' = B) or
+// X L^{-1} (!trans: X L = B), L k x k lower triangular at a leading
+// dimension of k; m <= DFM_GEN_KMAX.
+template <typename T>
+__device__ __noinline__ void cta_trsm_right(T* X, int m, const T* L, int k,
+                                            bool trans, T* sm) {
+  const int tid = threadIdx.x;
+  const int nblk = (k + GEN_TB - 1) / GEN_TB;
+  SMat<T, WIDE_LD> Ld = reinterpret_cast<SMat<T, WIDE_LD>>(sm);
+  SMat<T, WIDE_LD> Xs = reinterpret_cast<SMat<T, WIDE_LD>>(sm + GEN_TB * WIDE_LD);
+  for (int bi = 0; bi < nblk; ++bi) {
+    const int jb = trans ? bi : nblk - 1 - bi;
+    const int j0 = jb * GEN_TB, nb = min(GEN_TB, k - j0);
+    // The block's right-hand side less the columns already solved.
+    if (trans && j0 > 0)
+      cta_gemm<T>(X + j0, k, X, k, false, L + (size_t)j0 * k, k, true, m,
+                  nb, j0, T(-1), X + j0, k, false, sm);
+    if (!trans && j0 + nb < k)
+      cta_gemm<T>(X + j0, k, X + j0 + nb, k, false,
+                  L + (size_t)(j0 + nb) * k + j0, k, false, m, nb,
+                  k - j0 - nb, T(-1), X + j0, k, false, sm);
+    __syncthreads();
+    cta_batched(
+        nb * nb,
+        [&](int e) { return L[(size_t)(j0 + e / nb) * k + j0 + e % nb]; },
+        [&](int e, T v) { Ld[e / nb][e % nb] = v; });
+    cta_batched(
+        m * nb, [&](int e) { return X[(size_t)(e / nb) * k + j0 + e % nb]; },
+        [&](int e, T v) { Xs[e / nb][e % nb] = v; });
+    __syncthreads();
+    for (int r = tid; r < m; r += GEN_THREADS) {
+      if (trans)
+        shared_row_solve<T, true>(Xs, r, Ld, nb);
+      else
+        shared_row_solve<T, false>(Xs, r, Ld, nb);
+    }
+    __syncthreads();
+    for (int e = tid; e < m * nb; e += GEN_THREADS)
+      X[(size_t)(e / nb) * k + j0 + e % nb] = Xs[e / nb][e % nb];
+  }
+  __syncthreads();
+}
+
+// out[i] = base[i] + sign * sum_l M[i][l] v[l] for i < k (base 0 when
+// null; M and base in global memory, v and out in shared memory; out is
+// not v), a warp a row; g_out (when given) also receives out.  Ends with
+// __syncthreads() (before g_out's writes: the caller reads only out).
+template <typename T>
+__device__ __noinline__ void cta_matvec(T* out, const T* base, T sign,
+                                        const T* M, const T* v, int k,
+                                        T* g_out) {
+  constexpr int W = GEN_THREADS / 32;
+  constexpr int RW = DFM_GEN_KMAX / W;    // rows a warp, at most
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // Every load of the warp's rows issues before its stores.
+  T s[RW], b[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int i = warp + W * r;
+    s[r] = T(0);
+    b[r] = T(0);
+    if (i < k) {
+#pragma unroll
+      for (int q = 0; q < DFM_GEN_KMAX / 32; ++q) {
+        const int l = lane + 32 * q;
+        if (l < k) s[r] += M[(size_t)i * k + l] * v[l];
+      }
+      if (base) b[r] = base[i];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    T t = s[r];
+    for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+    const int i = warp + W * r;
+    if (lane == 0 && i < k) out[i] = b[r] + sign * t;
+  }
+  __syncthreads();
+  if (g_out && threadIdx.x < k) g_out[threadIdx.x] = out[threadIdx.x];
+}

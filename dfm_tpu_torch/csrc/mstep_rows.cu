@@ -59,6 +59,26 @@
 // at k = 32: one block an SM) covers both.  Bound: operations, ~7 GFLOP a
 // pass a lane at T = 1,000, N = 10,000, k = 25, against 480 MB of Y and W
 // at B = 6 in f32.
+//
+// K3-gen (mstep_rows_gen): the lone masked rows at 32 < k <= DFM_GEN_KMAX =
+// 128, which the lone wrapper takes there (the masked info and lowrank fits
+// past 32): it replaces the masked branch of dfm_tpu/estim/em.py:mstep_rows
+// (line 163, lines 199-214) at those widths.  K3-wide keeps a 32-series
+// tile's packed sums in shared memory, 659 KB in f32 at k = 100; the
+// (N, k, k) S_ff,i is never formed either (400 MB at N = 10,000, k = 100
+// in f32).  Design: a block of 256 threads owns S series (4 in f32, 2 in
+// f64), and thread q owns the entries e = q + 256 j of the NE = k(k+1)/2 +
+// k sums (the packed lower triangle of S_ff, then S_yf) of all S series in
+// registers (33 a series at k = 128), so each load of a moment entry feeds
+// S series.  The sums then go to shared memory (134 KB at k = 128 in either
+// dtype, opted in) and warp s factors series s there (a right-looking
+// column Cholesky, the lanes over the rows) and solves for Lam_s.  The
+// second pass sums w P_sm,t into the same registers and forms the smear
+// Lam' PV Lam from them at once (never stored), while each thread takes a
+// stride of the steps for the residual sum; the block then reduces both.
+// Bound: operations, 2 T N (k(k+1)/2 + k) a pass, ~1e11 flops at T = 500,
+// N = 10,000, k = 100 (~1.5 ms at 67 TFLOP/s in f32), against 40 MB of Y
+// and the mask; each block re-reads the moments from L2.
 #include "common.cuh"
 
 constexpr int kThreads = 64;
@@ -410,6 +430,228 @@ static int launch_wide(const T* Y, const T* mask, const T* Ef, const T* EffT,
                                r_floor, lam_ridge, stream);
 }
 
+constexpr int kGenThreads = 256;
+// Entries a thread owns at DFM_GEN_KMAX: ceil((k (k + 1) / 2 + k) / 256).
+constexpr int kGenOwn =
+    (DFM_GEN_KMAX * (DFM_GEN_KMAX + 1) / 2 + DFM_GEN_KMAX + kGenThreads - 1) /
+    kGenThreads;
+
+template <typename T>
+__host__ __device__ constexpr int gen_series() { return sizeof(T) == 4 ? 4 : 2; }
+
+template <typename T>
+static size_t gen_smem(int k) {
+  const int ne = k * (k + 1) / 2 + k;
+  return sizeof(T) * (size_t)gen_series<T>() * ne;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kGenThreads)
+mstep_rows_gen_kernel(const T* __restrict__ Y, const T* __restrict__ mask,
+                      const T* __restrict__ Ef, const T* __restrict__ EffT,
+                      const T* __restrict__ Psm, T* __restrict__ Lam,
+                      T* __restrict__ R, int T_, int N, int k, T r_floor,
+                      T lam_ridge) {
+  constexpr int S = gen_series<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T red[32];
+  const int nc = k * (k + 1) / 2, ne = nc + k, kk = k * k;
+  T* sS = reinterpret_cast<T*>(smem_raw);       // [S][ne]: sums, factor, Lam
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i0 = blockIdx.x * S;
+  // Entry e of the packed sums: (a, c), c <= a, at a (a + 1) / 2 + c for
+  // e < nc, S_yf[e - nc] after; off = a k + c, -1 - j for S_yf[j], and 0
+  // past ne, where bit q of ``own`` is clear.  The loops below load every
+  // entry unconditionally (a pointer select, never a branch), so the
+  // compiler issues a step's loads together: a load behind a branch waits
+  // out its own L2 round trip.
+  int off[kGenOwn];
+  unsigned long long own = 0;
+#pragma unroll
+  for (int q = 0; q < kGenOwn; ++q) {
+    const int e = tid + q * kGenThreads;
+    if (e >= ne) {
+      off[q] = 0;
+    } else if (e >= nc) {
+      off[q] = -1 - (e - nc);
+      own |= 1ull << q;
+    } else {
+      int a = (int)((sqrt(8.0 * e + 1.0) - 1.0) * 0.5);
+      while (a * (a + 1) / 2 > e) --a;
+      while ((a + 1) * (a + 2) / 2 <= e) ++a;
+      off[q] = a * k + (e - a * (a + 1) / 2);
+      own |= 1ull << q;
+    }
+  }
+  // This step's weights and zero-filled values of the block's series
+  // (a series past N reads series N - 1 with weight 0).
+  auto weights = [&](int t, T* w, T* yz) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int i = i0 + s;
+      const size_t o = (size_t)t * N + min(i, N - 1);
+      const T wv = mask[o], yv = Y[o];
+      w[s] = i < N ? wv : T(0);
+      yz[s] = w[s] > T(0) ? nan_to_num(yv) : T(0);
+    }
+  };
+  T acc[S][kGenOwn];
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int q = 0; q < kGenOwn; ++q) acc[s][q] = T(0);
+  T cnt[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) cnt[s] = T(0);
+  for (int t = 0; t < T_; ++t) {
+    T w[S], yz[S];
+    weights(t, w, yz);
+    const T* M = EffT + (size_t)t * kk;
+    const T* E = Ef + (size_t)t * k;
+#pragma unroll
+    for (int s = 0; s < S; ++s) cnt[s] += w[s];
+#pragma unroll
+    for (int q = 0; q < kGenOwn; ++q) {
+      const int o = off[q];
+      const bool ff = o >= 0;
+      const T z = *(ff ? M + o : E + (-1 - o));
+      const T on = (own >> q) & 1 ? T(1) : T(0);
+#pragma unroll
+      for (int s = 0; s < S; ++s) acc[s][q] += (on * (ff ? w[s] : yz[s])) * z;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int q = 0; q < kGenOwn; ++q) {
+      const int e = tid + q * kGenThreads;
+      if (e < ne) sS[(size_t)s * ne + e] = acc[s][q];
+    }
+  __syncthreads();
+
+  // Warp s, series s: never observed -> S_ff = I; the ridge, then
+  // psd_cholesky's jitter; Cholesky in place (no clamp), column by column
+  // with the lanes over the rows; then the two solves turn S_yf (at [nc,
+  // ne)) into the loadings in place.
+  if (warp < S) {
+    T* P = sS + (size_t)warp * ne;
+    auto at = [&](int a, int c) -> T& { return P[a * (a + 1) / 2 + c]; };
+    const T jit = dfm_jitter<T>();
+    for (int a = lane; a < k; a += 32) {
+      if (cnt[warp] == T(0))
+        for (int c = 0; c <= a; ++c) at(a, c) = a == c ? T(1) : T(0);
+      at(a, a) = (at(a, a) + lam_ridge) + jit;
+    }
+    __syncwarp();
+    for (int p = 0; p < k; ++p) {
+      const T d = dfm_sqrt(at(p, p));
+      __syncwarp();
+      if (lane == 0) at(p, p) = d;
+      for (int i = p + 1 + lane; i < k; i += 32) at(i, p) /= d;
+      __syncwarp();
+      for (int i = p + 1; i < k; ++i) {
+        const T lip = at(i, p);
+        for (int j = p + 1 + lane; j <= i; j += 32) at(i, j) -= lip * at(j, p);
+      }
+      __syncwarp();
+    }
+    T* lam = P + nc;
+    for (int a = 0; a < k; ++a) {
+      T s = T(0);
+      for (int m = lane; m < a; m += 32) s += at(a, m) * lam[m];
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (lane == 0) lam[a] = (lam[a] - s) / at(a, a);
+      __syncwarp();
+    }
+    for (int a = k - 1; a >= 0; --a) {
+      T s = T(0);
+      for (int m = a + 1 + lane; m < k; m += 32) s += at(m, a) * lam[m];
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (lane == 0) lam[a] = (lam[a] - s) / at(a, a);
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+
+  // Second pass: sum_t w P_sm,t into the registers, and the residual sum
+  // over a stride of the steps.
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int q = 0; q < kGenOwn; ++q) acc[s][q] = T(0);
+  T rs[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) rs[s] = T(0);
+  for (int t = 0; t < T_; ++t) {
+    T w[S], yz[S];
+    weights(t, w, yz);
+    const T* M = Psm + (size_t)t * kk;
+#pragma unroll
+    for (int q = 0; q < kGenOwn; ++q) {
+      const int o = off[q];
+      const T z = M[o > 0 ? o : 0];
+      const T on = o >= 0 && ((own >> q) & 1) ? T(1) : T(0);
+#pragma unroll
+      for (int s = 0; s < S; ++s) acc[s][q] += (on * w[s]) * z;
+    }
+    if (t % kGenThreads == tid) {
+      const T* E = Ef + (size_t)t * k;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const T* lam = sS + (size_t)s * ne + nc;
+        T fit = T(0);
+        for (int j = 0; j < k; ++j) fit += E[j] * lam[j];
+        const T v = yz[s] - fit;
+        rs[s] += w[s] * (v * v);
+      }
+    }
+  }
+  // The smear Lam' PV Lam from this thread's entries of PV (the strict
+  // lower triangle twice).
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const T* lam = sS + (size_t)s * ne + nc;
+    T sm = T(0);
+#pragma unroll
+    for (int q = 0; q < kGenOwn; ++q) {
+      const int o = off[q];
+      if (o < 0 || !((own >> q) & 1)) continue;
+      const int a = o / k, c = o % k;
+      const T v = acc[s][q] * lam[a] * lam[c];
+      sm += a == c ? v : T(2) * v;
+    }
+    T tot = block_reduce_sum(sm, red);
+    __syncthreads();
+    const T res = block_reduce_sum(rs[s], red);
+    __syncthreads();
+    const int i = i0 + s;
+    if (tid == 0 && i < N) {
+      const T counts = cnt[s] > T(1) ? cnt[s] : T(1);
+      const T r = (res + tot) / counts;
+      R[i] = r > r_floor ? r : r_floor;
+    }
+  }
+  for (int e = tid; e < S * k; e += kGenThreads) {
+    const int s = e / k, a = e % k, i = i0 + s;
+    if (i < N) Lam[(size_t)i * k + a] = sS[(size_t)s * ne + nc + a];
+  }
+}
+
+template <typename T>
+static int launch_gen(const T* Y, const T* mask, const T* Ef, const T* EffT,
+                      const T* Psm, T* Lam, T* R, int T_, int N, int k,
+                      double r_floor, double lam_ridge, cudaStream_t stream) {
+  if (k < 1 || k > DFM_GEN_KMAX) return (int)cudaErrorInvalidValue;
+  if (N <= 0) return (int)cudaGetLastError();
+  const size_t bytes = gen_smem<T>(k);
+  const cudaError_t e = dfm_smem_optin(mstep_rows_gen_kernel<T>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int S = gen_series<T>();
+  mstep_rows_gen_kernel<T><<<(N + S - 1) / S, kGenThreads, bytes, stream>>>(
+      Y, mask, Ef, EffT, Psm, Lam, R, T_, N, k, (T)r_floor, (T)lam_ridge);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch(const T* Y, const T* mask, const T* Ef, const T* EffT,
                   const T* Psm, T* Lam, T* R, int B, int T_, int N, int k,
@@ -451,6 +693,13 @@ extern "C" {
                                     double r_floor, void* stream) {          \
     return launch_wide<T>(Y, mask, Ef, EffT, Psm, Lam, R, B, T_, N, k,       \
                           r_floor, 0.0, (cudaStream_t)stream);               \
+  }                                                                          \
+  int mstep_rows_gen_##SFX(const T* Y, const T* mask, const T* Ef,           \
+                           const T* EffT, const T* Psm, T* Lam, T* R,        \
+                           int T_, int N, int k, double r_floor,             \
+                           double lam_ridge, void* stream) {                 \
+    return launch_gen<T>(Y, mask, Ef, EffT, Psm, Lam, R, T_, N, k, r_floor,  \
+                         lam_ridge, (cudaStream_t)stream);                   \
   }
 #if DFM_WANT_F32
 DFM_MSTEP_ENTRIES(f32, float)

@@ -58,6 +58,24 @@
 // in f32, ~0.14 ms) against 2 B T N (k + k(k+1)/2) = 42 GFLOP at k = 25
 // (~0.63 ms at 67 TFLOP/s): operations.
 //
+// K2-gen (obs_stats_gen_kernel below): the lone masked K2 at 32 < k <=
+// DFM_GEN_KMAX = 128, which the lone wrapper takes there (the masked info
+// and lowrank fits past 32, and the mixed-frequency seq route at m > 32):
+// it replaces the masked branch of dfm_tpu/ssm/info_filter.py:obs_stats
+// (line 69, lines 93-100) at those widths.  At k = 100 a step has 5,150
+// sums, so a step's C_t is a weighted GEMM, Lam' diag(w_t / R) Lam, and
+// the grid runs over (step, 32 x 32 tile of C_t's lower triangle): a block
+// stages 64-series slices of its two 32-column strips of Lam (zero past k)
+// and of w / R in shared memory, each of its 256 threads holds a 2 x 2
+// register block of the tile (summed a slice at a time, then into the
+// totals: two-level sums over the series), and the tile is written with
+// its mirror (the diagonal tiles through shared memory, from their lower
+// half, so C_t is exactly symmetric).  The diagonal tiles also sum their rows of b_t, and
+// tile (0, 0) n_t and ldR_t (in T, as the lone K2).  Bound: operations, 2
+// T N (k + k(k+1)/2) = 5.1e10 flops at T = 500, N = 10,000, k = 100 (~0.75
+// ms at 67 TFLOP/s in f32), against 40 MB of Y and the mask; each block
+// re-reads its two strips of Lam from L2.
+//
 // Design: one block per t (and lane).  Each thread walks series with a stride of
 // blockDim.x, keeps its partials of all k + k(k+1)/2 + 2 outputs in
 // registers (k is a template constant so the partials stay in registers;
@@ -247,6 +265,124 @@ obs_stats_wide_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
   if (tid == 0) ldR[t] = acc_l;
 }
 
+constexpr int kGenSlice = 64;     // series a staged slice
+constexpr int kGenTile = 32;      // side of a tile of C_t
+
+// Grid (T, ntiles (ntiles + 1) / 2), ntiles = ceil(k / 32): blockIdx.y is
+// the packed lower-triangle tile (I, J), J <= I.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+obs_stats_gen_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
+                     const T* __restrict__ R, const T* __restrict__ mask,
+                     T* __restrict__ b, T* __restrict__ C,
+                     T* __restrict__ nobs, T* __restrict__ ldR, int N,
+                     int k) {
+  __shared__ T li[kGenSlice][kGenTile + 1], lj[kGenSlice][kGenTile + 1];
+  __shared__ T wr[kGenSlice], yr[kGenSlice];
+  __shared__ T ct[kGenTile][kGenTile + 1];
+  __shared__ T red[32];
+  const int t = blockIdx.x, tid = threadIdx.x;
+  int I = 0, r = blockIdx.y;
+  while (r > I) { r -= I + 1; ++I; }
+  const int J = r, diag = I == J;
+  const int i0 = I * kGenTile, j0 = J * kGenTile;
+  const int ni = min(kGenTile, k - i0), nj = min(kGenTile, k - j0);
+  const T* y = Y + (size_t)t * N;
+  const T* w = mask + (size_t)t * N;
+  const int tx = tid & 15, ty = tid >> 4;
+  // Two-level sums: each slice's partials, then the running totals, so an
+  // f32 sum over N = 10,000 series rounds like ~N / 64 + 64 terms, not N.
+  T acc00 = T(0), acc01 = T(0), acc10 = T(0), acc11 = T(0), bacc = T(0);
+  T acc_n = T(0), acc_l = T(0);
+  constexpr int kStage = kGenSlice * kGenTile / kThreads;   // 8 a thread
+  for (int n0 = 0; n0 < N; n0 += kGenSlice) {
+    const int nt = min(kGenSlice, N - n0);
+    __syncthreads();                       // the previous slice is consumed
+    // Every load of the slice issues before the stores to shared memory.
+    T vi[kStage], vj[kStage];
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int e = tid + u * kThreads, n = e / kGenTile, c = e % kGenTile;
+      const size_t row = (size_t)(n0 + min(n, nt - 1)) * k;
+      vi[u] = Lam[row + i0 + min(c, ni - 1)];
+      vj[u] = Lam[row + j0 + min(c, nj - 1)];
+    }
+    T wn = T(0), rn = T(1), yn = T(0);
+    if (tid < nt) {
+      wn = w[n0 + tid];
+      rn = R[n0 + tid];
+      yn = y[n0 + tid];
+    }
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int e = tid + u * kThreads, n = e / kGenTile, c = e % kGenTile;
+      li[n][c] = n < nt && c < ni ? vi[u] : T(0);
+      lj[n][c] = n < nt && c < nj ? vj[u] : T(0);
+    }
+    if (tid < nt) {
+      const T rinv = T(1) / rn;
+      wr[tid] = wn * rinv;
+      yr[tid] = wn * nan_to_num(yn) * rinv;
+      if (blockIdx.y == 0) {
+        acc_n += wn;
+        acc_l += wn * dfm_log(rn);
+      }
+    }
+    __syncthreads();
+    T p00 = T(0), p01 = T(0), p10 = T(0), p11 = T(0);
+    for (int n = 0; n < nt; ++n) {
+      const T a0 = wr[n] * li[n][ty], a1 = wr[n] * li[n][ty + 16];
+      const T b0 = lj[n][tx], b1 = lj[n][tx + 16];
+      p00 += a0 * b0;
+      p01 += a0 * b1;
+      p10 += a1 * b0;
+      p11 += a1 * b1;
+    }
+    acc00 += p00;
+    acc01 += p01;
+    acc10 += p10;
+    acc11 += p11;
+    if (diag && tid < ni) {
+      T pb = T(0);
+      for (int n = 0; n < nt; ++n) pb += yr[n] * li[n][tid];
+      bacc += pb;
+    }
+  }
+  ct[ty][tx] = acc00;
+  ct[ty][tx + 16] = acc01;
+  ct[ty + 16][tx] = acc10;
+  ct[ty + 16][tx + 16] = acc11;
+  __syncthreads();
+  T* Ct = C + (size_t)t * k * k;
+  for (int e = tid; e < kGenTile * kGenTile; e += kThreads) {
+    const int rr = e / kGenTile, cc = e % kGenTile;
+    if (rr >= ni || cc >= nj || (diag && cc > rr)) continue;
+    const T v = ct[rr][cc];
+    Ct[(size_t)(i0 + rr) * k + j0 + cc] = v;
+    Ct[(size_t)(j0 + cc) * k + i0 + rr] = v;
+  }
+  if (diag && tid < ni) b[(size_t)t * k + i0 + tid] = bacc;
+  if (blockIdx.y != 0) return;
+  acc_n = block_reduce_sum(acc_n, red);
+  if (tid == 0) nobs[t] = acc_n;
+  __syncthreads();
+  acc_l = block_reduce_sum(acc_l, red);
+  if (tid == 0) ldR[t] = acc_l;
+}
+
+template <typename T>
+static int launch_gen(const T* Y, const T* Lam, const T* R, const T* mask,
+                      T* b, T* C, T* nobs, T* ldR, int T_, int N, int k,
+                      cudaStream_t stream) {
+  if (k < 1 || k > DFM_GEN_KMAX) return (int)cudaErrorInvalidValue;
+  const int nt = (k + kGenTile - 1) / kGenTile;
+  if (T_ > 0)
+    obs_stats_gen_kernel<T><<<dim3(T_, nt * (nt + 1) / 2), kThreads, 0,
+                              stream>>>(Y, Lam, R, mask, b, C, nobs, ldR, N,
+                                        k);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, typename TA>
 static int launch_wide(const T* Y, const T* Lam, const T* R, const T* mask,
                        T* b, T* C, TA* nobs, TA* ldR, int B, int T_, int N,
@@ -302,6 +438,12 @@ extern "C" {
                                    void* stream) {                           \
     return launch_wide<T, double>(Y, Lam, R, mask, b, C, nobs, ldR, B, T_,   \
                                   N, k, (cudaStream_t)stream);               \
+  }                                                                          \
+  int obs_stats_gen_##SFX(const T* Y, const T* Lam, const T* R,              \
+                          const T* mask, T* b, T* C, T* nobs, T* ldR,        \
+                          int T_, int N, int k, void* stream) {              \
+    return launch_gen<T>(Y, Lam, R, mask, b, C, nobs, ldR, T_, N, k,         \
+                         (cudaStream_t)stream);                              \
   }
 #if DFM_WANT_F32
 DFM_OBS_ENTRIES(f32, float)

@@ -55,6 +55,21 @@
 // read once, 160 MB at B = 8, T = 500, N = 10,000 in f32 (K1b-m-wide: 480
 // MB at B = 6, T = 1,000).
 //
+// K1-gen (quad_gen_kernel below): K1-wide at 32 < k <= DFM_GEN_KMAX = 128,
+// which the lone quad_local (no U) and loglik_terms_local (quad_R and U)
+// wrappers take there: it replaces dfm_tpu/ssm/info_filter.py:quad_local
+// (line 159) and loglik_terms_local (line 139) at those widths (the lone
+// info and lowrank fits past 32; the mixed-frequency seq route at m > 32).
+// K1-wide keeps a thread's k partials of U in registers, one unrolled width
+// a k; here k is a runtime value, so the block stages 32-series slices of
+// Lam (k + 1 wide) in shared memory with x_t (capacity 128): eight threads
+// a series form the slice's fits (k-strided partial dots, reduced with
+// shuffles), one thread a series squares and scales its residual into the
+// double sum, and thread j < k adds the slice's (v / R_n) lam_n[j] to U_j.
+// Bound: bytes, Y (and the mask) and Lam read once, 40 MB masked in f32 at
+// T = 500, N = 10,000 (~0.012 ms), against 2 T N (2 k + 3) ~ 2e9 flops at
+// k = 100 (~0.03 ms): operations; each block re-reads Lam from L2.
+//
 // Bound on the H100: bytes.  The kernel must read Y (and the mask) once:
 // 20 MB unmasked, 40 MB masked in f32 at T = 500, N = 10,000 (K1b: 160 MB
 // at B = 8), against ~2(k+2) flops per entry.
@@ -188,6 +203,66 @@ static int launch_wide(const T* Y, const T* Lam, const T* R, const T* x_pred,
   return (int)cudaGetLastError();
 }
 
+constexpr int kGenSlice = 32;     // series a staged slice, 8 threads each
+
+// quad_R (f64 sum) and, when U is given, U from the residual, at any k <=
+// DFM_GEN_KMAX; the mask may be null (unmasked).
+template <typename T>
+__global__ void __launch_bounds__(256)
+quad_gen_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
+                const T* __restrict__ R, const T* __restrict__ x_pred,
+                const T* __restrict__ mask, double* __restrict__ out,
+                T* __restrict__ U, int N, int k) {
+  __shared__ T xs[DFM_GEN_KMAX];
+  __shared__ T lam[kGenSlice][DFM_GEN_KMAX + 1];
+  __shared__ T vr[kGenSlice];
+  __shared__ double red[32];
+  const int t = blockIdx.x, tid = threadIdx.x;
+  const int s = tid >> 3, part = tid & 7;
+  if (tid < k) xs[tid] = x_pred[(size_t)t * k + tid];
+  const T* y = Y + (size_t)t * N;
+  const T* w = mask ? mask + (size_t)t * N : nullptr;
+  double acc = 0.0;
+  T u = T(0);
+  for (int n0 = 0; n0 < N; n0 += kGenSlice) {
+    const int nt = min(kGenSlice, N - n0);
+    __syncthreads();                       // the previous slice is consumed
+    for (int e = tid; e < nt * k; e += 256)
+      lam[e / k][e % k] = Lam[(size_t)n0 * k + e];
+    __syncthreads();
+    T fit = T(0);
+    if (s < nt)
+      for (int j = part; j < k; j += 8) fit += lam[s][j] * xs[j];
+    for (int o = 4; o > 0; o >>= 1)
+      fit += __shfl_xor_sync(0xffffffffu, fit, o);
+    if (s < nt && part == 0) {
+      const int n = n0 + s;
+      T v = y[n] - fit;
+      if (w) v = w[n] * nan_to_num(v);
+      const T q = v / R[n];
+      acc += (double)(v * q);
+      vr[s] = q;
+    }
+    __syncthreads();
+    if (U && tid < k)
+      for (int q = 0; q < nt; ++q) u += vr[q] * lam[q][tid];
+  }
+  acc = block_reduce_sum(acc, red);
+  if (tid == 0) out[t] = acc;
+  if (U && tid < k) U[(size_t)t * k + tid] = u;
+}
+
+template <typename T>
+static int launch_gen(const T* Y, const T* Lam, const T* R, const T* x_pred,
+                      const T* mask, double* out, T* U, int T_, int N, int k,
+                      cudaStream_t stream) {
+  if (k < 1 || k > DFM_GEN_KMAX) return (int)cudaErrorInvalidValue;
+  if (T_ > 0)
+    quad_gen_kernel<T><<<T_, 256, 0, stream>>>(Y, Lam, R, x_pred, mask, out,
+                                               U, N, k);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int KX = DFM_KMAX>
 static int launch(const T* Y, const T* Lam, const T* R, const T* x_pred,
                   const T* mask, const T* bvec, const T* C, int c_lane,
@@ -251,6 +326,12 @@ extern "C" {
                             T* U, int T_, int N, int k, void* stream) {      \
     return launch_wide<T>(Y, Lam, R, x_pred, mask, out, U, T_, N, k,         \
                           (cudaStream_t)stream);                             \
+  }                                                                          \
+  int quad_local_gen_##SFX(const T* Y, const T* Lam, const T* R,             \
+                           const T* x_pred, const T* mask, double* out,      \
+                           T* U, int T_, int N, int k, void* stream) {       \
+    return launch_gen<T>(Y, Lam, R, x_pred, mask, out, U, T_, N, k,          \
+                         (cudaStream_t)stream);                              \
   }
 #if DFM_WANT_F32
 DFM_QUAD_ENTRIES(f32, float)

@@ -32,7 +32,12 @@
 // Each operation on the chain is an fma, a sqrt or a division whose
 // operands come from memory, so nothing folds; the values stay near fixed
 // points (x -> x h + c, x -> b - (a / sqrt x)^2), so nothing overflows.
-// k runs to DFM_WIDE_KMAX: the same floor for the wide K4 pair (K12).
+// k runs to DFM_WIDE_KMAX with K a template constant (the k <= 16 and
+// wide K4 pairs), and from there to DFM_GEN_KMAX = 128 with a runtime k
+// (step_chain_gen_kernel, the generic pair's floor; the loop counters run
+// beside the floating-point chain, off its dependence).  The generic pair's
+// blocked Cholesky and triangular solves keep the same chain of k pivots
+// and substitutions a step.
 #include "common.cuh"
 
 __host__ __device__ constexpr int ceil_log2(int k) {
@@ -50,19 +55,19 @@ template <typename T>
 struct Chain {
   T h, c, a, b, e;
 
-  template <int N>
-  __device__ __forceinline__ T fmas(T x) const {
+  // Each takes its length as an argument: a template caller passes a
+  // constant (the loops unroll), the generic kernel a runtime k.
+  __device__ __forceinline__ T fmas(T x, int n) const {
 #pragma unroll
-    for (int i = 0; i < N; ++i) x = chain_fma(x, h, c);
+    for (int i = 0; i < n; ++i) x = chain_fma(x, h, c);
     return x;
   }
 
-  template <int K>
-  __device__ __forceinline__ T chol(T x) const {
+  __device__ __forceinline__ T chol(T x, int k) const {
 #pragma unroll
-    for (int p = 0; p < K; ++p) {
+    for (int p = 0; p < k; ++p) {
       const T d = dfm_sqrt(x);
-      if (p + 1 < K) {
+      if (p + 1 < k) {
         const T l = a / d;
         x = chain_fma(-l, l, b);
       } else {
@@ -72,12 +77,36 @@ struct Chain {
     return x;
   }
 
-  template <int K>
-  __device__ __forceinline__ T subst(T x) const {
+  __device__ __forceinline__ T subst(T x, int k) const {
 #pragma unroll
-    for (int i = 0; i < K; ++i) {
+    for (int i = 0; i < k; ++i) {
       if (i > 0) x = chain_fma(x, h, c);
       x = x / e;
+    }
+    return x;
+  }
+
+  // One pass: the backward pass's J_t at the start, then its T - 1 steps;
+  // or the forward pass's T steps (the chains of the header).
+  __device__ __forceinline__ T pass(T x, int T_, int k, int prod,
+                                    int backward) const {
+    if (backward) {
+      x = chol(x, k);
+      x = subst(x, k);
+      x = subst(x, k);
+      x = fmas(x, prod);
+      for (int t = 0; t + 1 < T_; ++t) x = fmas(x, 2 * prod + 3);
+    } else {
+      for (int t = 0; t < T_; ++t) {
+        x = fmas(x, 2);
+        x = chol(x, k);
+        x = fmas(x, 2 * prod + 2);
+        x = chol(x, k);
+        x = subst(x, k);
+        x = subst(x, k);
+        x = fmas(x, prod + 1);
+        x = fmas(x, 2 * prod + 2);
+      }
     }
     return x;
   }
@@ -89,31 +118,25 @@ step_chain_kernel(const T* __restrict__ consts, T* __restrict__ out, int T_,
                   int backward) {
   constexpr int PROD = 1 + ceil_log2(K);
   const Chain<T> ch{consts[0], consts[1], consts[2], consts[3], consts[4]};
-  T x = consts[1];
-  if (backward) {
-    x = ch.template chol<K>(x);
-    x = ch.template subst<K>(x);
-    x = ch.template subst<K>(x);
-    x = ch.template fmas<PROD>(x);
-    for (int t = 0; t + 1 < T_; ++t) x = ch.template fmas<2 * PROD + 3>(x);
-  } else {
-    for (int t = 0; t < T_; ++t) {
-      x = ch.template fmas<2>(x);
-      x = ch.template chol<K>(x);
-      x = ch.template fmas<2 * PROD + 2>(x);
-      x = ch.template chol<K>(x);
-      x = ch.template subst<K>(x);
-      x = ch.template subst<K>(x);
-      x = ch.template fmas<PROD + 1>(x);
-      x = ch.template fmas<2 * PROD + 2>(x);
-    }
-  }
-  out[0] = x;
+  out[0] = ch.pass(consts[1], T_, K, PROD, backward);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(1)
+step_chain_gen_kernel(const T* __restrict__ consts, T* __restrict__ out,
+                      int T_, int k, int backward) {
+  const Chain<T> ch{consts[0], consts[1], consts[2], consts[3], consts[4]};
+  out[0] = ch.pass(consts[1], T_, k, 1 + ceil_log2(k), backward);
 }
 
 template <typename T>
 static int launch_chain(const T* consts, T* out, int T_, int k, int backward,
                         cudaStream_t stream) {
+  if (k > DFM_WIDE_KMAX && k <= DFM_GEN_KMAX) {
+    step_chain_gen_kernel<T><<<1, 1, 0, stream>>>(consts, out, T_, k,
+                                                  backward);
+    return (int)cudaGetLastError();
+  }
   DFM_DISPATCH_WIDE_K(k, step_chain_kernel<T, K><<<1, 1, 0, stream>>>(
                              consts, out, T_, backward))
   return (int)cudaGetLastError();

@@ -5,9 +5,9 @@ The twin of ``dfm_tpu.estim.em`` for the ``dense``, ``info``, ``ss``
 (steady-state), ``pit`` (covariance-form parallel-in-time), ``pit_qr``
 (square-root parallel-in-time) and ``lowrank`` (rank-r downdate) engines.
 The masked per-series M-step rows are kernel K3 (``csrc/mstep_rows.cu``;
-K3-wide for 16 < k <= 32) on CUDA tensors, with ``mstep_rows_plain``
-beside it; the unmasked rows
-are a GEMM plus one k x k solve and stay plain torch.  ``n_steps`` runs
+K3-wide for 16 < k <= 32, K3-gen for 32 < k <= 128) on CUDA tensors, with
+``mstep_rows_plain`` beside it; the unmasked rows are a GEMM plus one k x k
+solve and stay plain torch.  ``n_steps`` runs
 the M-step on a capacity-padded panel (the t-masked dynamics of serving
 sessions), and ``em_chunk`` is the live-capped chunk of the fused fit.
 """
@@ -192,7 +192,8 @@ def mstep_rows(Y, mask, Ef, EffT, P_sm, S_ff, r_floor: float, Ysq=None,
     """Per-series M-step rows: new (Lam (N, k), R (N,)).
 
     Unmasked: S_yf = Y'E[f], one k x k solve, R from the hoisted ``Ysq``.
-    Masked: kernel K3 for CUDA tensors (K3-wide for 16 < k <= 32).
+    Masked: kernel K3 for CUDA tensors (K3-wide for 16 < k <= 32, K3-gen
+    for 32 < k <= 128).
     ``lam_ridge`` (optional) solves (S_ff + lam I) instead of S_ff.
     """
     if mask is not None:

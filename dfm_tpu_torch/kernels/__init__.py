@@ -39,7 +39,8 @@ import torch
 
 __all__ = ["LAUNCHES", "KERNELS", "PROBES", "build", "build_log", "launch",
            "probe", "reset_launches", "check_k", "check_lowrank",
-           "check_dense", "check_particles", "check_tensor", "WIDE", "route"]
+           "check_dense", "check_particles", "check_tensor", "WIDE", "GEN",
+           "route"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -55,6 +56,12 @@ KMAX = 16   # DFM_KMAX in csrc/common.cuh
 # 16 < k <= 32), K14 (pit_elements, pit_scan) at every k, and K15
 # (dense_filter) at every N and k.
 WIDE_KMAX = 32
+# The generic kernels' range (DFM_GEN_KMAX): the lone K2 (masked), the K4
+# pair, K1 (quad_local and loglik_terms_local) and K3 (masked) at 32 < k
+# <= 128, each with a runtime k (the lone info and lowrank fits, fused fits
+# and sessions past 32, the mixed-frequency seq route at m > 32).  Every
+# other kernel but the rank-r ones (below) stops at WIDE_KMAX or below.
+GEN_KMAX = 128
 # The rank-r kernels' range (DFM_LR_KMAX, DFM_LR_RMAX in lowrank_scan.cu).
 LOWRANK_KMAX, LOWRANK_RMAX = 100, 32
 # The ROADMAP row that ports the kernels past their k range.
@@ -121,6 +128,11 @@ KERNELS = {
     "batched_obs_stats_wide": ("obs_stats.cu", [_P] * 8 + [_I] * 4),
     "batched_mstep_rows_wide": ("mstep_rows.cu",
                                 [_P] * 7 + [_I] * 4 + [_D]),
+    "obs_stats_gen": ("obs_stats.cu", [_P] * 8 + [_I] * 3),
+    "info_scan_gen": ("info_scan.cu", [_P, _P, _I] + [_P] * 10 + [_I] * 2),
+    "rts_smoother_gen": ("info_scan.cu", [_P] * 9 + [_I] * 2),
+    "quad_local_gen": ("quad_local.cu", [_P] * 7 + [_I] * 3),
+    "mstep_rows_gen": ("mstep_rows.cu", [_P] * 7 + [_I] * 3 + [_D] * 2),
 }
 
 # The entry points with a wide kernel beside the k <= KMAX one, and its
@@ -137,6 +149,14 @@ WIDE = {"obs_stats": "obs_stats_wide", "info_scan": "info_scan_wide",
         "batched_solve_rows": "batched_solve_rows_wide",
         "batched_obs_stats": "batched_obs_stats_wide",
         "batched_mstep_rows": "batched_mstep_rows_wide"}
+
+# The entry points with a generic kernel for WIDE_KMAX < k <= GEN_KMAX, and
+# its name.  obs_stats, quad_local and mstep_rows take their wide kernel's
+# C arguments; info_scan and rts_smoother take one more, a (4, k, k)
+# workspace the wrapper allocates.
+GEN = {"obs_stats": "obs_stats_gen", "info_scan": "info_scan_gen",
+       "rts_smoother": "rts_smoother_gen", "quad_local": "quad_local_gen",
+       "mstep_rows": "mstep_rows_gen"}
 
 # Measurement kernels off the model path, in the same form.
 PROBES = {
@@ -247,8 +267,8 @@ def _lib(source: str, suffix: str):
 
 def check_k(name: str, k: int, kmax: int = KMAX) -> None:
     """Raise unless the factor count is one the kernel takes: k < 1 is
-    an error, k > kmax (KMAX; WIDE_KMAX for the wide kernels) not ported
-    yet (the plain twins take any k)."""
+    an error, k > kmax (KMAX; WIDE_KMAX for the wide kernels, GEN_KMAX for
+    the generic ones) not ported yet (the plain twins take any k)."""
     if k < 1:
         raise ValueError(f"{name} kernel takes k >= 1; got k = {k}")
     if k > kmax:
@@ -260,9 +280,12 @@ def check_k(name: str, k: int, kmax: int = KMAX) -> None:
 def route(name: str, k: int) -> str:
     """The kernel that one of the ``WIDE`` entry points launches at k:
     ``name`` itself for k <= KMAX, its wide kernel for KMAX < k <=
-    WIDE_KMAX; raises as ``check_k`` past that."""
-    check_k(name, k, WIDE_KMAX)
-    return name if k <= KMAX else WIDE[name]
+    WIDE_KMAX, its generic kernel for WIDE_KMAX < k <= GEN_KMAX where it
+    has one (``GEN``); raises as ``check_k`` past its range."""
+    check_k(name, k, GEN_KMAX if name in GEN else WIDE_KMAX)
+    if k <= KMAX:
+        return name
+    return WIDE[name] if k <= WIDE_KMAX else GEN[name]
 
 
 def check_lowrank(name: str, k: int, r: int) -> None:

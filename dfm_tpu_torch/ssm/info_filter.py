@@ -20,10 +20,11 @@ version beside it (the wrapper takes the plain version only for CPU
 tensors): K2 ``obs_stats`` when masked (``csrc/obs_stats.cu``; the unmasked
 statistics are a GEMM and stay ``torch.matmul``), K4-forward ``info_scan``
 (``csrc/info_scan.cu``), K1 ``quad_local`` (``csrc/quad_local.cu``) and
-``loglik_terms_local`` (quad_R and U from the residual, K1-wide).  The
-first three launch their k <= 16 kernel, or for 16 < k <= 32 their wide
-kernel (K12, ``kernels.route``), and raise past 32; ``loglik_terms_local``
-launches K1-wide at every k <= 32.
+``loglik_terms_local`` (quad_R and U from the residual).  The first three
+launch their k <= 16 kernel, for 16 < k <= 32 their wide kernel (K12) and
+for 32 < k <= 128 their generic kernel (``kernels.route``), and raise past
+128; ``loglik_terms_local`` launches K1-wide at every k <= 32 and K1-gen
+for 32 < k <= 128.
 """
 
 from __future__ import annotations
@@ -87,7 +88,7 @@ def obs_stats(Y: torch.Tensor, Lam: torch.Tensor, R: torch.Tensor,
 
     Y (T, N), Lam (N, k), R (N,); mask optional (T, N) {0,1} in Y's dtype.
     Unmasked: torch.matmul.  Masked: kernel K2 for CUDA tensors (K2-wide
-    for 16 < k <= 32).
+    for 16 < k <= 32, K2-gen for 32 < k <= 128).
     """
     if mask is None or Y.device.type == "cpu":
         return obs_stats_plain(Y, Lam, R, mask)
@@ -134,7 +135,8 @@ def info_scan_plain(stats: ObsStats, A, Q, mu0, P0):
 
 def info_scan(stats: ObsStats, A, Q, mu0, P0):
     """The k x k time scan: kernel K4-forward for CUDA tensors (K4-wide
-    for 16 < k <= 32)."""
+    for 16 < k <= 32, K4-gen for 32 < k <= 128, with a (4, k, k)
+    workspace)."""
     b = stats.b
     if b.device.type == "cpu":
         return info_scan_plain(stats, A, Q, mu0, P0)
@@ -152,9 +154,11 @@ def info_scan(stats: ObsStats, A, Q, mu0, P0):
     x_filt = torch.empty((T, k), dtype=dt, device=dev)
     P_filt = torch.empty((T, k, k), dtype=dt, device=dev)
     logdetG = torch.empty((T,), dtype=dt, device=dev)
+    work = (torch.empty((4, k, k), dtype=dt, device=dev),) \
+        if kernel == kernels.GEN["info_scan"] else ()
     kernels.launch(kernel, dt, b, stats.C, 0 if static_C else k * k,
                    A, Q, mu0, P0, x_pred, P_pred, x_filt, P_filt, logdetG,
-                   T, k)
+                   *work, T, k)
     return x_pred, P_pred, x_filt, P_filt, logdetG
 
 
@@ -170,7 +174,8 @@ def quad_local(Y: torch.Tensor, Lam: torch.Tensor, R: torch.Tensor,
                x_pred: torch.Tensor,
                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The innovation quadratic quad_R (T,), f64: kernel K1 for CUDA
-    tensors (K1-wide, with no U, for 16 < k <= 32).  (The JAX routine also
+    tensors (K1-wide, with no U, for 16 < k <= 32; K1-gen for 32 < k <=
+    128).  (The JAX routine also
     returns the residual panel, which its caller drops; here it is never
     formed.)"""
     if Y.device.type == "cpu":
@@ -212,14 +217,17 @@ def loglik_terms_local_plain(Y, Lam, R, x_pred, mask=None):
 def loglik_terms_local(Y, Lam, R, x_pred, mask=None):
     """The innovation-quadratic reductions with U from the true residuals
     (the JAX function of this name; U = b - C x_pred only in exact
-    arithmetic): kernel K1-wide for CUDA tensors at any k <= 32."""
+    arithmetic): kernel K1-wide for CUDA tensors at any k <= 32, K1-gen
+    for 32 < k <= 128."""
     if Y.device.type == "cpu":
         return loglik_terms_local_plain(Y, Lam, R, x_pred, mask)
     T, k = x_pred.shape
-    kernels.check_k("quad_local_wide", k, kernels.WIDE_KMAX)
+    kernel = kernels.route("quad_local", k)
+    if k <= kernels.WIDE_KMAX:          # K1 itself forms no U
+        kernel = "quad_local_wide"
     quad = torch.empty((T,), dtype=torch.float64, device=Y.device)
     U = torch.empty((T, k), dtype=Y.dtype, device=Y.device)
-    _quad_launch("quad_local_wide", Y, Lam, R, x_pred, mask, quad, U)
+    _quad_launch(kernel, Y, Lam, R, x_pred, mask, quad, U)
     return quad, U
 
 

@@ -7,8 +7,8 @@ whole T-step chain in one launch, N <= 32 and k <= 32) for CUDA tensors;
 ``kalman_filter_plain``, the same step as a Python loop of torch ops, is
 its plain version, which the wrapper takes only for CPU tensors.
 ``rts_smoother`` is the backward half of kernel K4 (``csrc/info_scan.cu``;
-K4-wide for 16 < k <= 32); ``rts_smoother_plain`` is its plain-torch
-version, which the wrapper takes only for CPU tensors.
+K4-wide for 16 < k <= 32, K4-gen for 32 < k <= 128); ``rts_smoother_plain``
+is its plain-torch version, which the wrapper takes only for CPU tensors.
 
 Missing data keeps static shapes: for mask w_t the masked model is
     Lam_t = diag(w_t) Lam,  y_t -> w_t * y_t,  R_t = w_t * R + (1 - w_t)
@@ -133,7 +133,8 @@ def rts_smoother_plain(kf: FilterResult, p: SSMParams) -> SmootherResult:
 
 def rts_smoother(kf: FilterResult, p: SSMParams) -> SmootherResult:
     """RTS smoother: kernel K4-backward for CUDA tensors (K4-wide for
-    16 < k <= 32), the plain version for CPU tensors."""
+    16 < k <= 32, K4-gen for 32 < k <= 128, with a (4, k, k) workspace),
+    the plain version for CPU tensors."""
     x_filt = kf.x_filt
     if x_filt.device.type == "cpu":
         return rts_smoother_plain(kf, p)
@@ -150,6 +151,8 @@ def rts_smoother(kf: FilterResult, p: SSMParams) -> SmootherResult:
     x_sm = torch.empty((T, k), dtype=dt, device=dev)
     P_sm = torch.empty((T, k, k), dtype=dt, device=dev)
     P_lag = torch.empty((T, k, k), dtype=dt, device=dev)
+    work = (torch.empty((4, k, k), dtype=dt, device=dev),) \
+        if kernel == kernels.GEN["rts_smoother"] else ()
     kernels.launch(kernel, dt, kf.x_pred, kf.P_pred, kf.x_filt,
-                   kf.P_filt, A, x_sm, P_sm, P_lag, T, k)
+                   kf.P_filt, A, x_sm, P_sm, P_lag, *work, T, k)
     return SmootherResult(x_sm, P_sm, P_lag)

@@ -332,23 +332,30 @@ def test_wide_routing_ranges(k, want):
 
 
 def test_past_the_wide_range_raises_naming_the_roadmap_row():
+    """The four lone entry points take their generic kernel (same source
+    file) from 33 to 128 and raise at 129; the wide K1's own range check
+    still stops at 32 (``loglik_terms_local`` routes past it to K1-gen)."""
     for name in WIDE_NAMES:
+        got = kernels.route(name, 33)
+        assert got == kernels.GEN[name]
+        assert kernels.KERNELS[got][0] == kernels.KERNELS[name][0]
         with pytest.raises(NotImplementedError, match="Generic k"):
-            kernels.route(name, 33)
+            kernels.route(name, 129)
         with pytest.raises(ValueError):
             kernels.route(name, 0)
     kernels.check_k("quad_local_wide", 32, kernels.WIDE_KMAX)
     with pytest.raises(NotImplementedError, match="Generic k"):
         kernels.check_k("quad_local_wide", 33, kernels.WIDE_KMAX)
     # Every other kernel stops at 16, but K3 and K5a, whose wide kernels
-    # take 16 < k <= 32 and stop at 33.
+    # take 16 < k <= 32: K5a stops at 33, K3 (generic past 32) at 129.
     for name in ("batched_info_scan", "tvl_quad", "loading_filter"):
         with pytest.raises(NotImplementedError, match="Generic k"):
             kernels.check_k(name, 17)
-    for name in ("mstep_rows", "ss_cov_path"):
+    for name, kmax in (("mstep_rows", kernels.GEN_KMAX),
+                       ("ss_cov_path", kernels.WIDE_KMAX)):
         assert kernels.route(name, 17) == kernels.WIDE[name]
         with pytest.raises(NotImplementedError, match="Generic k"):
-            kernels.route(name, 33)
+            kernels.route(name, kmax + 1)
 
 
 def test_mf_cpu_path_launches_no_kernel():

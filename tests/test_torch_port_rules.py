@@ -193,5 +193,8 @@ def test_cpu_path_launches_no_kernel():
                                      "batched_quad_masked_wide",
                                      "batched_solve_rows_wide",
                                      "batched_obs_stats_wide",
-                                     "batched_mstep_rows_wide"}
+                                     "batched_mstep_rows_wide",
+                                     "obs_stats_gen", "info_scan_gen",
+                                     "rts_smoother_gen", "quad_local_gen",
+                                     "mstep_rows_gen"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())
