@@ -6,8 +6,8 @@
 ``--phases`` takes a comma list of phase groups (all by default, the
 acceptance run): headline (phases 2-5), session (6-8), batched (9-13),
 fleet (14-18), lowrank (19-23), tvl (24-26), mf (27-30), sv (31-33), pit
-(34-36), dense (37-39), wide (40-43), bwide (44-49), kbig (50-57).  The
-setup, the build and the final lines always run.
+(34-36), dense (37-39), wide (40-43), bwide (44-49), kbig (50-57), bgen
+(58-65).  The setup, the build and the final lines always run.
 
 Phases, each of which raises (and the script exits non-zero) on failure:
 
@@ -314,11 +314,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    17, 25 and 32 on phase 9's 120 x 400 shapes (the Hetero bucket's
    scan with NaN and inf at its pad steps), the fleet path at k = 17 and
    32 (phase 17's tenants, every kernel of the tick against its twin), and
-   k = 33 must raise NotImplementedError in all seven wrappers.
-46. batched paths at k = 25 (f32): ``fit_many`` of 8 restarts of the
-   unmasked k = 25 panel (20 iterations, tol = 0) beside 8 looped lone
+   at k = 33 all seven wrappers must route to their generic kernels (phase
+   59 holds those and the raise at 129).
+46. batched paths at k = 25 (f32): ``fit_many`` of 4 restarts of the
+   unmasked k = 25 panel (20 iterations, tol = 0) beside 4 looped lone
    info fits; ``select_n_factors_em`` over k = 8, 16, 25, 32 (B = 4
-   lanes padded to 32); ``oos_evaluate(engine="batched")``, 12
+   lanes padded to 32); ``oos_evaluate(engine="batched")``, 6
    windows of 400 rows, 10 iterations: each with n_chunks + 1 reads and
    exactly the wide twins' launches of phases 10-12 (no k <= 16 batched
    kernel).
@@ -327,8 +328,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    25), 3 drains (odd drains: tenants 1, 3 and 5), 1 read and exactly
    phase 14's launches (the wide twins) a tick under the sync check, lane
    0 (k = 25) and lane 4 (k = 12, padded across 16) held to their lone
-   sessions within 5e-3, then the tick's kernels on the bucket's buffers
-   (f64 and f32, timed); phase 23 on two 480 x 10,000 tenants at k = 25
+   sessions within 5e-3 (lone sessions of those two only), then the
+   tick's kernels on the bucket's buffers (f64 and f32, timed); phase 23 on two 480 x 10,000 tenants at k = 25
    in a lowrank bucket (rank 8, 2 drains, f64 then f32).
 48. batched reference at k = 20: ``fit_many`` of 3 panels and a Hetero
    ``run_batched_em`` at 120 x 80, and a 3-tick fleet of a 100 x 40 tenant
@@ -370,12 +371,53 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 57. contract: phase 5's loglik contract for the masked info fits at k =
    50 and 100.
 
+58. batched generic kernels: the K4b-gen pair (``csrc/info_scan.cu``),
+   K1b-gen and K1b-m-gen (``csrc/quad_local.cu``), K6b-gen
+   (``csrc/bsolve_rows.cu``: a factor kernel and a tile solve), K2b-m-gen
+   (``csrc/obs_stats.cu``) and K3b-m-gen (``csrc/mstep_rows.cu``), the
+   batched wrappers' kernels at 32 < k <= 128, against their plain twins
+   at the fit_many shape (B = 4, T = 500, N = 10,000, k = 50: the K4b-gen
+   pair, K1b-gen and K6b-gen on the restarts, K4b-gen forward again with
+   a ragged t_mask), the tick shape (B = 2, T_cap = 1,000: every kernel
+   of an info tick) and k = 100 (B = 2, T = 500: the K4b-gen pair and
+   K3b-m-gen), f64 and f32 (the TOL rule), timed warm and cold beside the
+   plain twin, the bound, K4's latency floor for the pair and K6b-gen's
+   ``cholesky`` + ``cholesky_solve``.
+59. batched k-sweep: the same kernels through their wrappers at k = 33,
+   50, 64, 100, 128 on 80 x 120 panels (3 restarts, a Hetero bucket with
+   NaN and inf at its scan's pad steps, a masked bucket with a fully
+   masked step and a never-observed series), f64 and f32; k = 129 must
+   raise NotImplementedError in all seven wrappers before any launch.
+60. fit_many at k = 50: 4 restarts of the unmasked panel simulated at k =
+   50, 10 iterations, tol = 0, f32: aggregate EM it/s beside 2 looped
+   lone ``fit(filter="info")`` runs from the same inits, n_chunks + 1
+   reads, exactly the generic twins' launches an iteration (no k <= 32
+   batched kernel).
+61. k-grid: ``select_n_factors_em(ks=(10, 33, 50))``, 3 lanes padded to
+   50, 10 iterations; the same launch and read gates.
+62. rolling windows: ``oos_evaluate(engine="batched")`` at k = 50, 6
+   windows of 400 rows, the seed fit through
+   ``TorchBackend(filter="info")``.
+63. fleets past 32: bench/fleet.py's wide-k leg at its own definition
+   (``120,200,50x2``, rank 8: the info and lowrank fleet walls and their
+   ratio, printed); then phase 14 on two masked 480 x 10,000 tenants at k
+   = 50 and one 400 x 6,000 at k = 40 in one info bucket at (1,000,
+   10,000, 50), 2 drains, one read and exact launches a tick under the
+   sync check, lane 0 held to a lone k = 50 session, the k = 40 tenant's
+   padded factors exactly 0 (phase 58 holds the tick's kernels).
+64. batched reference at k = 40: ``fit_many`` of 3 panels and a Hetero
+   ``run_batched_em`` at 120 x 80, and 3-tick fleets of a 100 x 60 tenant
+   at k = 40 and a 90 x 50 tenant at k = 34, info and lowrank (rank 4),
+   card f64 against CPU f64 within 1e-12 (the lowrank fleet's
+   diffusion-index forecast within ``DI_REF_TOL``, 1e-7).
+65. contract: phase 13's loglik contract for the 4 f32 restarts at k =
+   50.
+
 Output: one JSON line per kernel and dtype, one per fit, contract check,
-ring case, session, batched, fleet, TVL, MF, SV, K14, dense, wide and
-kbig phase, the seconds of each phase group as it ends and of the
-script, then the
-{"kernels": [...]} summary, the card line and, last, {"ok": true,
-"device": {...}}.
+ring case, session, batched, fleet, TVL, MF, SV, K14, dense, wide, kbig
+and bgen phase, the seconds of each phase (``step_s``), of each phase
+group as it ends and of the script, then the {"kernels": [...]}
+summary, the card line and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -468,7 +510,9 @@ L2_FLUSH_BYTES = 256 * 2**20                   # > 5x the H100's 50 MB L2
 # K3b-m at 16 < k <= 32), their k <= 16 kernels' tolerances.  The generic
 # kernels past 32 (K2-gen, the K4-gen pair, K1-gen, K3-gen) take their
 # lone twins' f32 tolerances and 1e-10 in f64 (measured <= 1e-12 at k =
-# 33..128 on 120 x 400 panels and at the headline shape).
+# 33..128 on 120 x 400 panels and at the headline shape); so do their
+# batched twins (K4b-gen, K1b-gen, K6b-gen, K2b-m-gen, K1b-m-gen,
+# K3b-m-gen), which run the same bodies lane by lane.
 TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "mstep_rows": 1e-4, "info_scan": 1e-4,
                        "rts_smoother": 1e-4, "ss_cov_path": 1e-4,
@@ -495,7 +539,13 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "batched_mstep_rows_wide": 1e-4,
                        "obs_stats_gen": 1e-5, "quad_local_gen": 1e-5,
                        "info_scan_gen": 1e-4, "rts_smoother_gen": 1e-4,
-                       "mstep_rows_gen": 1e-4},
+                       "mstep_rows_gen": 1e-4,
+                       "batched_info_scan_gen": 1e-4,
+                       "batched_rts_gen": 1e-4, "batched_quad_gen": 1e-5,
+                       "batched_quad_masked_gen": 1e-5,
+                       "batched_solve_rows_gen": 1e-4,
+                       "batched_obs_stats_gen": 1e-5,
+                       "batched_mstep_rows_gen": 1e-4},
        torch.float64: {"quad_local": 1e-10, "obs_stats": 1e-10,
                        "mstep_rows": 1e-9, "info_scan": 1e-9,
                        "rts_smoother": 1e-9, "ss_cov_path": 1e-9,
@@ -522,7 +572,13 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "batched_mstep_rows_wide": 1e-9,
                        "obs_stats_gen": 1e-10, "quad_local_gen": 1e-10,
                        "info_scan_gen": 1e-10, "rts_smoother_gen": 1e-10,
-                       "mstep_rows_gen": 1e-10}}
+                       "mstep_rows_gen": 1e-10,
+                       "batched_info_scan_gen": 1e-10,
+                       "batched_rts_gen": 1e-10, "batched_quad_gen": 1e-10,
+                       "batched_quad_masked_gen": 1e-10,
+                       "batched_solve_rows_gen": 1e-10,
+                       "batched_obs_stats_gen": 1e-10,
+                       "batched_mstep_rows_gen": 1e-10}}
 # The TPU routine each kernel replaces.
 REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "obs_stats": "dfm_tpu/ssm/info_filter.py:69",
@@ -572,7 +628,14 @@ REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "info_scan_gen": "dfm_tpu/ssm/info_filter.py:104",
             "rts_smoother_gen": "dfm_tpu/ssm/kalman.py:84",
             "quad_local_gen": "dfm_tpu/ssm/info_filter.py:159",
-            "mstep_rows_gen": "dfm_tpu/estim/em.py:163"}
+            "mstep_rows_gen": "dfm_tpu/estim/em.py:163",
+            "batched_info_scan_gen": "dfm_tpu/estim/batched.py:358",
+            "batched_rts_gen": "dfm_tpu/estim/batched.py:444",
+            "batched_quad_gen": "dfm_tpu/estim/batched.py:409",
+            "batched_quad_masked_gen": "dfm_tpu/estim/batched.py:650",
+            "batched_solve_rows_gen": "dfm_tpu/estim/batched.py:106",
+            "batched_obs_stats_gen": "dfm_tpu/estim/batched.py:593",
+            "batched_mstep_rows_gen": "dfm_tpu/estim/batched.py:682"}
 # The variant of each kernel whose f32 record goes into the summary line.
 SUMMARY_VARIANT = {"quad_local": "masked", "obs_stats": "masked",
                    "mstep_rows": "masked", "info_scan": "masked",
@@ -626,6 +689,17 @@ def cuda_ms(fn, warm: bool = True) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def plain_ms(c: dict) -> float:
+    """The plain twin's milliseconds for case ``c``: the comparison's own
+    call when it took 0.1 s or more (a slow twin is timed by one call, so
+    a second would add nothing), else ``cuda_ms`` after it."""
+    if "plain_events" in c:
+        one = c["plain_events"][0].elapsed_time(c["plain_events"][1])
+        if one >= 100.0:
+            return one
+    return cuda_ms(c["plain"], warm=False)
 
 
 def cuda_ms_cold(fn, reps: int = 3, warm: bool = True) -> float:
@@ -695,14 +769,29 @@ def n_combines(T_: int) -> int:
 
 
 def case(name, variant, run, plain, ins, flops, library=None, floor=None,
-         gram=()):
+         gram=(), ref=None):
     """One kernel comparison: ``ins`` are the tensors the function reads
     (its bytes bound counts each once, and each output once); the outputs
     at ``gram`` are square-root factors compared through X X' (see
-    compare)."""
-    return {"name": name, "variant": variant, "run": run, "plain": plain,
-            "ins": ins, "flops": float(flops), "library": library,
-            "floor": floor, "gram": gram}
+    compare); ``ref``, when given, is ``plain_call(plain)`` already made on
+    the same inputs (the comparison takes its output instead of a second
+    call, ``plain_ms`` its events)."""
+    c = {"name": name, "variant": variant, "run": run, "plain": plain,
+         "ins": ins, "flops": float(flops), "library": library,
+         "floor": floor, "gram": gram, "ref": None}
+    if ref is not None:
+        c["ref"], c["plain_events"] = ref
+    return c
+
+
+def plain_call(fn) -> tuple:
+    """(``fn()``, the CUDA events around the call)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    return out, (start, end)
 
 
 def ss_inputs(stats, pt, tau: int):
@@ -922,7 +1011,12 @@ def compare(c: dict, dtype, ref64=None) -> tuple:
     ``ref64``: the f64 pipeline's plain outputs for this case (f32 only,
     see TOL).  Raises on a non-finite kernel output or past the
     tolerance."""
-    got, ref = as_tuple(c["run"]()), as_tuple(c["plain"]())
+    got = as_tuple(c["run"]())
+    if c["ref"] is not None:
+        ref = as_tuple(c["ref"])
+    else:
+        out, c["plain_events"] = plain_call(c["plain"])
+        ref = as_tuple(out)
     torch.cuda.synchronize()
     tol = TOL[dtype][c["name"]]
     abs_err = rel_err = plain_err = 0.0
@@ -994,7 +1088,7 @@ def kernel_record(c: dict, dtype, refs: dict) -> dict:
             "kernel_ms": cuda_ms(c["run"], warm=False),
             "kernel_ms_cold_l2": cuda_ms_cold(c["run"],
                                               c.get("cold_reps", 3), False),
-            "plain_ms": cuda_ms(c["plain"], warm=False),
+            "plain_ms": plain_ms(c),
             "library_ms": cuda_ms(c["library"]) if c["library"] else None,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "latency_ms": c["floor"]() if c["floor"] else None,
@@ -1127,7 +1221,14 @@ OWN_FIT = {"quad_local": "masked", "obs_stats": "masked",
            "info_scan_gen": "k100 masked info",
            "rts_smoother_gen": "k100 masked info",
            "quad_local_gen": "k100 masked info",
-           "mstep_rows_gen": "k100 masked info"}
+           "mstep_rows_gen": "k100 masked info",
+           "batched_info_scan_gen": "fit_many k50",
+           "batched_rts_gen": "fit_many k50",
+           "batched_quad_gen": "fit_many k50",
+           "batched_solve_rows_gen": "fit_many k50",
+           "batched_obs_stats_gen": "fleet k50",
+           "batched_quad_masked_gen": "fleet k50",
+           "batched_mstep_rows_gen": "fleet k50"}
 
 
 def fit_phase(seed: int) -> dict:
@@ -1786,10 +1887,15 @@ class BatchedWatch:
 
 
 def routed(counts: dict, k: int) -> dict:
-    """``counts`` keyed by the kernel each entry point launches at k (its
-    wide twin at 16 < k <= 32: ``kernels.route``)."""
-    return {kernels.route(n, k) if n in kernels.WIDE else n: c
-            for n, c in counts.items()}
+    """``counts`` (calls) keyed by the kernel each entry point launches at
+    k (``kernels.route``: its wide twin at 16 < k <= 32, its generic one
+    past 32), in device kernels (``kernels.DEVICE_LAUNCHES`` a call)."""
+    out = {}
+    for n, c in counts.items():
+        name = kernels.route(n, k) if n in kernels.WIDE else n
+        out[name] = (None if c is None
+                     else c * kernels.DEVICE_LAUNCHES.get(name, 1))
+    return out
 
 
 def check_batched_launches(label: str, launches: dict, iters: int,
@@ -1845,9 +1951,12 @@ def batched_cases(Yt, pt, label: str, hetero=None, junk: bool = False
     k2, k3 = k * k, k ** 3
     tm = None if hetero is None else hetero.t_mask
     b, C, _ = tb._batched_obs_stats(Yt, pt.Lam, pt.R)
-    scan = tb._batched_info_scan_plain(b, C, pt.A, pt.Q, pt.mu0, pt.P0, tm)
+    scan_ref = plain_call(lambda: tb._batched_info_scan_plain(
+        b, C, pt.A, pt.Q, pt.mu0, pt.P0, tm))
+    scan = scan_ref[0]
     flt = scan[:4]
-    sm = tb._batched_rts_plain(*flt, pt.A)
+    sm_ref = plain_call(lambda: tb._batched_rts_plain(*flt, pt.A))
+    sm = sm_ref[0]
     bs = b
     if junk and tm is not None:
         pad = (tm <= 0)[..., None].expand_as(b)
@@ -1862,7 +1971,8 @@ def batched_cases(Yt, pt, label: str, hetero=None, junk: bool = False
              lambda: tb._batched_info_scan_plain(bs, C, pt.A, pt.Q, pt.mu0,
                                                  pt.P0, tm),
              scan_in, B_ * T_ * (12.67 * k3 + 4 * k2),
-             floor=lambda: latency_ms("info_scan", dtype, k, T_)),
+             floor=lambda: latency_ms("info_scan", dtype, k, T_),
+             ref=scan_ref if bs is b else None),
         case(kernels.route("batched_quad", k), label,
              lambda: tb._batched_quad(Yt, pt.Lam, pt.R, scan[0], b, C),
              lambda: tb._batched_quad_plain(Yt, pt.Lam, pt.R, scan[0], b, C),
@@ -1872,7 +1982,8 @@ def batched_cases(Yt, pt, label: str, hetero=None, junk: bool = False
              lambda: tb._batched_rts(*flt, pt.A),
              lambda: tb._batched_rts_plain(*flt, pt.A), (*flt, pt.A),
              B_ * T_ * (10.33 * k3 + 4 * k2),
-             floor=lambda: latency_ms("rts_smoother", dtype, k, T_)),
+             floor=lambda: latency_ms("rts_smoother", dtype, k, T_),
+             ref=sm_ref),
     ]
     for which, (S, V) in zip(("Lam rows", "A rows"),
                              solve_inputs(Yt, sm, pt, hetero)):
@@ -1897,10 +2008,10 @@ def hetero_lanes(Z, p, t_act, n_act):
     return np.stack(Ys), ps
 
 
-def rolling_origins(T_: int = T) -> np.ndarray:
+def rolling_origins(T_: int = T, windows: int = ROLL_WINDOWS) -> np.ndarray:
     """The forecast origins ``oos_evaluate`` picks for the rolling
-    phase's call (ROLL_WINDOWS windows of ROLL_TRAIN rows, horizon 1)."""
-    return np.unique(np.linspace(ROLL_TRAIN, T_ - 1, ROLL_WINDOWS,
+    phase's call (``windows`` windows of ROLL_TRAIN rows, horizon 1)."""
+    return np.unique(np.linspace(ROLL_TRAIN, T_ - 1, windows,
                                  dtype=int))
 
 
@@ -1982,7 +2093,7 @@ def batched_kernel_phase(seed: int) -> dict:
                            "kernel_ms": cuda_ms(c["run"], warm=False),
                            "kernel_ms_cold_l2": cuda_ms_cold(
                                c["run"], c.get("cold_reps", 3), False),
-                           "plain_ms": cuda_ms(c["plain"], warm=False),
+                           "plain_ms": plain_ms(c),
                            "library_ms": (cuda_ms(c["library"])
                                           if c["library"] else None),
                            "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2035,19 +2146,21 @@ def em_rate(history, chunk: int):
 
 
 def fit_many_phase(seed: int, k: int = K, offset: int = 1,
-                   label: str = "fit_many", lone_ss: bool = True) -> dict:
-    """``fit_many`` on 8 restarts of the unmasked headline panel (k = 10,
-    from ``panel(seed + offset)``; 20 iterations, tol = 0, f32): aggregate
-    EM iterations/s (B x the iterations after the first chunk over the
-    host wall of those chunks, each chunk ending in its one read), reads,
-    launches per iteration; then 8 looped lone ``fit(filter="info")`` runs
-    from the same inits and (``lone_ss``) one lone ``fit`` (auto -> ss)
-    from restart 0's, same budget.  Returns the fit_many's launch counts
-    under ``label``."""
+                   label: str = "fit_many", lone_ss: bool = True,
+                   B_: int = B_RESTARTS, iters: int = FIT_MANY_ITERS,
+                   n_lone: int = B_RESTARTS) -> dict:
+    """``fit_many`` on ``B_`` (8) restarts of the unmasked headline panel
+    (k = 10, from ``panel(seed + offset)``; ``iters`` (20) iterations,
+    tol = 0, f32): aggregate EM iterations/s (B x the iterations after the
+    first chunk over the host wall of those chunks, each chunk ending in
+    its one read), reads, launches per iteration; then ``n_lone`` (8)
+    looped lone ``fit(filter="info")`` runs from the first inits and
+    (``lone_ss``) one lone ``fit`` (auto -> ss) from restart 0's, same
+    budget.  Returns the fit_many's launch counts under ``label``."""
     _, _, Yfull, _ = panel(seed + offset, K_=k)
     model = dt.DynamicFactorModel(n_factors=k)
-    spec = dt.DFMBatchSpec.restarts(model, Yfull, B_RESTARTS)
-    chunk, iters = 8, FIT_MANY_ITERS
+    spec = dt.DFMBatchSpec.restarts(model, Yfull, B_)
+    chunk = 8
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -2059,12 +2172,12 @@ def fit_many_phase(seed: int, k: int = K, offset: int = 1,
     n_chunks = -(-iters // chunk)
     chunk_reads = w.reads[:n_chunks]
     steady_s = chunk_reads[-1] - chunk_reads[0]
-    agg = B_RESTARTS * (iters - chunk) / steady_s
+    agg = B_ * (iters - chunk) / steady_s
     floor = noise_floor_for(torch.float32, T * N)
     lls = np.stack(res.logliks)
     # The lone comparisons, same inits and budget.
     lone = {}
-    runs = [("looped info", "info", spec.inits)]
+    runs = [("looped info", "info", spec.inits[:n_lone])]
     if lone_ss:
         runs.append(("lone ss", "auto", spec.inits[:1]))
     for name, flt, inits in runs:
@@ -2081,7 +2194,7 @@ def fit_many_phase(seed: int, k: int = K, offset: int = 1,
                       "wall_s": time.perf_counter() - t1,
                       "em_iters_per_sec": n_it / secs}
     per_iter = {n: launches[n] / iters for n in launches if launches[n]}
-    rec = {"fit_many": label, "B": B_RESTARTS, "k": k, "n_iters":
+    rec = {"fit_many": label, "B": B_, "k": k, "n_iters":
            res.n_iters.tolist(), "wall_s": wall,
            "em_wall_s": w.reads[-1] - w.em_start,
            "init_s": w.em_start - t0,
@@ -2119,7 +2232,7 @@ def fit_many_phase(seed: int, k: int = K, offset: int = 1,
 
 
 def kgrid_phase(seed: int, ks=range(1, K + 1), k: int = K,
-                offset: int = 1) -> None:
+                offset: int = 1, iters: int = FIT_MANY_ITERS) -> None:
     """``select_n_factors_em`` over ``ks`` (k = 1..10) on the unmasked
     headline panel (simulated at k factors from ``seed + offset``; 20
     iterations, tol = 0, f32): the wall, the EM part (from the batched
@@ -2132,11 +2245,11 @@ def kgrid_phase(seed: int, ks=range(1, K + 1), k: int = K,
     t0 = time.perf_counter()
     with BatchedWatch() as w:
         sel = dt.select_n_factors_em(Yfull, ks=ks,
-                                     max_iters=FIT_MANY_ITERS, tol=0.0,
+                                     max_iters=iters, tol=0.0,
                                      backend=dt.TorchBackend())
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    n_chunks = -(-FIT_MANY_ITERS // 8)
+    n_chunks = -(-iters // 8)
     emit({"k_grid": list(map(int, sel.ks)), "wall_s": wall,
           "init_s": w.em_start - t0, "em_wall_s": w.reads[-1] - w.em_start,
           "k_best": sel.k_best, "logliks": sel.logliks.tolist(),
@@ -2144,17 +2257,18 @@ def kgrid_phase(seed: int, ks=range(1, K + 1), k: int = K,
           "reads": len(w.reads), "em_iters": w.em_iters,
           "launches_before_em": w.before_em, "launches": launches})
     if (not np.isfinite(sel.logliks).all()
-            or (sel.fit.n_iters != FIT_MANY_ITERS).any()
-            or len(w.reads) != n_chunks + 1 or w.em_iters != FIT_MANY_ITERS
+            or (sel.fit.n_iters != iters).any()
+            or len(w.reads) != n_chunks + 1 or w.em_iters != iters
             or any(w.before_em.values())):
         raise AssertionError(f"k-grid: logliks {sel.logliks}, n_iters "
                              f"{sel.fit.n_iters}, reads {len(w.reads)}, "
                              f"EM iterations {w.em_iters}, launches before "
                              f"the EM {w.before_em}")
-    check_batched_launches("k-grid", launches, FIT_MANY_ITERS, max(ks))
+    check_batched_launches("k-grid", launches, iters, max(ks))
 
 
-def rolling_phase(seed: int, k: int = K, offset: int = 1) -> None:
+def rolling_phase(seed: int, k: int = K, offset: int = 1,
+                  windows: int = ROLL_WINDOWS, backend=None) -> None:
     """``oos_evaluate(engine="batched")``: 12 rolling windows of 400 rows
     (4T/5) of the unmasked headline panel, horizon 1, 10 iterations at the
     default tol (the first window's lone fit seeds every window): the
@@ -2164,7 +2278,9 @@ def rolling_phase(seed: int, k: int = K, offset: int = 1) -> None:
     relative RMSE against the last-value forecast, the lone fit's launches
     and the batched EM's launches per iteration (counted from its
     start); the panel simulated at k factors from ``seed + offset``, the
-    model at k."""
+    model at k; ``windows`` windows (12), the lone seed fit through
+    ``backend`` (default ``TorchBackend()``: at k > 32 pass one that does
+    not resolve to ``ss``, such as ``TorchBackend(filter="info")``)."""
     _, _, Yfull, _ = panel(seed + offset, K_=k)
     model = dt.DynamicFactorModel(n_factors=k)
     tol = inspect.signature(dt.fit_many).parameters["tol"].default
@@ -2173,9 +2289,9 @@ def rolling_phase(seed: int, k: int = K, offset: int = 1) -> None:
     t0 = time.perf_counter()
     with BatchedWatch() as w:
         oos = dt.oos_evaluate(model, Yfull, engine="batched",
-                              n_windows=ROLL_WINDOWS, min_train=ROLL_TRAIN,
+                              n_windows=windows, min_train=ROLL_TRAIN,
                               horizon=1, max_iters=ROLL_ITERS,
-                              backend=dt.TorchBackend())
+                              backend=backend or dt.TorchBackend())
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     rel = oos.rel_rmse
@@ -2196,9 +2312,9 @@ def rolling_phase(seed: int, k: int = K, offset: int = 1) -> None:
           "origins": oos.origins.tolist(),
           "launches_lone_fit": {n: c for n, c in w.before_em.items() if c},
           "launches": launches})
-    if (len(oos.origins) != ROLL_WINDOWS or rel.shape != (N,)
+    if (len(oos.origins) != windows or rel.shape != (N,)
             or not np.isfinite(rel).all()
-            or not np.array_equal(oos.origins, rolling_origins())
+            or not np.array_equal(oos.origins, rolling_origins(T, windows))
             or len(w.reads) != n_chunks + 1
             or any(w.before_em[n] for n in routed(dict.fromkeys(BATCHED),
                                                   k))
@@ -2271,17 +2387,18 @@ def batched_reference_phase(seed: int, k: int = 3,
                              f"{bad}")
 
 
-def batched_contract_phase(seed: int, k: int = K, offset: int = 1) -> None:
+def batched_contract_phase(seed: int, k: int = K, offset: int = 1,
+                           B_: int = B_RESTARTS) -> None:
     """The 1e-5 loglik contract for each lane of an f32 batched fit of the
-    8 restarts at the headline shape (simulated at k factors from ``seed
-    + offset``), as contract_phase evaluates it: the f32 params after 2
-    updates, evaluated with the exact f64 filter, against the f64 batched
-    trajectory's loglik at iteration 3."""
+    ``B_`` (8) restarts at the headline shape (simulated at k factors from
+    ``seed + offset``), as contract_phase evaluates it: the f32 params
+    after 2 updates, evaluated with the exact f64 filter, against the f64
+    batched trajectory's loglik at iteration 3."""
     _, _, Yfull, _ = panel(seed + offset, K_=k)
     spec = dt.DFMBatchSpec.restarts(dt.DynamicFactorModel(n_factors=k),
-                                    Yfull, B_RESTARTS)
+                                    Yfull, B_)
     Z = data.standardize(Yfull)[0]
-    Zb = np.ascontiguousarray(np.broadcast_to(Z, (B_RESTARTS, T, N)))
+    Zb = np.ascontiguousarray(np.broadcast_to(Z, (B_, T, N)))
     cfg = EMConfig(filter="info")
     runs = {}
     with highest_precision():
@@ -2295,14 +2412,14 @@ def batched_contract_phase(seed: int, k: int = K, offset: int = 1) -> None:
             torch.cuda.empty_cache()
         Z64 = torch.tensor(Z, dtype=torch.float64, device="cuda")
         rels, fasts = [], []
-        for b in range(B_RESTARTS):
+        for b in range(B_):
             ref = float(runs[(torch.float64, 3)][1][b][2])
             precise = inf.loglik_eval(Z64, runs[(torch.float32, 2)][0][b],
                                       precise=True)
             rels.append(abs(precise - ref) / abs(ref))
             fasts.append(abs(float(runs[(torch.float32, 3)][1][b][2]) - ref)
                          / abs(ref))
-    emit({"contract": "fit_many restarts", "B": B_RESTARTS, "k": k,
+    emit({"contract": "fit_many restarts", "B": B_, "k": k,
           "iter": 3, "rel_err_precise": rels, "rel_err_fast": fasts,
           "limit": 1e-5})
     if not max(rels) < 1e-5:
@@ -2367,10 +2484,15 @@ def fleet_cases(Yb, Wb, pt, t_new, label: str) -> list:
     B_, T_, N_ = Yb.shape
     k = pt.A.shape[-1]
     k2, k3, BTN = k * k, k ** 3, B_ * T_ * N_
-    b, C, _, _ = tb._batched_obs_stats_masked_plain(Yb, Wb, pt.Lam, pt.R)
-    scan = tb._batched_info_scan_plain(b, C, pt.A, pt.Q, pt.mu0, pt.P0)
+    stats_ref = plain_call(lambda: tb._batched_obs_stats_masked_plain(
+        Yb, Wb, pt.Lam, pt.R))
+    b, C = stats_ref[0][:2]
+    scan_ref = plain_call(lambda: tb._batched_info_scan_plain(
+        b, C, pt.A, pt.Q, pt.mu0, pt.P0))
+    scan = scan_ref[0]
     flt = scan[:4]
-    x_sm, P_sm, P_lag = tb._batched_rts_plain(*flt, pt.A)
+    sm_ref = plain_call(lambda: tb._batched_rts_plain(*flt, pt.A))
+    x_sm, P_sm, P_lag = sm_ref[0]
     EffT = P_sm + tb._outer(x_sm)
     calls = []
     real = tb._bsolve_rows
@@ -2391,14 +2513,16 @@ def fleet_cases(Yb, Wb, pt, t_new, label: str) -> list:
              lambda: tb._batched_obs_stats_masked(Yb, Wb, pt.Lam, pt.R),
              lambda: tb._batched_obs_stats_masked_plain(Yb, Wb, pt.Lam,
                                                         pt.R),
-             (Yb, Wb, pt.Lam, pt.R), BTN * (2 * k + k * (k + 1) + 6)),
+             (Yb, Wb, pt.Lam, pt.R), BTN * (2 * k + k * (k + 1) + 6),
+             ref=stats_ref),
         case(kernels.route("batched_info_scan", k), label,
              lambda: tb._batched_info_scan(b, C, pt.A, pt.Q, pt.mu0, pt.P0),
              lambda: tb._batched_info_scan_plain(b, C, pt.A, pt.Q, pt.mu0,
                                                  pt.P0),
              (b, C, pt.A, pt.Q, pt.mu0, pt.P0),
              B_ * T_ * (12.67 * k3 + 4 * k2),
-             floor=lambda: latency_ms("info_scan", dtype, k, T_)),
+             floor=lambda: latency_ms("info_scan", dtype, k, T_),
+             ref=scan_ref),
         case(kernels.route("batched_quad_masked", k), label,
              lambda: tb._batched_quad_masked(Yb, Wb, pt.Lam, pt.R, scan[0],
                                              b, C),
@@ -2410,7 +2534,8 @@ def fleet_cases(Yb, Wb, pt, t_new, label: str) -> list:
              lambda: tb._batched_rts(*flt, pt.A),
              lambda: tb._batched_rts_plain(*flt, pt.A), (*flt, pt.A),
              B_ * T_ * (10.33 * k3 + 4 * k2),
-             floor=lambda: latency_ms("rts_smoother", dtype, k, T_)),
+             floor=lambda: latency_ms("rts_smoother", dtype, k, T_),
+             ref=sm_ref),
         case(kernels.route("batched_mstep_rows", k), label,
              lambda: tb._batched_mstep_rows(Yb, Wb, x_sm, EffT, P_sm, 1e-6),
              lambda: tb._batched_mstep_rows_plain(Yb, Wb, x_sm, EffT, P_sm,
@@ -2514,7 +2639,7 @@ def fleet_kernel_check(bucket, label: str, seed: int,
                         "kernel_ms": cuda_ms(c["run"], warm=False),
                         "kernel_ms_cold_l2": cuda_ms_cold(
                             c["run"], c.get("cold_reps", 3), False),
-                        "plain_ms": cuda_ms(c["plain"], warm=False),
+                        "plain_ms": plain_ms(c),
                         "library_ms": (cuda_ms(c["library"])
                                        if c["library"] else None),
                         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2585,13 +2710,18 @@ def lone_close(label: str, u, ref) -> float:
 
 def fleet_phase(seed: int, tenants: list, k: int = K,
                 drains: int = FLEET_DRAINS, odd=FLEET_ODD, held=FLEET_LONE,
-                label: str = "info") -> tuple:
+                label: str = "info", lone_all: bool = True, inert=(),
+                kernel_check: bool = True) -> tuple:
     """The full-width info fleet (``drains`` drains; at odd drains only
     the ``odd`` tenants; one bucket at (FLEET_CAP, N, k), the wide twins
-    at 16 < k <= 32), the same rounds on lone sessions of every tenant
-    (lanes ``held`` held to theirs within FLEET_F32_TOL), then every kernel
-    of the tick on the bucket's buffers.  Returns (launches by kernel over
-    the ticks, the f32 kernel records)."""
+    at 16 < k <= 32, the generic ones past 32), the same rounds on lone
+    sessions of every tenant (only of the ``held`` ones unless
+    ``lone_all``; lanes ``held`` held to theirs within FLEET_F32_TOL),
+    the padded factors of each (lane, k) of ``inert`` exactly 0 in the
+    bucket's params after the last tick (loadings, A's rows and columns,
+    mu0), then (with ``kernel_check``) every kernel of the tick on the
+    bucket's buffers, timed.  Returns (launches by kernel over the ticks,
+    the f32 kernel records; none without ``kernel_check``)."""
     backend = dt.TorchBackend(filter="info")
     names = [f"t{i}" for i in range(len(tenants))]
     N_of = {n: t[1].shape[1] for n, t in zip(names, tenants)}
@@ -2646,13 +2776,25 @@ def fleet_phase(seed: int, tenants: list, k: int = K,
                              f"{want} and no other kernel; reads "
                              f"{n_reads}")
     n_q = sum(len(r) for r in rounds)
+    p = bucket.p
+    live = {(ln, kt): bool((p.Lam[ln, :, kt:] == 0).all()
+                           and (p.A[ln, kt:, :] == 0).all()
+                           and (p.A[ln, :, kt:] == 0).all()
+                           and (p.mu0[ln, kt:] == 0).all())
+            for ln, kt in inert}
+    if not all(live.values()):
+        raise AssertionError(f"fleet {label}: padded factors not inert "
+                             f"{live}")
     # The same rounds on lone sessions.
-    lone = [dt.open_session(t[0], t[1], backend=backend, capacity=FLEET_CAP,
-                            max_update_rows=FLEET_ROWS,
-                            max_iters=FLEET_ITERS, tol=0.0) for t in tenants]
+    lone = {i: dt.open_session(t[0], t[1], backend=backend,
+                               capacity=FLEET_CAP, max_update_rows=FLEET_ROWS,
+                               max_iters=FLEET_ITERS, tol=0.0)
+            for i, t in enumerate(tenants) if lone_all or i in held}
     q_walls, got, lone_err = [], [0] * len(tenants), {}
     for batch in rounds:
         for i, rows in batch.items():
+            if i not in lone:
+                continue
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             u = lone[i].update(rows)
@@ -2663,7 +2805,7 @@ def fleet_phase(seed: int, tenants: list, k: int = K,
                                u)
                 lone_err[names[i]] = max(lone_err.get(names[i], 0.0), e)
             got[i] += 1
-    for s in lone:
+    for s in lone.values():
         s.close()
     emit({"fleet": label, "B": bucket.B, "dims": bucket.dims,
           "filter": bucket.cfg.filter, "drains": drains,
@@ -2676,6 +2818,8 @@ def fleet_phase(seed: int, tenants: list, k: int = K,
           "sync_checked": True,
           "launches_per_tick": {n: per_tick[0][n] for n in want},
           "frozen_lanes_bit_identical": frozen_ok,
+          "padded_factors_inert": {f"lane {ln} k {kt}": v
+                                   for (ln, kt), v in live.items()},
           "pad_waste_frac": fleet.pad_waste_frac,
           "lone": {"sessions": len(lone), "queries": len(q_walls),
                    "query_p50_ms": pct(q_walls, 50) * 1e3,
@@ -2684,8 +2828,9 @@ def fleet_phase(seed: int, tenants: list, k: int = K,
           "fleet_over_lone_qps": (n_q / sum(walls))
           / (len(q_walls) / sum(q_walls)),
           "lane_vs_lone_max_abs": lone_err, "lone_tol": FLEET_F32_TOL})
-    recs = fleet_kernel_check(bucket, "fleet" if k == K else f"fleet k{k}",
-                              seed + 300, timed=True)
+    recs = (fleet_kernel_check(bucket, "fleet" if k == K else f"fleet k{k}",
+                               seed + 300, timed=True)
+            if kernel_check else {})
     fleet.close()
     return {n: sum(c[n] for c in per_tick) for n in want}, recs
 
@@ -2844,18 +2989,28 @@ def fleet_k_sweep(seed: int, ks=(1, 3, 16)) -> None:
         fl.close()
 
 
+# The lowrank fleets' diffusion-index forecast, card f64 against CPU f64:
+# a limit from readings.  At rank 4 < k the regression's factor block is
+# nearly collinear (condition ~1e10 at k = 40), so factors that agree to
+# ~4e-14 give forecasts ~1e-8 apart (7.1e-9, 9.3e-9 and 1.2e-8 in three
+# runs on an H100); a ridge of 1e-7 instead of 1e-8 moves them by 0.48.
+# Every other output of a reference fleet is held to 1e-12.
+DI_REF_TOL = 1e-7
+
 # The JAX trio fixture's tenants (T0, N, k) and ticks (rows per tenant).
 FLEET_REF_SHAPES = ((40, 10, 2), (44, 12, 2), (44, 12, 2))
 FLEET_REF_TICKS = ((1, 3, 2), (2, 0, 1), (3, 2, 3))
 
 
 def fleet_reference_phase(seed: int, shapes=FLEET_REF_SHAPES,
-                          ticks=FLEET_REF_TICKS,
-                          capacity: int = 56) -> None:
+                          ticks=FLEET_REF_TICKS, capacity: int = 56,
+                          flt: str = "info", rank: int = 0) -> None:
     """A fleet in f64 on the card against the CPU, within 1e-12 relative:
     by default at the JAX trio fixture's shapes (10 x 40 and two 12 x 44,
     k = 2, capacity 56), three ragged ticks (one tenant sits out the
-    second)."""
+    second); the tenants' fused fits are info fits, the fleet's engine
+    ``flt`` (``rank`` for lowrank).  A lowrank fleet's diffusion-index
+    forecast is held to ``DI_REF_TOL`` instead."""
     cpu = dt.TorchBackend(device="cpu", dtype=torch.float64, filter="info")
     tens = []
     for i, (T0, N_, k) in enumerate(shapes):
@@ -2869,7 +3024,8 @@ def fleet_reference_phase(seed: int, shapes=FLEET_REF_SHAPES,
         kernels.reset_launches()
         fl = dt.open_fleet([t[0] for t in tens], [t[1] for t in tens],
                            capacity=capacity, max_update_rows=3,
-                           max_iters=4, tol=0.0, max_classes=1, backend=b)
+                           max_iters=4, tol=0.0, max_classes=1, backend=b,
+                           filter=flt, rank=rank)
         fl.check_sync = dev == "cuda"
         used, got = [0] * len(tens), []
         for tick in ticks:
@@ -2881,7 +3037,8 @@ def fleet_reference_phase(seed: int, shapes=FLEET_REF_SHAPES,
         outs[dev] = got
         if dev == "cuda":
             k_max = max(sh[2] for sh in shapes)
-            idle = [n for n in routed(FLEET_LAUNCHES, k_max)
+            idle = [n for n in routed(FLEET_LAUNCHES if flt == "info"
+                                      else LR_FLEET_LAUNCHES, k_max)
                     if not kernels.LAUNCHES[n]]
             if idle:
                 raise AssertionError(f"fleet reference: the card run did "
@@ -2901,9 +3058,12 @@ def fleet_reference_phase(seed: int, shapes=FLEET_REF_SHAPES,
                 e = rel_err(ug.forecasts[key], uc.forecasts[key])
                 errs[f"forecast {key}"] = max(errs.get(f"forecast {key}",
                                                   0.0), e)
-    emit({"fleet_reference": "info", "shapes": shapes, "capacity": capacity,
-          "max_rel_err": errs, "tol": 1e-12})
-    bad = {n: e for n, e in errs.items() if not e <= 1e-12}
+    tol = {n: 1e-12 for n in errs}
+    if flt != "info":
+        tol["forecast di"] = DI_REF_TOL
+    emit({"fleet_reference": flt, "shapes": shapes, "capacity": capacity,
+          "max_rel_err": errs, "tol": tol})
+    bad = {n: e for n, e in errs.items() if not e <= tol[n]}
     if bad:
         raise AssertionError(f"fleet reference disagrees: {bad}")
 
@@ -5399,6 +5559,9 @@ def wide_contract_phase(seed: int) -> None:
 # wide twins run at the end of their range.
 BWIDE_KS = (8, 16, 25, 32)
 BWIDE_SWEEP = (17, 25, 32)
+# fit_many's restarts (and looped lone fits) and the rolling windows at
+# k = 25.
+BWIDE_RESTARTS, BWIDE_WINDOWS = 4, 6
 # The k = 25 fleet: four masked 480 x 10,000 tenants at k = 25 and two
 # 400 x 6,000 at k = 12, one bucket at (1,000, 10,000, 25) padded in T, N
 # and k (across 16); at odd drains tenants 1, 3 and 5; lanes 0 (k = 25) and
@@ -5454,20 +5617,14 @@ def bwide_kernel_phase(seed: int) -> dict:
     return summary
 
 
-def bwide_k_sweep(seed: int) -> None:
-    """The batched twins through their wrappers at k in BWIDE_SWEEP
-    (``batched_k_sweep``'s 120 x 400 shapes, the Hetero bucket's scan
-    with NaN and inf at its pad steps), the fleet path at k = 17 and 32
-    (``fleet_k_sweep``), and k = 33 must raise NotImplementedError in all
-    seven wrappers."""
-    batched_k_sweep(seed + 1370, BWIDE_SWEEP, junk=True)
-    fleet_k_sweep(seed + 1380, (17, 32))
-    k = kernels.WIDE_KMAX + 1
+def batched_wrapper_calls(k: int) -> dict:
+    """Each of the seven batched wrappers called at k on card tensors of
+    zeros (B = 2, T = 4, N = 8)."""
 
     def z(*shape):
         return torch.zeros(shape, device="cuda")
 
-    calls = {
+    return {
         "batched_info_scan": lambda: tb._batched_info_scan(
             z(2, 4, k), z(2, k, k), z(2, k, k), z(2, k, k), z(2, k),
             z(2, k, k)),
@@ -5488,15 +5645,23 @@ def bwide_k_sweep(seed: int) -> None:
             z(2, 4, 8), z(2, 4, 8), z(2, 4, k), z(2, 4, k, k),
             z(2, 4, k, k), 1e-6),
     }
-    raised = []
-    for name, fn in calls.items():
-        try:
-            fn()
-        except NotImplementedError:
-            raised.append(name)
-    emit({"bwide_k33": raised})
-    if len(raised) != len(calls):
-        raise AssertionError(f"k = 33: only {raised} raised")
+
+
+def bwide_k_sweep(seed: int) -> None:
+    """The batched twins through their wrappers at k in BWIDE_SWEEP
+    (``batched_k_sweep``'s 120 x 400 shapes, the Hetero bucket's scan
+    with NaN and inf at its pad steps), the fleet path at k = 17 and 32
+    (``fleet_k_sweep``); the wide tier ends at 32: at k = 33 all seven
+    wrappers route to their generic kernels (the bgen group holds those,
+    and the raise, now at 129)."""
+    batched_k_sweep(seed + 1370, BWIDE_SWEEP, junk=True)
+    fleet_k_sweep(seed + 1380, (17, 32))
+    k = kernels.WIDE_KMAX + 1
+    got = {name: kernels.route(name, k) for name in batched_wrapper_calls(k)}
+    emit({"bwide_k33": got})
+    if any(got[n] != kernels.GEN[n] for n in got):
+        raise AssertionError(f"k = 33 routes {got}, expected the generic "
+                             "kernels")
 
 
 # ---------------------------------------- the lone paths past k = 32 --
@@ -5981,6 +6146,292 @@ def kbig_contract_phase(seed: int) -> None:
         loglik_contract(f"k{k} masked info", Ynan, W, k, "info")
 
 
+# ------------------------------------- the batched twins past k = 32 --
+
+# The generic batched twins (K4b-gen pair, K1b-gen, K6b-gen, K2b-m-gen,
+# K1b-m-gen, K3b-m-gen) at k = 50, the JAX fleet's wide-k scenario, on the
+# headline panel simulated at k = 50 (seed + BGEN_SEED).
+BGEN_K = 50
+BGEN_SEED = 1600
+BGEN_B, BGEN_ITERS, BGEN_LONE = 4, 10, 2     # fit_many restarts
+BGEN_TICK = (2, 1000)        # (B, T_cap) of the kernels' tick shape
+BGEN_K100 = (2, T)           # (B, T_cap) of the k = 100 case
+BGEN_SWEEP = (33, 50, 64, 100, 128)
+BGEN_SWEEP_SHAPE = (80, 120)  # (T, N) of the sweep's panels
+BGEN_KGRID = (10, 33, 50)
+BGEN_WINDOWS = 6
+# The full-width info fleet: two masked 480 x 10,000 tenants at k = 50 and
+# one 400 x 6,000 at k = 40 in one bucket at (1,000, 10,000, 50), padded
+# in T, N and k past 32; 2 drains (the second: tenants 0 and 2), tenant 0
+# held to its lone session.
+BGEN_FLEET_SHAPES = ((SESSION_T0, N, BGEN_K),) * 2 + ((400, 6000, 40),)
+BGEN_DRAINS, BGEN_ODD, BGEN_HELD = 2, (0, 2), (0,)
+# The k = 40 reference fleet: a 100 x 60 tenant at k = 40 and a 90 x 50
+# tenant at k = 34, three ragged ticks, info and lowrank (rank 4).
+BGEN_REF_K = 40
+BGEN_REF_SHAPES = ((100, 60, 40), (90, 50, 34))
+BGEN_NEW = tuple(kernels.GEN[n] for n in (
+    "batched_info_scan", "batched_rts", "batched_quad",
+    "batched_solve_rows", "batched_obs_stats", "batched_quad_masked",
+    "batched_mstep_rows"))
+# bench/fleet.py's wide-k leg at its own definition (lines 186-239): the
+# mix "120,200,50x2" (N, T, k), DGP seeds 4000 + i, lowrank fits of
+# max(4, 30 // 6) iterations at rank 8, capacities T + n_w + r_max, one
+# warm tick, then 3 rounds of 2 rows at 5 iterations, tol = 0.
+WIDEK_MIX = ((120, 200, BGEN_K),) * 2
+WIDEK_RANK, WIDEK_ROUNDS, WIDEK_ROWS, WIDEK_ITERS = 8, 3, 2, 5
+WIDEK_FIT_ITERS = max(4, 30 // 6)
+
+
+def tick_buffers(seed: int, B_: int, T_cap: int, k: int) -> tuple:
+    """A fleet bucket's state (NumPy): lane i holds the first 480 - 20 i
+    rows of the masked headline panel simulated at k from seed + i (NaN
+    zeroed, the mask zero past them and at missing cells) in a T_cap
+    buffer, with that panel's true params.  Returns (Yb, Wb, per-lane
+    params, t_new)."""
+    Yb = np.zeros((B_, T_cap, N))
+    Wb = np.zeros((B_, T_cap, N))
+    ps, t_new = [], []
+    for i in range(B_):
+        t = SESSION_T0 - 20 * i
+        Ynan, W, _, p = panel(seed + i, T_=t, K_=k)
+        Yb[i, :t] = np.nan_to_num(Ynan)
+        Wb[i, :t] = W
+        ps.append(p)
+        t_new.append(t)
+    return Yb, Wb, ps, t_new
+
+
+def bgen_kernel_phase(seed: int) -> dict:
+    """The generic batched twins against their plain twins, f64 then f32
+    (the TOL rule), timed warm and cold beside the plain twin, the bound,
+    K4's latency floor at the same (T, k) for the K4b-gen pair and, for
+    K6b-gen, ``cholesky`` + ``cholesky_solve``: at the fit_many shape (B,
+    T, N, k) = (4, 500, 10,000, 50) the K4b-gen pair, K1b-gen and K6b-gen
+    (loadings and A) on the 4 restarts' inputs of the unmasked panel, and
+    K4b-gen forward again with a ragged t_mask (t_act 500/400/300/250, NaN
+    and inf in b at the pad steps); at the tick shape (2, 1,000, 10,000,
+    50) every kernel of an info tick (K2b-m-gen, K4b-gen over a per-step
+    C, K1b-m-gen, K4b-gen backward, K3b-m-gen, K6b-gen on A's rows) on
+    ``tick_buffers``; at k = 100 (B = 2, T = 500) the K4b-gen pair and
+    K3b-m-gen.  The K4b-gen pair and K3b-m-gen (over 50 ms a call) take
+    one cold-L2 call, the rest three.  Returns the f32 summary records by
+    kernel name."""
+    _, _, Yfull, _ = panel(seed + BGEN_SEED, K_=BGEN_K)
+    spec = dt.DFMBatchSpec.restarts(dt.DynamicFactorModel(n_factors=BGEN_K),
+                                    Yfull, BGEN_B)
+    Zb = np.ascontiguousarray(np.broadcast_to(
+        data.standardize(Yfull)[0], (BGEN_B, T, N)))
+    t_act = [int(T * f) for f in (1.0, 0.8, 0.6, 0.5)]
+    scan_gen = kernels.GEN["batched_info_scan"]
+    slow = (scan_gen, kernels.GEN["batched_rts"],
+            kernels.GEN["batched_mstep_rows"])
+    ticks = [((BGEN_TICK, BGEN_K, "tick k50",
+               (kernels.GEN["batched_obs_stats"], scan_gen,
+                kernels.GEN["batched_quad_masked"],
+                kernels.GEN["batched_mstep_rows"])),
+              tick_buffers(seed + BGEN_SEED + 10 + BGEN_K, *BGEN_TICK,
+                           BGEN_K)),
+             ((BGEN_K100, 100, "tick k100", slow),
+              tick_buffers(seed + BGEN_SEED + 110, *BGEN_K100, 100))]
+    summary, refs = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        cases = []
+        Yt = torch.tensor(Zb, dtype=dtype, device="cuda")
+        pt = tb.stack_params(spec.inits, dtype=dtype, device="cuda")
+        het = tb.make_hetero(t_act, [N] * BGEN_B, T, N, dtype=dtype, tol=0.0,
+                             iter_cap=BGEN_ITERS, device="cuda")
+        with highest_precision():
+            cases += [(c, BGEN_B, T, BGEN_K)
+                      for c in batched_cases(Yt, pt, "restarts k50")]
+            cases += [(c, BGEN_B, T, BGEN_K)
+                      for c in batched_cases(Yt, pt, "restarts k50 ragged",
+                                             het, junk=True)
+                      if c["name"] == scan_gen]
+            for ((B_, T_cap), k, label, keep), (Yn, Wn, ps, tn) in ticks:
+                Yb, Wb = (torch.tensor(x, dtype=dtype, device="cuda")
+                          for x in (Yn, Wn))
+                pb = tb.stack_params(ps, dtype=dtype, device="cuda")
+                t_new = torch.tensor(tn, dtype=torch.int32, device="cuda")
+                cases += [(c, B_, T_cap, k)
+                          for c in fleet_cases(Yb, Wb, pb, t_new, label)
+                          if c["name"] in keep]
+            for c, B_, T_, k in cases:
+                if c["name"] in slow:
+                    c["cold_reps"] = 1
+                rec = kernel_record(c, dtype, refs)
+                rec.update(B=B_, T=T_, k=k)
+                emit(rec)
+                if dtype == torch.float32 and c["variant"] in (
+                        "restarts k50", "restarts k50 Lam rows",
+                        "tick k50") and c["name"] not in summary:
+                    summary[c["name"]] = rec
+        del Yt, pt, het, cases
+        torch.cuda.empty_cache()
+    return summary
+
+
+def bgen_sweep_inputs(seed: int, k: int) -> list:
+    """(label, stacked panel or buffers, per-lane NumPy params, Hetero
+    (t_act, n_act) or the masked bucket's (mask, t_new)) of the k-sweep
+    on a BGEN_SWEEP_SHAPE panel simulated at k: three restarts (the true
+    params, the loadings scaled 0.9, R scaled 1.2), a Hetero bucket (lane
+    1 ragged in T, lane 2 in N) and a masked bucket (live lengths 80, 64,
+    50; lane 0's step 7 fully masked; series 3 never observed)."""
+    T_, N_ = BGEN_SWEEP_SHAPE
+    Ynan, W, Yfull, p = panel(seed, T_=T_, N_=N_, K_=k)
+    Z = data.standardize(Yfull)[0]
+    ps = [p, dataclasses.replace(p, Lam=0.9 * p.Lam),
+          dataclasses.replace(p, R=1.2 * p.R)]
+    t_act, n_act = (T_, 60, T_), (N_, N_, 100)
+    Yh, ph = hetero_lanes(Z, p, t_act, n_act)
+    t_new = (T_, 64, 50)
+    Wb = np.zeros((3, T_, N_))
+    for i, t in enumerate(t_new):
+        Wb[i, :t] = W[:t]
+    Wb[0, 7] = 0.0
+    Wb[:, :, 3] = 0.0
+    Yb = np.where(Wb > 0, np.nan_to_num(Ynan)[None], 0.0)
+    return [("restarts", np.broadcast_to(Z, (3, T_, N_)), ps, None),
+            ("hetero", Yh, ph, (t_act, n_act)),
+            ("masked", Yb, ps, (Wb, t_new))]
+
+
+def bgen_k_sweep(seed: int) -> None:
+    """The generic batched twins through their wrappers at k in BGEN_SWEEP
+    on ``bgen_sweep_inputs`` (the Hetero bucket's scan with NaN and inf at
+    its pad steps; the masked bucket through every kernel of an info
+    tick), f64 and f32 (error checks only); then k = 129 must raise
+    NotImplementedError in all seven wrappers before any launch."""
+    T_, N_ = BGEN_SWEEP_SHAPE
+    for k in BGEN_SWEEP:
+        refs, worst = {}, {}
+        inputs = bgen_sweep_inputs(seed + BGEN_SEED + 200 + k, k)
+        for dtype in (torch.float64, torch.float32):
+            for label, Yn, ps, extra in inputs:
+                Yt = torch.tensor(np.ascontiguousarray(Yn), dtype=dtype,
+                                  device="cuda")
+                pt = tb.stack_params(ps, dtype=dtype, device="cuda")
+                with highest_precision():
+                    if label == "masked":
+                        Wt = torch.tensor(extra[0], dtype=dtype,
+                                          device="cuda")
+                        tn = torch.tensor(extra[1], dtype=torch.int32,
+                                          device="cuda")
+                        cases = fleet_cases(Yt, Wt, pt, tn, label)
+                    else:
+                        het = None if extra is None else tb.make_hetero(
+                            *extra, T_, N_, dtype=dtype, tol=0.0,
+                            iter_cap=5, device="cuda")
+                        cases = batched_cases(Yt, pt, label, het, junk=True)
+                    for c in cases:
+                        key = (c["name"], c["variant"])
+                        _, rel, _, ref, _ = compare(c, dtype, refs.get(key))
+                        refs[key] = ref
+                        name = f"{c['name']} {str(dtype)[6:]}"
+                        worst[name] = max(worst.get(name, 0.0), rel)
+        missing = [n for n in BGEN_NEW
+                   if not any(w.startswith(n + " ") for w in worst)]
+        emit({"bgen_k_sweep": k, "shape": BGEN_SWEEP_SHAPE,
+              "max_rel_err": worst})
+        if missing:
+            raise AssertionError(f"bgen k = {k}: {missing} not compared")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    raised = []
+    calls = batched_wrapper_calls(kernels.GEN_KMAX + 1)
+    for name, fn in calls.items():
+        try:
+            fn()
+        except NotImplementedError:
+            raised.append(name)
+    launched = sum(kernels.LAUNCHES.values())
+    emit({"bgen_k129_raised": raised, "launches": launched})
+    if len(raised) != len(calls) or launched:
+        raise AssertionError(f"k = 129: only {raised} raised, {launched} "
+                             "launches")
+
+
+def widek_leg_phase(seed: int) -> None:
+    """bench/fleet.py's wide-k leg at its own definition (WIDEK_*): the
+    same tenants, schedule and container through an info fleet and a
+    lowrank (rank 8) fleet, one warm tick, then the timed rounds: each
+    engine's wall, their ratio, and the launches of the timed rounds.
+    Printed, not gated (beyond finite outputs)."""
+    r_max, rounds = WIDEK_ROWS, WIDEK_ROUNDS
+    n_w = (rounds + 1) * r_max
+    blr = dt.TorchBackend(filter="lowrank", rank=WIDEK_RANK)
+    ress, Ys, streams = [], [], []
+    for i, (N_, T_, k) in enumerate(WIDEK_MIX):
+        rng = np.random.default_rng(4000 + i)
+        p_true = dgp.dfm_params(N_, k, rng)
+        Y_all, _ = dgp.simulate(p_true, T_ + n_w, rng)
+        ress.append(dt.fit(dt.DynamicFactorModel(n_factors=k), Y_all[:T_],
+                           max_iters=WIDEK_FIT_ITERS, backend=blr))
+        Ys.append(Y_all[:T_])
+        streams.append(Y_all[T_:])
+    caps = [y.shape[0] + n_w + r_max for y in Ys]
+    N_of = {f"t{i}": y.shape[1] for i, y in enumerate(Ys)}
+    rec = {"widek_leg": "120,200,50x2", "rank": WIDEK_RANK,
+           "rounds": rounds, "rows": r_max, "iters": WIDEK_ITERS,
+           "capacity": caps}
+    for eng, rk in (("info", 0), ("lowrank", WIDEK_RANK)):
+        fl = dt.open_fleet(ress, Ys, capacity=caps, max_update_rows=r_max,
+                           max_iters=WIDEK_ITERS, tol=0.0, backend=blr,
+                           max_classes=1, filter=eng, rank=rk)
+        cur = [0] * len(Ys)
+        for i, t in enumerate(fl.tenants):            # the warm tick
+            fl.submit(t, streams[i][:r_max])
+            cur[i] = r_max
+        fl.drain()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            for i, t in enumerate(fl.tenants):
+                fl.submit(t, streams[i][cur[i]:cur[i] + r_max])
+                cur[i] += r_max
+            check_fleet_out(f"wide-k {eng}", fl.drain(), N_of)
+        torch.cuda.synchronize()
+        rec[f"{eng}_wall_s"] = time.perf_counter() - t0
+        rec[f"{eng}_launches"] = {n: c for n, c in kernels.LAUNCHES.items()
+                                  if c}
+        rec[f"{eng}_dims"] = fl._buckets[0].dims
+        fl.close()
+    rec["lowrank_over_info_speedup"] = (rec["info_wall_s"]
+                                        / rec["lowrank_wall_s"])
+    emit(rec)
+
+
+def bgen_fleet_phase(seed: int) -> dict:
+    """The wide-k leg, then the full-width info fleet (BGEN_FLEET_SHAPES:
+    ``fleet_phase`` with the sync check, one read and exact launches a
+    tick, lane 0 held to its lone k = 50 session, the k = 40 tenant's
+    padded factors exactly 0; the kernel phase holds every kernel of the
+    tick against its twin at the tick shape, so the bucket's buffers are
+    not compared again).  Returns the fleet's launch counts under "fleet
+    k50"."""
+    widek_leg_phase(seed)
+    tenants = fleet_tenants(seed + BGEN_SEED + 40, BGEN_FLEET_SHAPES,
+                            BGEN_DRAINS * FLEET_ROWS)
+    counts, _ = fleet_phase(seed + BGEN_SEED + 50, tenants, BGEN_K,
+                            BGEN_DRAINS, BGEN_ODD, BGEN_HELD, "info k50",
+                            lone_all=False, kernel_check=False,
+                            inert=((2, BGEN_FLEET_SHAPES[2][2]),))
+    return {"fleet k50": counts}
+
+
+def bgen_reference_phase(seed: int) -> None:
+    """Card f64 against CPU f64 within 1e-12 at k = 40: ``fit_many`` of 3
+    panels and a Hetero ``run_batched_em`` (120 x 80), and fleets of
+    BGEN_REF_SHAPES over 3 ticks, info and lowrank (rank 4)."""
+    batched_reference_phase(seed + BGEN_SEED + 60, k=BGEN_REF_K, tol=1e-12)
+    for flt, rank in (("info", 0), ("lowrank", 4)):
+        fleet_reference_phase(seed + BGEN_SEED + 70, BGEN_REF_SHAPES,
+                              BWIDE_REF_TICKS, capacity=120, flt=flt,
+                              rank=rank)
+
+
 def ptxas_summary(source: str) -> dict:
     """Build seconds and, over the k = 10 instantiations of ``source``
     (every function for a source without a k template), the largest
@@ -6014,7 +6465,7 @@ def ptxas_summary(source: str) -> dict:
 
 # Phase groups of ``--phases``, in run order.
 PHASES = ("headline", "session", "batched", "fleet", "lowrank", "tvl", "mf",
-          "sv", "pit", "dense", "wide", "bwide", "kbig")
+          "sv", "pit", "dense", "wide", "bwide", "kbig", "bgen")
 
 
 def main() -> int:
@@ -6045,109 +6496,133 @@ def main() -> int:
         if group not in want:
             continue
         t0 = time.perf_counter()
+
+        def timed(fn, *a, **kw):
+            """``fn(*a, **kw)``, its seconds printed under the group."""
+            t1 = time.perf_counter()
+            out = fn(*a, **kw)
+            emit({"step_s": {"group": group, "step": fn.__name__,
+                             "s": time.perf_counter() - t1}})
+            return out
+
         if group == "headline":
-            tau_fit = fit_tau(seed)
+            tau_fit = timed(fit_tau, seed)
             emit({"tau_fit": tau_fit})
-            summary.update(kernel_phase(seed, tau_fit))
-            k_sweep(seed)
-            launches.update(fit_phase(seed))
-            reference_phase(seed)
-            contract_phase(seed)
+            summary.update(timed(kernel_phase, seed, tau_fit))
+            timed(k_sweep, seed)
+            launches.update(timed(fit_phase, seed))
+            timed(reference_phase, seed)
+            timed(contract_phase, seed)
         elif group == "session":
-            summary["ring_append"] = ring_phase(seed)
-            launches.update(session_phase(seed))
-            session_reference_phase(seed)
+            summary["ring_append"] = timed(ring_phase, seed)
+            launches.update(timed(session_phase, seed))
+            timed(session_reference_phase, seed)
         elif group == "batched":
-            summary.update(batched_kernel_phase(seed))
-            batched_k_sweep(seed)
-            launches.update(fit_many_phase(seed))
-            kgrid_phase(seed)
-            rolling_phase(seed)
-            batched_reference_phase(seed)
-            batched_contract_phase(seed)
+            summary.update(timed(batched_kernel_phase, seed))
+            timed(batched_k_sweep, seed)
+            launches.update(timed(fit_many_phase, seed))
+            timed(kgrid_phase, seed)
+            timed(rolling_phase, seed)
+            timed(batched_reference_phase, seed)
+            timed(batched_contract_phase, seed)
         elif group == "fleet":
-            tenants = fleet_tenants(seed + 600)
-            launches["fleet"], recs = fleet_phase(seed, tenants)
+            tenants = timed(fleet_tenants, seed + 600)
+            launches["fleet"], recs = timed(fleet_phase, seed, tenants)
             summary.update({n: recs[n] for n in FLEET_NEW})
-            ring_fleet_phase(seed, tenants)
-            pit_fleet_phase(seed, tenants)
+            timed(ring_fleet_phase, seed, tenants)
+            timed(pit_fleet_phase, seed, tenants)
             del tenants
-            fleet_k_sweep(seed)
-            fleet_reference_phase(seed)
+            timed(fleet_k_sweep, seed)
+            timed(fleet_reference_phase, seed)
         elif group == "lowrank":
-            summary.update(lowrank_kernel_phase(seed))
-            lowrank_k_sweep(seed)
-            lr_counts, lr_fused = lowrank_fit_phase(seed)
+            summary.update(timed(lowrank_kernel_phase, seed))
+            timed(lowrank_k_sweep, seed)
+            lr_counts, lr_fused = timed(lowrank_fit_phase, seed)
             launches.update(lr_counts)
-            lowrank_reference_phase(seed)
-            lowrank_contract_phase(seed)
-            lowrank_session_phase(seed, lr_fused)
-            lowrank_fleet_phase(seed)
+            timed(lowrank_reference_phase, seed)
+            timed(lowrank_contract_phase, seed)
+            timed(lowrank_session_phase, seed, lr_fused)
+            timed(lowrank_fleet_phase, seed)
         elif group == "tvl":
-            summary.update(tvl_kernel_phase(seed))
-            tvl_k_sweep(seed)
-            launches.update(tvl_fit_phase(seed))
-            tvl_reference_phase(seed)
-            tvl_contract_phase(seed)
+            summary.update(timed(tvl_kernel_phase, seed))
+            timed(tvl_k_sweep, seed)
+            launches.update(timed(tvl_fit_phase, seed))
+            timed(tvl_reference_phase, seed)
+            timed(tvl_contract_phase, seed)
         elif group == "mf":
-            summary.update(mf_kernel_phase(seed))
-            mf_k_sweep(seed)
-            launches.update(mf_fit_phase(seed))
-            mf_reference_phase(seed)
-            mf_contract_phase(seed)
+            summary.update(timed(mf_kernel_phase, seed))
+            timed(mf_k_sweep, seed)
+            launches.update(timed(mf_fit_phase, seed))
+            timed(mf_reference_phase, seed)
+            timed(mf_contract_phase, seed)
         elif group == "sv":
-            sv_counts, sv_fit = sv_fit_phase(seed)
+            sv_counts, sv_fit = timed(sv_fit_phase, seed)
             launches.update(sv_counts)
-            summary.update(sv_kernel_phase(seed, sv_fit))
-            sv_k_sweep(seed)
-            sv_reference_phase(seed)
-            sv_contract_phase(seed, sv_fit)
+            summary.update(timed(sv_kernel_phase, seed, sv_fit))
+            timed(sv_k_sweep, seed)
+            timed(sv_reference_phase, seed)
+            timed(sv_contract_phase, seed, sv_fit)
         elif group == "pit":
-            summary.update(pit_kernel_phase(seed))
-            pit_k_sweep(seed)
-            pit_longt_phase(seed)
+            summary.update(timed(pit_kernel_phase, seed))
+            timed(pit_k_sweep, seed)
+            timed(pit_longt_phase, seed)
         elif group == "dense":
-            summary.update(dense_kernel_phase(seed))
-            dense_k_sweep(seed)
-            launches.update(dense_fit_phase(seed))
-            dense_reference_phase(seed)
+            summary.update(timed(dense_kernel_phase, seed))
+            timed(dense_k_sweep, seed)
+            launches.update(timed(dense_fit_phase, seed))
+            timed(dense_reference_phase, seed)
         elif group == "wide":
-            tau_wide = fit_tau(seed, WIDE_K, WIDE_SEED)
+            tau_wide = timed(fit_tau, seed, WIDE_K, WIDE_SEED)
             emit({"tau_fit": tau_wide, "k": WIDE_K})
-            summary.update(wide_kernel_phase(seed, tau_wide))
-            wide_k_sweep(seed)
-            launches.update(wide_fit_phase(seed))
-            wide_reference_phase(seed)
-            wide_contract_phase(seed)
+            summary.update(timed(wide_kernel_phase, seed, tau_wide))
+            timed(wide_k_sweep, seed)
+            launches.update(timed(wide_fit_phase, seed))
+            timed(wide_reference_phase, seed)
+            timed(wide_contract_phase, seed)
         elif group == "bwide":
-            summary.update(bwide_kernel_phase(seed))
-            bwide_k_sweep(seed)
-            launches.update(fit_many_phase(seed, WIDE_K, WIDE_SEED,
-                                           "fit_many k25", lone_ss=False))
-            kgrid_phase(seed, BWIDE_KS, WIDE_K, WIDE_SEED)
-            rolling_phase(seed, WIDE_K, WIDE_SEED)
-            tenants = fleet_tenants(seed + 1340, BWIDE_FLEET_SHAPES,
-                                    BWIDE_DRAINS * FLEET_ROWS)
-            launches["fleet k25"], recs = fleet_phase(
-                seed + 1040, tenants, WIDE_K, BWIDE_DRAINS, BWIDE_ODD,
-                BWIDE_HELD, "info k25")
+            summary.update(timed(bwide_kernel_phase, seed))
+            timed(bwide_k_sweep, seed)
+            launches.update(timed(
+                fit_many_phase, seed, WIDE_K, WIDE_SEED, "fit_many k25",
+                lone_ss=False, B_=BWIDE_RESTARTS, n_lone=BWIDE_RESTARTS))
+            timed(kgrid_phase, seed, BWIDE_KS, WIDE_K, WIDE_SEED)
+            timed(rolling_phase, seed, WIDE_K, WIDE_SEED, BWIDE_WINDOWS)
+            tenants = timed(fleet_tenants, seed + 1340, BWIDE_FLEET_SHAPES,
+                            BWIDE_DRAINS * FLEET_ROWS)
+            launches["fleet k25"], recs = timed(
+                fleet_phase, seed + 1040, tenants, WIDE_K, BWIDE_DRAINS,
+                BWIDE_ODD, BWIDE_HELD, "info k25", lone_all=False)
             del tenants
             summary.update({n: recs[n] for n in BWIDE_FLEET_NEW})
-            lowrank_fleet_phase(seed + 540, WIDE_K, BWIDE_LR_TENANTS,
-                                BWIDE_LR_DRAINS)
-            batched_reference_phase(seed + 1390, k=20, tol=1e-12)
-            fleet_reference_phase(seed + 1400, BWIDE_REF_SHAPES,
-                                  BWIDE_REF_TICKS, capacity=120)
-            batched_contract_phase(seed, WIDE_K, WIDE_SEED)
+            timed(lowrank_fleet_phase, seed + 540, WIDE_K,
+                  BWIDE_LR_TENANTS, BWIDE_LR_DRAINS)
+            timed(batched_reference_phase, seed + 1390, k=20, tol=1e-12)
+            timed(fleet_reference_phase, seed + 1400, BWIDE_REF_SHAPES,
+                  BWIDE_REF_TICKS, capacity=120)
+            timed(batched_contract_phase, seed, WIDE_K, WIDE_SEED)
         elif group == "kbig":
-            summary.update(kbig_kernel_phase(seed))
-            kbig_k_sweep(seed)
-            launches.update(kbig_fit_phase(seed))
-            kscale_phase(seed)
-            launches.update(kbig_session_phase(seed))
-            launches.update(kbig_mf_phase(seed))
-            kbig_reference_phase(seed)
-            kbig_contract_phase(seed)
+            summary.update(timed(kbig_kernel_phase, seed))
+            timed(kbig_k_sweep, seed)
+            launches.update(timed(kbig_fit_phase, seed))
+            timed(kscale_phase, seed)
+            launches.update(timed(kbig_session_phase, seed))
+            launches.update(timed(kbig_mf_phase, seed))
+            timed(kbig_reference_phase, seed)
+            timed(kbig_contract_phase, seed)
+        elif group == "bgen":
+            summary.update(timed(bgen_kernel_phase, seed))
+            timed(bgen_k_sweep, seed)
+            launches.update(timed(
+                fit_many_phase, seed, BGEN_K, BGEN_SEED, "fit_many k50",
+                lone_ss=False, B_=BGEN_B, iters=BGEN_ITERS,
+                n_lone=BGEN_LONE))
+            timed(kgrid_phase, seed, BGEN_KGRID, BGEN_K, BGEN_SEED,
+                  BGEN_ITERS)
+            timed(rolling_phase, seed, BGEN_K, BGEN_SEED, BGEN_WINDOWS,
+                  dt.TorchBackend(filter="info"))
+            launches.update(timed(bgen_fleet_phase, seed))
+            timed(bgen_reference_phase, seed)
+            timed(batched_contract_phase, seed, BGEN_K, BGEN_SEED, BGEN_B)
         group_s[group] = time.perf_counter() - t0
         emit({"group_s": {group: group_s[group]},
               "script_s": time.perf_counter() - t_start})

@@ -97,15 +97,31 @@ def var_tail(F: np.ndarray, k: int, static: bool = False):
     return A, Q, mu0, P0
 
 
+_KRON_KMAX = 32     # the widest k whose P0 is the reference's Kronecker solve
+
+
 def _solve_discrete_lyapunov_or_eye(A: np.ndarray, Q: np.ndarray) -> np.ndarray:
-    """Stationary state covariance P = A P A' + Q, or I if A is not stable."""
+    """Stationary state covariance P = A P A' + Q, or I if A is not stable.
+
+    To k = 32 the reference's k^2 x k^2 Kronecker solve vec(P) = (I - A
+    kron A)^{-1} vec(Q), bit for bit; past 32, where that solve takes O(k^6)
+    (a 2 GB matrix and ~30 s at k = 128), Smith's doubling iteration sums P
+    = sum_j A^j Q A'^j in log2 steps of O(k^3) (P <- P + A_j P A_j', A_j <-
+    A_j^2).  The two agree to rounding."""
     k = A.shape[0]
     eig = np.max(np.abs(np.linalg.eigvals(A))) if k else 0.0
     if eig >= 0.999:
         return np.eye(k)
-    # vec(P) = (I - A kron A)^{-1} vec(Q)
-    M = np.eye(k * k) - np.kron(A, A)
-    P = np.linalg.solve(M, Q.reshape(-1)).reshape(k, k)
+    if k <= _KRON_KMAX:
+        M = np.eye(k * k) - np.kron(A, A)
+        return _sym(np.linalg.solve(M, Q.reshape(-1)).reshape(k, k))
+    P, Aj = np.array(Q, np.float64), np.array(A, np.float64)
+    for _ in range(64):
+        step = Aj @ P @ Aj.T
+        P = P + step
+        if np.abs(step).max() <= np.finfo(np.float64).eps * np.abs(P).max():
+            break
+        Aj = Aj @ Aj
     return _sym(P)
 
 

@@ -31,7 +31,25 @@
 // one-warp Cholesky of warp_linalg.cuh (a column a step, a lane a row),
 // leading dimension 33.  Bound: bytes, V read and X written once (6.4 MB
 // each in f32 at B = 8, N = 10,000, k = 25) against ~2 k^2 flops a row.
-#include "warp_linalg.cuh"
+//
+// K6b-gen (batched_solve_rows_gen): the same solve at 32 < k <= 128, the
+// batched M-steps' kernel there (fit_many, the k-grid, the rolling windows
+// and the fleet's A rows past k = 32).  A row no longer fits in registers
+// and a serial factorization would be ~170,000 dependent multiply-adds at
+// k = 100, so one C call launches two kernels (the wrapper's launch counts
+// both: kernels.DEVICE_LAUNCHES).  First, one block of
+// GEN_THREADS a lane factors L_b = chol(sym(S_b) + jitter I) once, with
+// cta_linalg.cuh's tiled sym and right-looking blocked Cholesky, into a
+// (B, k, k) workspace the wrapper allocates (in L2).  Then a grid over
+// (tiles of kRowTile rows, lanes) solves each tile in place in X: the tile
+// is copied from V, then X L' = V and X L = Z by cta_trsm_right, 32-column
+// blocks whose updates from the columns already solved are staged products
+// over column panels of L, and whose 32 x 32 diagonal block of L sits in
+// shared memory while a thread a row substitutes against it.  Bound: bytes,
+// V read and X written once (16 MB at B = 4, N = 10,000, k = 50 in f32,
+// ~0.005 ms) against ~2 k^2 flops a row (2e8 flops, ~0.003 ms at 67
+// TFLOP/s).
+#include "cta_linalg.cuh"
 
 constexpr int kRowThreads = 128;
 
@@ -156,6 +174,66 @@ static int launch(const T* S, const T* V, T* X, int B, int n, int k,
   return (int)cudaGetLastError();
 }
 
+constexpr int kRowTile = DFM_GEN_KMAX;   // rows a block of the solve
+
+// Shared scratch of the tile solve: cta_trsm_right's products (kRowTile x
+// 32 outputs over 32-deep slices, two stages) or its diagonal block and
+// rows.
+constexpr int solve_scratch() {
+  return gen_max(2 * GEN_TB * (kRowTile + 1 + GEN_TB + 1),
+                 (GEN_TB + kRowTile) * WIDE_LD);
+}
+
+// L_b = chol(sym(S_b) + jitter I) (psd_cholesky), a block a lane.
+template <typename T>
+__global__ void __launch_bounds__(GEN_THREADS)
+bsolve_factor_gen_kernel(const T* S, T* L, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const size_t pb = blockIdx.x, kk = (size_t)k * k;
+  cta_sym<T>(L + pb * kk, S + pb * kk, k, true, sm);
+  cta_potrf<T>(L + pb * kk, k, sm);
+}
+
+// X[b, r0 : r0 + m] = V[b, r0 : r0 + m] (L_b L_b')^{-1}: blockIdx.x the
+// tile of rows, blockIdx.y the lane.
+template <typename T>
+__global__ void __launch_bounds__(GEN_THREADS)
+bsolve_rows_gen_kernel(const T* V, T* X, const T* L, int n, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const size_t pb = blockIdx.y;
+  const int r0 = blockIdx.x * kRowTile, m = min(kRowTile, n - r0);
+  const T* Vt = V + (pb * n + r0) * k;
+  T* Xt = X + (pb * n + r0) * k;
+  const T* Lb = L + pb * k * k;
+  cta_batched(
+      m * k, [&](int e) { return Vt[e]; }, [&](int e, T v) { Xt[e] = v; });
+  cta_trsm_right<T>(Xt, m, Lb, k, true, sm);       // X L' = V
+  cta_trsm_right<T>(Xt, m, Lb, k, false, sm);      // X L = Z
+}
+
+// Both kernels on the stream, 1 <= k <= DFM_GEN_KMAX.
+template <typename T>
+static int launch_gen(const T* S, const T* V, T* X, T* L, int B, int n,
+                      int k, cudaStream_t stream) {
+  if (k < 1 || k > DFM_GEN_KMAX) return (int)cudaErrorInvalidValue;
+  if (B <= 0) return (int)cudaGetLastError();
+  const size_t fbytes = sizeof(T) * (size_t)gen_scratch(k);
+  cudaError_t e = dfm_smem_optin(bsolve_factor_gen_kernel<T>, fbytes);
+  if (e != cudaSuccess) return (int)e;
+  bsolve_factor_gen_kernel<T><<<B, GEN_THREADS, fbytes, stream>>>(S, L, k);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || n <= 0) return (int)e;
+  const size_t sbytes = sizeof(T) * (size_t)solve_scratch();
+  e = dfm_smem_optin(bsolve_rows_gen_kernel<T>, sbytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((n + kRowTile - 1) / kRowTile, B);
+  bsolve_rows_gen_kernel<T><<<grid, GEN_THREADS, sbytes, stream>>>(V, X, L,
+                                                                  n, k);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 #define DFM_BSOLVE_ENTRIES(SFX, T)                                             \
   int batched_solve_rows_##SFX(const T* S, const T* V, T* X, int B, int n,   \
@@ -165,6 +243,10 @@ extern "C" {
   int batched_solve_rows_wide_##SFX(const T* S, const T* V, T* X, int B,     \
                                     int n, int k, void* stream) {            \
     return launch_wide<T>(S, V, X, B, n, k, (cudaStream_t)stream);           \
+  }                                                                          \
+  int batched_solve_rows_gen_##SFX(const T* S, const T* V, T* X, T* work,    \
+                                   int B, int n, int k, void* stream) {      \
+    return launch_gen<T>(S, V, X, work, B, n, k, (cudaStream_t)stream);      \
   }
 #if DFM_WANT_F32
 DFM_BSOLVE_ENTRIES(f32, float)

@@ -27,7 +27,8 @@
 // warp still owns a column per lane.
 #define DFM_WIDE_KMAX 32
 // Largest state width of the generic kernels (the lone K2, the K4 pair, K1
-// and K3 at 32 < k <= 128): a runtime k, the k x k algebra tiled in 32s.
+// and K3 and their batched twins K2b-m, K4b, K1b(-m), K3b-m and K6b at 32
+// < k <= 128): a runtime k, the k x k algebra tiled in 32s.
 #define DFM_GEN_KMAX 128
 
 // Scalar maths with one spelling for float and double.

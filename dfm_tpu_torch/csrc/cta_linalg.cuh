@@ -1,5 +1,6 @@
 // CTA-wide k x k linear algebra in global memory, for the generic K4 pair
-// (info_scan.cu, 32 < k <= DFM_GEN_KMAX = 128).
+// and its batched twin (info_scan.cu) and K6b-gen (bsolve_rows.cu), 32 < k
+// <= DFM_GEN_KMAX = 128.
 //
 // At k = 100 one matrix is 40 KB in f32 and 80 KB in f64, so the ten
 // matrices a step of the one-warp kernels keeps in shared memory no longer

@@ -79,6 +79,17 @@
 // Bound: operations, 2 T N (k(k+1)/2 + k) a pass, ~1e11 flops at T = 500,
 // N = 10,000, k = 100 (~1.5 ms at 67 TFLOP/s in f32), against 40 MB of Y
 // and the mask; each block re-reads the moments from L2.
+//
+// K3b-m-gen (batched_mstep_rows_gen): K3-gen with blockIdx.y a lane (grid
+// (ceil(N / S), B), every tensor of a lane batch-major at a lane stride;
+// the lone entry launches B = 1) and no ridge, the fleet M-step's rows at
+// 32 < k <= 128: it replaces the observation rows of
+// dfm_tpu/estim/batched.py:batched_m_step_masked (lines 701-713) at those
+// widths.  The (B, N, k, k) S_ff is never formed.  A never-observed series
+// (an N-pad series) gets S_ff = I and S_yf = 0: exact-zero loadings and R
+// at the floor.  Bound: operations, 2 B T N (k(k+1)/2 + k) a pass, ~1.1e11
+// flops over both passes at B = 2, T = 1,000, N = 10,000, k = 50 (~1.6 ms
+// at 67 TFLOP/s in f32), against 160 MB of Y and W.
 #include "common.cuh"
 
 constexpr int kThreads = 64;
@@ -459,6 +470,15 @@ mstep_rows_gen_kernel(const T* __restrict__ Y, const T* __restrict__ mask,
   T* sS = reinterpret_cast<T*>(smem_raw);       // [S][ne]: sums, factor, Lam
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int i0 = blockIdx.x * S;
+  // This block's problem lane (B = 1 for the lone K3-gen).
+  const size_t pb = blockIdx.y, tn = (size_t)T_ * N;
+  Y += pb * tn;
+  mask += pb * tn;
+  Ef += pb * (size_t)T_ * k;
+  EffT += pb * (size_t)T_ * kk;
+  Psm += pb * (size_t)T_ * kk;
+  Lam += pb * (size_t)N * k;
+  R += pb * N;
   // Entry e of the packed sums: (a, c), c <= a, at a (a + 1) / 2 + c for
   // e < nc, S_yf[e - nc] after; off = a k + c, -1 - j for S_yf[j], and 0
   // past ne, where bit q of ``own`` is clear.  The loops below load every
@@ -639,15 +659,17 @@ mstep_rows_gen_kernel(const T* __restrict__ Y, const T* __restrict__ mask,
 
 template <typename T>
 static int launch_gen(const T* Y, const T* mask, const T* Ef, const T* EffT,
-                      const T* Psm, T* Lam, T* R, int T_, int N, int k,
-                      double r_floor, double lam_ridge, cudaStream_t stream) {
+                      const T* Psm, T* Lam, T* R, int B, int T_, int N,
+                      int k, double r_floor, double lam_ridge,
+                      cudaStream_t stream) {
   if (k < 1 || k > DFM_GEN_KMAX) return (int)cudaErrorInvalidValue;
-  if (N <= 0) return (int)cudaGetLastError();
+  if (N <= 0 || B <= 0) return (int)cudaGetLastError();
   const size_t bytes = gen_smem<T>(k);
   const cudaError_t e = dfm_smem_optin(mstep_rows_gen_kernel<T>, bytes);
   if (e != cudaSuccess) return (int)e;
   const int S = gen_series<T>();
-  mstep_rows_gen_kernel<T><<<(N + S - 1) / S, kGenThreads, bytes, stream>>>(
+  const dim3 grid((N + S - 1) / S, B);
+  mstep_rows_gen_kernel<T><<<grid, kGenThreads, bytes, stream>>>(
       Y, mask, Ef, EffT, Psm, Lam, R, T_, N, k, (T)r_floor, (T)lam_ridge);
   return (int)cudaGetLastError();
 }
@@ -698,8 +720,15 @@ extern "C" {
                            const T* EffT, const T* Psm, T* Lam, T* R,        \
                            int T_, int N, int k, double r_floor,             \
                            double lam_ridge, void* stream) {                 \
-    return launch_gen<T>(Y, mask, Ef, EffT, Psm, Lam, R, T_, N, k, r_floor,  \
-                         lam_ridge, (cudaStream_t)stream);                   \
+    return launch_gen<T>(Y, mask, Ef, EffT, Psm, Lam, R, 1, T_, N, k,        \
+                         r_floor, lam_ridge, (cudaStream_t)stream);          \
+  }                                                                          \
+  int batched_mstep_rows_gen_##SFX(const T* Y, const T* mask, const T* Ef,   \
+                                   const T* EffT, const T* Psm, T* Lam,      \
+                                   T* R, int B, int T_, int N, int k,        \
+                                   double r_floor, void* stream) {           \
+    return launch_gen<T>(Y, mask, Ef, EffT, Psm, Lam, R, B, T_, N, k,        \
+                         r_floor, 0.0, (cudaStream_t)stream);                \
   }
 #if DFM_WANT_F32
 DFM_MSTEP_ENTRIES(f32, float)

@@ -76,6 +76,17 @@
 // ms at 67 TFLOP/s in f32), against 40 MB of Y and the mask; each block
 // re-reads its two strips of Lam from L2.
 //
+// K2b-m-gen (batched_obs_stats_gen): K2-gen with blockIdx.z a lane (grid
+// (T, tiles, B), every tensor of a lane batch-major at a lane stride; the
+// lone entry launches B = 1), the fleet's masked statistics at 32 < k <=
+// 128 (a bucket padded past k = 32, and a lowrank bucket's statistics
+// there).  It replaces dfm_tpu/estim/batched.py:_batched_obs_stats_masked
+// (line 593) at those widths; n_t and ldR_t are summed and written in
+// double, as K2b-m's, and the sums stay two-level.  A fully masked step
+// gives exact zeros.  Bound: operations, 2 B T N (k + k(k+1)/2) = 5.1e10
+// flops at B = 2, T = 1,000, N = 10,000, k = 50 (~0.76 ms at 67 TFLOP/s
+// in f32), against 160 MB of Y and W (~0.048 ms).
+//
 // Design: one block per t (and lane).  Each thread walks series with a stride of
 // blockDim.x, keeps its partials of all k + k(k+1)/2 + 2 outputs in
 // registers (k is a template constant so the partials stay in registers;
@@ -268,20 +279,32 @@ obs_stats_wide_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
 constexpr int kGenSlice = 64;     // series a staged slice
 constexpr int kGenTile = 32;      // side of a tile of C_t
 
-// Grid (T, ntiles (ntiles + 1) / 2), ntiles = ceil(k / 32): blockIdx.y is
-// the packed lower-triangle tile (I, J), J <= I.
-template <typename T>
+// Grid (T, ntiles (ntiles + 1) / 2, B), ntiles = ceil(k / 32): blockIdx.y
+// is the packed lower-triangle tile (I, J), J <= I, blockIdx.z the lane
+// (B = 1 for the lone K2-gen); n_t and ldR_t in TA (T for the lone K2-gen,
+// double for K2b-m-gen).
+template <typename T, typename TA>
 __global__ void __launch_bounds__(kThreads)
 obs_stats_gen_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
                      const T* __restrict__ R, const T* __restrict__ mask,
                      T* __restrict__ b, T* __restrict__ C,
-                     T* __restrict__ nobs, T* __restrict__ ldR, int N,
+                     TA* __restrict__ nobs, TA* __restrict__ ldR, int N,
                      int k) {
   __shared__ T li[kGenSlice][kGenTile + 1], lj[kGenSlice][kGenTile + 1];
   __shared__ T wr[kGenSlice], yr[kGenSlice];
   __shared__ T ct[kGenTile][kGenTile + 1];
-  __shared__ T red[32];
-  const int t = blockIdx.x, tid = threadIdx.x;
+  __shared__ TA red[32];
+  const int t = blockIdx.x, tid = threadIdx.x, T_ = gridDim.x;
+  // This block's problem lane.
+  const size_t pb = blockIdx.z, tn = (size_t)T_ * N;
+  Y += pb * tn;
+  mask += pb * tn;
+  Lam += pb * (size_t)N * k;
+  R += pb * N;
+  b += pb * (size_t)T_ * k;
+  C += pb * (size_t)T_ * k * k;
+  nobs += pb * T_;
+  ldR += pb * T_;
   int I = 0, r = blockIdx.y;
   while (r > I) { r -= I + 1; ++I; }
   const int J = r, diag = I == J;
@@ -293,7 +316,7 @@ obs_stats_gen_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
   // Two-level sums: each slice's partials, then the running totals, so an
   // f32 sum over N = 10,000 series rounds like ~N / 64 + 64 terms, not N.
   T acc00 = T(0), acc01 = T(0), acc10 = T(0), acc11 = T(0), bacc = T(0);
-  T acc_n = T(0), acc_l = T(0);
+  TA acc_n = TA(0), acc_l = TA(0);
   constexpr int kStage = kGenSlice * kGenTile / kThreads;   // 8 a thread
   for (int n0 = 0; n0 < N; n0 += kGenSlice) {
     const int nt = min(kGenSlice, N - n0);
@@ -324,8 +347,8 @@ obs_stats_gen_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
       wr[tid] = wn * rinv;
       yr[tid] = wn * nan_to_num(yn) * rinv;
       if (blockIdx.y == 0) {
-        acc_n += wn;
-        acc_l += wn * dfm_log(rn);
+        acc_n += TA(wn);
+        acc_l += TA(wn) * TA(dfm_log(rn));
       }
     }
     __syncthreads();
@@ -370,16 +393,16 @@ obs_stats_gen_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
   if (tid == 0) ldR[t] = acc_l;
 }
 
-template <typename T>
+template <typename T, typename TA>
 static int launch_gen(const T* Y, const T* Lam, const T* R, const T* mask,
-                      T* b, T* C, T* nobs, T* ldR, int T_, int N, int k,
-                      cudaStream_t stream) {
+                      T* b, T* C, TA* nobs, TA* ldR, int B, int T_, int N,
+                      int k, cudaStream_t stream) {
   if (k < 1 || k > DFM_GEN_KMAX) return (int)cudaErrorInvalidValue;
   const int nt = (k + kGenTile - 1) / kGenTile;
-  if (T_ > 0)
-    obs_stats_gen_kernel<T><<<dim3(T_, nt * (nt + 1) / 2), kThreads, 0,
-                              stream>>>(Y, Lam, R, mask, b, C, nobs, ldR, N,
-                                        k);
+  if (B > 0 && T_ > 0)
+    obs_stats_gen_kernel<T, TA><<<dim3(T_, nt * (nt + 1) / 2, B), kThreads,
+                                  0, stream>>>(Y, Lam, R, mask, b, C, nobs,
+                                               ldR, N, k);
   return (int)cudaGetLastError();
 }
 
@@ -442,8 +465,15 @@ extern "C" {
   int obs_stats_gen_##SFX(const T* Y, const T* Lam, const T* R,              \
                           const T* mask, T* b, T* C, T* nobs, T* ldR,        \
                           int T_, int N, int k, void* stream) {              \
-    return launch_gen<T>(Y, Lam, R, mask, b, C, nobs, ldR, T_, N, k,         \
-                         (cudaStream_t)stream);                              \
+    return launch_gen<T, T>(Y, Lam, R, mask, b, C, nobs, ldR, 1, T_, N, k,   \
+                            (cudaStream_t)stream);                           \
+  }                                                                          \
+  int batched_obs_stats_gen_##SFX(const T* Y, const T* Lam, const T* R,      \
+                                  const T* mask, T* b, T* C, double* nobs,   \
+                                  double* ldR, int B, int T_, int N, int k,  \
+                                  void* stream) {                            \
+    return launch_gen<T, double>(Y, Lam, R, mask, b, C, nobs, ldR, B, T_, N, \
+                                 k, (cudaStream_t)stream);                   \
   }
 #if DFM_WANT_F32
 DFM_OBS_ENTRIES(f32, float)

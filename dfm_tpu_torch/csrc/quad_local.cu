@@ -70,6 +70,19 @@
 // T = 500, N = 10,000 (~0.012 ms), against 2 T N (2 k + 3) ~ 2e9 flops at
 // k = 100 (~0.03 ms): operations; each block re-reads Lam from L2.
 //
+// K1b-gen and K1b-m-gen (batched_quad_gen, batched_quad_masked_gen): the
+// K1-gen kernel with a lane grid dimension (grid (T, B), each lane's
+// tensors batch-major at a lane stride; the lone entry launches B = 1), the
+// batched wrappers' kernels at 32 < k <= 128.  They replace the residual
+// passes of dfm_tpu/estim/batched.py:_batched_loglik (lines 419-421, C
+// static per lane) and _batched_loglik_masked (lines 656-659, a per-step
+// C_t) there: quad_R with an f64 sum and U = b_t - C_t x_pred, formed from
+// the statistics as the batched twins do (a warp a row of C_t, coalesced),
+// not from the residual as K1-gen forms it.  Bound: bytes, Y (and the
+// mask) read once, 80 MB at B = 4, T = 500, N = 10,000 in f32 (~0.024 ms;
+// K1b-m-gen 160 MB at B = 2, T = 1,000), against 2 B T N (k + 3) flops,
+// ~0.021 ms at k = 50; each block re-reads its lane's Lam from L2.
+//
 // Bound on the H100: bytes.  The kernel must read Y (and the mask) once:
 // 20 MB unmasked, 40 MB masked in f32 at T = 500, N = 10,000 (K1b: 160 MB
 // at B = 8), against ~2(k+2) flops per entry.
@@ -205,21 +218,48 @@ static int launch_wide(const T* Y, const T* Lam, const T* R, const T* x_pred,
 
 constexpr int kGenSlice = 32;     // series a staged slice, 8 threads each
 
-// quad_R (f64 sum) and, when U is given, U from the residual, at any k <=
-// DFM_GEN_KMAX; the mask may be null (unmasked).
+// quad_R (f64 sum) and, when U is given, U at any k <= DFM_GEN_KMAX: from
+// the residual (the lone K1-gen), or U = b_t - C_t x_t when ``bvec`` is
+// given (K1b-gen, K1b-m-gen: C_t at c_lane and c_tstride).  The mask may be
+// null (unmasked); blockIdx.y is the lane (B = 1 for the lone kernel).
 template <typename T>
 __global__ void __launch_bounds__(256)
 quad_gen_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
                 const T* __restrict__ R, const T* __restrict__ x_pred,
-                const T* __restrict__ mask, double* __restrict__ out,
-                T* __restrict__ U, int N, int k) {
+                const T* __restrict__ mask, const T* __restrict__ bvec,
+                const T* __restrict__ C, int c_lane, int c_tstride,
+                double* __restrict__ out, T* __restrict__ U, int N, int k) {
   __shared__ T xs[DFM_GEN_KMAX];
   __shared__ T lam[kGenSlice][DFM_GEN_KMAX + 1];
   __shared__ T vr[kGenSlice];
   __shared__ double red[32];
-  const int t = blockIdx.x, tid = threadIdx.x;
+  const int t = blockIdx.x, tid = threadIdx.x, T_ = gridDim.x;
   const int s = tid >> 3, part = tid & 7;
+  // This block's problem lane.
+  const size_t pb = blockIdx.y, tn = (size_t)T_ * N;
+  Y += pb * tn;
+  if (mask) mask += pb * tn;
+  Lam += pb * (size_t)N * k;
+  R += pb * N;
+  x_pred += pb * (size_t)T_ * k;
+  out += pb * T_;
+  if (U) U += pb * (size_t)T_ * k;
   if (tid < k) xs[tid] = x_pred[(size_t)t * k + tid];
+  const bool u_res = U && !bvec;
+  if (U && bvec) {
+    // U = b_t - C_t x_t, a warp a row of C_t (coalesced), then the warp's
+    // shuffle sum.
+    __syncthreads();
+    const T* Ct = C + pb * c_lane + (size_t)t * c_tstride;
+    const T* bt = bvec + (pb * T_ + t) * k;
+    const int lane = tid & 31;
+    for (int j = tid >> 5; j < k; j += 256 / 32) {
+      T v = T(0);
+      for (int l = lane; l < k; l += 32) v += Ct[(size_t)j * k + l] * xs[l];
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) U[(size_t)t * k + j] = bt[j] - v;
+    }
+  }
   const T* y = Y + (size_t)t * N;
   const T* w = mask ? mask + (size_t)t * N : nullptr;
   double acc = 0.0;
@@ -244,22 +284,23 @@ quad_gen_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
       vr[s] = q;
     }
     __syncthreads();
-    if (U && tid < k)
+    if (u_res && tid < k)
       for (int q = 0; q < nt; ++q) u += vr[q] * lam[q][tid];
   }
   acc = block_reduce_sum(acc, red);
   if (tid == 0) out[t] = acc;
-  if (U && tid < k) U[(size_t)t * k + tid] = u;
+  if (u_res && tid < k) U[(size_t)t * k + tid] = u;
 }
 
 template <typename T>
 static int launch_gen(const T* Y, const T* Lam, const T* R, const T* x_pred,
-                      const T* mask, double* out, T* U, int T_, int N, int k,
-                      cudaStream_t stream) {
+                      const T* mask, const T* bvec, const T* C, int c_lane,
+                      int c_tstride, double* out, T* U, int B, int T_, int N,
+                      int k, cudaStream_t stream) {
   if (k < 1 || k > DFM_GEN_KMAX) return (int)cudaErrorInvalidValue;
-  if (T_ > 0)
-    quad_gen_kernel<T><<<T_, 256, 0, stream>>>(Y, Lam, R, x_pred, mask, out,
-                                               U, N, k);
+  if (B > 0 && T_ > 0)
+    quad_gen_kernel<T><<<dim3(T_, B), 256, 0, stream>>>(
+        Y, Lam, R, x_pred, mask, bvec, C, c_lane, c_tstride, out, U, N, k);
   return (int)cudaGetLastError();
 }
 
@@ -330,8 +371,23 @@ extern "C" {
   int quad_local_gen_##SFX(const T* Y, const T* Lam, const T* R,             \
                            const T* x_pred, const T* mask, double* out,      \
                            T* U, int T_, int N, int k, void* stream) {       \
-    return launch_gen<T>(Y, Lam, R, x_pred, mask, out, U, T_, N, k,          \
-                         (cudaStream_t)stream);                              \
+    return launch_gen<T>(Y, Lam, R, x_pred, mask, nullptr, nullptr, 0, 0,    \
+                         out, U, 1, T_, N, k, (cudaStream_t)stream);         \
+  }                                                                          \
+  int batched_quad_gen_##SFX(const T* Y, const T* Lam, const T* R,           \
+                             const T* x_pred, const T* bvec, const T* C,     \
+                             double* out, T* U, int B, int T_, int N, int k, \
+                             void* stream) {                                 \
+    return launch_gen<T>(Y, Lam, R, x_pred, nullptr, bvec, C, k * k, 0, out, \
+                         U, B, T_, N, k, (cudaStream_t)stream);              \
+  }                                                                          \
+  int batched_quad_masked_gen_##SFX(const T* Y, const T* Lam, const T* R,    \
+                                    const T* x_pred, const T* mask,          \
+                                    const T* bvec, const T* C, double* out,  \
+                                    T* U, int B, int T_, int N, int k,       \
+                                    void* stream) {                          \
+    return launch_gen<T>(Y, Lam, R, x_pred, mask, bvec, C, T_ * k * k,       \
+                         k * k, out, U, B, T_, N, k, (cudaStream_t)stream);  \
   }
 #if DFM_WANT_F32
 DFM_QUAD_ENTRIES(f32, float)

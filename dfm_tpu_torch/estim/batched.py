@@ -24,8 +24,9 @@ beside it (the wrapper takes the twin only for CPU tensors): K4b-fwd
 K4 with one block per lane), K1b ``_batched_quad`` (``csrc/quad_local.cu``)
 and K6b ``_bsolve_rows`` (``csrc/bsolve_rows.cu``).  Each wrapper, the
 fleet's below too, takes its kernel through ``kernels.route``: the k <= 16
-kernel, or at 16 < k <= 32 its wide twin in the same source; past 32 it
-raises ``NotImplementedError``.  Unlike the JAX twins' time-major scans,
+kernel, at 16 < k <= 32 its wide twin and at 32 < k <= 128 its generic
+twin (``kernels.GEN``), each in the same source; past 128 it raises
+``NotImplementedError``.  Unlike the JAX twins' time-major scans,
 the scan kernels take and return batch-major (B, T, ...) tensors;
 ``_batched_filter``, ``_batched_rts`` and ``batched_m_step`` keep the JAX
 layout.
@@ -123,7 +124,8 @@ def _bsolve_rows_plain(S, V):
 
 def _bsolve_rows(S, V):
     """The row-wise PSD solve of the batched M-step: kernel K6b for CUDA
-    tensors (K6b-wide for 16 < k <= 32)."""
+    tensors (K6b-wide for 16 < k <= 32, K6b-gen for 32 < k <= 128, with a
+    (B, k, k) workspace for the lanes' factors)."""
     if S.device.type == "cpu":
         return _bsolve_rows_plain(S, V)
     B, n, k = V.shape
@@ -133,7 +135,9 @@ def _bsolve_rows(S, V):
     kernels.check_tensor("S", S, (B, k, k), dt, dev)
     kernels.check_tensor("V", V, (B, n, k), dt, dev)
     X = torch.empty_like(V)
-    kernels.launch(kernel, dt, S, V, X, B, n, k)
+    work = (torch.empty((B, k, k), dtype=dt, device=dev),) \
+        if kernel == kernels.GEN["batched_solve_rows"] else ()
+    kernels.launch(kernel, dt, S, V, X, *work, B, n, k)
     return X
 
 
@@ -381,7 +385,8 @@ def _batched_info_scan_plain(b, C, A, Q, mu0, P0, t_mask=None):
 
 def _batched_info_scan(b, C, A, Q, mu0, P0, t_mask=None):
     """The batched k x k scan (batch-major): kernel K4b-fwd for CUDA
-    tensors (K4b-wide for 16 < k <= 32)."""
+    tensors (K4b-wide for 16 < k <= 32, K4b-gen for 32 < k <= 128, with a
+    (B, 4, k, k) workspace)."""
     if b.device.type == "cpu":
         return _batched_info_scan_plain(b, C, A, Q, mu0, P0, t_mask)
     B, T, k = b.shape
@@ -403,8 +408,10 @@ def _batched_info_scan(b, C, A, Q, mu0, P0, t_mask=None):
     logdetG = torch.empty((B, T), dtype=dt, device=dev)
     b, C, A, Q, mu0, P0 = ins
     c_lane, c_stride = (T * k * k, k * k) if tv else (k * k, 0)
+    work = (torch.empty((B, 4, k, k), dtype=dt, device=dev),) \
+        if kernel == kernels.GEN["batched_info_scan"] else ()
     kernels.launch(kernel, dt, b, C, c_lane, c_stride, A, Q, mu0, P0, t_mask,
-                   x_pred, P_pred, x_filt, P_filt, logdetG, B, T, k)
+                   x_pred, P_pred, x_filt, P_filt, logdetG, *work, B, T, k)
     return x_pred, P_pred, x_filt, P_filt, logdetG
 
 
@@ -426,8 +433,8 @@ def _batched_quad_plain(Y, Lam, R, x_pred, b, C):
 
 def _batched_quad(Y, Lam, R, x_pred, b, C):
     """The residual pass of the batched loglik: kernel K1b for CUDA
-    tensors (K1b-wide for 16 < k <= 32; the (B, T, N) residual is never
-    stored)."""
+    tensors (K1b-wide for 16 < k <= 32, K1b-gen for 32 < k <= 128; the
+    (B, T, N) residual is never stored)."""
     if Y.device.type == "cpu":
         return _batched_quad_plain(Y, Lam, R, x_pred, b, C)
     B, T, N = Y.shape
@@ -502,7 +509,8 @@ def _batched_rts_plain(xp, Pp, xf, Pf, A):
 
 def _batched_rts(xp, Pp, xf, Pf, A):
     """Batched RTS smoother: kernel K4b-bwd for CUDA tensors (K4b-wide
-    for 16 < k <= 32)."""
+    for 16 < k <= 32, K4b-gen for 32 < k <= 128, with a (B, 4, k, k)
+    workspace)."""
     if xf.device.type == "cpu":
         return _batched_rts_plain(xp, Pp, xf, Pf, A)
     B, T, k = xf.shape
@@ -516,7 +524,9 @@ def _batched_rts(xp, Pp, xf, Pf, A):
     x_sm = torch.empty((B, T, k), dtype=dt, device=dev)
     P_sm = torch.empty((B, T, k, k), dtype=dt, device=dev)
     P_lag = torch.empty_like(P_sm)
-    kernels.launch(kernel, dt, *ins, x_sm, P_sm, P_lag, B, T, k)
+    work = (torch.empty((B, 4, k, k), dtype=dt, device=dev),) \
+        if kernel == kernels.GEN["batched_rts"] else ()
+    kernels.launch(kernel, dt, *ins, x_sm, P_sm, P_lag, *work, B, T, k)
     return x_sm, P_sm, P_lag
 
 
@@ -635,7 +645,7 @@ def _batched_obs_stats_masked_plain(Y, W, Lam, R):
 
 def _batched_obs_stats_masked(Y, W, Lam, R):
     """The fleet's masked statistics: kernel K2b-m for CUDA tensors
-    (K2b-m-wide for 16 < k <= 32)."""
+    (K2b-m-wide for 16 < k <= 32, K2b-m-gen for 32 < k <= 128)."""
     if Y.device.type == "cpu":
         return _batched_obs_stats_masked_plain(Y, W, Lam, R)
     B, T, N = Y.shape
@@ -664,7 +674,8 @@ def _batched_quad_masked_plain(Y, W, Lam, R, x_pred, b, C):
 
 def _batched_quad_masked(Y, W, Lam, R, x_pred, b, C):
     """The residual pass of the fleet's loglik: kernel K1b-m for CUDA
-    tensors (K1b-m-wide for 16 < k <= 32)."""
+    tensors (K1b-m-wide for 16 < k <= 32, K1b-m-gen for 32 < k <=
+    128)."""
     if Y.device.type == "cpu":
         return _batched_quad_masked_plain(Y, W, Lam, R, x_pred, b, C)
     B, T, N = Y.shape
@@ -728,7 +739,8 @@ def _batched_mstep_rows_plain(Y, W, x_sm, EffT, P_sm, r_floor: float):
 
 def _batched_mstep_rows(Y, W, x_sm, EffT, P_sm, r_floor: float):
     """The fleet M-step's observation rows: kernel K3b-m for CUDA
-    tensors (K3b-m-wide for 16 < k <= 32)."""
+    tensors (K3b-m-wide for 16 < k <= 32, K3b-m-gen for 32 < k <=
+    128)."""
     if Y.device.type == "cpu":
         return _batched_mstep_rows_plain(Y, W, x_sm, EffT, P_sm, r_floor)
     B, T, N = Y.shape

@@ -40,7 +40,7 @@ import torch
 __all__ = ["LAUNCHES", "KERNELS", "PROBES", "build", "build_log", "launch",
            "probe", "reset_launches", "check_k", "check_lowrank",
            "check_dense", "check_particles", "check_tensor", "WIDE", "GEN",
-           "route"]
+           "DEVICE_LAUNCHES", "route"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -59,8 +59,11 @@ WIDE_KMAX = 32
 # The generic kernels' range (DFM_GEN_KMAX): the lone K2 (masked), the K4
 # pair, K1 (quad_local and loglik_terms_local) and K3 (masked) at 32 < k
 # <= 128, each with a runtime k (the lone info and lowrank fits, fused fits
-# and sessions past 32, the mixed-frequency seq route at m > 32).  Every
-# other kernel but the rank-r ones (below) stops at WIDE_KMAX or below.
+# and sessions past 32, the mixed-frequency seq route at m > 32), and
+# their batched twins K4b (both passes), K1b, K6b, K2b-m, K1b-m and K3b-m
+# there (fit_many, the k-grid, the rolling windows and info and lowrank
+# fleet buckets past 32).  Every other kernel but the rank-r ones (below)
+# stops at WIDE_KMAX or below.
 GEN_KMAX = 128
 # The rank-r kernels' range (DFM_LR_KMAX, DFM_LR_RMAX in lowrank_scan.cu).
 LOWRANK_KMAX, LOWRANK_RMAX = 100, 32
@@ -133,6 +136,14 @@ KERNELS = {
     "rts_smoother_gen": ("info_scan.cu", [_P] * 9 + [_I] * 2),
     "quad_local_gen": ("quad_local.cu", [_P] * 7 + [_I] * 3),
     "mstep_rows_gen": ("mstep_rows.cu", [_P] * 7 + [_I] * 3 + [_D] * 2),
+    "batched_info_scan_gen": ("info_scan.cu",
+                              [_P, _P, _I, _I] + [_P] * 11 + [_I] * 3),
+    "batched_rts_gen": ("info_scan.cu", [_P] * 9 + [_I] * 3),
+    "batched_quad_gen": ("quad_local.cu", [_P] * 8 + [_I] * 4),
+    "batched_quad_masked_gen": ("quad_local.cu", [_P] * 9 + [_I] * 4),
+    "batched_solve_rows_gen": ("bsolve_rows.cu", [_P] * 4 + [_I] * 3),
+    "batched_obs_stats_gen": ("obs_stats.cu", [_P] * 8 + [_I] * 4),
+    "batched_mstep_rows_gen": ("mstep_rows.cu", [_P] * 7 + [_I] * 4 + [_D]),
 }
 
 # The entry points with a wide kernel beside the k <= KMAX one, and its
@@ -151,12 +162,25 @@ WIDE = {"obs_stats": "obs_stats_wide", "info_scan": "info_scan_wide",
         "batched_mstep_rows": "batched_mstep_rows_wide"}
 
 # The entry points with a generic kernel for WIDE_KMAX < k <= GEN_KMAX, and
-# its name.  obs_stats, quad_local and mstep_rows take their wide kernel's
-# C arguments; info_scan and rts_smoother take one more, a (4, k, k)
-# workspace the wrapper allocates.
+# its name.  obs_stats, quad_local and mstep_rows and the batched quad,
+# quad_masked, obs_stats and mstep_rows take their wide kernel's C
+# arguments; info_scan and rts_smoother take one more, a (4, k, k)
+# workspace the wrapper allocates, their batched twins a (B, 4, k, k) one,
+# and batched_solve_rows a (B, k, k) one (the lanes' factors).
 GEN = {"obs_stats": "obs_stats_gen", "info_scan": "info_scan_gen",
        "rts_smoother": "rts_smoother_gen", "quad_local": "quad_local_gen",
-       "mstep_rows": "mstep_rows_gen"}
+       "mstep_rows": "mstep_rows_gen",
+       "batched_info_scan": "batched_info_scan_gen",
+       "batched_rts": "batched_rts_gen", "batched_quad": "batched_quad_gen",
+       "batched_quad_masked": "batched_quad_masked_gen",
+       "batched_solve_rows": "batched_solve_rows_gen",
+       "batched_obs_stats": "batched_obs_stats_gen",
+       "batched_mstep_rows": "batched_mstep_rows_gen"}
+
+# The kernels whose one C call launches more than one device kernel, and
+# how many: ``launch`` counts each.  K6b-gen factors the lanes' S, then
+# solves the row tiles against the factors.
+DEVICE_LAUNCHES = {"batched_solve_rows_gen": 2}
 
 # Measurement kernels off the model path, in the same form.
 PROBES = {
@@ -356,14 +380,16 @@ def _call(table: dict, name: str, dtype: torch.dtype, args) -> None:
 
 
 def launch(name: str, dtype: torch.dtype, *args) -> None:
-    """Launch kernel ``name`` in ``dtype`` on the current CUDA stream.
+    """Launch kernel ``name`` in ``dtype`` on the current CUDA stream and
+    count its device kernels in ``LAUNCHES`` (``DEVICE_LAUNCHES``, else
+    one).
 
     ``args`` are the C arguments before the stream: tensors (passed by
     their data pointer; the caller keeps them alive), ``None`` for a null
     pointer, and Python ints and floats.
     """
     _call(KERNELS, name, dtype, args)
-    LAUNCHES[name] += 1
+    LAUNCHES[name] += DEVICE_LAUNCHES.get(name, 1)
 
 
 def probe(name: str, dtype: torch.dtype, *args) -> None:

@@ -13,7 +13,7 @@ lowrank fleet bucket at k = 20.  The EM paths agree to 1e-9 relative
 (each iteration carries ~1e-13 rounding into the next params), single
 passes to 1e-10.  ``kernels.route`` sends the seven batched entry points
 to today's kernel for k <= 16, to the ``_wide`` kernel (same source) for
-17..32, and raises ``NotImplementedError`` naming the ROADMAP row at 33.
+17..32 and to the ``_gen`` kernel past that (tests/test_torch_batched_gen.py).
 """
 
 import jax.numpy as jnp
@@ -297,12 +297,16 @@ WRAPPERS = {
 
 @pytest.mark.parametrize("name", BATCHED)
 def test_batched_routes_raise_at_33_naming_the_roadmap_row(name):
-    """k = 33 raises in ``kernels.route`` and in the wrapper, before any
-    launch (nothing is counted)."""
+    """The wide tier ends at 32: k = 33 routes to the generic kernel (same
+    source), and the range's end moved to 129, which raises in
+    ``kernels.route`` and in the wrapper, naming the ROADMAP row, before
+    any launch (nothing is counted)."""
+    assert kernels.route(name, kernels.WIDE_KMAX) == f"{name}_wide"
+    assert kernels.route(name, kernels.WIDE_KMAX + 1) == f"{name}_gen"
     with pytest.raises(NotImplementedError, match="Generic k") as err:
-        kernels.route(name, 33)
+        kernels.route(name, kernels.GEN_KMAX + 1)
     assert kernels.GENERIC_K in str(err.value)
     kernels.reset_launches()
     with pytest.raises(NotImplementedError, match="Generic k"):
-        WRAPPERS[name](33)
+        WRAPPERS[name](kernels.GEN_KMAX + 1)
     assert not any(kernels.LAUNCHES.values())

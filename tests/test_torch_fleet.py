@@ -89,14 +89,15 @@ def _open_pair(tens, **kw):
     return jf, tf
 
 
-def _assert_update_matches(tu, ju):
+def _assert_update_matches(tu, ju, di_rtol=RTOL):
     assert (tu.t, tu.n_iters, tu.converged, tu.diverged) == (
         ju.t, ju.n_iters, ju.converged, ju.diverged)
     for name in ("nowcast", "nowcast_sd", "factors", "factor_cov",
                  "forecast_sd", "logliks"):
         close(getattr(tu, name), getattr(ju, name), RTOL)
-    for key in ("y", "f", "di"):
+    for key in ("y", "f"):
         close(tu.forecasts[key], ju.forecasts[key], RTOL)
+    close(tu.forecasts["di"], ju.forecasts["di"], di_rtol)
     if ju.coverage is None:
         assert tu.coverage is None
     else:

@@ -13,8 +13,9 @@ series (observed once for the fits: ``fit`` refuses an all-missing
 column); the lowrank fits (rank 4) run on it without the fully missing
 step, where Gam_t would be singular but for its jitter (the two packages
 then part at rounding).  ``kernels.route``: the wide kernel at k = 32, the
-generic one for 33..128, ``NotImplementedError`` naming the ROADMAP row at
-129, and at 33 for every name without a generic kernel.
+generic one for 33..128 (the batched twins' too), ``NotImplementedError``
+naming the ROADMAP row at 129, and at 33 for every name without a generic
+kernel.
 """
 
 import functools
@@ -29,6 +30,7 @@ from dfm_tpu import open_session as jopen
 from dfm_tpu.api import DynamicFactorModel as JModel
 from dfm_tpu.api import TPUBackend
 from dfm_tpu.api import fit as jfit
+from dfm_tpu.backends import cpu_ref as jcpu
 from dfm_tpu.estim import em as jem
 from dfm_tpu.models import mixed_freq as jm
 from dfm_tpu.ssm import info_filter as jif
@@ -36,6 +38,7 @@ from dfm_tpu.ssm import kalman as jk
 from dfm_tpu.ssm.params import SSMParams as JP
 from dfm_tpu.utils import dgp
 from dfm_tpu_torch import kernels
+from dfm_tpu_torch.backends import cpu_ref as tcpu
 from dfm_tpu_torch.estim import em as tem
 from dfm_tpu_torch.models import mixed_freq as tm
 from dfm_tpu_torch.ssm import info_filter as tif
@@ -280,12 +283,14 @@ def test_past_128_and_unported_names_raise_before_any_launch():
         with pytest.raises(NotImplementedError, match="Generic k") as err:
             kernels.route(name, 129)
         assert kernels.GENERIC_K in str(err.value)
-    for name in ("ss_cov_path", "affine_scan", "batched_info_scan",
-                 "batched_rts", "batched_quad", "batched_quad_masked",
-                 "batched_solve_rows", "batched_obs_stats",
-                 "batched_mstep_rows"):
+    for name in ("ss_cov_path", "affine_scan"):
         with pytest.raises(NotImplementedError, match="Generic k"):
             kernels.route(name, 33)
+    for name in ("batched_info_scan", "batched_rts", "batched_quad",
+                 "batched_quad_masked", "batched_solve_rows",
+                 "batched_obs_stats", "batched_mstep_rows"):
+        with pytest.raises(NotImplementedError, match="Generic k"):
+            kernels.route(name, 129)
     kernels.reset_launches()
     k = 129
     st = tif.ObsStats(_meta(4, k), _meta(4, k, k), _meta(4), _meta(4))
@@ -310,3 +315,23 @@ def test_past_128_and_unported_names_raise_before_any_launch():
         with pytest.raises(NotImplementedError, match="Generic k"):
             call()
     assert not any(kernels.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("k,rho", [(32, 0.7), (33, 0.7), (48, 0.95),
+                                   (64, 0.998)])
+def test_stationary_p0_matches_the_kronecker_solve(k, rho):
+    """The PCA init's stationary P0 (``var_tail``, ``dgp.dfm_params``): to
+    k = 32 the reference's Kronecker solve bit for bit, past 32 Smith's
+    doubling iteration within 1e-12 of it, up to a spectral radius of
+    0.998."""
+    rng = np.random.default_rng(1450 + k)
+    A = dgp.stable_var1(k, rng, rho)
+    X = rng.standard_normal((k, k))
+    Q = X @ X.T / k + 1e-3 * np.eye(k)
+    got = tcpu._solve_discrete_lyapunov_or_eye(A, Q)
+    want = jcpu._solve_discrete_lyapunov_or_eye(A, Q)
+    if k <= 32:
+        np.testing.assert_array_equal(got, want)
+    else:
+        close(got, want, 1e-12)
+    close(A @ got @ A.T + Q, got, 1e-13)

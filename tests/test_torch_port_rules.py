@@ -196,5 +196,11 @@ def test_cpu_path_launches_no_kernel():
                                      "batched_mstep_rows_wide",
                                      "obs_stats_gen", "info_scan_gen",
                                      "rts_smoother_gen", "quad_local_gen",
-                                     "mstep_rows_gen"}
+                                     "mstep_rows_gen",
+                                     "batched_info_scan_gen",
+                                     "batched_rts_gen", "batched_quad_gen",
+                                     "batched_quad_masked_gen",
+                                     "batched_solve_rows_gen",
+                                     "batched_obs_stats_gen",
+                                     "batched_mstep_rows_gen"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())
