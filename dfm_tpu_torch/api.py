@@ -124,10 +124,12 @@ class TorchBackend:
     mixing time at the init params), "pit" (covariance-form
     parallel-in-time), "pit_qr" (square-root parallel-in-time; k <= 10 on
     CUDA) or "lowrank" (the rank-r downdate engine for wide factor models,
-    ``ssm.lowrank_filter``; on CUDA its kernels take k <= 100 and r <= 32,
-    the rest of its path k <= 32).  On CUDA every engine but "pit_qr"
-    takes k <= 32 on the lone paths.  rank: the rank r of "lowrank" (<= 0:
-    auto, min(k, 8)); the other engines ignore it.  fused_chunk: EM
+    ``ssm.lowrank_filter``; on CUDA its kernels take k <= 100 and r <=
+    32).  On CUDA "info", "ss", "pit" and the rest of the "lowrank" path
+    take k <= 128 (``kernels.GEN_KMAX``), on the lone and the batched
+    paths; past it a CUDA call raises naming the ROADMAP row.  rank: the
+    rank r of "lowrank" (<= 0: auto, min(k, 8)); the other engines ignore
+    it.  fused_chunk: EM
     iterations per device chunk between host reads.  device_init:
     standardize and PCA-init on the device ("auto": when N*T >= 4e6).
     """

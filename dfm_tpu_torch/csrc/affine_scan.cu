@@ -34,6 +34,17 @@
 // dynamic shared memory.  The vectors' width is a template bucket KP in
 // {20, 24, 28, 32} with zeros past the runtime k (four instantiations
 // instead of sixteen: a fully unrolled KP x KP product compiles slowly).
+//
+// K5b-gen (affine_scan_gen): the recursion at 32 < k <= DFM_GEN_KMAX = 128
+// (the unmasked auto -> ss fit past 32).  The chunked design does not
+// scale there: one k x (k + 1) map is 132 KB in f64 at k = 128, and
+// composing maps costs k^3 a step against the chain's k^2.  Design: one
+// CTA runs the T - 1 dependent steps in sequence, two threads a row (each
+// half of the row's dot product, joined by a shuffle), the constant M in
+// dynamic shared memory at a leading dimension of k + 1, the head's M_t
+// read from L2, x_{t-1} double-buffered in shared memory (one barrier a
+// step) and d_t prefetched a step ahead.  Bound: T dependent k x k
+// matrix-vector steps (a step is ~k/4 dependent fmas a thread).
 #include "common.cuh"
 
 constexpr int AF_WARPS = 16;
@@ -277,6 +288,79 @@ static int launch(const T* d, const T* Mh, const T* M, const T* xb, T* x,
   return (int)cudaGetLastError();
 }
 
+// ---- K5b-gen ----
+
+constexpr int AFG_THREADS = 2 * DFM_GEN_KMAX;     // two threads a row
+
+template <typename T>
+static size_t afg_smem(int k) {
+  return sizeof(T) * ((size_t)k * (k + 1) + 2 * DFM_GEN_KMAX);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(AFG_THREADS)
+affine_scan_gen_kernel(const T* __restrict__ d, const T* __restrict__ Mh,
+                       const T* __restrict__ M, const T* __restrict__ xb,
+                       T* __restrict__ x, int T_, int h, int k,
+                       int reverse) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ms = reinterpret_cast<T*>(smem_raw);                // [k][k + 1]
+  T* xs = Ms + (size_t)k * (k + 1);                      // [2][GEN_KMAX]
+  const int tid = threadIdx.x, r = tid >> 1, half = tid & 1, ldm = k + 1;
+  const bool row = r < k, head_lane = row && half == 0;
+  for (int e = tid; e < k * k; e += AFG_THREADS)
+    Ms[(e / k) * ldm + e % k] = M[e];
+  const int tb = reverse ? T_ - 1 : 0;
+  if (tid < k) {
+    xs[tid] = xb[tid];
+    x[(size_t)tb * k + tid] = xb[tid];
+  }
+  auto step_t = [&](int i) { return reverse ? T_ - 1 - i : i; };
+  T dn = (head_lane && T_ > 1) ? d[(size_t)step_t(1) * k + r] : T(0);
+  __syncthreads();
+  int cur = 0;
+  for (int i = 1; i < T_; ++i) {
+    const int t = step_t(i);
+    const T* xc = xs + cur * DFM_GEN_KMAX;
+    const T dv = dn;
+    if (head_lane && i + 1 < T_) dn = d[(size_t)step_t(i + 1) * k + r];
+    T s0 = T(0), s1 = T(0);
+    if (row) {
+      const T* Mr = t < h ? Mh + ((size_t)t * k + r) * k : Ms + r * ldm;
+      int l = half;
+      for (; l + 2 < k; l += 4) {
+        s0 += Mr[l] * xc[l];
+        s1 += Mr[l + 2] * xc[l + 2];
+      }
+      if (l < k) s0 += Mr[l] * xc[l];
+    }
+    T s = s0 + s1;
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    if (head_lane) {
+      const T v = s + dv;
+      xs[(cur ^ 1) * DFM_GEN_KMAX + r] = v;
+      x[(size_t)t * k + r] = v;
+    }
+    cur ^= 1;
+    __syncthreads();
+  }
+}
+
+// 1 <= k <= DFM_GEN_KMAX.
+template <typename T>
+static int launch_gen(const T* d, const T* Mh, const T* M, const T* xb,
+                      T* x, int T_, int h, int k, int reverse,
+                      cudaStream_t stream) {
+  if (T_ < 1 || h < 0 || k < 1 || k > DFM_GEN_KMAX)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = afg_smem<T>(k);
+  const cudaError_t e = dfm_smem_optin(affine_scan_gen_kernel<T>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  affine_scan_gen_kernel<T><<<1, AFG_THREADS, bytes, stream>>>(
+      d, Mh, M, xb, x, T_, h, k, reverse);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 #define DFM_AFFINE_ENTRIES(SFX, T)                                             \
   int affine_scan_##SFX(const T* d, const T* Mh, const T* M, const T* xb,    \
@@ -290,6 +374,12 @@ extern "C" {
                              int reverse, void* stream) {                    \
     return launch_wide<T>(d, Mh, M, xb, x, T_, h, k, reverse,                \
                           (cudaStream_t)stream);                             \
+  }                                                                          \
+  int affine_scan_gen_##SFX(const T* d, const T* Mh, const T* M,             \
+                            const T* xb, T* x, int T_, int h, int k,         \
+                            int reverse, void* stream) {                     \
+    return launch_gen<T>(d, Mh, M, xb, x, T_, h, k, reverse,                 \
+                         (cudaStream_t)stream);                              \
   }
 #if DFM_WANT_F32
 DFM_AFFINE_ENTRIES(f32, float)

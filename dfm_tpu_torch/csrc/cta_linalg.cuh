@@ -1,6 +1,7 @@
 // CTA-wide k x k linear algebra in global memory, for the generic K4 pair
-// and its batched twin (info_scan.cu) and K6b-gen (bsolve_rows.cu), 32 < k
-// <= DFM_GEN_KMAX = 128.
+// and its batched twin (info_scan.cu), K6b-gen (bsolve_rows.cu), K5a-gen
+// (ss_cov_path.cu) and K14-el-gen and K14-scan-gen (pit_elements.cu,
+// pit_scan.cu), 32 < k <= DFM_GEN_KMAX = 128.
 //
 // At k = 100 one matrix is 40 KB in f32 and 80 KB in f64, so the ten
 // matrices a step of the one-warp kernels keeps in shared memory no longer
@@ -35,6 +36,9 @@
 //   block's update from the columns already solved is a cta_gemm, then a
 //   thread a row substitutes against the 32 x 32 diagonal block, as the
 //   panel rows are.
+// - cta_getrf / cta_getrs: LU with partial pivoting (LAPACK getrf's pivot
+//   rule) by 32-column panels, and the solve against its factors by
+//   32-row blocks (the general solves of the pit engine).
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -450,4 +454,293 @@ __device__ __noinline__ void cta_matvec(T* out, const T* base, T sign,
   }
   __syncthreads();
   if (g_out && threadIdx.x < k) g_out[threadIdx.x] = out[threadIdx.x];
+}
+
+
+// out[i] = base[i] + sign * sum_l M[l][i] v[l] for i < k: M' v (base 0
+// when null; M and base in global memory, v in shared memory), a thread a
+// row, into g_out (global) and, when given, out (shared; not v).  Begins
+// and ends with __syncthreads(); each thread reads its base[i] before it
+// writes g_out[i], so g_out may be base.
+template <typename T>
+__device__ __noinline__ void cta_matvec_t(T* out, const T* base, T sign,
+                                          const T* M, const T* v, int k,
+                                          T* g_out) {
+  __syncthreads();
+  const int i = threadIdx.x;
+  if (i < k) {
+    T s = T(0);
+    for (int l = 0; l < k; ++l) s += M[(size_t)l * k + i] * v[l];
+    const T r = (base ? base[i] : T(0)) + sign * s;
+    if (out) out[i] = r;
+    if (g_out) g_out[i] = r;
+  }
+  __syncthreads();
+}
+
+// A CTA's dynamic shared memory beyond the routines' scratch (NV k-vectors,
+// the pivots and row permutation of cta_getrf / cta_getrs) and its slice of
+// a per-CTA global workspace of MATS k x k matrices: the generic kernels
+// on persistent grids (pit_elements.cu, pit_scan.cu).
+template <typename T, int NV, int MATS>
+struct CtaScratch {
+  T* sm;
+  T* v[NV];
+  int* piv;
+  int* perm;
+  T* w;
+  int k;
+  static size_t bytes(int k) {
+    return sizeof(T) * ((size_t)gen_scratch(k) + NV * DFM_GEN_KMAX) +
+           2 * DFM_GEN_KMAX * sizeof(int);
+  }
+  __device__ CtaScratch(unsigned char* raw, T* work, int k_) : k(k_) {
+    sm = reinterpret_cast<T*>(raw);
+    v[0] = sm + gen_scratch(k);
+    for (int i = 1; i < NV; ++i) v[i] = v[i - 1] + DFM_GEN_KMAX;
+    piv = reinterpret_cast<int*>(v[NV - 1] + DFM_GEN_KMAX);
+    perm = piv + DFM_GEN_KMAX;
+    w = work + (size_t)blockIdx.x * MATS * k * k;
+  }
+};
+
+// vs[i] = g[i] for i < k (g global, vs shared), between barriers.
+template <typename T>
+__device__ __forceinline__ void cta_load_vec(T* vs, const T* g, int k) {
+  __syncthreads();
+  if (threadIdx.x < k) vs[threadIdx.x] = g[threadIdx.x];
+  __syncthreads();
+}
+
+// dst[e] = src ? src[e] : 0 for e < n (global), between barriers.
+template <typename T>
+__device__ __forceinline__ void cta_copy(T* dst, const T* src, int n) {
+  __syncthreads();
+  if (src)
+    cta_batched(
+        n, [&](int e) { return src[e]; }, [&](int e, T v) { dst[e] = v; });
+  else
+    for (int e = threadIdx.x; e < n; e += GEN_THREADS) dst[e] = T(0);
+  __syncthreads();
+}
+
+// M[i][i] += d for i < k (k x k at a leading dimension of k), between
+// barriers.
+template <typename T>
+__device__ __forceinline__ void cta_add_diag(T* M, int k, T d) {
+  __syncthreads();
+  if (threadIdx.x < k) M[(size_t)threadIdx.x * k + threadIdx.x] += d;
+  __syncthreads();
+}
+
+// In-place LU factorization with partial pivoting of the k x k matrix at
+// A (leading dimension k), A = P L U (L unit lower below the diagonal, U on
+// and above it), by 32-column panels, right-looking, as LAPACK's getrf.
+// Each panel (rows p0 .. k-1) is staged in ``sm`` and factored column by
+// column: warp 0 picks the pivot row, the first index of the largest
+// |value| at or below the diagonal (LAPACK's rule, which jnp.linalg.solve
+// and torch.linalg.solve run), swaps the two panel rows and divides the
+// column below the pivot by it; then all threads update the panel's
+// trailing columns.  The panel's interchanges then reach the columns left
+// and right of it (a thread a column, in order), U12 = L11^{-1} A12 is
+// solved a thread a column in registers against the panel's unit lower
+// block, and the trailing matrix takes A22 -= L21 U12 by cta_gemm.  piv (k
+// ints in shared memory) receives the 0-based pivot rows.  No check for a
+// zero pivot: a singular A gives inf/NaN, as an unchecked solve does.
+template <typename T>
+__device__ __noinline__ void cta_getrf(T* A, int k, int* piv, T* sm) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  SMat<T, WIDE_LD> pan = reinterpret_cast<SMat<T, WIDE_LD>>(sm);
+  for (int p0 = 0; p0 < k; p0 += GEN_TB) {
+    const int nb = min(GEN_TB, k - p0), rows = k - p0;
+    __syncthreads();
+    cta_batched(
+        rows * nb,
+        [&](int e) { return A[(size_t)(p0 + e / nb) * k + p0 + e % nb]; },
+        [&](int e, T v) { pan[e / nb][e % nb] = v; });
+    __syncthreads();
+    for (int c = 0; c < nb; ++c) {
+      if (tid < 32) {
+        // Each lane scans its rows in order and keeps the first maximum;
+        // the reduction breaks ties to the lower row.  A NaN never wins.
+        T best = T(-1);
+        int idx = rows;
+        for (int r = c + lane; r < rows; r += 32) {
+          const T a = dfm_abs(pan[r][c]);
+          if (a > best) {
+            best = a;
+            idx = r;
+          }
+        }
+        for (int o = 16; o > 0; o >>= 1) {
+          const T ob = __shfl_xor_sync(0xffffffffu, best, o);
+          const int oi = __shfl_xor_sync(0xffffffffu, idx, o);
+          if (ob > best || (ob == best && oi < idx)) {
+            best = ob;
+            idx = oi;
+          }
+        }
+        idx = __shfl_sync(0xffffffffu, idx, 0);
+        if (idx >= rows) idx = c;           // an all-NaN column: no swap
+        if (lane == 0) piv[p0 + c] = p0 + idx;
+        if (idx != c && lane < nb) {
+          const T tmp = pan[c][lane];
+          pan[c][lane] = pan[idx][lane];
+          pan[idx][lane] = tmp;
+        }
+        __syncwarp();
+        const T d = pan[c][c];
+        for (int r = c + 1 + lane; r < rows; r += 32) pan[r][c] /= d;
+      }
+      __syncthreads();
+      const int w = nb - c - 1;
+      if (w > 0) {
+        const int n_up = (rows - c - 1) * w;
+        for (int e = tid; e < n_up; e += GEN_THREADS) {
+          const int r = c + 1 + e / w, j = c + 1 + e % w;
+          pan[r][j] -= pan[r][c] * pan[c][j];
+        }
+      }
+      __syncthreads();
+    }
+    for (int e = tid; e < rows * nb; e += GEN_THREADS)
+      A[(size_t)(p0 + e / nb) * k + p0 + e % nb] = pan[e / nb][e % nb];
+    // The other columns: the panel's interchanges in order, then (right
+    // of the panel) U12 = L11^{-1} A12.
+    for (int j = tid; j < k - nb; j += GEN_THREADS) {
+      const int col = j < p0 ? j : j + nb;
+      for (int c = 0; c < nb; ++c) {
+        const int r = piv[p0 + c];
+        if (r != p0 + c) {
+          const T tmp = A[(size_t)(p0 + c) * k + col];
+          A[(size_t)(p0 + c) * k + col] = A[(size_t)r * k + col];
+          A[(size_t)r * k + col] = tmp;
+        }
+      }
+      if (col >= p0 + nb) {
+        T x[GEN_TB];
+#pragma unroll
+        for (int c = 0; c < GEN_TB; ++c)
+          x[c] = c < nb ? A[(size_t)(p0 + c) * k + col] : T(0);
+#pragma unroll
+        for (int c = 0; c < GEN_TB; ++c) {
+          if (c >= nb) break;
+#pragma unroll
+          for (int r = c + 1; r < GEN_TB; ++r)
+            if (r < nb) x[r] -= pan[r][c] * x[c];
+        }
+#pragma unroll
+        for (int c = 0; c < GEN_TB; ++c)
+          if (c < nb) A[(size_t)(p0 + c) * k + col] = x[c];
+      }
+    }
+    const int m2 = rows - nb;
+    if (m2 > 0) {
+      T* A22 = A + (size_t)(p0 + nb) * k + p0 + nb;
+      cta_gemm<T>(A22, k, A + (size_t)(p0 + nb) * k + p0, k, false,
+                  A + (size_t)p0 * k + p0 + nb, k, false, m2, m2, nb, T(-1),
+                  A22, k, false, sm);          // A22 -= L21 U12
+    }
+  }
+  __syncthreads();
+}
+
+// X = A^{-1} B with A's factors and pivots from cta_getrf: B (k x n at a
+// leading dimension ldb; tb: B is stored transposed, element (i, j) at
+// B[j * ldb + i]) gathered through the interchanges into X (k x n at ldx;
+// X shares no element with B or LU), then unit-lower forward and upper
+// back substitution by 32-row blocks: a block's update from the rows
+// already solved is a cta_gemm, then a thread a column substitutes in
+// registers against the block's 32 x 32 diagonal block, staged in ``sm``.
+// n <= DFM_GEN_KMAX (a vector: n = 1, ldb = ldx = 1); perm holds k ints in
+// shared memory.
+template <typename T>
+__device__ __noinline__ void cta_getrs(const T* LU, const int* piv, int k,
+                                       const T* B, int ldb, bool tb, T* X,
+                                       int ldx, int n, int* perm, T* sm) {
+  const int tid = threadIdx.x;
+  __syncthreads();
+  if (tid == 0) {
+    // Row i of P B is row perm[i] of B (LAPACK's laswp, in order).
+    for (int i = 0; i < k; ++i) perm[i] = i;
+    for (int p = 0; p < k; ++p) {
+      const int r = piv[p];
+      if (r != p) {
+        const int tmp = perm[p];
+        perm[p] = perm[r];
+        perm[r] = tmp;
+      }
+    }
+  }
+  __syncthreads();
+  cta_batched(
+      k * n,
+      [&](int e) {
+        const int i = e / n, j = e % n;
+        return tb ? B[(size_t)j * ldb + perm[i]]
+                  : B[(size_t)perm[i] * ldb + j];
+      },
+      [&](int e, T v) { X[(size_t)(e / n) * ldx + e % n] = v; });
+  SMat<T, WIDE_LD> Dg = reinterpret_cast<SMat<T, WIDE_LD>>(sm);
+  const int nblk = (k + GEN_TB - 1) / GEN_TB;
+  for (int bi = 0; bi < nblk; ++bi) {               // L y = P b
+    const int i0 = bi * GEN_TB, nb = min(GEN_TB, k - i0);
+    T* Xb = X + (size_t)i0 * ldx;
+    if (i0 > 0)
+      cta_gemm<T>(Xb, ldx, LU + (size_t)i0 * k, k, false, X, ldx, false, nb,
+                  n, i0, T(-1), Xb, ldx, false, sm);
+    __syncthreads();
+    cta_batched(
+        nb * nb,
+        [&](int e) { return LU[(size_t)(i0 + e / nb) * k + i0 + e % nb]; },
+        [&](int e, T v) { Dg[e / nb][e % nb] = v; });
+    __syncthreads();
+    for (int j = tid; j < n; j += GEN_THREADS) {
+      T x[GEN_TB];
+#pragma unroll
+      for (int r = 0; r < GEN_TB; ++r)
+        x[r] = r < nb ? Xb[(size_t)r * ldx + j] : T(0);
+#pragma unroll
+      for (int c = 0; c < GEN_TB; ++c) {
+        if (c >= nb) break;
+#pragma unroll
+        for (int r = c + 1; r < GEN_TB; ++r)
+          if (r < nb) x[r] -= Dg[r][c] * x[c];
+      }
+#pragma unroll
+      for (int r = 0; r < GEN_TB; ++r)
+        if (r < nb) Xb[(size_t)r * ldx + j] = x[r];
+    }
+  }
+  for (int bi = nblk - 1; bi >= 0; --bi) {          // U x = y
+    const int i0 = bi * GEN_TB, nb = min(GEN_TB, k - i0);
+    T* Xb = X + (size_t)i0 * ldx;
+    if (i0 + nb < k)
+      cta_gemm<T>(Xb, ldx, LU + (size_t)i0 * k + i0 + nb, k, false,
+                  X + (size_t)(i0 + nb) * ldx, ldx, false, nb, n,
+                  k - i0 - nb, T(-1), Xb, ldx, false, sm);
+    __syncthreads();
+    cta_batched(
+        nb * nb,
+        [&](int e) { return LU[(size_t)(i0 + e / nb) * k + i0 + e % nb]; },
+        [&](int e, T v) { Dg[e / nb][e % nb] = v; });
+    __syncthreads();
+    for (int j = tid; j < n; j += GEN_THREADS) {
+      T x[GEN_TB];
+#pragma unroll
+      for (int r = 0; r < GEN_TB; ++r)
+        x[r] = r < nb ? Xb[(size_t)r * ldx + j] : T(0);
+#pragma unroll
+      for (int c = GEN_TB - 1; c >= 0; --c) {
+        if (c >= nb) continue;
+        x[c] /= Dg[c][c];
+#pragma unroll
+        for (int r = 0; r < c; ++r) x[r] -= Dg[r][c] * x[c];
+      }
+#pragma unroll
+      for (int r = 0; r < GEN_TB; ++r)
+        if (r < nb) Xb[(size_t)r * ldx + j] = x[r];
+    }
+  }
+  __syncthreads();
 }

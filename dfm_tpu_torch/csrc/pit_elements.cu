@@ -35,7 +35,23 @@
 // Design: a warp a step with its k x k matrices in dynamic shared memory at
 // a leading dimension of 17 (k <= 16) or 33 (k <= 32, opted in above 48
 // KB), so lanes reading different rows hit different banks.
-#include "warp_linalg.cuh"
+//
+// K14-el-gen (pit_elements_gen): the four modes at 32 < k <= DFM_GEN_KMAX
+// = 128 (the pit fits, fused fits, sessions and the mixed-frequency pit
+// route past 32), the same arithmetic term by term.  A warp cannot hold a
+// k x k problem past 32, so each step runs on a CTA of GEN_THREADS threads
+// with cta_linalg.cuh's block-wide routines (the general solves by
+// cta_getrf / cta_getrs: LU with partial pivoting, LAPACK getrf's pivot
+// rule; Cholesky, triangular solves and products as in K4-gen), its
+// matrices in global memory that stays in L2: the step's output rows and a
+// per-CTA workspace of four k x k matrices.  The grid is persistent (a
+// CTA an SM, ``ctas`` from the wrapper, each looping over the steps t =
+// blockIdx.x, + gridDim.x, ...), so the workspace scales with the card,
+// not with T (80 KB a matrix in f64 at k = 100).  Bound: operations, as
+// the k <= 32 kernel (~(4/3 + 2 + 6) k^3 flops a step in mode 0), but
+// each CTA is a chain of dependent block-wide routines: T / ctas steps of
+// ~15 routines.
+#include "cta_linalg.cuh"
 
 // The number of k x LDV matrix slots each mode uses.
 constexpr int PE_MATS[4] = {6, 8, 8, 2};
@@ -319,6 +335,232 @@ static int launch(int mode, const T* i0, const T* i1, const T* i2,
                                o3, o4, n, k, c_stride, s);
 }
 
+// ---- K14-el-gen ----
+
+// A CTA's scratch: two shared k-vectors, four k x k workspace matrices
+// (the last also holds two k-vectors).
+template <typename T>
+using PegCta = CtaScratch<T, 2, 4>;
+
+// Mode 0.
+template <typename T>
+__global__ void __launch_bounds__(GEN_THREADS)
+filter_elements_gen_kernel(const T* bobs, const T* C, int c_stride,
+                           const T* F, const T* Q, const T* mu0, const T* P0,
+                           T* A_el, T* b_el, T* C_el, T* eta_el, T* J_el,
+                           T* work, int n, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  PegCta<T> g(smem_raw, work, k);
+  const size_t kk = (size_t)k * k;
+  T* LU = g.w;
+  T* X = g.w + kk;
+  T* Y = g.w + 2 * kk;
+  T* vg = g.w + 3 * kk;
+  T* vg2 = vg + k;
+  for (int t = blockIdx.x; t < n; t += gridDim.x) {
+    const T* Ct = C + (size_t)t * c_stride;
+    if (t == 0) {
+      // b0 = mu0 + P0 (I + C0 P0)^{-1} (bobs0 - C0 mu0), C0 = sym((I + P0
+      // C0)^{-1} P0), A = 0, eta = 0, J = 0.
+      cta_load_vec(g.v[0], mu0, k);
+      cta_matvec<T>(g.v[1], bobs, T(-1), Ct, g.v[0], k, vg);
+      cta_gemm<T>(LU, k, Ct, k, false, P0, k, false, k, k, k, T(1), nullptr,
+                  0, true, g.sm);                              // I + C0 P0
+      cta_getrf<T>(LU, k, g.piv, g.sm);
+      cta_getrs<T>(LU, g.piv, k, vg, 1, false, vg2, 1, 1, g.perm, g.sm);
+      cta_load_vec(g.v[1], vg2, k);
+      cta_matvec<T>(g.v[0], mu0, T(1), P0, g.v[1], k, b_el);
+      cta_gemm<T>(LU, k, P0, k, false, Ct, k, false, k, k, k, T(1), nullptr,
+                  0, true, g.sm);                              // I + P0 C0
+      cta_getrf<T>(LU, k, g.piv, g.sm);
+      cta_getrs<T>(LU, g.piv, k, P0, k, false, X, k, k, g.perm, g.sm);
+      cta_sym<T>(C_el, X, k, false, g.sm);
+      cta_copy<T>(A_el, nullptr, (int)kk);
+      cta_copy<T>(eta_el, nullptr, k);
+      cta_copy<T>(J_el, nullptr, (int)kk);
+      continue;
+    }
+    cta_gemm<T>(LU, k, Q, k, false, Ct, k, false, k, k, k, T(1), nullptr, 0,
+                true, g.sm);                                   // I + Q C_t
+    cta_getrf<T>(LU, k, g.piv, g.sm);
+    cta_getrs<T>(LU, g.piv, k, F, k, false, A_el + t * kk, k, k, g.perm,
+                 g.sm);                                        // (I + QC)^-1 F
+    cta_getrs<T>(LU, g.piv, k, Q, k, false, X, k, k, g.perm, g.sm);
+    cta_sym<T>(C_el + t * kk, X, k, false, g.sm);             // sym((.)^-1 Q)
+    cta_gemm<T>(LU, k, Ct, k, false, Q, k, false, k, k, k, T(1), nullptr, 0,
+                true, g.sm);                                   // I + C_t Q
+    cta_getrf<T>(LU, k, g.piv, g.sm);
+    cta_getrs<T>(LU, g.piv, k, bobs + (size_t)t * k, 1, false, vg, 1, 1,
+                 g.perm, g.sm);                                // (I+CQ)^-1 bobs
+    cta_load_vec(g.v[0], vg, k);
+    cta_matvec<T>(g.v[1], nullptr, T(1), Q, g.v[0], k, b_el + (size_t)t * k);
+    cta_matvec_t<T>(nullptr, nullptr, T(1), F, g.v[0], k,
+                    eta_el + (size_t)t * k);                   // F' (.)
+    cta_getrs<T>(LU, g.piv, k, Ct, k, false, X, k, k, g.perm, g.sm);
+    cta_gemm<T>(Y, k, F, k, true, X, k, false, k, k, k, T(1), nullptr, 0,
+                false, g.sm);                                  // F' (.)
+    T* Jt = J_el + t * kk;
+    cta_gemm<T>(Jt, k, Y, k, false, F, k, false, k, k, k, T(1), nullptr, 0,
+                false, g.sm);                                  // (.) F
+    cta_sym<T>(Jt, Jt, k, false, g.sm);
+  }
+}
+
+// Sum of log L[i][i], times 2, into *out (thread 0); the caller's barrier
+// follows.
+template <typename T>
+__device__ __forceinline__ void cta_logdet(const T* L, int k, T* out) {
+  if (threadIdx.x < 32) {
+    T s = T(0);
+    for (int i = threadIdx.x; i < k; i += 32)
+      s += dfm_log(L[(size_t)i * k + i]);
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (threadIdx.x == 0) *out = T(2) * s;
+  }
+}
+
+// Mode 1.
+template <typename T>
+__global__ void __launch_bounds__(GEN_THREADS)
+filter_assemble_gen_kernel(const T* x_f, const T* P_f, const T* C,
+                           int c_stride, const T* F, const T* Q,
+                           const T* mu0, const T* P0, T* x_pred, T* P_pred,
+                           T* logdetG, T* work, int n, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  PegCta<T> g(smem_raw, work, k);
+  const size_t kk = (size_t)k * k;
+  T* Lp = g.w;
+  T* X = g.w + kk;
+  T* Lg = g.w + 2 * kk;
+  for (int t = blockIdx.x; t < n; t += gridDim.x) {
+    T* Pp = P_pred + t * kk;
+    if (t == 0) {
+      cta_copy<T>(Pp, P0, (int)kk);
+      if (threadIdx.x < k) x_pred[threadIdx.x] = mu0[threadIdx.x];
+    } else {
+      cta_load_vec(g.v[0], x_f + (size_t)(t - 1) * k, k);
+      cta_matvec<T>(g.v[1], nullptr, T(1), F, g.v[0], k, x_pred + (size_t)t * k);
+      cta_gemm<T>(X, k, F, k, false, P_f + (t - 1) * kk, k, false, k, k, k,
+                  T(1), nullptr, 0, false, g.sm);              // F P_f
+      cta_gemm<T>(Pp, k, X, k, false, F, k, true, k, k, k, T(1), Q, k, false,
+                  g.sm);                                       // (.) F' + Q
+      cta_sym<T>(Pp, Pp, k, false, g.sm);
+    }
+    cta_sym<T>(Lp, Pp, k, true, g.sm);
+    cta_potrf<T>(Lp, k, g.sm);
+    cta_gemm<T>(X, k, C + (size_t)t * c_stride, k, false, Lp, k, false, k, k,
+                k, T(1), nullptr, 0, false, g.sm);             // C Lp
+    cta_gemm<T>(Lg, k, Lp, k, true, X, k, false, k, k, k, T(1), nullptr, 0,
+                true, g.sm);                                   // I + Lp' C Lp
+    cta_sym<T>(Lg, Lg, k, false, g.sm);
+    cta_potrf<T>(Lg, k, g.sm);                                 // unjittered
+    cta_logdet<T>(Lg, k, logdetG + t);
+    __syncthreads();
+  }
+}
+
+// Mode 2.
+template <typename T>
+__global__ void __launch_bounds__(GEN_THREADS)
+smoother_elements_gen_kernel(const T* x_pred, const T* P_pred, const T* x_f,
+                             const T* P_f, const T* F, T* E_el, T* g_el,
+                             T* L_el, T* work, int n, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  PegCta<T> g(smem_raw, work, k);
+  const size_t kk = (size_t)k * k;
+  T* Lw = g.w;
+  T* X = g.w + kk;
+  for (int t = blockIdx.x; t < n; t += gridDim.x) {
+    T* Et = E_el + t * kk;
+    T* Lt = L_el + t * kk;
+    const T* Pft = P_f + t * kk;
+    if (t == n - 1) {
+      cta_copy<T>(Et, nullptr, (int)kk);
+      cta_copy<T>(g_el + (size_t)t * k, x_f + (size_t)t * k, k);
+      cta_copy<T>(Lt, Pft, (int)kk);
+      continue;
+    }
+    const T* Ppn = P_pred + (t + 1) * kk;
+    cta_sym<T>(Lw, Ppn, k, true, g.sm);
+    cta_potrf<T>(Lw, k, g.sm);
+    cta_gemm<T>(Et, k, Pft, k, true, F, k, true, k, k, k, T(1), nullptr, 0,
+                false, g.sm);                                  // (F P_f)'
+    cta_trsm_right<T>(Et, k, Lw, k, true, g.sm);
+    cta_trsm_right<T>(Et, k, Lw, k, false, g.sm);             // J_t
+    cta_load_vec(g.v[0], x_pred + (size_t)(t + 1) * k, k);
+    cta_matvec<T>(g.v[1], x_f + (size_t)t * k, T(-1), Et, g.v[0], k,
+                  g_el + (size_t)t * k);                       // x_f - J x_p
+    cta_gemm<T>(X, k, Et, k, false, Ppn, k, false, k, k, k, T(1), nullptr, 0,
+                false, g.sm);                                  // J P_pred
+    cta_gemm<T>(Lt, k, X, k, false, Et, k, true, k, k, k, T(-1), Pft, k,
+                false, g.sm);                                  // P_f - (.) J'
+    cta_sym<T>(Lt, Lt, k, false, g.sm);
+  }
+}
+
+// Mode 3.
+template <typename T>
+__global__ void __launch_bounds__(GEN_THREADS)
+smoother_assemble_gen_kernel(const T* P_sm, const T* J, T* P_lag, T* work,
+                             int n, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  PegCta<T> g(smem_raw, work, k);
+  const size_t kk = (size_t)k * k;
+  for (int t = blockIdx.x; t < n; t += gridDim.x) {
+    if (t == 0) {
+      cta_copy<T>(P_lag, nullptr, (int)kk);
+      continue;
+    }
+    cta_gemm<T>(P_lag + t * kk, k, P_sm + t * kk, k, false, J + (t - 1) * kk,
+                k, true, k, k, k, T(1), nullptr, 0, false, g.sm);
+  }
+}
+
+// Mode ``mode`` over n steps on ``ctas`` persistent CTAs; ``work`` holds
+// ctas x 4 k x k matrices.
+template <typename T>
+static int launch_gen(int mode, const T* i0, const T* i1, const T* i2,
+                      const T* i3, const T* i4, const T* i5, const T* i6,
+                      T* o0, T* o1, T* o2, T* o3, T* o4, T* work, int n,
+                      int k, int c_stride, int ctas, cudaStream_t s) {
+  if (n < 1 || k < 1 || k > DFM_GEN_KMAX || ctas < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = PegCta<T>::bytes(k);
+  const int grid = n < ctas ? n : ctas;
+  cudaError_t err = cudaSuccess;
+  switch (mode) {
+    case 0:
+      err = dfm_smem_optin(filter_elements_gen_kernel<T>, bytes);
+      if (err == cudaSuccess)
+        filter_elements_gen_kernel<T><<<grid, GEN_THREADS, bytes, s>>>(
+            i0, i1, c_stride, i2, i3, i4, i5, o0, o1, o2, o3, o4, work, n,
+            k);
+      break;
+    case 1:
+      err = dfm_smem_optin(filter_assemble_gen_kernel<T>, bytes);
+      if (err == cudaSuccess)
+        filter_assemble_gen_kernel<T><<<grid, GEN_THREADS, bytes, s>>>(
+            i0, i1, i2, c_stride, i3, i4, i5, i6, o0, o1, o2, work, n, k);
+      break;
+    case 2:
+      err = dfm_smem_optin(smoother_elements_gen_kernel<T>, bytes);
+      if (err == cudaSuccess)
+        smoother_elements_gen_kernel<T><<<grid, GEN_THREADS, bytes, s>>>(
+            i0, i1, i2, i3, i4, o0, o1, o2, work, n, k);
+      break;
+    case 3:
+      err = dfm_smem_optin(smoother_assemble_gen_kernel<T>, bytes);
+      if (err == cudaSuccess)
+        smoother_assemble_gen_kernel<T><<<grid, GEN_THREADS, bytes, s>>>(
+            i0, i1, o0, work, n, k);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 #if DFM_WANT_F32
 int pit_elements_f32(int mode, const float* i0, const float* i1,
@@ -328,6 +570,30 @@ int pit_elements_f32(int mode, const float* i0, const float* i1,
                      int c_stride, void* stream) {
   return launch<float>(mode, i0, i1, i2, i3, i4, i5, i6, o0, o1, o2, o3, o4,
                        n, k, c_stride, (cudaStream_t)stream);
+}
+#endif
+#if DFM_WANT_F32
+int pit_elements_gen_f32(int mode, const float* i0, const float* i1,
+                         const float* i2, const float* i3, const float* i4,
+                         const float* i5, const float* i6, float* o0,
+                         float* o1, float* o2, float* o3, float* o4,
+                         float* work, int n, int k, int c_stride, int ctas,
+                         void* stream) {
+  return launch_gen<float>(mode, i0, i1, i2, i3, i4, i5, i6, o0, o1, o2, o3,
+                           o4, work, n, k, c_stride, ctas,
+                           (cudaStream_t)stream);
+}
+#endif
+#if DFM_WANT_F64
+int pit_elements_gen_f64(int mode, const double* i0, const double* i1,
+                         const double* i2, const double* i3, const double* i4,
+                         const double* i5, const double* i6, double* o0,
+                         double* o1, double* o2, double* o3, double* o4,
+                         double* work, int n, int k, int c_stride, int ctas,
+                         void* stream) {
+  return launch_gen<double>(mode, i0, i1, i2, i3, i4, i5, i6, o0, o1, o2, o3,
+                            o4, work, n, k, c_stride, ctas,
+                            (cudaStream_t)stream);
 }
 #endif
 #if DFM_WANT_F64

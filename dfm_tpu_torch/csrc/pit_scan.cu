@@ -40,7 +40,23 @@
 // KB in f64 at k = 32, opted in above 48 KB), so a CTA is one warp and the
 // phases that are parallel spread over the grid; elements are read from
 // and written to the global arrays in place.
-#include "warp_linalg.cuh"
+//
+// K14-scan-gen (pit_scan_gen): the same blocked scans at 32 < k <=
+// DFM_GEN_KMAX = 128, with the same decomposition (S, B, T0, the tail) and
+// the same four phases, so kernel and twin still associate identically.
+// A combine's ten k x k matrices no longer fit a warp's shared memory (80
+// KB a matrix in f64 at k = 100), so a combine runs on a CTA of
+// GEN_THREADS threads with cta_linalg.cuh's block-wide routines (one LU
+// with partial pivoting, cta_getrf, three solves against it, cta_getrs,
+// and ~7 products a filter combine), the operands read from and the
+// result written to the element arrays in global memory (L2), the
+// temporaries in a per-CTA workspace of six k x k matrices.  The
+// grids are persistent: phases 1 and 3 run on at most ``ctas`` CTAs (a CTA
+// an SM, from the wrapper), each looping over blocks or elements, so the
+// workspace scales with the card.  The running prefix of phases 1, 2 and
+// the tail is the result the previous combine stored.  Bound: the ~2
+// sqrt(T) combines in sequence, each a chain of ~15 block-wide routines.
+#include "cta_linalg.cuh"
 
 // Element arrays of a scan: filter (A, b, C, eta, J), smoother (E, g, L).
 template <typename T>
@@ -302,17 +318,238 @@ static int run(Arrays<T> el, Arrays<T> off, int n, int S, int reverse,
   return (int)cudaGetLastError();
 }
 
+// ---- K14-scan-gen ----
+
+// A CTA's scratch: four shared k-vectors, six k x k workspace matrices
+// (the last also holds two k-vectors).
+template <typename T>
+using GenCta = CtaScratch<T, 4, 6>;
+
+// Element ``i`` of array ``a`` (k x k for the even arrays, a k-vector for
+// the odd ones).
+template <typename T>
+__device__ __forceinline__ T* elem(const Arrays<T>& e, int a, size_t i,
+                                   int k) {
+  return e.p[a] + i * ((a % 2 == 0) ? (size_t)k * k : (size_t)k);
+}
+
+// The filter combine (first ei earlier, second ej later) into element io
+// of eo, which may be ej's own slot (never ei's): the k <= 32 kernel's
+// algebra, C_i and J_j symmetrized into the workspace first.
+template <typename T>
+__device__ void filter_combine_gen(const Arrays<T>& ea, size_t ia,
+                                   const Arrays<T>& eb, size_t ib,
+                                   const Arrays<T>& eo, size_t io,
+                                   const GenCta<T>& g) {
+  const int k = g.k;
+  const size_t kk = (size_t)k * k;
+  const T *Ai = elem(ea, 0, ia, k), *bi = elem(ea, 1, ia, k),
+          *Ci = elem(ea, 2, ia, k), *etai = elem(ea, 3, ia, k),
+          *Ji = elem(ea, 4, ia, k);
+  const T *Aj = elem(eb, 0, ib, k), *bj = elem(eb, 1, ib, k),
+          *Cj = elem(eb, 2, ib, k), *etaj = elem(eb, 3, ib, k),
+          *Jj = elem(eb, 4, ib, k);
+  T *Ao = elem(eo, 0, io, k), *bo = elem(eo, 1, io, k),
+    *Co = elem(eo, 2, io, k), *etao = elem(eo, 3, io, k),
+    *Jo = elem(eo, 4, io, k);
+  T *Cs = g.w, *Js = Cs + kk, *E = Js + kk, *Xt = E + kk, *S = Xt + kk,
+    *rv = S + kk, *rs = rv + k;
+  cta_sym<T>(Cs, Ci, k, false, g.sm);
+  cta_sym<T>(Js, Jj, k, false, g.sm);
+  cta_gemm<T>(E, k, Js, k, false, Cs, k, false, k, k, k, T(1), nullptr, 0,
+              false, g.sm);                                   // J_j C_i
+  cta_add_diag<T>(E, k, T(1) + dfm_jitter<T>());
+  cta_getrf<T>(E, k, g.piv, g.sm);
+  cta_getrs<T>(E, g.piv, k, Aj, k, true, Xt, k, k, g.perm,
+               g.sm);                                         // (A_j D^{-1})'
+  cta_load_vec(g.v[0], etaj, k);
+  cta_load_vec(g.v[1], bi, k);
+  cta_matvec<T>(g.v[2], bi, T(1), Cs, g.v[0], k, nullptr);    // b_i + C_i eta_j
+  cta_matvec<T>(g.v[3], etaj, T(-1), Js, g.v[1], k, rv);      // eta_j - J_j b_i
+  cta_matvec_t<T>(nullptr, bj, T(1), Xt, g.v[2], k, bo);      // b
+  cta_gemm<T>(S, k, Xt, k, true, Cs, k, false, k, k, k, T(1), nullptr, 0,
+              false, g.sm);                                   // A_j D^-1 C_i
+  cta_gemm<T>(Co, k, S, k, false, Aj, k, true, k, k, k, T(1), Cj, k, false,
+              g.sm);                                          // (.) A_j' + C_j
+  cta_sym<T>(Co, Co, k, false, g.sm);
+  cta_gemm<T>(Ao, k, Xt, k, true, Ai, k, false, k, k, k, T(1), nullptr, 0,
+              false, g.sm);                                   // A_j D^-1 A_i
+  cta_getrs<T>(E, g.piv, k, rv, 1, false, rs, 1, 1, g.perm, g.sm);
+  cta_load_vec(g.v[0], rs, k);
+  cta_matvec_t<T>(nullptr, etai, T(1), Ai, g.v[0], k, etao);  // eta
+  cta_gemm<T>(S, k, Js, k, false, Ai, k, false, k, k, k, T(1), nullptr, 0,
+              false, g.sm);                                   // J_j A_i
+  cta_getrs<T>(E, g.piv, k, S, k, false, Xt, k, k, g.perm, g.sm);
+  cta_gemm<T>(Jo, k, Ai, k, true, Xt, k, false, k, k, k, T(1), Ji, k, false,
+              g.sm);                                          // A_i' (.) + J_i
+  cta_sym<T>(Jo, Jo, k, false, g.sm);
+}
+
+// The smoother combine (first the later element, second the earlier) into
+// element io of eo, which may be the earlier element's slot.
+template <typename T>
+__device__ void smoother_combine_gen(const Arrays<T>& ea, size_t ia,
+                                     const Arrays<T>& eb, size_t ib,
+                                     const Arrays<T>& eo, size_t io,
+                                     const GenCta<T>& g) {
+  const int k = g.k;
+  const size_t kk = (size_t)k * k;
+  const T *El = elem(ea, 0, ia, k), *gl = elem(ea, 1, ia, k),
+          *Ll = elem(ea, 2, ia, k);
+  const T *Ee = elem(eb, 0, ib, k), *ge = elem(eb, 1, ib, k),
+          *Le = elem(eb, 2, ib, k);
+  T *Eo = elem(eo, 0, io, k), *go = elem(eo, 1, io, k),
+    *Lo = elem(eo, 2, io, k);
+  T *En = g.w, *S = En + kk;
+  cta_gemm<T>(En, k, Ee, k, false, El, k, false, k, k, k, T(1), nullptr, 0,
+              false, g.sm);                                   // E_e E_l
+  cta_load_vec(g.v[0], gl, k);
+  cta_matvec<T>(g.v[1], ge, T(1), Ee, g.v[0], k, go);         // E_e g_l + g_e
+  cta_gemm<T>(S, k, Ee, k, false, Ll, k, false, k, k, k, T(1), nullptr, 0,
+              false, g.sm);                                   // E_e L_l
+  cta_gemm<T>(Lo, k, S, k, false, Ee, k, true, k, k, k, T(1), Le, k, false,
+              g.sm);                                          // (.) E_e' + L_e
+  cta_sym<T>(Lo, Lo, k, false, g.sm);
+  cta_copy<T>(Eo, En, (int)kk);
+}
+
+template <typename T, bool SMOOTH>
+__device__ __forceinline__ void combine_gen(const Arrays<T>& ea, size_t ia,
+                                            const Arrays<T>& eb, size_t ib,
+                                            const Arrays<T>& eo, size_t io,
+                                            const GenCta<T>& g) {
+  if (SMOOTH)
+    smoother_combine_gen<T>(ea, ia, eb, ib, eo, io, g);
+  else
+    filter_combine_gen<T>(ea, ia, eb, ib, eo, io, g);
+}
+
+template <typename T, bool SMOOTH>
+__global__ void __launch_bounds__(GEN_THREADS)
+phase1_gen_kernel(Arrays<T> el, T* work, int n, int S, int reverse, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  GenCta<T> g(smem_raw, work, k);
+  if (S < 2) return;
+  for (int blk = blockIdx.x; blk < n / S; blk += gridDim.x) {
+    size_t prev = at(blk * S, n, reverse);
+    for (int s = 1; s < S; ++s) {
+      const size_t i = at(blk * S + s, n, reverse);
+      combine_gen<T, SMOOTH>(el, prev, el, i, el, i, g);
+      prev = i;
+    }
+  }
+}
+
+template <typename T, bool SMOOTH>
+__global__ void __launch_bounds__(GEN_THREADS)
+phase2_gen_kernel(Arrays<T> el, Arrays<T> off, T* work, int n, int S,
+                  int reverse, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  GenCta<T> g(smem_raw, work, k);
+  const int B = n / S;
+  if (B < 2) return;
+  // off[0]: block 0's total, copied as it stands.
+  const size_t src = at(S - 1, n, reverse);
+  for (int a = 0; a < (SMOOTH ? 3 : 5); ++a)
+    cta_copy<T>(elem(off, a, 0, k), elem(el, a, src, k),
+                a % 2 == 0 ? k * k : k);
+  for (int b = 1; b < B - 1; ++b)
+    combine_gen<T, SMOOTH>(off, (size_t)(b - 1), el,
+                           at(b * S + S - 1, n, reverse), off, (size_t)b, g);
+}
+
+template <typename T, bool SMOOTH>
+__global__ void __launch_bounds__(GEN_THREADS)
+phase3_gen_kernel(Arrays<T> el, Arrays<T> off, T* work, int n, int S,
+                  int reverse, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  GenCta<T> g(smem_raw, work, k);
+  const int B = n / S;
+  if (B < 2) return;
+  for (int i = blockIdx.x; i < (B - 1) * S; i += gridDim.x) {
+    const int b = 1 + i / S, s = i % S;
+    const size_t idx = at(b * S + s, n, reverse);
+    combine_gen<T, SMOOTH>(off, (size_t)(b - 1), el, idx, el, idx, g);
+  }
+}
+
+template <typename T, bool SMOOTH>
+__global__ void __launch_bounds__(GEN_THREADS)
+tail_gen_kernel(Arrays<T> el, T* work, int n, int S, int reverse, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  GenCta<T> g(smem_raw, work, k);
+  const int T0 = (n / S) * S;
+  if (T0 >= n) return;
+  size_t prev = at(T0 - 1, n, reverse);
+  for (int i = T0; i < n; ++i) {
+    const size_t idx = at(i, n, reverse);
+    combine_gen<T, SMOOTH>(el, prev, el, idx, el, idx, g);
+    prev = idx;
+  }
+}
+
+template <typename T, bool SMOOTH>
+static int run_gen(Arrays<T> el, Arrays<T> off, T* work, int n, int S,
+                   int k, int ctas, cudaStream_t s) {
+  const size_t bytes = GenCta<T>::bytes(k);
+  cudaError_t err;
+  if ((err = dfm_smem_optin(phase1_gen_kernel<T, SMOOTH>, bytes)) !=
+          cudaSuccess ||
+      (err = dfm_smem_optin(phase2_gen_kernel<T, SMOOTH>, bytes)) !=
+          cudaSuccess ||
+      (err = dfm_smem_optin(phase3_gen_kernel<T, SMOOTH>, bytes)) !=
+          cudaSuccess ||
+      (err = dfm_smem_optin(tail_gen_kernel<T, SMOOTH>, bytes)) !=
+          cudaSuccess)
+    return (int)err;
+  const int reverse = SMOOTH ? 1 : 0;
+  const int B = n / S, n3 = (B - 1) * S;
+  const int g1 = B < ctas ? B : ctas, g3 = n3 < ctas ? n3 : ctas;
+  phase1_gen_kernel<T, SMOOTH><<<g1 > 0 ? g1 : 1, GEN_THREADS, bytes, s>>>(
+      el, work, n, S, reverse, k);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  phase2_gen_kernel<T, SMOOTH><<<1, GEN_THREADS, bytes, s>>>(
+      el, off, work, n, S, reverse, k);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  phase3_gen_kernel<T, SMOOTH><<<g3 > 0 ? g3 : 1, GEN_THREADS, bytes, s>>>(
+      el, off, work, n, S, reverse, k);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  tail_gen_kernel<T, SMOOTH><<<1, GEN_THREADS, bytes, s>>>(el, work, n, S,
+                                                           reverse, k);
+  return (int)cudaGetLastError();
+}
+
+// The off arrays of the scratch buffer: B block totals, laid out as the
+// k <= 32 kernel's.
+template <typename T>
+static Arrays<T> off_arrays(int smoother, T* scratch, int n, int S, int k) {
+  const size_t kk = (size_t)k * k, nb = (size_t)(n / S);
+  if (smoother)
+    return Arrays<T>{{scratch, scratch + nb * kk, scratch + nb * (kk + k),
+                      nullptr, nullptr}};
+  return Arrays<T>{{scratch, scratch + nb * kk, scratch + nb * (kk + k),
+                    scratch + nb * (2 * kk + k),
+                    scratch + nb * (2 * kk + 2 * k)}};
+}
+
+// 1 <= k <= DFM_GEN_KMAX; ``work`` holds ctas x 6 k x k matrices.
+template <typename T>
+static int launch_gen(int smoother, T* e0, T* e1, T* e2, T* e3, T* e4,
+                      T* scratch, T* work, int n, int S, int k, int ctas,
+                      cudaStream_t s) {
+  if (n < 1 || S < 1 || S > n || k < 1 || k > DFM_GEN_KMAX || ctas < 1)
+    return (int)cudaErrorInvalidValue;
+  Arrays<T> el{{e0, e1, e2, e3, e4}};
+  Arrays<T> off = off_arrays<T>(smoother, scratch, n, S, k);
+  if (smoother) return run_gen<T, true>(el, off, work, n, S, k, ctas, s);
+  return run_gen<T, false>(el, off, work, n, S, k, ctas, s);
+}
+
 template <typename T, int LDV>
 static int run_ld(int smoother, Arrays<T> el, T* scratch, int n, int S,
                   int k, cudaStream_t s) {
-  const size_t kk = (size_t)k * k, nb = (size_t)(n / S);
-  if (smoother) {
-    Arrays<T> off{{scratch, scratch + nb * kk, scratch + nb * (kk + k),
-                   nullptr, nullptr}};
-    return run<SmootherOps<T, LDV>, T>(el, off, n, S, 1, k, s);
-  }
-  Arrays<T> off{{scratch, scratch + nb * kk, scratch + nb * (kk + k),
-                 scratch + nb * (2 * kk + k), scratch + nb * (2 * kk + 2 * k)}};
+  Arrays<T> off = off_arrays<T>(smoother, scratch, n, S, k);
+  if (smoother) return run<SmootherOps<T, LDV>, T>(el, off, n, S, 1, k, s);
   return run<FilterOps<T, LDV>, T>(el, off, n, S, 0, k, s);
 }
 
@@ -333,6 +570,22 @@ int pit_scan_f32(int smoother, float* e0, float* e1, float* e2, float* e3,
                  void* stream) {
   return launch<float>(smoother, e0, e1, e2, e3, e4, scratch, n, S, k,
                        (cudaStream_t)stream);
+}
+#endif
+#if DFM_WANT_F32
+int pit_scan_gen_f32(int smoother, float* e0, float* e1, float* e2,
+                     float* e3, float* e4, float* scratch, float* work,
+                     int n, int S, int k, int ctas, void* stream) {
+  return launch_gen<float>(smoother, e0, e1, e2, e3, e4, scratch, work, n, S,
+                           k, ctas, (cudaStream_t)stream);
+}
+#endif
+#if DFM_WANT_F64
+int pit_scan_gen_f64(int smoother, double* e0, double* e1, double* e2,
+                     double* e3, double* e4, double* scratch, double* work,
+                     int n, int S, int k, int ctas, void* stream) {
+  return launch_gen<double>(smoother, e0, e1, e2, e3, e4, scratch, work, n,
+                            S, k, ctas, (cudaStream_t)stream);
 }
 #endif
 #if DFM_WANT_F64

@@ -36,7 +36,27 @@
 // of k rows; 12 + 3 SS_WARPS slots would be 507 KB in f64 at k = 32, over
 // the 227 KB a block may opt in to, so phase B runs on SS_WIDE_WARPS = 4
 // warps: 24 slots, 203 KB in f64 at k = 32.
-#include "warp_linalg.cuh"
+//
+// K5a-gen (ss_cov_path_gen): the same pass at 32 < k <= DFM_GEN_KMAX = 128,
+// which the wrapper takes there (the unmasked auto -> ss fit past 32).  One
+// shared-memory CTA cannot hold the slots past 32 (a k = 100 matrix is 80
+// KB in f64), so the matrices are the pass's own output rows (P_pred,t,
+// P_filt,t, M_t, J_t, Psm) and a (5, k, k) workspace the wrapper allocates,
+// in global memory that stays in L2, and the algebra is cta_linalg.cuh's
+// block-wide routines, as in the K4-gen pair.  One C call, three kernels
+// (counted as three launches):
+//   phase A (one CTA): K4-gen's covariance step without the data: Lp =
+//     chol(sym(P) + jitter), G = I + Lp' C Lp, Lg = chol(sym(G)), Z = Lp
+//     Lg^{-T}, P_f = Z Z', M_t = A - P_f (C A), log|G|, P <- sym(A P_f A' +
+//     Q); delta from the step-tau P;
+//   phase B (a CTA a step, tau CTAs): J_t = (A P_f,t)' Lc^{-T} Lc^{-1}, Lc
+//     = chol(sym(P_pred,u) + jitter) factored in the row Psm_front[t],
+//     which phase C overwrites;
+//   phase C (one CTA): bstep_ss and bstep_ex, each P <- sym(P_f + J (P -
+//     P_pred) J') by two products and a sym.
+// Bound: phases A and C are 3 tau dependent steps of ~12 k^3 (A) and ~4
+// k^3 (C) flops on one SM; phase B's tau gains run side by side.
+#include "cta_linalg.cuh"
 
 constexpr int SS_WARPS = 16;
 constexpr int SS_WIDE_WARPS = 4;
@@ -230,6 +250,171 @@ static int launch_wide(const T* C, const T* A, const T* Q, const T* P0, T* Pp,
       DFM_WIDE_KMAX, k, stream);
 }
 
+// ---- K5a-gen: the three kernels ----
+
+// Dynamic shared memory of the generic kernels: the routines' scratch and
+// 32 values for a reduction.
+template <typename T>
+static size_t ssg_smem(int k) {
+  return sizeof(T) * ((size_t)gen_scratch(k) + 32);
+}
+
+// Phase A.  work: Lp (then Z), a product, Lg, C A, and P after step tau-1.
+template <typename T>
+__global__ void __launch_bounds__(GEN_THREADS)
+ss_cov_gen_forward(const T* C, const T* A, const T* Q, const T* P0, T* Pp,
+                   T* Pf, T* M, T* ldG, T* delta, T* work, int tau, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  T* red = sm + gen_scratch(k);
+  const int tid = threadIdx.x;
+  const size_t kk = (size_t)k * k;
+  T* Lp = work;
+  T* W1 = work + kk;
+  T* Lg = work + 2 * kk;
+  T* CA = work + 3 * kk;
+  T* Pend = work + 4 * kk;
+  cta_copy<T>(Pp, P0, (int)kk);
+  cta_gemm<T>(CA, k, C, k, false, A, k, false, k, k, k, T(1), nullptr, 0,
+              false, sm);                                     // C A
+  for (int t = 0; t < tau; ++t) {
+    const T* P = Pp + (size_t)t * kk;
+    T* Pft = Pf + (size_t)t * kk;
+    cta_sym<T>(Lp, P, k, true, sm);
+    cta_potrf<T>(Lp, k, sm);
+    cta_gemm<T>(W1, k, C, k, false, Lp, k, false, k, k, k, T(1), nullptr, 0,
+                false, sm);                                   // C Lp
+    cta_gemm<T>(Lg, k, Lp, k, true, W1, k, false, k, k, k, T(1), nullptr, 0,
+                true, sm);                                    // I + Lp' C Lp
+    cta_sym<T>(Lg, Lg, k, false, sm);
+    cta_potrf<T>(Lg, k, sm);                                  // no jitter
+    if (tid < 32) {
+      T s = T(0);
+      for (int i = tid; i < k; i += 32) s += dfm_log(Lg[(size_t)i * k + i]);
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (tid == 0) ldG[t] = T(2) * s;
+    }
+    cta_trsm_right<T>(Lp, k, Lg, k, true, sm);                // Z = Lp Lg^{-T}
+    cta_gemm<T>(Pft, k, Lp, k, false, Lp, k, true, k, k, k, T(1), nullptr, 0,
+                false, sm);                                   // P_f = Z Z'
+    cta_gemm<T>(M + (size_t)t * kk, k, Pft, k, false, CA, k, false, k, k, k,
+                T(-1), A, k, false, sm);                      // A - P_f C A
+    cta_gemm<T>(W1, k, A, k, false, Pft, k, false, k, k, k, T(1), nullptr, 0,
+                false, sm);                                   // A P_f
+    T* Pn = t + 1 < tau ? Pp + (size_t)(t + 1) * kk : Pend;
+    cta_gemm<T>(Pn, k, W1, k, false, A, k, true, k, k, k, T(1), Q, k, false,
+                sm);                                          // A P_f A' + Q
+    cta_sym<T>(Pn, Pn, k, false, sm);
+  }
+  // delta = max|P_tau - P_pred,tau-1| / (max|P_tau| + 1e-30), NaN kept.
+  const T* Plast = Pp + (size_t)(tau - 1) * kk;
+  T dmax = T(0), pmax = T(0);
+  for (size_t e = tid; e < kk; e += GEN_THREADS) {
+    dmax = nan_max(dmax, T(fabs(Pend[e] - Plast[e])));
+    pmax = nan_max(pmax, T(fabs(Pend[e])));
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    dmax = nan_max(dmax, __shfl_xor_sync(0xffffffffu, dmax, o));
+    pmax = nan_max(pmax, __shfl_xor_sync(0xffffffffu, pmax, o));
+  }
+  const int warp = tid >> 5, nw = GEN_THREADS / 32;
+  if ((tid & 31) == 0) {
+    red[warp] = dmax;
+    red[nw + warp] = pmax;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < nw; ++w) {
+      dmax = nan_max(dmax, red[w]);
+      pmax = nan_max(pmax, red[nw + w]);
+    }
+    delta[0] = dmax / (pmax + T(1e-30));
+  }
+}
+
+// Phase B: J_t, a CTA a step; Lc is factored in the row Lrow[t].
+template <typename T>
+__global__ void __launch_bounds__(GEN_THREADS)
+ss_cov_gen_gains(const T* A, const T* Pp, const T* Pf, T* J, T* Lrow,
+                 int tau, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const size_t kk = (size_t)k * k;
+  const int t = blockIdx.x, u = min(t + 1, tau - 1);
+  T* Lc = Lrow + (size_t)t * kk;
+  T* Jt = J + (size_t)t * kk;
+  cta_sym<T>(Lc, Pp + (size_t)u * kk, k, true, sm);
+  cta_potrf<T>(Lc, k, sm);
+  cta_gemm<T>(Jt, k, Pf + (size_t)t * kk, k, true, A, k, true, k, k, k, T(1),
+              nullptr, 0, false, sm);                         // (A P_f)'
+  cta_trsm_right<T>(Jt, k, Lc, k, true, sm);
+  cta_trsm_right<T>(Jt, k, Lc, k, false, sm);                 // J_t
+}
+
+// One backward step: out = sym(Pf + Jm (Ps - Ppr) Jm').
+template <typename T>
+__device__ void ss_bstep_gen(T* out, const T* Ps, const T* Ppr, const T* Jm,
+                             const T* Pf, T* D, T* T1, int k, T* sm) {
+  cta_batched(
+      k * k, [&](int e) { return Ps[e] - Ppr[e]; },
+      [&](int e, T v) { D[e] = v; });
+  cta_gemm<T>(T1, k, Jm, k, false, D, k, false, k, k, k, T(1), nullptr, 0,
+              false, sm);                                     // J D
+  cta_gemm<T>(out, k, T1, k, false, Jm, k, true, k, k, k, T(1), Pf, k, false,
+              sm);                                            // P_f + J D J'
+  cta_sym<T>(out, out, k, false, sm);
+}
+
+// Phase C: bstep_ss from P_f,ss (tau steps into Psm_end_rev), then
+// bstep_ex (t = tau-1 .. 0 into Psm_front).  work: D and J D.
+template <typename T>
+__global__ void __launch_bounds__(GEN_THREADS)
+ss_cov_gen_smooth(const T* Pp, const T* Pf, const T* J, T* Psm_front,
+                  T* Psm_end_rev, T* work, int tau, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const size_t kk = (size_t)k * k, ss = (size_t)(tau - 1) * kk;
+  T* D = work;
+  T* T1 = work + kk;
+  const T* Ps = Pf + ss;
+  for (int s = 0; s < tau; ++s) {
+    T* out = Psm_end_rev + (size_t)s * kk;
+    ss_bstep_gen<T>(out, Ps, Pp + ss, J + ss, Pf + ss, D, T1, k, sm);
+    Ps = out;
+  }
+  for (int t = tau - 1; t >= 0; --t) {
+    T* out = Psm_front + (size_t)t * kk;
+    const size_t u = (size_t)min(t + 1, tau - 1) * kk;
+    ss_bstep_gen<T>(out, Ps, Pp + u, J + (size_t)t * kk, Pf + (size_t)t * kk,
+                    D, T1, k, sm);
+    Ps = out;
+  }
+}
+
+// 1 <= k <= DFM_GEN_KMAX; ``work`` holds (5, k, k).
+template <typename T>
+static int launch_gen(const T* C, const T* A, const T* Q, const T* P0, T* Pp,
+                      T* Pf, T* M, T* ldG, T* delta, T* J, T* Psm_front,
+                      T* Psm_end_rev, T* work, int tau, int k,
+                      cudaStream_t stream) {
+  if (k < 1 || k > DFM_GEN_KMAX || tau < 1) return (int)cudaErrorInvalidValue;
+  const size_t bytes = ssg_smem<T>(k);
+  cudaError_t e;
+  if ((e = dfm_smem_optin(ss_cov_gen_forward<T>, bytes)) != cudaSuccess ||
+      (e = dfm_smem_optin(ss_cov_gen_gains<T>, bytes)) != cudaSuccess ||
+      (e = dfm_smem_optin(ss_cov_gen_smooth<T>, bytes)) != cudaSuccess)
+    return (int)e;
+  ss_cov_gen_forward<T><<<1, GEN_THREADS, bytes, stream>>>(
+      C, A, Q, P0, Pp, Pf, M, ldG, delta, work, tau, k);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ss_cov_gen_gains<T><<<tau, GEN_THREADS, bytes, stream>>>(A, Pp, Pf, J,
+                                                           Psm_front, tau, k);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ss_cov_gen_smooth<T><<<1, GEN_THREADS, bytes, stream>>>(
+      Pp, Pf, J, Psm_front, Psm_end_rev, work, tau, k);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 #define DFM_SS_ENTRIES(SFX, T)                                                 \
   int ss_cov_path_##SFX(const T* C, const T* A, const T* Q, const T* P0,     \
@@ -245,6 +430,13 @@ extern "C" {
                              int tau, int k, void* stream) {                 \
     return launch_wide<T>(C, A, Q, P0, Pp, Pf, M, ldG, delta, J, Psm_front,  \
                           Psm_end_rev, tau, k, (cudaStream_t)stream);        \
+  }                                                                          \
+  int ss_cov_path_gen_##SFX(const T* C, const T* A, const T* Q,              \
+                            const T* P0, T* Pp, T* Pf, T* M, T* ldG,         \
+                            T* delta, T* J, T* Psm_front, T* Psm_end_rev,    \
+                            T* work, int tau, int k, void* stream) {         \
+    return launch_gen<T>(C, A, Q, P0, Pp, Pf, M, ldG, delta, J, Psm_front,   \
+                         Psm_end_rev, work, tau, k, (cudaStream_t)stream);   \
   }
 #if DFM_WANT_F32
 DFM_SS_ENTRIES(f32, float)

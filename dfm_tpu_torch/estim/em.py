@@ -48,7 +48,7 @@ class EMConfig:
     "info" (information form, k x k scan; the N-scalable engine), "ss"
     (steady-state accelerated: ``tau`` exact covariance steps, then frozen
     gains; falls back to "info" when masked or T <= 2 tau + 4), "pit"
-    (covariance-form parallel-in-time; k <= 32 on CUDA), "pit_qr"
+    (covariance-form parallel-in-time; k <= 128 on CUDA), "pit_qr"
     (square-root parallel-in-time; k <= 10 on CUDA) or "lowrank" (rank-r
     computation-aware downdate filter and smoother,
     ``ssm.lowrank_filter``: only r x r factorizations in the scans,

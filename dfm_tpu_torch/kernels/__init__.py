@@ -40,7 +40,7 @@ import torch
 __all__ = ["LAUNCHES", "KERNELS", "PROBES", "build", "build_log", "launch",
            "probe", "reset_launches", "check_k", "check_lowrank",
            "check_dense", "check_particles", "check_tensor", "WIDE", "GEN",
-           "DEVICE_LAUNCHES", "route"]
+           "DEVICE_LAUNCHES", "route", "gen_ctas", "PIT_GEN_MATS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -53,17 +53,18 @@ KMAX = 16   # DFM_KMAX in csrc/common.cuh
 # state, m = 25 at S3), K3, K5a and K5b past KMAX (the lone fits at 16 <
 # k <= 32), the batched twins K4b, K1b, K6b, K2b-m, K1b-m and K3b-m past
 # KMAX (fit_many, the k-grid, the rolling windows and fleet buckets at
-# 16 < k <= 32), K14 (pit_elements, pit_scan) at every k, and K15
-# (dense_filter) at every N and k.
+# 16 < k <= 32), K14 (pit_elements, pit_scan: one kernel each at every
+# k <= 32), and K15 (dense_filter) at every N and k.
 WIDE_KMAX = 32
 # The generic kernels' range (DFM_GEN_KMAX): the lone K2 (masked), the K4
-# pair, K1 (quad_local and loglik_terms_local) and K3 (masked) at 32 < k
-# <= 128, each with a runtime k (the lone info and lowrank fits, fused fits
-# and sessions past 32, the mixed-frequency seq route at m > 32), and
-# their batched twins K4b (both passes), K1b, K6b, K2b-m, K1b-m and K3b-m
-# there (fit_many, the k-grid, the rolling windows and info and lowrank
-# fleet buckets past 32).  Every other kernel but the rank-r ones (below)
-# stops at WIDE_KMAX or below.
+# pair, K1 (quad_local and loglik_terms_local), K3 (masked), K5a and K5b
+# (ss_cov_path, affine_scan) and K14 (pit_elements, pit_scan) at 32 < k
+# <= 128, each with a runtime k (the lone info, ss, pit and lowrank fits,
+# fused fits and sessions past 32, the mixed-frequency seq and pit routes
+# at m > 32), and the batched twins K4b (both passes), K1b, K6b, K2b-m,
+# K1b-m and K3b-m there (fit_many, the k-grid, the rolling windows and
+# info and lowrank fleet buckets past 32).  Every other kernel but the
+# rank-r ones (below) stops at WIDE_KMAX or below.
 GEN_KMAX = 128
 # The rank-r kernels' range (DFM_LR_KMAX, DFM_LR_RMAX in lowrank_scan.cu).
 LOWRANK_KMAX, LOWRANK_RMAX = 100, 32
@@ -144,6 +145,10 @@ KERNELS = {
     "batched_solve_rows_gen": ("bsolve_rows.cu", [_P] * 4 + [_I] * 3),
     "batched_obs_stats_gen": ("obs_stats.cu", [_P] * 8 + [_I] * 4),
     "batched_mstep_rows_gen": ("mstep_rows.cu", [_P] * 7 + [_I] * 4 + [_D]),
+    "ss_cov_path_gen": ("ss_cov_path.cu", [_P] * 13 + [_I] * 2),
+    "affine_scan_gen": ("affine_scan.cu", [_P] * 5 + [_I] * 4),
+    "pit_elements_gen": ("pit_elements.cu", [_I] + [_P] * 13 + [_I] * 4),
+    "pit_scan_gen": ("pit_scan.cu", [_I] + [_P] * 7 + [_I] * 4),
 }
 
 # The entry points with a wide kernel beside the k <= KMAX one, and its
@@ -162,25 +167,36 @@ WIDE = {"obs_stats": "obs_stats_wide", "info_scan": "info_scan_wide",
         "batched_mstep_rows": "batched_mstep_rows_wide"}
 
 # The entry points with a generic kernel for WIDE_KMAX < k <= GEN_KMAX, and
-# its name.  obs_stats, quad_local and mstep_rows and the batched quad,
-# quad_masked, obs_stats and mstep_rows take their wide kernel's C
-# arguments; info_scan and rts_smoother take one more, a (4, k, k)
-# workspace the wrapper allocates, their batched twins a (B, 4, k, k) one,
-# and batched_solve_rows a (B, k, k) one (the lanes' factors).
+# its name.  obs_stats, quad_local and mstep_rows, affine_scan and the
+# batched quad, quad_masked, obs_stats and mstep_rows take their wide
+# kernel's C arguments; info_scan and rts_smoother take one more, a (4, k,
+# k) workspace the wrapper allocates, their batched twins a (B, 4, k, k)
+# one, batched_solve_rows a (B, k, k) one (the lanes' factors) and
+# ss_cov_path a (5, k, k) one; pit_elements and pit_scan take a workspace
+# of PIT_GEN_MATS k x k matrices a CTA and, last, the CTA count of their
+# persistent grids (``gen_ctas``).
 GEN = {"obs_stats": "obs_stats_gen", "info_scan": "info_scan_gen",
        "rts_smoother": "rts_smoother_gen", "quad_local": "quad_local_gen",
        "mstep_rows": "mstep_rows_gen",
+       "ss_cov_path": "ss_cov_path_gen", "affine_scan": "affine_scan_gen",
+       "pit_elements": "pit_elements_gen", "pit_scan": "pit_scan_gen",
        "batched_info_scan": "batched_info_scan_gen",
        "batched_rts": "batched_rts_gen", "batched_quad": "batched_quad_gen",
        "batched_quad_masked": "batched_quad_masked_gen",
        "batched_solve_rows": "batched_solve_rows_gen",
        "batched_obs_stats": "batched_obs_stats_gen",
        "batched_mstep_rows": "batched_mstep_rows_gen"}
+# k x k workspace matrices a CTA of pit_elements_gen and pit_scan_gen (the
+# last template argument of PegCta in pit_elements.cu, of GenCta in
+# pit_scan.cu).
+PIT_GEN_MATS = {"pit_elements_gen": 4, "pit_scan_gen": 6}
 
 # The kernels whose one C call launches more than one device kernel, and
 # how many: ``launch`` counts each.  K6b-gen factors the lanes' S, then
-# solves the row tiles against the factors.
-DEVICE_LAUNCHES = {"batched_solve_rows_gen": 2}
+# solves the row tiles against the factors; K5a-gen runs the covariance
+# steps, the gains (a CTA a step) and the smoothed covariances.  (K14-scan
+# counts one a pass at every k: its four phase kernels are one scan.)
+DEVICE_LAUNCHES = {"batched_solve_rows_gen": 2, "ss_cov_path_gen": 3}
 
 # Measurement kernels off the model path, in the same form.
 PROBES = {
@@ -302,14 +318,27 @@ def check_k(name: str, k: int, kmax: int = KMAX) -> None:
 
 
 def route(name: str, k: int) -> str:
-    """The kernel that one of the ``WIDE`` entry points launches at k:
-    ``name`` itself for k <= KMAX, its wide kernel for KMAX < k <=
-    WIDE_KMAX, its generic kernel for WIDE_KMAX < k <= GEN_KMAX where it
-    has one (``GEN``); raises as ``check_k`` past its range."""
+    """The kernel that one of the ``WIDE`` or ``GEN`` entry points launches
+    at k: ``name`` itself for k <= KMAX, its wide kernel for KMAX < k <=
+    WIDE_KMAX (``name`` itself where one kernel takes every k <= WIDE_KMAX:
+    K14), its generic kernel for WIDE_KMAX < k <= GEN_KMAX where it has one
+    (``GEN``); raises as ``check_k`` past its range."""
     check_k(name, k, GEN_KMAX if name in GEN else WIDE_KMAX)
     if k <= KMAX:
         return name
-    return WIDE[name] if k <= WIDE_KMAX else GEN[name]
+    return WIDE.get(name, name) if k <= WIDE_KMAX else GEN[name]
+
+
+_SM_COUNT: dict = {}
+
+
+def gen_ctas(device: torch.device, n: int) -> int:
+    """CTAs of a persistent generic grid over n items on ``device``: one an
+    SM, at most n."""
+    if device not in _SM_COUNT:
+        _SM_COUNT[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return max(1, min(n, _SM_COUNT[device]))
 
 
 def check_lowrank(name: str, k: int, r: int) -> None:

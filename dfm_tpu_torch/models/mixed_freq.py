@@ -33,7 +33,7 @@ m <= 32.  ``time_scan="lowrank"`` replaces the K4 pair by the rank-r K9
 trio (one K9-basis an iteration, shared by both scans);
 ``time_scan="pit"`` by the covariance-form parallel-in-time pair (K14:
 ``pit_elements`` and ``pit_scan``, four and two launches an iteration, in
-f64 on the augmented statistics).  ``"pit_qr"`` waits for the
+f64 on the augmented statistics; their generic kernels at m > 32).  ``"pit_qr"`` waits for the
 square-root kernels past k = 10 and raises.  ``mf_fit`` and
 ``mf_loglik_eval`` run
 under ``highest_precision()``: reduced-precision products wobble the

@@ -2,7 +2,7 @@
 ``dfm_tpu.ops.scan``).
 
 ``affine_scan`` is kernel K5b (``csrc/affine_scan.cu``; K5b-wide for
-16 < k <= 32): the whole mean recursion x_t = M_t x_{t-1} + d_t of the
+16 < k <= 32, K5b-gen for 32 < k <= 128): the whole mean recursion x_t = M_t x_{t-1} + d_t of the
 steady-state engine, an exact coefficient head and a constant tail,
 forward or in reverse.  Its plain
 twin runs the head in sequence and the tail with ``affine_const_prefix``
@@ -77,7 +77,7 @@ def affine_scan(d: torch.Tensor, Mh: torch.Tensor, M: torch.Tensor,
     after: forward x_0 = xb, x_t = M_t x_{t-1} + d_t; reverse x_{T-1} =
     xb, x_t = M_t x_{t+1} + d_t.  d (T, k) (its boundary row is not
     read), Mh (h, k, k), M (k, k), xb (k,).  Kernel K5b for CUDA tensors
-    (K5b-wide for 16 < k <= 32).
+    (K5b-wide for 16 < k <= 32, K5b-gen for 32 < k <= 128).
     """
     if d.device.type == "cpu":
         return affine_scan_plain(d, Mh, M, xb, reverse)

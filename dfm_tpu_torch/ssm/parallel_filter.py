@@ -18,8 +18,10 @@ are (E, g, L), E_t the RTS gain.  Kernels on CUDA tensors (K14):
 ``pit_elements`` (``csrc/pit_elements.cu``: the filter elements, the
 filter assembly, the smoother elements and P_lag, one warp a step) and
 ``pit_scan`` (``csrc/pit_scan.cu``: the blocked prefix and suffix, one
-warp a combine, a launch a phase); both take k <= 32
-(``kernels.WIDE_KMAX``).
+warp a combine, a launch a phase) at k <= 32, and their generic kernels
+``pit_elements_gen`` and ``pit_scan_gen`` (the same sources: a CTA a step
+or a combine on the block-wide routines, persistent grids) at 32 < k <=
+128 (``kernels.route``; past 128 a CUDA call raises).
 
 ``pit_qr``: the elements carry square-root factors, C = U U', and every
 combine is a thin QR (``tria``) of stacked factors plus triangular solves
@@ -130,11 +132,26 @@ def _filter_elements(stats: ObsStats, A, Q, mu0, P0):
 pit_filter_elements_plain = _filter_elements
 
 
-def _pit_launch(mode: int, dt, ins, outs, n: int, k: int,
+def _gen_work(kernel: str, dt, dev, n: int, k: int) -> tuple:
+    """(workspace, CTA count) of a generic K14 kernel's persistent grid
+    over n items."""
+    ctas = kernels.gen_ctas(dev, n)
+    work = torch.empty(ctas * kernels.PIT_GEN_MATS[kernel] * k * k,
+                       dtype=dt, device=dev)
+    return work, ctas
+
+
+def _pit_launch(kernel: str, mode: int, dt, ins, outs, n: int, k: int,
                 c_stride: int = 0):
+    """Mode ``mode`` of ``kernel`` (``kernels.route("pit_elements",
+    k)``)."""
     ins = list(ins) + [None] * (7 - len(ins))
     outs = list(outs) + [None] * (5 - len(outs))
-    kernels.launch("pit_elements", dt, mode, *ins, *outs, n, k, c_stride)
+    if kernel == "pit_elements":
+        kernels.launch(kernel, dt, mode, *ins, *outs, n, k, c_stride)
+        return
+    work, ctas = _gen_work(kernel, dt, outs[0].device, n, k)
+    kernels.launch(kernel, dt, mode, *ins, *outs, work, n, k, c_stride, ctas)
 
 
 def pit_filter_elements(stats: ObsStats, A, Q, mu0, P0):
@@ -145,7 +162,7 @@ def pit_filter_elements(stats: ObsStats, A, Q, mu0, P0):
         return _filter_elements(stats, A, Q, mu0, P0)
     T, k = b.shape
     dt, dev = b.dtype, b.device
-    kernels.check_k("pit_elements", k, kernels.WIDE_KMAX)
+    kernel = kernels.route("pit_elements", k)
     static_C = stats.C.ndim == 2
     _check(dt, dev, ("b", b, (T, k)),
            ("C", stats.C, (k, k) if static_C else (T, k, k)),
@@ -153,7 +170,7 @@ def pit_filter_elements(stats: ObsStats, A, Q, mu0, P0):
            ("P0", P0, (k, k)))
     outs = tuple(torch.empty(s, dtype=dt, device=dev)
                  for s in ((T, k, k), (T, k), (T, k, k), (T, k), (T, k, k)))
-    _pit_launch(0, dt, (b, stats.C, A, Q, mu0, P0), outs, T, k,
+    _pit_launch(kernel, 0, dt, (b, stats.C, A, Q, mu0, P0), outs, T, k,
                 0 if static_C else k * k)
     return outs
 
@@ -217,7 +234,7 @@ def pit_scan(elems: tuple, smoother: bool = False) -> tuple:
         return pit_scan_plain(elems, smoother)
     T, k = elems[1].shape
     dt, dev = elems[0].dtype, elems[0].device
-    kernels.check_k("pit_scan", k, kernels.WIDE_KMAX)
+    kernel = kernels.route("pit_scan", k)
     # Contiguous copies, scanned in place.
     out = tuple(x.clone(memory_format=torch.contiguous_format)
                 for x in elems)
@@ -228,7 +245,12 @@ def pit_scan(elems: tuple, smoother: bool = False) -> tuple:
     per = (2 * k * k + k) if smoother else (3 * k * k + 2 * k)
     scratch = torch.empty((T // S) * per, dtype=dt, device=dev)
     ptrs = list(out) + [None] * (5 - len(out))
-    kernels.launch("pit_scan", dt, int(smoother), *ptrs, scratch, T, S, k)
+    if kernel == "pit_scan":
+        kernels.launch(kernel, dt, int(smoother), *ptrs, scratch, T, S, k)
+    else:
+        work, ctas = _gen_work(kernel, dt, dev, T, k)
+        kernels.launch(kernel, dt, int(smoother), *ptrs, scratch, work, T, S,
+                       k, ctas)
     return out
 
 
@@ -256,15 +278,15 @@ def pit_filter_assemble(x_f, P_f, C, A, Q, mu0, P0):
         return pit_filter_assemble_plain(x_f, P_f, C, A, Q, mu0, P0)
     T, k = x_f.shape
     dt, dev = x_f.dtype, x_f.device
-    kernels.check_k("pit_elements", k, kernels.WIDE_KMAX)
+    kernel = kernels.route("pit_elements", k)
     static_C = C.ndim == 2
     _check(dt, dev, ("x_f", x_f, (T, k)), ("P_f", P_f, (T, k, k)),
            ("C", C, (k, k) if static_C else (T, k, k)), ("A", A, (k, k)),
            ("Q", Q, (k, k)), ("mu0", mu0, (k,)), ("P0", P0, (k, k)))
     outs = tuple(torch.empty(s, dtype=dt, device=dev)
                  for s in ((T, k), (T, k, k), (T,)))
-    _pit_launch(1, dt, (x_f, P_f, C, A, Q, mu0, P0), outs, T, k,
-                0 if static_C else k * k)
+    _pit_launch(kernel, 1, dt, (x_f, P_f, C, A, Q, mu0, P0), outs, T,
+                k, 0 if static_C else k * k)
     return outs
 
 
@@ -328,14 +350,14 @@ def pit_smoother_elements(kf: FilterResult, A):
         return _smoother_elements(kf, A)
     T, k = x_filt.shape
     dt, dev = x_filt.dtype, x_filt.device
-    kernels.check_k("pit_elements", k, kernels.WIDE_KMAX)
+    kernel = kernels.route("pit_elements", k)
     _check(dt, dev, ("x_pred", kf.x_pred, (T, k)),
            ("P_pred", kf.P_pred, (T, k, k)), ("x_filt", x_filt, (T, k)),
            ("P_filt", kf.P_filt, (T, k, k)), ("A", A, (k, k)))
     E, g, L = (torch.empty(s, dtype=dt, device=dev)
                for s in ((T, k, k), (T, k), (T, k, k)))
-    _pit_launch(2, dt, (kf.x_pred, kf.P_pred, x_filt, kf.P_filt, A),
-                (E, g, L), T, k)
+    _pit_launch(kernel, 2, dt,
+                (kf.x_pred, kf.P_pred, x_filt, kf.P_filt, A), (E, g, L), T, k)
     return (E, g, L), E[:T - 1]
 
 
@@ -352,10 +374,10 @@ def pit_smoother_assemble(P_sm, J):
         return pit_smoother_assemble_plain(P_sm, J)
     T, k = P_sm.shape[0], P_sm.shape[1]
     dt, dev = P_sm.dtype, P_sm.device
-    kernels.check_k("pit_elements", k, kernels.WIDE_KMAX)
+    kernel = kernels.route("pit_elements", k)
     _check(dt, dev, ("P_sm", P_sm, (T, k, k)), ("J", J, (T - 1, k, k)))
     P_lag = torch.empty((T, k, k), dtype=dt, device=dev)
-    _pit_launch(3, dt, (P_sm, J), (P_lag,), T, k)
+    _pit_launch(kernel, 3, dt, (P_sm, J), (P_lag,), T, k)
     return P_lag
 
 

@@ -18,7 +18,8 @@ Two kernels carry it on CUDA tensors, each with its plain twin beside it
 - K5b ``ops.scan.affine_scan`` (``csrc/affine_scan.cu``): the filtered
   means forward and the smoothed means in reverse;
 
-each with a wide kernel for 16 < k <= 32 (``kernels.route``).
+each with a wide kernel for 16 < k <= 32 and a generic one for 32 < k
+<= 128 (``kernels.route``; past 128 a CUDA call raises).
 
 Exactness: not bit-exact against the exact pair; the freeze error decays
 like rho(closed loop)^(2 tau), and ``delta`` (the relative change of the
@@ -137,7 +138,8 @@ def ss_cov_path(C: torch.Tensor, A: torch.Tensor, Q: torch.Tensor,
     and J_ss last), and the two backward smoothed-covariance passes:
     Psm_front (tau, k, k) at t = 0 .. tau-1 and Psm_end_rev (tau, k, k)
     in step order from the end (its last entry is the interior fixed
-    point).  Kernel K5a for CUDA tensors (K5a-wide for 16 < k <= 32).
+    point).  Kernel K5a for CUDA tensors (K5a-wide for 16 < k <= 32,
+    K5a-gen for 32 < k <= 128, with a (5, k, k) workspace).
     """
     if C.device.type == "cpu":
         return ss_cov_path_plain(C, A, Q, P0, tau)
@@ -152,8 +154,10 @@ def ss_cov_path(C: torch.Tensor, A: torch.Tensor, Q: torch.Tensor,
     ldG = torch.empty((tau,), dtype=dt, device=dev)
     delta = torch.empty((1,), dtype=dt, device=dev)
     Pp, Pf, M, J, front, end_rev = mats
+    work = ((torch.empty((5, k, k), dtype=dt, device=dev),)
+            if kernel == kernels.GEN["ss_cov_path"] else ())
     kernels.launch(kernel, dt, C, A, Q, P0, Pp, Pf, M, ldG, delta, J,
-                   front, end_rev, tau, k)
+                   front, end_rev, *work, tau, k)
     return Pp, Pf, M, ldG, delta[0], J, front, end_rev
 
 

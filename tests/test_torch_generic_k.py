@@ -6,9 +6,8 @@ The CPU runs each kernel's plain twin, which takes any k, so these tests
 hold the paths' algebra at k = 20 against the JAX package (the EM paths at
 1e-9 relative: each iteration carries ~1e-13 rounding into the next
 params), and ``kernels.route`` to the wide kernel's range: today's kernel
-for k <= 16, the wide one (same source file) for 17..32, and
-``NotImplementedError`` naming the ROADMAP row at 33 (K3: its generic
-kernel from 33 to 128, the error at 129).
+for k <= 16, the wide one (same source file) for 17..32, the generic one
+from 33 to 128 and ``NotImplementedError`` naming the ROADMAP row at 129.
 """
 
 import numpy as np
@@ -77,15 +76,11 @@ def test_wide_routes_of_k3_k5a_k5b(k):
 
 @pytest.mark.parametrize("name", NEW_WIDE)
 def test_wide_routes_raise_at_33_naming_the_roadmap_row(name):
-    """K5a and K5b stop at 32; K3 takes its generic kernel from 33 to 128
-    and stops at 129."""
-    if name in kernels.GEN:
-        assert kernels.route(name, 33) == kernels.GEN[name]
-        with pytest.raises(NotImplementedError, match="Generic k"):
-            kernels.route(name, 129)
-    else:
-        with pytest.raises(NotImplementedError, match="Generic k"):
-            kernels.route(name, 33)
+    """K3, K5a and K5b take their generic kernels from 33 to 128 and
+    stop at 129."""
+    assert kernels.route(name, 33) == kernels.GEN[name]
+    with pytest.raises(NotImplementedError, match="Generic k"):
+        kernels.route(name, 129)
     with pytest.raises(ValueError):
         kernels.route(name, 0)
     # check_k keeps its default range, KMAX: the batched twins reach their

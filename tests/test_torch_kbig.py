@@ -12,10 +12,9 @@ missing step, a step observing fewer than k series and a never-observed
 series (observed once for the fits: ``fit`` refuses an all-missing
 column); the lowrank fits (rank 4) run on it without the fully missing
 step, where Gam_t would be singular but for its jitter (the two packages
-then part at rounding).  ``kernels.route``: the wide kernel at k = 32, the
-generic one for 33..128 (the batched twins' too), ``NotImplementedError``
-naming the ROADMAP row at 129, and at 33 for every name without a generic
-kernel.
+then part at rounding).  ``kernels.route``: the wide kernel at k = 32 (K14's
+own kernel), the generic one for 33..128 (the batched twins', K5a's, K5b's
+and K14's too), ``NotImplementedError`` naming the ROADMAP row at 129.
 """
 
 import functools
@@ -274,7 +273,9 @@ def _meta(*shape):
 def test_gen_routes(k, tier):
     for name in kernels.GEN:
         got = kernels.route(name, k)
-        assert got == (kernels.WIDE if tier == "wide" else kernels.GEN)[name]
+        # K14 (pit_elements, pit_scan) has one kernel at every k <= 32.
+        assert got == (kernels.WIDE.get(name, name) if tier == "wide"
+                       else kernels.GEN[name])
         assert kernels.KERNELS[got][0] == kernels.KERNELS[name][0]
 
 
@@ -284,8 +285,9 @@ def test_past_128_and_unported_names_raise_before_any_launch():
             kernels.route(name, 129)
         assert kernels.GENERIC_K in str(err.value)
     for name in ("ss_cov_path", "affine_scan"):
+        assert kernels.route(name, 33) == kernels.GEN[name]
         with pytest.raises(NotImplementedError, match="Generic k"):
-            kernels.route(name, 33)
+            kernels.route(name, 129)
     for name in ("batched_info_scan", "batched_rts", "batched_quad",
                  "batched_quad_masked", "batched_solve_rows",
                  "batched_obs_stats", "batched_mstep_rows"):

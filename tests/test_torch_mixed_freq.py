@@ -347,12 +347,13 @@ def test_past_the_wide_range_raises_naming_the_roadmap_row():
     with pytest.raises(NotImplementedError, match="Generic k"):
         kernels.check_k("quad_local_wide", 33, kernels.WIDE_KMAX)
     # Every other kernel stops at 16, but K3 and K5a, whose wide kernels
-    # take 16 < k <= 32: K5a stops at 33, K3 (generic past 32) at 129.
+    # take 16 < k <= 32 and generic kernels 32 < k <= 128: both stop at
+    # 129.
     for name in ("batched_info_scan", "tvl_quad", "loading_filter"):
         with pytest.raises(NotImplementedError, match="Generic k"):
             kernels.check_k(name, 17)
     for name, kmax in (("mstep_rows", kernels.GEN_KMAX),
-                       ("ss_cov_path", kernels.WIDE_KMAX)):
+                       ("ss_cov_path", kernels.GEN_KMAX)):
         assert kernels.route(name, 17) == kernels.WIDE[name]
         with pytest.raises(NotImplementedError, match="Generic k"):
             kernels.route(name, kmax + 1)

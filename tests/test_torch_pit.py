@@ -201,9 +201,14 @@ def test_unported_scan_and_width_raise():
     kf = TFR(*(torch.zeros(1) for _ in range(5)))
     with pytest.raises(NotImplementedError, match="associative"):
         tpf.pit_smoother(kf, TP.from_numpy(p), scan_impl="associative")
-    # The K14 kernels' range on the card (the CPU twins take any k).
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        kernels.check_k("pit_scan", kernels.WIDE_KMAX + 1, kernels.WIDE_KMAX)
+    # The K14 kernels' range on the card (the CPU twins take any k): one
+    # kernel each to 32, the generic one to 128.
+    for name in ("pit_elements", "pit_scan"):
+        assert kernels.route(name, kernels.WIDE_KMAX) == name
+        assert kernels.route(name, kernels.WIDE_KMAX + 1) == \
+            kernels.GEN[name]
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+            kernels.route(name, kernels.GEN_KMAX + 1)
 
 
 # ------------------------------------------------------------ EM paths --

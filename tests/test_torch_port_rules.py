@@ -202,5 +202,7 @@ def test_cpu_path_launches_no_kernel():
                                      "batched_quad_masked_gen",
                                      "batched_solve_rows_gen",
                                      "batched_obs_stats_gen",
-                                     "batched_mstep_rows_gen"}
+                                     "batched_mstep_rows_gen",
+                                     "ss_cov_path_gen", "affine_scan_gen",
+                                     "pit_elements_gen", "pit_scan_gen"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())
