@@ -7,8 +7,8 @@
 acceptance run): headline (phases 2-5), session (6-8), batched (9-13),
 fleet (14-18), lowrank (19-23), tvl (24-26), mf (27-30), sv (31-33), pit
 (34-36), dense (37-39), wide (40-43), bwide (44-49), kbig (50-57), bgen
-(58-65), sgen (66-72).  The setup, the build and the final lines always
-run.
+(58-65), sgen (66-72), qgen (73-82).  The setup, the build and the final
+lines always run.
 
 Phases, each of which raises (and the script exits non-zero) on failure:
 
@@ -450,9 +450,49 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 72. contract: phase 5's loglik contract at k = 50 for ``ss`` (fully
    observed) and ``pit`` (masked).
 
+73. square-root kernels past 10: qr_elements_gen
+   (``csrc/pit_elements.cu``: the filter and smoother elements, both
+   assemblies and the six K6/K7 unit ops) and qr_scan_gen
+   (``csrc/pit_scan.cu``: the prefix and suffix,
+   four kernels a call counted as one launch), the JAX package's generic
+   branches (a Gram matrix's jittered Cholesky, triangular solves) on
+   ``csrc/cta_linalg.cuh``, against their plain twins on the masked
+   headline panel at k = 25, 50 and 100, f64 and f32 (the TOL rule; f32
+   timed warm and cold beside the plain twin, the bound and the unit
+   ops' one-call yardsticks), and on S3's augmented state (m = 25) in
+   f64, timed.
+74. square-root k-sweep: every mode at k = 10 (the one-thread kernels
+   still launched) and k = 11, 16, 25, 32, 33, 64, 128 on 97 x 300 panels
+   (per-step and static C; in f64 also a step observing fewer than k
+   series); k = 129 must raise NotImplementedError naming the ROADMAP row
+   in every entry point before any launch.
+75. ``fit(filter="pit_qr")`` on the masked panel at k = 25 and 50, 10
+   iterations, tol = 0, f32: exact launches (4 qr_elements_gen and 2
+   qr_scan_gen an iteration), one read a chunk; the stop rule's
+   iterations reported (the f32 Gram branch); EM it/s from the E-step and
+   M-step beside info and pit at the same k.
+76. mixed frequency past 10, pit_qr: ``MixedFreqSpec(1600, 400, 5,
+   time_scan="pit_qr")`` at S3 in f64 (m = 25: four qr_elements_gen and
+   two qr_scan_gen an E-step), phase 28's checks, EM it/s beside ``seq``
+   and ``pit``.
+77. its card f64 fit at 60 x 32 against the CPU's within 1e-10.
+78. its loglik: f64 2-update error against ``mf_loglik_eval`` on the card
+   within 2x the CPU twins' (the 1e-5 limit printed beside); the f32
+   E-step finite on the card iff on the CPU.
+79. ``fit(fused=True, filter="pit_qr")`` on the masked k = 25 panel's
+   first 480 rows and a pit_qr session on it (capacity 1,000, 3 queries
+   of 2 rows, one read a query under the sync check).
+80. a pit_qr fleet bucket past 10 (k = 12 and 14 tenants), 2 drains,
+   lanes held to lone sessions in f64 within 1e-9.
+81. reference: ``fit(filter="pit_qr")`` at 120 x 80, k = 40, masked,
+   card f64 against CPU f64 within 1e-12.
+82. the square-root loglik past 10 at k = 25 and 50 (init and fitted
+   params), kernel path and plain twins on the card in f32 and f64,
+   against the exact f64 loglik: the kernel path within 2x the twins'.
+
 Output: one JSON line per kernel and dtype, one per fit, contract check,
 ring case, session, batched, fleet, TVL, MF, SV, K14, dense, wide, kbig,
-bgen and sgen phase, the seconds of each phase (``step_s``), of each phase
+bgen, sgen and qgen phase, the seconds of each phase (``step_s``), of each phase
 group as it ends and of the script, then the {"kernels": [...]}
 summary, the card line and, last, {"ok": true, "device": {...}}.
 """
@@ -556,7 +596,10 @@ COLD_REPS = 2                # cold-L2 calls a timed kernel record
 # matrices whose entries each carry ~eps rounding, is at rounding level
 # once the path has converged (1e-19..1e-16 in f64 on the 97 x 300 sweep
 # panels), where any two orders of additions differ by O(1) relatively:
-# it takes DELTA_FLOOR_EPS x the dtype's eps on top of the rule.
+# it takes DELTA_FLOOR_EPS x the dtype's eps on top of the rule.  The
+# square-root engine's generic kernels past k = 10 (qr_elements_gen,
+# qr_scan_gen: the JAX package's Gram-and-Cholesky branches) take the k <=
+# 10 kernels' tolerances.
 TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "mstep_rows": 1e-4, "info_scan": 1e-4,
                        "rts_smoother": 1e-4, "ss_cov_path": 1e-4,
@@ -591,7 +634,8 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "batched_obs_stats_gen": 1e-5,
                        "batched_mstep_rows_gen": 1e-4,
                        "ss_cov_path_gen": 1e-4, "affine_scan_gen": 1e-4,
-                       "pit_elements_gen": 1e-4, "pit_scan_gen": 1e-4},
+                       "pit_elements_gen": 1e-4, "pit_scan_gen": 1e-4,
+                       "qr_elements_gen": 1e-4, "qr_scan_gen": 1e-4},
        torch.float64: {"quad_local": 1e-10, "obs_stats": 1e-10,
                        "mstep_rows": 1e-9, "info_scan": 1e-9,
                        "rts_smoother": 1e-9, "ss_cov_path": 1e-9,
@@ -626,7 +670,8 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "batched_obs_stats_gen": 1e-10,
                        "batched_mstep_rows_gen": 1e-10,
                        "ss_cov_path_gen": 1e-10, "affine_scan_gen": 1e-10,
-                       "pit_elements_gen": 1e-10, "pit_scan_gen": 1e-10}}
+                       "pit_elements_gen": 1e-10, "pit_scan_gen": 1e-10,
+                       "qr_elements_gen": 1e-10, "qr_scan_gen": 1e-9}}
 # The TPU routine each kernel replaces.
 REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "obs_stats": "dfm_tpu/ssm/info_filter.py:69",
@@ -687,7 +732,9 @@ REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "ss_cov_path_gen": "dfm_tpu/ssm/steady.py:124",
             "affine_scan_gen": "dfm_tpu/ops/scan.py:39",
             "pit_elements_gen": "dfm_tpu/ssm/parallel_filter.py:70",
-            "pit_scan_gen": "dfm_tpu/ssm/parallel_filter.py:109"}
+            "pit_scan_gen": "dfm_tpu/ssm/parallel_filter.py:109",
+            "qr_elements_gen": "dfm_tpu/ssm/parallel_filter.py:293",
+            "qr_scan_gen": "dfm_tpu/ops/scan.py:73"}
 # The variant of each kernel whose f32 record goes into the summary line.
 SUMMARY_VARIANT = {"quad_local": "masked", "obs_stats": "masked",
                    "mstep_rows": "masked", "info_scan": "masked",
@@ -816,7 +863,7 @@ def panel(seed: int, T_: int = T, N_: int = N, K_: int = K):
 def n_combines(T_: int) -> int:
     """Combines of one blocked scan of length T_ (ops.scan.blocked_scan):
     phase 1, phase 2 (B - 2), phase 3 and the remainder."""
-    S = sc.block_size(T_)
+    S = sc.default_block_size(T_)
     B = T_ // S
     return (T_ - B) + max(B - 2, 0) + (B - 1) * S + (T_ - B * S)
 
@@ -869,49 +916,99 @@ def ss_inputs(stats, pt, tau: int):
     return path, fwd, rev
 
 
+def qr_mgs_flops(T_: int) -> dict:
+    """Operations, in units of k^3, of the one-thread square-root kernels
+    (k <= 10: modified Gram-Schmidt trias, guarded substitution) on T_
+    steps, by case."""
+    return {"elements": 21.3 * T_, "prefix": 34.0 * n_combines(T_),
+            "assemble": 15.0 * T_, "smoother": 15.0 * T_,
+            "suffix": 8.0 * n_combines(T_), "smoother assemble": 4.0 * T_,
+            "tria": 4.0}
+
+
+def qr_gen_flops(T_: int) -> dict:
+    """Operations, in units of k^3, of the generic square-root kernels
+    past k = 10 on T_ steps, by case, counted from their code
+    (csrc/pit_elements.cu, csrc/pit_scan.cu): a k x k product 2, a
+    Cholesky 1/3, a triangular solve of k rows 1, a chol_solve 2, a tria
+    of [X1 | X2] two products and a Cholesky (13/3; of [X | I] one
+    product, 7/3).  Element build: 6 products, 3 Cholesky, 3 solves a
+    step (16), the t = 0 posterior 31/3.  Filter combine: 6 products, the
+    trias of Theta and Lam (7/3 each) and of U and Z, a k-row chol_solve
+    and 2 solves (88/3).  Filter assembly: 5 products, a tria and a
+    Cholesky a step (44/3; t = 0 26/3).  Smoother elements: 4 products, a
+    chol_solve, a tria and 2 Cholesky (15; the last step 1/3).  Smoother
+    combine: 2 products and a tria (25/3).  Smoother assembly: 2 products
+    (the first step 1)."""
+    return {"elements": 16.0 * (T_ - 1) + 31.0 / 3,
+            "prefix": 88.0 / 3 * n_combines(T_),
+            "assemble": 44.0 / 3 * (T_ - 1) + 26.0 / 3,
+            "smoother": 15.0 * (T_ - 1) + 1.0 / 3,
+            "suffix": 25.0 / 3 * n_combines(T_),
+            "smoother assemble": 4.0 * T_ - 2.0, "tria": 13.0 / 3}
+
+
 def qr_cases(stats, pt, label: str, unit: bool = True) -> list:
     """The square-root engine's kernels in every mode, on the elements and
-    moments the plain engine makes from ``stats``."""
+    moments the plain engine makes from ``stats``, each case named by the
+    kernel its wrapper routes to at this k (``la.check_qr_k``: past k = 10
+    the generic kernels, whose unit ops are the JAX package's generic
+    branches).  The operation counts are each kernel's own: past 10 those
+    of the generic branches (``qr_gen_flops``), not MGS's."""
     A, Q, mu0, P0 = pt.A, pt.Q, pt.mu0, pt.P0
     T_, k = stats.b.shape
     k3 = k ** 3
-    el = tuple(x.contiguous() for x in
-               pf.qr_filter_elements_plain(stats, A, Q, mu0, P0))
-    pref = tuple(x.contiguous() for x in pf.qr_scan_plain(el))
-    asm = pf.qr_filter_assemble_plain(pref[1], pref[2], stats.C, A, Q, mu0,
-                                      P0)
+    fl = (qr_gen_flops if k > la.QR_UNROLL_K_MAX else qr_mgs_flops)(T_)
+    # Each plain pass runs once: its output is the next pass's input and
+    # the comparison's reference (``plain_call``; the K8 twin takes
+    # seconds at T = 1,000).
+    el_ref = plain_call(
+        lambda: pf.qr_filter_elements_plain(stats, A, Q, mu0, P0))
+    el = tuple(x.contiguous() for x in el_ref[0])
+    pref_ref = plain_call(lambda: pf.qr_scan_plain(el))
+    pref = tuple(x.contiguous() for x in pref_ref[0])
+    asm_ref = plain_call(lambda: pf.qr_filter_assemble_plain(
+        pref[1], pref[2], stats.C, A, Q, mu0, P0))
+    asm = asm_ref[0]
     kf = FilterResult(asm[0].contiguous(), asm[1].contiguous(), pref[1],
                       asm[2].contiguous(), torch.zeros((), dtype=A.dtype))
-    (E, g, D), J = pf.qr_smoother_elements_plain(kf, A, Q)
+    sel_ref = plain_call(lambda: pf.qr_smoother_elements_plain(kf, A, Q))
+    (E, g, D), J = sel_ref[0]
     sel = (E.contiguous(), g.contiguous(), D.contiguous())
     J = J.contiguous()
-    suf = tuple(x.contiguous() for x in pf.qr_scan_plain(sel, True))
+    suf_ref = plain_call(lambda: pf.qr_scan_plain(sel, True))
+    suf = tuple(x.contiguous() for x in suf_ref[0])
     cases = [
         case("qr_elements", f"filter {label}",
              lambda: pf.qr_filter_elements(stats, A, Q, mu0, P0),
              lambda: pf.qr_filter_elements_plain(stats, A, Q, mu0, P0),
-             (stats.b, stats.C, A, Q, mu0, P0), T_ * 21.3 * k3, gram=(4,)),
+             (stats.b, stats.C, A, Q, mu0, P0), fl["elements"] * k3, gram=(4,),
+             ref=el_ref),
         case("qr_scan", f"filter {label}", lambda: pf.qr_scan(el),
-             lambda: pf.qr_scan_plain(el), el, n_combines(T_) * 34.0 * k3),
+             lambda: pf.qr_scan_plain(el), el, fl["prefix"] * k3,
+             ref=pref_ref),
         case("qr_elements", f"assemble filter {label}",
              lambda: pf.qr_filter_assemble(pref[1], pref[2], stats.C, A, Q,
                                            mu0, P0),
              lambda: pf.qr_filter_assemble_plain(pref[1], pref[2], stats.C,
                                                  A, Q, mu0, P0),
-             (pref[1], pref[2], stats.C, A, Q, mu0, P0), T_ * 15.0 * k3),
+             (pref[1], pref[2], stats.C, A, Q, mu0, P0), fl["assemble"] * k3,
+             ref=asm_ref),
         case("qr_elements", f"smoother {label}",
              lambda: pf.qr_smoother_elements(kf, A, Q),
              lambda: pf.qr_smoother_elements_plain(kf, A, Q),
              (kf.x_pred, kf.P_pred, kf.x_filt, kf.P_filt, A, Q),
-             T_ * 15.0 * k3),
+             fl["smoother"] * k3, ref=sel_ref),
         case("qr_scan", f"smoother {label}", lambda: pf.qr_scan(sel, True),
-             lambda: pf.qr_scan_plain(sel, True), sel,
-             n_combines(T_) * 8.0 * k3),
+             lambda: pf.qr_scan_plain(sel, True), sel, fl["suffix"] * k3,
+             ref=suf_ref),
         case("qr_elements", f"assemble smoother {label}",
              lambda: pf.qr_smoother_assemble(suf[2], J),
              lambda: pf.qr_smoother_assemble_plain(suf[2], J),
-             (suf[2], J), T_ * 4.0 * k3),
+             (suf[2], J), fl["smoother assemble"] * k3),
     ]
+    for c in cases:
+        c["name"] = la.check_qr_k(c["name"], k)
     if not unit:
         return cases
     # K6/K7 one function at a time, on matrices of the path: the
@@ -925,22 +1022,29 @@ def qr_cases(stats, pt, label: str, unit: bool = True) -> list:
            else stats.C.expand(T_, k, k)).contiguous()
     blk = torch.cat([A @ pref[2], la.psd_factor(Q).expand(T_, k, k)],
                     dim=-1).contiguous()
+    jit_eye = la.default_jitter(A.dtype) * torch.eye(k, dtype=A.dtype,
+                                                     device=A.device)
     unit_ops = (
         ("chol", Pp, None, k3 / 3, lambda: torch.linalg.cholesky(Pp)),
         ("chol_solve", L, Bm, 2.0 * k3,
          lambda: torch.cholesky_solve(Bm, L)),
-        ("tria", blk, None, 4.0 * k3,
-         lambda: torch.linalg.qr(blk.transpose(-1, -2))),
+        ("tria", blk, None, fl["tria"] * k3,
+         (lambda: torch.linalg.qr(blk.transpose(-1, -2)))
+         if k <= la.QR_UNROLL_K_MAX else
+         (lambda: torch.linalg.cholesky_ex(torch.baddbmm(
+             jit_eye, blk, blk.transpose(-1, -2))))),
         ("tri_solve", L, Bm, 1.0 * k3,
          lambda: torch.linalg.solve_triangular(L, Bm, upper=False)),
         ("tri_solve_trans", L, Bm, 1.0 * k3,
          lambda: torch.linalg.solve_triangular(L.transpose(-1, -2), Bm,
                                                upper=True)),
-        ("psd_factor", C_t, None, k3 / 3, None),
+        ("psd_factor", C_t, None, k3 / 3,
+         None if k <= la.QR_UNROLL_K_MAX else
+         lambda: torch.linalg.cholesky_ex(C_t + jit_eye)),
     )
     for op, X, B, fl, lib in unit_ops:
         cases.append(case(
-            "qr_elements", op,
+            la.check_qr_k("qr_elements", k), op,
             lambda op=op, X=X, B=B: la.small_linalg(op, X, B),
             lambda op=op, X=X, B=B: la.SMALL_LINALG_OPS[op][1](X, B),
             (X,) if B is None else (X, B), T_ * fl, library=lib,
@@ -1132,10 +1236,13 @@ def fit_tau(seed: int, k: int = K, offset: int = 1) -> int:
     return res.tau
 
 
-def kernel_record(c: dict, dtype, refs: dict) -> dict:
+def kernel_record(c: dict, dtype, refs: dict, timed=None) -> dict:
     """One case compared (``compare``, the f64 plain outputs kept in
-    ``refs`` as the f32 yardstick) and timed: warm and cold L2, the plain
-    twin, the library call, the bound and the latency floor."""
+    ``refs`` as the f32 yardstick) and, when ``timed`` (default: f32, the
+    dtype of every path but the mixed-frequency augmented scans, whose
+    phases pass it), timed: warm and cold L2, the plain twin, the library
+    call, the latency floor; the bound always.  An untimed record has
+    None for each time."""
     name = c["name"]
     key = (name, c["variant"])
     n0 = kernels.LAUNCHES[name]
@@ -1144,17 +1251,21 @@ def kernel_record(c: dict, dtype, refs: dict) -> dict:
         refs[key] = ref
     bound_ms, bound_by = bound(nbytes_of(c["ins"]) + nbytes_of(ref),
                                c["flops"], dtype)
+    if timed is None:
+        timed = dtype == torch.float32
     return {"name": name, "variant": c["variant"],
             "dtype": str(dtype).replace("torch.", ""),
             "max_rel_err": rel_err, "max_abs_err": abs_err, "tol": tol,
             "plain_f32_err": plain_err,
-            "kernel_ms": cuda_ms(c["run"], warm=False),
+            "kernel_ms": cuda_ms(c["run"], warm=False) if timed else None,
             "kernel_ms_cold_l2": cuda_ms_cold(
-                c["run"], c.get("cold_reps", COLD_REPS), False),
-            "plain_ms": plain_ms(c),
-            "library_ms": cuda_ms(c["library"]) if c["library"] else None,
+                c["run"], c.get("cold_reps", COLD_REPS), False)
+            if timed else None,
+            "plain_ms": plain_ms(c) if timed else None,
+            "library_ms": cuda_ms(c["library"]) if timed and c["library"]
+            else None,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "latency_ms": c["floor"]() if c["floor"] else None,
+            "latency_ms": c["floor"]() if timed and c["floor"] else None,
             "launches": kernels.LAUNCHES[name] - n0,
             **({"floored_abs_err": c["floored_abs_err"]}
                if "floored_abs_err" in c else {})}
@@ -1297,7 +1408,9 @@ OWN_FIT = {"quad_local": "masked", "obs_stats": "masked",
            "ss_cov_path_gen": "k100 unmasked auto",
            "affine_scan_gen": "k100 unmasked auto",
            "pit_elements_gen": "k100 masked pit",
-           "pit_scan_gen": "k100 masked pit"}
+           "pit_scan_gen": "k100 masked pit",
+           "qr_elements_gen": "k50 masked pit_qr",
+           "qr_scan_gen": "k50 masked pit_qr"}
 
 
 def fit_phase(seed: int) -> dict:
@@ -1958,11 +2071,17 @@ class BatchedWatch:
 def routed(counts: dict, k: int) -> dict:
     """``counts`` (calls) keyed by the kernel each entry point launches at
     k (``kernels.route``: its wide twin at 16 < k <= 32, its generic one
-    past 32), in device kernels (``kernels.DEVICE_LAUNCHES`` a call)."""
+    past 32; the square-root engine's by ``la.check_qr_k``: its generic
+    ones past 10), in device kernels (``kernels.DEVICE_LAUNCHES`` a
+    call)."""
     out = {}
     for n, c in counts.items():
-        name = (kernels.route(n, k) if n in kernels.WIDE or n in kernels.GEN
-                else n)
+        if n in ("qr_elements", "qr_scan"):
+            name = la.check_qr_k(n, k)
+        elif n in kernels.WIDE or n in kernels.GEN:
+            name = kernels.route(n, k)
+        else:
+            name = n
         out[name] = (None if c is None
                      else c * kernels.DEVICE_LAUNCHES.get(name, 1))
     return out
@@ -3940,7 +4059,7 @@ def tvl_round_breakdown(Y, res, spec) -> None:
         prev = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            tv.tvl_round_scan(Yt, None, Lt, pt, spec, 2)
+            tv.tvl_round_scan(Yt, None, Lt, pt, spec, False, 2)
         finally:
             torch.cuda.set_sync_debug_mode(prev)
         torch.cuda.synchronize()
@@ -4012,7 +4131,8 @@ def tvl_contract_phase(seed: int) -> None:
                       if masked else None)
                 pt = init.to("cuda", dtype)
                 L0 = pt.Lam0.expand(TVL_T, TVL_N, TVL_K).contiguous()
-                state[dtype] = tv.tvl_round_scan(Yt, mt, L0, pt, spec, 2)[0]
+                state[dtype] = tv.tvl_round_scan(Yt, mt, L0, pt, spec,
+                                                 masked, 2)[0]
             L64, p64 = state[torch.float64]
             ref = tv.tvl_loglik_eval(Yz, L64, p64, mask=Wm)
             L32, p32 = state[torch.float32]
@@ -4055,9 +4175,15 @@ MF_ROUTES = {"seq": dict.fromkeys(MF_NEW, 1),
                  ("obs_stats_wide", "lowrank_basis", "lowrank_scan",
                   "quad_local_wide", "lowrank_smoother"), 1),
              "pit": {"obs_stats_wide": 1, "pit_elements": 4, "pit_scan": 2,
-                     "quad_local_wide": 1}}
-# Per fit: (label, time_scan).
+                     "quad_local_wide": 1},
+             "pit_qr": {"obs_stats_wide": 1, "qr_elements_gen": 4,
+                        "qr_scan_gen": 2, "quad_local_wide": 1}}
+# Per fit: (label, time_scan); the qgen group runs ``pit_qr`` (m = 25, past
+# the square-root engine's k <= 10 kernels) beside them.
 MF_FITS = (("mf seq", "seq"), ("mf lowrank", "lowrank"), ("mf pit", "pit"))
+MF_BASE_ROUTES = ("seq", "lowrank", "pit")
+# EM it/s of each S3 fit by time_scan (mf_fit_phase fills it).
+MF_RATES: dict = {}
 
 
 def mf_spec(ts: str = "seq", nm: int = MF_NM, nq: int = MF_NQ,
@@ -4139,7 +4265,8 @@ def mf_kernel_phase(seed: int) -> dict:
             Wt = torch.as_tensor(W, dtype=dtype, device="cuda").contiguous()
             aug = mf.augment(mf.MFParams(*init).to("cuda", dtype), spec)
             for c in wide_cases(Yt, Wt, aug, "S3"):
-                rec = kernel_record(c, dtype, refs)
+                rec = kernel_record(c, dtype, refs,
+                                    dtype == MF_PATH_DTYPE[c["name"]])
                 rec.update({"T": MF_T, "N": MF_NM + MF_NQ,
                             "m": spec.state_dim})
                 emit(rec)
@@ -4172,7 +4299,7 @@ def mf_k_sweep(seed: int) -> None:
         emit({"mf_k_sweep": k, "max_rel_err": worst})
 
 
-def mf_fit_phase(seed: int) -> dict:
+def mf_fit_phase(seed: int, fits=MF_FITS, dtype=None) -> dict:
     """``fit(MixedFreqSpec(1600, 400, 5), Y, mask=W)`` at S3 on
     ``TorchBackend()`` (f32, chunks of 8, 10 iterations, tol = 0) with
     ``time_scan="seq"``, ``"lowrank"`` (rank 5) and ``"pit"``, and a
@@ -4181,12 +4308,15 @@ def mf_fit_phase(seed: int) -> dict:
     (``MF_ROUTES``) for each iteration run and the reporting smooth, and no
     other kernel.  EM it/s: the iterations after the first chunk over the
     wall between the first and the last chunk reads.  Then
-    ``mf_iteration_breakdown`` of ``seq`` and ``pit``.  Returns each fit's
-    launch counts by label."""
+    ``mf_iteration_breakdown`` of ``seq`` and ``pit``.  ``fits``: the
+    (label, time_scan) pairs (default ``MF_FITS``); a route other than
+    those is reported beside the ``seq`` and ``pit`` rates when they ran;
+    ``dtype``: the backend's (default f32).  Returns each fit's launch
+    counts by label."""
     Y, W = mf_panel(seed + 1001)
-    backend = dt.TorchBackend(fused_chunk=MF_CHUNK)
-    counts, fitted, rates = {}, {}, {}
-    for label, ts in MF_FITS:
+    backend = dt.TorchBackend(dtype=dtype, fused_chunk=MF_CHUNK)
+    counts, fitted, rates = {}, {}, MF_RATES
+    for label, ts in fits:
         need = MF_ROUTES[ts]
         spec = mf_spec(ts)
         torch.cuda.synchronize()
@@ -4208,6 +4338,7 @@ def mf_fit_phase(seed: int) -> dict:
         rates[ts] = (steady / (chunk_reads[-1] - chunk_reads[0])
                      if steady > 0 else None)
         emit({"fit": label, "spec": dataclasses.asdict(spec),
+              "dtype": str(backend.dtype)[6:],
               "shape": [MF_T, MF_NM + MF_NQ, MF_K], "n_iters": n,
               "iters_run": ran, "converged": res.converged,
               "loglik_first": float(lls[0]), "loglik_last": float(lls[-1]),
@@ -4215,7 +4346,10 @@ def mf_fit_phase(seed: int) -> dict:
               "noise_floor": noise_floor_for(torch.float32,
                                              MF_T * (MF_NM + MF_NQ)),
               "wall_s": wall,
-              "em_iters_per_sec": rates[ts], "reads": len(rw.stamps),
+              "em_iters_per_sec": rates[ts],
+              **({"beside": {b: rates.get(b) for b in ("seq", "pit")}}
+                 if ts not in MF_BASE_ROUTES else {}),
+              "reads": len(rw.stamps),
               "launches_per_iter": {nm: launches[nm] / ran for nm in need},
               "launches": {nm: v for nm, v in launches.items() if v}})
         want = {nm: per * (ran + 1) for nm, per in need.items()}
@@ -4236,10 +4370,12 @@ def mf_fit_phase(seed: int) -> dict:
             raise AssertionError(f"{label}: unexpected output shapes")
         counts[label] = launches
         fitted[ts] = res
-    emit({"mf_pit_vs_seq": {"pit_em_iters_per_sec": rates["pit"],
-                            "seq_em_iters_per_sec": rates["seq"]}})
+    if "pit" in fitted and "seq" in fitted:
+        emit({"mf_pit_vs_seq": {"pit_em_iters_per_sec": rates["pit"],
+                                "seq_em_iters_per_sec": rates["seq"]}})
     for ts in ("seq", "pit"):
-        mf_iteration_breakdown(Y, W, fitted[ts])
+        if ts in fitted:
+            mf_iteration_breakdown(Y, W, fitted[ts])
     return counts
 
 
@@ -4308,15 +4444,17 @@ def mf_small(seed: int):
     return np.where(W > 0, Y, np.nan), W
 
 
-def mf_reference_phase(seed: int) -> None:
+def mf_reference_phase(seed: int, routes=MF_BASE_ROUTES) -> None:
     """``fit(MixedFreqSpec(24, 8, 5))`` at 60 steps (``mf_small``), 6
-    iterations, tol = 0, chunks of 3, ``seq``, ``lowrank`` (rank 4) and
-    ``pit``, on the card in f64 against the CPU in f64 within 1e-9
-    relative (1e-10 for ``pit``; logliks, params, nowcast, factors,
+    iterations, tol = 0, chunks of 3, each of ``routes`` (default ``seq``,
+    ``lowrank`` at rank 4 and ``pit``; the qgen group's ``pit_qr``), on
+    the card in f64 against the CPU in f64 within 1e-9 relative (1e-10
+    for ``pit`` and ``pit_qr``; logliks, params, nowcast, factors,
     state_T, forecast)."""
     Y, W = mf_small(seed + 1002)
     errs = {}
-    for ts, need in MF_ROUTES.items():
+    for ts in routes:
+        need = MF_ROUTES[ts]
         spec = mf_spec(ts, nm=24, nq=8, rank=4)
         res = {}
         for dev in ("cuda", "cpu"):
@@ -4340,23 +4478,25 @@ def mf_reference_phase(seed: int) -> None:
                   for f in mf.MFParams._fields if f != "mu0"]   # mu0 = 0
         for name, g, c in pairs:
             errs[f"{ts} {name}"] = rel_err(g, c)
-    tol = {"seq": 1e-9, "lowrank": 1e-9, "pit": 1e-10}
-    emit({"reference": "mf", "shape": [60, 32, 5], "m": 25, "iters": 6,
+    tol = {"seq": 1e-9, "lowrank": 1e-9, "pit": 1e-10, "pit_qr": 1e-10}
+    emit({"reference": "mf", "routes": list(routes), "shape": [60, 32, 5],
+          "m": 25, "iters": 6,
           "max_rel_err": errs, "tol": tol})
     bad = {n: e for n, e in errs.items() if not e <= tol[n.split()[0]]}
     if bad:
         raise AssertionError(f"mf card fit disagrees with the CPU fit: {bad}")
 
 
-def mf_contract_phase(seed: int) -> None:
+def mf_contract_phase(seed: int, routes=MF_BASE_ROUTES) -> None:
     """The loglik contract of S3 (BASELINE.json:5, bench/run.py:173-176):
     from one init (the fit's PCA warm start), 2 EM iterations in f32 and in
-    f64 on the card (``mf_em_scan``), ``seq``, ``lowrank`` and ``pit``; the
-    f32 params re-evaluated by ``mf_loglik_eval(precise=True)`` (the
-    augmented info-form filter in f64) against the f64 params' after their
-    2 iterations, within 1e-5 relative."""
+    f64 on the card (``mf_em_scan``), each of ``routes`` (default ``seq``,
+    ``lowrank`` and ``pit``; the qgen group's ``pit_qr``); the f32 params
+    re-evaluated by ``mf_loglik_eval(precise=True)`` (the augmented
+    info-form filter in f64) against the f64 params' after their 2
+    iterations, within 1e-5 relative."""
     pan = mf_panel(seed + 1001)
-    for ts in ("seq", "lowrank", "pit"):
+    for ts in routes:
         spec = mf_spec(ts)
         Yz, W, init = mf_inputs(pan, spec)
         params = {}
@@ -4660,8 +4800,9 @@ def sv_kernel_phase(seed: int, fit) -> dict:
     """Phase 31: K10-fwd (residual and expanded) and K10-ffbs against
     their plain twins at S5's full width, on the same draws: the panel
     standardized as the fit saw it, the fit's params, sigma_h and h_0
-    center; f64 then f32 (``sv_compare``, ``ffbs_compare``); timed.
-    Returns the f32 residual and FFBS records by name."""
+    center; f64 then f32 (``sv_compare``, ``ffbs_compare``); timed in f32,
+    the path's dtype.  Returns the f32 residual and FFBS records by
+    name."""
     Y, _ = sv_panel(seed + 1101)
     Yz = fit.standardizer.transform(Y)
     spec = dt.SVSpec(n_factors=SV_K, n_particles=SV_M)
@@ -4669,7 +4810,8 @@ def sv_kernel_phase(seed: int, fit) -> dict:
     summary = {}
     for dtype in (torch.float64, torch.float32):
         for rec in sv_kernel_cases(Yz, fit.params, fit.sigma_h, fit.h_center,
-                                   spec, draws, dtype, "S5", timed=True):
+                                   spec, draws, dtype, "S5",
+                                   timed=dtype == torch.float32):
             emit(rec)
             if dtype == torch.float32 and rec["variant"] in ("S5 residual",
                                                              "S5"):
@@ -4977,7 +5119,7 @@ def pit_chain(T_: int) -> list:
     """The combines in sequence of one K14-scan pass: phase 1 (S - 1),
     phase 2 (B - 2), phase 3 (one, every element in parallel) and the
     tail (T - T0)."""
-    S = sc.block_size(T_)
+    S = sc.default_block_size(T_)
     B = T_ // S
     return [S - 1, max(B - 2, 0), int(B > 1), T_ - B * S]
 
@@ -5081,7 +5223,9 @@ def pit_kernel_phase(seed: int) -> dict:
             for label, stats, pt in pit_shapes(seed, dtype):
                 T_, k = stats.b.shape
                 for c in pit_cases(stats, pt, label):
-                    rec = kernel_record(c, dtype, refs)
+                    # S3's augmented scans run in f64 on the MF path.
+                    rec = kernel_record(c, dtype, refs, (
+                        dtype == torch.float64) == (label == "S3"))
                     rec.update({"T": T_, "k": k})
                     if c["name"] == "pit_scan":
                         rec["combines_in_sequence"] = pit_chain(T_)
@@ -6898,6 +7042,527 @@ def sgen_contract_phase(seed: int) -> None:
     loglik_contract(f"k{k} masked pit", Ynan, W, k, "pit")
 
 
+# ---------------------------------------------------------------------------
+# The square-root engine past k = 10 (qgen): qr_elements_gen and qr_scan_gen
+# (K8-gen), the JAX package's generic branches of tria, tri_solve,
+# psd_factor and the element builds' Cholesky factorizations and solves.
+# ---------------------------------------------------------------------------
+
+QGEN_KS = (25, 50, 100)
+QGEN_SWEEP = (11, 16, 25, 32, 33, 64, 128)
+QGEN_SWEEP_SHAPE = (97, 300)      # (T, N): S = 9, B = 10, a tail of 7
+QGEN_FIT_KS = (25, 50)
+QGEN_ITERS = 10
+# The fits each pit_qr fit sits beside (info and pit at the same k on the
+# same panel: the wide group's at k = 25, kbig's and sgen's at k = 50, when
+# those groups ran).
+QGEN_BESIDE = {25: ("k25 masked auto", "k25 masked pit"),
+               50: ("k50 masked auto", "k50 masked pit")}
+# Past k = 10 the reference forms tria from the Gram matrix with the
+# dtype's jitter (1e-6 in f32, 1e-10 in f64) on posterior factors whose Gram
+# is O(1/N): the square-root loglik is far from the exact one at N =
+# 10,000 in either package.  The kernel path is held to the plain twins on
+# the card: its loglik error from the exact f64 one at most QR_ERR_MULT
+# times the twins' (plus QR_ERR_FLOOR), and the gap between the two paths,
+# |kernel - twin| / |exact|, at most QR_GAP_F64 in f64 and, in f32, at
+# most QR_GAP_F32 (the other engines' loglik limit) or QR_GAP_F32_SHARE of
+# the twins' own error, whichever is larger.
+QR_ERR_MULT, QR_ERR_FLOOR = 2.0, 1e-12
+QR_GAP_F64, QR_GAP_F32, QR_GAP_F32_SHARE = 1e-6, 1e-5, 1e-3
+# The fitted params of the qgen fits by k (qgen_fit_phase fills it).
+QGEN_FITTED: dict = {}
+
+
+def qgen_panel(seed: int, k: int):
+    """The headline panel simulated at k factors: the wide group's panel
+    at k = 25, kbig's and sgen's elsewhere (the fits beside)."""
+    if k == WIDE_K:
+        return panel(seed + WIDE_SEED, K_=k)
+    return panel(seed + KBIG_SEED + k, K_=k)
+
+
+def qgen_kernel_phase(seed: int) -> dict:
+    """Every mode of qr_elements_gen (the filter and smoother elements,
+    both assemblies, the six K6/K7 unit ops on matrices of the path) and
+    both passes of qr_scan_gen against their plain twins on the masked
+    headline panel at k = 25, 50 and 100, f64 then f32 (the TOL rule; f32
+    timed warm and cold L2 beside the plain twin, the bound and the unit
+    ops' one-call yardsticks), then on S3's augmented state (m = 25, the
+    fit's PCA init) in f64, the mixed-frequency path's dtype, timed.
+    Calls over ~50 ms (the k = 100 prefix) take one cold-L2 call.  Returns
+    the f32 records at k = 50 (the widest fit's, whose launches the
+    summary line reports) of the filter element build and the prefix.
+    (S3's augmented C_t has rank 10 of 25: the
+    reference's f32 psd_factor, a Cholesky with a 1e-6 jitter, fails on it
+    with NaN, which is why that route's scans run in f64.)"""
+    summary = {}
+    for k in QGEN_KS:
+        pan = qgen_panel(seed, k)
+        refs = {}
+        for dtype in (torch.float64, torch.float32):
+            with highest_precision():
+                stats, _, pt = sgen_stats(*pan, dtype)
+                for c in qr_cases(stats, pt, "masked"):
+                    if k == QGEN_KS[-1] and c["name"] == "qr_scan_gen":
+                        c["cold_reps"] = 1
+                    rec = kernel_record(c, dtype, refs)
+                    rec["k"] = k
+                    if c["name"] == "qr_scan_gen":
+                        rec["combines_in_sequence"] = pit_chain(T)
+                    emit(rec)
+                    if (dtype == torch.float32 and k == QGEN_FIT_KS[-1]
+                            and c["variant"] == "filter masked"):
+                        summary[c["name"]] = rec
+                del stats, pt
+            torch.cuda.empty_cache()
+        del pan, refs
+    spec = mf_spec("pit_qr")
+    Yz, Wm, init = mf_inputs(mf_panel(seed + 1000), spec)
+    f64 = torch.float64
+    with highest_precision():
+        aug = mf.augment(mf.MFParams(*init).to("cuda", f64), spec)
+        stats = inf.ObsStats(*(x.contiguous() for x in inf.obs_stats_plain(
+            torch.as_tensor(Yz, dtype=f64, device="cuda"), aug.Lam, aug.R,
+            torch.as_tensor(Wm, dtype=f64, device="cuda"))))
+        for c in qr_cases(stats, aug, "S3", unit=False):
+            rec = kernel_record(c, f64, {}, True)
+            rec.update({"T": MF_T, "m": spec.state_dim})
+            emit(rec)
+    return summary
+
+
+def qgen_raise_calls(k: int) -> dict:
+    """Every entry point of the square-root engine's kernels called at k
+    on card tensors of zeros (T = 5)."""
+    z = dict(dtype=torch.float32, device="cuda")
+    mats, vecs = torch.zeros((5, k, k), **z), torch.zeros((5, k), **z)
+    eye, v0 = torch.eye(k, **z), torch.zeros(k, **z)
+    st = inf.ObsStats(vecs, mats, torch.zeros(5, **z), torch.zeros(5, **z))
+    kf = FilterResult(vecs, mats, vecs, mats, None)
+    return {"filter elements": lambda: pf.qr_filter_elements(
+                st, eye, eye, v0, eye),
+            "prefix": lambda: pf.qr_scan((mats, vecs, mats, vecs, mats)),
+            "assemble": lambda: pf.qr_filter_assemble(
+                vecs, mats, mats, eye, eye, v0, eye),
+            "smoother elements": lambda: pf.qr_smoother_elements(
+                kf, eye, eye),
+            "suffix": lambda: pf.qr_scan((mats, vecs, mats), True),
+            "smoother assemble": lambda: pf.qr_smoother_assemble(
+                mats, mats[:4]),
+            "unit": lambda: la.small_linalg("chol", mats)}
+
+
+def qgen_k_sweep(seed: int) -> None:
+    """Every mode of the square-root kernels through their wrappers at k =
+    10 (the one-thread kernels, which must still be the ones launched) and
+    at k in QGEN_SWEEP (the generic ones, on both sides of 32) on
+    QGEN_SWEEP_SHAPE panels, f64 and f32 (error checks only): a per-step C
+    on the masked panel (step 0 fully missing, series 3 never observed)
+    and the static C of the fully observed one (the unit ops on the
+    masked panel's matrices); in f64 also with step 7 observing fewer
+    than k series (in f32 the reference's psd_factor of
+    that rank-deficient C_t, a Cholesky with a 1e-6 jitter, is NaN in the
+    plain twin itself past k ~ 32).  Then k = 129 must raise
+    NotImplementedError naming the ROADMAP row in every entry point before
+    any launch."""
+    T_, N_ = QGEN_SWEEP_SHAPE
+    for k in (la.QR_UNROLL_K_MAX,) + QGEN_SWEEP:
+        _, W, Yfull, p = panel(seed + KBIG_SEED + 400 + k, T_=T_, N_=N_,
+                               K_=k)
+        W[0] = 0.0
+        W[:, 3] = 0.0
+        Wd = W.copy()
+        Wd[7] = 0.0
+        Wd[7, :k - 1] = 1.0
+        Wd[7, 3] = 0.0
+        refs, worst = {}, {}
+        kernels.reset_launches()
+        for dtype, Wm, label in ((torch.float64, Wd, "rank-deficient"),
+                                 (torch.float64, W, "masked"),
+                                 (torch.float32, W, "masked")):
+            Ynan = np.where(Wm > 0, Yfull, np.nan)
+            with highest_precision():
+                stats, ustats, pt = sgen_stats(Ynan, Wm, Yfull, p, dtype)
+                cases = qr_cases(stats, pt, label, unit=label == "masked")
+                if label == "masked":
+                    cases += qr_cases(ustats, pt, "static", unit=False)
+                for c in cases:
+                    key = (c["name"], c["variant"])
+                    _, rel, _, ref, _ = compare(c, dtype, refs.get(key))
+                    refs[key] = ref
+                    name = f"{c['name']} {c['variant']} {str(dtype)[6:]}"
+                    worst[name] = max(worst.get(name, 0.0), rel)
+        launched = {n: v for n, v in kernels.LAUNCHES.items() if v}
+        emit({"qgen_k_sweep": k, "shape": QGEN_SWEEP_SHAPE,
+              "max_rel_err": worst, "launches": launched})
+        want = {la.check_qr_k("qr_elements", k), la.check_qr_k("qr_scan", k)}
+        if set(launched) != want:
+            raise AssertionError(f"qgen k = {k}: launched {launched}, "
+                                 f"expected only {want}")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    raised = {}
+    for name, fn in qgen_raise_calls(kernels.GEN_KMAX + 1).items():
+        try:
+            fn()
+        except NotImplementedError as e:
+            raised[name] = kernels.GENERIC_K in str(e)
+    launched = sum(kernels.LAUNCHES.values())
+    emit({"qgen_k129_raised": raised, "launches": launched})
+    if len(raised) != 7 or not all(raised.values()) or launched:
+        raise AssertionError(f"k = 129: only {raised} raised, {launched} "
+                             "launches")
+
+
+def qgen_fit_launches(k: int, ran: int) -> dict:
+    """A masked pit_qr fit's launches, exactly, for ``ran`` iterations:
+    four qr_elements and two qr_scan, K2, K1 (``quad_local``) and K3 an
+    iteration; K2 and K1 once more and the K4 pair once for the reporting
+    smooth (the info pair)."""
+    return routed({"qr_elements": 4 * ran, "qr_scan": 2 * ran,
+                   "obs_stats": ran + 1, "quad_local": ran + 1,
+                   "mstep_rows": ran, "info_scan": 1, "rts_smoother": 1}, k)
+
+
+def qgen_fit_phase(seed: int) -> dict:
+    """``fit(filter="pit_qr")`` on the masked headline panel simulated at
+    k = 25 and 50, 10 iterations, tol = 0, f32, with a 12-step forecast:
+    finite outputs, exactly ``qgen_fit_launches`` for the iterations the
+    device ran (whole chunks), one read a chunk (and the result's).  The
+    f32 square-root loglik past 10 carries the reference's Gram-branch
+    jitter (``QR_ERR_MULT``), so the stop rule may end the fit early as
+    diverged: the fit's iterations, stop and drops are reported, not
+    gated.  EM it/s from ``em_fit_scan`` at the fitted params (two timed
+    runs of a chunk after a warm one; ``RATES`` holds it) beside info and
+    pit at the same k.  Returns the launch counts by label."""
+    counts = {}
+    floor = noise_floor_for(torch.float32, T * N)
+    for k in QGEN_FIT_KS:
+        Ynan, W, _, _ = qgen_panel(seed, k)
+        label = f"k{k} masked pit_qr"
+        model = dt.DynamicFactorModel(n_factors=k, dynamics="ar1")
+        backend = dt.TorchBackend(filter="pit_qr")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with ReadWatch() as rw:
+            t0 = time.perf_counter()
+            res = dt.fit(model, Ynan, backend=backend, max_iters=QGEN_ITERS,
+                         tol=0.0)
+            y_fore, f_fore = dt.forecast(res, 12)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        lls = res.logliks
+        n = len(lls)
+        chunk = backend.fused_chunk
+        n_chunks = -(-n // chunk)
+        ran = min(QGEN_ITERS, n_chunks * chunk)
+        drops = [i for i in range(1, n) if lls[i] < lls[i - 1] - floor]
+        want = qgen_fit_launches(k, ran)
+        bad = {nm: v for nm, v in launches.items() if v != want.get(nm, 0)}
+        rate = qgen_em_rate(Ynan, W, res.params, chunk)
+        rec = {"fit": label, "filter": res.filter, "k": k, "n_iters": n,
+               "iterations_run": ran, "converged": res.converged,
+               "loglik_first": float(lls[0]), "loglik_last": float(lls[-1]),
+               "logliks": [float(x) for x in lls],
+               "noise_floor": floor, "drops_past_floor": drops,
+               "wall_s": wall, "em_iters_per_sec": rate,
+               "beside": {b: RATES.get(b) for b in QGEN_BESIDE.get(k, ())},
+               "launches_per_iter": {
+                   nm: launches[nm] / ran for nm in
+                   ("qr_elements_gen", "qr_scan_gen")},
+               "reads": len(rw.stamps) + 1, "n_chunks": n_chunks,
+               "launches": {nm: v for nm, v in launches.items() if v}}
+        emit(rec)
+        RATES[label] = rate
+        QGEN_FITTED[k] = res.params
+        if res.filter != "pit_qr" or not np.isfinite(lls).all():
+            raise AssertionError(f"{label}: {res.filter}, non-finite "
+                                 "logliks")
+        for name, arr in (("factors", res.factors), ("y_fore", y_fore),
+                          ("f_fore", f_fore)):
+            if not np.isfinite(arr).all():
+                raise AssertionError(f"{label}: non-finite {name}")
+        if bad or len(rw.stamps) != n_chunks:
+            raise AssertionError(f"{label}: launches off {want}: {bad}; "
+                                 f"chunk reads {len(rw.stamps)} of "
+                                 f"{n_chunks}")
+        counts[label] = launches
+    return counts
+
+
+def qgen_em_rate(Ynan, W, p0, chunk: int) -> float:
+    """EM iterations a second of the f32 pit_qr E-step and M-step
+    (``em_fit_scan``, ``chunk`` iterations a run, no stop rule) from the
+    params ``p0`` on the standardized panel: the mean of two timed runs
+    after a warm one, each ending in a synchronize."""
+    Z, _ = data.standardize(Ynan, mask=W)
+    cfg = EMConfig(filter="pit_qr")
+    with highest_precision():
+        Zt = torch.as_tensor(np.where(W > 0, np.nan_to_num(Z), 0.0),
+                             dtype=torch.float32, device="cuda").contiguous()
+        Wt = torch.as_tensor(W, dtype=torch.float32,
+                             device="cuda").contiguous()
+        pt = SSMParams.from_numpy(p0, dtype=torch.float32, device="cuda")
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            em_fit_scan(Zt, pt, chunk, mask=Wt, cfg=cfg)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    return 2 * chunk / sum(walls[1:])
+
+
+def qr_loglik_plain(Yt, pt, mt) -> float:
+    """``pit_qr_filter``'s loglik with every kernel's plain twin, on the
+    tensors' device and in their dtype."""
+    st = inf.ObsStats(*inf.obs_stats_plain(Yt, pt.Lam, pt.R, mt))
+    el = pf.qr_filter_elements_plain(st, pt.A, pt.Q, pt.mu0, pt.P0)
+    pref = pf.qr_scan_plain(el)
+    x_pred, _, P_f, logdetG = pf.qr_filter_assemble_plain(
+        pref[1], pref[2], st.C, pt.A, pt.Q, pt.mu0, pt.P0)
+    quad = inf.quad_local_plain(Yt, pt.Lam, pt.R, x_pred, mt)
+    return float(inf.loglik_from_terms(st, logdetG, P_f, quad,
+                                       inf.u_from_stats(st, x_pred)))
+
+
+def qr_gap_limit(dtype, twin_err: float) -> float:
+    """The largest |kernel - twin| / |exact| loglik gap allowed between
+    the square-root kernel path and its plain twins in ``dtype``, given
+    the twins' own relative error ``twin_err``."""
+    if dtype == torch.float64:
+        return QR_GAP_F64
+    return max(QR_GAP_F32, QR_GAP_F32_SHARE * twin_err)
+
+
+def qgen_contract_phase(seed: int) -> None:
+    """The square-root loglik past 10 on the masked headline panel at k =
+    25 and 50, at the device PCA init and at the qgen fit's params: the
+    kernel path (``pit_qr_filter``) and the plain twins on the card, each
+    in f32 and f64, against the exact f64 loglik (the info filter,
+    ``loglik_eval(precise=True)``).  Printed on one line a point; the
+    kernel path's error at most QR_ERR_MULT times the twins' (+
+    QR_ERR_FLOOR) in each dtype, as the reference's Gram branch puts both
+    far from 1e-5 at N = 10,000 (the f64 figures are the reference's own;
+    the 1e-5 contract of the augmented S3 route is ``mf_contract_phase``'s),
+    and the gap between the paths within ``qr_gap_limit``."""
+    dev = torch.device("cuda")
+    for k in QGEN_FIT_KS:
+        Ynan, W, _, _ = qgen_panel(seed, k)
+        Z, _ = data.standardize(Ynan, mask=W)
+        Z = np.where(W > 0, np.nan_to_num(Z), 0.0)
+        with highest_precision():
+            Z64 = torch.as_tensor(Z, dtype=torch.float64, device=dev)
+            points = {"init": pca_init_device(Z64, k)}
+            if k in QGEN_FITTED:
+                points["fitted"] = QGEN_FITTED[k]
+            for where, p in points.items():
+                exact = inf.loglik_eval(Z64, p, mask=W, precise=True)
+                errs = {}
+                for dtype in (torch.float32, torch.float64):
+                    Yt = torch.as_tensor(Z, dtype=dtype, device=dev)
+                    mt = torch.as_tensor(W, dtype=dtype, device=dev)
+                    pt = SSMParams.from_numpy(p, dtype=dtype, device=dev)
+                    kern = float(pf.pit_qr_filter(Yt, pt, mt).loglik)
+                    twin = qr_loglik_plain(Yt, pt, mt)
+                    e = {"kernel": abs(kern - exact) / abs(exact),
+                         "twin": abs(twin - exact) / abs(exact),
+                         "gap": abs(kern - twin) / abs(exact)}
+                    e["gap_limit"] = qr_gap_limit(dtype, e["twin"])
+                    errs[str(dtype)[6:]] = e
+                emit({"qr_contract": f"k{k} masked pit_qr {where}", "k": k,
+                      "N": N, "loglik_exact_f64": exact, "rel_err": errs,
+                      "mult": QR_ERR_MULT})
+                bad = {d: e for d, e in errs.items() if not (
+                    e["kernel"] <= QR_ERR_MULT * e["twin"] + QR_ERR_FLOOR
+                    and e["gap"] <= e["gap_limit"])}
+                if bad:
+                    raise AssertionError(f"pit_qr k = {k} ({where}): the "
+                                         f"kernel path's loglik error past "
+                                         f"{QR_ERR_MULT} x the twins' or "
+                                         f"its gap from them past the "
+                                         f"limit: {bad}")
+
+
+def qgen_mf_contract_phase(seed: int) -> None:
+    """The S3 ``pit_qr`` route's loglik (m = 25: the generic kernels on
+    the augmented state).  f64: 2 EM iterations from the fit's PCA init
+    (``mf_em_scan``) on the card (the kernels) and on the CPU (the plain
+    twins); each trajectory's loglik at its 2-update params against
+    ``mf_loglik_eval(precise=True)`` (the augmented info-form filter) of the
+    same params: the card's error at most QR_ERR_MULT times the CPU's (+
+    QR_ERR_FLOOR) and the card's loglik within QR_GAP_F64 (relative to
+    the exact one) of the CPU's, the 1e-5 limit printed beside (the
+    reference's jitter
+    puts the route ~1.5e-4 from it at S3).  f32: the route's E-step from
+    the same init on the card and on the CPU: the reference's psd_factor
+    of the rank-10 augmented C_t (widened from f32 statistics) fails, so
+    the loglik must be non-finite on both, or finite on both."""
+    pan = mf_panel(seed + 1001)
+    spec = mf_spec("pit_qr")
+    Yz, W, init = mf_inputs(pan, spec)
+    errs, lls32, own64 = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        with highest_precision():
+            for dtype in (torch.float64, torch.float32):
+                Yt = torch.as_tensor(Yz, dtype=dtype, device=dev)
+                Wt = torch.as_tensor(W, dtype=dtype, device=dev)
+                p0 = mf.MFParams(*init).to(dev, dtype)
+                if dtype == torch.float32:
+                    lls32[dev] = float(mf.mf_em_core(
+                        Yt.contiguous(), Wt.contiguous(), p0, spec)[1])
+                    continue
+                p2 = mf.mf_em_scan(Yt.contiguous(), Wt.contiguous(), p0,
+                                   spec, 2)[0]
+                own = float(mf.mf_em_core(Yt.contiguous(), Wt.contiguous(),
+                                          p2, spec)[1])
+                exact = mf.mf_loglik_eval(Yz, W, p2, spec, device=dev)
+                errs[dev] = abs(own - exact) / abs(exact)
+                own64[dev], exact64 = own, exact
+    gap = abs(own64["cuda"] - own64["cpu"]) / abs(exact64)
+    emit({"qr_contract": "mf pit_qr S3", "m": spec.state_dim,
+          "shape": [MF_T, MF_NM + MF_NQ, MF_K], "iters": 2,
+          "f64_rel_err": {"card": errs["cuda"], "cpu_twins": errs["cpu"],
+                          "gap": gap, "gap_limit": QR_GAP_F64},
+          "limit_1e-5_met": errs["cuda"] < 1e-5, "mult": QR_ERR_MULT,
+          "f32_loglik": lls32})
+    if not (errs["cuda"] <= QR_ERR_MULT * errs["cpu"] + QR_ERR_FLOOR
+            and gap <= QR_GAP_F64):
+        raise AssertionError(f"mf pit_qr (f64): the card's loglik error "
+                             f"past {QR_ERR_MULT} x the twins' or its gap "
+                             f"from them past {QR_GAP_F64}: {errs}, {gap}")
+    if np.isfinite(lls32["cuda"]) != np.isfinite(lls32["cpu"]):
+        raise AssertionError(f"mf pit_qr (f32): finite on one path only: "
+                             f"{lls32}")
+
+
+def qgen_session_phase(seed: int) -> dict:
+    """``fit(fused=True)`` with ``filter="pit_qr"`` on the masked k = 25
+    panel's first 480 rows (10 iterations, tol = 0, f32), then a pit_qr
+    session on it at capacity 1,000 with 3 queries of 2 rows and a
+    re-forecast: one read a query under the sync check, K13 and
+    qr_scan_gen every query, no k <= 10 square-root kernel.  Returns the
+    launch counts by label."""
+    k = WIDE_K
+    Ynan = qgen_panel(seed, k)[0]
+    model = dt.DynamicFactorModel(n_factors=k, dynamics="ar1")
+    backend = dt.TorchBackend(filter="pit_qr")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    fused = dt.fit(model, Ynan[:SESSION_T0], backend=backend, fused=True,
+                   max_iters=QGEN_ITERS, tol=0.0)
+    wall = time.perf_counter() - t0
+    launches = {nm: v for nm, v in kernels.LAUNCHES.items() if v}
+    emit({"fused_fit": f"k{k} pit_qr", "filter": fused.filter,
+          "n_iters": fused.n_iters, "converged": fused.converged,
+          "host_reads": fused.host_reads, "wall_s": wall,
+          "loglik_last": float(fused.logliks[-1]), "launches": launches})
+    if (fused.filter != "pit_qr" or not np.isfinite(fused.logliks).all()
+            or launches.get("qr_scan") or launches.get("qr_elements")
+            or launches.get("qr_scan_gen", 0) < 2 * fused.n_iters):
+        raise AssertionError(f"k = {k} pit_qr fused fit failed: "
+                             f"{fused.filter}, launches {launches}")
+    sess = dt.open_session(fused, Ynan[:SESSION_T0], backend=backend,
+                           capacity=1000, max_update_rows=8, max_iters=5,
+                           tol=0.0)
+    drive_session(sess, f"pit_qr k{k}", Ynan, "pit_qr", "qr_scan_gen",
+                  queries=KBIG_SESSION_QUERIES)
+    counts = {f"pit_qr k{k} session": dict(kernels.LAUNCHES)}
+    sess.close()
+    if counts[f"pit_qr k{k} session"].get("qr_scan"):
+        raise AssertionError(f"pit_qr k{k} session launched the k <= 10 "
+                             "scan kernel")
+    return counts
+
+
+# A small pit_qr fleet past 10: two tenants (T0, N, k), each lane the lone
+# square-root engine at the bucket's k.
+QGEN_FLEET_SHAPES = ((100, 300, 12), (90, 250, 14))
+QGEN_FLEET_DRAINS, QGEN_FLEET_CAP = 2, 120
+
+
+def qgen_fleet_phase(seed: int) -> dict:
+    """A pit_qr fleet bucket of two tenants past k = 10
+    (``QGEN_FLEET_SHAPES``: k = 12 and 14, padded to 14), 2 drains of
+    FLEET_ROWS rows, beside lone pit_qr sessions on the same queries: in
+    f64 every lane equals its lone session within 1e-9 relative; in f32
+    (the card's default) finite outputs.  Each drain one K13b, one read,
+    qr_scan_gen and no k <= 10 square-root kernel nor K4b.  Returns the f32
+    drains' launch counts."""
+    held = QGEN_FLEET_DRAINS * FLEET_ROWS
+    tenants = fleet_tenants(seed + 1700, QGEN_FLEET_SHAPES, held)
+    kw = dict(capacity=QGEN_FLEET_CAP, max_update_rows=FLEET_ROWS,
+              max_iters=FLEET_ITERS, tol=0.0, filter="pit_qr")
+    rec = {"fleet": "pit_qr k14", "B": 2, "drains": QGEN_FLEET_DRAINS,
+           "sync_checked": True}
+    fields = lambda u: {"nowcast": u.nowcast, "factors": u.factors,  # noqa: E731
+                        "forecast y": u.forecasts["y"]}
+    last = {}
+    for dtype in (torch.float64, torch.float32):
+        backend = dt.TorchBackend(dtype=dtype, filter="info")
+        fleet = dt.open_fleet([t[0] for t in tenants],
+                              [t[1] for t in tenants], max_classes=1,
+                              backend=backend, **kw)
+        fleet.check_sync = True
+        lone = [dt.open_session(t[0], t[1], backend=backend, **kw)
+                for t in tenants]
+        walls, errs = [], {}
+        for d in range(QGEN_FLEET_DRAINS):
+            lo = d * FLEET_ROWS
+            for i, t in enumerate(tenants):
+                fleet.submit(f"t{i}", t[2][lo:lo + FLEET_ROWS])
+            out, wall, launches, reads = drain_timed(fleet)
+            check_fleet_out("pit_qr k14", out,
+                            {f"t{i}": s[1] for i, s in
+                             enumerate(QGEN_FLEET_SHAPES)})
+            if (launches["batched_ring_append"] != 1 or reads != 1
+                    or launches["qr_scan_gen"] < 1 or launches["qr_scan"]
+                    or launches["info_scan"]
+                    or launches["batched_info_scan"]):
+                raise AssertionError(f"pit_qr fleet drain {d}: launches "
+                                     f"{launches}, reads {reads}")
+            last = launches
+            walls.append(wall)
+            for i, t in enumerate(tenants):
+                u = out[f"t{i}"][0]
+                ref = lone[i].update(t[2][lo:lo + FLEET_ROWS])
+                fu, fr = fields(u), fields(ref)
+                e = errs.setdefault("fleet_vs_lone", {})
+                for f in fu:
+                    if not np.isfinite(fu[f]).all():
+                        raise AssertionError(f"pit_qr fleet lane {i} "
+                                             f"({dtype}): non-finite {f}")
+                    e[f] = max(e.get(f, 0.0), rel_err(fu[f], fr[f]))
+        rec[str(dtype)[6:]] = {"tick_p50_ms": pct(walls, 50) * 1e3,
+                               "ticks_ms": [w * 1e3 for w in walls],
+                               "max_rel_err": errs}
+        for s_ in lone:
+            s_.close()
+        fleet.close()
+    rec["float64"]["tol"] = 1e-9
+    emit(rec)
+    bad = {f: e for f, e in rec["float64"]["max_rel_err"]["fleet_vs_lone"]
+           .items() if not e <= 1e-9}
+    if bad:
+        raise AssertionError(f"pit_qr fleet (f64) off its lone sessions: "
+                             f"{bad}")
+    return {"fleet pit_qr k14": last}
+
+
+def qgen_reference_phase(seed: int) -> None:
+    """``fit(filter="pit_qr")`` at 120 x 80, k = 40, masked (scattered
+    missing values, a ragged edge, one series observed at its first step
+    alone), card f64 against CPU f64 within 1e-12."""
+    k = SGEN_REF_K
+    _, W, Yfull, _ = panel(seed + KBIG_SEED + k + 100, T_=120, N_=80, K_=k)
+    W[:, 5] = 0.0
+    W[0, 5] = 1.0
+    reference_fit("k40 masked pit_qr", np.where(W > 0, Yfull, np.nan), k,
+                  "pit_qr", 1e-12)
+
+
 def ptxas_summary(source: str) -> dict:
     """Build seconds and, over the k = 10 instantiations of ``source``
     (every function for a source without a k template), the largest
@@ -6931,7 +7596,8 @@ def ptxas_summary(source: str) -> dict:
 
 # Phase groups of ``--phases``, in run order.
 PHASES = ("headline", "session", "batched", "fleet", "lowrank", "tvl", "mf",
-          "sv", "pit", "dense", "wide", "bwide", "kbig", "bgen", "sgen")
+          "sv", "pit", "dense", "wide", "bwide", "kbig", "bgen", "sgen",
+          "qgen")
 
 
 def main() -> int:
@@ -7099,6 +7765,19 @@ def main() -> int:
             launches.update(timed(kbig_mf_phase, seed, "pit"))
             timed(sgen_reference_phase, seed)
             timed(sgen_contract_phase, seed)
+        elif group == "qgen":
+            summary.update(timed(qgen_kernel_phase, seed))
+            timed(qgen_k_sweep, seed)
+            launches.update(timed(qgen_fit_phase, seed))
+            launches.update(timed(mf_fit_phase, seed,
+                                  (("mf pit_qr", "pit_qr"),),
+                                  torch.float64))
+            timed(mf_reference_phase, seed, ("pit_qr",))
+            timed(qgen_mf_contract_phase, seed)
+            launches.update(timed(qgen_session_phase, seed))
+            launches.update(timed(qgen_fleet_phase, seed))
+            timed(qgen_reference_phase, seed)
+            timed(qgen_contract_phase, seed)
         group_s[group] = time.perf_counter() - t0
         emit({"group_s": {group: group_s[group]},
               "script_s": time.perf_counter() - t_start})

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from .backends import cpu_ref
-from .estim.em import EMConfig, noise_floor_for, run_em_chunked
+from .estim.em import EMConfig, fit_em_chunked, noise_floor_for
 from .estim.fused import resolve_fused, run_fused
 from .estim.init import pca_init_device, standardize_device
 from .models.mixed_freq import (MFParams, MFResult, MixedFreqSpec, mf_fit,
@@ -37,6 +37,7 @@ from .ops.precision import default_compute_dtype, highest_precision
 from .ssm.info_filter import smooth
 from .ssm.params import SSMParams
 from .ssm.steady import auto_tau
+from .utils import refuse_unported
 from .utils.data import (Standardizer, build_mask, standardize,
                          standardize_onepass, validate_panel)
 
@@ -122,12 +123,15 @@ class TorchBackend:
     package's rule), "dense" (the N x N filter, kernel K15: N <= 32 and
     k <= 32 on CUDA), "info", "ss" (steady-state; tau from the Riccati
     mixing time at the init params), "pit" (covariance-form
-    parallel-in-time), "pit_qr" (square-root parallel-in-time; k <= 10 on
-    CUDA) or "lowrank" (the rank-r downdate engine for wide factor models,
+    parallel-in-time), "pit_qr" (square-root parallel-in-time; past k =
+    10 the JAX package's Gram-and-Cholesky branches, whose f32 loglik is
+    far from the exact one at large N, in both packages) or "lowrank" (the
+    rank-r downdate engine for wide factor models,
     ``ssm.lowrank_filter``; on CUDA its kernels take k <= 100 and r <=
-    32).  On CUDA "info", "ss", "pit" and the rest of the "lowrank" path
-    take k <= 128 (``kernels.GEN_KMAX``), on the lone and the batched
-    paths; past it a CUDA call raises naming the ROADMAP row.  rank: the
+    32).  On CUDA "info", "ss", "pit", "pit_qr" and the rest of the
+    "lowrank" path take k <= 128 (``kernels.GEN_KMAX``), on the lone and
+    the batched paths; past it a CUDA call raises naming the ROADMAP
+    row.  rank: the
     rank r of "lowrank" (<= 0: auto, min(k, 8)); the other engines ignore
     it.  fused_chunk: EM
     iterations per device chunk between host reads.  device_init:
@@ -198,7 +202,9 @@ def fit(model, Y: np.ndarray,
         backend: Optional[TorchBackend] = None,
         max_iters: Optional[int] = None, tol: Optional[float] = None,
         init=None, fused=False, keep_session=False,
-        warm_start=None):
+        warm_start=None, callback=None, checkpoint_path=None,
+        checkpoint_every=10, debug=False, robust=None, telemetry=None,
+        progress=None, pipeline=None, auto=False, tune=None):
     """Estimate a DFM: standardize -> PCA init -> EM -> smooth.
 
     model : a ``DynamicFactorModel`` (returns a ``FitResult``) or a
@@ -235,7 +241,22 @@ def fit(model, Y: np.ndarray,
         session defaults, a dict for ``open_session`` keywords.
     warm_start : not ported yet (ROADMAP Queue 1 item 3, with the fused
         fit's device-panel residency cache); pass ``init=prev.params``.
+    callback, checkpoint_path, checkpoint_every, debug, telemetry,
+    progress, auto (ROADMAP Queue 1 item 3), robust (item 5), pipeline
+    (item 4), tune (item 9) : the JAX package's keywords; any value but
+    the reference's default (``robust``: None or False, the port's fits
+    being unguarded; ``telemetry``: None or False) raises
+    ``NotImplementedError`` naming the item.
     """
+    refuse_unported(
+        "fit", ("callback", callback is not None, 3),
+        ("checkpoint_path", checkpoint_path is not None, 3),
+        ("checkpoint_every", checkpoint_every != 10, 3),
+        ("debug", bool(debug), 3), ("robust", robust not in (None, False), 5),
+        ("telemetry", telemetry not in (None, False), 3),
+        ("progress", progress is not None, 3),
+        ("pipeline", pipeline not in (None, 0), 4), ("auto", bool(auto), 3),
+        ("tune", tune is not None, 9))
     if isinstance(model, (TVLSpec, MixedFreqSpec, SVSpec)):
         return _family_fit(model, Y, mask, backend, max_iters, tol, init,
                            fused, keep_session, warm_start)
@@ -357,7 +378,7 @@ def _fit_impl(model, Y, mask, b: TorchBackend, max_iters, tol, init,
     if opts is not None:
         return _fit_fused(model, Yt, mt, p0, cfg, b, max_iters, tol, opts,
                           std)
-    p, lls, converged, _, secs, max_delta = run_em_chunked(
+    p, lls, converged, _, secs, max_delta = fit_em_chunked(
         Yt, mt, p0, cfg, max_iters, tol, b.fused_chunk)
     x_sm, P_sm = _report_smooth(Yt, p, mt, flt)
     history = [{"iter": i, "loglik": float(ll), "secs": s}

@@ -39,6 +39,15 @@
 // - cta_getrf / cta_getrs: LU with partial pivoting (LAPACK getrf's pivot
 //   rule) by 32-column panels, and the solve against its factors by
 //   32-row blocks (the general solves of the pit engine).
+// - cta_psd_chol, cta_tria, cta_chol_solve_rows: the generic branches of
+//   the square-root engine's K6/K7 functions past QR_UNROLL_K_MAX = 10
+//   (ops/linalg.py: psd_cholesky, tria as the Gram's jittered Cholesky,
+//   chol_solve), for the square-root engine's generic kernels
+//   (qr_elements_gen in pit_elements.cu, qr_scan_gen in pit_scan.cu).
+//
+// The routines take any 1 <= k <= DFM_GEN_KMAX: below 32 a panel, tile or
+// block is one partial 32-wide block (nb = k), the gemm's register block
+// is 2 x 2 over a 32 x 32 output and the rows past k are zero-filled.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -744,3 +753,61 @@ __device__ __noinline__ void cta_getrs(const T* LU, const int* piv, int k,
   }
   __syncthreads();
 }
+
+// 2 sum_i log L[i][i] into *out (thread 0), L k x k at a leading dimension
+// of k; the caller's barrier follows.
+template <typename T>
+__device__ __forceinline__ void cta_logdet(const T* L, int k, T* out) {
+  if (threadIdx.x < 32) {
+    T s = T(0);
+    for (int i = threadIdx.x; i < k; i += 32)
+      s += dfm_log(L[(size_t)i * k + i]);
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (threadIdx.x == 0) *out = T(2) * s;
+  }
+}
+
+// psd_cholesky(M, jitter) of ops/linalg.py: L = chol(sym(M) (+ the dtype's
+// jitter on the diagonal when jit; none: psd_cholesky(M, jitter=0.0))), L
+// may be M.  A non-positive pivot gives NaN (no clamp).
+template <typename T>
+__device__ __forceinline__ void cta_psd_chol(T* L, const T* M, int k,
+                                             bool jit, T* sm) {
+  cta_sym<T>(L, M, k, jit, sm);
+  cta_potrf<T>(L, k, sm);
+}
+
+// tria([op(X1) | X2]) past QR_UNROLL_K_MAX: the jittered Cholesky of the
+// Gram matrix op(X1) op(X1)' + X2 X2' (op(X1) = X1' when t1; X2 = I when
+// null), summed by two products into L (no concatenation).  L shares no
+// element with X1 or X2.
+template <typename T>
+__device__ void cta_tria(T* L, const T* X1, bool t1, const T* X2, int k,
+                         T* sm) {
+  cta_gemm<T>(L, k, X1, k, t1, X1, k, !t1, k, k, k, T(1), nullptr, 0,
+              X2 == nullptr, sm);
+  if (X2)
+    cta_gemm<T>(L, k, X2, k, false, X2, k, true, k, k, k, T(1), L, k, false,
+                sm);
+  cta_psd_chol<T>(L, L, k, true, sm);
+}
+
+// X (m x k, leading dimension k) <- X L^{-T} L^{-1}: each row x' becomes
+// ((L L')^{-1} x)', so X' <- chol_solve(L, X') (a vector: m = 1).
+template <typename T>
+__device__ __forceinline__ void cta_chol_solve_rows(T* X, int m, const T* L,
+                                                    int k, T* sm) {
+  cta_trsm_right<T>(X, m, L, k, true, sm);      // rows of L^{-1} X'
+  cta_trsm_right<T>(X, m, L, k, false, sm);     // rows of L^{-T} (.)
+}
+
+// dst = src' (k x k at a leading dimension of k; dst is not src), between
+// barriers.
+template <typename T>
+__device__ __forceinline__ void cta_transpose(T* dst, const T* src, int k) {
+  __syncthreads();
+  for (int e = threadIdx.x; e < k * k; e += GEN_THREADS)
+    dst[(size_t)(e % k) * k + e / k] = src[e];
+  __syncthreads();
+}
+

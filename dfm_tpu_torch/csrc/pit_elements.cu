@@ -406,19 +406,6 @@ filter_elements_gen_kernel(const T* bobs, const T* C, int c_stride,
   }
 }
 
-// Sum of log L[i][i], times 2, into *out (thread 0); the caller's barrier
-// follows.
-template <typename T>
-__device__ __forceinline__ void cta_logdet(const T* L, int k, T* out) {
-  if (threadIdx.x < 32) {
-    T s = T(0);
-    for (int i = threadIdx.x; i < k; i += 32)
-      s += dfm_log(L[(size_t)i * k + i]);
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (threadIdx.x == 0) *out = T(2) * s;
-  }
-}
-
 // Mode 1.
 template <typename T>
 __global__ void __launch_bounds__(GEN_THREADS)
@@ -561,6 +548,320 @@ static int launch_gen(int mode, const T* i0, const T* i1, const T* i2,
   return (int)cudaGetLastError();
 }
 
+// ---- K8-gen elements: qr_elements_gen ----
+//
+// The per-step work of the square-root parallel-in-time engine (pit_qr)
+// past QR_UNROLL_K_MAX = 10: the five modes of qr_elements.cu (0 filter
+// elements with the t = 0 correction, 1 smoother elements with J, 2
+// filter assembly, 3 smoother assembly, 4 one generic K6/K7 function a
+// matrix) at 10 < k <= DFM_GEN_KMAX = 128.  In this source, beside
+// K14-el-gen, so that the block-wide routines of cta_linalg.cuh compile
+// once a dtype for both engines (in two sources of their own the square-
+// root generic kernels took the parallel build from ~200 s to ~320 s).
+//
+// Past 10 the JAX package leaves modified Gram-Schmidt and guarded
+// substitution for its generic branches (dfm_tpu/ops/linalg.py: tria
+// :224 = psd_cholesky(X X'), tri_solve :273 = solve_triangular,
+// psd_factor :319 = psd_cholesky; in
+// parallel_filter.py the chol of the elements, the t = 0 posterior and the
+// logdet = psd_cholesky(M, jitter=0.0) and chol_solve = chol_solve,
+// :319-321, 362-364, 407-408, 478-479, 519-520).  This kernel computes
+// those branches, not MGS: tria([X1 | X2]) is two products into one Gram
+// X1 X1' + X2 X2', cta_sym with the dtype's jitter and cta_potrf; the
+// triangular solves, always of the form X L^{-T} (U = Lq E^{-T}, Z = F' W
+// H^{-T}) or chol_solve(L, B) taken transposed (B' L^{-T} L^{-1}), are
+// cta_trsm_right; a non-positive pivot gives NaN, with no clamp.  A k x k
+// problem no longer fits a thread, so each step runs on a CTA of
+// GEN_THREADS threads with cta_linalg.cuh's block-wide routines, its
+// matrices in global memory that stays in L2 (the step's output rows and
+// QR_EL_MATS k x k workspace matrices a CTA, the last holding row
+// vectors), on a persistent grid (a CTA an SM, ``ctas`` from the wrapper,
+// each CTA looping over t = blockIdx.x, + gridDim.x, ...) as K14-el-gen.
+// Lq = psd_factor(Q), the same at every step, is factored once a CTA.
+// Bound: operations, ~16 k^3 flops a step in mode 0 (six k x k products,
+// 12 k^3; three Cholesky factorizations, k^3; three triangular solves of
+// k rows, 3 k^3; chip_smoke.qr_gen_flops counts every mode), but each CTA
+// is a chain of ~25 dependent block-wide routines a step.
+
+
+// k x k workspace matrices a CTA (kernels.GEN_MATS["qr_elements_gen"]);
+// the last holds the row vectors the triangular solves take.
+constexpr int QR_EL_MATS = 8;
+
+template <typename T>
+using QegCta = CtaScratch<T, 4, QR_EL_MATS>;
+
+// Mode 0: qr_generic_elements and, at t = 0, qr_init_posterior.
+template <typename T>
+__global__ void __launch_bounds__(GEN_THREADS)
+qr_filter_elements_gen_kernel(const T* bobs, const T* C, int c_stride,
+                           const T* F, const T* Q, const T* mu0, const T* P0,
+                           T* A_el, T* b_el, T* U_el, T* eta_el, T* Z_el,
+                           T* work, int n, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  QegCta<T> g(smem_raw, work, k);
+  const size_t kk = (size_t)k * k;
+  T *Lq = g.w, *X = Lq + kk, *E = X + kk, *W = E + kk, *QW = W + kk,
+    *H = QW + kk, *Y = H + kk, *V = Y + kk, *V1 = V + k;
+  cta_psd_chol<T>(Lq, Q, k, true, g.sm);                  // psd_factor(Q)
+  for (int t = blockIdx.x; t < n; t += gridDim.x) {
+    const T* Ct = C + (size_t)t * c_stride;
+    const T* bt = bobs + (size_t)t * k;
+    if (t == 0) {
+      // U0 = Lp0 E0^{-T}, E0 = chol(I + Lp0' C0 Lp0), Lp0 = psd_factor(P0).
+      cta_psd_chol<T>(Y, P0, k, true, g.sm);
+      cta_gemm<T>(X, k, Y, k, true, Ct, k, false, k, k, k, T(1), nullptr, 0,
+                  false, g.sm);                               // Lp0' C0
+      cta_gemm<T>(E, k, X, k, false, Y, k, false, k, k, k, T(1), nullptr, 0,
+                  true, g.sm);                                // I + (.) Lp0
+      cta_psd_chol<T>(E, E, k, false, g.sm);
+      cta_copy<T>(U_el, Y, (int)kk);
+      cta_trsm_right<T>(U_el, k, E, k, true, g.sm);
+      // b0 = mu0 + P0 n0, n0 = v0 - W0 chol_solve(Hp, W0' P0 v0), v0 =
+      // bobs0 - C0 mu0, W0 = psd_factor(C0), Hp = chol(I + W0' P0 W0).
+      cta_psd_chol<T>(W, Ct, k, true, g.sm);
+      cta_gemm<T>(QW, k, P0, k, false, W, k, false, k, k, k, T(1), nullptr,
+                  0, false, g.sm);                            // P0 W0
+      cta_gemm<T>(H, k, W, k, true, QW, k, false, k, k, k, T(1), nullptr, 0,
+                  true, g.sm);                                // I + W0'(.)
+      cta_psd_chol<T>(H, H, k, false, g.sm);
+      cta_load_vec(g.v[0], mu0, k);
+      cta_matvec<T>(g.v[1], bt, T(-1), Ct, g.v[0], k, V1);    // v0
+      cta_matvec<T>(g.v[2], nullptr, T(1), P0, g.v[1], k, nullptr);
+      cta_matvec_t<T>(nullptr, nullptr, T(1), W, g.v[2], k, V);
+      cta_chol_solve_rows<T>(V, 1, H, k, g.sm);
+      cta_load_vec(g.v[0], V, k);
+      cta_matvec<T>(g.v[2], V1, T(-1), W, g.v[0], k, nullptr);  // n0
+      cta_matvec<T>(g.v[3], mu0, T(1), P0, g.v[2], k, b_el);     // b0
+      cta_copy<T>(A_el, nullptr, (int)kk);
+      cta_copy<T>(eta_el, nullptr, k);
+      cta_copy<T>(Z_el, nullptr, (int)kk);
+      continue;
+    }
+    // U_t = Lq E^{-T}, E = chol(I + Lq' C_t Lq).
+    cta_gemm<T>(X, k, Lq, k, true, Ct, k, false, k, k, k, T(1), nullptr, 0,
+                false, g.sm);                                 // Lq' C_t
+    cta_gemm<T>(E, k, X, k, false, Lq, k, false, k, k, k, T(1), nullptr, 0,
+                true, g.sm);                                  // I + (.) Lq
+    cta_psd_chol<T>(E, E, k, false, g.sm);
+    T* Ut = U_el + t * kk;
+    cta_copy<T>(Ut, Lq, (int)kk);
+    cta_trsm_right<T>(Ut, k, E, k, true, g.sm);
+    // W = psd_factor(C_t), H = chol(I + W' Q W).
+    cta_psd_chol<T>(W, Ct, k, true, g.sm);
+    cta_gemm<T>(QW, k, Q, k, false, W, k, false, k, k, k, T(1), nullptr, 0,
+                false, g.sm);                                 // Q W
+    cta_gemm<T>(H, k, W, k, true, QW, k, false, k, k, k, T(1), nullptr, 0,
+                true, g.sm);                                  // I + W' Q W
+    cta_psd_chol<T>(H, H, k, false, g.sm);
+    // n_t = bobs - W chol_solve(H, W' Q bobs); b = Q n_t, eta = F' n_t.
+    cta_load_vec(g.v[0], bt, k);
+    cta_matvec<T>(g.v[1], nullptr, T(1), Q, g.v[0], k, nullptr);
+    cta_matvec_t<T>(nullptr, nullptr, T(1), W, g.v[1], k, V);
+    cta_chol_solve_rows<T>(V, 1, H, k, g.sm);
+    cta_load_vec(g.v[0], V, k);
+    cta_matvec<T>(g.v[2], bt, T(-1), W, g.v[0], k, nullptr);  // n_t
+    cta_matvec<T>(g.v[3], nullptr, T(1), Q, g.v[2], k, b_el + (size_t)t * k);
+    cta_matvec_t<T>(nullptr, nullptr, T(1), F, g.v[2], k,
+                    eta_el + (size_t)t * k);
+    // Z_t = F' W H^{-T};  A_t = F - Q W chol_solve(H, W' F), the solve
+    // taken transposed: (F' W) H^{-T} H^{-1} = Z_t H^{-1}.
+    T* Zt = Z_el + t * kk;
+    cta_gemm<T>(Zt, k, F, k, true, W, k, false, k, k, k, T(1), nullptr, 0,
+                false, g.sm);                                 // F' W
+    cta_trsm_right<T>(Zt, k, H, k, true, g.sm);
+    cta_copy<T>(Y, Zt, (int)kk);
+    cta_trsm_right<T>(Y, k, H, k, false, g.sm);
+    cta_gemm<T>(A_el + t * kk, k, QW, k, false, Y, k, true, k, k, k, T(-1), F,
+                k, false, g.sm);                              // F - QW Y'
+  }
+}
+
+// Mode 1: _qr_smoother_elements.
+template <typename T>
+__global__ void __launch_bounds__(GEN_THREADS)
+qr_smoother_elements_gen_kernel(const T* x_pred, const T* P_pred,
+                             const T* x_filt, const T* P_filt, const T* F,
+                             const T* Q, T* E_el, T* g_el, T* D_el, T* J_out,
+                             T* work, int n, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  QegCta<T> g(smem_raw, work, k);
+  const size_t kk = (size_t)k * k;
+  T *Lq = g.w, *Uf = Lq + kk, *Lpn = Uf + kk, *X1 = Lpn + kk, *X2 = X1 + kk;
+  cta_psd_chol<T>(Lq, Q, k, true, g.sm);
+  for (int t = blockIdx.x; t < n; t += gridDim.x) {
+    const T* Pft = P_filt + t * kk;
+    cta_psd_chol<T>(Uf, Pft, k, true, g.sm);                // psd_factor(P_f)
+    if (t == n - 1) {
+      cta_copy<T>(E_el + t * kk, nullptr, (int)kk);
+      cta_copy<T>(g_el + (size_t)t * k, x_filt + (size_t)t * k, k);
+      cta_copy<T>(D_el + t * kk, Uf, (int)kk);
+      continue;
+    }
+    // J_t = chol_solve(Lp_{t+1}, F P_f)' = (F P_f)' Lp^{-T} Lp^{-1}.
+    cta_psd_chol<T>(Lpn, P_pred + (t + 1) * kk, k, true, g.sm);
+    T* Jt = E_el + t * kk;
+    cta_gemm<T>(Jt, k, Pft, k, true, F, k, true, k, k, k, T(1), nullptr, 0,
+                false, g.sm);                                 // (F P_f)'
+    cta_chol_solve_rows<T>(Jt, k, Lpn, k, g.sm);
+    cta_copy<T>(J_out + t * kk, Jt, (int)kk);
+    cta_load_vec(g.v[0], x_pred + (size_t)(t + 1) * k, k);
+    cta_matvec<T>(g.v[1], x_filt + (size_t)t * k, T(-1), Jt, g.v[0], k,
+                  g_el + (size_t)t * k);                      // x_f - J x_p
+    // D_t = tria([(I - J F) U_f | J Lq]).
+    cta_gemm<T>(X1, k, Jt, k, false, F, k, false, k, k, k, T(-1), nullptr, 0,
+                true, g.sm);                                  // I - J F
+    cta_gemm<T>(X2, k, X1, k, false, Uf, k, false, k, k, k, T(1), nullptr, 0,
+                false, g.sm);                                 // (.) U_f
+    cta_gemm<T>(X1, k, Jt, k, false, Lq, k, false, k, k, k, T(1), nullptr, 0,
+                false, g.sm);                                 // J Lq
+    cta_tria<T>(D_el + t * kk, X2, false, X1, k, g.sm);
+  }
+}
+
+// Mode 2: the post-scan assembly of pit_qr_from_stats.
+template <typename T>
+__global__ void __launch_bounds__(GEN_THREADS)
+qr_filter_assemble_gen_kernel(const T* x_f, const T* U_f, const T* C,
+                           int c_stride, const T* F, const T* Q,
+                           const T* mu0, const T* P0, T* x_pred, T* P_pred,
+                           T* P_f, T* logdetG, T* work, int n, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  QegCta<T> g(smem_raw, work, k);
+  const size_t kk = (size_t)k * k;
+  T *Lq = g.w, *AU = Lq + kk, *Lp = AU + kk, *X = Lp + kk, *Lg = X + kk;
+  cta_psd_chol<T>(Lq, Q, k, true, g.sm);
+  for (int t = blockIdx.x; t < n; t += gridDim.x) {
+    const T* Uft = U_f + t * kk;
+    cta_gemm<T>(P_f + t * kk, k, Uft, k, false, Uft, k, true, k, k, k, T(1),
+                nullptr, 0, false, g.sm);                     // U_f U_f'
+    if (t == 0) {
+      cta_psd_chol<T>(Lp, P0, k, true, g.sm);               // psd_factor(P0)
+      if (threadIdx.x < k) x_pred[threadIdx.x] = mu0[threadIdx.x];
+    } else {
+      cta_gemm<T>(AU, k, F, k, false, U_f + (t - 1) * kk, k, false, k, k, k,
+                  T(1), nullptr, 0, false, g.sm);             // F U_f,t-1
+      cta_tria<T>(Lp, AU, false, Lq, k, g.sm);
+      cta_load_vec(g.v[0], x_f + (size_t)(t - 1) * k, k);
+      cta_matvec<T>(g.v[1], nullptr, T(1), F, g.v[0], k,
+                    x_pred + (size_t)t * k);
+    }
+    cta_gemm<T>(P_pred + t * kk, k, Lp, k, false, Lp, k, true, k, k, k, T(1),
+                nullptr, 0, false, g.sm);                     // Lp Lp'
+    cta_gemm<T>(X, k, Lp, k, true, C + (size_t)t * c_stride, k, false, k, k,
+                k, T(1), nullptr, 0, false, g.sm);            // Lp' C_t
+    cta_gemm<T>(Lg, k, X, k, false, Lp, k, false, k, k, k, T(1), nullptr, 0,
+                true, g.sm);                                  // I + (.) Lp
+    cta_psd_chol<T>(Lg, Lg, k, false, g.sm);                // unjittered
+    cta_logdet<T>(Lg, k, logdetG + t);
+    __syncthreads();
+  }
+}
+
+// Mode 3: P_sm = D D', P_lag,t = P_sm,t J_{t-1}', P_lag,0 = 0.
+template <typename T>
+__global__ void __launch_bounds__(GEN_THREADS)
+qr_smoother_assemble_gen_kernel(const T* D_sm, const T* J, T* P_sm, T* P_lag,
+                             T* work, int n, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  QegCta<T> g(smem_raw, work, k);
+  const size_t kk = (size_t)k * k;
+  for (int t = blockIdx.x; t < n; t += gridDim.x) {
+    T* Pt = P_sm + t * kk;
+    cta_gemm<T>(Pt, k, D_sm + t * kk, k, false, D_sm + t * kk, k, true, k, k,
+                k, T(1), nullptr, 0, false, g.sm);
+    if (t == 0)
+      cta_copy<T>(P_lag, nullptr, (int)kk);
+    else
+      cta_gemm<T>(P_lag + t * kk, k, Pt, k, false, J + (t - 1) * kk, k, true,
+                  k, k, k, T(1), nullptr, 0, false, g.sm);
+  }
+}
+
+// Mode 4: one generic K6/K7 function a matrix (op as the unit kernel's):
+// 0 chol = psd_cholesky(X, 0), 1 chol_solve, 2 tria of a k x 2k block,
+// 3 tri_solve (L X = B), 4 transposed (L' X = B), 5 psd_factor.
+template <typename T>
+__global__ void __launch_bounds__(GEN_THREADS)
+qr_unit_gen_kernel(int op, const T* X, const T* B, T* out, T* work, int n,
+                int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  QegCta<T> g(smem_raw, work, k);
+  const size_t kk = (size_t)k * k;
+  T* R = g.w;
+  for (int t = blockIdx.x; t < n; t += gridDim.x) {
+    T* Ot = out + t * kk;
+    if (op == 0 || op == 5) {
+      cta_psd_chol<T>(Ot, X + t * kk, k, op == 5, g.sm);
+    } else if (op == 2) {
+      const T* Xt = X + 2 * t * kk;
+      cta_gemm<T>(Ot, k, Xt, 2 * k, false, Xt, 2 * k, true, k, k, 2 * k,
+                  T(1), nullptr, 0, false, g.sm);             // X X'
+      cta_psd_chol<T>(Ot, Ot, k, true, g.sm);
+    } else {
+      // X' = B' L^{-T} (L X = B), B' L^{-1} (L' X = B) or both (chol).
+      cta_transpose<T>(R, B + t * kk, k);
+      if (op != 4) cta_trsm_right<T>(R, k, X + t * kk, k, true, g.sm);
+      if (op != 3) cta_trsm_right<T>(R, k, X + t * kk, k, false, g.sm);
+      cta_transpose<T>(Ot, R, k);
+    }
+  }
+}
+
+// Mode ``mode`` over n items on ``ctas`` persistent CTAs; ``work`` holds
+// ctas x QR_EL_MATS k x k matrices; 4 <= k <= DFM_GEN_KMAX (the row
+// vectors of the last matrix).
+template <typename T>
+static int launch_qr_gen(int mode, int op, const T* i0, const T* i1,
+                      const T* i2, const T* i3, const T* i4, const T* i5,
+                      const T* i6, T* o0, T* o1, T* o2, T* o3, T* o4,
+                      T* work, int n, int k, int c_stride, int ctas,
+                      cudaStream_t s) {
+  if (n < 1 || k < 4 || k > DFM_GEN_KMAX || ctas < 1 || op < 0 || op > 5)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = QegCta<T>::bytes(k);
+  const int grid = n < ctas ? n : ctas;
+  cudaError_t err = cudaSuccess;
+  switch (mode) {
+    case 0:
+      err = dfm_smem_optin(qr_filter_elements_gen_kernel<T>, bytes);
+      if (err == cudaSuccess)
+        qr_filter_elements_gen_kernel<T><<<grid, GEN_THREADS, bytes, s>>>(
+            i0, i1, c_stride, i2, i3, i4, i5, o0, o1, o2, o3, o4, work, n,
+            k);
+      break;
+    case 1:
+      err = dfm_smem_optin(qr_smoother_elements_gen_kernel<T>, bytes);
+      if (err == cudaSuccess)
+        qr_smoother_elements_gen_kernel<T><<<grid, GEN_THREADS, bytes, s>>>(
+            i0, i1, i2, i3, i4, i5, o0, o1, o2, o3, work, n, k);
+      break;
+    case 2:
+      err = dfm_smem_optin(qr_filter_assemble_gen_kernel<T>, bytes);
+      if (err == cudaSuccess)
+        qr_filter_assemble_gen_kernel<T><<<grid, GEN_THREADS, bytes, s>>>(
+            i0, i1, i2, c_stride, i3, i4, i5, i6, o0, o1, o2, o3, work, n,
+            k);
+      break;
+    case 3:
+      err = dfm_smem_optin(qr_smoother_assemble_gen_kernel<T>, bytes);
+      if (err == cudaSuccess)
+        qr_smoother_assemble_gen_kernel<T><<<grid, GEN_THREADS, bytes, s>>>(
+            i0, i1, o0, o1, work, n, k);
+      break;
+    case 4:
+      err = dfm_smem_optin(qr_unit_gen_kernel<T>, bytes);
+      if (err == cudaSuccess)
+        qr_unit_gen_kernel<T><<<grid, GEN_THREADS, bytes, s>>>(op, i0, i1, o0,
+                                                            work, n, k);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 #if DFM_WANT_F32
 int pit_elements_f32(int mode, const float* i0, const float* i1,
@@ -604,6 +905,30 @@ int pit_elements_f64(int mode, const double* i0, const double* i1,
                      int k, int c_stride, void* stream) {
   return launch<double>(mode, i0, i1, i2, i3, i4, i5, i6, o0, o1, o2, o3, o4,
                         n, k, c_stride, (cudaStream_t)stream);
+}
+#endif
+#if DFM_WANT_F32
+int qr_elements_gen_f32(int mode, int op, const float* i0, const float* i1,
+                        const float* i2, const float* i3, const float* i4,
+                        const float* i5, const float* i6, float* o0,
+                        float* o1, float* o2, float* o3, float* o4,
+                        float* work, int n, int k, int c_stride, int ctas,
+                        void* stream) {
+  return launch_qr_gen<float>(mode, op, i0, i1, i2, i3, i4, i5, i6, o0,
+                              o1, o2, o3, o4, work, n, k, c_stride, ctas,
+                              (cudaStream_t)stream);
+}
+#endif
+#if DFM_WANT_F64
+int qr_elements_gen_f64(int mode, int op, const double* i0,
+                        const double* i1, const double* i2, const double* i3,
+                        const double* i4, const double* i5, const double* i6,
+                        double* o0, double* o1, double* o2, double* o3,
+                        double* o4, double* work, int n, int k, int c_stride,
+                        int ctas, void* stream) {
+  return launch_qr_gen<double>(mode, op, i0, i1, i2, i3, i4, i5, i6, o0,
+                               o1, o2, o3, o4, work, n, k, c_stride, ctas,
+                               (cudaStream_t)stream);
 }
 #endif
 }

@@ -563,6 +563,287 @@ static int launch(int smoother, T* e0, T* e1, T* e2, T* e3, T* e4,
   return run_ld<T, WIDE_LD>(smoother, el, scratch, n, S, k, s);
 }
 
+// ---- K8-gen scan: qr_scan_gen ----
+//
+// The blocked associative scans of the square-root parallel-in-time
+// engine (pit_qr) past QR_UNROLL_K_MAX = 10 (qr_scan.cu's K8 takes k <=
+// 10), replacing dfm_tpu/ops/scan.py:blocked_scan (line 73) driven by
+// dfm_tpu/ssm/parallel_filter.py:qr_combine_filter (395) and
+// qr_combine_smoother (497).  In this source, beside K14-scan-gen, so
+// that the block-wide routines of cta_linalg.cuh compile once a dtype
+// for both engines.
+//
+// The decomposition is qr_scan.cu's (S, B, T0, the tail), so the kernel
+// and the twin still associate identically, and each combine takes the
+// JAX package's generic branches (tria = the jittered Cholesky of the
+// Gram, chol_solve and tri_solve = triangular solves; see
+// pit_elements.cu).  A combine runs on a
+// CTA of GEN_THREADS threads with cta_linalg.cuh's block-wide routines, in
+// four launches as K14-scan-gen: phase 1 (a CTA a block) and phase 3 (a
+// CTA an element) on persistent grids of at most ``ctas`` CTAs, phase 2
+// and the tail on one CTA; the operands are read from and the result
+// written to the element arrays in global memory (L2), the temporaries
+// and the result (copied out last, since the output may be the later
+// element's slot) in a per-CTA workspace of QR_SCAN_MATS k x k matrices.
+// A filter combine is four trias (a Gram of one product for Theta and
+// Lam, whose second block is I, of two for U and Z; a sym and a Cholesky
+// each), six other k x k products, one chol_solve of k rows and two
+// triangular solves of k rows (four triangular solves of k x k blocks in
+// all), two chol_solves of vectors and ten matrix-vector products: twelve
+// products (24 k^3), four Cholesky factorizations (4/3 k^3) and the
+// solves (4 k^3), ~29.3 k^3 flops; a smoother combine two products and a
+// tria, ~8.3 k^3 (chip_smoke.qr_gen_flops).
+// Bound: the ~2 sqrt(T) combines in sequence (S - 1 in phase 1, B - 2 in
+// phase 2, the tail), each a chain of ~40 dependent block-wide routines.
+
+
+// k x k workspace matrices a CTA (kernels.GEN_MATS["qr_scan_gen"]); the
+// last holds row vectors.
+constexpr int QR_SCAN_MATS = 10;
+
+template <typename T>
+using QsgCta = CtaScratch<T, 4, QR_SCAN_MATS>;
+
+template <typename T>
+__device__ __forceinline__ T* qelem(const Arrays<T>& e, int a, size_t i,
+                                    int k) {
+  return e.p[a] + i * ((a % 2 == 0) ? (size_t)k * k : (size_t)k);
+}
+
+__device__ __forceinline__ size_t qat(int i, int n, int reverse) {
+  return (size_t)(reverse ? n - 1 - i : i);
+}
+
+// qr_combine_filter(ei, ej) (first ei earlier, second ej later) into
+// element io of eo, which may be ej's slot (never ei's), with Yf = U_i'
+// Z_j, Theta = tria([Yf | I]), Lam = tria([Yf' | I]):
+//   A   = A_j (A_i - U_i chol_solve(Theta, Yf Z_j' A_i))
+//   b   = A_j Dinv(b_i + U_i U_i' eta_j) + b_j,  Dinv(w) = w - U_i
+//         chol_solve(Theta, Yf Z_j' w)
+//   U   = tria([A_j U_i Theta^{-T} | U_j])
+//   eta = A_i' (v - Z_j chol_solve(Lam, Yf' U_i' v)) + eta_i, v = eta_j -
+//         Z_j Z_j' b_i
+//   Z   = tria([A_i' Z_j Lam^{-T} | Z_i])
+// The matrix chol_solve is taken transposed (its rows through
+// cta_chol_solve_rows), the vector ones as one row.  __noinline__: one
+// compiled body for the four phase kernels (ptxas time, not speed).
+template <typename T>
+__device__ __noinline__ void qr_filter_combine_gen(
+    const Arrays<T>& ea, size_t ia, const Arrays<T>& eb, size_t ib,
+    const Arrays<T>& eo, size_t io, const QsgCta<T>& g) {
+  const int k = g.k;
+  const size_t kk = (size_t)k * k;
+  const T *Ai = qelem(ea, 0, ia, k), *bi = qelem(ea, 1, ia, k),
+          *Ui = qelem(ea, 2, ia, k), *etai = qelem(ea, 3, ia, k),
+          *Zi = qelem(ea, 4, ia, k);
+  const T *Aj = qelem(eb, 0, ib, k), *bj = qelem(eb, 1, ib, k),
+          *Uj = qelem(eb, 2, ib, k), *etaj = qelem(eb, 3, ib, k),
+          *Zj = qelem(eb, 4, ib, k);
+  T *Yf = g.w, *Th = Yf + kk, *Lm = Th + kk, *P = Lm + kk, *X = P + kk,
+    *Aw = X + kk, *H = Aw + kk, *Uw = H + kk, *Zw = Uw + kk, *V0 = Zw + kk,
+    *V1 = V0 + k, *Vb = V1 + k, *Ve = Vb + k;
+  T *s0 = g.v[0], *s1 = g.v[1], *s2 = g.v[2], *s3 = g.v[3];
+  cta_gemm<T>(Yf, k, Ui, k, true, Zj, k, false, k, k, k, T(1), nullptr, 0,
+              false, g.sm);                                   // U_i' Z_j
+  cta_tria<T>(Th, Yf, false, nullptr, k, g.sm);               // Theta
+  cta_tria<T>(Lm, Yf, true, nullptr, k, g.sm);                // Lam
+  // A: X = (chol_solve(Theta, Yf Z_j' A_i))' = A_i' Z_j Yf' Th^-T Th^-1.
+  cta_gemm<T>(P, k, Ai, k, true, Zj, k, false, k, k, k, T(1), nullptr, 0,
+              false, g.sm);                                   // A_i' Z_j
+  cta_gemm<T>(X, k, P, k, false, Yf, k, true, k, k, k, T(1), nullptr, 0,
+              false, g.sm);                                   // (.) Yf'
+  cta_chol_solve_rows<T>(X, k, Th, k, g.sm);
+  cta_gemm<T>(H, k, Ui, k, false, X, k, true, k, k, k, T(-1), Ai, k, false,
+              g.sm);                                          // Dinv(A_i)
+  cta_gemm<T>(Aw, k, Aj, k, false, H, k, false, k, k, k, T(1), nullptr, 0,
+              false, g.sm);                                   // A
+  // U = tria([A_j U_i Theta^{-T} | U_j]).
+  cta_gemm<T>(H, k, Aj, k, false, Ui, k, false, k, k, k, T(1), nullptr, 0,
+              false, g.sm);                                   // A_j U_i
+  cta_trsm_right<T>(H, k, Th, k, true, g.sm);
+  cta_tria<T>(Uw, H, false, Uj, k, g.sm);
+  // Z = tria([A_i' Z_j Lam^{-T} | Z_i]).
+  cta_trsm_right<T>(P, k, Lm, k, true, g.sm);
+  cta_tria<T>(Zw, P, false, Zi, k, g.sm);
+  // b.
+  cta_load_vec(s0, etaj, k);
+  cta_matvec_t<T>(s1, nullptr, T(1), Ui, s0, k, nullptr);    // U_i' eta_j
+  cta_matvec<T>(s2, bi, T(1), Ui, s1, k, V1);                // w
+  cta_matvec_t<T>(s1, nullptr, T(1), Zj, s2, k, nullptr);    // Z_j' w
+  cta_matvec<T>(s3, nullptr, T(1), Yf, s1, k, V0);           // Yf (.)
+  cta_chol_solve_rows<T>(V0, 1, Th, k, g.sm);
+  cta_load_vec(s1, V0, k);
+  cta_matvec<T>(s3, V1, T(-1), Ui, s1, k, nullptr);          // Dinv(w)
+  cta_matvec<T>(s0, bj, T(1), Aj, s3, k, Vb);                // b
+  // eta.
+  cta_load_vec(s0, bi, k);
+  cta_matvec_t<T>(s1, nullptr, T(1), Zj, s0, k, nullptr);    // Z_j' b_i
+  cta_matvec<T>(s2, etaj, T(-1), Zj, s1, k, V1);             // v
+  cta_matvec_t<T>(s1, nullptr, T(1), Ui, s2, k, nullptr);    // U_i' v
+  cta_matvec_t<T>(nullptr, nullptr, T(1), Yf, s1, k, V0);    // Yf' (.)
+  cta_chol_solve_rows<T>(V0, 1, Lm, k, g.sm);
+  cta_load_vec(s1, V0, k);
+  cta_matvec<T>(s3, V1, T(-1), Zj, s1, k, nullptr);          // Einv(v)
+  cta_matvec_t<T>(nullptr, etai, T(1), Ai, s3, k, Ve);       // eta
+  // The result, after every read of e_j.
+  cta_copy<T>(qelem(eo, 0, io, k), Aw, (int)kk);
+  cta_copy<T>(qelem(eo, 1, io, k), Vb, k);
+  cta_copy<T>(qelem(eo, 2, io, k), Uw, (int)kk);
+  cta_copy<T>(qelem(eo, 3, io, k), Ve, k);
+  cta_copy<T>(qelem(eo, 4, io, k), Zw, (int)kk);
+}
+
+// qr_combine_smoother(el, ee) (first the later element, second the
+// earlier) into element io of eo, which may be the earlier element's
+// slot: E = E_e E_l, g = E_e g_l + g_e, D = tria([E_e D_l | D_e]).
+template <typename T>
+__device__ __noinline__ void qr_smoother_combine_gen(
+    const Arrays<T>& ea, size_t ia, const Arrays<T>& eb, size_t ib,
+    const Arrays<T>& eo, size_t io, const QsgCta<T>& g) {
+  const int k = g.k;
+  const size_t kk = (size_t)k * k;
+  const T *El = qelem(ea, 0, ia, k), *gl = qelem(ea, 1, ia, k),
+          *Dl = qelem(ea, 2, ia, k);
+  const T *Ee = qelem(eb, 0, ib, k), *ge = qelem(eb, 1, ib, k),
+          *De = qelem(eb, 2, ib, k);
+  T *En = g.w, *X = En + kk, *Dw = X + kk, *Vg = Dw + kk;
+  cta_gemm<T>(En, k, Ee, k, false, El, k, false, k, k, k, T(1), nullptr, 0,
+              false, g.sm);                                   // E_e E_l
+  cta_gemm<T>(X, k, Ee, k, false, Dl, k, false, k, k, k, T(1), nullptr, 0,
+              false, g.sm);                                   // E_e D_l
+  cta_tria<T>(Dw, X, false, De, k, g.sm);
+  cta_load_vec(g.v[0], gl, k);
+  cta_matvec<T>(g.v[1], ge, T(1), Ee, g.v[0], k, Vg);        // E_e g_l + g_e
+  cta_copy<T>(qelem(eo, 0, io, k), En, (int)kk);
+  cta_copy<T>(qelem(eo, 1, io, k), Vg, k);
+  cta_copy<T>(qelem(eo, 2, io, k), Dw, (int)kk);
+}
+
+template <typename T, bool SMOOTH>
+__device__ __forceinline__ void qcombine_gen(const Arrays<T>& ea, size_t ia,
+                                             const Arrays<T>& eb, size_t ib,
+                                             const Arrays<T>& eo, size_t io,
+                                             const QsgCta<T>& g) {
+  if (SMOOTH)
+    qr_smoother_combine_gen<T>(ea, ia, eb, ib, eo, io, g);
+  else
+    qr_filter_combine_gen<T>(ea, ia, eb, ib, eo, io, g);
+}
+
+template <typename T, bool SMOOTH>
+__global__ void __launch_bounds__(GEN_THREADS)
+qphase1_gen_kernel(Arrays<T> el, T* work, int n, int S, int reverse, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  QsgCta<T> g(smem_raw, work, k);
+  if (S < 2) return;
+  for (int blk = blockIdx.x; blk < n / S; blk += gridDim.x) {
+    size_t prev = qat(blk * S, n, reverse);
+    for (int s = 1; s < S; ++s) {
+      const size_t i = qat(blk * S + s, n, reverse);
+      qcombine_gen<T, SMOOTH>(el, prev, el, i, el, i, g);
+      prev = i;
+    }
+  }
+}
+
+template <typename T, bool SMOOTH>
+__global__ void __launch_bounds__(GEN_THREADS)
+qphase2_gen_kernel(Arrays<T> el, Arrays<T> off, T* work, int n, int S,
+                   int reverse, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  QsgCta<T> g(smem_raw, work, k);
+  const int B = n / S;
+  if (B < 2) return;
+  // off[0]: block 0's total, copied as it stands.
+  const size_t src = qat(S - 1, n, reverse);
+  for (int a = 0; a < (SMOOTH ? 3 : 5); ++a)
+    cta_copy<T>(qelem(off, a, 0, k), qelem(el, a, src, k),
+                a % 2 == 0 ? k * k : k);
+  for (int b = 1; b < B - 1; ++b)
+    qcombine_gen<T, SMOOTH>(off, (size_t)(b - 1), el,
+                            qat(b * S + S - 1, n, reverse), off, (size_t)b,
+                            g);
+}
+
+template <typename T, bool SMOOTH>
+__global__ void __launch_bounds__(GEN_THREADS)
+qphase3_gen_kernel(Arrays<T> el, Arrays<T> off, T* work, int n, int S,
+                   int reverse, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  QsgCta<T> g(smem_raw, work, k);
+  const int B = n / S;
+  if (B < 2) return;
+  for (int i = blockIdx.x; i < (B - 1) * S; i += gridDim.x) {
+    const int b = 1 + i / S, s = i % S;
+    const size_t idx = qat(b * S + s, n, reverse);
+    qcombine_gen<T, SMOOTH>(off, (size_t)(b - 1), el, idx, el, idx, g);
+  }
+}
+
+template <typename T, bool SMOOTH>
+__global__ void __launch_bounds__(GEN_THREADS)
+qtail_gen_kernel(Arrays<T> el, T* work, int n, int S, int reverse, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  QsgCta<T> g(smem_raw, work, k);
+  const int T0 = (n / S) * S;
+  if (T0 >= n) return;
+  size_t prev = qat(T0 - 1, n, reverse);
+  for (int i = T0; i < n; ++i) {
+    const size_t idx = qat(i, n, reverse);
+    qcombine_gen<T, SMOOTH>(el, prev, el, idx, el, idx, g);
+    prev = idx;
+  }
+}
+
+template <typename T, bool SMOOTH>
+static int run_qr_gen(Arrays<T> el, Arrays<T> off, T* work, int n, int S,
+                   int k, int ctas, cudaStream_t s) {
+  const size_t bytes = QsgCta<T>::bytes(k);
+  cudaError_t err;
+  if ((err = dfm_smem_optin(qphase1_gen_kernel<T, SMOOTH>, bytes)) !=
+          cudaSuccess ||
+      (err = dfm_smem_optin(qphase2_gen_kernel<T, SMOOTH>, bytes)) !=
+          cudaSuccess ||
+      (err = dfm_smem_optin(qphase3_gen_kernel<T, SMOOTH>, bytes)) !=
+          cudaSuccess ||
+      (err = dfm_smem_optin(qtail_gen_kernel<T, SMOOTH>, bytes)) !=
+          cudaSuccess)
+    return (int)err;
+  const int reverse = SMOOTH ? 1 : 0;
+  const int B = n / S, n3 = (B - 1) * S;
+  const int g1 = B < ctas ? B : ctas, g3 = n3 < ctas ? n3 : ctas;
+  qphase1_gen_kernel<T, SMOOTH><<<g1 > 0 ? g1 : 1, GEN_THREADS, bytes, s>>>(
+      el, work, n, S, reverse, k);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  qphase2_gen_kernel<T, SMOOTH><<<1, GEN_THREADS, bytes, s>>>(
+      el, off, work, n, S, reverse, k);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  qphase3_gen_kernel<T, SMOOTH><<<g3 > 0 ? g3 : 1, GEN_THREADS, bytes, s>>>(
+      el, off, work, n, S, reverse, k);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  qtail_gen_kernel<T, SMOOTH><<<1, GEN_THREADS, bytes, s>>>(el, work, n, S,
+                                                            reverse, k);
+  return (int)cudaGetLastError();
+}
+
+// 4 <= k <= DFM_GEN_KMAX (the row vectors of the last workspace matrix);
+// ``work`` holds ctas x QR_SCAN_MATS k x k matrices; the scratch holds the
+// B block totals in the element layout, as ``launch``'s.
+template <typename T>
+static int launch_qr_gen(int smoother, T* e0, T* e1, T* e2, T* e3, T* e4,
+                      T* scratch, T* work, int n, int S, int k, int ctas,
+                      cudaStream_t s) {
+  if (n < 1 || S < 1 || S > n || k < 4 || k > DFM_GEN_KMAX || ctas < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t kk = (size_t)k * k, nb = (size_t)(n / S);
+  Arrays<T> el{{e0, e1, e2, e3, e4}};
+  Arrays<T> off{{scratch, scratch + nb * kk, scratch + nb * (kk + k),
+                 scratch + nb * (2 * kk + k),
+                 scratch + nb * (2 * kk + 2 * k)}};
+  if (smoother) return run_qr_gen<T, true>(el, off, work, n, S, k, ctas, s);
+  return run_qr_gen<T, false>(el, off, work, n, S, k, ctas, s);
+}
+
 extern "C" {
 #if DFM_WANT_F32
 int pit_scan_f32(int smoother, float* e0, float* e1, float* e2, float* e3,
@@ -594,6 +875,22 @@ int pit_scan_f64(int smoother, double* e0, double* e1, double* e2,
                  int k, void* stream) {
   return launch<double>(smoother, e0, e1, e2, e3, e4, scratch, n, S, k,
                         (cudaStream_t)stream);
+}
+#endif
+#if DFM_WANT_F32
+int qr_scan_gen_f32(int smoother, float* e0, float* e1, float* e2,
+                    float* e3, float* e4, float* scratch, float* work, int n,
+                    int S, int k, int ctas, void* stream) {
+  return launch_qr_gen<float>(smoother, e0, e1, e2, e3, e4, scratch, work,
+                              n, S, k, ctas, (cudaStream_t)stream);
+}
+#endif
+#if DFM_WANT_F64
+int qr_scan_gen_f64(int smoother, double* e0, double* e1, double* e2,
+                    double* e3, double* e4, double* scratch, double* work,
+                    int n, int S, int k, int ctas, void* stream) {
+  return launch_qr_gen<double>(smoother, e0, e1, e2, e3, e4, scratch, work,
+                               n, S, k, ctas, (cudaStream_t)stream);
 }
 #endif
 }

@@ -75,6 +75,7 @@ from ..ops.linalg import (UNROLL_K_MAX, chol_logdet, chol_solve,
 from ..ops.precision import accum_dtype, highest_precision
 from ..robust.health import health_from_trace
 from ..ssm.params import SSMParams
+from ..utils import refuse_unported
 from ..utils.data import standardize, validate_panel
 from .em import EMConfig, noise_floor_for
 from .fused import read_packed
@@ -903,7 +904,10 @@ def _smooth_core(Y, p, hetero=None):
 
 def run_batched_em(Y, p0: SSMParams, cfg: EMConfig, max_iters: int,
                    tol: float, fused_chunk: int = 8,
-                   with_metrics: bool = False, hetero=None, pipeline=None):
+                   with_metrics: bool = False, hetero=None, pipeline=None,
+                   policy=None, scan_impl=None, state0=None,
+                   scan_impl_metrics=None, scan_impl_capped=None,
+                   scan_impl_capped_metrics=None):
     """Chunked host driver around the batched EM chunk.
 
     ``Y`` (B, T, N) and ``p0`` (batched ``SSMParams``) are tensors on one
@@ -922,8 +926,19 @@ def run_batched_em(Y, p0: SSMParams, cfg: EMConfig, max_iters: int,
     ``hetero``: mixed-shape mode; each problem's tol / noise floor / cap
     come from the bundle (the scalar ``tol`` is then ignored).
     ``pipeline`` (speculative chunk issue) is not ported: ROADMAP Queue 1
-    item 4.
+    item 4; nor the JAX keywords ``policy`` (the guarded dispatch, item 5)
+    and ``scan_impl``, ``scan_impl_metrics``, ``scan_impl_capped``,
+    ``scan_impl_capped_metrics``, ``state0`` (the sharded batched EM, item
+    12): each raises ``NotImplementedError`` when given.
     """
+    refuse_unported(
+        "run_batched_em", ("policy", policy is not None, 5),
+        ("scan_impl", scan_impl is not None, 12),
+        ("state0", state0 is not None, 12),
+        ("scan_impl_metrics", scan_impl_metrics is not None, 12),
+        ("scan_impl_capped", scan_impl_capped is not None, 12),
+        ("scan_impl_capped_metrics", scan_impl_capped_metrics is not None,
+         12))
     if pipeline not in (None, 0):
         raise NotImplementedError(
             "run_batched_em(pipeline=) is not ported to dfm_tpu_torch yet: "
@@ -1102,7 +1117,8 @@ def _resolve_backend(backend) -> TorchBackend:
 def fit_many(spec: DFMBatchSpec, backend=None, max_iters: int = 50,
              tol: float = 1e-6, dtype=None, fused_chunk: int = 8,
              n_devices: Optional[int] = None, device_init: bool = False,
-             with_metrics: bool = False, pipeline=None) -> BatchFitResult:
+             with_metrics: bool = False, pipeline=None,
+             robust: bool = False) -> BatchFitResult:
     """Fit B independent DFM problems in one batched program per chunk.
 
     The batched twin of ``api.fit`` for same-shaped, fully-observed
@@ -1117,8 +1133,11 @@ def fit_many(spec: DFMBatchSpec, backend=None, max_iters: int = 50,
     Gram-eigh PCA init on the backend's device (uniform-k specs only).
     ``with_metrics`` fills ``BatchFitResult.metrics``.  ``backend="sharded"``,
     ``n_devices`` and ``pipeline`` raise ``NotImplementedError`` (ROADMAP
-    Queue 1 items 12 and 4).
+    Queue 1 items 12 and 4), and so does ``robust=True`` (the guarded
+    driver, item 5; the JAX default, while the port's batched fits are
+    unguarded).
     """
+    refuse_unported("fit_many", ("robust", bool(robust), 5))
     if n_devices is not None:
         raise NotImplementedError(
             "fit_many(n_devices=) is not ported to dfm_tpu_torch yet: "

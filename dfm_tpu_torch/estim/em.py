@@ -33,9 +33,11 @@ from ..ssm.parallel_filter import (pit_filter, pit_qr_filter,
                                    pit_qr_smoother, pit_smoother)
 from ..ssm.params import SmootherResult, SSMParams
 from ..ssm.steady import DEFAULT_TAU, ss_filter_smoother
+from ..utils import refuse_unported
 
 __all__ = ["EMConfig", "em_step", "em_fit_scan", "em_chunk",
-           "run_em_chunked", "run_chunked", "read_host", "em_progress",
+           "run_em_chunked", "fit_em_chunked", "run_chunked", "read_host",
+           "em_progress",
            "noise_floor_for",
            "warn_ss_delta", "moments", "moment_sums", "mstep_rows", "mstep_rows_plain", "mstep_dynamics",
            "mstep_dynamics_sums", "mstep_dynamics_tmasked", "cfg_hypers"]
@@ -49,7 +51,9 @@ class EMConfig:
     (steady-state accelerated: ``tau`` exact covariance steps, then frozen
     gains; falls back to "info" when masked or T <= 2 tau + 4), "pit"
     (covariance-form parallel-in-time; k <= 128 on CUDA), "pit_qr"
-    (square-root parallel-in-time; k <= 10 on CUDA) or "lowrank" (rank-r
+    (square-root parallel-in-time; k <= 128 on CUDA, past 10 the JAX
+    package's Gram-and-Cholesky branches, f64 its dtype there) or
+    "lowrank" (rank-r
     computation-aware downdate filter and smoother,
     ``ssm.lowrank_filter``: only r x r factorizations in the scans,
     conservative covariances, exact at rank = k).
@@ -328,14 +332,19 @@ def em_step(Y, p: SSMParams, mask=None, cfg: EMConfig = EMConfig(),
 
 
 def em_fit_scan(Y, p0: SSMParams, n_iters: int, mask=None,
-                cfg: EMConfig = EMConfig(), consts=None, n_steps=None):
+                cfg: EMConfig = EMConfig(), consts=None, n_steps=None,
+                with_metrics: bool = False, n_active=None):
     """``n_iters`` EM iterations with no host read (``n_steps`` as in
     ``em_step``).
 
     Returns (params after every update, a list of length ``n_iters``; the
     logliks (n_iters,) at the entering params, an f64 tensor on Y's
-    device; the ss freeze deltas (n_iters,) in Y's dtype).
+    device; the ss freeze deltas (n_iters,) in Y's dtype).  The JAX
+    keywords ``with_metrics`` (ROADMAP Queue 1 item 3) and ``n_active``
+    (item 4; ``em_chunk`` takes a host cap) raise when given.
     """
+    refuse_unported("em_fit_scan", ("with_metrics", bool(with_metrics), 3),
+                    ("n_active", n_active is not None, 4))
     if consts is None:
         consts = _panel_consts(Y, mask is not None, cfg)
     ps, lls, deltas = [], [], []
@@ -417,20 +426,25 @@ def read_host(x: torch.Tensor) -> np.ndarray:
 
 def run_chunked(scan_fn, state0, max_iters: int, tol: float,
                 noise_floor: float, fused_chunk: int = 8,
-                monotone: bool = True):
+                monotone: bool = True, on_loglik=None):
     """The stop-and-select loop of the JAX package's ``run_em_chunked``,
     over any update.
 
     ``scan_fn(state, n)`` runs n updates on the device with no host read
-    and returns (the states after each update, a list of n; the logliks
-    (n,) at each update's entering state, a tensor; per-update extras (n,)
-    or None).  Each chunk of up to ``fused_chunk`` updates is read with
-    ONE blocking read (``read_host``: the logliks, stacked with the extras
-    if any).  The states of the current chunk and the two the stopping
-    rule can still pick from the one before (its last two update counts)
-    stay on the device, so a mid-chunk stop returns the state of exactly
-    the update count the rule chose (converged: every update that ran;
-    diverged: the state entering the pre-drop update).
+    and returns (the states after each update, a list of n, of which all
+    but the last may be None; the logliks (n,) at each update's entering
+    state, a tensor; per-update extras (n,) or None).  Each chunk of up to
+    ``fused_chunk`` updates is read with ONE blocking read (``read_host``:
+    the logliks, stacked with the extras if any).  The states of the
+    current chunk and the two the stopping rule can still pick from the
+    one before (its last two update counts) stay on the device, so a
+    mid-chunk stop returns the state of exactly the update count the rule
+    chose (converged: every update that ran; diverged: the state entering
+    the pre-drop update); a chosen state given as None is replayed from
+    the latest state kept before it, as the JAX package's
+    ``run_em_chunked`` replays a chunk's prefix.  ``on_loglik(i, ll,
+    entry_state, entry_count)`` runs for every loglik read, with the
+    state and update count its chunk entered from.
 
     Returns (state, logliks (n,) np.float64, converged, update count,
     secs, extras) with ``secs[i]`` the host wall of update i's chunk,
@@ -439,7 +453,7 @@ def run_chunked(scan_fn, state0, max_iters: int, tol: float,
     arrays; empty without extras).
     """
     fused_chunk = max(1, int(fused_chunk))
-    by_iter = {0: state0}      # update count -> state
+    by_iter = {0: state0}      # update count -> state (None: replay)
     lls: list = []
     secs: list = []
     extras: list = []
@@ -448,18 +462,24 @@ def run_chunked(scan_fn, state0, max_iters: int, tol: float,
     while it < max_iters and not stop:
         t0 = time.perf_counter()
         n = min(fused_chunk, max_iters - it)
-        states, chunk, extra = scan_fn(by_iter[it], n)
+        entry = by_iter[it]
+        states, chunk, extra = scan_fn(entry, n)
         if extra is None:
             chunk = read_host(chunk)                            # one read
         else:
             chunk, extra = read_host(torch.stack(
                 [chunk, extra.to(chunk.dtype)]))                # one read
         wall = time.perf_counter() - t0
-        by_iter = {i: q for i, q in by_iter.items() if i >= it - 1}
+        base = max((i for i, q in by_iter.items()
+                    if i < it and q is not None), default=it)
+        by_iter = {i: q for i, q in by_iter.items()
+                   if i >= min(it - 1, base)}
         by_iter.update({it + j + 1: q for j, q in enumerate(states)})
         for j, ll in enumerate(chunk):
             lls.append(float(ll))
             secs.append(wall if j == 0 else 0.0)
+            if on_loglik is not None:
+                on_loglik(it + j, float(ll), entry, it)
             state = em_progress(lls, tol, noise_floor, monotone=monotone)
             if state != "continue":
                 converged = state == "converged"
@@ -473,14 +493,67 @@ def run_chunked(scan_fn, state0, max_iters: int, tol: float,
             extras.append(extra[:j + 1])
         it += n
     iters = target if stop else it
-    return (by_iter[iters], np.asarray(lls), converged, iters, secs,
-            extras)
+    state = by_iter[iters]
+    if state is None:
+        base = max(i for i, q in by_iter.items()
+                   if i < iters and q is not None)
+        state = scan_fn(by_iter[base], iters - base)[0][-1]
+    return (state, np.asarray(lls), converged, iters, secs, extras)
 
 
-def run_em_chunked(Y, mask, p0: SSMParams, cfg: EMConfig, max_iters: int,
+def run_em_chunked(scan_fn, p0, max_iters: int, tol: float,
+                   noise_floor: float, callback=None, fused_chunk: int = 8,
+                   ss_tau=None, monitor=None, progress=None, pipeline=None,
+                   monotone: bool = True):
+    """The JAX package's shared chunked EM driver, its signature and stop
+    semantics, as ``run_chunked`` over a JAX-shaped update.
+
+    ``scan_fn(p, n) -> (p_new, logliks (n,), ss_deltas (n,) | None)`` runs
+    n EM iterations with no host read (a 4th element, per-iteration
+    metrics, is ignored).  Each chunk of up to ``fused_chunk`` iterations
+    ends in ONE blocking read; a stop inside a chunk replays the chunk's
+    prefix from the stored chunk-entry params (the previous chunk's when a
+    divergence blames its last update), so the returned params embody
+    exactly the update count the stopping rule chose.  ``callback(it, ll,
+    p_entry)`` runs for every loglik with the chunk-entry params
+    (``params_iter=`` too when the callback has ``wants_params_iter``);
+    ``ss_tau`` feeds the freeze deltas up to the stop to
+    ``warn_ss_delta``.  ``monitor`` (the guarded twin, ROADMAP Queue 1
+    item 5), ``progress`` (item 3) and ``pipeline`` (item 4) raise when
+    given.  Returns (p, logliks (n,) np.float64, converged, p_iters).
+    """
+    refuse_unported("run_em_chunked", ("monitor", monitor is not None, 5),
+                    ("progress", progress is not None, 3),
+                    ("pipeline", pipeline not in (None, 0, 1), 4))
+    pass_piter = getattr(callback, "wants_params_iter", False)
+
+    def scan(p, n):
+        p_new, lls, deltas = scan_fn(p, n)[:3]
+        return ([None] * (n - 1) + [p_new], torch.as_tensor(lls),
+                None if deltas is None else torch.as_tensor(deltas))
+
+    def on_loglik(i, ll, p_entry, entry_it):
+        if pass_piter:
+            callback(i, ll, p_entry, params_iter=entry_it)
+        else:
+            callback(i, ll, p_entry)
+
+    with highest_precision():
+        p, lls, converged, p_iters, _, deltas = run_chunked(
+            scan, p0, max_iters, tol, noise_floor, fused_chunk, monotone,
+            on_loglik=None if callback is None else on_loglik)
+    if ss_tau is not None:
+        warn_ss_delta(max((float(np.max(d)) for d in deltas), default=0.0),
+                      ss_tau)
+    return p, lls, converged, p_iters
+
+
+def fit_em_chunked(Y, mask, p0: SSMParams, cfg: EMConfig, max_iters: int,
                    tol: float, fused_chunk: int = 8):
-    """Chunked EM driver with the stop semantics of the JAX package's
-    ``run_em_chunked`` (``run_chunked`` over ``em_fit_scan``).
+    """Chunked EM driver of ``fit`` on a panel, with the stop semantics of
+    the JAX package's ``run_em_chunked`` (``run_chunked`` over
+    ``em_fit_scan``, which keeps every update's params on the device, so
+    a mid-chunk stop needs no replay).
 
     Each chunk runs up to ``fused_chunk`` iterations on the device and
     reads the chunk's logliks and ss freeze deltas with ONE blocking

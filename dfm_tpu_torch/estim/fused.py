@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..ops.precision import accum_dtype, highest_precision
+from ..utils import refuse_unported
 from .em import EMConfig, _panel_consts, cfg_hypers, em_chunk
 
 __all__ = ["FusedOptions", "FusedRun", "resolve_fused", "run_fused",
@@ -343,11 +344,17 @@ def _read_run(out: dict, max_iters: int, status_reads: int) -> FusedRun:
 
 def run_fused(Y, mask, p0, cfg: EMConfig, max_iters: int, tol: float,
               noise_floor: float, opts: FusedOptions,
-              fused_chunk: int = 8) -> FusedRun:
+              fused_chunk: int = 8, policy=None, health=None,
+              p0_host=None) -> FusedRun:
     """The fused fit on device tensors (``Y``, ``mask`` or None, params
     ``p0``): EM to convergence, the reporting smooth
     (``EMConfig.report_pair``), nowcast, state-space and diffusion-index
-    forecasts; returns a host-side ``FusedRun``."""
+    forecasts; returns a host-side ``FusedRun``.  The JAX keywords of the
+    guarded fused fit, ``policy``, ``health`` and ``p0_host``, raise when
+    given (ROADMAP Queue 1 item 5)."""
+    refuse_unported("run_fused", ("policy", policy is not None, 5),
+                    ("health", health is not None, 5),
+                    ("p0_host", p0_host is not None, 5))
     max_iters = max(1, int(max_iters))
     C = max(1, int(fused_chunk))
     with highest_precision():

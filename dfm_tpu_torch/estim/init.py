@@ -55,24 +55,38 @@ def _pca_parts(Y: torch.Tensor, k: int):
     return Lam, F, R
 
 
-def pca_init_device(Y: torch.Tensor, k: int,
-                    static: bool = False) -> cpu_ref.SSMParams:
-    """Device PCA init on a standardized, zero-filled panel tensor; returns
-    NumPy f64 params (the same type as the host initializer).  Eigenvector
-    signs may differ from another eigensolver's, column by column."""
-    Lam, F, R = _pca_parts(Y, k)
+def _panel(Y, dtype, device) -> torch.Tensor:
+    """``Y`` (a tensor or a host array) as a tensor in ``dtype`` (default:
+    a tensor's own dtype, float32 for a host array, the JAX default) on
+    ``device`` (default: a tensor's own device, the card for a host
+    array)."""
+    if isinstance(Y, torch.Tensor):
+        return Y.to(device=device or Y.device, dtype=dtype or Y.dtype)
+    return torch.as_tensor(np.asarray(Y), dtype=dtype or torch.float32,
+                           device=device or "cuda")
+
+
+def pca_init_device(Y, k: int, static: bool = False, dtype=None,
+                    device=None) -> cpu_ref.SSMParams:
+    """Device PCA init on a standardized, zero-filled panel (a tensor, or
+    a host array the JAX way), computed in ``dtype`` (see ``_panel``);
+    returns NumPy f64 params (the same type as the host initializer).
+    Eigenvector signs may differ from another eigensolver's, column by
+    column."""
+    Lam, F, R = _pca_parts(_panel(Y, dtype, device), k)
     A, Q, mu0, P0 = cpu_ref.var_tail(F.to("cpu", torch.float64).numpy(), k,
                                      static)
     return cpu_ref.SSMParams(Lam.to("cpu", torch.float64).numpy(), A, Q,
                              R.to("cpu", torch.float64).numpy(), mu0, P0)
 
 
-def pca_init_batched(Y: torch.Tensor, k: int,
-                     static: bool = False) -> list:
+def pca_init_batched(Y, k: int, static: bool = False, dtype=None,
+                     device=None) -> list:
     """Device PCA warm starts for a stack (B, T, N) of standardized, fully
-    observed panels: one batched Gram eigh, then the k-sized VAR tails on
-    the host, one per panel.  Returns B NumPy f64 param sets."""
-    Lam, F, R = _pca_parts(Y, k)
+    observed panels (a tensor or a host array, in ``dtype`` on ``device``
+    as ``pca_init_device``): one batched Gram eigh, then the k-sized VAR
+    tails on the host, one per panel.  Returns B NumPy f64 param sets."""
+    Lam, F, R = _pca_parts(_panel(Y, dtype, device), k)
     h = read_packed({"Lam": Lam, "F": F, "R": R})   # one read
     out = []
     for b in range(Lam.shape[0]):

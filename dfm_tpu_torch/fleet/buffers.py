@@ -174,10 +174,10 @@ class FleetBucket:
         self.Ybuf, self.Wbuf = out["Ybuf"], out["Wbuf"]
         self.p = out["p"]
 
-    def params_host(self):
-        """Per-lane padded NumPy f64 params of the resident stacked params
-        (one read)."""
-        return unstack_params(self.p)
+    def params_host(self, out_p=None):
+        """Per-lane padded NumPy f64 params of the stacked params ``out_p``
+        (a tick's fresh ones), by default the resident ones (one read)."""
+        return unstack_params(out_p if out_p is not None else self.p)
 
     def __repr__(self):
         T, N, k = self.dims

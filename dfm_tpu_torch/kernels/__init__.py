@@ -40,7 +40,7 @@ import torch
 __all__ = ["LAUNCHES", "KERNELS", "PROBES", "build", "build_log", "launch",
            "probe", "reset_launches", "check_k", "check_lowrank",
            "check_dense", "check_particles", "check_tensor", "WIDE", "GEN",
-           "DEVICE_LAUNCHES", "route", "gen_ctas", "PIT_GEN_MATS"]
+           "DEVICE_LAUNCHES", "route", "gen_ctas", "GEN_MATS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -63,8 +63,9 @@ WIDE_KMAX = 32
 # fused fits and sessions past 32, the mixed-frequency seq and pit routes
 # at m > 32), and the batched twins K4b (both passes), K1b, K6b, K2b-m,
 # K1b-m and K3b-m there (fit_many, the k-grid, the rolling windows and
-# info and lowrank fleet buckets past 32).  Every other kernel but the
-# rank-r ones (below) stops at WIDE_KMAX or below.
+# info and lowrank fleet buckets past 32).  The square-root engine's K8
+# (qr_elements_gen, qr_scan_gen) takes 10 < k <= GEN_KMAX.  Every other
+# kernel but the rank-r ones (below) stops at WIDE_KMAX or below.
 GEN_KMAX = 128
 # The rank-r kernels' range (DFM_LR_KMAX, DFM_LR_RMAX in lowrank_scan.cu).
 LOWRANK_KMAX, LOWRANK_RMAX = 100, 32
@@ -149,6 +150,8 @@ KERNELS = {
     "affine_scan_gen": ("affine_scan.cu", [_P] * 5 + [_I] * 4),
     "pit_elements_gen": ("pit_elements.cu", [_I] + [_P] * 13 + [_I] * 4),
     "pit_scan_gen": ("pit_scan.cu", [_I] + [_P] * 7 + [_I] * 4),
+    "qr_elements_gen": ("pit_elements.cu", [_I] * 2 + [_P] * 13 + [_I] * 4),
+    "qr_scan_gen": ("pit_scan.cu", [_I] + [_P] * 7 + [_I] * 4),
 }
 
 # The entry points with a wide kernel beside the k <= KMAX one, and its
@@ -173,7 +176,7 @@ WIDE = {"obs_stats": "obs_stats_wide", "info_scan": "info_scan_wide",
 # k) workspace the wrapper allocates, their batched twins a (B, 4, k, k)
 # one, batched_solve_rows a (B, k, k) one (the lanes' factors) and
 # ss_cov_path a (5, k, k) one; pit_elements and pit_scan take a workspace
-# of PIT_GEN_MATS k x k matrices a CTA and, last, the CTA count of their
+# of GEN_MATS k x k matrices a CTA and, last, the CTA count of their
 # persistent grids (``gen_ctas``).
 GEN = {"obs_stats": "obs_stats_gen", "info_scan": "info_scan_gen",
        "rts_smoother": "rts_smoother_gen", "quad_local": "quad_local_gen",
@@ -186,16 +189,23 @@ GEN = {"obs_stats": "obs_stats_gen", "info_scan": "info_scan_gen",
        "batched_solve_rows": "batched_solve_rows_gen",
        "batched_obs_stats": "batched_obs_stats_gen",
        "batched_mstep_rows": "batched_mstep_rows_gen"}
-# k x k workspace matrices a CTA of pit_elements_gen and pit_scan_gen (the
-# last template argument of PegCta in pit_elements.cu, of GenCta in
-# pit_scan.cu).
-PIT_GEN_MATS = {"pit_elements_gen": 4, "pit_scan_gen": 6}
+# k x k workspace matrices a CTA of the generic kernels on persistent
+# grids: pit_elements_gen and pit_scan_gen (the last template argument of
+# PegCta in pit_elements.cu, of GenCta in pit_scan.cu), qr_elements_gen and
+# qr_scan_gen (QR_EL_MATS in pit_elements.cu, QR_SCAN_MATS in pit_scan.cu:
+# beside the pit engine's generic kernels, whose block-wide routines they
+# share, so those compile once a dtype).
+# The square-root engine's kernels are routed by ops.linalg.check_qr_k
+# (their own to k = 10, the generic ones to GEN_KMAX), not by ``route``.
+GEN_MATS = {"pit_elements_gen": 4, "pit_scan_gen": 6, "qr_elements_gen": 8,
+            "qr_scan_gen": 10}
 
 # The kernels whose one C call launches more than one device kernel, and
 # how many: ``launch`` counts each.  K6b-gen factors the lanes' S, then
 # solves the row tiles against the factors; K5a-gen runs the covariance
 # steps, the gains (a CTA a step) and the smoothed covariances.  (K14-scan
-# counts one a pass at every k: its four phase kernels are one scan.)
+# and K8-gen's scan count one a pass at every k: their four phase kernels
+# are one scan.)
 DEVICE_LAUNCHES = {"batched_solve_rows_gen": 2, "ss_cov_path_gen": 3}
 
 # Measurement kernels off the model path, in the same form.

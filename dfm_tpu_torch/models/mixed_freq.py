@@ -33,9 +33,12 @@ m <= 32.  ``time_scan="lowrank"`` replaces the K4 pair by the rank-r K9
 trio (one K9-basis an iteration, shared by both scans);
 ``time_scan="pit"`` by the covariance-form parallel-in-time pair (K14:
 ``pit_elements`` and ``pit_scan``, four and two launches an iteration, in
-f64 on the augmented statistics; their generic kernels at m > 32).  ``"pit_qr"`` waits for the
-square-root kernels past k = 10 and raises.  ``mf_fit`` and
-``mf_loglik_eval`` run
+f64 on the augmented statistics; their generic kernels at m > 32), and
+``time_scan="pit_qr"`` by the square-root parallel-in-time pair (K8:
+``qr_elements`` and ``qr_scan``, four and two launches an iteration, in
+f64; at m > 10, S3's m = 25 included, their generic kernels
+``qr_elements_gen`` and ``qr_scan_gen``, the JAX package's generic
+branches).  ``mf_fit`` and ``mf_loglik_eval`` run
 under ``highest_precision()``: reduced-precision products wobble the
 augmented statistics enough to fake divergences.
 """
@@ -64,8 +67,10 @@ from ..ssm.lowrank_filter import (lowrank_from_stats,
                                   lowrank_loglik_from_terms,
                                   lowrank_smoother, policy_basis,
                                   resolve_rank)
-from ..ssm.parallel_filter import pit_from_stats, pit_smoother
+from ..ssm.parallel_filter import (pit_from_stats, pit_qr_from_stats,
+                                   pit_qr_smoother, pit_smoother)
 from ..ssm.params import FilterResult, SmootherResult, SSMParams
+from ..utils import refuse_unported
 from ..utils.data import build_mask, standardize as _standardize
 
 __all__ = ["MixedFreqSpec", "MFParams", "augment", "mf_em_core",
@@ -78,10 +83,9 @@ MM_WEIGHTS = (1.0 / 3, 2.0 / 3, 1.0, 2.0 / 3, 1.0 / 3)
 @dataclasses.dataclass(frozen=True)
 class MixedFreqSpec:
     """Static model description.  ``time_scan``: "seq" (the filter and RTS
-    pair, the default), "pit" (the covariance-form parallel-in-time pair)
-    or "lowrank" (the rank-r scans at ``rank``, <= 0 for min(m, 8)) run;
-    "pit_qr" is accepted, as in the JAX package, and raises when a fit or
-    an E-step runs it."""
+    pair, the default), "pit" (the covariance-form parallel-in-time pair),
+    "pit_qr" (the square-root parallel-in-time pair) or "lowrank" (the
+    rank-r scans at ``rank``, <= 0 for min(m, 8))."""
     n_monthly: int
     n_quarterly: int
     n_factors: int
@@ -101,15 +105,6 @@ class MixedFreqSpec:
     @property
     def state_dim(self) -> int:
         return self.n_lags * self.n_factors
-
-
-def _check_time_scan(spec: MixedFreqSpec) -> None:
-    if spec.time_scan == "pit_qr":
-        raise NotImplementedError(
-            f"MixedFreqSpec(time_scan='pit_qr') runs the square-root engine "
-            f"on the m = {spec.state_dim} augmented state, past the port's "
-            "QR kernels (k <= 10, ops/linalg.py check_qr_k): ROADMAP Queue "
-            "2, 'Generic k, the kernels already ported' (QR past 10)")
 
 
 class MFParams(NamedTuple):
@@ -178,7 +173,6 @@ def _e_step(Y, mask, p: MFParams, spec: MixedFreqSpec):
     """The E-step: (FilterResult with the entry loglik, the f64
     SmootherResult).  See the module docstring for the kernels and the
     dtypes."""
-    _check_time_scan(spec)
     dtype = Y.dtype
     acc = accum_dtype()
     aug = augment(p, spec)
@@ -192,6 +186,8 @@ def _e_step(Y, mask, p: MFParams, spec: MixedFreqSpec):
             stats_acc, aug_acc, spec.rank, V)
     elif spec.time_scan == "pit":
         xp, Pp, xf, Pf, logdetG = pit_from_stats(stats_acc, aug_acc)
+    elif spec.time_scan == "pit_qr":
+        xp, Pp, xf, Pf, logdetG = pit_qr_from_stats(stats_acc, aug_acc)
     else:
         xp, Pp, xf, Pf, logdetG = info_scan(stats_acc, aug_acc.A, aug_acc.Q,
                                             aug_acc.mu0, aug_acc.P0)
@@ -206,6 +202,8 @@ def _e_step(Y, mask, p: MFParams, spec: MixedFreqSpec):
         sm = lowrank_smoother(kf, aug_acc, spec.rank, V)
     elif spec.time_scan == "pit":
         sm = pit_smoother(kf, aug_acc)
+    elif spec.time_scan == "pit_qr":
+        sm = pit_qr_smoother(kf, aug_acc)
     else:
         sm = rts_smoother(kf, aug_acc)
     return kf, sm
@@ -271,11 +269,14 @@ def _m_step(Y, mask, p: MFParams, spec: MixedFreqSpec,
                                                 P0)))
 
 
-def mf_em_core(Y, mask, p: MFParams, spec: MixedFreqSpec):
+def mf_em_core(Y, mask, p: MFParams, spec: MixedFreqSpec, reduce_tree=None):
     """One constrained EM iteration: (new params, the f64 loglik at the
     entry params, the f64 SmootherResult).  ``Y`` (T, Nm + Nq) zero-filled
     at missing entries, ``mask`` (T, N) in Y's dtype, ``p`` on Y's device
-    in Y's dtype."""
+    in Y's dtype.  ``reduce_tree`` (the series-sharded reduction) raises
+    when given: ROADMAP Queue 1 item 12."""
+    refuse_unported("mf_em_core", ("reduce_tree", reduce_tree is not None,
+                                   12))
     kf, sm = _e_step(Y, mask, p, spec)
     return _m_step(Y, mask, p, spec, sm), kf.loglik, sm
 
@@ -446,7 +447,6 @@ def mf_fit(Y: np.ndarray, spec: MixedFreqSpec,
         raise NotImplementedError(
             "mf_fit(callback=) is not ported to dfm_tpu_torch yet: ROADMAP "
             "Queue 1 item 3 (the fit() options)")
-    _check_time_scan(spec)
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -430,10 +430,22 @@ def _prep(Y, p: SSMParams, spec: SVSpec, h_center, sigma_h):
     return p, h_center, sig
 
 
+def _refuse_key(fn: str, key) -> None:
+    """A ``jax.random`` key cannot seed the port's draws: torch cannot
+    reproduce ``jax.random``'s numbers, so the port takes a
+    ``torch.Generator`` or explicit draws instead."""
+    if key is not None:
+        raise NotImplementedError(
+            f"{fn}(key=): torch cannot reproduce jax.random, so the port "
+            "takes no JAX key; pass generator= (a torch.Generator) or "
+            "draws= (the explicit draws, e.g. replayed from a JAX key "
+            "schedule) instead")
+
+
 def sv_filter(Y, p: SSMParams, spec: SVSpec,
               generator: Optional[torch.Generator] = None,
               h_center=None, sigma_h=None, store_paths: bool = True,
-              draws: Optional[SVDraws] = None) -> SVResult:
+              draws: Optional[SVDraws] = None, key=None) -> SVResult:
     """Rao-Blackwellized particle Kalman filter for the SV-DFM.
 
     ``Y`` (T, N) tensor on the device the pass runs on (its dtype is the
@@ -443,8 +455,10 @@ def sv_filter(Y, p: SSMParams, spec: SVSpec,
     ``sigma_h`` (scalar or (k,)) overrides ``spec.sigma_h``.
     ``store_paths=False`` skips the (T, M, k) particle history (needed
     only for FFBS), the filter-timing mode.  ``draws``: the pass's
-    ``SVDraws``, else drawn from ``generator``.  Runs in true f32 matrix
-    products (no TF32) and reads the host once."""
+    ``SVDraws``, else drawn from ``generator``; a JAX ``key`` raises
+    (``_refuse_key``).  Runs in true f32 matrix products (no TF32) and
+    reads the host once."""
+    _refuse_key("sv_filter", key)
     with highest_precision():
         p, h_center, sig = _prep(Y, p, spec, h_center, sigma_h)
         if draws is None:
@@ -457,13 +471,15 @@ def sv_filter(Y, p: SSMParams, spec: SVSpec,
 def sv_smooth_h(res: SVResult, sigma_h,
                 generator: Optional[torch.Generator] = None,
                 n_draws: int = 64,
-                draws: Optional[FFBSDraws] = None) -> torch.Tensor:
+                draws: Optional[FFBSDraws] = None,
+                key=None) -> torch.Tensor:
     """FFBS: ``n_draws`` smoothed log-vol trajectories, shape (T, S, k).
 
     Backward weights combine the stored filtering weights with the
     random-walk transition density N(h_{t+1}; h_t, diag(sigma_h^2));
     sampling is by the Gumbel-max trick on ``draws`` (else drawn from
-    ``generator``)."""
+    ``generator``); a JAX ``key`` raises (``_refuse_key``)."""
+    _refuse_key("sv_smooth_h", key)
     if res.h_particles is None:
         raise ValueError(
             "sv_smooth_h needs the filtering particle history; run "
@@ -558,7 +574,8 @@ def sv_fit(Y: np.ndarray, spec: SVSpec, em_iters: int = 20,
            generator: Optional[torch.Generator] = None, backend=None,
            standardize: bool = True, sv_iters: int = 10,
            sv_accel: float = 3.0, estimate_sv: bool = True,
-           mesh=None, draws: Optional[Sequence] = None) -> SVFit:
+           mesh=None, draws: Optional[Sequence] = None,
+           key=None) -> SVFit:
     """SV-DFM estimation (BASELINE.json:11):
 
     1. EM pre-fit of the homoskedastic DFM (Lam, A, Q, R) through the
@@ -575,7 +592,8 @@ def sv_fit(Y: np.ndarray, spec: SVSpec, em_iters: int = 20,
     or None) per E-step in order, else each E-step's draws come from
     ``generator`` (``estep_draws``).  Each E-step reads the host once (its
     per-step loglik increments), the result once more.  ``mesh`` is not
-    ported."""
+    ported; a JAX ``key`` raises (``_refuse_key``)."""
+    _refuse_key("sv_fit", key)
     if mesh is not None:
         raise NotImplementedError(
             "sv_fit(mesh=) is not ported to dfm_tpu_torch yet: the "

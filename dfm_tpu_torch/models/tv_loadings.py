@@ -45,6 +45,7 @@ from ..robust.health import health_from_trace
 from ..ssm.info_filter import ObsStats, info_scan, loglik_from_terms
 from ..ssm.kalman import rts_smoother
 from ..ssm.params import FilterResult, SSMParams
+from ..utils import refuse_unported
 from ..utils.data import build_mask
 
 __all__ = ["TVLSpec", "TVLParams", "tvl_fit", "tvl_forecast", "TVLResult",
@@ -199,11 +200,15 @@ def _smooth(kf: FilterResult, Lam_t, p: TVLParams):
                                       mu0=p.mu0, P0=p.P0))
 
 
-def factor_pass_tv(Y, Lam_t, p: TVLParams, mask=None):
+def factor_pass_tv(Y, Lam_t, p: TVLParams, mask=None, reduce_tree=None):
     """Filter + RTS smoother over factors given the loading paths.
 
     Returns (FilterResult, SmootherResult); loglik is conditional on Lam_t.
+    ``reduce_tree`` (the series-sharded reduction) raises when given:
+    ROADMAP Queue 1 item 12.
     """
+    refuse_unported("factor_pass_tv", ("reduce_tree", reduce_tree is not None,
+                                       12))
     kf = _tv_filter(Y, Lam_t, p, mask)
     return kf, _smooth(kf, Lam_t, p)
 
@@ -333,12 +338,16 @@ def loading_pass(Y, F, p: TVLParams, mask=None):
 # Driver
 # ---------------------------------------------------------------------------
 
-def tvl_round_core(Y, mask, Lam_t, p: TVLParams, spec: TVLSpec):
+def tvl_round_core(Y, mask, Lam_t, p: TVLParams, spec: TVLSpec,
+                   reduce_tree=None):
     """One alternation round: (Lam_t', params', loglik (f64, at the
     entering state), F_sm).  ``Y`` is zero-filled at missing entries when
     ``mask`` is given.  The residual and smear contractions are batched
     products over the step axis, with no (T, N, k, k) temporary beyond
-    the smoothed loading covariances."""
+    the smoothed loading covariances.  ``reduce_tree`` raises when given
+    (ROADMAP Queue 1 item 12)."""
+    refuse_unported("tvl_round_core", ("reduce_tree", reduce_tree is not None,
+                                       12))
     T, N = Y.shape
     k = spec.n_factors
     kf, sm = factor_pass_tv(Y, Lam_t, p, mask)
@@ -394,10 +403,12 @@ def _rounds(Y, mask, Lam_t, p: TVLParams, spec: TVLSpec, n: int):
 
 
 def tvl_round_scan(Y, mask, Lam_t, p: TVLParams, spec: TVLSpec,
-                   n_rounds: int):
+                   has_mask: bool, n_rounds: int):
     """``n_rounds`` alternation rounds as eager device work with no host
-    read: ((Lam_t', params'), logliks (n,) f64)."""
-    states, lls = _rounds(Y, mask, Lam_t, p, spec, n_rounds)
+    read: ((Lam_t', params'), logliks (n,) f64).  The JAX signature:
+    ``mask`` is used only when ``has_mask``."""
+    states, lls = _rounds(Y, mask if has_mask else None, Lam_t, p, spec,
+                          n_rounds)
     return (states[-1] if states else (Lam_t, p)), lls
 
 

@@ -23,8 +23,11 @@ DEFAULT_DIR = ".dfm_runs"
 RUNS_FILE = "runs.jsonl"
 
 
-def runs_dir(explicit: Optional[str] = None) -> Optional[str]:
-    """Resolve the registry directory; ``None`` means "no registry"."""
+def runs_dir(explicit: Optional[str] = None, *,
+             ambient_only: bool = False) -> Optional[str]:
+    """Resolve the registry directory; ``None`` means "no registry".  With
+    ``ambient_only`` only an explicit directory or ``DFM_RUNS`` counts
+    (no ``DEFAULT_DIR`` fallback)."""
     if explicit:
         return str(explicit)
     env = os.environ.get(RUNS_ENV)
@@ -32,7 +35,7 @@ def runs_dir(explicit: Optional[str] = None) -> Optional[str]:
         return env
     if env == "":          # explicitly disabled
         return None
-    return DEFAULT_DIR
+    return None if ambient_only else DEFAULT_DIR
 
 
 class RunStore:

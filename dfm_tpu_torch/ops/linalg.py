@@ -9,9 +9,16 @@ The ``*_unrolled`` functions are the plain twins of kernels K6 and K7:
 the JAX package's elementwise small-matrix routines, batched over the
 leading axes, whose CUDA form is the per-thread device code in
 ``csrc/small_linalg.cuh`` (run inside ``csrc/qr_elements.cu`` and
-``csrc/qr_scan.cu``).  ``small_linalg`` applies one of them to a batch:
-on a CUDA tensor it launches the kernel's unit mode, on a CPU tensor it
-runs the twin.
+``csrc/qr_scan.cu``).  Above QR_UNROLL_K_MAX the square-root engine takes
+the JAX package's generic branches instead: ``tria`` the Gram matrix's
+jittered Cholesky, ``tri_solve`` ``solve_triangular``, ``psd_factor`` a
+jittered Cholesky, and in the element builds ``qr_chol`` (an unjittered
+``psd_cholesky``) and ``qr_chol_solve`` (``chol_solve``); their CUDA form
+is the block-wide code of ``csrc/cta_linalg.cuh`` inside the generic
+kernels ``qr_elements_gen`` and ``qr_scan_gen`` (``csrc/pit_elements.cu``,
+``csrc/pit_scan.cu``, beside the pit engine's generic kernels).  ``small_linalg`` applies
+one function to a batch: on a CUDA tensor it launches the unit mode of
+the kernel ``check_qr_k`` routes to, on a CPU tensor it runs the twin.
 """
 
 from __future__ import annotations
@@ -26,11 +33,13 @@ __all__ = ["sym", "default_jitter", "psd_cholesky", "chol_solve",
            "chol_unrolled", "matmul_vpu", "matvec_vpu",
            "chol_solve_unrolled", "tria_unrolled", "tria",
            "tri_solve_unrolled", "tri_solve", "psd_factor_unrolled",
-           "psd_factor", "SMALL_LINALG_OPS", "small_linalg"]
+           "psd_factor", "qr_chol", "qr_chol_solve", "SMALL_LINALG_OPS",
+           "small_linalg", "check_qr_k"]
 
 # The JAX package's unroll bounds (dfm_tpu/ops/linalg.py).  Above
 # QR_UNROLL_K_MAX its square-root engine switches tria / tri_solve /
-# psd_factor to the generic forms, which the port's kernels do not carry.
+# psd_factor and the element builds' chol / chol_solve to the generic
+# forms (the kernels qr_elements_gen and qr_scan_gen).
 UNROLL_K_MAX = 8
 QR_UNROLL_K_MAX = 10
 
@@ -81,12 +90,15 @@ def solve_psd(M: torch.Tensor, B: torch.Tensor,
     return chol_solve(psd_cholesky(M, jitter), B)
 
 
-def chol_small(M: torch.Tensor) -> torch.Tensor:
-    """Cholesky of the small r x r systems of the rank-r engine (its S,
-    Gam and Sig carry their own regularization: no jitter here).  No clamp
-    and no raise: a failed factor's lower triangle becomes NaN, as
-    ``jnp.linalg.cholesky`` gives (``torch.linalg.cholesky`` would raise
-    and read the host)."""
+def chol_small(M: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """Cholesky of M + jitter I for the small r x r systems of the rank-r
+    engine (its S, Gam and Sig carry their own regularization, so the
+    default adds none).  No clamp and no raise: a failed factor's lower
+    triangle becomes NaN, as ``jnp.linalg.cholesky`` gives
+    (``torch.linalg.cholesky`` would raise and read the host)."""
+    if jitter:
+        M = M + jitter * torch.eye(M.shape[-1], dtype=M.dtype,
+                                   device=M.device)
     L, info = torch.linalg.cholesky_ex(M)
     bad = (info != 0)[..., None, None]
     return torch.where(bad, torch.full_like(L, float("nan")).tril(), L)
@@ -258,14 +270,32 @@ def psd_factor(P: torch.Tensor) -> torch.Tensor:
     return psd_cholesky(P)
 
 
-# The unit mode of kernel qr_elements: op -> (code, plain twin).
+def qr_chol(M: torch.Tensor) -> torch.Tensor:
+    """The square-root engine's Cholesky of I + (PSD) in its element
+    builds, the t = 0 posterior and the logdet: ``chol_unrolled`` for
+    k <= QR_UNROLL_K_MAX, an unjittered ``psd_cholesky`` above it."""
+    if M.shape[-1] <= QR_UNROLL_K_MAX:
+        return chol_unrolled(M)
+    return psd_cholesky(M, jitter=0.0)
+
+
+def qr_chol_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """The square-root engine's solve against a ``qr_chol`` factor:
+    ``chol_solve_unrolled`` for small k, ``chol_solve`` above it."""
+    if L.shape[-1] <= QR_UNROLL_K_MAX:
+        return chol_solve_unrolled(L, B)
+    return chol_solve(L, B)
+
+
+# The unit mode of kernels qr_elements (k <= QR_UNROLL_K_MAX) and
+# qr_elements_gen (above it): op -> (code, plain twin at the batch's k).
 SMALL_LINALG_OPS = {
-    "chol": (0, lambda X, B: chol_unrolled(X)),
-    "chol_solve": (1, chol_solve_unrolled),
-    "tria": (2, lambda X, B: tria_unrolled(X)),
-    "tri_solve": (3, tri_solve_unrolled),
-    "tri_solve_trans": (4, lambda X, B: tri_solve_unrolled(X, B, True)),
-    "psd_factor": (5, lambda X, B: psd_factor_unrolled(X)),
+    "chol": (0, lambda X, B: qr_chol(X)),
+    "chol_solve": (1, qr_chol_solve),
+    "tria": (2, lambda X, B: tria(X)),
+    "tri_solve": (3, tri_solve),
+    "tri_solve_trans": (4, lambda X, B: tri_solve(X, B, True)),
+    "psd_factor": (5, lambda X, B: psd_factor(X)),
 }
 
 
@@ -273,29 +303,47 @@ def small_linalg(op: str, X: torch.Tensor,
                  B: torch.Tensor | None = None) -> torch.Tensor:
     """One K6/K7 function over a batch (n, k, k) -> (n, k, k): X is the
     matrix (for ``tria`` the (n, k, 2k) block), B the right-hand side of
-    the solves.  CUDA tensors: the unit mode of kernel qr_elements; CPU
-    tensors: the plain twin."""
+    the solves.  CUDA tensors: the unit mode of the kernel ``check_qr_k``
+    routes to (past QR_UNROLL_K_MAX the generic branch); CPU tensors: the
+    plain twin."""
     code, plain = SMALL_LINALG_OPS[op]
     if X.device.type == "cpu":
         return plain(X, B)
     n, k = X.shape[0], X.shape[1]
-    check_qr_k("qr_elements", k)
+    kernel = check_qr_k("qr_elements", k)
     dt, dev = X.dtype, X.device
     kernels.check_tensor("X", X, (n, k, 2 * k if op == "tria" else k), dt,
                          dev)
     if code in (1, 3, 4):
         kernels.check_tensor("B", B, (n, k, k), dt, dev)
     out = torch.empty((n, k, k), dtype=dt, device=dev)
-    kernels.launch("qr_elements", dt, 4, code, X, B, None, None, None, None,
-                   None, out, None, None, None, None, n, k, 0)
+    args = (X, B, None, None, None, None, None, out, None, None, None, None)
+    if kernel == "qr_elements":
+        kernels.launch(kernel, dt, 4, code, *args, n, k, 0)
+    else:
+        work, ctas = gen_work(kernel, dt, dev, n, k)
+        kernels.launch(kernel, dt, 4, code, *args, work, n, k, 0, ctas)
     return out
 
 
-def check_qr_k(name: str, k: int) -> None:
-    """Raise unless the square-root engine's kernels take this k."""
-    if k > QR_UNROLL_K_MAX:
-        raise NotImplementedError(
-            f"{name}: the square-root engine's kernels take k <= "
-            f"{QR_UNROLL_K_MAX} (got {k}); the generic k > "
-            f"{QR_UNROLL_K_MAX} branch is ROADMAP Queue 1 item 10")
-    kernels.check_k(name, k)
+def gen_work(kernel: str, dt, dev, n: int, k: int) -> tuple:
+    """(workspace, CTA count) of a generic kernel's persistent grid over n
+    items (``kernels.GEN_MATS`` k x k matrices a CTA)."""
+    ctas = kernels.gen_ctas(dev, n)
+    work = torch.empty(ctas * kernels.GEN_MATS[kernel] * k * k, dtype=dt,
+                       device=dev)
+    return work, ctas
+
+
+def check_qr_k(name: str, k: int) -> str:
+    """The kernel the square-root engine's entry ``name`` ("qr_elements"
+    or "qr_scan") launches at k: its own (one thread a step or a combine)
+    for k <= QR_UNROLL_K_MAX, ``<name>_gen`` (the JAX package's generic
+    branch, a CTA a step or a combine) for QR_UNROLL_K_MAX < k <=
+    kernels.GEN_KMAX; past that it raises naming the ROADMAP row, before
+    any launch."""
+    if k <= QR_UNROLL_K_MAX:
+        kernels.check_k(name, k)
+        return name
+    kernels.check_k(name, k, kernels.GEN_KMAX)
+    return f"{name}_gen"

@@ -3,14 +3,16 @@
 The PyTorch twin of ``dfm_tpu.ops.precision`` with x64 on.  f64 is native on
 both the CPU and the H100, so the accumulation dtype is always float64:
 
-- ``accum_dtype()``: the dtype of the three (T,)-sized assembly points
-  (the unmasked ``ldR`` sum, the ``quad_R`` row-sum and the loglik
-  assembly), each a measured fix of the 1e-5 loglik contract.  It also
-  stands for the JAX ``accum_dtype(dt, native_only=True)``, the upgrade
-  of SEQUENTIAL work (the mixed-frequency augmented-state scans,
-  ``models.mixed_freq``) only where f64 is native: f64 is native on the
-  CPU and on the H100 alike, so the port always upgrades and needs no
-  second policy.
+- ``accum_dtype(compute_dtype=None, native_only=False)``: the JAX
+  signature.  The dtype of the three (T,)-sized assembly points (the
+  unmasked ``ldR`` sum, the ``quad_R`` row-sum and the loglik assembly),
+  each a measured fix of the 1e-5 loglik contract, and with
+  ``native_only=True`` the upgrade of SEQUENTIAL work (the
+  mixed-frequency augmented-state scans, ``models.mixed_freq``) only
+  where f64 is native.  The JAX package answers float64 for both when
+  x64 is on and the backend is the CPU; the port's f64 is native on the
+  CPU and on the H100 alike, so both answers are float64 whatever the
+  compute dtype.
 - ``default_compute_dtype(device)``: float32 on CUDA, float64 on the CPU
   (the golden/test regime).
 - ``highest_precision()``: a context that keeps float32 matrix products in
@@ -28,7 +30,9 @@ import torch
 __all__ = ["accum_dtype", "default_compute_dtype", "highest_precision"]
 
 
-def accum_dtype() -> torch.dtype:
+def accum_dtype(compute_dtype=None, native_only: bool = False) -> torch.dtype:
+    """float64: the accumulation dtype of ``compute_dtype`` (any dtype),
+    native f64 or not (see the module docstring)."""
     return torch.float64
 
 

@@ -8,9 +8,11 @@ forward or in reverse.  Its plain
 twin runs the head in sequence and the tail with ``affine_const_prefix``
 (the JAX package's shift-doubling), as ``dfm_tpu.ssm.steady`` does.
 
-``blocked_scan`` is the plain twin of kernel K8 (``csrc/qr_scan.cu``): the
+``blocked_scan`` is the plain twin of the scan kernels K8
+(``csrc/qr_scan.cu``) and K14-scan (``csrc/pit_scan.cu``): the
 work-efficient blocked prefix over an associative ``combine``, with the
-JAX package's S = floor(sqrt(T)) blocks, so that kernel and twin
+JAX package's default of S = floor(sqrt(T)) elements a block
+(``default_block_size``, which the kernels take), so that kernel and twin
 associate identically.
 """
 
@@ -24,7 +26,7 @@ import torch
 from .. import kernels
 
 __all__ = ["affine_const_prefix", "affine_scan", "affine_scan_plain",
-           "blocked_scan", "block_size"]
+           "blocked_scan", "default_block_size"]
 
 
 def affine_const_prefix(M: torch.Tensor, d: torch.Tensor,
@@ -94,8 +96,10 @@ def affine_scan(d: torch.Tensor, Mh: torch.Tensor, M: torch.Tensor,
     return x
 
 
-def block_size(T: int) -> int:
-    """Elements a block of ``blocked_scan`` (the JAX package's default)."""
+def default_block_size(T: int) -> int:
+    """Elements a block of ``blocked_scan`` when no ``block_size`` is
+    given (the JAX package's default, floor(sqrt(T))), which the K8 and
+    K14 scan kernels take."""
     return min(max(1, int(math.sqrt(T))), T)
 
 
@@ -103,17 +107,26 @@ def _take(elems, idx):
     return tuple(x[idx] for x in elems)
 
 
-def blocked_scan(combine: Callable, elems: tuple, reverse: bool = False):
+def blocked_scan(combine: Callable, elems, block_size: int | None = None,
+                 reverse: bool = False):
     """Inclusive prefix (suffix if ``reverse``) products of ``elems`` (a
-    tuple of tensors, sequence on axis 0) under ``combine(earlier,
-    later)``, batched over blocks: S + B sequential combines instead of T.
-    For ``reverse`` the sequence is flipped and combine(later, earlier) is
-    called, as ``lax.associative_scan(..., reverse=True)`` does."""
+    tensor or a tuple of tensors, sequence on axis 0) under
+    ``combine(earlier, later)``, batched over blocks of ``block_size``
+    elements (default floor(sqrt(T)), at most T): S + B sequential
+    combines instead of T.  For ``reverse`` the sequence is flipped and
+    combine(later, earlier) is called, as ``lax.associative_scan(...,
+    reverse=True)`` does.  The JAX package's signature and argument
+    order."""
+    if isinstance(elems, torch.Tensor):
+        return blocked_scan(lambda a, b: (combine(a[0], b[0]),), (elems,),
+                            block_size, reverse)[0]
     if reverse:
-        out = blocked_scan(combine, tuple(x.flip(0) for x in elems))
+        out = blocked_scan(combine, tuple(x.flip(0) for x in elems),
+                           block_size)
         return tuple(x.flip(0) for x in out)
     T = elems[0].shape[0]
-    S = block_size(T)
+    S = min(block_size, T) if block_size is not None else \
+        default_block_size(T)
     B = T // S
     T0 = B * S
     main = tuple(x[:T0].reshape((B, S) + x.shape[1:]).transpose(0, 1)

@@ -127,10 +127,12 @@ class FitHealth:
 
 
 def health_from_trace(lls, noise_floor: float = 0.0,
+                      max_ss_delta: float = 0.0,
                       engine: str = "") -> FitHealth:
     """Post-hoc health record from a loglik trace: a ``nan_loglik`` event
-    for each of the first 8 non-finite entries and the count of drops
-    beyond ``noise_floor``.  No device work."""
+    for each of the first 8 non-finite entries, the count of drops beyond
+    ``noise_floor`` and the ss freeze delta where the engine reports one
+    (``max_ss_delta``).  No device work."""
     h = FitHealth(engine=engine)
     a = np.asarray(lls, np.float64)
     for i in np.flatnonzero(~np.isfinite(a))[:8]:
@@ -140,4 +142,5 @@ def health_from_trace(lls, noise_floor: float = 0.0,
         drops = a[:-1] - a[1:]
         with np.errstate(invalid="ignore"):
             h.monotonicity_violations = int(np.sum(drops > noise_floor))
+    h.max_ss_delta = float(max_ss_delta)
     return h

@@ -31,8 +31,15 @@ Kernels on CUDA tensors: ``qr_elements`` (``csrc/qr_elements.cu``: the
 element builds and the post-scan assemblies, one thread per step, on the
 K6/K7 device functions of ``csrc/small_linalg.cuh``) and ``qr_scan``
 (``csrc/qr_scan.cu``: K8, the blocked prefix and suffix with the QR
-combines).  They take k <= 10 (``QR_UNROLL_K_MAX``); above it a CUDA call
-raises ``NotImplementedError``.
+combines) at k <= 10 (``QR_UNROLL_K_MAX``), and their generic kernels
+``qr_elements_gen`` and ``qr_scan_gen`` (in ``csrc/pit_elements.cu`` and
+``csrc/pit_scan.cu``, beside the pit engine's generic kernels: the JAX
+package's generic branches past 10, a CTA a step or a combine on the
+block-wide routines, persistent grids) at 10 < k <= 128
+(``ops.linalg.check_qr_k``; past 128 a CUDA call raises).  Past 10 the
+reference forms tria from the Gram matrix with a jitter (1e-6 in f32),
+so in f32 its loglik is far from the f64 one at large N, as the JAX
+package's is; f64 is the engine's dtype there.
 
 The plain twin beside each launcher runs for CPU tensors only.
 """
@@ -44,11 +51,11 @@ from typing import Optional
 import torch
 
 from .. import kernels
-from ..ops.linalg import (chol_logdet, chol_solve, chol_solve_unrolled,
-                          chol_unrolled, check_qr_k, default_jitter,
-                          matmul_vpu, matvec_vpu, psd_cholesky, psd_factor,
+from ..ops.linalg import (chol_logdet, chol_solve, check_qr_k,
+                          default_jitter, gen_work, matmul_vpu, matvec_vpu,
+                          psd_cholesky, psd_factor, qr_chol, qr_chol_solve,
                           sym, tri_solve, tria)
-from ..ops.scan import block_size, blocked_scan
+from ..ops.scan import blocked_scan, default_block_size
 from .info_filter import (ObsStats, loglik_from_terms, loglik_terms_local,
                           obs_stats, quad_local, u_from_stats)
 from .params import FilterResult, SmootherResult, SSMParams
@@ -132,15 +139,6 @@ def _filter_elements(stats: ObsStats, A, Q, mu0, P0):
 pit_filter_elements_plain = _filter_elements
 
 
-def _gen_work(kernel: str, dt, dev, n: int, k: int) -> tuple:
-    """(workspace, CTA count) of a generic K14 kernel's persistent grid
-    over n items."""
-    ctas = kernels.gen_ctas(dev, n)
-    work = torch.empty(ctas * kernels.PIT_GEN_MATS[kernel] * k * k,
-                       dtype=dt, device=dev)
-    return work, ctas
-
-
 def _pit_launch(kernel: str, mode: int, dt, ins, outs, n: int, k: int,
                 c_stride: int = 0):
     """Mode ``mode`` of ``kernel`` (``kernels.route("pit_elements",
@@ -150,7 +148,7 @@ def _pit_launch(kernel: str, mode: int, dt, ins, outs, n: int, k: int,
     if kernel == "pit_elements":
         kernels.launch(kernel, dt, mode, *ins, *outs, n, k, c_stride)
         return
-    work, ctas = _gen_work(kernel, dt, outs[0].device, n, k)
+    work, ctas = gen_work(kernel, dt, outs[0].device, n, k)
     kernels.launch(kernel, dt, mode, *ins, *outs, work, n, k, c_stride, ctas)
 
 
@@ -241,14 +239,14 @@ def pit_scan(elems: tuple, smoother: bool = False) -> tuple:
     shapes = ((T, k, k), (T, k), (T, k, k), (T, k), (T, k, k))
     _check(dt, dev, *((f"elems[{i}]", x, s)
                       for i, (x, s) in enumerate(zip(out, shapes))))
-    S = block_size(T)
+    S = default_block_size(T)
     per = (2 * k * k + k) if smoother else (3 * k * k + 2 * k)
     scratch = torch.empty((T // S) * per, dtype=dt, device=dev)
     ptrs = list(out) + [None] * (5 - len(out))
     if kernel == "pit_scan":
         kernels.launch(kernel, dt, int(smoother), *ptrs, scratch, T, S, k)
     else:
-        work, ctas = _gen_work(kernel, dt, dev, T, k)
+        work, ctas = gen_work(kernel, dt, dev, T, k)
         kernels.launch(kernel, dt, int(smoother), *ptrs, scratch, work, T, S,
                        k, ctas)
     return out
@@ -413,19 +411,19 @@ def qr_generic_elements(stats: ObsStats, A, Q):
     Lq = psd_factor(Q)
     F_b = _bcast(A, T)
     LqT_C = matmul_vpu(_bcast(Lq.T, T), C_t)
-    E = chol_unrolled(I_k + matmul_vpu(LqT_C, _bcast(Lq, T)))
+    E = qr_chol(I_k + matmul_vpu(LqT_C, _bcast(Lq, T)))
     U_el = tri_solve(E, _bcast(Lq.T, T)).transpose(-1, -2)
     W = psd_factor(C_t)
     WT = W.transpose(-1, -2)
     QW = matmul_vpu(_bcast(Q, T), W)
-    H = chol_unrolled(I_k + matmul_vpu(WT, QW))
+    H = qr_chol(I_k + matmul_vpu(WT, QW))
     Qb = matvec_vpu(_bcast(Q, T), bobs)
-    n_t = bobs - matvec_vpu(W, chol_solve_unrolled(H, matvec_vpu(WT, Qb)))
+    n_t = bobs - matvec_vpu(W, qr_chol_solve(H, matvec_vpu(WT, Qb)))
     b_el = matvec_vpu(_bcast(Q, T), n_t)
     eta_el = matvec_vpu(_bcast(A.T, T), n_t)
     FTW = matmul_vpu(_bcast(A.T, T), W)
     Z_el = tri_solve(H, FTW.transpose(-1, -2)).transpose(-1, -2)
-    A_el = F_b - matmul_vpu(QW, chol_solve_unrolled(H, matmul_vpu(WT, F_b)))
+    A_el = F_b - matmul_vpu(QW, qr_chol_solve(H, matmul_vpu(WT, F_b)))
     return (A_el, b_el, U_el, eta_el, Z_el)
 
 
@@ -434,12 +432,12 @@ def qr_init_posterior(C0, bobs0, mu0, P0):
     k = mu0.shape[0]
     I_k = torch.eye(k, dtype=mu0.dtype, device=mu0.device)
     Lp0 = psd_factor(P0)
-    E0 = chol_unrolled(I_k + Lp0.T @ C0 @ Lp0)
+    E0 = qr_chol(I_k + Lp0.T @ C0 @ Lp0)
     U0 = tri_solve(E0, Lp0.T).transpose(-1, -2)
     W0 = psd_factor(C0)
-    Hp = chol_unrolled(I_k + W0.T @ P0 @ W0)
+    Hp = qr_chol(I_k + W0.T @ P0 @ W0)
     v0 = bobs0 - C0 @ mu0
-    n0 = v0 - W0 @ chol_solve_unrolled(Hp, W0.T @ (P0 @ v0))
+    n0 = v0 - W0 @ qr_chol_solve(Hp, W0.T @ (P0 @ v0))
     return mu0 + P0 @ n0, U0
 
 
@@ -458,9 +456,17 @@ def qr_filter_elements_plain(stats: ObsStats, A, Q, mu0, P0):
 
 
 def _qr_launch(mode: int, dt, ins, outs, n: int, k: int, c_stride: int = 0):
+    """Mode ``mode`` of the kernel ``check_qr_k("qr_elements", k)`` routes
+    to (raises past its range before any launch)."""
+    kernel = check_qr_k("qr_elements", k)
     ins = list(ins) + [None] * (7 - len(ins))
     outs = list(outs) + [None] * (5 - len(outs))
-    kernels.launch("qr_elements", dt, mode, 0, *ins, *outs, n, k, c_stride)
+    if kernel == "qr_elements":
+        kernels.launch(kernel, dt, mode, 0, *ins, *outs, n, k, c_stride)
+        return
+    work, ctas = gen_work(kernel, dt, outs[0].device, n, k)
+    kernels.launch(kernel, dt, mode, 0, *ins, *outs, work, n, k, c_stride,
+                   ctas)
 
 
 def _check(dt, dev, *named):
@@ -477,7 +483,7 @@ def qr_filter_elements(stats: ObsStats, A, Q, mu0, P0):
         return qr_filter_elements_plain(stats, A, Q, mu0, P0)
     T, k = b.shape
     dt, dev = b.dtype, b.device
-    check_qr_k("qr_elements", k)
+    check_qr_k("qr_elements", k)          # before any allocation
     static_C = stats.C.ndim == 2
     _check(dt, dev, ("b", b, (T, k)),
            ("C", stats.C, (k, k) if static_C else (T, k, k)),
@@ -505,15 +511,15 @@ def qr_combine_filter(ei, ej):
     Lam = tria(torch.cat([YfT, I_b], dim=-1))
 
     def Dinv(M):                                      # (I + C_i J_j)^{-1} M
-        return M - matmul_vpu(Ui, chol_solve_unrolled(
+        return M - matmul_vpu(Ui, qr_chol_solve(
             Theta, matmul_vpu(Yf, matmul_vpu(ZjT, M))))
 
     def Dinv_v(v):
-        return v - matvec_vpu(Ui, chol_solve_unrolled(
+        return v - matvec_vpu(Ui, qr_chol_solve(
             Theta, matvec_vpu(Yf, matvec_vpu(ZjT, v))))
 
     def Einv_v(v):                                    # (I + J_j C_i)^{-1} v
-        return v - matvec_vpu(Zj, chol_solve_unrolled(
+        return v - matvec_vpu(Zj, qr_chol_solve(
             Lam, matvec_vpu(YfT, matvec_vpu(UiT, v))))
 
     A = matmul_vpu(Aj, Dinv(Ai))
@@ -552,23 +558,29 @@ def qr_scan_plain(elems: tuple, smoother: bool = False) -> tuple:
 def qr_scan(elems: tuple, smoother: bool = False) -> tuple:
     """Inclusive prefix of the filter elements (A, b, U, eta, Z), or
     inclusive suffix of the smoother elements (E, g, D).  Kernel K8
-    (``qr_scan``) for CUDA tensors; the inputs are left as they are."""
+    (``qr_scan``, past k = 10 ``qr_scan_gen``: one call, four launches
+    counted as one) for CUDA tensors; the inputs are left as they are."""
     if elems[0].device.type == "cpu":
         return qr_scan_plain(elems, smoother)
     T, k = elems[1].shape
     dt, dev = elems[0].dtype, elems[0].device
-    check_qr_k("qr_scan", k)
+    kernel = check_qr_k("qr_scan", k)
     # Contiguous copies, scanned in place.
     out = tuple(x.clone(memory_format=torch.contiguous_format)
                 for x in elems)
     shapes = ((T, k, k), (T, k), (T, k, k), (T, k), (T, k, k))
     _check(dt, dev, *((f"elems[{i}]", x, s)
                       for i, (x, s) in enumerate(zip(out, shapes))))
-    S = block_size(T)
+    S = default_block_size(T)
     scratch = torch.empty((T // S) * (3 * k * k + 2 * k), dtype=dt,
                           device=dev)
     ptrs = list(out) + [None] * (5 - len(out))
-    kernels.launch("qr_scan", dt, int(smoother), *ptrs, scratch, T, S, k)
+    if kernel == "qr_scan":
+        kernels.launch(kernel, dt, int(smoother), *ptrs, scratch, T, S, k)
+    else:
+        work, ctas = gen_work(kernel, dt, dev, T, k)
+        kernels.launch(kernel, dt, int(smoother), *ptrs, scratch, work, T, S,
+                       k, ctas)
     return out
 
 
@@ -585,9 +597,7 @@ def qr_filter_assemble_plain(x_f, U_f, C, A, Q, mu0, P0):
     C_t = C if C.ndim == 3 else _bcast(C, T)
     I_k = torch.eye(k, dtype=x_f.dtype, device=x_f.device)
     G = I_k + matmul_vpu(matmul_vpu(Lp.transpose(-1, -2), C_t), Lp)
-    Lg = chol_unrolled(G)
-    logdetG = 2.0 * torch.log(torch.diagonal(Lg, dim1=-2, dim2=-1)).sum(-1)
-    return x_pred, P_pred, P_f, logdetG
+    return x_pred, P_pred, P_f, chol_logdet(qr_chol(G))
 
 
 def qr_filter_assemble(x_f, U_f, C, A, Q, mu0, P0):
@@ -648,7 +658,7 @@ def qr_smoother_elements_plain(kf: FilterResult, A, Q):
     Lq = psd_factor(Q)
     Lp_next = psd_factor(kf.P_pred[1:])
     APf = matmul_vpu(_bcast(A, T - 1), kf.P_filt[:-1])
-    J = chol_solve_unrolled(Lp_next, APf).transpose(-1, -2)   # (T-1, k, k)
+    J = qr_chol_solve(Lp_next, APf).transpose(-1, -2)         # (T-1, k, k)
     E = torch.cat([J, torch.zeros_like(J[:1])], dim=0)
     g_head = kf.x_filt[:-1] - torch.einsum("tkl,tl->tk", J, kf.x_pred[1:])
     g = torch.cat([g_head, kf.x_filt[-1:]], dim=0)

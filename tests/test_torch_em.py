@@ -118,7 +118,7 @@ def test_chunked_driver_stops_like_the_reference(panel, masked, chunk):
     _, Y, W, Ynan, p0 = panel
     Yz = np.where(W > 0, Ynan, 0.0) if masked else Y
     cfg_t = tem.EMConfig(filter="info")
-    pt, lls_t, conv_t, it_t, secs, max_delta = tem.run_em_chunked(
+    pt, lls_t, conv_t, it_t, secs, max_delta = tem.fit_em_chunked(
         torch.as_tensor(Yz), torch.as_tensor(W) if masked else None,
         TP.from_numpy(p0), cfg_t, 40, 1e-6, fused_chunk=chunk)
     cfg_j = jem.EMConfig(filter="info")

@@ -277,14 +277,19 @@ def test_api_fit_routes_mixed_freq_spec_like_jax():
 
 
 def test_mf_routes_and_options_that_raise():
+    """The square-root route runs (its JAX parity is
+    tests/test_torch_qr_gen.py's): at the same entry params its loglik is
+    the sequential route's, and a 2-iteration fit is finite; the options
+    not ported raise."""
     Y, W = _panel("m10")
-    for ts, match in (("pit_qr", "QR past 10"),):
-        spec = _specs("m10", ts)[1]
-        with pytest.raises(NotImplementedError, match=match):
-            dtt.fit(spec, Y, mask=W, backend=CPU, max_iters=2)
-        Yz, M, pj = _inputs("m10")
-        with pytest.raises(NotImplementedError, match=match):
-            tm.mf_em_core(_t(Yz), _t(M), tm.MFParams.from_numpy(pj), spec)
+    Yz, M, pj = _inputs("m10")
+    p0 = tm.MFParams.from_numpy(pj)
+    _, ll_qr, _ = tm.mf_em_core(_t(Yz), _t(M), p0, _specs("m10", "pit_qr")[1])
+    _, ll_seq, _ = tm.mf_em_core(_t(Yz), _t(M), p0, _specs("m10")[1])
+    np.testing.assert_allclose(float(ll_qr), float(ll_seq), rtol=FIT_RTOL)
+    res = dtt.fit(_specs("m10", "pit_qr")[1], Y, mask=W, backend=CPU,
+                  max_iters=2, tol=0.0)
+    assert len(res.logliks) == 2 and np.isfinite(res.logliks).all()
     spec = _specs("m10")[1]
     with pytest.raises(NotImplementedError, match="item 3"):
         tm.mf_fit(Y, spec, mask=W, device="cpu", callback=lambda *a: None)

@@ -25,6 +25,7 @@ from dfm_tpu.ssm import info_filter as jif
 from dfm_tpu.ssm import parallel_filter as jpf
 from dfm_tpu.ssm.params import SSMParams as JP
 from dfm_tpu.utils import dgp
+from dfm_tpu_torch import kernels as tkern
 from dfm_tpu_torch.estim import em as tem
 from dfm_tpu_torch.ops import linalg as tla
 from dfm_tpu_torch.ops import scan as tsc
@@ -116,8 +117,11 @@ def test_small_linalg_unit_mode_runs_the_twins_on_cpu():
     B = torch.as_tensor(rng.standard_normal((4, 3, 3)))
     assert torch.equal(tla.small_linalg("tri_solve_trans", L, B),
                        tla.tri_solve_unrolled(L, B, trans=True))
+    assert tla.check_qr_k("qr_scan", tla.QR_UNROLL_K_MAX) == "qr_scan"
+    assert tla.check_qr_k("qr_scan", tla.QR_UNROLL_K_MAX + 1) == \
+        "qr_scan_gen"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tla.check_qr_k("qr_scan", tla.QR_UNROLL_K_MAX + 1)
+        tla.check_qr_k("qr_scan", tkern.GEN_KMAX + 1)
 
 
 @pytest.mark.parametrize("T,reverse", [(16, False), (29, False), (29, True),

@@ -28,6 +28,7 @@ PORT_FILES = sorted((ROOT / "dfm_tpu_torch").rglob("*.py")) + [
 # (module file, function) pairs that drive a fit or a contract evaluation.
 FIT_DRIVERS = [("dfm_tpu_torch/api.py", "fit"),
                ("dfm_tpu_torch/estim/em.py", "run_em_chunked"),
+               ("dfm_tpu_torch/estim/em.py", "fit_em_chunked"),
                ("dfm_tpu_torch/estim/fused.py", "run_fused"),
                ("dfm_tpu_torch/serve/session.py", "update"),
                ("dfm_tpu_torch/ssm/info_filter.py", "loglik_eval"),
@@ -169,6 +170,9 @@ def test_cpu_path_launches_no_kernel():
     res = dtt.fit(dtt.DynamicFactorModel(2), Y[:, :20], max_iters=2,
                   tol=0.0, backend=dtt.TorchBackend(device="cpu"))
     assert res.filter == "dense" and res.n_iters == 2
+    res = dtt.fit(dtt.DynamicFactorModel(11), Y, max_iters=1, tol=0.0,
+                  backend=dtt.TorchBackend(device="cpu", filter="pit_qr"))
+    assert res.filter == "pit_qr" and res.n_iters == 1
     assert set(kernels.LAUNCHES) == {"quad_local", "obs_stats", "mstep_rows",
                                      "info_scan", "rts_smoother",
                                      "ss_cov_path", "affine_scan",
@@ -204,5 +208,6 @@ def test_cpu_path_launches_no_kernel():
                                      "batched_obs_stats_gen",
                                      "batched_mstep_rows_gen",
                                      "ss_cov_path_gen", "affine_scan_gen",
-                                     "pit_elements_gen", "pit_scan_gen"}
+                                     "pit_elements_gen", "pit_scan_gen",
+                                     "qr_elements_gen", "qr_scan_gen"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())

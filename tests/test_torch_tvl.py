@@ -180,7 +180,8 @@ def test_tvl_round_core_matches_jax(masked):
 def test_tvl_round_scan_is_rounds_of_the_core(masked):
     Yz, W, _, Lams, _, pt = _inputs(masked)
     spec = tt.TVLSpec(**SPEC)
-    (L2, p2), lls = tt.tvl_round_scan(_t(Yz), _t(W), _t(Lams), pt, spec, 2)
+    (L2, p2), lls = tt.tvl_round_scan(_t(Yz), _t(W), _t(Lams), pt, spec,
+                                      True, 2)
     L1, p1, ll0, _ = tt.tvl_round_core(_t(Yz), _t(W), _t(Lams), pt, spec)
     L1b, p1b, ll1, _ = tt.tvl_round_core(_t(Yz), _t(W), L1, p1, spec)
     assert lls.dtype == torch.float64 and lls.shape == (2,)
