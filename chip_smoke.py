@@ -7,8 +7,8 @@
 acceptance run): headline (phases 2-5), session (6-8), batched (9-13),
 fleet (14-18), lowrank (19-23), tvl (24-26), mf (27-30), sv (31-33), pit
 (34-36), dense (37-39), wide (40-43), bwide (44-49), kbig (50-57), bgen
-(58-65), sgen (66-72), qgen (73-82).  The setup, the build and the final
-lines always run.
+(58-65), sgen (66-72), qgen (73-82), tgen (83-87).  The setup, the build
+and the final lines always run.
 
 Phases, each of which raises (and the script exits non-zero) on failure:
 
@@ -60,8 +60,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    session's own shape (T_cap = 480, e = 2).
 7. sessions, full width: the masked headline panel's first 480 rows
    fitted with ``fit(fused=True)`` (20 iterations, tol = 0; info, pit_qr
-   and pit), then four sessions, each with 10 updates of 2 rows (rows
-   480-499, ragged mask) and a re-forecast (no rows), 5 warm EM
+   and pit), then four sessions, each with 4 updates of 2 rows (rows
+   480-487, ragged mask) and a re-forecast (no rows), 5 warm EM
    iterations a query: info at
    capacity 1,000, pit_qr at capacity 1,000, an info ring at capacity
    480 (every update evicts 2) and pit at capacity 1,000.  Each query's device work runs
@@ -74,7 +74,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    query, every kernel of its path against its plain twin on the
    session's own buffers and params (f32 and f64, the TOL rule; K13 bit
    for bit); then a cold
-   ``fit(fused=True, max_iters=5, tol=0, init=...)`` of the live 500 rows
+   ``fit(fused=True, max_iters=5, tol=0, init=...)`` of the live 488 rows
    from the info session's entry params of its last query, and its
    device part alone (``run_fused`` on the panel already on the card).
 8. session reference: at 120 x 80, k = 3, a ``standardize=False`` model,
@@ -110,7 +110,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 14. fleet: 8 tenants (six 480 x 10,000 at k = 10, two 400 x 6,000 at
    k = 8; masked panels, 10-iteration fused info fits) in one bucket of
    B = 8 at capacity 1,000, f32, ``max_update_rows`` 2, 5 iterations,
-   tol = 0: 10 drains (even: every tenant 2 rows; odd: 3 tenants), each
+   tol = 0: 2 drains (the first: every tenant 2 rows; the second: 3
+   tenants), each
    tick's device part under ``set_sync_debug_mode("error")``, exactly 1
    read and 1 K13b, 6 K2b-m, 6 K4b-fwd, 6 K1b-m, 6 K4b-bwd, 5 K3b-m and
    5 K6b launches a tick and no other kernel, the frozen lanes of an odd
@@ -151,12 +152,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    fused) at 120 x 80, k = 3, rank 2, card f64 against CPU f64 within
    1e-9; f32 params after 2 updates re-evaluated by the f64 lowrank
    filter within 1e-5 of the f64 trajectory (k = 16, rank 8).
-22. lowrank session on the fused fit, capacity 1,000, 10 queries of 2
+22. lowrank session on the fused fit, capacity 1,000, 4 queries of 2
    rows: 1 read, 1 K13 and 6 each of K9-basis, K9-fwd, K9-bwd a query
    under ``set_sync_debug_mode("error")``, p50/p99, the query's kernel
    times, the session's kernels against their plain twins on its buffers.
 23. lowrank fleet: 4 tenants of 480 x 10,000 at k = 16 in one bucket at
-   capacity 1,000, 3 drains, f64 then f32: 1 read a tick and exactly 1
+   capacity 1,000, 2 drains, f64 then f32: 1 read a tick and exactly 1
    K13b, 6 each of K2b-m, K9-basis, K9-fwd, K1b-m and K9-bwd, 5 K3b-m and
    5 K6b; lanes 0 and 1 against lone lowrank sessions (f64, 1e-9, up to
    a lane's first divergence); the tick's kernels on the bucket's
@@ -210,9 +211,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (``seq``, ``lowrank`` and ``pit``); the f32 params by
    ``mf_loglik_eval(precise=True)`` within 1e-5 of the f64 params'.
 
-31. SV kernels: K10-fwd (``csrc/sv_rbpf.cu``'s RBPF scan, residual and
-   expanded forms) and K10-ffbs (its backward sampler) against their plain
-   twins at S5's full width (``simulate_sv(10000, 1000, 5)`` standardized
+31. SV kernels: K10-fwd (``csrc/sv_rbpf.cu``'s RBPF scan, the residual
+   form, the fit's; the expanded form on the first 100 steps) and K10-ffbs
+   (its backward sampler) against their plain twins at S5's full width
+   (``simulate_sv(10000, 1000, 5)`` standardized
    as phase 32's fit saw it, the fit's params, sigma_h and h_0 center, M =
    256, S = 64), on the same draws (made on the host in f64, cast):
    f64 every output through all T steps (ll_rel and the particle history
@@ -276,7 +278,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    a 12-step forecast: exactly 21 K15, 20 K3 and 21 K4-backward launches
    and no other kernel, one read a chunk; EM it/s, the wall; then
    ``fit(fused=True)`` on its first 480 rows and a dense session on it at
-   capacity 1,000 (10 queries of 2 rows, one read and no sync a query,
+   capacity 1,000 (4 queries of 2 rows, one read and no sync a query,
    p50 and p99); the iteration's breakdown (K15, K4-backward and K3
    against the whole ``em_step``).
 39. dense reference: ``fit(auto)`` at 40 x 20, k = 3, masked, and a dense
@@ -346,7 +348,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    and 100 (T = 500, N = 10,000), masked and (K4 forward, K1) unmasked,
    f64 and f32 (the TOL rule), timed warm and cold beside the plain twin, the
    bound, K2-gen's ``einsum`` (C_t) and the K4-gen pair's latency floor.
-51. k-sweep: the same at k = 33, 48, 64, 100, 127, 128 on 120 x
+51. k-sweep: the same at k = 33, 64, 100, 127, 128 on 120 x
    400 panels with a fully missing step, a step observing fewer than k
    series and a never-observed series (K3 with a ridge); k = 129 must
    raise NotImplementedError in every lone entry point before any launch.
@@ -490,9 +492,33 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    params), kernel path and plain twins on the card in f32 and f64,
    against the exact f64 loglik: the kernel path within 2x the twins'.
 
+83. TVL kernels past 16: K2-tv and K1-tv's wide kernels (k = 25) and
+   generic ones (k = 50), K11-fwd and K11-bwd's generic kernels
+   (``csrc/tv_loadings.cu``: a block a series) against their
+   plain twins on S4's panel at k = 25 (5,000 series) and k = 50 (1,000
+   series: the plain twins' (T, N, k, k) copies), masked and unmasked
+   (K11-bwd, which has no mask, once), f64 and f32 (the masked f32 ones
+   timed); then timed alone, masked, at k = 50 on S4's 5,000 series.
+84. TVL k-sweep past 16: k = 17, 24, 32, 33, 64, 100 and 128 on 120 x
+   400 panels (a fully missing step, a never-observed series): masked and
+   unmasked (K11-bwd once), f64 and f32, and K11-bwd-gen again on a
+   workspace of 150 series at k = 100 (f64) and 128 (both dtypes), each
+   block looping over two or three series; k = 100 and 128 timed in f32
+   (masked); at k = 129 every TVL entry point must raise
+   NotImplementedError naming the ROADMAP row before any launch.
+85. ``fit(TVLSpec(n_factors=k, tol=0))`` at S4 (5,000 x 300), f32,
+   chunks of 8, unmasked and masked, 12-step forecast: k = 25 (20
+   rounds) and k = 50 (10 rounds); phase 25's checks with the launch
+   gates under the routed kernel names, and the round breakdown.
+86. TVL reference past 16: card f64 against CPU f64, 6 rounds, at 60 x
+   80 with k = 20 and 60 x 90 with k = 40, masked (a fully missing step,
+   a never-observed series) and not, within 1e-9.
+87. TVL contract at S4 and k = 25: the f32 state after 2 rounds
+   re-evaluated in f64 against the f64 state's loglik, < 1e-5 relative.
+
 Output: one JSON line per kernel and dtype, one per fit, contract check,
 ring case, session, batched, fleet, TVL, MF, SV, K14, dense, wide, kbig,
-bgen, sgen and qgen phase, the seconds of each phase (``step_s``), of each phase
+bgen, sgen, qgen and tgen phase, the seconds of each phase (``step_s``), of each phase
 group as it ends and of the script, then the {"kernels": [...]}
 summary, the card line and, last, {"ok": true, "device": {...}}.
 """
@@ -501,6 +527,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import inspect
 import json
 import subprocess
@@ -599,7 +626,10 @@ COLD_REPS = 2                # cold-L2 calls a timed kernel record
 # it takes DELTA_FLOOR_EPS x the dtype's eps on top of the rule.  The
 # square-root engine's generic kernels past k = 10 (qr_elements_gen,
 # qr_scan_gen: the JAX package's Gram-and-Cholesky branches) take the k <=
-# 10 kernels' tolerances.
+# 10 kernels' tolerances.  K2-tv and K1-tv past 16 (wide and generic) take
+# the one-pass reductions' 1e-5 / 1e-10, K11's generic kernels (every 16 <
+# k <= 128) the recursions' 1e-4 in f32 and the generic kernels' 1e-10 in
+# f64.
 TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "mstep_rows": 1e-4, "info_scan": 1e-4,
                        "rts_smoother": 1e-4, "ss_cov_path": 1e-4,
@@ -635,7 +665,11 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "batched_mstep_rows_gen": 1e-4,
                        "ss_cov_path_gen": 1e-4, "affine_scan_gen": 1e-4,
                        "pit_elements_gen": 1e-4, "pit_scan_gen": 1e-4,
-                       "qr_elements_gen": 1e-4, "qr_scan_gen": 1e-4},
+                       "qr_elements_gen": 1e-4, "qr_scan_gen": 1e-4,
+                       "tvl_obs_stats_wide": 1e-5, "tvl_obs_stats_gen": 1e-5,
+                       "tvl_quad_wide": 1e-5, "tvl_quad_gen": 1e-5,
+                       "loading_filter_gen": 1e-4,
+                       "loading_smoother_gen": 1e-4},
        torch.float64: {"quad_local": 1e-10, "obs_stats": 1e-10,
                        "mstep_rows": 1e-9, "info_scan": 1e-9,
                        "rts_smoother": 1e-9, "ss_cov_path": 1e-9,
@@ -671,7 +705,11 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "batched_mstep_rows_gen": 1e-10,
                        "ss_cov_path_gen": 1e-10, "affine_scan_gen": 1e-10,
                        "pit_elements_gen": 1e-10, "pit_scan_gen": 1e-10,
-                       "qr_elements_gen": 1e-10, "qr_scan_gen": 1e-9}}
+                       "qr_elements_gen": 1e-10, "qr_scan_gen": 1e-9,
+                       "tvl_obs_stats_wide": 1e-10,
+                       "tvl_obs_stats_gen": 1e-10, "tvl_quad_wide": 1e-10,
+                       "tvl_quad_gen": 1e-10, "loading_filter_gen": 1e-10,
+                       "loading_smoother_gen": 1e-10}}
 # The TPU routine each kernel replaces.
 REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "obs_stats": "dfm_tpu/ssm/info_filter.py:69",
@@ -734,7 +772,13 @@ REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "pit_elements_gen": "dfm_tpu/ssm/parallel_filter.py:70",
             "pit_scan_gen": "dfm_tpu/ssm/parallel_filter.py:109",
             "qr_elements_gen": "dfm_tpu/ssm/parallel_filter.py:293",
-            "qr_scan_gen": "dfm_tpu/ops/scan.py:73"}
+            "qr_scan_gen": "dfm_tpu/ops/scan.py:73",
+            "tvl_obs_stats_wide": "dfm_tpu/models/tv_loadings.py:81",
+            "tvl_obs_stats_gen": "dfm_tpu/models/tv_loadings.py:81",
+            "tvl_quad_wide": "dfm_tpu/models/tv_loadings.py:111",
+            "tvl_quad_gen": "dfm_tpu/models/tv_loadings.py:111",
+            "loading_filter_gen": "dfm_tpu/models/tv_loadings.py:148",
+            "loading_smoother_gen": "dfm_tpu/models/tv_loadings.py:179"}
 # The variant of each kernel whose f32 record goes into the summary line.
 SUMMARY_VARIANT = {"quad_local": "masked", "obs_stats": "masked",
                    "mstep_rows": "masked", "info_scan": "masked",
@@ -769,7 +813,7 @@ def cuda_ms(fn, warm: bool = True) -> float:
     """Milliseconds of one call from CUDA events, after a warm-up (skipped
     when ``warm`` is False: the caller has just run ``fn``): one timed
     call, and unless it took 0.1 s or more (the slow plain twins), the
-    mean over a run of back-to-back calls (~0.05 s of work, 3..50
+    mean over a run of back-to-back calls (~0.025 s of work, 3..50
     calls)."""
     if warm:
         fn()
@@ -782,7 +826,7 @@ def cuda_ms(fn, warm: bool = True) -> float:
     one = start.elapsed_time(end)
     if one >= 100.0:
         return one
-    reps = max(3, min(50, int(50.0 / max(one, 1e-3))))
+    reps = max(3, min(50, int(25.0 / max(one, 1e-3))))
     start.record()
     for _ in range(reps):
         fn()
@@ -793,11 +837,11 @@ def cuda_ms(fn, warm: bool = True) -> float:
 
 def plain_ms(c: dict) -> float:
     """The plain twin's milliseconds for case ``c``: the comparison's own
-    call when it took 0.1 s or more (a slow twin is timed by one call, so
-    a second would add nothing), else ``cuda_ms`` after it."""
+    call when it took 20 ms or more (a slow twin is timed by one call, so
+    a second would add little), else ``cuda_ms`` after it."""
     if "plain_events" in c:
         one = c["plain_events"][0].elapsed_time(c["plain_events"][1])
-        if one >= 100.0:
+        if one >= 20.0:
             return one
     return cuda_ms(c["plain"], warm=False)
 
@@ -1410,7 +1454,13 @@ OWN_FIT = {"quad_local": "masked", "obs_stats": "masked",
            "pit_elements_gen": "k100 masked pit",
            "pit_scan_gen": "k100 masked pit",
            "qr_elements_gen": "k50 masked pit_qr",
-           "qr_scan_gen": "k50 masked pit_qr"}
+           "qr_scan_gen": "k50 masked pit_qr",
+           "tvl_obs_stats_wide": "tvl k25 masked",
+           "tvl_quad_wide": "tvl k25 masked",
+           "loading_filter_gen": "tvl k25 masked",
+           "loading_smoother_gen": "tvl k25 masked",
+           "tvl_obs_stats_gen": "tvl k50 masked",
+           "tvl_quad_gen": "tvl k50 masked"}
 
 
 def fit_phase(seed: int) -> dict:
@@ -1615,7 +1665,7 @@ def loglik_contract(label: str, Y, Wm, k: int, engine: str) -> None:
 
 RING_CASES = ((0, 0), (0, 2), (0, 8), (2, 2), (8, 8))
 RING_T_CAP, RING_R_MAX = 1000, 8
-SESSION_T0, SESSION_UPDATES, SESSION_ROWS = 480, 10, 2
+SESSION_T0, SESSION_UPDATES, SESSION_ROWS = 480, 4, 2
 
 
 def ring_buffers(T_cap: int, t_cur: int, dtype, seed: int):
@@ -1816,7 +1866,7 @@ def session_kernel_check(sess, label: str, seed: int) -> None:
 
 def drive_session(sess, label: str, Ynan, engine: str, own: str,
                   on_query=None, queries: int = SESSION_UPDATES) -> tuple:
-    """``queries`` (ten) updates of SESSION_ROWS rows of ``Ynan`` from
+    """``queries`` (four) updates of SESSION_ROWS rows of ``Ynan`` from
     SESSION_T0, then
     a pure re-forecast (no rows; still one K13 launch and one read), each
     query's device work under ``set_sync_debug_mode("error")`` and followed
@@ -1927,7 +1977,7 @@ def session_phase(seed: int) -> dict:
             emit(query_breakdown(sess, walls))
         session_kernel_check(sess, label, seed + 70)
         sess.close()
-    # The cold refit the session replaces: the live 500 rows from the
+    # The cold refit the session replaces: the live 488 rows from the
     # params the info session's last query started from.
     cold = []
     for _ in range(3):
@@ -2623,8 +2673,11 @@ def batched_contract_phase(seed: int, k: int = K, offset: int = 1,
 # rows; an even drain gives every tenant 2 of them, an odd drain only the
 # FLEET_ODD tenants.
 FLEET_SHAPES = ((480, N, K),) * 6 + ((400, 6000, 8),) * 2
-FLEET_CAP, FLEET_ROWS, FLEET_ITERS, FLEET_DRAINS = 1000, 2, 5, 10
-FLEET_HELD = FLEET_DRAINS * FLEET_ROWS
+FLEET_CAP, FLEET_ROWS, FLEET_ITERS, FLEET_DRAINS = 1000, 2, 5, 2
+# Rows held out a tenant: ten drains' worth, enough for every phase that
+# drains the tenants (the ring fleet takes five), and part of each panel's
+# simulated length.
+FLEET_HELD = 10 * FLEET_ROWS
 FLEET_ODD = (1, 3, 6)
 FLEET_LONE = (0, 6)          # lanes held against their lone sessions
 FLEET_F32_TOL = 5e-3         # the JAX f32 fleet test (tests/test_fleet.py)
@@ -3267,7 +3320,7 @@ def fleet_reference_phase(seed: int, shapes=FLEET_REF_SHAPES,
 LR_K, LR_RANK = 16, 8
 LOWRANK = ("lowrank_basis", "lowrank_scan", "lowrank_smoother")
 LR_SWEEP = ((1, 1), (3, 3), (16, 16), (17, 8), (50, 8), (100, 8), (100, 32))
-LR_FLEET_TENANTS, LR_FLEET_DRAINS = 4, 3
+LR_FLEET_TENANTS, LR_FLEET_DRAINS = 4, 2
 LR_LONE = (0, 1)             # lanes held against their lone sessions
 # Kernels of a lowrank tick and their launches a tick (5 EM iterations +
 # the reporting smooth; K3b-m and K6b once a M-step; K13b once).
@@ -3574,8 +3627,8 @@ def lowrank_contract_phase(seed: int) -> None:
 
 
 def lowrank_session_phase(seed: int, fused) -> None:
-    """A lowrank session on the fused lowrank fit, capacity 1,000, 10
-    queries of 2 rows (rows 480-499) and a re-forecast, 5 iterations a
+    """A lowrank session on the fused lowrank fit, capacity 1,000, 4
+    queries of 2 rows (rows 480-487) and a re-forecast, 5 iterations a
     query, each query's device work under ``set_sync_debug_mode("error")``:
     exactly 1 read and 1 K13 a query, and 6 launches each of K9-basis,
     K9-fwd and K9-bwd (5 EM iterations + the reporting smooth through the
@@ -3661,7 +3714,7 @@ def lowrank_fleet_phase(seed: int, k: int = LR_K,
                         drains: int = LR_FLEET_DRAINS) -> None:
     """4 tenants of 480 x 10,000 at k = 16 (``n_tenants`` at k; fused
     lowrank fits, 10 iterations: the fleet inherits their engine, rank
-    auto = 8) in one bucket at capacity 1,000, 3 drains (``drains``) of 2
+    auto = 8) in one bucket at capacity 1,000, 2 drains (``drains``) of 2
     rows, 5 iterations, tol = 0,
     beside lone lowrank sessions of lanes LR_LONE on the same queries,
     first in f64, then in f32 (timed).  Each tick's device part runs under
@@ -3823,42 +3876,88 @@ def tvl_panel(seed: int, T_: int = TVL_T, N_: int = TVL_N, K_: int = TVL_K):
     return Y, W, F, Lams, A, R
 
 
-def tvl_cases(Y, W, F, Lams, pt, label: str) -> list:
+@functools.lru_cache(maxsize=2)
+def tvl_s4_panel(seed: int, k: int):
+    """``tvl_panel`` at S4's full width and k factors, kept for the phases
+    that reuse it (the fit, its round breakdown, the contract and, past
+    16, the kernel phase): simulating 5,000 series x 300 steps takes ~3 s
+    on the host at k = 50.  Read-only."""
+    return tvl_panel(seed, K_=k)
+
+
+def k11_bwd_flops(k: int) -> float:
+    """Operations of one K11-bwd step of one series, counted from its code
+    (csrc/tv_loadings.cu): the Cholesky k^3 / 3, two triangular solves 2
+    k^3, two full k x k products 4 k^3; the solves' divisions, lam_s, P_n -
+    P_pred with tr(P_n J') and the sym 10.5 k^2."""
+    return 19.0 / 3.0 * k ** 3 + 10.5 * k * k
+
+
+def few_slots(n: int, fn):
+    """``fn()`` with ``loading_smoother_gen``'s global workspace held to n
+    series where its rule gives it one, so each block of the persistent
+    grid loops over several series (the rule's min(N, 8 x SMs) slots give
+    the sweep's 400 series a block each)."""
+    orig = tv._smoother_work
+    tv._smoother_work = lambda k, N, dt_, dev: orig(k, min(N, n), dt_, dev)
+    try:
+        return fn()
+    finally:
+        tv._smoother_work = orig
+
+
+def tvl_cases(Y, W, F, Lams, pt, label: str, smoother: bool = True,
+              slots: int = 0) -> list:
     """K2-tv, K1-tv, K11-fwd and K11-bwd on card tensors: ``Y`` (T, N)
     zero-filled at missing, ``W`` the mask or None, the true factor path
     ``F`` and loading paths ``Lams`` (T, N, k), params ``pt``; K1-tv at the
-    plain scan's x_pred, K11-bwd on the plain forward pass's output.
-    Library yardsticks: the one ``torch.einsum`` of C_t (K2-tv) and of the
-    loadings' fit (K1-tv).  Call under ``highest_precision()``."""
+    plain scan's x_pred, K11-bwd (left out unless ``smoother``) on the
+    plain forward pass's output, and, with ``slots`` where the rule gives
+    K11-bwd-gen a global workspace, again on a workspace of ``slots``
+    series (``few_slots``; variant "``label`` slots=n", the same twin
+    output).  Each case is named by the kernel its wrapper launches at k
+    (``kernels.route``).  Library yardsticks: the one ``torch.einsum`` of
+    C_t (K2-tv) and of the loadings' fit (K1-tv).  Call under
+    ``highest_precision()``."""
     T_, N_, k = Lams.shape
     stats = tv.obs_stats_tv_plain(Y, Lams, pt.R, W)
     xp = inf.info_scan_plain(stats, pt.A, pt.Q, pt.mu0, pt.P0)[0]
-    lam_f, P_f = tv.loading_filter_plain(Y, F, pt.Lam0, pt.tau2, pt.R, W)
     ms = () if W is None else (W,)
     wr = (1.0 / pt.R).expand(T_, N_) if W is None else W / pt.R
     tn = T_ * N_
-    return [
-        case("tvl_obs_stats", label,
+    out = [
+        case(kernels.route("tvl_obs_stats", k), label,
              lambda: tv.obs_stats_tv(Y, Lams, pt.R, W),
              lambda: tv.obs_stats_tv_plain(Y, Lams, pt.R, W),
              (Y, Lams, pt.R, *ms), tn * (2 * k + k * (k + 1) + 4),
              library=lambda: torch.einsum("tnk,tn,tnl->tkl", Lams, wr,
                                           Lams)),
-        case("tvl_quad", label,
+        case(kernels.route("tvl_quad", k), label,
              lambda: tv.quad_local_tv(Y, Lams, pt.R, xp, W),
              lambda: tv.quad_local_tv_plain(Y, Lams, pt.R, xp, W),
              (Y, Lams, pt.R, xp, *ms), tn * (4 * k + 5),
              library=lambda: torch.einsum("tnk,tk->tn", Lams, xp)),
-        case("loading_filter", label,
+        case(kernels.route("loading_filter", k), label,
              lambda: tv.loading_filter(Y, F, pt.Lam0, pt.tau2, pt.R, W),
              lambda: tv.loading_filter_plain(Y, F, pt.Lam0, pt.tau2, pt.R,
                                              W),
              (Y, F, pt.Lam0, pt.tau2, pt.R, *ms), tn * (5 * k * k + 8 * k)),
-        case("loading_smoother", label,
-             lambda: tv.loading_smoother(lam_f, P_f, pt.tau2),
-             lambda: tv.loading_smoother_plain(lam_f, P_f, pt.tau2),
-             (lam_f, P_f, pt.tau2), tn * (6.5 * k ** 3 + 4 * k * k)),
     ]
+    if smoother:
+        lam_f, P_f = tv.loading_filter_plain(Y, F, pt.Lam0, pt.tau2, pt.R, W)
+        name = kernels.route("loading_smoother", k)
+        run = lambda: tv.loading_smoother(lam_f, P_f, pt.tau2)
+        plain = lambda: tv.loading_smoother_plain(lam_f, P_f, pt.tau2)
+        ins, flops = (lam_f, P_f, pt.tau2), (T_ - 1) * N_ * k11_bwd_flops(k)
+        few = slots and name != "loading_smoother" and kernels.query(
+            "loading_smoother_gen_slots", Y.dtype, k, N_, 1)
+        ref = plain_call(plain) if few else None
+        out.append(case(name, label, run, plain, ins, flops, ref=ref))
+        if few:
+            out.append(case(name, f"{label} slots={slots}",
+                            lambda: few_slots(slots, run), plain, ins, flops,
+                            ref=ref))
+    return out
 
 
 def tvl_inputs(pan, dtype):
@@ -3899,7 +3998,8 @@ def tvl_k_sweep(seed: int) -> None:
     ends, and both sides of the JAX package's UNROLL_K_MAX = 8; S4's k =
     4 is the kernel phase's)
     on 120 x 400 panels with a fully missing step and a never-observed
-    series, masked and unmasked, f64 and f32: error checks only."""
+    series, masked and unmasked (K11-bwd, which has no mask, once), f64
+    and f32: error checks only."""
     for k in TVL_SWEEP:
         pan = tvl_panel(seed + 910 + k, T_=120, N_=400, K_=k)
         pan[1][7] = 0.0
@@ -3908,7 +4008,7 @@ def tvl_k_sweep(seed: int) -> None:
         for dtype in (torch.float64, torch.float32):
             Yz, Wt, Yf, Ft, Lt, pt = tvl_inputs(pan, dtype)
             with highest_precision():
-                for c in (tvl_cases(Yf, None, Ft, Lt, pt, "unmasked")
+                for c in (tvl_cases(Yf, None, Ft, Lt, pt, "unmasked", False)
                           + tvl_cases(Yz, Wt, Ft, Lt, pt, "masked")):
                     key = (c["name"], c["variant"])
                     _, rel, _, ref, _ = compare(c, dtype, refs.get(key))
@@ -3939,22 +4039,27 @@ class ReadWatch:
         tem.read_host, tfu.read_packed = self._saved
 
 
-def tvl_fit_phase(seed: int) -> dict:
-    """``fit(TVLSpec(n_factors=4, n_rounds=20, tol=0.0), Y)`` at 5,000 x
-    300 on ``TorchBackend()`` (f32, chunks of 8), unmasked and masked, with
-    a 12-step forecast: finite logliks, loadings, factors and forecasts;
-    exactly one read a chunk plus the result's; exactly one launch of each
-    of K2-tv, K4-fwd, K1-tv, K4-bwd, K11-fwd and K11-bwd a round run (+1
-    K2-tv and one K4 pair for the reporting pass) and no other kernel.
-    Rounds/s: the rounds after the first chunk over the wall between the
-    first chunk's read and the last one's.  Then ``tvl_round_breakdown``.
-    Returns each fit's launch counts by label."""
-    Y, W, _, _, _, _ = tvl_panel(seed + 901)
-    spec = dt.TVLSpec(n_factors=TVL_K, n_rounds=TVL_ROUNDS, tol=0.0)
+def tvl_fit_phase(seed: int, k: int = TVL_K, rounds: int = TVL_ROUNDS,
+                  tag: str = "tvl") -> dict:
+    """``fit(TVLSpec(n_factors=k, n_rounds=rounds, tol=0.0), Y)`` at 5,000
+    x 300 on ``TorchBackend()`` (f32, chunks of 8), unmasked and masked,
+    with a 12-step forecast: finite logliks, loadings, factors and
+    forecasts; exactly one read a chunk plus the result's; exactly one
+    launch of each of K2-tv, K4-fwd, K1-tv, K4-bwd, K11-fwd and K11-bwd a
+    round run (+1 K2-tv and one K4 pair for the reporting pass), each under
+    the name of the kernel its wrapper launches at k (``routed``), and no
+    other kernel.  Rounds/s: the rounds after the first chunk over the wall
+    between the first chunk's read and the last one's.  Then
+    ``tvl_round_breakdown`` of the unmasked fit.  The panel is S4's at k
+    factors (seed + 901 at k = 4, seed + 1700 + k past it).  Returns each
+    fit's launch counts by label (``tag`` unmasked, ``tag`` masked)."""
+    Y, W, _, _, _, _ = tvl_s4_panel(
+        seed + (901 if k == TVL_K else 1700 + k), k)
+    spec = dt.TVLSpec(n_factors=k, n_rounds=rounds, tol=0.0)
     backend = dt.TorchBackend(fused_chunk=TVL_CHUNK)
     counts = {}
-    for label, Yx in (("tvl unmasked", Y),
-                      ("tvl masked", np.where(W > 0, Y, np.nan))):
+    for label, Yx in ((f"{tag} unmasked", Y),
+                      (f"{tag} masked", np.where(W > 0, Y, np.nan))):
         torch.cuda.synchronize()
         kernels.reset_launches()
         with ReadWatch() as rw:
@@ -3966,14 +4071,16 @@ def tvl_fit_phase(seed: int) -> dict:
         launches = dict(kernels.LAUNCHES)
         n = len(res.logliks)
         n_chunks = -(-n // TVL_CHUNK)
-        ran = min(TVL_ROUNDS, n_chunks * TVL_CHUNK)     # whole chunks run
+        ran = min(rounds, n_chunks * TVL_CHUNK)         # whole chunks run
         chunk_reads = rw.stamps[:n_chunks]
         steady = ran - TVL_CHUNK
-        per_round = {nm: launches[nm] / ran for nm in
-                     (*TVL_NEW, "info_scan", "rts_smoother")}
+        want = routed({"tvl_obs_stats": ran + 1, "info_scan": ran + 1,
+                       "rts_smoother": ran + 1, "tvl_quad": ran,
+                       "loading_filter": ran, "loading_smoother": ran}, k)
+        per_round = {nm: launches[nm] / ran for nm in want}
         lls = res.logliks
         emit({"fit": label, "spec": dataclasses.asdict(spec),
-              "shape": [TVL_T, TVL_N, TVL_K], "n_rounds": n,
+              "shape": [TVL_T, TVL_N, k], "n_rounds": n,
               "rounds_run": ran, "converged": res.converged,
               "loglik_first": float(lls[0]), "loglik_last": float(lls[-1]),
               "max_drop": float(max(0.0, -np.diff(lls).min())),
@@ -3982,10 +4089,7 @@ def tvl_fit_phase(seed: int) -> dict:
               "rounds_per_sec": (steady / (chunk_reads[-1] - chunk_reads[0])
                                  if steady > 0 else None),
               "reads": len(rw.stamps), "launches_per_round": per_round,
-              "launches": launches})
-        want = {"tvl_obs_stats": ran + 1, "info_scan": ran + 1,
-                "rts_smoother": ran + 1, "tvl_quad": ran,
-                "loading_filter": ran, "loading_smoother": ran}
+              "launches": {nm: v for nm, v in launches.items() if v}})
         bad = {nm: launches[nm] for nm in launches
                if launches[nm] != want.get(nm, 0)}
         if bad or len(rw.stamps) != n_chunks + 1:
@@ -3997,12 +4101,13 @@ def tvl_fit_phase(seed: int) -> dict:
                           ("f_fore", f_fore)):
             if not np.isfinite(arr).all():
                 raise AssertionError(f"{label}: non-finite {name}")
-        if (res.loadings.shape != (TVL_T, TVL_N, TVL_K)
+        if (res.loadings.shape != (TVL_T, TVL_N, k)
                 or y_fore.shape != (12, TVL_N)):
             raise AssertionError(f"{label}: unexpected output shapes")
         counts[label] = launches
-        if label == "tvl unmasked":
+        if label == f"{tag} unmasked":
             fitted = res
+        del res
     tvl_round_breakdown(Y, fitted, spec)
     return counts
 
@@ -4012,11 +4117,13 @@ def tvl_round_breakdown(Y, res, spec) -> None:
     ``res`` of panel ``Y``): each path kernel's time and the whole
     ``tvl_round_core`` on the device (CUDA events, from its first launch
     to its last); the rest is the round less the kernels (torch glue and
-    launch gaps), not a measured breakdown.  Beside it the K4 pair's plain
-    twins, bytes bound and latency floor at S4 (``k4_pair``).  Then two rounds from that
+    launch gaps), not a measured breakdown.  Beside it the K4 pair's bytes
+    bound, latency floor and (at k <= 16) plain twins at S4 (``k4_pair``).  Then two rounds from that
     state under ``set_sync_debug_mode("error")``: no host read inside a
     round (the panel is uploaded before the guard)."""
     Yt = torch.as_tensor(Y, dtype=torch.float32, device="cuda").contiguous()
+    k = spec.n_factors
+    route = lambda nm: kernels.route(nm, k)
     with highest_precision():
         Lt = torch.as_tensor(res.loadings, dtype=torch.float32,
                              device="cuda").contiguous()
@@ -4027,33 +4134,38 @@ def tvl_round_breakdown(Y, res, spec) -> None:
         dummy = SSMParams(Lt[0], pt.A, pt.Q, pt.R, pt.mu0, pt.P0)
         F = rts_smoother(kf, dummy).x_sm
         lam_f, P_f = tv.loading_filter(Yt, F, pt.Lam0, pt.tau2, pt.R)
-        ms = {"tvl_obs_stats": cuda_ms(lambda: tv.obs_stats_tv(Yt, Lt, pt.R)),
-              "info_scan": cuda_ms(lambda: inf.info_scan(
+        ms = {route("tvl_obs_stats"): cuda_ms(
+                  lambda: tv.obs_stats_tv(Yt, Lt, pt.R)),
+              route("info_scan"): cuda_ms(lambda: inf.info_scan(
                   stats, pt.A, pt.Q, pt.mu0, pt.P0)),
-              "tvl_quad": cuda_ms(lambda: tv.quad_local_tv(
+              route("tvl_quad"): cuda_ms(lambda: tv.quad_local_tv(
                   Yt, Lt, pt.R, fwd[0])),
-              "rts_smoother": cuda_ms(lambda: rts_smoother(kf, dummy)),
-              "loading_filter": cuda_ms(lambda: tv.loading_filter(
+              route("rts_smoother"): cuda_ms(
+                  lambda: rts_smoother(kf, dummy)),
+              route("loading_filter"): cuda_ms(lambda: tv.loading_filter(
                   Yt, F, pt.Lam0, pt.tau2, pt.R)),
-              "loading_smoother": cuda_ms(lambda: tv.loading_smoother(
-                  lam_f, P_f, pt.tau2))}
+              route("loading_smoother"): cuda_ms(
+                  lambda: tv.loading_smoother(lam_f, P_f, pt.tau2))}
+        del lam_f, P_f
         # The K4 pair over the per-step C: its plain twins and bytes bound
         # (each input read once, each output written once).
         fwd_in = (stats.b, stats.C, pt.A, pt.Q, pt.mu0, pt.P0)
-        k4 = {"fwd_plain_ms": cuda_ms(lambda: inf.info_scan_plain(
-                  stats, pt.A, pt.Q, pt.mu0, pt.P0)),
-              "bwd_plain_ms": cuda_ms(lambda: rts_smoother_plain(kf, dummy)),
-              "fwd_bound_ms": bound(nbytes_of(fwd_in) + nbytes_of(fwd),
-                                    k4_flops(TVL_T, TVL_K, 12.67),
+        k4 = {"fwd_bound_ms": bound(nbytes_of(fwd_in) + nbytes_of(fwd),
+                                    k4_flops(TVL_T, k, 12.67),
                                     torch.float32)[0],
               "bwd_bound_ms": bound(
                   nbytes_of((*fwd[:4], pt.A)) + nbytes_of(fwd[:1])
                   + 2 * nbytes_of(fwd[1:2]),
-                  k4_flops(TVL_T, TVL_K, 9.0), torch.float32)[0],
-              "fwd_floor_ms": latency_ms("info_scan", torch.float32, TVL_K,
+                  k4_flops(TVL_T, k, 9.0), torch.float32)[0],
+              "fwd_floor_ms": latency_ms("info_scan", torch.float32, k,
                                          TVL_T),
-              "bwd_floor_ms": latency_ms("rts_smoother", torch.float32,
-                                         TVL_K, TVL_T)}
+              "bwd_floor_ms": latency_ms("rts_smoother", torch.float32, k,
+                                         TVL_T)}
+        if k <= kernels.KMAX:
+            k4["fwd_plain_ms"] = cuda_ms(lambda: inf.info_scan_plain(
+                stats, pt.A, pt.Q, pt.mu0, pt.P0))
+            k4["bwd_plain_ms"] = cuda_ms(lambda: rts_smoother_plain(kf,
+                                                                    dummy))
         round_ms = cuda_ms(lambda: tv.tvl_round_core(Yt, None, Lt, pt, spec))
         torch.cuda.synchronize()
         prev = torch.cuda.get_sync_debug_mode()
@@ -4063,33 +4175,40 @@ def tvl_round_breakdown(Y, res, spec) -> None:
         finally:
             torch.cuda.set_sync_debug_mode(prev)
         torch.cuda.synchronize()
-    emit({"tvl_round_breakdown": "unmasked", "shape": [TVL_T, TVL_N, TVL_K],
+    emit({"tvl_round_breakdown": "unmasked", "shape": [TVL_T, TVL_N, k],
           "round_ms": round_ms, "kernel_ms": ms,
           "rest_ms": round_ms - sum(ms.values()), "rounds_sync_checked": 2,
           "k4_pair": k4})
 
 
-def tvl_reference_phase(seed: int) -> None:
-    """``fit(TVLSpec(n_factors=3, n_rounds=6, tol=0))`` at 60 x 80, unmasked
-    and masked (a fully missing step and a never-observed series), on the
-    card in f64 against the CPU in f64 within 1e-9 relative (logliks,
-    loadings, factors, params, forecast)."""
-    pan = tvl_panel(seed + 902, T_=60, N_=80, K_=3)
+def tvl_reference_phase(seed: int, N_: int = 80, k: int = 3,
+                        variants=("unmasked", "masked")) -> None:
+    """``fit(TVLSpec(n_factors=k, n_rounds=6, tol=0))`` at 60 x ``N_``,
+    unmasked and masked (a fully missing step and a never-observed series;
+    ``variants`` picks), on the card in f64 against the CPU in f64 within
+    1e-9 relative (logliks, loadings, factors, params, forecast); the card
+    fit must launch every kernel of the path at k (``kernels.route``).
+    Each fit's wall is printed."""
+    pan = tvl_panel(seed + 902 + (k if k > 3 else 0), T_=60, N_=N_, K_=k)
     Y, W = pan[0], pan[1]
     W[7] = 0.0
     W[:, 5] = 0.0
-    spec = dt.TVLSpec(n_factors=3, n_rounds=6, tol=0.0)
-    errs = {}
-    for label, Yx in (("unmasked", Y), ("masked", np.where(W > 0, Y, np.nan))):
+    spec = dt.TVLSpec(n_factors=k, n_rounds=6, tol=0.0)
+    errs, walls = {}, {}
+    panels = {"unmasked": Y, "masked": np.where(W > 0, Y, np.nan)}
+    for label in variants:
+        Yx = panels[label]
         res = {}
         for dev in ("cuda", "cpu"):
             kernels.reset_launches()
+            t0 = time.perf_counter()
             r = dt.fit(spec, Yx, backend=dt.TorchBackend(
                 device=dev, dtype=torch.float64, fused_chunk=4))
+            walls[f"{label} {dev}"] = time.perf_counter() - t0
             res[dev] = (r, dt.forecast(r, 12)[0], dict(kernels.LAUNCHES))
         (rg, yg, lg), (rc, yc, _) = res["cuda"], res["cpu"]
-        if any(lg[nm] == 0 for nm in TVL_NEW) or len(rg.logliks) != len(
-                rc.logliks):
+        if any(lg[kernels.route(nm, k)] == 0 for nm in TVL_NEW) or len(
+                rg.logliks) != len(rc.logliks):
             raise AssertionError(f"tvl reference {label}: launches {lg}, "
                                  f"rounds {len(rg.logliks)} / "
                                  f"{len(rc.logliks)}")
@@ -4101,26 +4220,27 @@ def tvl_reference_phase(seed: int) -> None:
                            ("A", rg.params.A, rc.params.A),
                            ("y_fore", yg, yc)):
             errs[f"{label} {name}"] = rel_err(g, c)
-    emit({"reference": "tvl", "shape": [60, 80, 3], "rounds": 6,
-          "max_rel_err": errs, "tol": 1e-9})
+    emit({"reference": "tvl", "shape": [60, N_, k], "rounds": 6,
+          "max_rel_err": errs, "tol": 1e-9, "wall_s": walls})
     bad = {n: e for n, e in errs.items() if not e <= 1e-9}
     if bad:
         raise AssertionError(f"tvl card fit disagrees with the CPU fit: {bad}")
 
 
-def tvl_contract_phase(seed: int) -> None:
+def tvl_contract_phase(seed: int, k: int = TVL_K) -> None:
     """The loglik contract of the TVL family (BASELINE.json:5) at S4's full
-    width, unmasked and masked: from one init (the fit's PCA warm start,
-    tau2 = 1e-4), 2 rounds in f32 and in f64 on the card; the f32 state
-    (loading paths and params, cast to f64) re-evaluated by
-    ``tvl_loglik_eval`` in f64 against the f64 state's conditional loglik
-    after its 2 rounds, within 1e-5 relative."""
-    Y, W, _, _, _, _ = tvl_panel(seed + 901)
-    spec = dt.TVLSpec(n_factors=TVL_K, n_rounds=2, tol=0.0)
+    width (k factors; the fit phase's panel), unmasked and masked: from one
+    init (the fit's PCA warm start, tau2 = 1e-4), 2 rounds in f32 and in
+    f64 on the card; the f32 state (loading paths and params, cast to f64)
+    re-evaluated by ``tvl_loglik_eval`` in f64 against the f64 state's
+    conditional loglik after its 2 rounds, within 1e-5 relative."""
+    Y, W, _, _, _, _ = tvl_s4_panel(
+        seed + (901 if k == TVL_K else 1700 + k), k)
+    spec = dt.TVLSpec(n_factors=k, n_rounds=2, tol=0.0)
     for masked in (False, True):
         Wm = W if masked else None
         Yz = np.where(W > 0, Y, 0.0) if masked else Y
-        p0 = cpu_ref.pca_init(Yz, TVL_K, mask=Wm)
+        p0 = cpu_ref.pca_init(Yz, k, mask=Wm)
         init = tv.TVLParams(Lam0=p0.Lam, tau2=np.full((TVL_N,), 1e-4),
                             A=p0.A, Q=p0.Q, R=p0.R, mu0=p0.mu0, P0=p0.P0)
         state = {}
@@ -4130,9 +4250,10 @@ def tvl_contract_phase(seed: int) -> None:
                 mt = (torch.as_tensor(Wm, dtype=dtype, device="cuda")
                       if masked else None)
                 pt = init.to("cuda", dtype)
-                L0 = pt.Lam0.expand(TVL_T, TVL_N, TVL_K).contiguous()
+                L0 = pt.Lam0.expand(TVL_T, TVL_N, k).contiguous()
                 state[dtype] = tv.tvl_round_scan(Yt, mt, L0, pt, spec,
                                                  masked, 2)[0]
+                del Yt, mt, pt, L0
             L64, p64 = state[torch.float64]
             ref = tv.tvl_loglik_eval(Yz, L64, p64, mask=Wm)
             L32, p32 = state[torch.float32]
@@ -4141,7 +4262,7 @@ def tvl_contract_phase(seed: int) -> None:
             fast = tv.tvl_loglik_eval(Yz, L32, p32, mask=Wm, precise=False)
         rel = abs(precise - ref) / abs(ref)
         emit({"contract": f"{'masked' if masked else 'unmasked'} tvl",
-              "shape": [TVL_T, TVL_N, TVL_K], "rounds": 2,
+              "shape": [TVL_T, TVL_N, k], "rounds": 2,
               "loglik_f64": ref, "rel_err_precise": rel,
               "rel_err_fast": abs(fast - ref) / abs(ref), "limit": 1e-5})
         if not rel < 1e-5:
@@ -4534,6 +4655,9 @@ def mf_contract_phase(seed: int, routes=MF_BASE_ROUTES) -> None:
 # ---------------------------------------------------------------------------
 
 SV_T, SV_N, SV_K, SV_M = 1000, 10_000, 5, 256
+# Steps of S5 the expanded form is held on at full width (N, k, M): its
+# plain twin, a Python loop a step, takes ~8 s over all 1,000.
+SV_EXPANDED_T = 100
 SV_NEW = ("sv_rbpf", "sv_ffbs")
 # (k, M): both sides of UNROLL_K_MAX = 8 and the dispatch ends; one
 # particle, and the step block past 256 threads up to its 1,024.
@@ -4721,11 +4845,13 @@ def ffbs_compare(Hk, Hp, h_hist, logw, sigma, bd, dtype, label: str) -> dict:
 
 
 def sv_kernel_cases(Yz, p, sigma_h, h_center, spec, draws, dtype,
-                    label: str, timed: bool) -> list:
-    """K10-fwd (residual, expanded) and K10-ffbs on one panel in
-    ``dtype``: each against its twin, the kernel run twice (bit for bit),
-    and, when ``timed``, timed warm and cold beside the twin, the
-    yardstick and the bound.  Returns one record each."""
+                    label: str, timed: bool,
+                    forms=("residual", "expanded")) -> list:
+    """K10-fwd (in each of ``forms``: residual, expanded) and, after the
+    residual form, K10-ffbs on one panel in ``dtype``: each against its
+    twin, the kernel run twice (bit for bit), and, when ``timed``, timed
+    warm and cold beside the twin, the yardstick and the bound.  Returns
+    one record each."""
     args, fd, bd = sv_args(Yz, p, sigma_h, h_center, draws, dtype)
     T_, N_ = args[0].shape
     M_, k = fd.h0.shape
@@ -4733,7 +4859,7 @@ def sv_kernel_cases(Yz, p, sigma_h, h_center, spec, draws, dtype,
     thr = spec.ess_frac * M_
     recs = []
     with highest_precision():
-        for form in ("residual", "expanded"):
+        for form in forms:
             residual = form == "residual"
             kern = sv_run(sv.rbpf_scan, args, fd, spec, residual)
             again = sv_run(sv.rbpf_scan, args, fd, spec, residual)
@@ -4772,6 +4898,8 @@ def sv_kernel_cases(Yz, p, sigma_h, h_center, spec, draws, dtype,
             recs.append(rec)
             if residual:
                 hist = kern
+        if "residual" not in forms:
+            return recs
         Hk = sv.ffbs(hist[5], hist[6], args[9], bd)
         Hp = sv.ffbs_plain(hist[5], hist[6], args[9], bd)
         torch.cuda.synchronize()
@@ -4797,21 +4925,30 @@ def sv_kernel_cases(Yz, p, sigma_h, h_center, spec, draws, dtype,
 
 
 def sv_kernel_phase(seed: int, fit) -> dict:
-    """Phase 31: K10-fwd (residual and expanded) and K10-ffbs against
-    their plain twins at S5's full width, on the same draws: the panel
-    standardized as the fit saw it, the fit's params, sigma_h and h_0
-    center; f64 then f32 (``sv_compare``, ``ffbs_compare``); timed in f32,
-    the path's dtype.  Returns the f32 residual and FFBS records by
+    """Phase 31: K10-fwd and K10-ffbs against their plain twins at S5's
+    full width, on the same draws: the panel standardized as the fit saw
+    it, the fit's params, sigma_h and h_0 center; f64 then f32
+    (``sv_compare``, ``ffbs_compare``): the residual form (the fit's) and
+    FFBS over all 1,000 steps, timed in f32, the path's dtype; the
+    expanded form (``quad_form="expanded"``) on the first SV_EXPANDED_T
+    steps, untimed.  Returns the f32 residual and FFBS records by
     name."""
     Y, _ = sv_panel(seed + 1101)
     Yz = fit.standardizer.transform(Y)
     spec = dt.SVSpec(n_factors=SV_K, n_particles=SV_M)
     draws = sv_draws64(SV_T, spec, seed + 1103)
+    draws_e = sv_draws64(SV_EXPANDED_T, spec, seed + 1104)
     summary = {}
     for dtype in (torch.float64, torch.float32):
-        for rec in sv_kernel_cases(Yz, fit.params, fit.sigma_h, fit.h_center,
-                                   spec, draws, dtype, "S5",
-                                   timed=dtype == torch.float32):
+        recs = sv_kernel_cases(Yz, fit.params, fit.sigma_h, fit.h_center,
+                               spec, draws, dtype, "S5",
+                               timed=dtype == torch.float32,
+                               forms=("residual",))
+        recs += sv_kernel_cases(Yz[:SV_EXPANDED_T], fit.params, fit.sigma_h,
+                                fit.h_center, spec, draws_e, dtype,
+                                f"S5 T={SV_EXPANDED_T}", timed=False,
+                                forms=("expanded",))
+        for rec in recs:
             emit(rec)
             if dtype == torch.float32 and rec["variant"] in ("S5 residual",
                                                              "S5"):
@@ -5438,7 +5575,7 @@ def dense_fit_phase(seed: int) -> dict:
     """``fit`` (auto -> dense) on the first 31 series of the masked
     headline panel (20 iterations, tol = 0, f32), the reporting smooth and
     a 12-step forecast; ``fit(fused=True)`` on its first 480 rows; a dense
-    session on that at capacity 1,000 (10 queries of 2 rows, one read a
+    session on that at capacity 1,000 (4 queries of 2 rows, one read a
     query under the sync check).  Returns the launch counts by label."""
     Ynan, _, _, _ = panel(seed + 1)
     Yd = Ynan[:, :DENSE_N]
@@ -5876,7 +6013,7 @@ def bwide_k_sweep(seed: int) -> None:
 KBIG_KS = (50, 100)
 KBIG_SEED = 1500
 KBIG_ITERS = 10
-KBIG_SWEEP = (33, 48, 64, 100, 127, 128)
+KBIG_SWEEP = (33, 64, 100, 127, 128)
 KBIG_NEW = ("obs_stats_gen", "info_scan_gen", "rts_smoother_gen",
             "quad_local_gen", "mstep_rows_gen")
 # The fits: (label, k, masked, filter asked, engine it resolves to, extra
@@ -6377,7 +6514,7 @@ BGEN_SEED = 1600
 BGEN_B, BGEN_ITERS, BGEN_LONE = 4, 10, 2     # fit_many restarts
 BGEN_TICK = (2, 1000)        # (B, T_cap) of the kernels' tick shape
 BGEN_K100 = (2, T)           # (B, T_cap) of the k = 100 case
-BGEN_SWEEP = (33, 50, 64, 100, 128)
+BGEN_SWEEP = (33, 64, 100, 128)
 BGEN_SWEEP_SHAPE = (80, 120)  # (T, N) of the sweep's panels
 BGEN_KGRID = (10, 33, 50)
 BGEN_WINDOWS = 6
@@ -7563,6 +7700,220 @@ def qgen_reference_phase(seed: int) -> None:
                   "pit_qr", 1e-12)
 
 
+# ---------------------------------------------------------------------------
+# The time-varying-loadings family past k = 16 (tgen): K2-tv and K1-tv's
+# wide and generic kernels, K11-fwd and K11-bwd's generic ones, on S4's
+# panel (5,000 series x 300 steps) at k = 25 and 50.
+# ---------------------------------------------------------------------------
+
+TGEN_KS = (25, 50)
+# Series of the kernel-vs-twin comparison a k: at k = 50 each (T, N, k, k)
+# array is 15 GB in f32 at 5,000 series, and the plain twins hold copies of
+# their own, so the pair is held there on 1,000 series (the kernels are
+# also timed alone on all 5,000).
+TGEN_TWIN_N = {25: TVL_N, 50: 1000}
+TGEN_SWEEP = (17, 24, 32, 33, 64, 100, 128)
+TGEN_SWEEP_SHAPE = (120, 400)
+TGEN_SWEEP_TIMED = (100, 128)
+# K11-bwd-gen's workspace held to TGEN_SLOTS series at these k (where its
+# rule gives one: f32 past 119, f64 past 83), so each block loops over
+# two or three of the sweep's 400 series.
+TGEN_SLOTS_KS, TGEN_SLOTS = (100, 128), 150
+TGEN_FITS = ((25, TVL_ROUNDS), (50, 10))
+TGEN_REF = ((80, 20), (90, 40))          # (N, k) at T = 60
+
+
+def tgen_tvl_cases(pan, dtype) -> list:
+    """``tvl_cases`` of a ``tvl_panel`` in ``dtype``: unmasked (the
+    kernels' mask-free branches; K11-bwd, which has no mask and whose plain
+    twin takes seconds at S4, left out) and masked."""
+    Yz, Wt, Yf, Ft, Lt, pt = tvl_inputs(pan, dtype)
+    return (tvl_cases(Yf, None, Ft, Lt, pt, "unmasked", False)
+            + tvl_cases(Yz, Wt, Ft, Lt, pt, "masked"))
+
+
+def tgen_time_alone(c: dict, dtype) -> dict:
+    """A case's kernel timed with no twin (warm and cold L2) beside its
+    bound from the inputs and one call's outputs."""
+    out = as_tuple(c["run"]())
+    torch.cuda.synchronize()
+    for x in out:
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{c['name']} ({c['variant']}): non-finite "
+                                 "kernel output")
+    bound_ms, bound_by = bound(nbytes_of(c["ins"]) + nbytes_of(out),
+                               c["flops"], dtype)
+    del out
+    return {"name": c["name"], "variant": c["variant"],
+            "dtype": str(dtype).replace("torch.", ""),
+            "kernel_ms": cuda_ms(c["run"], warm=False),
+            "kernel_ms_cold_l2": cuda_ms_cold(c["run"], 1, False),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def tgen_kernel_phase(seed: int) -> dict:
+    """The four TVL kernels past 16 against their plain twins on S4's
+    panel at k = 25 and 50 (``TGEN_TWIN_N`` series), unmasked and masked
+    (``tgen_tvl_cases``), f64 then f32 (the TOL rule; the masked f32
+    records timed warm and cold beside the twin, the library yardstick and
+    the bound); at k = 50 then each kernel timed alone on all 5,000
+    series, masked.  Returns the masked f32 records of the wide kernels
+    and of K11's at k = 25, of the generic K2-tv and K1-tv at k = 50."""
+    summary = {}
+    for k in TGEN_KS:
+        N_ = TGEN_TWIN_N[k]
+        pan = (tvl_s4_panel(seed + 1700 + k, k) if N_ == TVL_N
+               else tvl_panel(seed + 1700 + k, N_=N_, K_=k))
+        refs = {}
+        for dtype in (torch.float64, torch.float32):
+            with highest_precision():
+                for c in tgen_tvl_cases(pan, dtype):
+                    timed = (dtype == torch.float32
+                             and c["variant"] == "masked")
+                    rec = kernel_record(c, dtype, refs, timed)
+                    rec.update({"T": TVL_T, "N": N_, "k": k})
+                    emit(rec)
+                    if timed and c["name"] not in summary:
+                        summary[c["name"]] = rec
+            torch.cuda.empty_cache()
+        del pan, refs
+        torch.cuda.empty_cache()
+        if N_ == TVL_N:
+            continue
+        pan = tvl_s4_panel(seed + 1700 + k, k)
+        Yz, Wt, Yf, Ft, Lt, pt = tvl_inputs(pan, torch.float32)
+        del pan
+        with highest_precision():
+            cs = tvl_cases(Yz, Wt, Ft, Lt, pt, "masked", smoother=False)
+            for c in cs:
+                rec = tgen_time_alone(c, torch.float32)
+                rec.update({"T": TVL_T, "N": TVL_N, "k": k})
+                emit(rec)
+            del cs
+            torch.cuda.empty_cache()
+            # K11-bwd on the kernel's own forward pass.
+            lam_f, P_f = tv.loading_filter(Yz, Ft, pt.Lam0, pt.tau2, pt.R,
+                                           Wt)
+            c = case(kernels.route("loading_smoother", k), "masked",
+                     lambda: tv.loading_smoother(lam_f, P_f, pt.tau2), None,
+                     (lam_f, P_f, pt.tau2),
+                     (TVL_T - 1) * TVL_N * k11_bwd_flops(k))
+            rec = tgen_time_alone(c, torch.float32)
+            rec.update({"T": TVL_T, "N": TVL_N, "k": k})
+            emit(rec)
+            del lam_f, P_f, c
+        del Yz, Wt, Yf, Ft, Lt, pt
+        torch.cuda.empty_cache()
+    return summary
+
+
+def tgen_raise_calls(k: int) -> dict:
+    """Every TVL entry point called at k on card tensors of zeros (T = 4,
+    N = 6)."""
+    z = dict(dtype=torch.float32, device="cuda")
+    T_, N_ = 4, 6
+    Y, L = torch.zeros((T_, N_), **z), torch.zeros((T_, N_, k), **z)
+    F, v = torch.zeros((T_, k), **z), torch.ones(N_, **z)
+    P = torch.zeros((T_, N_, k, k), **z)
+    pt = tv.TVLParams(L[0], v, torch.eye(k, **z), torch.eye(k, **z), v,
+                      torch.zeros(k, **z), torch.eye(k, **z))
+    spec = dt.TVLSpec(n_factors=k)
+    return {"obs_stats_tv": lambda: tv.obs_stats_tv(Y, L, v),
+            "quad_local_tv": lambda: tv.quad_local_tv(Y, L, v, F),
+            "loading_filter": lambda: tv.loading_filter(Y, F, L[0], v, v),
+            "loading_smoother": lambda: tv.loading_smoother(L, P, v),
+            "factor_pass_tv": lambda: tv.factor_pass_tv(Y, L, pt),
+            "loading_pass": lambda: tv.loading_pass(Y, F, pt),
+            "tvl_round_core": lambda: tv.tvl_round_core(Y, None, L, pt,
+                                                        spec),
+            "tvl_round_scan": lambda: tv.tvl_round_scan(Y, None, L, pt,
+                                                        spec, False, 1),
+            "tvl_loglik_eval": lambda: tv.tvl_loglik_eval(Y, L, pt)}
+
+
+def tgen_k_sweep(seed: int) -> None:
+    """The four TVL kernels through their wrappers at k in TGEN_SWEEP on
+    TGEN_SWEEP_SHAPE panels with a fully missing step and a never-observed
+    series: masked and unmasked (K11-bwd, which has no mask, once), f64
+    and f32, and at k in TGEN_SLOTS_KS K11-bwd-gen on a workspace of
+    TGEN_SLOTS series (``tvl_cases``' ``slots``); only the routed kernels
+    may launch.  At k in TGEN_SWEEP_TIMED the f32 masked records are timed
+    (``kernel_record``).
+    Then k = 129 must raise NotImplementedError naming the ROADMAP row in
+    every TVL entry point before any launch."""
+    T_, N_ = TGEN_SWEEP_SHAPE
+    for k in TGEN_SWEEP:
+        t0 = time.perf_counter()
+        pan = tvl_panel(seed + 1800 + k, T_=T_, N_=N_, K_=k)
+        pan[1][7] = 0.0
+        pan[1][:, 5] = 0.0
+        refs, worst, recs = {}, {}, []
+        kernels.reset_launches()
+        for dtype in (torch.float64, torch.float32):
+            Yz, Wt, Yf, Ft, Lt, pt = tvl_inputs(pan, dtype)
+            with highest_precision():
+                cases = (tvl_cases(Yz, Wt, Ft, Lt, pt, "masked", slots=(
+                    TGEN_SLOTS if k in TGEN_SLOTS_KS else 0))
+                         + tvl_cases(Yf, None, Ft, Lt, pt, "unmasked",
+                                     smoother=False))
+                for c in cases:
+                    if (dtype == torch.float32 and k in TGEN_SWEEP_TIMED
+                            and c["variant"] == "masked"):
+                        rec = kernel_record(c, dtype, refs)
+                        rec.update({"T": T_, "N": N_, "k": k})
+                        recs.append(rec)
+                        rel = rec["max_rel_err"]
+                    else:
+                        key = (c["name"], c["variant"])
+                        _, rel, _, ref, _ = compare(c, dtype, refs.get(key))
+                        refs[key] = ref
+                    worst[f"{c['name']} {c['variant']} {str(dtype)[6:]}"] = rel
+                del cases
+            del Yz, Wt, Yf, Ft, Lt, pt
+            torch.cuda.empty_cache()
+        launched = {n: v for n, v in kernels.LAUNCHES.items() if v}
+        for rec in recs:
+            emit(rec)
+        emit({"tgen_k_sweep": k, "shape": TGEN_SWEEP_SHAPE,
+              "max_rel_err": worst, "launches": launched,
+              "s": time.perf_counter() - t0})
+        want = {kernels.route(n, k) for n in TVL_NEW}
+        if set(launched) != want:
+            raise AssertionError(f"tgen k = {k}: launched {launched}, "
+                                 f"expected only {want}")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    raised = {}
+    calls = tgen_raise_calls(kernels.GEN_KMAX + 1)
+    for name, fn in calls.items():
+        try:
+            fn()
+        except NotImplementedError as e:
+            raised[name] = kernels.GENERIC_K in str(e)
+    launched = sum(kernels.LAUNCHES.values())
+    emit({"tgen_k129_raised": raised, "launches": launched})
+    if len(raised) != len(calls) or not all(raised.values()) or launched:
+        raise AssertionError(f"k = 129: only {raised} raised, {launched} "
+                             "launches")
+
+
+def tgen_fit_phase(seed: int) -> dict:
+    """``tvl_fit_phase`` at k = 25 (20 rounds) and k = 50 (10 rounds) on
+    S4's panel: returns each fit's launch counts by label."""
+    counts = {}
+    for k, rounds in TGEN_FITS:
+        counts.update(tvl_fit_phase(seed, k, rounds, f"tvl k{k}"))
+        torch.cuda.empty_cache()
+    return counts
+
+
+def tgen_reference_phase(seed: int) -> None:
+    """``tvl_reference_phase`` at 60 x 80, k = 20 and 60 x 90, k = 40,
+    masked (the CPU's f64 twins past 16 take seconds a fit)."""
+    for N_, k in TGEN_REF:
+        tvl_reference_phase(seed, N_, k, ("masked",))
+
+
 def ptxas_summary(source: str) -> dict:
     """Build seconds and, over the k = 10 instantiations of ``source``
     (every function for a source without a k template), the largest
@@ -7597,7 +7948,7 @@ def ptxas_summary(source: str) -> dict:
 # Phase groups of ``--phases``, in run order.
 PHASES = ("headline", "session", "batched", "fleet", "lowrank", "tvl", "mf",
           "sv", "pit", "dense", "wide", "bwide", "kbig", "bgen", "sgen",
-          "qgen")
+          "qgen", "tgen")
 
 
 def main() -> int:
@@ -7778,6 +8129,12 @@ def main() -> int:
             launches.update(timed(qgen_fleet_phase, seed))
             timed(qgen_reference_phase, seed)
             timed(qgen_contract_phase, seed)
+        elif group == "tgen":
+            summary.update(timed(tgen_kernel_phase, seed))
+            timed(tgen_k_sweep, seed)
+            launches.update(timed(tgen_fit_phase, seed))
+            timed(tgen_reference_phase, seed)
+            timed(tvl_contract_phase, seed, TGEN_KS[0])
         group_s[group] = time.perf_counter() - t0
         emit({"group_s": {group: group_s[group]},
               "script_s": time.perf_counter() - t_start})

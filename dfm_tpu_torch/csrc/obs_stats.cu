@@ -87,6 +87,17 @@
 // flops at B = 2, T = 1,000, N = 10,000, k = 50 (~0.76 ms at 67 TFLOP/s
 // in f32), against 160 MB of Y and W (~0.048 ms).
 //
+// K2-tv-wide and K2-tv-gen (tvl_obs_stats_wide, tvl_obs_stats_gen): K2-wide
+// and K2-gen with the loadings read at a time stride (Lam_t (T, N, k), N k
+// values a step) and the mask optional, as K2-tv is K2: the time-varying-
+// loadings family's statistics at 16 < k <= 32 and 32 < k <= 128.  They
+// replace dfm_tpu/models/tv_loadings.py:obs_stats_tv (line 81), both
+// branches, there; unmasked (no mask pointer) w = 1, so n_t = N and ldR_t
+// = sum_n log R_n; n_t and ldR_t are summed and written in double, as
+// K2-tv's.  Bound: at S4 (T = 300, N = 5,000) bytes at k = 25 (the per-step
+// loadings read once, 150 MB in f32, ~0.045 ms) against 2 T N (k +
+// k(k+1)/2) = 1.1e9 flops (~0.017 ms); operations past k ~ 40.
+//
 // Design: one block per t (and lane).  Each thread walks series with a stride of
 // blockDim.x, keeps its partials of all k + k(k+1)/2 + 2 outputs in
 // registers (k is a template constant so the partials stay in registers;
@@ -192,7 +203,7 @@ obs_stats_wide_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
                       const T* __restrict__ R, const T* __restrict__ mask,
                       T* __restrict__ b, T* __restrict__ C,
                       TA* __restrict__ nobs, TA* __restrict__ ldR, int N,
-                      int k) {
+                      int k, size_t lam_tstride) {
   __shared__ T lam[kWideTile][DFM_WIDE_KMAX + 1];
   __shared__ T wr[kWideTile], yr[kWideTile];
   __shared__ TA red[32];
@@ -201,15 +212,15 @@ obs_stats_wide_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
   // This block's problem lane.
   const size_t pb = blockIdx.y, tn = (size_t)T_ * N;
   Y += pb * tn;
-  mask += pb * tn;
-  Lam += pb * (size_t)N * k;
+  if (mask) mask += pb * tn;
+  Lam += pb * (size_t)N * k + t * lam_tstride;
   R += pb * N;
   b += pb * (size_t)T_ * k;
   C += pb * (size_t)T_ * k * k;
   nobs += pb * T_;
   ldR += pb * T_;
   const T* y = Y + (size_t)t * N;
-  const T* w = mask + (size_t)t * N;
+  const T* w = mask ? mask + (size_t)t * N : nullptr;
   // The sums this thread owns: e < k is b[e]; else the packed (i, j), j <= i.
   int oi[kWideOwn], oj[kWideOwn];
   T acc[kWideOwn];
@@ -236,10 +247,10 @@ obs_stats_wide_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
       lam[e / k][e % k] = Lam[(size_t)n0 * k + e];
     if (tid < nt) {
       const int n = n0 + tid;
-      const T wn = w[n];
+      const T wn = w ? w[n] : T(1);
       const T rinv = T(1) / R[n];
-      wr[tid] = wn * rinv;
-      yr[tid] = wn * nan_to_num(y[n]) * rinv;
+      wr[tid] = w ? wn * rinv : rinv;
+      yr[tid] = (w ? wn * nan_to_num(y[n]) : y[n]) * rinv;
       acc_n += TA(wn);
       acc_l += TA(wn) * TA(dfm_log(R[n]));
     }
@@ -289,7 +300,7 @@ obs_stats_gen_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
                      const T* __restrict__ R, const T* __restrict__ mask,
                      T* __restrict__ b, T* __restrict__ C,
                      TA* __restrict__ nobs, TA* __restrict__ ldR, int N,
-                     int k) {
+                     int k, size_t lam_tstride) {
   __shared__ T li[kGenSlice][kGenTile + 1], lj[kGenSlice][kGenTile + 1];
   __shared__ T wr[kGenSlice], yr[kGenSlice];
   __shared__ T ct[kGenTile][kGenTile + 1];
@@ -298,8 +309,8 @@ obs_stats_gen_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
   // This block's problem lane.
   const size_t pb = blockIdx.z, tn = (size_t)T_ * N;
   Y += pb * tn;
-  mask += pb * tn;
-  Lam += pb * (size_t)N * k;
+  if (mask) mask += pb * tn;
+  Lam += pb * (size_t)N * k + t * lam_tstride;
   R += pb * N;
   b += pb * (size_t)T_ * k;
   C += pb * (size_t)T_ * k * k;
@@ -311,7 +322,7 @@ obs_stats_gen_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
   const int i0 = I * kGenTile, j0 = J * kGenTile;
   const int ni = min(kGenTile, k - i0), nj = min(kGenTile, k - j0);
   const T* y = Y + (size_t)t * N;
-  const T* w = mask + (size_t)t * N;
+  const T* w = mask ? mask + (size_t)t * N : nullptr;
   const int tx = tid & 15, ty = tid >> 4;
   // Two-level sums: each slice's partials, then the running totals, so an
   // f32 sum over N = 10,000 series rounds like ~N / 64 + 64 terms, not N.
@@ -332,7 +343,7 @@ obs_stats_gen_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
     }
     T wn = T(0), rn = T(1), yn = T(0);
     if (tid < nt) {
-      wn = w[n0 + tid];
+      wn = w ? w[n0 + tid] : T(1);
       rn = R[n0 + tid];
       yn = y[n0 + tid];
     }
@@ -344,8 +355,8 @@ obs_stats_gen_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
     }
     if (tid < nt) {
       const T rinv = T(1) / rn;
-      wr[tid] = wn * rinv;
-      yr[tid] = wn * nan_to_num(yn) * rinv;
+      wr[tid] = w ? wn * rinv : rinv;
+      yr[tid] = (w ? wn * nan_to_num(yn) : yn) * rinv;
       if (blockIdx.y == 0) {
         acc_n += TA(wn);
         acc_l += TA(wn) * TA(dfm_log(rn));
@@ -396,24 +407,24 @@ obs_stats_gen_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
 template <typename T, typename TA>
 static int launch_gen(const T* Y, const T* Lam, const T* R, const T* mask,
                       T* b, T* C, TA* nobs, TA* ldR, int B, int T_, int N,
-                      int k, cudaStream_t stream) {
+                      int k, size_t lam_tstride, cudaStream_t stream) {
   if (k < 1 || k > DFM_GEN_KMAX) return (int)cudaErrorInvalidValue;
   const int nt = (k + kGenTile - 1) / kGenTile;
   if (B > 0 && T_ > 0)
     obs_stats_gen_kernel<T, TA><<<dim3(T_, nt * (nt + 1) / 2, B), kThreads,
                                   0, stream>>>(Y, Lam, R, mask, b, C, nobs,
-                                               ldR, N, k);
+                                               ldR, N, k, lam_tstride);
   return (int)cudaGetLastError();
 }
 
 template <typename T, typename TA>
 static int launch_wide(const T* Y, const T* Lam, const T* R, const T* mask,
                        T* b, T* C, TA* nobs, TA* ldR, int B, int T_, int N,
-                       int k, cudaStream_t stream) {
+                       int k, size_t lam_tstride, cudaStream_t stream) {
   if (k < 1 || k > DFM_WIDE_KMAX) return (int)cudaErrorInvalidValue;
   if (B > 0 && T_ > 0)
     obs_stats_wide_kernel<T, TA><<<dim3(T_, B), kThreads, 0, stream>>>(
-        Y, Lam, R, mask, b, C, nobs, ldR, N, k);
+        Y, Lam, R, mask, b, C, nobs, ldR, N, k, lam_tstride);
   return (int)cudaGetLastError();
 }
 
@@ -453,27 +464,41 @@ extern "C" {
                            const T* mask, T* b, T* C, T* nobs, T* ldR,       \
                            int T_, int N, int k, void* stream) {             \
     return launch_wide<T, T>(Y, Lam, R, mask, b, C, nobs, ldR, 1, T_, N, k,  \
-                             (cudaStream_t)stream);                          \
+                             0, (cudaStream_t)stream);                       \
   }                                                                          \
   int batched_obs_stats_wide_##SFX(const T* Y, const T* Lam, const T* R,     \
                                    const T* mask, T* b, T* C, double* nobs,  \
                                    double* ldR, int B, int T_, int N, int k, \
                                    void* stream) {                           \
     return launch_wide<T, double>(Y, Lam, R, mask, b, C, nobs, ldR, B, T_,   \
-                                  N, k, (cudaStream_t)stream);               \
+                                  N, k, 0, (cudaStream_t)stream);            \
   }                                                                          \
   int obs_stats_gen_##SFX(const T* Y, const T* Lam, const T* R,              \
                           const T* mask, T* b, T* C, T* nobs, T* ldR,        \
                           int T_, int N, int k, void* stream) {              \
     return launch_gen<T, T>(Y, Lam, R, mask, b, C, nobs, ldR, 1, T_, N, k,   \
-                            (cudaStream_t)stream);                           \
+                            0, (cudaStream_t)stream);                        \
   }                                                                          \
   int batched_obs_stats_gen_##SFX(const T* Y, const T* Lam, const T* R,      \
                                   const T* mask, T* b, T* C, double* nobs,   \
                                   double* ldR, int B, int T_, int N, int k,  \
                                   void* stream) {                            \
     return launch_gen<T, double>(Y, Lam, R, mask, b, C, nobs, ldR, B, T_, N, \
-                                 k, (cudaStream_t)stream);                   \
+                                 k, 0, (cudaStream_t)stream);                \
+  }                                                                          \
+  int tvl_obs_stats_wide_##SFX(const T* Y, const T* Lam_t, const T* R,       \
+                               const T* mask, T* b, T* C, double* nobs,      \
+                               double* ldR, int T_, int N, int k,            \
+                               void* stream) {                               \
+    return launch_wide<T, double>(Y, Lam_t, R, mask, b, C, nobs, ldR, 1, T_, \
+                                  N, k, (size_t)N * k, (cudaStream_t)stream);\
+  }                                                                          \
+  int tvl_obs_stats_gen_##SFX(const T* Y, const T* Lam_t, const T* R,        \
+                              const T* mask, T* b, T* C, double* nobs,       \
+                              double* ldR, int T_, int N, int k,             \
+                              void* stream) {                                \
+    return launch_gen<T, double>(Y, Lam_t, R, mask, b, C, nobs, ldR, 1, T_,  \
+                                 N, k, (size_t)N * k, (cudaStream_t)stream); \
   }
 #if DFM_WANT_F32
 DFM_OBS_ENTRIES(f32, float)

@@ -83,6 +83,15 @@
 // K1b-m-gen 160 MB at B = 2, T = 1,000), against 2 B T N (k + 3) flops,
 // ~0.021 ms at k = 50; each block re-reads its lane's Lam from L2.
 //
+// K1-tv-wide and K1-tv-gen (tvl_quad_wide, tvl_quad_gen): K1-tv's residual
+// pass (quad_R with an f64 sum, U from the residual) at 16 < k <= 32, on
+// quad_terms_kernel with a loading time stride of N k (the unrolled widths
+// K1-wide already instantiates), and at 32 < k <= 128 on K1-gen's kernel
+// with the same stride.  They replace dfm_tpu/models/tv_loadings.py:
+// factor_pass_tv's residual pass (lines 111-117) there.  Bound: bytes, Y
+// (and the mask) and the per-step loadings read once, 150 MB in f32 at S4
+// and k = 25 (~0.045 ms), 300 MB at k = 50.
+//
 // Bound on the H100: bytes.  The kernel must read Y (and the mask) once:
 // 20 MB unmasked, 40 MB masked in f32 at T = 500, N = 10,000 (K1b: 160 MB
 // at B = 8), against ~2(k+2) flops per entry.
@@ -206,13 +215,16 @@ static int launch_tvl(const T* Y, const T* Lam_t, const T* R,
   return (int)cudaGetLastError();
 }
 
+// K1-wide (static loadings) and K1-tv-wide (``tv``: per-step loadings, a
+// time stride of N K).
 template <typename T>
 static int launch_wide(const T* Y, const T* Lam, const T* R, const T* x_pred,
                        const T* mask, double* out, T* U, int T_, int N,
-                       int k, cudaStream_t stream) {
+                       int k, bool tv, cudaStream_t stream) {
   if (T_ <= 0) return (int)cudaGetLastError();
   DFM_DISPATCH_WIDE_K(k, quad_terms_kernel<T, K><<<T_, 256, 0, stream>>>(
-                             Y, Lam, R, x_pred, mask, out, U, N, 0))
+                             Y, Lam, R, x_pred, mask, out, U, N,
+                             tv ? (size_t)N * K : 0))
   return (int)cudaGetLastError();
 }
 
@@ -221,14 +233,17 @@ constexpr int kGenSlice = 32;     // series a staged slice, 8 threads each
 // quad_R (f64 sum) and, when U is given, U at any k <= DFM_GEN_KMAX: from
 // the residual (the lone K1-gen), or U = b_t - C_t x_t when ``bvec`` is
 // given (K1b-gen, K1b-m-gen: C_t at c_lane and c_tstride).  The mask may be
-// null (unmasked); blockIdx.y is the lane (B = 1 for the lone kernel).
+// null (unmasked); blockIdx.y is the lane (B = 1 for the lone kernel); Lam
+// advances lam_tstride values a step (N k for K1-tv-gen's per-step
+// loadings, else 0).
 template <typename T>
 __global__ void __launch_bounds__(256)
 quad_gen_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
                 const T* __restrict__ R, const T* __restrict__ x_pred,
                 const T* __restrict__ mask, const T* __restrict__ bvec,
                 const T* __restrict__ C, int c_lane, int c_tstride,
-                double* __restrict__ out, T* __restrict__ U, int N, int k) {
+                double* __restrict__ out, T* __restrict__ U, int N, int k,
+                size_t lam_tstride) {
   __shared__ T xs[DFM_GEN_KMAX];
   __shared__ T lam[kGenSlice][DFM_GEN_KMAX + 1];
   __shared__ T vr[kGenSlice];
@@ -239,7 +254,7 @@ quad_gen_kernel(const T* __restrict__ Y, const T* __restrict__ Lam,
   const size_t pb = blockIdx.y, tn = (size_t)T_ * N;
   Y += pb * tn;
   if (mask) mask += pb * tn;
-  Lam += pb * (size_t)N * k;
+  Lam += pb * (size_t)N * k + t * lam_tstride;
   R += pb * N;
   x_pred += pb * (size_t)T_ * k;
   out += pb * T_;
@@ -296,11 +311,12 @@ template <typename T>
 static int launch_gen(const T* Y, const T* Lam, const T* R, const T* x_pred,
                       const T* mask, const T* bvec, const T* C, int c_lane,
                       int c_tstride, double* out, T* U, int B, int T_, int N,
-                      int k, cudaStream_t stream) {
+                      int k, size_t lam_tstride, cudaStream_t stream) {
   if (k < 1 || k > DFM_GEN_KMAX) return (int)cudaErrorInvalidValue;
   if (B > 0 && T_ > 0)
     quad_gen_kernel<T><<<dim3(T_, B), 256, 0, stream>>>(
-        Y, Lam, R, x_pred, mask, bvec, C, c_lane, c_tstride, out, U, N, k);
+        Y, Lam, R, x_pred, mask, bvec, C, c_lane, c_tstride, out, U, N, k,
+        lam_tstride);
   return (int)cudaGetLastError();
 }
 
@@ -365,21 +381,21 @@ extern "C" {
   int quad_local_wide_##SFX(const T* Y, const T* Lam, const T* R,            \
                             const T* x_pred, const T* mask, double* out,     \
                             T* U, int T_, int N, int k, void* stream) {      \
-    return launch_wide<T>(Y, Lam, R, x_pred, mask, out, U, T_, N, k,         \
+    return launch_wide<T>(Y, Lam, R, x_pred, mask, out, U, T_, N, k, false,  \
                           (cudaStream_t)stream);                             \
   }                                                                          \
   int quad_local_gen_##SFX(const T* Y, const T* Lam, const T* R,             \
                            const T* x_pred, const T* mask, double* out,      \
                            T* U, int T_, int N, int k, void* stream) {       \
     return launch_gen<T>(Y, Lam, R, x_pred, mask, nullptr, nullptr, 0, 0,    \
-                         out, U, 1, T_, N, k, (cudaStream_t)stream);         \
+                         out, U, 1, T_, N, k, 0, (cudaStream_t)stream);      \
   }                                                                          \
   int batched_quad_gen_##SFX(const T* Y, const T* Lam, const T* R,           \
                              const T* x_pred, const T* bvec, const T* C,     \
                              double* out, T* U, int B, int T_, int N, int k, \
                              void* stream) {                                 \
     return launch_gen<T>(Y, Lam, R, x_pred, nullptr, bvec, C, k * k, 0, out, \
-                         U, B, T_, N, k, (cudaStream_t)stream);              \
+                         U, B, T_, N, k, 0, (cudaStream_t)stream);           \
   }                                                                          \
   int batched_quad_masked_gen_##SFX(const T* Y, const T* Lam, const T* R,    \
                                     const T* x_pred, const T* mask,          \
@@ -387,7 +403,21 @@ extern "C" {
                                     T* U, int B, int T_, int N, int k,       \
                                     void* stream) {                          \
     return launch_gen<T>(Y, Lam, R, x_pred, mask, bvec, C, T_ * k * k,       \
-                         k * k, out, U, B, T_, N, k, (cudaStream_t)stream);  \
+                         k * k, out, U, B, T_, N, k, 0,                      \
+                         (cudaStream_t)stream);                              \
+  }                                                                          \
+  int tvl_quad_wide_##SFX(const T* Y, const T* Lam_t, const T* R,            \
+                          const T* x_pred, const T* mask, double* out, T* U, \
+                          int T_, int N, int k, void* stream) {              \
+    return launch_wide<T>(Y, Lam_t, R, x_pred, mask, out, U, T_, N, k, true, \
+                          (cudaStream_t)stream);                             \
+  }                                                                          \
+  int tvl_quad_gen_##SFX(const T* Y, const T* Lam_t, const T* R,             \
+                         const T* x_pred, const T* mask, double* out, T* U,  \
+                         int T_, int N, int k, void* stream) {               \
+    return launch_gen<T>(Y, Lam_t, R, x_pred, mask, nullptr, nullptr, 0, 0,  \
+                         out, U, 1, T_, N, k, (size_t)N * k,                 \
+                         (cudaStream_t)stream);                              \
   }
 #if DFM_WANT_F32
 DFM_QUAD_ENTRIES(f32, float)

@@ -40,21 +40,28 @@ import torch
 __all__ = ["LAUNCHES", "KERNELS", "PROBES", "build", "build_log", "launch",
            "probe", "reset_launches", "check_k", "check_lowrank",
            "check_dense", "check_particles", "check_tensor", "WIDE", "GEN",
-           "DEVICE_LAUNCHES", "route", "gen_ctas", "GEN_MATS"]
+           "DEVICE_LAUNCHES", "route", "gen_ctas", "GEN_MATS", "QUERIES",
+           "query"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "dfm_tpu_torch"
+# nvcc's -O is the host compiler's level: the host side is the C entry
+# points, which only launch, so -O0 (device code is optimized regardless;
+# a build of every source took 221 s on an 8-core H100 host, 242-260 s at
+# -O3).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O0", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KMAX = 16   # DFM_KMAX in csrc/common.cuh
 # The wide kernels' range (DFM_WIDE_KMAX): K12, the lone masked K2, the K4
 # pair and K1 at state widths past KMAX (the mixed-frequency augmented
 # state, m = 25 at S3), K3, K5a and K5b past KMAX (the lone fits at 16 <
 # k <= 32), the batched twins K4b, K1b, K6b, K2b-m, K1b-m and K3b-m past
 # KMAX (fit_many, the k-grid, the rolling windows and fleet buckets at
-# 16 < k <= 32), K14 (pit_elements, pit_scan: one kernel each at every
-# k <= 32), and K15 (dense_filter) at every N and k.
+# 16 < k <= 32), K2-tv and K1-tv past KMAX (the time-varying-loadings
+# family at 16 < k <= 32; K11 takes its generic kernels there), K14
+# (pit_elements, pit_scan: one kernel each at every k <= 32), and K15
+# (dense_filter) at every N and k.
 WIDE_KMAX = 32
 # The generic kernels' range (DFM_GEN_KMAX): the lone K2 (masked), the K4
 # pair, K1 (quad_local and loglik_terms_local), K3 (masked), K5a and K5b
@@ -63,9 +70,11 @@ WIDE_KMAX = 32
 # fused fits and sessions past 32, the mixed-frequency seq and pit routes
 # at m > 32), and the batched twins K4b (both passes), K1b, K6b, K2b-m,
 # K1b-m and K3b-m there (fit_many, the k-grid, the rolling windows and
-# info and lowrank fleet buckets past 32).  The square-root engine's K8
-# (qr_elements_gen, qr_scan_gen) takes 10 < k <= GEN_KMAX.  Every other
-# kernel but the rank-r ones (below) stops at WIDE_KMAX or below.
+# info and lowrank fleet buckets past 32), and the time-varying-loadings
+# family's K2-tv, K1-tv, K11-fwd and K11-bwd there (K11's generic kernels
+# from KMAX up).  The square-root engine's K8 (qr_elements_gen,
+# qr_scan_gen) takes 10 < k <= GEN_KMAX.  Every other kernel but the
+# rank-r ones (below) stops at WIDE_KMAX or below.
 GEN_KMAX = 128
 # The rank-r kernels' range (DFM_LR_KMAX, DFM_LR_RMAX in lowrank_scan.cu).
 LOWRANK_KMAX, LOWRANK_RMAX = 100, 32
@@ -152,10 +161,18 @@ KERNELS = {
     "pit_scan_gen": ("pit_scan.cu", [_I] + [_P] * 7 + [_I] * 4),
     "qr_elements_gen": ("pit_elements.cu", [_I] * 2 + [_P] * 13 + [_I] * 4),
     "qr_scan_gen": ("pit_scan.cu", [_I] + [_P] * 7 + [_I] * 4),
+    "tvl_obs_stats_wide": ("obs_stats.cu", [_P] * 8 + [_I] * 3),
+    "tvl_obs_stats_gen": ("obs_stats.cu", [_P] * 8 + [_I] * 3),
+    "tvl_quad_wide": ("quad_local.cu", [_P] * 7 + [_I] * 3),
+    "tvl_quad_gen": ("quad_local.cu", [_P] * 7 + [_I] * 3),
+    "loading_filter_gen": ("tv_loadings.cu", [_P] * 8 + [_I] * 3),
+    "loading_smoother_gen": ("tv_loadings.cu", [_P] * 7 + [_I] * 4),
 }
 
 # The entry points with a wide kernel beside the k <= KMAX one, and its
-# name (each batched twin's wide kernel takes its C arguments).  Every
+# name (each batched twin's wide kernel takes its C arguments; so do K2-tv's
+# and K1-tv's).  K11's one kernel past KMAX (``loading_filter_gen``,
+# ``loading_smoother_gen``) serves this tier and the generic one.  Every
 # other kernel stops at KMAX.
 WIDE = {"obs_stats": "obs_stats_wide", "info_scan": "info_scan_wide",
         "rts_smoother": "rts_smoother_wide", "quad_local": "quad_local_wide",
@@ -167,7 +184,10 @@ WIDE = {"obs_stats": "obs_stats_wide", "info_scan": "info_scan_wide",
         "batched_quad_masked": "batched_quad_masked_wide",
         "batched_solve_rows": "batched_solve_rows_wide",
         "batched_obs_stats": "batched_obs_stats_wide",
-        "batched_mstep_rows": "batched_mstep_rows_wide"}
+        "batched_mstep_rows": "batched_mstep_rows_wide",
+        "tvl_obs_stats": "tvl_obs_stats_wide", "tvl_quad": "tvl_quad_wide",
+        "loading_filter": "loading_filter_gen",
+        "loading_smoother": "loading_smoother_gen"}
 
 # The entry points with a generic kernel for WIDE_KMAX < k <= GEN_KMAX, and
 # its name.  obs_stats, quad_local and mstep_rows, affine_scan and the
@@ -177,7 +197,10 @@ WIDE = {"obs_stats": "obs_stats_wide", "info_scan": "info_scan_wide",
 # one, batched_solve_rows a (B, k, k) one (the lanes' factors) and
 # ss_cov_path a (5, k, k) one; pit_elements and pit_scan take a workspace
 # of GEN_MATS k x k matrices a CTA and, last, the CTA count of their
-# persistent grids (``gen_ctas``).
+# persistent grids (``gen_ctas``).  tvl_obs_stats and tvl_quad take their
+# k <= KMAX kernel's C arguments; loading_smoother_gen takes a workspace
+# (null where a series' matrices fit in shared memory) and, last, its
+# slot count (models/tv_loadings.py).
 GEN = {"obs_stats": "obs_stats_gen", "info_scan": "info_scan_gen",
        "rts_smoother": "rts_smoother_gen", "quad_local": "quad_local_gen",
        "mstep_rows": "mstep_rows_gen",
@@ -188,7 +211,10 @@ GEN = {"obs_stats": "obs_stats_gen", "info_scan": "info_scan_gen",
        "batched_quad_masked": "batched_quad_masked_gen",
        "batched_solve_rows": "batched_solve_rows_gen",
        "batched_obs_stats": "batched_obs_stats_gen",
-       "batched_mstep_rows": "batched_mstep_rows_gen"}
+       "batched_mstep_rows": "batched_mstep_rows_gen",
+       "tvl_obs_stats": "tvl_obs_stats_gen", "tvl_quad": "tvl_quad_gen",
+       "loading_filter": "loading_filter_gen",
+       "loading_smoother": "loading_smoother_gen"}
 # k x k workspace matrices a CTA of the generic kernels on persistent
 # grids: pit_elements_gen and pit_scan_gen (the last template argument of
 # PegCta in pit_elements.cu, of GenCta in pit_scan.cu), qr_elements_gen and
@@ -211,6 +237,14 @@ DEVICE_LAUNCHES = {"batched_solve_rows_gen": 2, "ss_cov_path_gen": 3}
 # Measurement kernels off the model path, in the same form.
 PROBES = {
     "step_chain": ("step_chain.cu", [_P, _P] + [_I] * 3),
+}
+
+# Host-side sizing rules a wrapper asks before it allocates a kernel's
+# buffers, kept beside the launcher they size: name -> (source, C argument
+# types; no stream).  Each exports ``<name>_f32`` and ``<name>_f64`` and
+# returns an int.
+QUERIES = {
+    "loading_smoother_gen_slots": ("tv_loadings.cu", [_I] * 3),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -310,6 +344,11 @@ def _lib(source: str, suffix: str):
             if src == source:
                 fn = getattr(lib, f"{name}_{suffix}")
                 fn.argtypes = argtypes + [_P]
+                fn.restype = ctypes.c_int
+        for name, (src, argtypes) in QUERIES.items():
+            if src == source:
+                fn = getattr(lib, f"{name}_{suffix}")
+                fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
         _LIBS[(source, suffix)] = lib
     return lib
@@ -429,6 +468,15 @@ def launch(name: str, dtype: torch.dtype, *args) -> None:
     """
     _call(KERNELS, name, dtype, args)
     LAUNCHES[name] += DEVICE_LAUNCHES.get(name, 1)
+
+
+def query(name: str, dtype: torch.dtype, *args) -> int:
+    """The int that sizing rule ``name`` (``QUERIES``) in ``dtype``
+    returns for ``args``; nothing is launched or counted."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name}: no rule for dtype {dtype}")
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    return getattr(_lib(QUERIES[name][0], suffix), f"{name}_{suffix}")(*args)
 
 
 def probe(name: str, dtype: torch.dtype, *args) -> None:

@@ -14,7 +14,8 @@ two exact conditional smoothers (a dual-Kalman scheme):
           the per-step C_t -> K1-tv (``quad_local_tv``) -> the f64 loglik ->
           K4-backward
   B-step  loadings | factors: K11-fwd (``loading_filter``) -> K11-bwd
-          (``loading_smoother``), one thread a series (csrc/tv_loadings.cu)
+          (``loading_smoother``) (csrc/tv_loadings.cu: to k = 16 a thread
+          a series, past it a block a series)
   M-bits  A, Q from the factor moments; R from the residuals and the
           loading-uncertainty smear; tau2 from the smoothed increments.
 
@@ -37,8 +38,8 @@ from ..backends.cpu_ref import pca_init
 from ..estim import fused as _fused
 from ..estim.em import moments, noise_floor_for, run_chunked
 from ..ops.linalg import (UNROLL_K_MAX, chol_solve, chol_solve_unrolled,
-                          chol_unrolled, matmul_vpu, matvec_vpu,
-                          psd_cholesky, solve_psd, sym)
+                          chol_unrolled, matvec_vpu, psd_cholesky,
+                          solve_psd, sym)
 from ..ops.precision import (accum_dtype, default_compute_dtype,
                              highest_precision)
 from ..robust.health import health_from_trace
@@ -102,10 +103,27 @@ class TVLParams(NamedTuple):
 # A-step: factor filter/smoother with time-varying loadings (info form)
 # ---------------------------------------------------------------------------
 
-def _checks(name, k, specs, dt, dev):
-    kernels.check_k(name, k)
+def _kernel(name, k, specs, dt, dev) -> str:
+    """The kernel entry point ``name`` launches at k (``kernels.route``:
+    today's kernel to KMAX, the wide one to WIDE_KMAX, the generic one to
+    GEN_KMAX; past that a raise naming the ROADMAP row), after the tensor
+    checks: nothing is allocated or launched before either."""
+    kernel = kernels.route(name, k)
     for arg, x, shape in specs:
         kernels.check_tensor(arg, x, shape, dt, dev)
+    return kernel
+
+
+def _smoother_work(k: int, N: int, dt, dev):
+    """(workspace or None, slots) of ``loading_smoother_gen``: its C rule
+    (``kernels.query``) says whether a series' four k x k matrices fit a
+    block's shared memory (slots 0) or take a global workspace of slots
+    series, each (4, k, k | 1), for a persistent grid over the series."""
+    slots = kernels.query("loading_smoother_gen_slots", dt, k, N,
+                          kernels.gen_ctas(dev, N))
+    if not slots:
+        return None, 0
+    return torch.empty((slots, 4, k, k | 1), dtype=dt, device=dev), slots
 
 
 def obs_stats_tv_plain(Y, Lam_t, R, mask=None) -> ObsStats:
@@ -133,7 +151,8 @@ def obs_stats_tv_plain(Y, Lam_t, R, mask=None) -> ObsStats:
 
 def obs_stats_tv(Y, Lam_t, R, mask=None) -> ObsStats:
     """Info-form observation statistics with per-step loadings: kernel
-    K2-tv (``csrc/obs_stats.cu``) for CUDA tensors, masked or not."""
+    K2-tv (``csrc/obs_stats.cu``) for CUDA tensors, masked or not (its wide
+    kernel at 16 < k <= 32, its generic one at 32 < k <= 128)."""
     if Y.device.type == "cpu":
         return obs_stats_tv_plain(Y, Lam_t, R, mask)
     T, N = Y.shape
@@ -142,14 +161,13 @@ def obs_stats_tv(Y, Lam_t, R, mask=None) -> ObsStats:
     specs = [("Y", Y, (T, N)), ("Lam_t", Lam_t, (T, N, k)), ("R", R, (N,))]
     if mask is not None:
         specs.append(("mask", mask, (T, N)))
-    _checks("tvl_obs_stats", k, specs, dt, dev)
+    kernel = _kernel("tvl_obs_stats", k, specs, dt, dev)
     acc = accum_dtype()
     b = torch.empty((T, k), dtype=dt, device=dev)
     C = torch.empty((T, k, k), dtype=dt, device=dev)
     n = torch.empty((T,), dtype=acc, device=dev)
     ldR = torch.empty((T,), dtype=acc, device=dev)
-    kernels.launch("tvl_obs_stats", dt, Y, Lam_t, R, mask, b, C, n, ldR, T,
-                   N, k)
+    kernels.launch(kernel, dt, Y, Lam_t, R, mask, b, C, n, ldR, T, N, k)
     return ObsStats(b, C, n, ldR)
 
 
@@ -167,7 +185,8 @@ def quad_local_tv_plain(Y, Lam_t, R, x_pred, mask=None):
 
 def quad_local_tv(Y, Lam_t, R, x_pred, mask=None):
     """The residual pass of the A-step: kernel K1-tv
-    (``csrc/quad_local.cu``) for CUDA tensors."""
+    (``csrc/quad_local.cu``) for CUDA tensors (its wide kernel at 16 < k
+    <= 32, its generic one at 32 < k <= 128)."""
     if Y.device.type == "cpu":
         return quad_local_tv_plain(Y, Lam_t, R, x_pred, mask)
     T, N = Y.shape
@@ -177,11 +196,10 @@ def quad_local_tv(Y, Lam_t, R, x_pred, mask=None):
              ("x_pred", x_pred, (T, k))]
     if mask is not None:
         specs.append(("mask", mask, (T, N)))
-    _checks("tvl_quad", k, specs, dt, dev)
+    kernel = _kernel("tvl_quad", k, specs, dt, dev)
     quad = torch.empty((T,), dtype=torch.float64, device=dev)
     U = torch.empty((T, k), dtype=dt, device=dev)
-    kernels.launch("tvl_quad", dt, Y, Lam_t, R, x_pred, mask, quad, U, T, N,
-                   k)
+    kernels.launch(kernel, dt, Y, Lam_t, R, x_pred, mask, quad, U, T, N, k)
     return quad, U
 
 
@@ -249,7 +267,7 @@ def loading_filter_plain(Y, F, Lam0, tau2, R, mask=None):
 
 def loading_filter(Y, F, Lam0, tau2, R, mask=None):
     """The forward loading scan: kernel K11-fwd (``csrc/tv_loadings.cu``)
-    for CUDA tensors."""
+    for CUDA tensors (``loading_filter_gen`` at 16 < k <= 128)."""
     if Y.device.type == "cpu":
         return loading_filter_plain(Y, F, Lam0, tau2, R, mask)
     T, N = Y.shape
@@ -259,11 +277,11 @@ def loading_filter(Y, F, Lam0, tau2, R, mask=None):
              ("tau2", tau2, (N,)), ("R", R, (N,))]
     if mask is not None:
         specs.append(("mask", mask, (T, N)))
-    _checks("loading_filter", k, specs, dt, dev)
+    kernel = _kernel("loading_filter", k, specs, dt, dev)
     lam_f = torch.empty((T, N, k), dtype=dt, device=dev)
     P_f = torch.empty((T, N, k, k), dtype=dt, device=dev)
-    kernels.launch("loading_filter", dt, Y, mask, F, Lam0, tau2, R, lam_f,
-                   P_f, T, N, k)
+    kernels.launch(kernel, dt, Y, mask, F, Lam0, tau2, R, lam_f, P_f, T, N,
+                   k)
     return lam_f, P_f
 
 
@@ -271,7 +289,9 @@ def loading_smoother_plain(lam_f, P_f, tau2):
     """Plain-torch reverse scan: (lam_sm (T, N, k), P_sm (T, N, k, k),
     incr (N,)), incr the summed E|lam_t+1 - lam_t|^2.  The J' solve takes
     the JAX package's branches: unrolled Cholesky for k <= UNROLL_K_MAX,
-    the batched factorization above."""
+    the batched factorization above; the k x k products are batched
+    matmuls (the JAX function's broadcast multiply-and-sum forms an (N, k,
+    k, k) temporary a product)."""
     T, N, k = lam_f.shape
     I_k = torch.eye(k, dtype=lam_f.dtype, device=lam_f.device)
     small_k = k <= UNROLL_K_MAX
@@ -289,8 +309,8 @@ def loading_smoother_plain(lam_f, P_f, tau2):
             JT = chol_solve(psd_cholesky(P_p, jitter=0.0), Pfm)
         J = JT.transpose(-1, -2)
         lam_s = lf + matvec_vpu(J, lam_n - lf)
-        P_s = sym(Pfm + matmul_vpu(matmul_vpu(J, P_n - P_p), JT))
-        P_lag = matmul_vpu(P_n, JT)
+        P_s = sym(Pfm + (J @ (P_n - P_p)) @ JT)
+        P_lag = P_n @ JT
         d = lam_n - lam_s
         incr = incr + ((d * d).sum(-1)
                        + torch.diagonal(P_n, dim1=-2, dim2=-1).sum(-1)
@@ -304,19 +324,24 @@ def loading_smoother_plain(lam_f, P_f, tau2):
 
 def loading_smoother(lam_f, P_f, tau2):
     """The reverse loading scan: kernel K11-bwd (``csrc/tv_loadings.cu``)
-    for CUDA tensors."""
+    for CUDA tensors (``loading_smoother_gen`` at 16 < k <= 128)."""
     if lam_f.device.type == "cpu":
         return loading_smoother_plain(lam_f, P_f, tau2)
     T, N, k = lam_f.shape
     dt, dev = lam_f.dtype, lam_f.device
-    _checks("loading_smoother", k,
-            [("lam_f", lam_f, (T, N, k)), ("P_f", P_f, (T, N, k, k)),
-             ("tau2", tau2, (N,))], dt, dev)
+    kernel = _kernel("loading_smoother", k,
+                     [("lam_f", lam_f, (T, N, k)), ("P_f", P_f, (T, N, k, k)),
+                      ("tau2", tau2, (N,))], dt, dev)
     lam_sm = torch.empty((T, N, k), dtype=dt, device=dev)
     P_sm = torch.empty((T, N, k, k), dtype=dt, device=dev)
     incr = torch.empty((N,), dtype=dt, device=dev)
-    kernels.launch("loading_smoother", dt, lam_f, P_f, tau2, lam_sm, P_sm,
-                   incr, T, N, k)
+    if kernel == "loading_smoother":
+        kernels.launch(kernel, dt, lam_f, P_f, tau2, lam_sm, P_sm, incr, T,
+                       N, k)
+    else:
+        work, slots = _smoother_work(k, N, dt, dev)
+        kernels.launch(kernel, dt, lam_f, P_f, tau2, lam_sm, P_sm, incr,
+                       work, T, N, k, slots)
     return lam_sm, P_sm, incr
 
 

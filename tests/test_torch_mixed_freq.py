@@ -354,7 +354,7 @@ def test_past_the_wide_range_raises_naming_the_roadmap_row():
     # Every other kernel stops at 16, but K3 and K5a, whose wide kernels
     # take 16 < k <= 32 and generic kernels 32 < k <= 128: both stop at
     # 129.
-    for name in ("batched_info_scan", "tvl_quad", "loading_filter"):
+    for name in ("batched_info_scan", "sv_rbpf", "sv_ffbs"):
         with pytest.raises(NotImplementedError, match="Generic k"):
             kernels.check_k(name, 17)
     for name, kmax in (("mstep_rows", kernels.GEN_KMAX),

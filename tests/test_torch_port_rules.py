@@ -209,5 +209,9 @@ def test_cpu_path_launches_no_kernel():
                                      "batched_mstep_rows_gen",
                                      "ss_cov_path_gen", "affine_scan_gen",
                                      "pit_elements_gen", "pit_scan_gen",
-                                     "qr_elements_gen", "qr_scan_gen"}
+                                     "qr_elements_gen", "qr_scan_gen",
+                                     "tvl_obs_stats_wide",
+                                     "tvl_obs_stats_gen", "tvl_quad_wide",
+                                     "tvl_quad_gen", "loading_filter_gen",
+                                     "loading_smoother_gen"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())
