@@ -4,17 +4,23 @@
     python3 chip_smoke.py [--seed 0] [--phases headline,session,...]
 
 ``--phases`` takes a comma list of phase groups (all by default, the
-acceptance run): headline (phases 2-5), session (6-8), batched (9-13),
-fleet (14-18), lowrank (19-23), tvl (24-26), mf (27-30), sv (31-33), pit
-(34-36), dense (37-39), wide (40-43), bwide (44-49), kbig (50-57), bgen
-(58-65), sgen (66-72), qgen (73-82), tgen (83-87).  The setup, the build
-and the final lines always run.
+acceptance run), which run in this order: tvl (phases 24-26), tgen
+(83-87), sv (31-33), vgen (88-92), headline (2-5), session (6-8), batched
+(9-13), fleet (14-18), lowrank (19-23), mf (27-30), pit (34-36), dense
+(37-39), wide (40-43), bwide (44-49), kbig (50-57), bgen (58-65), sgen
+(66-72), qgen (73-82).  The setup, the build and the final lines always
+run.
 
 Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. setup: the card's name and power limit (nvidia-smi), then the build of
-   every CUDA kernel from ``dfm_tpu_torch/csrc`` (one nvcc per source, in
-   parallel), with its seconds.
+   every CUDA kernel from ``dfm_tpu_torch/csrc`` (one nvcc per source and
+   dtype, one fewer at a time than the host's cores), started in the
+   background with the first groups' sources first (``BUILD_FIRST``): the
+   groups run beside it, a kernel's first launch waiting for its own
+   library, and after the last group the script waits for every library
+   (a failed compile raises) and prints each source's build lines and the
+   build's seconds.
 2. kernels: every kernel of the three fit paths at the headline shape
    (T = 500, N = 10,000, k = 10), in f64 and f32, against its plain-torch
    version on the same inputs on the card, within a stated relative
@@ -228,8 +234,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    residual stage's two ``torch.matmul`` products (T x one step's) and the
    bound, K10-fwd beside K4's latency floor at k = 5; then the same checks
    at (k, M) = (1, 64), (2, 64), (8, 64), (9, 64), (16, 64), (5, 1), (5,
-   512), (5, 1,024) on 60 x 300 panels, and k = 17 and M = 1,025 must
-   raise NotImplementedError.
+   512), (5, 1,024) on 60 x 300 panels, and k = 129 must raise
+   NotImplementedError naming the ROADMAP row before any launch (k = 17
+   and M = 1,025 run on the generic kernels, phases 88-92).
 32. SV fit (run before 31, which takes its params): ``fit(SVSpec(
    n_factors=5, n_particles=256), Y, max_iters=1)`` at S5, f32 (the
    pre-fit ``auto`` -> ``ss``, one particle-EM iteration and the final
@@ -516,10 +523,35 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 87. TVL contract at S4 and k = 25: the f32 state after 2 rounds
    re-evaluated in f64 against the f64 state's loglik, < 1e-5 relative.
 
+88. SV fits past 16 and past 1,024 particles: phase 32 at k = 25 and 50
+   (S5's panel simulated at that k, M = 256) and on S5 at M = 2,048: one
+   K10-fwd-gen and one K10-ffbs-gen (``csrc/sv_gen.cu``) and no other
+   kernel an E-step, one read an E-step + 1, the fit wall; at k = 25 the
+   pass breakdown by the generic kernel's five stages.
+89. SV kernels past 16: K10-fwd-gen (residual form) and K10-ffbs-gen
+   against their twins on those three panels at each fit's params, f64
+   and f32 on the first 250 steps (phase 31's rules, bit for bit on a
+   rerun); K10-fwd-gen timed in f32 on that window (warm and cold, beside
+   the twin's time there, the yardstick and the bound) and over all 1,000
+   steps, K10-ffbs-gen over all 1,000 beside its twin; the expanded form
+   at k = 25 on the first 100 steps.
+90. SV sweep: the generic kernels at k = 1, 16, 17, 24, 32, 33, 64, 100,
+   128 (M = 64) and (k, M) = (5, 1,025), (17, 1,025), (5, 4,096), (50, 1)
+   on 60 x 300 panels, f64 and f32, both forms and FFBS; k = 129 must
+   raise NotImplementedError naming the ROADMAP row before any launch.
+91. SV reference: ``sv_fit`` card f64 against CPU f64 on the same draws
+   within 1e-9 at 60 x 80, k = 20 and 60 x 90, k = 40 (M = 64) and 120 x
+   40, k = 3 with M = 1,100.
+92. SV contract at k = 25 on S5's panel: phase 33's sigma_h = 0 limit
+   (1e-9 in f64, 1e-5 in f32), also against the Kalman filter of Q +
+   1e-6 I (the reference's jitter on P_p makes that one exact).
+
 Output: one JSON line per kernel and dtype, one per fit, contract check,
 ring case, session, batched, fleet, TVL, MF, SV, K14, dense, wide, kbig,
-bgen, sgen, qgen and tgen phase, the seconds of each phase (``step_s``), of each phase
-group as it ends and of the script, then the {"kernels": [...]}
+bgen, sgen, qgen, tgen and vgen phase, the seconds of each phase
+(``step_s``), of each phase group as it ends (with the libraries still
+building as it began) and of the script, the build lines, then the
+{"kernels": [...]}
 summary, the card line and, last, {"ok": true, "device": {...}}.
 """
 
@@ -778,7 +810,9 @@ REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "tvl_quad_wide": "dfm_tpu/models/tv_loadings.py:111",
             "tvl_quad_gen": "dfm_tpu/models/tv_loadings.py:111",
             "loading_filter_gen": "dfm_tpu/models/tv_loadings.py:148",
-            "loading_smoother_gen": "dfm_tpu/models/tv_loadings.py:179"}
+            "loading_smoother_gen": "dfm_tpu/models/tv_loadings.py:179",
+            "sv_rbpf_gen": "dfm_tpu/models/sv.py:103",
+            "sv_ffbs_gen": "dfm_tpu/models/sv.py:297"}
 # The variant of each kernel whose f32 record goes into the summary line.
 SUMMARY_VARIANT = {"quad_local": "masked", "obs_stats": "masked",
                    "mstep_rows": "masked", "info_scan": "masked",
@@ -798,6 +832,12 @@ CHAIN_CONSTS = [0.5, 1.0, 1.0, 3.0, 2.0]
 
 
 def emit(obj) -> None:
+    """Print one record.  While the background build runs, a dict record
+    carries ``libraries_building`` (the libraries still queued or
+    compiling): its host-clock numbers were taken beside nvcc."""
+    n = kernels.build_pending()
+    if n and isinstance(obj, dict) and "libraries_building" not in obj:
+        obj = {**obj, "libraries_building": n}
     print(json.dumps(obj), flush=True)
 
 
@@ -1460,7 +1500,8 @@ OWN_FIT = {"quad_local": "masked", "obs_stats": "masked",
            "loading_filter_gen": "tvl k25 masked",
            "loading_smoother_gen": "tvl k25 masked",
            "tvl_obs_stats_gen": "tvl k50 masked",
-           "tvl_quad_gen": "tvl k50 masked"}
+           "tvl_quad_gen": "tvl k50 masked",
+           "sv_rbpf_gen": "sv k25 fit", "sv_ffbs_gen": "sv k25 fit"}
 
 
 def fit_phase(seed: int) -> dict:
@@ -4684,8 +4725,10 @@ SV_WEIGHT_TOL = {torch.float64: 1e-8, torch.float32: 5e-2}
 SV_WEIGHTED = ("f_mean", "h_mean", "ess", "logw_hist")
 
 
+@functools.lru_cache(maxsize=None)
 def sv_panel(seed: int, T_: int = SV_T, N_: int = SV_N, K_: int = SV_K):
-    """``simulate_sv`` (walk scale 0.05): (Y, the DGP's params)."""
+    """``simulate_sv`` (walk scale 0.05): (Y, the DGP's params), made once
+    a seed and shape (callers only read them)."""
     Y, _, _, p = dgp.simulate_sv(N_, T_, K_, np.random.default_rng(seed))
     return Y, p
 
@@ -4844,82 +4887,123 @@ def ffbs_compare(Hk, Hp, h_hist, logw, sigma, bd, dtype, label: str) -> dict:
     return out
 
 
+def k10_flops(name: str, T_: int, N_: int, M_: int, k: int,
+              residual: bool) -> float:
+    """Operations of a K10-fwd pass.  ``sv_rbpf`` (csrc/sv_rbpf.cu):
+    15 k^3 + 8 k^2 a particle and step.  K10-fwd-gen (csrc/sv_gen.cu), what
+    the step needs, each symmetric result counted over one triangle: the
+    prediction 23/3 k^3 + 10 k^2 (A P 2 k^3 and the lower half of (A P) A'
+    k^3, two Cholesky factors 2/3 k^3, C Lp over Lp's triangle k^3 and the
+    lower half of Lp' (C Lp) k^3 / 3, the two triangular solves of G^{-1}
+    Lp' 2 k^3, the lower half of Lp Xs 2/3 k^3), the update 2 k^2 + 5 k
+    (expanded 4 k^2 + 9 k), the weighted means 4 k.  Both: the residual
+    stage's (4 k + 3) N."""
+    if name == "sv_rbpf":
+        per = 15 * k ** 3 + 8 * k * k
+    else:
+        per = (23 / 3 * k ** 3 + 10 * k * k + 4 * k
+               + (2 * k * k + 5 * k if residual else 4 * k * k + 9 * k))
+    return T_ * M_ * (per + ((4 * k + 3) * N_ if residual else 0))
+
+
+# The wrapper that launches each K10 kernel at any (k, M) it takes: the
+# routing entries for K10's own kernels (k <= 16, M <= 1,024), the generic
+# entries, which launch the generic kernels at every (k, M), for theirs.
+SV_ENTRY = {"sv_rbpf": sv.rbpf_scan, "sv_ffbs": sv.ffbs,
+            "sv_rbpf_gen": sv.rbpf_scan_gen, "sv_ffbs_gen": sv.ffbs_gen}
+
+
+def sv_rbpf_timing(name, args, fd, spec, residual: bool, kern, dtype) -> dict:
+    """K10-fwd (kernel ``name``) on these inputs, warm and cold L2, beside T
+    x the residual's two ``matmul``s a step (the yardstick), the bound and
+    K4's latency floor at (T, k)."""
+    run = lambda: sv_run(SV_ENTRY[name], args, fd, spec, residual, False)
+    T_, N_ = args[0].shape
+    M_, k = fd.h0.shape
+    ins = (args[0] if residual else args[4], *args[1:4], *args[5:], *fd)
+    bms, bby = bound(nbytes_of(ins) + nbytes_of(kern[:5]),
+                     k10_flops(name, T_, N_, M_, k, residual), dtype)
+    xp = fd.h0 @ args[5].T                                   # (M, k)
+    lib = (lambda: ((args[0][0][None] - xp @ args[1].T) / args[2][None])
+           @ args[1])
+    return {"kernel_ms": cuda_ms(run),
+            "kernel_ms_cold_l2": cuda_ms_cold(run, reps=3),
+            "library_ms": (T_ * cuda_ms(lib) if residual else None),
+            "bound_ms": bms, "bound_by": bby,
+            "latency_ms": latency_ms("info_scan", dtype, k, T_)}
+
+
+def sv_ffbs_timing(name, hist, sigma, bd, dtype) -> dict:
+    """K10-ffbs (kernel ``name``) on a filter history, warm and cold L2,
+    beside its plain twin and its bound (the history, weights and Gumbels
+    read once)."""
+    run = lambda: SV_ENTRY[name](hist[5], hist[6], sigma, bd)
+    T_, M_, k = hist[5].shape
+    S_ = bd.g_last.shape[0]
+    bms, bby = bound(nbytes_of((hist[5], hist[6], sigma, *bd, run())),
+                     (T_ - 1) * S_ * M_ * (3 * k + 3), dtype)
+    return {"kernel_ms": cuda_ms(run),
+            "kernel_ms_cold_l2": cuda_ms_cold(run, reps=3),
+            "plain_ms": cuda_ms(lambda: sv.ffbs_plain(hist[5], hist[6],
+                                                      sigma, bd)),
+            "library_ms": None, "latency_ms": None, "bound_ms": bms,
+            "bound_by": bby}
+
+
 def sv_kernel_cases(Yz, p, sigma_h, h_center, spec, draws, dtype,
                     label: str, timed: bool,
-                    forms=("residual", "expanded")) -> list:
+                    forms=("residual", "expanded"),
+                    generic: bool = False) -> list:
     """K10-fwd (in each of ``forms``: residual, expanded) and, after the
-    residual form, K10-ffbs on one panel in ``dtype``: each against its
-    twin, the kernel run twice (bit for bit), and, when ``timed``, timed
-    warm and cold beside the twin, the yardstick and the bound.  Returns
-    one record each."""
+    residual form, K10-ffbs on one panel in ``dtype``, under the kernel
+    names ``kernels.route_sv`` gives (the generic kernels, through their
+    own entries, if ``generic``): each against its twin, the kernel run
+    twice (bit for bit), the twin's comparison call timed
+    (``plain_ms``), and, when ``timed``, the kernels timed warm and cold
+    beside the yardstick and the bound.  Returns one record each."""
     args, fd, bd = sv_args(Yz, p, sigma_h, h_center, draws, dtype)
     T_, N_ = args[0].shape
     M_, k = fd.h0.shape
     S_ = bd.g_last.shape[0]
     thr = spec.ess_frac * M_
+    fwd, bwd = (kernels.GEN[n] if generic else kernels.route_sv(n, k, M_)
+                for n in ("sv_rbpf", "sv_ffbs"))
     recs = []
     with highest_precision():
         for form in forms:
             residual = form == "residual"
-            kern = sv_run(sv.rbpf_scan, args, fd, spec, residual)
-            again = sv_run(sv.rbpf_scan, args, fd, spec, residual)
+            kern = sv_run(SV_ENTRY[fwd], args, fd, spec, residual)
+            again = sv_run(SV_ENTRY[fwd], args, fd, spec, residual)
             plain_ms, plain = cuda_ms_once(lambda: sv_run(
                 sv.rbpf_scan_plain, args, fd, spec, residual))
             same = all(torch.equal(a, b) for a, b in zip(kern, again)
                        if a is not None)
             if not same:
-                raise AssertionError(f"sv_rbpf {label} {form}: two runs "
+                raise AssertionError(f"{fwd} {label} {form}: two runs "
                                      "on the same draws differ")
-            rec = {"name": "sv_rbpf", "variant": f"{label} {form}",
+            rec = {"name": fwd, "variant": f"{label} {form}",
                    "dtype": str(dtype)[6:], "T": T_, "N": N_, "k": k,
-                   "M": M_, "bitwise_rerun": same,
+                   "M": M_, "bitwise_rerun": same, "plain_ms": plain_ms,
                    **sv_compare(kern, plain, dtype, thr, f"{label} {form}")}
             if timed:
-                run = lambda: sv_run(sv.rbpf_scan, args, fd, spec, residual,
-                                     False)
-                ins = (args[0] if residual else args[4], *args[1:4],
-                       *args[5:], *fd)
-                outs = (kern[0], kern[1], kern[2], kern[3], kern[4])
-                flops = T_ * M_ * (15 * k ** 3 + 8 * k * k)
-                if residual:
-                    flops += T_ * (4 * M_ * N_ * k + 3 * M_ * N_)
-                bms, bby = bound(nbytes_of(ins) + nbytes_of(outs), flops,
-                                 dtype)
-                xp = fd.h0 @ args[5].T                           # (M, k)
-                lib = (lambda: ((args[0][0][None] - xp @ args[1].T)
-                                / args[2][None]) @ args[1])
-                rec.update({
-                    "kernel_ms": cuda_ms(run),
-                    "kernel_ms_cold_l2": cuda_ms_cold(run, reps=3),
-                    "plain_ms": plain_ms,
-                    "library_ms": (T_ * cuda_ms(lib) if residual else None),
-                    "bound_ms": bms, "bound_by": bby,
-                    "latency_ms": latency_ms("info_scan", dtype, k, T_)})
+                rec.update(sv_rbpf_timing(fwd, args, fd, spec, residual,
+                                          kern, dtype))
             recs.append(rec)
             if residual:
                 hist = kern
         if "residual" not in forms:
             return recs
-        Hk = sv.ffbs(hist[5], hist[6], args[9], bd)
+        Hk = SV_ENTRY[bwd](hist[5], hist[6], args[9], bd)
         Hp = sv.ffbs_plain(hist[5], hist[6], args[9], bd)
         torch.cuda.synchronize()
-        if not torch.equal(Hk, sv.ffbs(hist[5], hist[6], args[9], bd)):
-            raise AssertionError(f"sv_ffbs {label}: two runs differ")
-        rec = {"name": "sv_ffbs", "variant": label,
+        if not torch.equal(Hk, SV_ENTRY[bwd](hist[5], hist[6], args[9], bd)):
+            raise AssertionError(f"{bwd} {label}: two runs differ")
+        rec = {"name": bwd, "variant": label,
                "dtype": str(dtype)[6:], "T": T_, "M": M_, "S": S_, "k": k,
                **ffbs_compare(Hk, Hp, hist[5], hist[6], args[9], bd, dtype,
                               label)}
         if timed:
-            run = lambda: sv.ffbs(hist[5], hist[6], args[9], bd)
-            rec.update({
-                "kernel_ms": cuda_ms(run),
-                "kernel_ms_cold_l2": cuda_ms_cold(run, reps=3),
-                "plain_ms": cuda_ms(lambda: sv.ffbs_plain(
-                    hist[5], hist[6], args[9], bd)),
-                "library_ms": None, "latency_ms": None})
-            rec["bound_ms"], rec["bound_by"] = bound(
-                nbytes_of((hist[5], hist[6], args[9], *bd, Hk)),
-                (T_ - 1) * S_ * M_ * (3 * k + 3), dtype)
+            rec.update(sv_ffbs_timing(bwd, hist, args[9], bd, dtype))
         recs.append(rec)
     return recs
 
@@ -4931,7 +5015,8 @@ def sv_kernel_phase(seed: int, fit) -> dict:
     (``sv_compare``, ``ffbs_compare``): the residual form (the fit's) and
     FFBS over all 1,000 steps, timed in f32, the path's dtype; the
     expanded form (``quad_form="expanded"``) on the first SV_EXPANDED_T
-    steps, untimed.  Returns the f32 residual and FFBS records by
+    steps, untimed; then the generic kernels timed on the same f32 inputs
+    (``sv_gen_beside``).  Returns the f32 residual and FFBS records by
     name."""
     Y, _ = sv_panel(seed + 1101)
     Yz = fit.standardizer.transform(Y)
@@ -4954,13 +5039,42 @@ def sv_kernel_phase(seed: int, fit) -> dict:
                                                              "S5"):
                 summary[rec["name"]] = rec
         torch.cuda.empty_cache()
+    emit(sv_gen_beside(Yz, fit, spec, draws))
     return summary
+
+
+def sv_gen_beside(Yz, fit, spec, draws) -> dict:
+    """The generic kernels at S5's own (k, M) in f32, through their own
+    entries, on the inputs and draws ``sv_kernel_phase`` times K10's own
+    kernels on: K10-fwd-gen (residual form) and K10-ffbs-gen timed as
+    there, each beside the routed kernel's time on the same inputs in this
+    call (``route_sv``'s choice below k = 17 and M = 1,025)."""
+    args, fd, bd = sv_args(Yz, fit.params, fit.sigma_h, fit.h_center, draws,
+                           torch.float32)
+    T_, N_ = args[0].shape
+    M_, k = fd.h0.shape
+    with highest_precision():
+        hist = sv_run(sv.rbpf_scan_gen, args, fd, spec, True)
+        fwd = sv_rbpf_timing("sv_rbpf_gen", args, fd, spec, True, hist,
+                             torch.float32)
+        bwd = sv_ffbs_timing("sv_ffbs_gen", hist, args[9], bd,
+                             torch.float32)
+        own = sv_run(sv.rbpf_scan, args, fd, spec, True)
+        own_fwd = cuda_ms(lambda: sv_run(sv.rbpf_scan, args, fd, spec, True,
+                                         False))
+        own_bwd = cuda_ms(lambda: sv.ffbs(own[5], own[6], args[9], bd))
+    del hist, own
+    return {"sv_gen_beside": "S5", "dtype": "float32", "T": T_, "N": N_,
+            "k": k, "M": M_, "sv_rbpf_gen": fwd, "sv_ffbs_gen": bwd,
+            "sv_rbpf_ms": own_fwd, "sv_ffbs_ms": own_bwd,
+            "gen_over_own": [fwd["kernel_ms"] / own_fwd,
+                             bwd["kernel_ms"] / own_bwd]}
 
 
 def sv_k_sweep(seed: int) -> None:
     """K10 at (k, M) in SV_SWEEP on 60 x 300 panels (the DGP's params,
     sigma_h 0.1), f64 and f32, both forms and FFBS (S = 16): error checks
-    only; then k = 17 and M = 1,025 must raise NotImplementedError."""
+    only; then ``sv_k129_raises``."""
     for i, (k, M_) in enumerate(SV_SWEEP):
         Y, p = sv_panel(seed + 1120 + i, T_=60, N_=300, K_=k)
         spec = dt.SVSpec(n_factors=k, n_particles=M_, n_smooth_draws=16)
@@ -4975,18 +5089,42 @@ def sv_k_sweep(seed: int) -> None:
                                             "split_kind", "flips")
                     if rec.get(x) is not None}
         emit({"sv_k_sweep": [k, M_], "checks": worst})
-    for k, M_ in ((17, 64), (5, 1025)):
+    sv_k129_raises(seed)
+
+
+def sv_k129_raises(seed: int) -> None:
+    """K10-fwd and K10-ffbs at k = 129 (M = 64 and 2,048), through the
+    routing entries and the generic ones, must raise NotImplementedError
+    naming the ROADMAP row before any launch."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    k = kernels.GEN_KMAX + 1
+    for M_ in (64, 2048):
         spec = dt.SVSpec(n_factors=k, n_particles=M_, n_smooth_draws=4)
         Y, p = sv_panel(seed + 1160, T_=10, N_=40, K_=k)
-        args, fd, _ = sv_args(Y, p, np.full(k, 0.1), np.zeros(k),
-                              sv_draws64(10, spec, 1), torch.float32)
-        try:
-            sv_run(sv.rbpf_scan, args, fd, spec, True)
-        except NotImplementedError as e:
-            emit({"sv_range": [k, M_], "raises": str(e)[:120]})
-        else:
-            raise AssertionError(f"sv_rbpf at k = {k}, M = {M_} did not "
-                                 "raise")
+        args, fd, bd = sv_args(Y, p, np.full(k, 0.1), np.zeros(k),
+                               sv_draws64(10, spec, 1), torch.float32)
+        hist = torch.zeros((10, M_, k), dtype=torch.float32, device="cuda")
+        logw = torch.zeros((10, M_), dtype=torch.float32, device="cuda")
+        for name, call in (
+                ("sv_rbpf", lambda: sv_run(sv.rbpf_scan, args, fd, spec,
+                                           True)),
+                ("sv_ffbs", lambda: sv.ffbs(hist, logw, args[9], bd)),
+                ("sv_rbpf_gen", lambda: sv_run(sv.rbpf_scan_gen, args, fd,
+                                               spec, True)),
+                ("sv_ffbs_gen", lambda: sv.ffbs_gen(hist, logw, args[9],
+                                                    bd))):
+            try:
+                call()
+            except NotImplementedError as e:
+                if kernels.GENERIC_K not in str(e):
+                    raise
+                emit({"sv_range": [name, k, M_], "raises": str(e)[:120]})
+            else:
+                raise AssertionError(f"{name} at k = {k}, M = {M_} did "
+                                     "not raise")
+    if sum(kernels.LAUNCHES.values()):
+        raise AssertionError(f"k = 129: launches {kernels.LAUNCHES}")
 
 
 class SVWatch:
@@ -5035,16 +5173,20 @@ def device_ms_by_kernel(fn) -> dict:
     return out
 
 
-def sv_fit_phase(seed: int):
-    """Phase 32: ``fit(SVSpec(n_factors=5, n_particles=256), Y,
-    max_iters=1)`` at S5 (f32): the pre-fit (``auto`` -> ``ss``, the api's
-    20 EM iterations), one particle-EM iteration and the final E-step,
-    then ``forecast(res, 12)``: finite outputs of S5's shapes, sigma_h >=
-    1e-4; exactly one K10-fwd and one K10-ffbs and no other kernel an
-    E-step, and one read an E-step plus the result's; the fit wall; then
-    ``sv_pass_breakdown``.  Returns (the launch counts, the fit)."""
-    Y, _ = sv_panel(seed + 1101)
-    spec = dt.SVSpec(n_factors=SV_K, n_particles=SV_M)
+def sv_fit_phase(seed: int, k: int = SV_K, M_: int = SV_M,
+                 label: str = "sv fit", breakdown: bool = True):
+    """Phase 32: ``fit(SVSpec(n_factors=k, n_particles=M_), Y,
+    max_iters=1)`` on S5's panel simulated at k (f32; S5 itself at k = 5):
+    the pre-fit (``auto`` -> ``ss``, the api's 20 EM iterations), one
+    particle-EM iteration and the final E-step, then ``forecast(res,
+    12)``: finite outputs of S5's shapes, sigma_h >= 1e-4; exactly one
+    K10-fwd and one K10-ffbs (the kernels ``kernels.route_sv`` gives) and
+    no other kernel an E-step, and one read an E-step plus the result's;
+    the fit wall; then, if ``breakdown``, ``sv_pass_breakdown``.  Returns
+    ({label: the launch counts}, the fit)."""
+    Y, _ = sv_panel(seed + 1101, K_=k)
+    spec = dt.SVSpec(n_factors=k, n_particles=M_)
+    want = {kernels.route_sv(n, k, M_): 1 for n in ("sv_rbpf", "sv_ffbs")}
     torch.cuda.synchronize()
     kernels.reset_launches()
     with SVWatch() as w:
@@ -5057,8 +5199,8 @@ def sv_fit_phase(seed: int):
     kinds = [e[0] for e in w.events]
     first = kinds.index("E")
     e_launches = [e[1] for e in w.events if e[0] == "E"]
-    emit({"fit": "sv", "spec": dataclasses.asdict(spec),
-          "shape": [SV_T, SV_N, SV_K], "wall_s": wall,
+    emit({"fit": label, "spec": dataclasses.asdict(spec),
+          "shape": [SV_T, SV_N, k], "wall_s": wall,
           "logliks": [float(x) for x in res.logliks],
           "sigma_h": res.sigma_h.tolist(), "h_center": res.h_center.tolist(),
           "n_resamples": int(res.result.n_resamples),
@@ -5066,23 +5208,43 @@ def sv_fit_phase(seed: int):
           "launches_per_e_step": e_launches,
           "launches": {nm: v for nm, v in launches.items() if v}})
     if (kinds[first:] != ["E", "R", "E", "R", "R"]
-            or any(e != {"sv_rbpf": 1, "sv_ffbs": 1} for e in e_launches)):
-        raise AssertionError(f"sv fit: events {kinds[first:]}, E-step "
-                             f"launches {e_launches}")
+            or any(e != want for e in e_launches)):
+        raise AssertionError(f"{label}: events {kinds[first:]}, E-step "
+                             f"launches {e_launches}, expected {want}")
     for name, arr in (("logliks", res.logliks), ("sigma_h", res.sigma_h),
                       ("h_center", res.h_center),
                       ("h_smooth", res.h_smooth),
                       ("vol_paths", res.vol_paths), ("y_fore", y_fore),
                       ("f_fore", f_fore)):
         if not np.isfinite(arr).all():
-            raise AssertionError(f"sv fit: non-finite {name}")
+            raise AssertionError(f"{label}: non-finite {name}")
     if not (res.sigma_h >= sv.SIGMA_FLOOR).all():
-        raise AssertionError(f"sv fit: sigma_h {res.sigma_h} under the "
+        raise AssertionError(f"{label}: sigma_h {res.sigma_h} under the "
                              "floor")
-    if res.h_smooth.shape != (SV_T, SV_K) or y_fore.shape != (12, SV_N):
-        raise AssertionError("sv fit: unexpected output shapes")
-    sv_pass_breakdown(Y, res, spec)
-    return {"sv fit": launches}, res
+    if res.h_smooth.shape != (SV_T, k) or y_fore.shape != (12, SV_N):
+        raise AssertionError(f"{label}: unexpected output shapes")
+    if breakdown:
+        sv_pass_breakdown(Y, res, spec)
+    return {label: launches}, res
+
+
+# Device kernels of a K10-fwd pass by its C call's name, and how many a
+# pass launches (T steps; the history off, as the timed pass runs):
+# csrc/sv_rbpf.cu an init grid, then a residual grid and a step kernel a
+# step; csrc/sv_gen.cu an init prediction, then a residual grid, the
+# update, the scalar stage, the means and (for t + 1 < T) the prediction a
+# step.
+SV_STAGES = {"sv_rbpf": ("sv_residual_kernel", "sv_step_kernel",
+                         "sv_init_kernel"),
+             "sv_rbpf_gen": ("svg_residual_kernel", "svg_update_kernel",
+                             "svg_scalar_kernel", "svg_means_kernel",
+                             "svg_predict_kernel")}
+
+
+def sv_pass_launches(name: str, T_: int, residual: bool = True) -> int:
+    if name == "sv_rbpf":
+        return (2 if residual else 1) * T_ + 1
+    return (5 if residual else 4) * T_
 
 
 def sv_pass_breakdown(Y, res, spec) -> None:
@@ -5090,8 +5252,8 @@ def sv_pass_breakdown(Y, res, spec) -> None:
     bench/run.py:111-135): host seconds a pass, best of 3 after a warm
     pass (``sv_filter``, the read included), and passes/s; the K10-fwd
     pass alone on CUDA events, split by ``torch.profiler`` into the
-    residual stage, the step stage and the init, the rest being the launch
-    gaps (2T + 1 launches a pass); the E-step (K10-fwd with the history,
+    routed kernel's stages (``SV_STAGES``), the rest being the launch gaps
+    (``sv_pass_launches`` a pass); the E-step (K10-fwd with the history,
     K10-ffbs, the f64 increments) on CUDA events.  Then one E-step and its
     M-step under ``set_sync_debug_mode("error")`` (the panel, params and
     generator made before the guard, the draws inside)."""
@@ -5112,7 +5274,10 @@ def sv_pass_breakdown(Y, res, spec) -> None:
             return time.perf_counter() - t0
         one_pass()
         pass_s = min(one_pass() for _ in range(3))
-        draws = sv.estep_draws(SV_T, spec, True, f32, "cuda", gen)
+        T_, N_ = Yt.shape
+        k, M_ = spec.n_factors, spec.n_particles
+        name = kernels.route_sv("sv_rbpf", k, M_)
+        draws = sv.estep_draws(T_, spec, True, f32, "cuda", gen)
         G0 = pt.Lam / pt.R[:, None]
         C = (pt.Lam.T @ G0).contiguous()
         run = lambda: sv.rbpf_scan(Yt, pt.Lam, pt.R, C, None, pt.A, pt.mu0,
@@ -5122,8 +5287,7 @@ def sv_pass_breakdown(Y, res, spec) -> None:
         by_kernel = device_ms_by_kernel(run)
         stage = {}
         for key, (ms, n) in by_kernel.items():
-            for nm in ("sv_residual_kernel", "sv_step_kernel",
-                       "sv_init_kernel"):
+            for nm in SV_STAGES[name]:
                 if nm in key:
                     stage[nm] = (stage.get(nm, (0.0, 0))[0] + ms,
                                  stage.get(nm, (0.0, 0))[1] + n)
@@ -5133,32 +5297,35 @@ def sv_pass_breakdown(Y, res, spec) -> None:
         prev = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            dr = sv.estep_draws(SV_T, spec, True, f32, "cuda", gen)
+            dr = sv.estep_draws(T_, spec, True, f32, "cuda", gen)
             _, H = sv.e_step_device(Yt, pt, spec, sig, hc, dr, smooth=True)
             sv.m_step(H, sig, None, 3.0)
         finally:
             torch.cuda.set_sync_debug_mode(prev)
         torch.cuda.synchronize()
     measured = sum(ms for ms, _ in stage.values())
-    emit({"sv_pass_breakdown": "residual f32", "shape": [SV_T, SV_N, SV_K],
-          "M": SV_M, "pass_s": pass_s, "passes_per_sec": 1.0 / pass_s,
-          "kernel_pass_ms": pass_ms,
+    emit({"sv_pass_breakdown": "residual f32", "kernel": name,
+          "shape": [T_, N_, k], "M": M_, "pass_s": pass_s,
+          "passes_per_sec": 1.0 / pass_s, "kernel_pass_ms": pass_ms,
           "stage_ms": {nm: ms for nm, (ms, _) in stage.items()} or
           "not measured (no device time from the profiler)",
           "stage_launches": {nm: n for nm, (_, n) in stage.items()},
-          "launches_under_pass": 2 * SV_T + 1,
+          "launches_under_pass": sv_pass_launches(name, T_),
           "gaps_ms": pass_ms - measured if stage else None,
           "e_step_ms": e_ms, "e_steps_sync_checked": 1})
 
 
-def sv_reference_phase(seed: int) -> None:
-    """Phase 33a: ``sv_fit`` of ``simulate_sv(40, 120, 2)``, M = 64, 2
-    particle-EM iterations and the final E-step, on the card in f64
-    against the CPU in f64 on the same draws (made on the host), within
-    1e-9 relative (logliks, sigma_h, h_center, h_smooth, the forecast)."""
-    Y, _ = sv_panel(seed + 1102, T_=120, N_=40, K_=2)
-    spec = dt.SVSpec(n_factors=2, n_particles=64)
-    draws = [sv_draws64(120, spec, seed + 1110 + i) for i in range(3)]
+def sv_reference_phase(seed: int, T_: int = 120, N_: int = 40, k: int = 2,
+                       M_: int = 64) -> None:
+    """Phase 33a: ``sv_fit`` of ``simulate_sv(N_, T_, k)`` (40 x 120, k =
+    2 by default), M_ particles, 2 particle-EM iterations and the final
+    E-step, on the card in f64 against the CPU in f64 on the same draws
+    (made on the host), within 1e-9 relative (logliks, sigma_h, h_center,
+    h_smooth, the forecast); the card's kernels the routed ones, one
+    K10-fwd and one K10-ffbs an E-step."""
+    Y, _ = sv_panel(seed + 1102, T_=T_, N_=N_, K_=k)
+    spec = dt.SVSpec(n_factors=k, n_particles=M_)
+    draws = [sv_draws64(T_, spec, seed + 1110 + i) for i in range(3)]
     res = {}
     for dev in ("cuda", "cpu"):
         kernels.reset_launches()
@@ -5169,44 +5336,59 @@ def sv_reference_phase(seed: int) -> None:
                                               dtype=torch.float64))
         res[dev] = (r, dt.forecast(r, 12)[0], dict(kernels.LAUNCHES))
     (rg, yg, lg), (rc, yc, _) = res["cuda"], res["cpu"]
-    if lg["sv_rbpf"] != 3 or lg["sv_ffbs"] != 3:
-        raise AssertionError(f"sv reference: launches {lg}")
+    for n in ("sv_rbpf", "sv_ffbs"):
+        if lg[kernels.route_sv(n, k, M_)] != 3:
+            raise AssertionError(f"sv reference k = {k}, M = {M_}: "
+                                 f"launches {lg}")
     errs = {name: rel_err(g, c) for name, g, c in (
         ("logliks", rg.logliks, rc.logliks), ("sigma_h", rg.sigma_h,
                                               rc.sigma_h),
         ("h_center", rg.h_center, rc.h_center),
         ("h_smooth", rg.h_smooth, rc.h_smooth), ("y_fore", yg, yc))}
-    emit({"reference": "sv", "shape": [120, 40, 2], "M": 64, "sv_iters": 2,
+    emit({"reference": "sv", "shape": [T_, N_, k], "M": M_, "sv_iters": 2,
+          "kernels": [kernels.route_sv(n, k, M_)
+                      for n in ("sv_rbpf", "sv_ffbs")],
           "max_rel_err": errs, "tol": 1e-9})
     bad = {n: e for n, e in errs.items() if not e <= 1e-9}
     if bad:
         raise AssertionError(f"sv card fit disagrees with the CPU fit: {bad}")
 
 
-def sv_contract_phase(seed: int, fit) -> None:
-    """Phase 33b-c at S5's full width, the panel as the fit saw it.  (b)
-    sigma_h = 0, h0_scale = 0: every particle carries h = log diag Q, so
-    the RBPF loglik (M = 256) is the exact Kalman loglik with Q =
-    diag(diag Q) (tests/test_sv.py:20-32), here the port's f64
-    ``loglik_eval`` on the card: within 1e-9 in f64 and 1e-5 in f32,
-    gated.  The RBPF predicts its step 0 from (mu0, P0) where the info
-    filter takes them as the step-0 prediction, so the oracle's are (A
-    mu0, A P0 A' + Q) (equal only for a stationary P0, as
-    ``dgp.dfm_params`` draws it in that test).  (c) f32 against f64 on the same draws at the fitted sigma_h
-    and h_0 center (bench/run.py:193-214), with both runs' resample
-    counts: a Monte-Carlo estimate, one flipped decision changes the path,
-    so not gated."""
-    Y, _ = sv_panel(seed + 1101)
+def sv_contract_phase(seed: int, fit, k: int = SV_K,
+                      jitter_oracle: bool = False) -> None:
+    """Phase 33b-c at S5's full width (the panel simulated at k, k = 5
+    being S5's own), the panel as the fit saw it.  (b) sigma_h = 0,
+    h0_scale = 0: every particle carries h = log diag Q, so the RBPF loglik
+    (M = 256) is the exact Kalman loglik with Q = diag(diag Q)
+    (tests/test_sv.py:20-32), here the port's f64 ``loglik_eval`` on the
+    card: within 1e-9 in f64 and 1e-5 in f32, gated.  The RBPF predicts
+    its step 0 from (mu0, P0) where the info filter takes them as the
+    step-0 prediction, so the oracle's are (A mu0, A P0 A' + Q) (equal
+    only for a stationary P0, as ``dgp.dfm_params`` draws it in that
+    test).  With ``jitter_oracle`` (k = 25) the pass is also held, within
+    the same limits, to the oracle the reference's arithmetic makes exact:
+    its Lp = chol(sym(P_p) + 1e-6 I) makes the sigma_h = 0 RBPF the Kalman
+    filter of Q + 1e-6 I (the JAX package's as the port's,
+    tests/test_torch_sv_gen.py), whose gap to the filter of Q (reported)
+    grows with k and the conditioning.  (c) f32 against f64 on the same draws at
+    the fitted sigma_h and h_0 center (bench/run.py:193-214), with both
+    runs' resample counts: a Monte-Carlo estimate, one flipped decision
+    changes the path, so not gated."""
+    Y, _ = sv_panel(seed + 1101, K_=k)
     Yz = fit.standardizer.transform(Y)
     p = fit.params
     Qd = np.diag(np.diag(p.Q))
     p_diag = cpu_ref.SSMParams(p.Lam, p.A, Qd, p.R, p.mu0, p.P0)
-    p_kf = cpu_ref.SSMParams(p.Lam, p.A, Qd, p.R, p.A @ p.mu0,
-                             p.A @ p.P0 @ p.A.T + Qd)
-    ll_kf = inf.loglik_eval(Yz, p_kf, precise=True, device="cuda")
-    spec0 = dt.SVSpec(n_factors=SV_K, n_particles=SV_M, sigma_h=0.0,
+
+    def kalman(Q):
+        return inf.loglik_eval(Yz, cpu_ref.SSMParams(
+            p.Lam, p.A, Q, p.R, p.A @ p.mu0, p.A @ p.P0 @ p.A.T + Q),
+            precise=True, device="cuda")
+    ll_kf = kalman(Qd)
+    ll_jit = kalman(Qd + 1e-6 * np.eye(k)) if jitter_oracle else None
+    spec0 = dt.SVSpec(n_factors=k, n_particles=SV_M, sigma_h=0.0,
                       h0_scale=0.0)
-    spec = dt.SVSpec(n_factors=SV_K, n_particles=SV_M)
+    spec = dt.SVSpec(n_factors=k, n_particles=SV_M)
     fd = sv_draws64(SV_T, spec, seed + 1104)[0]
     lims = {torch.float64: 1e-9, torch.float32: 1e-5}
     out = {}
@@ -5222,16 +5404,26 @@ def sv_contract_phase(seed: int, fit) -> None:
                          spec, draws=d, sigma_h=fit.sigma_h,
                          h_center=fit.h_center, store_paths=False)
         out[dtype] = (rel, float(r.loglik), int(r.n_resamples))
-        emit({"contract": f"sv linear-Gaussian limit {str(dtype)[6:]}",
-              "shape": [SV_T, SV_N, SV_K], "M": SV_M,
-              "loglik_kalman_f64": ll_kf, "loglik_rbpf": float(r0.loglik),
-              "rel_err": rel, "limit": lims[dtype]})
-        if not rel <= lims[dtype]:
-            raise AssertionError(f"sv linear-Gaussian limit "
-                                 f"({dtype}): {rel:.3e} > {lims[dtype]}")
+        rec = {"contract": f"sv linear-Gaussian limit {str(dtype)[6:]}",
+               "shape": [SV_T, SV_N, k], "M": SV_M,
+               "loglik_kalman_f64": ll_kf, "loglik_rbpf": float(r0.loglik),
+               "rel_err": rel, "limit": lims[dtype]}
+        checks = [("Q", rel)]
+        if jitter_oracle:
+            rel_jit = abs(float(r0.loglik) - ll_jit) / abs(ll_jit)
+            rec.update({"loglik_kalman_jitter_f64": ll_jit,
+                        "rel_err_jitter_oracle": rel_jit,
+                        "oracles_gap": abs(ll_jit - ll_kf) / abs(ll_kf)})
+            checks.append(("Q + 1e-6 I", rel_jit))
+        emit(rec)
+        for oracle, e in checks:
+            if not e <= lims[dtype]:
+                raise AssertionError(
+                    f"sv linear-Gaussian limit ({dtype}, k = {k}, oracle "
+                    f"{oracle}): {e:.3e} > {lims[dtype]}")
     (_, l64, n64), (_, l32, n32) = out[torch.float64], out[torch.float32]
     emit({"contract": "sv matched draws f32 vs f64 (not gated)",
-          "shape": [SV_T, SV_N, SV_K], "M": SV_M, "loglik_f64": l64,
+          "shape": [SV_T, SV_N, k], "M": SV_M, "loglik_f64": l64,
           "loglik_f32": l32, "rel_err": abs(l32 - l64) / abs(l64),
           "n_resamples_f64": n64, "n_resamples_f32": n32})
 
@@ -7914,6 +8106,159 @@ def tgen_reference_phase(seed: int) -> None:
         tvl_reference_phase(seed, N_, k, ("masked",))
 
 
+# ---------------------------------------------------------------------------
+# The stochastic-volatility family past k = 16 and past 1,024 particles
+# (vgen): K10-fwd-gen and K10-ffbs-gen (csrc/sv_gen.cu) on S5's panel
+# (10,000 series x 1,000 steps) simulated at k = 25 and 50 with M = 256,
+# and on S5 itself (k = 5) at M = 2,048.
+# ---------------------------------------------------------------------------
+
+VGEN_FITS = ((25, SV_M, "sv k25 fit"), (50, SV_M, "sv k50 fit"),
+             (SV_K, 2048, "sv M2048 fit"))
+# Leading steps of a full-width pass the plain twins are held on (the twin
+# is a Python loop of ~60 launches a step); the kernels are timed over all
+# SV_T steps.
+VGEN_WINDOW = 250
+# (k, M) of the sweep on 60 x 300 panels: the generic kernels at every
+# width (below 17 and 1,025 through their own entries, ``SV_ENTRY``), then
+# past 1,024 particles, and one particle.
+VGEN_SWEEP = ((1, 64), (16, 64), (17, 64), (24, 64), (32, 64), (33, 64),
+              (64, 64), (100, 64), (128, 64), (5, 1025), (17, 1025),
+              (5, 4096), (50, 1))
+# (T, N, k, M) of the card-vs-CPU references.
+VGEN_REF = ((60, 80, 20, 64), (60, 90, 40, 64), (120, 40, 3, 1100))
+
+
+def vgen_fit_phase(seed: int) -> tuple:
+    """Phase 88: ``sv_fit_phase`` for VGEN_FITS (k = 25 with the pass
+    breakdown by the generic kernel's stages).  Returns (the launch counts
+    by label, the fits by (k, M))."""
+    counts, fits = {}, {}
+    for k, M_, label in VGEN_FITS:
+        c, fits[(k, M_)] = sv_fit_phase(seed, k, M_, label,
+                                        breakdown=k == 25)
+        counts.update(c)
+        torch.cuda.empty_cache()
+    return counts, fits
+
+
+def vgen_kernel_phase(seed: int, fits: dict) -> dict:
+    """Phase 89: K10-fwd-gen (residual form) and K10-ffbs-gen against their
+    twins on each VGEN_FITS panel (as each fit saw it, at its params,
+    sigma_h and h_0 center, the same draws): f64 and f32 on the first
+    VGEN_WINDOW steps (``sv_compare``, ``ffbs_compare``, bit for bit on a
+    rerun; the twin's comparison call is its time on the window), K10-fwd
+    timed in f32 on the window (beside the twin, the yardstick and the
+    bound) and over all SV_T steps, K10-ffbs over all SV_T steps beside its
+    twin (``vgen_time``); at k = 25 the expanded form on the first
+    SV_EXPANDED_T steps, f64 and f32, untimed.  Returns the k = 25 f32
+    records by kernel name."""
+    summary = {}
+    for k, M_, label in VGEN_FITS:
+        fit = fits[(k, M_)]
+        Y, _ = sv_panel(seed + 1101, K_=k)
+        Yz = fit.standardizer.transform(Y)
+        spec = dt.SVSpec(n_factors=k, n_particles=M_)
+        fd, bd = sv_draws64(SV_T, spec, seed + 1903 + k)
+        W_ = VGEN_WINDOW
+        win = (sv.SVDraws(fd.h0, fd.xi[:W_], fd.u[:W_]),
+               sv.FFBSDraws(bd.g_last, bd.g[:W_ - 1]))
+        tag = f"S5 k{k} M{M_}"
+        for dtype in (torch.float64, torch.float32):
+            recs = sv_kernel_cases(Yz[:W_], fit.params, fit.sigma_h,
+                                   fit.h_center, spec, win, dtype,
+                                   f"{tag} T={W_}", timed=False,
+                                   forms=("residual",))
+            if k == 25:
+                E_ = SV_EXPANDED_T
+                recs += sv_kernel_cases(
+                    Yz[:E_], fit.params, fit.sigma_h, fit.h_center, spec,
+                    (sv.SVDraws(fd.h0, fd.xi[:E_], fd.u[:E_]),
+                     sv.FFBSDraws(bd.g_last, bd.g[:E_ - 1])), dtype,
+                    f"{tag} T={SV_EXPANDED_T}", timed=False,
+                    forms=("expanded",))
+            if dtype == torch.float32:
+                recs = vgen_time(recs, Yz, fit, spec, (fd, bd), W_)
+            for rec in recs:
+                rec.setdefault("plain_T", rec["T"])
+                emit(rec)
+                if (k == 25 and dtype == torch.float32
+                        and rec["variant"] in (f"{tag} T={W_} residual",
+                                               f"{tag} T={W_}")):
+                    summary[rec["name"]] = rec
+            torch.cuda.empty_cache()
+    return summary
+
+
+def vgen_time(recs: list, Yz, fit, spec, draws, window: int) -> list:
+    """The f32 records of ``vgen_kernel_phase`` with the kernels timed
+    (``sv_rbpf_timing``, ``sv_ffbs_timing``): K10-fwd on the twin's window
+    (the record's numbers, beside the twin's time there) and over all the
+    panel's steps (``full_T``); K10-ffbs (and its twin) over all the
+    steps."""
+    args, fd, bd = sv_args(Yz, fit.params, fit.sigma_h, fit.h_center, draws,
+                           torch.float32)
+    M_, k = fd.h0.shape
+    fwd, bwd = (kernels.route_sv(n, k, M_) for n in ("sv_rbpf", "sv_ffbs"))
+    wargs = (args[0][:window], *args[1:4], args[4][:window], *args[5:])
+    wfd = sv.SVDraws(fd.h0, fd.xi[:window], fd.u[:window])
+    with highest_precision():
+        kern = sv_run(sv.rbpf_scan, wargs, wfd, spec, True, False)
+        t_win = sv_rbpf_timing(fwd, wargs, wfd, spec, True, kern,
+                               torch.float32)
+        hist = sv_run(sv.rbpf_scan, args, fd, spec, True)
+        t_full = sv_rbpf_timing(fwd, args, fd, spec, True, hist,
+                                torch.float32)
+        t_bwd = sv_ffbs_timing(bwd, hist, args[9], bd, torch.float32)
+    del hist, kern
+    out = []
+    for rec in recs:
+        if rec["name"] == fwd and rec["variant"].endswith("residual"):
+            rec = {**rec, **t_win, "full_T": {"T": SV_T, **t_full}}
+        elif rec["name"] != fwd:
+            rec = {**rec, **t_bwd, "T_timed": SV_T, "plain_T": SV_T}
+        out.append(rec)
+    return out
+
+
+def vgen_k_sweep(seed: int) -> None:
+    """Phase 90: the generic kernels at (k, M) in VGEN_SWEEP on 60 x 300
+    panels (the DGP's params, sigma_h 0.1), f64 and f32, both forms and
+    FFBS (S = 16), through their own entries (``sv.rbpf_scan_gen``,
+    ``sv.ffbs_gen``, so below k = 17 and M = 1,025 too): only the generic
+    kernels may launch; then ``sv_k129_raises``."""
+    for i, (k, M_) in enumerate(VGEN_SWEEP):
+        t0 = time.perf_counter()
+        Y, p = sv_panel(seed + 1920 + i, T_=60, N_=300, K_=k)
+        spec = dt.SVSpec(n_factors=k, n_particles=M_, n_smooth_draws=16)
+        draws = sv_draws64(60, spec, seed + 1940 + i)
+        worst = {}
+        kernels.reset_launches()
+        for dtype in (torch.float64, torch.float32):
+            for rec in sv_kernel_cases(Y, p, np.full(k, 0.1), np.zeros(k),
+                                       spec, draws, dtype, f"k{k} M{M_}",
+                                       timed=False, generic=True):
+                worst[f"{rec['variant']} {rec['dtype']}"] = {
+                    x: rec.get(x) for x in ("max_rel_err", "first_split",
+                                            "split_kind", "flips")
+                    if rec.get(x) is not None}
+        launched = {n: v for n, v in kernels.LAUNCHES.items() if v}
+        emit({"vgen_k_sweep": [k, M_], "checks": worst,
+              "launches": launched, "s": time.perf_counter() - t0})
+        if set(launched) != {"sv_rbpf_gen", "sv_ffbs_gen"}:
+            raise AssertionError(f"vgen (k, M) = ({k}, {M_}): launched "
+                                 f"{launched}")
+    sv_k129_raises(seed)
+
+
+def vgen_reference_phase(seed: int) -> None:
+    """Phase 91: ``sv_reference_phase`` at VGEN_REF: card f64 against CPU
+    f64 within 1e-9 at k = 20 and 40 (M = 64) and at k = 3 with M =
+    1,100."""
+    for T_, N_, k, M_ in VGEN_REF:
+        sv_reference_phase(seed, T_, N_, k, M_)
+
+
 def ptxas_summary(source: str) -> dict:
     """Build seconds and, over the k = 10 instantiations of ``source``
     (every function for a source without a k template), the largest
@@ -7926,8 +8271,11 @@ def ptxas_summary(source: str) -> dict:
     name = None
     for line in log:
         if line.startswith("# built in"):
-            rec["built_s"] = max(rec["built_s"] or 0.0,
-                                 float(line.split()[3]))
+            words = line.split()
+            rec["built_s"] = max(rec["built_s"] or 0.0, float(words[3]))
+            if "(nvcc" in words:
+                rec["nvcc_s"] = max(rec.get("nvcc_s", 0.0),
+                                    float(words[words.index("(nvcc") + 1]))
         elif "Compiling entry function" in line or "Function properties" in line:
             name = line.split()[-1] if "properties" in line else \
                 line.split("'")[1]
@@ -7945,10 +8293,25 @@ def ptxas_summary(source: str) -> dict:
     return rec
 
 
-# Phase groups of ``--phases``, in run order.
-PHASES = ("headline", "session", "batched", "fleet", "lowrank", "tvl", "mf",
-          "sv", "pit", "dense", "wide", "bwide", "kbig", "bgen", "sgen",
-          "qgen", "tgen")
+# The build's queue (one nvcc fewer than the host's cores at a time): the
+# first groups' sources first (tvl and tgen's, then sv and vgen's, the
+# longest compiles of each set first), then the rest longest first (nvcc
+# seconds on the card's host: pit_scan 124, qr_scan 107, pit_elements 72,
+# qr_elements 38, bsolve_rows 25, mstep_rows 22, ...).  The groups run
+# beside the build; a kernel's first launch waits for its own library
+# only (and moves it to the front of the queue).
+BUILD_FIRST = ("tv_loadings.cu", "info_scan.cu", "sv_rbpf.cu",
+               "affine_scan.cu", "obs_stats.cu", "quad_local.cu",
+               "step_chain.cu", "ss_cov_path.cu", "sv_gen.cu", "pit_scan.cu",
+               "qr_scan.cu", "pit_elements.cu", "qr_elements.cu",
+               "bsolve_rows.cu", "mstep_rows.cu", "lowrank_scan.cu",
+               "dense_filter.cu", "ring_append.cu")
+
+# Phase groups of ``--phases``, in run order: the groups whose few sources
+# build first, then the rest.
+PHASES = ("tvl", "tgen", "sv", "vgen", "headline", "session", "batched",
+          "fleet", "lowrank", "mf", "pit", "dense", "wide", "bwide", "kbig",
+          "bgen", "sgen", "qgen")
 
 
 def main() -> int:
@@ -7970,22 +8333,23 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
-    emit({"build_s": kernels.build(), "torch": torch.__version__,
+    kernels.build_start(BUILD_FIRST)
+    emit({"build_started": list(BUILD_FIRST), "torch": torch.__version__,
           "cuda": torch.version.cuda, "phases": want})
-    for source in sorted({src for src, _ in kernels.KERNELS.values()}):
-        emit(ptxas_summary(source))
     summary, launches, group_s = {}, {}, {}
     for group in PHASES:
         if group not in want:
             continue
         t0 = time.perf_counter()
+        emit({"group": group, "libraries_building": kernels.build_pending()})
 
         def timed(fn, *a, **kw):
             """``fn(*a, **kw)``, its seconds printed under the group."""
-            t1 = time.perf_counter()
+            t1, n0 = time.perf_counter(), kernels.build_pending()
             out = fn(*a, **kw)
             emit({"step_s": {"group": group, "step": fn.__name__,
-                             "s": time.perf_counter() - t1}})
+                             "s": time.perf_counter() - t1,
+                             "libraries_building_at_start": n0}})
             return out
 
         if group == "headline":
@@ -8135,9 +8499,24 @@ def main() -> int:
             launches.update(timed(tgen_fit_phase, seed))
             timed(tgen_reference_phase, seed)
             timed(tvl_contract_phase, seed, TGEN_KS[0])
+        elif group == "vgen":
+            vg_counts, vg_fits = timed(vgen_fit_phase, seed)
+            launches.update(vg_counts)
+            summary.update(timed(vgen_kernel_phase, seed, vg_fits))
+            timed(vgen_k_sweep, seed)
+            timed(vgen_reference_phase, seed)
+            timed(sv_contract_phase, seed, vg_fits[(25, SV_M)], 25, True)
+            del vg_fits
         group_s[group] = time.perf_counter() - t0
         emit({"group_s": {group: group_s[group]},
               "script_s": time.perf_counter() - t_start})
+    wait_s = kernels.build()           # every library; a failed compile raises
+    recs = [ptxas_summary(source)
+            for source in sorted({src for src, _ in kernels.KERNELS.values()})]
+    for rec in recs:
+        emit(rec)
+    emit({"build_s": max(r["built_s"] or 0.0 for r in recs),
+          "build_wait_after_groups_s": wait_s})
     emit({"phase_s": group_s, "script_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": name, "route": "cuda",

@@ -3,9 +3,11 @@
 At first use each ``csrc/*.cu`` source is compiled twice, once per dtype
 (``-DDFM_DTYPE=32`` and ``64``: each library holds one dtype's entry
 points, so the two halves of a heavy source build in parallel), by its own
-``nvcc`` processes (all started together) into shared libraries with a
-plain C interface, under ``build/dfm_tpu_torch/`` beside the package and
-named by a hash of the sources' contents and the flags, so an edited
+``nvcc`` processes (``build_start`` queues them all, a caller's sources
+first, and runs them in the background, one fewer at a time than the host
+has cores; ``build`` waits for all, and a kernel's first launch for its
+own library) into shared libraries with a plain C interface, under
+``build/dfm_tpu_torch/`` beside the package and named by a hash of the sources' contents and the flags, so an edited
 source rebuilds and an unchanged one is reused.  The libraries are loaded with ``ctypes``;
 every pointer and the stream cross as ``c_void_p`` (a default ctypes int
 would cut a pointer to 32 bits).
@@ -27,19 +29,23 @@ counting it.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "KERNELS", "PROBES", "build", "build_log", "launch",
-           "probe", "reset_launches", "check_k", "check_lowrank",
-           "check_dense", "check_particles", "check_tensor", "WIDE", "GEN",
+__all__ = ["LAUNCHES", "KERNELS", "PROBES", "build", "build_start",
+           "build_pending", "build_log", "launch", "probe", "reset_launches",
+           "check_k", "check_lowrank", "check_dense", "route_sv",
+           "check_tensor", "WIDE", "GEN",
            "DEVICE_LAUNCHES", "route", "gen_ctas", "GEN_MATS", "QUERIES",
            "query"]
 
@@ -72,7 +78,9 @@ WIDE_KMAX = 32
 # K1b-m and K3b-m there (fit_many, the k-grid, the rolling windows and
 # info and lowrank fleet buckets past 32), and the time-varying-loadings
 # family's K2-tv, K1-tv, K11-fwd and K11-bwd there (K11's generic kernels
-# from KMAX up).  The square-root engine's K8 (qr_elements_gen,
+# from KMAX up), and the stochastic-volatility family's K10-fwd and
+# K10-ffbs (their generic kernels from KMAX up, and at any k past SV_MMAX
+# particles: ``route_sv``).  The square-root engine's K8 (qr_elements_gen,
 # qr_scan_gen) takes 10 < k <= GEN_KMAX.  Every other kernel but the
 # rank-r ones (below) stops at WIDE_KMAX or below.
 GEN_KMAX = 128
@@ -83,11 +91,11 @@ GENERIC_K = "ROADMAP Queue 2, 'Generic k, the kernels already ported'"
 # The ROADMAP row that ports K15 (``dense_filter``) past N = 32 (the JAX
 # package's ``auto`` never routes a panel of N >= 32 to the dense engine).
 DENSE_PAST_32 = "ROADMAP Queue 2, 'The dense engine past N = 32'"
-# K10's particle range (DFM_SV_MMAX in sv_rbpf.cu: the step kernel is one
-# block, a particle a thread) and the residual stage's series tile
+# K10's own kernels' particle range (DFM_SV_MMAX in sv_rbpf.cu: their step
+# kernel is one block, a particle a thread; past it ``route_sv`` gives the
+# generic kernels, which take any M) and their residual stage's series tile
 # (SV_TILE there), which sizes the per-tile partials the wrapper allocates.
 SV_MMAX, SV_TILE = 1024, 64
-SV_PARTICLES = "ROADMAP Queue 2, 'K10 past 1,024 particles'"
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 
@@ -167,13 +175,16 @@ KERNELS = {
     "tvl_quad_gen": ("quad_local.cu", [_P] * 7 + [_I] * 3),
     "loading_filter_gen": ("tv_loadings.cu", [_P] * 8 + [_I] * 3),
     "loading_smoother_gen": ("tv_loadings.cu", [_P] * 7 + [_I] * 4),
+    "sv_rbpf_gen": ("sv_gen.cu", [_P] * 26 + [_I] * 7 + [_D] * 2),
+    "sv_ffbs_gen": ("sv_gen.cu", [_P] * 6 + [_I] * 4),
 }
 
 # The entry points with a wide kernel beside the k <= KMAX one, and its
 # name (each batched twin's wide kernel takes its C arguments; so do K2-tv's
 # and K1-tv's).  K11's one kernel past KMAX (``loading_filter_gen``,
-# ``loading_smoother_gen``) serves this tier and the generic one.  Every
-# other kernel stops at KMAX.
+# ``loading_smoother_gen``) and K10's (``sv_rbpf_gen``, ``sv_ffbs_gen``;
+# ``route_sv``) serve this tier and the generic one.  Every other kernel
+# stops at KMAX.
 WIDE = {"obs_stats": "obs_stats_wide", "info_scan": "info_scan_wide",
         "rts_smoother": "rts_smoother_wide", "quad_local": "quad_local_wide",
         "mstep_rows": "mstep_rows_wide", "ss_cov_path": "ss_cov_path_wide",
@@ -187,7 +198,8 @@ WIDE = {"obs_stats": "obs_stats_wide", "info_scan": "info_scan_wide",
         "batched_mstep_rows": "batched_mstep_rows_wide",
         "tvl_obs_stats": "tvl_obs_stats_wide", "tvl_quad": "tvl_quad_wide",
         "loading_filter": "loading_filter_gen",
-        "loading_smoother": "loading_smoother_gen"}
+        "loading_smoother": "loading_smoother_gen",
+        "sv_rbpf": "sv_rbpf_gen", "sv_ffbs": "sv_ffbs_gen"}
 
 # The entry points with a generic kernel for WIDE_KMAX < k <= GEN_KMAX, and
 # its name.  obs_stats, quad_local and mstep_rows, affine_scan and the
@@ -200,7 +212,11 @@ WIDE = {"obs_stats": "obs_stats_wide", "info_scan": "info_scan_wide",
 # persistent grids (``gen_ctas``).  tvl_obs_stats and tvl_quad take their
 # k <= KMAX kernel's C arguments; loading_smoother_gen takes a workspace
 # (null where a series' matrices fit in shared memory) and, last, its
-# slot count (models/tv_loadings.py).
+# slot count (models/tv_loadings.py).  sv_rbpf_gen takes its own scratch
+# (the state, the double-buffered P_f, the int state, the residual
+# partials, the prediction's workspace; models/sv.py) and the series of a
+# residual chunk and the workspace slots, which its sizing rules give;
+# sv_ffbs_gen takes sv_ffbs's arguments.
 GEN = {"obs_stats": "obs_stats_gen", "info_scan": "info_scan_gen",
        "rts_smoother": "rts_smoother_gen", "quad_local": "quad_local_gen",
        "mstep_rows": "mstep_rows_gen",
@@ -214,7 +230,8 @@ GEN = {"obs_stats": "obs_stats_gen", "info_scan": "info_scan_gen",
        "batched_mstep_rows": "batched_mstep_rows_gen",
        "tvl_obs_stats": "tvl_obs_stats_gen", "tvl_quad": "tvl_quad_gen",
        "loading_filter": "loading_filter_gen",
-       "loading_smoother": "loading_smoother_gen"}
+       "loading_smoother": "loading_smoother_gen",
+       "sv_rbpf": "sv_rbpf_gen", "sv_ffbs": "sv_ffbs_gen"}
 # k x k workspace matrices a CTA of the generic kernels on persistent
 # grids: pit_elements_gen and pit_scan_gen (the last template argument of
 # PegCta in pit_elements.cu, of GenCta in pit_scan.cu), qr_elements_gen and
@@ -245,6 +262,8 @@ PROBES = {
 # returns an int.
 QUERIES = {
     "loading_smoother_gen_slots": ("tv_loadings.cu", [_I] * 3),
+    "sv_rbpf_gen_series": ("sv_gen.cu", [_I] * 3),
+    "sv_rbpf_gen_slots": ("sv_gen.cu", [_I] * 3),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -283,44 +302,183 @@ def _lib_path(source: str, suffix: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{suffix}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> float:
-    """Compile every kernel library not yet built, one ``nvcc`` per source
-    and dtype, all in parallel.  Returns the wall seconds spent; raises on
-    failure."""
-    t0 = time.perf_counter()
-    todo = {}
+class _Job:
+    """One library's compile: its path, and ``done`` set when nvcc ended
+    (``error`` its log if it failed)."""
+
+    def __init__(self, out: Path):
+        self.out = out
+        self.done = threading.Event()
+        self.error = None
+
+
+_JOBS: dict = {}        # (source, suffix) -> _Job of this process
+_QUEUE: list = []       # keys not started yet, in compile order
+_RUNNING: dict = {}     # key -> (Popen, tmp path, start seconds)
+_LOCK = threading.Lock()
+_STOPPED = False
+_THREAD = None          # the thread that runs the queue, while it does
+
+
+def _sources(first=()) -> list:
+    """Every source of the tables, ``first``'s in their order first."""
+    out = list(first)
     for source, _ in (*KERNELS.values(), *PROBES.values()):
-        for suffix in _SUFFIXES:
-            out = _lib_path(source, suffix)
-            if not out.exists():
-                todo[(source, suffix)] = out
-    if todo:
+        if source not in out:
+            out.append(source)
+    return out
+
+
+def build_start(first=()) -> None:
+    """Start compiling, in the background, every kernel library not yet
+    built: one ``nvcc`` per source and dtype, at most ``os.cpu_count() -
+    1`` at a time (so a caller's own thread keeps a core), the sources in
+    ``first`` first, then the rest in table order.  Returns at once;
+    ``_lib`` waits for its own library (moving it to the front of the queue
+    if it has not started) and ``build`` for all.  The compiles still
+    running when the interpreter exits are killed."""
+    global _THREAD
+    todo = []
+    with _LOCK:
+        for source in _sources(first):
+            for suffix in _SUFFIXES:
+                out = _lib_path(source, suffix)
+                if (source, suffix) not in _JOBS and not out.exists():
+                    todo.append((source, suffix, out))
+        if not todo:
+            return
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        procs = {}
-        for (source, suffix), out in todo.items():
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            log = out.with_suffix(".log")
-            cmd = [nvcc, *_flags(suffix), "-o", str(tmp), str(CSRC / source)]
-            with open(log, "w") as fh:
-                procs[(source, suffix)] = (subprocess.Popen(
-                    cmd, stdout=fh, stderr=subprocess.STDOUT), tmp, out, log)
-        errors = []
-        while procs:
-            for key, (proc, tmp, out, log) in list(procs.items()):
-                if proc.poll() is None:
-                    continue
-                del procs[key]
-                secs = time.perf_counter() - t0
-                if proc.returncode != 0:
-                    errors.append(f"{key[0]} ({key[1]}):\n{log.read_text()}")
-                    continue
-                with open(log, "a") as fh:
-                    fh.write(f"# built in {secs:.1f} s\n")
-                os.replace(tmp, out)
-            time.sleep(0.1)
-        if errors:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        for source, suffix, out in todo:
+            _JOBS[(source, suffix)] = _Job(out)
+            _QUEUE.append((source, suffix))
+        if _THREAD is None:
+            _THREAD = threading.Thread(target=_run_queue, daemon=True,
+                                       args=(nvcc, time.perf_counter()))
+            _THREAD.start()
+
+
+def _run_queue(nvcc: str, t0: float) -> None:
+    """The build thread: keeps up to ``os.cpu_count() - 1`` compiles
+    running until the queue is empty.  A job it cannot start or finish
+    (no file handle, a full disk) ends with that error, and so does every
+    job still waiting if the thread itself fails, so no caller of ``_wait``
+    is left waiting."""
+    global _THREAD
+    width = max(1, (os.cpu_count() or 2) - 1)
+    try:
+        while True:
+            with _LOCK:
+                if _STOPPED or (not _QUEUE and not _RUNNING):
+                    _THREAD = None
+                    return
+                while _QUEUE and len(_RUNNING) < width:
+                    key = _QUEUE.pop(0)
+                    try:
+                        _RUNNING[key] = _start(nvcc, key)
+                    except Exception as e:
+                        _fail(key, e)
+                ended = [(key, *run) for key, run in _RUNNING.items()
+                         if run[0].poll() is not None]
+                for key, *_ in ended:
+                    del _RUNNING[key]
+            for key, proc, tmp, began in ended:
+                try:
+                    _finish(key, proc, tmp, began, t0)
+                except Exception as e:
+                    _fail(key, e)
+                _JOBS[key].done.set()
+            time.sleep(0.05)
+    except BaseException as e:
+        with _LOCK:
+            _THREAD = None
+            left = [*_QUEUE, *_RUNNING]
+            _QUEUE.clear()
+        for key in left:
+            _fail(key, e)
+        raise
+
+
+def _start(nvcc: str, key):
+    """Start ``key``'s nvcc, its output to the library's log: (the
+    process, its temporary output, its start seconds)."""
+    job = _JOBS[key]
+    tmp = job.out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *_flags(key[1]), "-o", str(tmp), str(CSRC / key[0])]
+    with open(job.out.with_suffix(".log"), "w") as fh:
+        proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    return proc, tmp, time.perf_counter()
+
+
+def _finish(key, proc, tmp, began: float, t0: float) -> None:
+    """Record ``key``'s ended compile: its log as the job's error if nvcc
+    failed, else the seconds appended to the log and the library moved
+    into place."""
+    job = _JOBS[key]
+    log = job.out.with_suffix(".log")
+    now = time.perf_counter()
+    if proc.returncode != 0:
+        job.error = f"{key[0]} ({key[1]}):\n{log.read_text()}"
+    else:
+        with open(log, "a") as fh:
+            fh.write(f"# built in {now - t0:.1f} s (nvcc "
+                     f"{now - began:.1f} s)\n")
+        os.replace(tmp, job.out)
+
+
+def _fail(key, err: BaseException) -> None:
+    """End ``key``'s job with ``err`` (``_wait`` raises it)."""
+    job = _JOBS[key]
+    job.error = f"{key[0]} ({key[1]}): {type(err).__name__}: {err}"
+    job.done.set()
+
+
+@atexit.register
+def _stop_builds() -> None:
+    global _STOPPED
+    with _LOCK:
+        _STOPPED = True
+        _QUEUE.clear()
+        running = list(_RUNNING.values())
+    for proc, *_ in running:        # nvcc and the tools it runs
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def _wait(keys) -> None:
+    errors = []
+    for key in keys:
+        job = _JOBS.get(key)
+        if job is None:
+            continue
+        with _LOCK:
+            if key in _QUEUE:
+                _QUEUE.remove(key)
+                _QUEUE.insert(0, key)
+        job.done.wait()
+        if job.error:
+            errors.append(job.error)
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+
+
+def build_pending() -> int:
+    """Libraries queued or compiling in this process."""
+    with _LOCK:
+        return len(_QUEUE) + len(_RUNNING)
+
+
+def build() -> float:
+    """Compile every kernel library not yet built (``build_start``) and
+    wait for all of them.  Returns the wall seconds spent here; raises on
+    a failed compile."""
+    t0 = time.perf_counter()
+    build_start()
+    _wait(list(_JOBS))
     return time.perf_counter() - t0
 
 
@@ -338,7 +496,8 @@ def _lib(source: str, suffix: str):
     if lib is None:
         path = _lib_path(source, suffix)
         if not path.exists():
-            build()
+            build_start()
+            _wait([(source, suffix)])
         lib = ctypes.CDLL(str(path))
         for name, (src, argtypes) in (*KERNELS.items(), *PROBES.items()):
             if src == source:
@@ -416,15 +575,15 @@ def check_dense(name: str, N: int, k: int) -> None:
             f"CUDA (got N = {N}, k = {k}); past that is {DENSE_PAST_32}")
 
 
-def check_particles(name: str, M: int) -> None:
-    """Raise unless the particle count is one K10 takes: M < 1 is an
-    error, M > SV_MMAX not ported yet (the plain twins take any M)."""
+def route_sv(name: str, k: int, M: int) -> str:
+    """The kernel K10's entry point ``name`` (``sv_rbpf``, ``sv_ffbs``)
+    launches for k factors and M particles: its own kernel for k <= KMAX
+    and M <= SV_MMAX, else its generic kernel (``GEN``), which takes any M;
+    M < 1 is an error, k past GEN_KMAX raises as ``route``."""
     if M < 1:
         raise ValueError(f"{name} kernel takes M >= 1 particles; got {M}")
-    if M > SV_MMAX:
-        raise NotImplementedError(
-            f"{name} kernel takes M <= {SV_MMAX} particles on CUDA (got "
-            f"M = {M}): more is {SV_PARTICLES}")
+    got = route(name, k)
+    return GEN[name] if M > SV_MMAX else got
 
 
 def check_tensor(name: str, x, shape, dtype, device) -> None:

@@ -10,7 +10,9 @@ The PyTorch twin of ``dfm_tpu.models.sv``.  Model:
 Conditional on the log-vol path the model is linear-Gaussian, so each of
 M particles carries an exact Kalman state (x, P) beside its h, and its
 weight increment is the Kalman innovation density.  Two kernels carry the
-family (``csrc/sv_rbpf.cu``):
+family (``csrc/sv_rbpf.cu`` to k = 16 and 1,024 particles; past either,
+to k = 128 and any particle count, their generic twins in
+``csrc/sv_gen.cu``, ``kernels.route_sv``):
 
   K10-fwd  ``rbpf_scan``: the whole T-step RBPF scan (per-particle
            info-form update, residual weights in the ``"residual"`` or
@@ -62,7 +64,8 @@ from ..ssm.params import SSMParams
 
 __all__ = ["SVSpec", "SVResult", "SVFit", "SVDraws", "FFBSDraws",
            "sv_draws", "ffbs_draws", "estep_draws", "systematic_indices",
-           "rbpf_scan", "rbpf_scan_plain", "ffbs", "ffbs_plain",
+           "rbpf_scan", "rbpf_scan_gen", "rbpf_scan_plain", "ffbs",
+           "ffbs_gen", "ffbs_plain",
            "sv_filter", "sv_smooth_h", "sv_fit", "sv_forecast",
            "e_step_device", "m_step", "SIGMA_FLOOR"]
 
@@ -280,20 +283,44 @@ def rbpf_scan_plain(Y, Lam, R, C, B, A, mu0, P0, h_center, sigma_h,
             torch.stack(logw_hist) if store_paths else None)
 
 
-def _check(name, k, M, specs, dt, dev):
-    kernels.check_k(name, k)
-    kernels.check_particles(name, M)
+def _route(name, k, M, specs, dt, dev, generic: bool) -> str:
+    """The kernel ``kernels.route_sv`` gives ``name`` at (k, M), once the
+    tensors are checked: K10's own to k = 16 and M = 1,024, the generic one
+    past either (to k = 128, any M); the generic one at every (k, M) it
+    takes if ``generic``."""
+    got = kernels.route_sv(name, k, M)
+    if generic:
+        got = kernels.GEN[name]
     for arg, x, shape in specs:
         kernels.check_tensor(arg, x, shape, dt, dev)
+    return got
 
 
 def rbpf_scan(Y, Lam, R, C, B, A, mu0, P0, h_center, sigma_h,
               h0_scale: float, draws: SVDraws, ess_frac: float,
               residual: bool, store_paths: bool):
-    """The RBPF scan: kernel K10-fwd (``csrc/sv_rbpf.cu``) for CUDA
-    tensors, one C call enqueuing the whole T loop (one ``LAUNCHES``
-    count); the plain twin for CPU tensors.  Arguments and returns as
-    ``rbpf_scan_plain``."""
+    """The RBPF scan: kernel K10-fwd (``csrc/sv_rbpf.cu``; past k = 16 or
+    1,024 particles K10-fwd-gen, ``csrc/sv_gen.cu``) for CUDA tensors, one
+    C call enqueuing the whole T loop (one ``LAUNCHES`` count); the plain
+    twin for CPU tensors.  Arguments and returns as ``rbpf_scan_plain``."""
+    return _rbpf_scan(Y, Lam, R, C, B, A, mu0, P0, h_center, sigma_h,
+                      h0_scale, draws, ess_frac, residual, store_paths,
+                      False)
+
+
+def rbpf_scan_gen(Y, Lam, R, C, B, A, mu0, P0, h_center, sigma_h,
+                  h0_scale: float, draws: SVDraws, ess_frac: float,
+                  residual: bool, store_paths: bool):
+    """``rbpf_scan`` through K10-fwd-gen at every k <= 128 and M >= 1 (what
+    ``rbpf_scan`` launches past k = 16 or 1,024 particles; this entry holds
+    it below both too); the plain twin for CPU tensors."""
+    return _rbpf_scan(Y, Lam, R, C, B, A, mu0, P0, h_center, sigma_h,
+                      h0_scale, draws, ess_frac, residual, store_paths,
+                      True)
+
+
+def _rbpf_scan(Y, Lam, R, C, B, A, mu0, P0, h_center, sigma_h, h0_scale,
+               draws, ess_frac, residual, store_paths, generic: bool):
     if Y.device.type == "cpu":
         return rbpf_scan_plain(Y, Lam, R, C, B, A, mu0, P0, h_center,
                                sigma_h, h0_scale, draws, ess_frac, residual,
@@ -308,7 +335,7 @@ def rbpf_scan(Y, Lam, R, C, B, A, mu0, P0, h_center, sigma_h,
              ("draws.xi", draws.xi, (T, M, k)), ("draws.u", draws.u, (T,))]
     if not residual:
         specs.append(("B", B, (T, k)))
-    _check("sv_rbpf", k, M, specs, dt, dev)
+    name = _route("sv_rbpf", k, M, specs, dt, dev, generic)
     e = dict(dtype=dt, device=dev)
     ll_rel = torch.empty((T,), **e)
     f_mean = torch.empty((T, k), **e)
@@ -317,19 +344,41 @@ def rbpf_scan(Y, Lam, R, C, B, A, mu0, P0, h_center, sigma_h,
     n_rs = torch.empty((), dtype=torch.int32, device=dev)
     h_hist = torch.empty((T, M, k), **e) if store_paths else None
     logw_hist = torch.empty((T, M), **e) if store_paths else None
-    # Scratch: the particle state between steps and its gather copy
-    # (x_p, P_f, log|G|, h, logW, then x_f and h to gather from), and the
-    # residual stage's per-tile partials (c2 in f64, u), kernels.SV_TILE
-    # series a tile.
-    state = torch.empty((M * (4 * k + k * k + 2),), **e)
-    tiles = -(-N // kernels.SV_TILE) if residual else 0
-    c2p = torch.empty((tiles, M), dtype=torch.float64, device=dev)
-    up = torch.empty((tiles, k, M), **e)
-    kernels.launch("sv_rbpf", dt, Y, Lam, R, C, None if residual else B, A,
-                   mu0, P0, h_center, sigma_h, draws.h0, draws.xi, draws.u,
-                   ll_rel, f_mean, h_mean, ess, n_rs, h_hist, logw_hist,
-                   state, c2p, up, T, N, k, M, int(residual),
-                   float(h0_scale), float(ess_frac))
+    head = (Y, Lam, R, C, None if residual else B, A, mu0, P0, h_center,
+            sigma_h, draws.h0, draws.xi, draws.u, ll_rel, f_mean, h_mean,
+            ess, n_rs, h_hist, logw_hist)
+    if name == "sv_rbpf":
+        # Scratch: the particle state between steps and its gather copy
+        # (x_p, P_f, log|G|, h, logW, then x_f and h to gather from), and
+        # the residual stage's per-tile partials (c2 in f64, u),
+        # kernels.SV_TILE series a tile.
+        state = torch.empty((M * (4 * k + k * k + 2),), **e)
+        tiles = -(-N // kernels.SV_TILE) if residual else 0
+        c2p = torch.empty((tiles, M), dtype=torch.float64, device=dev)
+        up = torch.empty((tiles, k, M), **e)
+        kernels.launch(name, dt, *head, state, c2p, up, T, N, k, M,
+                       int(residual), float(h0_scale), float(ess_frac))
+    else:
+        # Scratch (csrc/sv_gen.cu, SvgState): x_p, x_f, two h buffers,
+        # log|G|, logW, tot and the normalized cumsum; P_f double buffered;
+        # the resampling flag and indices; the residual stage's partials a
+        # chunk of ``nsc`` series (c2 in f64, u); the prediction's global
+        # workspace where a particle's three k x k matrices pass shared
+        # memory.  The sizes come from the source's rules.
+        sms = kernels.gen_ctas(dev, 1 << 30)
+        nsc = (kernels.query("sv_rbpf_gen_series", dt, N, M, sms)
+               if residual else 0)
+        chunks = -(-N // nsc) if residual else 0
+        slots = kernels.query("sv_rbpf_gen_slots", dt, k, M, sms)
+        state = torch.empty((M * (4 * k + 4),), **e)
+        Pf = torch.empty((2, M, k, k), **e)
+        istate = torch.empty((M + 1,), dtype=torch.int32, device=dev)
+        c2p = torch.empty((chunks, M), dtype=torch.float64, device=dev)
+        up = torch.empty((chunks, M, k), **e)
+        work = torch.empty((slots, 3, k, k | 1), **e) if slots else None
+        kernels.launch(name, dt, *head, state, Pf, istate, c2p, up, work, T,
+                       N, k, M, int(residual), nsc, slots, float(h0_scale),
+                       float(ess_frac))
     return ll_rel, f_mean, h_mean, ess, n_rs, h_hist, logw_hist
 
 
@@ -359,20 +408,34 @@ def ffbs_plain(h_hist, logw_hist, sigma_h, draws: FFBSDraws):
 
 def ffbs(h_hist, logw_hist, sigma_h, draws: FFBSDraws):
     """Backward sampling: kernel K10-ffbs (``csrc/sv_rbpf.cu``, a block a
-    draw) for CUDA tensors, the plain twin for CPU tensors.  Returns
-    (T, S, k)."""
+    draw; past k = 16 or 1,024 particles K10-ffbs-gen, ``csrc/sv_gen.cu``,
+    a block of four draws) for CUDA tensors, the plain twin for CPU
+    tensors.  Returns (T, S, k)."""
+    return _ffbs(h_hist, logw_hist, sigma_h, draws, False)
+
+
+def ffbs_gen(h_hist, logw_hist, sigma_h, draws: FFBSDraws):
+    """``ffbs`` through K10-ffbs-gen at every k <= 128 and M >= 1 (what
+    ``ffbs`` launches past k = 16 or 1,024 particles; this entry holds it
+    below both too); the plain twin for CPU tensors."""
+    return _ffbs(h_hist, logw_hist, sigma_h, draws, True)
+
+
+def _ffbs(h_hist, logw_hist, sigma_h, draws, generic: bool):
     if h_hist.device.type == "cpu":
         return ffbs_plain(h_hist, logw_hist, sigma_h, draws)
     T, M, k = h_hist.shape
     S = draws.g_last.shape[0]
     dt, dev = h_hist.dtype, h_hist.device
-    _check("sv_ffbs", k, M,
-           [("h_hist", h_hist, (T, M, k)), ("logw_hist", logw_hist, (T, M)),
-            ("sigma_h", sigma_h, (k,)), ("draws.g_last", draws.g_last,
-                                         (S, M)),
-            ("draws.g", draws.g, (T - 1, S, M))], dt, dev)
+    name = _route("sv_ffbs", k, M,
+                  [("h_hist", h_hist, (T, M, k)),
+                   ("logw_hist", logw_hist, (T, M)),
+                   ("sigma_h", sigma_h, (k,)),
+                   ("draws.g_last", draws.g_last, (S, M)),
+                   ("draws.g", draws.g, (T - 1, S, M))], dt, dev,
+                  generic)
     out = torch.empty((T, S, k), dtype=dt, device=dev)
-    kernels.launch("sv_ffbs", dt, h_hist, logw_hist, sigma_h, draws.g_last,
+    kernels.launch(name, dt, h_hist, logw_hist, sigma_h, draws.g_last,
                    draws.g, out, T, M, k, S)
     return out
 

@@ -276,7 +276,11 @@ def test_gen_routes(k, tier):
         # K14 (pit_elements, pit_scan) has one kernel at every k <= 32.
         assert got == (kernels.WIDE.get(name, name) if tier == "wide"
                        else kernels.GEN[name])
-        assert kernels.KERNELS[got][0] == kernels.KERNELS[name][0]
+        # Each routed kernel is in its entry point's source, but K10's
+        # generic kernels, which have a source of their own.
+        src = ("sv_gen.cu" if name in ("sv_rbpf", "sv_ffbs")
+               else kernels.KERNELS[name][0])
+        assert kernels.KERNELS[got][0] == src
 
 
 def test_past_128_and_unported_names_raise_before_any_launch():

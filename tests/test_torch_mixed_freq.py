@@ -351,14 +351,16 @@ def test_past_the_wide_range_raises_naming_the_roadmap_row():
     kernels.check_k("quad_local_wide", 32, kernels.WIDE_KMAX)
     with pytest.raises(NotImplementedError, match="Generic k"):
         kernels.check_k("quad_local_wide", 33, kernels.WIDE_KMAX)
-    # Every other kernel stops at 16, but K3 and K5a, whose wide kernels
-    # take 16 < k <= 32 and generic kernels 32 < k <= 128: both stop at
-    # 129.
-    for name in ("batched_info_scan", "sv_rbpf", "sv_ffbs"):
+    # Every other kernel stops at 16, but K3, K5a and K10 (K10-fwd and
+    # K10-ffbs), whose kernels past 16 take 16 < k <= 32 and 32 < k <= 128
+    # (K10's one generic kernel both): all stop at 129.
+    for name in ("batched_info_scan",):
         with pytest.raises(NotImplementedError, match="Generic k"):
             kernels.check_k(name, 17)
     for name, kmax in (("mstep_rows", kernels.GEN_KMAX),
-                       ("ss_cov_path", kernels.GEN_KMAX)):
+                       ("ss_cov_path", kernels.GEN_KMAX),
+                       ("sv_rbpf", kernels.GEN_KMAX),
+                       ("sv_ffbs", kernels.GEN_KMAX)):
         assert kernels.route(name, 17) == kernels.WIDE[name]
         with pytest.raises(NotImplementedError, match="Generic k"):
             kernels.route(name, kmax + 1)

@@ -213,5 +213,6 @@ def test_cpu_path_launches_no_kernel():
                                      "tvl_obs_stats_wide",
                                      "tvl_obs_stats_gen", "tvl_quad_wide",
                                      "tvl_quad_gen", "loading_filter_gen",
-                                     "loading_smoother_gen"}
+                                     "loading_smoother_gen", "sv_rbpf_gen",
+                                     "sv_ffbs_gen"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())

@@ -228,21 +228,22 @@ def test_fit_rejects_what_the_sv_family_does_not_take(case):
         dtt.fit(ts, Y, backend=CPU, max_iters=1, **kw)
 
 
-@pytest.mark.parametrize("k,M_,exc", [(16, 1024, None),
-                                      (17, 64, NotImplementedError),
-                                      (3, 1025, NotImplementedError),
-                                      (3, 0, ValueError)])
-def test_kernel_range_checks(k, M_, exc):
-    """The CUDA wrappers take k <= 16 (``check_k``) and 1 <= M <= 1,024
-    (``check_particles``); past that they raise, naming the ROADMAP row."""
-    if exc is None:
-        kernels.check_k("sv_rbpf", k)
-        kernels.check_particles("sv_rbpf", M_)
+@pytest.mark.parametrize("k,M_,want", [(16, 1024, ("sv_rbpf", "sv_ffbs")),
+                                       (129, 64, NotImplementedError),
+                                       (3, 1025,
+                                        ("sv_rbpf_gen", "sv_ffbs_gen")),
+                                       (3, 0, ValueError)])
+def test_kernel_range_checks(k, M_, want):
+    """The CUDA wrappers route by (k, M) (``kernels.route_sv``): K10's own
+    kernels to k = 16 and 1,024 particles, the generic ones past either;
+    k = 129 raises, naming the ROADMAP row, and M < 1 is an error."""
+    if isinstance(want, tuple):
+        assert tuple(kernels.route_sv(n, k, M_)
+                     for n in ("sv_rbpf", "sv_ffbs")) == want
         return
-    with pytest.raises(exc) as err:
-        kernels.check_k("sv_rbpf", k)
-        kernels.check_particles("sv_rbpf", M_)
-    if exc is NotImplementedError:
+    with pytest.raises(want) as err:
+        kernels.route_sv("sv_rbpf", k, M_)
+    if want is NotImplementedError:
         assert "ROADMAP Queue 2" in str(err.value)
 
 

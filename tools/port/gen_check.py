@@ -22,6 +22,12 @@ and the integers after its name.  The families' checks:
       obs_stats.cu,quad_local.cu,tv_loadings.cu,info_scan.cu,step_chain.cu
       tgen_kernel_phase tgen_k_sweep tgen_fit_phase tgen_reference_phase
       tvl_contract_phase:25
+    stochastic volatility past 16 and past 1,024 particles (K10-fwd-gen,
+    K10-ffbs-gen):
+      sv_gen.cu vgen_k_sweep vgen_reference_phase
+    (the vgen group's fits, kernel phase and contract also need the
+    pre-fit's sources and the latency probe: run ``chip_smoke.py --phases
+    vgen``)
 
 Prints the card line, the build seconds, the sources' ptxas lines and
 ``chip_smoke``'s JSON records, each phase's seconds.  Raises without a
