@@ -120,18 +120,18 @@ class TorchBackend:
     kernel's plain-torch version).  dtype: compute dtype, None for float32
     on CUDA and float64 on the CPU.  filter: "auto" (dense below N = 32,
     "ss" for unmasked panels at N >= 512, info otherwise — the JAX
-    package's rule), "dense" (the N x N filter, kernel K15: N <= 32 and
-    k <= 32 on CUDA), "info", "ss" (steady-state; tau from the Riccati
-    mixing time at the init params), "pit" (covariance-form
+    package's rule), "dense" (the N x N filter, kernel K15: N <= 128 and
+    k <= 128 on CUDA, K15-gen past 32), "info", "ss" (steady-state; tau
+    from the Riccati mixing time at the init params), "pit" (covariance-form
     parallel-in-time), "pit_qr" (square-root parallel-in-time; past k =
     10 the JAX package's Gram-and-Cholesky branches, whose f32 loglik is
     far from the exact one at large N, in both packages) or "lowrank" (the
     rank-r downdate engine for wide factor models,
-    ``ssm.lowrank_filter``; on CUDA its kernels take k <= 100 and r <=
-    32).  On CUDA "info", "ss", "pit", "pit_qr" and the rest of the
-    "lowrank" path take k <= 128 (``kernels.GEN_KMAX``), on the lone and
-    the batched paths; past it a CUDA call raises naming the ROADMAP
-    row.  rank: the
+    ``ssm.lowrank_filter``; on CUDA its kernels take k <= 128 and any
+    r <= k, the generic ones past k = 100 or r = 32).  On CUDA "info",
+    "ss", "pit", "pit_qr" and the rest of the "lowrank" path take k <= 128
+    (``kernels.GEN_KMAX``), on the lone and the batched paths; past it a
+    CUDA call raises naming the ROADMAP row.  rank: the
     rank r of "lowrank" (<= 0: auto, min(k, 8)); the other engines ignore
     it.  fused_chunk: EM
     iterations per device chunk between host reads.  device_init:

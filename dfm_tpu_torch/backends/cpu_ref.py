@@ -16,7 +16,7 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["SSMParams", "pca_init", "var_tail", "forecast"]
+__all__ = ["SSMParams", "pca_init", "pca_svd", "var_tail", "forecast"]
 
 
 @dataclasses.dataclass
@@ -56,20 +56,24 @@ def _sym(M: np.ndarray) -> np.ndarray:
 
 
 def pca_init(Y: np.ndarray, k: int, static: bool = False,
-             mask: Optional[np.ndarray] = None) -> SSMParams:
+             mask: Optional[np.ndarray] = None,
+             Vt: Optional[np.ndarray] = None) -> SSMParams:
     """Stock-Watson principal-components initializer.
 
     ``Y`` is already standardized per series.  Lam = sqrt(N) * top-k right
     singular vectors of Y; f = Y Lam / N.  Then A, Q from an OLS VAR(1) on
     f and R from the idiosyncratic residual variances.  With ``static`` the
     dynamics are pinned to A = 0, Q = I.  Missing entries (mask = 0 or NaN)
-    are zero-filled, the series mean of a standardized panel.
+    are zero-filled, the series mean of a standardized panel.  ``Vt``: the
+    right singular vectors of that zero-filled Y when already computed
+    (``pca_svd``; inits of one panel at several k share them).
     """
     Y = np.asarray(Y, dtype=np.float64)
     T, N = Y.shape
     if mask is not None:
         Y = np.where(np.asarray(mask) > 0, np.nan_to_num(Y), 0.0)
-    U, s, Vt = np.linalg.svd(Y, full_matrices=False)
+    if Vt is None:
+        Vt = pca_svd(Y)
     V = Vt[:k].T                                  # (N, k) top eigvecs of Y'Y
     Lam = np.sqrt(N) * V
     F = Y @ Lam / N                               # (T, k)
@@ -77,6 +81,13 @@ def pca_init(Y: np.ndarray, k: int, static: bool = False,
     R = np.maximum(resid.var(axis=0), 1e-6)
     A, Q, mu0, P0 = var_tail(F, k, static)
     return SSMParams(Lam, A, Q, R, mu0, P0)
+
+
+def pca_svd(Y: np.ndarray) -> np.ndarray:
+    """The right singular vectors ``pca_init`` takes its loadings from
+    (rows, largest singular value first), of a zero-filled panel."""
+    return np.linalg.svd(np.asarray(Y, dtype=np.float64),
+                         full_matrices=False)[2]
 
 
 def var_tail(F: np.ndarray, k: int, static: bool = False):

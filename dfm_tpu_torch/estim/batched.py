@@ -61,6 +61,7 @@ fuses it with the ring eviction, ``serve.batched``).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -1191,9 +1192,15 @@ def fit_many(spec: DFMBatchSpec, backend=None, max_iters: int = 50,
         inits = pca_init_batched(Yt, k_max, static=static)   # one read
         init_reads = 1
     else:
-        inits = [pad_params_to_k(
-            cpu_ref.pca_init(Yz[i], int(k_act[i]), static=static), k_max)
-            for i in range(B)]
+        # One SVD a distinct panel: the k-grid's lanes share one panel.
+        svds: dict = {}
+        inits = []
+        for i in range(B):
+            key = hashlib.sha256(Yz[i].tobytes()).digest()
+            if key not in svds:
+                svds[key] = cpu_ref.pca_svd(Yz[i])
+            inits.append(pad_params_to_k(cpu_ref.pca_init(
+                Yz[i], int(k_act[i]), static=static, Vt=svds[key]), k_max))
 
     cfg = EMConfig(estimate_A=model.estimate_A, estimate_Q=model.estimate_Q,
                    estimate_init=model.estimate_init, filter="info")

@@ -4,9 +4,11 @@ At first use each ``csrc/*.cu`` source is compiled twice, once per dtype
 (``-DDFM_DTYPE=32`` and ``64``: each library holds one dtype's entry
 points, so the two halves of a heavy source build in parallel), by its own
 ``nvcc`` processes (``build_start`` queues them all, a caller's sources
-first, and runs them in the background, one fewer at a time than the host
-has cores; ``build`` waits for all, and a kernel's first launch for its
-own library) into shared libraries with a plain C interface, under
+first, and runs them in the background, one fewer at a time than the
+host has cores, each at the lowest CPU priority (``nice``), so the
+caller's own work beside the build takes a core whenever it runs;
+``build`` waits for all, and a kernel's first launch for its own library)
+into shared libraries with a plain C interface, under
 ``build/dfm_tpu_torch/`` beside the package and named by a hash of the sources' contents and the flags, so an edited
 source rebuilds and an unchanged one is reused.  The libraries are loaded with ``ctypes``;
 every pointer and the stream cross as ``c_void_p`` (a default ctypes int
@@ -44,7 +46,8 @@ import torch
 
 __all__ = ["LAUNCHES", "KERNELS", "PROBES", "build", "build_start",
            "build_pending", "build_log", "launch", "probe", "reset_launches",
-           "check_k", "check_lowrank", "check_dense", "route_sv",
+           "check_k", "check_lowrank", "check_dense", "route_lowrank",
+           "route_dense", "route_sv",
            "check_tensor", "WIDE", "GEN",
            "DEVICE_LAUNCHES", "route", "gen_ctas", "GEN_MATS", "QUERIES",
            "query"]
@@ -81,16 +84,16 @@ WIDE_KMAX = 32
 # from KMAX up), and the stochastic-volatility family's K10-fwd and
 # K10-ffbs (their generic kernels from KMAX up, and at any k past SV_MMAX
 # particles: ``route_sv``).  The square-root engine's K8 (qr_elements_gen,
-# qr_scan_gen) takes 10 < k <= GEN_KMAX.  Every other kernel but the
-# rank-r ones (below) stops at WIDE_KMAX or below.
+# qr_scan_gen) takes 10 < k <= GEN_KMAX; the rank-r trio K9 and the dense
+# filter K15 take their generic kernels (``csrc/gen_filters.cu``) past
+# their own kernels' ranges (below) to k = GEN_KMAX, r <= k and N =
+# GEN_KMAX (``route_lowrank``, ``route_dense``).
 GEN_KMAX = 128
-# The rank-r kernels' range (DFM_LR_KMAX, DFM_LR_RMAX in lowrank_scan.cu).
+# The rank-r kernels' range (DFM_LR_KMAX, DFM_LR_RMAX in lowrank_scan.cu);
+# past either, to k = GEN_KMAX and any r <= k, their generic kernels.
 LOWRANK_KMAX, LOWRANK_RMAX = 100, 32
 # The ROADMAP row that ports the kernels past their k range.
 GENERIC_K = "ROADMAP Queue 2, 'Generic k, the kernels already ported'"
-# The ROADMAP row that ports K15 (``dense_filter``) past N = 32 (the JAX
-# package's ``auto`` never routes a panel of N >= 32 to the dense engine).
-DENSE_PAST_32 = "ROADMAP Queue 2, 'The dense engine past N = 32'"
 # K10's own kernels' particle range (DFM_SV_MMAX in sv_rbpf.cu: their step
 # kernel is one block, a particle a thread; past it ``route_sv`` gives the
 # generic kernels, which take any M) and their residual stage's series tile
@@ -128,7 +131,7 @@ KERNELS = {
     "tvl_obs_stats": ("obs_stats.cu", [_P] * 8 + [_I] * 3),
     "tvl_quad": ("quad_local.cu", [_P] * 7 + [_I] * 3),
     "loading_filter": ("tv_loadings.cu", [_P] * 8 + [_I] * 3),
-    "loading_smoother": ("tv_loadings.cu", [_P] * 6 + [_I] * 3),
+    "loading_smoother": ("tv_smoother.cu", [_P] * 6 + [_I] * 3),
     "obs_stats_wide": ("obs_stats.cu", [_P] * 8 + [_I] * 3),
     "info_scan_wide": ("info_scan.cu", [_P, _P, _I] + [_P] * 9 + [_I] * 2),
     "rts_smoother_wide": ("info_scan.cu", [_P] * 8 + [_I] * 2),
@@ -151,13 +154,14 @@ KERNELS = {
     "batched_mstep_rows_wide": ("mstep_rows.cu",
                                 [_P] * 7 + [_I] * 4 + [_D]),
     "obs_stats_gen": ("obs_stats.cu", [_P] * 8 + [_I] * 3),
-    "info_scan_gen": ("info_scan.cu", [_P, _P, _I] + [_P] * 10 + [_I] * 2),
-    "rts_smoother_gen": ("info_scan.cu", [_P] * 9 + [_I] * 2),
+    "info_scan_gen": ("info_scan_gen.cu",
+                      [_P, _P, _I] + [_P] * 10 + [_I] * 2),
+    "rts_smoother_gen": ("info_scan_gen.cu", [_P] * 9 + [_I] * 2),
     "quad_local_gen": ("quad_local.cu", [_P] * 7 + [_I] * 3),
     "mstep_rows_gen": ("mstep_rows.cu", [_P] * 7 + [_I] * 3 + [_D] * 2),
-    "batched_info_scan_gen": ("info_scan.cu",
+    "batched_info_scan_gen": ("info_scan_gen.cu",
                               [_P, _P, _I, _I] + [_P] * 11 + [_I] * 3),
-    "batched_rts_gen": ("info_scan.cu", [_P] * 9 + [_I] * 3),
+    "batched_rts_gen": ("info_scan_gen.cu", [_P] * 9 + [_I] * 3),
     "batched_quad_gen": ("quad_local.cu", [_P] * 8 + [_I] * 4),
     "batched_quad_masked_gen": ("quad_local.cu", [_P] * 9 + [_I] * 4),
     "batched_solve_rows_gen": ("bsolve_rows.cu", [_P] * 4 + [_I] * 3),
@@ -173,10 +177,15 @@ KERNELS = {
     "tvl_obs_stats_gen": ("obs_stats.cu", [_P] * 8 + [_I] * 3),
     "tvl_quad_wide": ("quad_local.cu", [_P] * 7 + [_I] * 3),
     "tvl_quad_gen": ("quad_local.cu", [_P] * 7 + [_I] * 3),
-    "loading_filter_gen": ("tv_loadings.cu", [_P] * 8 + [_I] * 3),
-    "loading_smoother_gen": ("tv_loadings.cu", [_P] * 7 + [_I] * 4),
+    "loading_filter_gen": ("tv_loadings_gen.cu", [_P] * 8 + [_I] * 3),
+    "loading_smoother_gen": ("tv_loadings_gen.cu", [_P] * 7 + [_I] * 4),
     "sv_rbpf_gen": ("sv_gen.cu", [_P] * 26 + [_I] * 7 + [_D] * 2),
     "sv_ffbs_gen": ("sv_gen.cu", [_P] * 6 + [_I] * 4),
+    "lowrank_basis_gen": ("gen_filters.cu", [_P] * 3 + [_I] * 3),
+    "lowrank_scan_gen": ("gen_filters.cu", [_P, _P, _I, _I] + [_P] * 12
+                         + [_I] * 4),
+    "lowrank_smoother_gen": ("gen_filters.cu", [_P] * 10 + [_I] * 4),
+    "dense_filter_gen": ("gen_filters.cu", [_P] * 14 + [_I] * 3),
 }
 
 # The entry points with a wide kernel beside the k <= KMAX one, and its
@@ -261,9 +270,11 @@ PROBES = {
 # types; no stream).  Each exports ``<name>_f32`` and ``<name>_f64`` and
 # returns an int.
 QUERIES = {
-    "loading_smoother_gen_slots": ("tv_loadings.cu", [_I] * 3),
+    "loading_smoother_gen_slots": ("tv_loadings_gen.cu", [_I] * 3),
     "sv_rbpf_gen_series": ("sv_gen.cu", [_I] * 3),
     "sv_rbpf_gen_slots": ("sv_gen.cu", [_I] * 3),
+    "lowrank_gen_work": ("gen_filters.cu", [_I] * 3),
+    "dense_gen_work": ("gen_filters.cu", [_I] * 2),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -332,10 +343,11 @@ def _sources(first=()) -> list:
 def build_start(first=()) -> None:
     """Start compiling, in the background, every kernel library not yet
     built: one ``nvcc`` per source and dtype, at most ``os.cpu_count() -
-    1`` at a time (so a caller's own thread keeps a core), the sources in
-    ``first`` first, then the rest in table order.  Returns at once;
-    ``_lib`` waits for its own library (moving it to the front of the queue
-    if it has not started) and ``build`` for all.  The compiles still
+    1`` at a time, niced (``_start``: a caller's own threads take a core
+    whenever they run), the sources in ``first`` first, then the rest in
+    table order.  Returns at once; ``_lib`` waits for its own library
+    (moving it to the front of the queue if it has not started) and
+    ``build`` for all.  The compiles still
     running when the interpreter exits are killed."""
     global _THREAD
     todo = []
@@ -400,11 +412,15 @@ def _run_queue(nvcc: str, t0: float) -> None:
 
 
 def _start(nvcc: str, key):
-    """Start ``key``'s nvcc, its output to the library's log: (the
-    process, its temporary output, its start seconds)."""
+    """Start ``key``'s nvcc under ``nice -n 19`` (it and the compilers it
+    runs take the CPU only when this process's threads leave it idle),
+    its output to the library's log: (the process, its temporary output,
+    its start seconds)."""
     job = _JOBS[key]
     tmp = job.out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *_flags(key[1]), "-o", str(tmp), str(CSRC / key[0])]
+    nice = shutil.which("nice")
+    cmd = ([nice, "-n", "19"] if nice else []) + [
+        nvcc, *_flags(key[1]), "-o", str(tmp), str(CSRC / key[0])]
     with open(job.out.with_suffix(".log"), "w") as fh:
         proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT,
                                 start_new_session=True)
@@ -550,29 +566,46 @@ def gen_ctas(device: torch.device, n: int) -> int:
 
 
 def check_lowrank(name: str, k: int, r: int) -> None:
-    """Raise unless (k, r) is in the rank-r kernels' range: 1 <= r <=
-    min(k, LOWRANK_RMAX), k <= LOWRANK_KMAX."""
+    """Raise unless (k, r) is one the rank-r kernels take: k past GEN_KMAX
+    is not ported yet (``NotImplementedError`` naming the ROADMAP row,
+    whatever r), and 1 <= r <= k is required."""
+    check_k(name, k, GEN_KMAX)
     if not 1 <= r <= k:
         raise ValueError(f"{name} kernel takes 1 <= r <= k; got k = {k}, "
                          f"r = {r}")
-    if k > LOWRANK_KMAX or r > LOWRANK_RMAX:
-        raise NotImplementedError(
-            f"{name} kernel takes k <= {LOWRANK_KMAX} and r <= "
-            f"{LOWRANK_RMAX} on CUDA (got k = {k}, r = {r}); past that is "
-            f"{GENERIC_K}")
+
+
+def route_lowrank(name: str, k: int, r: int) -> str:
+    """The kernel the rank-r entry point ``name`` (``lowrank_basis``,
+    ``lowrank_scan``, ``lowrank_smoother``) launches at (k, r): its own
+    kernel for k <= LOWRANK_KMAX and r <= LOWRANK_RMAX, else its generic
+    kernel ``<name>_gen``; raises as ``check_lowrank`` outside the
+    range."""
+    check_lowrank(name, k, r)
+    if k <= LOWRANK_KMAX and r <= LOWRANK_RMAX:
+        return name
+    return f"{name}_gen"
 
 
 def check_dense(name: str, N: int, k: int) -> None:
-    """Raise unless (N, k) is in K15's range: N, k >= 1 is required,
-    N > WIDE_KMAX or k > WIDE_KMAX not ported yet (the plain twin takes
-    any N and k)."""
+    """Raise unless (N, k) is one K15's kernels take: N, k >= 1 is
+    required, N or k past GEN_KMAX not ported yet (the plain twin takes any
+    N and k)."""
     if N < 1 or k < 1:
         raise ValueError(f"{name} kernel takes N, k >= 1; got N = {N}, "
                          f"k = {k}")
-    if N > WIDE_KMAX or k > WIDE_KMAX:
+    if N > GEN_KMAX or k > GEN_KMAX:
         raise NotImplementedError(
-            f"{name} kernel takes N <= {WIDE_KMAX} and k <= {WIDE_KMAX} on "
-            f"CUDA (got N = {N}, k = {k}); past that is {DENSE_PAST_32}")
+            f"{name} kernel takes N <= {GEN_KMAX} and k <= {GEN_KMAX} on "
+            f"CUDA (got N = {N}, k = {k}); past that is {GENERIC_K}")
+
+
+def route_dense(name: str, N: int, k: int) -> str:
+    """The kernel K15's entry point launches at (N, k): its own kernel
+    (one warp's N x N Cholesky, shared memory) for N, k <= WIDE_KMAX, else
+    ``<name>_gen``; raises as ``check_dense`` outside the range."""
+    check_dense(name, N, k)
+    return name if N <= WIDE_KMAX and k <= WIDE_KMAX else f"{name}_gen"
 
 
 def route_sv(name: str, k: int, M: int) -> str:

@@ -14,8 +14,9 @@ two exact conditional smoothers (a dual-Kalman scheme):
           the per-step C_t -> K1-tv (``quad_local_tv``) -> the f64 loglik ->
           K4-backward
   B-step  loadings | factors: K11-fwd (``loading_filter``) -> K11-bwd
-          (``loading_smoother``) (csrc/tv_loadings.cu: to k = 16 a thread
-          a series, past it a block a series)
+          (``loading_smoother``) (csrc/tv_loadings.cu and tv_smoother.cu:
+          to k = 16 a thread a series; past it csrc/tv_loadings_gen.cu, a
+          block a series)
   M-bits  A, Q from the factor moments; R from the residuals and the
           loading-uncertainty smear; tau2 from the smoothed increments.
 

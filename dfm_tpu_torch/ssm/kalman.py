@@ -3,7 +3,9 @@
 The PyTorch twin of ``dfm_tpu.ssm.kalman``.  ``kalman_filter`` is the
 small-N engine (``filter="auto"`` picks it below N = 32: an N x N
 innovation covariance a step): kernel K15 (``csrc/dense_filter.cu``, the
-whole T-step chain in one launch, N <= 32 and k <= 32) for CUDA tensors;
+whole T-step chain in one launch, N <= 32 and k <= 32; past either, to N
+= 128 and k = 128, K15-gen in ``csrc/gen_filters.cu``:
+``kernels.route_dense``) for CUDA tensors;
 ``kalman_filter_plain``, the same step as a Python loop of torch ops, is
 its plain version, which the wrapper takes only for CPU tensors.
 ``rts_smoother`` is the backward half of kernel K4 (``csrc/info_scan.cu``;
@@ -79,15 +81,16 @@ def kalman_filter(Y: torch.Tensor, p: SSMParams,
     """Forward filter with exact log-likelihood; O(T N^3).
 
     Y: (T, N); mask: optional (T, N) {0,1}.  Joseph-form covariance update.
-    Kernel K15 for CUDA tensors (N <= 32, k <= 32; past that
-    ``NotImplementedError``), the plain version for CPU tensors.
+    Kernel K15 for CUDA tensors (N <= 32, k <= 32; K15-gen to N = 128 and k
+    = 128, with a workspace; past that ``NotImplementedError`` before any
+    launch), the plain version for CPU tensors.
     """
     if Y.device.type == "cpu":
         return kalman_filter_plain(Y, p, mask)
     T, N = Y.shape
     k = p.Lam.shape[1]
     dt, dev = Y.dtype, Y.device
-    kernels.check_dense("dense_filter", N, k)
+    kernel = kernels.route_dense("dense_filter", N, k)
     p = SSMParams(*(x.to(dt).contiguous() for x in p))
     Y = Y.contiguous()
     ins = [("Y", Y, (T, N)), ("Lam", p.Lam, (N, k)), ("R", p.R, (N,)),
@@ -103,8 +106,10 @@ def kalman_filter(Y: torch.Tensor, p: SSMParams,
     x_filt = torch.empty((T, k), dtype=dt, device=dev)
     P_filt = torch.empty((T, k, k), dtype=dt, device=dev)
     lls = torch.empty((T,), dtype=dt, device=dev)
-    kernels.launch("dense_filter", dt, Y, mask, p.Lam, p.R, p.A, p.Q, p.mu0,
-                   p.P0, x_pred, P_pred, x_filt, P_filt, lls, T, N, k)
+    work = () if kernel == "dense_filter" else (torch.empty(
+        (kernels.query("dense_gen_work", dt, N, k),), dtype=dt, device=dev),)
+    kernels.launch(kernel, dt, Y, mask, p.Lam, p.R, p.A, p.Q, p.mu0,
+                   p.P0, x_pred, P_pred, x_filt, P_filt, lls, *work, T, N, k)
     return FilterResult(x_pred, P_pred, x_filt, P_filt, lls.sum())
 
 

@@ -20,7 +20,10 @@ backward gain to the same subspace: G1_t = P_f,t A'V and
 Sigma_t = V'P_pred,t+1 V + eps I, with only r x r solves.  The whole
 algorithm is invariant to V -> V B, so only the projector V V' matters.
 
-Three routines are kernels on CUDA tensors (``csrc/lowrank_scan.cu``),
+Three routines are kernels on CUDA tensors (``csrc/lowrank_scan.cu``
+for k <= 100 and r <= 32; past either, to k = 128 and any r <= k, the
+generic kernels of ``csrc/gen_filters.cu``, which keep their matrices in
+a global workspace the wrapper allocates: ``kernels.route_lowrank``),
 each with its plain twin beside it; a wrapper takes the twin only for CPU
 tensors.  Each takes a leading lane axis: a lone call is one lane, a
 fleet bucket passes its B lanes in one launch.
@@ -33,9 +36,9 @@ fleet bucket passes its B lanes in one launch.
 - K9-bwd ``lowrank_smoother_scan``: the projected RTS pass with its
   lag-one covariances.
 
-The kernels take 1 <= r <= min(k, 32), k <= 100; the twins any k.  The
-one E-step computes V once and hands it to both scans
-(``lowrank_filter_smoother``).
+The kernels take 1 <= r <= k <= 128 (past 128 a CUDA call raises naming
+the ROADMAP row before any launch); the twins any k.  The one E-step
+computes V once and hands it to both scans (``lowrank_filter_smoother``).
 """
 
 from __future__ import annotations
@@ -81,16 +84,24 @@ def lowrank_basis_plain(C: torch.Tensor, r: int) -> torch.Tensor:
     return vecs.flip(-1)[..., :r].contiguous()
 
 
+def _gen_work(which: int, B: int, k: int, r: int, like) -> tuple:
+    """The generic kernel's (B, n) workspace (``lowrank_gen_work`` in
+    ``csrc/gen_filters.cu`` gives n: 0 basis, 1 forward, 2 backward)."""
+    n = kernels.query("lowrank_gen_work", like.dtype, which, k, r)
+    return (torch.empty((B, n), dtype=like.dtype, device=like.device),)
+
+
 def lowrank_basis(C: torch.Tensor, r: int) -> torch.Tensor:
     """K9-basis on B lanes, (B, k, k) -> (B, k, r): the kernel for CUDA
-    tensors."""
+    tensors (K9-basis-gen past k = 100 or r = 32)."""
     if C.device.type == "cpu":
         return lowrank_basis_plain(C, r)
     B, k = C.shape[0], C.shape[-1]
-    kernels.check_lowrank("lowrank_basis", k, r)
+    kernel = kernels.route_lowrank("lowrank_basis", k, r)
     kernels.check_tensor("C", C, (B, k, k), C.dtype, C.device)
     V = torch.empty((B, k, r), dtype=C.dtype, device=C.device)
-    kernels.launch("lowrank_basis", C.dtype, C, V, B, k, r)
+    work = () if kernel == "lowrank_basis" else _gen_work(0, B, k, r, C)
+    kernels.launch(kernel, C.dtype, C, V, *work, B, k, r)
     return V
 
 
@@ -157,13 +168,14 @@ def lowrank_scan_plain(b, C, V, A, Q, mu0, P0):
 
 def lowrank_scan(b, C, V, A, Q, mu0, P0):
     """K9-fwd on B lanes (shapes of ``lowrank_scan_plain``): the kernel
-    for CUDA tensors, one launch for every lane."""
+    for CUDA tensors (K9-fwd-gen past k = 100 or r = 32), one launch for
+    every lane."""
     if b.device.type == "cpu":
         return lowrank_scan_plain(b, C, V, A, Q, mu0, P0)
     B, T, k = b.shape
     r = V.shape[-1]
     dt, dev = b.dtype, b.device
-    kernels.check_lowrank("lowrank_scan", k, r)
+    kernel = kernels.route_lowrank("lowrank_scan", k, r)
     static = C.ndim == 3
     for name, x, shape in (("b", b, (B, T, k)),
                            ("C", C, (B, k, k) if static else (B, T, k, k)),
@@ -177,9 +189,10 @@ def lowrank_scan(b, C, V, A, Q, mu0, P0):
     P_filt = torch.empty((B, T, k, k), dtype=dt, device=dev)
     logdetG = torch.empty((B, T), dtype=dt, device=dev)
     corr = torch.empty((B, T), dtype=dt, device=dev)
-    kernels.launch("lowrank_scan", dt, b, C, k * k if static else T * k * k,
+    work = () if kernel == "lowrank_scan" else _gen_work(1, B, k, r, b)
+    kernels.launch(kernel, dt, b, C, k * k if static else T * k * k,
                    0 if static else k * k, V, A, Q, mu0, P0, x_pred, P_pred,
-                   x_filt, P_filt, logdetG, corr, B, T, k, r)
+                   x_filt, P_filt, logdetG, corr, *work, B, T, k, r)
     return x_pred, P_pred, x_filt, P_filt, logdetG, corr
 
 
@@ -219,27 +232,29 @@ def lowrank_smoother_scan_plain(x_pred, P_pred, x_filt, P_filt, A, V):
 
 
 def lowrank_smoother_scan(x_pred, P_pred, x_filt, P_filt, A, V):
-    """K9-bwd on B lanes: the kernel for CUDA tensors, one launch for
-    every lane."""
+    """K9-bwd on B lanes: the kernel for CUDA tensors (K9-bwd-gen past k =
+    100 or r = 32), one launch for every lane."""
     if x_filt.device.type == "cpu":
         return lowrank_smoother_scan_plain(x_pred, P_pred, x_filt, P_filt,
                                            A, V)
     B, T, k = x_filt.shape
     r = V.shape[-1]
     dt, dev = x_filt.dtype, x_filt.device
-    kernels.check_lowrank("lowrank_smoother", k, r)
+    kernel = kernels.route_lowrank("lowrank_smoother", k, r)
     for name, x, shape in (("x_pred", x_pred, (B, T, k)),
                            ("P_pred", P_pred, (B, T, k, k)),
                            ("x_filt", x_filt, (B, T, k)),
                            ("P_filt", P_filt, (B, T, k, k)),
                            ("A", A, (B, k, k)), ("V", V, (B, k, r))):
         kernels.check_tensor(name, x, shape, dt, dev)
-    AV = torch.empty((B, k, r), dtype=dt, device=dev)      # scratch: A'V
+    # Scratch: A'V for K9-bwd's own kernel, the generic kernel's workspace.
+    work = ((torch.empty((B, k, r), dtype=dt, device=dev),)
+            if kernel == "lowrank_smoother" else _gen_work(2, B, k, r, x_filt))
     x_sm = torch.empty((B, T, k), dtype=dt, device=dev)
     P_sm = torch.empty((B, T, k, k), dtype=dt, device=dev)
     P_lag = torch.empty((B, T, k, k), dtype=dt, device=dev)
-    kernels.launch("lowrank_smoother", dt, x_pred, P_pred, x_filt, P_filt, A,
-                   V, AV, x_sm, P_sm, P_lag, B, T, k, r)
+    kernels.launch(kernel, dt, x_pred, P_pred, x_filt, P_filt, A, V, *work,
+                   x_sm, P_sm, P_lag, B, T, k, r)
     return x_sm, P_sm, P_lag
 
 

@@ -9,10 +9,11 @@ float64 on the CPU.
 - ``fit`` with ``filter="auto"`` below N = 32 resolves to "dense" in both
   packages and agrees to 1e-9 (the EM path carries each pass's rounding
   into the next params), chunked and fused; so does a dense session.
-- The wrapper's range: K15 takes N <= 32 and k <= 32 on the card; a
-  tensor off the CPU past that raises ``NotImplementedError`` naming the
-  ROADMAP row before any launch (a "meta" tensor stands in for a CUDA one:
-  it takes the kernel route, and the range check comes first).
+- The wrapper's range: K15 takes N <= 32 and k <= 32 on the card, K15-gen
+  to N = 128 and k = 128; a tensor off the CPU past that raises
+  ``NotImplementedError`` naming the ROADMAP row before any launch (a
+  "meta" tensor stands in for a CUDA one: it takes the kernel route, and
+  the range check comes first).
 """
 
 import jax.numpy as jnp
@@ -77,20 +78,26 @@ def test_kalman_filter_takes_the_twin_on_cpu_and_launches_nothing():
     assert kernels.KERNELS["dense_filter"][0] == "dense_filter.cu"
 
 
-@pytest.mark.parametrize("N,k", [(33, 3), (3, 33), (40, 40)])
+@pytest.mark.parametrize("N,k", [(129, 3), (3, 129), (140, 140)])
 def test_past_the_kernel_range_raises_naming_the_roadmap_row(N, k):
     Y = torch.empty((5, N), dtype=torch.float32, device="meta")
     p = TP(*(torch.empty(s, dtype=torch.float32, device="meta")
              for s in ((N, k), (k, k), (k, k), (N,), (k,), (k, k))))
-    with pytest.raises(NotImplementedError, match="dense engine past N = 32"):
+    with pytest.raises(NotImplementedError, match="Generic k"):
         tk.kalman_filter(Y, p)
 
 
 def test_kernel_range_ends_at_32():
-    kernels.check_dense("dense_filter", 32, 32)
+    """K15's own kernel ends at N = k = 32; K15-gen takes the range on to
+    128, where the check ends."""
+    kernels.check_dense("dense_filter", 128, 128)
     kernels.check_dense("dense_filter", 1, 1)
+    assert kernels.route_dense("dense_filter", 32, 32) == "dense_filter"
+    assert kernels.route_dense("dense_filter", 33, 32) == "dense_filter_gen"
     with pytest.raises(ValueError):
         kernels.check_dense("dense_filter", 0, 3)
+    with pytest.raises(NotImplementedError):
+        kernels.check_dense("dense_filter", 129, 1)
 
 
 @pytest.mark.parametrize("fused", [False, True])

@@ -276,10 +276,17 @@ def test_gen_routes(k, tier):
         # K14 (pit_elements, pit_scan) has one kernel at every k <= 32.
         assert got == (kernels.WIDE.get(name, name) if tier == "wide"
                        else kernels.GEN[name])
-        # Each routed kernel is in its entry point's source, but K10's
-        # generic kernels, which have a source of their own.
-        src = ("sv_gen.cu" if name in ("sv_rbpf", "sv_ffbs")
-               else kernels.KERNELS[name][0])
+        # Each routed kernel is in its entry point's source, but the
+        # generic kernels of K10, K11 and the K4 pair (and K4b's), which
+        # have sources of their own.
+        src = {"sv_rbpf_gen": "sv_gen.cu", "sv_ffbs_gen": "sv_gen.cu",
+               "loading_filter_gen": "tv_loadings_gen.cu",
+               "loading_smoother_gen": "tv_loadings_gen.cu",
+               "info_scan_gen": "info_scan_gen.cu",
+               "rts_smoother_gen": "info_scan_gen.cu",
+               "batched_info_scan_gen": "info_scan_gen.cu",
+               "batched_rts_gen": "info_scan_gen.cu"}.get(
+                   got, kernels.KERNELS[name][0])
         assert kernels.KERNELS[got][0] == src
 
 

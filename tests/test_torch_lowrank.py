@@ -264,12 +264,13 @@ def test_float32_pass_against_float64():
 
 
 def test_wrappers_hold_their_kernel_range():
-    """On the CPU the twins take any k (here k = 120 > the kernels' 100);
-    the range check raises NotImplementedError naming the ROADMAP row."""
+    """On the CPU the twins take any k (here k = 120, past K9's own kernels'
+    100); the range check raises NotImplementedError naming the ROADMAP row
+    past the generic kernels' k = 128, whatever r."""
     from dfm_tpu_torch import kernels
     C = torch.eye(120, dtype=torch.float64)[None]
     assert tl.lowrank_basis(C, 4).shape == (1, 120, 4)
-    for k, r in ((101, 8), (40, 33)):
+    for k, r in ((129, 8), (129, 129)):
         with pytest.raises(NotImplementedError, match="Generic k"):
             kernels.check_lowrank("lowrank_scan", k, r)
     with pytest.raises(NotImplementedError, match="Generic k"):

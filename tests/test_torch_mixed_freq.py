@@ -338,12 +338,15 @@ def test_wide_routing_ranges(k, want):
 
 def test_past_the_wide_range_raises_naming_the_roadmap_row():
     """The four lone entry points take their generic kernel (same source
-    file) from 33 to 128 and raise at 129; the wide K1's own range check
-    still stops at 32 (``loglik_terms_local`` routes past it to K1-gen)."""
+    file; the K4 pair's in ``info_scan_gen.cu``, a source of its own) from
+    33 to 128 and raise at 129; the wide K1's own range check still stops
+    at 32 (``loglik_terms_local`` routes past it to K1-gen)."""
     for name in WIDE_NAMES:
         got = kernels.route(name, 33)
         assert got == kernels.GEN[name]
-        assert kernels.KERNELS[got][0] == kernels.KERNELS[name][0]
+        assert kernels.KERNELS[got][0] == (
+            "info_scan_gen.cu" if name in ("info_scan", "rts_smoother")
+            else kernels.KERNELS[name][0])
         with pytest.raises(NotImplementedError, match="Generic k"):
             kernels.route(name, 129)
         with pytest.raises(ValueError):

@@ -214,5 +214,8 @@ def test_cpu_path_launches_no_kernel():
                                      "tvl_obs_stats_gen", "tvl_quad_wide",
                                      "tvl_quad_gen", "loading_filter_gen",
                                      "loading_smoother_gen", "sv_rbpf_gen",
-                                     "sv_ffbs_gen"}
+                                     "sv_ffbs_gen", "lowrank_basis_gen",
+                                     "lowrank_scan_gen",
+                                     "lowrank_smoother_gen",
+                                     "dense_filter_gen"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())

@@ -17,9 +17,10 @@ and the integers after its name.  The families' checks:
       qr_elements.cu,qr_scan.cu,pit_elements.cu,pit_scan.cu
       qgen_k_sweep [qgen_kernel_phase]
     time-varying loadings past 16 (K2-tv, K1-tv, K11-fwd, K11-bwd):
-      obs_stats.cu,quad_local.cu,tv_loadings.cu tgen_k_sweep
+      obs_stats.cu,quad_local.cu,tv_loadings_gen.cu tgen_k_sweep
     and the rest of the tgen group (the K4 pair and the latency probe):
-      obs_stats.cu,quad_local.cu,tv_loadings.cu,info_scan.cu,step_chain.cu
+      obs_stats.cu,quad_local.cu,tv_loadings_gen.cu,info_scan.cu,
+      info_scan_gen.cu,step_chain.cu
       tgen_kernel_phase tgen_k_sweep tgen_fit_phase tgen_reference_phase
       tvl_contract_phase:25
     stochastic volatility past 16 and past 1,024 particles (K10-fwd-gen,
@@ -28,6 +29,12 @@ and the integers after its name.  The families' checks:
     (the vgen group's fits, kernel phase and contract also need the
     pre-fit's sources and the latency probe: run ``chip_smoke.py --phases
     vgen``)
+    the rank-r engine past k = 100 and r = 32 (K9-basis-gen, K9-fwd-gen,
+    K9-bwd-gen) and the dense engine past N = 32 (K15-gen), the sweeps
+    and the raises at 129:
+      gen_filters.cu lgen_k_sweep dgen_k_sweep
+    (the lgen and dgen groups' fits, sessions and references also run the
+    generic K1-K4 kernels: ``chip_smoke.py --phases lgen,dgen``)
 
 Prints the card line, the build seconds, the sources' ptxas lines and
 ``chip_smoke``'s JSON records, each phase's seconds.  Raises without a
