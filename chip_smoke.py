@@ -8,8 +8,8 @@ acceptance run), which run in this order: dense (phases 37-39), tvl
 (24-26), tgen (83-87), sv (31-33), vgen (88-92), headline (2-5), session
 (6-8), batched (9-13), fleet (14-18), lowrank (19-23), mf (27-30), pit
 (34-36), wide (40-43), bwide (44-49), kbig (50-57), bgen (58-65), sgen
-(66-72), qgen (73-82), lgen (93-100), dgen (101-104).  The setup, the
-build and the final lines always run.
+(66-72), qgen (73-82), lgen (93-100), dgen (101-104), assoc (105-109).
+The setup, the build and the final lines always run.
 
 Phases, each of which raises (and the script exits non-zero) on failure:
 
@@ -594,11 +594,39 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    capacity 1,000 (3 queries, one read a query under the sync check).
 104. dense reference: ``fit(filter="dense")`` at 120 x 40, k = 3 and 100 x
    64, k = 36, masked, card f64 against CPU f64 within 1e-12.
+105. the log-depth associative scans (``scan_impl="associative"``):
+   K14-assoc (``pit_assoc`` to k = 32, ``pit_assoc_gen`` to 128) and
+   K8-assoc (``qr_assoc`` to 10, ``qr_assoc_gen`` to 128), prefix and
+   suffix, on the elements of the masked headline panel simulated at k =
+   10, 25, 50 and 100, f64 and f32 against their plain twins
+   (``ops.scan.associative_scan`` with the torch combines), timed warm and
+   cold beside the twin, the bound and K4's step chain over the levels;
+   and against the blocked kernel of the tier on the same elements, output
+   by output (f64 within 1e-10 relative, or twice the reference's own gap
+   between its two scans on that output; the square-root prefix's Z Z',
+   0 but for jitter, within T x 1e-10 absolute; both timed).  The bound
+   counts the T - 1 combines an inclusive scan needs.
+106. the associative sweep: k = 1, 2, 10, 11, 16, 17, 32, 33, 64, 128 at
+   T = 1, 2, 3, 64, 65, 257 (a 150-series masked panel), f64, kernel
+   against twin; nothing launches at T = 1.
+107. the six public functions (``pit_from_stats``, ``pit_filter``,
+   ``pit_smoother`` and the ``pit_qr`` three) with
+   ``scan_impl="associative"`` at full width on the masked headline panel
+   at k = 10 and 100, f64 and f32, at the true params: finite outputs of
+   the expected shapes, three launches of the tier's kernel a run, the f64
+   loglik within 1e-12 of the JAX package's own, the f32 loglik within
+   1e-5 of the exact f64 one or, where the JAX package's own f32 run
+   misses that, within 1e-4 x |exact| of its loglik (``ASSOC_LL_JAX``),
+   and both scans' filter and smoother walls.
+108. the long-T point (T = 4,000, N = 24, k = 2): both engines' filter and
+   smoother with either scan, timed side by side.
+109. k = 129 raises in both associative scans before any launch; card f64
+   against CPU f64 on a 40 x 30 panel at k = 3 within 1e-12.
 
 Output: one JSON line per kernel and dtype, one per fit, contract check,
 ring case, session, batched, fleet, TVL, MF, SV, K14, dense, wide, kbig,
-bgen, sgen, qgen, tgen, vgen, lgen and dgen phase, the seconds of each phase
-(``step_s``), of each phase group as it ends (with the libraries still
+bgen, sgen, qgen, tgen, vgen, lgen, dgen and assoc phase, the seconds of
+each phase (``step_s``), of each phase group as it ends (with the libraries still
 building as it began) and of the script, the build lines, then the
 {"kernels": [...]}
 summary, the card line and, last, {"ok": true, "device": {...}}.
@@ -755,7 +783,9 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "loading_smoother_gen": 1e-4,
                        "lowrank_basis_gen": 1e-4, "lowrank_scan_gen": 1e-4,
                        "lowrank_smoother_gen": 1e-4,
-                       "dense_filter_gen": 1e-4},
+                       "dense_filter_gen": 1e-4, "pit_assoc": 1e-4,
+                       "pit_assoc_gen": 1e-4, "qr_assoc": 1e-4,
+                       "qr_assoc_gen": 1e-4},
        torch.float64: {"quad_local": 1e-10, "obs_stats": 1e-10,
                        "mstep_rows": 1e-9, "info_scan": 1e-9,
                        "rts_smoother": 1e-9, "ss_cov_path": 1e-9,
@@ -799,7 +829,9 @@ TOL = {torch.float32: {"quad_local": 1e-5, "obs_stats": 1e-5,
                        "lowrank_basis_gen": 1e-10,
                        "lowrank_scan_gen": 1e-10,
                        "lowrank_smoother_gen": 1e-10,
-                       "dense_filter_gen": 1e-10}}
+                       "dense_filter_gen": 1e-10, "pit_assoc": 1e-9,
+                       "pit_assoc_gen": 1e-10, "qr_assoc": 1e-9,
+                       "qr_assoc_gen": 1e-9}}
 # The TPU routine each kernel replaces.
 REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "obs_stats": "dfm_tpu/ssm/info_filter.py:69",
@@ -874,7 +906,11 @@ REPLACES = {"quad_local": "dfm_tpu/ssm/info_filter.py:159",
             "lowrank_basis_gen": "dfm_tpu/ssm/lowrank_filter.py:96",
             "lowrank_scan_gen": "dfm_tpu/ssm/lowrank_filter.py:107",
             "lowrank_smoother_gen": "dfm_tpu/ssm/lowrank_filter.py:207",
-            "dense_filter_gen": "dfm_tpu/ssm/kalman.py:43"}
+            "dense_filter_gen": "dfm_tpu/ssm/kalman.py:43",
+            "pit_assoc": "dfm_tpu/ssm/parallel_filter.py:161",
+            "pit_assoc_gen": "dfm_tpu/ssm/parallel_filter.py:161",
+            "qr_assoc": "dfm_tpu/ssm/parallel_filter.py:457",
+            "qr_assoc_gen": "dfm_tpu/ssm/parallel_filter.py:457"}
 # The variant of each kernel whose f32 record goes into the summary line.
 SUMMARY_VARIANT = {"quad_local": "masked", "obs_stats": "masked",
                    "mstep_rows": "masked", "info_scan": "masked",
@@ -1578,7 +1614,10 @@ OWN_FIT = {"quad_local": "masked", "obs_stats": "masked",
            "lowrank_basis_gen": "k128 masked lowrank r8",
            "lowrank_scan_gen": "k128 masked lowrank r8",
            "lowrank_smoother_gen": "k128 masked lowrank r8",
-           "dense_filter_gen": "dense N128"}
+           "dense_filter_gen": "dense N128",
+           "pit_assoc": "assoc pit k10", "qr_assoc": "assoc pit_qr k10",
+           "pit_assoc_gen": "assoc pit k100",
+           "qr_assoc_gen": "assoc pit_qr k100"}
 
 
 def fit_phase(seed: int) -> dict:
@@ -1689,8 +1728,9 @@ REFERENCE_OWN = {"ss": ("ss_cov_path", "affine_scan"),
 
 
 def reference_fit(label: str, Y, k: int, flt: str, tol: float,
-                  engine=None, extra=None, own=None) -> None:
-    """One 10-iteration fit of ``Y`` at k factors with ``filter=flt`` on
+                  engine=None, extra=None, own=None, iters: int = 10) -> None:
+    """One ``iters``-iteration fit (10 by default) of ``Y`` at k factors
+    with ``filter=flt`` on
     the card in f64 against the same fit on the CPU in f64 (the plain
     twins): logliks, params, factors and forecasts within ``tol``
     relative.  The card fit must resolve to ``engine`` (default ``flt``)
@@ -1704,7 +1744,7 @@ def reference_fit(label: str, Y, k: int, flt: str, tol: float,
         b = dt.TorchBackend(device=dev, dtype=torch.float64, filter=flt,
                             **(extra or {}))
         kernels.reset_launches()
-        r = dt.fit(model, Y, backend=b, max_iters=10, tol=0.0)
+        r = dt.fit(model, Y, backend=b, max_iters=iters, tol=0.0)
         res[dev] = (r, dt.forecast(r, 12)[0], dict(kernels.LAUNCHES))
     (rg, yg, lg), (rc, yc, _) = res["cuda"], res["cpu"]
     own = tuple(routed(dict.fromkeys(
@@ -2689,11 +2729,12 @@ def rolling_phase(seed: int, k: int = K, offset: int = 1,
 
 
 def batched_reference_phase(seed: int, k: int = 3,
-                            tol: float = 1e-10) -> None:
-    """At 120 x 80, k = 3: ``fit_many`` of three panels (10 iterations,
-    tol = 0) and ``run_batched_em`` on a Hetero bucket (lane 1 ragged in
-    T, lane 2 in N; 10 iterations, chunks of 4), on the card in f64
-    against the CPU in f64, within ``tol`` relative."""
+                            tol: float = 1e-10, iters: int = 10) -> None:
+    """At 120 x 80, k = 3: ``fit_many`` of three panels (``iters``
+    iterations, 10 by default, tol = 0) and ``run_batched_em`` on a Hetero
+    bucket (lane 1 ragged in T, lane 2 in N; ``iters`` iterations, chunks
+    of 4), on the card in f64 against the CPU in f64, within ``tol``
+    relative."""
     Ys = [panel(seed + 3 + i, T_=120, N_=80, K_=k)[2] for i in range(3)]
     Yb = np.stack(Ys)
     model = dt.DynamicFactorModel(n_factors=k)
@@ -2709,15 +2750,15 @@ def batched_reference_phase(seed: int, k: int = 3,
         b = dt.TorchBackend(device=dev, dtype=torch.float64)
         kernels.reset_launches()
         r = dt.fit_many(dt.DFMBatchSpec(Y=Yb, model=model), backend=b,
-                        max_iters=10, tol=0.0)
+                        max_iters=iters, tol=0.0)
         het = tb.make_hetero((120, 90, 120), (80, 80, 60), 120, 80,
-                             dtype=torch.float64, tol=0.0, iter_cap=10,
+                             dtype=torch.float64, tol=0.0, iter_cap=iters,
                              device=dev)
         with highest_precision():
             h = tb.run_batched_em(
                 torch.tensor(np.stack(Yh), dtype=torch.float64, device=dev),
-                tb.stack_params(ph, device=dev), EMConfig(filter="info"), 10,
-                0.0, fused_chunk=4, hetero=het)
+                tb.stack_params(ph, device=dev), EMConfig(filter="info"),
+                iters, 0.0, fused_chunk=4, hetero=het)
         out[dev] = (r, h, dict(kernels.LAUNCHES))
     (rg, hg, lg), (rc, hc, _) = out["cuda"], out["cpu"]
     if any(lg[n] == 0 for n in routed(dict.fromkeys(BATCHED), k)):
@@ -3244,7 +3285,11 @@ def ring_fleet_phase(seed: int, tenants: list) -> None:
 
 
 def rel_err(a, b) -> float:
-    return float(np.abs(a - b).max() / np.abs(b).max())
+    """max|a - b| / max|b| (0 where both are 0) of two arrays, numbers or
+    tensors."""
+    if not isinstance(a, torch.Tensor):
+        a, b = np.asarray(a), np.asarray(b)
+    return float(abs(a - b).max()) / max(float(abs(b).max()), 1e-300)
 
 
 def pit_fleet_phase(seed: int, tenants: list) -> None:
@@ -4363,7 +4408,7 @@ def tvl_reference_phase(seed: int, N_: int = 80, k: int = 3,
                            ("A", rg.params.A, rc.params.A),
                            ("y_fore", yg, yc)):
             errs[f"{label} {name}"] = rel_err(g, c)
-    emit({"reference": "tvl", "shape": [60, N_, k], "rounds": 6,
+    emit({"reference": "tvl", "shape": [60, N_, k], "rounds": rounds,
           "max_rel_err": errs, "tol": 1e-9, "wall_s": walls})
     bad = {n: e for n, e in errs.items() if not e <= 1e-9}
     if bad:
@@ -5427,28 +5472,29 @@ def sv_pass_breakdown(Y, res, spec) -> None:
 
 
 def sv_reference_phase(seed: int, T_: int = 120, N_: int = 40, k: int = 2,
-                       M_: int = 64) -> None:
+                       M_: int = 64, sv_iters: int = 2) -> None:
     """Phase 33a: ``sv_fit`` of ``simulate_sv(N_, T_, k)`` (40 x 120, k =
-    2 by default), M_ particles, 2 particle-EM iterations and the final
-    E-step, on the card in f64 against the CPU in f64 on the same draws
+    2 by default), M_ particles, ``sv_iters`` particle-EM iterations (2
+    by default) and the final E-step, on the card in f64 against the CPU in f64 on the same draws
     (made on the host), within 1e-9 relative (logliks, sigma_h, h_center,
     h_smooth, the forecast); the card's kernels the routed ones, one
     K10-fwd and one K10-ffbs an E-step."""
     Y, _ = sv_panel(seed + 1102, T_=T_, N_=N_, K_=k)
     spec = dt.SVSpec(n_factors=k, n_particles=M_)
-    draws = [sv_draws64(T_, spec, seed + 1110 + i) for i in range(3)]
+    draws = [sv_draws64(T_, spec, seed + 1110 + i)
+             for i in range(sv_iters + 1)]
     res = {}
     for dev in ("cuda", "cpu"):
         kernels.reset_launches()
         dr = [(sv.SVDraws(*(x.to(dev) for x in a)),
                sv.FFBSDraws(*(x.to(dev) for x in b))) for a, b in draws]
-        r = sv.sv_fit(Y, spec, sv_iters=2, draws=dr,
+        r = sv.sv_fit(Y, spec, sv_iters=sv_iters, draws=dr,
                       backend=dt.TorchBackend(device=dev,
                                               dtype=torch.float64))
         res[dev] = (r, dt.forecast(r, 12)[0], dict(kernels.LAUNCHES))
     (rg, yg, lg), (rc, yc, _) = res["cuda"], res["cpu"]
     for n in ("sv_rbpf", "sv_ffbs"):
-        if lg[kernels.route_sv(n, k, M_)] != 3:
+        if lg[kernels.route_sv(n, k, M_)] != sv_iters + 1:
             raise AssertionError(f"sv reference k = {k}, M = {M_}: "
                                  f"launches {lg}")
     errs = {name: rel_err(g, c) for name, g, c in (
@@ -5456,7 +5502,8 @@ def sv_reference_phase(seed: int, T_: int = 120, N_: int = 40, k: int = 2,
                                               rc.sigma_h),
         ("h_center", rg.h_center, rc.h_center),
         ("h_smooth", rg.h_smooth, rc.h_smooth), ("y_fore", yg, yc))}
-    emit({"reference": "sv", "shape": [T_, N_, k], "M": M_, "sv_iters": 2,
+    emit({"reference": "sv", "shape": [T_, N_, k], "M": M_,
+          "sv_iters": sv_iters,
           "kernels": [kernels.route_sv(n, k, M_)
                       for n in ("sv_rbpf", "sv_ffbs")],
           "max_rel_err": errs, "tol": 1e-9})
@@ -7082,12 +7129,14 @@ def bgen_fleet_phase(seed: int) -> dict:
 
 def bgen_reference_phase(seed: int) -> None:
     """Card f64 against CPU f64 within 1e-12 at k = 40: ``fit_many`` of 3
-    panels and a Hetero ``run_batched_em`` (120 x 80), and fleets of
-    BGEN_REF_SHAPES over 3 ticks, info and lowrank (rank 4)."""
-    batched_reference_phase(seed + BGEN_SEED + 60, k=BGEN_REF_K, tol=1e-12)
+    panels and a Hetero ``run_batched_em`` (120 x 80, 5 iterations), and
+    fleets of BGEN_REF_SHAPES over 2 ticks, info and lowrank (rank 4): the
+    CPU's f64 twins take most of the phase."""
+    batched_reference_phase(seed + BGEN_SEED + 60, k=BGEN_REF_K, tol=1e-12,
+                            iters=5)
     for flt, rank in (("info", 0), ("lowrank", 4)):
         fleet_reference_phase(seed + BGEN_SEED + 70, BGEN_REF_SHAPES,
-                              BWIDE_REF_TICKS, capacity=120, flt=flt,
+                              BWIDE_REF_TICKS[:2], capacity=120, flt=flt,
                               rank=rank)
 
 
@@ -7992,13 +8041,14 @@ def qgen_fleet_phase(seed: int) -> dict:
 def qgen_reference_phase(seed: int) -> None:
     """``fit(filter="pit_qr")`` at 120 x 80, k = 40, masked (scattered
     missing values, a ragged edge, one series observed at its first step
-    alone), card f64 against CPU f64 within 1e-12."""
+    alone), 5 iterations (the CPU's f64 twins take most of the phase),
+    card f64 against CPU f64 within 1e-12."""
     k = SGEN_REF_K
     _, W, Yfull, _ = panel(seed + KBIG_SEED + k + 100, T_=120, N_=80, K_=k)
     W[:, 5] = 0.0
     W[0, 5] = 1.0
     reference_fit("k40 masked pit_qr", np.where(W > 0, Yfull, np.nan), k,
-                  "pit_qr", 1e-12)
+                  "pit_qr", 1e-12, iters=5)
 
 
 # ---------------------------------------------------------------------------
@@ -8021,7 +8071,7 @@ TGEN_SWEEP_TIMED = (100, 128)
 # two or three of the sweep's 400 series.
 TGEN_SLOTS_KS, TGEN_SLOTS = (100, 128), 150
 TGEN_FITS = ((25, 12), (50, 10))
-TGEN_REF = ((80, 20, 6), (90, 40, 3))    # (N, k, rounds) at T = 60
+TGEN_REF = ((80, 20, 3), (90, 40, 2))    # (N, k, rounds) at T = 60
 
 
 def tgen_tvl_cases(pan, dtype) -> list:
@@ -8209,8 +8259,8 @@ def tgen_fit_phase(seed: int) -> dict:
 
 
 def tgen_reference_phase(seed: int) -> None:
-    """``tvl_reference_phase`` at 60 x 80, k = 20 (6 rounds) and 60 x 90,
-    k = 40 (3 rounds: the CPU's f64 twins take ~3 s a round there),
+    """``tvl_reference_phase`` at 60 x 80, k = 20 (3 rounds) and 60 x 90,
+    k = 40 (2 rounds: the CPU's f64 twins take ~3 s a round there),
     masked."""
     for N_, k, rounds in TGEN_REF:
         tvl_reference_phase(seed, N_, k, ("masked",), rounds)
@@ -8236,7 +8286,7 @@ VGEN_SWEEP = ((1, 64), (16, 64), (17, 64), (24, 64), (32, 64), (33, 64),
               (64, 64), (100, 64), (128, 64), (5, 1025), (17, 1025),
               (5, 4096), (50, 1))
 # (T, N, k, M) of the card-vs-CPU references.
-VGEN_REF = ((60, 80, 20, 64), (60, 90, 40, 64), (120, 40, 3, 1100))
+VGEN_REF = ((60, 80, 20, 64), (60, 90, 40, 64), (60, 40, 3, 1100))
 
 
 def vgen_fit_phase(seed: int) -> tuple:
@@ -8364,9 +8414,10 @@ def vgen_k_sweep(seed: int) -> None:
 def vgen_reference_phase(seed: int) -> None:
     """Phase 91: ``sv_reference_phase`` at VGEN_REF: card f64 against CPU
     f64 within 1e-9 at k = 20 and 40 (M = 64) and at k = 3 with M =
-    1,100."""
+    1,100, one particle-EM iteration and the final E-step (the CPU's f64
+    twins take most of the phase)."""
     for T_, N_, k, M_ in VGEN_REF:
-        sv_reference_phase(seed, T_, N_, k, M_)
+        sv_reference_phase(seed, T_, N_, k, M_, sv_iters=1)
 
 
 # ---------------------------------------------------------------------------
@@ -8832,6 +8883,483 @@ def dgen_reference_phase(seed: int) -> None:
                       own=("dense_filter_gen",))
 
 
+# ------------------------------------------------ the associative scans --
+
+# The four kernels, each by the k of the record the summary line keeps:
+# its tier's full width.
+ASSOC_NEW = {"pit_assoc": 10, "pit_assoc_gen": 100, "qr_assoc": 10,
+             "qr_assoc_gen": 100}
+# Every tier's full-width shape: k = 10 (the warp and one-thread kernels),
+# 25 (the warp kernel at LD 33; K8-assoc's generic one), 50 and 100 (the
+# generic kernels), on the masked headline panel simulated at k.
+ASSOC_KS = (K, WIDE_K, 50, 100)
+ASSOC_SWEEP_KS = (1, 2, 10, 11, 16, 17, 32, 33, 64, 128)
+ASSOC_SWEEP_TS = (1, 2, 3, 64, 65, 257)
+ASSOC_SWEEP_N = 150
+ASSOC_PUBLIC_KS = (K, 100)
+# f64 associative kernel against the blocked kernel of its tier, relative.
+ASSOC_BLOCKED_TOL = 1e-10
+# Card f64 against CPU f64 on a small panel, relative.
+ASSOC_REF_TOL = 1e-12
+# The JAX package's own loglik with scan_impl="associative" at
+# assoc_public_phase's inputs (the default seed, the panel's true params),
+# f32 and f64, and its |loglik - exact f64| / |exact f64|, by (k,
+# engine): tools/port/assoc_loglik.py, a CPU run at x64.
+ASSOC_LL_JAX = {
+    (K, "pit"): {"loglik_f32": -6603445.950585705,
+                 "loglik_f64": -6603446.446391153,
+                 "f32": 7.508279178555282e-08, "f64": 3.8361746756326244e-14},
+    (K, "pit_qr"): {"loglik_f32": -6603445.884635946,
+                    "loglik_f64": -6603446.446390903,
+                    "f32": 8.50699643902658e-08,
+                    "f64": 4.231075009888924e-16},
+    (100, "pit"): {"loglik_f32": -6805588.48956384,
+                   "loglik_f64": -6805589.948544168,
+                   "f32": 2.143793292390716e-07,
+                   "f64": 3.7017034281865716e-13},
+    (100, "pit_qr"): {"loglik_f32": -1388727.3292463394,
+                      "loglik_f64": -6805048.250476308,
+                      "f32": 0.795943137957654,
+                      "f64": 7.959604816575791e-05}}
+# The f32 loglik against the exact f64 one, relative.
+ASSOC_LL_LIMIT = 1e-5
+# Where the JAX package's own f32 loglik misses ASSOC_LL_LIMIT (ROADMAP
+# Queue 3 "Watch"), the card's f32 loglik within this x |exact| of it:
+# both run the same algorithm on the same inputs and part only by f32
+# rounding (2.2e-5 apart at k = 100, on figures 0.796 from the exact
+# one).
+ASSOC_LL_JAX_MARGIN = 1e-4
+
+
+def assoc_panel(seed: int, k: int):
+    """The masked headline panel at k factors: the headline panel itself
+    at k = 10, the wide group's at 25, kbig's at 50 and 100."""
+    return panel(seed) if k == K else qgen_panel(seed, k)
+
+
+def assoc_levels(T_: int) -> list:
+    """Elements of each level of the associative scan's tree, level 0
+    (T_) included."""
+    return [T_] + pf._assoc_levels(T_)
+
+
+def assoc_combines(T_: int) -> int:
+    """Combines the tree of one associative scan of length T_ runs: the
+    up-sweep's pair products and the down-sweep's even slots past 0.  The
+    inclusive scan itself needs T_ - 1 (its bound counts those)."""
+    n = assoc_levels(T_)
+    return sum(n[1:]) + sum((m - 1) // 2 for m in n[:-1])
+
+
+def assoc_flops(engine: str) -> tuple:
+    """Operations a (filter, smoother) combine needs, in units of k^3,
+    each symmetric result counted over one triangle (a k x k product 2,
+    one with a symmetric result 1, an LU 2/3, an LU or Cholesky solve of
+    k columns 2, a triangular solve 1, a Cholesky 1/3).  ``pit`` filter:
+    D = I + C_i J_j, its LU, A_j D^-1, A, C (a product and one with a
+    symmetric result), J (J_j A_i, its solve by D', a symmetric product):
+    44/3; smoother: E, E_e L_l, the symmetric (E_e L_l) E_e': 5.
+    ``pit_qr`` filter, with each tria the Cholesky of its Gram matrix:
+    K8-gen's 6 products, a chol_solve and 2 triangular solves, the trias
+    of [X | I] (Theta, Lam: a symmetric product and a Cholesky) and of
+    [X1 | X2] (U, Z: two symmetric products and a Cholesky): 70/3;
+    smoother: E, E_e D_l and the tria of [E_e D_l | D_e]: 19/3.  The
+    same at every tier (the one-thread kernels' Gram-Schmidt trias do
+    more)."""
+    if engine == "pit":
+        return 44.0 / 3, 5.0
+    return 70.0 / 3, 19.0 / 3
+
+
+def assoc_elements(stats, pt, engine: str, ref: bool = True) -> tuple:
+    """(filter elements, smoother elements, the plain associative prefix
+    and suffix as ``plain_call`` pairs, or None without ``ref``): the
+    elements built from ``stats`` by the card's kernels (the element
+    builds' Python loops are the twins' cost, and the checks here are the
+    scans'), the smoother's from the filter the associative prefix
+    gives."""
+    A, Q, mu0, P0 = pt.A, pt.Q, pt.mu0, pt.P0
+    impl = "associative"
+    if engine == "pit":
+        el = pf.pit_filter_elements(stats, A, Q, mu0, P0)
+        pref = pf.pit_scan(el, scan_impl=impl)
+        x_pred, P_pred, _ = pf.pit_filter_assemble(
+            pref[1], pref[2], stats.C, A, Q, mu0, P0)
+        sel = pf.pit_smoother_elements(
+            FilterResult(x_pred, P_pred, pref[1], pref[2], None), A)[0]
+    else:
+        el = pf.qr_filter_elements(stats, A, Q, mu0, P0)
+        pref = pf.qr_scan(el, scan_impl=impl)
+        x_pred, P_pred, P_f, _ = pf.qr_filter_assemble(
+            pref[1], pref[2], stats.C, A, Q, mu0, P0)
+        sel = pf.qr_smoother_elements(
+            FilterResult(x_pred, P_pred, pref[1], P_f, None), A, Q)[0]
+    el, sel = (tuple(x.contiguous() for x in e) for e in (el, sel))
+    if not ref:
+        return el, sel, None, None
+    plain = assoc_scan_fns(engine)[1]
+    return (el, sel, plain_call(lambda: plain(el, False, impl)),
+            plain_call(lambda: plain(sel, True, impl)))
+
+
+def assoc_scan_fns(engine: str):
+    """(the engine's scan wrapper, its plain twin, its kernel route)."""
+    if engine == "pit":
+        return pf.pit_scan, pf.pit_scan_plain, \
+            lambda k: kernels.route("pit_assoc", k)
+    return pf.qr_scan, pf.qr_scan_plain, \
+        lambda k: la.check_qr_k("qr_assoc", k)
+
+
+def assoc_cases(stats, pt, engine: str, label: str) -> list:
+    """The engine's associative prefix and suffix kernels against their
+    plain twins on the elements of ``stats``, each named by the kernel its
+    wrapper routes to at this k; the blocked kernel of the tier is run on
+    the same elements by ``assoc_kernel_phase``."""
+    T_, k = stats.b.shape
+    scan, plain, route = assoc_scan_fns(engine)
+    el, sel, pref, suf = assoc_elements(stats, pt, engine)
+    f_fl, s_fl = assoc_flops(engine)
+    chain = 2 * (len(assoc_levels(T_)) - 1)
+    dtype = pt.A.dtype
+    floor = lambda: latency_ms("info_scan", dtype, k, max(chain, 1))  # noqa: E731
+    out = []
+    for side, elems, ref, fl in (("prefix", el, pref, f_fl),
+                                 ("suffix", sel, suf, s_fl)):
+        smooth = side == "suffix"
+        c = case(route(k), f"{side} {label}",
+                 lambda e=elems, s=smooth: scan(e, s, "associative"),
+                 lambda e=elems, s=smooth: plain(e, s, "associative"),
+                 elems, (T_ - 1) * fl * k ** 3, floor=floor, ref=ref)
+        c["blocked"] = lambda e=elems, s=smooth: scan(e, s)
+        c["side"] = side
+        out.append(c)
+    return out
+
+
+def gram_outputs(x, gram=()) -> tuple:
+    """The tensors of a result in f64, those at ``gram`` (square-root
+    factors) as X X' (see ``compare``)."""
+    out = tuple(z.double() for z in as_tuple(x))
+    return tuple(z @ z.transpose(-1, -2) if i in gram else z
+                 for i, z in enumerate(out))
+
+
+def rel_gaps(a, b, gram=()) -> list:
+    """``rel_err`` of each output of ``a`` against ``b``, through
+    ``gram_outputs``."""
+    return [rel_err(x, y) for x, y in zip(gram_outputs(a, gram),
+                                          gram_outputs(b, gram))]
+
+
+def assoc_gram(engine: str, side: str) -> tuple:
+    """The square-root factors among a scan's outputs: the filter's U and
+    Z, the smoother's D (the square-root engine only)."""
+    if engine != "pit_qr":
+        return ()
+    return (2,) if side == "suffix" else (2, 4)
+
+
+def assoc_abs_floor(engine: str, side: str, T_: int) -> dict:
+    """{output: absolute allowance} of the f64 check against the blocked
+    kernel.  The square-root prefix's Z Z' is 0 in exact arithmetic (the
+    t = 0 element has A = 0 and Z = 0); past k = 10 each tria on its chain
+    adds the f64 jitter (1e-10) to it, and no chain of either scan is
+    longer than T_ combines, so the two scans' Z Z' stand within T_ x the
+    jitter of each other (0 at k <= 10, where the trias have no
+    jitter)."""
+    if engine != "pit_qr" or side != "prefix":
+        return {}
+    return {4: T_ * la.default_jitter(torch.float64)}
+
+
+def assoc_kernel_phase(seed: int) -> dict:
+    """K14-assoc and K8-assoc (prefix and suffix) against their plain
+    twins on the elements of the masked headline panel simulated at k =
+    10, 25, 50 and 100 (every tier), f64 then f32 (the TOL rule), timed
+    warm and cold (``kernel_record``) beside the plain twin, the bound and
+    K4's step chain over the levels in sequence; and against the blocked
+    kernel of the tier on the same elements (f64, ``assoc_vs_blocked``;
+    both timed in f32).  Returns the f32 records of the prefix at k = 10
+    (pit_assoc, qr_assoc) and 100 (the generic ones)."""
+    summary = {}
+    for k in ASSOC_KS:
+        pan = assoc_panel(seed, k)
+        refs = {}
+        for dtype in (torch.float64, torch.float32):
+            with highest_precision():
+                stats, _, pt = sgen_stats(*pan, dtype)
+                for engine in ("pit", "pit_qr"):
+                    for c in assoc_cases(stats, pt, engine, "masked"):
+                        if k == ASSOC_KS[-1]:
+                            c["cold_reps"] = 1
+                        rec = kernel_record(c, dtype, refs)
+                        gram = assoc_gram(engine, c["side"])
+                        got = gram_outputs(c["run"](), gram)
+                        blk = gram_outputs(c["blocked"](), gram)
+                        floor = assoc_abs_floor(engine, c["side"], T)
+                        gaps = [rel_err(x, y) for x, y in zip(got, blk)]
+                        abs_gaps = {i: float(abs(got[i] - blk[i]).max())
+                                    for i in floor}
+                        rec.update({"engine": engine, "k": k, "T": T,
+                                    "levels": len(assoc_levels(T)) - 1,
+                                    "combines": assoc_combines(T),
+                                    "combines_needed": T - 1,
+                                    "vs_blocked_rel": max(
+                                        g for i, g in enumerate(gaps)
+                                        if i not in floor),
+                                    "vs_blocked_rel_by_output": gaps,
+                                    "vs_blocked_abs_floored": abs_gaps,
+                                    "abs_floor": floor})
+                        if dtype == torch.float64:
+                            assoc_vs_blocked(c, engine, k, gaps, abs_gaps,
+                                             floor, gram, rec)
+                        else:
+                            rec["blocked_ms"] = cuda_ms(c["blocked"])
+                            rec["blocked_name"] = kernels.route(
+                                "pit_scan", k) if engine == "pit" else \
+                                la.check_qr_k("qr_scan", k)
+                        emit(rec)
+                        if (dtype == torch.float32 and c["side"] == "prefix"
+                                and k == ASSOC_NEW[c["name"]]):
+                            summary[c["name"]] = rec
+                        del got, blk
+                del stats, pt
+            torch.cuda.empty_cache()
+        del pan, refs
+    return summary
+
+
+def assoc_vs_blocked(c, engine, k, gaps, abs_gaps, floor, gram,
+                     rec) -> None:
+    """Holds the f64 associative kernel to the blocked one output by
+    output: an output with an absolute floor within it, every other one
+    within ASSOC_BLOCKED_TOL relative or, where it passes that, within
+    twice the gap between the reference's own two scans (the plain twins)
+    on that same output (the square-root engine's jittered Gram past k =
+    10, ROADMAP Queue 3 "Watch")."""
+    over = [i for i, g in enumerate(gaps)
+            if i not in floor and g > ASSOC_BLOCKED_TOL]
+    twins = [0.0] * len(gaps)
+    if over:
+        twins = rel_gaps(c["ref"], assoc_scan_fns(engine)[1](
+            c["ins"], c["side"] == "suffix"), gram)
+        rec["twins_vs_blocked_rel_by_output"] = twins
+    bad = [f"output {i}: {gaps[i]:.3e} relative (the twins' "
+           f"{twins[i]:.3e})" for i in over if gaps[i] > 2.0 * twins[i]]
+    bad += [f"output {i}: {abs_gaps[i]:.3e} absolute (floor "
+            f"{floor[i]:.1e})" for i in floor if abs_gaps[i] > floor[i]]
+    if bad:
+        raise AssertionError(f"{c['name']} ({c['variant']}, k = {k}) "
+                             f"against the blocked kernel: {bad}")
+
+
+def assoc_k_sweep(seed: int) -> None:
+    """Both engines' associative prefix and suffix kernels against their
+    plain twins at every k of ASSOC_SWEEP_KS (each tier's ends) and T of
+    ASSOC_SWEEP_TS (odd and even lengths, one and two elements), f64: the
+    elements of a masked 257-step panel (step 0 fully missing), their
+    first T.  At T = 1 nothing is launched (an element is its own
+    scan)."""
+    f64 = torch.float64
+    for k in ASSOC_SWEEP_KS:
+        Tmax = max(ASSOC_SWEEP_TS)
+        _, W, Yfull, p = panel(seed + 2000 + k, T_=Tmax, N_=ASSOC_SWEEP_N,
+                               K_=k)
+        W[0] = 0.0
+        worst = {}
+        with highest_precision():
+            stats, _, pt = sgen_stats(np.where(W > 0, Yfull, np.nan), W,
+                                      Yfull, p, f64)
+            for engine in ("pit", "pit_qr"):
+                scan, plain, route = assoc_scan_fns(engine)
+                el, sel = assoc_elements(stats, pt, engine, ref=False)[:2]
+                for T_ in ASSOC_SWEEP_TS:
+                    for side, elems in (("prefix", el), ("suffix", sel)):
+                        e = tuple(x[:T_].contiguous() for x in elems)
+                        smooth = side == "suffix"
+                        n0 = kernels.LAUNCHES[route(k)]
+                        c = case(route(k), f"{side} T={T_} k={k}",
+                                 lambda: scan(e, smooth, "associative"),
+                                 lambda: plain(e, smooth, "associative"),
+                                 e, 0.0)
+                        rel = compare(c, f64)[1]
+                        ran = kernels.LAUNCHES[route(k)] - n0
+                        if ran != int(T_ > 1):
+                            raise AssertionError(
+                                f"{route(k)} at T = {T_}: {ran} launches")
+                        worst[f"{engine} {side} T={T_}"] = rel
+            del stats, pt
+        emit({"assoc_sweep": {"k": k, "N": ASSOC_SWEEP_N},
+              "max_rel_err": worst})
+
+
+def assoc_public_phase(seed: int) -> dict:
+    """The six public functions with scan_impl="associative" (the main
+    path of the kernels: ``*_from_stats``, ``*_filter``, ``*_smoother``)
+    at full width on the masked headline panel at k = 10 and 100, at its
+    true params, in f32 and f64: finite outputs of the expected shapes,
+    the launches of each engine's run (from_stats, filter, smoother) with
+    the counts set to 0 before it; the f64 loglik within ASSOC_REF_TOL of
+    the JAX package's own (ASSOC_LL_JAX, at the default seed), the f32
+    loglik within ASSOC_LL_LIMIT of the exact f64 one (``info_filter``)
+    or, where the JAX package's own f32 loglik misses that, within
+    ASSOC_LL_JAX_MARGIN x |exact| of that loglik; the walls of the filter
+    and smoother with either scan.  Returns the launch counts by run."""
+    counts = {}
+    fns = {"pit": (pf.pit_from_stats, pf.pit_filter, pf.pit_smoother),
+           "pit_qr": (pf.pit_qr_from_stats, pf.pit_qr_filter,
+                      pf.pit_qr_smoother)}
+    dev = torch.device("cuda")
+    for k in ASSOC_PUBLIC_KS:
+        Ynan, W, _, p = assoc_panel(seed, k)
+        ins = {}
+        for dtype in (torch.float64, torch.float32):
+            ins[dtype] = (torch.as_tensor(np.where(W > 0, Ynan, 0.0),
+                                          dtype=dtype, device=dev),
+                          torch.as_tensor(W, dtype=dtype, device=dev),
+                          SSMParams.from_numpy(p, dtype=dtype, device=dev))
+        with highest_precision():
+            Y64, W64, p64 = ins[torch.float64]
+            exact = float(inf.info_filter(Y64, p64, mask=W64).loglik)
+            for engine, (f_stats, f_filter, f_smoother) in fns.items():
+                rec = {"assoc_public": engine, "k": k, "T": T, "N": N,
+                       "loglik_exact_f64": exact}
+                for dtype in (torch.float64, torch.float32):
+                    Yt, Wt, pt = ins[dtype]
+                    stats = inf.obs_stats(Yt, pt.Lam, pt.R, mask=Wt)
+                    torch.cuda.synchronize()
+                    kernels.reset_launches()
+                    fs = f_stats(stats, pt, "associative")
+                    kf = f_filter(Yt, pt, mask=Wt, scan_impl="associative")
+                    sm = f_smoother(kf, pt, scan_impl="associative")
+                    torch.cuda.synchronize()
+                    run = {nm: v for nm, v in kernels.LAUNCHES.items() if v}
+                    name = (kernels.route("pit_assoc", k) if engine == "pit"
+                            else la.check_qr_k("qr_assoc", k))
+                    shapes = ([(T, k), (T, k, k), (T, k), (T, k, k), (T,)]
+                              + [(T, k), (T, k, k), (T, k), (T, k, k)]
+                              + [(T, k), (T, k, k), (T, k, k)])
+                    outs = list(fs) + list(kf[:4]) + list(sm)
+                    bad = [i for i, (x, s) in enumerate(zip(outs, shapes))
+                           if tuple(x.shape) != s
+                           or not bool(torch.isfinite(x).all())]
+                    ll = float(kf.loglik)
+                    tag = str(dtype)[6:]
+                    rec[f"loglik_{tag}"] = ll
+                    rec[f"rel_err_{tag}"] = abs(ll - exact) / abs(exact)
+                    rec[f"launches_{tag}"] = run
+                    if bad or not np.isfinite(ll) or run.get(name) != 3:
+                        raise AssertionError(
+                            f"assoc {engine} k = {k} ({tag}): outputs {bad} "
+                            f"wrong or non-finite, launches {run}")
+                    if dtype == torch.float32:
+                        counts[f"assoc {engine} k{k}"] = run
+                        for impl in ("blocked", "associative"):
+                            rec[f"filter_ms_{impl}"] = cuda_ms(
+                                lambda: f_filter(Yt, pt, mask=Wt,
+                                                 scan_impl=impl))
+                            rec[f"smoother_ms_{impl}"] = cuda_ms(
+                                lambda: f_smoother(kf, pt, scan_impl=impl))
+                    del fs, kf, sm, stats
+                jax = ASSOC_LL_JAX[(k, engine)]
+                vs_jax = {tag: abs(rec[f"loglik_float{tag[1:]}"]
+                                   - jax[f"loglik_{tag}"]) / abs(exact)
+                          for tag in ("f32", "f64")}
+                f32_vs = "exact" if jax["f32"] <= ASSOC_LL_LIMIT else "jax"
+                limit = ASSOC_LL_LIMIT if f32_vs == "exact" \
+                    else ASSOC_LL_JAX_MARGIN
+                got = rec["rel_err_float32"] if f32_vs == "exact" \
+                    else vs_jax["f32"]
+                rec.update({"jax_rel_err_f32": jax["f32"],
+                            "vs_jax_rel": vs_jax, "f32_held_to": f32_vs,
+                            "limit_f32": limit})
+                emit(rec)
+                if not (got <= limit and vs_jax["f64"] <= ASSOC_REF_TOL):
+                    raise AssertionError(
+                        f"assoc {engine} k = {k}: f32 loglik {got:.3e} "
+                        f"from the {f32_vs} one (limit {limit:.1e}), f64 "
+                        f"{vs_jax['f64']:.3e} from JAX's")
+        del ins
+        torch.cuda.empty_cache()
+    return counts
+
+
+def assoc_longt_phase(seed: int) -> None:
+    """bench/longt.py's largest point (T = 4,000, N = 24, k = 2, fully
+    observed, f32): each engine's filter and smoother with either scan,
+    timed (CUDA events) at the panel's true params, the two scans' logliks
+    and moments side by side."""
+    _, _, Yl, pl = panel(seed + 1100, T_=LONGT_T, N_=LONGT_N, K_=LONGT_K)
+    dev = torch.device("cuda")
+    Yt = torch.as_tensor(Yl, dtype=torch.float32, device=dev)
+    pt = SSMParams.from_numpy(pl, dtype=torch.float32, device=dev)
+    for engine, f_filter, f_smoother in (
+            ("pit", pf.pit_filter, pf.pit_smoother),
+            ("pit_qr", pf.pit_qr_filter, pf.pit_qr_smoother)):
+        rec = {"assoc_longt": engine, "T": LONGT_T, "N": LONGT_N,
+               "k": LONGT_K}
+        res = {}
+        for impl in ("blocked", "associative"):
+            kf = f_filter(Yt, pt, scan_impl=impl)
+            sm = f_smoother(kf, pt, scan_impl=impl)
+            res[impl] = (kf, sm)
+            rec[f"filter_ms_{impl}"] = cuda_ms(
+                lambda: f_filter(Yt, pt, scan_impl=impl))
+            rec[f"smoother_ms_{impl}"] = cuda_ms(
+                lambda: f_smoother(kf, pt, scan_impl=impl))
+        (kb, sb), (ka, sa) = res["blocked"], res["associative"]
+        rec["loglik"] = {i: float(r[0].loglik) for i, r in res.items()}
+        rec["vs_blocked_rel"] = max(rel_gaps((*ka[:4], *sa),
+                                             (*kb[:4], *sb)))
+        emit(rec)
+        if not all(np.isfinite(v) for v in rec["loglik"].values()):
+            raise AssertionError(f"long-T {engine}: non-finite loglik")
+
+
+def assoc_raise_phase(seed: int) -> None:
+    """k = 129: both associative scans raise naming the ROADMAP row before
+    any launch (card tensors of zeros, T = 5); then one small case, card
+    f64 against CPU f64 (the plain twins): both engines' filter and
+    smoother with scan_impl="associative" within ASSOC_REF_TOL."""
+    k = kernels.GEN_KMAX + 1
+    z = dict(dtype=torch.float32, device="cuda")
+    mats, vecs = torch.zeros((5, k, k), **z), torch.zeros((5, k), **z)
+    before = dict(kernels.LAUNCHES)
+    for scan in (pf.pit_scan, pf.qr_scan):
+        for elems, smooth in (((mats, vecs, mats, vecs, mats), False),
+                              ((mats, vecs, mats), True)):
+            try:
+                scan(elems, smooth, "associative")
+            except NotImplementedError as e:
+                if kernels.GENERIC_K not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"{scan.__name__} at k = {k} ran")
+    if kernels.LAUNCHES != before:
+        raise AssertionError("a launch at k = 129")
+    del mats, vecs
+    Ynan, W, _, p = panel(seed + 2300, T_=40, N_=30, K_=3)
+    worst = {}
+    for engine, f_filter, f_smoother in (
+            ("pit", pf.pit_filter, pf.pit_smoother),
+            ("pit_qr", pf.pit_qr_filter, pf.pit_qr_smoother)):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            Yt = torch.as_tensor(np.where(W > 0, Ynan, 0.0),
+                                 dtype=torch.float64, device=dev)
+            Wt = torch.as_tensor(W, dtype=torch.float64, device=dev)
+            pt = SSMParams.from_numpy(p, dtype=torch.float64, device=dev)
+            kf = f_filter(Yt, pt, mask=Wt, scan_impl="associative")
+            sm = f_smoother(kf, pt, scan_impl="associative")
+            out[dev] = tuple(x.cpu() for x in (*kf[:4], kf.loglik, *sm))
+        worst[engine] = max(rel_gaps(out["cuda"], out["cpu"]))
+    emit({"assoc_k129": "raised before any launch",
+          "assoc_reference": worst})
+    if max(worst.values()) > ASSOC_REF_TOL:
+        raise AssertionError(f"assoc card vs CPU f64: {worst}")
+
+
 def ptxas_summary(source: str) -> dict:
     """Build seconds and, over the k = 10 instantiations of ``source``
     (every function for a source without a k template), the largest
@@ -8884,14 +9412,14 @@ BUILD_FIRST = ("dense_filter.cu", "step_chain.cu", "sv_rbpf.cu",
                "tv_loadings_gen.cu", "info_scan_gen.cu", "sv_gen.cu",
                "pit_scan.cu", "qr_scan.cu", "pit_elements.cu",
                "qr_elements.cu", "gen_filters.cu", "bsolve_rows.cu",
-               "lowrank_scan.cu")
+               "lowrank_scan.cu", "pit_assoc.cu")
 
 # Phase groups of ``--phases``, in run order: the groups whose few sources
 # build first (dense's build in seconds, so it runs while tvl's K11-bwd
 # compiles), then the rest.
 PHASES = ("dense", "tvl", "tgen", "sv", "vgen", "headline", "session",
           "batched", "fleet", "lowrank", "mf", "pit", "wide", "bwide",
-          "kbig", "bgen", "sgen", "qgen", "lgen", "dgen")
+          "kbig", "bgen", "sgen", "qgen", "lgen", "dgen", "assoc")
 
 
 def main() -> int:
@@ -9095,6 +9623,12 @@ def main() -> int:
             timed(dgen_k_sweep, seed)
             launches.update(timed(dgen_fit_phase, seed))
             timed(dgen_reference_phase, seed)
+        elif group == "assoc":
+            summary.update(timed(assoc_kernel_phase, seed))
+            timed(assoc_k_sweep, seed)
+            launches.update(timed(assoc_public_phase, seed))
+            timed(assoc_longt_phase, seed)
+            timed(assoc_raise_phase, seed)
         elif group == "vgen":
             vg_counts, vg_fits = timed(vgen_fit_phase, seed)
             launches.update(vg_counts)

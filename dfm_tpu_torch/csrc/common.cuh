@@ -31,6 +31,14 @@
 // < k <= 128): a runtime k, the k x k algebra tiled in 32s.
 #define DFM_GEN_KMAX 128
 
+// The element arrays of a parallel-in-time scan, one pointer an element
+// component: the filter's (A, b, C or U, eta, J or Z), the smoother's (E,
+// g, L or D) in the first three.
+template <typename T>
+struct Arrays {
+  T* p[5];
+};
+
 // Scalar maths with one spelling for float and double.
 __device__ __forceinline__ float dfm_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double dfm_sqrt(double x) { return sqrt(x); }

@@ -21,9 +21,15 @@ output in ONE device->host copy of one packed f64 buffer.  One read per
 fit needs the loop in a CUDA graph (ROADMAP Queue 1 item 4).
 
 The diffusion-index forecasts solve N batched (k+2)x(k+2) normal
-equations with ``torch.linalg.solve_ex`` (a library solve, ROADMAP Queue
-2), whose error check would read the host and which therefore runs
-unchecked, as ``jnp.linalg.solve`` does.  Not ported here: the guarded
+equations by LU (``torch.linalg.lu_factor_ex`` and ``lu_solve``, library
+calls, ROADMAP Queue 2), whose error check would read the host and which
+therefore run unchecked, as ``jnp.linalg.solve`` does.  An exactly zero
+pivot (the ridge of 1e-8 is below f32's resolution of these sums, and a
+rank-r session's factors can leave the equations singular to rounding)
+becomes eps x the system's largest pivot, so the forecast stays finite
+where the JAX package's LU, rounding differently, lands on a tiny pivot;
+every other system is solved as ``solve_ex`` solves it (the same factors
+and the same solve).  Not ported here: the guarded
 dispatch (``policy=``, ROADMAP Queue 1 item 5), tracing (item 13), the
 donated warm-refit twin and the panel residency cache (item 3).
 """
@@ -95,8 +101,11 @@ def _di_solve(Gff, Gfy, Gyy, bf, by, N, d, ridge):
     XtX[..., d - 1, d - 1] = Gyy
     XtX = XtX + ridge * torch.eye(d, dtype=dt, device=dev)
     Xtz = torch.cat([bf.transpose(-1, -2), by[..., None]], dim=-1)
-    beta, _ = torch.linalg.solve_ex(XtX, Xtz[..., None])
-    return beta[..., 0]
+    LU, piv, _ = torch.linalg.lu_factor_ex(XtX)
+    U = LU.diagonal(dim1=-2, dim2=-1)
+    tiny = torch.finfo(dt).eps * U.abs().amax(-1, keepdim=True)
+    U.copy_(torch.where(U == 0, tiny, U))
+    return torch.linalg.lu_solve(LU, piv, Xtz[..., None])[..., 0]
 
 
 def _di_forecast_core(F, Y, horizon: int, ridge: float = 1e-8):

@@ -69,14 +69,14 @@ KMAX = 16   # DFM_KMAX in csrc/common.cuh
 # KMAX (fit_many, the k-grid, the rolling windows and fleet buckets at
 # 16 < k <= 32), K2-tv and K1-tv past KMAX (the time-varying-loadings
 # family at 16 < k <= 32; K11 takes its generic kernels there), K14
-# (pit_elements, pit_scan: one kernel each at every k <= 32), and K15
-# (dense_filter) at every N and k.
+# (pit_elements, pit_scan, pit_assoc: one kernel each at every k <= 32),
+# and K15 (dense_filter) at every N and k.
 WIDE_KMAX = 32
 # The generic kernels' range (DFM_GEN_KMAX): the lone K2 (masked), the K4
 # pair, K1 (quad_local and loglik_terms_local), K3 (masked), K5a and K5b
-# (ss_cov_path, affine_scan) and K14 (pit_elements, pit_scan) at 32 < k
-# <= 128, each with a runtime k (the lone info, ss, pit and lowrank fits,
-# fused fits and sessions past 32, the mixed-frequency seq and pit routes
+# (ss_cov_path, affine_scan) and K14 (pit_elements, pit_scan, pit_assoc)
+# at 32 < k <= 128, each with a runtime k (the lone info, ss, pit and
+# lowrank fits, fused fits and sessions past 32, the mixed-frequency seq and pit routes
 # at m > 32), and the batched twins K4b (both passes), K1b, K6b, K2b-m,
 # K1b-m and K3b-m there (fit_many, the k-grid, the rolling windows and
 # info and lowrank fleet buckets past 32), and the time-varying-loadings
@@ -84,8 +84,8 @@ WIDE_KMAX = 32
 # from KMAX up), and the stochastic-volatility family's K10-fwd and
 # K10-ffbs (their generic kernels from KMAX up, and at any k past SV_MMAX
 # particles: ``route_sv``).  The square-root engine's K8 (qr_elements_gen,
-# qr_scan_gen) takes 10 < k <= GEN_KMAX; the rank-r trio K9 and the dense
-# filter K15 take their generic kernels (``csrc/gen_filters.cu``) past
+# qr_scan_gen) and K8-assoc (qr_assoc_gen) take 10 < k <= GEN_KMAX; the
+# rank-r trio K9 and the dense filter K15 take their generic kernels (``csrc/gen_filters.cu``) past
 # their own kernels' ranges (below) to k = GEN_KMAX, r <= k and N =
 # GEN_KMAX (``route_lowrank``, ``route_dense``).
 GEN_KMAX = 128
@@ -186,6 +186,10 @@ KERNELS = {
                          + [_I] * 4),
     "lowrank_smoother_gen": ("gen_filters.cu", [_P] * 10 + [_I] * 4),
     "dense_filter_gen": ("gen_filters.cu", [_P] * 14 + [_I] * 3),
+    "pit_assoc": ("pit_assoc.cu", [_I] + [_P] * 6 + [_I] * 2),
+    "pit_assoc_gen": ("pit_assoc.cu", [_I] + [_P] * 7 + [_I] * 3),
+    "qr_assoc": ("pit_assoc.cu", [_I] + [_P] * 6 + [_I] * 2),
+    "qr_assoc_gen": ("pit_assoc.cu", [_I] + [_P] * 7 + [_I] * 3),
 }
 
 # The entry points with a wide kernel beside the k <= KMAX one, and its
@@ -231,6 +235,7 @@ GEN = {"obs_stats": "obs_stats_gen", "info_scan": "info_scan_gen",
        "mstep_rows": "mstep_rows_gen",
        "ss_cov_path": "ss_cov_path_gen", "affine_scan": "affine_scan_gen",
        "pit_elements": "pit_elements_gen", "pit_scan": "pit_scan_gen",
+       "pit_assoc": "pit_assoc_gen",
        "batched_info_scan": "batched_info_scan_gen",
        "batched_rts": "batched_rts_gen", "batched_quad": "batched_quad_gen",
        "batched_quad_masked": "batched_quad_masked_gen",
@@ -243,14 +248,16 @@ GEN = {"obs_stats": "obs_stats_gen", "info_scan": "info_scan_gen",
        "sv_rbpf": "sv_rbpf_gen", "sv_ffbs": "sv_ffbs_gen"}
 # k x k workspace matrices a CTA of the generic kernels on persistent
 # grids: pit_elements_gen and pit_scan_gen (the last template argument of
-# PegCta in pit_elements.cu, of GenCta in pit_scan.cu), qr_elements_gen and
-# qr_scan_gen (QR_EL_MATS in pit_elements.cu, QR_SCAN_MATS in pit_scan.cu:
-# beside the pit engine's generic kernels, whose block-wide routines they
-# share, so those compile once a dtype).
+# PegCta in pit_elements.cu, of GenCta in pit_combine.cuh), qr_elements_gen
+# and qr_scan_gen (QR_EL_MATS in pit_elements.cu, QR_SCAN_MATS in
+# pit_combine.cuh: beside the pit engine's generic kernels, whose
+# block-wide routines they share, so those compile once a dtype), and the
+# log-depth scans' pit_assoc_gen and qr_assoc_gen (pit_assoc.cu: the same
+# combine bodies, so GenCta's and QR_SCAN_MATS).
 # The square-root engine's kernels are routed by ops.linalg.check_qr_k
 # (their own to k = 10, the generic ones to GEN_KMAX), not by ``route``.
 GEN_MATS = {"pit_elements_gen": 4, "pit_scan_gen": 6, "qr_elements_gen": 8,
-            "qr_scan_gen": 10}
+            "qr_scan_gen": 10, "pit_assoc_gen": 6, "qr_assoc_gen": 10}
 
 # The kernels whose one C call launches more than one device kernel, and
 # how many: ``launch`` counts each.  K6b-gen factors the lanes' S, then

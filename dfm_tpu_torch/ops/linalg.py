@@ -336,8 +336,8 @@ def gen_work(kernel: str, dt, dev, n: int, k: int) -> tuple:
 
 
 def check_qr_k(name: str, k: int) -> str:
-    """The kernel the square-root engine's entry ``name`` ("qr_elements"
-    or "qr_scan") launches at k: its own (one thread a step or a combine)
+    """The kernel the square-root engine's entry ``name`` ("qr_elements",
+    "qr_scan" or "qr_assoc") launches at k: its own (one thread a step or a combine)
     for k <= QR_UNROLL_K_MAX, ``<name>_gen`` (the JAX package's generic
     branch, a CTA a step or a combine) for QR_UNROLL_K_MAX < k <=
     kernels.GEN_KMAX; past that it raises naming the ROADMAP row, before

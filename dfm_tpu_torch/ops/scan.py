@@ -14,6 +14,12 @@ work-efficient blocked prefix over an associative ``combine``, with the
 JAX package's default of S = floor(sqrt(T)) elements a block
 (``default_block_size``, which the kernels take), so that kernel and twin
 associate identically.
+
+``associative_scan`` is the plain twin of the log-depth scan kernels
+K14-assoc and K8-assoc (``csrc/pit_assoc.cu``): the tree of
+``lax.associative_scan`` (jax 0.9.0, ``jax/_src/lax/control_flow/
+loops.py:2605``, ``_scan`` at 2705, ``_interleave`` at 2746) on tuples of
+tensors, so that kernel and twin associate identically.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch
 from .. import kernels
 
 __all__ = ["affine_const_prefix", "affine_scan", "affine_scan_plain",
-           "blocked_scan", "default_block_size"]
+           "associative_scan", "blocked_scan", "default_block_size"]
 
 
 def affine_const_prefix(M: torch.Tensor, d: torch.Tensor,
@@ -160,3 +166,44 @@ def blocked_scan(combine: Callable, elems, block_size: int | None = None,
         full = tuple(torch.cat([f, torch.stack(v)], dim=0)
                      for f, v in zip(full, zip(*rest)))
     return full
+
+
+def associative_scan(combine: Callable, elems, reverse: bool = False):
+    """Inclusive prefix (suffix if ``reverse``) products of ``elems`` (a
+    tensor or a tuple of tensors, sequence on axis 0) under
+    ``combine(earlier, later)``, by the log-depth tree of
+    ``lax.associative_scan``: combine the pairs (e[2i], e[2i+1]), scan the
+    reduced half, then out[2i] = combine(odd[i-1], e[2i]) for i >= 1,
+    out[0] = e[0] and out[2i+1] = odd[i].  For ``reverse`` the sequence is
+    flipped, scanned and flipped back, so ``combine`` receives (later,
+    earlier), as ``lax.associative_scan(..., reverse=True)`` calls it."""
+    if isinstance(elems, torch.Tensor):
+        return associative_scan(lambda a, b: (combine(a[0], b[0]),),
+                                (elems,), reverse)[0]
+    elems = tuple(elems)
+    if reverse:
+        out = _assoc(combine, tuple(x.flip(0) for x in elems))
+        return tuple(x.flip(0) for x in out)
+    return _assoc(combine, elems)
+
+
+def _assoc(combine: Callable, elems: tuple) -> tuple:
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    reduced = tuple(combine(tuple(x[0:n - 1:2] for x in elems),
+                            tuple(x[1::2] for x in elems)))
+    odd = _assoc(combine, reduced)
+    if n % 2 == 0:
+        even = combine(tuple(x[:-1] for x in odd),
+                       tuple(x[2::2] for x in elems))
+    else:
+        even = combine(odd, tuple(x[2::2] for x in elems))
+    out = []
+    for e, ev, od in zip(elems, even, odd):
+        full = torch.empty_like(e)
+        full[0] = e[0]
+        full[2::2] = ev
+        full[1::2] = od
+        out.append(full)
+    return tuple(out)

@@ -5,8 +5,15 @@ the square-root engine ``pit_qr``.
 Filtering is associative (Sarkka & Garcia-Fernandez): each step is an
 element of a semigroup whose inclusive prefix product carries the
 filtered moments, and the RTS smoother is the reverse prefix of affine
-elements.  The blocked scan (``ops.scan.blocked_scan``) runs ~2 sqrt(T)
-combines in sequence, batched over blocks.
+elements.  Two scans take the combines, as in the JAX package
+(``scan_impl``): "blocked" (``ops.scan.blocked_scan``, ~2 sqrt(T)
+combines in sequence, batched over blocks) and "associative"
+(``ops.scan.associative_scan``, the log-depth tree of
+``lax.associative_scan``: ~2T combines in 2 floor(log2 T) levels).  On
+CUDA tensors the associative scans are the kernels K14-assoc
+(``pit_assoc``, ``pit_assoc_gen``) and K8-assoc (``qr_assoc``,
+``qr_assoc_gen``) of ``csrc/pit_assoc.cu``, a launch a level, on the
+blocked kernels' combine bodies at each tier.
 
 ``pit``: elements (A, b, C, eta, J) built from the information-form
 statistics by push-through solves with I + Q C_t and I + C_t Q (the t = 0
@@ -55,7 +62,7 @@ from ..ops.linalg import (chol_logdet, chol_solve, check_qr_k,
                           default_jitter, gen_work, matmul_vpu, matvec_vpu,
                           psd_cholesky, psd_factor, qr_chol, qr_chol_solve,
                           sym, tri_solve, tria)
-from ..ops.scan import blocked_scan, default_block_size
+from ..ops.scan import associative_scan, blocked_scan, default_block_size
 from .info_filter import (ObsStats, loglik_from_terms, loglik_terms_local,
                           obs_stats, quad_local, u_from_stats)
 from .params import FilterResult, SmootherResult, SSMParams
@@ -65,7 +72,7 @@ __all__ = ["pit_filter_elements", "pit_filter_elements_plain",
            "pit_filter_assemble_plain", "pit_from_stats", "pit_filter",
            "pit_smoother_elements", "pit_smoother_elements_plain",
            "pit_smoother_assemble", "pit_smoother_assemble_plain",
-           "pit_smoother", "pit_filter_smoother", "SCAN_ASSOCIATIVE",
+           "pit_smoother", "pit_filter_smoother",
            "qr_generic_elements", "qr_init_posterior", "qr_filter_elements",
            "qr_filter_elements_plain", "qr_combine_filter",
            "qr_combine_smoother", "qr_scan", "qr_scan_plain",
@@ -85,23 +92,66 @@ def _bcast(M, T):
     return M.expand((T,) + M.shape)
 
 
-# Name of the ROADMAP row that ports the log-depth associative scan.
-SCAN_ASSOCIATIVE = "ROADMAP Queue 2, 'scan_impl=\"associative\"'"
-
-
 def _mv(M, v):
     """Batched matrix-vector product (..., i, j) x (..., j)."""
     return torch.einsum("...kl,...l->...k", M, v)
 
 
+# The plain scans by ``scan_impl``.
+_SCANS = {"blocked": blocked_scan, "associative": associative_scan}
+
+
 def _check_scan_impl(scan_impl: str) -> None:
-    if scan_impl == "associative":
-        raise NotImplementedError(
-            "scan_impl='associative' (the log-depth associative scan) is "
-            f"not ported to dfm_tpu_torch yet: {SCAN_ASSOCIATIVE}; "
-            "scan_impl='blocked' runs")
-    if scan_impl != "blocked":
+    """Raise on an unknown ``scan_impl``: checked by ``pit_scan`` and
+    ``qr_scan`` alone, which every public function goes through."""
+    if scan_impl not in _SCANS:
         raise ValueError(f"unknown scan_impl {scan_impl!r}")
+
+
+def _plain_scan(combine, elems, reverse: bool, scan_impl: str) -> tuple:
+    """``combine``'s inclusive prefix (suffix if ``reverse``) by the scan
+    ``scan_impl`` names."""
+    return _SCANS[scan_impl](combine, elems, reverse=reverse)
+
+
+def _assoc_levels(T: int) -> list:
+    """Elements of each level above 0 of the associative scan's tree (n_0
+    = T, n_{l+1} = n_l // 2 while n_l >= 2): the workspace the K14-assoc
+    and K8-assoc kernels take, levels back to back (csrc/pit_assoc.cu
+    ``run_tree``)."""
+    sizes = []
+    n = T
+    while n >= 2:
+        n //= 2
+        sizes.append(n)
+    return sizes
+
+
+def _assoc_launch(kernel: str, elems: tuple, smoother: bool) -> tuple:
+    """The associative scan kernel ``kernel`` (K14-assoc or K8-assoc at
+    its tier) over contiguous copies of ``elems``, scanned in place; the
+    level workspace (and a generic kernel's per-CTA workspace) allocated
+    for the call.  A sequence of one element is its own scan: nothing is
+    launched."""
+    T, k = elems[1].shape
+    dt, dev = elems[0].dtype, elems[0].device
+    out = tuple(x.clone(memory_format=torch.contiguous_format)
+                for x in elems)
+    shapes = ((T, k, k), (T, k), (T, k, k), (T, k), (T, k, k))
+    _check(dt, dev, *((f"elems[{i}]", x, s)
+                      for i, (x, s) in enumerate(zip(out, shapes))))
+    if T < 2:
+        return out
+    per = (2 * k * k + k) if smoother else (3 * k * k + 2 * k)
+    levels = torch.empty(sum(_assoc_levels(T)) * per, dtype=dt, device=dev)
+    ptrs = list(out) + [None] * (5 - len(out))
+    if not kernel.endswith("_gen"):
+        kernels.launch(kernel, dt, int(smoother), *ptrs, levels, T, k)
+    else:
+        work, ctas = gen_work(kernel, dt, dev, T // 2, k)
+        kernels.launch(kernel, dt, int(smoother), *ptrs, levels, work, T, k,
+                       ctas)
+    return out
 
 
 def _filter_elements(stats: ObsStats, A, Q, mu0, P0):
@@ -215,22 +265,31 @@ def _combine_smoother(elater, eearlier):
     return (E, g, L)
 
 
-def pit_scan_plain(elems: tuple, smoother: bool = False) -> tuple:
-    """Plain twin of ``pit_scan``: ``blocked_scan`` with the covariance-form
-    combines."""
+def pit_scan_plain(elems: tuple, smoother: bool = False,
+                   scan_impl: str = "blocked") -> tuple:
+    """Plain twin of ``pit_scan``: ``blocked_scan`` (or, for
+    ``scan_impl="associative"``, ``associative_scan``) with the
+    covariance-form combines."""
     if smoother:
-        return blocked_scan(_combine_smoother, elems, reverse=True)
-    return blocked_scan(_combine_filter, elems)
+        return _plain_scan(_combine_smoother, elems, True, scan_impl)
+    return _plain_scan(_combine_filter, elems, False, scan_impl)
 
 
-def pit_scan(elems: tuple, smoother: bool = False) -> tuple:
+def pit_scan(elems: tuple, smoother: bool = False,
+             scan_impl: str = "blocked") -> tuple:
     """Inclusive prefix of the filter elements (A, b, C, eta, J), or
-    inclusive suffix of the smoother elements (E, g, L).  Kernel pit_scan
-    for CUDA tensors (one call: four launches, one a phase of
-    ``blocked_scan``); the inputs are left as they are."""
+    inclusive suffix of the smoother elements (E, g, L).  For CUDA
+    tensors: "blocked", kernel pit_scan (one call: four launches, one a
+    phase of ``blocked_scan``); "associative", kernel K14-assoc
+    (``pit_assoc``, past k = 32 ``pit_assoc_gen``: one call, a launch a
+    level of ``associative_scan``'s tree).  The inputs are left as they
+    are."""
+    _check_scan_impl(scan_impl)
     if elems[0].device.type == "cpu":
-        return pit_scan_plain(elems, smoother)
+        return pit_scan_plain(elems, smoother, scan_impl)
     T, k = elems[1].shape
+    if scan_impl == "associative":
+        return _assoc_launch(kernels.route("pit_assoc", k), elems, smoother)
     dt, dev = elems[0].dtype, elems[0].device
     kernel = kernels.route("pit_scan", k)
     # Contiguous copies, scanned in place.
@@ -293,9 +352,8 @@ def pit_from_stats(stats: ObsStats, p: SSMParams, scan_impl: str = "blocked"):
     statistics: (x_pred, P_pred, x_filt, P_filt, logdetG).  The innovation
     quadratic is the caller's (it needs the panel).  Shared by
     ``pit_filter`` and the mixed-frequency E-step (``time_scan="pit"``)."""
-    _check_scan_impl(scan_impl)
     elems = pit_filter_elements(stats, p.A, p.Q, p.mu0, p.P0)
-    pref = pit_scan(elems)
+    pref = pit_scan(elems, scan_impl=scan_impl)
     x_f, P_f = pref[1], pref[2]
     x_pred, P_pred, logdetG = pit_filter_assemble(
         x_f, P_f, stats.C, p.A, p.Q, p.mu0, p.P0)
@@ -307,7 +365,8 @@ def pit_filter(Y: torch.Tensor, p: SSMParams,
                scan_impl: str = "blocked") -> FilterResult:
     """Covariance-form parallel-in-time filter: the contract of
     ``info_filter`` (exact loglik, predicted and filtered moments).
-    ``scan_impl``: "blocked" (the only one ported; "associative" raises)."""
+    ``scan_impl``: "blocked" (~2 sqrt(T) combines in sequence) or
+    "associative" (the log-depth tree, ~2T combines)."""
     p = p.to(dtype=Y.dtype)
     stats = obs_stats(Y, p.Lam, p.R, mask=mask)
     x_pred, P_pred, x_f, P_f, logdetG = pit_from_stats(stats, p, scan_impl)
@@ -382,11 +441,10 @@ def pit_smoother_assemble(P_sm, J):
 def pit_smoother(kf: FilterResult, p: SSMParams,
                  scan_impl: str = "blocked") -> SmootherResult:
     """Covariance-form parallel-in-time RTS smoother: the contract of
-    ``rts_smoother``."""
-    _check_scan_impl(scan_impl)
+    ``rts_smoother``.  ``scan_impl``: as ``pit_filter``."""
     p = p.to(dtype=kf.x_filt.dtype)
     elems, J = pit_smoother_elements(kf, p.A)
-    suf = pit_scan(elems, smoother=True)
+    suf = pit_scan(elems, smoother=True, scan_impl=scan_impl)
     return SmootherResult(suf[1], suf[2], pit_smoother_assemble(suf[2], J))
 
 
@@ -548,21 +606,31 @@ def qr_combine_smoother(elater, eearlier):
     return (E, g, D)
 
 
-def qr_scan_plain(elems: tuple, smoother: bool = False) -> tuple:
-    """Plain twin of ``qr_scan``: ``blocked_scan`` with the QR combines."""
+def qr_scan_plain(elems: tuple, smoother: bool = False,
+                  scan_impl: str = "blocked") -> tuple:
+    """Plain twin of ``qr_scan``: ``blocked_scan`` (or, for
+    ``scan_impl="associative"``, ``associative_scan``) with the QR
+    combines."""
     if smoother:
-        return blocked_scan(qr_combine_smoother, elems, reverse=True)
-    return blocked_scan(qr_combine_filter, elems)
+        return _plain_scan(qr_combine_smoother, elems, True, scan_impl)
+    return _plain_scan(qr_combine_filter, elems, False, scan_impl)
 
 
-def qr_scan(elems: tuple, smoother: bool = False) -> tuple:
+def qr_scan(elems: tuple, smoother: bool = False,
+            scan_impl: str = "blocked") -> tuple:
     """Inclusive prefix of the filter elements (A, b, U, eta, Z), or
-    inclusive suffix of the smoother elements (E, g, D).  Kernel K8
-    (``qr_scan``, past k = 10 ``qr_scan_gen``: one call, four launches
-    counted as one) for CUDA tensors; the inputs are left as they are."""
+    inclusive suffix of the smoother elements (E, g, D).  For CUDA
+    tensors: "blocked", kernel K8 (``qr_scan``, past k = 10
+    ``qr_scan_gen``: one call, four launches counted as one);
+    "associative", kernel K8-assoc (``qr_assoc``, past k = 10
+    ``qr_assoc_gen``: one call, a launch a level).  The inputs are left as
+    they are."""
+    _check_scan_impl(scan_impl)
     if elems[0].device.type == "cpu":
-        return qr_scan_plain(elems, smoother)
+        return qr_scan_plain(elems, smoother, scan_impl)
     T, k = elems[1].shape
+    if scan_impl == "associative":
+        return _assoc_launch(check_qr_k("qr_assoc", k), elems, smoother)
     dt, dev = elems[0].dtype, elems[0].device
     kernel = check_qr_k("qr_scan", k)
     # Contiguous copies, scanned in place.
@@ -624,11 +692,10 @@ def qr_filter_assemble(x_f, U_f, C, A, Q, mu0, P0):
 def pit_qr_from_stats(stats: ObsStats, p: SSMParams,
                       scan_impl: str = "blocked"):
     """Element build + prefix scan + moment assembly: (x_pred, P_pred,
-    x_f, P_f, logdetG).  ``scan_impl``: "blocked" (the only one ported;
-    "associative" raises)."""
-    _check_scan_impl(scan_impl)
+    x_f, P_f, logdetG).  ``scan_impl``: "blocked" or "associative", as
+    ``pit_filter``."""
     elems = qr_filter_elements(stats, p.A, p.Q, p.mu0, p.P0)
-    pref = qr_scan(elems)
+    pref = qr_scan(elems, scan_impl=scan_impl)
     x_f, U_f = pref[1], pref[2]
     x_pred, P_pred, P_f, logdetG = qr_filter_assemble(
         x_f, U_f, stats.C, p.A, p.Q, p.mu0, p.P0)
@@ -719,10 +786,9 @@ def pit_qr_smoother(kf: FilterResult, p: SSMParams,
                     scan_impl: str = "blocked") -> SmootherResult:
     """Square-root parallel-in-time RTS smoother: the contract of
     ``rts_smoother``.  ``scan_impl``: as ``pit_qr_from_stats``."""
-    _check_scan_impl(scan_impl)
     p = p.to(dtype=kf.x_filt.dtype)
     elems, J = qr_smoother_elements(kf, p.A, p.Q)
-    suf = qr_scan(elems, smoother=True)
+    suf = qr_scan(elems, smoother=True, scan_impl=scan_impl)
     P_sm, P_lag = qr_smoother_assemble(suf[2], J)
     return SmootherResult(suf[1], P_sm, P_lag)
 

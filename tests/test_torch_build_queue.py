@@ -58,7 +58,8 @@ def test_the_queue_builds_every_source_once_a_dtype_first_ones_first():
     compiles, sv_rbpf.cu and tvl's tv_smoother.cu; the
     generic K4 pair and K11 pair build apart from their k <= 16 kernels
     (their own sources), K11-bwd's k <= 16 kernel apart from K11-fwd's,
-    and the generic rank-r and dense kernels apart too."""
+    the generic rank-r and dense kernels apart too, and the associative
+    scans apart from the blocked ones, last."""
     import chip_smoke as cs
     tables = (*kernels.KERNELS.values(), *kernels.PROBES.values(),
               *kernels.QUERIES.values())
@@ -85,6 +86,13 @@ def test_the_queue_builds_every_source_once_a_dtype_first_ones_first():
         assert kernels.KERNELS[narrow][0] != source
     assert kernels.QUERIES["loading_smoother_gen_slots"][0] == \
         "tv_loadings_gen.cu"
+    # The log-depth scans (K14-assoc, K8-assoc) are a source of their own,
+    # queued last: their group runs last.
+    assert cs.BUILD_FIRST[-1] == "pit_assoc.cu" and cs.PHASES[-1] == "assoc"
+    for name in ("pit_assoc", "pit_assoc_gen", "qr_assoc", "qr_assoc_gen"):
+        assert kernels.KERNELS[name][0] == "pit_assoc.cu"
+    assert kernels.KERNELS["pit_scan"][0] == "pit_scan.cu"
+    assert kernels.KERNELS["qr_scan"][0] == "qr_scan.cu"
 
 
 def test_a_compile_runs_niced_one_a_dtype(monkeypatch, tmp_path):

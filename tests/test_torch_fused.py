@@ -177,3 +177,44 @@ def test_fused_divergence_seam_keeps_last_good():
     assert rt.nowcast is None and rt.forecasts is None
     assert rj.nowcast is None
     _assert_fit_matches(rt, rj, outputs=False)
+
+
+def test_di_solve_finite_at_an_exact_zero_pivot():
+    """ROADMAP Queue 3 (the rank-8 session at k = 128, f32): when the
+    diffusion-index normal equations are singular to f32 rounding (the
+    1e-8 ridge is below the resolution of sums of a few thousand, and two
+    regressors coincide), torch's LU meets an exact zero pivot and
+    ``solve_ex`` returns inf / NaN where the JAX package's LU, rounding
+    differently, had landed on a tiny pivot.  ``_di_solve`` takes eps x
+    the largest pivot there and stays finite; a nonsingular system is
+    solved as ``solve_ex`` solves it, bit for bit."""
+    f32 = torch.float32
+    Gff = torch.tensor([[4096.0, 2048, 2048], [2048, 2048, 2048],
+                        [2048, 2048, 2048]], dtype=f32)
+    Gfy, Gyy = torch.zeros(3, 2, dtype=f32), torch.tensor([1024.0, 2048.0])
+    bf = torch.tensor([[1.0, 2], [3, 4], [5, 6]])
+    by = torch.tensor([7.0, 8.0])
+    XtX = torch.zeros(2, 4, 4, dtype=f32)
+    XtX[:, :3, :3] = Gff
+    XtX[:, 3, 3] = Gyy
+    XtX = XtX + 1e-8 * torch.eye(4)
+    rhs = torch.cat([bf.T, by[:, None]], dim=-1)[..., None]
+    old, info = torch.linalg.solve_ex(XtX, rhs)
+    assert (info > 0).all() and not torch.isfinite(old).all()
+    assert torch.isfinite(tfused._di_solve(Gff, Gfy, Gyy, bf, by, 2, 4,
+                                           1e-8)).all()
+    rng = np.random.default_rng(3)
+    X = torch.tensor(rng.standard_normal((40, 6)), dtype=f32)
+    Yl = torch.tensor(rng.standard_normal((40, 2)), dtype=f32)
+    Z = torch.tensor(rng.standard_normal((40, 2)), dtype=f32)
+    got = tfused._di_solve(X.T @ X, X.T @ Yl, (Yl * Yl).sum(0), X.T @ Z,
+                           (Yl * Z).sum(0), 2, 7, 1e-8)
+    M = torch.zeros(2, 7, 7, dtype=f32)
+    M[:, :6, :6] = X.T @ X
+    M[:, :6, 6] = (X.T @ Yl).T
+    M[:, 6, :6] = (X.T @ Yl).T
+    M[:, 6, 6] = (Yl * Yl).sum(0)
+    M = M + 1e-8 * torch.eye(7)
+    want = torch.linalg.solve_ex(
+        M, torch.cat([(X.T @ Z).T, (Yl * Z).sum(0)[:, None]], -1)[..., None])
+    assert torch.equal(got, want[0][..., 0])

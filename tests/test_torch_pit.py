@@ -9,8 +9,8 @@ dfm_tpu at float64 on the CPU, where K14's launchers run their plain twins.
 - EM paths (``em_fit_scan``, ``fit``, the fused fit, sessions, the
   mixed-frequency ``time_scan="pit"`` fits) agree to 1e-9.
 - The f32 MF pit trajectory stays within 2e-4 of the sequential one
-  (tests/test_mixed_freq.py's bound), and the unported log-depth scan
-  raises naming the ROADMAP.
+  (tests/test_mixed_freq.py's bound), and the log-depth scan
+  (``scan_impl="associative"``) gives the JAX pair's answers.
 """
 
 import functools
@@ -40,7 +40,6 @@ from dfm_tpu_torch.models import mixed_freq as tm
 from dfm_tpu_torch.ssm import info_filter as tinf
 from dfm_tpu_torch.ssm import parallel_filter as tpf
 from dfm_tpu_torch.ssm.kalman import rts_smoother
-from dfm_tpu_torch.ssm.params import FilterResult as TFR
 from dfm_tpu_torch.ssm.params import SSMParams as TP
 from torch_parity import close, one_torch_thread  # noqa: F401
 
@@ -194,13 +193,20 @@ def test_pit_filter_smoother_match_jax_and_info(masked):
 
 
 def test_unported_scan_and_width_raise():
-    p, Y, _ = _setup()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        tpf.pit_filter(torch.as_tensor(Y), TP.from_numpy(p),
-                       scan_impl="associative")
-    kf = TFR(*(torch.zeros(1) for _ in range(5)))
-    with pytest.raises(NotImplementedError, match="associative"):
-        tpf.pit_smoother(kf, TP.from_numpy(p), scan_impl="associative")
+    """The log-depth scan (``scan_impl="associative"``) gives the JAX
+    pair's answers (tests/test_torch_pit_assoc.py holds it across shapes);
+    the K14 kernels stop at 128 on the card."""
+    p, Y, W = _setup()
+    pj, pt = JP.from_numpy(p, jnp.float64), TP.from_numpy(p)
+    kj = jpf.pit_filter(jnp.asarray(Y), pj, mask=jnp.asarray(W),
+                        scan_impl="associative")
+    kt = tpf.pit_filter(torch.as_tensor(Y), pt, mask=torch.as_tensor(W),
+                        scan_impl="associative")
+    _same(kt[:4], kj[:4])
+    assert abs(float(kt.loglik) - float(kj.loglik)) < FIT_RTOL * abs(
+        float(kj.loglik))
+    _same(tpf.pit_smoother(kt, pt, scan_impl="associative"),
+          jpf.pit_smoother(kj, pj, scan_impl="associative"))
     # The K14 kernels' range on the card (the CPU twins take any k): one
     # kernel each to 32, the generic one to 128.
     for name in ("pit_elements", "pit_scan"):

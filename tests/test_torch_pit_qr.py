@@ -219,21 +219,12 @@ def test_em_through_pit_qr_matches_jax(setup):
 @pytest.mark.parametrize("scan_impl", ["blocked", "associative"])
 def test_pit_qr_functions_take_scan_impl(setup, scan_impl):
     """``pit_qr_from_stats``, ``pit_qr_filter`` and ``pit_qr_smoother``
-    take ``scan_impl`` as their JAX twins do: "blocked" gives the twins'
-    answers, "associative" (not ported) raises naming the ROADMAP row."""
+    take ``scan_impl`` as their JAX twins do: "blocked" and "associative"
+    give the twins' answers."""
     p, Y, W = setup
     pj, pt = JP.from_numpy(p, jnp.float64), TP.from_numpy(p)
     Yt, Wt = torch.as_tensor(Y), torch.as_tensor(W)
     st = tif.obs_stats(Yt, pt.Lam, pt.R, mask=Wt)
-    if scan_impl == "associative":
-        kt = tpf.pit_qr_filter(Yt, pt, mask=Wt)
-        for call in (lambda: tpf.pit_qr_from_stats(st, pt, scan_impl),
-                     lambda: tpf.pit_qr_filter(Yt, pt, mask=Wt,
-                                               scan_impl=scan_impl),
-                     lambda: tpf.pit_qr_smoother(kt, pt, scan_impl)):
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-                call()
-        return
     sj = jif.obs_stats(jnp.asarray(Y), pj.Lam, pj.R, mask=jnp.asarray(W))
     for got, want in zip(tpf.pit_qr_from_stats(st, pt, scan_impl),
                          jpf.pit_qr_from_stats(sj, pj, scan_impl)):

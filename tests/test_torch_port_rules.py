@@ -20,6 +20,8 @@ import torch
 
 import dfm_tpu_torch as dtt
 from dfm_tpu_torch import kernels
+from dfm_tpu_torch.ssm import parallel_filter as tpf
+from dfm_tpu_torch.ssm.params import SSMParams as TP
 from torch_parity import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -173,6 +175,12 @@ def test_cpu_path_launches_no_kernel():
     res = dtt.fit(dtt.DynamicFactorModel(11), Y, max_iters=1, tol=0.0,
                   backend=dtt.TorchBackend(device="cpu", filter="pit_qr"))
     assert res.filter == "pit_qr" and res.n_iters == 1
+    p0 = TP.from_numpy(res.params)
+    Yt, Wt = torch.as_tensor(Y0), torch.as_tensor(np.isfinite(Y) * 1.0)
+    for f_filter, f_smoother in ((tpf.pit_filter, tpf.pit_smoother),
+                                 (tpf.pit_qr_filter, tpf.pit_qr_smoother)):
+        kf = f_filter(Yt, p0, mask=Wt, scan_impl="associative")
+        f_smoother(kf, p0, scan_impl="associative")
     assert set(kernels.LAUNCHES) == {"quad_local", "obs_stats", "mstep_rows",
                                      "info_scan", "rts_smoother",
                                      "ss_cov_path", "affine_scan",
@@ -217,5 +225,7 @@ def test_cpu_path_launches_no_kernel():
                                      "sv_ffbs_gen", "lowrank_basis_gen",
                                      "lowrank_scan_gen",
                                      "lowrank_smoother_gen",
-                                     "dense_filter_gen"}
+                                     "dense_filter_gen", "pit_assoc",
+                                     "pit_assoc_gen", "qr_assoc",
+                                     "qr_assoc_gen"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())

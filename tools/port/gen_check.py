@@ -35,6 +35,14 @@ and the integers after its name.  The families' checks:
       gen_filters.cu lgen_k_sweep dgen_k_sweep
     (the lgen and dgen groups' fits, sessions and references also run the
     generic K1-K4 kernels: ``chip_smoke.py --phases lgen,dgen``)
+    the log-depth associative scans (K14-assoc, K8-assoc) at every tier,
+    with the blocked kernels beside them and the public functions' path:
+      pit_assoc.cu,pit_scan.cu,qr_scan.cu,step_chain.cu,pit_elements.cu,
+      qr_elements.cu,obs_stats.cu,quad_local.cu
+      assoc_k_sweep assoc_raise_phase assoc_kernel_phase
+    (the public functions' phase also runs the K4 pair for the exact
+    loglik: add info_scan.cu,info_scan_gen.cu and assoc_public_phase, or
+    run ``chip_smoke.py --phases assoc``)
 
 Prints the card line, the build seconds, the sources' ptxas lines and
 ``chip_smoke``'s JSON records, each phase's seconds.  Raises without a
